@@ -1,0 +1,330 @@
+"""Drive the PyTorch/CUDA port on one GPU and hold every kernel against its
+plain PyTorch version.
+
+  python3 chip_smoke.py
+
+Phases, each of which raises (and so exits non-zero) on any failure:
+
+1. build   -- compile csrc/*.cu with nvcc for sm_90a (one nvcc per source,
+              in parallel); print the build seconds and ptxas's register /
+              shared-memory report.
+2. kernels -- each kernel against its plain version on the card with
+              torch.equal, at several shapes (aligned, unaligned, tight-x,
+              odd sizes, non-wrapping axes, fp32 and fp64 fills), and each
+              timed at the main path's shape beside its plain version, its
+              bound and (for the fill) the Tensor.copy_ yardstick.
+3. jacobi3d -- the main path: apps.jacobi3d.run at 512^3 fp32 with chunks
+              that give multistep passes and a sweep tail, launch counts set
+              to 0 just before and read just after; then 2k+2 steps at 512^3
+              through the kernels against the same steps through the plain
+              versions (bit-equal), and a small run against the float64
+              numpy reference.
+4. exchange -- DistributedDomain.exchange_loop at 512^3, radius 3, four fp32
+              quantities, launch counts reset around it; bit-equal to the
+              plain fill; GB/s beside the Tensor.copy_ yardstick.
+
+It then prints the card (nvidia-smi name and power limit), a
+{"kernels": [...]} line, and as its last line
+{"ok": true, "device": {...}}. Without a visible GPU it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and fp32
+# rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(ms, "bytes" | "operations"): the larger of the two floors."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = flops / PEAK_FP32_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stencil_tpu_torch import DistributedDomain, GridSpec
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import _native, halo_fill, stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import (INIT_TEMP, jacobi_reference, make_jacobi_loop,
+                                              sphere_masks, sphere_sel)
+    from stencil_tpu_torch.parallel import HaloExchange, shard_blocks
+    from stencil_tpu_torch.utils.timer import cuda_time_ms as time_ms
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev)
+    log(f"chip_smoke: torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # -- 1. build ---------------------------------------------------------------
+    info = _native.build_all()
+    log(f"build: {info.seconds:.1f} s ({', '.join(n for n, b in info.built.items() if b) or 'cached'})")
+    for name, text in info.ptxas.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    ms_lib = _native.lib("jacobi_multistep")
+    for k in range(1, sk.MULTISTEP_KMAX + 1):
+        check(ms_lib.jacobi_multistep_smem_bytes(k) == sk.multistep_smem_bytes(k),
+              f"multistep smem formula differs from the kernel's at k={k}")
+    k512 = sk.plan_multistep_depth(min(sk.TEMPORAL_K_CAP, (512 - 1) // 2))
+    k768 = sk.plan_multistep_depth(min(sk.TEMPORAL_K_CAP, (768 - 1) // 2))
+    log(f"multistep depth planner: k={k512} at 512^3, k={k768} at 768^3 "
+        f"({sk.multistep_smem_bytes(k512)} bytes of shared memory per block)")
+
+    errs = {"jacobi_sweep": 0.0, "jacobi_multistep": 0.0, "self_fill": 0.0}
+
+    def rand_block(spec, seed, dtype=torch.float32):
+        gen.manual_seed(seed)
+        p = spec.padded()
+        return torch.rand((1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev).to(dtype)
+
+    def sel_block(spec):
+        return shard_blocks(sphere_sel(spec.global_size), spec, dev)
+
+    # -- 2. kernels against their plain versions ----------------------------
+    sweep_cases = [
+        ("512^3 r1 aligned", GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1), Radius.constant(1)),
+         (True, True, True)),
+        ("100x70x50 r1 unaligned", GridSpec(Dim3(100, 70, 50), Dim3(1, 1, 1), Radius.constant(1),
+                                           aligned=False), (True, True, True)),
+        ("256x64x40 tight-x", GridSpec(Dim3(256, 64, 40), Dim3(1, 1, 1),
+                                       Radius.constant(1).without_x()), (True, True, True)),
+        ("33x21x13 r2 z/x halos read", GridSpec(Dim3(33, 21, 13), Dim3(1, 1, 1),
+                                                Radius.constant(2)), (False, True, False)),
+    ]
+    for i, (label, spec, wrap) in enumerate(sweep_cases):
+        curr, sel = rand_block(spec, 10 + i), sel_block(spec)
+        got = sk.sweep(curr, torch.zeros_like(curr), sel, spec, wrap)
+        want = sk.sweep_plain(curr, torch.zeros_like(curr), sel, spec, wrap)
+        torch.cuda.synchronize()
+        errs["jacobi_sweep"] = max(errs["jacobi_sweep"], max_abs(got, want))
+        check(torch.equal(got, want), f"sweep {label}: kernel != plain")
+        log(f"sweep {label}: equal")
+
+    ms_spec = GridSpec(Dim3(200, 100, 60), Dim3(1, 1, 1), Radius.constant(1))
+    ms_cases = [(f"200x100x60 k={k}", ms_spec, k)
+                for k in sorted({2, 5, k512, sk.MULTISTEP_KMAX})]
+    ms_cases.append(("128x40x30 tight-x k=5", GridSpec(Dim3(128, 40, 30), Dim3(1, 1, 1),
+                                                        Radius.constant(1).without_x()), 5))
+    ms_cases.append((f"512^3 k={k512}", sweep_cases[0][1], k512))
+    for i, (label, spec, k) in enumerate(ms_cases):
+        curr = rand_block(spec, 20 + i)
+        got = sk.multistep(curr, torch.zeros_like(curr), spec, k)
+        want = sk.multistep_plain(curr, torch.zeros_like(curr), spec, k)
+        torch.cuda.synchronize()
+        errs["jacobi_multistep"] = max(errs["jacobi_multistep"], max_abs(got, want))
+        check(torch.equal(got, want), f"multistep {label}: kernel != plain")
+        log(f"multistep {label}: equal (zchunks {sk.multistep_zchunks(spec, k)})")
+
+    def asym_radius():
+        r = Radius.constant(0)
+        for d, v in (((-1, 0, 0), 1), ((1, 0, 0), 3), ((0, -1, 0), 2), ((0, 1, 0), 1),
+                     ((0, 0, -1), 3), ((0, 0, 1), 2)):
+            r.set_dir(d, v)
+        return r
+
+    for rlabel, radius in (("r1", Radius.constant(1)), ("r3", Radius.constant(3)),
+                           ("asym", asym_radius())):
+        spec = GridSpec(Dim3(130, 70, 40), Dim3(1, 1, 1), radius)
+        for dtype in (torch.float32, torch.float64):
+            for axis in halo_fill.AXIS_ORDER:
+                blocks = [rand_block(spec, 30 + q, dtype) for q in range(4)]
+                got = halo_fill.self_fill([b.clone() for b in blocks], spec, axis)
+                want = halo_fill.self_fill_plain([b.clone() for b in blocks], spec, axis)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    errs["self_fill"] = max(errs["self_fill"], max_abs(g, w))
+                    check(torch.equal(g, w), f"fill {rlabel} {dtype} {axis}: kernel != plain")
+        log(f"fill {rlabel} x/y/z nq=4 fp32+fp64: equal")
+
+    # timings at the main path's shapes
+    spec512 = sweep_cases[0][1]
+    curr, sel = rand_block(spec512, 1), sel_block(spec512)
+    nxt = torch.zeros_like(curr)
+    cells = 512 ** 3
+    timings = {}
+    timings["jacobi_sweep"] = dict(
+        ms=time_ms(lambda: sk.sweep(curr, nxt, sel, spec512), 20, graph=True),
+        plain_ms=time_ms(lambda: sk.sweep_plain(curr, nxt, sel, spec512), 3, warmup=1),
+        bound=bound_ms(3 * 4 * cells, 6 * cells), library_ms=None)
+    timings["jacobi_multistep"] = dict(
+        ms=time_ms(lambda: sk.multistep(curr, nxt, spec512, k512), 5, warmup=1, graph=True),
+        plain_ms=time_ms(lambda: sk.multistep_plain(curr, nxt, spec512, k512), 1, warmup=1),
+        bound=bound_ms(2 * 4 * cells, 6 * k512 * cells), library_ms=None)
+    del curr, nxt, sel
+
+    spec_ex = GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1), Radius.constant(3))
+    qs = [rand_block(spec_ex, 40 + q) for q in range(4)]
+
+    def fills():
+        for axis in halo_fill.AXIS_ORDER:
+            halo_fill.self_fill(qs, spec_ex, axis)
+
+    def plain_fills():
+        for axis in halo_fill.AXIS_ORDER:
+            halo_fill.self_fill_plain(qs, spec_ex, axis)
+
+    def copy_fills():  # the library yardstick: the same slabs by Tensor.copy_
+        for axis in halo_fill.AXIS_ORDER:
+            o, n, rm, rp = halo_fill.axis_geom(spec_ex, axis)
+            for b in qs:
+                b[halo_fill._axis_slice(b, axis, o - rm, o)].copy_(
+                    b[halo_fill._axis_slice(b, axis, o + n - rm, o + n)])
+                b[halo_fill._axis_slice(b, axis, o + n, o + n + rp)].copy_(
+                    b[halo_fill._axis_slice(b, axis, o, o + rp)])
+
+    fill_bytes = sum(halo_fill.fill_bytes(spec_ex, a, 4) for a in halo_fill.AXIS_ORDER) * 4
+    timings["self_fill"] = dict(
+        ms=time_ms(fills, 20, graph=True) / 3, plain_ms=time_ms(plain_fills, 5) / 3,
+        bound=bound_ms(fill_bytes / 3, 0), library_ms=time_ms(copy_fills, 5, graph=True) / 3)
+    del qs
+    for name, t in timings.items():
+        log(f"time {name}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}"
+            + (f", Tensor.copy_ {t['library_ms']:.4f} ms" if t["library_ms"] else "") + ")")
+
+    # -- 3. the main path: jacobi3d at 512^3 ------------------------------------
+    launches = {}
+    sk.sweep.launches = sk.multistep.launches = halo_fill.self_fill.launches = 0
+    r = jacobi3d.run(512, 512, 512, iters=50, weak=False, chunk=25)
+    torch.cuda.synchronize()
+    launches["jacobi_sweep"], launches["jacobi_multistep"] = sk.sweep.launches, sk.multistep.launches
+    check(r["temporal_k"] == k512, f"jacobi3d ran k={r['temporal_k']}, planner says {k512}")
+    check(launches["jacobi_multistep"] > 0 and launches["jacobi_sweep"] > 0,
+          f"jacobi3d did not go through both kernels: {launches}")
+    log(jacobi3d.csv_row(r))
+    log(f"jacobi3d 512^3: {r['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
+        f"{r['mcells_per_s_per_dev']:.1f} Mcells/s, multistep k={r['temporal_k']}, "
+        f"launches {launches}")
+    dd, h = r["domain"], r["handle"]
+    final = dd.get_curr(h)
+    off = dd.spec.compute_offset()
+    comp = final[0, 0, 0, off.z:off.z + 512, off.y:off.y + 512, off.x:off.x + 512]
+    check(bool(torch.isfinite(comp).all()), "jacobi3d 512^3: non-finite values")
+    check(float(comp.min()) >= 0.0 and float(comp.max()) <= 1.0,
+          "jacobi3d 512^3: values outside [COLD, HOT]")
+    hot, cold = sphere_masks(Dim3(512, 512, 512))
+    check(bool((comp[torch.from_numpy(hot).to(dev)] == 1.0).all())
+          and bool((comp[torch.from_numpy(cold).to(dev)] == 0.0).all()),
+          "jacobi3d 512^3: spheres not held")
+    del r, dd, final, comp
+
+    # 2k+2 steps at 512^3 through the kernels (2 multistep passes + 2 sweeps) and
+    # through the plain versions, from the same random field
+    ex = HaloExchange(spec512)
+    loop = make_jacobi_loop(ex, 2 * k512 + 2)
+    sel = sel_block(spec512)
+    start = rand_block(spec512, 3)
+    c, n = loop(start.clone(), torch.zeros_like(start), sel)
+    pc, pn = start.clone(), torch.zeros_like(start)
+    for _ in range(2):
+        pc, pn = sk.multistep_plain(pc, pn, spec512, k512), pc
+    for _ in range(2):
+        pc, pn = sk.sweep_plain(pc, pn, sel, spec512), pc
+    torch.cuda.synchronize()
+    check(torch.equal(c, pc) and torch.equal(n, pn), "jacobi 512^3: kernel path != plain path")
+    log(f"jacobi 512^3 {2 * k512 + 2} steps: kernel path == plain path")
+    del ex, loop, sel, start, c, n, pc, pn
+
+    # a small run against the float64 numpy reference (uniform 0.5 start)
+    small = (48, 40, 36)
+    rs = jacobi3d.run(*small, iters=10, weak=False, warmup=0)
+    got = rs["domain"].get_curr_global(rs["handle"])
+    want = jacobi_reference(np.full(small[::-1], INIT_TEMP, np.float32),
+                            sphere_masks(Dim3(*small)), 10)
+    err = float(np.abs(got - want).max())
+    check(err < 1e-5, f"jacobi3d {small}: max |port - float64 reference| = {err}")
+    log(f"jacobi3d {small} 10 steps vs float64 numpy reference: max abs err {err:.3e}")
+
+    # -- 4. the exchange path: 512^3, radius 3, four fp32 quantities -----------
+    dd = DistributedDomain(512, 512, 512)
+    dd.set_radius(3)
+    hs = [dd.add_data(f"q{i}", "float32") for i in range(4)]
+    dd.realize()
+    for i, hq in enumerate(hs):
+        dd.set_curr(hq, rand_block(dd.spec, 50 + i))
+    before = [dd.get_curr(hq).clone() for hq in hs]
+    halo_fill.self_fill.launches = 0
+    loop = dd.exchange_loop(1)
+    loop(dd.curr_state())
+    torch.cuda.synchronize()
+    launches["self_fill"] = halo_fill.self_fill.launches
+    check(launches["self_fill"] == 3, f"exchange ran {launches['self_fill']} fill launches, not 3")
+    for axis in halo_fill.AXIS_ORDER:
+        halo_fill.self_fill_plain(before, dd.spec, axis)
+    torch.cuda.synchronize()
+    for hq, b in zip(hs, before):
+        check(torch.equal(dd.get_curr(hq), b), "exchange 512^3 r3: kernel != plain fill")
+    del before
+    loop10 = dd.exchange_loop(10)
+    ex_ms = time_ms(lambda: loop10(dd.curr_state()), 3, warmup=1) / 10
+    lib_ms = timings["self_fill"]["library_ms"] * 3
+    nbytes = dd.exchange_bytes_for_method(dd.halo_exchange.method)
+    log(f"exchange 512^3 r3 x4 fp32: {ex_ms:.4f} ms, {nbytes / ex_ms / 1e6:.2f} GB/s logical "
+        f"({nbytes} bytes; {dd.exchange_bytes_moved()} moved); Tensor.copy_ slabs "
+        f"{lib_ms:.4f} ms = {nbytes / lib_ms / 1e6:.2f} GB/s")
+    del dd
+
+    # -- report ---------------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
+        else f"nvidia-smi unavailable (rc {smi.returncode})")
+    meta = {
+        "jacobi_sweep": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                         "stencil_tpu/ops/pallas_stencil.py:119"),
+        "jacobi_multistep": ("stencil_tpu_torch/csrc/jacobi_multistep.cu",
+                             "stencil_tpu/ops/pallas_stencil.py:437"),
+        "self_fill": ("stencil_tpu_torch/csrc/self_fill.cu", "stencil_tpu/ops/halo_fill.py:236"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

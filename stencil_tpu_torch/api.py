@@ -1,0 +1,207 @@
+"""DistributedDomain — the top-level user API, single-device subset.
+
+The port's counterpart of ``stencil_tpu.api`` (reference:
+include/stencil/stencil.hpp:33-225, src/stencil.cu). The surface is kept:
+``set_radius`` -> ``add_data`` -> ``realize`` -> loop {compute /
+``exchange`` / ``swap``}. This slice realizes one block on one device: the
+partition is (1,1,1) and the exchange is the axis-composed self-wrap of
+``parallel.exchange.HaloExchange``.
+
+Entry points run on the GPU unless the caller asks for the CPU:
+``device=None`` means the current CUDA device and raises when none is
+visible; ``device="cpu"`` runs the plain PyTorch versions of the kernels
+(what the tests do).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .domain import DataHandle, GridSpec
+from .geometry import Dim3, NodePartition, Radius, Rect3, exterior_regions, interior_region
+from .parallel.exchange import HaloExchange, Method, shard_blocks, unshard_blocks
+from .utils import logging as log
+from .utils import timer
+from .utils.sync import hard_sync
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the current CUDA device (raises when no GPU is visible);
+    otherwise ``torch.device(device)``, which must exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible; pass device='cpu' to run the "
+                "plain PyTorch versions of the kernels on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {d} requested but no CUDA device is visible")
+    if d.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {d}")
+    return d
+
+
+class DistributedDomain:
+    """A multi-quantity 3D periodic domain; this slice holds one block on
+    one device."""
+
+    def __init__(self, x: int, y: int, z: int, device=None):
+        self.size = Dim3(x, y, z)
+        self.radius = Radius.constant(0)
+        self.device = resolve_device(device)
+        self._names: List[str] = []
+        self._dtypes: List[torch.dtype] = []
+        self._method = Method.AXIS_COMPOSED
+        self._partition_dim: Optional[Dim3] = None
+        self._realized = False
+        self._curr: Dict[int, torch.Tensor] = {}
+        self._next: Dict[int, torch.Tensor] = {}
+        self.time_realize = 0.0
+        self.time_exchange = 0.0
+        self.time_swap = 0.0
+        self.num_exchanges = 0
+
+    # -- configuration (pre-realize) ----------------------------------------
+    def set_radius(self, r) -> None:
+        """Uniform or per-direction radius (reference: stencil.hpp:124-137)."""
+        self.radius = Radius.constant(r) if isinstance(r, int) else r
+
+    def add_data(self, name: str = "", dtype="float32") -> DataHandle:
+        """Register a quantity (reference: stencil.hpp:128)."""
+        if self._realized:
+            raise RuntimeError("add_data after realize()")
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        if not isinstance(dt, torch.dtype):
+            raise ValueError(f"unknown dtype {dtype!r}")
+        idx = len(self._names)
+        self._names.append(name or f"data{idx}")
+        self._dtypes.append(dt)
+        return DataHandle(idx, self._names[-1], str(dt).replace("torch.", ""))
+
+    def set_methods(self, method: Method) -> None:
+        """Exchange strategy (reference: stencil.hpp:139); this slice has
+        AXIS_COMPOSED only."""
+        if method != Method.AXIS_COMPOSED:
+            raise NotImplementedError(f"{method}: the port has the axis-composed exchange only")
+        self._method = method
+
+    def set_devices(self, devices: Sequence) -> None:
+        """Run on these devices (reference ``set_gpus``, stencil.hpp:154);
+        this slice takes exactly one."""
+        devices = list(devices)
+        if len(devices) != 1:
+            raise NotImplementedError(
+                f"{len(devices)} devices: multi-GPU domains are slice 2 of ROADMAP.md")
+        self.device = resolve_device(devices[0])
+
+    def set_partition(self, dim) -> None:
+        """Pin the partition grid; this slice realizes (1,1,1) only."""
+        dim = Dim3.of(dim)
+        if dim != Dim3(1, 1, 1):
+            raise NotImplementedError(
+                f"partition {dim}: multi-block domains are slice 2 of ROADMAP.md")
+        self._partition_dim = dim
+
+    # -- realize -------------------------------------------------------------
+    def realize(self) -> None:
+        """Partition, allocate every quantity's curr/next block, and build
+        the exchange (reference: src/stencil.cu:241-850)."""
+        t0 = time.perf_counter()
+        with timer.timed("setup.realize"), timer.trace_range("stencil.realize"):
+            dim = self._partition_dim or NodePartition(self.size, self.radius, 1, 1).dim()
+            self.spec = GridSpec(self.size, dim, self.radius)
+            self._exchange = HaloExchange(self.spec, self._method)
+            shape = self.spec.stacked_shape_zyx()
+            for idx, dt in enumerate(self._dtypes):
+                self._curr[idx] = torch.zeros(shape, dtype=dt, device=self.device)
+                self._next[idx] = torch.zeros(shape, dtype=dt, device=self.device)
+        self.time_realize = time.perf_counter() - t0
+        self._realized = True
+        log.debug(f"realized {self.size} over {dim} blocks of {self.spec.base}, "
+                  f"padded {self.spec.padded()} on {self.device}")
+
+    # -- data access ---------------------------------------------------------
+    def get_curr(self, h: DataHandle) -> torch.Tensor:
+        return self._curr[h.idx]
+
+    def get_next(self, h: DataHandle) -> torch.Tensor:
+        return self._next[h.idx]
+
+    def set_curr(self, h: DataHandle, stacked: torch.Tensor) -> None:
+        self._curr[h.idx] = stacked
+
+    def set_next(self, h: DataHandle, stacked: torch.Tensor) -> None:
+        self._next[h.idx] = stacked
+
+    def curr_state(self) -> Dict[int, torch.Tensor]:
+        return dict(self._curr)
+
+    def next_state(self) -> Dict[int, torch.Tensor]:
+        return dict(self._next)
+
+    def set_curr_global(self, h: DataHandle, global_zyx: np.ndarray) -> None:
+        """Scatter a host array [z,y,x] into the padded block layout."""
+        dt = self._dtypes[h.idx]
+        np_dt = torch.empty((), dtype=dt).numpy().dtype
+        self._curr[h.idx] = shard_blocks(global_zyx.astype(np_dt), self.spec, self.device)
+
+    def get_curr_global(self, h: DataHandle) -> np.ndarray:
+        """Gather the compute region to a host array [z,y,x]."""
+        return unshard_blocks(self._curr[h.idx], self.spec)
+
+    # -- the iteration API (reference: stencil.hpp:182-215) ------------------
+    @property
+    def halo_exchange(self) -> HaloExchange:
+        return self._exchange
+
+    def exchange(self) -> None:
+        """Fill every halo from the periodic neighbours, in place, and wait
+        for the device (reference: src/stencil.cu:1002-1186)."""
+        t0 = time.perf_counter()
+        with timer.timed("exchange"), timer.trace_range("stencil.exchange"):
+            self._exchange(self._curr)
+            hard_sync(self.device)
+        self.time_exchange += time.perf_counter() - t0
+        self.num_exchanges += 1
+
+    def exchange_loop(self, iters: int):
+        """``loop(state) -> state``: ``iters`` back-to-back exchanges over a
+        quantity dict (see :meth:`curr_state`); does not synchronize."""
+        return self._exchange.make_loop(iters)
+
+    def swap(self) -> None:
+        """Swap curr/next (reference: src/stencil.cu:852-872)."""
+        t0 = time.perf_counter()
+        self._curr, self._next = self._next, self._curr
+        self.time_swap += time.perf_counter() - t0
+
+    def get_interior(self) -> List[Rect3]:
+        """Per-block interior compute region, allocation-local coordinates
+        (reference: src/stencil.cu:878-921)."""
+        off = self.spec.compute_offset()
+        compute = Rect3(off, off + self.spec.block_size((0, 0, 0)))
+        return [interior_region(compute, self.radius)]
+
+    def get_exterior(self) -> List[List[Rect3]]:
+        """Per-block exterior slabs (reference: src/stencil.cu:927-977)."""
+        off = self.spec.compute_offset()
+        compute = Rect3(off, off + self.spec.block_size((0, 0, 0)))
+        return [exterior_regions(compute, self.get_interior()[0])]
+
+    # -- accounting (reference: src/stencil.cu:139-161) ----------------------
+    def _itemsizes(self) -> List[int]:
+        return [torch.empty((), dtype=dt).element_size() for dt in self._dtypes]
+
+    def exchange_bytes_for_method(self, method: Method) -> int:
+        """Logical halo bytes per exchange attributed to ``method``."""
+        if method != self._method:
+            return 0
+        return self._exchange.bytes_logical(self._itemsizes())
+
+    def exchange_bytes_moved(self) -> int:
+        return self._exchange.bytes_moved(self._itemsizes())

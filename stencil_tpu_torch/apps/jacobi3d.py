@@ -1,0 +1,177 @@
+"""jacobi3d — 7-point Jacobi heat diffusion on one GPU.
+
+The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
+bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,
+6-neighbour averaging, and a one-line CSV result:
+
+  jacobi3d,<method>,<processes>,<devices>,<x>,<y>,<z>,<exchBytes>,<minIter>,<trimeanIter>
+
+The iteration schedule is the JAX app's: one warm-up chunk that advances the
+state, then chunks of ``chunk`` steps (a short last chunk keeps the total at
+``iters``), each timed on the host clock up to a device synchronize; the
+per-iteration statistic is each chunk's mean, trimean'd over chunks.
+
+Usage: python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 --iters 5
+(``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU).
+
+Not carried over yet (ROADMAP.md queue A): checkpoints, health checks, fault
+injection, autotuning, replanning, ParaView dumps and the fused/persistent
+kernel variants.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+from ..api import DistributedDomain
+from ..geometry import Dim3, prime_factors
+from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel
+from ..parallel.exchange import Method, shard_blocks
+from ..utils import logging as log
+from ..utils import timer
+from ..utils.statistics import Statistics
+from ..utils.sync import hard_sync
+
+
+def weak_scale(x: int, y: int, z: int, num_subdomains: int) -> Dim3:
+    """Grow the domain to keep points/subdomain constant: multiply prime
+    factors of N into the smallest axis (reference: bin/jacobi3d.cu:190-205)."""
+    for pf in prime_factors(num_subdomains):
+        if x <= y and x <= z:
+            x *= pf
+        elif y <= z:
+            y *= pf
+        else:
+            z *= pf
+    return Dim3(x, y, z)
+
+
+def run(
+    x: int,
+    y: int,
+    z: int,
+    iters: int = 5,
+    overlap: bool = True,
+    method: Method = Method.AXIS_COMPOSED,
+    device=None,
+    weak: bool = True,
+    warmup: int = 1,
+    chunk: Optional[int] = None,
+    deep_halo: int = 1,
+) -> dict:
+    """Run jacobi3d on one device and return the result row (plus the
+    realized ``domain`` and the temperature ``handle``).
+
+    ``overlap`` is recorded in the row; on a single block every axis wraps
+    inside the kernels and no exchange runs, so there is nothing to
+    overlap. ``deep_halo`` realizes radius-``deep_halo`` halos (full radius,
+    not tight-x, as the JAX app does off the TPU) and, when >= 2, pins the
+    multistep depth to it."""
+    n = 1
+    size = weak_scale(x, y, z, n) if weak else Dim3(x, y, z)
+    dd = DistributedDomain(size.x, size.y, size.z, device=device)
+    dd.set_radius(deep_halo)
+    dd.set_methods(method)
+    h = dd.add_data("temperature", "float32")
+    dd.realize()
+    dev = dd.device
+
+    # init: uniform lukewarm field (reference: bin/jacobi3d.cu:18-27)
+    shape = dd.spec.stacked_shape_zyx()
+    dd.set_curr(h, torch.full(shape, INIT_TEMP, dtype=torch.float32, device=dev))
+    sel = shard_blocks(sphere_sel(size), dd.spec, dev)
+
+    curr, nxt = dd.get_curr(h), dd.get_next(h)
+    if chunk is None:
+        chunk = min(iters, 10)
+    chunk = min(chunk, iters)
+    tk = deep_halo if deep_halo >= 2 else None
+    loops = {}
+
+    def get_loop(k: int):
+        if k not in loops:
+            loops[k] = make_jacobi_loop(dd.halo_exchange, k, temporal_k=tk)
+        return loops[k]
+
+    # warm-up advances the state, as in the JAX app
+    loop = get_loop(chunk)
+    for _ in range(warmup):
+        curr, nxt = loop(curr, nxt, sel)
+    hard_sync(dev)
+
+    iter_time = Statistics()
+    done = 0
+    while done < iters:
+        k = min(chunk, iters - done)
+        loop = get_loop(k)
+        t0 = time.perf_counter()
+        with timer.trace_range("jacobi.chunk"):
+            curr, nxt = loop(curr, nxt, sel)
+            hard_sync(dev)
+        iter_time.insert((time.perf_counter() - t0) / k)
+        done += k
+    dd.set_curr(h, curr)
+    dd.set_next(h, nxt)
+
+    cells = size.flatten()
+    trimean = iter_time.trimean()
+    return {
+        "app": "jacobi3d",
+        "method": method.value,
+        "processes": 1,
+        "devices": n,
+        "x": size.x,
+        "y": size.y,
+        "z": size.z,
+        "exchange_bytes": dd.exchange_bytes_for_method(method),
+        "iter_min_s": iter_time.min(),
+        "iter_trimean_s": trimean,
+        "mcells_per_s": cells / trimean / 1e6,
+        "mcells_per_s_per_dev": cells / trimean / 1e6 / n,
+        "overlap": overlap,
+        "temporal_k": get_loop(chunk).temporal_k,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "domain": dd,
+        "handle": h,
+    }
+
+
+def csv_row(r: dict) -> str:
+    return (
+        f"jacobi3d,{r['method']},{r['processes']},{r['devices']},"
+        f"{r['x']},{r['y']},{r['z']},{r['exchange_bytes']},"
+        f"{r['iter_min_s']:.6f},{r['iter_trimean_s']:.6f}"
+    )
+
+
+def main(argv: Optional[list] = None) -> int:
+    p = argparse.ArgumentParser(description="3D Jacobi heat diffusion (one GPU)")
+    p.add_argument("--x", type=int, default=512)
+    p.add_argument("--y", type=int, default=512)
+    p.add_argument("--z", type=int, default=512)
+    p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--no-overlap", action="store_true",
+                   help="disable interior/exterior overlap (no effect on one block)")
+    p.add_argument("--no-weak", action="store_true", help="fixed total domain (strong)")
+    p.add_argument("--deep-halo", type=int, default=1,
+                   help="realize radius-K halos; K >= 2 also pins the "
+                        "multistep depth to K")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the current CUDA device; "
+                        "'cpu' runs the plain PyTorch versions)")
+    args = p.parse_args(argv)
+    r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
+            device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo)
+    print(csv_row(r))
+    log.info(f"mcells/s = {r['mcells_per_s']:.1f} ({r['mcells_per_s_per_dev']:.1f}/device) "
+             f"on {r['device']}, multistep k={r['temporal_k']}")
+    log.info(timer.report())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,38 @@
+"""Carry grid state between the JAX package and the port.
+
+This system has no weights: its state is the grid. Both packages keep each
+quantity as a stacked ``(bz, by, bx, pz, py, px)`` array of halo-padded
+blocks with the same padding (``GridSpec(aligned=True)``), so state moves
+across as a plain copy: :func:`state_from_jax` takes the JAX package's
+arrays (as numpy, e.g. ``np.asarray(jax_array)``) and its int32 ``sel``,
+and :func:`state_to_numpy` gives numpy arrays the JAX package's
+``jax.device_put`` takes back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .domain import GridSpec
+
+
+def state_from_jax(arrays: Mapping, spec: GridSpec, device) -> Dict:
+    """``{key: tensor on device}`` from ``{key: numpy array}`` in the JAX
+    package's stacked padded layout (quantities and ``sel`` alike); the
+    shape must be ``spec.stacked_shape_zyx()``."""
+    want = spec.stacked_shape_zyx()
+    out = {}
+    for key, a in arrays.items():
+        a = np.asarray(a)
+        if a.shape != want:
+            raise ValueError(f"{key!r}: shape {a.shape}, expected {want}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def state_to_numpy(tensors: Mapping) -> Dict:
+    """``{key: numpy array}`` of port tensors, in the same layout."""
+    return {key: t.detach().cpu().numpy() for key, t in tensors.items()}

@@ -1,0 +1,148 @@
+"""Build and load the hand-written CUDA kernels of ``stencil_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
+kernels build on first use, all in parallel (one ``nvcc`` per source,
+started together), into ``stencil_tpu_torch/_build/`` (git-ignored). A
+library is named after the hash of its source and flags, so an edited
+source rebuilds and an unchanged one is reused.
+
+Floating point: no fast math, ``-prec-div=true -ftz=false -fmad=false``, so
+every operation rounds exactly as written and the kernels can be held equal
+to their plain PyTorch versions bit for bit.
+
+Nothing here runs on import; on a machine without ``nvcc`` only the first
+kernel launch fails, with the reason.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-prec-div=true", "-prec-sqrt=true", "-ftz=false", "-fmad=false",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C entry points: name -> (restype, argtypes)
+SIGNATURES = {
+    "jacobi_sweep": {
+        "jacobi_sweep_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _P]),
+    },
+    "jacobi_multistep": {
+        "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _I, _I, _P]),
+        "jacobi_multistep_smem_bytes": (_L, [_I]),
+        "jacobi_multistep_blocks_per_sm": (_I, [_I, ctypes.POINTER(_I)]),
+    },
+    "self_fill": {
+        "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P]),
+    },
+}
+
+
+@dataclass
+class BuildInfo:
+    """What the last build did: seconds, and each library's ptxas report."""
+
+    seconds: float = 0.0
+    ptxas: Dict[str, str] = field(default_factory=dict)
+    built: Dict[str, bool] = field(default_factory=dict)
+
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_info = BuildInfo()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build_all() -> BuildInfo:
+    """Compile every missing library, one ``nvcc`` per source, in parallel.
+    Raises with the compiler's output if any build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in SIGNATURES:
+        out = _lib_path(name)
+        build_info.built[name] = not os.path.exists(out)
+        if not build_info.built[name]:
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_info.ptxas[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    build_info.seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return build_info
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building all on first use."""
+    with _lock:
+        if not _libs:
+            build_all()
+            for n, fns in SIGNATURES.items():
+                so = ctypes.CDLL(_lib_path(n))
+                for fn, (res, args) in fns.items():
+                    getattr(so, fn).restype = res
+                    getattr(so, fn).argtypes = args
+                _libs[n] = so
+        return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point reports a CUDA error (its launch was
+    refused, or a previous asynchronous fault surfaced)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as a pointer value."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

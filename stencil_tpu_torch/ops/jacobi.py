@@ -1,0 +1,170 @@
+"""7-point Jacobi heat diffusion: the region sweep, the spheres, and the
+single-block step and loop.
+
+The port's counterpart of ``stencil_tpu.ops.jacobi`` (reference:
+bin/jacobi3d.cu:30-85 kernel, :296-377 loop): each compute cell becomes the
+average of its six face neighbours; a hot sphere (1.0) at x = 1/3 and a cold
+sphere (0.0) at x = 2/3 of the global domain, radius X/10, are re-imposed
+every step; the field starts at 0.5.
+
+On a single-block domain every axis wraps onto itself, so a step needs no
+exchange at all: :func:`make_jacobi_loop` runs the multistep kernel for
+``iters // k`` passes and the one-step sweep for the ``iters % k`` tail,
+exactly the schedule of the JAX package's single-chip fast path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry import Dim3, Rect3
+from ..utils import timer
+from .stencil_kernels import (
+    COLD_TEMP,
+    HOT_TEMP,
+    SIXTH,
+    TEMPORAL_K_CAP,
+    multistep,
+    plan_multistep_depth,
+    sweep,
+)
+
+INIT_TEMP = (HOT_TEMP + COLD_TEMP) / 2
+
+
+def _rect_slices(rect: Rect3, dz=0, dy=0, dx=0):
+    return (
+        slice(rect.lo.z + dz, rect.hi.z + dz),
+        slice(rect.lo.y + dy, rect.hi.y + dy),
+        slice(rect.lo.x + dx, rect.hi.x + dx),
+    )
+
+
+def jacobi_sweep(src: torch.Tensor, out: torch.Tensor, rect: Rect3, masks=None):
+    """Write the 6-neighbour average of ``src`` into region ``rect`` of
+    ``out`` (allocation-local coordinates, leading dims allowed; the reads
+    reach one cell past ``rect``, into the halos). ``masks`` is an optional
+    ``(hot, cold)`` pair of bool tensors shaped like ``src``. In place;
+    returns ``out``."""
+    avg = (
+        src[(..., *_rect_slices(rect, dx=-1))]
+        + src[(..., *_rect_slices(rect, dx=1))]
+        + src[(..., *_rect_slices(rect, dy=-1))]
+        + src[(..., *_rect_slices(rect, dy=1))]
+        + src[(..., *_rect_slices(rect, dz=-1))]
+        + src[(..., *_rect_slices(rect, dz=1))]
+    ) * SIXTH
+    if masks is not None:
+        hot, cold = masks
+        sl = (..., *_rect_slices(rect))
+        avg = torch.where(hot[sl], HOT_TEMP, torch.where(cold[sl], COLD_TEMP, avg))
+    out[(..., *_rect_slices(rect))] = avg.to(out.dtype)
+    return out
+
+
+def sphere_masks(global_size) -> Tuple[np.ndarray, np.ndarray]:
+    """Hot/cold sphere masks over the global [z,y,x] grid.
+
+    Bit-parity with the reference's integer-truncated distance
+    (bin/jacobi3d.cu:30-32,49): dist = int64(sqrtf(dx^2+dy^2+dz^2)),
+    hot iff dist(hotCenter) <= X/10."""
+    g = Dim3.of(global_size)
+    hot_c = (g.x // 3, g.y // 2, g.z // 2)
+    cold_c = (g.x * 2 // 3, g.y // 2, g.z // 2)
+    rad = g.x // 10
+    z, y, x = np.meshgrid(
+        np.arange(g.z), np.arange(g.y), np.arange(g.x), indexing="ij", sparse=True
+    )
+
+    def dist(c):
+        d2 = (x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2
+        return np.sqrt(d2.astype(np.float32)).astype(np.int64)
+
+    hot = dist(hot_c) <= rad
+    cold = (~hot) & (dist(cold_c) <= rad)
+    return hot, cold
+
+
+def sphere_sel(global_size) -> np.ndarray:
+    """Hot/cold spheres packed into one int32 array: 0 stencil, 1 hot,
+    2 cold — the layout the sweep consumes."""
+    hot, cold = sphere_masks(global_size)
+    sel = np.zeros(hot.shape, np.int32)
+    sel[hot] = 1
+    sel[cold] = 2
+    return sel
+
+
+def jacobi_reference(field: np.ndarray, masks, iters: int) -> np.ndarray:
+    """Slow float64 numpy reference with periodic wrap, for correctness
+    checks."""
+    hot, cold = masks
+    f = field.astype(np.float64)
+    for _ in range(iters):
+        avg = (
+            np.roll(f, 1, 2) + np.roll(f, -1, 2)
+            + np.roll(f, 1, 1) + np.roll(f, -1, 1)
+            + np.roll(f, 1, 0) + np.roll(f, -1, 0)
+        ) / 6
+        f = np.where(hot, HOT_TEMP, np.where(cold, COLD_TEMP, avg))
+    return f
+
+
+def _single_block(ex) -> None:
+    if ex.spec.dim != Dim3(1, 1, 1):
+        raise NotImplementedError(
+            "the jacobi step runs single-block domains; multi-block "
+            "partitions are slice 2 of ROADMAP.md")
+
+
+def make_jacobi_step(ex):
+    """``step(curr, nxt, sel) -> (new_curr, new_next)`` for the domain of
+    HaloExchange ``ex``: one sweep into ``nxt``, then the swap. On a single
+    block every axis wraps inside the kernel, so no exchange runs and the
+    result is ``(sweep(curr, nxt), curr)``."""
+    _single_block(ex)
+    spec = ex.spec
+
+    def step(curr, nxt, sel):
+        return sweep(curr, nxt, sel, spec, wrap=(True, True, True)), curr
+
+    return step
+
+
+def make_jacobi_loop(ex, iters: int, standard_spheres: bool = True,
+                     temporal_k: Optional[int] = None):
+    """``loop(curr, nxt, sel) -> (new_curr, new_next)`` advancing ``iters``
+    steps: ``iters // k`` multistep passes of depth ``k`` (each
+    ``(multistep(c, x), c)``), then ``iters % k`` single steps.
+
+    ``k`` is the deepest of ``min(12, (nz - 1) // 2, iters)`` (further
+    capped by ``temporal_k``) that :func:`plan_multistep_depth` fits in
+    shared memory. ``standard_spheres`` declares that ``sel`` holds the
+    standard jacobi3d spheres (``sphere_sel(global_size)``): only then may
+    the multistep run, since it derives the spheres from coordinates
+    instead of reading ``sel``. The chosen depth is ``loop.temporal_k``
+    (0 when only sweeps run)."""
+    _single_block(ex)
+    with timer.timed("jacobi.build"), timer.trace_range("jacobi.build"):
+        spec = ex.spec
+        k_want = max(0, min(TEMPORAL_K_CAP, (spec.base.z - 1) // 2, iters))
+        if temporal_k is not None:
+            k_want = min(k_want, temporal_k)
+        k = plan_multistep_depth(k_want) if standard_spheres else 0
+        if k < 2:
+            k = 0
+        step = make_jacobi_step(ex)
+
+    def loop(curr, nxt, sel):
+        n_multi, n_single = divmod(iters, k) if k else (0, iters)
+        for _ in range(n_multi):
+            curr, nxt = multistep(curr, nxt, spec, k), curr
+        for _ in range(n_single):
+            curr, nxt = step(curr, nxt, sel)
+        return curr, nxt
+
+    loop.temporal_k = k
+    return loop

@@ -1,0 +1,77 @@
+"""Benchmark statistics: min/max/avg/median/stddev and the trimean.
+
+The port's own copy of ``stencil_tpu.utils.statistics``: the reference's
+Statistics helper
+(reference: bin/statistics.hpp:6-19, bin/statistics.cpp). The *trimean*
+(Tukey's (Q1 + 2*Q2 + Q3) / 4) is the canonical reported statistic for all
+benchmarks, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Iterable
+
+
+class Statistics:
+    def __init__(self, values: Iterable[float] = ()):  # noqa: D401
+        self._v: list[float] = sorted(float(v) for v in values)
+
+    def insert(self, v: float) -> None:
+        import bisect
+
+        bisect.insort(self._v, float(v))
+
+    def count(self) -> int:
+        return len(self._v)
+
+    def min(self) -> float:
+        return self._v[0]
+
+    def max(self) -> float:
+        return self._v[-1]
+
+    def avg(self) -> float:
+        return sum(self._v) / len(self._v)
+
+    def stddev(self) -> float:
+        """Sample standard deviation (n-1 denominator, matching the
+        reference; NaN for a single sample, bin/statistics.cpp)."""
+        if len(self._v) < 2:
+            return float("nan")
+        m = self.avg()
+        return math.sqrt(sum((v - m) ** 2 for v in self._v) / (len(self._v) - 1))
+
+    def _quantile(self, q: float) -> float:
+        """Linear-interpolated quantile over the sorted samples."""
+        v = self._v
+        if len(v) == 1:
+            return v[0]
+        pos = q * (len(v) - 1)
+        lo = int(math.floor(pos))
+        hi = min(lo + 1, len(v) - 1)
+        frac = pos - lo
+        return v[lo] * (1 - frac) + v[hi] * frac
+
+    def med(self) -> float:
+        return self._quantile(0.5)
+
+    def trimean(self) -> float:
+        """Tukey's trimean — the reference's headline statistic
+        (reference: bin/statistics.hpp:17)."""
+        return (self._quantile(0.25) + 2 * self._quantile(0.5) + self._quantile(0.75)) / 4
+
+    def percentile(self, q: float) -> float:
+        """The q-th percentile (0 <= q <= 100), linear-interpolated over
+        the sorted samples — p50/p99 for tail-latency reporting."""
+        if not self._v:
+            raise ValueError("percentile of an empty sample set")
+        if not 0.0 <= q <= 100.0:
+            raise ValueError(f"percentile q must be in [0, 100], got {q}")
+        return self._quantile(q / 100.0)
+
+
+def percentile(values: Iterable[float], q: float) -> float:
+    """Module-level convenience: ``Statistics(values).percentile(q)``
+    (same linear interpolation as the trimean's quartiles)."""
+    return Statistics(values).percentile(q)

@@ -1,0 +1,111 @@
+"""The port stands alone and runs on the GPU unless asked for the CPU:
+no module of stencil_tpu_torch (nor chip_smoke.py) imports jax or
+stencil_tpu; entry points without a device need CUDA; kernel wrappers take
+their plain versions only through an explicit CPU branch."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import stencil_tpu_torch
+from stencil_tpu_torch import DistributedDomain
+from stencil_tpu_torch.apps import jacobi3d
+from stencil_tpu_torch.domain import GridSpec
+from stencil_tpu_torch.geometry import Dim3, Radius
+from stencil_tpu_torch.ops import halo_fill, stencil_kernels
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(p for p in (ROOT / "stencil_tpu_torch").rglob("*.py")
+                    if "_build" not in p.parts) + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "stencil_tpu"), f"{path} imports {mod}"
+
+
+def test_kernel_sources_present():
+    csrc = pathlib.Path(stencil_tpu_torch.__file__).parent / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == [
+        "jacobi_multistep.cu", "jacobi_sweep.cu", "self_fill.cu"]
+
+
+def test_no_device_means_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedDomain(8, 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jacobi3d.run(8, 8, 8, iters=1)
+    assert DistributedDomain(8, 8, 8, device="cpu").device.type == "cpu"
+
+
+def _spec():
+    return GridSpec(Dim3(16, 12, 10), Dim3(1, 1, 1), Radius.constant(1))
+
+
+def _block(spec, dtype, device="cpu"):
+    return torch.zeros(spec.stacked_shape_zyx(), dtype=dtype, device=device)
+
+
+def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
+    spec = _spec()
+    calls = []
+    for mod, name in ((stencil_kernels, "sweep_plain"), (stencil_kernels, "multistep_plain"),
+                      (halo_fill, "self_fill_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
+    launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
+                halo_fill.self_fill.launches)
+    f32 = torch.float32
+    stencil_kernels.sweep(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32), spec)
+    stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
+    halo_fill.self_fill([_block(spec, f32)], spec, "x")
+    assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain"]
+    # the plain versions are not launches
+    assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
+                        halo_fill.self_fill.launches)
+    # any other device is refused, never served by the plain version
+    meta = [_block(spec, f32, "meta"), _block(spec, f32, "meta")]
+    with pytest.raises(ValueError):
+        stencil_kernels.sweep(*meta, _block(spec, torch.int32, "meta"), spec)
+    with pytest.raises(ValueError):
+        stencil_kernels.multistep(*meta, spec, 2)
+    with pytest.raises(ValueError):
+        halo_fill.self_fill(meta[:1], spec, "x")
+    assert len(calls) == 3
+
+
+def test_wrappers_have_no_fallback():
+    """No try/except in the kernel modules: a failed build or launch
+    propagates instead of quietly running the plain version."""
+    for mod in (stencil_kernels, halo_fill):
+        tree = ast.parse(pathlib.Path(mod.__file__).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__name__
+
+
+def test_wrappers_check_operands():
+    spec = _spec()
+    f32 = torch.float32
+    c = _block(spec, f32)
+    with pytest.raises(ValueError, match="distinct"):
+        stencil_kernels.sweep(c, c, _block(spec, torch.int32), spec)
+    with pytest.raises(ValueError, match="dtype"):
+        stencil_kernels.sweep(c, _block(spec, f32), _block(spec, f32), spec)
+    with pytest.raises(ValueError, match="4- or 8-byte"):
+        halo_fill.self_fill([_block(spec, torch.float16)], spec, "y")
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        stencil_kernels.multistep(c, _block(spec, f32),
+                                  GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(1)), 2)

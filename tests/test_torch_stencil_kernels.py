@@ -1,0 +1,186 @@
+"""The port's Jacobi sweep and multistep (through their wrappers' CPU
+branches, i.e. the plain PyTorch versions) against the JAX package's Pallas
+kernels in interpret mode and its XLA sweep. Tolerance: bit-exact over the
+compute region."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stencil_tpu.domain.grid as jgrid
+import stencil_tpu.geometry as jgeo
+import stencil_tpu.ops.halo_fill as jfill
+import stencil_tpu.ops.jacobi as jjac
+import stencil_tpu.ops.pallas_stencil as jps
+import stencil_tpu_torch.domain.grid as tgrid
+import stencil_tpu_torch.geometry as tgeo
+import stencil_tpu_torch.ops.jacobi as tjac
+import stencil_tpu_torch.ops.stencil_kernels as tk
+
+torch.set_num_threads(2)
+
+
+def specs(size, radius=1, tight_x=False):
+    def rad(g):
+        r = g.Radius.constant(radius)
+        return r.without_x() if tight_x else r
+
+    return (tgrid.GridSpec(tgeo.Dim3(*size), tgeo.Dim3(1, 1, 1), rad(tgeo)),
+            jgrid.GridSpec(jgeo.Dim3(*size), jgeo.Dim3(1, 1, 1), rad(jgeo)))
+
+
+def region(spec):
+    off, b = spec.compute_offset(), spec.base
+    return (slice(off.z, off.z + b.z), slice(off.y, off.y + b.y), slice(off.x, off.x + b.x))
+
+
+def padded_state(spec, seed, fill_halo=False):
+    """Random field in the compute region (zeros elsewhere, or random
+    everywhere with ``fill_halo``), and the padded int32 sphere sel."""
+    p = spec.padded()
+    rng = np.random.RandomState(seed)
+    if fill_halo:
+        curr = rng.rand(p.z, p.y, p.x).astype(np.float32)
+    else:
+        curr = np.zeros((p.z, p.y, p.x), np.float32)
+        b = spec.base
+        curr[region(spec)] = rng.rand(b.z, b.y, b.x).astype(np.float32)
+    sel = np.zeros((p.z, p.y, p.x), np.int32)
+    sel[region(spec)] = tjac.sphere_sel(spec.global_size)
+    return curr, sel
+
+
+def t(a):
+    return torch.from_numpy(a.copy())
+
+
+SWEEP_SIZES = [(40, 16, 8), (20, 16, 12), (33, 21, 13)]
+
+
+@pytest.mark.parametrize("size", SWEEP_SIZES)
+def test_sweep_matches_pallas(size):
+    ts, js = specs(size)
+    curr, sel = padded_state(ts, seed=1)
+    fn = jps.make_pallas_jacobi_sweep(js, jps.sel_z_range(js), interpret=True,
+                                      wrap=(True, True, True))
+    want = np.asarray(fn(jnp.asarray(curr), jnp.zeros_like(curr), jnp.asarray(sel)))
+    got = tk.sweep(t(curr), torch.zeros(curr.shape), t(sel), ts)
+    np.testing.assert_array_equal(got.numpy()[region(ts)], want[region(ts)])
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("size", SWEEP_SIZES)
+def test_sweep_matches_xla(size, wrap):
+    """Without wrap the plain sweep reads the (random) halos, as the XLA
+    region sweep does; with wrap it equals the XLA sweep of the
+    self-wrap-filled block."""
+    ts, js = specs(size)
+    curr, sel = padded_state(ts, seed=2, fill_halo=True)
+    src = curr
+    if wrap:
+        src = np.asarray(jfill.wrap_fill_batched(js, jnp.asarray(curr)))
+    off = js.compute_offset()
+    rect = jgeo.Rect3(off, off + js.base)
+    masks = (jnp.asarray(sel == 1), jnp.asarray(sel == 2))
+    want = np.asarray(jax.jit(lambda s, o: jjac.jacobi_sweep(s, o, rect, masks))(
+        jnp.asarray(src), jnp.zeros_like(src)))
+    got = tk.sweep(t(curr), torch.zeros(curr.shape), t(sel), ts, wrap=(wrap,) * 3)
+    np.testing.assert_array_equal(got.numpy()[region(ts)], want[region(ts)])
+    # the port's region sweep is the XLA sweep too
+    trect = tgeo.Rect3(ts.compute_offset(), ts.compute_offset() + ts.base)
+    got2 = tjac.jacobi_sweep(t(src), torch.zeros(curr.shape), trect,
+                             (t(sel) == 1, t(sel) == 2))
+    np.testing.assert_array_equal(got2.numpy()[region(ts)], want[region(ts)])
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_multistep_matches_pallas(k):
+    ts, js = specs((20, 16, 12))
+    curr, _ = padded_state(ts, seed=k)
+    fn = jps.make_pallas_jacobi_multistep(js, k, interpret=True)
+    want = np.asarray(fn(jnp.asarray(curr), jnp.zeros_like(curr)))
+    got = tk.multistep(t(curr), torch.zeros(curr.shape), ts, k)
+    np.testing.assert_array_equal(got.numpy()[region(ts)], want[region(ts)])
+
+
+def test_multistep_matches_pallas_row_tiled():
+    """ny=40 with 16-row strips: the TPU kernel's last strip re-anchors."""
+    k = 3
+    ts, js = specs((20, 40, 12))
+    curr, _ = padded_state(ts, seed=7)
+    fn = jps.make_pallas_jacobi_multistep(js, k, interpret=True, rows=16)
+    want = np.asarray(fn(jnp.asarray(curr), jnp.zeros_like(curr)))
+    got = tk.multistep(t(curr), torch.zeros(curr.shape), ts, k)
+    np.testing.assert_array_equal(got.numpy()[region(ts)], want[region(ts)])
+
+
+def test_multistep_and_sweep_tight_x_match_pallas():
+    """Radius.constant(1).without_x(), nx=128: no x halo columns exist."""
+    k = 3
+    ts, js = specs((128, 16, 12), tight_x=True)
+    assert ts.padded().x == 128 and ts.compute_offset().x == 0
+    curr, sel = padded_state(ts, seed=9)
+    fn = jps.make_pallas_jacobi_multistep(js, k, interpret=True)
+    want = np.asarray(fn(jnp.asarray(curr), jnp.zeros_like(curr)))
+    got = tk.multistep(t(curr), torch.zeros(curr.shape), ts, k)
+    np.testing.assert_array_equal(got.numpy()[region(ts)], want[region(ts)])
+    sw = jps.make_pallas_jacobi_sweep(js, jps.sel_z_range(js), interpret=True,
+                                      wrap=(True, True, True))
+    want1 = np.asarray(sw(jnp.asarray(curr), jnp.zeros_like(curr), jnp.asarray(sel)))
+    got1 = tk.sweep(t(curr), torch.zeros(curr.shape), t(sel), ts)
+    np.testing.assert_array_equal(got1.numpy()[region(ts)], want1[region(ts)])
+
+
+@pytest.mark.parametrize("size,steps,ks", [((20, 16, 12), 6, (2, 3, 6)),
+                                            ((33, 21, 13), 12, (3, 4, 6))])
+def test_multistep_depth_independent(size, steps, ks):
+    """Every step has the same operand order, so k-step passes give the same
+    bits for every k, and equal ``steps`` single sweeps with ``sel``."""
+    ts, _ = specs(size)
+    curr, sel = padded_state(ts, seed=4)
+    outs = []
+    for k in ks:
+        c, n = t(curr), torch.zeros(curr.shape)
+        for _ in range(steps // k):
+            c, n = tk.multistep(c, n, ts, k), c
+        outs.append(c.numpy()[region(ts)])
+    c, n = t(curr), torch.zeros(curr.shape)
+    for _ in range(steps):
+        c, n = tk.sweep(c, n, t(sel), ts), c
+    outs.append(c.numpy()[region(ts)])
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o, outs[0])
+
+
+@pytest.mark.parametrize("size", [(20, 16, 12), (33, 21, 13), (64, 48, 40), (100, 30, 50)])
+def test_coordinate_spheres_equal_sphere_sel(size):
+    ts, _ = specs(size)
+    hot, cold = tk.sphere_masks_from_coords(ts, "cpu")
+    jhot, jcold = jjac.sphere_masks(jgeo.Dim3(*size))
+    np.testing.assert_array_equal(hot.numpy(), jhot)
+    np.testing.assert_array_equal(cold.numpy(), jcold)
+    assert (tjac.sphere_sel(size) == jjac.sphere_sel(jgeo.Dim3(*size))).all()
+
+
+def test_multistep_depth_planner():
+    # two planes of the 32x32 tile grown by k per stage; the register
+    # windows, not shared memory, bound the depth
+    assert tk.multistep_smem_bytes(4) == 2 * 4 * 40 * 40 * 4
+    assert tk.plan_multistep_depth(12) == tk.MULTISTEP_KPLAN == 3
+    assert tk.plan_multistep_depth(2) == 2
+    assert tk.plan_multistep_depth(1) == 1
+    assert tk.multistep_smem_bytes(tk.MULTISTEP_KMAX) <= tk.SMEM_LIMIT
+
+
+def test_reference_divide_is_a_reciprocal_multiply():
+    """Why SIXTH: XLA compiles the JAX package's ``sum / 6`` into
+    ``sum * float32(1/6)``, which differs from a true divide in about a
+    third of all cells; the port multiplies, on the CPU and on the GPU."""
+    rng = np.random.RandomState(0)
+    s = (rng.rand(4096) * 6).astype(np.float32)
+    xla = np.asarray(jax.jit(lambda a: a / 6)(jnp.asarray(s)))
+    port = (torch.from_numpy(s) * tk.SIXTH).numpy()
+    np.testing.assert_array_equal(port, xla)
+    assert (s / np.float32(6) != xla).any()
