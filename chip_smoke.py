@@ -22,6 +22,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 4. exchange -- DistributedDomain.exchange_loop at 512^3, radius 3, four fp32
               quantities, launch counts reset around it; bit-equal to the
               plain fill; GB/s beside the Tensor.copy_ yardstick.
+5. astaroth -- the RK3 substep kernel against its plain version (stages 0-2,
+              fp32 and fp64, at 64^3 and 40x24x20, random fields, dt 0.1;
+              torch.equal, else the stated tolerance on the update); the
+              same at 256^3 in fp64 and fp32, where each block marches
+              several z planes: one iteration from the app's init at its dt,
+              and random fields at dt 0.1; apps.astaroth.run at the
+              conf's 256^3 in fp64 and fp32 with launch counts reset around
+              each (3 substeps and one exchange per iteration); a small run
+              on the card against the same run on the CPU; the kernel timed
+              per launch at 256^3 beside its plain version and its bound.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -40,11 +50,6 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and fp32
-# rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -53,13 +58,6 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def bound_ms(nbytes: float, flops: float):
-    """(ms, "bytes" | "operations"): the larger of the two floors."""
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = flops / PEAK_FP32_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -72,12 +70,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stencil_tpu_torch import DistributedDomain, GridSpec
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
     from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.astaroth.equations import Constants
+    from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of
     from stencil_tpu_torch.geometry import Dim3, Radius
     from stencil_tpu_torch.ops import _native, halo_fill, stencil_kernels as sk
+    from stencil_tpu_torch.ops import astaroth_substep as asub
     from stencil_tpu_torch.ops.jacobi import (INIT_TEMP, jacobi_reference, make_jacobi_loop,
                                               sphere_masks, sphere_sel)
     from stencil_tpu_torch.parallel import HaloExchange, shard_blocks
+    from stencil_tpu_torch.utils.roofline import bound_ms
     from stencil_tpu_torch.utils.timer import cuda_time_ms as time_ms
 
     t_start = time.perf_counter()
@@ -103,7 +106,8 @@ def main() -> int:
     log(f"multistep depth planner: k={k512} at 512^3, k={k768} at 768^3 "
         f"({sk.multistep_smem_bytes(k512)} bytes of shared memory per block)")
 
-    errs = {"jacobi_sweep": 0.0, "jacobi_multistep": 0.0, "self_fill": 0.0}
+    errs = {"jacobi_sweep": 0.0, "jacobi_multistep": 0.0, "self_fill": 0.0,
+            "astaroth_substep": 0.0}
 
     def rand_block(spec, seed, dtype=torch.float32):
         gen.manual_seed(seed)
@@ -297,6 +301,131 @@ def main() -> int:
         f"{lib_ms:.4f} ms = {nbytes / lib_ms / 1e6:.2f} GB/s")
     del dd
 
+    # -- 5. astaroth: the RK3 substep kernel and the MHD app at 256^3 ----------
+    ainfo = astaroth_app.load()
+    consts, ids = Constants.from_info(ainfo), inv_ds_of(ainfo)
+    # Tolerance on the update (out - curr) relative to its largest value, when
+    # the kernel is not bit-equal to the plain version: both evaluate the same
+    # operations in the same order, so at most an ulp of exp could differ.
+    upd_tol = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+    def held(label, spec, curr8, out8, stages, dt):
+        """Run ``stages`` through the kernel and through the plain version
+        from the same out blocks; check equal or within the tolerance."""
+        ok = [o.clone() for o in out8]
+        op = [o.clone() for o in out8]
+        for s in stages:
+            asub.substep(curr8, ok, spec, consts, ids, s, dt)
+            asub.substep_plain(curr8, op, spec, consts, ids, s, dt)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(ok, op))
+        off, b = spec.compute_offset(), spec.base
+        cs = (slice(off.z, off.z + b.z), slice(off.y, off.y + b.y), slice(off.x, off.x + b.x))
+        rel = 0.0
+        for got, want, cur in zip(ok, op, curr8):
+            errs["astaroth_substep"] = max(errs["astaroth_substep"], max_abs(got, want))
+            du = float((want - cur)[cs].abs().max())
+            err = float((got - want)[cs].abs().max())
+            rel = max(rel, err / du if du > 0 else (0.0 if err == 0 else float("inf")))
+        check(equal or rel <= upd_tol[curr8[0].dtype],
+              f"astaroth_substep {label}: kernel vs plain update rel err {rel:.3e}")
+        log(f"astaroth_substep {label}: " + ("equal" if equal else f"update rel err {rel:.3e}"))
+
+    for size in ((64, 64, 64), (40, 24, 20)):
+        spec = GridSpec(Dim3(*size), Dim3(1, 1, 1), Radius.constant(3))
+        for dtype in (torch.float64, torch.float32):
+            curr8 = [rand_block(spec, 60 + f, dtype).view(spec.block_shape_zyx()) * 0.1
+                     for f in range(8)]
+            out8 = [rand_block(spec, 70 + f, dtype).view(spec.block_shape_zyx()) * 0.1
+                    for f in range(8)]
+            for s in range(3):
+                held(f"{size} {dtype} stage {s}", spec, curr8, out8, (s,), 0.1)
+
+    # at 256^3 each block marches several z planes (the small cases march
+    # one): one iteration from the app's init at the app's dt, and random
+    # fields at dt 0.1, through both versions in both dtypes
+    for dtype in ("float64", "float32"):
+        dd, handles = astaroth_app.make_domain(ainfo, dtype)
+        spec256 = dd.spec
+        state = {k: dd.get_curr(handles[k]) for k in FIELDS}
+        dd.halo_exchange(state)
+        curr8 = [state[k].view(spec256.block_shape_zyx()) for k in FIELDS]
+        held(f"256^3 {dtype} app init, stages 0-2", spec256, curr8,
+             [torch.zeros_like(t) for t in curr8], (0, 1, 2), 1e-8)
+        del dd, state, curr8
+        tdt = getattr(torch, dtype)
+        curr8 = [rand_block(spec256, 80 + f, tdt).view(spec256.block_shape_zyx()) * 0.1
+                 for f in range(8)]
+        out8 = [rand_block(spec256, 90 + f, tdt).view(spec256.block_shape_zyx()) * 0.1
+                for f in range(8)]
+        held(f"256^3 {dtype} random, stages 0-2", spec256, curr8, out8, (0, 1, 2), 0.1)
+        del curr8, out8
+
+    # the main path: apps.astaroth.run at the conf's 256^3, fp64 then fp32
+    for dtype in ("float64", "float32"):
+        asub.substep.launches = halo_fill.self_fill.launches = 0
+        ra = astaroth_app.run(iters=10, dtype=dtype)
+        torch.cuda.synchronize()
+        n_sub, n_fill = asub.substep.launches, halo_fill.self_fill.launches
+        it = ra["iters_run"]
+        # warm-up + timed iterations, 3 stages and one exchange each; plus one
+        # timed exchange after each (one-iteration) chunk
+        check(n_sub == 3 * (it + 1), f"astaroth {dtype}: {n_sub} substep launches, "
+              f"expected {3 * (it + 1)}")
+        check(n_fill == 3 * (it + 1) + 3 * it, f"astaroth {dtype}: {n_fill} fill launches, "
+              f"expected {3 * (2 * it + 1)}")
+        for k in FIELDS:
+            g = ra["domain"].get_curr_global(ra["handles"][k])
+            check(g.shape == (256, 256, 256) and bool(np.isfinite(g).all()),
+                  f"astaroth {dtype} {k}: not finite or wrong shape")
+        if dtype == "float64":
+            launches["astaroth_substep"] = n_sub
+        log(astaroth_app.csv_row(ra))
+        log(f"astaroth 256^3 {dtype}: {ra['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
+            f"{ra['mcells_per_s']:.1f} Mcells/s, exchange {ra['exch_trimean_s'] * 1e3:.4f} ms, "
+            f"launches substep {n_sub} fill {n_fill}")
+        del ra
+
+    # a small fp64 run on the card against the same run on the CPU (the
+    # plain versions, which tests/test_torch_astaroth.py holds to stencil_tpu)
+    rg = astaroth_app.run(iters=3, nx=32, dt=1e-5)
+    rc = astaroth_app.run(iters=3, nx=32, dt=1e-5, device="cpu")
+    small_err = 0.0
+    for k in FIELDS:
+        a = rg["domain"].get_curr_global(rg["handles"][k])
+        b = rc["domain"].get_curr_global(rc["handles"][k])
+        small_err = max(small_err, float(np.abs(a - b).max() / np.abs(b).max()))
+    check(small_err <= 1e-10, f"astaroth 32^3 card vs CPU: rel err {small_err:.3e}")
+    log(f"astaroth 32^3 fp64 3 iterations, card vs CPU: max rel err {small_err:.3e}")
+    del rg, rc
+
+    # per-launch time at 256^3: stage 0 once and stages 1-2 twice per iteration
+    for dtype in (torch.float64, torch.float32):
+        curr8 = [rand_block(spec256, 80 + f, dtype).view(spec256.block_shape_zyx()) * 0.1
+                 for f in range(8)]
+        out8 = [rand_block(spec256, 90 + f, dtype).view(spec256.block_shape_zyx()) * 0.1
+                for f in range(8)]
+        st = [time_ms(lambda s=s: asub.substep(curr8, out8, spec256, consts, ids, s, 1e-8),
+                      6, warmup=1, graph=True) for s in (0, 1)]
+        pl = [time_ms(lambda s=s: asub.substep_plain(curr8, out8, spec256, consts, ids, s, 1e-8),
+                      1, warmup=1) for s in (0, 1)]
+        item = torch.empty((), dtype=dtype).element_size()
+        nbytes = (asub.stage_bytes(spec256, item, 0) + 2 * asub.stage_bytes(spec256, item, 1)) / 3
+        flops = (asub.FLOPS_PER_CELL[0] + 2 * asub.FLOPS_PER_CELL[1]) / 3 * spec256.base.flatten()
+        t = dict(ms=(st[0] + 2 * st[1]) / 3, plain_ms=(pl[0] + 2 * pl[1]) / 3,
+                 bound=bound_ms(nbytes, flops, dtype), library_ms=None)
+        for s, b in ((0, 0), (1, 1)):
+            sb = bound_ms(asub.stage_bytes(spec256, item, s),
+                          asub.FLOPS_PER_CELL[s] * spec256.base.flatten(), dtype)
+            log(f"time astaroth_substep 256^3 {dtype} stage {s}: {st[b]:.4f} ms "
+                f"(plain {pl[b]:.4f} ms, bound {sb[0]:.4f} ms by {sb[1]})")
+        if dtype == torch.float64:
+            timings["astaroth_substep"] = t
+        log(f"time astaroth_substep 256^3 {dtype}: {t['ms']:.4f} ms per launch on the main "
+            f"path's mix (plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by "
+            f"{t['bound'][1]})")
+        del curr8, out8
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -308,6 +437,8 @@ def main() -> int:
         "jacobi_multistep": ("stencil_tpu_torch/csrc/jacobi_multistep.cu",
                              "stencil_tpu/ops/pallas_stencil.py:437"),
         "self_fill": ("stencil_tpu_torch/csrc/self_fill.cu", "stencil_tpu/ops/halo_fill.py:236"),
+        "astaroth_substep": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                             "stencil_tpu/ops/pallas_astaroth.py:202"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,12 +1,15 @@
 """stencil_tpu_torch — the PyTorch/CUDA port of stencil_tpu for NVIDIA H100.
 
-A periodic, halo-padded 3D grid of quantities with the jacobi3d workload on
-top, running on hand-written Hopper kernels (``csrc/``, built on first use
-with ``nvcc``). Entry points run on the GPU unless the caller passes
-``device="cpu"``, which runs the kernels' plain PyTorch versions.
+A periodic, halo-padded 3D grid of quantities with the jacobi3d and
+Astaroth MHD workloads on top, running on hand-written Hopper kernels
+(``csrc/``, built on first use with ``nvcc``). Entry points run on the GPU
+unless the caller passes ``device="cpu"``, which runs the kernels' plain
+PyTorch versions.
 
-This slice covers one block on one device: ``DistributedDomain`` with a
-(1,1,1) partition, the self-wrap halo exchange, and jacobi3d.
+The port covers one block on one device so far: ``DistributedDomain`` with
+a (1,1,1) partition, the self-wrap halo exchange, jacobi3d
+(``apps.jacobi3d``) and the Astaroth mini-app (``astaroth``,
+``apps.astaroth``).
 """
 
 from .api import DistributedDomain, resolve_device

@@ -1,6 +1,6 @@
 """bench_kernels — time each CUDA kernel of the port alone on one GPU.
 
-  python -m stencil_tpu_torch.apps.bench_kernels --size 512 --ks 2,4,6,8,10
+  python -m stencil_tpu_torch.apps.bench_kernels --size 512 --ks 1,2,3,4,5,6 --astaroth-size 256
 
 Prints one JSON line per measurement, after a line naming the card
 (``nvidia-smi`` name and power limit):
@@ -9,7 +9,11 @@ Prints one JSON line per measurement, after a line naming the card
 - ``jacobi_multistep`` at each depth k: ms per launch, ms per step, and the
   resident blocks per SM its shared memory allows;
 - ``self_fill`` per axis: one launch filling both sides for four fp32
-  quantities at radius 3 (the exchange benchmark's layout).
+  quantities at radius 3 (the exchange benchmark's layout);
+- ``astaroth_substep`` at astaroth-size^3, radius 3, in fp64 and fp32, for
+  RK3 stage 0 (reads 8 fields, writes 8) and stage 1 (also reads the 8 out
+  fields; stage 2 moves the same bytes), beside its bound
+  (``utils.roofline.bound_ms``).
 
 Times are CUDA-event means over back-to-back launches replayed from a CUDA
 graph (device time, no host launch overhead) after a warm-up; inputs are
@@ -21,6 +25,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 from typing import Optional
 
@@ -28,10 +33,15 @@ import torch
 
 from ..domain import GridSpec
 from ..geometry import Dim3, Radius
+from ..astaroth.config import load_config
+from ..astaroth.equations import Constants
+from ..astaroth.integrate import inv_ds_of
 from ..ops import _native, halo_fill
+from ..ops import astaroth_substep as asub
 from ..ops import stencil_kernels as sk
 from ..ops.jacobi import sphere_sel
 from ..parallel import shard_blocks
+from ..utils.roofline import bound_ms
 from ..utils.timer import cuda_time_ms
 
 
@@ -45,8 +55,10 @@ def card() -> str:
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(description="time the port's CUDA kernels on one GPU")
     p.add_argument("--size", type=int, default=512)
-    p.add_argument("--ks", type=str, default="2,4,6,8,10")
+    p.add_argument("--ks", type=str,
+                   default=",".join(str(k) for k in range(1, sk.MULTISTEP_KMAX + 1)))
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--astaroth-size", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -87,6 +99,33 @@ def main(argv: Optional[list] = None) -> int:
         print(json.dumps({"kernel": "self_fill", "size": n, "radius": 3, "quantities": 4,
                           "axis": axis, "ms": ms,
                           "bytes": 4 * halo_fill.fill_bytes(spec3, axis, 4)}), flush=True)
+    del qs
+
+    na = args.astaroth_size
+    info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",
+                                       "astaroth.conf"))
+    consts, ids = Constants.from_info(info), inv_ds_of(info)
+    speca = GridSpec(Dim3(na, na, na), Dim3(1, 1, 1), Radius.constant(3))
+    shape = speca.block_shape_zyx()
+    cells = speca.base.flatten()
+    for dtype in (torch.float64, torch.float32):
+        curr8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
+                 for _ in range(8)]
+        out8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
+                for _ in range(8)]
+        item = curr8[0].element_size()
+        for stage in (0, 1):
+            ms = cuda_time_ms(lambda: asub.substep(curr8, out8, speca, consts, ids, stage, 1e-8),
+                              args.reps, warmup=1, graph=True)
+            nbytes = asub.stage_bytes(speca, item, stage)
+            flops = asub.FLOPS_PER_CELL[stage] * cells
+            bound, bound_by = bound_ms(nbytes, flops, dtype)
+            print(json.dumps({"kernel": "astaroth_substep", "size": na,
+                              "dtype": str(dtype).replace("torch.", ""), "stage": stage,
+                              "ms": ms, "bytes": nbytes, "flops": flops, "bound_ms": bound,
+                              "bound_by": bound_by, "mcells_per_s": cells / ms / 1e3}),
+                  flush=True)
+        del curr8, out8
     return 0
 
 

@@ -1,0 +1,228 @@
+"""The MHD right-hand sides: continuity, momentum, induction, entropy.
+
+The port's counterpart of ``stencil_tpu.astaroth.equations`` (reference:
+astaroth/user_kernels.h:376-428): isothermal-ish compressible MHD in
+log-density / velocity / magnetic vector potential / specific entropy form.
+All functions operate elementwise on :class:`FieldData` (value + gradient +
+hessian per field) produced by :mod:`fd`; vectors are (x, y, z) tuples of
+tensors.
+
+Every expression keeps the JAX package's operand order term by term: the
+CUDA substep kernel (``csrc/astaroth_substep.cu``) is held to these
+functions on the card, so it evaluates the same operations in the same
+order. One rewrite is PyTorch's own: on CUDA a divide by a Python scalar
+(``/ c.mu0``, ``/ c.cp_sound``, ``/ 3.0``) runs as a multiply by the
+scalar's reciprocal rounded to the tensor's dtype, and the kernel does the
+same; on the CPU it is a true divide.
+
+Physics summary (same operators as the reference):
+- continuity:  d lnrho/dt = -u . grad(lnrho) - div u
+- induction:   d a/dt     = u x curl(a) + eta * lap(a)
+- momentum:    d u/dt     = -(grad u) u - cs2*(grad ss / cp + grad lnrho)
+                            + (1/rho) j x B
+                            + nu*(lap u + (1/3) grad(div u) + 2 S.grad lnrho)
+                            + zeta * grad(div u)
+               with  cs2 = cs2_sound * exp(gamma*ss/cp + (gamma-1)*(lnrho-lnrho0)),
+                     j = (grad(div a) - lap a)/mu0,  B = curl a
+- entropy:     d ss/dt    = -u . grad(ss) + (1/(rho T)) * [ eta*mu0*j.j
+                            + 2*rho*nu*contract(S) + zeta*rho*(div u)^2 ]
+                            + heat_conduction(ss, lnrho)
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .fd import FieldData
+
+Vec = Tuple  # (x, y, z) of tensors
+
+
+class Constants(NamedTuple):
+    """The DCONST uniforms the equations read (reference: kernels.cu:9-31)."""
+
+    cs2_sound: float
+    gamma: float
+    cp_sound: float
+    lnrho0: float
+    lnT0: float
+    mu0: float
+    eta: float
+    nu_visc: float
+    zeta: float
+    chi: float = 0.001  # heat_conduction's hardcoded 0.001 (user_kernels.h:414)
+
+    @classmethod
+    def from_info(cls, info) -> "Constants":
+        rp = info.real_params
+        return cls(
+            cs2_sound=rp["AC_cs2_sound"],
+            gamma=rp["AC_gamma"],
+            cp_sound=rp["AC_cp_sound"],
+            lnrho0=rp["AC_lnrho0"],
+            lnT0=rp["AC_lnT0"],
+            mu0=rp["AC_mu0"],
+            eta=rp["AC_eta"],
+            nu_visc=rp["AC_nu_visc"],
+            zeta=rp["AC_zeta"],
+        )
+
+
+# -- vector calculus on FieldData triples -------------------------------------
+
+def vdot(a: Vec, b: Vec):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def vcross(a: Vec, b: Vec) -> Vec:
+    return (
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    )
+
+
+def value3(v: Tuple[FieldData, FieldData, FieldData]) -> Vec:
+    return (v[0].value, v[1].value, v[2].value)
+
+
+def divergence(v):
+    """grad(v.x).x + grad(v.y).y + grad(v.z).z (user_kernels.h:230-233)."""
+    return v[0].gx + v[1].gy + v[2].gz
+
+
+def curl(v) -> Vec:
+    """(dy vz - dz vy, dz vx - dx vz, dx vy - dy vx) (user_kernels.h:240-245)."""
+    return (v[2].gy - v[1].gz, v[0].gz - v[2].gx, v[1].gx - v[0].gy)
+
+
+def laplace_vec(v) -> Vec:
+    return (v[0].laplace(), v[1].laplace(), v[2].laplace())
+
+
+def gradient_of_divergence(v) -> Vec:
+    """Column sums of the component hessians (user_kernels.h:246-251)."""
+    return (
+        v[0].hxx + v[1].hxy + v[2].hxz,
+        v[0].hxy + v[1].hyy + v[2].hyz,
+        v[0].hxz + v[1].hyz + v[2].hzz,
+    )
+
+
+def stress_tensor(v):
+    """Traceless rate-of-strain tensor S (user_kernels.h:252-265).
+    Returns the 6 unique entries as a dict."""
+    sxx = (2.0 / 3.0) * v[0].gx - (1.0 / 3.0) * (v[1].gy + v[2].gz)
+    sxy = 0.5 * (v[0].gy + v[1].gx)
+    sxz = 0.5 * (v[0].gz + v[2].gx)
+    syy = (2.0 / 3.0) * v[1].gy - (1.0 / 3.0) * (v[0].gx + v[2].gz)
+    syz = 0.5 * (v[1].gz + v[2].gy)
+    szz = (2.0 / 3.0) * v[2].gz - (1.0 / 3.0) * (v[0].gx + v[1].gy)
+    return {"xx": sxx, "xy": sxy, "xz": sxz, "yy": syy, "yz": syz, "zz": szz}
+
+
+def contract(s):
+    """sum_i row_i . row_i of the symmetric S (user_kernels.h:266-275)."""
+    return (
+        s["xx"] ** 2 + s["yy"] ** 2 + s["zz"] ** 2
+        + 2.0 * (s["xy"] ** 2 + s["xz"] ** 2 + s["yz"] ** 2)
+    )
+
+
+def mul_gradients(v, u: Vec) -> Vec:
+    """(grad v) u — advection matrix-vector product, row i = grad(v_i) . u
+    (user_kernels.h:376-381 gradients + math mul)."""
+    return (
+        vdot(v[0].gradient, u),
+        vdot(v[1].gradient, u),
+        vdot(v[2].gradient, u),
+    )
+
+
+# -- the four right-hand sides ------------------------------------------------
+
+def continuity(uu, lnrho: FieldData):
+    """(user_kernels.h:382-385)"""
+    return -vdot(value3(uu), lnrho.gradient) - divergence(uu)
+
+
+def induction(c: Constants, uu, aa) -> Vec:
+    """(user_kernels.h:396-402)"""
+    B = curl(aa)
+    lap = laplace_vec(aa)
+    uxB = vcross(value3(uu), B)
+    return tuple(uxB[i] + c.eta * lap[i] for i in range(3))
+
+
+def momentum(c: Constants, uu, lnrho: FieldData, ss: FieldData, aa) -> Vec:
+    """(user_kernels.h:386-395)"""
+    S = stress_tensor(uu)
+    cs2 = c.cs2_sound * torch.exp(
+        c.gamma * ss.value / c.cp_sound + (c.gamma - 1.0) * (lnrho.value - c.lnrho0)
+    )
+    god_a = gradient_of_divergence(aa)
+    lap_a = laplace_vec(aa)
+    j = tuple((god_a[i] - lap_a[i]) / c.mu0 for i in range(3))
+    B = curl(aa)
+    inv_rho = torch.exp(-lnrho.value)
+    u = value3(uu)
+    adv = mul_gradients(uu, u)
+    jxB = vcross(j, B)
+    lap_u = laplace_vec(uu)
+    god_u = gradient_of_divergence(uu)
+    # S . grad(lnrho), symmetric S
+    g = lnrho.gradient
+    S_g = (
+        S["xx"] * g[0] + S["xy"] * g[1] + S["xz"] * g[2],
+        S["xy"] * g[0] + S["yy"] * g[1] + S["yz"] * g[2],
+        S["xz"] * g[0] + S["yz"] * g[1] + S["zz"] * g[2],
+    )
+    out = []
+    for i in range(3):
+        pressure = cs2 * (ss.gradient[i] / c.cp_sound + lnrho.gradient[i])
+        visc = c.nu_visc * (lap_u[i] + god_u[i] / 3.0 + 2.0 * S_g[i])
+        out.append(-adv[i] - pressure + inv_rho * jxB[i] + visc + c.zeta * god_u[i])
+    return tuple(out)
+
+
+def ln_temperature(c: Constants, ss: FieldData, lnrho: FieldData):
+    """(user_kernels.h:403-406)"""
+    return c.lnT0 + c.gamma * ss.value / c.cp_sound + (c.gamma - 1.0) * (
+        lnrho.value - c.lnrho0
+    )
+
+
+def heat_conduction(c: Constants, ss: FieldData, lnrho: FieldData):
+    """(user_kernels.h:407-416)"""
+    inv_cp = 1.0 / c.cp_sound
+    grad_ln_chi = tuple(-g for g in lnrho.gradient)
+    first = c.gamma * inv_cp * ss.laplace() + (c.gamma - 1.0) * lnrho.laplace()
+    second = tuple(
+        c.gamma * inv_cp * ss.gradient[i] + (c.gamma - 1.0) * lnrho.gradient[i]
+        for i in range(3)
+    )
+    third = tuple(
+        c.gamma * (inv_cp * ss.gradient[i] + lnrho.gradient[i]) + grad_ln_chi[i]
+        for i in range(3)
+    )
+    chi = c.chi * torch.exp(-lnrho.value) / c.cp_sound
+    return c.cp_sound * chi * (first + vdot(second, third))
+
+
+def entropy(c: Constants, ss: FieldData, uu, lnrho: FieldData, aa):
+    """(user_kernels.h:417-428)"""
+    S = stress_tensor(uu)
+    rho = torch.exp(lnrho.value)
+    inv_pT = 1.0 / (rho * torch.exp(ln_temperature(c, ss, lnrho)))
+    god_a = gradient_of_divergence(aa)
+    lap_a = laplace_vec(aa)
+    j = tuple((god_a[i] - lap_a[i]) / c.mu0 for i in range(3))
+    div_u = divergence(uu)
+    rhs = (
+        c.eta * c.mu0 * vdot(j, j)
+        + 2.0 * rho * c.nu_visc * contract(S)
+        + c.zeta * rho * div_u * div_u
+    )
+    return -vdot(value3(uu), ss.gradient) + inv_pT * rhs + heat_conduction(c, ss, lnrho)

@@ -3,9 +3,11 @@
 This system has no weights: its state is the grid. Both packages keep each
 quantity as a stacked ``(bz, by, bx, pz, py, px)`` array of halo-padded
 blocks with the same padding (``GridSpec(aligned=True)``), so state moves
-across as a plain copy: :func:`state_from_jax` takes the JAX package's
-arrays (as numpy, e.g. ``np.asarray(jax_array)``) and its int32 ``sel``,
-and :func:`state_to_numpy` gives numpy arrays the JAX package's
+across as a plain copy that keeps each array's dtype: :func:`state_from_jax`
+takes the JAX package's arrays (as numpy, e.g. ``np.asarray(jax_array)``),
+whether jacobi3d's temperature and int32 ``sel`` or Astaroth's 8-field dict
+(``lnrho``, ``uux`` ... ``entropy``) in fp32 or fp64, and
+:func:`state_to_numpy` gives numpy arrays the JAX package's
 ``jax.device_put`` takes back.
 """
 
@@ -29,7 +31,8 @@ def state_from_jax(arrays: Mapping, spec: GridSpec, device) -> Dict:
         a = np.asarray(a)
         if a.shape != want:
             raise ValueError(f"{key!r}: shape {a.shape}, expected {want}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        # a copy: arrays from JAX are read-only
+        out[key] = torch.from_numpy(np.array(a, order="C")).to(device)
     return out
 
 

@@ -11,10 +11,11 @@ import torch
 
 import stencil_tpu_torch
 from stencil_tpu_torch import DistributedDomain
-from stencil_tpu_torch.apps import jacobi3d
+from stencil_tpu_torch.apps import astaroth, jacobi3d
+from stencil_tpu_torch.astaroth.equations import Constants
 from stencil_tpu_torch.domain import GridSpec
 from stencil_tpu_torch.geometry import Dim3, Radius
-from stencil_tpu_torch.ops import halo_fill, stencil_kernels
+from stencil_tpu_torch.ops import _native, astaroth_substep, halo_fill, stencil_kernels
 
 torch.set_num_threads(2)
 
@@ -41,7 +42,8 @@ def test_no_jax_or_reference_imports(path):
 def test_kernel_sources_present():
     csrc = pathlib.Path(stencil_tpu_torch.__file__).parent / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "jacobi_multistep.cu", "jacobi_sweep.cu", "self_fill.cu"]
+        "astaroth_substep.cu", "jacobi_multistep.cu", "jacobi_sweep.cu", "self_fill.cu"]
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_native.SIGNATURES)
 
 
 def test_no_device_means_cuda(monkeypatch):
@@ -50,6 +52,8 @@ def test_no_device_means_cuda(monkeypatch):
         DistributedDomain(8, 8, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         jacobi3d.run(8, 8, 8, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        astaroth.run(iters=1, nx=8)
     assert DistributedDomain(8, 8, 8, device="cpu").device.type == "cpu"
 
 
@@ -61,22 +65,35 @@ def _block(spec, dtype, device="cpu"):
     return torch.zeros(spec.stacked_shape_zyx(), dtype=dtype, device=device)
 
 
+def _astaroth_spec():
+    spec = GridSpec(Dim3(12, 10, 8), Dim3(1, 1, 1), Radius.constant(3))
+    return spec, Constants(1.0, 0.5, 1.0, 1.3, 1.2, 1.4, 5e-3, 5e-3, 0.01)
+
+
+def _fields(spec, device="cpu"):
+    p = spec.padded()
+    return tuple(torch.zeros((p.z, p.y, p.x), dtype=torch.float64, device=device)
+                 for _ in range(8))
+
+
 def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     spec = _spec()
     calls = []
     for mod, name in ((stencil_kernels, "sweep_plain"), (stencil_kernels, "multistep_plain"),
-                      (halo_fill, "self_fill_plain")):
+                      (halo_fill, "self_fill_plain"), (astaroth_substep, "substep_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
     launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
-                halo_fill.self_fill.launches)
+                halo_fill.self_fill.launches, astaroth_substep.substep.launches)
     f32 = torch.float32
     stencil_kernels.sweep(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32), spec)
     stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
     halo_fill.self_fill([_block(spec, f32)], spec, "x")
-    assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain"]
+    spec3, consts = _astaroth_spec()
+    astaroth_substep.substep(_fields(spec3), _fields(spec3), spec3, consts, (1.0,) * 3, 0, 1e-3)
+    assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain"]
     # the plain versions are not launches
     assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
-                        halo_fill.self_fill.launches)
+                        halo_fill.self_fill.launches, astaroth_substep.substep.launches)
     # any other device is refused, never served by the plain version
     meta = [_block(spec, f32, "meta"), _block(spec, f32, "meta")]
     with pytest.raises(ValueError):
@@ -85,13 +102,16 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
         stencil_kernels.multistep(*meta, spec, 2)
     with pytest.raises(ValueError):
         halo_fill.self_fill(meta[:1], spec, "x")
-    assert len(calls) == 3
+    with pytest.raises(ValueError):
+        astaroth_substep.substep(_fields(spec3, "meta"), _fields(spec3, "meta"), spec3, consts,
+                                 (1.0,) * 3, 0, 1e-3)
+    assert len(calls) == 4
 
 
 def test_wrappers_have_no_fallback():
     """No try/except in the kernel modules: a failed build or launch
     propagates instead of quietly running the plain version."""
-    for mod in (stencil_kernels, halo_fill):
+    for mod in (stencil_kernels, halo_fill, astaroth_substep):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__name__
 
