@@ -32,6 +32,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               each (3 substeps and one exchange per iteration); a small run
               on the card against the same run on the CPU; the kernel timed
               per launch at 256^3 beside its plain version and its bound.
+6. remote-dma -- jacobi3d's remote-dma kernel variants: the fused step kernel
+              against its plain version (torch.equal on curr with its halos
+              and on out) at 512^3 r1, 100x70x50 unaligned r1 and 33x21x13
+              r2, and the persistent chunk kernel (torch.equal on both
+              buffers) at 200x100x60 k=2,3,4,6, 16x16x14 k=2, 16x16x13 k=4
+              and 512^3 k=4, all from random fields and random sel; the
+              main paths from the app's init, launch counts reset around
+              each: apps.jacobi3d.run at 512^3 with kernel_variant fused
+              (50 iters, chunks of 25: 75 fused launches, no other kernel)
+              and persistent with deep_halo 4 (48 iters, chunks of 24: 18
+              chunk launches, 9 fills of sel), and the plain remote-dma
+              method (15 steps); 8 steps at 512^3 from a random field
+              through the fused and the persistent (k=4) loops, bit-equal on
+              the compute region to the default multistep path; each kernel
+              timed per launch at 512^3 beside its plain version and bound.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -77,6 +92,10 @@ def main() -> int:
     from stencil_tpu_torch.geometry import Dim3, Radius
     from stencil_tpu_torch.ops import _native, halo_fill, stencil_kernels as sk
     from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+    from stencil_tpu_torch.parallel import Method
+    from stencil_tpu_torch.plan.ir import build_plan
     from stencil_tpu_torch.ops.jacobi import (INIT_TEMP, jacobi_reference, make_jacobi_loop,
                                               sphere_masks, sphere_sel)
     from stencil_tpu_torch.parallel import HaloExchange, shard_blocks
@@ -107,7 +126,7 @@ def main() -> int:
         f"({sk.multistep_smem_bytes(k512)} bytes of shared memory per block)")
 
     errs = {"jacobi_sweep": 0.0, "jacobi_multistep": 0.0, "self_fill": 0.0,
-            "astaroth_substep": 0.0}
+            "astaroth_substep": 0.0, "fused_jacobi": 0.0, "persistent_jacobi": 0.0}
 
     def rand_block(spec, seed, dtype=torch.float32):
         gen.manual_seed(seed)
@@ -232,18 +251,22 @@ def main() -> int:
     log(f"jacobi3d 512^3: {r['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
         f"{r['mcells_per_s_per_dev']:.1f} Mcells/s, multistep k={r['temporal_k']}, "
         f"launches {launches}")
-    dd, h = r["domain"], r["handle"]
-    final = dd.get_curr(h)
-    off = dd.spec.compute_offset()
-    comp = final[0, 0, 0, off.z:off.z + 512, off.y:off.y + 512, off.x:off.x + 512]
-    check(bool(torch.isfinite(comp).all()), "jacobi3d 512^3: non-finite values")
-    check(float(comp.min()) >= 0.0 and float(comp.max()) <= 1.0,
-          "jacobi3d 512^3: values outside [COLD, HOT]")
-    hot, cold = sphere_masks(Dim3(512, 512, 512))
-    check(bool((comp[torch.from_numpy(hot).to(dev)] == 1.0).all())
-          and bool((comp[torch.from_numpy(cold).to(dev)] == 0.0).all()),
-          "jacobi3d 512^3: spheres not held")
-    del r, dd, final, comp
+    hot, cold = (torch.from_numpy(m).to(dev) for m in sphere_masks(Dim3(512, 512, 512)))
+
+    def check_field(r, label):
+        """The final field of a 512^3 run: finite, in [COLD, HOT], spheres held."""
+        dd, h = r["domain"], r["handle"]
+        off = dd.spec.compute_offset()
+        comp = dd.get_curr(h)[0, 0, 0, off.z:off.z + 512, off.y:off.y + 512,
+                              off.x:off.x + 512]
+        check(bool(torch.isfinite(comp).all()), f"{label}: non-finite values")
+        check(float(comp.min()) >= 0.0 and float(comp.max()) <= 1.0,
+              f"{label}: values outside [COLD, HOT]")
+        check(bool((comp[hot] == 1.0).all()) and bool((comp[cold] == 0.0).all()),
+              f"{label}: spheres not held")
+
+    check_field(r, "jacobi3d 512^3")
+    del r
 
     # 2k+2 steps at 512^3 through the kernels (2 multistep passes + 2 sweeps) and
     # through the plain versions, from the same random field
@@ -426,6 +449,124 @@ def main() -> int:
             f"{t['bound'][1]})")
         del curr8, out8
 
+    # -- 6. jacobi3d's remote-dma kernel variants ------------------------------
+    def rand_sel(spec, seed):
+        gen.manual_seed(seed)
+        p = spec.padded()
+        return torch.randint(0, 3, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    fused_cases = [("512^3 r1", spec512), (sweep_cases[1][0], sweep_cases[1][1]),
+                   ("33x21x13 r2", sweep_cases[3][1])]
+    for i, (label, spec) in enumerate(fused_cases):
+        plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
+        c, n, s = rand_block(spec, 100 + i), rand_block(spec, 110 + i), rand_sel(spec, 120 + i)
+        pc, pn = c.clone(), n.clone()
+        fst.fused_jacobi(c, n, s, spec, plan)
+        fst.fused_jacobi_plain(pc, pn, s, spec, plan)
+        torch.cuda.synchronize()
+        errs["fused_jacobi"] = max(errs["fused_jacobi"], max_abs(c, pc), max_abs(n, pn))
+        check(torch.equal(c, pc) and torch.equal(n, pn), f"fused {label}: kernel != plain")
+        log(f"fused_jacobi {label}: equal (curr with halos, out)")
+    del c, n, s, pc, pn
+
+    pers_cases = [(f"200x100x60 k={k}", (200, 100, 60), k) for k in (2, 3, 4, 6)]
+    pers_cases += [("16x16x14 k=2", (16, 16, 14), 2), ("16x16x13 k=4", (16, 16, 13), 4),
+                   ("512^3 k=4", (512, 512, 512), 4)]
+    for i, (label, size, k) in enumerate(pers_cases):
+        spec = GridSpec(Dim3(*size), Dim3(1, 1, 1), Radius.constant(k))
+        c, n, s = rand_block(spec, 130 + i), rand_block(spec, 140 + i), rand_sel(spec, 150 + i)
+        pc, pn, ps = c.clone(), n.clone(), s.clone()
+        pst.persistent_jacobi(c, n, s, spec, k)
+        pst.persistent_jacobi_plain(pc, pn, ps, spec, k)
+        torch.cuda.synchronize()
+        errs["persistent_jacobi"] = max(errs["persistent_jacobi"], max_abs(c, pc),
+                                        max_abs(n, pn))
+        check(torch.equal(c, pc) and torch.equal(n, pn) and torch.equal(s, ps),
+              f"persistent {label}: kernel != plain")
+        log(f"persistent_jacobi {label}: equal (both buffers, halos included)")
+    del c, n, s, pc, pn, ps
+
+    counted = {"fused_jacobi": fst.fused_jacobi, "persistent_jacobi": pst.persistent_jacobi,
+               "jacobi_sweep": sk.sweep, "jacobi_multistep": sk.multistep,
+               "self_fill": halo_fill.self_fill}
+    variant_runs = [
+        ("fused", dict(iters=50, chunk=25, kernel_variant="fused"),
+         {"fused_jacobi": 75}),
+        ("persistent", dict(iters=48, chunk=24, kernel_variant="persistent", deep_halo=4),
+         {"persistent_jacobi": 18, "self_fill": 9}),
+        ("plain remote-dma", dict(iters=10, chunk=5), {"jacobi_sweep": 15, "self_fill": 45}),
+    ]
+    for label, kw, want in variant_runs:
+        for fn in counted.values():
+            fn.launches = 0
+        rv = jacobi3d.run(512, 512, 512, weak=False, method=Method.REMOTE_DMA, **kw)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counted.items()}
+        check(got == {name: want.get(name, 0) for name in counted},
+              f"jacobi3d {label}: launches {got}, expected {want}")
+        if label == "persistent":
+            lpc = rv["domain"].halo_exchange.last_launches_per_chunk
+            check(lpc == 1, f"jacobi3d persistent: {lpc} launches per chunk, not 1")
+        if label != "plain remote-dma":
+            launches[f"{label}_jacobi"] = got[f"{label}_jacobi"]
+        check_field(rv, f"jacobi3d 512^3 {label}")
+        log(jacobi3d.csv_row(rv))
+        log(f"jacobi3d 512^3 remote-dma {label}: {rv['iter_trimean_s'] * 1e3:.4f} ms/iter "
+            f"(trimean), {rv['mcells_per_s_per_dev']:.1f} Mcells/s, launches {got}")
+        del rv
+
+    # 8 steps from a random field: the default path (2 multistep passes + 2
+    # sweeps), the fused loop and the persistent loop (k=4, radius-4 layout)
+    spec4 = GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1), Radius.constant(4))
+    off1, off4 = spec512.compute_offset(), spec4.compute_offset()
+
+    def region(t, off):
+        return t[..., off.z:off.z + 512, off.y:off.y + 512, off.x:off.x + 512]
+
+    start, sel = rand_block(spec512, 7), sel_block(spec512)
+    ref, _ = make_jacobi_loop(HaloExchange(spec512), 8)(start.clone(), torch.zeros_like(start),
+                                                        sel)
+    exf = HaloExchange(spec512, Method.REMOTE_DMA, fused=True)
+    fused8, _ = make_jacobi_loop(exf, 8)(start.clone(), torch.zeros_like(start), sel)
+    start4 = torch.zeros(spec4.stacked_shape_zyx(), device=dev)
+    region(start4, off4).copy_(region(start, off1))
+    exp = HaloExchange(spec4, Method.REMOTE_DMA, persistent=True)
+    pers8, _ = make_jacobi_loop(exp, 8, temporal_k=4)(start4, torch.zeros_like(start4),
+                                                      sel_block(spec4))
+    torch.cuda.synchronize()
+    check(torch.equal(region(fused8, off1), region(ref, off1)),
+          "fused 8 steps at 512^3 != the default multistep path")
+    check(torch.equal(region(pers8, off4), region(ref, off1)),
+          "persistent 8 steps at 512^3 != the default multistep path")
+    log("jacobi 512^3 8 steps: fused path == persistent (k=4) path == default path")
+    del start, ref, fused8, start4, pers8
+
+    # per-launch times at 512^3; the cooperative launch is timed without a
+    # CUDA graph (events around back-to-back launches)
+    plan = build_plan(spec512, (1, 1, 1), Method.REMOTE_DMA, fused=True)
+    c, n = rand_block(spec512, 8), rand_block(spec512, 9)
+    timings["fused_jacobi"] = dict(
+        ms=time_ms(lambda: fst.fused_jacobi(c, n, sel, spec512, plan), 20, graph=True),
+        plain_ms=time_ms(lambda: fst.fused_jacobi_plain(c, n, sel, spec512, plan), 3, warmup=1),
+        bound=bound_ms(12 * cells, 6 * cells), library_ms=None)
+    del c, n, sel
+    c, n, s = rand_block(spec4, 10), rand_block(spec4, 11), sel_block(spec4)
+    grown = sum((512 + 2 * g) ** 3 for g in range(4))
+    timings["persistent_jacobi"] = dict(
+        ms=time_ms(lambda: pst.persistent_jacobi(c, n, s, spec4, 4), 10),
+        plain_ms=time_ms(lambda: pst.persistent_jacobi_plain(c, n, s, spec4, 4), 1, warmup=1),
+        bound=bound_ms(pst.chunk_bytes(spec4, 4), 6 * grown), library_ms=None)
+    del c, n, s
+    design = bound_ms(pst.chunk_design_bytes(spec4, 4), 6 * grown)[0]
+    for name in ("fused_jacobi", "persistent_jacobi"):
+        t = timings[name]
+        log(f"time {name}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+    log(f"persistent_jacobi 512^3 k=4: {timings['persistent_jacobi']['ms'] / 4:.4f} ms per "
+        f"step; the design's own traffic ({pst.chunk_design_bytes(spec4, 4)} bytes per chunk) "
+        f"bounds it at {design:.4f} ms")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -439,6 +580,10 @@ def main() -> int:
         "self_fill": ("stencil_tpu_torch/csrc/self_fill.cu", "stencil_tpu/ops/halo_fill.py:236"),
         "astaroth_substep": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
                              "stencil_tpu/ops/pallas_astaroth.py:202"),
+        "fused_jacobi": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
+                         "stencil_tpu/ops/fused_stencil.py:250"),
+        "persistent_jacobi": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
+                              "stencil_tpu/ops/persistent_stencil.py:199"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

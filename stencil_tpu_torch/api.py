@@ -3,9 +3,10 @@
 The port's counterpart of ``stencil_tpu.api`` (reference:
 include/stencil/stencil.hpp:33-225, src/stencil.cu). The surface is kept:
 ``set_radius`` -> ``add_data`` -> ``realize`` -> loop {compute /
-``exchange`` / ``swap``}. This slice realizes one block on one device: the
-partition is (1,1,1) and the exchange is the axis-composed self-wrap of
-``parallel.exchange.HaloExchange``.
+``exchange`` / ``swap``}. The port realizes one block on one device: the
+partition is (1,1,1) and the exchange is the self-wrap of
+``parallel.exchange.HaloExchange``, axis-composed or remote-dma (with its
+fused and persistent kernel variants).
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -57,6 +58,8 @@ class DistributedDomain:
         self._names: List[str] = []
         self._dtypes: List[torch.dtype] = []
         self._method = Method.AXIS_COMPOSED
+        self._fused = False
+        self._persistent = False
         self._partition_dim: Optional[Dim3] = None
         self._realized = False
         self._curr: Dict[int, torch.Tensor] = {}
@@ -84,11 +87,29 @@ class DistributedDomain:
         return DataHandle(idx, self._names[-1], str(dt).replace("torch.", ""))
 
     def set_methods(self, method: Method) -> None:
-        """Exchange strategy (reference: stencil.hpp:139); this slice has
-        AXIS_COMPOSED only."""
-        if method != Method.AXIS_COMPOSED:
-            raise NotImplementedError(f"{method}: the port has the axis-composed exchange only")
+        """Exchange strategy (reference: stencil.hpp:139): AXIS_COMPOSED or
+        REMOTE_DMA."""
+        if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
+            raise NotImplementedError(
+                f"{method}: the port has the axis-composed and remote-dma exchanges only")
         self._method = method
+
+    def set_fused_exchange(self, enabled: bool) -> None:
+        """The FUSED compute+exchange variant of ``Method.REMOTE_DMA``: the
+        jacobi step loops run one kernel per step that hands off every
+        direction's halo and sweeps (``ops/fused_stencil.py``). Applied at
+        realize(), which raises for another method."""
+        self._fused = bool(enabled)
+
+    def set_persistent_exchange(self, enabled: bool) -> None:
+        """The PERSISTENT whole-chunk variant of ``Method.REMOTE_DMA``: the
+        jacobi step loops run one kernel per k-step chunk over radius-k
+        halos (``ops/persistent_stencil.py``), so the domain must be
+        realized at radius k (``jacobi3d --kernel-variant persistent
+        --deep-halo k`` does this). Mutually exclusive with
+        :meth:`set_fused_exchange`; applied at realize(), which raises for
+        another method."""
+        self._persistent = bool(enabled)
 
     def set_devices(self, devices: Sequence) -> None:
         """Run on these devices (reference ``set_gpus``, stencil.hpp:154);
@@ -115,7 +136,8 @@ class DistributedDomain:
         with timer.timed("setup.realize"), timer.trace_range("stencil.realize"):
             dim = self._partition_dim or NodePartition(self.size, self.radius, 1, 1).dim()
             self.spec = GridSpec(self.size, dim, self.radius)
-            self._exchange = HaloExchange(self.spec, self._method)
+            self._exchange = HaloExchange(self.spec, self._method, fused=self._fused,
+                                          persistent=self._persistent)
             shape = self.spec.stacked_shape_zyx()
             for idx, dt in enumerate(self._dtypes):
                 self._curr[idx] = torch.zeros(shape, dtype=dt, device=self.device)

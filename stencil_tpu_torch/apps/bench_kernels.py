@@ -1,6 +1,7 @@
 """bench_kernels — time each CUDA kernel of the port alone on one GPU.
 
-  python -m stencil_tpu_torch.apps.bench_kernels --size 512 --ks 1,2,3,4,5,6 --astaroth-size 256
+  python -m stencil_tpu_torch.apps.bench_kernels --size 512 --ks 1,2,3,4,5,6 \
+      --astaroth-size 256
 
 Prints one JSON line per measurement, after a line naming the card
 (``nvidia-smi`` name and power limit):
@@ -10,6 +11,12 @@ Prints one JSON line per measurement, after a line naming the card
   resident blocks per SM its shared memory allows;
 - ``self_fill`` per axis: one launch filling both sides for four fp32
   quantities at radius 3 (the exchange benchmark's layout);
+- ``fused_jacobi``: one fused remote-dma step at size^3, radius 1 (the 26
+  halo hand-offs and the sweep), beside its bytes bound;
+- ``persistent_jacobi`` at each depth k >= 2 of ``--ks``: one k-step chunk
+  at size^3, radius k, ms per launch and per step, beside the least bytes a
+  chunk must move and the bytes this design moves. The cooperative launch is
+  timed without a CUDA graph (CUDA events around back-to-back launches);
 - ``astaroth_substep`` at astaroth-size^3, radius 3, in fp64 and fp32, for
   RK3 stage 0 (reads 8 fields, writes 8) and stage 1 (also reads the 8 out
   fields; stage 2 moves the same bytes), beside its bound
@@ -38,9 +45,12 @@ from ..astaroth.equations import Constants
 from ..astaroth.integrate import inv_ds_of
 from ..ops import _native, halo_fill
 from ..ops import astaroth_substep as asub
+from ..ops import fused_stencil as fst
+from ..ops import persistent_stencil as pst
 from ..ops import stencil_kernels as sk
 from ..ops.jacobi import sphere_sel
-from ..parallel import shard_blocks
+from ..parallel import Method, shard_blocks
+from ..plan.ir import build_plan
 from ..utils.roofline import bound_ms
 from ..utils.timer import cuda_time_ms
 
@@ -67,6 +77,7 @@ def main(argv: Optional[list] = None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     n = args.size
+    ks = [int(v) for v in args.ks.split(",")]
     print(json.dumps({"card": card(), "torch": torch.__version__}), flush=True)
 
     spec = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
@@ -78,7 +89,7 @@ def main(argv: Optional[list] = None) -> int:
     print(json.dumps({"kernel": "jacobi_sweep", "size": n, "ms": ms}), flush=True)
 
     lib = _native.lib("jacobi_multistep")
-    for k in (int(v) for v in args.ks.split(",")):
+    for k in ks:
         blocks = ctypes.c_int(0)
         _native.check(lib.jacobi_multistep_blocks_per_sm(k, ctypes.byref(blocks)),
                       "jacobi_multistep_blocks_per_sm")
@@ -88,7 +99,28 @@ def main(argv: Optional[list] = None) -> int:
                           "ms_per_step": ms / k, "blocks_per_sm": blocks.value,
                           "smem_bytes": sk.multistep_smem_bytes(k),
                           "zchunks": sk.multistep_zchunks(spec, k)}), flush=True)
+    plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
+    ms = cuda_time_ms(lambda: fst.fused_jacobi(curr, nxt, sel, spec, plan), args.reps,
+                      graph=True)
+    bound, _ = bound_ms(12 * n ** 3, 6 * n ** 3)
+    print(json.dumps({"kernel": "fused_jacobi", "size": n, "ms": ms, "bound_ms": bound}),
+          flush=True)
     del curr, nxt, sel
+
+    for k in (k for k in ks if k >= 2):
+        speck = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(k))
+        pd = speck.padded()
+        curr = torch.rand((1, 1, 1, pd.z, pd.y, pd.x), generator=gen, device=dev)
+        nxt = torch.zeros_like(curr)
+        sel = shard_blocks(sphere_sel(speck.global_size), speck, dev)
+        ms = cuda_time_ms(lambda: pst.persistent_jacobi(curr, nxt, sel, speck, k),
+                          max(2, args.reps // 2), warmup=1)
+        print(json.dumps({"kernel": "persistent_jacobi", "size": n, "k": k, "ms": ms,
+                          "ms_per_step": ms / k,
+                          "bound_ms": bound_ms(pst.chunk_bytes(speck, k), 0)[0],
+                          "design_bytes_ms": bound_ms(pst.chunk_design_bytes(speck, k), 0)[0]}),
+              flush=True)
+        del curr, nxt, sel
 
     spec3 = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(3))
     pd = spec3.padded()

@@ -13,10 +13,12 @@ per-iteration statistic is each chunk's mean, trimean'd over chunks.
 
 Usage: python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 --iters 5
 (``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU).
+``--method remote-dma`` with ``--kernel-variant fused`` (or ``--fused``) runs
+one fused step kernel per step; ``--kernel-variant persistent --deep-halo K``
+runs one whole-chunk kernel per K steps over radius-K halos.
 
 Not carried over yet (ROADMAP.md queue A): checkpoints, health checks, fault
-injection, autotuning, replanning, ParaView dumps and the fused/persistent
-kernel variants.
+injection, autotuning, replanning, ParaView dumps and wire compression.
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ def run(
     warmup: int = 1,
     chunk: Optional[int] = None,
     deep_halo: int = 1,
+    fused: bool = False,
+    kernel_variant: Optional[str] = None,
 ) -> dict:
     """Run jacobi3d on one device and return the result row (plus the
     realized ``domain`` and the temperature ``handle``).
@@ -70,12 +74,30 @@ def run(
     inside the kernels and no exchange runs, so there is nothing to
     overlap. ``deep_halo`` realizes radius-``deep_halo`` halos (full radius,
     not tight-x, as the JAX app does off the TPU) and, when >= 2, pins the
-    multistep depth to it."""
+    multistep depth (or the persistent chunk depth) to it.
+    ``kernel_variant`` ("fused" or "persistent"; ``fused=True`` is the
+    older spelling of the former) selects a ``Method.REMOTE_DMA`` kernel
+    variant, as in the JAX app."""
+    if fused and kernel_variant is None:
+        kernel_variant = "fused"
+    if kernel_variant == "fused":
+        fused = True
+    elif kernel_variant == "persistent" and deep_halo < 2:
+        raise ValueError(
+            "kernel_variant='persistent' is the whole-chunk temporal "
+            "fusion: it needs --deep-halo >= 2 (the chunk depth k; the "
+            "domain realizes radius*k halos)")
+    elif kernel_variant not in (None, "fused", "persistent"):
+        raise ValueError(
+            f"unknown kernel_variant {kernel_variant!r}: valid values are "
+            "'fused' and 'persistent'")
     n = 1
     size = weak_scale(x, y, z, n) if weak else Dim3(x, y, z)
     dd = DistributedDomain(size.x, size.y, size.z, device=device)
     dd.set_radius(deep_halo)
     dd.set_methods(method)
+    dd.set_fused_exchange(fused)
+    dd.set_persistent_exchange(kernel_variant == "persistent")
     h = dd.add_data("temperature", "float32")
     dd.realize()
     dev = dd.device
@@ -134,6 +156,7 @@ def run(
         "mcells_per_s_per_dev": cells / trimean / 1e6 / n,
         "overlap": overlap,
         "temporal_k": get_loop(chunk).temporal_k,
+        "kernel_variant": kernel_variant,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "domain": dd,
         "handle": h,
@@ -159,16 +182,31 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--no-weak", action="store_true", help="fixed total domain (strong)")
     p.add_argument("--deep-halo", type=int, default=1,
                    help="realize radius-K halos; K >= 2 also pins the "
-                        "multistep depth to K")
+                        "multistep depth (or the persistent chunk depth) to K")
+    p.add_argument("--method", choices=[m.value for m in Method], default=None,
+                   help="exchange strategy (default axis-composed)")
+    p.add_argument("--fused", action="store_true",
+                   help="the fused compute+exchange variant of --method "
+                        "remote-dma: one kernel per step hands off every "
+                        "direction's halo and sweeps")
+    p.add_argument("--kernel-variant", choices=["fused", "persistent"], default=None,
+                   help="remote-dma kernel variant: 'fused' = --fused; "
+                        "'persistent' = one kernel per k-step chunk over "
+                        "radius-k halos, k = --deep-halo (>= 2 required)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain PyTorch versions)")
     args = p.parse_args(argv)
+    if args.fused and args.kernel_variant == "persistent":
+        p.error("--fused conflicts with --kernel-variant persistent "
+                "(mutually exclusive kernel variants)")
     r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
-            device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo)
+            method=Method(args.method) if args.method else Method.AXIS_COMPOSED,
+            device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo,
+            fused=args.fused, kernel_variant=args.kernel_variant)
     print(csv_row(r))
     log.info(f"mcells/s = {r['mcells_per_s']:.1f} ({r['mcells_per_s_per_dev']:.1f}/device) "
-             f"on {r['device']}, multistep k={r['temporal_k']}")
+             f"on {r['device']}, kernel variant {r['kernel_variant']}, k={r['temporal_k']}")
     log.info(timer.report())
     return 0
 

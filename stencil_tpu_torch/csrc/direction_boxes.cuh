@@ -1,0 +1,46 @@
+// Per-direction halo hand-offs inside one fp32 block, shared by
+// fused_jacobi.cu and persistent_jacobi.cu.
+//
+// A box is one direction's exact-extent message on a single, all-self-wrap
+// block: it copies compute cells (src) into the halo cells on the opposite
+// side (dst). Boxes of distinct directions write disjoint halo cells and read
+// only compute cells, so they may run in any order, concurrently.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+struct DirBoxes {
+  int n;
+  int box[26][9];       // src (z, y, x), dst (z, y, x), extent (z, y, x)
+  long long start[27];  // cells before box b; start[n] is the total
+};
+
+// Build the table from n rows of 9 ints; false if it does not fit.
+inline bool make_dir_boxes(const int* rows, int n, DirBoxes* out) {
+  if (n < 0 || n > 26) return false;
+  out->n = n;
+  out->start[0] = 0;
+  for (int b = 0; b < n; ++b) {
+    for (int j = 0; j < 9; ++j) out->box[b][j] = rows[9 * b + j];
+    const long long cells = (long long)rows[9 * b + 6] * rows[9 * b + 7] * rows[9 * b + 8];
+    if (cells < 0 || cells >= (1LL << 31)) return false;
+    out->start[b + 1] = out->start[b] + cells;
+  }
+  return true;
+}
+
+// Copy cell i (0 <= i < bx.start[bx.n]) of the boxes, in place in a.
+__device__ __forceinline__ void copy_box_cell(float* a, const DirBoxes& bx, long long i,
+                                              long long sz, long long sy) {
+  int b = 0;
+  while (i >= bx.start[b + 1]) ++b;
+  const int* q = bx.box[b];
+  unsigned j = (unsigned)(i - bx.start[b]);
+  const int x = (int)(j % (unsigned)q[8]);
+  j /= (unsigned)q[8];
+  const int y = (int)(j % (unsigned)q[7]);
+  const int z = (int)(j / (unsigned)q[7]);
+  a[(long long)(q[3] + z) * sz + (long long)(q[4] + y) * sy + q[5] + x] =
+      a[(long long)(q[0] + z) * sz + (long long)(q[1] + y) * sy + q[2] + x];
+}

@@ -11,12 +11,14 @@
 //
 // Design (2.5D blocking): one thread per output (x, y) column; a 32x8 block
 // marches a z range and keeps the z-1 / z / z+1 values of its column in
-// registers, so each curr plane is loaded from device memory once per
-// column. The x and y neighbours come through L1/L2 (adjacent threads read
-// adjacent addresses, so loads along x coalesce). Self-wrap axes take the
-// periodic neighbour by index arithmetic: on a single block no halo cell is
-// read at all, which also makes the tight-x layout (Radius::without_x, no x
-// halo columns) work unchanged. Non-wrapping axes read the halo cells.
+// registers (jacobi_column.cuh), so each curr plane is loaded from device
+// memory once per column. The x and y neighbours come through L1/L2
+// (adjacent threads read adjacent addresses, so loads along x coalesce);
+// curr is a const __restrict__ parameter, so its loads take the read-only
+// path. Self-wrap axes take the periodic neighbour by index arithmetic: on a
+// single block no halo cell is read at all, which also makes the tight-x
+// layout (Radius::without_x, no x halo columns) work unchanged. Non-wrapping
+// axes read the halo cells.
 //
 // Only the compute region of `out` is written. (The TPU kernel also copies
 // the input's halo values into the rows it stores, a store-granularity
@@ -31,17 +33,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "jacobi_column.cuh"
+
 namespace {
 
-constexpr int BX = 32;
-constexpr int BY = 8;
-constexpr float SIXTH = 1.0f / 6.0f;
-constexpr float HOT = 1.0f;
-constexpr float COLD = 0.0f;
-// blocks wanted in flight: 132 SMs x 8 resident 256-thread blocks x 4 waves
-constexpr int TARGET_BLOCKS = 132 * 8 * 4;
+using namespace jacobi;
 
-__global__ void __launch_bounds__(BX * BY)
+__global__ void __launch_bounds__(THREADS)
 jacobi_sweep_kernel(const float* __restrict__ curr, float* __restrict__ out,
                     const int32_t* __restrict__ sel, long long sz, long long sy,
                     int zo, int yo, int xo, int nz, int ny, int nx,
@@ -51,58 +49,25 @@ jacobi_sweep_kernel(const float* __restrict__ curr, float* __restrict__ out,
   const int z0 = blockIdx.z * zchunk;
   const int z1 = min(nz, z0 + zchunk);
   if (tx >= nx || ty >= ny || z0 >= z1) return;
-
-  const int x = xo + tx;
-  const int y = yo + ty;
-  const int xm = (wx && tx == 0) ? xo + nx - 1 : x - 1;
-  const int xp = (wx && tx == nx - 1) ? xo : x + 1;
-  const int ym = (wy && ty == 0) ? yo + ny - 1 : y - 1;
-  const int yp = (wy && ty == ny - 1) ? yo : y + 1;
-  const long long c = (long long)y * sy + x;
-  const long long oxm = (long long)y * sy + xm;
-  const long long oxp = (long long)y * sy + xp;
-  const long long oym = (long long)ym * sy + x;
-  const long long oyp = (long long)yp * sy + x;
-
-  // local z index -1 / nz address the halo planes of a non-wrapping z axis
-  const int zb = (wz && z0 == 0) ? nz - 1 : z0 - 1;
-  float below = curr[(long long)(zo + zb) * sz + c];
-  float mid = curr[(long long)(zo + z0) * sz + c];
-  // unrolled so several planes' loads are in flight per thread
-#pragma unroll 4
-  for (int lz = z0; lz < z1; ++lz) {
-    const int za = (wz && lz == nz - 1) ? 0 : lz + 1;
-    const float above = curr[(long long)(zo + za) * sz + c];
-    const long long p = (long long)(zo + lz) * sz;
-    float s = curr[p + oxm] + curr[p + oxp];
-    s = s + curr[p + oym];
-    s = s + curr[p + oyp];
-    s = s + below;
-    s = s + above;
-    const float avg = s * SIXTH;
-    const int32_t k = sel[p + c];
-    out[p + c] = k == 1 ? HOT : (k == 2 ? COLD : avg);
-    below = mid;
-    mid = above;
-  }
+  march_column(curr, out, sel, sz, zo, z0, z1, nz, wz,
+               column_at(tx, ty, xo, yo, nx, ny, wx, wy, sy));
 }
 
 }  // namespace
 
+// dev: the device the tensors are on.
 extern "C" int jacobi_sweep_launch(const void* curr, void* out, const void* sel,
                                    long long sz, long long sy, int zo, int yo,
                                    int xo, int nz, int ny, int nx, int wz,
-                                   int wy, int wx, void* stream) {
+                                   int wy, int wx, int dev, void* stream) {
   if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
-  const int gx = (nx + BX - 1) / BX;
-  const int gy = (ny + BY - 1) / BY;
-  long long want = (TARGET_BLOCKS + (long long)gx * gy - 1) / ((long long)gx * gy);
-  const int nzc = (int)(want < 1 ? 1 : (want > nz ? nz : want));
-  const int zchunk = (nz + nzc - 1) / nzc;
-  const dim3 grid(gx, gy, (nz + zchunk - 1) / zchunk);
-  const dim3 block(BX, BY);
-  jacobi_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  SweepGrid g;
+  const cudaError_t e = sweep_grid(dev, nx, ny, nz, &g);
+  if (e != cudaSuccess) return (int)e;
+  jacobi_sweep_kernel<<<dim3(g.gx, g.gy, g.gz), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
       (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, zo, yo, xo,
-      nz, ny, nx, wz, wy, wx, zchunk);
+      nz, ny, nx, wz, wy, wx, g.zchunk);
   return (int)cudaGetLastError();
 }

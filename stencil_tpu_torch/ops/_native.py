@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
 kernels build on first use, all in parallel (one ``nvcc`` per source,
 started together), into ``stencil_tpu_torch/_build/`` (git-ignored). A
-library is named after the hash of its source and flags, so an edited
-source rebuilds and an unchanged one is reused.
+library is named after the hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused.
 
 Floating point: no fast math, ``-prec-div=true -ftz=false -fmad=false``, so
 every operation rounds exactly as written and the kernels can be held equal
@@ -45,7 +46,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "jacobi_sweep": {
         "jacobi_sweep_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _P]),
+                                     _I, _I, _I, _I, _P]),
     },
     "jacobi_multistep": {
         "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
@@ -56,6 +57,14 @@ SIGNATURES = {
     "self_fill": {
         "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _P]),
+    },
+    "fused_jacobi": {
+        "fused_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                     ctypes.POINTER(_I), _I, _I, _P]),
+    },
+    "persistent_jacobi": {
+        "persistent_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                          _I, ctypes.POINTER(_I), _I, _I, _P]),
     },
     "astaroth_substep": {
         "astaroth_substep_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
@@ -90,8 +99,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the headers are hashed into every library: any of them may be included
+    for src in [name + ".cu"] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

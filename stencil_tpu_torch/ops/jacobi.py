@@ -11,6 +11,11 @@ On a single-block domain every axis wraps onto itself, so a step needs no
 exchange at all: :func:`make_jacobi_loop` runs the multistep kernel for
 ``iters // k`` passes and the one-step sweep for the ``iters % k`` tail,
 exactly the schedule of the JAX package's single-chip fast path.
+
+The remote-dma method dispatches first, as the JAX package's
+``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
+kernel (one launch per step) or the persistent chunk kernel (one launch per
+k-step chunk), by the exchange's kernel variant.
 """
 
 from __future__ import annotations
@@ -21,7 +26,11 @@ import numpy as np
 import torch
 
 from ..geometry import Dim3, Rect3
+from ..parallel.exchange import Method
+from ..utils import logging as log
 from ..utils import timer
+from .fused_stencil import NO_WRAP, fused_jacobi, require_face_radius
+from .persistent_stencil import check_chunk_depth, chunk_schedule, persistent_jacobi
 from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
@@ -120,11 +129,90 @@ def _single_block(ex) -> None:
             "partitions are slice 2 of ROADMAP.md")
 
 
+def _ignored(temporal_k, why: str) -> None:
+    if temporal_k is not None:
+        log.warn(f"temporal_k={temporal_k} ignored: the temporal multistep composes "
+                 f"with in-step exchanges; {why}")
+
+
+def _remote_loop(ex, iters: int, temporal_k):
+    """Plain remote-dma: per step the exchange (three fills on one block),
+    then the sweep reading the filled halos, then the swap."""
+    require_face_radius(ex.spec)
+    _ignored(temporal_k, "the REMOTE_DMA path runs per-step exchange + sweep dispatches")
+    spec = ex.spec
+
+    def loop(curr, nxt, sel):
+        for _ in range(iters):
+            ex(curr)
+            curr, nxt = sweep(curr, nxt, sel, spec, NO_WRAP), curr
+        return curr, nxt
+
+    return loop
+
+
+def _fused_loop(ex, iters: int, temporal_k):
+    """Fused remote-dma: one fused step kernel per step (halo hand-offs into
+    ``curr`` and the sweep into ``nxt``), then the swap."""
+    require_face_radius(ex.spec)
+    _ignored(temporal_k, "the FUSED path runs one fused exchange+sweep substep per step")
+    spec, plan = ex.spec, ex.plan
+
+    def loop(curr, nxt, sel):
+        for _ in range(iters):
+            c2, out = fused_jacobi(curr, nxt, sel, spec, plan)
+            curr, nxt = out, c2
+        return curr, nxt
+
+    return loop
+
+
+def _persistent_loop(ex, iters: int, temporal_k):
+    """Persistent remote-dma: ``sel``'s halos filled once per loop call (in
+    place; sel is step-invariant), then per chunk of
+    ``chunk_schedule(iters, k)`` one whole-chunk kernel (depth >= 2), or the
+    exchange and one sweep (a depth-1 tail). ``k`` is ``temporal_k``, else
+    the realized min face radius. ``ex.last_launches_per_chunk`` counts as
+    the JAX package does: 1 per kernel chunk on the card, 2 per chunk that
+    runs as exchange + chunk program (the CPU's plain versions, a depth-1
+    tail)."""
+    spec = ex.spec
+    require_face_radius(spec)
+    r = spec.radius
+    k = (int(temporal_k) if temporal_k is not None
+         else min(r.x(-1), r.x(1), r.y(-1), r.y(1), r.z(-1), r.z(1)))
+    sched = chunk_schedule(iters, k)
+    if sched:
+        check_chunk_depth(spec, max(sched))
+
+    def loop(curr, nxt, sel):
+        ex(sel)
+        launches = 0
+        for d in sched:
+            if d >= 2:
+                persistent_jacobi(curr, nxt, sel, spec, d)
+                out, scratch = (nxt, curr) if d % 2 else (curr, nxt)
+                launches += 1 if curr.is_cuda else 2
+            else:
+                ex(curr)
+                out, scratch = sweep(curr, nxt, sel, spec, NO_WRAP), curr
+                launches += 2
+            curr, nxt = out, scratch
+        ex.last_launches_per_chunk = launches // max(1, len(sched))
+        return curr, nxt
+
+    loop.temporal_k = k
+    return loop
+
+
 def make_jacobi_step(ex):
     """``step(curr, nxt, sel) -> (new_curr, new_next)`` for the domain of
     HaloExchange ``ex``: one sweep into ``nxt``, then the swap. On a single
     block every axis wraps inside the kernel, so no exchange runs and the
-    result is ``(sweep(curr, nxt), curr)``."""
+    result is ``(sweep(curr, nxt), curr)``. A remote-dma exchange takes its
+    one-step loop."""
+    if ex.method == Method.REMOTE_DMA:
+        return make_jacobi_loop(ex, 1)
     _single_block(ex)
     spec = ex.spec
 
@@ -146,7 +234,17 @@ def make_jacobi_loop(ex, iters: int, standard_spheres: bool = True,
     standard jacobi3d spheres (``sphere_sel(global_size)``): only then may
     the multistep run, since it derives the spheres from coordinates
     instead of reading ``sel``. The chosen depth is ``loop.temporal_k``
-    (0 when only sweeps run)."""
+    (0 when only sweeps run).
+
+    A remote-dma exchange runs its own loop instead (see the module
+    docstring); ``temporal_k`` is then the persistent chunk depth, and the
+    plain and fused loops ignore it with a warning, as in the JAX package."""
+    if ex.method == Method.REMOTE_DMA:
+        if ex.persistent:
+            return _persistent_loop(ex, iters, temporal_k)
+        loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k)
+        loop.temporal_k = 0
+        return loop
     _single_block(ex)
     with timer.timed("jacobi.build"), timer.trace_range("jacobi.build"):
         spec = ex.spec

@@ -1,0 +1,173 @@
+"""The persistent whole-chunk Jacobi kernel: one launch per k-step chunk.
+
+The port's counterpart of ``stencil_tpu.ops.persistent_stencil`` for one
+block on one device. A chunk fills radius-k halos once and runs k substeps
+with no further exchange: substep ``s`` sweeps the region grown ``k - 1 - s``
+cells past the compute region, recomputing neighbour cells redundantly
+(on one block, the block's own periodic images) with the sweep's operand
+order, so the chunk equals k plain steps bit for bit.
+
+- :func:`persistent_jacobi` launches ``csrc/persistent_jacobi.cu``
+  (replacing the TPU's ``make_persistent_jacobi_kernel`` in its
+  all-self-wrap form): the deep hand-offs (:func:`deep_dir_phases`) and the
+  k substeps in one cooperative launch;
+- :func:`persistent_jacobi_plain` is the same chunk in plain PyTorch: the
+  hand-offs, then :func:`make_persistent_chunk_body`.
+
+Both read ``sel`` at grown cells, so ``sel`` must arrive with its halos
+filled (the step loop exchanges it once per loop call). A wrapper takes its
+plain version only for tensors on the CPU; on a CUDA tensor it launches its
+kernel or raises. Launches are counted in ``persistent_jacobi.launches``.
+The wire-crossing form (several devices) is ROADMAP.md queue B item 9.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..domain.grid import GridSpec
+from ..geometry import DIRECTIONS_26, Dim3, Rect3
+from ..plan.ir import direction_boxes
+from . import _native
+from .fused_stencil import box_rows, box_slices
+from .stencil_kernels import _check_block, _device_of
+
+
+def chunk_schedule(iters: int, k: int) -> List[int]:
+    """The chunk depths an ``iters``-step persistent loop runs: full
+    depth-``k`` chunks plus one shallower tail chunk for the remainder."""
+    if k < 1:
+        raise ValueError(f"persistent chunk depth must be >= 1, got {k}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    n, rem = divmod(iters, k)
+    return [k] * n + ([rem] if rem else [])
+
+
+def check_chunk_depth(spec: GridSpec, depth: int) -> None:
+    """Refuse a depth the realized halo cannot feed: substep 0 reads
+    ``depth`` cells into the halo on every side."""
+    r = spec.radius
+    rmin = min(r.x(-1), r.x(1), r.y(-1), r.y(1), r.z(-1), r.z(1))
+    if rmin < depth:
+        raise ValueError(
+            f"persistent chunk depth {depth} needs radius >= {depth} on "
+            f"every side (realized min face radius is {rmin}): realize "
+            "the spec at radius*k before building the chunk")
+    if min(spec.base.x, spec.base.y, spec.base.z) < depth:
+        raise ValueError(
+            f"persistent chunk depth {depth} exceeds a {spec.base} block "
+            "interior: the shrinking valid strip would go negative "
+            "(plan/cost.py prices this infeasible)")
+
+
+def make_persistent_chunk_body(spec: GridSpec, depth: int):
+    """``chunk(curr, nxt, sel) -> (out, scratch)`` over one halo-filled
+    block: ``depth`` substeps with no exchange, substep ``s`` sweeping the
+    region grown ``depth - 1 - s`` cells per side, ping-ponging the two
+    buffers (in place)."""
+    from .jacobi import jacobi_sweep
+
+    check_chunk_depth(spec, depth)
+    off = spec.compute_offset()
+    base = spec.base
+
+    def chunk(curr, nxt, sel):
+        masks = (sel == 1, sel == 2)
+        c, n = curr, nxt
+        for s in range(depth):
+            g = depth - 1 - s
+            rect = Rect3(Dim3(off.x - g, off.y - g, off.z - g),
+                         Dim3(off.x + base.x + g, off.y + base.y + g, off.z + base.z + g))
+            n = jacobi_sweep(c, n, rect, masks)
+            c, n = n, c
+        return c, n
+
+    return chunk
+
+
+def deep_dir_phases(spec: GridSpec, mesh_dim):
+    """``[(direction, src, dst, shape, crossing)]`` at the spec's full
+    (deep) radius on a uniform partition, in (z, y, x) block-local
+    coordinates: every active direction's exact-extent message (faces,
+    edges and corners; grown substeps read corner halos)."""
+    md = Dim3.of(mesh_dim)
+    multi = {"z": md.z > 1, "y": md.y > 1, "x": md.x > 1}
+    dirs = [d for d in DIRECTIONS_26 if spec.radius.dir(-d) != 0]
+    return [(d, src, dst, shape,
+             any(comp != 0 and multi[a] for a, comp in (("z", d.z), ("y", d.y), ("x", d.x))))
+            for d, src, dst, shape in direction_boxes(spec, dirs)]
+
+
+def _require_kernel_form(spec: GridSpec, k: int) -> None:
+    if spec.dim != Dim3(1, 1, 1):
+        raise NotImplementedError(
+            f"partition {spec.dim}: the persistent kernel runs one block; the "
+            "wire-crossing form is ROADMAP.md queue B item 9")
+    if k < 2:
+        raise ValueError(
+            "persistent chunks need k >= 2 (a depth-1 chunk IS the "
+            "fused substep kernel — use kernel_variant='fused')")
+    check_chunk_depth(spec, k)
+
+
+def _deep_boxes(spec: GridSpec):
+    return [(src, dst, shape) for _d, src, dst, shape, _c in deep_dir_phases(spec, (1, 1, 1))]
+
+
+def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
+    """One k-step chunk in plain PyTorch: ``curr``'s halos <- the deep
+    hand-offs (in place), then the chunk body. Returns ``(curr, nxt,
+    sel)``; the chunk's result is in ``nxt`` when k is odd, in ``curr``
+    when k is even."""
+    _require_kernel_form(spec, k)
+    for src, dst, shape in _deep_boxes(spec):
+        s, d = box_slices(src, dst, shape)
+        curr[d] = curr[s]
+    make_persistent_chunk_body(spec, k)(curr, nxt, sel)
+    return curr, nxt, sel
+
+
+def persistent_jacobi(curr, nxt, sel, spec: GridSpec, k: int):
+    """One k-step chunk (see :func:`persistent_jacobi_plain`), in place, in
+    one launch; returns ``(curr', out', sel)`` = ``(curr, nxt, sel)``."""
+    _check_block(curr, spec, torch.float32, "curr")
+    _check_block(nxt, spec, torch.float32, "nxt")
+    _check_block(sel, spec, torch.int32, "sel")
+    _require_kernel_form(spec, k)
+    dev = _device_of(curr, nxt, sel)
+    if dev.type == "cpu":
+        return persistent_jacobi_plain(curr, nxt, sel, spec, k)
+    boxes = _deep_boxes(spec)
+    p, off, b = spec.padded(), spec.compute_offset(), spec.base
+    rc = _native.lib("persistent_jacobi").persistent_jacobi_launch(
+        curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
+        off.z, off.y, off.x, b.z, b.y, b.x, k, box_rows(boxes), len(boxes), dev.index,
+        _native.stream_ptr(dev))
+    _native.check(rc, "persistent_jacobi")
+    persistent_jacobi.launches += 1
+    return curr, nxt, sel
+
+
+persistent_jacobi.launches = 0
+
+
+def chunk_bytes(spec: GridSpec, k: int) -> int:
+    """The least bytes a chunk must move: one read of ``curr`` and ``sel``
+    and one write of the result over the block grown by its radius-k halo
+    (4 bytes each)."""
+    b = spec.base
+    return 12 * (b.x + 2 * k) * (b.y + 2 * k) * (b.z + 2 * k)
+
+
+def chunk_design_bytes(spec: GridSpec, k: int) -> int:
+    """What the kernel's simple design moves per chunk: per substep a read
+    of its source and of ``sel`` and a write of its destination over that
+    substep's grown region, plus the hand-offs' read and write of each
+    halo cell."""
+    b = spec.base
+    sweeps = sum(12 * (b.x + 2 * g) * (b.y + 2 * g) * (b.z + 2 * g) for g in range(k))
+    halo = sum(shape[0] * shape[1] * shape[2] for _s, _d, shape in _deep_boxes(spec))
+    return sweeps + 8 * halo

@@ -188,7 +188,7 @@ def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
     rc = _native.lib("jacobi_sweep").jacobi_sweep_launch(
         curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
         off.z, off.y, off.x, b.z, b.y, b.x,
-        int(wrap[0]), int(wrap[1]), int(wrap[2]), _native.stream_ptr(dev))
+        int(wrap[0]), int(wrap[1]), int(wrap[2]), dev.index, _native.stream_ptr(dev))
     _native.check(rc, "jacobi_sweep")
     sweep.launches += 1
     return nxt

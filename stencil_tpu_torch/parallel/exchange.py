@@ -7,6 +7,12 @@ exchange is three in-place fills, x then y then z, through the fill kernel
 (``ops/halo_fill.self_fill``). Each phase spans the full padded extent of
 the other axes, so edges and corners compose exactly as in the JAX package.
 
+``Method.REMOTE_DMA`` moves the same composed slabs by copies a kernel
+issues; on one block every phase wraps onto the block itself, so its
+exchange is the same three fills (the JAX package takes its composed body
+there too). Its ``fused`` and ``persistent`` kernel variants change the step
+loops (``ops/jacobi.py``), which then exchange inside their own kernels.
+
 State layout, as in the JAX package: each quantity is one tensor of shape
 ``(bz, by, bx, pz, py, px)`` = ``(1, 1, 1, pz, py, px)``. Unlike the JAX
 version, the exchange updates the tensors in place (it still returns the
@@ -26,14 +32,17 @@ import torch
 
 from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, halo_extent
+from ..ops.fused_stencil import kernel_supported
 from ..ops.halo_fill import AXIS_ORDER, MAX_FILL_GROUP, axis_geom, dtype_groups, self_fill
+from ..plan.ir import build_plan
 
 
 class Method(enum.Enum):
     """Exchange strategy, named as in the JAX package; the port has the
-    axis-composed exchange only so far."""
+    axis-composed and remote-dma exchanges so far."""
 
     AXIS_COMPOSED = "axis-composed"
+    REMOTE_DMA = "remote-dma"
 
 
 def direction_bytes(spec: GridSpec, direction, itemsize: int) -> int:
@@ -52,11 +61,38 @@ def direction_bytes(spec: GridSpec, direction, itemsize: int) -> int:
 
 
 class HaloExchange:
-    """The single-device, single-block axis-composed exchange."""
+    """The single-device, single-block exchange: axis-composed, or
+    remote-dma with its ``fused`` or ``persistent`` kernel variant."""
 
-    def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED):
-        if method != Method.AXIS_COMPOSED:
-            raise NotImplementedError(f"{method}: the port has the axis-composed exchange only")
+    def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
+                 fused: bool = False, persistent: bool = False):
+        if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
+            raise NotImplementedError(
+                f"{method}: the port has the axis-composed and remote-dma exchanges only")
+        # one device holds every block
+        self.resident = spec.dim
+        self.fused = bool(fused)
+        if self.fused and method != Method.REMOTE_DMA:
+            raise ValueError(
+                "fused=True is the REMOTE_DMA fused compute+exchange "
+                f"variant; got method {method}")
+        self.persistent = bool(persistent)
+        if self.persistent:
+            if method != Method.REMOTE_DMA:
+                raise ValueError(
+                    "persistent=True is the REMOTE_DMA whole-chunk "
+                    f"kernel variant; got method {method}")
+            if self.fused:
+                raise ValueError(
+                    "fused and persistent are mutually exclusive kernel "
+                    "variants (the persistent chunk at k == 1 IS the "
+                    "fused substep)")
+        if (self.fused or self.persistent) and not kernel_supported(spec, self.resident):
+            variant = "fused compute+exchange" if self.fused else "persistent whole-chunk"
+            raise ValueError(
+                f"the {variant} variant supports single-resident partitions "
+                f"only (got resident {self.resident}); use plain REMOTE_DMA "
+                "or AXIS_COMPOSED for oversubscription")
         if spec.dim != Dim3(1, 1, 1):
             raise NotImplementedError(
                 f"partition {spec.dim}: multi-block exchange (NCCL between "
@@ -69,10 +105,19 @@ class HaloExchange:
                     "halo would span multiple blocks")
         self.spec = spec
         self.method = method
+        self.plan = build_plan(spec, Dim3(1, 1, 1), method, resident=self.resident,
+                               fused=self.fused, persistent=self.persistent)
+        # device-program launches per k-step chunk of the last persistent
+        # loop call, counted as the JAX package counts them (ops/jacobi.py)
+        self.last_launches_per_chunk = 0
         self._loops = {}
 
-    def __call__(self, state: dict) -> dict:
-        """Fill every halo of every quantity in ``state`` (in place)."""
+    def __call__(self, state):
+        """Fill every halo of every quantity in ``state``, a quantity dict
+        or one tensor (in place; returns it)."""
+        if isinstance(state, torch.Tensor):
+            self({0: state})
+            return state
         groups = dtype_groups(state)
         for axis in AXIS_ORDER:
             _o, _n, rm, rp = axis_geom(self.spec, axis)

@@ -1,0 +1,410 @@
+"""ExchangePlan IR — the declarative geometry of a halo exchange.
+
+The port's own copy of the part of ``stencil_tpu.plan.ir`` that the
+axis-composed and remote-dma exchanges lower from: the composed axis phases
+(:class:`AxisPhaseIR`), their kernel-initiated twins
+(:class:`RemoteDmaPhaseIR`), the fused variant's exact-extent per-direction
+messages (:class:`FusedPhaseIR`) and :func:`build_plan`. It is pure
+geometry — no torch, no devices — and builds plans for any partition, so
+tests hold it field by field against the JAX package's.
+
+On one block every direction wraps onto the block itself: the fused and
+persistent kernels (``ops/fused_stencil.py``, ``ops/persistent_stencil.py``)
+turn the fused phases into in-place hand-offs from compute cells to halo
+cells.
+
+Not carried over yet (ROADMAP.md queue A items 3 and 8): the direct26 and
+auto-spmd geometries, the hierarchical (DCN) level, wire compression, and
+the planner's ``PlanConfig`` / ``PlanChoice``; each raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from ..geometry import DIRECTIONS_26, Dim3
+
+# Method value strings (mirrors parallel.exchange.Method).
+AXIS_COMPOSED = "axis-composed"
+DIRECT26 = "direct26"
+AUTO_SPMD = "auto-spmd"
+REMOTE_DMA = "remote-dma"
+METHODS = (AXIS_COMPOSED, DIRECT26, AUTO_SPMD, REMOTE_DMA)
+
+# Kernel variants of REMOTE_DMA: one kernel per step that hands off every
+# direction's exact-extent message and sweeps ("fused"), and one kernel per
+# k-step chunk over radius*k halos ("persistent"; at k == 1 it is the fused
+# kernel, so it needs k >= 2).
+FUSED_VARIANT = "fused"
+PERSISTENT_VARIANT = "persistent"
+
+# (axis name, stacked-array data dim, block dim) in exchange-phase order.
+AXIS_ORDER = (("x", 5, 2), ("y", 4, 1), ("z", 3, 0))
+
+_LATER = "ROADMAP.md queue A item 3"
+
+
+@dataclass(frozen=True)
+class AxisPhaseIR:
+    """One composed axis phase: ``sizes`` is the per-axis block-size table
+    (length ``ring * resident``), ``ring`` the devices along the mesh axis,
+    ``resident`` the blocks stacked per device; ``fwd``/``bwd`` the
+    neighbour pairs toward +axis/-axis."""
+
+    axis: str
+    adim: int
+    bdim: int
+    ring: int
+    resident: int
+    rm: int
+    rp: int
+    offset: int
+    sizes: Tuple[int, ...]
+    fwd: Tuple[Tuple[int, int], ...]
+    bwd: Tuple[Tuple[int, int], ...]
+    wire_cells: int         # cells sent between devices per exchange per quantity
+    local_cells: int        # cells moved inside a device (self-wrap / resident shifts)
+
+    @property
+    def blocks(self) -> int:
+        return self.ring * self.resident
+
+    @property
+    def uniform(self) -> bool:
+        return len(set(self.sizes)) == 1
+
+    @property
+    def active(self) -> bool:
+        return self.rm > 0 or self.rp > 0
+
+    def collectives(self) -> int:
+        if self.ring <= 1 or not self.active:
+            return 0
+        return (1 if self.rm > 0 else 0) + (1 if self.rp > 0 else 0)
+
+
+@dataclass(frozen=True)
+class RemoteDmaPhaseIR:
+    """One kernel-initiated axis phase of a REMOTE_DMA plan: the composed
+    phase's slab geometry, moved by copies a kernel issues rather than by
+    collectives (so :meth:`collectives` is 0; :meth:`dmas` counts the
+    copies toward other devices)."""
+
+    axis: str
+    adim: int
+    bdim: int
+    ring: int
+    resident: int
+    rm: int
+    rp: int
+    offset: int
+    sizes: Tuple[int, ...]
+    fwd: Tuple[Tuple[int, int], ...]
+    bwd: Tuple[Tuple[int, int], ...]
+    wire_cells: int
+    local_cells: int
+
+    @property
+    def blocks(self) -> int:
+        return self.ring * self.resident
+
+    @property
+    def uniform(self) -> bool:
+        return len(set(self.sizes)) == 1
+
+    @property
+    def active(self) -> bool:
+        return self.rm > 0 or self.rp > 0
+
+    def collectives(self) -> int:
+        return 0
+
+    def dmas(self) -> int:
+        if self.ring <= 1 or not self.active:
+            return 0
+        return (1 if self.rm > 0 else 0) + (1 if self.rp > 0 else 0)
+
+
+@dataclass(frozen=True)
+class FusedPhaseIR:
+    """One exact-extent per-direction message of a fused substep: it reads
+    only the sender's compute cells, so no message depends on another.
+    ``shape`` (z, y, x) is the radius along the direction's nonzero axes and
+    the block size on the others; ``src``/``dst`` are block-local starts
+    (uniform partitions only). A message ``crossing`` to another device
+    costs one copy; a self-wrap one is a local hand-off."""
+
+    direction: Tuple[int, int, int]       # (dx, dy, dz)
+    shape: Tuple[int, int, int]           # (z, y, x)
+    src: Optional[Tuple[int, int, int]]
+    dst: Optional[Tuple[int, int, int]]
+    crossing: bool
+    wire_cells: int
+    local_cells: int
+
+    def collectives(self) -> int:
+        return 0
+
+    def dmas(self) -> int:
+        return 1 if self.crossing else 0
+
+
+@dataclass(frozen=True)
+class ExchangePlan:
+    """The exchange program of one (spec, mesh, method): phases, the carrier
+    policy (``pack_groups`` "dtype" packs every same-dtype quantity into one
+    carrier, "quantity" sends one per quantity) and the kernel variant."""
+
+    method: str
+    pack_groups: str
+    partition: Tuple[int, int, int]
+    mesh_dim: Tuple[int, int, int]
+    resident: Tuple[int, int, int]
+    axis_phases: Tuple[AxisPhaseIR, ...]
+    remote_phases: Tuple[RemoteDmaPhaseIR, ...] = ()
+    fused_phases: Tuple[FusedPhaseIR, ...] = ()
+    fused: bool = False
+    persistent: bool = False
+
+    @property
+    def batch_quantities(self) -> bool:
+        return self.pack_groups == "dtype"
+
+    @property
+    def phases(self) -> Tuple:
+        if self.method == REMOTE_DMA:
+            return self.fused_phases if self.fused else self.remote_phases
+        return self.axis_phases
+
+    def collectives_per_exchange(self, quantities: int = 1, dtype_groups: int = 1) -> int:
+        """Collectives one exchange issues (0 for REMOTE_DMA)."""
+        carriers = dtype_groups if self.batch_quantities else quantities
+        return sum(p.collectives() for p in self.phases) * carriers
+
+    def dmas_per_exchange(self, quantities: int = 1, dtype_groups: int = 1) -> int:
+        """Kernel-issued copies toward other devices per REMOTE_DMA exchange
+        (0 for the other methods, and on one device)."""
+        if self.method != REMOTE_DMA:
+            return 0
+        carriers = dtype_groups if self.batch_quantities else quantities
+        phases = self.fused_phases if self.fused else self.remote_phases
+        return sum(p.dmas() for p in phases) * carriers
+
+    def launches_per_chunk(self, k: int = 1) -> int:
+        """Device-program dispatches one k-step chunk pays, in the JAX
+        package's unit: persistent 2 (deep exchange + chunk program; the
+        whole-chunk kernel is 1, which the step loop records instead),
+        plain and fused REMOTE_DMA 2 per step, the other methods 1."""
+        if int(k) < 1:
+            raise ValueError(f"launches_per_chunk needs k >= 1, got {k}")
+        if self.method != REMOTE_DMA:
+            return 1
+        if self.persistent:
+            return 2
+        return 2 * int(k)
+
+    def describe(self) -> str:
+        """Human-readable plan dump."""
+        lines = [
+            f"method={self.method} pack_groups={self.pack_groups} "
+            f"partition={self.partition} mesh={self.mesh_dim} "
+            f"resident={self.resident}"
+            + (" (fused compute+exchange kernel)" if self.fused else "")
+            + (" (persistent whole-chunk kernel)" if self.persistent else ""),
+        ]
+        for p in self.phases:
+            if isinstance(p, FusedPhaseIR):
+                lines.append(
+                    f"  dir {p.direction}: shape(zyx)={p.shape} permutes=0 "
+                    f"dmas={p.dmas()} wire_cells={p.wire_cells} "
+                    f"local_cells={p.local_cells}")
+            elif isinstance(p, RemoteDmaPhaseIR):
+                lines.append(
+                    f"  axis {p.axis}: ring={p.ring} resident={p.resident} "
+                    f"rm={p.rm} rp={p.rp} permutes=0 dmas={p.dmas()} "
+                    f"wire_cells={p.wire_cells} local_cells={p.local_cells}")
+            else:
+                lines.append(
+                    f"  axis {p.axis}: ring={p.ring} resident={p.resident} "
+                    f"rm={p.rm} rp={p.rp} permutes={p.collectives()} "
+                    f"wire_cells={p.wire_cells} local_cells={p.local_cells}")
+        lines.append(f"  total permutes/exchange (1 group): {self.collectives_per_exchange()}")
+        if self.method == REMOTE_DMA:
+            lines.append(
+                f"  total async remote copies/exchange (1 group): "
+                f"{self.dmas_per_exchange()} (kernel-initiated — the "
+                "census sees 0 ppermutes)")
+        return "\n".join(lines)
+
+
+def spec_axis(spec, name: str):
+    """(per-index sizes, low radius, high radius, compute offset) along one
+    axis; the halo sits at ``[offset - rm, offset)``."""
+    off = spec.compute_offset()
+    if name == "x":
+        return spec.sizes_x, spec.radius.x(-1), spec.radius.x(1), off.x
+    if name == "y":
+        return spec.sizes_y, spec.radius.y(-1), spec.radius.y(1), off.y
+    return spec.sizes_z, spec.radius.z(-1), spec.radius.z(1), off.z
+
+
+def _ring_pairs(n: int):
+    fwd = tuple((i, (i + 1) % n) for i in range(n))
+    bwd = tuple((i, (i - 1) % n) for i in range(n))
+    return fwd, bwd
+
+
+def _axis_phases(spec, mesh_dim: Dim3, resident: Dim3) -> Tuple[AxisPhaseIR, ...]:
+    p = spec.padded()
+    orth = {"x": p.y * p.z, "y": p.x * p.z, "z": p.x * p.y}
+    res = {"x": resident.x, "y": resident.y, "z": resident.z}
+    md = {"x": mesh_dim.x, "y": mesh_dim.y, "z": mesh_dim.z}
+    nblocks = spec.num_blocks()
+    phases = []
+    for name, adim, bdim in AXIS_ORDER:
+        sizes, rm, rp, off = spec_axis(spec, name)
+        c, ring = res[name], md[name]
+        fwd, bwd = _ring_pairs(ring) if ring > 1 else ((), ())
+        slab_cells = (rm + rp) * orth[name] * nblocks
+        if ring > 1:
+            # with residents only each device's two boundary slabs leave it
+            wire = (rm + rp) * orth[name] * (nblocks // c) if c > 1 else slab_cells
+        else:
+            wire = 0
+        phases.append(AxisPhaseIR(
+            axis=name, adim=adim, bdim=bdim, ring=ring, resident=c, rm=rm, rp=rp,
+            offset=off, sizes=tuple(sizes), fwd=fwd, bwd=bwd,
+            wire_cells=wire, local_cells=slab_cells - wire))
+    return tuple(phases)
+
+
+def _remote_phases(axis_phases) -> Tuple[RemoteDmaPhaseIR, ...]:
+    return tuple(
+        RemoteDmaPhaseIR(
+            axis=p.axis, adim=p.adim, bdim=p.bdim, ring=p.ring, resident=p.resident,
+            rm=p.rm, rp=p.rp, offset=p.offset, sizes=p.sizes, fwd=p.fwd, bwd=p.bwd,
+            wire_cells=p.wire_cells, local_cells=p.local_cells)
+        for p in axis_phases)
+
+
+def direction_boxes(spec, directions):
+    """``[(direction, src, dst, shape)]`` in (z, y, x) block-local
+    coordinates for each of ``directions`` on a uniform partition: the
+    message toward ``d`` reads the sender's compute cells on its ``d`` side
+    and fills the receiver's ``-d`` halo, radius deep along ``d``'s nonzero
+    axes and the block's extent on the others."""
+    r, base, off = spec.radius, spec.base, spec.compute_offset()
+    out = []
+    for d in directions:
+        shape, src, dst = [], [], []
+        for dc, s, rmin, rplus, o in zip(
+                (d.z, d.y, d.x), (base.z, base.y, base.x),
+                (r.z(-1), r.y(-1), r.x(-1)), (r.z(1), r.y(1), r.x(1)),
+                (off.z, off.y, off.x)):
+            if dc == 1:
+                shape.append(rmin)
+                src.append(o + s - rmin)
+                dst.append(o - rmin)
+            elif dc == -1:
+                shape.append(rplus)
+                src.append(o)
+                dst.append(o + s)
+            else:
+                shape.append(s)
+                src.append(o)
+                dst.append(o)
+        out.append((d, tuple(src), tuple(dst), tuple(shape)))
+    return out
+
+
+def _fused_phases(spec, mesh_dim: Dim3) -> Tuple[FusedPhaseIR, ...]:
+    """The active directions (``radius.dir(-d) != 0``) in face -> edge ->
+    corner order, each an exact-extent message; a direction crosses iff one
+    of its nonzero axes has more than one device."""
+    uniform = spec.is_uniform()
+    nblocks = spec.num_blocks()
+    md = {"z": mesh_dim.z, "y": mesh_dim.y, "x": mesh_dim.x}
+    dirs = [d for d in DIRECTIONS_26 if spec.radius.dir(-d) != 0]
+    dirs.sort(key=lambda d: abs(d.x) + abs(d.y) + abs(d.z))
+    phases = []
+    for d, src, dst, shape in direction_boxes(spec, dirs):
+        if any(e == 0 for e in shape):
+            continue
+        comp = {"z": d.z, "y": d.y, "x": d.x}
+        crossing = any(comp[a] != 0 and md[a] > 1 for a in ("z", "y", "x"))
+        cells = shape[0] * shape[1] * shape[2] * nblocks
+        phases.append(FusedPhaseIR(
+            direction=(d.x, d.y, d.z), shape=shape,
+            src=src if uniform else None, dst=dst if uniform else None,
+            crossing=crossing,
+            wire_cells=cells if crossing else 0,
+            local_cells=0 if crossing else cells))
+    return tuple(phases)
+
+
+def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
+               resident: Optional[Dim3] = None, fused: bool = False,
+               persistent: bool = False, hierarchy=None) -> ExchangePlan:
+    """The ExchangePlan of one (GridSpec, mesh shape (x, y, z), method) for
+    the axis-composed and remote-dma methods, the latter with its fused or
+    persistent variant. ``method`` may be the enum or its value string;
+    ``resident`` defaults to ``spec.dim / mesh_dim``."""
+    mval = getattr(method, "value", method)
+    if mval not in METHODS:
+        raise ValueError(f"unknown exchange method {method!r}")
+    if hierarchy is not None:
+        raise NotImplementedError(f"hierarchical exchange plans: {_LATER}")
+    if fused and mval != REMOTE_DMA:
+        raise ValueError(
+            "the fused compute+exchange variant is a REMOTE_DMA lowering "
+            f"(kernel-initiated copies); got method {mval!r}")
+    if persistent and mval != REMOTE_DMA:
+        raise ValueError(
+            "the persistent whole-chunk variant is a REMOTE_DMA lowering "
+            f"(kernel-initiated copies); got method {mval!r}")
+    if persistent and fused:
+        raise ValueError(
+            "fused and persistent are distinct kernel variants of one "
+            "plan — choose one (persistent at k == 1 IS the fused kernel)")
+    if mval in (DIRECT26, AUTO_SPMD):
+        raise NotImplementedError(f"{mval} exchange plans: {_LATER}")
+    md = Dim3.of(mesh_dim)
+    if spec.dim.x % md.x or spec.dim.y % md.y or spec.dim.z % md.z:
+        raise ValueError(f"mesh {md} does not divide partition {spec.dim}")
+    if resident is None:
+        resident = Dim3(spec.dim.x // md.x, spec.dim.y // md.y, spec.dim.z // md.z)
+    for flag, name in ((fused, "fused compute+exchange"), (persistent, "persistent whole-chunk")):
+        if flag and resident != Dim3(1, 1, 1):
+            raise ValueError(
+                f"the {name} kernel supports single-resident "
+                f"partitions only (got resident {resident}); use the plain "
+                "REMOTE_DMA carrier or AXIS_COMPOSED for oversubscription")
+    axis_phases = _axis_phases(spec, md, resident)
+    return ExchangePlan(
+        method=mval,
+        pack_groups="dtype" if batch_quantities else "quantity",
+        partition=(spec.dim.x, spec.dim.y, spec.dim.z),
+        mesh_dim=(md.x, md.y, md.z),
+        resident=(resident.x, resident.y, resident.z),
+        axis_phases=axis_phases,
+        remote_phases=_remote_phases(axis_phases) if mval == REMOTE_DMA else (),
+        fused_phases=_fused_phases(spec, md) if fused else (),
+        fused=fused,
+        persistent=persistent,
+    )
+
+
+class PlanConfig:
+    """The planner's configuration key: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("PlanConfig (the plan/ autotuner): ROADMAP.md queue A item 8")
+
+
+class PlanChoice:
+    """The planner's chosen plan: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("PlanChoice (the plan/ autotuner): ROADMAP.md queue A item 8")

@@ -15,7 +15,10 @@ from stencil_tpu_torch.apps import astaroth, jacobi3d
 from stencil_tpu_torch.astaroth.equations import Constants
 from stencil_tpu_torch.domain import GridSpec
 from stencil_tpu_torch.geometry import Dim3, Radius
-from stencil_tpu_torch.ops import _native, astaroth_substep, halo_fill, stencil_kernels
+from stencil_tpu_torch.ops import (_native, astaroth_substep, fused_stencil, halo_fill,
+                                   persistent_stencil, stencil_kernels)
+from stencil_tpu_torch.parallel import Method
+from stencil_tpu_torch.plan.ir import build_plan
 
 torch.set_num_threads(2)
 
@@ -42,7 +45,8 @@ def test_no_jax_or_reference_imports(path):
 def test_kernel_sources_present():
     csrc = pathlib.Path(stencil_tpu_torch.__file__).parent / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "astaroth_substep.cu", "jacobi_multistep.cu", "jacobi_sweep.cu", "self_fill.cu"]
+        "astaroth_substep.cu", "fused_jacobi.cu", "jacobi_multistep.cu", "jacobi_sweep.cu",
+        "persistent_jacobi.cu", "self_fill.cu"]
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_native.SIGNATURES)
 
 
@@ -54,6 +58,11 @@ def test_no_device_means_cuda(monkeypatch):
         jacobi3d.run(8, 8, 8, iters=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         astaroth.run(iters=1, nx=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jacobi3d.run(8, 8, 8, iters=1, method=Method.REMOTE_DMA, kernel_variant="fused")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jacobi3d.run(8, 8, 8, iters=1, method=Method.REMOTE_DMA, kernel_variant="persistent",
+                     deep_halo=2)
     assert DistributedDomain(8, 8, 8, device="cpu").device.type == "cpu"
 
 
@@ -80,20 +89,32 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     spec = _spec()
     calls = []
     for mod, name in ((stencil_kernels, "sweep_plain"), (stencil_kernels, "multistep_plain"),
-                      (halo_fill, "self_fill_plain"), (astaroth_substep, "substep_plain")):
+                      (halo_fill, "self_fill_plain"), (astaroth_substep, "substep_plain"),
+                      (fused_stencil, "fused_jacobi_plain"),
+                      (persistent_stencil, "persistent_jacobi_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
     launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
-                halo_fill.self_fill.launches, astaroth_substep.substep.launches)
+                halo_fill.self_fill.launches, astaroth_substep.substep.launches,
+                fused_stencil.fused_jacobi.launches, persistent_stencil.persistent_jacobi.launches)
     f32 = torch.float32
     stencil_kernels.sweep(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32), spec)
     stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
     halo_fill.self_fill([_block(spec, f32)], spec, "x")
     spec3, consts = _astaroth_spec()
     astaroth_substep.substep(_fields(spec3), _fields(spec3), spec3, consts, (1.0,) * 3, 0, 1e-3)
-    assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain"]
+    plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
+    fused_stencil.fused_jacobi(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32),
+                               spec, plan)
+    spec2 = GridSpec(Dim3(16, 12, 10), Dim3(1, 1, 1), Radius.constant(2))
+    persistent_stencil.persistent_jacobi(_block(spec2, f32), _block(spec2, f32),
+                                         _block(spec2, torch.int32), spec2, 2)
+    assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
+                     "fused_jacobi_plain", "persistent_jacobi_plain"]
     # the plain versions are not launches
     assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
-                        halo_fill.self_fill.launches, astaroth_substep.substep.launches)
+                        halo_fill.self_fill.launches, astaroth_substep.substep.launches,
+                        fused_stencil.fused_jacobi.launches,
+                        persistent_stencil.persistent_jacobi.launches)
     # any other device is refused, never served by the plain version
     meta = [_block(spec, f32, "meta"), _block(spec, f32, "meta")]
     with pytest.raises(ValueError):
@@ -105,13 +126,18 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     with pytest.raises(ValueError):
         astaroth_substep.substep(_fields(spec3, "meta"), _fields(spec3, "meta"), spec3, consts,
                                  (1.0,) * 3, 0, 1e-3)
-    assert len(calls) == 4
+    with pytest.raises(ValueError):
+        fused_stencil.fused_jacobi(*meta, _block(spec, torch.int32, "meta"), spec, plan)
+    with pytest.raises(ValueError):
+        persistent_stencil.persistent_jacobi(_block(spec2, f32, "meta"), _block(spec2, f32, "meta"),
+                                             _block(spec2, torch.int32, "meta"), spec2, 2)
+    assert len(calls) == 6
 
 
 def test_wrappers_have_no_fallback():
     """No try/except in the kernel modules: a failed build or launch
     propagates instead of quietly running the plain version."""
-    for mod in (stencil_kernels, halo_fill, astaroth_substep):
+    for mod in (stencil_kernels, halo_fill, astaroth_substep, fused_stencil, persistent_stencil):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__name__
 
@@ -129,3 +155,23 @@ def test_wrappers_check_operands():
     with pytest.raises(NotImplementedError, match="slice 2"):
         stencil_kernels.multistep(c, _block(spec, f32),
                                   GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(1)), 2)
+
+
+def test_variant_wrappers_check_operands():
+    spec = _spec()
+    f32, i32 = torch.float32, torch.int32
+    plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
+    c = _block(spec, f32)
+    with pytest.raises(ValueError, match="distinct"):
+        fused_stencil.fused_jacobi(c, c, _block(spec, i32), spec, plan)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_stencil.fused_jacobi(c, _block(spec, f32), _block(spec, f32), spec, plan)
+    spec2 = GridSpec(Dim3(16, 12, 10), Dim3(1, 1, 1), Radius.constant(2))
+    with pytest.raises(ValueError, match="k >= 2"):
+        persistent_stencil.persistent_jacobi(_block(spec2, f32), _block(spec2, f32),
+                                             _block(spec2, i32), spec2, 1)
+    with pytest.raises(ValueError, match="radius >= 3"):
+        persistent_stencil.persistent_jacobi(_block(spec2, f32), _block(spec2, f32),
+                                             _block(spec2, i32), spec2, 3)
+    with pytest.raises(ValueError, match="shape"):
+        persistent_stencil.persistent_jacobi(c, _block(spec2, f32), _block(spec2, i32), spec2, 2)
