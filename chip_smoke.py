@@ -47,6 +47,24 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               through the fused and the persistent (k=4) loops, bit-equal on
               the compute region to the default multistep path; each kernel
               timed per launch at 512^3 beside its plain version and bound.
+7. resident -- multi-block partitions with every block on the card: the
+              deep-halo multistep against its plain version (torch.equal,
+              from random fields with noise in every halo) on (2,2,2) 512^3
+              r4 at k=2 and 3 (spheres crossing block edges), 100x70x60
+              unaligned, (1,1,2) mixed wrap, and the (1,1,2) 128x16x20 case
+              whose spheres cross the periodic z edge; sweep_region on every
+              shell and the stacked sweep, the z-stack fill (x, y; fp32 and
+              fp64) and the resident exchange (config 2, (1,1,2) and
+              (2,1,1), on the card against the same exchange on the CPU,
+              every cell, with its fill launches counted), all equal; 8
+              steps on (2,2,2) and (1,1,2) from a random field, bit-equal
+              on the gathered compute region to the single-block default
+              path; the main paths apps.jacobi3d.run at 512^3 (2,2,2) with
+              deep_halo 4 and 1 (50 iters, chunks of 25 each), launch
+              counts reset around each; the config-2 exchange (256^3,
+              (2,2,2), r2, x4), 512^3 (1,1,2) r3 x4 and the deep_halo=4
+              run's own exchange (512^3 (2,2,2) r4, one quantity) in GB/s;
+              the new forms timed beside their plain versions and bounds.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -97,8 +115,8 @@ def main() -> int:
     from stencil_tpu_torch.parallel import Method
     from stencil_tpu_torch.plan.ir import build_plan
     from stencil_tpu_torch.ops.jacobi import (INIT_TEMP, jacobi_reference, make_jacobi_loop,
-                                              sphere_masks, sphere_sel)
-    from stencil_tpu_torch.parallel import HaloExchange, shard_blocks
+                                              sphere_masks, sphere_sel_blocks)
+    from stencil_tpu_torch.parallel import HaloExchange
     from stencil_tpu_torch.utils.roofline import bound_ms
     from stencil_tpu_torch.utils.timer import cuda_time_ms as time_ms
 
@@ -134,7 +152,7 @@ def main() -> int:
         return torch.rand((1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev).to(dtype)
 
     def sel_block(spec):
-        return shard_blocks(sphere_sel(spec.global_size), spec, dev)
+        return sphere_sel_blocks(spec, dev)
 
     # -- 2. kernels against their plain versions ----------------------------
     sweep_cases = [
@@ -169,7 +187,8 @@ def main() -> int:
         torch.cuda.synchronize()
         errs["jacobi_multistep"] = max(errs["jacobi_multistep"], max_abs(got, want))
         check(torch.equal(got, want), f"multistep {label}: kernel != plain")
-        log(f"multistep {label}: equal (zchunks {sk.multistep_zchunks(spec, k)})")
+        log(f"multistep {label}: equal (zchunks "
+            f"{sk.multistep_zchunks(spec, k, sk.multistep_blocks_in_flight(dev, k))})")
 
     def asym_radius():
         r = Radius.constant(0)
@@ -567,6 +586,250 @@ def main() -> int:
         f"step; the design's own traffic ({pst.chunk_design_bytes(spec4, 4)} bytes per chunk) "
         f"bounds it at {design:.4f} ms")
 
+    # -- 7. resident: multi-block partitions, every block on the card ---------
+    from stencil_tpu_torch.ops.jacobi import jacobi_sweep, multi_block_layout
+
+    for key in ("jacobi_multistep_deep_halo", "jacobi_sweep_region", "self_fill_z_stack"):
+        errs[key] = 0.0
+
+    def rspec(size, part, r, aligned=True):
+        return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(r), aligned=aligned)
+
+    def rand_stack(spec, seed, dtype=torch.float32):
+        gen.manual_seed(seed)
+        return torch.rand(spec.stacked_shape_zyx(), generator=gen, device=dev).to(dtype)
+
+    def blocks_of(spec):
+        d, b = spec.dim, spec.base
+        off = spec.compute_offset()
+        for iz in range(d.z):
+            for iy in range(d.y):
+                for ix in range(d.x):
+                    yield ((iz, iy, ix, slice(off.z, off.z + b.z), slice(off.y, off.y + b.y),
+                            slice(off.x, off.x + b.x)),
+                           (slice(iz * b.z, (iz + 1) * b.z), slice(iy * b.y, (iy + 1) * b.y),
+                            slice(ix * b.x, (ix + 1) * b.x)))
+
+    def place(g, spec):
+        """A global [z, y, x] tensor scattered into the stacked layout."""
+        t = torch.zeros(spec.stacked_shape_zyx(), dtype=g.dtype, device=dev)
+        for local, glob in blocks_of(spec):
+            t[local] = g[glob]
+        return t
+
+    def gather(t, spec):
+        g = torch.empty(tuple(spec.global_size)[::-1], dtype=t.dtype, device=dev)
+        for local, glob in blocks_of(spec):
+            g[glob] = t[local]
+        return g
+
+    # the deep-halo multistep against its plain version, noise in every halo
+    spec_h = rspec((512,) * 3, (2, 2, 2), 4)  # the headline's layout
+    kh = sk.MULTISTEP_KPLAN
+    deep_cases = [(f"512^3 (2,2,2) r4 k={k}", spec_h, k) for k in range(2, kh + 1)]
+    deep_cases += [("100x70x60 (2,2,2) r2 unaligned k=2", rspec((100, 70, 60), (2, 2, 2), 2, False), 2),
+                   ("200x100x60 (1,1,2) r3 k=3 mixed wrap", rspec((200, 100, 60), (1, 1, 2), 3), 3),
+                   ("128x16x20 (1,1,2) r2 k=2 spheres across z", rspec((128, 16, 20), (1, 1, 2), 2), 2)]
+    for i, (label, spec, k) in enumerate(deep_cases):
+        c = rand_stack(spec, 200 + i)
+        got = sk.multistep(c, torch.zeros_like(c), spec, k)
+        want = sk.multistep_plain(c, torch.zeros_like(c), spec, k)
+        torch.cuda.synchronize()
+        errs["jacobi_multistep_deep_halo"] = max(errs["jacobi_multistep_deep_halo"],
+                                                 max_abs(got, want))
+        check(torch.equal(got, want), f"deep-halo multistep {label}: kernel != plain")
+        log(f"deep-halo multistep {label}: equal (zchunks "
+            f"{sk.multistep_zchunks(spec, k, sk.multistep_blocks_in_flight(dev, k))})")
+    del c, got, want
+
+    # the stacked sweep and sweep_region on every shell
+    spec_m = rspec((200, 100, 60), (1, 1, 2), 3)
+    for spec in (spec_h, spec_m):
+        wrap, _axes, shells = multi_block_layout(spec)
+        c = rand_stack(spec, 210)
+        gen.manual_seed(211)
+        s7 = torch.randint(0, 3, spec.stacked_shape_zyx(), generator=gen, device=dev,
+                           dtype=torch.int32)
+        got = sk.sweep(c, torch.zeros_like(c), s7, spec, wrap)
+        want = sk.sweep_plain(c, torch.zeros_like(c), s7, spec, wrap)
+        for rect in shells:
+            sk.sweep_region(c, got, s7, spec, rect)
+            jacobi_sweep(c, want, rect, (s7 == 1, s7 == 2))
+        torch.cuda.synchronize()
+        errs["jacobi_sweep"] = max(errs["jacobi_sweep"], max_abs(got, want))
+        errs["jacobi_sweep_region"] = max(errs["jacobi_sweep_region"], max_abs(got, want))
+        check(torch.equal(got, want), f"stacked sweep + shells {spec.dim}: kernel != plain")
+        log(f"stacked sweep (wrap {wrap}) + {len(shells)} sweep_region shells, "
+            f"{spec.global_size} over {spec.dim}: equal")
+    del c, s7, got, want
+
+    # the z-stack fill over a (1,1,2) stack, x and y, fp32 and fp64
+    spec_z = rspec((512,) * 3, (1, 1, 2), 3)
+    for dtype in (torch.float32, torch.float64):
+        qs = [rand_stack(spec_z, 220 + q, dtype) for q in range(4)]
+        for axis in ("x", "y"):
+            got = halo_fill.self_fill([q.clone() for q in qs], spec_z, axis, z_stack=2)
+            want = halo_fill.self_fill_plain([q.clone() for q in qs], spec_z, axis)
+            torch.cuda.synchronize()
+            for g_, w_ in zip(got, want):
+                errs["self_fill_z_stack"] = max(errs["self_fill_z_stack"], max_abs(g_, w_))
+                check(torch.equal(g_, w_), f"z-stack fill {dtype} {axis}: kernel != plain")
+        log(f"z-stack fill 512^3 (1,1,2) r3 x4 {dtype} x/y: equal")
+        del qs, got, want
+
+    # the resident exchange on the card against the same exchange on the CPU;
+    # every self-wrap axis is filled by the fill kernel (one launch per dtype
+    # group and x/y axis; z beside x residents: one per 16 resident blocks)
+    f32, f64 = torch.float32, torch.float64
+    mixed = [f32, f32, f32, f64]
+    for label, spec, dts, nfill in (
+            ("config 2: 256^3 (2,2,2) r2 x4", rspec((256,) * 3, (2, 2, 2), 2), [f32] * 4, 0),
+            ("256^3 (1,1,2) r3 3 fp32 + 1 fp64", rspec((256,) * 3, (1, 1, 2), 3), mixed, 4),
+            ("256^3 (2,1,1) r3 3 fp32 + 1 fp64", rspec((256,) * 3, (2, 1, 1), 3), mixed, 4)):
+        ex7 = HaloExchange(spec)
+        st = {i: rand_stack(spec, 230 + i, dt) for i, dt in enumerate(dts)}
+        on_cpu = {i: t.cpu() for i, t in st.items()}
+        halo_fill.self_fill.launches = 0
+        ex7(st)
+        torch.cuda.synchronize()
+        check(halo_fill.self_fill.launches == nfill,
+              f"exchange {label}: {halo_fill.self_fill.launches} fill launches, not {nfill}")
+        ex7(on_cpu)
+        for i in st:
+            check(torch.equal(st[i].cpu(), on_cpu[i]), f"exchange {label} q{i}: card != CPU")
+        log(f"resident exchange {label}: card == CPU on every cell, {nfill} fill launches")
+    del st, on_cpu, ex7
+
+    # 8 steps from a random field: residents against the single-block path
+    gen.manual_seed(240)
+    g8 = torch.rand((512, 512, 512), generator=gen, device=dev)
+    sel_g = sel_block(spec512)[(0, 0, 0, *[slice(o, o + 512) for o in
+                                           (off1.z, off1.y, off1.x)])].contiguous()
+    ref8, _ = make_jacobi_loop(HaloExchange(spec512), 8)(
+        place(g8, spec512), torch.zeros(spec512.stacked_shape_zyx(), device=dev),
+        place(sel_g, spec512))
+    ref8 = gather(ref8, spec512)
+    for label, spec, overlap, kw in (("(2,2,2) r3 overlap", rspec((512,) * 3, (2, 2, 2), 3), True, 3),
+                                     ("(1,1,2) r3 overlap", rspec((512,) * 3, (1, 1, 2), 3), True, 3),
+                                     ("(2,2,2) r1 no overlap", rspec((512,) * 3, (2, 2, 2), 1), False,
+                                      0)):
+        loop = make_jacobi_loop(HaloExchange(spec), 8, overlap=overlap)
+        check(loop.temporal_k == kw, f"resident 8 steps {label}: k={loop.temporal_k}, not {kw}")
+        out, _ = loop(place(g8, spec), torch.zeros(spec.stacked_shape_zyx(), device=dev),
+                      place(sel_g, spec))
+        torch.cuda.synchronize()
+        check(torch.equal(gather(out, spec), ref8), f"resident 8 steps {label} != single block")
+        log(f"jacobi 512^3 8 steps {label} (k={kw}): == the single-block default path")
+        del out, loop
+    del g8, ref8
+
+    # the main paths: jacobi3d 512^3 over (2,2,2), deep halo 4 and 1
+    counted7 = {"jacobi_multistep": sk.multistep, "jacobi_sweep": sk.sweep,
+                "jacobi_sweep_region": sk.sweep_region, "self_fill": halo_fill.self_fill}
+    hot_d, cold_d = sk.sphere_masks_from_coords(spec512, dev)
+    for label, kw, k_want, want in (
+            ("deep_halo 4", dict(iters=50, chunk=25, deep_halo=4), kh,
+             {"jacobi_multistep": 24, "jacobi_sweep": 3, "jacobi_sweep_region": 18}),
+            ("deep_halo 1", dict(iters=50, chunk=25, deep_halo=1), 0,
+             {"jacobi_sweep": 75, "jacobi_sweep_region": 450})):
+        for fn in counted7.values():
+            fn.launches = 0
+        rv = jacobi3d.run(512, 512, 512, weak=False, partition=(2, 2, 2), **kw)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counted7.items()}
+        check(got == {name: want.get(name, 0) for name in counted7},
+              f"jacobi3d (2,2,2) {label}: launches {got}, expected {want}")
+        check(rv["temporal_k"] == k_want, f"jacobi3d (2,2,2) {label}: k={rv['temporal_k']}")
+        fin = gather(rv["domain"].get_curr(rv["handle"]), rv["domain"].spec)
+        check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0 and bool((fin[hot_d] == 1.0).all())
+              and bool((fin[cold_d] == 0.0).all()),
+              f"jacobi3d (2,2,2) {label}: field not finite, out of range or spheres lost")
+        if label == "deep_halo 4":
+            launches["jacobi_multistep_deep_halo"] = got["jacobi_multistep"]
+            launches["jacobi_sweep_region"] = got["jacobi_sweep_region"]
+        log(jacobi3d.csv_row(rv))
+        log(f"jacobi3d 512^3 (2,2,2) resident {label}: {rv['iter_trimean_s'] * 1e3:.4f} ms/iter "
+            f"(trimean), {rv['mcells_per_s_per_dev']:.1f} Mcells/s, temporal_k "
+            f"{rv['temporal_k']}, launches {got}")
+        del rv, fin
+
+    # the resident exchanges in GB/s; the last is the exchange of each
+    # deep-halo pass of the deep_halo=4 run (its curr, all three axes)
+    for label, n7, part, r7, nq7, zfills in (
+            ("config 2: 256^3 (2,2,2) r2 x4", 256, (2, 2, 2), 2, 4, 0),
+            ("512^3 (1,1,2) r3 x4", 512, (1, 1, 2), 3, 4, 2),
+            ("512^3 (2,2,2) r4 x1 (deep_halo 4's)", 512, (2, 2, 2), 4, 1, 0)):
+        dd = DistributedDomain(n7, n7, n7)
+        dd.set_radius(r7)
+        dd.set_partition(part)
+        hs = [dd.add_data(f"q{i}", "float32") for i in range(nq7)]
+        dd.realize()
+        for i, hq in enumerate(hs):
+            dd.set_curr(hq, rand_stack(dd.spec, 250 + i))
+        halo_fill.self_fill.launches = 0
+        dd.exchange_loop(1)(dd.curr_state())
+        torch.cuda.synchronize()
+        check(halo_fill.self_fill.launches == zfills,
+              f"exchange {label}: {halo_fill.self_fill.launches} fill launches, not {zfills}")
+        if part == (1, 1, 2):
+            launches["self_fill_z_stack"] = halo_fill.self_fill.launches
+        loop10 = dd.exchange_loop(10)
+        ex_ms = time_ms(lambda: loop10(dd.curr_state()), 3, warmup=1) / 10
+        nbytes = dd.exchange_bytes_for_method(dd.halo_exchange.method)
+        log(f"resident exchange {label}: {ex_ms:.4f} ms, {nbytes / ex_ms / 1e6:.2f} GB/s logical "
+            f"({nbytes} bytes; {dd.exchange_bytes_moved()} moved), fill launches {zfills}")
+        del dd, loop10
+
+    # per-launch times of the new forms at the main paths' shapes
+    c, n7 = rand_stack(spec_h, 260), torch.zeros(spec_h.stacked_shape_zyx(), device=dev)
+    grown = spec_h.num_blocks() * (256 + 2 * kh) ** 3
+    timings["jacobi_multistep_deep_halo"] = dict(
+        ms=time_ms(lambda: sk.multistep(c, n7, spec_h, kh), 5, warmup=1, graph=True),
+        plain_ms=time_ms(lambda: sk.multistep_plain(c, n7, spec_h, kh), 1, warmup=1),
+        bound=bound_ms(4 * (grown + cells), 6 * kh * cells), library_ms=None)
+    _wrap, _axes, shells_h = multi_block_layout(spec_h)
+    s7 = place(sel_g, spec_h)
+    shell_cells = sum(rc.num_points() for rc in shells_h) * spec_h.num_blocks() / len(shells_h)
+    timings["jacobi_sweep_region"] = dict(
+        ms=time_ms(lambda: [sk.sweep_region(c, n7, s7, spec_h, rc) for rc in shells_h], 10,
+                   graph=True) / len(shells_h),
+        plain_ms=time_ms(lambda: [jacobi_sweep(c, n7, rc, (s7 == 1, s7 == 2))
+                                  for rc in shells_h], 2, warmup=1) / len(shells_h),
+        bound=bound_ms(12 * shell_cells, 6 * shell_cells), library_ms=None)
+    del c, n7, s7
+    qs = [rand_stack(spec_z, 270 + q) for q in range(4)]
+
+    def zfill():
+        for axis in ("x", "y"):
+            halo_fill.self_fill(qs, spec_z, axis, z_stack=2)
+
+    def zfill_plain():
+        for axis in ("x", "y"):
+            halo_fill.self_fill_plain(qs, spec_z, axis)
+
+    def zfill_copy():  # the library yardstick: the same slabs by Tensor.copy_
+        for axis in ("x", "y"):
+            o, n, rm, rp = halo_fill.axis_geom(spec_z, axis)
+            for b in qs:
+                b[halo_fill._axis_slice(b, axis, o - rm, o)].copy_(
+                    b[halo_fill._axis_slice(b, axis, o + n - rm, o + n)])
+                b[halo_fill._axis_slice(b, axis, o + n, o + n + rp)].copy_(
+                    b[halo_fill._axis_slice(b, axis, o, o + rp)])
+
+    zbytes = sum(halo_fill.fill_bytes(spec_z, a, 4) for a in ("x", "y")) * 2 * 4
+    timings["self_fill_z_stack"] = dict(
+        ms=time_ms(zfill, 20, graph=True) / 2, plain_ms=time_ms(zfill_plain, 5) / 2,
+        bound=bound_ms(zbytes / 2, 0), library_ms=time_ms(zfill_copy, 5, graph=True) / 2)
+    del qs
+    for name in ("jacobi_multistep_deep_halo", "jacobi_sweep_region", "self_fill_z_stack"):
+        t = timings[name]
+        log(f"time {name}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}"
+            + (f", Tensor.copy_ {t['library_ms']:.4f} ms" if t["library_ms"] else "") + ")")
+    log(f"jacobi_multistep_deep_halo 512^3 (2,2,2) k={kh}: "
+        f"{timings['jacobi_multistep_deep_halo']['ms'] / kh:.4f} ms per step")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -584,6 +847,15 @@ def main() -> int:
                          "stencil_tpu/ops/fused_stencil.py:250"),
         "persistent_jacobi": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
                               "stencil_tpu/ops/persistent_stencil.py:199"),
+        # the deep-halo forms (full-plane :709 and row-tiled :993) of
+        # make_pallas_jacobi_multistep, the sweep on the overlap shells, and
+        # the z-stack fill
+        "jacobi_multistep_deep_halo": ("stencil_tpu_torch/csrc/jacobi_multistep.cu",
+                                       "stencil_tpu/ops/pallas_stencil.py:709"),
+        "jacobi_sweep_region": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                                "stencil_tpu/ops/pallas_stencil.py:119"),
+        "self_fill_z_stack": ("stencil_tpu_torch/csrc/self_fill.cu",
+                              "stencil_tpu/ops/halo_fill.py:236"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

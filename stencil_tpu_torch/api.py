@@ -3,10 +3,13 @@
 The port's counterpart of ``stencil_tpu.api`` (reference:
 include/stencil/stencil.hpp:33-225, src/stencil.cu). The surface is kept:
 ``set_radius`` -> ``add_data`` -> ``realize`` -> loop {compute /
-``exchange`` / ``swap``}. The port realizes one block on one device: the
-partition is (1,1,1) and the exchange is the self-wrap of
-``parallel.exchange.HaloExchange``, axis-composed or remote-dma (with its
-fused and persistent kernel variants).
+``exchange`` / ``swap``}. The port realizes its domain on one device: one
+block (the default), or any uniform partition (``set_partition``) with
+every block resident on the device, as the JAX package stacks residents
+when a partition has more blocks than devices (reference
+``dd.set_gpus({0,0})``, stencil.hpp:154). The exchange is
+``parallel.exchange.HaloExchange``: axis-composed, or remote-dma (with its
+fused and persistent kernel variants) on one block.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -48,8 +51,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class DistributedDomain:
-    """A multi-quantity 3D periodic domain; this slice holds one block on
-    one device."""
+    """A multi-quantity 3D periodic domain, every block on one device."""
 
     def __init__(self, x: int, y: int, z: int, device=None):
         self.size = Dim3(x, y, z)
@@ -121,11 +123,15 @@ class DistributedDomain:
         self.device = resolve_device(devices[0])
 
     def set_partition(self, dim) -> None:
-        """Pin the partition grid; this slice realizes (1,1,1) only."""
+        """Pin the partition grid (blocks along x, y, z). Every block is
+        resident on the one device; the partition must divide the domain
+        evenly."""
         dim = Dim3.of(dim)
-        if dim != Dim3(1, 1, 1):
+        s = self.size
+        if s.x % dim.x or s.y % dim.y or s.z % dim.z:
             raise NotImplementedError(
-                f"partition {dim}: multi-block domains are slice 2 of ROADMAP.md")
+                f"uneven partition {dim} of {s}: uneven resident partitions are "
+                "item 1 of ROADMAP.md's list of what the resident path still lacks")
         self._partition_dim = dim
 
     # -- realize -------------------------------------------------------------
@@ -202,18 +208,23 @@ class DistributedDomain:
         self._curr, self._next = self._next, self._curr
         self.time_swap += time.perf_counter() - t0
 
+    def _computes(self) -> List[Rect3]:
+        """Each block's compute region, allocation-local, in block order
+        i -> (i % dx, (i // dx) % dy, i // (dx * dy))."""
+        d, off = self.spec.dim, self.spec.compute_offset()
+        return [Rect3(off, off + self.spec.block_size((i % d.x, (i // d.x) % d.y,
+                                                       i // (d.x * d.y))))
+                for i in range(self.spec.num_blocks())]
+
     def get_interior(self) -> List[Rect3]:
         """Per-block interior compute region, allocation-local coordinates
         (reference: src/stencil.cu:878-921)."""
-        off = self.spec.compute_offset()
-        compute = Rect3(off, off + self.spec.block_size((0, 0, 0)))
-        return [interior_region(compute, self.radius)]
+        return [interior_region(c, self.radius) for c in self._computes()]
 
     def get_exterior(self) -> List[List[Rect3]]:
         """Per-block exterior slabs (reference: src/stencil.cu:927-977)."""
-        off = self.spec.compute_offset()
-        compute = Rect3(off, off + self.spec.block_size((0, 0, 0)))
-        return [exterior_regions(compute, self.get_interior()[0])]
+        return [exterior_regions(c, interior_region(c, self.radius))
+                for c in self._computes()]
 
     # -- accounting (reference: src/stencil.cu:139-161) ----------------------
     def _itemsizes(self) -> List[int]:

@@ -20,7 +20,14 @@ Prints one JSON line per measurement, after a line naming the card
 - ``astaroth_substep`` at astaroth-size^3, radius 3, in fp64 and fp32, for
   RK3 stage 0 (reads 8 fields, writes 8) and stage 1 (also reads the 8 out
   fields; stage 2 moves the same bytes), beside its bound
-  (``utils.roofline.bound_ms``).
+  (``utils.roofline.bound_ms``);
+- the resident forms, at size^3 over a (2,2,2) partition with radius-4
+  halos (eight (size/2)^3 blocks on the card, jacobi3d's ``deep_halo=4``
+  layout): ``jacobi_multistep`` in its deep-halo form at each k >= 2 of
+  ``--ks`` up to the planner's depth, beside one read of the blocks grown
+  by k and one write of the blocks; ``jacobi_sweep_region`` on one overlap
+  shell (the z-lo one) of every block; and ``self_fill`` over a z-stack
+  (size^3 over (1,1,2), radius 3, four fp32 quantities) per axis.
 
 Times are CUDA-event means over back-to-back launches replayed from a CUDA
 graph (device time, no host launch overhead) after a warm-up; inputs are
@@ -48,8 +55,8 @@ from ..ops import astaroth_substep as asub
 from ..ops import fused_stencil as fst
 from ..ops import persistent_stencil as pst
 from ..ops import stencil_kernels as sk
-from ..ops.jacobi import sphere_sel
-from ..parallel import Method, shard_blocks
+from ..ops.jacobi import multi_block_layout, sphere_sel_blocks
+from ..parallel import Method
 from ..plan.ir import build_plan
 from ..utils.roofline import bound_ms
 from ..utils.timer import cuda_time_ms
@@ -84,21 +91,22 @@ def main(argv: Optional[list] = None) -> int:
     pd = spec.padded()
     curr = torch.rand((1, 1, 1, pd.z, pd.y, pd.x), generator=gen, device=dev)
     nxt = torch.zeros_like(curr)
-    sel = shard_blocks(sphere_sel(spec.global_size), spec, dev)
+    sel = sphere_sel_blocks(spec, dev)
     ms = cuda_time_ms(lambda: sk.sweep(curr, nxt, sel, spec), args.reps, graph=True)
     print(json.dumps({"kernel": "jacobi_sweep", "size": n, "ms": ms}), flush=True)
 
     lib = _native.lib("jacobi_multistep")
     for k in ks:
         blocks = ctypes.c_int(0)
-        _native.check(lib.jacobi_multistep_blocks_per_sm(k, ctypes.byref(blocks)),
+        _native.check(lib.jacobi_multistep_blocks_per_sm(k, dev.index, ctypes.byref(blocks)),
                       "jacobi_multistep_blocks_per_sm")
         ms = cuda_time_ms(lambda: sk.multistep(curr, nxt, spec, k), max(2, args.reps // 2),
                           warmup=1, graph=True)
         print(json.dumps({"kernel": "jacobi_multistep", "size": n, "k": k, "ms": ms,
                           "ms_per_step": ms / k, "blocks_per_sm": blocks.value,
                           "smem_bytes": sk.multistep_smem_bytes(k),
-                          "zchunks": sk.multistep_zchunks(spec, k)}), flush=True)
+                          "zchunks": sk.multistep_zchunks(
+                              spec, k, sk.multistep_blocks_in_flight(dev, k))}), flush=True)
     plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
     ms = cuda_time_ms(lambda: fst.fused_jacobi(curr, nxt, sel, spec, plan), args.reps,
                       graph=True)
@@ -112,7 +120,7 @@ def main(argv: Optional[list] = None) -> int:
         pd = speck.padded()
         curr = torch.rand((1, 1, 1, pd.z, pd.y, pd.x), generator=gen, device=dev)
         nxt = torch.zeros_like(curr)
-        sel = shard_blocks(sphere_sel(speck.global_size), speck, dev)
+        sel = sphere_sel_blocks(speck, dev)
         ms = cuda_time_ms(lambda: pst.persistent_jacobi(curr, nxt, sel, speck, k),
                           max(2, args.reps // 2), warmup=1)
         print(json.dumps({"kernel": "persistent_jacobi", "size": n, "k": k, "ms": ms,
@@ -131,6 +139,41 @@ def main(argv: Optional[list] = None) -> int:
         print(json.dumps({"kernel": "self_fill", "size": n, "radius": 3, "quantities": 4,
                           "axis": axis, "ms": ms,
                           "bytes": 4 * halo_fill.fill_bytes(spec3, axis, 4)}), flush=True)
+    del qs
+
+    # the resident forms: eight (n/2)^3 blocks with radius-4 halos
+    specr = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(4))
+    curr = torch.rand(specr.stacked_shape_zyx(), generator=gen, device=dev)
+    nxt = torch.zeros_like(curr)
+    cells = n ** 3
+    for k in (k for k in ks if 2 <= k <= sk.MULTISTEP_KPLAN):
+        ms = cuda_time_ms(lambda: sk.multistep(curr, nxt, specr, k), max(2, args.reps // 2),
+                          warmup=1, graph=True)
+        grown = specr.num_blocks() * (n // 2 + 2 * k) ** 3
+        print(json.dumps({"kernel": "jacobi_multistep", "form": "deep-halo", "size": n,
+                          "partition": [2, 2, 2], "k": k, "ms": ms, "ms_per_step": ms / k,
+                          "bound_ms": bound_ms(4 * (grown + cells), 6 * k * cells)[0],
+                          "zchunks": sk.multistep_zchunks(
+                              specr, k, sk.multistep_blocks_in_flight(dev, k))}), flush=True)
+    sel = sphere_sel_blocks(specr, dev)
+    shell = multi_block_layout(specr)[2][0]
+    ms = cuda_time_ms(lambda: sk.sweep_region(curr, nxt, sel, specr, shell), args.reps * 2,
+                      graph=True)
+    shell_cells = shell.num_points() * specr.num_blocks()
+    print(json.dumps({"kernel": "jacobi_sweep_region", "size": n, "partition": [2, 2, 2],
+                      "rect": repr(shell), "ms": ms,
+                      "bound_ms": bound_ms(12 * shell_cells, 6 * shell_cells)[0]}), flush=True)
+    del curr, nxt, sel
+    specz = GridSpec(Dim3(n, n, n), Dim3(1, 1, 2), Radius.constant(3))
+    qs = [torch.rand(specz.stacked_shape_zyx(), generator=gen, device=dev) for _ in range(4)]
+    for axis in ("x", "y"):
+        ms = cuda_time_ms(lambda: halo_fill.self_fill(qs, specz, axis, z_stack=2), args.reps * 2,
+                          graph=True)
+        nbytes = 4 * 2 * halo_fill.fill_bytes(specz, axis, 4)
+        print(json.dumps({"kernel": "self_fill", "form": "z-stack", "size": n,
+                          "partition": [1, 1, 2], "radius": 3, "quantities": 4, "axis": axis,
+                          "ms": ms, "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0)[0]}),
+              flush=True)
     del qs
 
     na = args.astaroth_size

@@ -1,5 +1,9 @@
 """jacobi3d — 7-point Jacobi heat diffusion on one GPU.
 
+``run(..., partition=(px, py, pz))`` splits the domain into a uniform
+partition with every block on the one GPU (as in the JAX app, the CLI has
+no flag for it).
+
 The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
 bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,
 6-neighbour averaging, and a one-line CSV result:
@@ -31,8 +35,8 @@ import torch
 
 from ..api import DistributedDomain
 from ..geometry import Dim3, prime_factors
-from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel
-from ..parallel.exchange import Method, shard_blocks
+from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks
+from ..parallel.exchange import Method
 from ..utils import logging as log
 from ..utils import timer
 from ..utils.statistics import Statistics
@@ -66,15 +70,19 @@ def run(
     deep_halo: int = 1,
     fused: bool = False,
     kernel_variant: Optional[str] = None,
+    partition=None,
 ) -> dict:
     """Run jacobi3d on one device and return the result row (plus the
     realized ``domain`` and the temperature ``handle``).
 
-    ``overlap`` is recorded in the row; on a single block every axis wraps
-    inside the kernels and no exchange runs, so there is nothing to
-    overlap. ``deep_halo`` realizes radius-``deep_halo`` halos (full radius,
-    not tight-x, as the JAX app does off the TPU) and, when >= 2, pins the
-    multistep depth (or the persistent chunk depth) to it.
+    ``partition`` (blocks along x, y, z; default one block) splits the
+    domain into a uniform partition whose blocks all sit on the device.
+    ``overlap`` picks the multi-block step's structure (and lets the
+    multistep engage there); on a single block every axis wraps inside the
+    kernels and no exchange runs, so there is nothing to overlap.
+    ``deep_halo`` realizes radius-``deep_halo`` halos (full radius, not
+    tight-x, as the JAX app does off the TPU) and, when >= 2, caps the
+    multistep depth (or pins the persistent chunk depth) at it.
     ``kernel_variant`` ("fused" or "persistent"; ``fused=True`` is the
     older spelling of the former) selects a ``Method.REMOTE_DMA`` kernel
     variant, as in the JAX app."""
@@ -98,6 +106,8 @@ def run(
     dd.set_methods(method)
     dd.set_fused_exchange(fused)
     dd.set_persistent_exchange(kernel_variant == "persistent")
+    if partition is not None:
+        dd.set_partition(partition)
     h = dd.add_data("temperature", "float32")
     dd.realize()
     dev = dd.device
@@ -105,7 +115,7 @@ def run(
     # init: uniform lukewarm field (reference: bin/jacobi3d.cu:18-27)
     shape = dd.spec.stacked_shape_zyx()
     dd.set_curr(h, torch.full(shape, INIT_TEMP, dtype=torch.float32, device=dev))
-    sel = shard_blocks(sphere_sel(size), dd.spec, dev)
+    sel = sphere_sel_blocks(dd.spec, dev)
 
     curr, nxt = dd.get_curr(h), dd.get_next(h)
     if chunk is None:
@@ -116,7 +126,7 @@ def run(
 
     def get_loop(k: int):
         if k not in loops:
-            loops[k] = make_jacobi_loop(dd.halo_exchange, k, temporal_k=tk)
+            loops[k] = make_jacobi_loop(dd.halo_exchange, k, overlap=overlap, temporal_k=tk)
         return loops[k]
 
     # warm-up advances the state, as in the JAX app

@@ -66,8 +66,9 @@ constexpr int BY = 8;
 // it spills heavily).
 template <typename T>
 constexpr int min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
-// blocks wanted in flight: 132 SMs x 8 resident 256-thread blocks x 4 waves
-constexpr int TARGET_BLOCKS = 132 * 8 * 4;
+// blocks wanted in flight: the device's SMs x the 256-thread blocks an SM
+// holds x WAVES waves
+constexpr int WAVES = 4;
 
 enum Field { LNRHO = 0, UUX, UUY, UUZ, AX, AY, AZ, SS };
 
@@ -296,7 +297,7 @@ Coefs<T> make_coefs(const double* p) {
 template <typename T>
 int launch(void* const* curr, void* const* out, const double* prm, int first,
            long long sz, long long sy, int zo, int yo, int xo, int nz, int ny,
-           int nx, cudaStream_t st) {
+           int nx, long long target_blocks, cudaStream_t st) {
   In<T> in;
   Out<T> o;
   for (int f = 0; f < NF; ++f) {
@@ -306,7 +307,7 @@ int launch(void* const* curr, void* const* out, const double* prm, int first,
   const Coefs<T> k = make_coefs<T>(prm);
   const int gx = (nx + BX - 1) / BX;
   const int gy = (ny + BY - 1) / BY;
-  long long want = (TARGET_BLOCKS + (long long)gx * gy - 1) / ((long long)gx * gy);
+  long long want = (target_blocks + (long long)gx * gy - 1) / ((long long)gx * gy);
   const int nzc = (int)(want < 1 ? 1 : (want > nz ? nz : want));
   const int zchunk = (nz + nzc - 1) / nzc;
   const dim3 grid(gx, gy, (nz + zchunk - 1) / zchunk);
@@ -327,18 +328,25 @@ int launch(void* const* curr, void* const* out, const double* prm, int first,
 // sz / sy: plane and row strides; (zo, yo, xo) / (nz, ny, nx): compute
 // offset and extent, with at least 3 halo cells on every side. prm: the 16
 // doubles listed in make_coefs. first: 1 for RK3 stage 0 (out not read).
+// dev: the device the fields are on.
 extern "C" int astaroth_substep_launch(void* const* curr, void* const* out,
                                        int elem_size, const double* prm,
                                        int nprm, int first, long long sz,
                                        long long sy, int zo, int yo, int xo,
-                                       int nz, int ny, int nx, void* stream) {
+                                       int nz, int ny, int nx, int dev, void* stream) {
   if (nprm != 16 || nz < 1 || ny < 1 || nx < 1 || zo < 3 || yo < 3 || xo < 3 ||
       3 * sz > (1LL << 30) || sz > (1LL << 30))
     return (int)cudaErrorInvalidValue;
+  int sms = 0, threads_per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long target = (long long)sms * (threads_per_sm / (BX * BY)) * WAVES;
   cudaStream_t st = (cudaStream_t)stream;
   if (elem_size == 8)
-    return launch<double>(curr, out, prm, first, sz, sy, zo, yo, xo, nz, ny, nx, st);
+    return launch<double>(curr, out, prm, first, sz, sy, zo, yo, xo, nz, ny, nx, target, st);
   if (elem_size == 4)
-    return launch<float>(curr, out, prm, first, sz, sy, zo, yo, xo, nz, ny, nx, st);
+    return launch<float>(curr, out, prm, first, sz, sy, zo, yo, xo, nz, ny, nx, target, st);
   return (int)cudaErrorInvalidValue;
 }

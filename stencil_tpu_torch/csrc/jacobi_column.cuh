@@ -92,20 +92,21 @@ __host__ __device__ inline int zchunk_for(long long want, long long cols, int nz
   return (int)((nz + nzc - 1) / nzc);
 }
 
-// The tiling of an nz x ny x nx sweep on device dev (sms SMs): gx x gy
-// columns of BX x BY threads, each block marching zchunk planes, WAVES waves
-// of BLOCKS_PER_SM blocks per SM.
+// The tiling of an nz x ny x nx sweep of nres blocks on device dev (sms
+// SMs): gx x gy columns of BX x BY threads per block, each thread block
+// marching zchunk planes (gz ranges per block), WAVES waves of BLOCKS_PER_SM
+// blocks per SM.
 struct SweepGrid {
   int sms, gx, gy, gz, zchunk;
 };
 
-inline cudaError_t sweep_grid(int dev, int nx, int ny, int nz, SweepGrid* g) {
+inline cudaError_t sweep_grid(int dev, int nx, int ny, int nz, SweepGrid* g, int nres = 1) {
   const cudaError_t e = cudaDeviceGetAttribute(&g->sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   g->gx = (nx + BX - 1) / BX;
   g->gy = (ny + BY - 1) / BY;
-  g->zchunk = zchunk_for((long long)g->sms * BLOCKS_PER_SM * WAVES, (long long)g->gx * g->gy,
-                         nz);
+  g->zchunk = zchunk_for((long long)g->sms * BLOCKS_PER_SM * WAVES,
+                         (long long)g->gx * g->gy * nres, nz);
   g->gz = (nz + g->zchunk - 1) / g->zchunk;
   return cudaSuccess;
 }

@@ -20,6 +20,15 @@
 // layout (Radius::without_x, no x halo columns) work unchanged. Non-wrapping
 // axes read the halo cells.
 //
+// Residents: one launch sweeps every block of a stack (resident r at
+// r * bstride); grid.z covers the blocks times their z ranges. A single
+// block takes the STACK = false instantiation, which computes no resident
+// offset (one instantiation for both ran 1.09 ms against 0.94 at 512^3 on
+// an H100 80GB HBM3 at 700 W, apps/bench_kernels.py's jacobi_sweep). The
+// same kernel sweeps any rect of the blocks (the overlap shells of a
+// multi-block partition) when given the rect's origin and extent with the
+// wrap flags off.
+//
 // Only the compute region of `out` is written. (The TPU kernel also copies
 // the input's halo values into the rows it stores, a store-granularity
 // artefact of its tiles; nothing reads them, and this kernel does not.)
@@ -39,35 +48,48 @@ namespace {
 
 using namespace jacobi;
 
+template <bool STACK>
 __global__ void __launch_bounds__(THREADS)
 jacobi_sweep_kernel(const float* __restrict__ curr, float* __restrict__ out,
                     const int32_t* __restrict__ sel, long long sz, long long sy,
-                    int zo, int yo, int xo, int nz, int ny, int nx,
-                    int wz, int wy, int wx, int zchunk) {
+                    long long bstride, int zo, int yo, int xo, int nz, int ny, int nx,
+                    int wz, int wy, int wx, int zchunk, int gz) {
+  const int res = STACK ? blockIdx.z / gz : 0;
   const int tx = blockIdx.x * BX + threadIdx.x;
   const int ty = blockIdx.y * BY + threadIdx.y;
-  const int z0 = blockIdx.z * zchunk;
+  const int z0 = (blockIdx.z - res * gz) * zchunk;
   const int z1 = min(nz, z0 + zchunk);
   if (tx >= nx || ty >= ny || z0 >= z1) return;
-  march_column(curr, out, sel, sz, zo, z0, z1, nz, wz,
+  const long long b = STACK ? res * bstride : 0;
+  march_column(curr + b, out + b, sel + b, sz, zo, z0, z1, nz, wz,
                column_at(tx, ty, xo, yo, nx, ny, wx, wy, sy));
 }
 
 }  // namespace
 
-// dev: the device the tensors are on.
+// nres blocks of bstride elements each; (zo, yo, xo) / (nz, ny, nx): the
+// swept rect of every block. dev: the device the tensors are on.
 extern "C" int jacobi_sweep_launch(const void* curr, void* out, const void* sel,
-                                   long long sz, long long sy, int zo, int yo,
-                                   int xo, int nz, int ny, int nx, int wz,
-                                   int wy, int wx, int dev, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+                                   long long sz, long long sy, long long bstride,
+                                   int nres, int zo, int yo, int xo, int nz, int ny,
+                                   int nx, int wz, int wy, int wx, int dev,
+                                   void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || nres < 1) return (int)cudaErrorInvalidValue;
   DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
   SweepGrid g;
-  const cudaError_t e = sweep_grid(dev, nx, ny, nz, &g);
+  const cudaError_t e = sweep_grid(dev, nx, ny, nz, &g, nres);
   if (e != cudaSuccess) return (int)e;
-  jacobi_sweep_kernel<<<dim3(g.gx, g.gy, g.gz), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, zo, yo, xo,
-      nz, ny, nx, wz, wy, wx, g.zchunk);
+  if ((long long)g.gz * nres > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(g.gx, g.gy, g.gz * nres), block(BX, BY);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nres > 1)
+    jacobi_sweep_kernel<true><<<grid, block, 0, st>>>(
+        (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, bstride, zo, yo, xo,
+        nz, ny, nx, wz, wy, wx, g.zchunk, g.gz);
+  else
+    jacobi_sweep_kernel<false><<<grid, block, 0, st>>>(
+        (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, bstride, zo, yo, xo,
+        nz, ny, nx, wz, wy, wx, g.zchunk, g.gz);
   return (int)cudaGetLastError();
 }

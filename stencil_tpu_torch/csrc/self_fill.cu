@@ -21,7 +21,15 @@
 // and write disjoint cells whenever the block is at least as wide as the
 // radius (the wrapper checks), so one launch may do both. The kernel copies
 // bits (4- or 8-byte words), so fp32 and fp64 quantities both go through it.
-// Offsets are 64-bit.
+// Offsets are 64-bit. The grid is capped at one wave of full-occupancy
+// blocks on the tensors' device (its SM count times the 256-thread blocks an
+// SM holds); each thread strides over the rest.
+//
+// Residents: the x and y fills act within each z plane, so a contiguous
+// stack of c resident blocks (the TPU kernel's z_stack form, for a
+// (cz, 1, 1) residency; the port's exchange stacks any residency) is filled
+// by one launch over the stack viewed as one (c * pz, py, px) array. A z
+// fill beside several residents takes each resident as one pointer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,7 +38,6 @@ namespace {
 
 constexpr int MAXQ = 16;
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS_X = 132 * 8;
 
 struct Ptrs {
   void* p[MAXQ];
@@ -84,21 +91,27 @@ void launch_t(const dim3& grid, cudaStream_t st, const Ptrs& p, const long long*
 
 // ptrs: host array of nq device pointers to contiguous (pz, py, px) blocks.
 // axis: 0 = z, 1 = y, 2 = x. o / n: compute offset and size along the axis;
-// rm / rp: lo- and hi-side halo widths.
+// rm / rp: lo- and hi-side halo widths. dev: the device the blocks are on.
 extern "C" int self_fill_launch(void* const* ptrs, int nq, int elem_size,
                                 int pz, int py, int px, int axis, int o, int n,
-                                int rm, int rp, void* stream) {
+                                int rm, int rp, int dev, void* stream) {
   if (nq < 1 || nq > MAXQ || axis < 0 || axis > 2 || rm < 0 || rp < 0 ||
       (elem_size != 4 && elem_size != 8))
     return (int)cudaErrorInvalidValue;
   if (rm + rp == 0) return 0;
+  int sms = 0, threads_per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long max_blocks = (long long)sms * (threads_per_sm / THREADS);
   Ptrs p;
   for (int q = 0; q < MAXQ; ++q) p.p[q] = q < nq ? ptrs[q] : nullptr;
   long long b[3] = {pz, py, px};
   b[axis] = rm + rp;
   const long long total = b[0] * b[1] * b[2];
   long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS_X) blocks = MAX_BLOCKS_X;
+  if (blocks > max_blocks) blocks = max_blocks;
   const dim3 grid((unsigned)blocks, nq);
   const long long s0 = (long long)py * px;
   const long long s1 = px;

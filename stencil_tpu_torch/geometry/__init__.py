@@ -1,6 +1,6 @@
 from .dim3 import CORNER_DIRS, DIRECTIONS_26, Dim3, EDGE_DIRS, FACE_DIRS
 from .numeric import div_ceil, prime_factors
-from .partition import NodePartition, RankPartition, decompose_zy
+from .partition import NodePartition, RankPartition, decompose_zy, stack_residents
 from .radius import Radius
 from .rect3 import Rect3
 from .region import (
@@ -33,4 +33,5 @@ __all__ = [
     "interior_region",
     "prime_factors",
     "raw_size",
+    "stack_residents",
 ]

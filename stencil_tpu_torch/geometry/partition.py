@@ -36,6 +36,36 @@ def decompose_zy(p: int) -> Dim3:
     return Dim3(1, y, z)
 
 
+def stack_residents(dim: Dim3, c: int) -> Dim3:
+    """Mesh dims for stacking ``c`` resident blocks per device onto
+    partition ``dim``: the z-heaviest (cz, cy, cx) factorization of ``c``
+    whose components divide the partition axes (exhaustive — divisor
+    triples of c are few). Reference envelope: dd.set_gpus accepts any
+    block multiset per device (stencil.hpp:154). With every block on one
+    device (``c == dim.flatten()``) the mesh is (1,1,1)."""
+    best = None
+    for cz in range(c, 0, -1):
+        if c % cz or dim.z % cz:
+            continue
+        cyx = c // cz
+        for cy in range(cyx, 0, -1):
+            if cyx % cy or dim.y % cy:
+                continue
+            cx = cyx // cy
+            if dim.x % cx:
+                continue
+            best = Dim3(dim.x // cx, dim.y // cy, dim.z // cz)
+            break
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(
+            f"cannot stack {c} resident blocks per device onto partition "
+            f"{dim}: no divisor triple of {c} divides the axes"
+        )
+    return best
+
+
 class RankPartition:
     """Split ``size`` into ``n`` subdomains along the longest axes.
 

@@ -45,18 +45,18 @@ _L = ctypes.c_longlong
 # C entry points: name -> (restype, argtypes)
 SIGNATURES = {
     "jacobi_sweep": {
-        "jacobi_sweep_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, _P]),
+        "jacobi_sweep_launch": (_I, [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _P]),
     },
     "jacobi_multistep": {
-        "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _I, _I, _I, _P]),
+        "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "jacobi_multistep_smem_bytes": (_L, [_I]),
-        "jacobi_multistep_blocks_per_sm": (_I, [_I, ctypes.POINTER(_I)]),
+        "jacobi_multistep_blocks_per_sm": (_I, [_I, _I, ctypes.POINTER(_I)]),
     },
     "self_fill": {
         "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _P]),
+                                  _I, _I, _I, _I, _I, _P]),
     },
     "fused_jacobi": {
         "fused_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
@@ -69,7 +69,7 @@ SIGNATURES = {
     "astaroth_substep": {
         "astaroth_substep_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
                                          ctypes.POINTER(ctypes.c_double), _I, _I, _L,
-                                         _L, _I, _I, _I, _I, _I, _I, _P]),
+                                         _L, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
 }
 

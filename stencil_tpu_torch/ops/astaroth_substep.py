@@ -139,7 +139,7 @@ def substep(curr8: Sequence[torch.Tensor], out8: Sequence[torch.Tensor],
     p, off, b = spec.padded(), spec.compute_offset(), spec.base
     rc = _native.lib("astaroth_substep").astaroth_substep_launch(
         cp, op, curr8[0].element_size(), prm, 16, int(stage == 0), p.y * p.x, p.x,
-        off.z, off.y, off.x, b.z, b.y, b.x, _native.stream_ptr(dev))
+        off.z, off.y, off.x, b.z, b.y, b.x, dev.index, _native.stream_ptr(dev))
     _native.check(rc, f"astaroth_substep[{stage}]")
     substep.launches += 1
     return tuple(out8)

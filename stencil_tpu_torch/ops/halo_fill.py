@@ -12,6 +12,13 @@ Fill order across axes is the composed x -> y -> z order (:data:`AXIS_ORDER`);
 each axis copies the full padded extent of the other two, halos included, so
 calling the axes in that order composes edges and corners exactly as the JAX
 package's single-block ``HaloExchange`` does.
+
+``z_stack > 1`` is the fill of a stack of resident blocks, each a
+contiguous ``(pz, py, px)`` block: the x and y fills act within each z
+plane, so one launch over the stack viewed as one
+``(z_stack * pz, py, px)`` array fills every resident's halos, as the TPU
+kernel's ``z_stack`` form does for a ``(cz, 1, 1)`` residency. The port's
+exchange stacks the residents of any residency this way.
 """
 
 from __future__ import annotations
@@ -96,32 +103,38 @@ def fill_bytes(spec: GridSpec, axis: str, itemsize: int) -> int:
     return 2 * cells * itemsize
 
 
-def _check_blocks(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str) -> None:
+def _check_blocks(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str,
+                  z_stack: int = 1) -> None:
     p = spec.padded()
     o, n, rm, rp = axis_geom(spec, axis)
     if not 1 <= len(blocks) <= MAX_FILL_GROUP:
         raise ValueError(f"fill group of {len(blocks)} outside [1, {MAX_FILL_GROUP}]")
     if n < max(rm, rp):
         raise ValueError(f"{axis}-axis block size {n} < radius {max(rm, rp)}")
+    if z_stack < 1 or (z_stack > 1 and axis == "z"):
+        raise ValueError(f"z_stack={z_stack}: a z-stack fills the x and y axes only")
     b0 = blocks[0]
     for b in blocks:
         if b.dtype != b0.dtype or b.device != b0.device:
             raise ValueError("a fill group shares one dtype and one device")
-        if tuple(b.shape[-3:]) != (p.z, p.y, p.x) or b.numel() != p.z * p.y * p.x:
-            raise ValueError(f"block shape {tuple(b.shape)} is not one padded "
-                             f"({p.z}, {p.y}, {p.x}) block")
+        if (tuple(b.shape[-3:]) != (p.z, p.y, p.x)
+                or b.numel() != z_stack * p.z * p.y * p.x):
+            raise ValueError(f"block shape {tuple(b.shape)} is not {z_stack} padded "
+                             f"({p.z}, {p.y}, {p.x}) block(s)")
         if not b.is_contiguous():
             raise ValueError("fill blocks must be contiguous")
     if b0.element_size() not in (4, 8):
         raise ValueError(f"fill copies 4- or 8-byte elements, not {b0.dtype}")
 
 
-def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str):
+def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str, z_stack: int = 1):
     """Fill both periodic halos of ``axis`` in place for every block of a
-    same-dtype group (at most :data:`MAX_FILL_GROUP`). CPU tensors take
-    :func:`self_fill_plain`; CUDA tensors launch ``csrc/self_fill.cu``
-    (one launch for the group) or raise."""
-    _check_blocks(blocks, spec, axis)
+    same-dtype group (at most :data:`MAX_FILL_GROUP`); with ``z_stack > 1``
+    each tensor is a contiguous stack of that many resident blocks and
+    ``axis`` is x or y. CPU tensors take :func:`self_fill_plain`; CUDA
+    tensors launch ``csrc/self_fill.cu`` (one launch for the group) or
+    raise."""
+    _check_blocks(blocks, spec, axis, z_stack)
     dev = blocks[0].device
     if dev.type == "cpu":
         return self_fill_plain(blocks, spec, axis)
@@ -133,8 +146,8 @@ def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str):
     p = spec.padded()
     ptrs = (ctypes.c_void_p * len(blocks))(*[b.data_ptr() for b in blocks])
     rc = _native.lib("self_fill").self_fill_launch(
-        ptrs, len(blocks), blocks[0].element_size(), p.z, p.y, p.x,
-        _AXIS_DIM[axis], o, n, rm, rp, _native.stream_ptr(dev))
+        ptrs, len(blocks), blocks[0].element_size(), z_stack * p.z, p.y, p.x,
+        _AXIS_DIM[axis], o, n, rm, rp, dev.index, _native.stream_ptr(dev))
     _native.check(rc, f"self_fill[{axis}]")
     self_fill.launches += 1
     return list(blocks)

@@ -12,6 +12,17 @@ exchange at all: :func:`make_jacobi_loop` runs the multistep kernel for
 ``iters // k`` passes and the one-step sweep for the ``iters % k`` tail,
 exactly the schedule of the JAX package's single-chip fast path.
 
+On a uniform multi-block partition, every block resident on the device,
+the loops follow the JAX package's Pallas branch of ``_compile_jacobi``:
+the kernels wrap the single-block axes and read halos on the multi-block
+ones. A step with overlap sweeps pre-exchange data, runs the full exchange,
+then re-sweeps the multi-block axes' shells from the exchanged halos
+(:func:`stencil_kernels.sweep_region`); without overlap it exchanges the
+multi-block axes and sweeps. With overlap and a depth k >= 2 (the deep
+halo, radius >= k), one exchange of the multi-block axes feeds each k-step
+multistep pass over every resident at its own global origin, and the
+``iters % k`` tail runs the overlap step.
+
 The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
 kernel (one launch per step) or the persistent chunk kernel (one launch per
@@ -25,8 +36,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..geometry import Dim3, Rect3
-from ..parallel.exchange import Method
+from ..geometry import Dim3, Rect3, exterior_regions
+from ..parallel.exchange import Method, shard_blocks
 from ..utils import logging as log
 from ..utils import timer
 from .fused_stencil import NO_WRAP, fused_jacobi, require_face_radius
@@ -36,9 +47,12 @@ from .stencil_kernels import (
     HOT_TEMP,
     SIXTH,
     TEMPORAL_K_CAP,
+    multi_block_axes,
     multistep,
     plan_multistep_depth,
+    sphere_masks_from_coords,
     sweep,
+    sweep_region,
 )
 
 INIT_TEMP = (HOT_TEMP + COLD_TEMP) / 2
@@ -107,6 +121,16 @@ def sphere_sel(global_size) -> np.ndarray:
     return sel
 
 
+def sphere_sel_blocks(spec, device) -> torch.Tensor:
+    """``sphere_sel(spec.global_size)`` in the stacked padded layout on
+    ``device`` (halos and pad 0), built there from integer coordinates:
+    the coordinate spheres equal the sqrt-truncating ones
+    (:func:`stencil_kernels.sphere_masks_from_coords`), and a 512^3 grid
+    takes seconds of host time the other way."""
+    hot, cold = sphere_masks_from_coords(spec, device)
+    return shard_blocks(hot.to(torch.int32) + 2 * cold.to(torch.int32), spec, device)
+
+
 def jacobi_reference(field: np.ndarray, masks, iters: int) -> np.ndarray:
     """Slow float64 numpy reference with periodic wrap, for correctness
     checks."""
@@ -122,11 +146,46 @@ def jacobi_reference(field: np.ndarray, masks, iters: int) -> np.ndarray:
     return f
 
 
-def _single_block(ex) -> None:
-    if ex.spec.dim != Dim3(1, 1, 1):
-        raise NotImplementedError(
-            "the jacobi step runs single-block domains; multi-block "
-            "partitions are slice 2 of ROADMAP.md")
+def multi_block_layout(spec) -> Tuple[Tuple[bool, bool, bool], Tuple[str, ...], list]:
+    """``(wrap, axes, shells)`` of a partition: the sweep's ``(wz, wy, wx)``
+    wrap flags (single-block axes), the names of the multi-block axes (the
+    exchange subset the kernels need), and the overlap shells, the
+    radius-thick rects of the compute region along the multi-block axes."""
+    multi = multi_block_axes(spec)
+    wrap = tuple(not m for m in multi)
+    axes = tuple(name for name, m in zip("zyx", multi) if m)
+    r = spec.radius
+    off = spec.compute_offset()
+    compute = Rect3(off, off + spec.base)
+    lo = Dim3(r.x(-1) if multi[2] else 0, r.y(-1) if multi[1] else 0, r.z(-1) if multi[0] else 0)
+    hi = Dim3(r.x(1) if multi[2] else 0, r.y(1) if multi[1] else 0, r.z(1) if multi[0] else 0)
+    shells = exterior_regions(compute, Rect3(compute.lo + lo, compute.hi - hi)) if axes else []
+    return wrap, axes, shells
+
+
+def _step_body(ex, overlap: bool):
+    """``body(curr, nxt, sel) -> (out, curr)``: one step of the domain of
+    ``ex`` (the JAX package's Pallas ``body``). ``curr``'s halos are
+    updated in place by the exchange."""
+    spec = ex.spec
+    wrap, axes, shells = multi_block_layout(spec)
+    if not axes:  # every axis wraps inside the kernel: no exchange at all
+        return lambda curr, nxt, sel: (sweep(curr, nxt, sel, spec, wrap), curr)
+    require_face_radius(spec)
+    if overlap:
+        def body(curr, nxt, sel):
+            # the sweep reads pre-exchange data; the shells' stencils also
+            # read the single-block axes' halos, so the FULL exchange runs
+            out = sweep(curr, nxt, sel, spec, wrap)
+            ex(curr)
+            for rect in shells:
+                sweep_region(curr, out, sel, spec, rect)
+            return out, curr
+    else:
+        def body(curr, nxt, sel):
+            ex.exchange(curr, axes=axes)
+            return sweep(curr, nxt, sel, spec, wrap), curr
+    return body
 
 
 def _ignored(temporal_k, why: str) -> None:
@@ -205,34 +264,32 @@ def _persistent_loop(ex, iters: int, temporal_k):
     return loop
 
 
-def make_jacobi_step(ex):
+def make_jacobi_step(ex, overlap: bool = True):
     """``step(curr, nxt, sel) -> (new_curr, new_next)`` for the domain of
     HaloExchange ``ex``: one sweep into ``nxt``, then the swap. On a single
     block every axis wraps inside the kernel, so no exchange runs and the
-    result is ``(sweep(curr, nxt), curr)``. A remote-dma exchange takes its
-    one-step loop."""
+    result is ``(sweep(curr, nxt), curr)``; a multi-block partition
+    exchanges (see the module docstring; ``overlap`` picks the structure).
+    A remote-dma exchange takes its one-step loop."""
     if ex.method == Method.REMOTE_DMA:
         return make_jacobi_loop(ex, 1)
-    _single_block(ex)
-    spec = ex.spec
-
-    def step(curr, nxt, sel):
-        return sweep(curr, nxt, sel, spec, wrap=(True, True, True)), curr
-
-    return step
+    return _step_body(ex, overlap)
 
 
-def make_jacobi_loop(ex, iters: int, standard_spheres: bool = True,
+def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: bool = True,
                      temporal_k: Optional[int] = None):
     """``loop(curr, nxt, sel) -> (new_curr, new_next)`` advancing ``iters``
     steps: ``iters // k`` multistep passes of depth ``k`` (each
-    ``(multistep(c, x), c)``), then ``iters % k`` single steps.
+    ``(multistep(c, x), c)``, after an exchange of the multi-block axes on
+    a multi-block partition), then ``iters % k`` single steps.
 
     ``k`` is the deepest of ``min(12, (nz - 1) // 2, iters)`` (further
-    capped by ``temporal_k``) that :func:`plan_multistep_depth` fits in
-    shared memory. ``standard_spheres`` declares that ``sel`` holds the
-    standard jacobi3d spheres (``sphere_sel(global_size)``): only then may
-    the multistep run, since it derives the spheres from coordinates
+    capped by ``temporal_k`` and, on a multi-block partition, by the
+    multi-block axes' radii) that :func:`plan_multistep_depth` takes. On a
+    multi-block partition the multistep engages only with ``overlap``, as
+    in the JAX package. ``standard_spheres`` declares that ``sel`` holds
+    the standard jacobi3d spheres (``sphere_sel(global_size)``): only then
+    may the multistep run, since it derives the spheres from coordinates
     instead of reading ``sel``. The chosen depth is ``loop.temporal_k``
     (0 when only sweeps run).
 
@@ -245,20 +302,28 @@ def make_jacobi_loop(ex, iters: int, standard_spheres: bool = True,
         loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k)
         loop.temporal_k = 0
         return loop
-    _single_block(ex)
     with timer.timed("jacobi.build"), timer.trace_range("jacobi.build"):
         spec = ex.spec
+        r = spec.radius
+        _wrap, axes, _shells = multi_block_layout(spec)
         k_want = max(0, min(TEMPORAL_K_CAP, (spec.base.z - 1) // 2, iters))
         if temporal_k is not None:
             k_want = min(k_want, temporal_k)
-        k = plan_multistep_depth(k_want) if standard_spheres else 0
+        # the deep halo: k <= the radius on both sides of each multi-block axis
+        for m, rl, rh in zip(multi_block_axes(spec), (r.z(-1), r.y(-1), r.x(-1)),
+                             (r.z(1), r.y(1), r.x(1))):
+            if m:
+                k_want = min(k_want, rl, rh)
+        k = plan_multistep_depth(k_want) if standard_spheres and (overlap or not axes) else 0
         if k < 2:
             k = 0
-        step = make_jacobi_step(ex)
+        step = _step_body(ex, overlap)
 
     def loop(curr, nxt, sel):
         n_multi, n_single = divmod(iters, k) if k else (0, iters)
         for _ in range(n_multi):
+            if axes:
+                ex.exchange(curr, axes=axes)
             curr, nxt = multistep(curr, nxt, spec, k), curr
         for _ in range(n_single):
             curr, nxt = step(curr, nxt, sel)

@@ -4,13 +4,20 @@ The port's counterpart of ``stencil_tpu.ops.pallas_stencil``:
 
 - :func:`sweep` launches ``csrc/jacobi_sweep.cu`` (replacing the TPU's
   ``make_pallas_jacobi_sweep``); :func:`sweep_plain` is the same step in
-  plain PyTorch.
+  plain PyTorch. :func:`sweep_region` launches the same kernel on one rect
+  with every wrap flag off (the overlap shells of a multi-block partition);
+  its plain version is ``ops.jacobi.jacobi_sweep``.
 - :func:`multistep` launches ``csrc/jacobi_multistep.cu`` (replacing the
-  TPU's ``make_pallas_jacobi_multistep`` and ``_make_multistep_row_tiled``
-  in their single-block forms): k steps in one launch, the intermediate
-  stages kept in shared memory; :func:`multistep_plain` is k plain steps.
+  TPU's ``make_pallas_jacobi_multistep`` and ``_make_multistep_row_tiled``,
+  single-block and deep-halo forms): k steps in one launch, the
+  intermediate stages kept in shared memory; :func:`multistep_plain` is k
+  plain steps.
 - :func:`plan_multistep_depth` is the port's own depth planner, bounded by
   the 227 KB of shared memory a Hopper block may use.
+
+Tensors are stacks of padded blocks, ``(bz, by, bx, pz, py, px)`` with
+every block of the partition resident on one device (a single-block domain
+is the stack of one). Each kernel covers the whole stack in one launch.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its launches
@@ -26,12 +33,15 @@ keeps each op as written, on the CPU and on CUDA.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..domain.grid import GridSpec
+from ..geometry import Dim3, Rect3
 from . import _native
 
 HOT_TEMP = 1.0
@@ -103,28 +113,91 @@ def sphere_masks_from_coords(spec: GridSpec, device) -> Tuple[torch.Tensor, torc
     ``(gx/3, gy/2, gz/2)``, cold ``(2gx/3, gy/2, gz/2)``, ``d2 < (gx/10+1)^2``,
     hot wins. Equal to the JAX package's ``sphere_masks``."""
     g = spec.global_size
+    return _sphere_masks(g, torch.arange(g.z, device=device), torch.arange(g.y, device=device),
+                         torch.arange(g.x, device=device))
+
+
+def _sphere_masks(g: Dim3, z, y, x):
+    """``(hot, cold)`` over the grid of global coordinates ``z x y x x`` (1-d
+    int tensors, already wrapped into the global box)."""
     thresh = (g.x // 10 + 1) ** 2
-    z = torch.arange(g.z, device=device).view(-1, 1, 1)
-    y = torch.arange(g.y, device=device).view(1, -1, 1)
-    x = torch.arange(g.x, device=device).view(1, 1, -1)
+    z, y, x = z.view(-1, 1, 1), y.view(1, -1, 1), x.view(1, 1, -1)
     yz = (y - g.y // 2) ** 2 + (z - g.z // 2) ** 2
     hot = (x - g.x // 3) ** 2 + yz < thresh
     cold = ~hot & ((x - g.x * 2 // 3) ** 2 + yz < thresh)
     return hot, cold
 
 
+def multi_block_axes(spec: GridSpec) -> Tuple[bool, bool, bool]:
+    """``(z, y, x)``: which axes the partition splits into several blocks
+    (the deep-halo axes of the multistep; the others wrap onto themselves)."""
+    return spec.dim.z > 1, spec.dim.y > 1, spec.dim.x > 1
+
+
+def require_deep_halo(spec: GridSpec, k: int) -> None:
+    """The deep-halo multistep's conditions, as the TPU's
+    ``make_pallas_jacobi_multistep`` raises them:
+    a uniform partition, radius >= k on both sides of every multi-block
+    axis, and at least 2k + 1 planes per block."""
+    if not spec.is_uniform():
+        raise ValueError("deep-halo multistep requires a uniform partition")
+    r = spec.radius
+    for m, rl, rh in zip(multi_block_axes(spec), (r.z(-1), r.y(-1), r.x(-1)),
+                         (r.z(1), r.y(1), r.x(1))):
+        if m and (rl < k or rh < k):
+            raise ValueError("deep-halo multistep needs radius >= k on multi-block axes")
+    if spec.base.z < 2 * k + 1:
+        raise ValueError("domain too shallow for this temporal depth")
+
+
+def _multistep_block(c, spec: GridSpec, k: int, origin: Dim3):
+    """k steps of one block's grown input ``c`` (z, y, x): grown by k cells
+    on the multi-block axes, the compute region on the others, which wrap.
+    Stage s covers extents grown by k - s; the spheres sit at the wrapped
+    global coordinates. Returns the compute region after k steps."""
+    g, b = spec.global_size, spec.base
+    multi = multi_block_axes(spec)
+    crop = tuple(slice(1, -1) if m else slice(None) for m in multi)
+    for s in range(1, k + 1):
+        e = k - s
+        nb = []
+        for ax in (2, 1, 0):  # x, y, z: the neighbours' summation order
+            if not multi[ax]:
+                inner = c[crop]
+                nb += [torch.roll(inner, 1, ax), torch.roll(inner, -1, ax)]
+                continue
+            for lo in (0, 2):
+                sl = list(crop)
+                sl[ax] = slice(lo, c.shape[ax] - 2 + lo)
+                nb.append(c[tuple(sl)])
+        coords = [torch.remainder(torch.arange(-e * m, n + e * m, device=c.device) + o, gg)
+                  for m, n, o, gg in zip(multi, (b.z, b.y, b.x), (origin.z, origin.y, origin.x),
+                                         (g.z, g.y, g.x))]
+        hot, cold = _sphere_masks(g, *coords)
+        c = torch.where(hot, HOT_TEMP, torch.where(cold, COLD_TEMP, _average(nb)))
+    return c
+
+
 def multistep_plain(curr, nxt, spec: GridSpec, k: int):
-    """``k`` Jacobi steps of a single-block periodic domain in plain
-    PyTorch, spheres from coordinates; writes the compute region of
-    ``nxt`` (in place; returns it)."""
-    _require_single_block(spec)
-    hot, cold = sphere_masks_from_coords(spec, curr.device)
-    cs = _region(spec)
-    c = curr[cs]
-    for _ in range(k):
-        avg = _average([torch.roll(c, sh, dim) for dim in (-1, -2, -3) for sh in (1, -1)])
-        c = torch.where(hot, HOT_TEMP, torch.where(cold, COLD_TEMP, avg))
-    nxt[cs] = c
+    """``k`` Jacobi steps in plain PyTorch, spheres from coordinates; writes
+    the compute region of every block of ``nxt`` (in place; returns it).
+    Single-block axes wrap. On a multi-block partition (the deep-halo form)
+    ``curr``'s halos hold the neighbours' cells at radius >= k, and each
+    block runs k sweeps over shrinking grown extents at its own global
+    origin (block index x block size)."""
+    multi = multi_block_axes(spec)
+    if any(multi):
+        require_deep_halo(spec, k)
+    off, b, d = spec.compute_offset(), spec.base, spec.dim
+    grown = tuple(slice(o - k * m, o + n + k * m)
+                  for m, o, n in zip(multi, (off.z, off.y, off.x), (b.z, b.y, b.x)))
+    cs = _region(spec)[1:]
+    c6, n6 = curr.view(spec.stacked_shape_zyx()), nxt.view(spec.stacked_shape_zyx())
+    for iz in range(d.z):
+        for iy in range(d.y):
+            for ix in range(d.x):
+                n6[(iz, iy, ix, *cs)] = _multistep_block(
+                    c6[(iz, iy, ix, *grown)], spec, k, Dim3(ix * b.x, iy * b.y, iz * b.z))
     return nxt
 
 
@@ -145,20 +218,15 @@ def plan_multistep_depth(k_want: int) -> int:
     return max(0, min(k_want, MULTISTEP_KPLAN))
 
 
-def _require_single_block(spec: GridSpec) -> None:
-    if spec.dim.flatten() != 1:
-        raise NotImplementedError(
-            "the multistep kernel runs single-block domains; the deep-halo "
-            "form for multi-block partitions is slice 2 of ROADMAP.md")
-
-
 def _check_block(t: torch.Tensor, spec: GridSpec, dtype, what: str) -> None:
+    """``t`` holds every block of ``spec``'s partition, contiguous."""
     p = spec.padded()
+    nb = spec.num_blocks()
     if t.dtype != dtype:
         raise ValueError(f"{what}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape[-3:]) != (p.z, p.y, p.x) or t.numel() != p.z * p.y * p.x:
-        raise ValueError(f"{what}: shape {tuple(t.shape)} is not one padded "
-                         f"({p.z}, {p.y}, {p.x}) block")
+    if tuple(t.shape[-3:]) != (p.z, p.y, p.x) or t.numel() != nb * p.z * p.y * p.x:
+        raise ValueError(f"{what}: shape {tuple(t.shape)} is not {nb} padded "
+                         f"({p.z}, {p.y}, {p.x}) block(s)")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
 
@@ -174,22 +242,26 @@ def _device_of(*ts) -> torch.device:
     return dev
 
 
+def _launch_sweep(curr, nxt, sel, spec: GridSpec, dev, lo: Dim3, n: Dim3, wrap) -> None:
+    p = spec.padded()
+    rc = _native.lib("jacobi_sweep").jacobi_sweep_launch(
+        curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
+        p.z * p.y * p.x, spec.num_blocks(), lo.z, lo.y, lo.x, n.z, n.y, n.x,
+        int(wrap[0]), int(wrap[1]), int(wrap[2]), dev.index, _native.stream_ptr(dev))
+    _native.check(rc, "jacobi_sweep")
+
+
 def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
-    """One Jacobi step: ``nxt``'s compute region <- the 6-neighbour average
-    of ``curr`` with the ``sel`` spheres imposed (in place; returns
-    ``nxt``). See :func:`sweep_plain` for the arguments."""
+    """One Jacobi step of every block: ``nxt``'s compute regions <- the
+    6-neighbour average of ``curr`` with the ``sel`` spheres imposed (in
+    place; returns ``nxt``). See :func:`sweep_plain` for the arguments."""
     _check_block(curr, spec, torch.float32, "curr")
     _check_block(nxt, spec, torch.float32, "nxt")
     _check_block(sel, spec, torch.int32, "sel")
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
         return sweep_plain(curr, nxt, sel, spec, wrap)
-    p, off, b = spec.padded(), spec.compute_offset(), spec.base
-    rc = _native.lib("jacobi_sweep").jacobi_sweep_launch(
-        curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
-        off.z, off.y, off.x, b.z, b.y, b.x,
-        int(wrap[0]), int(wrap[1]), int(wrap[2]), dev.index, _native.stream_ptr(dev))
-    _native.check(rc, "jacobi_sweep")
+    _launch_sweep(curr, nxt, sel, spec, dev, spec.compute_offset(), spec.base, wrap)
     sweep.launches += 1
     return nxt
 
@@ -197,35 +269,83 @@ def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
 sweep.launches = 0
 
 
-def multistep_zchunks(spec: GridSpec, k: int) -> int:
-    """z chunks per tile column: enough blocks to give each of the 132 SMs
-    one, without a chunk shorter than 4k planes (each chunk re-runs a 2k
-    warm-up)."""
+def sweep_region(curr, nxt, sel, spec: GridSpec, rect: Rect3):
+    """One Jacobi step over ``rect`` (allocation-local, inside the compute
+    region) of every block, reading every neighbour in place, halos
+    included (in place; returns ``nxt``). CPU tensors take the plain
+    region sweep ``ops.jacobi.jacobi_sweep`` with masks ``(sel == 1,
+    sel == 2)``; CUDA tensors launch ``csrc/jacobi_sweep.cu`` on the rect
+    with its wrap flags off, or raise."""
+    _check_block(curr, spec, torch.float32, "curr")
+    _check_block(nxt, spec, torch.float32, "nxt")
+    _check_block(sel, spec, torch.int32, "sel")
+    off = spec.compute_offset()
+    hi = off + spec.base
+    if not (off.x <= rect.lo.x < rect.hi.x <= hi.x and off.y <= rect.lo.y < rect.hi.y <= hi.y
+            and off.z <= rect.lo.z < rect.hi.z <= hi.z):
+        raise ValueError(f"sweep_region: {rect} is empty or outside the compute region")
+    dev = _device_of(curr, nxt, sel)
+    if dev.type == "cpu":
+        # imported here: ops.jacobi imports this module
+        from .jacobi import jacobi_sweep
+
+        return jacobi_sweep(curr, nxt, rect, (sel == 1, sel == 2))
+    _launch_sweep(curr, nxt, sel, spec, dev, rect.lo, rect.hi - rect.lo, (False,) * 3)
+    sweep_region.launches += 1
+    return nxt
+
+
+sweep_region.launches = 0
+
+
+def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int) -> int:
+    """z chunks per tile column: enough thread blocks, over the tiles of
+    every resident block, to give the device ``blocks_in_flight`` (its SMs
+    times the multistep blocks an SM holds), without a chunk shorter than
+    4k planes (each chunk re-runs a 2k warm-up)."""
     tx, ty = MULTISTEP_TILE
     b = spec.base
-    tiles = -(-b.x // tx) * -(-b.y // ty)
-    return max(1, min(-(-132 // tiles), b.z // max(4 * k, 1)))
+    tiles = -(-b.x // tx) * -(-b.y // ty) * spec.num_blocks()
+    return max(1, min(-(-blocks_in_flight // tiles), b.z // max(4 * k, 1)))
+
+
+def multistep_blocks_in_flight(dev: torch.device, k: int) -> int:
+    """SMs x resident multistep blocks per SM at depth ``k`` on ``dev``."""
+    return _blocks_in_flight(dev.index, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_in_flight(index: int, k: int) -> int:
+    per_sm = ctypes.c_int(0)
+    _native.check(_native.lib("jacobi_multistep").jacobi_multistep_blocks_per_sm(
+        k, index, ctypes.byref(per_sm)), "jacobi_multistep_blocks_per_sm")
+    return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
 
 
 def multistep(curr, nxt, spec: GridSpec, k: int):
-    """``k`` Jacobi steps of a single-block periodic domain in one launch:
-    ``nxt``'s compute region <- the field after k steps (in place; returns
-    ``nxt``). The spheres are the standard jacobi3d spheres, derived from
-    coordinates."""
-    _require_single_block(spec)
+    """``k`` Jacobi steps of every block in one launch: ``nxt``'s compute
+    regions <- the field after k steps (in place; returns ``nxt``). The
+    spheres are the standard jacobi3d spheres, derived from coordinates.
+    On a multi-block partition this is the deep-halo form: ``curr``'s
+    halos must hold the neighbours' cells at radius >= k (see
+    :func:`require_deep_halo`)."""
     _check_block(curr, spec, torch.float32, "curr")
     _check_block(nxt, spec, torch.float32, "nxt")
     if not 1 <= k <= min(MULTISTEP_KMAX, spec.base.z):
         raise ValueError(f"multistep depth {k} outside [1, {MULTISTEP_KMAX}] "
                          f"or deeper than the {spec.base.z} planes")
+    if spec.dim.flatten() > 1:
+        require_deep_halo(spec, k)
     dev = _device_of(curr, nxt)
     if dev.type == "cpu":
         return multistep_plain(curr, nxt, spec, k)
-    p, off, b, g = spec.padded(), spec.compute_offset(), spec.base, spec.global_size
+    p, off, b, g, d = (spec.padded(), spec.compute_offset(), spec.base, spec.global_size,
+                       spec.dim)
     rc = _native.lib("jacobi_multistep").jacobi_multistep_launch(
-        curr.data_ptr(), nxt.data_ptr(), p.y * p.x, p.x,
-        off.z, off.y, off.x, b.z, b.y, b.x, k, g.x, g.y, g.z,
-        multistep_zchunks(spec, k), _native.stream_ptr(dev))
+        curr.data_ptr(), nxt.data_ptr(), p.y * p.x, p.x, p.z * p.y * p.x,
+        off.z, off.y, off.x, b.z, b.y, b.x, d.z, d.y, d.x, k, g.x, g.y, g.z,
+        multistep_zchunks(spec, k, multistep_blocks_in_flight(dev, k)), dev.index,
+        _native.stream_ptr(dev))
     _native.check(rc, "jacobi_multistep")
     multistep.launches += 1
     return nxt

@@ -1,24 +1,38 @@
-"""Periodic halo exchange of a single-block domain on one device.
+"""Periodic halo exchange of a domain whose blocks all sit on one device.
 
-The port's counterpart of ``stencil_tpu.parallel.exchange`` for one device
-and a (1,1,1) partition. With a single block on every axis, each axis phase
-of the axis-composed exchange is the block wrapping onto itself, so the
-exchange is three in-place fills, x then y then z, through the fill kernel
-(``ops/halo_fill.self_fill``). Each phase spans the full padded extent of
-the other axes, so edges and corners compose exactly as in the JAX package.
+The port's counterpart of ``stencil_tpu.parallel.exchange`` for one device:
+a (1,1,1) partition, or any uniform partition with every block resident on
+the device (the JAX package's oversubscribed layout, reference
+``dd.set_gpus({0,0})``, stencil.hpp:154). The axis-composed exchange runs
+the phases x then y then z; each spans the full padded extent of the other
+axes, so edges and corners compose exactly as in the JAX package.
+
+- An axis with one block wraps onto itself: its phase is an in-place fill
+  through the fill kernel (``ops/halo_fill.self_fill``) on every resident.
+  An x or y fill acts within each z plane, so it runs over each quantity's
+  residents stacked as one ``(residents * pz, py, px)`` array (the TPU's
+  ``z_stack`` form, which the JAX package uses on a ``(cz, 1, 1)``
+  residency and the port under any residency); a z fill beside x or y
+  residents takes each resident as a block of its own.
+- An axis with several blocks is a resident phase
+  (``_axis_phase_resident_batched`` in the JAX package): each resident's lo
+  halo takes its lo neighbour's hi boundary slab and its hi halo its hi
+  neighbour's lo slab, cyclically (the ring is this one device). Per phase
+  side and quantity, one rolled copy of the boundary slabs of every
+  resident moves them all (``torch.roll`` along the block dim).
 
 ``Method.REMOTE_DMA`` moves the same composed slabs by copies a kernel
 issues; on one block every phase wraps onto the block itself, so its
 exchange is the same three fills (the JAX package takes its composed body
 there too). Its ``fused`` and ``persistent`` kernel variants change the step
 loops (``ops/jacobi.py``), which then exchange inside their own kernels.
+REMOTE_DMA on resident blocks is not ported yet (ROADMAP.md).
 
 State layout, as in the JAX package: each quantity is one tensor of shape
-``(bz, by, bx, pz, py, px)`` = ``(1, 1, 1, pz, py, px)``. Unlike the JAX
-version, the exchange updates the tensors in place (it still returns the
-state dict).
+``(bz, by, bx, pz, py, px)``. Unlike the JAX version, the exchange updates
+the tensors in place (it still returns the state dict).
 
-Multi-block partitions (NCCL point-to-point between GPUs) are slice 2 of
+Partitions over several GPUs (NCCL point-to-point) are slice 2 of
 ROADMAP.md.
 """
 
@@ -33,7 +47,8 @@ import torch
 from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, halo_extent
 from ..ops.fused_stencil import kernel_supported
-from ..ops.halo_fill import AXIS_ORDER, MAX_FILL_GROUP, axis_geom, dtype_groups, self_fill
+from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom, dtype_groups,
+                             self_fill)
 from ..plan.ir import build_plan
 
 
@@ -61,15 +76,17 @@ def direction_bytes(spec: GridSpec, direction, itemsize: int) -> int:
 
 
 class HaloExchange:
-    """The single-device, single-block exchange: axis-composed, or
-    remote-dma with its ``fused`` or ``persistent`` kernel variant."""
+    """The exchange of a domain whose blocks all sit on one device:
+    axis-composed over any uniform partition, or remote-dma (with its
+    ``fused`` or ``persistent`` kernel variant) on one block."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
                  fused: bool = False, persistent: bool = False):
         if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
             raise NotImplementedError(
                 f"{method}: the port has the axis-composed and remote-dma exchanges only")
-        # one device holds every block
+        # one device holds every block: the mesh is (1,1,1)
+        mesh_dim = Dim3(1, 1, 1)
         self.resident = spec.dim
         self.fused = bool(fused)
         if self.fused and method != Method.REMOTE_DMA:
@@ -93,10 +110,16 @@ class HaloExchange:
                 f"the {variant} variant supports single-resident partitions "
                 f"only (got resident {self.resident}); use plain REMOTE_DMA "
                 "or AXIS_COMPOSED for oversubscription")
-        if spec.dim != Dim3(1, 1, 1):
+        if method == Method.REMOTE_DMA and self.oversubscribed:
             raise NotImplementedError(
-                f"partition {spec.dim}: multi-block exchange (NCCL between "
-                "GPUs) is slice 2 of ROADMAP.md; this slice runs (1,1,1)")
+                f"REMOTE_DMA on resident blocks (partition {spec.dim} on one device) is "
+                "item 3 of ROADMAP.md's list of what the resident path still lacks; "
+                "use AXIS_COMPOSED")
+        if not spec.is_uniform():
+            raise NotImplementedError(
+                f"uneven partition {spec.dim} of {spec.global_size}: uneven resident "
+                "partitions are item 1 of ROADMAP.md's list of what the resident path "
+                "still lacks")
         for axis in AXIS_ORDER:
             _o, n, rm, rp = axis_geom(spec, axis)
             if n < max(rm, rp):
@@ -105,29 +128,68 @@ class HaloExchange:
                     "halo would span multiple blocks")
         self.spec = spec
         self.method = method
-        self.plan = build_plan(spec, Dim3(1, 1, 1), method, resident=self.resident,
+        self.plan = build_plan(spec, mesh_dim, method, resident=self.resident,
                                fused=self.fused, persistent=self.persistent)
         # device-program launches per k-step chunk of the last persistent
         # loop call, counted as the JAX package counts them (ops/jacobi.py)
         self.last_launches_per_chunk = 0
         self._loops = {}
 
+    @property
+    def oversubscribed(self) -> bool:
+        """More than one block of the partition on the device."""
+        return self.resident != Dim3(1, 1, 1)
+
     def __call__(self, state):
         """Fill every halo of every quantity in ``state``, a quantity dict
         or one tensor (in place; returns it)."""
+        return self.exchange(state)
+
+    def exchange(self, state, axes=None):
+        """The composed phases x -> y -> z, or the subset ``axes`` of axis
+        names (the deep-halo jacobi loop exchanges only its multi-block
+        axes; the kernels wrap the others), over ``state``, a quantity dict
+        or one tensor. In place; returns ``state``."""
         if isinstance(state, torch.Tensor):
-            self({0: state})
+            self.exchange({0: state}, axes)
             return state
         groups = dtype_groups(state)
-        for axis in AXIS_ORDER:
-            _o, _n, rm, rp = axis_geom(self.spec, axis)
-            if rm == 0 and rp == 0:
+        for phase in self.plan.axis_phases:
+            if not phase.active or (axes is not None and phase.axis not in axes):
                 continue
             for _dt, keys in groups:
-                for i in range(0, len(keys), MAX_FILL_GROUP):
-                    self_fill([state[k] for k in keys[i:i + MAX_FILL_GROUP]],
-                              self.spec, axis)
+                if phase.resident > 1:
+                    for k in keys:
+                        self._resident_phase(state[k], phase)
+                else:
+                    self._self_wrap_phase([state[k] for k in keys], phase.axis)
         return state
+
+    def _self_wrap_phase(self, ts, axis: str) -> None:
+        """One self-wrap axis over every resident of the same-dtype
+        quantities ``ts``, through the fill kernel: x and y over each
+        quantity's residents as one z-stack, z over each resident as a
+        block of its own; at most MAX_FILL_GROUP tensors per launch."""
+        nres = self.spec.num_blocks()
+        blocks, z_stack = ts, nres
+        if axis == "z" and nres > 1:
+            p = self.spec.padded()
+            blocks = [b for t in ts for b in t.view(-1, p.z, p.y, p.x).unbind(0)]
+            z_stack = 1
+        for i in range(0, len(blocks), MAX_FILL_GROUP):
+            self_fill(blocks[i:i + MAX_FILL_GROUP], self.spec, axis, z_stack=z_stack)
+
+    def _resident_phase(self, t: torch.Tensor, phase) -> None:
+        """One axis phase over the resident blocks of one quantity: the lo
+        halos take the hi boundary slabs rolled one block up the block dim,
+        the hi halos the lo slabs rolled one block down (cyclic)."""
+        o, n, rm, rp = axis_geom(self.spec, phase.axis)
+        if rm:
+            t[_axis_slice(t, phase.axis, o - rm, o)] = torch.roll(
+                t[_axis_slice(t, phase.axis, o + n - rm, o + n)], 1, phase.bdim)
+        if rp:
+            t[_axis_slice(t, phase.axis, o + n, o + n + rp)] = torch.roll(
+                t[_axis_slice(t, phase.axis, o, o + rp)], -1, phase.bdim)
 
     def make_loop(self, iters: int):
         """``loop(state) -> state`` running ``iters`` back-to-back exchanges
@@ -157,14 +219,16 @@ class HaloExchange:
         return per_item * sum(itemsizes) * self.spec.num_blocks()
 
 
-def shard_blocks(global_zyx: np.ndarray, spec: GridSpec, device, dtype=None) -> torch.Tensor:
-    """Scatter a global [z,y,x] host array into the stacked padded layout
-    ``(bz, by, bx, pz, py, px)`` on ``device``; halo and pad cells are 0."""
+def shard_blocks(global_zyx, spec: GridSpec, device) -> torch.Tensor:
+    """Scatter a global [z,y,x] array (numpy, or a tensor) into the stacked
+    padded layout ``(bz, by, bx, pz, py, px)`` on ``device``, keeping its
+    dtype; halo and pad cells are 0."""
     g = spec.global_size
-    if global_zyx.shape != (g.z, g.y, g.x):
+    src = torch.as_tensor(global_zyx, device=device)
+    if tuple(src.shape) != (g.z, g.y, g.x):
         raise ValueError(
-            f"global array shape {global_zyx.shape} != grid ({g.z}, {g.y}, {g.x})")
-    stacked = np.zeros(spec.stacked_shape_zyx(), dtype=dtype or global_zyx.dtype)
+            f"global array shape {tuple(src.shape)} != grid ({g.z}, {g.y}, {g.x})")
+    stacked = torch.zeros(spec.stacked_shape_zyx(), dtype=src.dtype, device=device)
     off = spec.compute_offset()
     for iz in range(spec.dim.z):
         for iy in range(spec.dim.y):
@@ -172,9 +236,8 @@ def shard_blocks(global_zyx: np.ndarray, spec: GridSpec, device, dtype=None) -> 
                 o = spec.block_origin((ix, iy, iz))
                 s = spec.block_size((ix, iy, iz))
                 stacked[iz, iy, ix, off.z:off.z + s.z, off.y:off.y + s.y,
-                        off.x:off.x + s.x] = global_zyx[
-                    o.z:o.z + s.z, o.y:o.y + s.y, o.x:o.x + s.x]
-    return torch.from_numpy(stacked).to(device)
+                        off.x:off.x + s.x] = src[o.z:o.z + s.z, o.y:o.y + s.y, o.x:o.x + s.x]
+    return stacked
 
 
 def unshard_blocks(stacked: torch.Tensor, spec: GridSpec) -> np.ndarray:

@@ -98,8 +98,14 @@ def test_domain_global_roundtrip_and_regions():
 
 
 def test_multi_block_raises():
+    """Several devices are slice 2; an uneven partition (every block on the
+    one device) is a ROADMAP item; a uniform one realizes."""
     dd = DistributedDomain(16, 16, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        dd.set_partition((2, 1, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dd.set_partition((3, 1, 1))
     with pytest.raises(NotImplementedError, match="slice 2"):
         dd.set_devices(["cpu", "cpu"])
+    dd.set_partition((2, 1, 1))
+    dd.add_data("t", "float32")
+    dd.realize()
+    assert dd.halo_exchange.oversubscribed and len(dd.get_interior()) == 2

@@ -14,8 +14,8 @@ from stencil_tpu_torch import DistributedDomain
 from stencil_tpu_torch.apps import astaroth, jacobi3d
 from stencil_tpu_torch.astaroth.equations import Constants
 from stencil_tpu_torch.domain import GridSpec
-from stencil_tpu_torch.geometry import Dim3, Radius
-from stencil_tpu_torch.ops import (_native, astaroth_substep, fused_stencil, halo_fill,
+from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
+from stencil_tpu_torch.ops import (_native, astaroth_substep, fused_stencil, halo_fill, jacobi,
                                    persistent_stencil, stencil_kernels)
 from stencil_tpu_torch.parallel import Method
 from stencil_tpu_torch.plan.ir import build_plan
@@ -142,6 +142,56 @@ def test_wrappers_have_no_fallback():
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__name__
 
 
+PLAIN = ("sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
+         "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep")
+
+
+def _is_cpu_test(test):
+    """``<device>.type == "cpu"``."""
+    return (isinstance(test, ast.Compare) and [type(o) for o in test.ops] == [ast.Eq]
+            and isinstance(test.comparators[0], ast.Constant)
+            and test.comparators[0].value == "cpu")
+
+
+def _plain_calls(tree):
+    """``(enclosing functions, call, under_cpu_branch)`` for each call of a
+    plain version in ``tree``."""
+    def visit(node, fns, cpu):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            fns = fns + (node.name,)
+        if isinstance(node, ast.Call):
+            name = getattr(node.func, "id", getattr(node.func, "attr", None))
+            if name in PLAIN:
+                yield fns, name, cpu
+        if isinstance(node, ast.If) and _is_cpu_test(node.test):
+            for n in node.body:
+                yield from visit(n, fns, True)
+            for n in node.orelse:
+                yield from visit(n, fns, cpu)
+            return
+        for child in ast.iter_child_nodes(node):
+            yield from visit(child, fns, cpu)
+
+    yield from visit(tree, (), False)
+
+
+# plain helpers besides the plain versions: the composed fill and the
+# persistent chunk body, both counterparts of JAX functions of those names
+PLAIN_HELPERS = ("wrap_fill_batched", "make_persistent_chunk_body")
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if p.name != "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_plain_versions_called_only_from_cpu_branches(path):
+    """In the package a plain version runs only inside another plain
+    version or under a wrapper's explicit CPU branch: no module picks it
+    for tensors on the card (the wrappers' own branches are held by
+    test_wrappers_take_plain_versions_only_on_cpu)."""
+    for fns, name, cpu in _plain_calls(ast.parse(path.read_text())):
+        plain = any(f in PLAIN or f in PLAIN_HELPERS or f.endswith("_plain") for f in fns)
+        assert cpu or plain, f"{path.name}: {'.'.join(fns)} calls {name} outside a CPU branch"
+
+
 def test_wrappers_check_operands():
     spec = _spec()
     f32 = torch.float32
@@ -152,9 +202,10 @@ def test_wrappers_check_operands():
         stencil_kernels.sweep(c, _block(spec, f32), _block(spec, f32), spec)
     with pytest.raises(ValueError, match="4- or 8-byte"):
         halo_fill.self_fill([_block(spec, torch.float16)], spec, "y")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        stencil_kernels.multistep(c, _block(spec, f32),
-                                  GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(1)), 2)
+    # a multi-block partition takes the deep-halo form, which needs radius >= k
+    spec2 = GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(1))
+    with pytest.raises(ValueError, match="radius >= k"):
+        stencil_kernels.multistep(_block(spec2, f32), _block(spec2, f32), spec2, 2)
 
 
 def test_variant_wrappers_check_operands():
@@ -175,3 +226,28 @@ def test_variant_wrappers_check_operands():
                                              _block(spec2, i32), spec2, 3)
     with pytest.raises(ValueError, match="shape"):
         persistent_stencil.persistent_jacobi(c, _block(spec2, f32), _block(spec2, i32), spec2, 2)
+
+
+def test_resident_forms_take_plain_versions_only_on_cpu(monkeypatch):
+    """The resident forms go through the same wrappers: ``sweep_region``
+    (whose plain version is ``jacobi_sweep``) and the deep-halo multistep
+    take their plain versions for CPU stacks, and refuse any other
+    device."""
+    spec = GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(2))
+    f32, i32 = torch.float32, torch.int32
+    calls = []
+    for mod, name in ((jacobi, "jacobi_sweep"), (stencil_kernels, "multistep_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
+    before = (stencil_kernels.sweep_region.launches, stencil_kernels.multistep.launches)
+    off = spec.compute_offset()
+    rect = Rect3(off, off + Dim3(2, 12, 10))
+    stencil_kernels.sweep_region(_block(spec, f32), _block(spec, f32), _block(spec, i32), spec,
+                                 rect)
+    stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
+    assert calls == ["jacobi_sweep", "multistep_plain"]
+    assert before == (stencil_kernels.sweep_region.launches, stencil_kernels.multistep.launches)
+    with pytest.raises(ValueError):
+        stencil_kernels.sweep_region(_block(spec, f32, "meta"), _block(spec, f32, "meta"),
+                                     _block(spec, i32, "meta"), spec, rect)
+    with pytest.raises(ValueError):
+        stencil_kernels.multistep(_block(spec, f32, "meta"), _block(spec, f32, "meta"), spec, 2)
