@@ -65,6 +65,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               (2,2,2), r2, x4), 512^3 (1,1,2) r3 x4 and the deep_halo=4
               run's own exchange (512^3 (2,2,2) r4, one quantity) in GB/s;
               the new forms timed beside their plain versions and bounds.
+8. campaign -- the multi-tenant path: the tenant-form sweep (B tenants of a
+              (B, pz, py, px) stack, every axis wrapping onto its tenant, one
+              launch) against its plain version (torch.equal, random fields and
+              sel) at B=64 of 32^3, B=3 of 33x21x13 r1 and r2, B=1 of 32^3 and
+              B=70,000 of 4^3 (over the 65,535 limit of grid.y/z); a float64
+              slot on the card raises; make_batched_jacobi_loop on the card
+              against the CPU (B=8 of 24^3, 3 steps, compute regions); the
+              campaign CLI's A/B (apps.campaign.run_modes --mode ab
+              --check-parity, 6 steps in chunks of 3) at 64 tenants of 32^3 and
+              of 128^3, launch counts reset around each (6 tenant sweeps; 128
+              multistep passes, no sweeps), with Mcells/s and p50/p99 step
+              latency, then 30 batched steps of the same slot, whose median
+              chunk gives its device work (3 tenant sweeps and the per-lane
+              health reductions) against its wall time (the host's share);
+              the fault run (8 tenants, slot 4,
+              nan@3 on t1 every time: t1 evicted with rc-43 evidence, the
+              survivors byte-equal to a clean run, --resume revives t1
+              byte-equal); the tenant sweep at B=64 of 128^3 against its plain
+              version (torch.equal), then timed per launch.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -78,6 +97,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -830,6 +850,178 @@ def main() -> int:
     log(f"jacobi_multistep_deep_halo 512^3 (2,2,2) k={kh}: "
         f"{timings['jacobi_multistep_deep_halo']['ms'] / kh:.4f} ms per step")
 
+    # -- 8. campaign: the tenant-form sweep and the multi-tenant driver --------
+    from stencil_tpu_torch.apps import campaign as campaign_app
+    from stencil_tpu_torch.campaign import SlotHealthGuard
+    from stencil_tpu_torch.obs import FAULT_RC, telemetry
+    from stencil_tpu_torch.ops.jacobi import make_batched_jacobi_loop
+
+    errs["jacobi_sweep_batched"] = 0.0
+
+    def tenant_spec(size, r=1):
+        return GridSpec(Dim3(*size), Dim3(1, 1, 1), Radius.constant(r), aligned=False)
+
+    def rand_slot(spec, b, seed):
+        gen.manual_seed(seed)
+        p = spec.padded()
+        return (torch.rand((b, p.z, p.y, p.x), generator=gen, device=dev),
+                torch.randint(0, 3, (b, p.z, p.y, p.x), generator=gen, device=dev,
+                              dtype=torch.int32))
+
+    def compute_of(spec):
+        off, b = spec.compute_offset(), spec.base
+        return (slice(None), slice(off.z, off.z + b.z), slice(off.y, off.y + b.y),
+                slice(off.x, off.x + b.x))
+
+    for i, (label, size, r8, b8) in enumerate((
+            ("B=64 of 32^3", (32, 32, 32), 1, 64), ("B=3 of 33x21x13 r1", (33, 21, 13), 1, 3),
+            ("B=3 of 33x21x13 r2", (33, 21, 13), 2, 3), ("B=1 of 32^3", (32, 32, 32), 1, 1),
+            ("B=70000 of 4^3", (4, 4, 4), 1, 70000))):
+        spec = tenant_spec(size, r8)
+        c, s8 = rand_slot(spec, b8, 300 + i)
+        got = sk.sweep_tenants(c, torch.zeros_like(c), s8, spec)
+        want = sk.sweep_plain(c, torch.zeros_like(c), s8, spec)
+        torch.cuda.synchronize()
+        errs["jacobi_sweep_batched"] = max(errs["jacobi_sweep_batched"], max_abs(got, want))
+        check(torch.equal(got, want), f"tenant sweep {label}: kernel != plain")
+        log(f"tenant sweep {label}: equal")
+    del c, s8, got, want
+    spec = tenant_spec((8, 8, 8))
+    c, s8 = rand_slot(spec, 2, 310)
+    try:
+        sk.sweep_tenants(c.double(), torch.zeros_like(c).double(), s8, spec)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "a float64 slot on the card did not raise NotImplementedError")
+
+    # the batched loop on the card against the same loop on the CPU
+    spec = tenant_spec((24, 24, 24))
+    c, s8 = rand_slot(spec, 8, 320)
+    gc, gn = make_batched_jacobi_loop(spec, 3, device=dev)(c.clone(), torch.zeros_like(c), s8)
+    cc, cn = make_batched_jacobi_loop(spec, 3, device="cpu")(c.cpu(), torch.zeros_like(c.cpu()),
+                                                             s8.cpu())
+    cs = compute_of(spec)
+    check(torch.equal(gc[cs].cpu(), cc[cs]) and torch.equal(gn[cs].cpu(), cn[cs]),
+          "batched loop B=8 of 24^3, 3 steps: card != CPU")
+    log("make_batched_jacobi_loop B=8 of 24^3 3 steps: card == CPU on the compute regions")
+    del c, s8, gc, gn, cc, cn
+
+    counted8 = {"jacobi_sweep_batched": sk.sweep_tenants, "jacobi_sweep": sk.sweep,
+                "jacobi_multistep": sk.multistep}
+
+    def run_campaign(argv):
+        """apps.campaign.run_modes on ``argv`` in a temporary directory, with
+        its telemetry records and the launch counts of its run."""
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-campaign-") as d:
+            metrics = os.path.join(d, "metrics.jsonl")
+            telemetry.configure(metrics_out=metrics, app="chip_smoke")
+            for fn in counted8.values():
+                fn.launches = 0
+            out = campaign_app.run_modes(campaign_app.parse_args(argv),
+                                         os.path.join(d, "campaign"))
+            torch.cuda.synchronize()
+            got8 = {name: fn.launches for name, fn in counted8.items()}
+            telemetry.get().close()
+            recs = [json.loads(line) for line in open(metrics) if line.strip()]
+        return out, got8, recs
+
+    def campaign_ab(edge, tenants):
+        """The CLI's A/B at ``tenants`` tenants of ``edge``^3 in one slot
+        (launch counts, parity), then a 30-step batched run whose slot
+        chunks (10 of 3 steps) give the steady-state host share: one chunk's
+        device work (3 tenant sweeps and the per-lane health reductions,
+        each timed as a CUDA-graph replay on a slot of the same shape)
+        against the chunk's wall (the step with its synchronize, then the
+        health check)."""
+        shape = ["--tenants", str(tenants), "--slot", str(tenants), "--size", str(edge),
+                 "--chunk", "3"]
+        out, got8, _ = run_campaign(shape + ["--steps", "6", "--mode", "ab", "--check-parity"])
+        want8 = {"jacobi_sweep_batched": 6, "jacobi_sweep": 0, "jacobi_multistep": 2 * tenants}
+        check(got8 == want8, f"campaign A/B {tenants} x {edge}^3: launches {got8}, expected {want8}")
+        check(out["parity"] == "ok" and out["evicted"] == [],
+              f"campaign A/B {tenants} x {edge}^3: parity {out['parity']}, evicted {out['evicted']}")
+        for res in out["_batched"]["results"].values():
+            check(res.final.shape == (edge,) * 3 and bool(np.isfinite(res.final).all()),
+                  f"campaign {edge}^3 tenant {res.tid}: not finite or wrong shape")
+        log(f"campaign A/B {tenants} tenants of {edge}^3, 6 steps in chunks of 3: batched "
+            f"{out['batched_mcells_per_s']} Mcells/s (p50 {out['batched_p50_step_s']} s, p99 "
+            f"{out['batched_p99_step_s']} s per step), sequential "
+            f"{out['sequential_mcells_per_s']} Mcells/s (p50 {out['sequential_p50_step_s']} s, p99 "
+            f"{out['sequential_p99_step_s']} s), ratio {out['batched_over_sequential']}, parity "
+            f"{out['parity']}, launches {got8}")
+        steady, _, recs = run_campaign(shape + ["--steps", "30"])
+        spec8 = tenant_spec((edge,) * 3)
+        c8, s88 = rand_slot(spec8, tenants, 330)
+        n8 = torch.zeros_like(c8)
+        sweep3_ms = 3 * time_ms(lambda: sk.sweep_tenants(c8, n8, s88, spec8), 20, graph=True)
+        reduce_ms = time_ms(lambda: SlotHealthGuard._reduce({"temperature": c8}), 20, graph=True)
+        dev_ms = sweep3_ms + reduce_ms
+        del c8, s88, n8
+        steps = [r["value"] * r["iters"] * 1e3 for r in recs
+                 if r["name"] == "campaign.step_latency_s"]
+        checks = [r["seconds"] * 1e3 for r in recs if r["name"] == "health.check"]
+        step_ms, check_ms = float(np.median(steps)), float(np.median(checks))
+        log(f"campaign slot chunk {tenants} x {edge}^3 (3 steps, median of {len(steps)} chunks, "
+            f"first {steps[0]:.4f} ms + check {checks[0]:.4f} ms): device {dev_ms:.4f} ms "
+            f"(3 sweeps {sweep3_ms:.4f} + health reductions {reduce_ms:.4f}), wall "
+            f"{step_ms + check_ms:.4f} ms (step {step_ms:.4f} + health check {check_ms:.4f}): "
+            f"host share {1 - dev_ms / (step_ms + check_ms):.3f}; 30 steps batched "
+            f"{steady['batched_mcells_per_s']} Mcells/s")
+        return got8
+
+    launches["jacobi_sweep_batched"] = campaign_ab(32, 64)["jacobi_sweep_batched"]
+    campaign_ab(128, 64)
+
+    # the fault run: t1 poisoned at its step 3 every time it gets there
+    fault_args = ["--tenants", "8", "--slot", "4", "--size", "32", "--steps", "6", "--chunk", "2"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fault-") as d:
+        guarded = ["--ckpt-every", "2", "--max-rollbacks", "1", "--rollback-backoff", "0.01"]
+        clean = campaign_app.run_modes(campaign_app.parse_args(fault_args + guarded),
+                                       os.path.join(d, "clean"))["_batched"]
+        inj_dir = os.path.join(d, "inj")
+        inj = campaign_app.run_modes(campaign_app.parse_args(
+            fault_args + guarded + ["--inject", "nan@3:tenant=t1:repeat=always"]),
+            inj_dir)["_batched"]
+        rev = campaign_app.run_modes(campaign_app.parse_args(fault_args + ["--resume"]),
+                                     inj_dir)["_batched"]
+        check(clean["evicted"] == [] and inj["evicted"] == ["t1"],
+              f"fault run: evicted {inj['evicted']} (clean {clean['evicted']})")
+        evidence = json.load(open(inj["results"]["t1"].evidence))
+        check(evidence["rc"] == FAULT_RC == 43, f"fault run: evidence rc {evidence['rc']}")
+        finals = {t: r.final.tobytes() for t, r in clean["results"].items()}
+        survivors = {t: r for t, r in inj["results"].items() if t != "t1"}
+        check(len(survivors) == 7 and all(r.outcome == "done" and r.final.tobytes() == finals[t]
+                                          for t, r in survivors.items()),
+              "fault run: a survivor differs from the clean run")
+        r1 = rev["results"]["t1"]
+        check(r1.outcome == "done" and r1.steps == 6 and r1.final.tobytes() == finals["t1"],
+              "fault run: the revived t1 differs from the clean run")
+    log("campaign fault run 8 x 32^3, slot 4: t1 evicted (rc 43 evidence), 7 survivors == clean "
+        "run, --resume revives t1 == clean run")
+
+    # the tenant sweep at B=64 of 128^3 (headline run 2's slot) against its
+    # plain version, then per launch
+    spec = tenant_spec((128, 128, 128))
+    c, s8 = rand_slot(spec, 64, 340)
+    got = sk.sweep_tenants(c, torch.zeros_like(c), s8, spec)
+    want = sk.sweep_plain(c, torch.zeros_like(c), s8, spec)
+    torch.cuda.synchronize()
+    errs["jacobi_sweep_batched"] = max(errs["jacobi_sweep_batched"], max_abs(got, want))
+    check(torch.equal(got, want), "tenant sweep B=64 of 128^3: kernel != plain")
+    log("tenant sweep B=64 of 128^3: equal")
+    del got, want
+    n8 = torch.zeros_like(c)
+    cells8 = 64 * 128 ** 3
+    timings["jacobi_sweep_batched"] = dict(
+        ms=time_ms(lambda: sk.sweep_tenants(c, n8, s8, spec), 20, graph=True),
+        plain_ms=time_ms(lambda: sk.sweep_plain(c, n8, s8, spec), 3, warmup=1),
+        bound=bound_ms(12 * cells8, 6 * cells8), library_ms=None)
+    del c, s8, n8
+    t = timings["jacobi_sweep_batched"]
+    log(f"time jacobi_sweep_batched B=64 of 128^3: {t['ms']:.4f} ms per launch (plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -856,6 +1048,9 @@ def main() -> int:
                                 "stencil_tpu/ops/pallas_stencil.py:119"),
         "self_fill_z_stack": ("stencil_tpu_torch/csrc/self_fill.cu",
                               "stencil_tpu/ops/halo_fill.py:236"),
+        # the batch= form (a leading tenant axis on the grid, every axis wrapping)
+        "jacobi_sweep_batched": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                                 "stencil_tpu/ops/pallas_stencil.py:119"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -26,8 +26,11 @@ Prints one JSON line per measurement, after a line naming the card
   layout): ``jacobi_multistep`` in its deep-halo form at each k >= 2 of
   ``--ks`` up to the planner's depth, beside one read of the blocks grown
   by k and one write of the blocks; ``jacobi_sweep_region`` on one overlap
-  shell (the z-lo one) of every block; and ``self_fill`` over a z-stack
-  (size^3 over (1,1,2), radius 3, four fp32 quantities) per axis.
+  shell (the z-lo one) of every block; the stacked ``jacobi_sweep`` over
+  all eight blocks; and ``self_fill`` over a z-stack (size^3 over (1,1,2),
+  radius 3, four fp32 quantities) per axis;
+- the tenant form of ``jacobi_sweep``: one step of a campaign slot of 64
+  tenants of (size/4)^3 (as many cells as size^3), beside its bytes bound.
 
 Times are CUDA-event means over back-to-back launches replayed from a CUDA
 graph (device time, no host launch overhead) after a warm-up; inputs are
@@ -156,7 +159,12 @@ def main(argv: Optional[list] = None) -> int:
                           "zchunks": sk.multistep_zchunks(
                               specr, k, sk.multistep_blocks_in_flight(dev, k))}), flush=True)
     sel = sphere_sel_blocks(specr, dev)
-    shell = multi_block_layout(specr)[2][0]
+    wrap, _axes, shells = multi_block_layout(specr)
+    ms = cuda_time_ms(lambda: sk.sweep(curr, nxt, sel, specr, wrap), args.reps, graph=True)
+    print(json.dumps({"kernel": "jacobi_sweep", "form": "stacked", "size": n,
+                      "partition": [2, 2, 2], "ms": ms,
+                      "bound_ms": bound_ms(12 * cells, 6 * cells)[0]}), flush=True)
+    shell = shells[0]
     ms = cuda_time_ms(lambda: sk.sweep_region(curr, nxt, sel, specr, shell), args.reps * 2,
                       graph=True)
     shell_cells = shell.num_points() * specr.num_blocks()
@@ -175,6 +183,20 @@ def main(argv: Optional[list] = None) -> int:
                           "ms": ms, "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0)[0]}),
               flush=True)
     del qs
+
+    # the campaign slot: 64 tenants of (n/4)^3 (as many cells as n^3)
+    spect = GridSpec(Dim3(n // 4, n // 4, n // 4), Dim3(1, 1, 1), Radius.constant(1),
+                     aligned=False)
+    pt = spect.padded()
+    curr = torch.rand((64, pt.z, pt.y, pt.x), generator=gen, device=dev)
+    nxt = torch.zeros_like(curr)
+    sel = torch.randint(0, 3, curr.shape, generator=gen, device=dev, dtype=torch.int32)
+    ms = cuda_time_ms(lambda: sk.sweep_tenants(curr, nxt, sel, spect), args.reps, graph=True)
+    cells = 64 * spect.base.flatten()
+    print(json.dumps({"kernel": "jacobi_sweep", "form": "tenants", "tenants": 64,
+                      "size": n // 4, "ms": ms, "bound_ms": bound_ms(12 * cells, 6 * cells)[0]}),
+          flush=True)
+    del curr, nxt, sel
 
     na = args.astaroth_size
     info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",

@@ -8,7 +8,9 @@ takes the JAX package's arrays (as numpy, e.g. ``np.asarray(jax_array)``),
 whether jacobi3d's temperature and int32 ``sel`` or Astaroth's 8-field dict
 (``lnrho``, ``uux`` ... ``entropy``) in fp32 or fp64, and
 :func:`state_to_numpy` gives numpy arrays the JAX package's
-``jax.device_put`` takes back.
+``jax.device_put`` takes back. A campaign slot's ``(B, pz, py, px)``
+tenant stack moves the same way, and tenant snapshots are the second
+carrier: either package restores the other's (``ckpt/``).
 """
 
 from __future__ import annotations
@@ -24,13 +26,15 @@ from .domain import GridSpec
 def state_from_jax(arrays: Mapping, spec: GridSpec, device) -> Dict:
     """``{key: tensor on device}`` from ``{key: numpy array}`` in the JAX
     package's stacked padded layout (quantities and ``sel`` alike); the
-    shape must be ``spec.stacked_shape_zyx()``."""
+    shape must be ``spec.stacked_shape_zyx()`` or, for a one-block spec, a
+    campaign slot's ``(B, pz, py, px)`` stack of tenants."""
     want = spec.stacked_shape_zyx()
     out = {}
     for key, a in arrays.items():
         a = np.asarray(a)
-        if a.shape != want:
-            raise ValueError(f"{key!r}: shape {a.shape}, expected {want}")
+        tenants = spec.num_blocks() == 1 and a.ndim == 4 and a.shape[1:] == want[3:]
+        if a.shape != want and not tenants:
+            raise ValueError(f"{key!r}: shape {a.shape}, expected {want} or (B, *{want[3:]})")
         # a copy: arrays from JAX are read-only
         out[key] = torch.from_numpy(np.array(a, order="C")).to(device)
     return out

@@ -20,14 +20,21 @@
 // layout (Radius::without_x, no x halo columns) work unchanged. Non-wrapping
 // axes read the halo cells.
 //
-// Residents: one launch sweeps every block of a stack (resident r at
-// r * bstride); grid.z covers the blocks times their z ranges. A single
-// block takes the STACK = false instantiation, which computes no resident
-// offset (one instantiation for both ran 1.09 ms against 0.94 at 512^3 on
-// an H100 80GB HBM3 at 700 W, apps/bench_kernels.py's jacobi_sweep). The
-// same kernel sweeps any rect of the blocks (the overlap shells of a
-// multi-block partition) when given the rect's origin and extent with the
-// wrap flags off.
+// Residents and tenants: one launch sweeps every block of a stack (block r
+// at r * bstride): the resident blocks of a partition, or the B independent
+// tenants of a campaign slot (stencil_tpu/ops/pallas_stencil.py
+// make_pallas_jacobi_sweep's batch= form, every axis wrapping onto the
+// tenant itself). A stack launches as a one-dimensional grid of x tiles, y
+// tiles, z ranges and blocks, in that order (fastest first), since grid.x
+// takes up to 2^31 - 1 blocks where grid.y and grid.z stop at 65,535: any
+// stack that fits in memory launches, and each block's tiles run together
+// as on a single block. A single block takes the STACK = false
+// instantiation, which computes no block offset and launches a (gx, gy, gz)
+// grid (one instantiation for both ran 1.09 ms against 0.94 at 512^3 on an
+// H100 80GB HBM3 at 700 W, apps/bench_kernels.py's jacobi_sweep). The same kernel
+// sweeps any rect of the blocks (the overlap shells of a multi-block
+// partition) when given the rect's origin and extent with the wrap flags
+// off.
 //
 // Only the compute region of `out` is written. (The TPU kernel also copies
 // the input's halo values into the rows it stores, a store-granularity
@@ -53,11 +60,15 @@ __global__ void __launch_bounds__(THREADS)
 jacobi_sweep_kernel(const float* __restrict__ curr, float* __restrict__ out,
                     const int32_t* __restrict__ sel, long long sz, long long sy,
                     long long bstride, int zo, int yo, int xo, int nz, int ny, int nx,
-                    int wz, int wy, int wx, int zchunk, int gz) {
-  const int res = STACK ? blockIdx.z / gz : 0;
-  const int tx = blockIdx.x * BX + threadIdx.x;
-  const int ty = blockIdx.y * BY + threadIdx.y;
-  const int z0 = (blockIdx.z - res * gz) * zchunk;
+                    int wz, int wy, int wx, int zchunk, int gx, int gy, int gz) {
+  unsigned int i = blockIdx.x;
+  const int bx = STACK ? i % gx : blockIdx.x;
+  const int by = STACK ? (i /= gx) % gy : blockIdx.y;
+  const int bz = STACK ? (i /= gy) % gz : blockIdx.z;
+  const int res = STACK ? i / gz : 0;
+  const int tx = bx * BX + threadIdx.x;
+  const int ty = by * BY + threadIdx.y;
+  const int z0 = bz * zchunk;
   const int z1 = min(nz, z0 + zchunk);
   if (tx >= nx || ty >= ny || z0 >= z1) return;
   const long long b = STACK ? res * bstride : 0;
@@ -80,16 +91,19 @@ extern "C" int jacobi_sweep_launch(const void* curr, void* out, const void* sel,
   SweepGrid g;
   const cudaError_t e = sweep_grid(dev, nx, ny, nz, &g, nres);
   if (e != cudaSuccess) return (int)e;
-  if ((long long)g.gz * nres > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(g.gx, g.gy, g.gz * nres), block(BX, BY);
+  const long long blocks = (long long)g.gx * g.gy * g.gz * nres;
+  if (nres > 1 ? blocks > 2147483647LL : g.gy > 65535 || g.gz > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = nres > 1 ? dim3((unsigned)blocks) : dim3(g.gx, g.gy, g.gz);
+  const dim3 block(BX, BY);
   cudaStream_t st = (cudaStream_t)stream;
   if (nres > 1)
     jacobi_sweep_kernel<true><<<grid, block, 0, st>>>(
         (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, bstride, zo, yo, xo,
-        nz, ny, nx, wz, wy, wx, g.zchunk, g.gz);
+        nz, ny, nx, wz, wy, wx, g.zchunk, g.gx, g.gy, g.gz);
   else
     jacobi_sweep_kernel<false><<<grid, block, 0, st>>>(
         (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, bstride, zo, yo, xo,
-        nz, ny, nx, wz, wy, wx, g.zchunk, g.gz);
+        nz, ny, nx, wz, wy, wx, g.zchunk, g.gx, g.gy, g.gz);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,110 @@
+"""In-loop numerical health guard: one isfinite / max|u| reduction.
+
+The port's counterpart of ``stencil_tpu.fault.health``: the detection layer
+of the fault stack (``inject.py`` manufactures faults, ``recover.py`` rolls
+them back). The guard never touches the step program: it is a separate
+reduction over the state between chunks, run with torch reductions on the
+state's own device (the JAX package runs it in XLA, not in a Pallas
+kernel), and its result comes to the host in one copy per check. Each
+check is a ``health.check`` span, so its cost is in the metrics file.
+
+A failed check raises :class:`NumericalFault` naming the quantity, the step
+and the kind (``nonfinite`` | ``divergence``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from ..obs import telemetry
+
+#: NumericalFault kinds, in the order the checks run.
+NONFINITE = "nonfinite"
+DIVERGENCE = "divergence"
+
+
+class NumericalFault(RuntimeError):
+    """An in-band numerical fault: non-finite values or a blown ceiling.
+
+    Carries the offending ``quantity`` name, the ``step`` the failed check
+    observed, the fault ``kind``, and (when finite) the observed ``value``
+    (max |u| of the quantity).
+    """
+
+    def __init__(self, kind: str, quantity: str, step: int,
+                 value: Optional[float] = None):
+        self.kind = kind
+        self.quantity = quantity
+        self.step = int(step)
+        self.value = value
+        what = ("non-finite values" if kind == NONFINITE
+                else f"max|u| = {value:g} over the divergence ceiling")
+        super().__init__(
+            f"numerical fault [{kind}] in quantity {quantity!r} at step "
+            f"{step}: {what}")
+
+
+def finite_and_max(x: torch.Tensor, dims=None):
+    """``(all finite, max |x|)`` of ``x`` over ``dims`` (all when None), both
+    float32 on ``x``'s device. float32 is enough for the ceiling verdict: a
+    float64 magnitude that overflows the cast reads as inf, which any
+    ceiling calls divergence. Integer tensors are trivially healthy."""
+    shape = () if dims is None else x.shape[:1]
+    if not x.is_floating_point():
+        return (torch.ones(shape, device=x.device), torch.zeros(shape, device=x.device))
+    flat = x.reshape(-1) if dims is None else x.reshape(x.shape[0], -1)
+    d = 0 if dims is None else 1
+    return (torch.isfinite(flat).all(d).float(), flat.abs().amax(d).float())
+
+
+class HealthGuard:
+    """Periodic health check over a ``{name: tensor}`` state.
+
+    ``every`` is the check cadence in steps (the loop engine calls
+    :meth:`due` at chunk boundaries); ``max_abs`` adds the optional
+    divergence ceiling on top of the isfinite sweep.
+    """
+
+    def __init__(self, every: int = 1, max_abs: Optional[float] = None):
+        self.every = max(1, int(every))
+        self.max_abs = float(max_abs) if max_abs else None
+        self.checks = 0
+
+    @staticmethod
+    def _reduce(state) -> torch.Tensor:
+        """``(2, Q)`` float32: per quantity (sorted by name) all-finite
+        (1.0 / 0.0) and max |u|."""
+        finite, amax = zip(*(finite_and_max(state[n]) for n in sorted(state)))
+        return torch.stack([torch.stack(finite), torch.stack(amax)])
+
+    def due(self, prev_step: int, step: int) -> bool:
+        """True when a check boundary (a multiple of ``every``) lies in
+        ``(prev_step, step]``."""
+        return step // self.every > prev_step // self.every
+
+    def check(self, state: Dict[str, torch.Tensor], step: int) -> None:
+        """Run the reduction; raise :class:`NumericalFault` on the first
+        unhealthy quantity (a ``health.fault`` record lands first)."""
+        if not state:
+            return
+        rec = telemetry.get()
+        self.checks += 1
+        with rec.span("health.check", phase="health", step=int(step),
+                      quantities=len(state)):
+            finite, amax = self._reduce(state).cpu().numpy()
+        for i, name in enumerate(sorted(state)):
+            kind = None
+            if not finite[i]:
+                kind = NONFINITE
+            elif self.max_abs is not None and float(amax[i]) > self.max_abs:
+                kind = DIVERGENCE
+            if kind is None:
+                continue
+            value = float(amax[i])
+            value = value if math.isfinite(value) else None
+            rec.meta("health.fault", fault_kind=kind, quantity=name,
+                     step=int(step), value=value, ceiling=self.max_abs)
+            raise NumericalFault(kind, name, step, value=value)

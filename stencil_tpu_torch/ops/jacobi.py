@@ -27,6 +27,11 @@ The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
 kernel (one launch per step) or the persistent chunk kernel (one launch per
 k-step chunk), by the exchange's kernel variant.
+
+:func:`make_batched_jacobi_loop` steps a campaign slot, a ``(B, pz, py,
+px)`` stack of independent single-block tenants: one tenant-form sweep
+launch per step on the card, the JAX package's XLA branch (fill, then
+sweep) on the CPU.
 """
 
 from __future__ import annotations
@@ -36,23 +41,27 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..api import resolve_device
 from ..geometry import Dim3, Rect3, exterior_regions
 from ..parallel.exchange import Method, shard_blocks
 from ..utils import logging as log
 from ..utils import timer
+from . import _native
 from .fused_stencil import NO_WRAP, fused_jacobi, require_face_radius
+from .halo_fill import wrap_fill_batched
 from .persistent_stencil import check_chunk_depth, chunk_schedule, persistent_jacobi
 from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
-    SIXTH,
     TEMPORAL_K_CAP,
     multi_block_axes,
     multistep,
     plan_multistep_depth,
+    sixth,
     sphere_masks_from_coords,
     sweep,
     sweep_region,
+    sweep_tenants,
 )
 
 INIT_TEMP = (HOT_TEMP + COLD_TEMP) / 2
@@ -79,7 +88,7 @@ def jacobi_sweep(src: torch.Tensor, out: torch.Tensor, rect: Rect3, masks=None):
         + src[(..., *_rect_slices(rect, dy=1))]
         + src[(..., *_rect_slices(rect, dz=-1))]
         + src[(..., *_rect_slices(rect, dz=1))]
-    ) * SIXTH
+    ) * sixth(src.dtype)
     if masks is not None:
         hot, cold = masks
         sl = (..., *_rect_slices(rect))
@@ -330,4 +339,61 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
         return curr, nxt
 
     loop.temporal_k = k
+    return loop
+
+
+def make_batched_jacobi_loop(spec, iters: int, *, device=None):
+    """The multi-tenant batched iteration: ``loop(curr, nxt, sel) ->
+    (new_curr, new_next)`` over ``(B, pz, py, px)`` stacks of tenant states,
+    advancing every tenant ``iters`` steps. The counterpart of the JAX
+    package's ``make_batched_jacobi_loop``.
+
+    ``spec`` describes ONE tenant as a single-block domain
+    (``GridSpec(size, Dim3(1, 1, 1), radius)``); each tenant is its own
+    periodic box and nothing crosses the tenant axis. ``sel`` is the int32
+    sphere code, per tenant ``(B, pz, py, px)`` (on the CPU a shared
+    ``(pz, py, px)`` also broadcasts).
+
+    The loop runs on ``device`` (default: the current CUDA device) and
+    refuses tensors elsewhere. On the card each step is one launch of the
+    tenant-form sweep (:func:`stencil_kernels.sweep_tenants`), which wraps
+    every axis in-kernel and never fills a halo, as the JAX package's Pallas
+    branch: a step returns ``(out, curr)``. On the CPU each step is the JAX
+    package's XLA branch: the composed self-wrap fill of ``curr``
+    (:func:`halo_fill.wrap_fill_batched`, in place) and the region sweep,
+    returning ``(out, filled curr)``. The compute regions agree bit for
+    bit; the halos differ. Updates in place, like every loop of the port:
+    the caller keeps its own copy of a state it may roll back to."""
+    if spec.dim != Dim3(1, 1, 1):
+        raise ValueError(
+            "batched tenants are single-block domains; got partition "
+            f"{spec.dim} (spatial decomposition and tenant batching do not compose yet)")
+    r = spec.radius
+    if min(r.x(-1), r.x(1), r.y(-1), r.y(1), r.z(-1), r.z(1)) < 1:
+        raise ValueError("jacobi needs face radius >= 1 on every side")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        off = spec.compute_offset()
+        compute = Rect3(off, off + spec.base)
+
+        def run(curr, nxt, sel):
+            masks = (sel == 1, sel == 2)
+            for _ in range(iters):
+                cur2 = wrap_fill_batched(spec, curr)
+                curr, nxt = jacobi_sweep(cur2, nxt, compute, masks), cur2
+            return curr, nxt
+    else:
+        _native.lib("jacobi_sweep")  # the first-use kernel build belongs to the program
+
+        def run(curr, nxt, sel):
+            for _ in range(iters):
+                curr, nxt = sweep_tenants(curr, nxt, sel, spec), curr
+            return curr, nxt
+
+    def loop(curr, nxt, sel):
+        if any(t.device != dev for t in (curr, nxt, sel)):
+            raise ValueError(f"batched loop built for {dev}; operands on "
+                             f"{[str(t.device) for t in (curr, nxt, sel)]}")
+        return run(curr, nxt, sel)
+
     return loop

@@ -12,6 +12,9 @@ The port's counterpart of ``stencil_tpu.ops.pallas_stencil``:
   single-block and deep-halo forms): k steps in one launch, the
   intermediate stages kept in shared memory; :func:`multistep_plain` is k
   plain steps.
+- :func:`sweep_tenants` launches the same sweep kernel over a campaign
+  slot's ``(B, pz, py, px)`` stack of independent tenants, every axis
+  wrapping onto each tenant (the TPU kernel's ``batch=`` form).
 - :func:`plan_multistep_depth` is the port's own depth planner, bounded by
   the 227 KB of shared memory a Hopper block may use.
 
@@ -25,17 +28,22 @@ in ``<wrapper>.launches``.
 
 Arithmetic, identical in kernels and plain versions: the six face
 neighbours are summed left to right as ``x_lo + x_hi + y_lo + y_hi + z_lo +
-z_hi`` and multiplied by :data:`SIXTH`, 1/6 rounded to float32. That is what
-the JAX package computes bit for bit: XLA folds its ``sum / 6`` into that
-multiply (a true divide differs in about a third of all cells). PyTorch
-keeps each op as written, on the CPU and on CUDA.
+z_hi`` and multiplied by 1/6 rounded to the field's type (:func:`sixth`:
+:data:`SIXTH` for float32). That is what the JAX package computes bit for
+bit: XLA folds its ``sum / 6`` into that multiply, in float32 and float64
+alike (a true divide differs in about a third of all cells). PyTorch keeps
+each op as written, on the CPU and on CUDA.
+
+Fields are float32 or float64. The plain versions take both; the CUDA
+kernels are float32, as the TPU kernels are, and a float64 field on the
+card raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from . import _native
 HOT_TEMP = 1.0
 COLD_TEMP = 0.0
 SIXTH = float(np.float32(1.0) / np.float32(6.0))
+FIELD_DTYPES = (torch.float32, torch.float64)
 
 # Mirrors csrc/jacobi_multistep.cu: output tile, deepest k the kernel takes,
 # and the shared memory one block may use on an H100 (232,448 bytes).
@@ -87,11 +96,17 @@ def _neighbours(curr: torch.Tensor, spec: GridSpec, wrap):
     return out
 
 
+def sixth(dtype) -> float:
+    """1/6 rounded to ``dtype`` (float32 or float64): the constant XLA
+    multiplies by in place of the JAX package's ``sum / 6``."""
+    return SIXTH if dtype == torch.float32 else 1.0 / 6.0
+
+
 def _average(nb) -> torch.Tensor:
     s = nb[0] + nb[1]
     for t in nb[2:]:
         s = s + t
-    return s * SIXTH
+    return s * sixth(s.dtype)
 
 
 def sweep_plain(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
@@ -218,20 +233,36 @@ def plan_multistep_depth(k_want: int) -> int:
     return max(0, min(k_want, MULTISTEP_KPLAN))
 
 
-def _check_block(t: torch.Tensor, spec: GridSpec, dtype, what: str) -> None:
-    """``t`` holds every block of ``spec``'s partition, contiguous."""
+def _check_block(t: torch.Tensor, spec: GridSpec, dtype, what: str,
+                 stack: Optional[int] = None) -> None:
+    """``t`` holds every block of ``spec``'s partition, contiguous; with
+    ``stack``, it is a ``(stack, pz, py, px)`` stack of one-block tenants."""
     p = spec.padded()
-    nb = spec.num_blocks()
+    nb = spec.num_blocks() if stack is None else stack
     if t.dtype != dtype:
         raise ValueError(f"{what}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape[-3:]) != (p.z, p.y, p.x) or t.numel() != nb * p.z * p.y * p.x:
+    if (tuple(t.shape[-3:]) != (p.z, p.y, p.x) or t.numel() != nb * p.z * p.y * p.x
+            or (stack is not None and t.dim() != 4)):
         raise ValueError(f"{what}: shape {tuple(t.shape)} is not {nb} padded "
                          f"({p.z}, {p.y}, {p.x}) block(s)")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
 
 
+def _check_fields(spec: GridSpec, curr, nxt, sel=None, stack: Optional[int] = None) -> None:
+    """curr and nxt: blocks (or a ``stack`` of tenants) of ``spec`` in one
+    float type, float32 or float64; sel, where given: the same in int32."""
+    if curr.dtype not in FIELD_DTYPES:
+        raise ValueError(f"curr: dtype {curr.dtype}, expected float32 or float64")
+    _check_block(curr, spec, curr.dtype, "curr", stack)
+    _check_block(nxt, spec, curr.dtype, "nxt", stack)
+    if sel is not None:
+        _check_block(sel, spec, torch.int32, "sel", stack)
+
+
 def _device_of(*ts) -> torch.device:
+    """The operands' one device; ``ts[0]`` and ``ts[1]`` are curr and nxt.
+    A float64 field on the card raises: the kernels are float32."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError("operands on different devices")
@@ -239,14 +270,20 @@ def _device_of(*ts) -> torch.device:
         raise ValueError(f"kernels run on cuda or cpu tensors, not {dev}")
     if ts[0].data_ptr() == ts[1].data_ptr():
         raise ValueError("curr and nxt must be distinct buffers")
+    if dev.type == "cuda" and ts[0].dtype != torch.float32:
+        raise NotImplementedError(
+            f"{ts[0].dtype} fields on CUDA: the Jacobi kernels are float32, as the TPU "
+            "kernels are (a float64 instantiation is queued in ROADMAP.md); pass "
+            "device='cpu' for the plain versions")
     return dev
 
 
-def _launch_sweep(curr, nxt, sel, spec: GridSpec, dev, lo: Dim3, n: Dim3, wrap) -> None:
+def _launch_sweep(curr, nxt, sel, spec: GridSpec, dev, lo: Dim3, n: Dim3, wrap,
+                  nblocks: int) -> None:
     p = spec.padded()
     rc = _native.lib("jacobi_sweep").jacobi_sweep_launch(
         curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
-        p.z * p.y * p.x, spec.num_blocks(), lo.z, lo.y, lo.x, n.z, n.y, n.x,
+        p.z * p.y * p.x, nblocks, lo.z, lo.y, lo.x, n.z, n.y, n.x,
         int(wrap[0]), int(wrap[1]), int(wrap[2]), dev.index, _native.stream_ptr(dev))
     _native.check(rc, "jacobi_sweep")
 
@@ -255,18 +292,42 @@ def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
     """One Jacobi step of every block: ``nxt``'s compute regions <- the
     6-neighbour average of ``curr`` with the ``sel`` spheres imposed (in
     place; returns ``nxt``). See :func:`sweep_plain` for the arguments."""
-    _check_block(curr, spec, torch.float32, "curr")
-    _check_block(nxt, spec, torch.float32, "nxt")
-    _check_block(sel, spec, torch.int32, "sel")
+    _check_fields(spec, curr, nxt, sel)
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
         return sweep_plain(curr, nxt, sel, spec, wrap)
-    _launch_sweep(curr, nxt, sel, spec, dev, spec.compute_offset(), spec.base, wrap)
+    _launch_sweep(curr, nxt, sel, spec, dev, spec.compute_offset(), spec.base, wrap,
+                  spec.num_blocks())
     sweep.launches += 1
     return nxt
 
 
 sweep.launches = 0
+
+
+def sweep_tenants(curr, nxt, sel, spec: GridSpec):
+    """One Jacobi step of every tenant of a campaign slot: ``curr``, ``nxt``
+    and ``sel`` are ``(B, pz, py, px)`` stacks of B independent tenants, each
+    a single block of the one-block ``spec``; every axis of every tenant
+    wraps onto the tenant itself and nothing crosses the tenant axis.
+    ``nxt``'s compute regions <- the step (in place; returns ``nxt``). CPU
+    tensors take :func:`sweep_plain` over the stack; CUDA tensors launch
+    ``csrc/jacobi_sweep.cu`` once for all B tenants, or raise."""
+    if spec.dim != Dim3(1, 1, 1):
+        raise ValueError(f"tenants are single-block domains; got partition {spec.dim}")
+    nb = curr.shape[0] if curr.dim() == 4 else 0
+    if nb < 1:
+        raise ValueError(f"curr: shape {tuple(curr.shape)} is not a stack of tenants")
+    _check_fields(spec, curr, nxt, sel, nb)
+    dev = _device_of(curr, nxt, sel)
+    if dev.type == "cpu":
+        return sweep_plain(curr, nxt, sel, spec)
+    _launch_sweep(curr, nxt, sel, spec, dev, spec.compute_offset(), spec.base, (True,) * 3, nb)
+    sweep_tenants.launches += 1
+    return nxt
+
+
+sweep_tenants.launches = 0
 
 
 def sweep_region(curr, nxt, sel, spec: GridSpec, rect: Rect3):
@@ -276,9 +337,7 @@ def sweep_region(curr, nxt, sel, spec: GridSpec, rect: Rect3):
     region sweep ``ops.jacobi.jacobi_sweep`` with masks ``(sel == 1,
     sel == 2)``; CUDA tensors launch ``csrc/jacobi_sweep.cu`` on the rect
     with its wrap flags off, or raise."""
-    _check_block(curr, spec, torch.float32, "curr")
-    _check_block(nxt, spec, torch.float32, "nxt")
-    _check_block(sel, spec, torch.int32, "sel")
+    _check_fields(spec, curr, nxt, sel)
     off = spec.compute_offset()
     hi = off + spec.base
     if not (off.x <= rect.lo.x < rect.hi.x <= hi.x and off.y <= rect.lo.y < rect.hi.y <= hi.y
@@ -290,7 +349,8 @@ def sweep_region(curr, nxt, sel, spec: GridSpec, rect: Rect3):
         from .jacobi import jacobi_sweep
 
         return jacobi_sweep(curr, nxt, rect, (sel == 1, sel == 2))
-    _launch_sweep(curr, nxt, sel, spec, dev, rect.lo, rect.hi - rect.lo, (False,) * 3)
+    _launch_sweep(curr, nxt, sel, spec, dev, rect.lo, rect.hi - rect.lo, (False,) * 3,
+                  spec.num_blocks())
     sweep_region.launches += 1
     return nxt
 
@@ -329,8 +389,7 @@ def multistep(curr, nxt, spec: GridSpec, k: int):
     On a multi-block partition this is the deep-halo form: ``curr``'s
     halos must hold the neighbours' cells at radius >= k (see
     :func:`require_deep_halo`)."""
-    _check_block(curr, spec, torch.float32, "curr")
-    _check_block(nxt, spec, torch.float32, "nxt")
+    _check_fields(spec, curr, nxt)
     if not 1 <= k <= min(MULTISTEP_KMAX, spec.base.z):
         raise ValueError(f"multistep depth {k} outside [1, {MULTISTEP_KMAX}] "
                          f"or deeper than the {spec.base.z} planes")

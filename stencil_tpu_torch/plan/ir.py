@@ -15,14 +15,16 @@ cells.
 
 Not carried over yet (ROADMAP.md queue A items 3 and 8): the direct26 and
 auto-spmd geometries, the hierarchical (DCN) level, wire compression, and
-the planner's ``PlanConfig`` / ``PlanChoice``; each raises
-``NotImplementedError``.
+the planner's ``PlanChoice``; each raises ``NotImplementedError``. Its
+problem key :class:`PlanConfig` is ported: the campaign's compile cache keys
+its programs with it.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from ..geometry import DIRECTIONS_26, Dim3
 
@@ -396,11 +398,53 @@ def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
     )
 
 
-class PlanConfig:
-    """The planner's configuration key: not ported yet."""
+def radius_dirs(radius) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Canonical nonzero-direction serialization of a Radius,
+    ``((dx, dy, dz, r), ...)`` sorted by direction: the convention of the
+    checkpoint manifests and of :class:`PlanConfig`."""
+    return tuple((d[0], d[1], d[2], r) for d, r in sorted(radius._r.items())
+                 if r and d != (0, 0, 0))
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("PlanConfig (the plan/ autotuner): ROADMAP.md queue A item 8")
+
+@dataclass(frozen=True)
+class PlanConfig:
+    """Canonical problem key: what a tuned plan, or a compiled program of
+    the campaign's compile cache, is valid for. ``quantities`` is a dtype
+    multiset, ``(("float32", 4),)``, sorted by dtype name, so the order in
+    which a domain declares its quantities never changes the key.
+    ``platform`` is the device type: ``"cuda"`` on the card, ``"cpu"``
+    otherwise. :meth:`key` is the JAX package's string for the same
+    fields."""
+
+    grid: Tuple[int, int, int]                       # (x, y, z)
+    radius: Tuple[Tuple[int, int, int, int], ...]    # radius_dirs()
+    quantities: Tuple[Tuple[str, int], ...]          # sorted (dtype, count)
+    ndev: int
+    platform: str = "cpu"
+
+    @classmethod
+    def make(cls, size, radius, dtypes: Sequence[str], ndev: int,
+             platform: str = "cpu") -> "PlanConfig":
+        size = Dim3.of(size)
+        counts: Dict[str, int] = {}
+        for dt in dtypes:
+            counts[str(dt)] = counts.get(str(dt), 0) + 1
+        return cls(grid=(size.x, size.y, size.z), radius=radius_dirs(radius),
+                   quantities=tuple(sorted(counts.items())), ndev=int(ndev),
+                   platform=str(platform))
+
+    def key(self) -> str:
+        """Stable string key: sorted-key compact JSON."""
+        return json.dumps({
+            "grid": list(self.grid),
+            "radius": [list(t) for t in self.radius],
+            "quantities": [list(t) for t in self.quantities],
+            "ndev": self.ndev,
+            "platform": self.platform,
+        }, sort_keys=True, separators=(",", ":"))
+
+    def to_json(self) -> dict:
+        return json.loads(self.key())
 
 
 class PlanChoice:

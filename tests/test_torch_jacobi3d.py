@@ -15,6 +15,7 @@ from stencil_tpu.geometry import Radius as JRadius
 from stencil_tpu.parallel import HaloExchange as JHaloExchange
 from stencil_tpu.parallel import grid_mesh
 from stencil_tpu.parallel.exchange import shard_blocks as jshard
+from stencil_tpu.parallel.exchange import unshard_blocks as junshard
 from stencil_tpu_torch import DistributedDomain
 from stencil_tpu_torch.convert import state_from_jax, state_to_numpy
 
@@ -109,3 +110,32 @@ def test_multi_block_raises():
     dd.add_data("t", "float32")
     dd.realize()
     assert dd.halo_exchange.oversubscribed and len(dd.get_interior()) == 2
+
+
+@pytest.mark.parametrize("iters", [4, 7])
+def test_float64_loop_matches_jax(iters):
+    """make_jacobi_loop on a float64 one-block domain on the CPU (multistep
+    passes of k=3 plus a sweep tail) against the JAX package's XLA loop."""
+    import stencil_tpu.ops.jacobi as jjac
+    import stencil_tpu_torch.ops.jacobi as tjac
+
+    size = (18, 14, 12)
+    jspec = JGridSpec(JDim3(*size), JDim3(1, 1, 1), JRadius.constant(1))
+    mesh = grid_mesh(jspec.dim, jax.devices()[:1])
+    field = np.random.RandomState(iters).rand(*size[::-1])
+    jsel = jshard(jjac.sphere_sel(size), jspec, mesh)
+    jc, _ = jjac.make_jacobi_loop(JHaloExchange(jspec, mesh), iters, use_pallas=False)(
+        jshard(field, jspec, mesh), jshard(np.zeros_like(field), jspec, mesh), jsel)
+    dd = DistributedDomain(*size, device="cpu")
+    dd.set_radius(1)
+    h = dd.add_data("t", "float64")
+    dd.realize()
+    dd.set_curr_global(h, field)
+    loop = tjac.make_jacobi_loop(dd.halo_exchange, iters)
+    assert loop.temporal_k == 3
+    tc, _ = loop(dd.get_curr(h), dd.get_next(h), state_from_jax({"s": np.asarray(jsel)}, dd.spec,
+                                                                "cpu")["s"])
+    dd.set_curr(h, tc)
+    got = dd.get_curr_global(h)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, junshard(jc, jspec))

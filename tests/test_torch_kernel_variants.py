@@ -115,7 +115,7 @@ def test_launches_per_chunk_error_and_what_is_left():
     for call in (lambda: tir.build_plan(tspec, (1, 1, 1), "direct26"),
                  lambda: tir.build_plan(tspec, (1, 1, 1), "auto-spmd"),
                  lambda: tir.build_plan(tspec, (1, 1, 1), "axis-composed", hierarchy=("z", 1)),
-                 tir.PlanConfig, tir.PlanChoice):
+                 tir.PlanChoice):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -251,3 +251,52 @@ def test_resident_forms_take_plain_versions_only_on_cpu(monkeypatch):
                                      _block(spec, i32, "meta"), spec, rect)
     with pytest.raises(ValueError):
         stencil_kernels.multistep(_block(spec, f32, "meta"), _block(spec, f32, "meta"), spec, 2)
+
+
+def test_tenant_sweep_takes_plain_version_only_on_cpu(monkeypatch):
+    """The campaign's tenant-form sweep: its plain version for a CPU stack
+    (not a launch), refused on any other device, operands checked."""
+    spec = GridSpec(Dim3(12, 10, 8), Dim3(1, 1, 1), Radius.constant(1), aligned=False)
+    p = spec.padded()
+
+    def stack(dtype, device="cpu", b=3):
+        return torch.zeros((b, p.z, p.y, p.x), dtype=dtype, device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    calls = []
+    monkeypatch.setattr(stencil_kernels, "sweep_plain", lambda *a, **k: calls.append(a[3:]))
+    before = stencil_kernels.sweep_tenants.launches
+    stencil_kernels.sweep_tenants(stack(f32), stack(f32), stack(i32), spec)
+    stencil_kernels.sweep_tenants(stack(torch.float64), stack(torch.float64), stack(i32), spec)
+    assert calls == [(spec,), (spec,)] and stencil_kernels.sweep_tenants.launches == before
+    with pytest.raises(ValueError):
+        stencil_kernels.sweep_tenants(stack(f32, "meta"), stack(f32, "meta"), stack(i32, "meta"),
+                                      spec)
+    for bad in ((stack(f32), stack(f32, b=2), stack(i32)),
+                (stack(f32), stack(f32), stack(f32)),
+                (stack(f32)[:, 1:], stack(f32), stack(i32)),
+                (stack(torch.float16), stack(torch.float16), stack(i32))):
+        with pytest.raises(ValueError):
+            stencil_kernels.sweep_tenants(*bad, spec)
+    c = stack(f32)
+    with pytest.raises(ValueError, match="distinct"):
+        stencil_kernels.sweep_tenants(c, c, stack(i32), spec)
+    with pytest.raises(ValueError, match="single-block"):
+        stencil_kernels.sweep_tenants(c, stack(f32), stack(i32),
+                                      GridSpec(Dim3(24, 10, 8), Dim3(2, 1, 1), Radius.constant(1)))
+
+
+def test_campaign_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from stencil_tpu_torch import campaign
+    from stencil_tpu_torch.apps import campaign as campaign_app
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jobs = [campaign.TenantJob("t0", (8, 8, 8), 2)]
+    spec = GridSpec(Dim3(8, 8, 8), Dim3(1, 1, 1), Radius.constant(1), aligned=False)
+    for call in (lambda: campaign.CampaignDriver(jobs, 1, str(tmp_path)),
+                 lambda: campaign.run_sequential(jobs),
+                 lambda: jacobi.make_batched_jacobi_loop(spec, 1),
+                 lambda: campaign_app.main(["--tenants", "1", "--size", "8",
+                                            "--campaign-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

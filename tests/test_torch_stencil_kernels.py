@@ -184,3 +184,48 @@ def test_reference_divide_is_a_reciprocal_multiply():
     port = (torch.from_numpy(s) * tk.SIXTH).numpy()
     np.testing.assert_array_equal(port, xla)
     assert (s / np.float32(6) != xla).any()
+
+
+def test_reference_divide_is_a_float64_reciprocal_multiply():
+    """The same fold in float64: XLA multiplies by float64(1/6), so the
+    port's float64 plain versions multiply by ``sixth(torch.float64)``."""
+    rng = np.random.RandomState(1)
+    s = rng.rand(4096) * 6
+    xla = np.asarray(jax.jit(lambda a: a / 6)(jnp.asarray(s, jnp.float64)))
+    assert tk.sixth(torch.float64) == 1.0 / 6.0 and tk.sixth(torch.float32) == tk.SIXTH
+    port = (torch.from_numpy(s) * tk.sixth(torch.float64)).numpy()
+    np.testing.assert_array_equal(port, xla)
+    assert (s / 6 != xla).any()
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+def test_float64_sweep_and_multistep_match_jax(radius):
+    """float64 fields through the wrappers' CPU branches: one sweep against
+    the JAX XLA sweep, and a k=3 multistep against three of them."""
+    tspec, jspec = specs((20, 14, 12), radius)
+    off = jspec.compute_offset()
+    rng = np.random.RandomState(radius)
+    p = jspec.padded()
+    curr = np.zeros((1, 1, 1, p.z, p.y, p.x), np.float64)
+    curr[(0, 0, 0) + region(jspec)] = rng.rand(12, 14, 20)
+    sel = np.zeros(curr.shape, np.int32)
+    sel[(0, 0, 0) + region(jspec)] = jjac.sphere_sel((20, 14, 12))
+    compute = jgeo.Rect3(off, off + jspec.base)
+
+    @jax.jit
+    def xla_step(c):  # jitted, as the JAX package's loops are (eager JAX divides)
+        c = jfill.wrap_fill_batched(jspec, c)
+        s = jnp.asarray(sel)
+        return jjac.jacobi_sweep(c, jnp.zeros_like(c), compute, (s == 1, s == 2))
+
+    one = tk.sweep(torch.from_numpy(curr), torch.zeros(curr.shape, dtype=torch.float64),
+                   torch.from_numpy(sel), tspec)
+    want = xla_step(jnp.asarray(curr))
+    assert one.dtype == torch.float64
+    np.testing.assert_array_equal(one.numpy()[(0, 0, 0) + region(jspec)],
+                                  np.asarray(want)[(0, 0, 0) + region(jspec)])
+    three = tk.multistep(torch.from_numpy(curr), torch.zeros(curr.shape, dtype=torch.float64),
+                         tspec, 3)
+    want = np.asarray(xla_step(xla_step(want)))
+    np.testing.assert_array_equal(three.numpy()[(0, 0, 0) + region(jspec)],
+                                  want[(0, 0, 0) + region(jspec)])
