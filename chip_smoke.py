@@ -84,6 +84,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               survivors byte-equal to a clean run, --resume revives t1
               byte-equal); the tenant sweep at B=64 of 128^3 against its plain
               version (torch.equal), then timed per launch.
+9. mesh -- eight block positions on the one card (DeviceMesh with the card
+              named 8 times, one block per position, each its own
+              allocation): the axis carrier remote_axis (every ring phase)
+              and the fused exchange carrier fused_exchange against their
+              plain versions (torch.equal on every cell of every position,
+              random fields with noise in every halo) at config 2 (256^3
+              (2,2,2) r2 x4), 512^3 (2,2,2) r1, 100x70x60 (1,1,2) r1,
+              66x20x16 (2,1,1) r2 with two fp64 quantities and a 64^3
+              fp32 + fp64 + fp32 dict, and both mesh exchanges on the card
+              against the CPU; the mesh exchange gathered into the stacked
+              layout against the resident axis-composed exchange at config 2
+              and 512^3 r1; 8 steps at 512^3 over 8 positions from a random
+              field, bit-equal to the single-block default path; the main
+              path apps.jacobi3d.run at 512^3 with devices=[cuda:0]*8 and
+              method REMOTE_DMA (50 iters, chunks of 25: 225 remote_axis and
+              600 sweep launches, no other kernel), launch counts reset
+              around it; DistributedDomain.exchange_loop at config 2 through
+              each carrier in GB/s beside the resident config-2 number of
+              phase 7 and the Tensor.copy_ yardstick; each kernel timed per
+              launch beside its plain version, its bound and Tensor.copy_.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -776,6 +796,7 @@ def main() -> int:
 
     # the resident exchanges in GB/s; the last is the exchange of each
     # deep-halo pass of the deep_halo=4 run (its curr, all three axes)
+    resident_gbs = {}
     for label, n7, part, r7, nq7, zfills in (
             ("config 2: 256^3 (2,2,2) r2 x4", 256, (2, 2, 2), 2, 4, 0),
             ("512^3 (1,1,2) r3 x4", 512, (1, 1, 2), 3, 4, 2),
@@ -799,6 +820,7 @@ def main() -> int:
         nbytes = dd.exchange_bytes_for_method(dd.halo_exchange.method)
         log(f"resident exchange {label}: {ex_ms:.4f} ms, {nbytes / ex_ms / 1e6:.2f} GB/s logical "
             f"({nbytes} bytes; {dd.exchange_bytes_moved()} moved), fill launches {zfills}")
+        resident_gbs[label] = nbytes / ex_ms / 1e6
         del dd, loop10
 
     # per-launch times of the new forms at the main paths' shapes
@@ -1022,6 +1044,245 @@ def main() -> int:
     log(f"time jacobi_sweep_batched B=64 of 128^3: {t['ms']:.4f} ms per launch (plain "
         f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
 
+
+    # -- 9. mesh: eight block positions on the card -----------------------------
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.parallel import DeviceMesh, join_positions, split_positions
+
+    for key in ("remote_axis", "fused_exchange"):
+        errs[key] = 0.0
+
+    def mesh_of(spec, device=dev):
+        return DeviceMesh(spec.dim, [device] * spec.dim.flatten())
+
+    def rand_mesh(spec, dtypes, seed):
+        """{q: [block per position]}: random everywhere, halos and pad too."""
+        p = spec.padded()
+        out = {}
+        for q, dt in enumerate(dtypes):
+            gen.manual_seed(seed + q)
+            out[q] = [torch.rand((1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev).to(dt)
+                      for _ in range(spec.num_blocks())]
+        return out
+
+    def grouped(state, keys):
+        npos = len(state[keys[0]])
+        return [[state[k][i] for k in keys] for i in range(npos)]
+
+    def cloned(groups):
+        return [[b.clone() for b in g] for g in groups]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for ga, gb in zip(a, b) for x, y in zip(ga, gb))
+
+    def err_of(a, b):
+        return max(max_abs(x, y) for ga, gb in zip(a, b) for x, y in zip(ga, gb))
+
+    mesh8 = DeviceMesh((2, 2, 2), [dev] * 8)
+
+    # each kernel against its plain version, every cell of every position
+    mesh_cases = [
+        ("config 2: 256^3 (2,2,2) r2 x4 fp32", rspec((256,) * 3, (2, 2, 2), 2), [f32] * 4),
+        ("512^3 (2,2,2) r1 x1", rspec((512,) * 3, (2, 2, 2), 1), [f32]),
+        ("100x70x60 (1,1,2) r1", rspec((100, 70, 60), (1, 1, 2), 1), [f32]),
+        ("66x20x16 (2,1,1) r2 2 fp64", rspec((66, 20, 16), (2, 1, 1), 2), [f64, f64]),
+        ("64^3 (2,2,2) r1 fp32 + fp64 + fp32", rspec((64,) * 3, (2, 2, 2), 1), [f32, f64, f32]),
+    ]
+    for i, (label, spec, dts) in enumerate(mesh_cases):
+        mesh = mesh_of(spec)
+        st = rand_mesh(spec, dts, 400 + 10 * i)
+        plan = build_plan(spec, spec.dim, Method.REMOTE_DMA)
+        fplan = build_plan(spec, spec.dim, Method.REMOTE_DMA, fused=True)
+        for dt in dict.fromkeys(dts):
+            start = grouped(st, [k for k, d in enumerate(dts) if d == dt])
+            for ph in plan.remote_phases:
+                if ph.ring < 2 or not ph.active:
+                    continue
+                got = rdma.remote_axis(cloned(start), spec, ph, mesh)
+                want = rdma.remote_axis_plain(cloned(start), spec, ph, mesh)
+                torch.cuda.synchronize()
+                errs["remote_axis"] = max(errs["remote_axis"], err_of(got, want))
+                check(same(got, want), f"remote_axis {label} {dt} {ph.axis}: kernel != plain")
+            got = fst.fused_exchange(cloned(start), spec, fplan, mesh)
+            want = fst.fused_exchange_plain(cloned(start), spec, fplan, mesh)
+            torch.cuda.synchronize()
+            errs["fused_exchange"] = max(errs["fused_exchange"], err_of(got, want))
+            check(same(got, want), f"fused_exchange {label} {dt}: kernel != plain")
+        # the whole mesh exchange (ring phases, self-wrap fills) on the card
+        # against the same exchange on the CPU
+        cpu_mesh = mesh_of(spec, torch.device("cpu"))
+        for fused in (False, True):
+            on_card = {q: [b.clone() for b in bl] for q, bl in st.items()}
+            on_cpu = {q: [b.cpu() for b in bl] for q, bl in st.items()}
+            HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, fused=fused)(on_card)
+            HaloExchange(spec, Method.REMOTE_DMA, mesh=cpu_mesh, fused=fused)(on_cpu)
+            for q in st:
+                check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card[q], on_cpu[q])),
+                      f"mesh exchange {label} fused={fused} q{q}: card != CPU")
+            del on_card, on_cpu
+        log(f"mesh {label}: remote_axis and fused_exchange == plain on every cell; "
+            "both exchanges on the card == the CPU")
+        del st
+
+    # the mesh exchange against the resident AXIS_COMPOSED exchange
+    for label, spec, nq in (("config 2", rspec((256,) * 3, (2, 2, 2), 2), 4),
+                            ("512^3 (2,2,2) r1", rspec((512,) * 3, (2, 2, 2), 1), 1)):
+        stacked = {q: rand_stack(spec, 420 + q) for q in range(nq)}
+        on_mesh = {q: split_positions(t, spec, mesh8) for q, t in stacked.items()}
+        HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh8)(on_mesh)
+        HaloExchange(spec)(stacked)
+        torch.cuda.synchronize()
+        for q in stacked:
+            check(torch.equal(join_positions(on_mesh[q], spec), stacked[q]),
+                  f"mesh exchange {label} q{q} != resident exchange")
+        log(f"mesh exchange {label}: == the resident axis-composed exchange on every cell")
+        del stacked, on_mesh
+
+    # 8 steps at 512^3 from a random field over the mesh against the
+    # single-block default path
+    spec_m1 = rspec((512,) * 3, (2, 2, 2), 1)
+    gen.manual_seed(430)
+    g8 = torch.rand((512, 512, 512), generator=gen, device=dev)
+    sel_g = sel_block(spec512)[(0, 0, 0, *[slice(o, o + 512) for o in
+                                           (off1.z, off1.y, off1.x)])].contiguous()
+    ref8, _ = make_jacobi_loop(HaloExchange(spec512), 8)(
+        place(g8, spec512), torch.zeros(spec512.stacked_shape_zyx(), device=dev),
+        place(sel_g, spec512))
+    ref8 = gather(ref8, spec512)
+    del sel_g
+    ex9 = HaloExchange(spec_m1, Method.REMOTE_DMA, mesh=mesh8)
+    c9 = split_positions(place(g8, spec_m1), spec_m1, mesh8)
+    out9, _ = make_jacobi_loop(ex9, 8)(c9, [torch.zeros_like(b) for b in c9],
+                                       sphere_sel_blocks(spec_m1, mesh8))
+    torch.cuda.synchronize()
+    check(torch.equal(gather(join_positions(out9, spec_m1), spec_m1), ref8),
+          "jacobi 512^3 8 steps over 8 positions != the single-block default path")
+    log("jacobi 512^3 8 steps over 8 positions (remote_axis + sweeps): == the single-block "
+        "default path")
+    del g8, ref8, c9, out9, ex9
+
+    # the main path: jacobi3d at 512^3 over 8 positions of one card
+    counted9 = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
+                "self_fill": halo_fill.self_fill, "jacobi_multistep": sk.multistep,
+                "fused_exchange": fst.fused_exchange}
+    for fn in counted9.values():
+        fn.launches = 0
+    rv = jacobi3d.run(512, 512, 512, devices=[dev] * 8, method=Method.REMOTE_DMA, iters=50,
+                      chunk=25, weak=False)
+    torch.cuda.synchronize()
+    got9 = {name: fn.launches for name, fn in counted9.items()}
+    want9 = {"remote_axis": 75 * 3, "jacobi_sweep": 75 * 8, "self_fill": 0,
+             "jacobi_multistep": 0, "fused_exchange": 0}
+    check(got9 == want9, f"jacobi3d over 8 positions: launches {got9}, expected {want9}")
+    launches["remote_axis"] = got9["remote_axis"]
+    fin = gather(join_positions(rv["domain"].get_curr(rv["handle"]), rv["domain"].spec),
+                 rv["domain"].spec)
+    check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
+          and float(fin.max()) <= 1.0 and bool((fin[hot_d] == 1.0).all())
+          and bool((fin[cold_d] == 0.0).all()),
+          "jacobi3d over 8 positions: field not finite, out of range or spheres lost")
+    log(jacobi3d.csv_row(rv))
+    log(f"jacobi3d 512^3 over 8 positions of one card (remote-dma): "
+        f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+        f"Mcells/s, launches {got9}")
+    del rv, fin
+
+    # DistributedDomain.exchange_loop at config 2 through B6 and through B7
+    def copy_slabs(state, spec, phases):
+        """The library yardstick: B6's slabs moved by Tensor.copy_, one call
+        per slab."""
+        for ph in phases:
+            o, n, rm, rp = halo_fill.axis_geom(spec, ph.axis)
+            for i, pos in enumerate(mesh8.positions()):
+                bwd, fwd = (mesh8.index(q) for q in mesh8.ring_neighbors(pos, ph.axis))
+                for blocks in state.values():
+                    src = blocks[i]
+                    if rm:
+                        dst = blocks[fwd]
+                        dst[halo_fill._axis_slice(dst, ph.axis, o - rm, o)].copy_(
+                            src[halo_fill._axis_slice(src, ph.axis, o + n - rm, o + n)])
+                    if rp:
+                        dst = blocks[bwd]
+                        dst[halo_fill._axis_slice(dst, ph.axis, o + n, o + n + rp)].copy_(
+                            src[halo_fill._axis_slice(src, ph.axis, o, o + rp)])
+
+    def copy_boxes(state, plan):
+        """The library yardstick: B7's messages moved by Tensor.copy_, one
+        call per message."""
+        for ph in plan.fused_phases:
+            s_, d_ = fst.box_slices(ph.src, ph.dst, ph.shape)
+            for i, pos in enumerate(mesh8.positions()):
+                j = mesh8.index(mesh8.shifted(pos, ph.direction))
+                for blocks in state.values():
+                    blocks[j][d_].copy_(blocks[i][s_])
+
+    c2 = resident_gbs["config 2: 256^3 (2,2,2) r2 x4"]
+    for fused in (False, True):
+        name = "fused_exchange" if fused else "remote_axis"
+        dd = DistributedDomain(256, 256, 256)
+        dd.set_radius(2)
+        dd.set_methods(Method.REMOTE_DMA)
+        dd.set_devices([dev] * 8)
+        dd.set_fused_exchange(fused)
+        hs = [dd.add_data(f"q{i}", "float32") for i in range(4)]
+        dd.realize()
+        st9 = rand_mesh(dd.spec, [f32] * 4, 440)
+        for i, hq in enumerate(hs):
+            dd.set_curr(hq, st9[i])
+        for fn in counted9.values():
+            fn.launches = 0
+        dd.exchange_loop(1)(dd.curr_state())
+        torch.cuda.synchronize()
+        got = {n_: fn.launches for n_, fn in counted9.items() if fn.launches}
+        check(got == {name: 1 if fused else 3},
+              f"config-2 exchange over 8 positions ({name}): launches {got}")
+        if fused:
+            launches["fused_exchange"] = got[name]
+        loop10 = dd.exchange_loop(10)
+        ex_ms = time_ms(lambda: loop10(dd.curr_state()), 3, warmup=1) / 10
+        nbytes = dd.exchange_bytes_for_method(Method.REMOTE_DMA)
+        plan9 = dd.halo_exchange.plan
+        groups = grouped(dd.curr_state(), list(range(4)))
+        ring = [ph for ph in plan9.remote_phases if ph.active]
+        if fused:
+            kern_ms = time_ms(lambda: fst.fused_exchange(groups, dd.spec, plan9, mesh8), 20,
+                              graph=True)
+            plain_ms = time_ms(lambda: fst.fused_exchange_plain(groups, dd.spec, plan9, mesh8), 3)
+            lib_ms = time_ms(lambda: copy_boxes(dd.curr_state(), plan9), 5, graph=True)
+            kbytes = fst.fused_exchange_bytes(plan9, 4, 8, 4)
+        else:
+            def phases(fn):
+                for ph in ring:
+                    fn(groups, dd.spec, ph, mesh8)
+            kern_ms = time_ms(lambda: phases(rdma.remote_axis), 20, graph=True) / len(ring)
+            plain_ms = time_ms(lambda: phases(rdma.remote_axis_plain), 3) / len(ring)
+            lib_ms = time_ms(lambda: copy_slabs(dd.curr_state(), dd.spec, ring), 5,
+                             graph=True) / len(ring)
+            kbytes = sum(rdma.remote_axis_bytes(dd.spec, ph, 4, 8, 4) for ph in ring) / len(ring)
+        timings[name] = dict(ms=kern_ms, plain_ms=plain_ms, bound=bound_ms(kbytes, 0),
+                             library_ms=lib_ms)
+        per_ex = lib_ms * (1 if fused else len(ring))
+        log(f"mesh exchange config 2 over 8 positions via {name}: {ex_ms:.4f} ms, "
+            f"{nbytes / ex_ms / 1e6:.2f} GB/s logical ({nbytes} bytes); resident config 2 in "
+            f"this run {c2:.2f} GB/s; Tensor.copy_ of the same slabs {per_ex:.4f} ms = "
+            f"{nbytes / per_ex / 1e6:.2f} GB/s")
+        del dd, st9, groups, loop10
+    # B6 per launch at the jacobi path's own shape (512^3 (2,2,2) r1 x1)
+    st9 = rand_mesh(spec_m1, [f32], 450)
+    groups = grouped(st9, [0])
+    ring = [ph for ph in build_plan(spec_m1, (2, 2, 2), Method.REMOTE_DMA).remote_phases]
+    for ph in ring:
+        ms9 = time_ms(lambda: rdma.remote_axis(groups, spec_m1, ph, mesh8), 20, graph=True)
+        b9 = bound_ms(rdma.remote_axis_bytes(spec_m1, ph, 1, 8, 4), 0)[0]
+        log(f"time remote_axis 512^3 (2,2,2) r1 x1 {ph.axis}: {ms9:.4f} ms per launch "
+            f"(bound {b9:.4f} ms by bytes)")
+    del st9, groups
+    for name in ("remote_axis", "fused_exchange"):
+        t = timings[name]
+        log(f"time {name} config 2: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, Tensor.copy_ "
+            f"{t['library_ms']:.4f} ms)")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -1051,6 +1312,11 @@ def main() -> int:
         # the batch= form (a leading tenant axis on the grid, every axis wrapping)
         "jacobi_sweep_batched": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
                                  "stencil_tpu/ops/pallas_stencil.py:119"),
+        # the mesh kernels: the axis carrier and the fused exchange carrier
+        "remote_axis": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                        "stencil_tpu/ops/remote_dma.py:68"),
+        "fused_exchange": ("stencil_tpu_torch/csrc/fused_exchange.cu",
+                           "stencil_tpu/ops/fused_stencil.py:100"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

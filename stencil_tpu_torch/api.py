@@ -1,15 +1,18 @@
-"""DistributedDomain — the top-level user API, single-device subset.
+"""DistributedDomain — the top-level user API.
 
 The port's counterpart of ``stencil_tpu.api`` (reference:
 include/stencil/stencil.hpp:33-225, src/stencil.cu). The surface is kept:
 ``set_radius`` -> ``add_data`` -> ``realize`` -> loop {compute /
-``exchange`` / ``swap``}. The port realizes its domain on one device: one
-block (the default), or any uniform partition (``set_partition``) with
-every block resident on the device, as the JAX package stacks residents
-when a partition has more blocks than devices (reference
-``dd.set_gpus({0,0})``, stencil.hpp:154). The exchange is
-``parallel.exchange.HaloExchange``: axis-composed, or remote-dma (with its
-fused and persistent kernel variants) on one block.
+``exchange`` / ``swap``}. With one device the port realizes one block (the
+default), or any uniform partition (``set_partition``) with every block
+resident on the device, as the JAX package stacks residents when a
+partition has more blocks than devices. With a list of N devices
+(``set_devices``, which may name one card N times: the reference's
+``dd.set_gpus({0,0})``, stencil.hpp:154) it realizes a mesh of N block
+positions, one block per position, each its own allocation, exchanged by
+``Method.REMOTE_DMA``. The exchange is ``parallel.exchange.HaloExchange``:
+axis-composed, or remote-dma (with its fused and persistent kernel
+variants) on one block, or remote-dma over the mesh.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -28,6 +31,7 @@ import torch
 from .domain import DataHandle, GridSpec
 from .geometry import Dim3, NodePartition, Radius, Rect3, exterior_regions, interior_region
 from .parallel.exchange import HaloExchange, Method, shard_blocks, unshard_blocks
+from .parallel.mesh import DeviceMesh
 from .utils import logging as log
 from .utils import timer
 from .utils.sync import hard_sync
@@ -51,7 +55,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 class DistributedDomain:
-    """A multi-quantity 3D periodic domain, every block on one device."""
+    """A multi-quantity 3D periodic domain: every block on one device, or
+    one block per position of a mesh (``set_devices`` with several
+    entries). On a mesh each quantity's curr and next are lists of
+    ``(1, 1, 1, pz, py, px)`` blocks, one per position in the mesh's flat
+    order (x fastest)."""
 
     def __init__(self, x: int, y: int, z: int, device=None):
         self.size = Dim3(x, y, z)
@@ -63,6 +71,8 @@ class DistributedDomain:
         self._fused = False
         self._persistent = False
         self._partition_dim: Optional[Dim3] = None
+        self._devices: Optional[List[torch.device]] = None
+        self.mesh: Optional[DeviceMesh] = None
         self._realized = False
         self._curr: Dict[int, torch.Tensor] = {}
         self._next: Dict[int, torch.Tensor] = {}
@@ -114,18 +124,23 @@ class DistributedDomain:
         self._persistent = bool(enabled)
 
     def set_devices(self, devices: Sequence) -> None:
-        """Run on these devices (reference ``set_gpus``, stencil.hpp:154);
-        this slice takes exactly one."""
-        devices = list(devices)
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"{len(devices)} devices: multi-GPU domains are slice 2 of ROADMAP.md")
-        self.device = resolve_device(devices[0])
+        """Run on these devices (reference ``set_gpus``, stencil.hpp:154).
+        One entry: every block on that device. N entries: a mesh of N block
+        positions, which may name one device several times; the partition
+        is ``NodePartition(size, radius, 1, N)`` unless ``set_partition``
+        pins one, and the exchange is ``Method.REMOTE_DMA``. Positions on
+        distinct GPUs are refused at realize() (ROADMAP.md queue A item
+        5)."""
+        devices = [resolve_device(d) for d in devices]
+        if not devices:
+            raise ValueError("set_devices needs at least one device")
+        self.device = devices[0]
+        self._devices = devices if len(devices) > 1 else None
 
     def set_partition(self, dim) -> None:
-        """Pin the partition grid (blocks along x, y, z). Every block is
-        resident on the one device; the partition must divide the domain
-        evenly."""
+        """Pin the partition grid (blocks along x, y, z): every block
+        resident on the one device, or one block per position of a mesh;
+        the partition must divide the domain evenly."""
         dim = Dim3.of(dim)
         s = self.size
         if s.x % dim.x or s.y % dim.y or s.z % dim.z:
@@ -140,18 +155,31 @@ class DistributedDomain:
         the exchange (reference: src/stencil.cu:241-850)."""
         t0 = time.perf_counter()
         with timer.timed("setup.realize"), timer.trace_range("stencil.realize"):
-            dim = self._partition_dim or NodePartition(self.size, self.radius, 1, 1).dim()
+            n = len(self._devices) if self._devices else 1
+            dim = self._partition_dim or NodePartition(self.size, self.radius, 1, n).dim()
             self.spec = GridSpec(self.size, dim, self.radius)
+            if self._devices:
+                # one block per position; a partition of another block count
+                # is refused by the exchange
+                self.mesh = DeviceMesh(dim if dim.flatten() == n else Dim3(n, 1, 1),
+                                       self._devices)
             self._exchange = HaloExchange(self.spec, self._method, fused=self._fused,
-                                          persistent=self._persistent)
-            shape = self.spec.stacked_shape_zyx()
+                                          persistent=self._persistent, mesh=self.mesh)
             for idx, dt in enumerate(self._dtypes):
-                self._curr[idx] = torch.zeros(shape, dtype=dt, device=self.device)
-                self._next[idx] = torch.zeros(shape, dtype=dt, device=self.device)
+                self._curr[idx] = self._zeros(dt)
+                self._next[idx] = self._zeros(dt)
         self.time_realize = time.perf_counter() - t0
         self._realized = True
         log.debug(f"realized {self.size} over {dim} blocks of {self.spec.base}, "
                   f"padded {self.spec.padded()} on {self.device}")
+
+    def _zeros(self, dtype):
+        """A zero quantity: the stacked tensor, or a mesh's blocks."""
+        if self.mesh is None:
+            return torch.zeros(self.spec.stacked_shape_zyx(), dtype=dtype, device=self.device)
+        p = self.spec.padded()
+        return [torch.zeros((1, 1, 1, p.z, p.y, p.x), dtype=dtype, device=d)
+                for d in self.mesh.devices]
 
     # -- data access ---------------------------------------------------------
     def get_curr(self, h: DataHandle) -> torch.Tensor:
@@ -173,13 +201,16 @@ class DistributedDomain:
         return dict(self._next)
 
     def set_curr_global(self, h: DataHandle, global_zyx: np.ndarray) -> None:
-        """Scatter a host array [z,y,x] into the padded block layout."""
+        """Scatter a host array [z,y,x] into the padded block layout (a
+        mesh's blocks on a mesh)."""
         dt = self._dtypes[h.idx]
         np_dt = torch.empty((), dtype=dt).numpy().dtype
-        self._curr[h.idx] = shard_blocks(global_zyx.astype(np_dt), self.spec, self.device)
+        self._curr[h.idx] = shard_blocks(global_zyx.astype(np_dt), self.spec,
+                                         self.mesh or self.device)
 
     def get_curr_global(self, h: DataHandle) -> np.ndarray:
-        """Gather the compute region to a host array [z,y,x]."""
+        """Gather the compute region to a host array [z,y,x] (from every
+        position on a mesh)."""
         return unshard_blocks(self._curr[h.idx], self.spec)
 
     # -- the iteration API (reference: stencil.hpp:182-215) ------------------

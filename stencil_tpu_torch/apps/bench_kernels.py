@@ -30,7 +30,12 @@ Prints one JSON line per measurement, after a line naming the card
   all eight blocks; and ``self_fill`` over a z-stack (size^3 over (1,1,2),
   radius 3, four fp32 quantities) per axis;
 - the tenant form of ``jacobi_sweep``: one step of a campaign slot of 64
-  tenants of (size/4)^3 (as many cells as size^3), beside its bytes bound.
+  tenants of (size/4)^3 (as many cells as size^3), beside its bytes bound;
+- the mesh kernels over eight block positions on the card, at size^3 over
+  (2,2,2), radius 1, one fp32 quantity (jacobi3d's remote-dma mesh) and at
+  (size/2)^3 over (2,2,2), radius 2, four fp32 quantities (the reference's
+  config 2 when size is 512): ``remote_axis`` per axis phase and
+  ``fused_exchange`` (one launch), each beside its bytes bound.
 
 Times are CUDA-event means over back-to-back launches replayed from a CUDA
 graph (device time, no host launch overhead) after a warm-up; inputs are
@@ -54,12 +59,13 @@ from ..astaroth.config import load_config
 from ..astaroth.equations import Constants
 from ..astaroth.integrate import inv_ds_of
 from ..ops import _native, halo_fill
+from ..ops import remote_dma as rdma
 from ..ops import astaroth_substep as asub
 from ..ops import fused_stencil as fst
 from ..ops import persistent_stencil as pst
 from ..ops import stencil_kernels as sk
 from ..ops.jacobi import multi_block_layout, sphere_sel_blocks
-from ..parallel import Method
+from ..parallel import DeviceMesh, Method
 from ..plan.ir import build_plan
 from ..utils.roofline import bound_ms
 from ..utils.timer import cuda_time_ms
@@ -197,6 +203,28 @@ def main(argv: Optional[list] = None) -> int:
                       "size": n // 4, "ms": ms, "bound_ms": bound_ms(12 * cells, 6 * cells)[0]}),
           flush=True)
     del curr, nxt, sel
+
+    # the mesh kernels: eight positions on the card, one block each
+    for size, r, nq in ((n, 1, 1), (n // 2, 2, 4)):
+        specm = GridSpec(Dim3(size, size, size), Dim3(2, 2, 2), Radius.constant(r))
+        mesh = DeviceMesh((2, 2, 2), [dev] * 8)
+        pm = specm.padded()
+        blocks = [[torch.rand((1, 1, 1, pm.z, pm.y, pm.x), generator=gen, device=dev)
+                   for _ in range(nq)] for _ in range(8)]
+        row = {"size": size, "partition": [2, 2, 2], "radius": r, "quantities": nq}
+        for ph in build_plan(specm, (2, 2, 2), Method.REMOTE_DMA).remote_phases:
+            ms = cuda_time_ms(lambda: rdma.remote_axis(blocks, specm, ph, mesh), args.reps * 2,
+                              graph=True)
+            nbytes = rdma.remote_axis_bytes(specm, ph, nq, 8, 4)
+            print(json.dumps({"kernel": "remote_axis", **row, "axis": ph.axis, "ms": ms,
+                              "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
+        fplan = build_plan(specm, (2, 2, 2), Method.REMOTE_DMA, fused=True)
+        ms = cuda_time_ms(lambda: fst.fused_exchange(blocks, specm, fplan, mesh), args.reps * 2,
+                          graph=True)
+        nbytes = fst.fused_exchange_bytes(fplan, nq, 8, 4)
+        print(json.dumps({"kernel": "fused_exchange", **row, "ms": ms, "bytes": nbytes,
+                          "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
+        del blocks
 
     na = args.astaroth_size
     info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",

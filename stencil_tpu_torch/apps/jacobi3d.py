@@ -2,7 +2,11 @@
 
 ``run(..., partition=(px, py, pz))`` splits the domain into a uniform
 partition with every block on the one GPU (as in the JAX app, the CLI has
-no flag for it).
+no flag for it). ``run(..., devices=[...], method=Method.REMOTE_DMA)`` (CLI
+``--devices cuda:0,cuda:0,...``) runs a mesh of one block position per
+entry, repeats allowed (the reference's ``set_gpus({0,0})``), weak-scaled
+by their number as in the JAX app: per step the remote-dma exchange, then
+one sweep per position.
 
 The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
 bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,
@@ -71,6 +75,7 @@ def run(
     fused: bool = False,
     kernel_variant: Optional[str] = None,
     partition=None,
+    devices=None,
 ) -> dict:
     """Run jacobi3d on one device and return the result row (plus the
     realized ``domain`` and the temperature ``handle``).
@@ -85,7 +90,11 @@ def run(
     multistep depth (or pins the persistent chunk depth) at it.
     ``kernel_variant`` ("fused" or "persistent"; ``fused=True`` is the
     older spelling of the former) selects a ``Method.REMOTE_DMA`` kernel
-    variant, as in the JAX app."""
+    variant, as in the JAX app. ``devices`` (a list of torch devices,
+    which may repeat one card) runs a mesh of that many block positions,
+    one block each (``DistributedDomain.set_devices``), and grows the
+    domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``
+    without a kernel variant."""
     if fused and kernel_variant is None:
         kernel_variant = "fused"
     if kernel_variant == "fused":
@@ -99,9 +108,15 @@ def run(
         raise ValueError(
             f"unknown kernel_variant {kernel_variant!r}: valid values are "
             "'fused' and 'persistent'")
-    n = 1
+    if devices is not None and device is not None:
+        raise ValueError("pass device= or devices=, not both")
+    devices = list(devices) if devices is not None else None
+    n = len(devices) if devices else 1
     size = weak_scale(x, y, z, n) if weak else Dim3(x, y, z)
-    dd = DistributedDomain(size.x, size.y, size.z, device=device)
+    dd = DistributedDomain(size.x, size.y, size.z,
+                           device=devices[0] if devices else device)
+    if devices:
+        dd.set_devices(devices)
     dd.set_radius(deep_halo)
     dd.set_methods(method)
     dd.set_fused_exchange(fused)
@@ -113,9 +128,13 @@ def run(
     dev = dd.device
 
     # init: uniform lukewarm field (reference: bin/jacobi3d.cu:18-27)
-    shape = dd.spec.stacked_shape_zyx()
-    dd.set_curr(h, torch.full(shape, INIT_TEMP, dtype=torch.float32, device=dev))
-    sel = sphere_sel_blocks(dd.spec, dev)
+    init = dd.get_curr(h)
+    if dd.mesh is None:
+        init.fill_(INIT_TEMP)
+    else:
+        for b in init:
+            b.fill_(INIT_TEMP)
+    sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
 
     curr, nxt = dd.get_curr(h), dd.get_next(h)
     if chunk is None:
@@ -156,6 +175,7 @@ def run(
         "method": method.value,
         "processes": 1,
         "devices": n,
+        "device_list": [str(d) for d in devices] if devices else [str(dev)],
         "x": size.x,
         "y": size.y,
         "z": size.z,
@@ -206,14 +226,20 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain PyTorch versions)")
+    p.add_argument("--devices", type=str, default=None,
+                   help="comma list of torch devices, one block position each, "
+                        "repeats allowed (e.g. cuda:0,cuda:0); needs --method remote-dma")
     args = p.parse_args(argv)
     if args.fused and args.kernel_variant == "persistent":
         p.error("--fused conflicts with --kernel-variant persistent "
                 "(mutually exclusive kernel variants)")
+    if args.device and args.devices:
+        p.error("--device conflicts with --devices")
     r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
             method=Method(args.method) if args.method else Method.AXIS_COMPOSED,
             device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo,
-            fused=args.fused, kernel_variant=args.kernel_variant)
+            fused=args.fused, kernel_variant=args.kernel_variant,
+            devices=args.devices.split(",") if args.devices else None)
     print(csv_row(r))
     log.info(f"mcells/s = {r['mcells_per_s']:.1f} ({r['mcells_per_s_per_dev']:.1f}/device) "
              f"on {r['device']}, kernel variant {r['kernel_variant']}, k={r['temporal_k']}")

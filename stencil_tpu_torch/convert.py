@@ -11,6 +11,12 @@ whether jacobi3d's temperature and int32 ``sel`` or Astaroth's 8-field dict
 ``jax.device_put`` takes back. A campaign slot's ``(B, pz, py, px)``
 tenant stack moves the same way, and tenant snapshots are the second
 carrier: either package restores the other's (``ckpt/``).
+
+On a mesh of block positions the port keeps one ``(1, 1, 1, pz, py, px)``
+block per position where the JAX package shards one stacked array over its
+device mesh: :func:`mesh_state_from_jax` splits the JAX package's sharded
+arrays (as numpy) into the mesh's blocks, and :func:`mesh_state_to_numpy`
+joins them back.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from .domain import GridSpec
+from .parallel.exchange import join_positions, split_positions
 
 
 def state_from_jax(arrays: Mapping, spec: GridSpec, device) -> Dict:
@@ -43,3 +50,25 @@ def state_from_jax(arrays: Mapping, spec: GridSpec, device) -> Dict:
 def state_to_numpy(tensors: Mapping) -> Dict:
     """``{key: numpy array}`` of port tensors, in the same layout."""
     return {key: t.detach().cpu().numpy() for key, t in tensors.items()}
+
+
+def mesh_state_from_jax(arrays: Mapping, spec: GridSpec, mesh) -> Dict:
+    """``{key: [block per position]}`` on ``mesh`` (a ``DeviceMesh`` whose
+    shape is ``spec``'s partition) from ``{key: numpy array}`` in the JAX
+    package's stacked layout ``spec.stacked_shape_zyx()``, e.g.
+    ``np.asarray`` of an array sharded over its device mesh."""
+    want = spec.stacked_shape_zyx()
+    out = {}
+    for key, a in arrays.items():
+        a = np.asarray(a)
+        if a.shape != want:
+            raise ValueError(f"{key!r}: shape {a.shape}, expected {want}")
+        out[key] = split_positions(torch.from_numpy(np.array(a, order="C")), spec, mesh)
+    return out
+
+
+def mesh_state_to_numpy(state: Mapping, spec: GridSpec) -> Dict:
+    """``{key: numpy array}`` in the stacked layout from a mesh state
+    ``{key: [block per position]}``."""
+    return {key: join_positions(blocks, spec).detach().cpu().numpy()
+            for key, blocks in state.items()}

@@ -95,6 +95,11 @@ class GridSpec:
     def is_uniform(self) -> bool:
         return self.base * self.dim == self.global_size
 
+    def block_spec(self) -> "GridSpec":
+        """One block of this partition as a one-block spec: the same padded
+        shape and compute offset (the per-position view of a mesh)."""
+        return GridSpec(self.base, Dim3(1, 1, 1), self.radius, self.aligned)
+
     # -- shapes --------------------------------------------------------------
     def padded(self) -> Dim3:
         """Per-block allocation extent (x, y, z); when ``aligned``, the y/x

@@ -25,6 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict
 
@@ -65,6 +66,12 @@ SIGNATURES = {
     "persistent_jacobi": {
         "persistent_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
                                           _I, ctypes.POINTER(_I), _I, _I, _P]),
+    },
+    "remote_axis": {
+        "remote_axis_launch": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    },
+    "fused_exchange": {
+        "fused_exchange_launch": (_I, [_P, _I, ctypes.POINTER(_I), _I, _I, _L, _L, _I, _P]),
     },
     "astaroth_substep": {
         "astaroth_substep_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
@@ -157,6 +164,32 @@ def check(rc: int, what: str) -> None:
     refused, or a previous asynchronous fault surfaced)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+# pointer tables of the mesh kernels, on their device, by content
+_tables: "OrderedDict[tuple, object]" = OrderedDict()
+MAX_TABLES = 64
+
+
+def device_table(key, rows, device):
+    """The int64 table a mesh kernel reads its (source, destination) pointer
+    rows from, on ``device``: ``rows()`` (a list of ints), made once per
+    ``key`` (which must determine the rows, e.g. the geometry and the
+    blocks' pointers) and kept for the newest :data:`MAX_TABLES` keys, so a
+    loop over the same tensors uploads each table once. A launch under
+    CUDA-graph capture must find its table already made."""
+    import torch
+
+    key = (str(device), key)
+    t = _tables.get(key)
+    if t is None:
+        t = torch.tensor(rows(), dtype=torch.int64).to(device)
+        _tables[key] = t
+        if len(_tables) > MAX_TABLES:
+            _tables.popitem(last=False)
+    else:
+        _tables.move_to_end(key)
+    return t
 
 
 def stream_ptr(device) -> int:

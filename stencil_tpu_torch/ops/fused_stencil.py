@@ -1,8 +1,25 @@
-"""The fused compute+exchange Jacobi step: one launch per step.
+"""The fused remote-dma exchange over a mesh, and the fused compute+exchange
+Jacobi step on one block.
 
-The port's counterpart of ``stencil_tpu.ops.fused_stencil`` for one block on
-one device, where every direction of the remote-dma fused plan
-(``plan.ir.FusedPhaseIR``) wraps onto the block itself:
+The port's counterpart of ``stencil_tpu.ops.fused_stencil``. The fused plan
+(``plan.ir.FusedPhaseIR``) moves one exact-extent message per active
+direction; every message reads only sender compute cells and writes only
+receiver halo cells, so all of them may run at once:
+
+- :func:`fused_exchange` launches ``csrc/fused_exchange.cu`` (replacing the
+  TPU's ``make_fused_exchange_kernel``): one launch per (device, dtype
+  group) stores every position's messages, crossing and self-wrap alike,
+  straight into the destination position's halo boxes (the reference's
+  ``ColoDomainKernel``, SURVEY.md section 2.3);
+  :func:`fused_exchange_plain` is the same copies by tensor slicing,
+  position by position; :class:`FusedRemoteDmaExchange` is the transport
+  of a ``HaloExchange(fused=True)`` over a mesh, with
+  ``last_transfer_count`` (messages sent to another position per dtype
+  group) as the JAX transport counts its remote copies. Positions on
+  distinct GPUs will need each launch to wait on its neighbours' previous
+  reads (an event per neighbour); ROADMAP.md queue A item 5.
+
+On one block every direction wraps onto the block itself:
 
 - :func:`fused_jacobi` launches ``csrc/fused_jacobi.cu`` (replacing the
   TPU's ``make_fused_jacobi_kernel`` in its all-self-wrap form): the exact-
@@ -13,8 +30,8 @@ one device, where every direction of the remote-dma fused plan
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
-``fused_jacobi.launches``. The wire-crossing form (several devices) is
-ROADMAP.md queue B item 8.
+``fused_jacobi.launches`` and ``fused_exchange.launches``. The fused step's
+wire-crossing form (several positions) is ROADMAP.md queue B.
 """
 
 from __future__ import annotations
@@ -26,6 +43,8 @@ import torch
 from ..domain.grid import GridSpec
 from ..geometry import Dim3
 from . import _native
+from .halo_fill import dtype_groups
+from .remote_dma import _check_mesh_blocks
 from .stencil_kernels import _check_block, _device_of, sweep_plain
 
 NO_WRAP = (False, False, False)
@@ -62,7 +81,7 @@ def _plan_boxes(spec: GridSpec, plan):
     if spec.dim != Dim3(1, 1, 1):
         raise NotImplementedError(
             f"partition {spec.dim}: the fused kernel runs one block; the "
-            "wire-crossing form is ROADMAP.md queue B item 8")
+            "wire-crossing form is ROADMAP.md queue B item 1")
     if any(ph.crossing for ph in plan.fused_phases):
         raise ValueError("the fused kernel on one block runs self-wrap hand-offs only")
     return [(ph.src, ph.dst, ph.shape) for ph in plan.fused_phases]
@@ -102,3 +121,92 @@ def fused_jacobi(curr, nxt, sel, spec: GridSpec, plan):
 
 
 fused_jacobi.launches = 0
+
+
+def _messages(plan, mesh):
+    """``[(phase, [destination index per position])]`` of the fused plan's
+    messages on ``mesh``: the message toward ``d`` goes to position + d."""
+    if Dim3.of(plan.mesh_dim) != mesh.dim:
+        raise ValueError(f"plan for mesh {plan.mesh_dim}, got mesh {mesh.dim}")
+    if not plan.fused_phases or any(ph.src is None for ph in plan.fused_phases):
+        raise ValueError("fused_exchange needs the fused plan of a uniform partition")
+    return [(ph, mesh.destinations(ph.direction)) for ph in plan.fused_phases]
+
+
+def fused_exchange_plain(blocks_by_position, spec: GridSpec, plan, mesh):
+    """Every message of the fused plan in plain PyTorch, direction by
+    direction and position by position: each block's compute box on the
+    ``d`` side -> the ``-d`` side halo box of the block at position + d,
+    for every quantity of the group. In place; returns
+    ``blocks_by_position``."""
+    for ph, dests in _messages(plan, mesh):
+        s, d = box_slices(ph.src, ph.dst, ph.shape)
+        for i, j in enumerate(dests):
+            for src, dst in zip(blocks_by_position[i], blocks_by_position[j]):
+                dst[d] = src[s]
+    return blocks_by_position
+
+
+def fused_exchange(blocks_by_position, spec: GridSpec, plan, mesh):
+    """The fused exchange (see :func:`fused_exchange_plain`) of a same-dtype
+    group: ``blocks_by_position[i]`` is the group's list of padded blocks at
+    position ``i`` of ``mesh``, every position on the mesh's one device;
+    ``plan`` is the remote-dma fused plan of ``spec`` on ``mesh``. CPU
+    tensors take :func:`fused_exchange_plain`; CUDA tensors launch
+    ``csrc/fused_exchange.cu`` once for every message, or raise. In place;
+    returns ``blocks_by_position``."""
+    dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
+    messages = _messages(plan, mesh)
+    if dev.type == "cpu":
+        return fused_exchange_plain(blocks_by_position, spec, plan, mesh)
+    ptrs = [[b.data_ptr() for b in group] for group in blocks_by_position]
+
+    def rows():
+        return [p for _ph, dests in messages for i, j in enumerate(dests)
+                for pair in zip(ptrs[i], ptrs[j]) for p in pair]
+
+    key = ("fused_exchange", plan.mesh_dim, tuple(ph.direction for ph, _ in messages),
+           tuple(p for group in ptrs for p in group))
+    table = _native.device_table(key, rows, dev)
+    p = spec.padded()
+    boxes = [(ph.src, ph.dst, ph.shape) for ph, _ in messages]
+    rc = _native.lib("fused_exchange").fused_exchange_launch(
+        table.data_ptr(), len(mesh) * len(ptrs[0]), box_rows(boxes), len(boxes),
+        blocks_by_position[0][0].element_size(), p.y * p.x, p.x, dev.index,
+        _native.stream_ptr(dev))
+    _native.check(rc, "fused_exchange")
+    fused_exchange.launches += 1
+    return blocks_by_position
+
+
+fused_exchange.launches = 0
+
+
+def fused_exchange_bytes(plan, nq: int, positions: int, itemsize: int) -> int:
+    """Bytes the fused exchange must move for ``nq`` quantities over
+    ``positions`` blocks: each message cell read once and written once."""
+    cells = sum(ph.shape[0] * ph.shape[1] * ph.shape[2] for ph in plan.fused_phases)
+    return 2 * cells * itemsize * nq * positions
+
+
+class FusedRemoteDmaExchange:
+    """The fused remote-dma transport of a ``HaloExchange(fused=True)`` over
+    a mesh: one :func:`fused_exchange` call per dtype group. ``state`` is
+    ``{key: [block per position]}``; in place."""
+
+    def __init__(self, ex):
+        self.spec = ex.spec
+        self.plan = ex.plan
+        self.mesh = ex.mesh
+        # messages whose destination is another position, per dtype group
+        self._crossing = sum(j != i for _ph, dests in _messages(self.plan, self.mesh)
+                             for i, j in enumerate(dests))
+        self.last_transfer_count = 0
+
+    def __call__(self, state):
+        self.last_transfer_count = 0
+        for _dt, keys in dtype_groups({k: blocks[0] for k, blocks in state.items()}):
+            blocks = [[state[k][i] for k in keys] for i in range(len(self.mesh))]
+            fused_exchange(blocks, self.spec, self.plan, self.mesh)
+            self.last_transfer_count += self._crossing
+        return state

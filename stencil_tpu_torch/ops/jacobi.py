@@ -26,7 +26,12 @@ multistep pass over every resident at its own global origin, and the
 The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
 kernel (one launch per step) or the persistent chunk kernel (one launch per
-k-step chunk), by the exchange's kernel variant.
+k-step chunk), by the exchange's kernel variant. Over a mesh of several
+block positions (``HaloExchange(mesh=...)``) the plain step runs: the
+exchange (axis-carrier phases, self-wrap fills), then one sweep launch per
+position with no in-kernel wrap (the JAX package's
+``_compile_jacobi_remote``); the fused and persistent kernels' wire-crossing
+forms are refused (ROADMAP.md queue B).
 
 :func:`make_batched_jacobi_loop` steps a campaign slot, a ``(B, pz, py,
 px)`` stack of independent single-block tenants: one tenant-form sweep
@@ -44,6 +49,7 @@ import torch
 from ..api import resolve_device
 from ..geometry import Dim3, Rect3, exterior_regions
 from ..parallel.exchange import Method, shard_blocks
+from ..parallel.mesh import DeviceMesh
 from ..utils import logging as log
 from ..utils import timer
 from . import _native
@@ -54,6 +60,7 @@ from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
     TEMPORAL_K_CAP,
+    _sphere_masks,
     multi_block_axes,
     multistep,
     plan_multistep_depth,
@@ -130,14 +137,28 @@ def sphere_sel(global_size) -> np.ndarray:
     return sel
 
 
-def sphere_sel_blocks(spec, device) -> torch.Tensor:
+def sphere_sel_blocks(spec, device):
     """``sphere_sel(spec.global_size)`` in the stacked padded layout on
     ``device`` (halos and pad 0), built there from integer coordinates:
     the coordinate spheres equal the sqrt-truncating ones
     (:func:`stencil_kernels.sphere_masks_from_coords`), and a 512^3 grid
-    takes seconds of host time the other way."""
-    hot, cold = sphere_masks_from_coords(spec, device)
-    return shard_blocks(hot.to(torch.int32) + 2 * cold.to(torch.int32), spec, device)
+    takes seconds of host time the other way. With a ``DeviceMesh`` for
+    ``device``, a mesh's blocks, each built on its position's device from
+    its block's global coordinates."""
+    if not isinstance(device, DeviceMesh):
+        hot, cold = sphere_masks_from_coords(spec, device)
+        return shard_blocks(hot.to(torch.int32) + 2 * cold.to(torch.int32), spec, device)
+    g, p, off = spec.global_size, spec.padded(), spec.compute_offset()
+    blocks = []
+    for pos, dev in zip(device.positions(), device.devices):
+        o, b = spec.block_origin(pos), spec.block_size(pos)
+        hot, cold = _sphere_masks(g, *(torch.arange(a, a + n, device=dev)
+                                       for a, n in ((o.z, b.z), (o.y, b.y), (o.x, b.x))))
+        sel = torch.zeros((1, 1, 1, p.z, p.y, p.x), dtype=torch.int32, device=dev)
+        sel[0, 0, 0, off.z:off.z + b.z, off.y:off.y + b.y, off.x:off.x + b.x] = (
+            hot.to(torch.int32) + 2 * cold.to(torch.int32))
+        blocks.append(sel)
+    return blocks
 
 
 def jacobi_reference(field: np.ndarray, masks, iters: int) -> np.ndarray:
@@ -204,16 +225,26 @@ def _ignored(temporal_k, why: str) -> None:
 
 
 def _remote_loop(ex, iters: int, temporal_k):
-    """Plain remote-dma: per step the exchange (three fills on one block),
-    then the sweep reading the filled halos, then the swap."""
+    """Plain remote-dma: per step the exchange (three fills on one block;
+    the mesh exchange over a mesh), then the sweep reading the filled
+    halos (one launch per position over a mesh, whose operands are lists
+    of blocks), then the swap."""
     require_face_radius(ex.spec)
     _ignored(temporal_k, "the REMOTE_DMA path runs per-step exchange + sweep dispatches")
     spec = ex.spec
+    if ex.on_mesh:
+        bspec = spec.block_spec()
+
+        def step(curr, nxt, sel):
+            return [sweep(c, n, s, bspec, NO_WRAP) for c, n, s in zip(curr, nxt, sel)]
+    else:
+        def step(curr, nxt, sel):
+            return sweep(curr, nxt, sel, spec, NO_WRAP)
 
     def loop(curr, nxt, sel):
         for _ in range(iters):
             ex(curr)
-            curr, nxt = sweep(curr, nxt, sel, spec, NO_WRAP), curr
+            curr, nxt = step(curr, nxt, sel), curr
         return curr, nxt
 
     return loop
@@ -306,6 +337,11 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
     docstring); ``temporal_k`` is then the persistent chunk depth, and the
     plain and fused loops ignore it with a warning, as in the JAX package."""
     if ex.method == Method.REMOTE_DMA:
+        if ex.on_mesh and (ex.fused or ex.persistent):
+            raise NotImplementedError(
+                f"the {'fused' if ex.fused else 'persistent'} jacobi loop on a mesh of "
+                f"{len(ex.mesh)} positions: the wire-crossing forms of the fused and "
+                "persistent kernels are ROADMAP.md queue B; use the plain REMOTE_DMA loop")
         if ex.persistent:
             return _persistent_loop(ex, iters, temporal_k)
         loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k)

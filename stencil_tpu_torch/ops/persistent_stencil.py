@@ -18,7 +18,7 @@ Both read ``sel`` at grown cells, so ``sel`` must arrive with its halos
 filled (the step loop exchanges it once per loop call). A wrapper takes its
 plain version only for tensors on the CPU; on a CUDA tensor it launches its
 kernel or raises. Launches are counted in ``persistent_jacobi.launches``.
-The wire-crossing form (several devices) is ROADMAP.md queue B item 9.
+The wire-crossing form (several devices) is ROADMAP.md queue B item 1.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ def _require_kernel_form(spec: GridSpec, k: int) -> None:
     if spec.dim != Dim3(1, 1, 1):
         raise NotImplementedError(
             f"partition {spec.dim}: the persistent kernel runs one block; the "
-            "wire-crossing form is ROADMAP.md queue B item 9")
+            "wire-crossing form is ROADMAP.md queue B item 1")
     if k < 2:
         raise ValueError(
             "persistent chunks need k >= 2 (a depth-1 chunk IS the "

@@ -1,0 +1,210 @@
+"""The remote-dma halo exchange over a mesh of block positions.
+
+The port's counterpart of ``stencil_tpu.ops.remote_dma``. A mesh
+(``parallel.mesh.DeviceMesh``) holds one block per position, each its own
+allocation; each axis phase of the composed x -> y -> z geometry (the
+plan's ``RemoteDmaPhaseIR``) moves every position's two boundary slabs
+straight into its ring neighbours' halos:
+
+- :func:`remote_axis` launches ``csrc/remote_axis.cu`` (replacing the TPU's
+  ``make_remote_axis_kernel``): one launch per (device, axis phase, dtype
+  group) for every position on the device, each a sender, storing through
+  the neighbour block's pointer (the reference's same-GPU
+  ``PeerAccessSender``, tx_cuda.cuh:41-113, and colocated
+  ``ColoQuantityKernel`` writes). On one card a (2,2,2) exchange is 3
+  launches per dtype group, not 24;
+- :func:`remote_axis_plain` is the same copies by tensor slicing, position
+  by position;
+- :class:`RemoteDmaExchange` is the transport of a ``HaloExchange`` over a
+  mesh: ring phases through :func:`remote_axis`, an axis with one position
+  through the fill kernel (``ops/halo_fill.self_fill``) on every position;
+  ``last_transfer_count`` counts the slabs sent to another position in the
+  last exchange, as the JAX transport counts its remote copies (one per
+  side, position and dtype group: independent of the quantity count).
+
+Ordering. Within a phase every read is of a compute row along the axis and
+every write of a halo row along it, which are disjoint (the block is at
+least the radius wide), so positions may run in any order inside a launch.
+Between phases a position's halo rows along x are read by phase y (the y
+slabs span the full padded x extent), so phase y must follow every phase-x
+launch: on one card every launch is on the current stream, in order.
+Positions on distinct GPUs will need each phase to wait on its ring
+neighbours' previous phase (an event per neighbour, the JAX kernel's
+neighbour barrier, ``stencil_tpu/ops/remote_dma.py:153-160``); that and NCCL
+across hosts are ROADMAP.md queue A item 5, and a mesh whose positions sit
+on distinct devices is refused.
+
+A wrapper takes its plain version only for tensors on the CPU; on a CUDA
+tensor it launches its kernel or raises. Launches are counted in
+``remote_axis.launches``. Not ported: the ``wire_dtype`` narrowing and the
+uneven ring's size table (ROADMAP.md queue B).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..domain.grid import GridSpec
+from . import _native
+from .halo_fill import MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, dtype_groups, self_fill
+
+
+def _check_mesh_blocks(blocks_by_position: Sequence[Sequence[torch.Tensor]], spec: GridSpec,
+                       mesh) -> torch.device:
+    """Every position holds the same number of same-dtype, contiguous padded
+    blocks of ``spec`` on the mesh's one device; returns that device."""
+    if not spec.is_uniform():
+        raise NotImplementedError(
+            f"uneven partition {spec.dim} of {spec.global_size}: the mesh kernels take "
+            "uniform partitions (the uneven ring's size table is ROADMAP.md queue B)")
+    if len(blocks_by_position) != len(mesh):
+        raise ValueError(f"{len(blocks_by_position)} block groups for {len(mesh)} positions")
+    dev = mesh.device
+    p = spec.padded()
+    nq = len(blocks_by_position[0])
+    if nq < 1:
+        raise ValueError("empty quantity group")
+    b0 = blocks_by_position[0][0]
+    for group in blocks_by_position:
+        if len(group) != nq:
+            raise ValueError("every position carries the same quantities")
+        for b in group:
+            if b.dtype != b0.dtype or b.device != dev:
+                raise ValueError(f"a group shares one dtype and sits on the mesh's device {dev}")
+            if tuple(b.shape[-3:]) != (p.z, p.y, p.x) or b.numel() != p.z * p.y * p.x:
+                raise ValueError(f"block shape {tuple(b.shape)} is not one padded "
+                                 f"({p.z}, {p.y}, {p.x}) block")
+            if not b.is_contiguous():
+                raise ValueError("blocks must be contiguous")
+    if b0.element_size() not in (4, 8):
+        raise ValueError(f"the exchange copies 4- or 8-byte elements, not {b0.dtype}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the mesh kernels run on cuda or cpu tensors, not {dev}")
+    return dev
+
+
+def _check_phase(spec: GridSpec, phase, mesh) -> None:
+    if not (phase.ring > 1 and phase.active):
+        raise ValueError("remote_axis needs an active phase over a ring of several positions "
+                         "(an axis with one position is a self-wrap fill)")
+    if mesh.ring(phase.axis) != phase.ring:
+        raise ValueError(f"phase ring {phase.ring} != the mesh's {mesh.ring(phase.axis)} "
+                         f"positions along {phase.axis}")
+    _o, n, rm, rp = axis_geom(spec, phase.axis)
+    if n < max(rm, rp):
+        raise ValueError(f"{phase.axis}-axis block size {n} < radius {max(rm, rp)}")
+
+
+def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh):
+    """One axis phase in plain PyTorch, position by position: each block's
+    hi slab ``[o + n - rm, o + n)`` along ``phase.axis`` -> its forward ring
+    neighbour's lo halo ``[o - rm, o)``, its lo slab ``[o, o + rp)`` -> its
+    backward neighbour's hi halo ``[o + n, o + n + rp)``, over the full
+    padded extent of the other axes, for every quantity of the group. In
+    place; returns ``blocks_by_position``."""
+    o, n, rm, rp = axis_geom(spec, phase.axis)
+    for i, pos in enumerate(mesh.positions()):
+        bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(pos, phase.axis))
+        for q, src in enumerate(blocks_by_position[i]):
+            if rm:
+                dst = blocks_by_position[fwd][q]
+                dst[_axis_slice(dst, phase.axis, o - rm, o)] = \
+                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)]
+            if rp:
+                dst = blocks_by_position[bwd][q]
+                dst[_axis_slice(dst, phase.axis, o + n, o + n + rp)] = \
+                    src[_axis_slice(src, phase.axis, o, o + rp)]
+    return blocks_by_position
+
+
+def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh):
+    """One axis phase of the remote-dma exchange (see
+    :func:`remote_axis_plain`) for a same-dtype group: ``blocks_by_position[i]``
+    is the group's list of padded blocks at position ``i`` of ``mesh``
+    (flat order), every position on the mesh's one device. CPU tensors take
+    :func:`remote_axis_plain`; CUDA tensors launch ``csrc/remote_axis.cu``
+    once for every position and quantity, or raise. In place; returns
+    ``blocks_by_position``."""
+    _check_phase(spec, phase, mesh)
+    dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
+    if dev.type == "cpu":
+        return remote_axis_plain(blocks_by_position, spec, phase, mesh)
+    o, n, rm, rp = axis_geom(spec, phase.axis)
+    ptrs = [[b.data_ptr() for b in group] for group in blocks_by_position]
+
+    step = [0, 0, 0]
+    step["xyz".index(phase.axis)] = 1
+    fwd, bwd = mesh.destinations(step), mesh.destinations([-v for v in step])
+
+    def rows():  # hi slabs forward, then lo slabs backward
+        out = []
+        for dests, width in ((fwd, rm), (bwd, rp)):
+            for i, group in enumerate(ptrs if width else ()):
+                for q, src in enumerate(group):
+                    out += [src, ptrs[dests[i]][q]]
+        return out
+
+    key = ("remote_axis", tuple(mesh.dim), phase.axis, rm > 0, rp > 0,
+           tuple(p for group in ptrs for p in group))
+    table = _native.device_table(key, rows, dev)
+    npos_q = len(mesh) * len(ptrs[0])
+    p = spec.padded()
+    rc = _native.lib("remote_axis").remote_axis_launch(
+        table.data_ptr(), npos_q if rm else 0, npos_q if rp else 0,
+        blocks_by_position[0][0].element_size(), p.z, p.y, p.x, _AXIS_DIM[phase.axis], o, n,
+        rm, rp, dev.index, _native.stream_ptr(dev))
+    _native.check(rc, f"remote_axis[{phase.axis}]")
+    remote_axis.launches += 1
+    return blocks_by_position
+
+
+remote_axis.launches = 0
+
+
+def remote_axis_bytes(spec: GridSpec, phase, nq: int, positions: int, itemsize: int) -> int:
+    """Bytes one phase must move for ``nq`` quantities over ``positions``
+    blocks: each slab cell read once and written once."""
+    _o, _n, rm, rp = axis_geom(spec, phase.axis)
+    p = spec.padded()
+    cells = {"z": p.y * p.x, "y": p.z * p.x, "x": p.z * p.y}[phase.axis] * (rm + rp)
+    return 2 * cells * itemsize * nq * positions
+
+
+def self_wrap_positions(state, keys, spec: GridSpec, axis: str) -> None:
+    """An axis with one position: every position's blocks of ``keys`` fill
+    their own periodic halos through the fill kernel, at most
+    :data:`MAX_FILL_GROUP` blocks per launch."""
+    blocks = [b for k in keys for b in state[k]]
+    for i in range(0, len(blocks), MAX_FILL_GROUP):
+        self_fill(blocks[i:i + MAX_FILL_GROUP], spec, axis)
+
+
+class RemoteDmaExchange:
+    """The remote-dma transport of a ``HaloExchange`` over a mesh: the
+    composed phases x -> y -> z, a ring phase as one :func:`remote_axis`
+    call per dtype group, an axis with one position as self-wrap fills.
+    ``state`` is ``{key: [block per position]}``; in place."""
+
+    def __init__(self, ex):
+        self.spec = ex.spec
+        self.plan = ex.plan
+        self.mesh = ex.mesh
+        self.last_transfer_count = 0
+
+    def __call__(self, state, axes=None):
+        self.last_transfer_count = 0
+        groups = dtype_groups({k: blocks[0] for k, blocks in state.items()})
+        for phase in self.plan.remote_phases:
+            if not phase.active or (axes is not None and phase.axis not in axes):
+                continue
+            for _dt, keys in groups:
+                if phase.ring > 1:
+                    blocks = [[state[k][i] for k in keys] for i in range(len(self.mesh))]
+                    remote_axis(blocks, self.spec, phase, self.mesh)
+                    self.last_transfer_count += len(self.mesh) * (
+                        (phase.rm > 0) + (phase.rp > 0))
+                else:
+                    self_wrap_positions(state, keys, self.spec, phase.axis)
+        return state

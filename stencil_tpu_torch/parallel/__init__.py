@@ -1,3 +1,6 @@
-from .exchange import HaloExchange, Method, direction_bytes, shard_blocks, unshard_blocks
+from .exchange import (HaloExchange, Method, direction_bytes, join_positions, shard_blocks,
+                       split_positions, unshard_blocks)
+from .mesh import DeviceMesh
 
-__all__ = ["HaloExchange", "Method", "direction_bytes", "shard_blocks", "unshard_blocks"]
+__all__ = ["DeviceMesh", "HaloExchange", "Method", "direction_bytes", "join_positions",
+           "shard_blocks", "split_positions", "unshard_blocks"]

@@ -32,24 +32,33 @@ State layout, as in the JAX package: each quantity is one tensor of shape
 ``(bz, by, bx, pz, py, px)``. Unlike the JAX version, the exchange updates
 the tensors in place (it still returns the state dict).
 
-Partitions over several GPUs (NCCL point-to-point) are slice 2 of
-ROADMAP.md.
+Over a mesh of several block positions (``mesh=``, a
+``parallel.mesh.DeviceMesh`` with one block per position) each quantity is
+a list of ``(1, 1, 1, pz, py, px)`` blocks, one per position in the mesh's
+flat order, each its own allocation, and the exchange is REMOTE_DMA: the
+axis carrier (``ops/remote_dma.RemoteDmaExchange``) or, with ``fused``,
+the fused exchange carrier (``ops/fused_stencil.FusedRemoteDmaExchange``).
+The mesh's positions must share one device (the reference's
+``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
+waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, halo_extent
-from ..ops.fused_stencil import kernel_supported
+from ..ops.fused_stencil import FusedRemoteDmaExchange, kernel_supported
 from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom, dtype_groups,
                              self_fill)
+from ..ops.remote_dma import RemoteDmaExchange
 from ..plan.ir import build_plan
+from .mesh import DeviceMesh
 
 
 class Method(enum.Enum):
@@ -78,16 +87,28 @@ def direction_bytes(spec: GridSpec, direction, itemsize: int) -> int:
 class HaloExchange:
     """The exchange of a domain whose blocks all sit on one device:
     axis-composed over any uniform partition, or remote-dma (with its
-    ``fused`` or ``persistent`` kernel variant) on one block."""
+    ``fused`` or ``persistent`` kernel variant) on one block; or, with
+    ``mesh`` of several positions, remote-dma over the mesh (the axis
+    carrier, or the fused exchange carrier with ``fused``)."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
-                 fused: bool = False, persistent: bool = False):
+                 fused: bool = False, persistent: bool = False,
+                 mesh: Optional[DeviceMesh] = None, wire_dtype=None):
         if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
             raise NotImplementedError(
                 f"{method}: the port has the axis-composed and remote-dma exchanges only")
-        # one device holds every block: the mesh is (1,1,1)
-        mesh_dim = Dim3(1, 1, 1)
-        self.resident = spec.dim
+        if wire_dtype is not None:
+            raise NotImplementedError(
+                f"wire_dtype={wire_dtype!r}: narrowing the remote-dma carriers is ROADMAP.md "
+                "queue B (B6 and B7)")
+        self.mesh = mesh if mesh is not None and len(mesh) > 1 else None
+        if self.mesh is None:
+            # one device holds every block: the mesh is (1,1,1)
+            mesh_dim = Dim3(1, 1, 1)
+            self.resident = spec.dim
+        else:
+            mesh_dim = self._check_mesh(spec, method, self.mesh)
+            self.resident = Dim3(1, 1, 1)
         self.fused = bool(fused)
         if self.fused and method != Method.REMOTE_DMA:
             raise ValueError(
@@ -134,6 +155,38 @@ class HaloExchange:
         # loop call, counted as the JAX package counts them (ops/jacobi.py)
         self.last_launches_per_chunk = 0
         self._loops = {}
+        self._remote = None
+        if self.mesh is not None:
+            self._remote = (FusedRemoteDmaExchange if self.fused else RemoteDmaExchange)(self)
+
+    @staticmethod
+    def _check_mesh(spec: GridSpec, method: Method, mesh: DeviceMesh) -> Dim3:
+        """A mesh of several positions: REMOTE_DMA, one block per position,
+        every position on one device. Returns the mesh shape."""
+        if method != Method.REMOTE_DMA:
+            raise NotImplementedError(
+                f"{method} on a mesh of {len(mesh)} positions: the port exchanges a mesh by "
+                "REMOTE_DMA only (collectives between GPUs are ROADMAP.md queue A item 5)")
+        if spec.num_blocks() > len(mesh):
+            raise NotImplementedError(
+                f"partition {spec.dim} ({spec.num_blocks()} blocks) on {len(mesh)} positions: "
+                "REMOTE_DMA takes one block per position, as the JAX carrier does; "
+                "oversubscribed REMOTE_DMA is ROADMAP.md queue A item 2")
+        if spec.dim != mesh.dim:
+            raise ValueError(f"mesh {mesh.dim} does not match partition {spec.dim}")
+        mesh.device  # raises for positions on distinct devices
+        return mesh.dim
+
+    @property
+    def on_mesh(self) -> bool:
+        """Blocks on a mesh of several positions (per-position state)."""
+        return self.mesh is not None
+
+    @property
+    def last_transfer_count(self) -> int:
+        """Slabs or messages sent to another position by the last mesh
+        exchange (0 on one position)."""
+        return self._remote.last_transfer_count if self._remote is not None else 0
 
     @property
     def oversubscribed(self) -> bool:
@@ -150,9 +203,15 @@ class HaloExchange:
         names (the deep-halo jacobi loop exchanges only its multi-block
         axes; the kernels wrap the others), over ``state``, a quantity dict
         or one tensor. In place; returns ``state``."""
-        if isinstance(state, torch.Tensor):
+        if isinstance(state, (torch.Tensor, list, tuple)):
             self.exchange({0: state}, axes)
             return state
+        if self.mesh is not None:
+            if self.fused:
+                if axes is not None:
+                    raise ValueError("the fused exchange moves every direction at once")
+                return self._remote(state)
+            return self._remote(state, axes)
         groups = dtype_groups(state)
         for phase in self.plan.axis_phases:
             if not phase.active or (axes is not None and phase.axis not in axes):
@@ -219,40 +278,83 @@ class HaloExchange:
         return per_item * sum(itemsizes) * self.spec.num_blocks()
 
 
-def shard_blocks(global_zyx, spec: GridSpec, device) -> torch.Tensor:
+def shard_blocks(global_zyx, spec: GridSpec, device) -> Union[torch.Tensor, List[torch.Tensor]]:
     """Scatter a global [z,y,x] array (numpy, or a tensor) into the stacked
     padded layout ``(bz, by, bx, pz, py, px)`` on ``device``, keeping its
-    dtype; halo and pad cells are 0."""
+    dtype; halo and pad cells are 0. With a ``DeviceMesh`` for ``device``,
+    the blocks of a mesh: one ``(1, 1, 1, pz, py, px)`` block per position,
+    on that position's device (the JAX package's
+    ``shard_blocks(global, spec, mesh)``)."""
     g = spec.global_size
-    src = torch.as_tensor(global_zyx, device=device)
+    mesh = device if isinstance(device, DeviceMesh) else None
+    src = torch.as_tensor(global_zyx, device=None if mesh else device)
     if tuple(src.shape) != (g.z, g.y, g.x):
         raise ValueError(
             f"global array shape {tuple(src.shape)} != grid ({g.z}, {g.y}, {g.x})")
+    if mesh is not None:
+        _check_positions(spec, mesh)
+        p = spec.padded()
+        blocks = []
+        for pos, dev in zip(mesh.positions(), mesh.devices):
+            b = torch.zeros((1, 1, 1, p.z, p.y, p.x), dtype=src.dtype, device=dev)
+            b[0, 0, 0][_compute(spec, pos)] = src[_global(spec, pos)].to(dev)
+            blocks.append(b)
+        return blocks
     stacked = torch.zeros(spec.stacked_shape_zyx(), dtype=src.dtype, device=device)
-    off = spec.compute_offset()
     for iz in range(spec.dim.z):
         for iy in range(spec.dim.y):
             for ix in range(spec.dim.x):
-                o = spec.block_origin((ix, iy, iz))
-                s = spec.block_size((ix, iy, iz))
-                stacked[iz, iy, ix, off.z:off.z + s.z, off.y:off.y + s.y,
-                        off.x:off.x + s.x] = src[o.z:o.z + s.z, o.y:o.y + s.y, o.x:o.x + s.x]
+                stacked[iz, iy, ix][_compute(spec, (ix, iy, iz))] = \
+                    src[_global(spec, (ix, iy, iz))]
     return stacked
 
 
-def unshard_blocks(stacked: torch.Tensor, spec: GridSpec) -> np.ndarray:
-    """Gather the compute regions of a stacked tensor into a global [z,y,x]
-    host array (halos dropped)."""
+def unshard_blocks(stacked, spec: GridSpec) -> np.ndarray:
+    """Gather the compute regions of a stacked tensor, or of a mesh's list
+    of per-position blocks, into a global [z,y,x] host array (halos
+    dropped)."""
     g = spec.global_size
-    arr = stacked.detach().cpu().numpy()
+    arr = join_positions(stacked, spec) if isinstance(stacked, (list, tuple)) else stacked
+    arr = arr.detach().cpu().numpy()
     out = np.empty((g.z, g.y, g.x), dtype=arr.dtype)
-    off = spec.compute_offset()
     for iz in range(spec.dim.z):
         for iy in range(spec.dim.y):
             for ix in range(spec.dim.x):
-                o = spec.block_origin((ix, iy, iz))
-                s = spec.block_size((ix, iy, iz))
-                out[o.z:o.z + s.z, o.y:o.y + s.y, o.x:o.x + s.x] = arr[
-                    iz, iy, ix, off.z:off.z + s.z, off.y:off.y + s.y,
-                    off.x:off.x + s.x]
+                out[_global(spec, (ix, iy, iz))] = arr[iz, iy, ix][_compute(spec, (ix, iy, iz))]
     return out
+
+
+def _compute(spec: GridSpec, pos):
+    """Block-local (z, y, x) slices of block ``pos``'s compute region."""
+    off, s = spec.compute_offset(), spec.block_size(pos)
+    return (slice(off.z, off.z + s.z), slice(off.y, off.y + s.y), slice(off.x, off.x + s.x))
+
+
+def _global(spec: GridSpec, pos):
+    """Global (z, y, x) slices of block ``pos``."""
+    o, s = spec.block_origin(pos), spec.block_size(pos)
+    return (slice(o.z, o.z + s.z), slice(o.y, o.y + s.y), slice(o.x, o.x + s.x))
+
+
+def _check_positions(spec: GridSpec, mesh: DeviceMesh) -> None:
+    if spec.dim != mesh.dim:
+        raise ValueError(f"mesh {mesh.dim} does not match partition {spec.dim}")
+
+
+def split_positions(stacked: torch.Tensor, spec: GridSpec, mesh: DeviceMesh) -> List[torch.Tensor]:
+    """A stacked ``(bz, by, bx, pz, py, px)`` tensor as a mesh's blocks: a
+    copy of each block, on its position's device, in flat order."""
+    _check_positions(spec, mesh)
+    if tuple(stacked.shape) != spec.stacked_shape_zyx():
+        raise ValueError(f"shape {tuple(stacked.shape)} != {spec.stacked_shape_zyx()}")
+    p = spec.padded()
+    flat = stacked.reshape(-1, 1, 1, 1, p.z, p.y, p.x)
+    return [flat[i].to(dev, copy=True) for i, dev in enumerate(mesh.devices)]
+
+
+def join_positions(blocks: Sequence[torch.Tensor], spec: GridSpec) -> torch.Tensor:
+    """A mesh's per-position blocks as one stacked ``(bz, by, bx, pz, py,
+    px)`` tensor (a copy, on the first block's device)."""
+    dev = blocks[0].device
+    return torch.cat([b.reshape(1, *b.shape[-3:]).to(dev) for b in blocks]).view(
+        spec.stacked_shape_zyx())

@@ -99,13 +99,17 @@ def test_domain_global_roundtrip_and_regions():
 
 
 def test_multi_block_raises():
-    """Several devices are slice 2; an uneven partition (every block on the
-    one device) is a ROADMAP item; a uniform one realizes."""
+    """Several devices under the axis-composed method raise (a mesh of
+    positions runs REMOTE_DMA only); an uneven partition (every block on
+    the one device) is a ROADMAP item; a uniform one realizes."""
     dd = DistributedDomain(16, 16, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dd.set_partition((3, 1, 1))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        dd.set_devices(["cpu", "cpu"])
+    two = DistributedDomain(16, 16, 16, device="cpu")
+    two.set_devices(["cpu", "cpu"])
+    two.add_data("t", "float32")
+    with pytest.raises(NotImplementedError, match="REMOTE_DMA only.*ROADMAP"):
+        two.realize()
     dd.set_partition((2, 1, 1))
     dd.add_data("t", "float32")
     dd.realize()

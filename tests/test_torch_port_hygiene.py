@@ -16,8 +16,8 @@ from stencil_tpu_torch.astaroth.equations import Constants
 from stencil_tpu_torch.domain import GridSpec
 from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
 from stencil_tpu_torch.ops import (_native, astaroth_substep, fused_stencil, halo_fill, jacobi,
-                                   persistent_stencil, stencil_kernels)
-from stencil_tpu_torch.parallel import Method
+                                   persistent_stencil, remote_dma, stencil_kernels)
+from stencil_tpu_torch.parallel import DeviceMesh, Method
 from stencil_tpu_torch.plan.ir import build_plan
 
 torch.set_num_threads(2)
@@ -45,8 +45,8 @@ def test_no_jax_or_reference_imports(path):
 def test_kernel_sources_present():
     csrc = pathlib.Path(stencil_tpu_torch.__file__).parent / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "astaroth_substep.cu", "fused_jacobi.cu", "jacobi_multistep.cu", "jacobi_sweep.cu",
-        "persistent_jacobi.cu", "self_fill.cu"]
+        "astaroth_substep.cu", "fused_exchange.cu", "fused_jacobi.cu", "jacobi_multistep.cu",
+        "jacobi_sweep.cu", "persistent_jacobi.cu", "remote_axis.cu", "self_fill.cu"]
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_native.SIGNATURES)
 
 
@@ -63,6 +63,8 @@ def test_no_device_means_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         jacobi3d.run(8, 8, 8, iters=1, method=Method.REMOTE_DMA, kernel_variant="persistent",
                      deep_halo=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jacobi3d.run(8, 8, 8, iters=1, method=Method.REMOTE_DMA, devices=["cuda:0"] * 8)
     assert DistributedDomain(8, 8, 8, device="cpu").device.type == "cpu"
 
 
@@ -91,11 +93,13 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     for mod, name in ((stencil_kernels, "sweep_plain"), (stencil_kernels, "multistep_plain"),
                       (halo_fill, "self_fill_plain"), (astaroth_substep, "substep_plain"),
                       (fused_stencil, "fused_jacobi_plain"),
-                      (persistent_stencil, "persistent_jacobi_plain")):
+                      (persistent_stencil, "persistent_jacobi_plain"),
+                      (remote_dma, "remote_axis_plain"), (fused_stencil, "fused_exchange_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
     launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                 halo_fill.self_fill.launches, astaroth_substep.substep.launches,
-                fused_stencil.fused_jacobi.launches, persistent_stencil.persistent_jacobi.launches)
+                fused_stencil.fused_jacobi.launches, persistent_stencil.persistent_jacobi.launches,
+                remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches)
     f32 = torch.float32
     stencil_kernels.sweep(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32), spec)
     stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
@@ -108,13 +112,18 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     spec2 = GridSpec(Dim3(16, 12, 10), Dim3(1, 1, 1), Radius.constant(2))
     persistent_stencil.persistent_jacobi(_block(spec2, f32), _block(spec2, f32),
                                          _block(spec2, torch.int32), spec2, 2)
+    mspec, mesh, mplan, mblocks = _mesh_case("cpu")
+    remote_dma.remote_axis(mblocks, mspec, mplan.remote_phases[0], mesh)
+    fused_stencil.fused_exchange(mblocks, mspec, mplan, mesh)
     assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
-                     "fused_jacobi_plain", "persistent_jacobi_plain"]
+                     "fused_jacobi_plain", "persistent_jacobi_plain", "remote_axis_plain",
+                     "fused_exchange_plain"]
     # the plain versions are not launches
     assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                         halo_fill.self_fill.launches, astaroth_substep.substep.launches,
                         fused_stencil.fused_jacobi.launches,
-                        persistent_stencil.persistent_jacobi.launches)
+                        persistent_stencil.persistent_jacobi.launches,
+                        remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches)
     # any other device is refused, never served by the plain version
     meta = [_block(spec, f32, "meta"), _block(spec, f32, "meta")]
     with pytest.raises(ValueError):
@@ -131,19 +140,38 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     with pytest.raises(ValueError):
         persistent_stencil.persistent_jacobi(_block(spec2, f32, "meta"), _block(spec2, f32, "meta"),
                                              _block(spec2, torch.int32, "meta"), spec2, 2)
-    assert len(calls) == 6
+    mspec, mesh, mplan, mblocks = _mesh_case("meta")
+    with pytest.raises(ValueError):
+        remote_dma.remote_axis(mblocks, mspec, mplan.remote_phases[0], mesh)
+    with pytest.raises(ValueError):
+        fused_stencil.fused_exchange(mblocks, mspec, mplan, mesh)
+    assert len(calls) == 8
+
+
+def _mesh_case(device):
+    """A (2,1,1) mesh of two positions on ``device``, its fused remote-dma
+    plan (whose remote phases are the plain carrier's too) and one fp32
+    quantity's blocks, grouped per position."""
+    spec = GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(1))
+    mesh = DeviceMesh((2, 1, 1), [device] * 2)
+    plan = build_plan(spec, (2, 1, 1), Method.REMOTE_DMA, fused=True)
+    p = spec.padded()
+    blocks = [[torch.zeros((1, 1, 1, p.z, p.y, p.x), device=device)] for _ in range(2)]
+    return spec, mesh, plan, blocks
 
 
 def test_wrappers_have_no_fallback():
     """No try/except in the kernel modules: a failed build or launch
     propagates instead of quietly running the plain version."""
-    for mod in (stencil_kernels, halo_fill, astaroth_substep, fused_stencil, persistent_stencil):
+    for mod in (stencil_kernels, halo_fill, astaroth_substep, fused_stencil, persistent_stencil,
+                remote_dma):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__name__
 
 
 PLAIN = ("sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
-         "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep")
+         "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep", "remote_axis_plain",
+         "fused_exchange_plain")
 
 
 def _is_cpu_test(test):
