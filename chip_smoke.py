@@ -103,7 +103,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               around it; DistributedDomain.exchange_loop at config 2 through
               each carrier in GB/s beside the resident config-2 number of
               phase 7 and the Tensor.copy_ yardstick; each kernel timed per
-              launch beside its plain version, its bound and Tensor.copy_.
+              launch beside its plain version, its bound and Tensor.copy_;
+              the per-position 256^3 sweep (no wrap) against its plain
+              version and timed per launch.
+10. mesh variants -- the wire-crossing forms of the fused step and the
+              persistent chunk, one cooperative launch over every position
+              of the mesh: fused_jacobi_mesh against its plain version
+              (torch.equal on every cell of every position, curr with its
+              halos and nxt) at 512^3 (2,2,2) r1 and 100x70x60 (1,1,2) r1,
+              persistent_jacobi_mesh (both buffers and sel) at 200x100x60
+              (2,2,2) k=2,3,4, 16x16x14 (2,1,1) k=2 and 512^3 (2,2,2) k=4,
+              from random fields, random sel and noise in every halo; 8
+              steps at 512^3 over 8 positions from phase 9's random field
+              through the fused loop and the persistent loop (k=4), each
+              bit-equal on the compute region to the single-block default
+              path and to the plain mesh loop; the main paths
+              apps.jacobi3d.run at 512^3 with devices=[cuda:0]*8, method
+              REMOTE_DMA and kernel_variant fused (50 iters, chunks of 25:
+              75 fused_jacobi_mesh launches, no other kernel) and
+              persistent with deep_halo 4 (48 iters, chunks of 24: 18
+              chunk launches and 9 remote_axis launches, sel's exchange once
+              per loop call), launch counts reset around each; each kernel
+              timed per launch at 512^3 beside its plain version and bound.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -1155,11 +1176,12 @@ def main() -> int:
     out9, _ = make_jacobi_loop(ex9, 8)(c9, [torch.zeros_like(b) for b in c9],
                                        sphere_sel_blocks(spec_m1, mesh8))
     torch.cuda.synchronize()
-    check(torch.equal(gather(join_positions(out9, spec_m1), spec_m1), ref8),
+    plain8 = gather(join_positions(out9, spec_m1), spec_m1)  # phase 10 holds its loops to both
+    check(torch.equal(plain8, ref8),
           "jacobi 512^3 8 steps over 8 positions != the single-block default path")
     log("jacobi 512^3 8 steps over 8 positions (remote_axis + sweeps): == the single-block "
         "default path")
-    del g8, ref8, c9, out9, ex9
+    del c9, out9, ex9
 
     # the main path: jacobi3d at 512^3 over 8 positions of one card
     counted9 = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
@@ -1175,6 +1197,7 @@ def main() -> int:
              "jacobi_multistep": 0, "fused_exchange": 0}
     check(got9 == want9, f"jacobi3d over 8 positions: launches {got9}, expected {want9}")
     launches["remote_axis"] = got9["remote_axis"]
+    launches["jacobi_sweep_mesh"] = got9["jacobi_sweep"]
     fin = gather(join_positions(rv["domain"].get_curr(rv["handle"]), rv["domain"].spec),
                  rv["domain"].spec)
     check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
@@ -1186,6 +1209,24 @@ def main() -> int:
         f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
         f"Mcells/s, launches {got9}")
     del rv, fin
+
+    # the main path's per-position sweep alone: one 256^3 block, no wrap
+    bspec = spec_m1.block_spec()
+    c, s9 = rand_block(bspec, 460), rand_sel(bspec, 461)
+    n9 = torch.zeros_like(c)
+    cells9 = bspec.base.flatten()
+    errs["jacobi_sweep_mesh"] = max_abs(sk.sweep(c, n9.clone(), s9, bspec, fst.NO_WRAP),
+                                        sk.sweep_plain(c, n9.clone(), s9, bspec, fst.NO_WRAP))
+    check(errs["jacobi_sweep_mesh"] == 0.0, "per-position sweep 256^3: kernel != plain")
+    timings["jacobi_sweep_mesh"] = dict(
+        ms=time_ms(lambda: sk.sweep(c, n9, s9, bspec, fst.NO_WRAP), 40, graph=True),
+        plain_ms=time_ms(lambda: sk.sweep_plain(c, n9, s9, bspec, fst.NO_WRAP), 3, warmup=1),
+        bound=bound_ms(12 * cells9, 6 * cells9), library_ms=None)
+    del c, s9, n9
+    t = timings["jacobi_sweep_mesh"]
+    log(f"time jacobi_sweep per position 256^3 (no wrap): {t['ms']:.4f} ms per launch (plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}); 8 per step "
+        f"= {8 * t['ms']:.4f} ms")
 
     # DistributedDomain.exchange_loop at config 2 through B6 and through B7
     def copy_slabs(state, spec, phases):
@@ -1283,6 +1324,134 @@ def main() -> int:
             f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, Tensor.copy_ "
             f"{t['library_ms']:.4f} ms)")
 
+    # -- 10. mesh variants: the fused step and the persistent chunk over 8 ---
+    #        block positions, one cooperative launch for every position
+    for key in ("fused_jacobi_mesh", "persistent_jacobi_mesh"):
+        errs[key] = 0.0
+
+    def rand_fields(spec, seed):
+        """(currs, nxts, sels) of a mesh of spec: random everywhere."""
+        st = rand_mesh(spec, [f32, f32], seed)
+        return st[0], st[1], [rand_sel(spec, seed + 2 + i) for i in range(spec.num_blocks())]
+
+    fused_mesh_cases = [("512^3 (2,2,2) r1", spec_m1),
+                        ("100x70x60 (1,1,2) r1", rspec((100, 70, 60), (1, 1, 2), 1))]
+    for i, (label, spec) in enumerate(fused_mesh_cases):
+        mesh = mesh_of(spec)
+        plan = build_plan(spec, spec.dim, Method.REMOTE_DMA, fused=True)
+        c, n, s = rand_fields(spec, 500 + 10 * i)
+        pc, pn = cloned([c])[0], cloned([n])[0]
+        fst.fused_jacobi_mesh(c, n, s, spec, plan, mesh)
+        fst.fused_jacobi_mesh_plain(pc, pn, s, spec, plan, mesh)
+        torch.cuda.synchronize()
+        errs["fused_jacobi_mesh"] = max(errs["fused_jacobi_mesh"], err_of([c, n], [pc, pn]))
+        check(same([c, n], [pc, pn]), f"fused_jacobi_mesh {label}: kernel != plain")
+        log(f"fused_jacobi_mesh {label}: equal (every position's curr with halos, and nxt)")
+        del c, n, s, pc, pn
+
+    pers_mesh_cases = [(f"200x100x60 (2,2,2) k={k}", rspec((200, 100, 60), (2, 2, 2), k), k)
+                       for k in (2, 3, 4)]
+    pers_mesh_cases += [("16x16x14 (2,1,1) k=2", rspec((16, 16, 14), (2, 1, 1), 2), 2),
+                        ("512^3 (2,2,2) k=4", rspec((512,) * 3, (2, 2, 2), 4), 4)]
+    for i, (label, spec, k) in enumerate(pers_mesh_cases):
+        mesh = mesh_of(spec)
+        c, n, s = rand_fields(spec, 520 + 10 * i)
+        pc, pn, ps = cloned([c])[0], cloned([n])[0], cloned([s])[0]
+        pst.persistent_jacobi_mesh(c, n, s, spec, k, mesh)
+        pst.persistent_jacobi_mesh_plain(pc, pn, ps, spec, k, mesh)
+        torch.cuda.synchronize()
+        errs["persistent_jacobi_mesh"] = max(errs["persistent_jacobi_mesh"],
+                                             err_of([c, n], [pc, pn]))
+        check(same([c, n, s], [pc, pn, ps]), f"persistent_jacobi_mesh {label}: kernel != plain")
+        log(f"persistent_jacobi_mesh {label}: equal (both buffers of every position, halos "
+            "included)")
+        del c, n, s, pc, pn, ps
+
+    # 8 steps at 512^3 over 8 positions from phase 9's random field: the
+    # fused loop and the persistent loop (k=4, radius-4 layout) against the
+    # single-block default path and the plain mesh loop
+    spec_m4 = rspec((512,) * 3, (2, 2, 2), 4)
+    for label, spec, kw, tk in (("fused", spec_m1, dict(fused=True), None),
+                                ("persistent (k=4)", spec_m4, dict(persistent=True), 4)):
+        ex10 = HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh8, **kw)
+        c10 = split_positions(place(g8, spec), spec, mesh8)
+        out10, _ = make_jacobi_loop(ex10, 8, temporal_k=tk)(
+            c10, [torch.zeros_like(b) for b in c10], sphere_sel_blocks(spec, mesh8))
+        got10 = gather(join_positions(out10, spec), spec)
+        torch.cuda.synchronize()
+        check(torch.equal(got10, ref8) and torch.equal(got10, plain8),
+              f"jacobi 512^3 8 steps over 8 positions, {label} loop != the single-block "
+              "default path or the plain mesh loop")
+        log(f"jacobi 512^3 8 steps over 8 positions, {label} loop: == the single-block default "
+            "path == the plain mesh loop")
+        del ex10, c10, out10, got10
+    del g8, ref8, plain8
+
+    # the main paths: jacobi3d at 512^3 over 8 positions through each kernel
+    counted10 = {**counted9, "fused_jacobi_mesh": fst.fused_jacobi_mesh,
+                 "persistent_jacobi_mesh": pst.persistent_jacobi_mesh,
+                 "fused_jacobi": fst.fused_jacobi, "persistent_jacobi": pst.persistent_jacobi}
+    mesh_runs = [
+        ("fused", dict(iters=50, chunk=25, kernel_variant="fused"), {"fused_jacobi_mesh": 75}),
+        ("persistent", dict(iters=48, chunk=24, kernel_variant="persistent", deep_halo=4),
+         {"persistent_jacobi_mesh": 18, "remote_axis": 9}),
+    ]
+    for label, kw, want in mesh_runs:
+        for fn in counted10.values():
+            fn.launches = 0
+        rv = jacobi3d.run(512, 512, 512, devices=[dev] * 8, method=Method.REMOTE_DMA,
+                          weak=False, **kw)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counted10.items()}
+        check(got == {name: want.get(name, 0) for name in counted10},
+              f"jacobi3d {label} over 8 positions: launches {got}, expected {want}")
+        name = f"{label}_jacobi_mesh"
+        launches[name] = got[name]
+        if label == "persistent":
+            lpc = rv["domain"].halo_exchange.last_launches_per_chunk
+            check(lpc == 1, f"jacobi3d persistent over 8 positions: {lpc} launches per chunk")
+        fin = gather(join_positions(rv["domain"].get_curr(rv["handle"]), rv["domain"].spec),
+                     rv["domain"].spec)
+        check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0 and bool((fin[hot_d] == 1.0).all())
+              and bool((fin[cold_d] == 0.0).all()),
+              f"jacobi3d {label} over 8 positions: field not finite, out of range or spheres "
+              "lost")
+        log(jacobi3d.csv_row(rv))
+        log(f"jacobi3d 512^3 over 8 positions of one card (remote-dma {label}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+            f"Mcells/s, launches {got}")
+        del rv, fin
+
+    # per-launch times at the main paths' shapes; cooperative launches are
+    # timed without a CUDA graph (events around back-to-back launches)
+    plan10 = build_plan(spec_m1, (2, 2, 2), Method.REMOTE_DMA, fused=True)
+    c, n, s = rand_fields(spec_m1, 560)
+    timings["fused_jacobi_mesh"] = dict(
+        ms=time_ms(lambda: fst.fused_jacobi_mesh(c, n, s, spec_m1, plan10, mesh8), 20),
+        plain_ms=time_ms(lambda: fst.fused_jacobi_mesh_plain(c, n, s, spec_m1, plan10, mesh8),
+                         3, warmup=1),
+        bound=bound_ms(fst.fused_jacobi_mesh_bytes(plan10, 8, spec_m1), 6 * cells),
+        library_ms=None)
+    del c, n, s
+    c, n, s = rand_fields(spec_m4, 570)
+    HaloExchange(spec_m4, Method.REMOTE_DMA, mesh=mesh8)(s)
+    grown = 8 * sum((256 + 2 * g) ** 3 for g in range(4))
+    bspec4 = spec_m4.block_spec()
+    timings["persistent_jacobi_mesh"] = dict(
+        ms=time_ms(lambda: pst.persistent_jacobi_mesh(c, n, s, spec_m4, 4, mesh8), 10),
+        plain_ms=time_ms(lambda: pst.persistent_jacobi_mesh_plain(c, n, s, spec_m4, 4, mesh8),
+                         1, warmup=1),
+        bound=bound_ms(8 * pst.chunk_bytes(bspec4, 4), 6 * grown), library_ms=None)
+    del c, n, s
+    design10 = bound_ms(8 * pst.chunk_design_bytes(bspec4, 4), 6 * grown)[0]
+    for name in ("fused_jacobi_mesh", "persistent_jacobi_mesh"):
+        t = timings[name]
+        log(f"time {name} 512^3 over 8 positions: {t['ms']:.4f} ms per launch (plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+    log(f"persistent_jacobi_mesh k=4: {timings['persistent_jacobi_mesh']['ms'] / 4:.4f} ms per "
+        f"step; the design's own traffic bounds it at {design10:.4f} ms")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -1317,6 +1486,14 @@ def main() -> int:
                         "stencil_tpu/ops/remote_dma.py:68"),
         "fused_exchange": ("stencil_tpu_torch/csrc/fused_exchange.cu",
                            "stencil_tpu/ops/fused_stencil.py:100"),
+        # the sweep of one mesh position (no wrap), launched once per position
+        "jacobi_sweep_mesh": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                              "stencil_tpu/ops/pallas_stencil.py:119"),
+        # the wire-crossing forms of the fused step and the persistent chunk
+        "fused_jacobi_mesh": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
+                              "stencil_tpu/ops/fused_stencil.py:250"),
+        "persistent_jacobi_mesh": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
+                                   "stencil_tpu/ops/persistent_stencil.py:199"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

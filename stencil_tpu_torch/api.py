@@ -12,7 +12,7 @@ partition has more blocks than devices. With a list of N devices
 positions, one block per position, each its own allocation, exchanged by
 ``Method.REMOTE_DMA``. The exchange is ``parallel.exchange.HaloExchange``:
 axis-composed, or remote-dma (with its fused and persistent kernel
-variants) on one block, or remote-dma over the mesh.
+variants) on one block or over the mesh.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -109,14 +109,16 @@ class DistributedDomain:
     def set_fused_exchange(self, enabled: bool) -> None:
         """The FUSED compute+exchange variant of ``Method.REMOTE_DMA``: the
         jacobi step loops run one kernel per step that hands off every
-        direction's halo and sweeps (``ops/fused_stencil.py``). Applied at
-        realize(), which raises for another method."""
+        direction's halo and sweeps (``ops/fused_stencil.py``; over a mesh of
+        positions one launch covers every position). Applied at realize(),
+        which raises for another method."""
         self._fused = bool(enabled)
 
     def set_persistent_exchange(self, enabled: bool) -> None:
         """The PERSISTENT whole-chunk variant of ``Method.REMOTE_DMA``: the
         jacobi step loops run one kernel per k-step chunk over radius-k
-        halos (``ops/persistent_stencil.py``), so the domain must be
+        halos (``ops/persistent_stencil.py``; over a mesh of positions one
+        launch covers every position), so the domain must be
         realized at radius k (``jacobi3d --kernel-variant persistent
         --deep-halo k`` does this). Mutually exclusive with
         :meth:`set_fused_exchange`; applied at realize(), which raises for

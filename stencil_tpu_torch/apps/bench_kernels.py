@@ -35,7 +35,14 @@ Prints one JSON line per measurement, after a line naming the card
   (2,2,2), radius 1, one fp32 quantity (jacobi3d's remote-dma mesh) and at
   (size/2)^3 over (2,2,2), radius 2, four fp32 quantities (the reference's
   config 2 when size is 512): ``remote_axis`` per axis phase and
-  ``fused_exchange`` (one launch), each beside its bytes bound.
+  ``fused_exchange`` (one launch), each beside its bytes bound;
+- the jacobi step over that mesh at size^3, one (size/2)^3 block per
+  position: ``jacobi_sweep`` on one position (no wrap; the plain mesh step
+  launches one per position), ``fused_jacobi_mesh`` at radius 1 (every
+  position's messages and sweep in one cooperative launch) and
+  ``persistent_jacobi_mesh`` at each depth k >= 2 of ``--ks`` (radius k,
+  ``sel`` halo-filled), each beside its bytes bound. The cooperative
+  launches are timed without a CUDA graph, as ``persistent_jacobi`` is.
 
 Times are CUDA-event means over back-to-back launches replayed from a CUDA
 graph (device time, no host launch overhead) after a warm-up; inputs are
@@ -65,7 +72,7 @@ from ..ops import fused_stencil as fst
 from ..ops import persistent_stencil as pst
 from ..ops import stencil_kernels as sk
 from ..ops.jacobi import multi_block_layout, sphere_sel_blocks
-from ..parallel import DeviceMesh, Method
+from ..parallel import DeviceMesh, HaloExchange, Method
 from ..plan.ir import build_plan
 from ..utils.roofline import bound_ms
 from ..utils.timer import cuda_time_ms
@@ -225,6 +232,42 @@ def main(argv: Optional[list] = None) -> int:
         print(json.dumps({"kernel": "fused_exchange", **row, "ms": ms, "bytes": nbytes,
                           "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
         del blocks
+
+    # the jacobi step over the mesh: the per-position sweep, the fused step
+    # and the persistent chunk, eight (n/2)^3 blocks
+    mesh = DeviceMesh((2, 2, 2), [dev] * 8)
+    for r in [1] + [k for k in ks if k >= 2]:
+        specm = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(r))
+        pm = specm.padded()
+        currs, nxts = ([torch.rand((1, 1, 1, pm.z, pm.y, pm.x), generator=gen, device=dev)
+                        for _ in range(8)] for _ in range(2))
+        sels = sphere_sel_blocks(specm, mesh)
+        row = {"size": n, "partition": [2, 2, 2], "radius": r}
+        if r == 1:
+            bspec, cells = specm.block_spec(), specm.base.flatten()
+            ms = cuda_time_ms(lambda: sk.sweep(currs[0], nxts[0], sels[0], bspec, fst.NO_WRAP),
+                              args.reps * 2, graph=True)
+            print(json.dumps({"kernel": "jacobi_sweep", "form": "mesh position", "size": n // 2,
+                              "ms": ms, "bound_ms": bound_ms(12 * cells, 6 * cells)[0]}),
+                  flush=True)
+            fplan = build_plan(specm, (2, 2, 2), Method.REMOTE_DMA, fused=True)
+            ms = cuda_time_ms(lambda: fst.fused_jacobi_mesh(currs, nxts, sels, specm, fplan, mesh),
+                              args.reps)
+            nbytes = fst.fused_jacobi_mesh_bytes(fplan, 8, specm)
+            print(json.dumps({"kernel": "fused_jacobi_mesh", **row, "ms": ms, "bytes": nbytes,
+                              "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
+        else:
+            HaloExchange(specm, Method.REMOTE_DMA, mesh=mesh)(sels)
+            ms = cuda_time_ms(lambda: pst.persistent_jacobi_mesh(currs, nxts, sels, specm, r,
+                                                                 mesh),
+                              max(2, args.reps // 2), warmup=1)
+            bspec = specm.block_spec()
+            print(json.dumps({"kernel": "persistent_jacobi_mesh", **row, "k": r, "ms": ms,
+                              "ms_per_step": ms / r,
+                              "bound_ms": bound_ms(8 * pst.chunk_bytes(bspec, r), 0)[0],
+                              "design_bytes_ms": bound_ms(8 * pst.chunk_design_bytes(bspec, r),
+                                                          0)[0]}), flush=True)
+        del currs, nxts, sels
 
     na = args.astaroth_size
     info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",

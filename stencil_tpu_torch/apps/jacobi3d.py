@@ -6,7 +6,9 @@ no flag for it). ``run(..., devices=[...], method=Method.REMOTE_DMA)`` (CLI
 ``--devices cuda:0,cuda:0,...``) runs a mesh of one block position per
 entry, repeats allowed (the reference's ``set_gpus({0,0})``), weak-scaled
 by their number as in the JAX app: per step the remote-dma exchange, then
-one sweep per position.
+one sweep per position; with ``kernel_variant="fused"`` one fused step
+launch per step over every position, with ``"persistent"`` one chunk
+launch per ``deep_halo`` steps.
 
 The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
 bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,
@@ -93,8 +95,8 @@ def run(
     variant, as in the JAX app. ``devices`` (a list of torch devices,
     which may repeat one card) runs a mesh of that many block positions,
     one block each (``DistributedDomain.set_devices``), and grows the
-    domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``
-    without a kernel variant."""
+    domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``,
+    with or without a kernel variant."""
     if fused and kernel_variant is None:
         kernel_variant = "fused"
     if kernel_variant == "fused":

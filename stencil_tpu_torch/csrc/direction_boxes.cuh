@@ -1,9 +1,10 @@
-// Per-direction halo hand-offs inside one fp32 block, shared by
-// fused_jacobi.cu and persistent_jacobi.cu.
+// Per-direction halo messages of a uniform partition's blocks, shared by
+// fused_exchange.cu, fused_jacobi.cu and mesh_chunk.cuh.
 //
-// A box is one direction's exact-extent message on a single, all-self-wrap
-// block: it copies compute cells (src) into the halo cells on the opposite
-// side (dst). Boxes of distinct directions write disjoint halo cells and read
+// A box is one direction's exact-extent message: it copies a block's compute
+// cells (src) into the halo cells on the opposite side (dst) of the receiving
+// block, which on a single, all-self-wrap block is the block itself
+// (copy_box_cell). Boxes of distinct directions write disjoint halo cells and read
 // only compute cells, so they may run in any order, concurrently.
 
 #pragma once

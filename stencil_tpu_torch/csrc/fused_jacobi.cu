@@ -1,6 +1,7 @@
 // One fused Jacobi step of a single, all-self-wrap fp32 block: the halo
 // hand-offs of every direction into curr, and the sweep of the compute
-// region into out, in one launch.
+// region into out, in one launch. The wire-crossing form over a mesh of
+// block positions (fused_jacobi_mesh_launch) follows below.
 //
 // Replaces: stencil_tpu/ops/fused_stencil.py make_fused_jacobi_kernel in its
 // all-self-wrap (one device) form: per step it copies the 26 exact-extent
@@ -30,6 +31,7 @@
 
 #include "direction_boxes.cuh"
 #include "jacobi_column.cuh"
+#include "mesh_chunk.cuh"
 
 namespace {
 
@@ -84,4 +86,62 @@ extern "C" int fused_jacobi_launch(void* curr, void* out, const void* sel, long 
       (float*)curr, (float*)out, (const int32_t*)sel, sz, sy, zo, yo, xo, nz, ny, nx, g.gx,
       g.gy, g.zchunk, (int)sweep_blocks, bx);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// B8's wire-crossing form: one fused step of every fp32 block position of one
+// device, in one cooperative launch.
+//
+// Replaces: make_fused_jacobi_kernel on a mesh (barrier with the neighbours,
+// start a remote copy per crossing direction, sweep on pre-exchange data,
+// wait, unpack, re-sweep the boundary planes). Python wrapper and plain
+// PyTorch version: stencil_tpu_torch/ops/fused_stencil.py (fused_jacobi_mesh,
+// fused_jacobi_mesh_plain).
+//
+// What it computes: every active direction's exact-extent message of the
+// fused plan, from each position's compute cells into the halo box of the
+// position + d (crossing and self-wrap alike), then every position's compute
+// region swept into its nxt with no wrap, reading those halos. Nothing else
+// of nxt is written.
+//
+// What bounds it on an H100: bytes. The sweep reads curr and sel and writes
+// nxt once per compute cell (12 bytes), and each message cell is read and
+// written once (8 bytes): at 512^3 over 8 positions of 256^3 at radius 1,
+// 12 * 512^3 + 8 * 8 * (258^3 - 256^3) bytes over the memory rate.
+//
+// Design: the one-substep case of mesh_chunk.cuh (the persistent chunk at
+// k = 1, which the reference calls the fused substep). Phase A stores every
+// message straight through the destination position's pointer, then
+// this_grid().sync(), then phase B marches every position's compute tiles.
+// The TPU kernel sweeps before its copies land and re-sweeps the boundary;
+// here the barrier is cheap and the copies are small, so the sweep waits for
+// them and runs once. Unlike fused_jacobi_kernel above, which never waits and
+// reads a single block's periodic images by index arithmetic, this form must
+// read halo cells that other blocks store, hence the barrier and the
+// cooperative launch: one launch per (device, step) covers every position,
+// so no kernel ever waits for another launch.
+
+namespace {
+
+__global__ void __launch_bounds__(THREADS)
+fused_jacobi_mesh_kernel(const __grid_constant__ MeshChunk c) {
+  mesh_chunk(c);
+}
+
+}  // namespace
+
+// pos: device table of npos rows (curr, nxt, sel pointers); msg: device table
+// of nboxes * m rows (source position, destination position, box index), m
+// rows per box in box order; boxes: nboxes rows of 9 ints (src z y x, dst
+// z y x, extent z y x), the fused plan's messages; geometry as
+// persistent_jacobi_launch's; dev: the device of every block.
+extern "C" int fused_jacobi_mesh_launch(const void* pos, int npos, const void* msg, int m,
+                                        const int* boxes, int nboxes, long long sz,
+                                        long long sy, int zo, int yo, int xo, int nz, int ny,
+                                        int nx, int dev, void* stream) {
+  MeshChunk c;
+  if (!make_mesh_chunk(pos, npos, msg, m, boxes, nboxes, sz, sy, zo, yo, xo, nz, ny, nx, 1,
+                       &c))
+    return (int)cudaErrorInvalidValue;
+  return (int)mesh_chunk_launch(fused_jacobi_mesh_kernel, c, dev, stream);
 }

@@ -1,5 +1,5 @@
 // The 7-point Jacobi column march and the grid sizing shared by
-// jacobi_sweep.cu, fused_jacobi.cu and persistent_jacobi.cu.
+// jacobi_sweep.cu, fused_jacobi.cu and mesh_chunk.cuh.
 //
 // A thread owns one (x, y) column of the region it sweeps and marches a z
 // range of it, keeping the z-1 / z / z+1 values in registers; the x and y
@@ -12,8 +12,8 @@
 // compiler may assume about aliasing and read-only loads comes from the
 // calling kernel's own parameters. A kernel whose source is a
 // `const __restrict__` parameter (jacobi_sweep.cu) gets read-only loads; one
-// that writes its source in the same launch (persistent_jacobi.cu) declares
-// it plain and keeps coherent loads.
+// that writes its source in the same launch (mesh_chunk.cuh) reads it
+// through plain pointers and keeps coherent loads.
 
 #pragma once
 

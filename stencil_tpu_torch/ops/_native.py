@@ -62,10 +62,12 @@ SIGNATURES = {
     "fused_jacobi": {
         "fused_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
                                      ctypes.POINTER(_I), _I, _I, _P]),
+        "fused_jacobi_mesh_launch": (_I, [_P, _I, _P, _I, ctypes.POINTER(_I), _I, _L, _L,
+                                          _I, _I, _I, _I, _I, _I, _I, _P]),
     },
     "persistent_jacobi": {
-        "persistent_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
-                                          _I, ctypes.POINTER(_I), _I, _I, _P]),
+        "persistent_jacobi_launch": (_I, [_P, _I, _P, _I, ctypes.POINTER(_I), _I, _L, _L,
+                                          _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
     "remote_axis": {
         "remote_axis_launch": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

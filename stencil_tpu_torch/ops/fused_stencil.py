@@ -1,5 +1,5 @@
 """The fused remote-dma exchange over a mesh, and the fused compute+exchange
-Jacobi step on one block.
+Jacobi step on one block and over a mesh.
 
 The port's counterpart of ``stencil_tpu.ops.fused_stencil``. The fused plan
 (``plan.ir.FusedPhaseIR``) moves one exact-extent message per active
@@ -19,19 +19,29 @@ receiver halo cells, so all of them may run at once:
   distinct GPUs will need each launch to wait on its neighbours' previous
   reads (an event per neighbour); ROADMAP.md queue A item 5.
 
-On one block every direction wraps onto the block itself:
+The fused step (the TPU's ``make_fused_jacobi_kernel``) has two forms:
 
-- :func:`fused_jacobi` launches ``csrc/fused_jacobi.cu`` (replacing the
-  TPU's ``make_fused_jacobi_kernel`` in its all-self-wrap form): the exact-
-  extent hand-offs of every direction into ``curr``'s halos, in place, and
-  the sweep of the compute region into ``nxt``, in one launch;
-- :func:`fused_jacobi_plain` is the same step in plain PyTorch: the
-  hand-offs in plan order, then the sweep reading the filled halos.
+- on one block every direction wraps onto the block itself:
+  :func:`fused_jacobi` launches ``csrc/fused_jacobi.cu``'s barrier-free
+  kernel, the exact-extent hand-offs of every direction into ``curr``'s
+  halos, in place, and the sweep of the compute region into ``nxt``, in one
+  launch; :func:`fused_jacobi_plain` is the same step in plain PyTorch, the
+  hand-offs in plan order, then the sweep reading the filled halos;
+- over a mesh of block positions on one device (the wire-crossing form):
+  :func:`fused_jacobi_mesh` launches the same file's cooperative kernel
+  (``csrc/mesh_chunk.cuh`` at one substep), once per step for every
+  position: every message into the destination position's halos, a
+  grid-wide barrier, every position's sweep with no wrap;
+  :func:`fused_jacobi_mesh_plain` is :func:`fused_exchange_plain` and then
+  one :func:`sweep_plain` per position. The kernel reads its positions'
+  pointers and its messages from two tables in device memory
+  (:func:`launch_mesh_chunk`), kept per pointer order, so a loop that
+  swaps ``curr`` and ``nxt`` uploads nothing after its first two steps.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
-``fused_jacobi.launches`` and ``fused_exchange.launches``. The fused step's
-wire-crossing form (several positions) is ROADMAP.md queue B.
+``fused_jacobi.launches``, ``fused_jacobi_mesh.launches`` and
+``fused_exchange.launches``.
 """
 
 from __future__ import annotations
@@ -80,8 +90,8 @@ def require_face_radius(spec: GridSpec) -> None:
 def _plan_boxes(spec: GridSpec, plan):
     if spec.dim != Dim3(1, 1, 1):
         raise NotImplementedError(
-            f"partition {spec.dim}: the fused kernel runs one block; the "
-            "wire-crossing form is ROADMAP.md queue B item 1")
+            f"partition {spec.dim}: fused_jacobi runs one block; a mesh of block "
+            "positions takes fused_jacobi_mesh")
     if any(ph.crossing for ph in plan.fused_phases):
         raise ValueError("the fused kernel on one block runs self-wrap hand-offs only")
     return [(ph.src, ph.dst, ph.shape) for ph in plan.fused_phases]
@@ -180,6 +190,89 @@ def fused_exchange(blocks_by_position, spec: GridSpec, plan, mesh):
 
 
 fused_exchange.launches = 0
+
+
+def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh) -> torch.device:
+    """``currs``, ``nxts`` (float32) and ``sels`` (int32): one contiguous
+    padded block of ``spec`` per position of ``mesh``, all on the mesh's one
+    device, every ``curr`` and ``nxt`` its own buffer; returns the device."""
+    if not len(currs) == len(nxts) == len(sels) == len(mesh):
+        raise ValueError(f"{len(currs)} curr, {len(nxts)} nxt and {len(sels)} sel blocks "
+                         f"for {len(mesh)} positions")
+    dev = _check_mesh_blocks([[c, n] for c, n in zip(currs, nxts)], spec, mesh)
+    _check_mesh_blocks([[s] for s in sels], spec, mesh)
+    if currs[0].dtype != torch.float32 or sels[0].dtype != torch.int32:
+        raise ValueError(f"fields are float32 and sel int32, not {currs[0].dtype} and "
+                         f"{sels[0].dtype}")
+    if len({t.data_ptr() for t in (*currs, *nxts)}) != 2 * len(mesh):
+        raise ValueError("every position's curr and nxt must be distinct buffers")
+    return dev
+
+
+def launch_mesh_chunk(entry, currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev,
+                      *depth) -> int:
+    """Call a mesh chunk entry of ``csrc/mesh_chunk.cuh``
+    (``fused_jacobi_mesh_launch``, or ``persistent_jacobi_launch`` with its
+    ``depth``) over every position; returns its CUDA error code. Its two
+    device tables: positions, one row of (curr, nxt, sel) pointers per
+    position, kept per pointer order (a loop's swap alternates two); and
+    messages, one row of (source position, destination position, box
+    index) per position and box, box by box (``dests_by_box[b][i]`` is
+    where position ``i`` sends box ``b``)."""
+    ptrs = tuple(t.data_ptr() for row in zip(currs, nxts, sels) for t in row)
+    pos = _native.device_table(("mesh_positions", ptrs), lambda: list(ptrs), dev)
+    dests_by_box = tuple(tuple(d) for d in dests_by_box)
+    msg = _native.device_table(
+        ("mesh_messages", dests_by_box),
+        lambda: [v for b, dests in enumerate(dests_by_box) for i, j in enumerate(dests)
+                 for v in (i, j, b)], dev)
+    p, off, b = spec.padded(), spec.compute_offset(), spec.base
+    return entry(pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), box_rows(boxes),
+                 len(boxes), p.y * p.x, p.x, off.z, off.y, off.x, b.z, b.y, b.x, *depth,
+                 dev.index, _native.stream_ptr(dev))
+
+
+def fused_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, plan, mesh):
+    """One fused step over a mesh in plain PyTorch: every position's
+    ``curr`` halos <- the fused plan's messages (:func:`fused_exchange_plain`,
+    in place), then each position's ``nxt`` compute region <- the sweep of
+    its ``curr`` reading those halos. Returns ``(currs, nxts)``."""
+    fused_exchange_plain([[c] for c in currs], spec, plan, mesh)
+    bspec = spec.block_spec()
+    for c, n, s in zip(currs, nxts, sels):
+        sweep_plain(c, n, s, bspec, NO_WRAP)
+    return currs, nxts
+
+
+def fused_jacobi_mesh(currs, nxts, sels, spec: GridSpec, plan, mesh):
+    """One fused step of every position of ``mesh`` (see
+    :func:`fused_jacobi_mesh_plain`), in place: lists of one padded block of
+    ``spec`` per position, every position on the mesh's one device; ``plan``
+    is the remote-dma fused plan of ``spec`` on ``mesh``. CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/fused_jacobi.cu``'s
+    cooperative kernel once for every position, or raise. Returns
+    ``(currs, nxts)``."""
+    dev = check_mesh_fields(currs, nxts, sels, spec, mesh)
+    require_face_radius(spec)
+    messages = _messages(plan, mesh)
+    if dev.type == "cpu":
+        return fused_jacobi_mesh_plain(currs, nxts, sels, spec, plan, mesh)
+    rc = launch_mesh_chunk(_native.lib("fused_jacobi").fused_jacobi_mesh_launch, currs, nxts,
+                           sels, spec, [(ph.src, ph.dst, ph.shape) for ph, _ in messages],
+                           [dests for _ph, dests in messages], dev)
+    _native.check(rc, "fused_jacobi_mesh")
+    fused_jacobi_mesh.launches += 1
+    return currs, nxts
+
+
+fused_jacobi_mesh.launches = 0
+
+
+def fused_jacobi_mesh_bytes(plan, positions: int, spec: GridSpec) -> int:
+    """The least bytes a fused mesh step moves: curr and sel read and nxt
+    written once per compute cell (12 bytes), each message cell read and
+    written once (8 bytes)."""
+    return 12 * spec.base.flatten() * positions + fused_exchange_bytes(plan, 1, positions, 4)
 
 
 def fused_exchange_bytes(plan, nq: int, positions: int, itemsize: int) -> int:

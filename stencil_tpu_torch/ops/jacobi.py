@@ -27,11 +27,15 @@ The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
 kernel (one launch per step) or the persistent chunk kernel (one launch per
 k-step chunk), by the exchange's kernel variant. Over a mesh of several
-block positions (``HaloExchange(mesh=...)``) the plain step runs: the
-exchange (axis-carrier phases, self-wrap fills), then one sweep launch per
-position with no in-kernel wrap (the JAX package's
-``_compile_jacobi_remote``); the fused and persistent kernels' wire-crossing
-forms are refused (ROADMAP.md queue B).
+block positions (``HaloExchange(mesh=...)``, operands are lists of blocks)
+each variant keeps its shape: the plain step is the exchange (axis-carrier
+phases, self-wrap fills) and one sweep launch per position with no
+in-kernel wrap (the JAX package's ``_compile_jacobi_remote``); the fused
+step is one launch of the fused kernel's wire-crossing form over every
+position (:func:`fused_stencil.fused_jacobi_mesh`); the persistent chunk
+one launch of the chunk kernel's wire-crossing form
+(:func:`persistent_stencil.persistent_jacobi_mesh`), after the axis
+carrier has filled ``sel``'s deep halos once per loop call.
 
 :func:`make_batched_jacobi_loop` steps a campaign slot, a ``(B, pz, py,
 px)`` stack of independent single-block tenants: one tenant-form sweep
@@ -53,9 +57,10 @@ from ..parallel.mesh import DeviceMesh
 from ..utils import logging as log
 from ..utils import timer
 from . import _native
-from .fused_stencil import NO_WRAP, fused_jacobi, require_face_radius
+from .fused_stencil import NO_WRAP, fused_jacobi, fused_jacobi_mesh, require_face_radius
 from .halo_fill import wrap_fill_batched
-from .persistent_stencil import check_chunk_depth, chunk_schedule, persistent_jacobi
+from .persistent_stencil import (check_chunk_depth, chunk_schedule, persistent_jacobi,
+                                 persistent_jacobi_mesh)
 from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
@@ -224,13 +229,10 @@ def _ignored(temporal_k, why: str) -> None:
                  f"with in-step exchanges; {why}")
 
 
-def _remote_loop(ex, iters: int, temporal_k):
-    """Plain remote-dma: per step the exchange (three fills on one block;
-    the mesh exchange over a mesh), then the sweep reading the filled
-    halos (one launch per position over a mesh, whose operands are lists
-    of blocks), then the swap."""
-    require_face_radius(ex.spec)
-    _ignored(temporal_k, "the REMOTE_DMA path runs per-step exchange + sweep dispatches")
+def _sweep_step(ex):
+    """``step(curr, nxt, sel) -> out``: one no-wrap sweep reading the filled
+    halos, one launch per position over a mesh (whose operands are lists
+    of blocks)."""
     spec = ex.spec
     if ex.on_mesh:
         bspec = spec.block_spec()
@@ -240,6 +242,16 @@ def _remote_loop(ex, iters: int, temporal_k):
     else:
         def step(curr, nxt, sel):
             return sweep(curr, nxt, sel, spec, NO_WRAP)
+    return step
+
+
+def _remote_loop(ex, iters: int, temporal_k):
+    """Plain remote-dma: per step the exchange (three fills on one block;
+    the mesh exchange over a mesh), then the sweep reading the filled
+    halos, then the swap."""
+    require_face_radius(ex.spec)
+    _ignored(temporal_k, "the REMOTE_DMA path runs per-step exchange + sweep dispatches")
+    step = _sweep_step(ex)
 
     def loop(curr, nxt, sel):
         for _ in range(iters):
@@ -252,14 +264,21 @@ def _remote_loop(ex, iters: int, temporal_k):
 
 def _fused_loop(ex, iters: int, temporal_k):
     """Fused remote-dma: one fused step kernel per step (halo hand-offs into
-    ``curr`` and the sweep into ``nxt``), then the swap."""
+    ``curr`` and the sweep into ``nxt``; over a mesh, every position's
+    messages and sweeps in one launch), then the swap."""
     require_face_radius(ex.spec)
     _ignored(temporal_k, "the FUSED path runs one fused exchange+sweep substep per step")
-    spec, plan = ex.spec, ex.plan
+    spec, plan, mesh = ex.spec, ex.plan, ex.mesh
+    if ex.on_mesh:
+        def step(curr, nxt, sel):
+            return fused_jacobi_mesh(curr, nxt, sel, spec, plan, mesh)
+    else:
+        def step(curr, nxt, sel):
+            return fused_jacobi(curr, nxt, sel, spec, plan)
 
     def loop(curr, nxt, sel):
         for _ in range(iters):
-            c2, out = fused_jacobi(curr, nxt, sel, spec, plan)
+            c2, out = step(curr, nxt, sel)
             curr, nxt = out, c2
         return curr, nxt
 
@@ -268,13 +287,14 @@ def _fused_loop(ex, iters: int, temporal_k):
 
 def _persistent_loop(ex, iters: int, temporal_k):
     """Persistent remote-dma: ``sel``'s halos filled once per loop call (in
-    place; sel is step-invariant), then per chunk of
-    ``chunk_schedule(iters, k)`` one whole-chunk kernel (depth >= 2), or the
-    exchange and one sweep (a depth-1 tail). ``k`` is ``temporal_k``, else
-    the realized min face radius. ``ex.last_launches_per_chunk`` counts as
-    the JAX package does: 1 per kernel chunk on the card, 2 per chunk that
-    runs as exchange + chunk program (the CPU's plain versions, a depth-1
-    tail)."""
+    place; sel is step-invariant; over a mesh by the axis carrier at the
+    deep radius), then per chunk of ``chunk_schedule(iters, k)`` one
+    whole-chunk kernel (depth >= 2; over a mesh, one launch for every
+    position), or the exchange and one sweep (a depth-1 tail). ``k`` is
+    ``temporal_k``, else the realized min face radius.
+    ``ex.last_launches_per_chunk`` counts as the JAX package does: 1 per
+    kernel chunk on the card, 2 per chunk that runs as exchange + chunk
+    program (the CPU's plain versions, a depth-1 tail)."""
     spec = ex.spec
     require_face_radius(spec)
     r = spec.radius
@@ -283,18 +303,26 @@ def _persistent_loop(ex, iters: int, temporal_k):
     sched = chunk_schedule(iters, k)
     if sched:
         check_chunk_depth(spec, max(sched))
+    tail = _sweep_step(ex)
+    if ex.on_mesh:
+        def chunk(curr, nxt, sel, d):
+            persistent_jacobi_mesh(curr, nxt, sel, spec, d, ex.mesh)
+    else:
+        def chunk(curr, nxt, sel, d):
+            persistent_jacobi(curr, nxt, sel, spec, d)
 
     def loop(curr, nxt, sel):
         ex(sel)
+        on_card = (curr[0] if ex.on_mesh else curr).is_cuda
         launches = 0
         for d in sched:
             if d >= 2:
-                persistent_jacobi(curr, nxt, sel, spec, d)
+                chunk(curr, nxt, sel, d)
                 out, scratch = (nxt, curr) if d % 2 else (curr, nxt)
-                launches += 1 if curr.is_cuda else 2
+                launches += 1 if on_card else 2
             else:
                 ex(curr)
-                out, scratch = sweep(curr, nxt, sel, spec, NO_WRAP), curr
+                out, scratch = tail(curr, nxt, sel), curr
                 launches += 2
             curr, nxt = out, scratch
         ex.last_launches_per_chunk = launches // max(1, len(sched))
@@ -337,11 +365,6 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
     docstring); ``temporal_k`` is then the persistent chunk depth, and the
     plain and fused loops ignore it with a warning, as in the JAX package."""
     if ex.method == Method.REMOTE_DMA:
-        if ex.on_mesh and (ex.fused or ex.persistent):
-            raise NotImplementedError(
-                f"the {'fused' if ex.fused else 'persistent'} jacobi loop on a mesh of "
-                f"{len(ex.mesh)} positions: the wire-crossing forms of the fused and "
-                "persistent kernels are ROADMAP.md queue B; use the plain REMOTE_DMA loop")
         if ex.persistent:
             return _persistent_loop(ex, iters, temporal_k)
         loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k)

@@ -1,24 +1,30 @@
 """The persistent whole-chunk Jacobi kernel: one launch per k-step chunk.
 
-The port's counterpart of ``stencil_tpu.ops.persistent_stencil`` for one
-block on one device. A chunk fills radius-k halos once and runs k substeps
-with no further exchange: substep ``s`` sweeps the region grown ``k - 1 - s``
-cells past the compute region, recomputing neighbour cells redundantly
-(on one block, the block's own periodic images) with the sweep's operand
+The port's counterpart of ``stencil_tpu.ops.persistent_stencil``. A chunk
+fills radius-k halos once and runs k substeps with no further exchange:
+substep ``s`` sweeps the region grown ``k - 1 - s`` cells past the compute
+region, recomputing neighbour cells redundantly with the sweep's operand
 order, so the chunk equals k plain steps bit for bit.
 
 - :func:`persistent_jacobi` launches ``csrc/persistent_jacobi.cu``
   (replacing the TPU's ``make_persistent_jacobi_kernel`` in its
-  all-self-wrap form): the deep hand-offs (:func:`deep_dir_phases`) and the
-  k substeps in one cooperative launch;
-- :func:`persistent_jacobi_plain` is the same chunk in plain PyTorch: the
+  all-self-wrap form) on one block: the deep hand-offs
+  (:func:`deep_dir_phases`) and the k substeps in one cooperative launch;
+  :func:`persistent_jacobi_plain` is the same chunk in plain PyTorch: the
   hand-offs, then :func:`make_persistent_chunk_body`.
+- :func:`persistent_jacobi_mesh` launches the same kernel over a mesh of
+  block positions on one device (the wire-crossing form): one launch per
+  chunk stores every position's deep messages into the destination
+  position's halos (crossing and self-wrap alike), then runs the k
+  substeps of every position; :func:`persistent_jacobi_mesh_plain` is the
+  deep messages position by position, then the chunk body per position.
+  One block is the kernel's one-position case.
 
 Both read ``sel`` at grown cells, so ``sel`` must arrive with its halos
 filled (the step loop exchanges it once per loop call). A wrapper takes its
 plain version only for tensors on the CPU; on a CUDA tensor it launches its
-kernel or raises. Launches are counted in ``persistent_jacobi.launches``.
-The wire-crossing form (several devices) is ROADMAP.md queue B item 1.
+kernel or raises. Launches are counted in ``persistent_jacobi.launches``
+and ``persistent_jacobi_mesh.launches``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, Rect3
 from ..plan.ir import direction_boxes
 from . import _native
-from .fused_stencil import box_rows, box_slices
+from .fused_stencil import box_slices, check_mesh_fields, launch_mesh_chunk
 from .stencil_kernels import _check_block, _device_of
 
 
@@ -101,11 +107,13 @@ def deep_dir_phases(spec: GridSpec, mesh_dim):
             for d, src, dst, shape in direction_boxes(spec, dirs)]
 
 
-def _require_kernel_form(spec: GridSpec, k: int) -> None:
-    if spec.dim != Dim3(1, 1, 1):
+def _require_kernel_form(spec: GridSpec, k: int, mesh=None) -> None:
+    if mesh is None and spec.dim != Dim3(1, 1, 1):
         raise NotImplementedError(
-            f"partition {spec.dim}: the persistent kernel runs one block; the "
-            "wire-crossing form is ROADMAP.md queue B item 1")
+            f"partition {spec.dim}: persistent_jacobi runs one block; a mesh of block "
+            "positions takes persistent_jacobi_mesh")
+    if mesh is not None and spec.dim != mesh.dim:
+        raise ValueError(f"mesh {mesh.dim} does not match partition {spec.dim}")
     if k < 2:
         raise ValueError(
             "persistent chunks need k >= 2 (a depth-1 chunk IS the "
@@ -113,8 +121,15 @@ def _require_kernel_form(spec: GridSpec, k: int) -> None:
     check_chunk_depth(spec, k)
 
 
-def _deep_boxes(spec: GridSpec):
-    return [(src, dst, shape) for _d, src, dst, shape, _c in deep_dir_phases(spec, (1, 1, 1))]
+def _deep_messages(spec: GridSpec, mesh=None):
+    """``(boxes, dests_by_box)`` of the deep messages: each direction's
+    ``(src, dst, shape)`` box and, per position, the position it sends the
+    box to (position + d on ``mesh``; the block itself on one block)."""
+    phases = deep_dir_phases(spec, mesh.dim if mesh is not None else (1, 1, 1))
+    boxes = [(src, dst, shape) for _d, src, dst, shape, _c in phases]
+    dests = [mesh.destinations((d.x, d.y, d.z)) if mesh is not None else (0,)
+             for d, *_ in phases]
+    return boxes, dests
 
 
 def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
@@ -123,7 +138,7 @@ def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
     sel)``; the chunk's result is in ``nxt`` when k is odd, in ``curr``
     when k is even."""
     _require_kernel_form(spec, k)
-    for src, dst, shape in _deep_boxes(spec):
+    for src, dst, shape in _deep_messages(spec)[0]:
         s, d = box_slices(src, dst, shape)
         curr[d] = curr[s]
     make_persistent_chunk_body(spec, k)(curr, nxt, sel)
@@ -140,18 +155,55 @@ def persistent_jacobi(curr, nxt, sel, spec: GridSpec, k: int):
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
         return persistent_jacobi_plain(curr, nxt, sel, spec, k)
-    boxes = _deep_boxes(spec)
-    p, off, b = spec.padded(), spec.compute_offset(), spec.base
-    rc = _native.lib("persistent_jacobi").persistent_jacobi_launch(
-        curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
-        off.z, off.y, off.x, b.z, b.y, b.x, k, box_rows(boxes), len(boxes), dev.index,
-        _native.stream_ptr(dev))
+    boxes, dests = _deep_messages(spec)
+    rc = launch_mesh_chunk(_native.lib("persistent_jacobi").persistent_jacobi_launch, [curr],
+                           [nxt], [sel], spec, boxes, dests, dev, k)
     _native.check(rc, "persistent_jacobi")
     persistent_jacobi.launches += 1
     return curr, nxt, sel
 
 
 persistent_jacobi.launches = 0
+
+
+def persistent_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, k: int, mesh):
+    """One k-step chunk over a mesh in plain PyTorch: every position's
+    ``curr`` halos <- the deep messages (:func:`deep_dir_phases` on the
+    mesh, the message toward ``d`` to position + d; in place), then the
+    chunk body on each position. Returns ``(currs, nxts, sels)``; the
+    result is in ``nxts`` when k is odd, in ``currs`` when k is even."""
+    _require_kernel_form(spec, k, mesh)
+    boxes, dests_by_box = _deep_messages(spec, mesh)
+    for (src, dst, shape), dests in zip(boxes, dests_by_box):
+        s, d = box_slices(src, dst, shape)
+        for i, j in enumerate(dests):
+            currs[j][d] = currs[i][s]
+    body = make_persistent_chunk_body(spec.block_spec(), k)
+    for c, n, s in zip(currs, nxts, sels):
+        body(c, n, s)
+    return currs, nxts, sels
+
+
+def persistent_jacobi_mesh(currs, nxts, sels, spec: GridSpec, k: int, mesh):
+    """One k-step chunk of every position of ``mesh`` (see
+    :func:`persistent_jacobi_mesh_plain`), in place: lists of one padded
+    block of ``spec`` per position, on the mesh's one device, ``sels``
+    halo-filled. CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/persistent_jacobi.cu`` once for every position, or raise.
+    Returns ``(currs, nxts, sels)``."""
+    dev = check_mesh_fields(currs, nxts, sels, spec, mesh)
+    _require_kernel_form(spec, k, mesh)
+    if dev.type == "cpu":
+        return persistent_jacobi_mesh_plain(currs, nxts, sels, spec, k, mesh)
+    boxes, dests = _deep_messages(spec, mesh)
+    rc = launch_mesh_chunk(_native.lib("persistent_jacobi").persistent_jacobi_launch, currs,
+                           nxts, sels, spec, boxes, dests, dev, k)
+    _native.check(rc, "persistent_jacobi_mesh")
+    persistent_jacobi_mesh.launches += 1
+    return currs, nxts, sels
+
+
+persistent_jacobi_mesh.launches = 0
 
 
 def chunk_bytes(spec: GridSpec, k: int) -> int:
@@ -169,5 +221,5 @@ def chunk_design_bytes(spec: GridSpec, k: int) -> int:
     halo cell."""
     b = spec.base
     sweeps = sum(12 * (b.x + 2 * g) * (b.y + 2 * g) * (b.z + 2 * g) for g in range(k))
-    halo = sum(shape[0] * shape[1] * shape[2] for _s, _d, shape in _deep_boxes(spec))
+    halo = sum(shape[0] * shape[1] * shape[2] for _s, _d, shape in _deep_messages(spec)[0])
     return sweeps + 8 * halo

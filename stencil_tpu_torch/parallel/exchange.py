@@ -36,8 +36,11 @@ Over a mesh of several block positions (``mesh=``, a
 ``parallel.mesh.DeviceMesh`` with one block per position) each quantity is
 a list of ``(1, 1, 1, pz, py, px)`` blocks, one per position in the mesh's
 flat order, each its own allocation, and the exchange is REMOTE_DMA: the
-axis carrier (``ops/remote_dma.RemoteDmaExchange``) or, with ``fused``,
-the fused exchange carrier (``ops/fused_stencil.FusedRemoteDmaExchange``).
+axis carrier (``ops/remote_dma.RemoteDmaExchange``; also with
+``persistent``, at the deep radius) or, with ``fused``, the fused exchange
+carrier (``ops/fused_stencil.FusedRemoteDmaExchange``). The fused and
+persistent jacobi loops then step through their kernels' wire-crossing
+forms, one launch over every position (``ops/jacobi.py``).
 The mesh's positions must share one device (the reference's
 ``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
 waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
@@ -89,7 +92,8 @@ class HaloExchange:
     axis-composed over any uniform partition, or remote-dma (with its
     ``fused`` or ``persistent`` kernel variant) on one block; or, with
     ``mesh`` of several positions, remote-dma over the mesh (the axis
-    carrier, or the fused exchange carrier with ``fused``)."""
+    carrier, or the fused exchange carrier with ``fused``), again with
+    either kernel variant."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
                  fused: bool = False, persistent: bool = False,

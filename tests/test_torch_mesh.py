@@ -3,8 +3,9 @@ each, every position on the CPU) against the JAX package's domain and app
 on its 8 virtual CPU devices: the realized partition and regions, the
 global scatter / exchange / gather round trip with every halo cell, state
 conversion, 4 REMOTE_DMA jacobi steps (tests/test_remote_dma.py:205-228),
-the app with and without weak scaling and its CLI, and the loops' loud
-refusals. Inputs come from numpy seeds. Tolerance: bit-exact."""
+the app with and without weak scaling and its CLI, and the app's loud
+refusals (the fused and persistent variants on a mesh:
+tests/test_torch_mesh_variants.py). Inputs come from numpy seeds. Tolerance: bit-exact."""
 
 import jax
 import numpy as np
@@ -116,13 +117,6 @@ def test_jacobi3d_cli_devices(capsys):
     assert row[:7] == ["jacobi3d", "remote-dma", "1", "8", "16", "16", "16"]
     with pytest.raises(SystemExit):
         tapp.main(["--devices", "cpu,cpu", "--device", "cpu"])
-
-
-@pytest.mark.parametrize("kw", [dict(kernel_variant="fused"),
-                                dict(kernel_variant="persistent", deep_halo=2)])
-def test_fused_and_persistent_loops_on_a_mesh_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue B"):
-        tapp.run(16, 16, 16, devices=CPU8, method=RDMA_T, iters=2, weak=False, **kw)
 
 
 def test_mesh_app_refusals():

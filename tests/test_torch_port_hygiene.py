@@ -94,12 +94,16 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
                       (halo_fill, "self_fill_plain"), (astaroth_substep, "substep_plain"),
                       (fused_stencil, "fused_jacobi_plain"),
                       (persistent_stencil, "persistent_jacobi_plain"),
-                      (remote_dma, "remote_axis_plain"), (fused_stencil, "fused_exchange_plain")):
+                      (remote_dma, "remote_axis_plain"), (fused_stencil, "fused_exchange_plain"),
+                      (fused_stencil, "fused_jacobi_mesh_plain"),
+                      (persistent_stencil, "persistent_jacobi_mesh_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
     launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                 halo_fill.self_fill.launches, astaroth_substep.substep.launches,
                 fused_stencil.fused_jacobi.launches, persistent_stencil.persistent_jacobi.launches,
-                remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches)
+                remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches,
+                fused_stencil.fused_jacobi_mesh.launches,
+                persistent_stencil.persistent_jacobi_mesh.launches)
     f32 = torch.float32
     stencil_kernels.sweep(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32), spec)
     stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
@@ -115,15 +119,21 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     mspec, mesh, mplan, mblocks = _mesh_case("cpu")
     remote_dma.remote_axis(mblocks, mspec, mplan.remote_phases[0], mesh)
     fused_stencil.fused_exchange(mblocks, mspec, mplan, mesh)
+    fused_stencil.fused_jacobi_mesh(*_mesh_fields(mspec, "cpu"), mspec, mplan, mesh)
+    pspec, pmesh = _mesh_case("cpu", 2)[:2]
+    persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(pspec, "cpu"), pspec, 2, pmesh)
     assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
                      "fused_jacobi_plain", "persistent_jacobi_plain", "remote_axis_plain",
-                     "fused_exchange_plain"]
+                     "fused_exchange_plain", "fused_jacobi_mesh_plain",
+                     "persistent_jacobi_mesh_plain"]
     # the plain versions are not launches
     assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                         halo_fill.self_fill.launches, astaroth_substep.substep.launches,
                         fused_stencil.fused_jacobi.launches,
                         persistent_stencil.persistent_jacobi.launches,
-                        remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches)
+                        remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches,
+                        fused_stencil.fused_jacobi_mesh.launches,
+                        persistent_stencil.persistent_jacobi_mesh.launches)
     # any other device is refused, never served by the plain version
     meta = [_block(spec, f32, "meta"), _block(spec, f32, "meta")]
     with pytest.raises(ValueError):
@@ -145,19 +155,31 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
         remote_dma.remote_axis(mblocks, mspec, mplan.remote_phases[0], mesh)
     with pytest.raises(ValueError):
         fused_stencil.fused_exchange(mblocks, mspec, mplan, mesh)
-    assert len(calls) == 8
+    with pytest.raises(ValueError):
+        fused_stencil.fused_jacobi_mesh(*_mesh_fields(mspec, "meta"), mspec, mplan, mesh)
+    pspec, pmesh = _mesh_case("meta", 2)[:2]
+    with pytest.raises(ValueError):
+        persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(pspec, "meta"), pspec, 2, pmesh)
+    assert len(calls) == 10
 
 
-def _mesh_case(device):
+def _mesh_case(device, r=1):
     """A (2,1,1) mesh of two positions on ``device``, its fused remote-dma
     plan (whose remote phases are the plain carrier's too) and one fp32
     quantity's blocks, grouped per position."""
-    spec = GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(1))
+    spec = GridSpec(Dim3(16, 12, 10), Dim3(2, 1, 1), Radius.constant(r))
     mesh = DeviceMesh((2, 1, 1), [device] * 2)
     plan = build_plan(spec, (2, 1, 1), Method.REMOTE_DMA, fused=True)
     p = spec.padded()
     blocks = [[torch.zeros((1, 1, 1, p.z, p.y, p.x), device=device)] for _ in range(2)]
     return spec, mesh, plan, blocks
+
+
+def _mesh_fields(spec, device):
+    """``(currs, nxts, sels)`` of a two-position mesh of ``spec`` on ``device``."""
+    p = spec.padded()
+    return tuple([torch.zeros((1, 1, 1, p.z, p.y, p.x), dtype=dt, device=device)
+                  for _ in range(2)] for dt in (torch.float32, torch.float32, torch.int32))
 
 
 def test_wrappers_have_no_fallback():
@@ -171,7 +193,7 @@ def test_wrappers_have_no_fallback():
 
 PLAIN = ("sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
          "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep", "remote_axis_plain",
-         "fused_exchange_plain")
+         "fused_exchange_plain", "fused_jacobi_mesh_plain", "persistent_jacobi_mesh_plain")
 
 
 def _is_cpu_test(test):
