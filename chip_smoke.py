@@ -10,9 +10,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               shared-memory report.
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
-              odd sizes, non-wrapping axes, fp32 and fp64 fills), and each
-              timed at the main path's shape beside its plain version, its
-              bound and (for the fill) the Tensor.copy_ yardstick.
+              odd sizes, non-wrapping axes, fp32 and fp64 fills; for the
+              fill also 67x33x21 unaligned with asymmetric radii at nq 1 and
+              16, the same one word off alignment, r2, r4 and r5, and a
+              z-stack of three fp64 blocks, so that its scalar, 8- and
+              16-byte paths all run; a vector width that does not divide
+              the layout is refused), and each timed at the main path's
+              shape beside its plain version and its bound; the fill per
+              axis (apps/bench_fill.py) at 512^3 r3 x4 fp32, its (1,1,2)
+              z-stack form and Astaroth's 256^3 r3 x8 fp64, with the halos
+              partly in L2 and evicted, beside its bytes bound, its 32-byte
+              sector floor and the Tensor.copy_ yardstick.
 3. jacobi3d -- the main path: apps.jacobi3d.run at 512^3 fp32 with chunks
               that give multistep passes and a sweep tail, launch counts set
               to 0 just before and read just after; then 2k+2 steps at 512^3
@@ -64,7 +72,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               counts reset around each; the config-2 exchange (256^3,
               (2,2,2), r2, x4), 512^3 (1,1,2) r3 x4 and the deep_halo=4
               run's own exchange (512^3 (2,2,2) r4, one quantity) in GB/s;
-              the new forms timed beside their plain versions and bounds.
+              the new forms timed beside their plain versions and bounds
+              (the z-stack fill's times are phase 2's).
 8. campaign -- the multi-tenant path: the tenant-form sweep (B tenants of a
               (B, pz, py, px) stack, every axis wrapping onto its tenant, one
               launch) against its plain version (torch.equal, random fields and
@@ -134,6 +143,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -165,6 +175,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stencil_tpu_torch import DistributedDomain, GridSpec
     from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.apps import bench_fill
     from stencil_tpu_torch.apps import jacobi3d
     from stencil_tpu_torch.astaroth.equations import Constants
     from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of
@@ -272,6 +283,59 @@ def main() -> int:
                     check(torch.equal(g, w), f"fill {rlabel} {dtype} {axis}: kernel != plain")
         log(f"fill {rlabel} x/y/z nq=4 fp32+fp64: equal")
 
+    # shapes that reach the kernel's scalar and vector paths: odd padded x
+    # (unaligned layout) with asymmetric radii at nq 1 and 16, the same with
+    # every block one word off its allocation's alignment, row ends of 8 and
+    # 16 bytes (r2, r4), a radius wider than a 16-byte vector (r5), and a
+    # z-stack of three blocks
+    def fill_case(label, spec, dtype, nq, axes=halo_fill.AXIS_ORDER, z_stack=1, offset=0):
+        p = spec.padded()
+        numel = z_stack * p.z * p.y * p.x
+        for axis in axes:
+            qs = []
+            for q in range(nq):
+                gen.manual_seed(60 + q)
+                buf = torch.rand(numel + offset, generator=gen, device=dev).to(dtype)
+                qs.append(buf[offset:].view(z_stack, p.z, p.y, p.x))
+            align = min(min(t.data_ptr() & -t.data_ptr() for t in qs), 16)
+            vec = halo_fill.fill_layout(spec, axis, qs[0].element_size(), z_stack, align).vec
+            widths.add((qs[0].element_size(), vec))
+            got = halo_fill.self_fill([t.clone() for t in qs], spec, axis, z_stack=z_stack)
+            want = halo_fill.self_fill_plain([t.clone() for t in qs], spec, axis)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                errs["self_fill"] = max(errs["self_fill"], max_abs(g, w))
+                check(torch.equal(g, w), f"fill {label} {dtype} nq={nq} {axis}: kernel != plain")
+        log(f"fill {label} {dtype} nq={nq} {'/'.join(axes)}: equal")
+
+    widths = set()
+    odd = GridSpec(Dim3(67, 33, 21), Dim3(1, 1, 1), asym_radius(), aligned=False)
+    for dtype in (torch.float32, torch.float64):
+        for nq in (1, 16):
+            fill_case("67x33x21 unaligned asym", odd, dtype, nq)
+            fill_case("67x33x21 unaligned asym, one word off", odd, dtype, nq, offset=1)
+        for r in (2, 4, 5):
+            fill_case(f"64^3 r{r}", GridSpec(Dim3(64, 64, 64), Dim3(1, 1, 1), Radius.constant(r)),
+                      dtype, 4)
+    fill_case("z-stack of 3, 64x40x90 (1,1,3) r3",
+              GridSpec(Dim3(64, 40, 90), Dim3(1, 1, 3), Radius.constant(3)), torch.float64, 4,
+              ("x", "y"), z_stack=3)
+    check(widths >= {(4, 1), (4, 2), (4, 4), (8, 1), (8, 2)},
+          f"fill checks reached only the (element, vector) widths {sorted(widths)}")
+    # the kernel refuses a vector width that does not divide the layout
+    spec64 = GridSpec(Dim3(64, 64, 64), Dim3(1, 1, 1), Radius.constant(3))
+    lay = halo_fill.fill_layout(spec64, "x", 4)
+    blk = rand_block(spec64, 61)
+    rc = _native.lib("self_fill").self_fill_launch(
+        (ctypes.c_void_p * 1)(blk.data_ptr()), 1, 4, 1,
+        (ctypes.c_longlong * 6)(*[v for run in lay.runs for v in run]), lay.count, lay.stride,
+        4, _native.stream_ptr(dev))
+    check(rc == 1, f"fill with a 16-byte width on 12-byte row ends returned {rc}, "
+                   "not cudaErrorInvalidValue")
+    log(f"fill widths reached (bytes per word, words per access): {sorted(widths)}; "
+        "a misfit width is refused")
+    del blk
+
     # timings at the main path's shapes
     spec512 = sweep_cases[0][1]
     curr, sel = rand_block(spec512, 1), sel_block(spec512)
@@ -288,30 +352,36 @@ def main() -> int:
         bound=bound_ms(2 * 4 * cells, 6 * k512 * cells), library_ms=None)
     del curr, nxt, sel
 
-    spec_ex = GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1), Radius.constant(3))
+    # the fill per axis (apps/bench_fill.py): the 512^3 r3 x4 exchange's, its
+    # (1,1,2) z-stack form and Astaroth's 256^3 r3 x8 fp64, each beside its
+    # bytes bound, its sector floor and Tensor.copy_ of the same slabs, with
+    # the halos partly in L2 (two sets of quantities alternating: evicted)
+    fill_rows = []
+    for label, size, part, r, nq, dtype, axes in bench_fill.CASES:
+        fill_rows += bench_fill.measure(label, bench_fill.case_spec(size, part, r), nq, dtype,
+                                        axes, gen, dev)
+    for row in fill_rows:
+        log(f"time self_fill {row['case']} {row['axis']}: {row['ms']:.4f} ms per launch "
+            f"(L2 evicted {row['ms_cold']:.4f}; bound {row['bound_ms']:.4f} ms by bytes, "
+            f"sector floor {row['sector_ms']:.4f}, Tensor.copy_ {row['copy_ms']:.4f}; "
+            f"{row['vec']} words per access)")
+    spec_ex = bench_fill.case_spec(512, (1, 1, 1), 3)
     qs = [rand_block(spec_ex, 40 + q) for q in range(4)]
-
-    def fills():
-        for axis in halo_fill.AXIS_ORDER:
-            halo_fill.self_fill(qs, spec_ex, axis)
 
     def plain_fills():
         for axis in halo_fill.AXIS_ORDER:
             halo_fill.self_fill_plain(qs, spec_ex, axis)
 
-    def copy_fills():  # the library yardstick: the same slabs by Tensor.copy_
-        for axis in halo_fill.AXIS_ORDER:
-            o, n, rm, rp = halo_fill.axis_geom(spec_ex, axis)
-            for b in qs:
-                b[halo_fill._axis_slice(b, axis, o - rm, o)].copy_(
-                    b[halo_fill._axis_slice(b, axis, o + n - rm, o + n)])
-                b[halo_fill._axis_slice(b, axis, o + n, o + n + rp)].copy_(
-                    b[halo_fill._axis_slice(b, axis, o, o + rp)])
+    def per_axis(case):
+        rows = [row for row in fill_rows if row["case"] == case]
+        mean = lambda key: sum(row[key] for row in rows) / len(rows)  # noqa: E731
+        return mean, {"axes": {row["axis"]: {k: row[k] for k in (
+            "ms", "ms_cold", "copy_ms", "bound_ms")} for row in rows}}
 
-    fill_bytes = sum(halo_fill.fill_bytes(spec_ex, a, 4) for a in halo_fill.AXIS_ORDER) * 4
+    mean, extra = per_axis(bench_fill.CASES[0][0])
     timings["self_fill"] = dict(
-        ms=time_ms(fills, 20, graph=True) / 3, plain_ms=time_ms(plain_fills, 5) / 3,
-        bound=bound_ms(fill_bytes / 3, 0), library_ms=time_ms(copy_fills, 5, graph=True) / 3)
+        ms=mean("ms"), plain_ms=time_ms(plain_fills, 5) / 3, bound=(mean("bound_ms"), "bytes"),
+        library_ms=mean("copy_ms"), extra=extra)
     del qs
     for name, t in timings.items():
         log(f"time {name}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
@@ -863,27 +933,15 @@ def main() -> int:
     del c, n7, s7
     qs = [rand_stack(spec_z, 270 + q) for q in range(4)]
 
-    def zfill():
-        for axis in ("x", "y"):
-            halo_fill.self_fill(qs, spec_z, axis, z_stack=2)
-
     def zfill_plain():
         for axis in ("x", "y"):
             halo_fill.self_fill_plain(qs, spec_z, axis)
 
-    def zfill_copy():  # the library yardstick: the same slabs by Tensor.copy_
-        for axis in ("x", "y"):
-            o, n, rm, rp = halo_fill.axis_geom(spec_z, axis)
-            for b in qs:
-                b[halo_fill._axis_slice(b, axis, o - rm, o)].copy_(
-                    b[halo_fill._axis_slice(b, axis, o + n - rm, o + n)])
-                b[halo_fill._axis_slice(b, axis, o + n, o + n + rp)].copy_(
-                    b[halo_fill._axis_slice(b, axis, o, o + rp)])
-
-    zbytes = sum(halo_fill.fill_bytes(spec_z, a, 4) for a in ("x", "y")) * 2 * 4
+    # the kernel's times are phase 2's (apps/bench_fill.py, the z-stack case)
+    mean, extra = per_axis(bench_fill.CASES[1][0])
     timings["self_fill_z_stack"] = dict(
-        ms=time_ms(zfill, 20, graph=True) / 2, plain_ms=time_ms(zfill_plain, 5) / 2,
-        bound=bound_ms(zbytes / 2, 0), library_ms=time_ms(zfill_copy, 5, graph=True) / 2)
+        ms=mean("ms"), plain_ms=time_ms(zfill_plain, 5) / 2, bound=(mean("bound_ms"), "bytes"),
+        library_ms=mean("copy_ms"), extra=extra)
     del qs
     for name in ("jacobi_multistep_deep_halo", "jacobi_sweep_region", "self_fill_z_stack"):
         t = timings[name]
@@ -1502,7 +1560,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], **t.get("extra", {}),
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

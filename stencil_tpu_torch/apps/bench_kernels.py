@@ -10,7 +10,10 @@ Prints one JSON line per measurement, after a line naming the card
 - ``jacobi_multistep`` at each depth k: ms per launch, ms per step, and the
   resident blocks per SM its shared memory allows;
 - ``self_fill`` per axis: one launch filling both sides for four fp32
-  quantities at radius 3 (the exchange benchmark's layout);
+  quantities at radius 3 (the exchange benchmark's layout), and over a
+  (1,1,2) z-stack (x and y), each beside its bytes bound, its sector floor,
+  ``Tensor.copy_`` of the same slabs and its time with the halos evicted
+  from L2 (``apps/bench_fill.measure``);
 - ``fused_jacobi``: one fused remote-dma step at size^3, radius 1 (the 26
   halo hand-offs and the sweep), beside its bytes bound;
 - ``persistent_jacobi`` at each depth k >= 2 of ``--ks``: one k-step chunk
@@ -27,8 +30,7 @@ Prints one JSON line per measurement, after a line naming the card
   ``--ks`` up to the planner's depth, beside one read of the blocks grown
   by k and one write of the blocks; ``jacobi_sweep_region`` on one overlap
   shell (the z-lo one) of every block; the stacked ``jacobi_sweep`` over
-  all eight blocks; and ``self_fill`` over a z-stack (size^3 over (1,1,2),
-  radius 3, four fp32 quantities) per axis;
+  all eight blocks;
 - the tenant form of ``jacobi_sweep``: one step of a campaign slot of 64
   tenants of (size/4)^3 (as many cells as size^3), beside its bytes bound;
 - the mesh kernels over eight block positions on the card, at size^3 over
@@ -55,7 +57,6 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 from typing import Optional
 
 import torch
@@ -76,13 +77,7 @@ from ..parallel import DeviceMesh, HaloExchange, Method
 from ..plan.ir import build_plan
 from ..utils.roofline import bound_ms
 from ..utils.timer import cuda_time_ms
-
-
-def card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
+from . import bench_fill
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -101,7 +96,7 @@ def main(argv: Optional[list] = None) -> int:
     gen.manual_seed(args.seed)
     n = args.size
     ks = [int(v) for v in args.ks.split(",")]
-    print(json.dumps({"card": card(), "torch": torch.__version__}), flush=True)
+    print(json.dumps({"card": bench_fill.card(), "torch": torch.__version__}), flush=True)
 
     spec = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
     pd = spec.padded()
@@ -146,16 +141,13 @@ def main(argv: Optional[list] = None) -> int:
               flush=True)
         del curr, nxt, sel
 
-    spec3 = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(3))
-    pd = spec3.padded()
-    qs = [torch.rand((1, 1, 1, pd.z, pd.y, pd.x), generator=gen, device=dev) for _ in range(4)]
-    for axis in halo_fill.AXIS_ORDER:
-        ms = cuda_time_ms(lambda: halo_fill.self_fill(qs, spec3, axis), args.reps * 2,
-                          graph=True)
-        print(json.dumps({"kernel": "self_fill", "size": n, "radius": 3, "quantities": 4,
-                          "axis": axis, "ms": ms,
-                          "bytes": 4 * halo_fill.fill_bytes(spec3, axis, 4)}), flush=True)
-    del qs
+    for label, part, axes in (("one block", (1, 1, 1), halo_fill.AXIS_ORDER),
+                              ("z-stack", (1, 1, 2), ("x", "y"))):
+        rows = bench_fill.measure(f"{n}^3 {label} r3 x4 fp32", bench_fill.case_spec(n, part, 3),
+                                  4, torch.float32, axes, gen, dev, args.reps * 2)
+        for row in rows:
+            print(json.dumps({"size": n, "partition": list(part), "radius": 3, "quantities": 4,
+                              **row}), flush=True)
 
     # the resident forms: eight (n/2)^3 blocks with radius-4 halos
     specr = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(4))
@@ -185,17 +177,6 @@ def main(argv: Optional[list] = None) -> int:
                       "rect": repr(shell), "ms": ms,
                       "bound_ms": bound_ms(12 * shell_cells, 6 * shell_cells)[0]}), flush=True)
     del curr, nxt, sel
-    specz = GridSpec(Dim3(n, n, n), Dim3(1, 1, 2), Radius.constant(3))
-    qs = [torch.rand(specz.stacked_shape_zyx(), generator=gen, device=dev) for _ in range(4)]
-    for axis in ("x", "y"):
-        ms = cuda_time_ms(lambda: halo_fill.self_fill(qs, specz, axis, z_stack=2), args.reps * 2,
-                          graph=True)
-        nbytes = 4 * 2 * halo_fill.fill_bytes(specz, axis, 4)
-        print(json.dumps({"kernel": "self_fill", "form": "z-stack", "size": n,
-                          "partition": [1, 1, 2], "radius": 3, "quantities": 4, "axis": axis,
-                          "ms": ms, "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0)[0]}),
-              flush=True)
-    del qs
 
     # the campaign slot: 64 tenants of (n/4)^3 (as many cells as n^3)
     spect = GridSpec(Dim3(n // 4, n // 4, n // 4), Dim3(1, 1, 1), Radius.constant(1),

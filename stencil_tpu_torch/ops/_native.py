@@ -56,8 +56,8 @@ SIGNATURES = {
         "jacobi_multistep_blocks_per_sm": (_I, [_I, _I, ctypes.POINTER(_I)]),
     },
     "self_fill": {
-        "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _P]),
+        "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, ctypes.POINTER(_L), _L,
+                                  _L, _I, _P]),
     },
     "fused_jacobi": {
         "fused_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
@@ -107,43 +107,70 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(src: str, name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     # the headers are hashed into every library: any of them may be included
-    for src in [name + ".cu"] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
-        with open(os.path.join(CSRC, src), "rb") as f:
+    for path in [src] + [os.path.join(CSRC, f) for f in sorted(os.listdir(CSRC))
+                         if f.endswith(".cuh")]:
+        with open(path, "rb") as f:
             h.update(f.read())
-    digest = h.hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _start(src: str, name: str):
+    """``(library path, nvcc process or None)``: the compile of ``src`` into
+    ``lib<name>-<hash>.so``, started unless that library exists."""
+    out = _lib_path(src, name)
+    build_info.built[name] = not os.path.exists(out)
+    if not build_info.built[name]:
+        return out, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, (proc, tmp)
+
+
+def _finish(src: str, name: str, out: str, job) -> None:
+    """Wait for a compile :func:`_start` began; raise with its output if it
+    failed."""
+    if job is None:
+        return
+    proc, tmp = job
+    log, _ = proc.communicate()
+    build_info.ptxas[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {os.path.basename(src)} (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build(src: str, name: str) -> ctypes.CDLL:
+    """``src`` (a ``.cu`` file with a plain C interface) compiled with the
+    kernels' flags into their build directory, once per content, and
+    loaded. The caller sets its entry points' types."""
+    out, job = _start(src, name)
+    _finish(src, name, out, job)
+    return ctypes.CDLL(out)
+
+
+def _src(name: str) -> str:
+    return os.path.join(CSRC, name + ".cu")
 
 
 def build_all() -> BuildInfo:
-    """Compile every missing library, one ``nvcc`` per source, in parallel.
-    Raises with the compiler's output if any build fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    """Compile every missing library of ``csrc``, one ``nvcc`` per source,
+    in parallel. Raises with the compiler's output if any build fails."""
     t0 = time.perf_counter()
-    procs = {}
-    for name in SIGNATURES:
-        out = _lib_path(name)
-        build_info.built[name] = not os.path.exists(out)
-        if not build_info.built[name]:
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+    jobs = {name: _start(_src(name), name) for name in SIGNATURES}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_info.ptxas[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, out)
+    for name, (out, job) in jobs.items():
+        try:
+            _finish(_src(name), name, out, job)
+        except RuntimeError as e:
+            failed.append(str(e))
     build_info.seconds = time.perf_counter() - t0
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("\n".join(failed))
     return build_info
 
 
@@ -153,7 +180,7 @@ def lib(name: str) -> ctypes.CDLL:
         if not _libs:
             build_all()
             for n, fns in SIGNATURES.items():
-                so = ctypes.CDLL(_lib_path(n))
+                so = ctypes.CDLL(_lib_path(_src(n), n))
                 for fn, (res, args) in fns.items():
                     getattr(so, fn).restype = res
                     getattr(so, fn).argtypes = args

@@ -19,11 +19,17 @@ plane, so one launch over the stack viewed as one
 ``(z_stack * pz, py, px)`` array fills every resident's halos, as the TPU
 kernel's ``z_stack`` form does for a ``(cz, 1, 1)`` residency. The port's
 exchange stacks the residents of any residency this way.
+
+:func:`fill_layout` is what the kernel is told: the fill of one axis as two
+copies (runs) repeated over instances, and the vector width that divides
+them. It is pure Python, so the CPU tests hold it to the plain fill.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import torch
@@ -103,6 +109,86 @@ def fill_bytes(spec: GridSpec, axis: str, itemsize: int) -> int:
     return 2 * cells * itemsize
 
 
+@dataclass(frozen=True)
+class FillLayout:
+    """One axis's fill as the kernel performs it, in words of the padded
+    block (or z-stack) viewed flat: for each of ``count`` instances at
+    ``i * stride``, each run ``(dst, src, length)`` copies ``length`` words
+    from ``base + src`` to ``base + dst``. ``body`` is ``"runs"`` (y and z:
+    long contiguous runs, copied in chunks) or ``"rows"`` (x: one row per
+    instance, a few words at each end). ``vec`` is the words per access."""
+
+    body: str
+    runs: Tuple[Tuple[int, int, int], ...]
+    count: int
+    stride: int
+    vec: int
+
+
+# bytes of one access the kernel can make: a 16-byte vector, 8, or one word
+VECTOR_BYTES = (16, 8)
+SECTOR_BYTES = 32
+
+
+def fill_layout(spec: GridSpec, axis: str, elem_size: int, z_stack: int = 1,
+                ptr_align: int = 16) -> FillLayout:
+    """The runs of ``axis``'s fill for ``elem_size``-byte words and the
+    widest access (16 bytes, 8, or one word) that divides every run's
+    start and length, the stride and ``ptr_align`` (the largest power of
+    two that divides every block's address). Empty runs (a zero radius on
+    one side) are left out."""
+    if z_stack > 1 and axis == "z":
+        raise ValueError(f"z_stack={z_stack}: a z-stack fills the x and y axes only")
+    o, n, rm, rp = axis_geom(spec, axis)
+    p = spec.padded()
+    unit = {"z": p.y * p.x, "y": p.x, "x": 1}[axis]
+    runs = tuple((d * unit, s * unit, w * unit)
+                 for d, s, w in ((o - rm, o + n - rm, rm), (o + n, o, rp)) if w)
+    if axis == "z":
+        body, count, stride = "runs", 1, 0
+    elif axis == "y":
+        body, count, stride = "runs", z_stack * p.z, p.y * p.x
+    else:
+        body, count, stride = "rows", z_stack * p.z * p.y, p.x
+    words = [stride] + [v for run in runs for v in run]
+    vec = next(w // elem_size for w in VECTOR_BYTES + (elem_size,)
+               if w >= elem_size and ptr_align % w == 0
+               and all(v * elem_size % w == 0 for v in words))
+    return FillLayout(body, runs, count, stride, vec)
+
+
+def _sectors(lo: int, hi: int) -> Tuple[int, int]:
+    return lo // SECTOR_BYTES, (hi - 1) // SECTOR_BYTES + 1
+
+
+def _merged_len(spans) -> int:
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
+def fill_sector_bytes(layout: FillLayout, elem_size: int) -> int:
+    """Bytes of the 32-byte sectors one quantity's fill must touch, on a
+    block whose address is sector-aligned: in each instance, the sectors
+    that hold its source words, read once, and those that hold its halo
+    words, written once. For the x fill this is the floor: a row end of a
+    few words still costs its whole sectors."""
+    e = elem_size
+    period = SECTOR_BYTES // math.gcd(layout.stride * e, SECTOR_BYTES) if layout.count > 1 else 1
+    total = 0
+    for i in range(min(period, layout.count)):
+        base = i * layout.stride * e
+        reads = [_sectors(base + s * e, base + (s + w) * e) for _d, s, w in layout.runs]
+        writes = [_sectors(base + d * e, base + (d + w) * e) for d, _s, w in layout.runs]
+        reps = (layout.count - i + period - 1) // period
+        total += reps * (_merged_len(reads) + _merged_len(writes))
+    return total * SECTOR_BYTES
+
+
 def _check_blocks(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str,
                   z_stack: int = 1) -> None:
     p = spec.padded()
@@ -140,14 +226,16 @@ def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str, z_stack
         return self_fill_plain(blocks, spec, axis)
     if dev.type != "cuda":
         raise ValueError(f"self_fill runs on cuda or cpu tensors, not {dev}")
-    o, n, rm, rp = axis_geom(spec, axis)
-    if rm == 0 and rp == 0:
+    addrs = [b.data_ptr() for b in blocks]
+    align = min(min(a & -a for a in addrs), VECTOR_BYTES[0])
+    lay = fill_layout(spec, axis, blocks[0].element_size(), z_stack, align)
+    if not lay.runs:
         return list(blocks)
-    p = spec.padded()
-    ptrs = (ctypes.c_void_p * len(blocks))(*[b.data_ptr() for b in blocks])
+    runs = [v for run in lay.runs for v in run] + [0] * (3 * (2 - len(lay.runs)))
     rc = _native.lib("self_fill").self_fill_launch(
-        ptrs, len(blocks), blocks[0].element_size(), z_stack * p.z, p.y, p.x,
-        _AXIS_DIM[axis], o, n, rm, rp, dev.index, _native.stream_ptr(dev))
+        (ctypes.c_void_p * len(blocks))(*addrs), len(blocks), blocks[0].element_size(),
+        {"runs": 0, "rows": 1}[lay.body], (ctypes.c_longlong * 6)(*runs), lay.count,
+        lay.stride, lay.vec, _native.stream_ptr(dev))
     _native.check(rc, f"self_fill[{axis}]")
     self_fill.launches += 1
     return list(blocks)
