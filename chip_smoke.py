@@ -7,7 +7,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. build   -- compile csrc/*.cu with nvcc for sm_90a (one nvcc per source,
               in parallel); print the build seconds and ptxas's register /
-              shared-memory report.
+              shared-memory report, the persistent chunk's on-chip passes
+              (held to persistent_stencil.chunk_passes for k = 1..12), its
+              dynamic shared memory and resident blocks per SM.
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
               odd sizes, non-wrapping axes, fp32 and fp64 fills; for the
@@ -44,8 +46,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               against its plain version (torch.equal on curr with its halos
               and on out) at 512^3 r1, 100x70x50 unaligned r1 and 33x21x13
               r2, and the persistent chunk kernel (torch.equal on both
-              buffers) at 200x100x60 k=2,3,4,6, 16x16x14 k=2, 16x16x13 k=4
-              and 512^3 k=4, all from random fields and random sel; the
+              buffers) at 200x100x60 k=2,3,4,6 and k=8 (two on-chip
+              passes, the result in curr), 16x16x14 k=2, 16x16x13 k=4,
+              33x21x13 k=3 (ragged tiles and z chunks) and 512^3 k=4, all
+              from random fields and random sel (codes in [-1, 4) at
+              200x100x60 k=4, 33x21x13 and k=8); the
               main paths from the app's init, launch counts reset around
               each: apps.jacobi3d.run at 512^3 with kernel_variant fused
               (50 iters, chunks of 25: 75 fused launches, no other kernel)
@@ -121,8 +126,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               (torch.equal on every cell of every position, curr with its
               halos and nxt) at 512^3 (2,2,2) r1 and 100x70x60 (1,1,2) r1,
               persistent_jacobi_mesh (both buffers and sel) at 200x100x60
-              (2,2,2) k=2,3,4, 16x16x14 (2,1,1) k=2 and 512^3 (2,2,2) k=4,
-              from random fields, random sel and noise in every halo; 8
+              (2,2,2) k=2,3,4 and k=8, 16x16x14 (2,1,1) k=2, 66x42x26
+              (2,2,2) k=3 (33x21x13 blocks: ragged tiles and z chunks) and
+              512^3 (2,2,2) k=4, from random fields, random sel (codes in
+              [-1, 4) at k=8 and 66x42x26) and noise in every halo; 8
               steps at 512^3 over 8 positions from phase 9's random field
               through the fused loop and the persistent loop (k=4), each
               bit-equal on the compute region to the single-block default
@@ -210,6 +217,21 @@ def main() -> int:
     for k in range(1, sk.MULTISTEP_KMAX + 1):
         check(ms_lib.jacobi_multistep_smem_bytes(k) == sk.multistep_smem_bytes(k),
               f"multistep smem formula differs from the kernel's at k={k}")
+    pj_lib = _native.lib("persistent_jacobi")
+    depths = (ctypes.c_int * 16)()
+    for k in range(1, 13):
+        n = pj_lib.persistent_jacobi_passes(k, depths, 16)
+        check(list(depths[:n]) == pst.chunk_passes(k),
+              f"persistent chunk passes at k={k}: kernel {list(depths[:n])}, "
+              f"python {pst.chunk_passes(k)}")
+    for k in list(range(2, pst.ONCHIP_KMAX + 1)) + [8]:
+        blocks = ctypes.c_int(0)
+        _native.check(pj_lib.persistent_jacobi_blocks_per_sm(k, 0, ctypes.byref(blocks)),
+                      "persistent_jacobi_blocks_per_sm")
+        log(f"persistent_jacobi k={k}: passes {pst.chunk_passes(k)}, "
+            f"{pj_lib.persistent_jacobi_smem_bytes(k)} bytes of dynamic shared memory, "
+            f"{blocks.value} resident block(s) of {pj_lib.persistent_jacobi_threads(k)} threads "
+            "per SM")
     k512 = sk.plan_multistep_depth(min(sk.TEMPORAL_K_CAP, (512 - 1) // 2))
     k768 = sk.plan_multistep_depth(min(sk.TEMPORAL_K_CAP, (768 - 1) // 2))
     log(f"multistep depth planner: k={k512} at 512^3, k={k768} at 768^3 "
@@ -600,10 +622,10 @@ def main() -> int:
         del curr8, out8
 
     # -- 6. jacobi3d's remote-dma kernel variants ------------------------------
-    def rand_sel(spec, seed):
+    def rand_sel(spec, seed, lo=0, hi=3):
         gen.manual_seed(seed)
         p = spec.padded()
-        return torch.randint(0, 3, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
+        return torch.randint(lo, hi, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
                              dtype=torch.int32)
 
     fused_cases = [("512^3 r1", spec512), (sweep_cases[1][0], sweep_cases[1][1]),
@@ -620,12 +642,19 @@ def main() -> int:
         log(f"fused_jacobi {label}: equal (curr with halos, out)")
     del c, n, s, pc, pn
 
-    pers_cases = [(f"200x100x60 k={k}", (200, 100, 60), k) for k in (2, 3, 4, 6)]
-    pers_cases += [("16x16x14 k=2", (16, 16, 14), 2), ("16x16x13 k=4", (16, 16, 13), 4),
-                   ("512^3 k=4", (512, 512, 512), 4)]
-    for i, (label, size, k) in enumerate(pers_cases):
+    # (label, size, k, sel codes); k=8 runs two on-chip passes, 33x21x13
+    # ragged tiles and z chunks
+    pers_cases = [(f"200x100x60 k={k}", (200, 100, 60), k, (0, 3)) for k in (2, 3, 4, 6)]
+    pers_cases += [("200x100x60 k=4 sel in [-1, 4)", (200, 100, 60), 4, (-1, 4)),
+                   ("200x100x60 k=8 sel in [-1, 4)", (200, 100, 60), 8, (-1, 4)),
+                   ("33x21x13 k=3 sel in [-1, 4)", (33, 21, 13), 3, (-1, 4)),
+                   ("16x16x14 k=2", (16, 16, 14), 2, (0, 3)),
+                   ("16x16x13 k=4", (16, 16, 13), 4, (0, 3)),
+                   ("512^3 k=4", (512, 512, 512), 4, (0, 3))]
+    for i, (label, size, k, codes) in enumerate(pers_cases):
         spec = GridSpec(Dim3(*size), Dim3(1, 1, 1), Radius.constant(k))
-        c, n, s = rand_block(spec, 130 + i), rand_block(spec, 140 + i), rand_sel(spec, 150 + i)
+        c, n = rand_block(spec, 130 + i), rand_block(spec, 140 + i)
+        s = rand_sel(spec, 150 + i, *codes)
         pc, pn, ps = c.clone(), n.clone(), s.clone()
         pst.persistent_jacobi(c, n, s, spec, k)
         pst.persistent_jacobi_plain(pc, pn, ps, spec, k)
@@ -1387,10 +1416,11 @@ def main() -> int:
     for key in ("fused_jacobi_mesh", "persistent_jacobi_mesh"):
         errs[key] = 0.0
 
-    def rand_fields(spec, seed):
+    def rand_fields(spec, seed, codes=(0, 3)):
         """(currs, nxts, sels) of a mesh of spec: random everywhere."""
         st = rand_mesh(spec, [f32, f32], seed)
-        return st[0], st[1], [rand_sel(spec, seed + 2 + i) for i in range(spec.num_blocks())]
+        return st[0], st[1], [rand_sel(spec, seed + 2 + i, *codes)
+                              for i in range(spec.num_blocks())]
 
     fused_mesh_cases = [("512^3 (2,2,2) r1", spec_m1),
                         ("100x70x60 (1,1,2) r1", rspec((100, 70, 60), (1, 1, 2), 1))]
@@ -1407,13 +1437,17 @@ def main() -> int:
         log(f"fused_jacobi_mesh {label}: equal (every position's curr with halos, and nxt)")
         del c, n, s, pc, pn
 
-    pers_mesh_cases = [(f"200x100x60 (2,2,2) k={k}", rspec((200, 100, 60), (2, 2, 2), k), k)
-                       for k in (2, 3, 4)]
-    pers_mesh_cases += [("16x16x14 (2,1,1) k=2", rspec((16, 16, 14), (2, 1, 1), 2), 2),
-                        ("512^3 (2,2,2) k=4", rspec((512,) * 3, (2, 2, 2), 4), 4)]
-    for i, (label, spec, k) in enumerate(pers_mesh_cases):
+    pers_mesh_cases = [(f"200x100x60 (2,2,2) k={k}", rspec((200, 100, 60), (2, 2, 2), k), k,
+                        (0, 3)) for k in (2, 3, 4)]
+    pers_mesh_cases += [("200x100x60 (2,2,2) k=8 sel in [-1, 4)",
+                         rspec((200, 100, 60), (2, 2, 2), 8), 8, (-1, 4)),
+                        ("66x42x26 (2,2,2) k=3 sel in [-1, 4)",
+                         rspec((66, 42, 26), (2, 2, 2), 3), 3, (-1, 4)),
+                        ("16x16x14 (2,1,1) k=2", rspec((16, 16, 14), (2, 1, 1), 2), 2, (0, 3)),
+                        ("512^3 (2,2,2) k=4", rspec((512,) * 3, (2, 2, 2), 4), 4, (0, 3))]
+    for i, (label, spec, k, codes) in enumerate(pers_mesh_cases):
         mesh = mesh_of(spec)
-        c, n, s = rand_fields(spec, 520 + 10 * i)
+        c, n, s = rand_fields(spec, 520 + 10 * i, codes)
         pc, pn, ps = cloned([c])[0], cloned([n])[0], cloned([s])[0]
         pst.persistent_jacobi_mesh(c, n, s, spec, k, mesh)
         pst.persistent_jacobi_mesh_plain(pc, pn, ps, spec, k, mesh)

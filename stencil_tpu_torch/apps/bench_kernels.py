@@ -18,8 +18,10 @@ Prints one JSON line per measurement, after a line naming the card
   halo hand-offs and the sweep), beside its bytes bound;
 - ``persistent_jacobi`` at each depth k >= 2 of ``--ks``: one k-step chunk
   at size^3, radius k, ms per launch and per step, beside the least bytes a
-  chunk must move and the bytes this design moves. The cooperative launch is
-  timed without a CUDA graph (CUDA events around back-to-back launches);
+  chunk must move and the bytes this design moves, with its launch shape
+  (on-chip passes, threads, shared memory, blocks per SM). The cooperative
+  launch is timed without a CUDA graph (CUDA events around back-to-back
+  launches);
 - ``astaroth_substep`` at astaroth-size^3, radius 3, in fp64 and fp32, for
   RK3 stage 0 (reads 8 fields, writes 8) and stage 1 (also reads the 8 out
   fields; stage 2 moves the same bytes), beside its bound
@@ -80,6 +82,18 @@ from ..utils.timer import cuda_time_ms
 from . import bench_fill
 
 
+def chunk_launch_shape(k: int) -> dict:
+    """The persistent chunk's launch at depth k: on-chip passes, threads per
+    block, dynamic shared memory and resident blocks per SM."""
+    lib = _native.lib("persistent_jacobi")
+    blocks = ctypes.c_int(0)
+    _native.check(lib.persistent_jacobi_blocks_per_sm(k, torch.cuda.current_device(),
+                                                      ctypes.byref(blocks)),
+                  "persistent_jacobi_blocks_per_sm")
+    return {"passes": pst.chunk_passes(k), "threads": lib.persistent_jacobi_threads(k),
+            "smem_bytes": lib.persistent_jacobi_smem_bytes(k), "blocks_per_sm": blocks.value}
+
+
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(description="time the port's CUDA kernels on one GPU")
     p.add_argument("--size", type=int, default=512)
@@ -137,7 +151,8 @@ def main(argv: Optional[list] = None) -> int:
         print(json.dumps({"kernel": "persistent_jacobi", "size": n, "k": k, "ms": ms,
                           "ms_per_step": ms / k,
                           "bound_ms": bound_ms(pst.chunk_bytes(speck, k), 0)[0],
-                          "design_bytes_ms": bound_ms(pst.chunk_design_bytes(speck, k), 0)[0]}),
+                          "design_bytes_ms": bound_ms(pst.chunk_design_bytes(speck, k), 0)[0],
+                          **chunk_launch_shape(k)}),
               flush=True)
         del curr, nxt, sel
 
@@ -247,7 +262,8 @@ def main(argv: Optional[list] = None) -> int:
                               "ms_per_step": ms / r,
                               "bound_ms": bound_ms(8 * pst.chunk_bytes(bspec, r), 0)[0],
                               "design_bytes_ms": bound_ms(8 * pst.chunk_design_bytes(bspec, r),
-                                                          0)[0]}), flush=True)
+                                                          0)[0], **chunk_launch_shape(r)}),
+                  flush=True)
         del currs, nxts, sels
 
     na = args.astaroth_size

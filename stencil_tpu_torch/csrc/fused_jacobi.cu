@@ -109,10 +109,10 @@ extern "C" int fused_jacobi_launch(void* curr, void* out, const void* sel, long 
 // written once (8 bytes): at 512^3 over 8 positions of 256^3 at radius 1,
 // 12 * 512^3 + 8 * 8 * (258^3 - 256^3) bytes over the memory rate.
 //
-// Design: the one-substep case of mesh_chunk.cuh (the persistent chunk at
-// k = 1, which the reference calls the fused substep). Phase A stores every
-// message straight through the destination position's pointer, then
-// this_grid().sync(), then phase B marches every position's compute tiles.
+// Design: mesh_chunk.cuh's mesh_step (the one-substep chunk, which the
+// reference calls the fused substep). Phase A stores every message straight
+// through the destination position's pointer, then this_grid().sync(), then
+// phase B marches every position's compute tiles.
 // The TPU kernel sweeps before its copies land and re-sweeps the boundary;
 // here the barrier is cheap and the copies are small, so the sweep waits for
 // them and runs once. Unlike fused_jacobi_kernel above, which never waits and
@@ -125,7 +125,7 @@ namespace {
 
 __global__ void __launch_bounds__(THREADS)
 fused_jacobi_mesh_kernel(const __grid_constant__ MeshChunk c) {
-  mesh_chunk(c);
+  mesh_step(c);
 }
 
 }  // namespace
@@ -143,5 +143,5 @@ extern "C" int fused_jacobi_mesh_launch(const void* pos, int npos, const void* m
   if (!make_mesh_chunk(pos, npos, msg, m, boxes, nboxes, sz, sy, zo, yo, xo, nz, ny, nx, 1,
                        &c))
     return (int)cudaErrorInvalidValue;
-  return (int)mesh_chunk_launch(fused_jacobi_mesh_kernel, c, dev, stream);
+  return (int)mesh_chunk_launch(fused_jacobi_mesh_kernel, c, dev, stream, dim3(BX, BY), 0);
 }

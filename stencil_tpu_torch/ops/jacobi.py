@@ -60,7 +60,7 @@ from . import _native
 from .fused_stencil import NO_WRAP, fused_jacobi, fused_jacobi_mesh, require_face_radius
 from .halo_fill import wrap_fill_batched
 from .persistent_stencil import (check_chunk_depth, chunk_schedule, persistent_jacobi,
-                                 persistent_jacobi_mesh)
+                                 persistent_jacobi_mesh, result_in_nxt)
 from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
@@ -291,7 +291,8 @@ def _persistent_loop(ex, iters: int, temporal_k):
     deep radius), then per chunk of ``chunk_schedule(iters, k)`` one
     whole-chunk kernel (depth >= 2; over a mesh, one launch for every
     position), or the exchange and one sweep (a depth-1 tail). ``k`` is
-    ``temporal_k``, else the realized min face radius.
+    ``temporal_k``, else the realized min face radius. A chunk's result is
+    where ``result_in_nxt`` says; the other buffer becomes the scratch.
     ``ex.last_launches_per_chunk`` counts as the JAX package does: 1 per
     kernel chunk on the card, 2 per chunk that runs as exchange + chunk
     program (the CPU's plain versions, a depth-1 tail)."""
@@ -318,7 +319,7 @@ def _persistent_loop(ex, iters: int, temporal_k):
         for d in sched:
             if d >= 2:
                 chunk(curr, nxt, sel, d)
-                out, scratch = (nxt, curr) if d % 2 else (curr, nxt)
+                out, scratch = (nxt, curr) if result_in_nxt(d) else (curr, nxt)
                 launches += 1 if on_card else 2
             else:
                 ex(curr)

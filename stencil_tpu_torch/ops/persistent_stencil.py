@@ -2,9 +2,9 @@
 
 The port's counterpart of ``stencil_tpu.ops.persistent_stencil``. A chunk
 fills radius-k halos once and runs k substeps with no further exchange:
-substep ``s`` sweeps the region grown ``k - 1 - s`` cells past the compute
-region, recomputing neighbour cells redundantly with the sweep's operand
-order, so the chunk equals k plain steps bit for bit.
+substep ``s`` computes the region grown ``k - 1 - s`` cells past the
+compute region, recomputing neighbour cells redundantly with the sweep's
+operand order, so the chunk equals k plain steps bit for bit.
 
 - :func:`persistent_jacobi` launches ``csrc/persistent_jacobi.cu``
   (replacing the TPU's ``make_persistent_jacobi_kernel`` in its
@@ -19,6 +19,18 @@ order, so the chunk equals k plain steps bit for bit.
   substeps of every position; :func:`persistent_jacobi_mesh_plain` is the
   deep messages position by position, then the chunk body per position.
   One block is the kernel's one-position case.
+
+The result contract. The kernel keeps every substep of a tile on chip, in
+on-chip passes of at most :data:`ONCHIP_KMAX` substeps
+(:func:`chunk_passes`). A pass reads one buffer over the region grown by
+the depth still to run and writes only the other buffer, over the region
+grown by what the next pass needs: the compute region for the last pass.
+So a chunk writes ``curr``'s halos (the messages) and the result buffer's
+compute region (plus, beyond one pass, the intermediate passes' grown
+regions), and nothing else; :func:`result_in_nxt` says which buffer holds
+the result. The TPU kernel instead ping-pongs every substep through the
+two buffers (its result is in ``nxt`` for odd k); the field it computes is
+the same.
 
 Both read ``sel`` at grown cells, so ``sel`` must arrive with its halos
 filled (the step loop exchanges it once per loop call). A wrapper takes its
@@ -69,27 +81,58 @@ def check_chunk_depth(spec: GridSpec, depth: int) -> None:
             "(plan/cost.py prices this infeasible)")
 
 
+# the deepest on-chip pass the kernel instantiates (csrc/mesh_chunk.cuh
+# ONCHIP_KMAX): its register windows grow with the depth
+ONCHIP_KMAX = 6
+
+
+def chunk_passes(k: int) -> List[int]:
+    """The on-chip passes of a depth-``k`` chunk: ``ceil(k / ONCHIP_KMAX)``
+    passes of balanced depths, the deeper ones first (the kernel's
+    ``chunk_passes`` / ``pass_depth``)."""
+    if k < 1:
+        raise ValueError(f"persistent chunk depth must be >= 1, got {k}")
+    n = -(-k // ONCHIP_KMAX)
+    q, r = divmod(k, n)
+    return [q + 1] * r + [q] * (n - r)
+
+
+def result_in_nxt(k: int) -> bool:
+    """Whether a depth-``k`` chunk leaves its result in ``nxt`` (else in
+    ``curr``): the passes alternate the two buffers, the first reading
+    ``curr``, so always for a chunk of one pass, by pass parity beyond."""
+    return len(chunk_passes(k)) % 2 == 1
+
+
 def make_persistent_chunk_body(spec: GridSpec, depth: int):
-    """``chunk(curr, nxt, sel) -> (out, scratch)`` over one halo-filled
-    block: ``depth`` substeps with no exchange, substep ``s`` sweeping the
-    region grown ``depth - 1 - s`` cells per side, ping-ponging the two
-    buffers (in place)."""
+    """``chunk(curr, nxt, sel) -> (result, other)`` over one halo-filled
+    block, in place, as the kernel writes it: for each on-chip pass of
+    :func:`chunk_passes`, its substeps on temporaries (substep ``s`` of a
+    chunk computing the region grown ``depth - 1 - s`` cells per side) and
+    only the pass's last substep stored, into the other buffer. The result
+    is in ``nxt`` when :func:`result_in_nxt`, else in ``curr``."""
     from .jacobi import jacobi_sweep
 
     check_chunk_depth(spec, depth)
     off = spec.compute_offset()
     base = spec.base
 
+    def rect(g):
+        return Rect3(Dim3(off.x - g, off.y - g, off.z - g),
+                     Dim3(off.x + base.x + g, off.y + base.y + g, off.z + base.z + g))
+
     def chunk(curr, nxt, sel):
         masks = (sel == 1, sel == 2)
-        c, n = curr, nxt
-        for s in range(depth):
-            g = depth - 1 - s
-            rect = Rect3(Dim3(off.x - g, off.y - g, off.z - g),
-                         Dim3(off.x + base.x + g, off.y + base.y + g, off.z + base.z + g))
-            n = jacobi_sweep(c, n, rect, masks)
-            c, n = n, c
-        return c, n
+        src, dst, left = curr, nxt, depth
+        for d in chunk_passes(depth):
+            tmp = [torch.empty_like(src) for _ in range(min(d - 1, 2))]
+            c = src
+            for s in range(d):
+                n = dst if s == d - 1 else tmp[s % 2]
+                c = jacobi_sweep(c, n, rect(left - 1 - s), masks)
+            left -= d
+            src, dst = dst, src
+        return src, dst
 
     return chunk
 
@@ -135,8 +178,8 @@ def _deep_messages(spec: GridSpec, mesh=None):
 def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
     """One k-step chunk in plain PyTorch: ``curr``'s halos <- the deep
     hand-offs (in place), then the chunk body. Returns ``(curr, nxt,
-    sel)``; the chunk's result is in ``nxt`` when k is odd, in ``curr``
-    when k is even."""
+    sel)``; the chunk's result is in ``nxt`` when :func:`result_in_nxt`,
+    else in ``curr``."""
     _require_kernel_form(spec, k)
     for src, dst, shape in _deep_messages(spec)[0]:
         s, d = box_slices(src, dst, shape)
@@ -171,7 +214,7 @@ def persistent_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, k: int, mesh
     ``curr`` halos <- the deep messages (:func:`deep_dir_phases` on the
     mesh, the message toward ``d`` to position + d; in place), then the
     chunk body on each position. Returns ``(currs, nxts, sels)``; the
-    result is in ``nxts`` when k is odd, in ``currs`` when k is even."""
+    result is in ``nxts`` when :func:`result_in_nxt`, else in ``currs``."""
     _require_kernel_form(spec, k, mesh)
     boxes, dests_by_box = _deep_messages(spec, mesh)
     for (src, dst, shape), dests in zip(boxes, dests_by_box):
@@ -215,11 +258,20 @@ def chunk_bytes(spec: GridSpec, k: int) -> int:
 
 
 def chunk_design_bytes(spec: GridSpec, k: int) -> int:
-    """What the kernel's simple design moves per chunk: per substep a read
-    of its source and of ``sel`` and a write of its destination over that
-    substep's grown region, plus the hand-offs' read and write of each
-    halo cell."""
+    """What the kernel's design moves per chunk: per on-chip pass one read
+    of its source and of ``sel`` over the region grown by the depth still
+    to run and one write of the region grown by what follows (the compute
+    region for the last pass), plus the messages' read and write of each
+    halo cell. Tiles re-read their neighbours' ghost zones; that is not
+    counted."""
     b = spec.base
-    sweeps = sum(12 * (b.x + 2 * g) * (b.y + 2 * g) * (b.z + 2 * g) for g in range(k))
+
+    def cells(g):
+        return (b.x + 2 * g) * (b.y + 2 * g) * (b.z + 2 * g)
+
+    total, left = 0, k
+    for d in chunk_passes(k):
+        total += 8 * cells(left) + 4 * cells(left - d)
+        left -= d
     halo = sum(shape[0] * shape[1] * shape[2] for _s, _d, shape in _deep_messages(spec)[0])
-    return sweeps + 8 * halo
+    return total + 8 * halo

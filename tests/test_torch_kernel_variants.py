@@ -159,37 +159,164 @@ def _self_wrap(spec, arr):
     return out
 
 
+def _compute(spec, g=0):
+    """The index of a block's compute region grown ``g`` cells per side
+    (leading dims allowed)."""
+    off, b = spec.compute_offset(), spec.base
+    return (..., *(slice(o - g, o + n + g) for o, n in ((off.z, b.z), (off.y, b.y), (off.x, b.x))))
+
+
+def _outside(arr, box):
+    """``arr``'s cells outside ``box`` (an index of the block)."""
+    mask = np.ones(arr.shape, bool)
+    mask[box] = False
+    return arr[mask]
+
+
 @pytest.mark.parametrize("size,k", [((16, 16, 14), 2), ((16, 16, 16), 3), ((16, 16, 13), 4)])
 def test_persistent_plain_matches_interpreted_kernel(size, k):
+    """One chunk from random fields with noise in every halo, with sel codes
+    in {0, 1, 2} and in [-1, 4): ``curr``'s halos are the JAX package's
+    deep exchange and its compute region is unchanged; the result buffer
+    (``nxt``: one on-chip pass) holds in its compute region the interpreted
+    kernel's result, read from the buffer JAX's own rule names (``nxt``
+    for odd k), and every other cell of it is unchanged; ``sel`` is
+    unchanged. Then the chunk body alone, on halo-filled inputs, against
+    JAX's chunk body the same way."""
     tspec, jspec = specs(size, (1, 1, 1), k)
-    rng = np.random.RandomState(k)
-    curr, sel = random_block(tspec, rng)
-    sel = _self_wrap(tspec, sel)
-    nxt = rng.rand(*curr.shape).astype(np.float32)
+    jmesh = jpar.grid_mesh(jspec.dim, jax.devices()[:1])
+    jex = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA, persistent=True)
     kern = jpers.make_persistent_jacobi_kernel(
         jspec, jir.build_plan(jspec, (1, 1, 1), "remote-dma", persistent=True), k,
         interpret=True)
-    jc, jo, js = kern(jnp.asarray(curr), jnp.asarray(nxt), jnp.asarray(sel))
-    tc, to, ts = tpers.persistent_jacobi_plain(
-        torch.from_numpy(curr.copy()), torch.from_numpy(nxt.copy()), torch.from_numpy(sel.copy()),
-        tspec, k)
-    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    cr = _compute(tspec)
+    assert tpers.result_in_nxt(k)
+    for lo, hi in ((0, 3), (-1, 4)):
+        rng = np.random.RandomState(k)
+        curr = random_block(tspec, rng)[0]
+        p = tspec.padded()
+        sel = _self_wrap(tspec, rng.randint(lo, hi, size=(p.z, p.y, p.x)).astype(np.int32))
+        nxt = rng.rand(*curr.shape).astype(np.float32)
+        jc, jo, js = kern(jnp.asarray(curr), jnp.asarray(nxt), jnp.asarray(sel))
+        jres = np.asarray(jo if k % 2 else jc)
+        exchanged = np.asarray(jex(jax.device_put(jnp.asarray(curr[None, None, None]),
+                                                  jex.sharding())))[0, 0, 0]
+        tc, to, ts = tpers.persistent_jacobi_plain(
+            torch.from_numpy(curr.copy()), torch.from_numpy(nxt.copy()),
+            torch.from_numpy(sel.copy()), tspec, k)
+        # the messages fill the halo box; JAX's exchange also fills pad cells
+        hb = _compute(tspec, k)
+        np.testing.assert_array_equal(tc.numpy()[hb], exchanged[hb])
+        np.testing.assert_array_equal(tc.numpy()[cr], curr[cr])
+        np.testing.assert_array_equal(_outside(tc.numpy(), hb), _outside(curr, hb))
+        np.testing.assert_array_equal(to.numpy()[cr], jres[cr])
+        np.testing.assert_array_equal(_outside(to.numpy(), cr), _outside(nxt, cr))
+        np.testing.assert_array_equal(ts.numpy(), sel)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+        # the chunk body alone, on halo-filled inputs
+        filled = _self_wrap(tspec, curr)
+        jf, _jscr = jax.jit(jpers.make_persistent_chunk_body(jspec, k))(
+            jnp.asarray(filled), jnp.asarray(nxt), jnp.asarray(sel))
+        tf, tother = tpers.make_persistent_chunk_body(tspec, k)(
+            torch.from_numpy(filled.copy()), torch.from_numpy(nxt.copy()), torch.from_numpy(sel))
+        np.testing.assert_array_equal(tf.numpy()[cr], np.asarray(jf)[cr])
+        np.testing.assert_array_equal(_outside(tf.numpy(), cr), _outside(nxt, cr))
+        np.testing.assert_array_equal(tother.numpy(), filled)
     assert [(d.x, d.y, d.z, s, t, sh, c) for d, s, t, sh, c in tpers.deep_dir_phases(tspec, (1, 1, 1))] \
         == [(d.x, d.y, d.z, s, t, sh, c) for d, s, t, sh, c in jpers._deep_dir_phases(jspec, jgeo.Dim3(1, 1, 1))]
 
-    # the chunk body alone, on halo-filled inputs
+
+def test_result_in_nxt_and_chunk_passes():
+    """k = 1..12: the passes sum to k, are balanced, and number
+    ceil(k / ONCHIP_KMAX); the result rule is their parity; and the plain
+    chunk body leaves its result where the rule says and, for a chunk of one
+    pass, the other buffer (``curr``) alone."""
+    assert tpers.ONCHIP_KMAX == 6
+    for k in range(1, 13):
+        passes = tpers.chunk_passes(k)
+        assert sum(passes) == k and max(passes) - min(passes) <= 1
+        assert passes == sorted(passes, reverse=True) and max(passes) <= tpers.ONCHIP_KMAX
+        assert len(passes) == -(-k // tpers.ONCHIP_KMAX)
+        assert tpers.result_in_nxt(k) == (k <= 6)
+    tspec, _ = specs((12, 12, 12), (1, 1, 1), 12)
+    rng = np.random.RandomState(12)
+    curr, sel = random_block(tspec, rng)
+    nxt = rng.rand(*curr.shape).astype(np.float32)
+    for k in range(1, 13):
+        c, n = torch.from_numpy(curr.copy()), torch.from_numpy(nxt.copy())
+        res, other = tpers.make_persistent_chunk_body(tspec, k)(c, n, torch.from_numpy(sel))
+        assert (res is n and other is c) == tpers.result_in_nxt(k)
+        assert (res is c and other is n) == (not tpers.result_in_nxt(k))
+        if len(tpers.chunk_passes(k)) == 1:
+            np.testing.assert_array_equal(other.numpy(), curr)
+    with pytest.raises(ValueError, match=">= 1"):
+        tpers.chunk_passes(0)
+
+
+def test_persistent_plain_deeper_than_one_pass_matches_jax_chunk():
+    """k = 8 at 20^3, radius 8: two on-chip passes of 4, so the result lands
+    in ``curr``. Its compute region equals the JAX package's depth-8 chunk
+    body on the same halo-filled input; ``curr``'s halos are the deep
+    hand-offs; ``nxt`` holds the first pass over the block grown 4 cells and
+    is unchanged outside it; ``sel`` (codes in [-1, 4)) is unchanged."""
+    k = 8
+    tspec, jspec = specs((20, 20, 20), (1, 1, 1), k)
+    assert tpers.chunk_passes(k) == [4, 4] and not tpers.result_in_nxt(k)
+    rng = np.random.RandomState(8)
+    curr = random_block(tspec, rng)[0]
+    p = tspec.padded()
+    sel = _self_wrap(tspec, rng.randint(-1, 4, size=(p.z, p.y, p.x)).astype(np.int32))
+    nxt = rng.rand(*curr.shape).astype(np.float32)
     filled = _self_wrap(tspec, curr)
-    jf, jscr = jax.jit(jpers.make_persistent_chunk_body(jspec, k))(
+    jf, _ = jax.jit(jpers.make_persistent_chunk_body(jspec, k))(
         jnp.asarray(filled), jnp.asarray(nxt), jnp.asarray(sel))
-    tf, tscr = tpers.make_persistent_chunk_body(tspec, k)(
-        torch.from_numpy(filled.copy()), torch.from_numpy(nxt.copy()), torch.from_numpy(sel))
-    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
-    np.testing.assert_array_equal(tscr.numpy(), np.asarray(jscr))
+    tc, tn, ts = tpers.persistent_jacobi_plain(
+        torch.from_numpy(curr.copy()), torch.from_numpy(nxt.copy()), torch.from_numpy(sel.copy()),
+        tspec, k)
+    cr = _compute(tspec)
+    np.testing.assert_array_equal(tc.numpy()[cr], np.asarray(jf)[cr])
+    np.testing.assert_array_equal(_outside(tc.numpy(), cr), _outside(filled, cr))
+    g4 = _compute(tspec, 4)
+    np.testing.assert_array_equal(_outside(tn.numpy(), g4), _outside(nxt, g4))
+    # the first pass over the grown block: JAX's depth-4 chunk body on a
+    # 28^3 block of radius 4 cut from the same halo-filled input
+    j28 = jgrid.GridSpec(jgeo.Dim3(28, 28, 28), jgeo.Dim3(1, 1, 1), jgeo.Radius.constant(4),
+                         aligned=False)
+    g8 = _compute(tspec, 8)
+    j4, _ = jax.jit(jpers.make_persistent_chunk_body(j28, 4))(
+        jnp.asarray(filled[g8]), jnp.asarray(nxt[g8]), jnp.asarray(sel[g8]))
+    np.testing.assert_array_equal(tn.numpy()[g4], np.asarray(j4)[..., 4:32, 4:32, 4:32])
+    np.testing.assert_array_equal(ts.numpy(), sel)
 
 
 # -- the step loops ---------------------------------------------------------------
+
+def contract_loop(jex, spec, c, n, s, iters, k):
+    """numpy ``(curr, nxt)`` after a persistent loop of ``iters`` steps at
+    depth ``k`` under the port's chunk contract, from the JAX package's
+    exchange and its one-chunk loop: per chunk, ``curr``'s halo box <- the
+    deep exchange (a depth-1 tail exchanges every cell, pads included, as
+    the loop's exchange does), the result buffer's compute region <- JAX's
+    chunk result, every other cell kept; then the swap of
+    ``result_in_nxt``."""
+    cr, hb = _compute(spec), _compute(spec, k)
+    loops = {}
+    for d in tpers.chunk_schedule(iters, k):
+        assert tpers.result_in_nxt(d)  # one on-chip pass at these depths
+        if d not in loops:
+            loops[d] = jjac.make_jacobi_loop(jex, d, temporal_k=d)
+        res, _ = loops[d](c, n, s)
+        out = np.array(n)
+        out[cr] = np.asarray(res)[cr]
+        filled, ex = np.array(c), np.asarray(jex(c))
+        if d == 1:
+            filled = ex
+        else:
+            filled[hb] = ex[hb]
+        c, n = (jax.device_put(jnp.asarray(a), c.sharding) for a in (out, filled))
+    return np.asarray(c), np.asarray(n)
+
 
 @pytest.mark.parametrize("variant", ["plain", "fused", "persistent"])
 @pytest.mark.parametrize("size,k,iters", [((24, 24, 24), 2, 8), ((24, 24, 24), 4, 10),
@@ -209,13 +336,22 @@ def test_remote_dma_loops_match_jax(variant, size, k, iters):
     jstate = {"c": jpar.exchange.shard_blocks(field, jspec, mesh),
               "s": jpar.exchange.shard_blocks(sel, jspec, mesh)}
     tstate = state_from_jax({key: np.asarray(a) for key, a in jstate.items()}, tspec, "cpu")
-    jc, jn = jjac.make_jacobi_loop(jex, iters, temporal_k=tk)(
-        jstate["c"], jax.device_put(jnp.zeros_like(jstate["c"]), jex.sharding()), jstate["s"])
+    jnxt = jax.device_put(jnp.zeros_like(jstate["c"]), jex.sharding())
+    jc, jn = jjac.make_jacobi_loop(jex, iters, temporal_k=tk)(jstate["c"], jnxt, jstate["s"])
     tc, tn = tjac.make_jacobi_loop(tex, iters, temporal_k=tk)(
         tstate["c"], torch.zeros_like(tstate["c"]), tstate["s"])
     got = state_to_numpy({"c": tc, "n": tn})
-    np.testing.assert_array_equal(got["c"], np.asarray(jc))
-    np.testing.assert_array_equal(got["n"], np.asarray(jn))
+    if variant == "persistent":
+        # the field is JAX's; both buffers, every cell, are what the chunk
+        # contract leaves, built from JAX's exchange and chunks
+        cr = _compute(tspec)
+        np.testing.assert_array_equal(got["c"][cr], np.asarray(jc)[cr])
+        want_c, want_n = contract_loop(jex, tspec, jstate["c"], jnxt, jstate["s"], iters, k)
+        np.testing.assert_array_equal(got["c"], want_c)
+        np.testing.assert_array_equal(got["n"], want_n)
+    else:
+        np.testing.assert_array_equal(got["c"], np.asarray(jc))
+        np.testing.assert_array_equal(got["n"], np.asarray(jn))
     assert tex.last_launches_per_chunk == getattr(jex, "last_launches_per_chunk", 0)
     if variant == "persistent":
         assert tex.last_launches_per_chunk == tex.plan.launches_per_chunk(k) == 2

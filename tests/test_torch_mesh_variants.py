@@ -90,6 +90,27 @@ def halo_box(arr, spec, r):
                off.x - r:off.x + b.x + r]
 
 
+def contract_loop(jex, spec, c, n, s, iters, k):
+    """Stacked numpy ``(curr, nxt)`` after a persistent loop of ``iters``
+    steps at depth ``k`` under the port's chunk contract, from the JAX
+    package's exchange and its one-chunk loop: per chunk, ``curr`` <- the
+    deep exchange, the result buffer's compute region <- JAX's chunk
+    result, every other cell kept; then the swap of ``result_in_nxt``.
+    Compare it over the halo box: JAX's exchange also fills pad cells."""
+    off, b = spec.compute_offset(), spec.base
+    cr = (..., slice(off.z, off.z + b.z), slice(off.y, off.y + b.y), slice(off.x, off.x + b.x))
+    loops = {}
+    for d in tpers.chunk_schedule(iters, k):
+        assert tpers.result_in_nxt(d)  # one on-chip pass at these depths
+        if d not in loops:
+            loops[d] = jjac.make_jacobi_loop(jex, d, temporal_k=d)
+        res, _ = loops[d](c, n, s)
+        out = np.array(n)
+        out[cr] = np.asarray(res)[cr]
+        c, n = jax.device_put(jnp.asarray(out), c.sharding), jex(c)
+    return np.asarray(c), np.asarray(n)
+
+
 # -- the loops ----------------------------------------------------------------------
 
 FUSED_CASES = [((16, 16, 16), (2, 2, 2)), ((18, 20, 22), (2, 2, 2)),
@@ -120,6 +141,11 @@ def test_persistent_mesh_loop_matches_jax(size, dim, k, iters):
     got, want, tex, jex, tspec, jspec = both_loops(size, dim, k, iters, 6 + k, persistent=True,
                                                    temporal_k=k)
     np.testing.assert_array_equal(compute(got["c"], jspec), compute(want["c"], jspec))
+    # each buffer's grown box is what the chunk contract leaves, built from
+    # JAX's exchange and chunks
+    js = {key: jax.device_put(v, NamedSharding(jex.mesh, BLOCK_PSPEC))
+          for key, v in start_state(jspec, size, 6 + k).items()}
+    want = dict(zip("cn", contract_loop(jex, tspec, js["c"], js["n"], js["s"], iters, k)))
     for key in ("c", "n"):
         np.testing.assert_array_equal(halo_box(got[key], tspec, k), halo_box(want[key], tspec, k),
                                       err_msg=key)
@@ -150,25 +176,43 @@ def test_fused_mesh_plain_matches_jax_step(size, dim):
 @pytest.mark.parametrize("k", [2, 3])
 def test_persistent_mesh_plain_matches_jax_chunk(k):
     """One depth-k chunk on (2,2,2) at 16^3 radius k, sel's deep halos
-    filled by each package's exchange: JAX's result and scratch against
-    ``persistent_jacobi_mesh_plain``'s buffers over the grown box, halos
-    included, and sel equal after the fill."""
+    filled by each package's exchange: ``persistent_jacobi_mesh_plain``'s
+    ``curr`` holds JAX's deep exchange over the halo box and is unchanged
+    elsewhere; its result buffer (``nxt``: one on-chip pass) holds in the
+    compute region JAX's result, read from the buffer JAX's own rule names
+    (``nxt`` for odd k), and is unchanged elsewhere, pads included; sel is
+    equal after the fill and unchanged by the chunk."""
     tspec, jspec, tmesh, jmesh = pair((16, 16, 16), (2, 2, 2), k)
     arrs = start_state(jspec, (16, 16, 16), 20 + k)
     jex = jpar.HaloExchange(jspec, jmesh, RDMA_J, persistent=True)
     js = {key: jax.device_put(v, NamedSharding(jmesh, BLOCK_PSPEC)) for key, v in arrs.items()}
-    jout, jscr = jjac.make_jacobi_loop(jex, k, temporal_k=k)(js["c"], js["n"], js["s"])
+    jout, _ = jjac.make_jacobi_loop(jex, k, temporal_k=k)(js["c"], js["n"], js["s"])
+    jres = np.asarray(jout)  # JAX's loop resolves its kernel's parity (nxt for odd k)
     tex = tpar.HaloExchange(tspec, RDMA_T, mesh=tmesh, persistent=True)
     ts = mesh_state_from_jax(arrs, tspec, tmesh)
     tex(ts["s"])
-    np.testing.assert_array_equal(mesh_state_to_numpy({"s": ts["s"]}, tspec)["s"],
-                                  np.asarray(jex(js["s"])))
-    currs, nxts, _ = tpers.persistent_jacobi_mesh_plain(ts["c"], ts["n"], ts["s"], tspec, k,
-                                                        tmesh)
-    out, scr = (nxts, currs) if k % 2 else (currs, nxts)
-    got = mesh_state_to_numpy({"out": out, "scr": scr}, tspec)
-    np.testing.assert_array_equal(halo_box(got["out"], tspec, k), halo_box(np.asarray(jout), tspec, k))
-    np.testing.assert_array_equal(halo_box(got["scr"], tspec, k), halo_box(np.asarray(jscr), tspec, k))
+    sel = mesh_state_to_numpy({"s": ts["s"]}, tspec)["s"]
+    np.testing.assert_array_equal(sel, np.asarray(jex(js["s"])))
+    currs, nxts, sels = tpers.persistent_jacobi_mesh_plain(ts["c"], ts["n"], ts["s"], tspec, k,
+                                                           tmesh)
+    assert tpers.result_in_nxt(k)
+    got = mesh_state_to_numpy({"c": currs, "n": nxts, "s": sels}, tspec)
+    off, b = tspec.compute_offset(), tspec.base
+    cr = (..., slice(off.z, off.z + b.z), slice(off.y, off.y + b.y), slice(off.x, off.x + b.x))
+    hb = (..., slice(off.z - k, off.z + b.z + k), slice(off.y - k, off.y + b.y + k),
+          slice(off.x - k, off.x + b.x + k))
+
+    def outside(arr, box):
+        mask = np.ones(arr.shape, bool)
+        mask[box] = False
+        return arr[mask]
+
+    np.testing.assert_array_equal(got["c"][hb], np.asarray(jex(js["c"]))[hb])
+    np.testing.assert_array_equal(got["c"][cr], arrs["c"][cr])
+    np.testing.assert_array_equal(outside(got["c"], hb), outside(arrs["c"], hb))
+    np.testing.assert_array_equal(got["n"][cr], jres[cr])
+    np.testing.assert_array_equal(outside(got["n"], cr), outside(arrs["n"], cr))
+    np.testing.assert_array_equal(got["s"], sel)
 
 
 # -- the app and its CLI --------------------------------------------------------------
@@ -317,10 +361,11 @@ def test_persistent_mesh_tables_move_the_plain_versions_cells(monkeypatch, size,
     for _ in range(2):
         tpers.persistent_jacobi_mesh_plain(wc, wn, want["s"], tspec, k, tmesh)
         tpers.persistent_jacobi_mesh(gc, gn, got["s"], tspec, k, tmesh)
-        if k % 2:
+        if tpers.result_in_nxt(k):
             wc, wn, gc, gn = wn, wc, gn, gc
     assert tpers.persistent_jacobi_mesh.launches == before + 2
-    assert sorted(card.made) == ["mesh_messages"] + ["mesh_positions"] * (1 + k % 2)
+    assert sorted(card.made) == ["mesh_messages"] + ["mesh_positions"] * (
+        1 + tpers.result_in_nxt(k))
     for key in ("c", "n"):
         assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
 
