@@ -25,7 +25,9 @@ Prints one JSON line per measurement, after a line naming the card
 - ``astaroth_substep`` at astaroth-size^3, radius 3, in fp64 and fp32, for
   RK3 stage 0 (reads 8 fields, writes 8) and stage 1 (also reads the 8 out
   fields; stage 2 moves the same bytes), beside its bound
-  (``utils.roofline.bound_ms``);
+  (``utils.roofline.bound_ms``), its unfused issue floor
+  (``utils.roofline.issue_ms``) and the instantiation's registers, spill
+  bytes and blocks per SM;
 - the resident forms, at size^3 over a (2,2,2) partition with radius-4
   halos (eight (size/2)^3 blocks on the card, jacobi3d's ``deep_halo=4``
   layout): ``jacobi_multistep`` in its deep-halo form at each k >= 2 of
@@ -77,7 +79,7 @@ from ..ops import stencil_kernels as sk
 from ..ops.jacobi import multi_block_layout, sphere_sel_blocks
 from ..parallel import DeviceMesh, HaloExchange, Method
 from ..plan.ir import build_plan
-from ..utils.roofline import bound_ms
+from ..utils.roofline import bound_ms, issue_ms
 from ..utils.timer import cuda_time_ms
 from . import bench_fill
 
@@ -288,8 +290,9 @@ def main(argv: Optional[list] = None) -> int:
             print(json.dumps({"kernel": "astaroth_substep", "size": na,
                               "dtype": str(dtype).replace("torch.", ""), "stage": stage,
                               "ms": ms, "bytes": nbytes, "flops": flops, "bound_ms": bound,
-                              "bound_by": bound_by, "mcells_per_s": cells / ms / 1e3}),
-                  flush=True)
+                              "bound_by": bound_by, "issue_ms": issue_ms(flops, dtype),
+                              "mcells_per_s": cells / ms / 1e3,
+                              **asub.substep_info(dev.index, item, stage)}), flush=True)
         del curr8, out8
     return 0
 

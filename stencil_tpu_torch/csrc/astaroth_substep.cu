@@ -18,8 +18,7 @@
 // `out` keep their contents.
 //
 // The property kept from the TPU kernel: no derivative, pencil or rate ever
-// touches device memory. One pass over the fields per stage; each thread
-// owns one cell and carries everything in registers.
+// touches device memory. One pass over the fields per stage.
 //
 // What bounds it on an H100: at 256^3, bytes and operations are of the
 // same order. Bytes, counted once per compute cell: stage 0 reads 8 fields
@@ -29,21 +28,51 @@
 // first, 24 second and 12 cross derivatives (9, 12 and 16 each), 256 for
 // the right-hand sides, 24 for the stage-0 update and 48 for the others, so
 // 949 per cell at stage 0 and 973 at stages 1-2 (ops/astaroth_substep.py
-// FLOPS_PER_CELL). fp64 peak outside the tensor cores is 34 TFLOP/s, fp32
-// 67 (H100 SXM data sheet).
+// FLOPS_PER_CELL). With -fmad=false every operation is one instruction, and
+// the card issues 64 fp64 or 128 fp32 of them per SM and clock: about 0.97
+// ms of fp64 issue per 256^3 stage (utils/roofline.issue_ms), above its
+// 0.85 ms of bytes. What sets the pace is on chip: each cell reads about
+// 300 neighbour values, and a warp's read of 32 consecutive values costs
+// 128-byte wavefronts of the SM's L1 / shared memory, 3 in fp64 (2 in
+// fp32) from L1 at the rows' arbitrary alignment but 2 (1) from shared
+// memory at any alignment; and each block copies its tile's footprint,
+// about 3x the tile, out of L2 for every plane.
 //
-// Design (a simple one first): one thread per output cell, x on
-// neighbouring threads; 32x8-cell blocks march over a z chunk.
-// Occupancy is set by registers: one block per SM in fp64, two in fp32. Neighbour
-// reads go through the read-only path (__ldg) and L1/L2; no shared memory
-// (a 7-plane window of a 38x14 tile for all 8 fields is 238 KB in fp64,
-// above the 227 KB a block may use). The evaluation order keeps few values
-// live: the magnetic terms first (B, lap a, j), then the induction rates
-// are written and lap a dies; then continuity, momentum and entropy.
+// Design. The TPU kernel's sliding window, as a ring in shared memory: a
+// block owns a 32x4-cell tile and marches a z chunk; each field's planes
+// z-3 .. z+3 of the tile's 38x10 footprint sit in an 8-slot ring, and the
+// plane z+4 is copied in while plane z computes, so each value leaves L2
+// once per block and every neighbour read is a shared-memory read. In fp64
+// one thread issues the copy as one tensor copy per field (the TMA unit,
+// a tensor map per field, completion on an mbarrier); where the layout
+// does not allow that (fp32, whose 38-value rows are not a multiple of 16
+// bytes, or rows and box starts not 16-byte aligned) each thread copies
+// one footprint cell of every field with cp.async, the slower way in fp64
+// (PERF.md).
+// Each cell's work is split over three warp groups of the block, so that
+// no thread carries the whole live set (one thread per cell held 255
+// registers in fp64, one 256-thread block per SM):
+//   MAG: ax, ay, az -> B = curl a, lap a, j; the induction rates;
+//   MOM: uux, uuy, uuz -> the strain, advection, lap u and grad(div u)
+//        terms; the momentum rates;
+//   SCA: lnrho, entropy -> pressure, inv_rho and the entropy terms; the
+//        continuity and entropy rates.
+// 3 x 128 threads, each thread of each group owning one cell. Per z plane
+// the groups hand 16 values of each cell over through shared memory under
+// named barriers: TOP (every thread: the ring's next plane has landed and
+// plane z-1 is done everywhere, so its slot and the hand-over may be
+// reused) and FULL (MAG arrives with bar.arrive, it reads nothing back;
+// MOM and SCA sync on it, they read each other's values too). At stages
+// 1-2 each thread's out values are loaded at the top of its plane, ahead
+// of the derivatives. Out-of-range threads of a ragged tile are masked,
+// never returned: they fill the ring and take part in every barrier. The
+// grid is sized from the occupancy of the instantiation launched
+// (ops/astaroth_substep.py substep_zchunk).
 //
 // Floating point: every expression follows fd.py's and equations.py's
-// operand order term by term, so the kernel equals the plain version run by
-// PyTorch on the card. Two rewrites mirror PyTorch's CUDA arithmetic: a
+// operand order term by term, each evaluated by one thread (values only
+// move through shared memory), so the kernel equals the plain version run
+// by PyTorch on the card. Two rewrites mirror PyTorch's CUDA arithmetic: a
 // divide by a Python scalar (x / mu0, x / cp_sound, x / 3.0) is a multiply
 // by that scalar's reciprocal rounded to T; and `1.0 / t` is reciprocal(t).
 // Python-side constant products (eta * mu0, gamma * (1 / cp), gamma - 1,
@@ -52,25 +81,56 @@
 // the literal 0.0, which changes at most the sign of an exact zero; the
 // kernel starts from the first term. Built with -fmad=false, no fast math.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "jacobi_column.cuh"  // jacobi::DeviceScope
 
 namespace {
 
 constexpr int NF = 8;
-constexpr int BX = 32;
-constexpr int BY = 8;
-// Resident 256-thread blocks per SM asked of ptxas: 2 in fp32 (128
-// registers, a few bytes spilled; twice the warps of one block hide more
-// of the neighbour loads' latency), 1 in fp64 (255 registers; held to 128
-// it spills heavily).
+constexpr int BX = 32;  // tile cells along x: one warp per row
+constexpr int BY = 4;   // tile rows
+constexpr int CELLS = BX * BY;
+constexpr int GROUPS = 3;
+constexpr int THREADS = GROUPS * CELLS;
+constexpr int H = 3;                // stencil reach
+constexpr int RW = BX + 2 * H;      // footprint row
+constexpr int RH = BY + 2 * H;      // footprint rows
+constexpr int PLANE = RW * RH;
+// a ring slot: the footprint padded to 384 values, a multiple of 128 bytes
+// in fp32 and fp64, as the tensor copies below want
+constexpr int PSTRIDE = 384;
+static_assert(PSTRIDE >= PLANE && PSTRIDE * 4 % 128 == 0, "ring slot");
+constexpr int SLOTS = 8;            // planes z-3 .. z+3, and z+4 arriving
+static_assert(PLANE <= THREADS, "one footprint cell per thread");
+
+enum Group { MAG = 0, MOM, SCA };
+enum Field { LNRHO = 0, UUX, UUY, UUZ, AX, AY, AZ, SS };
+// values of a cell handed between the groups in one plane
+enum Hand {
+  H_B0 = 0, H_B1, H_B2, H_J0, H_J1, H_J2, H_JTERM,  // MAG
+  H_LX, H_LY, H_LZ, H_P0, H_P1, H_P2, H_INV_RHO,   // SCA
+  H_DIVU, H_CONTR,                                 // MOM
+  NH
+};
+// named barrier ids (0 is __syncthreads')
+constexpr int TOP = 1;
+constexpr int FULL = 2;
+
+// resident blocks per SM asked of ptxas: two in fp32 (the ring leaves room
+// for two), one in fp64
 template <typename T>
 constexpr int min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
-// blocks wanted in flight: the device's SMs x the 256-thread blocks an SM
-// holds x WAVES waves
-constexpr int WAVES = 4;
 
-enum Field { LNRHO = 0, UUX, UUY, UUZ, AX, AY, AZ, SS };
+// shared memory: every field's ring, the hand-over, and the ring's
+// mbarrier (16 bytes)
+template <typename T>
+constexpr long long smem_bytes() {
+  return ((long long)NF * SLOTS * PSTRIDE + NH * CELLS) * (long long)sizeof(T) + 16;
+}
 
 template <typename T>
 struct In {
@@ -80,6 +140,11 @@ struct In {
 template <typename T>
 struct Out {
   T* p[NF];
+};
+
+// each field's tensor map (see make_maps for when there are any)
+struct Maps {
+  CUtensorMap m[NF];
 };
 
 // Every constant the stage reads, rounded to T once on the host.
@@ -94,162 +159,303 @@ struct Coefs {
   T beta, a_pb, dt;               // RK3: beta, alpha / beta_prev, dt
 };
 
+// A field's ring seen from the thread's cell: f(dz, dy, dx) is the value
+// dz planes, dy rows and dx columns away. slot[j] is the ring offset of
+// plane z - 3 + j.
+template <typename T>
+struct Win {
+  const T* p;
+  const int* slot;
+  __device__ __forceinline__ T operator()(int dz, int dy, int dx) const {
+    return p[slot[dz + H] + dy * RW + dx];
+  }
+};
+
+// unit offsets (z, y, x) of the axes and of the diagonals shift_a(1) /
+// shift_b(1) of fd._cross: derxy (0,i,i) / (0,-i,i), derxz (i,0,i) /
+// (-i,0,i), deryz (i,i,0) / (-i,i,0)
+template <int Z, int Y, int X>
+struct Dir {
+  static constexpr int z = Z, y = Y, x = X;
+};
+using AxX = Dir<0, 0, 1>;
+using AxY = Dir<0, 1, 0>;
+using AxZ = Dir<1, 0, 0>;
+using XYa = Dir<0, 1, 1>;
+using XYb = Dir<0, -1, 1>;
+using XZa = Dir<1, 0, 1>;
+using XZb = Dir<-1, 0, 1>;
+using YZa = Dir<1, 1, 0>;
+using YZb = Dir<-1, 1, 0>;
+
 __device__ __forceinline__ float ex(float x) { return expf(x); }
 __device__ __forceinline__ double ex(double x) { return exp(x); }
 
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
+}
+
 template <typename T>
-__device__ __forceinline__ T ld(const T* __restrict__ f, int o) {
-  return __ldg(f + o);
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(d), "l"(src),
+               "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Tensor copies by the TMA unit, completing on an mbarrier: one
+// instruction moves a field's footprint plane (a 38 x 10 x 1 box of its
+// tensor map) into a ring slot.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// the one arrival of a phase, which also announces its bytes
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_inval(unsigned long long* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+        "r"(smem_addr(bar))
+      : "memory");
 }
 
 // fd._first: sum_i c_i * (f[+i] - f[-i]), then * inv_ds
-template <typename T>
-__device__ __forceinline__ T der1(const T* __restrict__ f, int s, T inv) {
-  T r = T(3.0 / 4.0) * (ld(f, s) - ld(f, -s));
-  r = r + T(-3.0 / 20.0) * (ld(f, 2 * s) - ld(f, -2 * s));
-  r = r + T(1.0 / 60.0) * (ld(f, 3 * s) - ld(f, -3 * s));
+template <typename A, typename T>
+__device__ __forceinline__ T der1(const Win<T>& f, T inv) {
+  T r = T(3.0 / 4.0) * (f(A::z, A::y, A::x) - f(-A::z, -A::y, -A::x));
+  r = r + T(-3.0 / 20.0) * (f(2 * A::z, 2 * A::y, 2 * A::x) - f(-2 * A::z, -2 * A::y, -2 * A::x));
+  r = r + T(1.0 / 60.0) * (f(3 * A::z, 3 * A::y, 3 * A::x) - f(-3 * A::z, -3 * A::y, -3 * A::x));
   return r * inv;
 }
 
 // fd._second: c_0 * f + sum_i c_i * (f[+i] + f[-i]), then * inv_ds * inv_ds
-template <typename T>
-__device__ __forceinline__ T der2(const T* __restrict__ f, int s, T inv) {
-  T r = T(-49.0 / 18.0) * ld(f, 0);
-  r = r + T(3.0 / 2.0) * (ld(f, s) + ld(f, -s));
-  r = r + T(-3.0 / 20.0) * (ld(f, 2 * s) + ld(f, -2 * s));
-  r = r + T(1.0 / 90.0) * (ld(f, 3 * s) + ld(f, -3 * s));
+template <typename A, typename T>
+__device__ __forceinline__ T der2(const Win<T>& f, T inv) {
+  T r = T(-49.0 / 18.0) * f(0, 0, 0);
+  r = r + T(3.0 / 2.0) * (f(A::z, A::y, A::x) + f(-A::z, -A::y, -A::x));
+  r = r + T(-3.0 / 20.0) * (f(2 * A::z, 2 * A::y, 2 * A::x) + f(-2 * A::z, -2 * A::y, -2 * A::x));
+  r = r + T(1.0 / 90.0) * (f(3 * A::z, 3 * A::y, 3 * A::x) + f(-3 * A::z, -3 * A::y, -3 * A::x));
   return r * inv * inv;
 }
 
 // fd._cross: sum_i c_i * (f[a*i] + f[-a*i] - f[b*i] - f[-b*i]), then
-// * inv_a * inv_b; a and b are the offsets of shift_a(1) and shift_b(1)
-template <typename T>
-__device__ __forceinline__ T cross(const T* __restrict__ f, int a, int b, T ia, T ib) {
-  T r = T(270.0 / 720.0) * (ld(f, a) + ld(f, -a) - ld(f, b) - ld(f, -b));
-  r = r + T(-27.0 / 720.0) * (ld(f, 2 * a) + ld(f, -2 * a) - ld(f, 2 * b) - ld(f, -2 * b));
-  r = r + T(2.0 / 720.0) * (ld(f, 3 * a) + ld(f, -3 * a) - ld(f, 3 * b) - ld(f, -3 * b));
+// * inv_a * inv_b
+template <typename A, typename B, typename T>
+__device__ __forceinline__ T cross(const Win<T>& f, T ia, T ib) {
+  T r = T(270.0 / 720.0) * (f(A::z, A::y, A::x) + f(-A::z, -A::y, -A::x)
+                            - f(B::z, B::y, B::x) - f(-B::z, -B::y, -B::x));
+  r = r + T(-27.0 / 720.0) * (f(2 * A::z, 2 * A::y, 2 * A::x) + f(-2 * A::z, -2 * A::y, -2 * A::x)
+                              - f(2 * B::z, 2 * B::y, 2 * B::x) - f(-2 * B::z, -2 * B::y, -2 * B::x));
+  r = r + T(2.0 / 720.0) * (f(3 * A::z, 3 * A::y, 3 * A::x) + f(-3 * A::z, -3 * A::y, -3 * A::x)
+                            - f(3 * B::z, 3 * B::y, 3 * B::x) - f(-3 * B::z, -3 * B::y, -3 * B::x));
   return r * ia * ib;
 }
 
-// integrate.rk3_integrate
+// integrate.rk3_integrate; ov is out's value (not read at stage 0)
 template <typename T, bool FIRST>
-__device__ __forceinline__ void rk3(T* o, const T* __restrict__ cur, T rate,
-                                    const Coefs<T>& k) {
-  const T cv = ld(cur, 0);
+__device__ __forceinline__ void rk3(T* o, T cv, T ov, T rate, const Coefs<T>& k) {
   if (FIRST)
     *o = cv + k.beta * rate * k.dt;
   else
-    *o = cv + k.beta * (k.a_pb * (cv - *o) + rate * k.dt);
+    *o = cv + k.beta * (k.a_pb * (cv - ov) + rate * k.dt);
 }
 
+// What a group's plane needs: the rings (ring + f * SLOTS * PSTRIDE + the
+// thread's footprint offset), this plane's slot offsets, out's pointers at
+// the cell, out's values, the cell's hand-over slots and whether the
+// thread owns a compute cell.
+template <typename T>
+struct Plane {
+  const T* ring;
+  const int* slot;
+  long long c;
+  const T* ov;
+  T* h;
+  bool live;
+  __device__ __forceinline__ Win<T> win(int f) const { return {ring + f * SLOTS * PSTRIDE, slot}; }
+};
+
+// -- MAG: B = curl(a), lap(a), j = (grad(div a) - lap a) / mu0; hands B, j
+// and eta*mu0*|j|^2 over, then writes the induction rates u x B + eta lap a
 template <typename T, bool FIRST>
-__global__ void __launch_bounds__(BX * BY, min_blocks<T>())
-astaroth_substep_kernel(In<T> in, Out<T> out, Coefs<T> k, int sz, int sy, int zo,
-                        int yo, int xo, int nz, int ny, int nx, int zchunk) {
-  const int tx = blockIdx.x * BX + threadIdx.x;
-  const int ty = blockIdx.y * BY + threadIdx.y;
-  const int z0 = blockIdx.z * zchunk;
-  const int z1 = min(nz, z0 + zchunk);
-  if (tx >= nx || ty >= ny) return;
-  // diagonal pencil offsets: derxy (0,i,i) / (0,-i,i), derxz (i,0,i) /
-  // (-i,0,i), deryz (i,i,0) / (-i,i,0)
-  const int xy_a = sy + 1, xy_b = 1 - sy;
-  const int xz_a = sz + 1, xz_b = 1 - sz;
-  const int yz_a = sz + sy, yz_b = sy - sz;
+__device__ __forceinline__ void mag_plane(const Out<T>& out, const Coefs<T>& k,
+                                          const Plane<T>& q) {
+  const Win<T> ax = q.win(AX), ay = q.win(AY), az = q.win(AZ);
   const T idx = k.idx, idy = k.idy, idz = k.idz;
-
-  for (int z = z0; z < z1; ++z) {
-    const long long c =
-        (long long)(zo + z) * sz + (long long)(yo + ty) * sy + (xo + tx);
-    const T* __restrict__ lr = in.p[LNRHO] + c;
-    const T* __restrict__ ux = in.p[UUX] + c;
-    const T* __restrict__ uy = in.p[UUY] + c;
-    const T* __restrict__ uz = in.p[UUZ] + c;
-    const T* __restrict__ ax = in.p[AX] + c;
-    const T* __restrict__ ay = in.p[AY] + c;
-    const T* __restrict__ az = in.p[AZ] + c;
-    const T* __restrict__ ss = in.p[SS] + c;
-
-    // -- magnetic terms: B = curl(a), lap(a), j = (grad(div a) - lap a) / mu0
-    const T B0 = der1(az, sy, idy) - der1(ay, sz, idz);
-    const T B1 = der1(ax, sz, idz) - der1(az, 1, idx);
-    const T B2 = der1(ay, 1, idx) - der1(ax, sy, idy);
-    const T ax_xx = der2(ax, 1, idx), ay_yy = der2(ay, sy, idy), az_zz = der2(az, sz, idz);
-    const T lap_a0 = ax_xx + der2(ax, sy, idy) + der2(ax, sz, idz);
-    const T lap_a1 = der2(ay, 1, idx) + ay_yy + der2(ay, sz, idz);
-    const T lap_a2 = der2(az, 1, idx) + der2(az, sy, idy) + az_zz;
-    const T j0 = (ax_xx + cross(ay, xy_a, xy_b, idx, idy) + cross(az, xz_a, xz_b, idx, idz)
+  T* const h = q.h;
+  // every ring value used is read before the first store to shared memory
+  // or barrier: the compiler merges repeated reads only up to there
+  T cx = T(0), cy = T(0), cz = T(0), u0 = T(0), u1 = T(0), u2 = T(0);
+  T B0 = T(0), B1 = T(0), B2 = T(0), lap_a0 = T(0), lap_a1 = T(0), lap_a2 = T(0);
+  if (q.live) {
+    cx = ax(0, 0, 0);
+    cy = ay(0, 0, 0);
+    cz = az(0, 0, 0);
+    u0 = q.win(UUX)(0, 0, 0);
+    u1 = q.win(UUY)(0, 0, 0);
+    u2 = q.win(UUZ)(0, 0, 0);
+    B0 = der1<AxY>(az, idy) - der1<AxZ>(ay, idz);
+    B1 = der1<AxZ>(ax, idz) - der1<AxX>(az, idx);
+    B2 = der1<AxX>(ay, idx) - der1<AxY>(ax, idy);
+    const T ax_xx = der2<AxX>(ax, idx), ay_yy = der2<AxY>(ay, idy), az_zz = der2<AxZ>(az, idz);
+    lap_a0 = ax_xx + der2<AxY>(ax, idy) + der2<AxZ>(ax, idz);
+    lap_a1 = der2<AxX>(ay, idx) + ay_yy + der2<AxZ>(ay, idz);
+    lap_a2 = der2<AxX>(az, idx) + der2<AxY>(az, idy) + az_zz;
+    const T j0 = (ax_xx + cross<XYa, XYb>(ay, idx, idy) + cross<XZa, XZb>(az, idx, idz)
                   - lap_a0) * k.rcp_mu0;
-    const T j1 = (cross(ax, xy_a, xy_b, idx, idy) + ay_yy + cross(az, yz_a, yz_b, idy, idz)
+    const T j1 = (cross<XYa, XYb>(ax, idx, idy) + ay_yy + cross<YZa, YZb>(az, idy, idz)
                   - lap_a1) * k.rcp_mu0;
-    const T j2 = (cross(ax, xz_a, xz_b, idx, idz) + cross(ay, yz_a, yz_b, idy, idz) + az_zz
+    const T j2 = (cross<XZa, XZb>(ax, idx, idz) + cross<YZa, YZb>(ay, idy, idz) + az_zz
                   - lap_a2) * k.rcp_mu0;
+    h[H_B0 * CELLS] = B0;
+    h[H_B1 * CELLS] = B1;
+    h[H_B2 * CELLS] = B2;
+    h[H_J0 * CELLS] = j0;
+    h[H_J1 * CELLS] = j1;
+    h[H_J2 * CELLS] = j2;
+    h[H_JTERM * CELLS] = k.eta_mu0 * (j0 * j0 + j1 * j1 + j2 * j2);
+  }
+  // barriers are executed by every thread of the block, live or not
+  bar_arrive(FULL);
+  if (!q.live) return;
+  rk3<T, FIRST>(out.p[AX] + q.c, cx, q.ov[0], (u1 * B2 - u2 * B1) + k.eta * lap_a0, k);
+  rk3<T, FIRST>(out.p[AY] + q.c, cy, q.ov[1], (u2 * B0 - u0 * B2) + k.eta * lap_a1, k);
+  rk3<T, FIRST>(out.p[AZ] + q.c, cz, q.ov[2], (u0 * B1 - u1 * B0) + k.eta * lap_a2, k);
+}
 
-    // -- induction: u x B + eta * lap(a)
-    const T u0 = ld(ux, 0), u1 = ld(uy, 0), u2 = ld(uz, 0);
-    rk3<T, FIRST>(out.p[AX] + c, ax, (u1 * B2 - u2 * B1) + k.eta * lap_a0, k);
-    rk3<T, FIRST>(out.p[AY] + c, ay, (u2 * B0 - u0 * B2) + k.eta * lap_a1, k);
-    rk3<T, FIRST>(out.p[AZ] + c, az, (u0 * B1 - u1 * B0) + k.eta * lap_a2, k);
+// -- MOM: velocity gradients, div u and the strain's contraction (handed
+// over), advection, lap u and grad(div u); then, with SCA's and MAG's
+// values, the momentum rates -adv - pressure + inv_rho (j x B) + visc +
+// zeta grad(div u)
+template <typename T, bool FIRST>
+__device__ __forceinline__ void mom_plane(const Out<T>& out, const Coefs<T>& k,
+                                          const Plane<T>& q) {
+  const Win<T> ux = q.win(UUX), uy = q.win(UUY), uz = q.win(UUZ);
+  const T idx = k.idx, idy = k.idy, idz = k.idz;
+  T* const h = q.h;
+  T sxx = T(0), sxy = T(0), sxz = T(0), syy = T(0), syz = T(0), szz = T(0);
+  T adv0 = T(0), adv1 = T(0), adv2 = T(0), god_u0 = T(0), god_u1 = T(0), god_u2 = T(0);
+  T lap_u0 = T(0), lap_u1 = T(0), lap_u2 = T(0), u0 = T(0), u1 = T(0), u2 = T(0);
+  T div_u = T(0), contr = T(0);
+  if (q.live) {
+    u0 = ux(0, 0, 0);
+    u1 = uy(0, 0, 0);
+    u2 = uz(0, 0, 0);
+    const T ux_x = der1<AxX>(ux, idx), ux_y = der1<AxY>(ux, idy), ux_z = der1<AxZ>(ux, idz);
+    const T uy_x = der1<AxX>(uy, idx), uy_y = der1<AxY>(uy, idy), uy_z = der1<AxZ>(uy, idz);
+    const T uz_x = der1<AxX>(uz, idx), uz_y = der1<AxY>(uz, idy), uz_z = der1<AxZ>(uz, idz);
+    div_u = ux_x + uy_y + uz_z;
+    sxx = T(2.0 / 3.0) * ux_x - T(1.0 / 3.0) * (uy_y + uz_z);
+    sxy = T(0.5) * (ux_y + uy_x);
+    sxz = T(0.5) * (ux_z + uz_x);
+    syy = T(2.0 / 3.0) * uy_y - T(1.0 / 3.0) * (ux_x + uz_z);
+    syz = T(0.5) * (uy_z + uz_y);
+    szz = T(2.0 / 3.0) * uz_z - T(1.0 / 3.0) * (ux_x + uy_y);
+    contr = sxx * sxx + syy * syy + szz * szz + T(2.0) * (sxy * sxy + sxz * sxz + syz * syz);
+    adv0 = ux_x * u0 + ux_y * u1 + ux_z * u2;
+    adv1 = uy_x * u0 + uy_y * u1 + uy_z * u2;
+    adv2 = uz_x * u0 + uz_y * u1 + uz_z * u2;
+    const T ux_xx = der2<AxX>(ux, idx), uy_yy = der2<AxY>(uy, idy), uz_zz = der2<AxZ>(uz, idz);
+    lap_u0 = ux_xx + der2<AxY>(ux, idy) + der2<AxZ>(ux, idz);
+    lap_u1 = der2<AxX>(uy, idx) + uy_yy + der2<AxZ>(uy, idz);
+    lap_u2 = der2<AxX>(uz, idx) + der2<AxY>(uz, idy) + uz_zz;
+    god_u0 = ux_xx + cross<XYa, XYb>(uy, idx, idy) + cross<XZa, XZb>(uz, idx, idz);
+    god_u1 = cross<XYa, XYb>(ux, idx, idy) + uy_yy + cross<YZa, YZb>(uz, idy, idz);
+    god_u2 = cross<XZa, XZb>(ux, idx, idz) + cross<YZa, YZb>(uy, idy, idz) + uz_zz;
+    h[H_DIVU * CELLS] = div_u;
+    h[H_CONTR * CELLS] = contr;
+  }
+  bar_sync(FULL);
+  if (!q.live) return;
+  const T l_x = h[H_LX * CELLS], l_y = h[H_LY * CELLS], l_z = h[H_LZ * CELLS];
+  const T sg0 = sxx * l_x + sxy * l_y + sxz * l_z;
+  const T sg1 = sxy * l_x + syy * l_y + syz * l_z;
+  const T sg2 = sxz * l_x + syz * l_y + szz * l_z;
+  const T v0 = k.nu_visc * (lap_u0 + god_u0 * k.rcp_3 + T(2.0) * sg0);
+  const T v1 = k.nu_visc * (lap_u1 + god_u1 * k.rcp_3 + T(2.0) * sg1);
+  const T v2 = k.nu_visc * (lap_u2 + god_u2 * k.rcp_3 + T(2.0) * sg2);
+  const T inv_rho = h[H_INV_RHO * CELLS];
+  const T B0 = h[H_B0 * CELLS], B1 = h[H_B1 * CELLS], B2 = h[H_B2 * CELLS];
+  const T j0 = h[H_J0 * CELLS], j1 = h[H_J1 * CELLS], j2 = h[H_J2 * CELLS];
+  rk3<T, FIRST>(out.p[UUX] + q.c, u0, q.ov[0],
+                -adv0 - h[H_P0 * CELLS] + inv_rho * (j1 * B2 - j2 * B1) + v0 + k.zeta * god_u0, k);
+  rk3<T, FIRST>(out.p[UUY] + q.c, u1, q.ov[1],
+                -adv1 - h[H_P1 * CELLS] + inv_rho * (j2 * B0 - j0 * B2) + v1 + k.zeta * god_u1, k);
+  rk3<T, FIRST>(out.p[UUZ] + q.c, u2, q.ov[2],
+                -adv2 - h[H_P2 * CELLS] + inv_rho * (j0 * B1 - j1 * B0) + v2 + k.zeta * god_u2, k);
+}
 
-    // -- continuity: -u . grad(lnrho) - div u
-    const T ux_x = der1(ux, 1, idx), ux_y = der1(ux, sy, idy), ux_z = der1(ux, sz, idz);
-    const T uy_x = der1(uy, 1, idx), uy_y = der1(uy, sy, idy), uy_z = der1(uy, sz, idz);
-    const T uz_x = der1(uz, 1, idx), uz_y = der1(uz, sy, idy), uz_z = der1(uz, sz, idz);
-    const T l = ld(lr, 0);
-    const T l_x = der1(lr, 1, idx), l_y = der1(lr, sy, idy), l_z = der1(lr, sz, idz);
-    const T div_u = ux_x + uy_y + uz_z;
-    rk3<T, FIRST>(out.p[LNRHO] + c, lr, -(u0 * l_x + u1 * l_y + u2 * l_z) - div_u, k);
-
-    // -- momentum
-    const T sxx = T(2.0 / 3.0) * ux_x - T(1.0 / 3.0) * (uy_y + uz_z);
-    const T sxy = T(0.5) * (ux_y + uy_x);
-    const T sxz = T(0.5) * (ux_z + uz_x);
-    const T syy = T(2.0 / 3.0) * uy_y - T(1.0 / 3.0) * (ux_x + uz_z);
-    const T syz = T(0.5) * (uy_z + uz_y);
-    const T szz = T(2.0 / 3.0) * uz_z - T(1.0 / 3.0) * (ux_x + uy_y);
-    const T s = ld(ss, 0);
-    const T s_x = der1(ss, 1, idx), s_y = der1(ss, sy, idy), s_z = der1(ss, sz, idz);
+// -- SCA: lnrho and entropy gradients, the pressure terms and inv_rho
+// (handed over) and the entropy terms; then, with MOM's div u and strain
+// contraction and MAG's |j|^2 term, the continuity and entropy rates
+template <typename T, bool FIRST>
+__device__ __forceinline__ void sca_plane(const Out<T>& out, const Coefs<T>& k,
+                                          const Plane<T>& q) {
+  const Win<T> lr = q.win(LNRHO), ss = q.win(SS);
+  const T idx = k.idx, idy = k.idy, idz = k.idz;
+  T* const h = q.h;
+  T l = T(0), s = T(0), adv_l = T(0), adv_s = T(0), rho = T(0), inv_pT = T(0), heat = T(0);
+  if (q.live) {
+    l = lr(0, 0, 0);
+    s = ss(0, 0, 0);
+    const T u0 = q.win(UUX)(0, 0, 0), u1 = q.win(UUY)(0, 0, 0), u2 = q.win(UUZ)(0, 0, 0);
+    const T l_x = der1<AxX>(lr, idx), l_y = der1<AxY>(lr, idy), l_z = der1<AxZ>(lr, idz);
+    const T s_x = der1<AxX>(ss, idx), s_y = der1<AxY>(ss, idy), s_z = der1<AxZ>(ss, idz);
+    const T s_lap = der2<AxX>(ss, idx) + der2<AxY>(ss, idy) + der2<AxZ>(ss, idz);
+    const T l_lap = der2<AxX>(lr, idx) + der2<AxY>(lr, idy) + der2<AxZ>(lr, idz);
     const T cs2 = k.cs2_sound * ex(k.gamma * s * k.rcp_cp + k.gamma_m1 * (l - k.lnrho0));
-    const T inv_rho = ex(-l);
-    {
-      const T ux_xx = der2(ux, 1, idx), uy_yy = der2(uy, sy, idy), uz_zz = der2(uz, sz, idz);
-      const T lap_u0 = ux_xx + der2(ux, sy, idy) + der2(ux, sz, idz);
-      const T lap_u1 = der2(uy, 1, idx) + uy_yy + der2(uy, sz, idz);
-      const T lap_u2 = der2(uz, 1, idx) + der2(uz, sy, idy) + uz_zz;
-      const T god_u0 = ux_xx + cross(uy, xy_a, xy_b, idx, idy) + cross(uz, xz_a, xz_b, idx, idz);
-      const T god_u1 = cross(ux, xy_a, xy_b, idx, idy) + uy_yy + cross(uz, yz_a, yz_b, idy, idz);
-      const T god_u2 = cross(ux, xz_a, xz_b, idx, idz) + cross(uy, yz_a, yz_b, idy, idz) + uz_zz;
-      // per component: -adv - pressure + inv_rho * (j x B) + visc + zeta * god_u
-      const T adv0 = ux_x * u0 + ux_y * u1 + ux_z * u2;
-      const T adv1 = uy_x * u0 + uy_y * u1 + uy_z * u2;
-      const T adv2 = uz_x * u0 + uz_y * u1 + uz_z * u2;
-      const T sg0 = sxx * l_x + sxy * l_y + sxz * l_z;
-      const T sg1 = sxy * l_x + syy * l_y + syz * l_z;
-      const T sg2 = sxz * l_x + syz * l_y + szz * l_z;
-      const T p0 = cs2 * (s_x * k.rcp_cp + l_x);
-      const T p1 = cs2 * (s_y * k.rcp_cp + l_y);
-      const T p2 = cs2 * (s_z * k.rcp_cp + l_z);
-      const T v0 = k.nu_visc * (lap_u0 + god_u0 * k.rcp_3 + T(2.0) * sg0);
-      const T v1 = k.nu_visc * (lap_u1 + god_u1 * k.rcp_3 + T(2.0) * sg1);
-      const T v2 = k.nu_visc * (lap_u2 + god_u2 * k.rcp_3 + T(2.0) * sg2);
-      rk3<T, FIRST>(out.p[UUX] + c, ux,
-                    -adv0 - p0 + inv_rho * (j1 * B2 - j2 * B1) + v0 + k.zeta * god_u0, k);
-      rk3<T, FIRST>(out.p[UUY] + c, uy,
-                    -adv1 - p1 + inv_rho * (j2 * B0 - j0 * B2) + v1 + k.zeta * god_u1, k);
-      rk3<T, FIRST>(out.p[UUZ] + c, uz,
-                    -adv2 - p2 + inv_rho * (j0 * B1 - j1 * B0) + v2 + k.zeta * god_u2, k);
-    }
-
-    // -- entropy: -u . grad(ss) + inv_pT * rhs + heat_conduction
-    const T rho = ex(l);
+    h[H_LX * CELLS] = l_x;
+    h[H_LY * CELLS] = l_y;
+    h[H_LZ * CELLS] = l_z;
+    h[H_P0 * CELLS] = cs2 * (s_x * k.rcp_cp + l_x);
+    h[H_P1 * CELLS] = cs2 * (s_y * k.rcp_cp + l_y);
+    h[H_P2 * CELLS] = cs2 * (s_z * k.rcp_cp + l_z);
+    h[H_INV_RHO * CELLS] = ex(-l);
+    adv_l = -(u0 * l_x + u1 * l_y + u2 * l_z);
+    adv_s = -(u0 * s_x + u1 * s_y + u2 * s_z);
+    rho = ex(l);
     const T lnT = k.lnT0 + k.gamma * s * k.rcp_cp + k.gamma_m1 * (l - k.lnrho0);
-    const T inv_pT = T(1.0) / (rho * ex(lnT));
-    const T contr = sxx * sxx + syy * syy + szz * szz
-                    + T(2.0) * (sxy * sxy + sxz * sxz + syz * syz);
-    const T rhs = k.eta_mu0 * (j0 * j0 + j1 * j1 + j2 * j2)
-                  + T(2.0) * rho * k.nu_visc * contr + k.zeta * rho * div_u * div_u;
-    const T s_lap = der2(ss, 1, idx) + der2(ss, sy, idy) + der2(ss, sz, idz);
-    const T l_lap = der2(lr, 1, idx) + der2(lr, sy, idy) + der2(lr, sz, idz);
+    inv_pT = T(1.0) / (rho * ex(lnT));
     const T first = k.gamma_inv_cp * s_lap + k.gamma_m1 * l_lap;
     const T sec0 = k.gamma_inv_cp * s_x + k.gamma_m1 * l_x;
     const T sec1 = k.gamma_inv_cp * s_y + k.gamma_m1 * l_y;
@@ -258,9 +464,127 @@ astaroth_substep_kernel(In<T> in, Out<T> out, Coefs<T> k, int sz, int sy, int zo
     const T thi1 = k.gamma * (k.inv_cp * s_y + l_y) + (-l_y);
     const T thi2 = k.gamma * (k.inv_cp * s_z + l_z) + (-l_z);
     const T chi = k.chi * ex(-l) * k.rcp_cp;
-    const T heat = k.cp_sound * chi * (first + (sec0 * thi0 + sec1 * thi1 + sec2 * thi2));
-    rk3<T, FIRST>(out.p[SS] + c, ss,
-                  -(u0 * s_x + u1 * s_y + u2 * s_z) + inv_pT * rhs + heat, k);
+    heat = k.cp_sound * chi * (first + (sec0 * thi0 + sec1 * thi1 + sec2 * thi2));
+  }
+  bar_sync(FULL);
+  if (!q.live) return;
+  const T div_u = h[H_DIVU * CELLS];
+  const T rhs = h[H_JTERM * CELLS] + T(2.0) * rho * k.nu_visc * h[H_CONTR * CELLS]
+                + k.zeta * rho * div_u * div_u;
+  rk3<T, FIRST>(out.p[LNRHO] + q.c, l, q.ov[0], adv_l - div_u, k);
+  rk3<T, FIRST>(out.p[SS] + q.c, s, q.ov[1], adv_s + inv_pT * rhs + heat, k);
+}
+
+// fn(i, f) for the i-th field f that group g owns, both constants once
+// inlined (a parameter array indexed at run time would be copied to local
+// memory)
+template <typename Fn>
+__device__ __forceinline__ void each_field(int g, Fn&& fn) {
+  if (g == MAG) {
+    fn(0, AX);
+    fn(1, AY);
+    fn(2, AZ);
+  } else if (g == MOM) {
+    fn(0, UUX);
+    fn(1, UUY);
+    fn(2, UUZ);
+  } else {
+    fn(0, LNRHO);
+    fn(1, SS);
+  }
+}
+
+template <typename T, bool FIRST>
+__global__ void __launch_bounds__(THREADS, min_blocks<T>())
+astaroth_substep_kernel(const __grid_constant__ In<T> in, Out<T> out,
+                        const __grid_constant__ Maps maps, int tma, Coefs<T> k, int sz, int sy,
+                        int zo, int yo, int xo, int nz, int ny, int nx, int zchunk) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);  // [NF][SLOTS][PSTRIDE]
+  T* const hand = ring + NF * SLOTS * PSTRIDE;      // [NH][CELLS]
+  unsigned long long* const fill_bar = reinterpret_cast<unsigned long long*>(hand + NH * CELLS);
+  const int tid = threadIdx.x + BX * (threadIdx.y + BY * threadIdx.z);
+  const int grp = threadIdx.z;
+  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  const int tx = x0 + threadIdx.x, ty = y0 + threadIdx.y;
+  const bool live = tx < nx && ty < ny;
+  const int z0 = blockIdx.z * zchunk;
+  const int z1 = min(nz, z0 + zchunk);
+
+  // With tensor maps (fp64 whose rows and planes start 16-byte aligned),
+  // one thread copies each field's footprint plane with one tensor copy;
+  // the unit fills what lies outside the padded block with zeros, which no
+  // compute cell reads. Otherwise each thread copies one footprint cell of
+  // every field with cp.async, if it lies in the padded block.
+  if (tma && tid == 0) mbar_init(fill_bar);
+  bar_sync(TOP);
+  unsigned phase = 0;
+  const int frow = tid / RW, fcol = tid % RW;
+  const bool fills = tid < PLANE && x0 - H + fcol < nx + H && y0 - H + frow < ny + H;
+  const long long fsrc = (long long)(yo + y0 - H + frow) * sy + (xo + x0 - H + fcol);
+  // planes zp0 .. zp0 + np - 1 of every field, plane zp into its slot
+  // (zp - z0 + H) mod SLOTS
+  auto fill = [&](int zp0, int np) {
+    if (tma) {
+      if (tid == 0) {
+        mbar_expect(fill_bar, np * NF * PLANE * (unsigned)sizeof(T));
+        for (int zp = zp0; zp < zp0 + np; ++zp)
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+            tensor_copy(ring + (f * SLOTS + ((zp - z0 + H) & (SLOTS - 1))) * PSTRIDE, &maps.m[f],
+                        xo + x0 - H, yo + y0 - H, zo + zp, fill_bar);
+      }
+      return;
+    }
+    for (int zp = zp0; zp < zp0 + np; ++zp) {
+      if (fills) {
+        const long long src = (long long)(zo + zp) * sz + fsrc;
+        T* const dst = ring + ((zp - z0 + H) & (SLOTS - 1)) * PSTRIDE + tid;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) cp_async(dst + f * SLOTS * PSTRIDE, in.p[f] + src);
+      }
+      cp_commit();
+    }
+  };
+  auto wait_fill = [&]() {
+    if (tma)
+      mbar_wait(fill_bar, phase++ & 1);
+    else
+      cp_wait_all();
+  };
+  fill(z0 - H, 2 * H + 1);
+
+  Plane<T> q;
+  q.ring = ring + (threadIdx.y + H) * RW + threadIdx.x + H;
+  q.h = hand + threadIdx.y * BX + threadIdx.x;
+  q.live = live;
+  int slot[2 * H + 1];
+  q.slot = slot;
+  T ov[3] = {T(0), T(0), T(0)};
+  q.ov = ov;
+  const long long col = (long long)(yo + ty) * sy + (xo + tx);
+  for (int z = z0; z < z1; ++z) {
+    q.c = (long long)(zo + z) * sz + col;
+    // out's values first: they are the only reads from device memory
+    if (!FIRST && live) each_field(grp, [&](int i, int f) { ov[i] = out.p[f][q.c]; });
+    // plane z + 3 has landed everywhere, and plane z - 1 is done: its
+    // slot (plane z - 4's) and the hand-over may be written again
+    wait_fill();
+    bar_sync(TOP);
+    if (z + 1 < z1) fill(z + H + 1, 1);
+#pragma unroll
+    for (int j = 0; j <= 2 * H; ++j) slot[j] = ((z - z0 + j) & (SLOTS - 1)) * PSTRIDE;
+    if (grp == MAG)
+      mag_plane<T, FIRST>(out, k, q);
+    else if (grp == MOM)
+      mom_plane<T, FIRST>(out, k, q);
+    else
+      sca_plane<T, FIRST>(out, k, q);
+  }
+  // the mbarrier's shared memory is the next block's plain memory
+  if (tma) {
+    bar_sync(TOP);
+    if (tid == 0) mbar_inval(fill_bar);
   }
 }
 
@@ -294,31 +618,97 @@ Coefs<T> make_coefs(const double* p) {
   return k;
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime (the library links
+// no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Each field's tensor map over (x, y, z) = (sy, sz / sy, zo + nz + H)
+// values with a RW x RH x 1 box; false where the layout does not allow
+// them: fp32 (a footprint row of 152 bytes is no multiple of 16), or rows,
+// planes or the boxes' first column (xo - H + a multiple of 32) not
+// 16-byte aligned (the card refuses such a box start).
 template <typename T>
-int launch(void* const* curr, void* const* out, const double* prm, int first,
-           long long sz, long long sy, int zo, int yo, int xo, int nz, int ny,
-           int nx, long long target_blocks, cudaStream_t st) {
+bool make_maps(const In<T>& in, long long sz, long long sy, int xo, int zo, int nz, Maps* maps) {
+  if (sizeof(T) != 8 || sy * sizeof(T) % 16 || sz * sizeof(T) % 16 || sz % sy ||
+      (xo - H) * sizeof(T) % 16)
+    return false;
+  for (int f = 0; f < NF; ++f)
+    if (reinterpret_cast<uintptr_t>(in.p[f]) % 16) return false;
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)sy, (cuuint64_t)(sz / sy), (cuuint64_t)(zo + nz + H)};
+  const cuuint64_t strides[2] = {(cuuint64_t)(sy * sizeof(T)), (cuuint64_t)(sz * sizeof(T))};
+  const cuuint32_t box[3] = {RW, RH, 1}, step[3] = {1, 1, 1};
+  for (int f = 0; f < NF; ++f)
+    if (enc(&maps->m[f], CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3, const_cast<T*>(in.p[f]), dims,
+            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  return true;
+}
+
+// dynamic shared memory above 48 KB has to be asked for, per kernel
+template <typename T, bool FIRST>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(astaroth_substep_kernel<T, FIRST>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes<T>());
+}
+
+template <typename T, bool FIRST>
+int launch(void* const* curr, void* const* out, const double* prm, long long sz,
+           long long sy, int zo, int yo, int xo, int nz, int ny, int nx, int zchunk,
+           cudaStream_t st) {
   In<T> in;
   Out<T> o;
   for (int f = 0; f < NF; ++f) {
     in.p[f] = (const T*)curr[f];
     o.p[f] = (T*)out[f];
   }
-  const Coefs<T> k = make_coefs<T>(prm);
-  const int gx = (nx + BX - 1) / BX;
-  const int gy = (ny + BY - 1) / BY;
-  long long want = (target_blocks + (long long)gx * gy - 1) / ((long long)gx * gy);
-  const int nzc = (int)(want < 1 ? 1 : (want > nz ? nz : want));
-  const int zchunk = (nz + nzc - 1) / nzc;
-  const dim3 grid(gx, gy, (nz + zchunk - 1) / zchunk);
-  const dim3 block(BX, BY);
-  if (first)
-    astaroth_substep_kernel<T, true><<<grid, block, 0, st>>>(
-        in, o, k, (int)sz, (int)sy, zo, yo, xo, nz, ny, nx, zchunk);
-  else
-    astaroth_substep_kernel<T, false><<<grid, block, 0, st>>>(
-        in, o, k, (int)sz, (int)sy, zo, yo, xo, nz, ny, nx, zchunk);
+  const cudaError_t err = allow_smem<T, FIRST>();
+  if (err != cudaSuccess) return (int)err;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const int tma = make_maps<T>(in, sz, sy, xo, zo, nz, &maps) ? 1 : 0;
+  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY, (nz + zchunk - 1) / zchunk);
+  astaroth_substep_kernel<T, FIRST><<<grid, dim3(BX, BY, GROUPS), smem_bytes<T>(), st>>>(
+      in, o, maps, tma, make_coefs<T>(prm), (int)sz, (int)sy, zo, yo, xo, nz, ny, nx, zchunk);
   return (int)cudaGetLastError();
+}
+
+// what the instantiation reports: blocks per SM, registers, local (spill)
+// bytes, threads per block, dynamic shared memory bytes
+template <typename T, bool FIRST>
+int info(int* r) {
+  cudaError_t err = allow_smem<T, FIRST>();
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, astaroth_substep_kernel<T, FIRST>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &r[0], astaroth_substep_kernel<T, FIRST>, THREADS, smem_bytes<T>());
+  if (err != cudaSuccess) return (int)err;
+  r[1] = a.numRegs;
+  r[2] = (int)a.localSizeBytes;
+  r[3] = THREADS;
+  r[4] = (int)smem_bytes<T>();
+  return 0;
 }
 
 }  // namespace
@@ -328,25 +718,37 @@ int launch(void* const* curr, void* const* out, const double* prm, int first,
 // sz / sy: plane and row strides; (zo, yo, xo) / (nz, ny, nx): compute
 // offset and extent, with at least 3 halo cells on every side. prm: the 16
 // doubles listed in make_coefs. first: 1 for RK3 stage 0 (out not read).
-// dev: the device the fields are on.
+// zchunk: z planes a block marches; dev: the device the fields are on.
 extern "C" int astaroth_substep_launch(void* const* curr, void* const* out,
                                        int elem_size, const double* prm,
                                        int nprm, int first, long long sz,
                                        long long sy, int zo, int yo, int xo,
-                                       int nz, int ny, int nx, int dev, void* stream) {
+                                       int nz, int ny, int nx, int zchunk, int dev,
+                                       void* stream) {
   if (nprm != 16 || nz < 1 || ny < 1 || nx < 1 || zo < 3 || yo < 3 || xo < 3 ||
-      3 * sz > (1LL << 30) || sz > (1LL << 30))
+      zchunk < 1 || (nz + zchunk - 1) / zchunk > 65535 || 3 * sz > (1LL << 30) ||
+      sz > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  int sms = 0, threads_per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
-  if (e != cudaSuccess) return (int)e;
-  const long long target = (long long)sms * (threads_per_sm / (BX * BY)) * WAVES;
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
   cudaStream_t st = (cudaStream_t)stream;
+  const int fi = first ? 1 : 0;
   if (elem_size == 8)
-    return launch<double>(curr, out, prm, first, sz, sy, zo, yo, xo, nz, ny, nx, target, st);
+    return fi ? launch<double, true>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st)
+              : launch<double, false>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st);
   if (elem_size == 4)
-    return launch<float>(curr, out, prm, first, sz, sy, zo, yo, xo, nz, ny, nx, target, st);
+    return fi ? launch<float, true>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st)
+              : launch<float, false>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation a launch of elem_size / first runs, on dev: r[0..4] =
+// resident blocks per SM, registers per thread, local (spill) bytes per
+// thread, threads per block, dynamic shared memory bytes.
+extern "C" int astaroth_substep_info(int elem_size, int first, int dev, int* r) {
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  if (elem_size == 8) return first ? info<double, true>(r) : info<double, false>(r);
+  if (elem_size == 4) return first ? info<float, true>(r) : info<float, false>(r);
   return (int)cudaErrorInvalidValue;
 }

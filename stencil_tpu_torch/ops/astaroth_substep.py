@@ -5,7 +5,10 @@ The port's counterpart of ``stencil_tpu.ops.pallas_astaroth``:
 - :func:`substep` launches ``csrc/astaroth_substep.cu`` (replacing the TPU's
   ``make_pallas_substep``, both window variants): one Williamson RK3 stage
   for all 8 MHD fields over the compute region, in fp64 or fp32, every
-  derivative, pencil and rate kept in registers;
+  derivative, pencil and rate kept on chip: a block marches a tile's z
+  window through a ring in shared memory, and each cell's work is split
+  over three warp groups (:data:`GROUPS`), which hand :data:`HANDOVER`
+  values of each cell over through shared memory;
 - :func:`substep_plain` is the same stage through ``astaroth.fd`` and
   ``astaroth.equations`` in PyTorch, over z slabs so that the ~74 derivative
   tensors and the equations' temporaries stay small at 256^3.
@@ -24,6 +27,7 @@ compute cells of ``out`` are written; its halos keep their contents.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -49,6 +53,23 @@ FLOPS_PER_CELL = (949, 973, 973)
 # z planes per slab of the plain version: about 2^20 cells per temporary
 _SLAB_CELLS = 1 << 20
 
+# The kernel's launch shape (csrc/astaroth_substep.cu exports the same):
+# a block is a TILE[0] x TILE[1]-cell tile marching a z chunk, with one
+# thread per cell in each of GROUPS warp groups (magnetic, momentum,
+# scalars). Its shared memory holds, per field, a ring of RING_SLOTS planes
+# of the tile's footprint (the tile grown by HALO on each side), and the
+# HANDOVER values per cell the groups hand each other in a z plane.
+TILE = (32, 4)
+GROUPS = 3
+RING_SLOTS = 8
+# values per ring slot: the 38 x 10 footprint padded to a multiple of 128
+# bytes in fp32 and fp64
+RING_STRIDE = 384
+HANDOVER = 16
+# blocks wanted per z column of tiles: the blocks the device holds at once
+# x WAVES
+WAVES = 2
+
 
 def substep_supported(spec: GridSpec, dtype) -> bool:
     """Whether the kernel takes this layout and dtype: fp32 or fp64 fields
@@ -73,6 +94,47 @@ def stage_bytes(spec: GridSpec, itemsize: int, stage: int) -> int:
     """Bytes a stage must move over the compute cells: 8 fields read and 8
     written, plus 8 out fields read at stages 1-2."""
     return (2 if stage == 0 else 3) * NF * itemsize * spec.base.flatten()
+
+
+def substep_threads() -> int:
+    """Threads of one kernel block."""
+    return GROUPS * TILE[0] * TILE[1]
+
+
+def substep_smem_bytes(itemsize: int) -> int:
+    """Dynamic shared memory of one kernel block: every field's ring of
+    footprint planes (each padded to RING_STRIDE values), the hand-over,
+    and the 16 bytes of the ring's mbarrier."""
+    cells = TILE[0] * TILE[1]
+    return (NF * RING_SLOTS * RING_STRIDE + HANDOVER * cells) * itemsize + 16
+
+
+def substep_zchunk(spec: GridSpec, blocks_in_flight: int) -> int:
+    """z planes a block marches: the compute region's z extent cut into
+    enough chunks that the tiles of the x-y plane, times the chunks, give
+    ``blocks_in_flight`` x :data:`WAVES` blocks (at most one plane each)."""
+    b = spec.base
+    tiles = -(-b.x // TILE[0]) * -(-b.y // TILE[1])
+    chunks = max(1, min(b.z, -(-blocks_in_flight * WAVES // tiles)))
+    return -(-b.z // chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def substep_info(index: int, itemsize: int, stage: int) -> dict:
+    """What the kernel instantiation of ``itemsize`` and ``stage`` (stage 0
+    or the others) reports on CUDA device ``index``: resident blocks per SM,
+    registers and local (spill) bytes per thread, threads and dynamic shared
+    memory per block."""
+    r = (ctypes.c_int * 5)()
+    _native.check(_native.lib("astaroth_substep").astaroth_substep_info(
+        itemsize, int(stage == 0), index, r), "astaroth_substep_info")
+    return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
+
+
+def substep_blocks_in_flight(dev: torch.device, itemsize: int, stage: int) -> int:
+    """SMs x resident blocks per SM of the instantiation a launch runs."""
+    per_sm = substep_info(dev.index, itemsize, stage)["blocks_per_sm"]
+    return torch.cuda.get_device_properties(dev.index).multi_processor_count * max(1, per_sm)
 
 
 def substep_plain(curr8: Sequence[torch.Tensor], out8: Sequence[torch.Tensor],
@@ -137,9 +199,11 @@ def substep(curr8: Sequence[torch.Tensor], out8: Sequence[torch.Tensor],
     cp = (ctypes.c_void_p * NF)(*[t.data_ptr() for t in curr8])
     op = (ctypes.c_void_p * NF)(*[t.data_ptr() for t in out8])
     p, off, b = spec.padded(), spec.compute_offset(), spec.base
+    item = curr8[0].element_size()
+    zchunk = substep_zchunk(spec, substep_blocks_in_flight(dev, item, stage))
     rc = _native.lib("astaroth_substep").astaroth_substep_launch(
-        cp, op, curr8[0].element_size(), prm, 16, int(stage == 0), p.y * p.x, p.x,
-        off.z, off.y, off.x, b.z, b.y, b.x, dev.index, _native.stream_ptr(dev))
+        cp, op, item, prm, 16, int(stage == 0), p.y * p.x, p.x, off.z, off.y, off.x,
+        b.z, b.y, b.x, zchunk, dev.index, _native.stream_ptr(dev))
     _native.check(rc, f"astaroth_substep[{stage}]")
     substep.launches += 1
     return tuple(out8)

@@ -5,6 +5,7 @@ their plain versions only through an explicit CPU branch."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -48,6 +49,19 @@ def test_kernel_sources_present():
         "astaroth_substep.cu", "fused_exchange.cu", "fused_jacobi.cu", "jacobi_multistep.cu",
         "jacobi_sweep.cu", "persistent_jacobi.cu", "remote_axis.cu", "self_fill.cu"]
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_native.SIGNATURES)
+
+
+def test_c_entries_match_their_signatures():
+    """Every C entry point _native binds exists in its source with as many
+    parameters as its argtypes name."""
+    for name, fns in _native.SIGNATURES.items():
+        src = (pathlib.Path(_native.CSRC) / f"{name}.cu").read_text()
+        found = {m.group(1): m.group(2) for m in
+                 re.finditer(r'extern "C"\s+[\w\s*]+?\b(\w+)\s*\(([^)]*)\)', src)}
+        for fn, (_, args) in fns.items():
+            assert fn in found, f"{name}.cu has no entry {fn}"
+            params = found[fn].strip()
+            assert (params.count(",") + 1 if params else 0) == len(args), fn
 
 
 def test_no_device_means_cuda(monkeypatch):
