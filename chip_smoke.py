@@ -9,10 +9,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               in parallel); print the build seconds and ptxas's register /
               shared-memory report, the persistent chunk's on-chip passes
               (held to persistent_stencil.chunk_passes for k = 1..12), its
-              dynamic shared memory and resident blocks per SM.
+              dynamic shared memory and resident blocks per SM; each
+              multistep instantiation's registers, spill bytes and blocks
+              per SM, its threads and shared memory held to the wrapper's
+              (stencil_kernels.multistep_shape), no spill at the planner's
+              depth.
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
-              odd sizes, non-wrapping axes, fp32 and fp64 fills; for the
+              odd sizes, non-wrapping axes, fp32 and fp64 fills; the
+              multistep at every k = 1..6 on 67x45x29 and 130x70x40 (ragged
+              against its tile) with one and several z chunks and on the
+              32^3 tenant size, tight-x at k = 2, 3, 5, 512^3 at the
+              planner's depth; for the
               fill also 67x33x21 unaligned with asymmetric radii at nq 1 and
               16, the same one word off alignment, r2, r4 and r5, and a
               z-stack of three fp64 blocks, so that its scalar, 8- and
@@ -23,9 +31,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               z-stack form and Astaroth's 256^3 r3 x8 fp64, with the halos
               partly in L2 and evicted, beside its bytes bound, its 32-byte
               sector floor and the Tensor.copy_ yardstick.
-3. jacobi3d -- the main path: apps.jacobi3d.run at 512^3 fp32 with chunks
-              that give multistep passes and a sweep tail, launch counts set
-              to 0 just before and read just after; then 2k+2 steps at 512^3
+3. jacobi3d -- the main path: apps.jacobi3d.run at 512^3 fp32 in chunks
+              of 25 (25 // k multistep passes and 25 % k sweeps each), launch
+              counts set to 0 just before and read just after and held to
+              those numbers; then 2k+2 steps at 512^3
               through the kernels against the same steps through the plain
               versions (bit-equal), and a small run against the float64
               numpy reference.
@@ -67,7 +76,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 7. resident -- multi-block partitions with every block on the card: the
               deep-halo multistep against its plain version (torch.equal,
               from random fields with noise in every halo) on (2,2,2) 512^3
-              r4 at k=2 and 3 (spheres crossing block edges), 100x70x60
+              r4 at k = 2..4 (spheres crossing block edges), 100x70x60
               unaligned, (1,1,2) mixed wrap, and the (1,1,2) 128x16x20 case
               whose spheres cross the periodic z edge; sweep_region on every
               shell and the stacked sweep, the z-stack fill (x, y; fp32 and
@@ -221,6 +230,17 @@ def main() -> int:
     for k in range(1, sk.MULTISTEP_KMAX + 1):
         check(ms_lib.jacobi_multistep_smem_bytes(k) == sk.multistep_smem_bytes(k),
               f"multistep smem formula differs from the kernel's at k={k}")
+        for mb in (False, True):
+            mi = sk.multistep_info(0, k, mb)
+            check(mi["threads"] == sk.multistep_shape(k)["threads"] and mi["blocks_per_sm"] >= 1
+                  and mi["smem_bytes"] == sk.multistep_smem_bytes(k),
+                  f"multistep k={k} mb={mb}: launch shape {mi} differs from the wrapper's")
+            check(k != sk.MULTISTEP_KPLAN or mi["local_bytes"] == 0,
+                  f"multistep at the planner's depth k={k} spills: {mi}")
+            log(f"jacobi_multistep k={k} {'deep-halo' if mb else 'single-block'}: "
+                f"{mi['regs']} registers, {mi['local_bytes']} bytes of spill, "
+                f"{mi['blocks_per_sm']} block(s) of {mi['threads']} threads per SM, "
+                f"{mi['smem_bytes']} bytes of shared memory")
     pj_lib = _native.lib("persistent_jacobi")
     depths = (ctypes.c_int * 16)()
     for k in range(1, 13):
@@ -272,12 +292,25 @@ def main() -> int:
         check(torch.equal(got, want), f"sweep {label}: kernel != plain")
         log(f"sweep {label}: equal")
 
-    ms_spec = GridSpec(Dim3(200, 100, 60), Dim3(1, 1, 1), Radius.constant(1))
-    ms_cases = [(f"200x100x60 k={k}", ms_spec, k)
+    # every depth on shapes ragged against the 64-wide tile and both tile
+    # heights (their shallow depths run several z chunks, their deep ones
+    # one); the campaign's 32^3 tenant; tight-x (no x halo); 512^3 at the
+    # planner's depth
+    one = Dim3(1, 1, 1)
+    ms_cases = [(f"200x100x60 k={k}", GridSpec(Dim3(200, 100, 60), one, Radius.constant(1)), k)
                 for k in sorted({2, 5, k512, sk.MULTISTEP_KMAX})]
-    ms_cases.append(("128x40x30 tight-x k=5", GridSpec(Dim3(128, 40, 30), Dim3(1, 1, 1),
-                                                        Radius.constant(1).without_x()), 5))
+    for size in ((67, 45, 29), (130, 70, 40)):
+        ragged = GridSpec(Dim3(*size), one, Radius.constant(1))
+        ms_cases += [(f"{size[0]}x{size[1]}x{size[2]} k={k}", ragged, k)
+                     for k in range(1, sk.MULTISTEP_KMAX + 1)]
+    ms_cases += [(f"32^3 tenant k={k}", GridSpec(Dim3(32, 32, 32), one, Radius.constant(1),
+                                                 aligned=False), k)
+                 for k in range(1, sk.MULTISTEP_KMAX + 1)]
+    ms_cases += [(f"128x40x30 tight-x k={k}", GridSpec(Dim3(128, 40, 30), one,
+                                                       Radius.constant(1).without_x()), k)
+                 for k in (2, 3, 5)]
     ms_cases.append((f"512^3 k={k512}", sweep_cases[0][1], k512))
+    chunk_counts = set()
     for i, (label, spec, k) in enumerate(ms_cases):
         curr = rand_block(spec, 20 + i)
         got = sk.multistep(curr, torch.zeros_like(curr), spec, k)
@@ -285,8 +318,10 @@ def main() -> int:
         torch.cuda.synchronize()
         errs["jacobi_multistep"] = max(errs["jacobi_multistep"], max_abs(got, want))
         check(torch.equal(got, want), f"multistep {label}: kernel != plain")
-        log(f"multistep {label}: equal (zchunks "
-            f"{sk.multistep_zchunks(spec, k, sk.multistep_blocks_in_flight(dev, k))})")
+        zc = sk.multistep_zchunks(spec, k, sk.multistep_blocks_in_flight(dev, k))
+        chunk_counts.add(min(zc, 2))
+        log(f"multistep {label}: equal (zchunks {zc})")
+    check(chunk_counts == {1, 2}, "multistep checks ran only one z-chunk regime")
 
     def asym_radius():
         r = Radius.constant(0)
@@ -421,8 +456,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["jacobi_sweep"], launches["jacobi_multistep"] = sk.sweep.launches, sk.multistep.launches
     check(r["temporal_k"] == k512, f"jacobi3d ran k={r['temporal_k']}, planner says {k512}")
-    check(launches["jacobi_multistep"] > 0 and launches["jacobi_sweep"] > 0,
-          f"jacobi3d did not go through both kernels: {launches}")
+    # 3 chunks of 25 steps (the warm-up's and two timed): 25 // k passes and
+    # 25 % k sweeps each
+    want3 = {"jacobi_sweep": 3 * (25 % k512), "jacobi_multistep": 3 * (25 // k512)}
+    check(launches == want3, f"jacobi3d 512^3: launches {launches}, expected {want3}")
     log(jacobi3d.csv_row(r))
     log(f"jacobi3d 512^3: {r['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
         f"{r['mcells_per_s_per_dev']:.1f} Mcells/s, multistep k={r['temporal_k']}, "
@@ -801,7 +838,9 @@ def main() -> int:
     # the deep-halo multistep against its plain version, noise in every halo
     spec_h = rspec((512,) * 3, (2, 2, 2), 4)  # the headline's layout
     kh = sk.MULTISTEP_KPLAN
-    deep_cases = [(f"512^3 (2,2,2) r4 k={k}", spec_h, k) for k in range(2, kh + 1)]
+    # every depth its radius-4 halos allow
+    deep_cases = [(f"512^3 (2,2,2) r4 k={k}", spec_h, k)
+                  for k in range(2, min(sk.MULTISTEP_KMAX, spec_h.radius.x(1)) + 1)]
     deep_cases += [("100x70x60 (2,2,2) r2 unaligned k=2", rspec((100, 70, 60), (2, 2, 2), 2, False), 2),
                    ("200x100x60 (1,1,2) r3 k=3 mixed wrap", rspec((200, 100, 60), (1, 1, 2), 3), 3),
                    ("128x16x20 (1,1,2) r2 k=2 spheres across z", rspec((128, 16, 20), (1, 1, 2), 2), 2)]
@@ -904,7 +943,8 @@ def main() -> int:
     hot_d, cold_d = sk.sphere_masks_from_coords(spec512, dev)
     for label, kw, k_want, want in (
             ("deep_halo 4", dict(iters=50, chunk=25, deep_halo=4), kh,
-             {"jacobi_multistep": 24, "jacobi_sweep": 3, "jacobi_sweep_region": 18}),
+             {"jacobi_multistep": 3 * (25 // kh), "jacobi_sweep": 3 * (25 % kh),
+              "jacobi_sweep_region": 6 * 3 * (25 % kh)}),
             ("deep_halo 1", dict(iters=50, chunk=25, deep_halo=1), 0,
              {"jacobi_sweep": 75, "jacobi_sweep_region": 450})):
         for fn in counted7.values():

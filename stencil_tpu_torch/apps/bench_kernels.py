@@ -7,8 +7,11 @@ Prints one JSON line per measurement, after a line naming the card
 (``nvidia-smi`` name and power limit):
 
 - ``jacobi_sweep``: one step at size^3, radius 1 (the jacobi3d layout);
-- ``jacobi_multistep`` at each depth k: ms per launch, ms per step, and the
-  resident blocks per SM its shared memory allows;
+- ``jacobi_multistep`` at each depth k: ms per launch and per step beside
+  its bytes bound (8 bytes a cell) and its unfused issue floor (7 fp32
+  operations per stage update over the tiles' grown planes,
+  ``stencil_kernels.multistep_stage_updates``), with the instantiation's
+  registers, spill bytes and blocks per SM;
 - ``self_fill`` per axis: one launch filling both sides for four fp32
   quantities at radius 3 (the exchange benchmark's layout), and over a
   (1,1,2) z-stack (x and y), each beside its bytes bound, its sector floor,
@@ -31,8 +34,9 @@ Prints one JSON line per measurement, after a line naming the card
 - the resident forms, at size^3 over a (2,2,2) partition with radius-4
   halos (eight (size/2)^3 blocks on the card, jacobi3d's ``deep_halo=4``
   layout): ``jacobi_multistep`` in its deep-halo form at each k >= 2 of
-  ``--ks`` up to the planner's depth, beside one read of the blocks grown
-  by k and one write of the blocks; ``jacobi_sweep_region`` on one overlap
+  ``--ks`` (with radius-k halos at k > 4), beside one read of the blocks
+  grown by k and one write of the blocks and its issue floor;
+  ``jacobi_sweep_region`` on one overlap
   shell (the z-lo one) of every block; the stacked ``jacobi_sweep`` over
   all eight blocks;
 - the tenant form of ``jacobi_sweep``: one step of a campaign slot of 64
@@ -122,16 +126,14 @@ def main(argv: Optional[list] = None) -> int:
     ms = cuda_time_ms(lambda: sk.sweep(curr, nxt, sel, spec), args.reps, graph=True)
     print(json.dumps({"kernel": "jacobi_sweep", "size": n, "ms": ms}), flush=True)
 
-    lib = _native.lib("jacobi_multistep")
     for k in ks:
-        blocks = ctypes.c_int(0)
-        _native.check(lib.jacobi_multistep_blocks_per_sm(k, dev.index, ctypes.byref(blocks)),
-                      "jacobi_multistep_blocks_per_sm")
         ms = cuda_time_ms(lambda: sk.multistep(curr, nxt, spec, k), max(2, args.reps // 2),
                           warmup=1, graph=True)
+        bound, bound_by = bound_ms(8 * n ** 3, 6 * k * n ** 3)
         print(json.dumps({"kernel": "jacobi_multistep", "size": n, "k": k, "ms": ms,
-                          "ms_per_step": ms / k, "blocks_per_sm": blocks.value,
-                          "smem_bytes": sk.multistep_smem_bytes(k),
+                          "ms_per_step": ms / k, "bound_ms": bound, "bound_by": bound_by,
+                          "issue_ms": issue_ms(7 * sk.multistep_stage_updates(spec, k)),
+                          **sk.multistep_info(dev.index, k),
                           "zchunks": sk.multistep_zchunks(
                               spec, k, sk.multistep_blocks_in_flight(dev, k))}), flush=True)
     plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
@@ -166,20 +168,28 @@ def main(argv: Optional[list] = None) -> int:
             print(json.dumps({"size": n, "partition": list(part), "radius": 3, "quantities": 4,
                               **row}), flush=True)
 
-    # the resident forms: eight (n/2)^3 blocks with radius-4 halos
-    specr = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(4))
-    curr = torch.rand(specr.stacked_shape_zyx(), generator=gen, device=dev)
-    nxt = torch.zeros_like(curr)
+    # the resident forms: eight (n/2)^3 blocks with radius-4 halos (radius k
+    # for the deep-halo multistep at k > 4)
     cells = n ** 3
-    for k in (k for k in ks if 2 <= k <= sk.MULTISTEP_KPLAN):
+    for k in (k for k in ks if k >= 2):
+        specr = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(max(4, k)))
+        curr = torch.rand(specr.stacked_shape_zyx(), generator=gen, device=dev)
+        nxt = torch.zeros_like(curr)
         ms = cuda_time_ms(lambda: sk.multistep(curr, nxt, specr, k), max(2, args.reps // 2),
                           warmup=1, graph=True)
         grown = specr.num_blocks() * (n // 2 + 2 * k) ** 3
         print(json.dumps({"kernel": "jacobi_multistep", "form": "deep-halo", "size": n,
-                          "partition": [2, 2, 2], "k": k, "ms": ms, "ms_per_step": ms / k,
+                          "partition": [2, 2, 2], "radius": max(4, k), "k": k, "ms": ms,
+                          "ms_per_step": ms / k,
                           "bound_ms": bound_ms(4 * (grown + cells), 6 * k * cells)[0],
+                          "issue_ms": issue_ms(7 * sk.multistep_stage_updates(specr, k)),
+                          **sk.multistep_info(dev.index, k, multi_block=True),
                           "zchunks": sk.multistep_zchunks(
                               specr, k, sk.multistep_blocks_in_flight(dev, k))}), flush=True)
+        del curr, nxt
+    specr = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(4))
+    curr = torch.rand(specr.stacked_shape_zyx(), generator=gen, device=dev)
+    nxt = torch.zeros_like(curr)
     sel = sphere_sel_blocks(specr, dev)
     wrap, _axes, shells = multi_block_layout(specr)
     ms = cuda_time_ms(lambda: sk.sweep(curr, nxt, sel, specr, wrap), args.reps, graph=True)

@@ -8,45 +8,65 @@
 // version: stencil_tpu_torch/ops/stencil_kernels.py (multistep,
 // multistep_plain).
 //
-// What bounds it on an H100: bytes, as for the one-step sweep, but the point
-// of the kernel is that the floor is ONE read of curr plus ONE write of out
-// per k steps: the intermediate stages never go to device memory.
+// What bounds it on an H100. The floor is bytes: ONE read of curr plus ONE
+// write of out per k steps (0.32 ms at 512^3), since the intermediate stages
+// never go to device memory. Keeping them on chip costs work that bytes do
+// not count: a tile recomputes its neighbours' ghost zones (1.1x the cell
+// updates at k = 3), and every stage of every plane passes through shared
+// memory and a block-wide barrier. At k = 3 the kernel runs at about twice
+// the bytes floor (PERF.md): what sets the pace is the instructions the
+// on-chip stages issue, one block of 23 warps per SM at its 80-register cap,
+// with the stage-0 stream and the output stores overlapping them only in
+// part. Scalar global accesses held this kernel's first design back: blocks
+// whose runs straddle a wrapped or unaligned edge ran slower than the
+// others, and the slowest block sets the launch's time.
 //
-// Design (ghost-zone temporal blocking with a register z-march): each block
-// of 1024 threads owns a 32 x 32 output tile of one resident block and
-// marches z with k + 1 stages. Stage 0 loads the input plane grown by k cells
-// on each side; stage s computes the plane grown by k - s cells from stage
-// s - 1. Every thread owns the same cells of the grown plane in every stage
-// and every step, so the z neighbours of a cell (planes v-1 and v+1 of stage
-// s-1) are the thread's own earlier results, kept in a three-plane register
-// window per stage; only the x and y neighbours come from shared memory,
-// where each stage keeps two planes (plane v is read while plane v+1 is
-// written). At step j stage s works on plane v = Z0 - k + j - s: stage s - 1
-// finishes plane v + 1 earlier in the same step, on the same thread, and the
-// x/y neighbours of plane v were written in the previous step, so a step ends
-// with a single barrier. The next input plane is loaded into registers while
-// the stages of this step run. Each block warms up 2k steps before its first
-// output plane; z may be split into chunks, each with its own warm-up, to
-// fill the card on small domains. Neighbouring tiles recompute their
-// overlapping ghost zones instead of sharing them; that is the price of
-// keeping every stage on chip. The register windows bound k (KMAX):
-// 3 * k * (cells per thread) floats.
+// Design (ghost-zone temporal blocking with a register z-march). A block
+// owns a TX-wide output tile of one resident block (TY rows at k <= KLO,
+// TYHI deeper, where the register windows grow) and marches a z chunk with
+// k + 1 stages. Stage 0 is the input plane grown by k cells on each side;
+// stage s computes the plane grown by k - s from stage s - 1, and stage k is
+// the output. At step j stage s works on plane Z0 - k + j - s, so a cell's z
+// neighbours at stage s - 1 were made by the same thread one step before
+// and in this step (a three-plane register window per stage); its y
+// neighbours come from shared memory, where each stage keeps two planes
+// (one read while the other is written), so a step ends with a single
+// barrier. What the design does about the limits:
+// - Each thread owns a 4-cell x run of one row of the grown plane, the same
+//   in every stage: its own cells give most of its x neighbours, warp
+//   shuffles the two at the run's ends (shared memory for lanes 0 and 31),
+//   and 16-byte row reads the y neighbours. No warp idles on a second cell.
+// - Runs start on the padded block's 16-byte grid, and every tile after the
+//   first of a row starts its output there too, so stage 0 arrives as one
+//   16-byte cp.async per run and the output leaves as one 16-byte store per
+//   run; only runs that straddle a wrapped edge copy 4 bytes at a time, and
+//   only the block's own first and last columns store fewer than 4.
+// - Stage 0 is copied LOOK planes ahead of use into a ring of LOOK + 2 = 6
+//   planes, with no registers held for it. The step loop is unrolled over
+//   the ring's 6 slots, so every ring slot, buffer parity and window slot is
+//   a constant.
+// - A run computes a stage only if one of its cells is needed there (the
+//   grown extent shrinks by one per stage); the cells it computes in excess
+//   feed no output. The spheres cost a few integer operations per run and
+//   plane, and a per-cell test only where a run can touch one.
+// - z is split into chunks, each with its own 2k-step warm-up, so that
+//   blocks of uneven speed (edge and sphere tiles) balance over several
+//   waves (stencil_kernels.multistep_zchunks).
 //
 // Axes. An axis with one block of the partition is periodic onto itself:
 // stage 0 takes the grown cells by index wrap within the compute region. An
 // axis with several blocks is the deep-halo form: the caller has exchanged
 // halos of radius >= k, and stage 0 reads the grown cells straight from them
 // (planes zo - k .. zo + nz + k - 1 on z). Grown cells farther out than k
-// (the ragged edge of the last tile) are clamped into the halo; they only
-// feed cells that no output depends on. Both modes mix freely, e.g. (1,1,2).
+// (the ragged edge of the last tile, the run alignment) are clamped into the
+// padded block; they only feed cells that no output depends on. Both modes
+// mix freely, e.g. (1,1,2).
 //
 // Residents. grid.z covers every resident block times its z chunks; a block
 // finds its resident's data at resident * bstride and its global origin at
 // (block index) x (block size), the origin the TPU kernel gets by scalar
 // prefetch. The kernel is instantiated twice per depth: MB = false for a
-// single-block domain, where none of that exists and a thread keeps the
-// registers of the one-block march (at k = 3 the register windows fill the
-// 64 registers a 1024-thread block allows), and MB = true for a partition.
+// single-block domain, MB = true for a partition.
 //
 // The hot and cold spheres come from integer coordinates, exactly as in the
 // TPU kernel: hot centre (gx/3, gy/2, gz/2), cold centre (2*gx/3, gy/2,
@@ -56,31 +76,56 @@
 // equals the JAX package's sqrt-truncating sel array, so one launch equals k
 // one-step sweeps bit for bit: every stage sums (x_lo + x_hi + y_lo + y_hi +
 // z_lo + z_hi) left to right and multiplies by 1/6 rounded to float32, as the
-// sweep does. Offsets are 64-bit.
+// sweep does; only where each value comes from (registers, shuffles or
+// shared memory) differs. Plane offsets are 64-bit, in-plane offsets 32-bit
+// (the launch refuses a plane of 2^31 elements or more).
 //
-// Shared memory: 2 planes of (32 + 2k)^2 floats for each of stages 0..k-1.
-// The Python depth planner (stencil_tpu_torch/ops/stencil_kernels.py,
-// plan_multistep_depth) mirrors jacobi_multistep_smem_bytes below.
+// Shared memory (Shape<K>::SMEM): a guard row, the stage-0 ring, two planes
+// for each of stages 1..k-1, a guard row; a plane is the grown tile's rows
+// at a pitch of RUNS runs of 4. The Python side (stencil_kernels.py
+// multistep_shape) mirrors these formulas.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "jacobi_column.cuh"
 
 namespace {
 
-constexpr int TILE = 32;  // output tile edge, x and y
-constexpr int NT = 1024;  // threads per block
+constexpr int TX = 64;    // output tile width, x (the first tile of a row is up to 3 wider)
+constexpr int TY = 32;    // output tile height, y, at k <= KLO
+constexpr int TYHI = 16;  // output tile height at k > KLO
+constexpr int KLO = 3;    // deepest k with the TY-high tile
 constexpr int KMAX = 6;   // deepest k instantiated (register windows grow with k)
+constexpr int LOOK = 4;   // stage-0 planes in flight ahead of use
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float SIXTH = 1.0f / 6.0f;
 constexpr float HOT = 1.0f;
 constexpr float COLD = 0.0f;
 
+// The launch shape at depth K. A thread owns one 4-cell run of a row of the
+// grown plane; a row has RUNS runs, enough for the widest tile grown by K on
+// both sides at any 16-byte phase of its first cell.
+template <int K>
+struct Shape {
+  static constexpr int TYK = K <= KLO ? TY : TYHI;
+  static constexpr int ROWS = TYK + 2 * K;
+  static constexpr int RUNS = (3 + TX + 3 + 2 * K + 3) / 4;
+  static constexpr int PITCH = 4 * RUNS;  // floats per shared-memory row
+  static constexpr int PLANE = ROWS * PITCH;
+  static constexpr int RING = LOOK + 2;
+  static constexpr int PLANES = RING + 2 * (K - 1);
+  static constexpr int NT = (ROWS * RUNS + 31) / 32 * 32;
+  static constexpr long long SMEM = 4LL * (PLANES * PLANE + 2 * PITCH);
+  static_assert(RING == 6 && LOOK == 4, "the step loop is unrolled over 6 ring slots");
+};
+
 struct Params {
   const float* curr;
   float* out;
-  long long sz, sy;            // strides (elements) of z and y; x is unit
-  long long bstride;           // elements per padded resident block
+  long long sz, bstride;       // strides (elements) of z and of a resident block
+  int sy, py;                  // stride of y (x is unit); padded rows
   int zo, yo, xo;              // compute-region origin in the padded block
   int nz, ny, nx;              // compute-region extent of one block
   int bz, by, bx;              // blocks of the partition along z, y, x
@@ -89,6 +134,7 @@ struct Params {
   int hx, hy, hz, dhc;         // hot centre; the cold one is dhc further in x
   int band;                    // only |z - hz| <= band holds sphere cells
   int thresh;                  // (gx/10 + 1)^2
+  int vec;                     // pointers and strides allow 16-byte runs
 };
 
 __device__ __forceinline__ int wrapi(int a, int n) {
@@ -100,135 +146,280 @@ __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
 }
 
-template <int K, bool MB>
-__global__ void __launch_bounds__(NT) jacobi_multistep_kernel(Params p) {
-  constexpr int WG = TILE + 2 * K;  // edge of the grown stage-0 plane
-  constexpr int G = WG * WG;
-  constexpr int M = (G + NT - 1) / NT;  // cells per thread
-  const int res = MB ? blockIdx.z / p.nzc : 0;
-  const int rx = res % p.bx, ry = (res / p.bx) % p.by, rz = res / (p.bx * p.by);
-  const int oz = MB ? rz * p.nz : 0, oy = MB ? ry * p.ny : 0, ox = MB ? rx * p.nx : 0;
-  // the resident's offset rides in off0, so curr and out stay kernel
-  // parameters
-  const long long base = MB ? res * p.bstride : 0;
-  const int X0 = blockIdx.x * TILE;
-  const int Y0 = blockIdx.y * TILE;
-  const int Z0 = (blockIdx.z - res * p.nzc) * p.zchunk;
-  const int Z1 = min(p.nz, Z0 + p.zchunk);
-  const int nsteps = (Z1 - Z0) + 2 * K;
-  const int t = threadIdx.x;
-  extern __shared__ float smem[];  // [stage 0..K-1][plane & 1][G]
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  // This thread's cells c = t + m*NT of the grown plane: its ring (the
-  // distance in cells from the grown plane's edge: stage s computes the cell
-  // iff ring >= s; a cell of the last tile outside the block stops at
-  // stage k - 1, so stage k writes only the block's cells), its offset in
-  // the stack (the stage-0 input, and the output for the tile's cells), and
-  // its x offset / squared y distance from the hot centre. Few registers per
-  // cell: at k = 3 the register windows fill most of the 64 a 1024-thread
-  // block allows.
-  int ring[M];
-  long long off0[M];
-  int dxh[M], dy2[M];
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// (x_lo + x_hi + y_lo + y_hi + z_lo + z_hi) * 1/6, left to right
+__device__ __forceinline__ float avg6(float xl, float xh, float yl, float yh, float zl,
+                                      float zh) {
+  float s = xl + xh;
+  s = s + yl;
+  s = s + yh;
+  s = s + zl;
+  s = s + zh;
+  return s * SIXTH;
+}
+
+// What a block knows of its tile, the same for all its threads. The tile's
+// output columns are block-local x in [X0, X1): tiles after the first start
+// where the padded row is 16-byte aligned, so that their output runs are
+// whole aligned vectors.
+struct Tile {
+  const float* curr;  // the resident's block
+  float* out;
+  float* ring;        // stage-0 ring, after the leading guard row
+  float* bufs;        // stages 1..K-1, two planes each
+  int X0, X1, Y0, Z0, nsteps, e;
+  int oz;             // the resident's global z origin
+  bool zm;            // z has several blocks (deep halo)
+};
+
+// What a thread owns: one 4-cell run of a row of the grown plane, at offset
+// me in a plane; the largest stage a cell of it is needed at (-1: none); its
+// lane; its cells' block-local x (from lx0); its source row's offset and its
+// cells' source x (xq; the first is also the output x when the run lies in
+// the block), and whether the run copies as one 16-byte vector (vcp); its
+// output cells (st: bits 0-3, and bit 8 when they store as one aligned
+// vector); for the spheres, its row's squared y distance from their centre,
+// its first cell's wrapped global x and the least squared x distance of its
+// cells from either centre; and per stage s < K its planes' values,
+// w[s][slot][cell], slot = (step - s) mod 3.
+template <int K>
+struct Run {
+  float w[K][3][4];
+  int me, smax, lane, lx0, yoff, st, dy2, gx0, dxm2;
+  int xq[4];
+  bool vcp;
+};
+
+// Copy the run's cells of relative plane jj into its ring slot, jj mod RING
+// = Q (one commit group per step, empty past the chunk).
+template <int K, int Q>
+__device__ __forceinline__ void issue(const Params& p, const Tile& b, const Run<K>& c, int jj) {
+  using S = Shape<K>;
+  if (c.smax >= 0 && jj < b.nsteps) {
+    const int u = b.Z0 - K + jj;
+    const int zu = b.zm ? u : (u < 0 ? u + p.nz : (u >= p.nz ? u - p.nz : u));
+    const float* src = b.curr + (long long)(p.zo + zu) * p.sz + c.yoff;
+    float* dst = b.ring + Q * S::PLANE + c.me;
+    if (c.vcp) {
+      cp16(dst, src + c.xq[0]);
+    } else {
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const int c = t + m * NT;
-    const int cy = c / WG, cx = c - (c / WG) * WG;
-    const int ly = Y0 + cy - K, lx = X0 + cx - K;  // block-local
-    ring[m] = c < G ? min(min(cy, WG - 1 - cy), min(cx, WG - 1 - cx)) : -1;
-    if (ring[m] >= K && (lx >= p.nx || ly >= p.ny)) ring[m] = K - 1;
-    const int ay = MB && p.by > 1 ? clampi(ly, -K, p.ny + K - 1) : wrapi(ly, p.ny);
-    const int ax = MB && p.bx > 1 ? clampi(lx, -K, p.nx + K - 1) : wrapi(lx, p.nx);
-    off0[m] = c < G ? base + (long long)(p.yo + ay) * p.sy + p.xo + ax : -1;
-    const int gy = wrapi(oy + ly, p.gy), gx = wrapi(ox + lx, p.gx);
-    dxh[m] = gx - p.hx;
-    dy2[m] = (gy - p.hy) * (gy - p.hy);
+      for (int q = 0; q < 4; ++q) cp4(dst + q, src + c.xq[q]);
+    }
   }
-  // win[s][m]: stage s at this cell for its last three planes, oldest first
-  float win[K][M][3];
-  float pf[M];
-  auto prefetch = [&](int j) {
-    const int u = Z0 - K + j;
-    const int zu = MB && p.bz > 1 ? u : (u < 0 ? u + p.nz : (u >= p.nz ? u - p.nz : u));
-    const long long pz = (long long)(p.zo + zu) * p.sz;
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-      if (off0[m] >= 0) pf[m] = p.curr[pz + off0[m]];
-  };
-  prefetch(0);
+  cp_commit();
+}
 
-  for (int j = 0; j < nsteps; ++j) {
-    // stage 0: the input plane u = Z0 - K + j
-    {
-      float* dst = smem + ((Z0 - K + j) & 1) * G;
+// The spheres on plane v (dz from the hot centre): hot wins over cold.
+template <int K>
+__device__ __forceinline__ void spheres(const Params& p, const Run<K>& c, int dz,
+                                        float (&o)[4]) {
+  const int yz = c.dy2 + dz * dz;
+  if (c.dxm2 + yz < p.thresh) {
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        if (off0[m] >= 0) {
-          win[0][m][0] = win[0][m][1];
-          win[0][m][1] = win[0][m][2];
-          win[0][m][2] = pf[m];
-          dst[t + m * NT] = pf[m];
-        }
-      }
-      if (j + 1 < nsteps) prefetch(j + 1);
+    for (int q = 0; q < 4; ++q) {
+      int gx = c.gx0 + q;
+      while (gx >= p.gx) gx -= p.gx;
+      const int dx = gx - p.hx;
+      const int dc = dx - p.dhc;
+      o[q] = dx * dx + yz < p.thresh ? HOT : (dc * dc + yz < p.thresh ? COLD : o[q]);
     }
-#pragma unroll
-    for (int s = 1; s <= K; ++s) {
-      if (j >= 2 * s) {
-        const int v = Z0 - K + j - s;
-        const float* src = smem + (2 * (s - 1) + (v & 1)) * G;  // stage s-1, plane v
-        float* dst = smem + (2 * s + (v & 1)) * G;                // stage s, plane v
-        // the plane's wrapped global z: v lies within k planes of the
-        // block and k <= nz, so one correction wraps it
-        const int zg = oz + v;
-        const int dz = (zg < 0 ? zg + p.gz : (zg >= p.gz ? zg - p.gz : zg)) - p.hz;
-        const bool in_band = dz <= p.band && -dz <= p.band;
-        const long long pz = (long long)(p.zo + v) * p.sz;       // used when s == K
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          // stage s covers [s, WG - s) of the grown plane in y and x
-          if (ring[m] >= s) {
-            const int c = t + m * NT;
-            float sum = src[c - 1] + src[c + 1];
-            sum = sum + src[c - WG];
-            sum = sum + src[c + WG];
-            sum = sum + win[s - 1][m][0];
-            sum = sum + win[s - 1][m][2];
-            float val = sum * SIXTH;
-            if (in_band) {
-              const int yz = dy2[m] + dz * dz;
-              const int dxc = dxh[m] - p.dhc;
-              val = dxh[m] * dxh[m] + yz < p.thresh ? HOT
-                                                     : (dxc * dxc + yz < p.thresh ? COLD : val);
-            }
-            if (s < K) {
-              win[s][m][0] = win[s][m][1];
-              win[s][m][1] = win[s][m][2];
-              win[s][m][2] = val;
-              dst[c] = val;
-            } else {
-              // an output cell lies inside the block, where off0 is unwrapped
-              p.out[pz + off0[m]] = val;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
   }
 }
 
-long long smem_bytes(int k) {
-  return 2LL * k * (TILE + 2 * k) * (TILE + 2 * k) * (long long)sizeof(float);
+// Step j (P = j mod RING; RING is a multiple of 2 and 3, so every ring slot,
+// buffer parity and window slot below is a constant): wait for stage 0's
+// plane j, barrier, copy plane j + LOOK, load plane j into the window, then
+// stages 1..K.
+template <int K, int P>
+__device__ __forceinline__ void step(const Params& p, const Tile& b, Run<K>& c, int j) {
+  using S = Shape<K>;
+  constexpr int PITCH = S::PITCH, RING = S::RING;
+  cp_wait<LOOK - 1>();
+  __syncthreads();
+  issue<K, (P + LOOK) % RING>(p, b, c, j + LOOK);
+  if (c.smax >= 0) {
+    const float4 a = *reinterpret_cast<const float4*>(b.ring + P * S::PLANE + c.me);
+    float(&w0)[4] = c.w[0][P % 3];
+    w0[0] = a.x, w0[1] = a.y, w0[2] = a.z, w0[3] = a.w;
+  }
+  // which stages' planes hold sphere cells: stage s works on plane
+  // Z0 - K + j - s, whose wrapped global z lies within k planes of the block
+  // (k <= nz, so one correction wraps it)
+  int band = 0;
+  {
+    const int z0 = b.oz + b.Z0 - K + j;
+#pragma unroll
+    for (int s = 1; s <= K; ++s) {
+      const int zg = z0 - s;
+      const int dz = (zg < 0 ? zg + p.gz : (zg >= p.gz ? zg - p.gz : zg)) - p.hz;
+      if (dz <= p.band && -dz <= p.band) band |= 1 << s;
+    }
+  }
+#pragma unroll
+  for (int s = 1; s <= K; ++s) {
+    if (j < 2 * s) continue;
+    const float(&m)[4] = c.w[s - 1][(P - s + 12) % 3];   // plane v of stage s - 1
+    const float(&lo)[4] = c.w[s - 1][(P - s + 11) % 3];  // plane v - 1
+    const float(&hi)[4] = c.w[s - 1][(P - s + 13) % 3];  // plane v + 1
+    // x edges from the neighbouring runs' lanes; lanes 0 and 31 read theirs
+    float xl = __shfl_up_sync(FULL, m[3], 1);
+    float xr = __shfl_down_sync(FULL, m[0], 1);
+    if (c.smax < s) continue;
+    const int v = b.Z0 - K + j - s;  // the plane stage s computes
+    // stage s - 1 at plane v: the ring slot of plane j - 1, or the buffer
+    // stage s - 1 wrote one step ago
+    const float* in = (s == 1 ? b.ring + ((P + RING - 1) % RING) * S::PLANE
+                              : b.bufs + (2 * (s - 2) + ((P - s + RING) & 1)) * S::PLANE) +
+                      c.me;
+    if (c.lane == 0) xl = in[-1];
+    if (c.lane == 31) xr = in[4];
+    const float4 up = *reinterpret_cast<const float4*>(in - PITCH);
+    const float4 dn = *reinterpret_cast<const float4*>(in + PITCH);
+    float o[4];
+    o[0] = avg6(xl, m[1], up.x, dn.x, lo[0], hi[0]);
+    o[1] = avg6(m[0], m[2], up.y, dn.y, lo[1], hi[1]);
+    o[2] = avg6(m[1], m[3], up.z, dn.z, lo[2], hi[2]);
+    o[3] = avg6(m[2], xr, up.w, dn.w, lo[3], hi[3]);
+    if (band >> s & 1) {
+      const int zg = b.oz + v;
+      spheres<K>(p, c, (zg < 0 ? zg + p.gz : (zg >= p.gz ? zg - p.gz : zg)) - p.hz, o);
+    }
+    if (s < K) {
+      float(&nw)[4] = c.w[s][(P - s + 12) % 3];
+      nw[0] = o[0], nw[1] = o[1], nw[2] = o[2], nw[3] = o[3];
+      *reinterpret_cast<float4*>(b.bufs + (2 * (s - 1) + ((P - s + RING) & 1)) * S::PLANE +
+                                 c.me) = make_float4(o[0], o[1], o[2], o[3]);
+    } else if (c.st) {
+      // the output, inside the block, where offsets are unwrapped
+      float* d = b.out + (long long)(p.zo + v) * p.sz + c.yoff;
+      if (c.st & 256) {
+        *reinterpret_cast<float4*>(d + c.xq[0]) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+        d += p.xo + c.lx0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c.st >> q & 1) d[q] = o[q];
+      }
+    }
+  }
+}
+
+template <int K, bool MB>
+__global__ void __launch_bounds__(Shape<K>::NT, 1)
+    jacobi_multistep_kernel(const __grid_constant__ Params p) {
+  using S = Shape<K>;
+  extern __shared__ __align__(16) float smem[];
+  Tile b;
+  const int res = MB ? blockIdx.z / p.nzc : 0;
+  const int rx = res % p.bx, ry = (res / p.bx) % p.by, rz = res / (p.bx * p.by);
+  const int ox = MB ? rx * p.nx : 0, oy = MB ? ry * p.ny : 0;
+  b.oz = MB ? rz * p.nz : 0;
+  b.curr = p.curr + (MB ? res * p.bstride : 0);
+  b.out = p.out + (MB ? res * p.bstride : 0);
+  b.ring = smem + S::PITCH;
+  b.bufs = b.ring + S::RING * S::PLANE;
+  const bool xm = MB && p.bx > 1, ym = MB && p.by > 1;
+  b.zm = MB && p.bz > 1;
+  const int tx = blockIdx.x;
+  b.X0 = tx == 0 ? 0 : tx * TX + (-p.xo & 3);
+  b.X1 = min(p.nx, (tx + 1) * TX + (-p.xo & 3));
+  if (b.X0 >= b.X1) return;  // the whole block: a last tile with no columns
+  b.Y0 = blockIdx.y * S::TYK;
+  b.Z0 = (blockIdx.z - res * p.nzc) * p.zchunk;
+  b.nsteps = min(p.nz, b.Z0 + p.zchunk) - b.Z0 + 2 * K;
+  // column col of the grown plane is block-local x = X0 - K - e + col: runs
+  // of 4 start on the padded block's 16-byte grid
+  b.e = (p.xo + b.X0 - K) & 3;
+  const int W = b.X1 - b.X0;
+
+  Run<K> c;
+  const int t = threadIdx.x;
+  c.lane = t & 31;
+  const int row = t / S::RUNS, rn = t - row * S::RUNS;
+  c.me = row * S::PITCH + 4 * rn;
+  c.smax = -1;
+  if (t < S::ROWS * S::RUNS) {
+    // stage s needs rows [s, ROWS - s) and columns [e + s, e + W + 2K - s)
+    const int sr = min(row, S::ROWS - 1 - row);
+    const int sc = min(4 * rn + 3 - b.e, b.e + W + 2 * K - 1 - 4 * rn);
+    c.smax = min(min(sr, sc), K);
+  }
+  c.lx0 = b.X0 - K - b.e + 4 * rn;
+  const int ly = b.Y0 - K + row;
+  // source cells: by index wrap on a single-block axis, clamped into the
+  // padded block on a deep-halo axis (cells farther out than k feed no
+  // output)
+  c.yoff = (ym ? clampi(p.yo + ly, 0, p.py - 1) : p.yo + wrapi(ly, p.ny)) * p.sy;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    c.xq[q] = xm ? clampi(p.xo + c.lx0 + q, 0, p.sy - 1) : p.xo + wrapi(c.lx0 + q, p.nx);
+  c.vcp = p.vec && c.xq[3] == c.xq[0] + 3 && (c.xq[0] & 3) == 0;
+  // output cells: columns [e + K, e + K + W), rows [K, K + TYK), in the block
+  c.st = 0;
+  if (c.smax >= K && row < K + S::TYK && ly < p.ny) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = 4 * rn + q - b.e - K;
+      if (col >= 0 && col < W) c.st |= 1 << q;
+    }
+    if (c.st == 15 && p.vec && ((p.xo + c.lx0) & 3) == 0) c.st |= 256;
+  }
+  // the spheres: at the wrapped global coordinate
+  const int gy = wrapi(oy + ly, p.gy) - p.hy;
+  c.dy2 = gy * gy;
+  c.gx0 = wrapi(ox + c.lx0, p.gx);
+  c.dxm2 = INT_MAX;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int dx = wrapi(c.gx0 + q, p.gx) - p.hx, dc = dx - p.dhc;
+    c.dxm2 = min(c.dxm2, min(dx * dx, dc * dc));
+  }
+
+  issue<K, 0>(p, b, c, 0);
+  issue<K, 1>(p, b, c, 1);
+  issue<K, 2>(p, b, c, 2);
+  issue<K, 3>(p, b, c, 3);
+  for (int j = 0; j < b.nsteps; j += S::RING) {
+    step<K, 0>(p, b, c, j);
+    if (j + 1 < b.nsteps) step<K, 1>(p, b, c, j + 1);
+    if (j + 2 < b.nsteps) step<K, 2>(p, b, c, j + 2);
+    if (j + 3 < b.nsteps) step<K, 3>(p, b, c, j + 3);
+    if (j + 4 < b.nsteps) step<K, 4>(p, b, c, j + 4);
+    if (j + 5 < b.nsteps) step<K, 5>(p, b, c, j + 5);
+  }
+  cp_wait<0>();
 }
 
 template <int K, bool MB>
 int launch_mb(const Params& p, dim3 grid, cudaStream_t st) {
+  using S = Shape<K>;
+  grid.y = (p.ny + S::TYK - 1) / S::TYK;
   cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, MB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes(K));
+                                         (int)S::SMEM);
   if (err != cudaSuccess) return (int)err;
-  jacobi_multistep_kernel<K, MB><<<grid, NT, smem_bytes(K), st>>>(p);
+  jacobi_multistep_kernel<K, MB><<<grid, S::NT, S::SMEM, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -238,16 +429,50 @@ int launch(const Params& p, dim3 grid, cudaStream_t st) {
                                 : launch_mb<K, false>(p, grid, st);
 }
 
-// Occupancy of the multi-block instantiation (the single-block one holds
-// as many blocks: the same shared memory, at most the same registers).
-template <int K>
-int occupancy(int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, true>,
+// r[0..4]: resident blocks per SM, registers per thread, local (spill)
+// bytes per thread, threads per block, dynamic shared memory bytes.
+template <int K, bool MB>
+int info(int* r) {
+  using S = Shape<K>;
+  cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, MB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes(K));
+                                         (int)S::SMEM);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, jacobi_multistep_kernel<K, MB>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[0], jacobi_multistep_kernel<K, MB>,
+                                                        S::NT, S::SMEM);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, jacobi_multistep_kernel<K, true>, NT, smem_bytes(K));
+  r[1] = a.numRegs;
+  r[2] = (int)a.localSizeBytes;
+  r[3] = S::NT;
+  r[4] = (int)S::SMEM;
+  return 0;
+}
+
+template <bool MB>
+int info_k(int k, int* r) {
+  switch (k) {
+    case 1: return info<1, MB>(r);
+    case 2: return info<2, MB>(r);
+    case 3: return info<3, MB>(r);
+    case 4: return info<4, MB>(r);
+    case 5: return info<5, MB>(r);
+    case 6: return info<6, MB>(r);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+long long smem_bytes(int k) {
+  switch (k) {
+    case 1: return Shape<1>::SMEM;
+    case 2: return Shape<2>::SMEM;
+    case 3: return Shape<3>::SMEM;
+    case 4: return Shape<4>::SMEM;
+    case 5: return Shape<5>::SMEM;
+    case 6: return Shape<6>::SMEM;
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -266,7 +491,8 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
                                        int bx, int k, int gx, int gy, int gz,
                                        int zchunks, int dev, void* stream) {
   if (k < 1 || k > KMAX || k > nz || nz < 1 || ny < 1 || nx < 1 || zchunks < 1 ||
-      bz < 1 || by < 1 || bx < 1 || (long long)bz * by * bx * zchunks > 65535)
+      bz < 1 || by < 1 || bx < 1 || sz > INT_MAX || sy > sz ||
+      (long long)bz * by * bx * zchunks > 65535)
     return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
@@ -274,7 +500,8 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
   p.curr = (const float*)curr;
   p.out = (float*)out;
   p.sz = sz;
-  p.sy = sy;
+  p.sy = (int)sy;
+  p.py = (int)(sz / sy);
   p.bstride = bstride;
   p.zo = zo;
   p.yo = yo;
@@ -296,7 +523,9 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
   p.dhc = gx * 2 / 3 - gx / 3;
   p.band = gx / 10;
   p.thresh = (gx / 10 + 1) * (gx / 10 + 1);
-  const dim3 grid((nx + TILE - 1) / TILE, (ny + TILE - 1) / TILE, bz * by * bx * p.nzc);
+  p.vec = ((uintptr_t)curr % 16 == 0) && ((uintptr_t)out % 16 == 0) && sz % 4 == 0 &&
+          sy % 4 == 0 && bstride % 4 == 0;
+  const dim3 grid((nx + TX - 1) / TX, 1, bz * by * bx * p.nzc);  // grid.y: launch_mb
   cudaStream_t st = (cudaStream_t)stream;
   switch (k) {
     case 1: return launch<1>(p, grid, st);
@@ -308,17 +537,11 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
   }
 }
 
-// Resident blocks per SM at depth k on device dev.
-extern "C" int jacobi_multistep_blocks_per_sm(int k, int dev, int* blocks) {
+// The instantiation of depth k (mb: the multi-block one) on device dev:
+// r[0..4] = resident blocks per SM, registers per thread, local (spill)
+// bytes per thread, threads per block, dynamic shared memory bytes.
+extern "C" int jacobi_multistep_info(int k, int mb, int dev, int* r) {
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
-  switch (k) {
-    case 1: return occupancy<1>(blocks);
-    case 2: return occupancy<2>(blocks);
-    case 3: return occupancy<3>(blocks);
-    case 4: return occupancy<4>(blocks);
-    case 5: return occupancy<5>(blocks);
-    case 6: return occupancy<6>(blocks);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return mb ? info_k<true>(k, r) : info_k<false>(k, r);
 }

@@ -53,7 +53,7 @@ SIGNATURES = {
         "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "jacobi_multistep_smem_bytes": (_L, [_I]),
-        "jacobi_multistep_blocks_per_sm": (_I, [_I, _I, ctypes.POINTER(_I)]),
+        "jacobi_multistep_info": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
     },
     "self_fill": {
         "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, ctypes.POINTER(_L), _L,

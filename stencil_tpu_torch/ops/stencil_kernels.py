@@ -57,14 +57,22 @@ COLD_TEMP = 0.0
 SIXTH = float(np.float32(1.0) / np.float32(6.0))
 FIELD_DTYPES = (torch.float32, torch.float64)
 
-# Mirrors csrc/jacobi_multistep.cu: output tile, deepest k the kernel takes,
-# and the shared memory one block may use on an H100 (232,448 bytes).
-MULTISTEP_TILE = (32, 32)  # (x, y)
+# Mirrors csrc/jacobi_multistep.cu: output tile (x, and y at k <= KLO),
+# the tile height at deeper k, the deepest k the kernel takes, stage-0
+# planes copied ahead of use, and the shared memory one block may use on an
+# H100 (232,448 bytes).
+MULTISTEP_TILE = (64, 32)  # (x, y)
+MULTISTEP_TILE_Y_HI = 16
+MULTISTEP_KLO = 3
 MULTISTEP_KMAX = 6
+MULTISTEP_LOOK = 4
 SMEM_LIMIT = 232448
-# The deepest depth the planner picks: the deepest whose register windows
-# do not spill (ptxas: k=3 fits 64 registers, k=4..6 spill 48-156 bytes),
-# which is also the fastest per step at 512^3 on an H100 (PERF.md).
+# The deepest depth the planner picks: the fastest per step at 512^3, in
+# both forms, whose instantiations do not spill. ptxas: k=3 takes 80
+# registers (the cap of its 736-thread block) and k=4 96-109, without spill;
+# at their 96-register cap k=5 spills up to 8 bytes and k=6 up to 56. Per
+# step on an H100 80GB HBM3 at 700 W (apps/bench_kernels, PERF.md section 6)
+# k=3 beats k=2, 4, 5 and 6, single-block and deep-halo.
 MULTISTEP_KPLAN = 3
 # the JAX package's depth cap (the k its multistep defaults to)
 TEMPORAL_K_CAP = 12
@@ -216,20 +224,49 @@ def multistep_plain(curr, nxt, spec: GridSpec, k: int):
     return nxt
 
 
+def multistep_shape(k: int) -> dict:
+    """The multistep kernel's launch shape at depth ``k`` (``Shape<K>`` in
+    ``csrc/jacobi_multistep.cu``): the output tile (``tile``: x, y); a
+    thread owns a 4-cell x run of a row of the tile grown by k (``rows``);
+    a row holds ``runs`` runs, enough for the widest tile (the first of a
+    row is up to 3 columns wider) at any 16-byte phase of its first cell;
+    shared memory holds a guard row, a stage-0 ring of ``LOOK + 2`` planes,
+    two planes for each of stages 1..k-1 and a guard row."""
+    tx = MULTISTEP_TILE[0]
+    ty = MULTISTEP_TILE[1] if k <= MULTISTEP_KLO else MULTISTEP_TILE_Y_HI
+    rows = ty + 2 * k
+    runs = -(-(3 + tx + 3 + 2 * k) // 4)
+    pitch = 4 * runs
+    planes = MULTISTEP_LOOK + 2 + 2 * (k - 1)
+    return {"tile": (tx, ty), "rows": rows, "runs": runs, "pitch": pitch, "planes": planes,
+            "threads": -(-(rows * runs) // 32) * 32,
+            "smem_bytes": 4 * (planes * rows * pitch + 2 * pitch)}
+
+
+def multistep_stage_updates(spec: GridSpec, k: int) -> int:
+    """Cell updates one depth-``k`` launch makes over ``spec``'s blocks
+    with the kernel's tiles, ghost zones included: stage s covers each tile
+    grown by k - s cells in x and y, over the block's planes grown by k - s
+    in z. Each update is 7 fp32 operations (6 adds and a multiply,
+    unfused)."""
+    tx, ty = multistep_shape(k)["tile"]
+    b = spec.base
+    tiles = -(-b.x // tx) * -(-b.y // ty) * spec.num_blocks()
+    return tiles * sum((tx + 2 * g) * (ty + 2 * g) * (b.z + 2 * g) for g in range(k))
+
+
 def multistep_smem_bytes(k: int) -> int:
-    """Shared memory of one multistep block at depth ``k``: two planes of
-    the tile grown by k cells for each of stages 0..k-1 (the kernel exports
-    the same formula as ``jacobi_multistep_smem_bytes``)."""
-    tx, ty = MULTISTEP_TILE
-    return 4 * 2 * k * (ty + 2 * k) * (tx + 2 * k)
+    """Shared memory of one multistep block at depth ``k`` (the kernel
+    exports the same formula as ``jacobi_multistep_smem_bytes``)."""
+    return multistep_shape(k)["smem_bytes"]
 
 
 def plan_multistep_depth(k_want: int) -> int:
     """The deepest k <= ``k_want`` up to ``MULTISTEP_KPLAN``. Every depth
-    the kernel takes fits one block's shared memory (``SMEM_LIMIT``); its
-    register windows are what bind. Unlike the TPU planner it does not
-    depend on the plane size: the kernel tiles x and y, so 512^3 and 768^3
-    get the same depth."""
+    the kernel takes fits one block's shared memory (``SMEM_LIMIT``); speed
+    per step is what binds. Unlike the TPU planner it does not depend on the
+    plane size: the kernel tiles x and y, so 512^3 and 768^3 get the same
+    depth."""
     return max(0, min(k_want, MULTISTEP_KPLAN))
 
 
@@ -359,14 +396,23 @@ sweep_region.launches = 0
 
 
 def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int) -> int:
-    """z chunks per tile column: enough thread blocks, over the tiles of
-    every resident block, to give the device ``blocks_in_flight`` (its SMs
-    times the multistep blocks an SM holds), without a chunk shorter than
-    4k planes (each chunk re-runs a 2k warm-up)."""
-    tx, ty = MULTISTEP_TILE
+    """z chunks per tile column: the count whose launch the device
+    finishes soonest, in plane steps (a chunk of c planes takes c + 2k
+    steps, its 2k warm-up included), with ``blocks_in_flight`` (the SMs
+    times the multistep blocks an SM holds) running at once: every block's
+    steps shared evenly over them, plus one block's steps for the last to
+    finish; the fewest chunks on a tie. No chunk is shorter than 4k
+    planes."""
+    tx, ty = multistep_shape(k)["tile"]
     b = spec.base
     tiles = -(-b.x // tx) * -(-b.y // ty) * spec.num_blocks()
-    return max(1, min(-(-blocks_in_flight // tiles), b.z // max(4 * k, 1)))
+    slots = max(1, blocks_in_flight)
+
+    def steps(n):
+        per_block = -(-b.z // n) + 2 * k
+        return tiles * n * per_block / slots + per_block
+
+    return min(range(1, max(1, b.z // max(4 * k, 1)) + 1), key=lambda n: (steps(n), n))
 
 
 def multistep_blocks_in_flight(dev: torch.device, k: int) -> int:
@@ -374,12 +420,21 @@ def multistep_blocks_in_flight(dev: torch.device, k: int) -> int:
     return _blocks_in_flight(dev.index, k)
 
 
+def multistep_info(index: int, k: int, multi_block: bool = False) -> dict:
+    """What the depth-``k`` instantiation (``multi_block``: the deep-halo
+    one) reports on CUDA device ``index``: resident blocks per SM,
+    registers and local (spill) bytes per thread, threads and dynamic
+    shared memory per block."""
+    r = (ctypes.c_int * 5)()
+    _native.check(_native.lib("jacobi_multistep").jacobi_multistep_info(
+        k, int(multi_block), index, r), "jacobi_multistep_info")
+    return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
+
+
 @functools.lru_cache(maxsize=None)
 def _blocks_in_flight(index: int, k: int) -> int:
-    per_sm = ctypes.c_int(0)
-    _native.check(_native.lib("jacobi_multistep").jacobi_multistep_blocks_per_sm(
-        k, index, ctypes.byref(per_sm)), "jacobi_multistep_blocks_per_sm")
-    return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
+    per_sm = multistep_info(index, k, multi_block=True)["blocks_per_sm"]
+    return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm)
 
 
 def multistep(curr, nxt, spec: GridSpec, k: int):

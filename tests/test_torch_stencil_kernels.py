@@ -165,9 +165,10 @@ def test_coordinate_spheres_equal_sphere_sel(size):
 
 
 def test_multistep_depth_planner():
-    # two planes of the 32x32 tile grown by k per stage; the register
-    # windows, not shared memory, bound the depth
-    assert tk.multistep_smem_bytes(4) == 2 * 4 * 40 * 40 * 4
+    # at k=4: guard rows and 4 + 2 + 2 * 3 planes of the 64x16 tile grown by
+    # 4, at a pitch of 20 runs of 4; speed per step, not shared memory, bounds
+    # the depth
+    assert tk.multistep_smem_bytes(4) == 4 * ((4 + 2 + 2 * 3) * (16 + 8) * 80 + 2 * 80)
     assert tk.plan_multistep_depth(12) == tk.MULTISTEP_KPLAN == 3
     assert tk.plan_multistep_depth(2) == 2
     assert tk.plan_multistep_depth(1) == 1
