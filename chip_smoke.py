@@ -13,7 +13,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               multistep instantiation's registers, spill bytes and blocks
               per SM, its threads and shared memory held to the wrapper's
               (stencil_kernels.multistep_shape), no spill at the planner's
-              depth.
+              depth; the fused step kernel's registers, spill bytes and
+              blocks per SM (no spill, at least 2 blocks), its launch shape
+              held to fused_stencil.fused_shape and its z-chunk rule to
+              fused_stencil.fused_zchunks at five shapes.
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
               odd sizes, non-wrapping axes, fp32 and fp64 fills; the
@@ -58,7 +61,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 6. remote-dma -- jacobi3d's remote-dma kernel variants: the fused step kernel
               against its plain version (torch.equal on curr with its halos
               and on out) at 512^3 r1, 100x70x50 unaligned r1 and 33x21x13
-              r2, and the persistent chunk kernel (torch.equal on both
+              r2, and with sel codes in [-1, 4) at 200x100x61 and 513x37x19
+              r1 unaligned (a row pitch whose 16-byte phase moves every
+              row, ragged last tiles) and 70x45x29 r3 aligned and
+              unaligned, and the persistent chunk kernel (torch.equal on both
               buffers) at 200x100x60 k=2,3,4,6 and k=8 (two on-chip
               passes, the result in curr), 16x16x14 k=2, 16x16x13 k=4,
               33x21x13 k=3 (ragged tiles and z chunks) and 512^3 k=4, all
@@ -137,7 +143,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               persistent chunk, one cooperative launch over every position
               of the mesh: fused_jacobi_mesh against its plain version
               (torch.equal on every cell of every position, curr with its
-              halos and nxt) at 512^3 (2,2,2) r1 and 100x70x60 (1,1,2) r1,
+              halos and nxt) at 512^3 (2,2,2) r1, 100x70x60 (1,1,2) r1 and
+              24x20x16 (2,1,1) r1 (ragged tiles, sel codes in [-1, 4)),
               persistent_jacobi_mesh (both buffers and sel) at 200x100x60
               (2,2,2) k=2,3,4 and k=8, 16x16x14 (2,1,1) k=2, 66x42x26
               (2,2,2) k=3 (33x21x13 blocks: ragged tiles and z chunks) and
@@ -241,6 +248,30 @@ def main() -> int:
                 f"{mi['regs']} registers, {mi['local_bytes']} bytes of spill, "
                 f"{mi['blocks_per_sm']} block(s) of {mi['threads']} threads per SM, "
                 f"{mi['smem_bytes']} bytes of shared memory")
+    fi, fsh = fst.fused_info(0), fst.fused_shape()
+    check(fi["threads"] == fsh["threads"] and fi["smem_bytes"] == fsh["smem_bytes"]
+          and fi["blocks_per_sm"] >= 2 and fi["local_bytes"] == 0,
+          f"fused step kernel: launch shape {fi} differs from the wrapper's {fsh}, holds fewer "
+          "than 2 blocks per SM, or spills")
+    log(f"fused_jacobi: {fi['regs']} registers, {fi['local_bytes']} bytes of spill, "
+        f"{fi['blocks_per_sm']} block(s) of {fi['threads']} threads per SM, "
+        f"{fi['smem_bytes']} bytes of shared memory")
+    in_flight = fi["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
+    fj_lib = _native.lib("fused_jacobi")
+    for size, part, r, aligned in (((512,) * 3, (1, 1, 1), 1, True),
+                                   ((512,) * 3, (2, 2, 2), 1, True),
+                                   ((200, 100, 61), (1, 1, 1), 1, False),
+                                   ((513, 37, 19), (1, 1, 1), 1, False),
+                                   ((24, 20, 16), (2, 1, 1), 1, True)):
+        bs = GridSpec(Dim3(*size), Dim3(*part), Radius.constant(r), aligned=aligned).block_spec()
+        npos = part[0] * part[1] * part[2]
+        got = fj_lib.fused_jacobi_zchunks(bs.base.z, bs.base.y, bs.base.x,
+                                          bs.compute_offset().x, npos, in_flight)
+        check(got == fst.fused_zchunks(bs, npos, in_flight),
+              f"fused z chunks of {size} over {part}: kernel {got}, python "
+              f"{fst.fused_zchunks(bs, npos, in_flight)}")
+        log(f"fused_jacobi {'x'.join(map(str, size))} over {part}: {got} z chunk(s) per tile "
+            f"column for {in_flight} resident blocks")
     pj_lib = _native.lib("persistent_jacobi")
     depths = (ctypes.c_int * 16)()
     for k in range(1, 13):
@@ -680,11 +711,20 @@ def main() -> int:
         return torch.randint(lo, hi, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
                              dtype=torch.int32)
 
-    fused_cases = [("512^3 r1", spec512), (sweep_cases[1][0], sweep_cases[1][1]),
-                   ("33x21x13 r2", sweep_cases[3][1])]
-    for i, (label, spec) in enumerate(fused_cases):
+    # (label, spec, sel codes): the unaligned layouts' row pitch moves the
+    # 16-byte phase every row (808 and 2,060 bytes), so their runs move 4
+    # bytes at a time, and their last tiles are ragged
+    fused_cases = [("512^3 r1", spec512, (0, 3)), (sweep_cases[1][0], sweep_cases[1][1], (0, 3)),
+                   ("33x21x13 r2", sweep_cases[3][1], (0, 3))]
+    fused_cases += [(f"{'x'.join(map(str, size))} r{r}{' unaligned' if not al else ''} sel in "
+                     "[-1, 4)", GridSpec(Dim3(*size), Dim3(1, 1, 1), Radius.constant(r),
+                                         aligned=al), (-1, 4))
+                    for size, r, al in (((200, 100, 61), 1, False), ((513, 37, 19), 1, False),
+                                        ((70, 45, 29), 3, True), ((70, 45, 29), 3, False))]
+    for i, (label, spec, codes) in enumerate(fused_cases):
         plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
-        c, n, s = rand_block(spec, 100 + i), rand_block(spec, 110 + i), rand_sel(spec, 120 + i)
+        c, n = rand_block(spec, 100 + i), rand_block(spec, 110 + i)
+        s = rand_sel(spec, 120 + i, *codes)
         pc, pn = c.clone(), n.clone()
         fst.fused_jacobi(c, n, s, spec, plan)
         fst.fused_jacobi_plain(pc, pn, s, spec, plan)
@@ -773,7 +813,8 @@ def main() -> int:
     log("jacobi 512^3 8 steps: fused path == persistent (k=4) path == default path")
     del start, ref, fused8, start4, pers8
 
-    # per-launch times at 512^3; the cooperative launch is timed without a
+    # per-launch times at 512^3: the fused step (a cooperative launch the
+    # graph captures) by CUDA-graph replay, the persistent chunk without a
     # CUDA graph (events around back-to-back launches)
     plan = build_plan(spec512, (1, 1, 1), Method.REMOTE_DMA, fused=True)
     c, n = rand_block(spec512, 8), rand_block(spec512, 9)
@@ -1477,12 +1518,14 @@ def main() -> int:
         return st[0], st[1], [rand_sel(spec, seed + 2 + i, *codes)
                               for i in range(spec.num_blocks())]
 
-    fused_mesh_cases = [("512^3 (2,2,2) r1", spec_m1),
-                        ("100x70x60 (1,1,2) r1", rspec((100, 70, 60), (1, 1, 2), 1))]
-    for i, (label, spec) in enumerate(fused_mesh_cases):
+    fused_mesh_cases = [("512^3 (2,2,2) r1", spec_m1, (0, 3)),
+                        ("100x70x60 (1,1,2) r1", rspec((100, 70, 60), (1, 1, 2), 1), (0, 3)),
+                        ("24x20x16 (2,1,1) r1 sel in [-1, 4)",
+                         rspec((24, 20, 16), (2, 1, 1), 1), (-1, 4))]
+    for i, (label, spec, codes) in enumerate(fused_mesh_cases):
         mesh = mesh_of(spec)
         plan = build_plan(spec, spec.dim, Method.REMOTE_DMA, fused=True)
-        c, n, s = rand_fields(spec, 500 + 10 * i)
+        c, n, s = rand_fields(spec, 500 + 10 * i, codes)
         pc, pn = cloned([c])[0], cloned([n])[0]
         fst.fused_jacobi_mesh(c, n, s, spec, plan, mesh)
         fst.fused_jacobi_mesh_plain(pc, pn, s, spec, plan, mesh)

@@ -18,7 +18,13 @@ Prints one JSON line per measurement, after a line naming the card
   ``Tensor.copy_`` of the same slabs and its time with the halos evicted
   from L2 (``apps/bench_fill.measure``);
 - ``fused_jacobi``: one fused remote-dma step at size^3, radius 1 (the 26
-  halo hand-offs and the sweep), beside its bytes bound;
+  halo hand-offs and the sweep), beside its bytes bound, with the kernel's
+  registers, spill bytes, blocks per SM, tiles and z chunks (timed by
+  CUDA-graph replay, the cooperative launch captured whole; B1's sweep at
+  the same size is the first row, ``jacobi_sweep``); then two yardsticks for
+  its phases: ``self_fill`` of x for the same block (the row-end hand-offs
+  of phase A's x faces) and ``torch.add`` over three padded blocks (phase
+  B's two read streams and one written, at an elementwise pass's rate);
 - ``persistent_jacobi`` at each depth k >= 2 of ``--ks``: one k-step chunk
   at size^3, radius k, ms per launch and per step, beside the least bytes a
   chunk must move and the bytes this design moves, with its launch shape
@@ -49,7 +55,8 @@ Prints one JSON line per measurement, after a line naming the card
 - the jacobi step over that mesh at size^3, one (size/2)^3 block per
   position: ``jacobi_sweep`` on one position (no wrap; the plain mesh step
   launches one per position), ``fused_jacobi_mesh`` at radius 1 (every
-  position's messages and sweep in one cooperative launch) and
+  position's messages and sweep in one cooperative launch, with the
+  kernel's launch shape as for ``fused_jacobi``) and
   ``persistent_jacobi_mesh`` at each depth k >= 2 of ``--ks`` (radius k,
   ``sel`` halo-filled), each beside its bytes bound. The cooperative
   launches are timed without a CUDA graph, as ``persistent_jacobi`` is.
@@ -140,9 +147,26 @@ def main(argv: Optional[list] = None) -> int:
     ms = cuda_time_ms(lambda: fst.fused_jacobi(curr, nxt, sel, spec, plan), args.reps,
                       graph=True)
     bound, _ = bound_ms(12 * n ** 3, 6 * n ** 3)
-    print(json.dumps({"kernel": "fused_jacobi", "size": n, "ms": ms, "bound_ms": bound}),
-          flush=True)
-    del curr, nxt, sel
+    finfo = fst.fused_info(dev.index)
+    in_flight = finfo["blocks_per_sm"] * torch.cuda.get_device_properties(dev).multi_processor_count
+    print(json.dumps({"kernel": "fused_jacobi", "size": n, "ms": ms, "bound_ms": bound,
+                      "timing": "graph", **finfo, "tiles": fst.fused_tiles(spec),
+                      "zchunks": fst.fused_zchunks(spec, 1, in_flight)}), flush=True)
+    # yardsticks for the fused step's two phases: B4's x fill of the same
+    # block (its row-end hand-offs are phase A's x faces), and one
+    # elementwise pass over three padded blocks, two read and one written
+    # (phase B's three streams)
+    ms = cuda_time_ms(lambda: halo_fill.self_fill([curr], spec, "x"), args.reps * 2, graph=True)
+    nbytes = halo_fill.fill_bytes(spec, "x", 4)
+    print(json.dumps({"kernel": "self_fill", "axis": "x", "size": n, "radius": 1,
+                      "quantities": 1, "ms": ms, "bytes": nbytes,
+                      "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
+    other = torch.rand(curr.shape, generator=gen, device=dev)
+    ms = cuda_time_ms(lambda: torch.add(curr, other, out=nxt), args.reps, graph=True)
+    nbytes = 3 * curr.numel() * curr.element_size()
+    print(json.dumps({"yardstick": "torch.add", "size": n, "padded": curr.numel(), "ms": ms,
+                      "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9}), flush=True)
+    del curr, nxt, sel, other
 
     for k in (k for k in ks if k >= 2):
         speck = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(k))
@@ -263,7 +287,9 @@ def main(argv: Optional[list] = None) -> int:
                               args.reps)
             nbytes = fst.fused_jacobi_mesh_bytes(fplan, 8, specm)
             print(json.dumps({"kernel": "fused_jacobi_mesh", **row, "ms": ms, "bytes": nbytes,
-                              "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
+                              "bound_ms": bound_ms(nbytes, 0)[0], "timing": "events",
+                              **finfo, "tiles": fst.fused_tiles(bspec),
+                              "zchunks": fst.fused_zchunks(bspec, 8, in_flight)}), flush=True)
         else:
             HaloExchange(specm, Method.REMOTE_DMA, mesh=mesh)(sels)
             ms = cuda_time_ms(lambda: pst.persistent_jacobi_mesh(currs, nxts, sels, specm, r,

@@ -1,11 +1,11 @@
 // Per-direction halo messages of a uniform partition's blocks, shared by
-// fused_exchange.cu, fused_jacobi.cu and mesh_chunk.cuh.
+// fused_exchange.cu and mesh_chunk.cuh.
 //
 // A box is one direction's exact-extent message: it copies a block's compute
 // cells (src) into the halo cells on the opposite side (dst) of the receiving
-// block, which on a single, all-self-wrap block is the block itself
-// (copy_box_cell). Boxes of distinct directions write disjoint halo cells and read
-// only compute cells, so they may run in any order, concurrently.
+// block, which on a single, all-self-wrap block is the block itself. Boxes of
+// distinct directions write disjoint halo cells and read only compute cells,
+// so they may run in any order, concurrently.
 
 #pragma once
 
@@ -29,19 +29,4 @@ inline bool make_dir_boxes(const int* rows, int n, DirBoxes* out) {
     out->start[b + 1] = out->start[b] + cells;
   }
   return true;
-}
-
-// Copy cell i (0 <= i < bx.start[bx.n]) of the boxes, in place in a.
-__device__ __forceinline__ void copy_box_cell(float* a, const DirBoxes& bx, long long i,
-                                              long long sz, long long sy) {
-  int b = 0;
-  while (i >= bx.start[b + 1]) ++b;
-  const int* q = bx.box[b];
-  unsigned j = (unsigned)(i - bx.start[b]);
-  const int x = (int)(j % (unsigned)q[8]);
-  j /= (unsigned)q[8];
-  const int y = (int)(j % (unsigned)q[7]);
-  const int z = (int)(j / (unsigned)q[7]);
-  a[(long long)(q[3] + z) * sz + (long long)(q[4] + y) * sy + q[5] + x] =
-      a[(long long)(q[0] + z) * sz + (long long)(q[1] + y) * sy + q[2] + x];
 }

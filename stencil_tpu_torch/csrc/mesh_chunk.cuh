@@ -1,9 +1,10 @@
 // The Jacobi chunk over a mesh of block positions on one device, in one
 // cooperative launch: every position's exact-extent halo messages (phase A),
-// one grid-wide barrier, then the substeps of every position (phase B). Shared
-// by fused_jacobi.cu (mesh_step: one sweep, B8's wire-crossing form) and
-// persistent_jacobi.cu (mesh_onchip_chunk: any k >= 2 with every substep of a
-// tile on chip, B9; a single block is the one-position case).
+// one grid-wide barrier, then the substeps of every position (phase B):
+// persistent_jacobi.cu's mesh_onchip_chunk, any k >= 2 with every substep of a
+// tile on chip (B9; a single block is the one-position case). The position
+// and message tables, and the occupancy query that sizes a cooperative grid,
+// are shared with fused_jacobi.cu (B8), which moves its messages by rows.
 //
 // Tables (int64, in device memory, made by the Python wrappers):
 // - positions: npos rows of (a, b, sel) pointers; a holds curr, b nxt;
@@ -14,18 +15,16 @@
 //   landing buffer. On an axis with one position the destination is the
 //   source itself (a self-wrap hand-off).
 //
-// Semantics. Phase A: the messages. Phase B of mesh_step: every position's
-// compute region of b <- one sweep of a, reading the halos phase A filled.
-// Phase B of mesh_onchip_chunk: k substeps in on-chip passes of at most
-// ONCHIP_KMAX substeps (chunk_passes / pass_depth: balanced, deeper first).
-// Pass p reads (p even ? a : b) over the region grown by the depth still to
-// run, computes its d substeps on chip, and writes only the other buffer,
-// over the region grown by the depth left after it (the compute region for
-// the last pass). The result is in b when the number of passes is odd (every
-// chunk of k <= ONCHIP_KMAX), else in a; a's halos hold the messages; nothing
-// else is written. A substep is the 6-neighbour average in jacobi_column.cuh's
-// operand order, then sel == 1 -> 1.0, sel == 2 -> 0.0 (sel arrives
-// halo-filled), so a chunk equals k plain steps bit for bit
+// Semantics. Phase A: the messages. Phase B: k substeps in on-chip passes of
+// at most ONCHIP_KMAX substeps (chunk_passes / pass_depth: balanced, deeper
+// first). Pass p reads (p even ? a : b) over the region grown by the depth
+// still to run, computes its d substeps on chip, and writes only the other
+// buffer, over the region grown by the depth left after it (the compute
+// region for the last pass). The result is in b when the number of passes is
+// odd (every chunk of k <= ONCHIP_KMAX), else in a; a's halos hold the
+// messages; nothing else is written. A substep is the 6-neighbour average in
+// jacobi_column.cuh's operand order, then sel == 1 -> 1.0, sel == 2 -> 0.0
+// (sel arrives halo-filled), so a chunk equals k plain steps bit for bit
 // (stencil_tpu_torch/ops/persistent_stencil.py, result_in_nxt).
 //
 // Ordering: messages read only compute cells and write only halo cells, each
@@ -107,30 +106,6 @@ __device__ __forceinline__ void mesh_messages(const MeshChunk& c) {
     float* dst = c.pos[msg.dst].a;
     dst[(long long)(q[3] + z) * c.sz + (long long)(q[4] + y) * c.sy + q[5] + x] =
         src[(long long)(q[0] + z) * c.sz + (long long)(q[1] + y) * c.sy + q[2] + x];
-  }
-}
-
-// B8's crossing form: the messages, then one sweep of every position's
-// compute region from a into b, in 32x8-column tiles of one z range marched
-// by jacobi_column.cuh with no wrapping (blocks of BX x BY threads).
-__device__ __forceinline__ void mesh_step(const MeshChunk& c) {
-  mesh_messages(c);
-  cooperative_groups::this_grid().sync();
-  const int gx = (c.nx + BX - 1) / BX;
-  const int gy = (c.ny + BY - 1) / BY;
-  const long long cols = (long long)gx * gy;
-  const int zchunk = zchunk_for((long long)TILES_PER_BLOCK * gridDim.x, cols * c.npos, c.nz);
-  const long long per_pos = cols * ((c.nz + zchunk - 1) / zchunk);
-  const long long tiles = per_pos * c.npos;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const MeshPosition p = c.pos[t / per_pos];
-    const long long u = t % per_pos;
-    const int tx = (int)(u % gx) * BX + threadIdx.x;
-    const int ty = (int)((u / gx) % gy) * BY + threadIdx.y;
-    const int z0 = (int)(u / cols) * zchunk;
-    if (tx >= c.nx || ty >= c.ny) continue;
-    march_column(p.a, p.b, p.sel, c.sz, c.zo, z0, min(c.nz, z0 + zchunk), c.nz, false,
-                 column_at(tx, ty, c.xo, c.yo, c.nx, c.ny, false, false, c.sy));
   }
 }
 

@@ -60,10 +60,10 @@ SIGNATURES = {
                                   _L, _I, _P]),
     },
     "fused_jacobi": {
-        "fused_jacobi_launch": (_I, [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I,
-                                     ctypes.POINTER(_I), _I, _I, _P]),
-        "fused_jacobi_mesh_launch": (_I, [_P, _I, _P, _I, ctypes.POINTER(_I), _I, _L, _L,
-                                          _I, _I, _I, _I, _I, _I, _I, _P]),
+        "fused_jacobi_launch": (_I, [_P, _I, _P, _I, _P, _I, _I, _L, _L, _L, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _P]),
+        "fused_jacobi_info": (_I, [_I, ctypes.POINTER(_I)]),
+        "fused_jacobi_zchunks": (_I, [_I, _I, _I, _I, _I, _I]),
     },
     "persistent_jacobi": {
         "persistent_jacobi_launch": (_I, [_P, _I, _P, _I, ctypes.POINTER(_I), _I, _L, _L,

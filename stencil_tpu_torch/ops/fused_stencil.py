@@ -19,24 +19,30 @@ receiver halo cells, so all of them may run at once:
   distinct GPUs will need each launch to wait on its neighbours' previous
   reads (an event per neighbour); ROADMAP.md queue A item 5.
 
-The fused step (the TPU's ``make_fused_jacobi_kernel``) has two forms:
+The fused step (the TPU's ``make_fused_jacobi_kernel``) has two forms, and
+one kernel body, ``csrc/fused_jacobi.cu``, runs both: one cooperative launch
+per step moves every message into the destination position's halos
+(phase A), waits at a grid-wide barrier, then sweeps every position's
+compute region with no wrap, reading those halos (phase B,
+``csrc/sweep_runs.cuh``):
 
 - on one block every direction wraps onto the block itself:
-  :func:`fused_jacobi` launches ``csrc/fused_jacobi.cu``'s barrier-free
-  kernel, the exact-extent hand-offs of every direction into ``curr``'s
-  halos, in place, and the sweep of the compute region into ``nxt``, in one
-  launch; :func:`fused_jacobi_plain` is the same step in plain PyTorch, the
-  hand-offs in plan order, then the sweep reading the filled halos;
+  :func:`fused_jacobi` launches the kernel over a one-position table whose
+  messages all wrap onto the block; :func:`fused_jacobi_plain` is the same
+  step in plain PyTorch, the hand-offs in plan order, then the sweep
+  reading the filled halos;
 - over a mesh of block positions on one device (the wire-crossing form):
-  :func:`fused_jacobi_mesh` launches the same file's cooperative kernel
-  (``csrc/mesh_chunk.cuh`` at one substep), once per step for every
-  position: every message into the destination position's halos, a
-  grid-wide barrier, every position's sweep with no wrap;
+  :func:`fused_jacobi_mesh` launches it once per step for every position;
   :func:`fused_jacobi_mesh_plain` is :func:`fused_exchange_plain` and then
-  one :func:`sweep_plain` per position. The kernel reads its positions'
-  pointers and its messages from two tables in device memory
-  (:func:`launch_mesh_chunk`), kept per pointer order, so a loop that
-  swaps ``curr`` and ``nxt`` uploads nothing after its first two steps.
+  one :func:`sweep_plain` per position.
+
+The kernel reads its positions' pointers, its messages and its phase-A
+work list from three tables in device memory (:func:`mesh_tables`,
+:func:`message_rows`), the first kept per pointer order, so a loop that
+swaps ``curr`` and ``nxt`` uploads nothing after its first two steps. The
+work list and the launch shape are pure Python (:func:`message_rows`,
+:func:`fused_shape`, :func:`fused_zchunks`), mirrored from the kernel's
+source, so the CPU tests hold them to the plain version.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
@@ -47,6 +53,9 @@ tensor it launches its kernel or raises. Launches are counted in
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import List, Tuple
 
 import torch
 
@@ -111,7 +120,10 @@ def fused_jacobi_plain(curr, nxt, sel, spec: GridSpec, plan):
 def fused_jacobi(curr, nxt, sel, spec: GridSpec, plan):
     """One fused step (see :func:`fused_jacobi_plain`), in place; returns
     ``(curr', out)`` = ``(curr, nxt)``. ``plan`` is the remote-dma fused
-    plan of ``spec`` on one device (``HaloExchange(..., fused=True).plan``)."""
+    plan of ``spec`` on one device (``HaloExchange(..., fused=True).plan``).
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/fused_jacobi.cu`` over one position whose messages all wrap onto
+    the block, or raise."""
     _check_block(curr, spec, torch.float32, "curr")
     _check_block(nxt, spec, torch.float32, "nxt")
     _check_block(sel, spec, torch.int32, "sel")
@@ -120,12 +132,8 @@ def fused_jacobi(curr, nxt, sel, spec: GridSpec, plan):
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
         return fused_jacobi_plain(curr, nxt, sel, spec, plan)
-    p, off, b = spec.padded(), spec.compute_offset(), spec.base
-    rc = _native.lib("fused_jacobi").fused_jacobi_launch(
-        curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
-        off.z, off.y, off.x, b.z, b.y, b.x, box_rows(boxes), len(boxes), dev.index,
-        _native.stream_ptr(dev))
-    _native.check(rc, "fused_jacobi")
+    _native.check(_launch_fused([curr], [nxt], [sel], spec, boxes, [(0,)] * len(boxes), dev),
+                  "fused_jacobi")
     fused_jacobi.launches += 1
     return curr, nxt
 
@@ -209,16 +217,13 @@ def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh) -> torch.device:
     return dev
 
 
-def launch_mesh_chunk(entry, currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev,
-                      *depth) -> int:
-    """Call a mesh chunk entry of ``csrc/mesh_chunk.cuh``
-    (``fused_jacobi_mesh_launch``, or ``persistent_jacobi_launch`` with its
-    ``depth``) over every position; returns its CUDA error code. Its two
-    device tables: positions, one row of (curr, nxt, sel) pointers per
-    position, kept per pointer order (a loop's swap alternates two); and
-    messages, one row of (source position, destination position, box
-    index) per position and box, box by box (``dests_by_box[b][i]`` is
-    where position ``i`` sends box ``b``)."""
+def mesh_tables(currs, nxts, sels, dests_by_box, dev):
+    """The two device tables of a mesh kernel (``csrc/mesh_chunk.cuh``):
+    positions, one row of (curr, nxt, sel) pointers per position, kept per
+    pointer order (a loop's swap alternates two); and messages, one row of
+    (source position, destination position, box index) per position and
+    box, box by box (``dests_by_box[b][i]`` is where position ``i`` sends
+    box ``b``)."""
     ptrs = tuple(t.data_ptr() for row in zip(currs, nxts, sels) for t in row)
     pos = _native.device_table(("mesh_positions", ptrs), lambda: list(ptrs), dev)
     dests_by_box = tuple(tuple(d) for d in dests_by_box)
@@ -226,10 +231,161 @@ def launch_mesh_chunk(entry, currs, nxts, sels, spec: GridSpec, boxes, dests_by_
         ("mesh_messages", dests_by_box),
         lambda: [v for b, dests in enumerate(dests_by_box) for i, j in enumerate(dests)
                  for v in (i, j, b)], dev)
+    return pos, msg
+
+
+def launch_mesh_chunk(entry, currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev,
+                      *depth) -> int:
+    """Call the persistent chunk's entry (``persistent_jacobi_launch``, with
+    its ``depth``) over every position, with :func:`mesh_tables`; returns
+    its CUDA error code."""
+    pos, msg = mesh_tables(currs, nxts, sels, dests_by_box, dev)
     p, off, b = spec.padded(), spec.compute_offset(), spec.base
     return entry(pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), box_rows(boxes),
                  len(boxes), p.y * p.x, p.x, off.z, off.y, off.x, b.z, b.y, b.x, *depth,
                  dev.index, _native.stream_ptr(dev))
+
+
+# The fused step kernel's launch shape (csrc/sweep_runs.cuh: TX, TY, LOOK,
+# MIN_BLOCKS; csrc/fused_jacobi.cu: UNROLL, SEG_COLS, MAX_SEGS)
+FUSED_TILE = (128, 8)
+FUSED_LOOK = 4
+FUSED_MIN_BLOCKS = 3
+ROW_UNROLL = 4
+SEG_COLS = 9
+MAX_SEGS = 26 * 3
+
+
+def fused_shape() -> dict:
+    """The fused step kernel's launch shape (``csrc/sweep_runs.cuh``): the
+    output tile (``tile``: x, y; the first tile of a row is up to 3 columns
+    wider); a thread owns a 4-cell x run of a row of the tile grown by one
+    cell (``rows``), a row holding ``runs`` runs, enough for the widest tile
+    at any 16-byte phase of its first cell; shared memory holds a guard row,
+    a ring of ``LOOK + 2`` planes and a guard row. Phase A's task is
+    ``ROW_UNROLL`` units for each thread (``task_units``)."""
+    tx, ty = FUSED_TILE
+    rows = ty + 2
+    runs = (3 + tx + 3 + 2 + 3) // 4
+    pitch = 4 * runs
+    ring = FUSED_LOOK + 2
+    threads = -(-(rows * runs) // 32) * 32
+    return {"tile": (tx, ty), "rows": rows, "runs": runs, "pitch": pitch, "ring": ring,
+            "threads": threads, "smem_bytes": 4 * (ring * rows * pitch + 2 * pitch),
+            "task_units": threads * ROW_UNROLL}
+
+
+def fused_tiles(spec: GridSpec) -> Tuple[int, int]:
+    """Output tiles of one block along x and y: tile 0 of a row spans
+    ``[0, TX + a)``, tile t ``[t TX + a, (t + 1) TX + a)`` with
+    ``a = -xo mod 4``, so every later tile starts its output on the 16-byte
+    grid of the padded row."""
+    tx, ty = FUSED_TILE
+    b, xo = spec.base, spec.compute_offset().x
+    return max(1, -(-(b.x - (-xo % 4)) // tx)), -(-b.y // ty)
+
+
+def fused_zchunks(spec: GridSpec, positions: int, blocks: int) -> int:
+    """z chunks per tile column when ``blocks`` resident blocks walk the
+    tiles of ``positions`` blocks of ``spec`` in turn (the kernel's
+    ``zchunks_for``): the count whose walk ends soonest, a block taking
+    ``ceil(tiles / blocks)`` tiles (the last, partial round included) of
+    its chunk's planes plus a 2-step warm-up each; the fewest chunks on a
+    tie, no chunk under 4 planes."""
+    gx, gy = fused_tiles(spec)
+    cols, nz = gx * gy * positions, spec.base.z
+
+    def steps(n):
+        c = -(-nz // n)
+        return -(-(cols * -(-nz // c)) // blocks) * (c + 2)
+
+    return min(range(1, max(1, nz // 4) + 1), key=lambda n: (steps(n), n))
+
+
+def fused_info(index: int) -> dict:
+    """What the fused step kernel reports on CUDA device ``index``: resident
+    blocks per SM, registers and local (spill) bytes per thread, threads and
+    dynamic shared memory per block."""
+    r = (ctypes.c_int * 5)()
+    _native.check(_native.lib("fused_jacobi").fused_jacobi_info(index, r), "fused_jacobi_info")
+    return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
+
+
+@dataclass(frozen=True)
+class RowSegment:
+    """Rows of one message box that phase A moves alike: ``rows`` rows
+    (``ey`` a plane), each ``units`` units of ``width`` words (4: one
+    16-byte vector; 1: one word), the first unit of the first row at word
+    ``src`` (source) and ``dst`` (destination) of a position's block; row
+    ``r`` lies ``(r // ey) * sz + (r % ey) * sy`` words further."""
+
+    box: int
+    src: int
+    dst: int
+    units: int
+    width: int
+    ey: int
+    rows: int
+
+
+def message_rows(boxes, sz: int, sy: int, vec: bool) -> List[RowSegment]:
+    """Phase A's work list for the ``(src, dst, shape)`` message boxes of a
+    block with plane stride ``sz`` and row stride ``sy``: each box's rows
+    as one segment of 4-byte units, or, where ``vec`` (every pointer on the
+    16-byte grid, ``sz`` and ``sy`` multiples of 4) and source and
+    destination agree in phase, as a 4-byte head up to the source's
+    16-byte grid, a body of 16-byte vectors and a 4-byte tail. Empty
+    segments are left out."""
+    if vec and (sz % 4 or sy % 4):
+        raise ValueError(f"strides ({sz}, {sy}) are not on the 16-byte grid")
+    segs = []
+    for b, (src, dst, (ez, ey, ex)) in enumerate(boxes):
+        s0 = src[0] * sz + src[1] * sy + src[2]
+        d0 = dst[0] * sz + dst[1] * sy + dst[2]
+        parts = [(0, ex, 1)]
+        head = -s0 % 4
+        if vec and (s0 - d0) % 4 == 0 and ex - head >= 4:
+            nv = (ex - head) // 4
+            parts = [(0, head, 1), (head, nv, 4), (head + 4 * nv, ex - head - 4 * nv, 1)]
+        segs += [RowSegment(b, s0 + x, d0 + x, units, width, ey, ez * ey)
+                 for x, units, width in parts if units]
+    return segs
+
+
+@functools.lru_cache(maxsize=64)
+def row_table(boxes, sz: int, sy: int, vec: bool, messages: int):
+    """``(rows, tasks)``: :func:`message_rows` as the kernel's table, one
+    row of ``SEG_COLS`` ints a segment (box, src, dst, units, width, ey,
+    rows, tasks per message, tasks before it over all ``messages`` messages
+    of a box), and the tasks in all."""
+    task = fused_shape()["task_units"]
+    rows, start = [], 0
+    for s in message_rows(boxes, sz, sy, vec):
+        chunks = -(-(s.rows * s.units) // task)
+        rows.append((s.box, s.src, s.dst, s.units, s.width, s.ey, s.rows, chunks, start))
+        start += messages * chunks
+    if not 1 <= len(rows) <= MAX_SEGS:
+        raise ValueError(f"{len(rows)} work-list segments outside [1, {MAX_SEGS}]")
+    return tuple(rows), start
+
+
+def _launch_fused(currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev) -> int:
+    """One launch of ``csrc/fused_jacobi.cu`` over every position (one per
+    ``currs`` entry), every message box ``b`` sent by position ``i`` to
+    ``dests_by_box[b][i]``; returns the CUDA error code."""
+    pos, msg = mesh_tables(currs, nxts, sels, dests_by_box, dev)
+    p, off, b = spec.padded(), spec.compute_offset(), spec.base
+    sz, sy = p.y * p.x, p.x
+    align = min(t.data_ptr() & -t.data_ptr() for t in (*currs, *nxts, *sels))
+    vec = align % 16 == 0 and sz % 4 == 0 and sy % 4 == 0
+    boxes = tuple((tuple(s), tuple(d), tuple(e)) for s, d, e in boxes)
+    rows, tasks = row_table(boxes, sz, sy, vec, len(currs))
+    segs = _native.device_table(("fused_rows", rows), lambda: [v for row in rows for v in row],
+                                dev)
+    return _native.lib("fused_jacobi").fused_jacobi_launch(
+        pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), segs.data_ptr(), len(rows),
+        SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec), dev.index,
+        _native.stream_ptr(dev))
 
 
 def fused_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, plan, mesh):
@@ -249,17 +405,15 @@ def fused_jacobi_mesh(currs, nxts, sels, spec: GridSpec, plan, mesh):
     :func:`fused_jacobi_mesh_plain`), in place: lists of one padded block of
     ``spec`` per position, every position on the mesh's one device; ``plan``
     is the remote-dma fused plan of ``spec`` on ``mesh``. CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/fused_jacobi.cu``'s
-    cooperative kernel once for every position, or raise. Returns
-    ``(currs, nxts)``."""
+    the plain version; CUDA tensors launch ``csrc/fused_jacobi.cu`` once
+    for every position, or raise. Returns ``(currs, nxts)``."""
     dev = check_mesh_fields(currs, nxts, sels, spec, mesh)
     require_face_radius(spec)
     messages = _messages(plan, mesh)
     if dev.type == "cpu":
         return fused_jacobi_mesh_plain(currs, nxts, sels, spec, plan, mesh)
-    rc = launch_mesh_chunk(_native.lib("fused_jacobi").fused_jacobi_mesh_launch, currs, nxts,
-                           sels, spec, [(ph.src, ph.dst, ph.shape) for ph, _ in messages],
-                           [dests for _ph, dests in messages], dev)
+    rc = _launch_fused(currs, nxts, sels, spec, [(ph.src, ph.dst, ph.shape) for ph, _ in messages],
+                       [dests for _ph, dests in messages], dev)
     _native.check(rc, "fused_jacobi_mesh")
     fused_jacobi_mesh.launches += 1
     return currs, nxts

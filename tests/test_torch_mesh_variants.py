@@ -261,8 +261,9 @@ def test_jacobi3d_cli_mesh_variants(variant, capsys):
 class FakeChunkCard:
     """Stands in for the card in the mesh chunk wrappers' CUDA branch: the
     tables the wrapper uploads are kept (counting each one made), and a
-    Python copy of csrc/mesh_chunk.cuh applies them to the CPU blocks the
-    position table names."""
+    Python copy of csrc/mesh_chunk.cuh (and of csrc/fused_jacobi.cu's
+    phase-A work list) applies them to the CPU blocks the position table
+    names."""
 
     type, index = "cuda", 0
 
@@ -283,8 +284,11 @@ class FakeChunkCard:
             self.made.append(key[0])
         return self.tables[key]
 
+    def positions(self, pos, npos):
+        return [[self.blocks[v] for v in self.tables[pos][3 * i:3 * i + 3]] for i in range(npos)]
+
     def run(self, pos, npos, msg, m, boxes, nboxes, sz, sy, zo, yo, xo, nz, ny, nx, k):
-        p = [[self.blocks[v] for v in self.tables[pos][3 * i:3 * i + 3]] for i in range(npos)]
+        p = self.positions(pos, npos)
         rows = self.tables[msg]
         assert len(rows) == 3 * m * nboxes and m == npos
         for r in range(m * nboxes):
@@ -293,6 +297,9 @@ class FakeChunkCard:
             box = list(boxes[9 * b:9 * b + 9])
             s, d = tfused.box_slices(box[0:3], box[3:6], box[6:9])
             p[dst][0][d] = p[src][0][s]
+        return self.substeps(p, sz, sy, zo, yo, xo, nz, ny, nx, k)
+
+    def substeps(self, p, sz, sy, zo, yo, xo, nz, ny, nx, k):
         spec = tgrid.GridSpec(tgeo.Dim3(nx, ny, nz), tgeo.Dim3(1, 1, 1), self.radius)
         assert (sy, sz) == (spec.padded().x, spec.padded().x * spec.padded().y)
         off = spec.compute_offset()
@@ -304,9 +311,18 @@ class FakeChunkCard:
                 tpers.make_persistent_chunk_body(spec, k)(a, b, sel)
         return 0
 
-    def fused_jacobi_mesh_launch(self, *args):
-        *args, _dev, _stream = args
-        return self.run(*args, 1)
+    def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
+                            xo, nz, ny, nx, vec, dev, stream):
+        """The fused step: its phase-A work list replayed as
+        tests/test_torch_fused_launch.py does, then one sweep per position."""
+        from test_torch_fused_launch import replay_rows
+
+        p = self.positions(pos, npos)
+        flat, msgs = self.tables[segs], self.tables[msg]
+        assert ncols == tfused.SEG_COLS and len(flat) == nseg * ncols and m == npos
+        replay_rows([a for a, _b, _s in p], [flat[i * ncols:(i + 1) * ncols] for i in range(nseg)],
+                    [msgs[3 * i:3 * i + 3] for i in range(len(msgs) // 3)], m, sz, sy)
+        return self.substeps(p, sz, sy, zo, yo, xo, nz, ny, nx, 1)
 
     def persistent_jacobi_launch(self, *args):
         *args, _dev, _stream = args
@@ -329,7 +345,7 @@ def _mesh_fields(size, dim, r, seed):
 def test_fused_mesh_tables_move_the_plain_versions_cells(monkeypatch, size, dim):
     """Four steps through the swap (both pointer orders): every cell of
     every buffer equals the plain version's, and the wrapper makes two
-    position tables and one message table."""
+    position tables, one message table and one phase-A work list."""
     tspec, tmesh, arrs = _mesh_fields(size, dim, 1, 31)
     plan = tir.build_plan(tspec, dim, tir.REMOTE_DMA, fused=True)
     want = mesh_state_from_jax(arrs, tspec, tmesh)
@@ -343,7 +359,8 @@ def test_fused_mesh_tables_move_the_plain_versions_cells(monkeypatch, size, dim)
         tfused.fused_jacobi_mesh(gc, gn, got["s"], tspec, plan, tmesh)
         wc, wn, gc, gn = wn, wc, gn, gc
     assert tfused.fused_jacobi_mesh.launches == before + 4
-    assert sorted(card.made) == ["mesh_messages", "mesh_positions", "mesh_positions"]
+    assert sorted(card.made) == ["fused_rows", "mesh_messages", "mesh_positions",
+                                 "mesh_positions"]
     for key in ("c", "n"):
         assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
 
