@@ -124,9 +124,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               plain versions (torch.equal on every cell of every position,
               random fields with noise in every halo) at config 2 (256^3
               (2,2,2) r2 x4), 512^3 (2,2,2) r1, 100x70x60 (1,1,2) r1,
-              66x20x16 (2,1,1) r2 with two fp64 quantities and a 64^3
-              fp32 + fp64 + fp32 dict, and both mesh exchanges on the card
-              against the CPU; the mesh exchange gathered into the stacked
+              66x20x16 (2,1,1) r2 with two fp64 quantities, a 64^3
+              fp32 + fp64 + fp32 dict, 100x70x60 (2,2,2) r1 unaligned
+              (odd pitches: one word a lane), 96x64x48 (2,2,2) with face
+              radii x 0/2, y 1/2, z 2/1 in fp32 and fp64 and 70x34x26
+              (2,2,1) unaligned fp64 with x 1/3, y 0/1, z 1/2 (a lone x
+              message, rm == 0), and 128^3 (2,2,2) r2 with two fp64
+              quantities, and both mesh exchanges on the card against the
+              CPU; the mesh exchange gathered into the stacked
               layout against the resident axis-composed exchange at config 2
               and 512^3 r1; 8 steps at 512^3 over 8 positions from a random
               field, bit-equal to the single-block default path; the main
@@ -135,8 +140,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               600 sweep launches, no other kernel), launch counts reset
               around it; DistributedDomain.exchange_loop at config 2 through
               each carrier in GB/s beside the resident config-2 number of
-              phase 7 and the Tensor.copy_ yardstick; each kernel timed per
-              launch beside its plain version, its bound and Tensor.copy_;
+              phase 7 and the Tensor.copy_ yardstick, and the B6 exchange's
+              time against its three launches' device time (the rest is
+              the host's); each kernel timed per launch beside its plain
+              version, its bytes bound, its sector floor and Tensor.copy_
+              (remote_axis per phase at config 2 and at 512^3 (2,2,2) r1,
+              fused_exchange at both);
               the per-position 256^3 sweep (no wrap) against its plain
               version and timed per launch.
 10. mesh variants -- the wire-crossing forms of the fused step and the
@@ -1284,13 +1293,33 @@ def main() -> int:
 
     mesh8 = DeviceMesh((2, 2, 2), [dev] * 8)
 
-    # each kernel against its plain version, every cell of every position
+    def asym_spec(size, part, faces, aligned=True):
+        """Face radii (x-, x+, y-, y+, z-, z+), every edge and corner on."""
+        r = Radius()
+        for d, v in zip(((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)),
+                        faces):
+            r.set_dir(d, v)
+        r.set_edge(1)
+        r.set_corner(1)
+        return GridSpec(Dim3(*size), Dim3(*part), r, aligned=aligned)
+
+    # each kernel against its plain version, every cell of every position;
+    # the last three reach the row-move body's one-word layout off the
+    # 16-byte grid (odd pitches), a lone x message (rm == 0 on x, and on y
+    # in the fp64 group) and fp64 16-byte units
     mesh_cases = [
         ("config 2: 256^3 (2,2,2) r2 x4 fp32", rspec((256,) * 3, (2, 2, 2), 2), [f32] * 4),
         ("512^3 (2,2,2) r1 x1", rspec((512,) * 3, (2, 2, 2), 1), [f32]),
         ("100x70x60 (1,1,2) r1", rspec((100, 70, 60), (1, 1, 2), 1), [f32]),
         ("66x20x16 (2,1,1) r2 2 fp64", rspec((66, 20, 16), (2, 1, 1), 2), [f64, f64]),
         ("64^3 (2,2,2) r1 fp32 + fp64 + fp32", rspec((64,) * 3, (2, 2, 2), 1), [f32, f64, f32]),
+        ("100x70x60 (2,2,2) r1 unaligned", rspec((100, 70, 60), (2, 2, 2), 1, aligned=False),
+         [f32]),
+        ("96x64x48 (2,2,2) radii x 0/2 y 1/2 z 2/1 fp32 + fp64",
+         asym_spec((96, 64, 48), (2, 2, 2), (0, 2, 1, 2, 2, 1)), [f32, f64]),
+        ("70x34x26 (2,2,1) radii x 1/3 y 0/1 z 1/2 unaligned fp64",
+         asym_spec((70, 34, 26), (2, 2, 1), (1, 3, 0, 1, 1, 2), aligned=False), [f64]),
+        ("128^3 (2,2,2) r2 x2 fp64", rspec((128,) * 3, (2, 2, 2), 2), [f64, f64]),
     ]
     for i, (label, spec, dts) in enumerate(mesh_cases):
         mesh = mesh_of(spec)
@@ -1441,6 +1470,7 @@ def main() -> int:
                     blocks[j][d_].copy_(blocks[i][s_])
 
     c2 = resident_gbs["config 2: 256^3 (2,2,2) r2 x4"]
+    sector_ms = {}  # each carrier's sector floor, for the log only
     for fused in (False, True):
         name = "fused_exchange" if fused else "remote_axis"
         dd = DistributedDomain(256, 256, 256)
@@ -1474,38 +1504,62 @@ def main() -> int:
             plain_ms = time_ms(lambda: fst.fused_exchange_plain(groups, dd.spec, plan9, mesh8), 3)
             lib_ms = time_ms(lambda: copy_boxes(dd.curr_state(), plan9), 5, graph=True)
             kbytes = fst.fused_exchange_bytes(plan9, 4, 8, 4)
+            sbytes = fst.fused_exchange_sector_bytes(plan9, dd.spec, 4, 8, 4)
         else:
             def phases(fn):
                 for ph in ring:
                     fn(groups, dd.spec, ph, mesh8)
-            kern_ms = time_ms(lambda: phases(rdma.remote_axis), 20, graph=True) / len(ring)
+            # each phase alone, then the host's share of the exchange: its
+            # time through exchange_loop against its three launches' device time
+            per_phase = [time_ms(lambda ph=ph: rdma.remote_axis(groups, dd.spec, ph, mesh8), 20,
+                                 graph=True) for ph in ring]
+            kern_ms = sum(per_phase) / len(ring)
             plain_ms = time_ms(lambda: phases(rdma.remote_axis_plain), 3) / len(ring)
             lib_ms = time_ms(lambda: copy_slabs(dd.curr_state(), dd.spec, ring), 5,
                              graph=True) / len(ring)
             kbytes = sum(rdma.remote_axis_bytes(dd.spec, ph, 4, 8, 4) for ph in ring) / len(ring)
+            sbytes = sum(rdma.remote_axis_sector_bytes(dd.spec, ph, 4, 8, 4)
+                         for ph in ring) / len(ring)
+            for ph, ms_ph in zip(ring, per_phase):
+                log(f"time remote_axis config 2 {ph.axis}: {ms_ph:.4f} ms per launch (bound "
+                    f"{bound_ms(rdma.remote_axis_bytes(dd.spec, ph, 4, 8, 4), 0)[0]:.4f} ms by "
+                    f"bytes, sector floor "
+                    f"{bound_ms(rdma.remote_axis_sector_bytes(dd.spec, ph, 4, 8, 4), 0)[0]:.4f} ms)")
+            log(f"mesh exchange config 2 via remote_axis: {ex_ms:.4f} ms an exchange through "
+                f"exchange_loop, {sum(per_phase):.4f} ms of it its three launches' device time, "
+                f"{ex_ms - sum(per_phase):.4f} ms beyond them (host)")
         timings[name] = dict(ms=kern_ms, plain_ms=plain_ms, bound=bound_ms(kbytes, 0),
                              library_ms=lib_ms)
+        sector_ms[name] = bound_ms(sbytes, 0)[0]
         per_ex = lib_ms * (1 if fused else len(ring))
         log(f"mesh exchange config 2 over 8 positions via {name}: {ex_ms:.4f} ms, "
             f"{nbytes / ex_ms / 1e6:.2f} GB/s logical ({nbytes} bytes); resident config 2 in "
             f"this run {c2:.2f} GB/s; Tensor.copy_ of the same slabs {per_ex:.4f} ms = "
             f"{nbytes / per_ex / 1e6:.2f} GB/s")
         del dd, st9, groups, loop10
-    # B6 per launch at the jacobi path's own shape (512^3 (2,2,2) r1 x1)
+    # B6 per launch at the jacobi path's own shape (512^3 (2,2,2) r1 x1), and
+    # B7 at the same shape
     st9 = rand_mesh(spec_m1, [f32], 450)
     groups = grouped(st9, [0])
     ring = [ph for ph in build_plan(spec_m1, (2, 2, 2), Method.REMOTE_DMA).remote_phases]
     for ph in ring:
         ms9 = time_ms(lambda: rdma.remote_axis(groups, spec_m1, ph, mesh8), 20, graph=True)
         b9 = bound_ms(rdma.remote_axis_bytes(spec_m1, ph, 1, 8, 4), 0)[0]
+        f9 = bound_ms(rdma.remote_axis_sector_bytes(spec_m1, ph, 1, 8, 4), 0)[0]
         log(f"time remote_axis 512^3 (2,2,2) r1 x1 {ph.axis}: {ms9:.4f} ms per launch "
-            f"(bound {b9:.4f} ms by bytes)")
+            f"(bound {b9:.4f} ms by bytes, sector floor {f9:.4f} ms)")
+    fplan1 = build_plan(spec_m1, (2, 2, 2), Method.REMOTE_DMA, fused=True)
+    ms9 = time_ms(lambda: fst.fused_exchange(groups, spec_m1, fplan1, mesh8), 20, graph=True)
+    log(f"time fused_exchange 512^3 (2,2,2) r1 x1: {ms9:.4f} ms per launch (bound "
+        f"{bound_ms(fst.fused_exchange_bytes(fplan1, 1, 8, 4), 0)[0]:.4f} ms by bytes, sector "
+        f"floor {bound_ms(fst.fused_exchange_sector_bytes(fplan1, spec_m1, 1, 8, 4), 0)[0]:.4f} "
+        "ms)")
     del st9, groups
     for name in ("remote_axis", "fused_exchange"):
         t = timings[name]
         log(f"time {name} config 2: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
-            f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, Tensor.copy_ "
-            f"{t['library_ms']:.4f} ms)")
+            f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, sector floor "
+            f"{sector_ms[name]:.4f} ms, Tensor.copy_ {t['library_ms']:.4f} ms)")
 
     # -- 10. mesh variants: the fused step and the persistent chunk over 8 ---
     #        block positions, one cooperative launch for every position

@@ -51,7 +51,11 @@ Prints one JSON line per measurement, after a line naming the card
   (2,2,2), radius 1, one fp32 quantity (jacobi3d's remote-dma mesh) and at
   (size/2)^3 over (2,2,2), radius 2, four fp32 quantities (the reference's
   config 2 when size is 512): ``remote_axis`` per axis phase and
-  ``fused_exchange`` (one launch), each beside its bytes bound;
+  ``fused_exchange`` (one launch), each beside its bytes bound and its
+  sector floor (``sector_ms``: the 32-byte sectors its words lie in, read
+  once and written once), the x phase with its rate in padded rows per ns;
+  and, as the rate yardstick, B4's x fill (``self_fill`` of x) of the same
+  blocks' rows;
 - the jacobi step over that mesh at size^3, one (size/2)^3 block per
   position: ``jacobi_sweep`` on one position (no wrap; the plain mesh step
   launches one per position), ``fused_jacobi_mesh`` at radius 1 (every
@@ -251,19 +255,38 @@ def main(argv: Optional[list] = None) -> int:
         blocks = [[torch.rand((1, 1, 1, pm.z, pm.y, pm.x), generator=gen, device=dev)
                    for _ in range(nq)] for _ in range(8)]
         row = {"size": size, "partition": [2, 2, 2], "radius": r, "quantities": nq}
+        # padded rows whose two ends the x phase moves, over every block
+        xrows = 8 * nq * pm.z * pm.y
         for ph in build_plan(specm, (2, 2, 2), Method.REMOTE_DMA).remote_phases:
             ms = cuda_time_ms(lambda: rdma.remote_axis(blocks, specm, ph, mesh), args.reps * 2,
                               graph=True)
             nbytes = rdma.remote_axis_bytes(specm, ph, nq, 8, 4)
+            sbytes = rdma.remote_axis_sector_bytes(specm, ph, nq, 8, 4)
+            rate = {"rows": xrows, "rows_per_ns": xrows / ms / 1e6} if ph.axis == "x" else {}
             print(json.dumps({"kernel": "remote_axis", **row, "axis": ph.axis, "ms": ms,
-                              "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
+                              "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0)[0],
+                              "sector_ms": bound_ms(sbytes, 0)[0], **rate}), flush=True)
         fplan = build_plan(specm, (2, 2, 2), Method.REMOTE_DMA, fused=True)
         ms = cuda_time_ms(lambda: fst.fused_exchange(blocks, specm, fplan, mesh), args.reps * 2,
                           graph=True)
         nbytes = fst.fused_exchange_bytes(fplan, nq, 8, 4)
+        sbytes = fst.fused_exchange_sector_bytes(fplan, specm, nq, 8, 4)
         print(json.dumps({"kernel": "fused_exchange", **row, "ms": ms, "bytes": nbytes,
-                          "bound_ms": bound_ms(nbytes, 0)[0]}), flush=True)
-        del blocks
+                          "bound_ms": bound_ms(nbytes, 0)[0], "sector_ms": bound_ms(sbytes, 0)[0]}),
+              flush=True)
+        # the rate yardstick: B4's x fill of the same rows (each block's own
+        # x halos, the same row ends), at most MAX_FILL_GROUP blocks a launch
+        flat = [b for group in blocks for b in group]
+        bspec = specm.block_spec()
+        ms = cuda_time_ms(lambda: [halo_fill.self_fill(flat[i:i + halo_fill.MAX_FILL_GROUP],
+                                                       bspec, "x")
+                                   for i in range(0, len(flat), halo_fill.MAX_FILL_GROUP)],
+                          args.reps * 2, graph=True)
+        print(json.dumps({"yardstick": "self_fill x", **row, "rows": xrows, "ms": ms,
+                          "rows_per_ns": xrows / ms / 1e6,
+                          "sector_ms": bound_ms(len(flat) * halo_fill.fill_sector_bytes(
+                              halo_fill.fill_layout(bspec, "x", 4), 4), 0)[0]}), flush=True)
+        del blocks, flat
 
     # the jacobi step over the mesh: the per-position sweep, the fused step
     # and the persistent chunk, eight (n/2)^3 blocks

@@ -1,5 +1,5 @@
-// Per-direction halo messages of a uniform partition's blocks, shared by
-// fused_exchange.cu and mesh_chunk.cuh.
+// Per-direction halo messages of a uniform partition's blocks, read by
+// mesh_chunk.cuh.
 //
 // A box is one direction's exact-extent message: it copies a block's compute
 // cells (src) into the halo cells on the opposite side (dst) of the receiving

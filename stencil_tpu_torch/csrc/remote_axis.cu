@@ -5,9 +5,9 @@
 // Replaces: stencil_tpu/ops/remote_dma.py make_remote_axis_kernel (the TPU
 // carrier kernel: neighbour barrier, stage both boundary slabs of a packed
 // Q-quantity carrier into VMEM, remote-copy them into the ring neighbours'
-// landing buffers, wait, unpack into the halos). Python wrapper and plain
-// PyTorch version: stencil_tpu_torch/ops/remote_dma.py (remote_axis,
-// remote_axis_plain).
+// landing buffers, wait, unpack into the halos). Python wrapper, work list
+// and plain PyTorch version: stencil_tpu_torch/ops/remote_dma.py
+// (remote_axis, remote_axis_work, remote_axis_plain).
 //
 // What it computes: along the phase axis, with compute offset o, block size
 // n and halo widths rm / rp, each sender block's hi boundary slab
@@ -17,134 +17,43 @@
 // two axes, so running the phases x, then y, then z composes edges and
 // corners as the axis-composed exchange does.
 //
-// What bounds it on an H100: bytes. Each slab cell is read once and written
-// once: 2 * elem_size * (rm + rp) * (product of the other two padded
-// extents) per block and quantity, over the memory rate.
+// What bounds it on an H100: bytes, 2 * elem_size * (rm + rp) * (product of
+// the other two padded extents) per block and quantity over the memory rate;
+// and in the x phase the 32-byte sectors those bytes lie in. An x slab's row
+// is rm (or rp) words at one end of a padded row over a thousand bytes long,
+// so each row end costs a whole sector read and a whole sector written,
+// scattered a row apart (remote_dma.remote_axis_sector_bytes; the sector
+// floor, which the card serves well below its streaming rate, as
+// self_fill.cu's x fill meets it).
 //
-// Design: the stores go straight into the destination block's halo through
-// its pointer (the reference's zero-copy ColoQuantityKernel / same-GPU
-// PeerAccessSender write): no landing buffer and no unpack. The TPU kernel
-// needs VMEM staging only because a DMA cannot scatter. The wrapper passes a
-// table in device memory of (source block, destination block) pointers, one
-// row per (side, sender position, quantity): the first n_rm rows send the hi
-// slab forward, the rest the lo slab backward. blockIdx.y picks the row;
-// blockIdx.x and the threads stride over the slab's cells, x fastest, so a
-// warp's loads and stores are consecutive words of a row. In the y and z
-// phases a row is px words and a warp's accesses coalesce fully. In the x
-// phase a slab row is only rm (or rp) words, one run per (z, y): a warp
-// covers 32 / r rows and touches one 32-byte sector per row, the most the
-// layout allows without staging. The kernel copies bits (4- or 8-byte
-// words), so fp32 and fp64 share one body.
+// Design: row_moves.cuh, over a work list of the phase's two slab boxes
+// (remote_dma.remote_axis_work). In the x phase the hi slab sent forward and
+// the lo slab of the forward neighbour sent back are one paired segment, the
+// two hand-offs of each row end on adjacent lanes, so one warp instruction
+// reads and one writes both sectors of a boundary row: b's hi end and its
+// forward neighbour's lo end. The y and z phases move whole padded rows as
+// 16-byte vectors where the layout is on the 16-byte grid, one word at a
+// time elsewhere. Stores go straight into the destination block's halo
+// through its pointer (the reference's zero-copy ColoQuantityKernel /
+// same-GPU PeerAccessSender write): no landing buffer and no unpack.
 //
 // Ordering: within one phase every read is of a compute-region row along
-// the axis and every write is of a halo row along it; these are disjoint
-// (the block is at least the radius wide), so rows may run in any order.
-// Phase y reads the x halos that phase x wrote, so the phases must run in
-// order: on one card they are launches on one stream. Positions on distinct
-// GPUs will also need each phase to wait on its ring neighbours' previous
-// phase (an event per neighbour), which is the TPU kernel's barrier.
+// the axis and every write of a halo row along it; these are disjoint (the
+// block is at least the radius wide). Phase y reads the x halos that phase x
+// wrote, so the phases must run in order: on one card they are launches on
+// one stream. Positions on distinct GPUs will also need each phase to wait
+// on its ring neighbours' previous phase (an event per neighbour), which is
+// the TPU kernel's barrier.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_moves.cuh"
 
-namespace {
-
-constexpr int THREADS = 256;
-
-// ext: the padded block's extents over (z, y, x); a slab is ext with the
-// phase axis narrowed to rm (the first n_rm rows, hi slabs) or rp (the
-// rest, lo slabs); src_* / dst_*: the slab's start along the axis in the
-// source and in the destination block.
-struct Slab {
-  int ext[3];
-  int rm, rp;
-  int src_rm, dst_rm, src_rp, dst_rp;
-};
-
-template <typename T, int AXIS>
-__global__ void __launch_bounds__(THREADS)
-remote_axis_kernel(const unsigned long long* __restrict__ table, int n_rm, Slab s,
-                   long long sz, long long sy) {
-  const int row = blockIdx.y;
-  const bool hi_slab = row < n_rm;
-  const long long src_start = hi_slab ? s.src_rm : s.src_rp;
-  const long long dst_start = hi_slab ? s.dst_rm : s.dst_rp;
-  const T* src = (const T*)table[2 * row];
-  T* dst = (T*)table[2 * row + 1];
-  const unsigned w = hi_slab ? s.rm : s.rp;
-  const unsigned b0 = AXIS == 0 ? w : s.ext[0];
-  const unsigned b1 = AXIS == 1 ? w : s.ext[1];
-  const unsigned b2 = AXIS == 2 ? w : s.ext[2];
-  const unsigned total = b0 * b1 * b2;
-  for (unsigned i = blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += gridDim.x * THREADS) {
-    const unsigned t = i / b2;
-    long long c[3] = {(long long)(t / b1), (long long)(t % b1), (long long)(i % b2)};
-    const long long j = c[AXIS];
-    c[AXIS] = src_start + j;
-    const long long si = c[0] * sz + c[1] * sy + c[2];
-    c[AXIS] = dst_start + j;
-    const long long di = c[0] * sz + c[1] * sy + c[2];
-    dst[di] = src[si];
-  }
-}
-
-template <typename T>
-void launch(const dim3& grid, cudaStream_t st, const unsigned long long* table, int n_rm,
-            const Slab& s, long long sz, long long sy, int axis) {
-  if (axis == 0)
-    remote_axis_kernel<T, 0><<<grid, THREADS, 0, st>>>(table, n_rm, s, sz, sy);
-  else if (axis == 1)
-    remote_axis_kernel<T, 1><<<grid, THREADS, 0, st>>>(table, n_rm, s, sz, sy);
-  else
-    remote_axis_kernel<T, 2><<<grid, THREADS, 0, st>>>(table, n_rm, s, sz, sy);
-}
-
-}  // namespace
-
-// table: device array of 2 * (n_rm + n_rp) pointers, (source block,
-// destination block) per row, each block a contiguous (pz, py, px) array;
-// the first n_rm rows send the hi slab, the next n_rp the lo slab.
-// axis: 0 = z, 1 = y, 2 = x. o / n: compute offset and size along the axis;
-// rm / rp: lo- and hi-side halo widths. dev: the device of every block.
-extern "C" int remote_axis_launch(const void* table, int n_rm, int n_rp, int elem_size,
-                                  int pz, int py, int px, int axis, int o, int n, int rm,
-                                  int rp, int dev, void* stream) {
-  if (n_rm < 0 || n_rp < 0 || n_rm + n_rp > 65535 || axis < 0 || axis > 2 || rm < 0 ||
-      rp < 0 || (n_rm > 0 && rm == 0) || (n_rp > 0 && rp == 0) ||
-      (elem_size != 4 && elem_size != 8))
-    return (int)cudaErrorInvalidValue;
-  if (n_rm + n_rp == 0) return 0;
-  Slab s;
-  const int ext[3] = {pz, py, px};
-  for (int a = 0; a < 3; ++a) s.ext[a] = ext[a];
-  s.rm = rm;
-  s.rp = rp;
-  s.src_rm = o + n - rm;
-  s.dst_rm = o - rm;
-  s.src_rp = o;
-  s.dst_rp = o + n;
-  const long long cells = (long long)pz * py * px / ext[axis] * (rm > rp ? rm : rp);
-  if (cells >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  int sms = 0, threads_per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
-  if (e != cudaSuccess) return (int)e;
-  // about one wave of full-occupancy blocks over all rows; each thread
-  // strides over the rest of its slab
-  const int rows = n_rm + n_rp;
-  long long per_row = (long long)sms * (threads_per_sm / THREADS) / rows;
-  if (per_row < 1) per_row = 1;
-  long long bx = (cells + THREADS - 1) / THREADS;
-  if (bx > per_row) bx = per_row;
-  const dim3 grid((unsigned)bx, (unsigned)rows);
-  const long long sz = (long long)py * px, sy = px;
-  const unsigned long long* t = (const unsigned long long*)table;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (elem_size == 4)
-    launch<uint32_t>(grid, st, t, n_rm, s, sz, sy, axis);
-  else
-    launch<uint64_t>(grid, st, t, n_rm, s, sz, sy, axis);
-  return (int)cudaGetLastError();
+// ptrs: device table of (sender block, neighbour block) pointer rows, m rows
+// per group of the work list; segs: device table of nseg work-list rows
+// (row_moves.cuh), their tasks ending at `tasks`; elem_size: 4 or 8; sz / sy:
+// the padded block's plane and row strides in words. Launches on the current
+// device, where every block lies.
+extern "C" int remote_axis_launch(const void* ptrs, int m, const void* segs, int nseg,
+                                  long long tasks, int elem_size, long long sz, long long sy,
+                                  void* stream) {
+  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, sz, sy, stream);
 }

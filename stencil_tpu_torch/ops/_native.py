@@ -74,10 +74,10 @@ SIGNATURES = {
         "persistent_jacobi_threads": (_I, [_I]),
     },
     "remote_axis": {
-        "remote_axis_launch": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "remote_axis_launch": (_I, [_P, _I, _P, _I, _L, _I, _L, _L, _P]),
     },
     "fused_exchange": {
-        "fused_exchange_launch": (_I, [_P, _I, ctypes.POINTER(_I), _I, _I, _L, _L, _I, _P]),
+        "fused_exchange_launch": (_I, [_P, _I, _P, _I, _L, _I, _L, _L, _P]),
     },
     "astaroth_substep": {
         "astaroth_substep_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
@@ -200,9 +200,31 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-# pointer tables of the mesh kernels, on their device, by content
+# pointer tables of the mesh kernels (and the carriers' launch arguments),
+# on their device, by content
 _tables: "OrderedDict[tuple, object]" = OrderedDict()
 MAX_TABLES = 64
+
+
+def kept(key, make):
+    """``make()``, made once per ``key`` (which must determine it) and kept
+    for the newest :data:`MAX_TABLES` keys used."""
+    t = _tables.get(key)
+    if t is None:
+        t = make()
+        _tables[key] = t
+        if len(_tables) > MAX_TABLES:
+            _tables.popitem(last=False)
+    else:
+        _tables.move_to_end(key)
+    return t
+
+
+def upload(values, device):
+    """``values`` (a list of ints) as an int64 tensor on ``device``."""
+    import torch
+
+    return torch.tensor(values, dtype=torch.int64).to(device)
 
 
 def device_table(key, rows, device):
@@ -212,18 +234,7 @@ def device_table(key, rows, device):
     blocks' pointers) and kept for the newest :data:`MAX_TABLES` keys, so a
     loop over the same tensors uploads each table once. A launch under
     CUDA-graph capture must find its table already made."""
-    import torch
-
-    key = (str(device), key)
-    t = _tables.get(key)
-    if t is None:
-        t = torch.tensor(rows(), dtype=torch.int64).to(device)
-        _tables[key] = t
-        if len(_tables) > MAX_TABLES:
-            _tables.popitem(last=False)
-    else:
-        _tables.move_to_end(key)
-    return t
+    return kept((str(device), key), lambda: upload(rows(), device))
 
 
 def stream_ptr(device) -> int:

@@ -10,7 +10,10 @@ receiver halo cells, so all of them may run at once:
   TPU's ``make_fused_exchange_kernel``): one launch per (device, dtype
   group) stores every position's messages, crossing and self-wrap alike,
   straight into the destination position's halo boxes (the reference's
-  ``ColoDomainKernel``, SURVEY.md section 2.3);
+  ``ColoDomainKernel``, SURVEY.md section 2.3), moving the plan's direction
+  boxes by rows (``csrc/row_moves.cuh``, shared with ``remote_axis``) from a
+  work list laid out here (:func:`fused_exchange_work`: the rows of
+  :func:`message_rows`, the +x and -x faces as one paired segment);
   :func:`fused_exchange_plain` is the same copies by tensor slicing,
   position by position; :class:`FusedRemoteDmaExchange` is the transport
   of a ``HaloExchange(fused=True)`` over a mesh, with
@@ -38,7 +41,8 @@ compute region with no wrap, reading those halos (phase B,
 
 The kernel reads its positions' pointers, its messages and its phase-A
 work list from three tables in device memory (:func:`mesh_tables`,
-:func:`message_rows`), the first kept per pointer order, so a loop that
+:func:`message_rows`, kept in ``ops/row_moves`` with the carriers' work
+lists), the first kept per pointer order, so a loop that
 swaps ``curr`` and ``nxt`` uploads nothing after its first two steps. The
 work list and the launch shape are pure Python (:func:`message_rows`,
 :func:`fused_shape`, :func:`fused_zchunks`), mirrored from the kernel's
@@ -54,16 +58,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Tuple
 
 import torch
 
 from ..domain.grid import GridSpec
 from ..geometry import Dim3
-from . import _native
+from . import _native, row_moves
 from .halo_fill import dtype_groups
 from .remote_dma import _check_mesh_blocks
+from .row_moves import message_rows
 from .stencil_kernels import _check_block, _device_of, sweep_plain
 
 NO_WRAP = (False, False, False)
@@ -141,13 +145,19 @@ def fused_jacobi(curr, nxt, sel, spec: GridSpec, plan):
 fused_jacobi.launches = 0
 
 
-def _messages(plan, mesh):
-    """``[(phase, [destination index per position])]`` of the fused plan's
-    messages on ``mesh``: the message toward ``d`` goes to position + d."""
+def _check_plan(plan, mesh) -> None:
+    """Raise unless ``plan`` is the fused plan of a uniform partition on
+    ``mesh``."""
     if Dim3.of(plan.mesh_dim) != mesh.dim:
         raise ValueError(f"plan for mesh {plan.mesh_dim}, got mesh {mesh.dim}")
     if not plan.fused_phases or any(ph.src is None for ph in plan.fused_phases):
         raise ValueError("fused_exchange needs the fused plan of a uniform partition")
+
+
+def _messages(plan, mesh):
+    """``[(phase, [destination index per position])]`` of the fused plan's
+    messages on ``mesh``: the message toward ``d`` goes to position + d."""
+    _check_plan(plan, mesh)
     return [(ph, mesh.destinations(ph.direction)) for ph in plan.fused_phases]
 
 
@@ -165,33 +175,47 @@ def fused_exchange_plain(blocks_by_position, spec: GridSpec, plan, mesh):
     return blocks_by_position
 
 
+def _x_face_pairs(steps):
+    """``((+x box, -x box),)`` when both x faces send a message, else ``()``:
+    their row ends share sectors, so they move as one paired segment."""
+    if (1, 0, 0) in steps and (-1, 0, 0) in steps:
+        return ((steps.index((1, 0, 0)), steps.index((-1, 0, 0))),)
+    return ()
+
+
+def fused_exchange_work(plan, spec: GridSpec, vec: bool, word: int,
+                        m: int) -> row_moves.MoveWork:
+    """The fused exchange's work list for ``m`` instances (positions x
+    quantities) of ``word``-byte words: the plan's direction boxes by rows
+    (:func:`message_rows`, the rows B8's phase A moves), the +x and -x
+    faces as one paired segment, each box sent by a position to the
+    position + its direction."""
+    p = spec.padded()
+    boxes = tuple((ph.src, ph.dst, ph.shape) for ph in plan.fused_phases)
+    steps = tuple(ph.direction for ph in plan.fused_phases)
+    return row_moves.move_work(boxes, steps, p.y * p.x, p.x, vec, word,
+                               _x_face_pairs(steps), m)
+
+
 def fused_exchange(blocks_by_position, spec: GridSpec, plan, mesh):
     """The fused exchange (see :func:`fused_exchange_plain`) of a same-dtype
     group: ``blocks_by_position[i]`` is the group's list of padded blocks at
     position ``i`` of ``mesh``, every position on the mesh's one device;
     ``plan`` is the remote-dma fused plan of ``spec`` on ``mesh``. CPU
     tensors take :func:`fused_exchange_plain`; CUDA tensors launch
-    ``csrc/fused_exchange.cu`` once for every message, or raise. In place;
-    returns ``blocks_by_position``."""
+    ``csrc/fused_exchange.cu`` once for every message (the work list of
+    :func:`fused_exchange_work`), or raise. In place; returns
+    ``blocks_by_position``."""
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
-    messages = _messages(plan, mesh)
+    _check_plan(plan, mesh)
     if dev.type == "cpu":
         return fused_exchange_plain(blocks_by_position, spec, plan, mesh)
-    ptrs = [[b.data_ptr() for b in group] for group in blocks_by_position]
-
-    def rows():
-        return [p for _ph, dests in messages for i, j in enumerate(dests)
-                for pair in zip(ptrs[i], ptrs[j]) for p in pair]
-
-    key = ("fused_exchange", plan.mesh_dim, tuple(ph.direction for ph, _ in messages),
-           tuple(p for group in ptrs for p in group))
-    table = _native.device_table(key, rows, dev)
     p = spec.padded()
-    boxes = [(ph.src, ph.dst, ph.shape) for ph, _ in messages]
-    rc = _native.lib("fused_exchange").fused_exchange_launch(
-        table.data_ptr(), len(mesh) * len(ptrs[0]), box_rows(boxes), len(boxes),
-        blocks_by_position[0][0].element_size(), p.y * p.x, p.x, dev.index,
-        _native.stream_ptr(dev))
+    rc = row_moves.launch_moves(
+        _native.lib("fused_exchange").fused_exchange_launch, "fused_exchange",
+        (plan.fused_phases, p.y * p.x, p.x),
+        lambda vec, word, m: fused_exchange_work(plan, spec, vec, word, m), blocks_by_position,
+        mesh, p.y * p.x, p.x, dev)
     _native.check(rc, "fused_exchange")
     fused_exchange.launches += 1
     return blocks_by_position
@@ -311,47 +335,6 @@ def fused_info(index: int) -> dict:
     return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
 
 
-@dataclass(frozen=True)
-class RowSegment:
-    """Rows of one message box that phase A moves alike: ``rows`` rows
-    (``ey`` a plane), each ``units`` units of ``width`` words (4: one
-    16-byte vector; 1: one word), the first unit of the first row at word
-    ``src`` (source) and ``dst`` (destination) of a position's block; row
-    ``r`` lies ``(r // ey) * sz + (r % ey) * sy`` words further."""
-
-    box: int
-    src: int
-    dst: int
-    units: int
-    width: int
-    ey: int
-    rows: int
-
-
-def message_rows(boxes, sz: int, sy: int, vec: bool) -> List[RowSegment]:
-    """Phase A's work list for the ``(src, dst, shape)`` message boxes of a
-    block with plane stride ``sz`` and row stride ``sy``: each box's rows
-    as one segment of 4-byte units, or, where ``vec`` (every pointer on the
-    16-byte grid, ``sz`` and ``sy`` multiples of 4) and source and
-    destination agree in phase, as a 4-byte head up to the source's
-    16-byte grid, a body of 16-byte vectors and a 4-byte tail. Empty
-    segments are left out."""
-    if vec and (sz % 4 or sy % 4):
-        raise ValueError(f"strides ({sz}, {sy}) are not on the 16-byte grid")
-    segs = []
-    for b, (src, dst, (ez, ey, ex)) in enumerate(boxes):
-        s0 = src[0] * sz + src[1] * sy + src[2]
-        d0 = dst[0] * sz + dst[1] * sy + dst[2]
-        parts = [(0, ex, 1)]
-        head = -s0 % 4
-        if vec and (s0 - d0) % 4 == 0 and ex - head >= 4:
-            nv = (ex - head) // 4
-            parts = [(0, head, 1), (head, nv, 4), (head + 4 * nv, ex - head - 4 * nv, 1)]
-        segs += [RowSegment(b, s0 + x, d0 + x, units, width, ey, ez * ey)
-                 for x, units, width in parts if units]
-    return segs
-
-
 @functools.lru_cache(maxsize=64)
 def row_table(boxes, sz: int, sy: int, vec: bool, messages: int):
     """``(rows, tasks)``: :func:`message_rows` as the kernel's table, one
@@ -434,6 +417,17 @@ def fused_exchange_bytes(plan, nq: int, positions: int, itemsize: int) -> int:
     ``positions`` blocks: each message cell read once and written once."""
     cells = sum(ph.shape[0] * ph.shape[1] * ph.shape[2] for ph in plan.fused_phases)
     return 2 * cells * itemsize * nq * positions
+
+
+def fused_exchange_sector_bytes(plan, spec: GridSpec, nq: int, positions: int,
+                                itemsize: int) -> int:
+    """The 32-byte sectors the fused exchange must touch for ``nq``
+    quantities over ``positions`` blocks: a block's message sources read
+    once and its halo boxes written once (``row_moves.sector_bytes``); the
+    x faces' row ends cost whole sectors, so this is the floor of a copy."""
+    p = spec.padded()
+    boxes = [(ph.src, ph.dst, ph.shape) for ph in plan.fused_phases]
+    return row_moves.sector_bytes(boxes, p.y * p.x, p.x, itemsize) * nq * positions
 
 
 class FusedRemoteDmaExchange:

@@ -12,7 +12,11 @@ straight into its ring neighbours' halos:
   the neighbour block's pointer (the reference's same-GPU
   ``PeerAccessSender``, tx_cuda.cuh:41-113, and colocated
   ``ColoQuantityKernel`` writes). On one card a (2,2,2) exchange is 3
-  launches per dtype group, not 24;
+  launches per dtype group, not 24. The kernel moves the phase's two slab
+  boxes by rows (``csrc/row_moves.cuh``, shared with the fused exchange)
+  from a work list laid out here (:func:`remote_axis_work`): the x phase's
+  two slabs as one paired segment, each boundary row's two row ends on
+  adjacent lanes; the y and z phases' whole padded rows as 16-byte vectors;
 - :func:`remote_axis_plain` is the same copies by tensor slicing, position
   by position;
 - :class:`RemoteDmaExchange` is the transport of a ``HaloExchange`` over a
@@ -47,7 +51,7 @@ from typing import Sequence
 import torch
 
 from ..domain.grid import GridSpec
-from . import _native
+from . import _native, row_moves
 from .halo_fill import MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, dtype_groups, self_fill
 
 
@@ -119,42 +123,58 @@ def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh):
     return blocks_by_position
 
 
+def remote_axis_boxes(axis: str, geom, ext):
+    """``(boxes, steps, pairs)`` of one axis phase, for the axis's
+    ``geom`` = ``(o, n, rm, rp)`` (``halo_fill.axis_geom``) and the padded
+    block's ``ext`` (z, y, x): the hi slab ``[o + n - rm, o + n)`` -> lo halo
+    ``[o - rm, o)`` sent forward and the lo slab ``[o, o + rp)`` -> hi halo
+    ``[o + n, o + n + rp)`` sent back, each a ``(src, dst, shape)`` box in
+    (z, y, x) over the full padded extent of the other two axes, with its
+    (dx, dy, dz) step; an empty slab is left out. In the x phase the two are
+    a pair: their row ends share sectors (``row_moves``)."""
+    o, n, rm, rp = geom
+    a, k = _AXIS_DIM[axis], "xyz".index(axis)
+    boxes, steps = [], []
+    for src, dst, width, sign in ((o + n - rm, o - rm, rm, 1), (o, o + n, rp, -1)):
+        if width:
+            boxes.append((tuple(src if i == a else 0 for i in range(3)),
+                          tuple(dst if i == a else 0 for i in range(3)),
+                          tuple(width if i == a else e for i, e in enumerate(ext))))
+            steps.append(tuple(sign if i == k else 0 for i in range(3)))
+    pairs = ((0, 1),) if axis == "x" and len(boxes) == 2 else ()
+    return tuple(boxes), tuple(steps), pairs
+
+
+def remote_axis_work(spec: GridSpec, axis: str, vec: bool, word: int,
+                     m: int) -> row_moves.MoveWork:
+    """The phase's work list for ``m`` instances (positions x quantities)
+    of ``word``-byte words: the slab boxes of :func:`remote_axis_boxes` by
+    rows, the x phase's two slabs as one paired segment, the y and z
+    phases' whole padded rows as 16-byte vectors where ``vec``."""
+    p = spec.padded()
+    boxes, steps, pairs = remote_axis_boxes(axis, axis_geom(spec, axis), (p.z, p.y, p.x))
+    return row_moves.move_work(boxes, steps, p.y * p.x, p.x, vec, word, pairs, m)
+
+
 def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh):
     """One axis phase of the remote-dma exchange (see
     :func:`remote_axis_plain`) for a same-dtype group: ``blocks_by_position[i]``
     is the group's list of padded blocks at position ``i`` of ``mesh``
     (flat order), every position on the mesh's one device. CPU tensors take
     :func:`remote_axis_plain`; CUDA tensors launch ``csrc/remote_axis.cu``
-    once for every position and quantity, or raise. In place; returns
+    once for every position and quantity (the work list of
+    :func:`remote_axis_work`), or raise. In place; returns
     ``blocks_by_position``."""
     _check_phase(spec, phase, mesh)
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
     if dev.type == "cpu":
         return remote_axis_plain(blocks_by_position, spec, phase, mesh)
-    o, n, rm, rp = axis_geom(spec, phase.axis)
-    ptrs = [[b.data_ptr() for b in group] for group in blocks_by_position]
-
-    step = [0, 0, 0]
-    step["xyz".index(phase.axis)] = 1
-    fwd, bwd = mesh.destinations(step), mesh.destinations([-v for v in step])
-
-    def rows():  # hi slabs forward, then lo slabs backward
-        out = []
-        for dests, width in ((fwd, rm), (bwd, rp)):
-            for i, group in enumerate(ptrs if width else ()):
-                for q, src in enumerate(group):
-                    out += [src, ptrs[dests[i]][q]]
-        return out
-
-    key = ("remote_axis", tuple(mesh.dim), phase.axis, rm > 0, rp > 0,
-           tuple(p for group in ptrs for p in group))
-    table = _native.device_table(key, rows, dev)
-    npos_q = len(mesh) * len(ptrs[0])
     p = spec.padded()
-    rc = _native.lib("remote_axis").remote_axis_launch(
-        table.data_ptr(), npos_q if rm else 0, npos_q if rp else 0,
-        blocks_by_position[0][0].element_size(), p.z, p.y, p.x, _AXIS_DIM[phase.axis], o, n,
-        rm, rp, dev.index, _native.stream_ptr(dev))
+    geometry = (phase.axis, axis_geom(spec, phase.axis), (p.z, p.y, p.x))
+    rc = row_moves.launch_moves(
+        _native.lib("remote_axis").remote_axis_launch, "remote_axis", geometry,
+        lambda vec, word, m: remote_axis_work(spec, phase.axis, vec, word, m), blocks_by_position,
+        mesh, p.y * p.x, p.x, dev)
     _native.check(rc, f"remote_axis[{phase.axis}]")
     remote_axis.launches += 1
     return blocks_by_position
@@ -170,6 +190,19 @@ def remote_axis_bytes(spec: GridSpec, phase, nq: int, positions: int, itemsize: 
     p = spec.padded()
     cells = {"z": p.y * p.x, "y": p.z * p.x, "x": p.z * p.y}[phase.axis] * (rm + rp)
     return 2 * cells * itemsize * nq * positions
+
+
+def remote_axis_sector_bytes(spec: GridSpec, phase, nq: int, positions: int,
+                             itemsize: int) -> int:
+    """The 32-byte sectors one phase must touch for ``nq`` quantities over
+    ``positions`` blocks: a block's two slabs' sectors read once and its two
+    halos' sectors written once (``row_moves.sector_bytes``). In the x phase
+    a row end of a few words costs its whole sector, so this is that
+    phase's floor."""
+    p = spec.padded()
+    boxes, _steps, _pairs = remote_axis_boxes(phase.axis, axis_geom(spec, phase.axis),
+                                              (p.z, p.y, p.x))
+    return row_moves.sector_bytes(boxes, p.y * p.x, p.x, itemsize) * nq * positions
 
 
 def self_wrap_positions(state, keys, spec: GridSpec, axis: str) -> None:

@@ -1,0 +1,396 @@
+"""The exchange carriers' work lists and launch shape (ops/row_moves.py,
+mirrored from csrc/row_moves.cuh, csrc/remote_axis.cu and
+csrc/fused_exchange.cu), held on the CPU: B6's work list covers every slab
+cell of each phase once and B7's every cell of every direction box once;
+16-byte units only where source and destination agree in phase on the
+16-byte grid; in a paired segment a boundary row's two hand-offs sit on
+adjacent units of one warp instruction; replayed task by task as the kernel
+reads the tables, the work lists move exactly the cells of
+remote_axis_plain and fused_exchange_plain; B8's work list is unchanged.
+The kernels themselves are held to their plain versions by chip_smoke.py
+phase 9. Inputs are random numpy fields from a seed; tolerance: bit-exact."""
+
+import bisect
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from stencil_tpu_torch.domain import GridSpec
+from stencil_tpu_torch.geometry import Dim3, Radius
+from stencil_tpu_torch.ops import fused_stencil as fst
+from stencil_tpu_torch.ops import halo_fill
+from stencil_tpu_torch.ops import remote_dma as rdma
+from stencil_tpu_torch.ops import row_moves as rmv
+from stencil_tpu_torch.parallel import DeviceMesh, Method
+from stencil_tpu_torch.plan.ir import build_plan
+
+torch.set_num_threads(2)
+
+CSRC = pathlib.Path(rmv.__file__).resolve().parent.parent / "csrc"
+HEADER = (CSRC / "row_moves.cuh").read_text()
+F32, F64 = np.float32, np.float64
+
+
+def asym_radius(faces):
+    """Face radii ``faces`` = (x-, x+, y-, y+, z-, z+); every edge and corner
+    direction on (a gate: halo extents use the face radii)."""
+    r = Radius()
+    for d, v in zip(((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)), faces):
+        r.set_dir(d, v)
+    r.set_edge(1)
+    r.set_corner(1)
+    return r
+
+
+# (id, global size, mesh, radius, aligned, dtype): the (2,2,2), (1,1,2) and
+# (2,1,1) meshes, fp32 and fp64, aligned and off the 16-byte grid, symmetric
+# and asymmetric radii (rm == 0 on x, y or z), ragged sizes
+CASES = [
+    ("222-r1-f32", (16, 16, 16), (2, 2, 2), Radius.constant(1), True, F32),
+    ("222-r2-f64-unaligned", (24, 20, 18), (2, 2, 2), Radius.constant(2), False, F64),
+    ("112-r1-f64", (16, 16, 20), (1, 1, 2), Radius.constant(1), True, F64),
+    ("112-r3-f32-ragged-unaligned", (13, 11, 18), (1, 1, 2), Radius.constant(3), False, F32),
+    ("211-r2-f32-ragged", (26, 14, 10), (2, 1, 1), Radius.constant(2), True, F32),
+    ("211-r1-f64-ragged-unaligned", (30, 7, 9), (2, 1, 1), Radius.constant(1), False, F64),
+    ("222-asym-x0-f32", (16, 12, 10), (2, 2, 2), asym_radius((0, 2, 1, 2, 2, 1)), True, F32),
+    ("222-asym-y0-f64-unaligned", (18, 14, 12), (2, 2, 2), asym_radius((1, 3, 0, 1, 1, 2)),
+     False, F64),
+    ("211-asym-z0-f32-unaligned", (22, 9, 8), (2, 1, 1), asym_radius((2, 1, 1, 2, 0, 1)), False,
+     F32),
+    ("112-asym-x0-f64", (12, 10, 16), (1, 1, 2), asym_radius((0, 1, 2, 1, 1, 3)), True, F64),
+]
+IDS = [c[0] for c in CASES]
+
+
+def _case(size, dim, radius, aligned, dtype):
+    spec = GridSpec(Dim3(*size), Dim3(*dim), radius, aligned=aligned)
+    p = spec.padded()
+    word = np.dtype(dtype).itemsize
+    vw = rmv.VECTOR_BYTES // word
+    vec = (p.y * p.x) % vw == 0 and p.x % vw == 0
+    return spec, p.y * p.x, p.x, word, vec
+
+
+def _phases(spec):
+    plan = build_plan(spec, spec.dim, Method.REMOTE_DMA)
+    return [ph for ph in plan.remote_phases if ph.ring > 1 and ph.active]
+
+
+def _slab_boxes(spec, axis):
+    p = spec.padded()
+    return rdma.remote_axis_boxes(axis, halo_fill.axis_geom(spec, axis), (p.z, p.y, p.x))
+
+
+def _fused(spec):
+    plan = build_plan(spec, spec.dim, Method.REMOTE_DMA, fused=True)
+    boxes = tuple((ph.src, ph.dst, ph.shape) for ph in plan.fused_phases)
+    return plan, boxes, tuple(ph.direction for ph in plan.fused_phases)
+
+
+def _works(spec, word, vec, m=1):
+    """``[(label, work, boxes, steps)]``: B6's work list of every ring phase,
+    then B7's."""
+    out = []
+    for ph in _phases(spec):
+        boxes, steps, _pairs = _slab_boxes(spec, ph.axis)
+        out.append((f"remote_axis {ph.axis}", rdma.remote_axis_work(spec, ph.axis, vec, word, m),
+                    boxes, steps))
+    plan, boxes, steps = _fused(spec)
+    out.append(("fused_exchange", fst.fused_exchange_work(plan, spec, vec, word, m), boxes, steps))
+    return out
+
+
+def _box_of(work, steps):
+    """The box each (group, side) of ``work`` moves: a group's first side is
+    the box of its step; a paired segment's second side the box whose step
+    is the opposite one."""
+    return lambda g, side: steps.index(tuple(-v for v in work.steps[g]) if side
+                                       else work.steps[g])
+
+
+def _unit_words(row, sz, sy):
+    """``(side, k, src words, dst words)`` of each side of a work-list row
+    that moves units: ``k`` the units' indices in a row, the words as
+    offsets in the blocks (flat, one entry per word)."""
+    _g, src, dst, split, src2, dst2, end, units, width, ey, rows, _c, _s = row
+    r = np.arange(rows, dtype=np.int64)
+    base = (r // ey) * sz + (r % ey) * sy
+    k = np.arange(units, dtype=np.int64)
+    out = []
+    for side, ks, x, s0, d0 in ((0, k[k < split], k[k < split] * width, src, dst),
+                                (1, k[(k >= split) & (k < end)],
+                                 (k[(k >= split) & (k < end)] - split) * width, src2, dst2)):
+        if len(ks):
+            words = (x[:, None] + np.arange(width)).ravel()
+            off = (base[:, None] + words[None, :]).ravel()
+            out.append((side, ks, s0 + off, d0 + off))
+    return out
+
+
+def _box_words(box, sz, sy):
+    src, dst, shape = box
+    z, y, x = np.meshgrid(*(np.arange(n, dtype=np.int64) for n in shape), indexing="ij")
+    rel = (z * sz + y * sy + x).ravel()
+    return src[0] * sz + src[1] * sy + src[2] + rel, dst[0] * sz + dst[1] * sy + dst[2] + rel
+
+
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", CASES, ids=IDS)
+def test_work_lists_cover_every_cell_once(name, size, dim, radius, aligned, dtype):
+    """B6's work list writes every cell of each phase's two halo slabs once
+    (over the full padded extent of the other axes) and B7's every cell of
+    every direction box once, each read from the source cell its box pairs
+    it with; the tasks are the units in chunks of a task, over every
+    instance of a group."""
+    spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
+    m, task = 3, rmv.move_shape()["task_units"]
+    for label, work, boxes, steps in _works(spec, word, vec, m):
+        box_of = _box_of(work, steps)
+        got = {b: ([], []) for b in range(len(boxes))}
+        start = 0
+        for row in work.rows:
+            assert len(row) == rmv.MOVE_COLS
+            assert row[11] == -(-row[10] * row[7] // task) and row[12] == start, label
+            start += m * row[11]
+            for side, _k, s, d in _unit_words(row, sz, sy):
+                got[box_of(row[0], side)][0].append(s)
+                got[box_of(row[0], side)][1].append(d)
+        assert work.tasks == start
+        for b, box in enumerate(boxes):
+            want_s, want_d = _box_words(box, sz, sy)
+            s, d = np.concatenate(got[b][0]), np.concatenate(got[b][1])
+            order, want = np.argsort(d), np.argsort(want_d)
+            np.testing.assert_array_equal(d[order], want_d[want], err_msg=f"{label} box {b}")
+            np.testing.assert_array_equal(s[order], want_s[want], err_msg=f"{label} box {b}")
+
+
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", CASES, ids=IDS)
+def test_vectors_only_where_source_and_destination_agree_in_phase(name, size, dim, radius,
+                                                                  aligned, dtype):
+    """A unit wider than a word is one 16-byte vector, in a run segment,
+    only where vectors are allowed (the strides on the 16-byte grid), with
+    source and destination on the grid at every unit of every row; B6's y
+    and z phases and B7's y and z faces move vectors wherever they may."""
+    spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
+    vw = rmv.VECTOR_BYTES // word
+    for label, work, _boxes, _steps in _works(spec, word, vec):
+        wide = 0
+        for row in work.rows:
+            _g, src, dst, split, _s2, _d2, end, units, width, _ey, _rows, _c, _st = row
+            if width == 1:
+                continue
+            wide += 1
+            assert vec and width == vw and split == end == units, label
+            for _side, k, s, d in _unit_words(row, sz, sy):
+                assert (s[::width] % vw == 0).all() and (d[::width] % vw == 0).all(), label
+        if label[-1] in "yz" or (label == "fused_exchange" and vec):
+            runs_long = spec.padded().x >= 2 * vw if label[-1] in "yz" else spec.base.x >= 2 * vw
+            assert (wide > 0) == (vec and runs_long), label
+        if label.endswith("x"):
+            assert wide == 0, label
+
+
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", CASES, ids=IDS)
+def test_paired_row_ends_share_one_warp_instruction(name, size, dim, radius, aligned, dtype):
+    """B6's x phase and B7's x faces are one paired segment when both sides
+    have a radius: each row's first-message units (b's hi row end, read
+    from b and written into its forward neighbour) and then the partner's
+    (the forward neighbour's lo row end, read there and written into b) on
+    adjacent units that lie in one warp instruction (one 32-unit window of
+    the task's index space: a task is whole warps); with one side's radius
+    0 the lone x message is a run segment of one-word units."""
+    spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
+    rm, rp = spec.radius.x(-1), spec.radius.x(1)
+    assert rmv.move_shape()["task_units"] % rmv.WARP == 0
+    assert rmv.MOVE_THREADS % rmv.WARP == 0
+    for label, work, _boxes, steps in _works(spec, word, vec):
+        if label not in ("remote_axis x", "fused_exchange"):
+            continue
+        paired = [row for row in work.rows if row[3] < row[6]]
+        assert len(paired) == (1 if rm and rp else 0), label
+        for row in paired:
+            g, src, dst, split, src2, dst2, end, units, width = row[:9]
+            assert (split, end, width) == (rm, rm + rp, 1)
+            assert work.steps[g] == (1, 0, 0)
+            assert units == rmv.row_lanes(end) and rmv.WARP % units == 0
+            rows = np.arange(row[10], dtype=np.int64)
+            first, last = rows * units, rows * units + end - 1
+            assert (first // rmv.WARP == last // rmv.WARP).all(), label
+            # b's hi row end is read and then b's hi halo beside it written;
+            # the neighbour's lo halo written and its lo row end read beside it
+            o, n = spec.compute_offset().x, spec.base.x
+            assert (src % sy, dst2 % sy) == (o + n - rm, o + n), label
+            assert (dst % sy, src2 % sy) == (o - rm, o), label
+        if not (rm and rp):
+            lone = [row for row in work.rows if work.steps[row[0]][0] != 0
+                    and all(v == 0 for v in work.steps[row[0]][1:])]
+            assert len(lone) == 1 and lone[0][8] == 1, label
+
+
+def replay_tables(blocks, ptr_rows, m, seg_rows, tasks, sz, sy):
+    """csrc/row_moves.cuh's kernel in plain torch indexing, one block a task,
+    as it reads its tables: the segment by the starts, the chunk and the
+    instance (chunk-major), each unit's row, side and words; ``blocks`` maps
+    a pointer to its CPU block. In place."""
+    task = rmv.move_shape()["task_units"]
+    starts = [row[12] for row in seg_rows]
+    assert starts == sorted(starts) and starts[0] == 0
+    assert tasks == starts[-1] + m * seg_rows[-1][11]
+    for t in range(tasks):
+        row = seg_rows[bisect.bisect_right(starts, t) - 1]
+        g, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start = row
+        c, j = divmod(t - start, m)
+        assert c < chunks
+        p, q = blocks[ptr_rows[2 * (g * m + j)]], blocks[ptr_rows[2 * (g * m + j) + 1]]
+        i = np.arange(c * task, min((c + 1) * task, rows * units), dtype=np.int64)
+        r, k = np.divmod(i, units)
+        base = (r // ey) * sz + (r % ey) * sy
+        for side, keep, x, s0, d0, a, b in (
+                (0, k < split, k * width, src, dst, p, q),
+                (1, (k >= split) & (k < end), (k - split) * width, src2, dst2, q, p)):
+            if keep.any():
+                off = (base[keep] + x[keep])[:, None] + np.arange(width)
+                b.view(-1)[torch.from_numpy((d0 + off).ravel())] = \
+                    a.view(-1)[torch.from_numpy((s0 + off).ravel())]
+
+
+def _pointer_rows(blocks, mesh, steps):
+    """The pointer table as row_moves.launch_moves lays it out."""
+    out = []
+    for step in steps:
+        dests = mesh.destinations(step)
+        for i, group in enumerate(blocks):
+            for q, b in enumerate(group):
+                out += [b.data_ptr(), blocks[dests[i]][q].data_ptr()]
+    return out
+
+
+def _rand_groups(spec, nq, dtype, seed):
+    rng = np.random.RandomState(seed)
+    p = spec.padded()
+    return [[torch.from_numpy(rng.rand(1, 1, 1, p.z, p.y, p.x).astype(dtype)) for _ in range(nq)]
+            for _ in range(spec.num_blocks())]
+
+
+@pytest.mark.parametrize("nq", [1, 3], ids=["1q", "3q"])
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", CASES, ids=IDS)
+def test_replay_equals_the_plain_versions(name, size, dim, radius, aligned, dtype, nq):
+    """Every phase's work list (B6) and the fused one (B7), replayed as the
+    kernel reads its tables over random blocks (noise in every halo and
+    pad), equal remote_axis_plain and fused_exchange_plain on every cell,
+    bit for bit; with one quantity and with three (the instances of a
+    group: position-major, then quantity)."""
+    spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
+    mesh = DeviceMesh(dim, ["cpu"] * spec.num_blocks())
+    m = len(mesh) * nq
+    plan, _boxes, _steps = _fused(spec)
+    jobs = [(f"remote_axis {ph.axis}", rdma.remote_axis_work(spec, ph.axis, vec, word, m),
+             lambda st, ph=ph: rdma.remote_axis_plain(st, spec, ph, mesh)) for ph in _phases(spec)]
+    jobs.append(("fused_exchange", fst.fused_exchange_work(plan, spec, vec, word, m),
+                 lambda st: fst.fused_exchange_plain(st, spec, plan, mesh)))
+    for n, (label, work, plain) in enumerate(jobs):
+        got = _rand_groups(spec, nq, dtype, 50 + n)
+        want = plain([[b.clone() for b in g] for g in got])
+        replay_tables({b.data_ptr(): b for g in got for b in g},
+                      _pointer_rows(got, mesh, work.steps), m, work.rows, work.tasks, sz, sy)
+        for ga, gb in zip(got, want):
+            for a, b in zip(ga, gb):
+                assert torch.equal(a, b), label
+
+
+def _message_rows_before(boxes, sz, sy, vec):
+    """B8's phase-A work list as message_rows laid it out before the carriers
+    shared it (fp32, no pairs): the reference its output must keep."""
+    segs = []
+    for b, (src, dst, (ez, ey, ex)) in enumerate(boxes):
+        s0 = src[0] * sz + src[1] * sy + src[2]
+        d0 = dst[0] * sz + dst[1] * sy + dst[2]
+        parts = [(0, ex, 1)]
+        head = -s0 % 4
+        if vec and (s0 - d0) % 4 == 0 and ex - head >= 4:
+            nv = (ex - head) // 4
+            parts = [(0, head, 1), (head, nv, 4), (head + 4 * nv, ex - head - 4 * nv, 1)]
+        segs += [(b, s0 + x, d0 + x, units, width, ey, ez * ey)
+                 for x, units, width in parts if units]
+    return segs
+
+
+@pytest.mark.parametrize("size,dim,r,aligned", [
+    ((512,) * 3, (1, 1, 1), 1, True), ((33, 21, 13), (1, 1, 1), 2, True),
+    ((200, 100, 61), (1, 1, 1), 3, False), ((24, 20, 16), (2, 2, 2), 1, True),
+    ((24, 20, 16), (2, 2, 2), 1, False)], ids=["512-r1", "33x21x13-r2", "200x100x61-r3-un",
+                                               "24x20x16-222", "24x20x16-222-un"])
+def test_message_rows_for_the_fused_step_is_unchanged(size, dim, r, aligned):
+    """The fused step's call (fp32, no pairs) lays out the same segments as
+    before, with no partner, and row_table the same rows."""
+    spec = GridSpec(Dim3(*size), Dim3(*dim), Radius.constant(r), aligned=aligned)
+    plan = build_plan(spec, dim, Method.REMOTE_DMA, fused=True)
+    boxes = tuple((ph.src, ph.dst, ph.shape) for ph in plan.fused_phases)
+    p = spec.padded()
+    sz, sy = p.y * p.x, p.x
+    vec = sz % 4 == 0 and sy % 4 == 0
+    segs = fst.message_rows(boxes, sz, sy, vec)
+    assert [(s.box, s.src, s.dst, s.units, s.width, s.ey, s.rows) for s in segs] == \
+        _message_rows_before(boxes, sz, sy, vec)
+    assert all(s.partner == -1 for s in segs)
+    rows, _tasks = fst.row_table(boxes, sz, sy, vec, spec.num_blocks())
+    assert [row[:7] for row in rows] == _message_rows_before(boxes, sz, sy, vec)
+
+
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", CASES, ids=IDS)
+def test_sector_floors(name, size, dim, radius, aligned, dtype):
+    """The sector floors count the 32-byte sectors of a block's sources once
+    and of its destinations once: B6's phase equals B4's fill of the same
+    axis on aligned rows (the same slabs on each block), and both carriers'
+    equal a count of the sectors word by word."""
+    spec, sz, sy, word, _vec = _case(size, dim, radius, aligned, dtype)
+    npos = spec.num_blocks()
+    for ph in _phases(spec):
+        got = rdma.remote_axis_sector_bytes(spec, ph, 2, npos, word)
+        fill = 2 * npos * halo_fill.fill_sector_bytes(halo_fill.fill_layout(spec, ph.axis, word),
+                                                      word)
+        # the fill counts each row's sectors alone; rows of a few sectors
+        # share their end sectors with the next row's start
+        assert got == fill if aligned else got <= fill, ph.axis
+        assert got >= rdma.remote_axis_bytes(spec, ph, 2, npos, word)
+    plan, boxes, _steps = _fused(spec)
+    for bx in (boxes, [b for ph in _phases(spec) for b in _slab_boxes(spec, ph.axis)[0]]):
+        words = [np.concatenate(w) for w in zip(*(_box_words(b, sz, sy) for b in bx))]
+        want = sum(len(np.unique(w * word // rmv.SECTOR_BYTES)) for w in words)
+        assert rmv.sector_bytes(bx, sz, sy, word) == want * rmv.SECTOR_BYTES
+    assert fst.fused_exchange_sector_bytes(plan, spec, 1, 1, word) == \
+        rmv.sector_bytes(boxes, sz, sy, word)
+
+
+def _const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_constants_mirror_the_kernel_source():
+    """THREADS, UNROLL and COLS, the table row's fields in the order
+    move_work writes them, the grid of one block a task with the tasks
+    chunk-major, and both carriers launching the shared body."""
+    assert rmv.MOVE_THREADS == _const(HEADER, "THREADS")
+    assert rmv.MOVE_UNROLL == _const(HEADER, "UNROLL")
+    assert rmv.MOVE_COLS == _const(HEADER, "COLS")
+    assert re.search(r"constexpr int TASK = THREADS \* UNROLL;", HEADER)
+    fields = re.search(r"struct Seg \{\s*long long ([^;]+);", HEADER).group(1)
+    assert [f.strip() for f in fields.split(",")] == [
+        "group", "src", "dst", "split", "src2", "dst2", "end", "units", "width", "ey", "rows",
+        "chunks", "start"]
+    assert "const long long t = blockIdx.x;" in HEADER
+    assert "const long long c = k / m, j = k - c * m;" in HEADER
+    assert HEADER.count("<<<(unsigned)tasks, THREADS, 0, st>>>") == 2
+    for name in ("remote_axis", "fused_exchange"):
+        src = (CSRC / f"{name}.cu").read_text()
+        assert '#include "row_moves.cuh"' in src
+        assert "return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, sz, sy, stream);" \
+            in src
+
+
+@pytest.mark.parametrize("units,lanes", [(1, 1), (2, 2), (3, 4), (5, 8), (6, 8), (8, 8),
+                                         (12, 16), (17, 32), (32, 32), (40, 40)])
+def test_row_lanes(units, lanes):
+    assert rmv.row_lanes(units) == lanes

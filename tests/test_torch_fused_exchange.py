@@ -143,10 +143,13 @@ def test_fused_exchange_checks_operands():
 
 
 def test_fused_exchange_table_moves_the_plain_versions_boxes(monkeypatch):
-    """The rows the CUDA branch builds (m rows per direction box, in box
-    order), applied with the box table as csrc/fused_exchange.cu applies
-    them, give the plain version's result on every cell."""
-    from stencil_tpu_torch.ops import remote_dma
+    """The table the CUDA branch uploads (the pointer rows, per direction
+    group, position and quantity, then the work list of the plan's boxes,
+    the x faces paired), replayed task by task as csrc/row_moves.cuh reads
+    it, gives the plain version's result on every cell."""
+    from test_torch_exchange_launch import replay_tables
+
+    from stencil_tpu_torch.ops import remote_dma, row_moves
 
     for size, dim, r in (((16, 16, 16), (2, 2, 2), 2), ((16, 16, 20), (1, 1, 2), 1)):
         tspec, jspec, tmesh, _jmesh = pair(size, dim, r)
@@ -159,25 +162,27 @@ def test_fused_exchange_table_moves_the_plain_versions_boxes(monkeypatch):
         blocks = {b.data_ptr(): b for g in got for b in g}
         tables = {}
 
-        def device_table(key, rows, device):
-            t = torch.tensor(rows(), dtype=torch.int64)
+        def upload(values, device):
+            t = torch.tensor(values, dtype=torch.int64)
             tables[t.data_ptr()] = (t, t.tolist())
             return t
 
-        def launch(table, m, boxes, nboxes, _item, _sz, _sy, _dev, _st):
-            rows = tables[table][1]
-            for b in range(nboxes):
-                box = list(boxes[9 * b: 9 * b + 9])
-                s, d = fused_stencil.box_slices(box[0:3], box[3:6], box[6:9])
-                for j in range(m):
-                    src, dst = blocks[rows[2 * (b * m + j)]], blocks[rows[2 * (b * m + j) + 1]]
-                    dst[d] = src[s]
-            assert len(rows) == 2 * m * nboxes
+        def launch(ptrs, m, segs, nseg, tasks, item, sz, sy, _st):
+            table, cols = tables[ptrs][1], row_moves.MOVE_COLS
+            head = (segs - ptrs) // 8
+            # one pointer group per direction box, the -x face riding with +x
+            assert head == 2 * m * (len(plan.fused_phases) - 1)
+            assert len(table) == head + nseg * cols and item == 8 and m == 2 * len(tmesh)
+            replay_tables(blocks, table[:head], m,
+                          [table[i:i + cols] for i in range(head, len(table), cols)], tasks,
+                          sz, sy)
             return 0
 
         monkeypatch.setattr(fused_stencil, "_check_mesh_blocks",
                             lambda *a: type("Card", (), {"type": "cuda", "index": 0})())
-        monkeypatch.setattr(remote_dma._native, "device_table", device_table)
+        # every call uploads its table: none is kept from another test's blocks
+        monkeypatch.setattr(remote_dma._native, "kept", lambda key, make: make())
+        monkeypatch.setattr(remote_dma._native, "upload", upload)
         monkeypatch.setattr(remote_dma._native, "stream_ptr", lambda dev: 0)
         monkeypatch.setattr(remote_dma._native, "lib", lambda name: type(
             "Lib", (), {"fused_exchange_launch": staticmethod(launch)}))

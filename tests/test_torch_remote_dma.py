@@ -246,9 +246,10 @@ def test_mesh_shape_and_neighbours():
 
 class FakeCard:
     """Stands in for the card in the CUDA branch of the mesh wrappers: the
-    pointer table the wrapper uploads is kept, and a Python copy of the
-    kernel applies it to the CPU blocks the pointers name, as the CUDA
-    kernel would."""
+    table the wrapper uploads is kept (none is kept from another test's
+    blocks: the fake card keeps no launch), and a Python copy of the kernel
+    applies it to the CPU blocks the pointers name, as the CUDA kernel
+    would."""
 
     type, index = "cuda", 0
 
@@ -256,24 +257,22 @@ class FakeCard:
         self.tables = {}
         self.blocks = {b.data_ptr(): b for g in blocks for b in g}
         monkeypatch.setattr(module, "_check_mesh_blocks", lambda *a: self)
-        monkeypatch.setattr(module._native, "device_table", self.device_table)
+        monkeypatch.setattr(module._native, "kept", lambda key, make: make())
+        monkeypatch.setattr(module._native, "upload", self.upload)
         monkeypatch.setattr(module._native, "stream_ptr", lambda dev: 0)
 
-    def device_table(self, key, rows, device):
-        t = torch.tensor(rows(), dtype=torch.int64)
+    def upload(self, values, device):
+        t = torch.tensor(values, dtype=torch.int64)
         self.tables[t.data_ptr()] = (t, t.tolist())
         return t
 
-    def pairs(self, table_ptr):
-        rows = self.tables[table_ptr][1]
-        return [(self.blocks[rows[i]], self.blocks[rows[i + 1]]) for i in range(0, len(rows), 2)]
-
 
 def test_remote_axis_table_moves_the_plain_versions_slabs(monkeypatch):
-    """The rows the CUDA branch builds (hi slabs forward, then lo slabs
-    backward, per position and quantity), applied as csrc/remote_axis.cu
-    applies them, give the plain version's result on every cell."""
-    from stencil_tpu_torch.ops import halo_fill
+    """The table the CUDA branch uploads (the pointer rows, per group's
+    step, position and quantity, then the phase's work list), replayed task
+    by task as csrc/row_moves.cuh reads it, gives the plain version's
+    result on every cell."""
+    from test_torch_exchange_launch import replay_tables
 
     for size, dim, r in (((16, 16, 16), (2, 2, 2), 2), ((24, 20, 16), (2, 1, 1), 1)):
         tspec, jspec, tmesh, _jmesh = pair(size, dim, r)
@@ -286,13 +285,13 @@ def test_remote_axis_table_moves_the_plain_versions_slabs(monkeypatch):
             got = [[st[k][i] for k in st] for i in range(len(tmesh))]
             card = FakeCard(monkeypatch, remote_dma, got)
 
-            def launch(table, n_rm, n_rp, _item, _pz, _py, _px, axis, o, n, rm, rp, _dev, _st):
-                name = "zyx"[axis]
-                for row, (src, dst) in enumerate(card.pairs(table)):
-                    s0, d0, w = (o + n - rm, o - rm, rm) if row < n_rm else (o, o + n, rp)
-                    dst[halo_fill._axis_slice(dst, name, d0, d0 + w)] = \
-                        src[halo_fill._axis_slice(src, name, s0, s0 + w)]
-                assert n_rm + n_rp == len(card.pairs(table))
+            def launch(ptrs, m, segs, nseg, tasks, item, sz, sy, _st):
+                table, cols = card.tables[ptrs][1], remote_dma.row_moves.MOVE_COLS
+                head = (segs - ptrs) // 8  # the pointer rows: one group in x, two in y and z
+                assert head == 2 * m * (1 if ph.axis == "x" else 2) and item == 4
+                assert len(table) == head + nseg * cols and m == len(tmesh) * 3
+                rows = [table[i:i + cols] for i in range(head, len(table), cols)]
+                replay_tables(card.blocks, table[:head], m, rows, tasks, sz, sy)
                 return 0
 
             monkeypatch.setattr(remote_dma._native, "lib", lambda name: type(
