@@ -171,6 +171,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               per loop call), launch counts reset around each; each kernel
               timed per launch at 512^3 beside its plain version and bound.
 
+11. guarded -- the guarded main path (guarded_phase): the fused health
+              reduction (csrc/health_reduce.cu) against its plain version
+              (the torch passes; finite flags torch.equal, max |x| equal
+              with NaN equal to NaN) in fp32 and fp64 at 512^3 r1 one block,
+              67x45x29 (also off the 16-byte grid) and 1 element, with NaN
+              only, inf only, NaN + inf, -inf and a subnormal maximum; per
+              lane on the campaign stacks B=64 of 128^3 and B=70,000 of 4^3;
+              an 8-position mesh state; a dict of fp32 + fp64 + int32
+              quantities; each timed per launch at 512^3 (fp32, fp64), B=64
+              of 128^3 and the mesh beside its bytes bound, the torch
+              passes and torch.linalg.vector_norm(ord=inf); the headline leg
+              (python -m stencil_tpu_torch.apps.bench_headline, jacobi3d
+              512^3 in 3 chunks of 360 with a health check each) in a
+              subprocess, its JSON line printed; one guarded 360-step chunk
+              at 512^3 with launch counts reset around it (120 multistep, 0
+              sweeps, 1 health launch); jacobi3d 128^3 guarded (health and
+              checkpoints every 2 steps) with nan@3 (3 fill launches in the
+              restore's exchange) and ckpt-truncate@5,nan@5 equal to the
+              clean run, exhaustion exiting 43 with its evidence file, a
+              child killed after its step-4 snapshot and resumed equal to
+              the uninterrupted run; astaroth 64^3 fp64 with nan@2 in lnrho
+              equal to its clean run.
+
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Without a visible GPU it exits non-zero
@@ -202,6 +225,227 @@ def log(msg: str) -> None:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def guarded_phase(dev, time_ms, n: int = 512, stacks=((64, 128), (70000, 4)), gn: int = 128,
+                  an: int = 64, headline: bool = True):
+    """Phase 11, the guarded main path, on ``dev``: the health kernel against
+    its plain version (and timed), the headline leg in a subprocess, one
+    guarded 360-step chunk with launch counts, the guarded jacobi3d and
+    astaroth rollbacks, the truncated-snapshot fallback, exhaustion and a
+    kill-and-resume. Sizes are arguments so that the phase can be rehearsed
+    small on the CPU (``time_ms`` then a stand-in). Returns the health
+    kernel's ``(timing, launches, max_abs_err)``."""
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.apps import bench_headline, ckpt_tool, jacobi3d
+    from stencil_tpu_torch.astaroth.integrate import FIELDS
+    from stencil_tpu_torch.domain import GridSpec
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import halo_fill, health_reduce as hr, stencil_kernels as sk
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1100)
+
+    def rand(shape, dtype=torch.float32):
+        return (torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) - 0.5).to(dtype)
+
+    def plain(groups, per_lane=False):
+        """The torch passes on the same tensors, on the card."""
+        finite, amax = zip(*(hr.finite_and_max_plain(hr._joined(g, per_lane),
+                                                     1 if per_lane else None) for g in groups))
+        return torch.stack([torch.stack(finite), torch.stack(amax)])
+
+    def library(groups, per_lane=False):
+        """One PyTorch call a tensor for max |x| (NaN propagating), whose
+        finiteness is the flag: torch.linalg.vector_norm(ord=inf)."""
+        return [torch.linalg.vector_norm(t.reshape(t.shape[0], -1) if per_lane else t,
+                                         float("inf"), dim=1 if per_lane else None)
+                for g in groups for t in g]
+
+    err = 0.0
+
+    def held(label, groups, per_lane=False):
+        nonlocal err
+        got = hr.health_reduce(groups, per_lane)
+        want = plain(groups, per_lane)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]), f"health {label}: finite flags differ")
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"health {label}: max |x| differs: {m}")
+        both = torch.isfinite(got[1]) & torch.isfinite(want[1])
+        if bool(both.any()):
+            err = max(err, float((got[1][both] - want[1][both]).abs().max()))
+        log(f"health {label}: == plain (finite {got[0].flatten()[:4].tolist()}, "
+            f"max {got[1].flatten()[:4].tolist()})")
+
+    pad = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1)).stacked_shape_zyx()
+    for dt in (torch.float32, torch.float64):
+        x = rand(pad, dt)
+        held(f"{n}^3 r1 one block {dt}", [[x]])
+        del x
+        y = rand((29, 45, 67), dt) * 7
+        held(f"67x45x29 {dt}", [[y]])
+        held(f"67x45x29 off the 16-byte grid {dt}", [[y.reshape(-1)[1:]]])
+        held(f"1 element {dt}", [[torch.full((1,), -3.5, device=dev, dtype=dt)]])
+        tiny = torch.finfo(dt).tiny / 4  # a subnormal
+        for label, vals in (("NaN only", [float("nan")]), ("inf only", [float("inf")]),
+                            ("NaN + inf", [float("nan"), float("inf")]),
+                            ("-inf", [float("-inf")]), ("subnormal max", [tiny])):
+            z = torch.zeros((17, 33, 65), device=dev, dtype=dt)
+            if label != "subnormal max":
+                z += 0.25
+            for i, v in enumerate(vals):
+                z.view(-1)[1000 + 5000 * i] = v
+            held(f"{label} {dt}", [[z]])
+    for b, e in stacks:
+        p = GridSpec(Dim3(e, e, e), Dim3(1, 1, 1), Radius.constant(1), aligned=False).padded()
+        st = rand((b, p.z, p.y, p.x))
+        st[b // 3, 2, 2, 2] = float("nan")
+        st[b // 2, 1, 1, 1] = float("-inf")
+        st[b - 1, 3, 3, 3] = 1e30
+        held(f"campaign stack B={b} of {e}^3 per lane", [[st]], per_lane=True)
+        del st
+    mesh = [rand((1, 1, 1, 66, 72, 66)) for _ in range(8)]
+    mesh[5][0, 0, 0, 9, 9, 9] = 9.0
+    held("8-position mesh state", [mesh])
+    d = {"a": rand((20, 30, 40)), "b": rand((20, 30, 40), torch.float64),
+         "c": torch.ones((20, 30, 40), dtype=torch.int32, device=dev)}
+    held("fp32 + fp64 + int32 dict", [[d[k]] for k in sorted(d)])
+
+    # per launch beside the bytes bound, the torch passes and one library call
+    x = rand(pad)
+    b0, e0 = stacks[0]
+    p = GridSpec(Dim3(e0, e0, e0), Dim3(1, 1, 1), Radius.constant(1), aligned=False).padded()
+    st = rand((b0, p.z, p.y, p.x))
+    cases = {f"{n}^3": ([[x]], False), f"{n}^3 fp64": ([[x.double()]], False),
+             f"B={b0} of {e0}^3": ([[st]], True), "8-position mesh": ([mesh], False)}
+    times = {}
+    for label, (groups, pl) in cases.items():
+        nbytes = hr.health_bytes(groups)
+        times[label] = dict(
+            ms=time_ms(lambda: hr.health_reduce(groups, pl), 20),
+            plain_ms=time_ms(lambda: plain(groups, pl), 5),
+            library_ms=time_ms(lambda: library(groups, pl), 5),
+            bound=bound_ms(nbytes, nbytes // groups[0][0].element_size()))
+        t = times[label]
+        log(f"time health_reduce {label}: {t['ms']:.4f} ms per launch (torch passes "
+            f"{t['plain_ms']:.4f} ms, vector_norm(inf) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms by {t['bound'][1]})")
+    del x, st, mesh
+    main_t = times[f"{n}^3"]
+    lanes = times[f"B={b0} of {e0}^3"]
+    timing = dict(main_t, extra={"lanes_ms": lanes["ms"], "lanes_plain_ms": lanes["plain_ms"],
+                                 "lanes_library_ms": lanes["library_ms"],
+                                 "lanes_bound_ms": lanes["bound"][0]})
+
+    # the main path: one guarded chunk of the headline job (360 steps, a
+    # health check at its end), launch counts set to 0 just before
+    counted = {"jacobi_multistep": sk.multistep, "jacobi_sweep": sk.sweep,
+               "self_fill": halo_fill.self_fill, "health_reduce": hr.health_reduce}
+    for fn in counted.values():
+        fn.launches = 0
+    r = jacobi3d.run(n, n, n, iters=360, chunk=360, health_every=360, warmup=0, weak=False,
+                     device=dev)
+    got = {k: fn.launches for k, fn in counted.items()}
+    k = r["temporal_k"]
+    want = {"jacobi_multistep": 360 // k, "jacobi_sweep": 360 % k, "self_fill": 0,
+            "health_reduce": 1}
+    check(got == want and r["health_checks"] == 1,
+          f"guarded chunk of {n}^3: launches {got}, expected {want}")
+    health_launches = got["health_reduce"]
+    log(f"guarded chunk of {n}^3, 360 steps at k={k}: launches {got}, "
+        f"{r['iter_trimean_s'] * 1e3:.4f} ms/iter, loop wall {r['loop_wall_s']:.4f} s")
+    del r
+
+    if headline:
+        # the headline leg as a user runs it
+        env = dict(os.environ)
+        env.pop("STENCIL_BENCH_CKPT_DIR", None)
+        root = os.path.dirname(os.path.abspath(__file__))
+        hp = subprocess.run([sys.executable, "-m", "stencil_tpu_torch.apps.bench_headline"],
+                            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        check(hp.returncode == 0, f"bench_headline rc {hp.returncode}: {hp.stderr[-2000:]}")
+        row = json.loads(hp.stdout.strip().splitlines()[-1])
+        check(row["value"] > 0 and row["health_checks"] == 3 and row["device"] != "cpu",
+              f"bench_headline row {row}")
+        log(f"bench_headline: {json.dumps(row)}")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-guarded-") as tmp:
+        # a guarded jacobi3d on the card: the NaN at step 3 is rolled back
+        # to the step-2 snapshot and recomputed, equal to the clean run
+        kw = dict(iters=8, weak=False, health_every=2, ckpt_every=2, rollback_backoff=0.01,
+                  device=dev)
+
+        def field(r):
+            return r["domain"].get_curr_global(r["handle"])
+
+        clean = field(jacobi3d.run(gn, gn, gn, ckpt_dir=os.path.join(tmp, "clean"), **kw))
+        check(bool(np.isfinite(clean).all()), "guarded jacobi3d clean run: non-finite")
+        for fn in counted.values():
+            fn.launches = 0
+        faulted = jacobi3d.run(gn, gn, gn, ckpt_dir=os.path.join(tmp, "nan"), inject="nan@3",
+                               **kw)
+        got = {k: fn.launches for k, fn in counted.items()}
+        check(np.array_equal(field(faulted), clean),
+              f"guarded jacobi3d {gn}^3 nan@3: != the clean run")
+        # the restore's exchange fills the halos (3 fill launches on one block)
+        check(got["self_fill"] == 3 and got["health_reduce"] >= 5,
+              f"guarded jacobi3d {gn}^3 nan@3: launches {got}")
+        log(f"guarded jacobi3d {gn}^3 nan@3: rolled back, == the clean run; launches {got}")
+        del faulted
+        trunc = jacobi3d.run(gn, gn, gn, ckpt_dir=os.path.join(tmp, "trunc"),
+                             inject="ckpt-truncate@5,nan@5", **kw)
+        check(np.array_equal(field(trunc), clean),
+              f"guarded jacobi3d {gn}^3 ckpt-truncate@5,nan@5: != the clean run")
+        log(f"guarded jacobi3d {gn}^3 ckpt-truncate@5,nan@5: fell back past the truncated "
+            "snapshot, == the clean run")
+        del trunc
+        ck = os.path.join(tmp, "exhaust")
+        rc = jacobi3d.main(["--x", str(gn), "--y", str(gn), "--z", str(gn), "--no-weak",
+                            "--iters", "8", "--device", str(dev), "--ckpt-dir", ck,
+                            "--ckpt-every", "2", "--health-every", "2", "--max-rollbacks", "1",
+                            "--rollback-backoff", "0.01", "--inject", "nan@3:repeat=always"])
+        ev = os.path.join(ck, "fault-evidence.json")
+        check(rc == 43 and os.path.isfile(ev) and json.load(open(ev))["rc"] == 43,
+              f"guarded jacobi3d exhaustion: rc {rc}, evidence {os.path.isfile(ev)}")
+        log("guarded jacobi3d exhaustion: rc 43 with its evidence file")
+
+        # kill-and-resume: a child dies right after its step-4 snapshot is
+        # durable, a second one resumes; the end equals the clean run's
+        root = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "stencil_tpu_torch.apps.jacobi3d", "--x", str(gn),
+               "--y", str(gn), "--z", str(gn), "--no-weak", "--iters", "8", "--device",
+               str(dev), "--ckpt-dir", os.path.join(tmp, "killed"), "--ckpt-every", "2",
+               "--health-every", "2"]
+        env = dict(os.environ, STENCIL_CKPT_KILL_AFTER_SAVE="4")
+        p1 = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        env.pop("STENCIL_CKPT_KILL_AFTER_SAVE")
+        p2 = subprocess.run(cmd + ["--resume"], cwd=root, env=env, capture_output=True,
+                            text=True, timeout=600)
+        check(p1.returncode == 17 and p2.returncode == 0
+              and "resuming from checkpointed step 4" in p2.stderr,
+              f"kill-and-resume: rc {p1.returncode} then {p2.returncode}: {p2.stderr[-2000:]}")
+        check(ckpt_tool.main(["diff", "--data", os.path.join(tmp, "killed"),
+                              os.path.join(tmp, "clean")]) == 0,
+              "kill-and-resume: the resumed run's final snapshot != the clean run's")
+        log(f"kill-and-resume {gn}^3: killed after step 4 (rc 17), resumed, final snapshot "
+            "== the uninterrupted run's")
+
+        # the guarded astaroth: a NaN in lnrho at step 2 rolled back
+        akw = dict(iters=3, nx=an, chunk=1, ckpt_every=1, health_every=1,
+                   rollback_backoff=0.01, device=dev)
+        aclean = astaroth_app.run(ckpt_dir=os.path.join(tmp, "aclean"), **akw)
+        anan = astaroth_app.run(ckpt_dir=os.path.join(tmp, "anan"), inject="nan@2:q=lnrho",
+                                **akw)
+        for name in FIELDS:
+            a = anan["domain"].get_curr_global(anan["handles"][name])
+            b = aclean["domain"].get_curr_global(aclean["handles"][name])
+            check(bool(np.isfinite(a).all()) and np.array_equal(a, b),
+                  f"guarded astaroth {an}^3 nan@2: {name} != the clean run")
+        log(f"guarded astaroth {an}^3 fp64 nan@2: rolled back, every field == the clean run")
+    return timing, health_launches, err
 
 
 def main() -> int:
@@ -1696,6 +1940,18 @@ def main() -> int:
     log(f"persistent_jacobi_mesh k=4: {timings['persistent_jacobi_mesh']['ms'] / 4:.4f} ms per "
         f"step; the design's own traffic bounds it at {design10:.4f} ms")
 
+    # -- 11. the guarded main path: health kernel, headline leg, rollbacks ----
+    from stencil_tpu_torch.ops import health_reduce as hr
+
+    timings["health_reduce"], launches["health_reduce"], errs["health_reduce"] = \
+        guarded_phase(dev, time_ms)
+    t = timings["health_reduce"]
+    log(f"time health_reduce 512^3 fp32: {t['ms']:.4f} ms per launch (torch passes "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms); B=64 of 128^3 per lane "
+        f"{t['extra']['lanes_ms']:.4f} ms (torch passes {t['extra']['lanes_plain_ms']:.4f} ms, "
+        f"bound {t['extra']['lanes_bound_ms']:.4f} ms); {hr.health_reduce.launches} launches "
+        "in phase 11")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -1738,6 +1994,9 @@ def main() -> int:
                               "stencil_tpu/ops/fused_stencil.py:250"),
         "persistent_jacobi_mesh": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
                                    "stencil_tpu/ops/persistent_stencil.py:199"),
+        # no Pallas builder: the JAX guard's fused XLA reduction
+        "health_reduce": ("stencil_tpu_torch/csrc/health_reduce.cu",
+                          "stencil_tpu/fault/health.py:84"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -16,12 +16,22 @@ exchange share is timed as the JAX app times its fused path: a standalone
 ``exchange_loop(1)`` after every chunk (one exchange per iteration; 3 with
 ``swap_per_substep``), which leaves exchanged fields unchanged.
 
+The 8 fields are the guarded state of jacobi3d's engine
+(``fault.run_guarded``; the same ``--ckpt-*``, ``--resume``,
+``--health-every``, ``--max-abs``, ``--max-rollbacks``,
+``--rollback-backoff`` and ``--inject`` flags; exit 43 when recovery gives
+up). As in the JAX app the engine runs when a health check or an injection
+is configured (its schedule is ``chunk_plan``, broken at checkpoint, health
+and injection steps); otherwise the fixed-chunk loop runs, saving at the
+first chunk end past each ``ckpt_every`` multiple. The final state is
+always saved with a checkpoint dir, and warm-up then runs on copies.
+
 Usage: python -m stencil_tpu_torch.apps.astaroth 10 [--nx 256] [--f32]
 (``--device cpu --nx 16`` runs the plain PyTorch versions on the CPU).
 
 Not carried over yet (ROADMAP.md queue A): the multi-device decomposition,
-boundary conditions other than periodic, checkpoints, health checks, fault
-injection, autotuning, the kernel-variant flag and the ParaView dumps.
+boundary conditions other than periodic, autotuning, the kernel-variant
+flag and the ParaView dumps.
 """
 
 from __future__ import annotations
@@ -39,11 +49,14 @@ from ..astaroth.config import load_config
 from ..astaroth.init import const_init, hash_init, radial_explosion_init
 from ..astaroth.integrate import FIELDS, make_astaroth_step
 from ..astaroth.reductions import Reductions
+from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, RecoveryPolicy,
+                     chunk_plan, run_guarded)
 from ..geometry import Dim3, prime_factors
 from ..utils import logging as log
 from ..utils import timer
 from ..utils.statistics import Statistics
 from ..utils.sync import hard_sync
+from .jacobi3d import add_guard_flags, guard_kwargs
 
 DEFAULT_CONF = os.path.join(os.path.dirname(__file__), "..", "astaroth", "astaroth.conf")
 
@@ -116,9 +129,22 @@ def run(
     dt: float = 1e-8,
     chunk: int = 1,
     device=None,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    ckpt_keep: int = 3,
+    resume: bool = False,
+    health_every: int = 0,
+    max_abs: Optional[float] = None,
+    max_rollbacks: int = 3,
+    rollback_backoff: float = 0.25,
+    inject: Optional[str] = None,
 ) -> dict:
     """Run ``iters`` iterations (plus one untimed warm-up chunk) on one
-    device and return the timing row, the domain and its handles."""
+    device and return the timing row, the domain and its handles. The
+    checkpoint, health and injection arguments are jacobi3d's (see the
+    module docstring); raises
+    :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when recovery gives
+    up."""
     info = load(conf, nx)
     dd, handles = make_domain(info, dtype, device)
     dev = dd.device
@@ -128,6 +154,9 @@ def run(
     iter_time = Statistics()
     exch_time = Statistics()
     if no_compute:
+        if ckpt_dir:
+            log.warn("--ckpt-dir ignored with --no-compute (a pure-exchange benchmark "
+                     "has no state worth resuming)")
         # pure exchange, 3 per iteration (reference --no-compute flag)
         loop = dd.halo_exchange.make_loop(3)
         curr = loop(curr)
@@ -140,29 +169,122 @@ def run(
             iter_time.insert(dt_iter)
             exch_time.insert(dt_iter)
     else:
+        start = 0
+        if ckpt_dir and resume:
+            from ._bench_common import resume_from_checkpoint
+
+            start = resume_from_checkpoint(dd, ckpt_dir, iters)
+            curr = {name: dd.get_curr(handles[name]) for name in FIELDS}
+
+        def save_ckpt(step_no: int, state) -> None:
+            for name in FIELDS:
+                dd.set_curr(handles[name], state[name])
+            dd.save_checkpoint(ckpt_dir, step_no, keep=ckpt_keep)
+
         chunk = max(1, min(chunk, iters))
-        step = make_astaroth_step(dd.halo_exchange, info, dt=dt, overlap=overlap,
-                                  swap_per_substep=swap_per_substep, iters=chunk,
-                                  dtype=dtype)
+        steps = {}
+
+        def get_step(k: int):
+            # the guarded schedule may carry chunk sizes besides `chunk`
+            if k not in steps:
+                steps[k] = make_astaroth_step(dd.halo_exchange, info, dt=dt, overlap=overlap,
+                                              swap_per_substep=swap_per_substep, iters=k,
+                                              dtype=dtype)
+            return steps[k]
+
         with timer.timed("astaroth.warmup"):
-            curr, nxt = step(curr, nxt)
+            if ckpt_dir:
+                # a checkpointed run is step-exact: warm up on copies
+                get_step(chunk)({k: v.clone() for k, v in curr.items()},
+                                {k: v.clone() for k, v in nxt.items()})
+            else:
+                curr, nxt = get_step(chunk)(curr, nxt)
             hard_sync(dev)
         exch_loop = dd.halo_exchange.make_loop(3 if swap_per_substep else 1)
-        done = 0
-        while done < iters:
-            t0 = time.perf_counter()
-            with timer.trace_range("astaroth.chunk"):
-                curr, nxt = step(curr, nxt)
-                hard_sync(dev)
-            per = (time.perf_counter() - t0) / chunk
-            for _ in range(chunk):
-                iter_time.insert(per)
-            done += chunk
+
+        def exchange_share(st):
             t0 = time.perf_counter()
             with timer.trace_range("astaroth.exchange"):
-                curr = exch_loop(curr)
+                st = exch_loop(st)
                 hard_sync(dev)
             exch_time.insert(time.perf_counter() - t0)
+            return st
+
+        guard = HealthGuard(every=health_every, max_abs=max_abs) if health_every > 0 else None
+        injector = FaultPlan.from_spec(inject)
+        done = start
+        if guard is not None or injector is not None:
+            def plan_fn(s: int):
+                return chunk_plan(s, iters, chunk,
+                                  every=(ckpt_every if (ckpt_dir and ckpt_every > 0) else 0,
+                                         health_every if guard is not None else 0),
+                                  at=injector.steps() if injector is not None else ())
+
+            def step_fn(st, k):
+                nonlocal nxt
+                with timer.trace_range("astaroth.chunk"):
+                    c, nxt = get_step(k)(st, nxt)
+                    hard_sync(dev)
+                return c
+
+            def on_chunk(st, k, per, done_now):
+                for _ in range(k):
+                    iter_time.insert(per)
+                return exchange_share(st)
+
+            save_fn = restore_fn = quarantine_fn = flush_fn = None
+            if ckpt_dir:
+                if ckpt_every > 0:
+                    save_fn = save_ckpt
+                flush_fn = dd.flush_checkpoints
+
+                def restore_fn():
+                    s = dd.restore_checkpoint(ckpt_dir)
+                    return None if s is None else (
+                        s, {name: dd.get_curr(handles[name]) for name in FIELDS})
+
+                def quarantine_fn(s):
+                    from ..ckpt import quarantine_snapshot, snapshot_name
+
+                    quarantine_snapshot(ckpt_dir, snapshot_name(s),
+                                        reason="restored state failed health check")
+
+            curr, done = run_guarded(
+                curr, start=start, iters=iters, plan_fn=plan_fn, step_fn=step_fn, guard=guard,
+                injector=injector,
+                policy=RecoveryPolicy(max_rollbacks=max_rollbacks, backoff_s=rollback_backoff),
+                save_fn=save_fn, ckpt_every=ckpt_every, restore_fn=restore_fn,
+                quarantine_fn=quarantine_fn, flush_fn=flush_fn, on_chunk=on_chunk,
+                spec=dd.spec, ckpt_dir=ckpt_dir, app="astaroth")
+        else:
+            step = get_step(chunk)
+            next_ckpt = ((start // ckpt_every + 1) * ckpt_every
+                         if ckpt_dir and ckpt_every > 0 else None)
+            while done < iters:
+                t0 = time.perf_counter()
+                with timer.trace_range("astaroth.chunk"):
+                    curr, nxt = step(curr, nxt)
+                    hard_sync(dev)
+                per = (time.perf_counter() - t0) / chunk
+                for _ in range(chunk):
+                    iter_time.insert(per)
+                done += chunk
+                if next_ckpt is not None and next_ckpt <= done < iters:
+                    save_ckpt(done, curr)
+                    next_ckpt = (done // ckpt_every + 1) * ckpt_every
+                curr = exchange_share(curr)
+        if ckpt_dir:
+            if done > start or start == 0:
+                save_ckpt(done, curr)  # the final state is always durable
+            # a resume that found nothing left to run never re-labels the
+            # existing (possibly further-along) snapshot
+            dd.finish_checkpoints()
+    iters_run = iter_time.count()
+    if not no_compute:
+        if iters_run == 0:
+            log.info(f"resume found step {start} >= iters {iters}; no timed work")
+            iter_time.insert(float("inf"))
+            exch_time.insert(float("inf"))
 
     for name in FIELDS:
         dd.set_curr(handles[name], curr[name])
@@ -180,7 +302,7 @@ def run(
         "dtype": dtype,
         "iter_trimean_s": trimean,
         "exch_trimean_s": exch_time.trimean(),
-        "iters_run": iter_time.count(),
+        "iters_run": iters_run,
         "mcells_per_s": cells / trimean / 1e6,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "domain": dd,
@@ -222,13 +344,18 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain PyTorch versions)")
+    add_guard_flags(p)
     args = p.parse_args(argv)
     if args.f32 and args.f64:
         p.error("--f32 and --f64 exclude each other")
-    r = run(iters=args.iters, conf=args.conf, nx=args.nx,
-            dtype="float32" if args.f32 else "float64", no_compute=args.no_compute,
-            overlap=not args.no_overlap, reductions=args.reductions,
-            chunk=args.chunk, device=args.device)
+    try:
+        r = run(iters=args.iters, conf=args.conf, nx=args.nx,
+                dtype="float32" if args.f32 else "float64", no_compute=args.no_compute,
+                overlap=not args.no_overlap, reductions=args.reductions,
+                chunk=args.chunk, device=args.device, **guard_kwargs(args))
+    except RecoveryExhausted as e:
+        log.error(f"astaroth: {e}")
+        return FAULT_RC
     print(csv_row(r))
     log.info(f"{r['dtype']} on {r['device']}: {r['iter_trimean_s'] * 1e3:.4f} ms/iter, "
              f"{r['mcells_per_s']:.1f} Mcells/s")

@@ -21,25 +21,42 @@ state, then chunks of ``chunk`` steps (a short last chunk keeps the total at
 ``iters``), each timed on the host clock up to a device synchronize; the
 per-iteration statistic is each chunk's mean, trimean'd over chunks.
 
+The loop runs under the fault layer's guarded engine (``fault.run_guarded``):
+per chunk, step -> injection -> health check -> checkpoint, and a numerical
+fault rolls back to the newest valid snapshot with backoff
+(``--health-every``, ``--max-abs``, ``--max-rollbacks``,
+``--rollback-backoff``, ``--inject`` or ``STENCIL_FAULT_INJECT``); ``main``
+exits 43 (``FAULT_RC``) with an evidence file when recovery gives up.
+``--ckpt-dir`` / ``--ckpt-every`` / ``--ckpt-keep`` write snapshots in the JAX
+package's format (asynchronously; the final state at ``iters`` always) and
+``--resume`` continues from the newest one. One schedule (``chunk_plan``,
+broken at checkpoint, health and injection steps) drives warm-up and the
+timed loop; with a checkpoint dir, warm-up runs on copies of the state, so a
+checkpointed run is step-exact. ``STENCIL_CKPT_KILL_AFTER_SAVE=K`` kills the
+run (rc 17) right after the first snapshot at a step >= K is durable.
+
 Usage: python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 --iters 5
 (``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU).
 ``--method remote-dma`` with ``--kernel-variant fused`` (or ``--fused``) runs
 one fused step kernel per step; ``--kernel-variant persistent --deep-halo K``
 runs one whole-chunk kernel per K steps over radius-K halos.
 
-Not carried over yet (ROADMAP.md queue A): checkpoints, health checks, fault
-injection, autotuning, replanning, ParaView dumps and wire compression.
+Not carried over yet (ROADMAP.md queue A): the live sentinel and status
+file, autotuning, replanning, ParaView dumps and wire compression.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import torch
 
 from ..api import DistributedDomain
+from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, RecoveryPolicy,
+                     chunk_plan, run_guarded)
 from ..geometry import Dim3, prime_factors
 from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks
 from ..parallel.exchange import Method
@@ -78,6 +95,15 @@ def run(
     kernel_variant: Optional[str] = None,
     partition=None,
     devices=None,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    ckpt_keep: int = 3,
+    resume: bool = False,
+    health_every: int = 0,
+    max_abs: Optional[float] = None,
+    max_rollbacks: int = 3,
+    rollback_backoff: float = 0.25,
+    inject: Optional[str] = None,
 ) -> dict:
     """Run jacobi3d on one device and return the result row (plus the
     realized ``domain`` and the temperature ``handle``).
@@ -96,7 +122,16 @@ def run(
     which may repeat one card) runs a mesh of that many block positions,
     one block each (``DistributedDomain.set_devices``), and grows the
     domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``,
-    with or without a kernel variant."""
+    with or without a kernel variant.
+
+    The guarded loop (see the module docstring): ``health_every`` (0 = off)
+    and ``max_abs`` set the health check, ``max_rollbacks`` and
+    ``rollback_backoff`` the recovery policy, ``inject`` the fault
+    schedule (default: the ``STENCIL_FAULT_INJECT`` env var);
+    ``ckpt_dir`` with ``ckpt_every`` (0 = only the final state) and
+    ``ckpt_keep`` the snapshots, ``resume`` the restart from the newest
+    one. Raises :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when
+    recovery gives up."""
     if fused and kernel_variant is None:
         kernel_variant = "fused"
     if kernel_variant == "fused":
@@ -138,6 +173,25 @@ def run(
             b.fill_(INIT_TEMP)
     sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
 
+    # checkpoint/restart: a resume replaces the fresh init with the newest
+    # valid snapshot's state, elastically (another partition or package)
+    start = 0
+    if ckpt_dir and resume:
+        from ._bench_common import resume_from_checkpoint
+
+        start = resume_from_checkpoint(dd, ckpt_dir, iters)
+    kill_after = int(os.environ.get("STENCIL_CKPT_KILL_AFTER_SAVE", "-1") or -1)
+
+    def save_ckpt(step: int, state) -> None:
+        dd.set_curr(h, state)
+        dd.save_checkpoint(ckpt_dir, step, keep=ckpt_keep)
+        if 0 <= kill_after <= step:
+            # the injected-kill hook: die hard right after this snapshot is
+            # durable; the revival must continue from it, not from step 0
+            dd.finish_checkpoints()
+            log.warn(f"STENCIL_CKPT_KILL_AFTER_SAVE: dying after step {step}")
+            os._exit(17)
+
     curr, nxt = dd.get_curr(h), dd.get_next(h)
     if chunk is None:
         chunk = min(iters, 10)
@@ -150,26 +204,89 @@ def run(
             loops[k] = make_jacobi_loop(dd.halo_exchange, k, overlap=overlap, temporal_k=tk)
         return loops[k]
 
-    # warm-up advances the state, as in the JAX app
-    loop = get_loop(chunk)
-    for _ in range(warmup):
-        curr, nxt = loop(curr, nxt, sel)
-    hard_sync(dev)
+    guard = HealthGuard(every=health_every, max_abs=max_abs) if health_every > 0 else None
+    injector = FaultPlan.from_spec(inject)
 
-    iter_time = Statistics()
-    done = 0
-    while done < iters:
-        k = min(chunk, iters - done)
-        loop = get_loop(k)
-        t0 = time.perf_counter()
-        with timer.trace_range("jacobi.chunk"):
-            curr, nxt = loop(curr, nxt, sel)
+    # the exact chunk sizes the loop will run (checkpoint and health
+    # boundaries clamp them; injections land at their exact step): one
+    # schedule drives warm-up and the timed loop
+    def plan_fn(s: int):
+        return chunk_plan(s, iters, chunk,
+                          every=(ckpt_every if (ckpt_dir and ckpt_every > 0) else 0,
+                                 health_every if guard is not None else 0),
+                          at=injector.steps() if injector is not None else ())
+
+    if ckpt_dir:
+        # a checkpointed run is step-exact (save at k, resume, continue to
+        # n == an uninterrupted run to n): warm-up runs each distinct chunk
+        # size of the schedule on copies, never advancing the state
+        if warmup:
+            for k in dict.fromkeys(plan_fn(start)):
+                get_loop(k)(_copy(curr), _copy(nxt), sel)
             hard_sync(dev)
-        iter_time.insert((time.perf_counter() - t0) / k)
-        done += k
+    else:
+        # warm-up advances the state, as in the JAX app
+        loop = get_loop(chunk)
+        for _ in range(warmup):
+            curr, nxt = loop(curr, nxt, sel)
+        hard_sync(dev)
+
+    # the loop writes in place and swaps (curr, scratch): each chunk's
+    # result is the state, its other buffer the next scratch; a rollback
+    # hands back a restored curr and the scratch stays
+    iter_time = Statistics()
+
+    def step_fn(st, k):
+        nonlocal nxt
+        with timer.trace_range("jacobi.chunk"):
+            c, nxt = get_loop(k)(st["temperature"], nxt, sel)
+            hard_sync(dev)
+        return {"temperature": c}
+
+    def on_chunk(st, k, per, done_now):
+        iter_time.insert(per)
+
+    save_fn = restore_fn = quarantine_fn = flush_fn = None
+    if ckpt_dir:
+        if ckpt_every > 0:
+            save_fn = lambda s, st: save_ckpt(s, st["temperature"])  # noqa: E731
+        flush_fn = dd.flush_checkpoints
+
+        def restore_fn():
+            s = dd.restore_checkpoint(ckpt_dir)
+            return None if s is None else (s, {"temperature": dd.get_curr(h)})
+
+        def quarantine_fn(s):
+            from ..ckpt import quarantine_snapshot, snapshot_name
+
+            quarantine_snapshot(ckpt_dir, snapshot_name(s),
+                                reason="restored state failed health check")
+
+    loop_t0 = time.perf_counter()
+    state, done = run_guarded(
+        {"temperature": curr}, start=start, iters=iters, plan_fn=plan_fn, step_fn=step_fn,
+        guard=guard, injector=injector,
+        policy=RecoveryPolicy(max_rollbacks=max_rollbacks, backoff_s=rollback_backoff),
+        save_fn=save_fn, ckpt_every=ckpt_every, restore_fn=restore_fn,
+        quarantine_fn=quarantine_fn, flush_fn=flush_fn, on_chunk=on_chunk, spec=dd.spec,
+        ckpt_dir=ckpt_dir, app="jacobi3d")
+    # the whole loop's wall clock, including what the per-chunk times leave
+    # out: health checks, saves, injected faults, backoff and rollbacks
+    loop_wall_s = time.perf_counter() - loop_t0
+    curr = state["temperature"]
+    if ckpt_dir:
+        if done > start or start == 0:
+            # the final state is always durable (step == iters)
+            save_ckpt(iters, curr)
+        # a resume past the end ran nothing: the durable snapshot already
+        # covers this run, and is never re-labelled as step `iters`
+        dd.finish_checkpoints()
     dd.set_curr(h, curr)
     dd.set_next(h, nxt)
 
+    if iter_time.count() == 0:
+        log.info(f"resume found step {start} >= iters {iters}; no timed work")
+        iter_time.insert(float("inf"))
     cells = size.flatten()
     trimean = iter_time.trimean()
     return {
@@ -189,10 +306,17 @@ def run(
         "overlap": overlap,
         "temporal_k": get_loop(chunk).temporal_k,
         "kernel_variant": kernel_variant,
+        "loop_wall_s": loop_wall_s,
+        "health_checks": guard.checks if guard is not None else 0,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "domain": dd,
         "handle": h,
     }
+
+
+def _copy(state):
+    """A throwaway copy of a quantity: a tensor, or a mesh's blocks."""
+    return [b.clone() for b in state] if isinstance(state, list) else state.clone()
 
 
 def csv_row(r: dict) -> str:
@@ -201,6 +325,44 @@ def csv_row(r: dict) -> str:
         f"{r['x']},{r['y']},{r['z']},{r['exchange_bytes']},"
         f"{r['iter_min_s']:.6f},{r['iter_trimean_s']:.6f}"
     )
+
+
+def add_guard_flags(p: argparse.ArgumentParser) -> None:
+    """The checkpoint, health and fault-injection flags of jacobi3d and
+    astaroth, as in the JAX apps."""
+    p.add_argument("--ckpt-dir", type=str, default="",
+                   help="write checkpoint snapshots here (per-block npz + manifest, "
+                        "crash-safe; the JAX package's format)")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="checkpoint every N steps (0 = only the final state; needs --ckpt-dir)")
+    p.add_argument("--ckpt-keep", type=int, default=3,
+                   help="retention: keep the newest N snapshots")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid snapshot under --ckpt-dir when one "
+                        "exists (fresh start otherwise)")
+    p.add_argument("--health-every", type=int, default=0,
+                   help="numerical health check every N steps (one kernel launch on the "
+                        "card); a fault rolls back to the newest valid snapshot (0 = off)")
+    p.add_argument("--max-abs", type=float, default=0.0,
+                   help="with --health-every, also fault when any quantity's max|u| "
+                        "exceeds this ceiling (0 = no ceiling)")
+    p.add_argument("--max-rollbacks", type=int, default=3,
+                   help="rollbacks allowed per faulting step before the run exits 43 "
+                        "with a fault-evidence.json bundle")
+    p.add_argument("--rollback-backoff", type=float, default=0.25,
+                   help="first-retry backoff seconds (doubles per repeated fault)")
+    p.add_argument("--inject", type=str, default="",
+                   help="deterministic fault injection, e.g. 'nan@3,crash@5:rc=7' "
+                        "(fault/inject.py; default: the STENCIL_FAULT_INJECT env var)")
+
+
+def guard_kwargs(args) -> dict:
+    """``run`` keyword arguments of the flags :func:`add_guard_flags` adds."""
+    return dict(ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+                ckpt_keep=args.ckpt_keep, resume=args.resume,
+                health_every=args.health_every, max_abs=args.max_abs or None,
+                max_rollbacks=args.max_rollbacks, rollback_backoff=args.rollback_backoff,
+                inject=args.inject or None)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -231,17 +393,25 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--devices", type=str, default=None,
                    help="comma list of torch devices, one block position each, "
                         "repeats allowed (e.g. cuda:0,cuda:0); needs --method remote-dma")
+    add_guard_flags(p)
     args = p.parse_args(argv)
     if args.fused and args.kernel_variant == "persistent":
         p.error("--fused conflicts with --kernel-variant persistent "
                 "(mutually exclusive kernel variants)")
     if args.device and args.devices:
         p.error("--device conflicts with --devices")
-    r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
-            method=Method(args.method) if args.method else Method.AXIS_COMPOSED,
-            device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo,
-            fused=args.fused, kernel_variant=args.kernel_variant,
-            devices=args.devices.split(",") if args.devices else None)
+    try:
+        r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
+                method=Method(args.method) if args.method else Method.AXIS_COMPOSED,
+                device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo,
+                fused=args.fused, kernel_variant=args.kernel_variant,
+                devices=args.devices.split(",") if args.devices else None,
+                **guard_kwargs(args))
+    except RecoveryExhausted as e:
+        # the evidence bundle is on disk; the distinct rc tells a revival
+        # ladder "numerics broken" from a crash
+        log.error(f"jacobi3d: {e}")
+        return FAULT_RC
     print(csv_row(r))
     log.info(f"mcells/s = {r['mcells_per_s']:.1f} ({r['mcells_per_s_per_dev']:.1f}/device) "
              f"on {r['device']}, kernel variant {r['kernel_variant']}, k={r['temporal_k']}")

@@ -5,8 +5,9 @@ single-domain :class:`~stencil_tpu_torch.fault.health.HealthGuard` reduces
 every quantity to one (all-finite, max|u|) pair; in a slot one tenant's NaN
 must never condemn its B-1 siblings, so :class:`SlotHealthGuard` reduces
 per lane: each quantity of ``{name: (B, ...)}`` yields ``(B,)`` finite flags
-and ``(B,)`` max magnitudes, torch reductions on the slot's device whose
-``(2, Q, B)`` result reaches the host in one copy. A failed check raises
+and ``(B,)`` max magnitudes, one launch of the health-reduction kernel on
+the card (``ops/health_reduce``, one slot a lane) whose ``(2, Q, B)``
+result reaches the host in one copy. A failed check raises
 :class:`TenantFault` naming the tenant, its lane and its tenant-relative
 step: what the campaign driver's eviction dispatches on.
 
@@ -22,8 +23,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ..fault.health import DIVERGENCE, NONFINITE, HealthGuard, NumericalFault, finite_and_max
+from ..fault.health import DIVERGENCE, NONFINITE, HealthGuard, NumericalFault
 from ..obs import telemetry
+from ..ops.health_reduce import health_reduce
 
 
 class TenantFault(NumericalFault):
@@ -64,8 +66,7 @@ class SlotHealthGuard(HealthGuard):
     def _reduce(state) -> torch.Tensor:
         """``(2, Q, B)`` float32: per quantity (sorted by name) and lane,
         all-finite (1.0 / 0.0) and max |u|."""
-        finite, amax = zip(*(finite_and_max(state[n], dims=1) for n in sorted(state)))
-        return torch.stack([torch.stack(finite), torch.stack(amax)])
+        return health_reduce([[state[n]] for n in sorted(state)], per_lane=True)
 
     def check(self, state, step: int) -> None:
         """Run the per-lane reduction; raise :class:`TenantFault` for the

@@ -100,7 +100,7 @@ class SlotInjector:
 
     # -- firing ---------------------------------------------------------------
     def fire_due(self, state: Dict[str, "object"], prev_step: int,
-                 step: int, spec=None, ckpt_dir=None):
+                 step: int, spec=None, ckpt_dir=None, ckpt_flush=None):
         for inj in self.plan.injections:
             if inj.repeat >= 0 and inj.fired >= inj.repeat:
                 continue

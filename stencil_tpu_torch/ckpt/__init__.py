@@ -1,7 +1,7 @@
 """Crash-safe checkpoints of grid state, in the JAX package's format.
 
 - :mod:`snapshot`: per-block snapshots with a JSON manifest, the rename
-  protocol, ``LATEST`` and retention.
+  protocol, ``LATEST`` and retention; the asynchronous writer.
 - :mod:`restore`: validation, auto-resume, quarantine and global
   reassembly.
 
@@ -11,6 +11,8 @@ by either package restores bit for bit in the other.
 
 from .snapshot import (  # noqa: F401
     LATEST_NAME,
+    AsyncCheckpointer,
+    host_snapshot,
     MANIFEST_NAME,
     MANIFEST_VERSION,
     list_snapshots,

@@ -18,9 +18,10 @@ written into ``<ckpt_dir>/.tmp-...`` and fsync'd; the tmp dir is renamed to
 rename), so it never names a partial snapshot; retention prunes the oldest
 snapshots beyond ``keep``, never the one ``LATEST`` names.
 
-Not carried over yet (ROADMAP.md queue A item 6): the asynchronous
-double-buffered writer (``AsyncCheckpointer``); the port writes
-synchronously, from host copies the caller makes.
+:class:`AsyncCheckpointer` writes in the background: the device-to-host
+copy (:func:`host_snapshot`) happens on the caller's thread, so the state
+may change right after; hashing, serializing and fsync happen on a writer
+thread, one write in flight at a time.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import hashlib
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -84,6 +86,23 @@ def _radius_dirs(radius) -> List[List[int]]:
     """Serialize a Radius as [[dx,dy,dz,r], ...] (saver-side record only —
     restore uses the *target* domain's radius)."""
     return [[d[0], d[1], d[2], r] for d, r in sorted(radius._r.items())]
+
+
+def host_snapshot(spec, arrays: Dict[str, "object"]) -> Dict[str, np.ndarray]:
+    """The device-to-host side of a save: each quantity as a host copy of
+    its stacked ``(bz, by, bx, pz, py, px)`` array. A quantity is a stacked
+    tensor, or a mesh's list of ``(1, 1, 1, pz, py, px)`` blocks in flat
+    position order (x fastest). After it returns the caller may overwrite
+    the device buffers."""
+    out = {}
+    for name, a in arrays.items():
+        if isinstance(a, (list, tuple)):
+            out[name] = np.stack([b.detach().cpu().numpy().reshape(b.shape[-3:])
+                                  for b in a]).reshape(spec.stacked_shape_zyx())
+        else:
+            # a copy even of a CPU tensor, which .cpu() would hand back as is
+            out[name] = a.detach().to("cpu", copy=True).numpy()
+    return out
 
 
 def write_snapshot(
@@ -276,3 +295,95 @@ def prune(ckpt_dir: str, keep: int) -> List[str]:
                     except OSError:
                         pass
     return removed
+
+
+class AsyncCheckpointer:
+    """Double-buffered asynchronous snapshot writer.
+
+    ``save(spec, arrays, step)`` copies the device state to the host on the
+    caller's thread (after that the step loop may overwrite the buffers) and
+    hands it to a writer thread. At most one write is in flight; a save
+    issued while one is pending blocks until the previous write is durable.
+    ``flush()`` waits for the in-flight write; ``close()`` flushes and stops
+    the thread.
+
+    A failed write is logged and re-raised from the *next*
+    ``save``/``flush``/``close``: checkpointing never tears down the step
+    loop mid-flight, and a persistent failure does not stay silent.
+    """
+
+    def __init__(self, ckpt_dir: str, keep: int = 3,
+                 dtypes: Optional[Dict[str, str]] = None):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self.dtypes = dict(dtypes or {})
+        self._pending: Optional[tuple] = None
+        self._error: Optional[BaseException] = None
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._idle = threading.Condition(self._lock)
+        self._stop = False
+        self.last_step: Optional[int] = None
+        self._thread = threading.Thread(
+            target=self._run, name="stencil-ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            with self._lock:
+                while self._pending is None and not self._stop:
+                    self._work.wait()
+                if self._pending is None and self._stop:
+                    return
+                spec, host_state, step, extra_meta = self._pending
+            try:
+                write_snapshot(self.ckpt_dir, step, spec, host_state,
+                               dtypes=self.dtypes, keep=self.keep,
+                               extra_meta=extra_meta)
+                err = None
+            except BaseException as e:  # surfaced on the next save/flush
+                err = e
+            with self._lock:
+                if err is None:
+                    self.last_step = step
+                else:
+                    self._error = err
+                    log.warn(f"async checkpoint write failed: {err}")
+                self._pending = None
+                self._idle.notify_all()
+
+    def _raise_pending_error(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, spec, arrays: Dict[str, "object"], step: int,
+             extra_meta: Optional[dict] = None) -> None:
+        """Snapshot ``arrays`` (name -> stacked tensor or mesh blocks) at
+        ``step``; ``extra_meta`` lands under the manifest's ``meta`` key."""
+        with telemetry.get().span("ckpt.save", phase="ckpt", step=int(step)):
+            host_state = host_snapshot(spec, arrays)
+            with self._lock:
+                while self._pending is not None:
+                    self._idle.wait()
+                self._raise_pending_error()
+                self._pending = (spec, host_state, step, extra_meta)
+                self._work.notify()
+
+    def flush(self) -> None:
+        """Block until the in-flight write (if any) is durable."""
+        with self._lock:
+            while self._pending is not None:
+                self._idle.wait()
+            self._raise_pending_error()
+
+    def close(self) -> None:
+        """Flush, stop the writer thread, and raise a pending write error."""
+        with self._lock:
+            while self._pending is not None:
+                self._idle.wait()
+            self._stop = True
+            self._work.notify()
+        self._thread.join(timeout=60)
+        with self._lock:
+            self._raise_pending_error()

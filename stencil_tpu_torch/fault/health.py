@@ -3,10 +3,16 @@
 The port's counterpart of ``stencil_tpu.fault.health``: the detection layer
 of the fault stack (``inject.py`` manufactures faults, ``recover.py`` rolls
 them back). The guard never touches the step program: it is a separate
-reduction over the state between chunks, run with torch reductions on the
-state's own device (the JAX package runs it in XLA, not in a Pallas
-kernel), and its result comes to the host in one copy per check. Each
-check is a ``health.check`` span, so its cost is in the metrics file.
+reduction over the state between chunks (the JAX package runs it as one
+fused XLA program). On the card it is one launch of the hand-written
+health-reduction kernel for every quantity of the state
+(``ops/health_reduce``); on the CPU, torch passes. Its result comes to the
+host in one copy per check. Each check is a ``health.check`` span, so its
+cost is in the metrics file.
+
+A state maps each quantity name to its tensor, or, on a mesh of block
+positions, to the list of its blocks (one per position), which the check
+reads as one quantity.
 
 A failed check raises :class:`NumericalFault` naming the quantity, the step
 and the kind (``nonfinite`` | ``divergence``).
@@ -20,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from ..obs import telemetry
+from ..ops.health_reduce import health_reduce
 
 #: NumericalFault kinds, in the order the checks run.
 NONFINITE = "nonfinite"
@@ -48,16 +55,21 @@ class NumericalFault(RuntimeError):
 
 
 def finite_and_max(x: torch.Tensor, dims=None):
-    """``(all finite, max |x|)`` of ``x`` over ``dims`` (all when None), both
-    float32 on ``x``'s device. float32 is enough for the ceiling verdict: a
-    float64 magnitude that overflows the cast reads as inf, which any
-    ceiling calls divergence. Integer tensors are trivially healthy."""
-    shape = () if dims is None else x.shape[:1]
-    if not x.is_floating_point():
-        return (torch.ones(shape, device=x.device), torch.zeros(shape, device=x.device))
-    flat = x.reshape(-1) if dims is None else x.reshape(x.shape[0], -1)
-    d = 0 if dims is None else 1
-    return (torch.isfinite(flat).all(d).float(), flat.abs().amax(d).float())
+    """``(all finite, max |x|)`` of ``x`` over every element (``dims`` None)
+    or per leading index (``dims`` not None), both float32 on ``x``'s
+    device: the health-reduction kernel on CUDA, its plain version on the
+    CPU. float32 is enough for the ceiling verdict: a float64 magnitude that
+    overflows the cast reads as inf, which any ceiling calls divergence.
+    Integer tensors are trivially healthy."""
+    out = health_reduce([[x]], per_lane=dims is not None)
+    return out[0, 0], out[1, 0]
+
+
+def _groups(state):
+    """The check's tensor groups of a state, one per quantity (sorted by
+    name): a tensor, or a mesh quantity's blocks."""
+    return [list(v) if isinstance(v, (list, tuple)) else [v]
+            for v in (state[n] for n in sorted(state))]
 
 
 class HealthGuard:
@@ -76,9 +88,8 @@ class HealthGuard:
     @staticmethod
     def _reduce(state) -> torch.Tensor:
         """``(2, Q)`` float32: per quantity (sorted by name) all-finite
-        (1.0 / 0.0) and max |u|."""
-        finite, amax = zip(*(finite_and_max(state[n]) for n in sorted(state)))
-        return torch.stack([torch.stack(finite), torch.stack(amax)])
+        (1.0 / 0.0) and max |u|, in one launch on the card."""
+        return health_reduce(_groups(state))
 
     def due(self, prev_step: int, step: int) -> bool:
         """True when a check boundary (a multiple of ``every``) lies in

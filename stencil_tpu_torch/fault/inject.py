@@ -5,28 +5,33 @@ grammar, the same seeded placement and the same ``describe()`` records, so
 one spec string schedules the same faults in either package. Every firing
 emits a ``fault.injected`` telemetry record.
 
-Activation: an explicit spec (the apps' ``--inject``); placement
-randomness is seeded from an explicit seed (default 0). The JAX package's
-``STENCIL_FAULT_INJECT`` / ``STENCIL_FAULT_SEED`` env-var activation waits
-for the guarded single-domain apps that read it (ROADMAP.md queue A
-item 6).
+Activation: the apps' ``--inject SPEC`` flag, or the
+``STENCIL_FAULT_INJECT`` env var (flag wins). Placement randomness is
+seeded from ``STENCIL_FAULT_SEED`` (default 0).
 
-Spec grammar: comma/semicolon-separated items of ``kind@step[:k=v...]``
-with kinds ``nan``, ``inf`` (burst a small cube of NaN/Inf into one block's
-interior; options ``q=NAME``, ``cells=C``), ``halo``, ``ckpt-truncate``,
-``stall``, ``crash`` (``rc=N``) and ``slow`` (``seconds=S``); ``repeat=N``
-or ``repeat=always`` re-fires an injection each time the run crosses its
-step again (after a rollback), and ``tenant=ID`` pins it to one tenant of
-a campaign (``campaign/inject.py``; steps are tenant-relative there).
+Spec grammar: comma/semicolon-separated items of ``kind@step[:k=v...]``:
 
-The port fires ``nan``, ``inf`` and ``slow`` (writing into the state's
-tensors in place); the other kinds parse and describe, and raise
-``NotImplementedError`` when they fire: their consumers (the guarded
-single-domain apps) are not ported yet.
+- ``nan@K`` / ``inf@K``: burst a small cube of NaN/Inf into one block's
+  interior when the run crosses step K (options ``q=NAME``, ``cells=C``).
+- ``halo@K``: NaN into the boundary slab of one block that the next
+  exchange sends, a corrupted halo payload.
+- ``ckpt-truncate@K``: truncate the newest snapshot's first payload (the
+  recovery must fall back to the previous good snapshot).
+- ``stall@K``: sleep until a watchdog kills the run.
+- ``crash@K[:rc=N]``: ``os._exit(rc)`` (default rc 7).
+- ``slow@K[:seconds=S]``: one sleep of S seconds (default 1.0).
+
+``repeat=N`` or ``repeat=always`` re-fires an injection each time the run
+crosses its step again (after a rollback), and ``tenant=ID`` pins it to one
+tenant of a campaign (``campaign/inject.py``; steps are tenant-relative
+there). State kinds write into the state's tensors in place; a mesh
+quantity (a list of per-position blocks) is written in the block of the
+chosen position.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import re
 import time
@@ -35,6 +40,9 @@ from typing import Dict, List, Optional, Sequence
 
 from ..obs import telemetry
 from ..utils import logging as log
+
+ENV_SPEC = "STENCIL_FAULT_INJECT"
+ENV_SEED = "STENCIL_FAULT_SEED"
 
 STATE_KINDS = ("nan", "inf", "halo")
 KINDS = STATE_KINDS + ("ckpt-truncate", "stall", "crash", "slow")
@@ -132,11 +140,17 @@ class FaultPlan:
         self.seed = int(seed)
 
     @classmethod
-    def from_spec(cls, spec: Optional[str], seed: int = 0) -> Optional["FaultPlan"]:
-        """Build a plan from a spec string; None when nothing is scheduled."""
+    def from_spec(cls, spec: Optional[str] = None,
+                  seed: Optional[int] = None) -> Optional["FaultPlan"]:
+        """Build a plan from an explicit spec, falling back to the
+        ``STENCIL_FAULT_INJECT`` env var; None when nothing is scheduled."""
+        if spec is None:
+            spec = os.environ.get(ENV_SPEC, "")
         injections = parse_spec(spec)
         if not injections:
             return None
+        if seed is None:
+            seed = int(os.environ.get(ENV_SEED, "0") or 0)
         return cls(injections, seed=seed)
 
     def steps(self) -> List[int]:
@@ -149,16 +163,21 @@ class FaultPlan:
 
     # -- firing ---------------------------------------------------------------
     def fire_due(self, state: Dict[str, "object"], prev_step: int,
-                 step: int, spec=None, ckpt_dir: Optional[str] = None):
+                 step: int, spec=None, ckpt_dir: Optional[str] = None,
+                 ckpt_flush=None):
         """Apply every injection scheduled in ``(prev_step, step]`` to
-        ``state`` (a ``{name: stacked array}`` dict); returns the
-        (possibly corrupted) state. Non-state kinds act on the process /
-        the checkpoint dir instead. State kinds write into the state's
-        tensors in place."""
+        ``state`` (a ``{name: stacked tensor or mesh blocks}`` dict);
+        returns the (possibly corrupted) state. Non-state kinds act on the
+        process / the checkpoint dir instead. State kinds write into the
+        state's tensors in place. ``ckpt_flush`` drains an async checkpoint
+        writer before disk-level injections, so "the newest snapshot" is
+        deterministic, not a race with the writer thread."""
         for inj in self.injections:
             if not inj.due(prev_step, step):
                 continue
             inj.fired += 1
+            if inj.kind == "ckpt-truncate" and ckpt_flush is not None:
+                ckpt_flush()
             state = self._apply(inj, state, spec, ckpt_dir)
         return state
 
@@ -178,15 +197,35 @@ class FaultPlan:
     def _apply(self, inj: Injection, state, spec, ckpt_dir):
         if inj.kind in ("nan", "inf"):
             return self._corrupt_block(inj, state, spec)
+        if inj.kind == "halo":
+            return self._corrupt_halo(inj, state, spec)
+        if inj.kind == "ckpt-truncate":
+            target = truncate_newest_payload(ckpt_dir) if ckpt_dir else None
+            self._record(inj, target=target)
+            if target is None:
+                log.warn(f"fault: ckpt-truncate@{inj.step} found no snapshot "
+                         "to truncate")
+            else:
+                log.warn(f"fault: truncated checkpoint payload {target}")
+            return state
         if inj.kind == "slow":
             self._record(inj, seconds=inj.seconds)
             log.warn(f"fault: slow@{inj.step} sleeping {inj.seconds:g}s")
             time.sleep(inj.seconds)
             return state
-        raise NotImplementedError(
-            f"fault kind {inj.kind!r}: the port's fault plan fires nan, inf and "
-            "slow; halo, ckpt-truncate, stall and crash wait for the guarded "
-            "single-domain apps (ROADMAP.md queue A item 6)")
+        if inj.kind == "stall":
+            self._record(inj)
+            log.warn(f"fault: stall@{inj.step}: sleeping until a watchdog "
+                     "kills this run")
+            # sleep in slices so an unsupervised run can be interrupted
+            for _ in range(3600):
+                time.sleep(1.0)
+            return state
+        if inj.kind == "crash":
+            self._record(inj, rc=inj.rc)
+            log.warn(f"fault: crash@{inj.step}: os._exit({inj.rc})")
+            os._exit(inj.rc)
+        raise AssertionError(f"unhandled fault kind {inj.kind}")
 
     # -- state corruption -----------------------------------------------------
     def _pick_quantity(self, inj: Injection, state, rng) -> str:
@@ -219,9 +258,78 @@ class FaultPlan:
         x0 = off.x + rng.randrange(sz.x - c + 1)
         y0 = off.y + rng.randrange(sz.y - c + 1)
         z0 = off.z + rng.randrange(sz.z - c + 1)
-        arr[bi[2], bi[1], bi[0], z0:z0 + c, y0:y0 + c, x0:x0 + c] = val
+        _block(arr, bi, d)[z0:z0 + c, y0:y0 + c, x0:x0 + c] = val
         self._record(inj, quantity=name, cells=c ** 3,
                      block=list(bi), origin=[x0, y0, z0])
         log.warn(f"fault: {inj.kind}@{inj.step} burst {c}^3 cells into "
                  f"{name!r} block {bi}")
         return state
+
+    def _corrupt_halo(self, inj: Injection, state, spec):
+        """Corrupted-halo-payload model: NaN into the interior boundary slab
+        the next exchange sends, so the corruption propagates as a bad halo
+        payload would."""
+        rng = self._rng(inj)
+        name = self._pick_quantity(inj, state, rng)
+        if spec is None:
+            return self._corrupt_block(inj, state, spec)
+        r = 0
+        for dx, dy, dz in ((0, 0, 1), (0, 1, 0), (1, 0, 0)):
+            r = spec.radius.dir(dx, dy, dz)
+            if r > 0:
+                axis = (dx, dy, dz)
+                break
+        if r <= 0:
+            log.warn("fault: halo injection on a radius-0 domain degrades "
+                     "to an interior burst")
+            return self._corrupt_block(inj, state, spec)
+        d, off = spec.dim, spec.compute_offset()
+        bi = (rng.randrange(d.x), rng.randrange(d.y), rng.randrange(d.z))
+        sz = spec.block_size(bi)
+        c = max(1, min(inj.cells, sz.x, sz.y, sz.z))
+        # the high-side boundary slab along the chosen axis
+        zsl = slice(off.z, off.z + c)
+        ysl = slice(off.y, off.y + c)
+        xsl = slice(off.x, off.x + c)
+        if axis == (0, 0, 1):
+            zsl = slice(off.z + sz.z - r, off.z + sz.z)
+        elif axis == (0, 1, 0):
+            ysl = slice(off.y + sz.y - r, off.y + sz.y)
+        else:
+            xsl = slice(off.x + sz.x - r, off.x + sz.x)
+        _block(state[name], bi, d)[zsl, ysl, xsl] = float("nan")
+        self._record(inj, quantity=name, block=list(bi),
+                     axis=list(axis), radius=r)
+        log.warn(f"fault: halo@{inj.step} corrupted the boundary slab of "
+                 f"{name!r} block {bi} along axis {axis}")
+        return state
+
+
+def _block(arr, bi, dim):
+    """Block ``bi`` (x, y, z) of a quantity as a ``(pz, py, px)`` view: of a
+    stacked ``(bz, by, bx, pz, py, px)`` tensor, or of a mesh's list of
+    ``(1, 1, 1, pz, py, px)`` blocks (flat position order, x fastest)."""
+    if isinstance(arr, (list, tuple)):
+        return arr[bi[0] + dim.x * (bi[1] + dim.y * bi[2])][0, 0, 0]
+    return arr[bi[2], bi[1], bi[0]]
+
+
+def truncate_newest_payload(ckpt_dir: str, nbytes: int = 16) -> Optional[str]:
+    """Truncate the newest snapshot's first payload file (the
+    ``ckpt-truncate`` injection body; also handy for tests). Returns the
+    truncated path, or None when no snapshot exists."""
+    from ..ckpt import list_snapshots, load_manifest
+
+    snaps = list_snapshots(ckpt_dir)
+    if not snaps:
+        return None
+    snap = os.path.join(ckpt_dir, snaps[-1])
+    try:
+        m = load_manifest(snap)
+        path = os.path.join(snap, m["files"][0]["path"])
+        with open(path, "r+b") as f:
+            f.truncate(nbytes)
+    except (OSError, ValueError, KeyError, IndexError) as e:
+        log.warn(f"fault: could not truncate a payload under {snap}: {e}")
+        return None
+    return path

@@ -37,6 +37,7 @@ from .health import HealthGuard, NumericalFault
 from .inject import FaultPlan
 
 EVIDENCE_NAME = "fault-evidence.json"
+EVIDENCE_ENV = "STENCIL_FAULT_EVIDENCE"
 
 
 class RecoveryExhausted(RuntimeError):
@@ -97,10 +98,11 @@ def _crossed(prev: int, step: int, every: int) -> bool:
 
 
 def write_evidence(payload: dict, evidence_dir: Optional[str]) -> Optional[str]:
-    """Persist the abort evidence bundle as
-    ``<evidence_dir>/fault-evidence.json`` (best-effort: evidence must never
-    mask the abort itself)."""
-    path = os.path.join(evidence_dir or ".", EVIDENCE_NAME)
+    """Persist the abort evidence bundle (best-effort: evidence must never
+    mask the abort itself). ``STENCIL_FAULT_EVIDENCE`` overrides the full
+    path; the default is ``<evidence_dir>/fault-evidence.json``."""
+    path = os.environ.get(EVIDENCE_ENV) or os.path.join(
+        evidence_dir or ".", EVIDENCE_NAME)
     try:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path + ".tmp"
@@ -127,6 +129,7 @@ def run_guarded(
     ckpt_every: int = 0,
     restore_fn: Optional[Callable[[], Optional[Tuple[int, Dict]]]] = None,
     quarantine_fn: Optional[Callable[[int], None]] = None,
+    flush_fn: Optional[Callable[[], None]] = None,
     on_chunk: Optional[Callable[[Dict, int, float, int], Optional[Dict]]] = None,
     spec=None,
     ckpt_dir: Optional[str] = None,
@@ -149,16 +152,19 @@ def run_guarded(
       (``None`` = nothing valid left → abort).
     - ``quarantine_fn(step)`` renames a restored-but-poisoned snapshot
       aside so the next restore attempt skips it.
+    - ``flush_fn()`` drains an async checkpoint writer; called before any
+      read-back of the checkpoint dir (rollback restore, disk-level
+      injections) so "newest snapshot" never races the writer thread.
     - ``on_chunk(state, k, per_iter_s, step)`` observes each timed chunk
       (statistics, telemetry, dumps); may return a replacement state.
     - ``sentinel``, ``status`` and ``replan`` (the JAX package's live
       anomaly sentinel, status file and plan hot-swap) are not ported yet:
-      they take None only (ROADMAP.md queue A item 9).
+      they take None only (ROADMAP.md queue A item 4).
     """
     if sentinel is not None or status is not None or replan is not None:
         raise NotImplementedError(
             "run_guarded: the live sentinel, the status file and the plan hot-swap "
-            "are not ported yet (ROADMAP.md queue A item 9); pass None")
+            "are not ported yet (ROADMAP.md queue A item 4); pass None")
     rec = telemetry.get()
     policy = policy or RecoveryPolicy()
     done = int(start)
@@ -204,7 +210,8 @@ def run_guarded(
                 done = prev + k
                 if injector is not None:
                     state = injector.fire_due(state, prev, done, spec=spec,
-                                              ckpt_dir=ckpt_dir)
+                                              ckpt_dir=ckpt_dir,
+                                              ckpt_flush=flush_fn)
                 save_due = (save_fn is not None and done < iters
                             and _crossed(prev, done, ckpt_every))
                 if guard is not None and (guard.due(prev, done) or save_due
@@ -238,8 +245,12 @@ def run_guarded(
             log.warn(f"fault: backing off {backoff:g}s before rollback "
                      f"{n}/{policy.max_rollbacks}")
             time.sleep(backoff)
-            # restore; a restored state that itself fails the guard is a
-            # poisoned snapshot — quarantine it and fall further back
+            # restore; the async writer is drained first so every save
+            # already handed off is visible on disk. A restored state that
+            # itself fails the guard is a poisoned snapshot: quarantine it
+            # and fall further back
+            if flush_fn is not None:
+                flush_fn()
             restored = None
             for _ in range(policy.max_rollbacks + 8):
                 found = restore_fn()

@@ -85,6 +85,10 @@ SIGNATURES = {
                                          _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "astaroth_substep_info": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
     },
+    "health_reduce": {
+        "health_reduce_launch": (_I, [_P, _L, _P, _I, _P, _I, _P]),
+        "health_reduce_task_bytes": (_L, []),
+    },
 }
 
 

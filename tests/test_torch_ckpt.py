@@ -1,9 +1,11 @@
 """The port's checkpoints (stencil_tpu_torch/ckpt/) against the JAX
 package's: a snapshot written by either package restores bit-identically
-through the other (tenant snapshots as the campaign writes them, and a
-multi-block partition), manifests validate under both, and the filesystem
-protocol (rename, LATEST, retention, validation, quarantine) behaves as in
-tests/test_ckpt.py. Bare GridSpecs and numpy state: no domain, no compile."""
+through the other (tenant snapshots as the campaign writes them, a
+multi-block partition, and a DistributedDomain's asynchronous save restored
+by the other package's domain onto another partition), manifests validate
+under both, and the filesystem protocol (rename, LATEST, retention,
+validation, quarantine) behaves as in tests/test_ckpt.py. Mostly bare
+GridSpecs and numpy state; the domains run on the CPU."""
 
 import os
 import shutil
@@ -49,18 +51,53 @@ def interior(spec, state):
     return out
 
 
+def domain_of(pkg, size, part, dtype):
+    """A realized radius-1 domain of ``pkg`` on one CPU device with every
+    block of ``part`` resident, and its ``temperature`` handle."""
+    from stencil_tpu.api import DistributedDomain as JDomain
+    from stencil_tpu_torch import DistributedDomain
+
+    dd = DistributedDomain(*size, device="cpu") if pkg == "port" else JDomain(*size)
+    dd.set_radius(1)
+    dd.set_partition(part)
+    if pkg == "jax":
+        import jax
+
+        dd.set_devices(jax.devices()[:1])
+    h = dd.add_data("temperature", np.dtype(dtype).name)
+    dd.realize()
+    return dd, h
+
+
+@pytest.mark.parametrize("via", ["files", "domain"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("size,part,aligned", [((12, 10, 8), (1, 1, 1), False),
                                                ((16, 12, 8), (2, 2, 1), True)])
 @pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
-def test_snapshots_restore_across_packages(tmp_path, writer, reader, size, part, aligned, dtype):
-    """The one-block unaligned case is a campaign tenant's snapshot; the
-    reader's find_resume (with the driver's compatibility check) and
-    assemble_global give back the writer's interior bit for bit, and the
-    manifest validates under both packages."""
+def test_snapshots_restore_across_packages(tmp_path, writer, reader, size, part, aligned, dtype,
+                                           via):
+    """``files``: the one-block unaligned case is a campaign tenant's
+    snapshot; the reader's find_resume (with the campaign driver's compatibility
+    check) and assemble_global give back the writer's interior bit for bit,
+    and the manifest validates under both packages. ``domain``: the
+    writer's DistributedDomain.save_checkpoint (the asynchronous writer)
+    and the reader's restore_checkpoint onto another partition (elastic:
+    one block <-> residents)."""
+    d = str(tmp_path)
+    if via == "domain":
+        g = np.random.RandomState(5).rand(*size[::-1]).astype(dtype)
+        wdd, wh = domain_of(writer, size, part, dtype)
+        wdd.set_curr_global(wh, g)
+        wdd.save_checkpoint(d, 2, keep=3)
+        wdd.finish_checkpoints()
+        rdd, rh = domain_of(reader, size, (1, 1, 2) if part == (1, 1, 1) else (1, 1, 1), dtype)
+        assert rdd.restore_checkpoint(d) == 2
+        assert rdd.get_curr_global(rh).tobytes() == g.tobytes()
+        snap = os.path.join(d, snapshot_name(2))
+        assert tckpt.validate_snapshot(snap) == jckpt.validate_snapshot(snap) == []
+        return
     wspec = spec_of(writer, size, part, aligned=aligned)
     state = host_state(wspec, 3, dtype)
-    d = str(tmp_path)
     PKGS[writer][0].write_snapshot(d, 2, wspec, {"temperature": state["q"]},
                                    dtypes={"temperature": np.dtype(dtype).name}, keep=3)
     ck, _, geo = PKGS[reader]

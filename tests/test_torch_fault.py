@@ -7,6 +7,8 @@ throughout."""
 
 import json
 import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,16 +56,26 @@ def test_parse_errors_match_jax():
         with pytest.raises(ValueError) as je:
             jfault.parse_spec(bad)
         assert str(te.value) == str(je.value)
-    # the port reads no env var: only an explicit spec schedules anything
+    # with no spec and no STENCIL_FAULT_INJECT nothing is scheduled
     assert FaultPlan.from_spec(None) is None and FaultPlan.from_spec(" , ") is None
     plan = FaultPlan.from_spec("nan@4")
     assert plan.steps() == [4] and plan.seed == 0
 
 
 def test_process_kinds_are_not_fired():
-    plan = FaultPlan(parse_spec("crash@2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.fire_due({"q": torch.zeros(4)}, 1, 2)
+    """A process kind is not fired before its step; at its step crash exits
+    the process with its rc (a child here), as the JAX package's does."""
+    plan = FaultPlan(parse_spec("crash@2:rc=9,stall@3"))
+    state = {"q": torch.zeros(4)}
+    assert plan.fire_due(state, 0, 1) is state
+    assert [i.fired for i in plan.injections] == [0, 0]
+    code = ("import torch; from stencil_tpu_torch.fault import FaultPlan, parse_spec; "
+            "FaultPlan(parse_spec('crash@2:rc=9')).fire_due({'q': torch.zeros(4)}, 1, 2); "
+            "raise SystemExit(0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rc = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=120,
+                        capture_output=True).returncode
+    assert rc == 9
 
 
 # -- health guards and seeded placement ---------------------------------------------
@@ -112,18 +124,26 @@ def test_health_guards_match_jax(dtype, max_abs):
 
 
 def test_injection_placement_matches_jax():
-    """FaultPlan's block burst and SlotInjector's lane burst hit the JAX
-    package's cells (the port writes them in place)."""
+    """FaultPlan's block burst and halo-slab corruption (in a stacked state
+    and in a mesh's per-position blocks) and SlotInjector's lane burst hit
+    the JAX package's cells (the port writes them in place)."""
     tspec = tgrid.GridSpec(tgeo.Dim3(12, 10, 8), tgeo.Dim3(2, 1, 1), tgeo.Radius.constant(1))
     jspec = jgrid.GridSpec(jgeo.Dim3(12, 10, 8), jgeo.Dim3(2, 1, 1), jgeo.Radius.constant(1))
     zeros = np.zeros(tspec.stacked_shape_zyx(), np.float32)
-    for spec_str in ("nan@2:cells=3", "inf@2:q=b"):
+    p = tspec.padded()
+    for spec_str in ("nan@2:cells=3", "inf@2:q=b", "halo@2", "halo@2:q=a:cells=3"):
         t = {"a": torch.from_numpy(zeros.copy()), "b": torch.from_numpy(zeros.copy())}
         j = {"a": jnp.asarray(zeros), "b": jnp.asarray(zeros)}
+        # the same quantities as a mesh's per-position blocks (flat order)
+        m = {k: [torch.zeros((1, 1, 1, p.z, p.y, p.x)) for _ in range(2)] for k in t}
         FaultPlan(parse_spec(spec_str), seed=3).fire_due(t, 1, 2, spec=tspec)
+        FaultPlan(parse_spec(spec_str), seed=3).fire_due(m, 1, 2, spec=tspec)
         j = jfault.FaultPlan(jfault.parse_spec(spec_str), seed=3).fire_due(j, 1, 2, spec=jspec)
         for k in t:
             np.testing.assert_array_equal(t[k].numpy(), np.asarray(j[k]))
+            np.testing.assert_array_equal(
+                torch.cat([b.reshape(1, p.z, p.y, p.x) for b in m[k]]).numpy(),
+                np.asarray(j[k]).reshape(2, p.z, p.y, p.x))
     # a campaign slot of 3 one-block tenants, t1 in lane 2 (entered at step 1)
     tspec = tgrid.GridSpec(tgeo.Dim3(9, 7, 6), tgeo.Dim3(1, 1, 1), tgeo.Radius.constant(1),
                            aligned=False)

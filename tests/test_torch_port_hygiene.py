@@ -16,8 +16,9 @@ from stencil_tpu_torch.apps import astaroth, jacobi3d
 from stencil_tpu_torch.astaroth.equations import Constants
 from stencil_tpu_torch.domain import GridSpec
 from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
-from stencil_tpu_torch.ops import (_native, astaroth_substep, fused_stencil, halo_fill, jacobi,
-                                   persistent_stencil, remote_dma, stencil_kernels)
+from stencil_tpu_torch.ops import (_native, astaroth_substep, fused_stencil, halo_fill,
+                                   health_reduce, jacobi, persistent_stencil, remote_dma,
+                                   stencil_kernels)
 from stencil_tpu_torch.parallel import DeviceMesh, Method
 from stencil_tpu_torch.plan.ir import build_plan
 
@@ -46,8 +47,9 @@ def test_no_jax_or_reference_imports(path):
 def test_kernel_sources_present():
     csrc = pathlib.Path(stencil_tpu_torch.__file__).parent / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "astaroth_substep.cu", "fused_exchange.cu", "fused_jacobi.cu", "jacobi_multistep.cu",
-        "jacobi_sweep.cu", "persistent_jacobi.cu", "remote_axis.cu", "self_fill.cu"]
+        "astaroth_substep.cu", "fused_exchange.cu", "fused_jacobi.cu", "health_reduce.cu",
+        "jacobi_multistep.cu", "jacobi_sweep.cu", "persistent_jacobi.cu", "remote_axis.cu",
+        "self_fill.cu"]
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_native.SIGNATURES)
 
 
@@ -112,12 +114,15 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
                       (fused_stencil, "fused_jacobi_mesh_plain"),
                       (persistent_stencil, "persistent_jacobi_mesh_plain")):
         monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(_n))
+    monkeypatch.setattr(health_reduce, "finite_and_max_plain", lambda *a, **k: calls.append(
+        "finite_and_max_plain") or (torch.ones(()), torch.zeros(())))
     launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                 halo_fill.self_fill.launches, astaroth_substep.substep.launches,
                 fused_stencil.fused_jacobi.launches, persistent_stencil.persistent_jacobi.launches,
                 remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches,
                 fused_stencil.fused_jacobi_mesh.launches,
-                persistent_stencil.persistent_jacobi_mesh.launches)
+                persistent_stencil.persistent_jacobi_mesh.launches,
+                health_reduce.health_reduce.launches)
     f32 = torch.float32
     stencil_kernels.sweep(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32), spec)
     stencil_kernels.multistep(_block(spec, f32), _block(spec, f32), spec, 2)
@@ -136,10 +141,11 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     fused_stencil.fused_jacobi_mesh(*_mesh_fields(mspec, "cpu"), mspec, mplan, mesh)
     pspec, pmesh = _mesh_case("cpu", 2)[:2]
     persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(pspec, "cpu"), pspec, 2, pmesh)
+    health_reduce.health_reduce([[_block(spec, f32)]])
     assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
                      "fused_jacobi_plain", "persistent_jacobi_plain", "remote_axis_plain",
                      "fused_exchange_plain", "fused_jacobi_mesh_plain",
-                     "persistent_jacobi_mesh_plain"]
+                     "persistent_jacobi_mesh_plain", "finite_and_max_plain"]
     # the plain versions are not launches
     assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                         halo_fill.self_fill.launches, astaroth_substep.substep.launches,
@@ -147,7 +153,8 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
                         persistent_stencil.persistent_jacobi.launches,
                         remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches,
                         fused_stencil.fused_jacobi_mesh.launches,
-                        persistent_stencil.persistent_jacobi_mesh.launches)
+                        persistent_stencil.persistent_jacobi_mesh.launches,
+                        health_reduce.health_reduce.launches)
     # any other device is refused, never served by the plain version
     meta = [_block(spec, f32, "meta"), _block(spec, f32, "meta")]
     with pytest.raises(ValueError):
@@ -174,7 +181,9 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     pspec, pmesh = _mesh_case("meta", 2)[:2]
     with pytest.raises(ValueError):
         persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(pspec, "meta"), pspec, 2, pmesh)
-    assert len(calls) == 10
+    with pytest.raises(ValueError):
+        health_reduce.health_reduce([[_block(spec, f32, "meta")]])
+    assert len(calls) == 11
 
 
 def _mesh_case(device, r=1):
@@ -200,14 +209,15 @@ def test_wrappers_have_no_fallback():
     """No try/except in the kernel modules: a failed build or launch
     propagates instead of quietly running the plain version."""
     for mod in (stencil_kernels, halo_fill, astaroth_substep, fused_stencil, persistent_stencil,
-                remote_dma):
+                remote_dma, health_reduce):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__name__
 
 
 PLAIN = ("sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
          "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep", "remote_axis_plain",
-         "fused_exchange_plain", "fused_jacobi_mesh_plain", "persistent_jacobi_mesh_plain")
+         "fused_exchange_plain", "fused_jacobi_mesh_plain", "persistent_jacobi_mesh_plain",
+         "finite_and_max_plain")
 
 
 def _is_cpu_test(test):
