@@ -16,7 +16,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               depth; the fused step kernel's registers, spill bytes and
               blocks per SM (no spill, at least 2 blocks), its launch shape
               held to fused_stencil.fused_shape and its z-chunk rule to
-              fused_stencil.fused_zchunks at five shapes.
+              fused_stencil.fused_zchunks at five shapes; the registers and
+              spill of each wire instantiation of the fused step (bf16,
+              fp16, fp8 e4m3) and of the exchange carriers' row-move body
+              (fp32 words unnarrowed and through bf16, fp16, fp8; fp64 words
+              also through fp32), the unnarrowed body held to no spill.
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
               odd sizes, non-wrapping axes, fp32 and fp64 fills; the
@@ -147,7 +151,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               (remote_axis per phase at config 2 and at 512^3 (2,2,2) r1,
               fused_exchange at both);
               the per-position 256^3 sweep (no wrap) against its plain
-              version and timed per launch.
+              version and timed per launch;
+              then the narrowed wire (mesh_wire_phase): remote_axis and
+              fused_exchange with a wire against their plain versions by bit
+              pattern on every cell of every position (NaN as one pattern)
+              at config 2 and 512^3 (2,2,2) r1 through bf16 and fp8, 128^3
+              (2,2,2) r2 x2 and 66x20x16 (2,1,1) r2 x2 fp64 through fp32 and
+              bf16, a 64^3 fp32 + fp64 + int32 dict, and fields of edge
+              values (fp8's overflow and subnormals, inf, NaN) through every
+              pair; each case's whole mesh exchange, plain and fused, on
+              the card against the CPU; 8 steps at 512^3 over 8 positions
+              with bf16 and with fp8 on the wire against the same loop on
+              the CPU; the main path apps.jacobi3d.run(512, 512, 512,
+              devices=[cuda:0]*8, method REMOTE_DMA, wire_dtype="bfloat16")
+              (225 remote_axis launches, all narrowed, and 600 sweeps) beside
+              the unnarrowed run in turns; B6 per phase at config 2 and
+              512^3 r1 and B7 at config 2 timed per launch unnarrowed, bf16,
+              fp8, fp8, bf16, unnarrowed, beside the bytes bound and sector
+              floor; exchange_loop at config 2 through each carrier with
+              and without a wire.
 10. mesh variants -- the wire-crossing forms of the fused step and the
               persistent chunk, one cooperative launch over every position
               of the mesh: fused_jacobi_mesh against its plain version
@@ -169,7 +191,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               persistent with deep_halo 4 (48 iters, chunks of 24: 18
               chunk launches and 9 remote_axis launches, sel's exchange once
               per loop call), launch counts reset around each; each kernel
-              timed per launch at 512^3 beside its plain version and bound.
+              timed per launch at 512^3 beside its plain version and bound;
+              then the narrowed wire (variant_wire_phase): fused_jacobi_mesh
+              with a wire against its plain version by bit pattern at 512^3
+              (2,2,2) r1 (bf16, fp8) and 24x20x16 (2,1,1) r1 of edge values
+              (bf16, fp16, fp8); 8 steps of the fused loop with bf16 and with
+              fp8 on the wire against phase 9's CPU loop; the main path
+              with kernel_variant fused and wire_dtype="bfloat16" (75
+              launches, all narrowed) beside the unnarrowed run in turns;
+              the kernel timed per launch at 512^3 over 8 positions
+              unnarrowed, bf16, fp8, fp8, bf16, unnarrowed.
 
 11. guarded -- the guarded main path (guarded_phase): the fused health
               reduction (csrc/health_reduce.cu) against its plain version
@@ -448,6 +479,468 @@ def guarded_phase(dev, time_ms, n: int = 512, stacks=((64, 128), (70000, 4)), gn
     return timing, health_launches, err
 
 
+# the narrowed wire's edge values: fp8's overflow edge (448 its largest
+# value, 464 the tie that rounds to it, NaN above), its subnormals and their
+# ties, fp16's overflow edge, ties at 1, values fp64 rounds once differently
+# from twice, fp32 subnormals, the non-finite values
+WIRE_EDGES = [0.0, -0.0, 1.0, 448.0, -448.0, 460.0, 464.0, -464.0, 465.0, 480.0, 500.0, 1e30,
+              -1e30, float("inf"), float("-inf"), float("nan"), 2.0 ** -6, 2.0 ** -9, 2.0 ** -10,
+              -(2.0 ** -10), 3 * 2.0 ** -11, 3 * 2.0 ** -10, 65504.0, 65519.0, 65520.0, 65536.0,
+              1 + 2.0 ** -8, 1 + 3 * 2.0 ** -9, 1 + 2.0 ** -4, 2.0 ** -24, 2.0 ** -25, 2.0 ** -14,
+              1e-40, -1e-40, 1e-45, 2.0 ** -10 + 2.0 ** -40, 1 + 2.0 ** -4 + 2.0 ** -40,
+              1 + 2.0 ** -11 + 2.0 ** -40, 1 + 2.0 ** -8 + 2.0 ** -30, 0.1, 1 / 3]
+BF16, FP8 = "bfloat16", "float8_e4m3fn"
+
+
+def bits_equal(x: torch.Tensor, y: torch.Tensor):
+    """``(equal, nan_patterns)``: the bit patterns of ``x`` and ``y`` equal,
+    every NaN taken as one pattern (the card's widened NaN is the
+    conversion's canonical NaN, torch's keeps its own: the plain version
+    pins where a NaN is, not its bits); ``nan_patterns`` counts the NaNs
+    whose raw bits differ."""
+    if not x.is_floating_point():
+        return bool(torch.equal(x, y)), 0
+    it = torch.int32 if x.element_size() == 4 else torch.int64
+    ix, iy = x.view(it), y.view(it)
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return bool(((ix == iy) | (nx & ny)).all()), int(((ix != iy) & nx & ny).sum())
+
+
+def wire_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    """max |x - y| over the cells where neither is NaN (0 when none)."""
+    keep = ~(torch.isnan(x) | torch.isnan(y)) if x.is_floating_point() else None
+    d = (x.double() - y.double()).abs()
+    d = d[keep] if keep is not None else d
+    return float(d.max()) if d.numel() else 0.0
+
+
+def mesh_wire_phase(dev, time_ms, n: int = 512, c2: int = 256, steps: int = 8, iters: int = 50,
+                    chunk: int = 25):
+    """Phase 9's narrowed wire (``wire_dtype``), on ``dev``: B6 and B7 with
+    a wire against their plain versions, by bit pattern on every cell of
+    every position (NaN as one pattern), at config 2 (``c2``^3 (2,2,2) r2 x4
+    fp32) and ``n``^3 (2,2,2) r1 at bf16 and fp8, 128^3 (2,2,2) r2 x2 fp64
+    and 66x20x16 (2,1,1) r2 x2 fp64 at float32 and bf16, a 64^3 fp32 + fp64
+    + int32 dict (int32 copied bitwise), and every (data, wire) pair on
+    fields of edge values at 32^3; each case's whole mesh exchange, plain and
+    fused, on the card against the same exchange on the CPU; ``steps`` steps
+    at ``n``^3 over 8 positions through the plain loop with bf16 and fp8 on
+    the wire against the same loop on the CPU (kept for phase 10's fused
+    loop); the main path ``apps.jacobi3d.run(n, n, n, devices=[dev] * 8,
+    method=REMOTE_DMA, wire_dtype="bfloat16")`` with launch counts reset
+    around it (those of the unnarrowed run, every B6 launch narrowed),
+    beside the unnarrowed run in turns; B6 per phase at config 2 and ``n``^3
+    r1 and B7 at config 2 timed per launch unnarrowed, bf16, fp8, fp8, bf16,
+    unnarrowed; ``exchange_loop`` at config 2 through each carrier with and
+    without a wire. Sizes are arguments so that the phase can be rehearsed
+    on the CPU. Returns ``(timings, launches, errs, cpu_refs)``."""
+    from stencil_tpu_torch import DistributedDomain, GridSpec
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method, unshard_blocks
+    from stencil_tpu_torch.plan.ir import build_plan
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    rdma_m = Method.REMOTE_DMA
+
+    def rspec(size, part, r):
+        return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(r))
+
+    def mesh_of(spec, device=dev):
+        return DeviceMesh(spec.dim, [device] * spec.dim.flatten())
+
+    def wide_mesh(spec, dtypes, seed, edges=False):
+        """{q: [block per position]}: random sign and magnitude 2^U(-12, 9)
+        (fp8's subnormals to past its overflow), or edge values, in every
+        cell; an int32 quantity random integers."""
+        p = spec.padded()
+        shape = (1, 1, 1, p.z, p.y, p.x)
+        vals = torch.tensor(WIRE_EDGES, dtype=f64, device=dev)
+        out = {}
+        for q, dt in enumerate(dtypes):
+            gen.manual_seed(seed + q)
+            blocks = []
+            for _ in range(spec.num_blocks()):
+                if dt == i32:
+                    b = torch.randint(-2 ** 30, 2 ** 30, shape, generator=gen, device=dev,
+                                      dtype=i32)
+                elif edges:
+                    b = vals[torch.randint(len(WIRE_EDGES), shape, generator=gen, device=dev)]
+                else:
+                    b = torch.randn(shape, generator=gen, device=dev, dtype=f64) * torch.exp2(
+                        torch.rand(shape, generator=gen, device=dev, dtype=f64) * 21 - 12)
+                blocks.append(b.to(dt))
+            out[q] = blocks
+        return out
+
+    def cloned(groups):
+        return [[b.clone() for b in g] for g in groups]
+
+    errs = {"remote_axis_wire": 0.0, "fused_exchange_wire": 0.0}
+    nan_patterns = 0
+
+    def held(name, label, got, want):
+        nonlocal nan_patterns
+        res = [bits_equal(a, b) for ga, gb in zip(got, want) for a, b in zip(ga, gb)]
+        nan_patterns += sum(k for _e, k in res)
+        check(all(e for e, _k in res), f"{name} {label}: kernel != plain (bit patterns, NaN as "
+              "one pattern)")
+        errs[name] = max(errs[name], max(wire_err(a, b) for ga, gb in zip(got, want)
+                                         for a, b in zip(ga, gb)))
+
+    cases = [
+        (f"config 2: {c2}^3 (2,2,2) r2 x4 fp32", rspec((c2,) * 3, (2, 2, 2), 2), [f32] * 4,
+         (BF16, FP8), False),
+        (f"{n}^3 (2,2,2) r1 fp32", rspec((n,) * 3, (2, 2, 2), 1), [f32], (BF16, FP8), False),
+        ("128^3 (2,2,2) r2 x2 fp64", rspec((128,) * 3, (2, 2, 2), 2), [f64, f64],
+         ("float32", BF16), False),
+        ("66x20x16 (2,1,1) r2 x2 fp64", rspec((66, 20, 16), (2, 1, 1), 2), [f64, f64],
+         ("float32", BF16), False),
+        ("64^3 (2,2,2) r1 fp32 + fp64 + int32", rspec((64,) * 3, (2, 2, 2), 1), [f32, f64, i32],
+         (BF16, FP8), False),
+        ("edge values 32^3 (2,2,2) r2 fp32", rspec((32,) * 3, (2, 2, 2), 2), [f32],
+         (BF16, "float16", FP8), True),
+        ("edge values 40x36x20 (1,2,2) r1 fp64", rspec((40, 36, 20), (1, 2, 2), 1), [f64],
+         ("float32", BF16, "float16", FP8), True),
+    ]
+    for i, (label, spec, dts, wires, edges) in enumerate(cases):
+        mesh, cpu_mesh = mesh_of(spec), mesh_of(spec, cpu)
+        st = wide_mesh(spec, dts, 600 + 10 * i, edges)
+        plan = build_plan(spec, spec.dim, rdma_m)
+        fplan = build_plan(spec, spec.dim, rdma_m, fused=True)
+        for wire in wires:
+            for dt in dict.fromkeys(dts):
+                start = [[st[k][j] for k, d in enumerate(dts) if d == dt]
+                         for j in range(spec.num_blocks())]
+                for ph in plan.remote_phases:
+                    if ph.ring < 2 or not ph.active:
+                        continue
+                    got = rdma.remote_axis(cloned(start), spec, ph, mesh, wire)
+                    want = rdma.remote_axis_plain(cloned(start), spec, ph, mesh, wire)
+                    held("remote_axis_wire", f"{label} {dt} {ph.axis} {wire}", got, want)
+                got = fst.fused_exchange(cloned(start), spec, fplan, mesh, wire)
+                want = fst.fused_exchange_plain(cloned(start), spec, fplan, mesh, wire)
+                held("fused_exchange_wire", f"{label} {dt} {wire}", got, want)
+            for fused in (False, True):
+                on_card = {q: [b.clone() for b in bl] for q, bl in st.items()}
+                on_cpu = {q: [b.cpu() for b in bl] for q, bl in st.items()}
+                HaloExchange(spec, rdma_m, mesh=mesh, fused=fused, wire_dtype=wire)(on_card)
+                HaloExchange(spec, rdma_m, mesh=cpu_mesh, fused=fused, wire_dtype=wire)(on_cpu)
+                for q in st:
+                    check(all(bits_equal(a.cpu(), b)[0] for a, b in zip(on_card[q], on_cpu[q])),
+                          f"mesh exchange {label} fused={fused} {wire} q{q}: card != CPU")
+                del on_card, on_cpu
+        log(f"mesh {label} through {', '.join(wires)}: remote_axis and fused_exchange == plain "
+            "(bit patterns, every cell); both exchanges on the card == the CPU")
+        del st
+    log(f"wire checks of phase 9: {nan_patterns} NaN cells whose widened bits differ between the "
+        "card and the plain version (NaN as one pattern: the card's conversions give their "
+        "canonical NaN)")
+
+    # steps at n^3 over 8 positions through the plain loop with a wire, on
+    # the card against the CPU (the field is in [0, 1), inside fp8's range)
+    spec1 = rspec((n,) * 3, (2, 2, 2), 1)
+    mesh8, cpu8 = mesh_of(spec1), mesh_of(spec1, cpu)
+    gen.manual_seed(630)
+    g = torch.rand((n, n, n), generator=gen, device=dev)
+    cpu_refs = {}
+    for wire in (BF16, FP8):
+        outs = []
+        for mesh in (mesh8, cpu8):
+            ex = HaloExchange(spec1, rdma_m, mesh=mesh, wire_dtype=wire)
+            c = from_global(g, spec1, mesh)
+            out, _ = make_jacobi_loop(ex, steps)(c, [torch.zeros_like(b) for b in c],
+                                                 sphere_sel_blocks(spec1, mesh))
+            outs.append(unshard_blocks(out, spec1))
+            del ex, c, out
+        check(np.array_equal(outs[0], outs[1]),
+              f"jacobi {n}^3 {steps} steps over 8 positions with {wire} on the wire: card != CPU")
+        cpu_refs[wire] = outs[1]
+        log(f"jacobi {n}^3 {steps} steps over 8 positions (remote_axis + sweeps) with {wire} on "
+            "the wire: card == CPU on every cell")
+    cpu_refs["field"] = g
+
+    # the main path with bf16 on the wire, beside the unnarrowed run in turns
+    counted = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
+               "self_fill": halo_fill.self_fill, "jacobi_multistep": sk.multistep,
+               "fused_exchange": fst.fused_exchange}
+    launches, ms_iter = {}, {}
+    run_steps = (iters + chunk) * (dev.type == "cuda")  # the CPU's plain versions launch nothing
+    want = {"remote_axis": 3 * run_steps, "jacobi_sweep": 8 * run_steps, "self_fill": 0,
+            "jacobi_multistep": 0, "fused_exchange": 0}
+    hot, cold = (m.cpu() for m in sk.sphere_masks_from_coords(rspec((n,) * 3, (1, 1, 1), 1), dev))
+    for wire in (None, BF16, BF16, None):
+        for fn in counted.values():
+            fn.launches = 0
+        rdma.remote_axis.narrowed = 0
+        rv = jacobi3d.run(n, n, n, devices=[dev] * 8, method=rdma_m, iters=iters, chunk=chunk,
+                          weak=False, wire_dtype=wire)
+        sync(dev)
+        got = {name: fn.launches for name, fn in counted.items()}
+        check(got == want and rdma.remote_axis.narrowed == (want["remote_axis"] if wire else 0),
+              f"jacobi3d over 8 positions, wire {wire}: launches {got} "
+              f"({rdma.remote_axis.narrowed} narrowed), expected {want}")
+        fin = torch.from_numpy(rv["domain"].get_curr_global(rv["handle"]))
+        check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0 and bool((fin[hot] == 1.0).all())
+              and bool((fin[cold] == 0.0).all()),
+              f"jacobi3d over 8 positions, wire {wire}: field not finite, out of range or "
+              "spheres lost")
+        ms_iter.setdefault(wire, []).append(rv["iter_trimean_s"] * 1e3)
+        log(f"jacobi3d {n}^3 over 8 positions of one card (remote-dma, wire {wire}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+            f"Mcells/s, launches {got}, narrowed remote_axis {rdma.remote_axis.narrowed}")
+        if wire:
+            launches["remote_axis_wire"] = rdma.remote_axis.narrowed
+        del rv, fin
+    log(f"jacobi3d {n}^3 over 8 positions, ms/iter in turns: unnarrowed "
+        f"{', '.join(f'{v:.4f}' for v in ms_iter[None])}, bf16 on the wire "
+        f"{', '.join(f'{v:.4f}' for v in ms_iter[BF16])}")
+
+    # per launch, in turns: unnarrowed, bf16, fp8, fp8, bf16, unnarrowed
+    turns = (None, BF16, FP8, FP8, BF16, None)
+    timings = {}
+    for label, spec, nq in ((f"config 2 ({c2}^3 (2,2,2) r2 x4)", rspec((c2,) * 3, (2, 2, 2), 2),
+                             4), (f"{n}^3 (2,2,2) r1 x1", spec1, 1)):
+        st = wide_mesh(spec, [f32] * nq, 640)
+        groups = [[st[q][j] for q in range(nq)] for j in range(8)]
+        mesh = mesh_of(spec)
+        ring = [ph for ph in build_plan(spec, (2, 2, 2), rdma_m).remote_phases if ph.active]
+        per = {w: [[] for _ in ring] for w in turns}
+        for wire in turns:
+            for k, ph in enumerate(ring):
+                per[wire][k].append(time_ms(
+                    lambda ph=ph, w=wire: rdma.remote_axis(groups, spec, ph, mesh, w), 20,
+                    graph=True))
+        for k, ph in enumerate(ring):
+            b = bound_ms(rdma.remote_axis_bytes(spec, ph, nq, 8, 4), 0)[0]
+            f = bound_ms(rdma.remote_axis_sector_bytes(spec, ph, nq, 8, 4), 0)[0]
+            log(f"time remote_axis {label} {ph.axis} per launch in turns: "
+                + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in per[w][k])}"
+                            for w in dict.fromkeys(turns))
+                + f" ms (bound {b:.4f} ms by bytes, sector floor {f:.4f} ms)")
+        if nq == 4:
+            mean = {w: sum(sum(v) / len(v) for v in per[w]) / len(ring) for w in per}
+            nbytes = sum(rdma.remote_axis_bytes(spec, ph, nq, 8, 4) for ph in ring) / len(ring)
+            plain = time_ms(lambda: [rdma.remote_axis_plain(groups, spec, ph, mesh, BF16)
+                                     for ph in ring], 3) / len(ring)
+            timings["remote_axis_wire"] = dict(
+                ms=mean[BF16], plain_ms=plain, bound=bound_ms(nbytes, 0), library_ms=None,
+                extra={"ms_unnarrowed": mean[None], "ms_fp8": mean[FP8]})
+            fplan = build_plan(spec, (2, 2, 2), rdma_m, fused=True)
+            fper = {w: [] for w in turns}
+            for wire in turns:
+                fper[wire].append(time_ms(
+                    lambda w=wire: fst.fused_exchange(groups, spec, fplan, mesh, w), 20,
+                    graph=True))
+            fb = bound_ms(fst.fused_exchange_bytes(fplan, nq, 8, 4), 0)
+            ff = bound_ms(fst.fused_exchange_sector_bytes(fplan, spec, nq, 8, 4), 0)[0]
+            log(f"time fused_exchange {label} per launch in turns: "
+                + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in fper[w])}"
+                            for w in dict.fromkeys(turns))
+                + f" ms (bound {fb[0]:.4f} ms by bytes, sector floor {ff:.4f} ms)")
+            fmean = {w: sum(v) / len(v) for w, v in fper.items()}
+            timings["fused_exchange_wire"] = dict(
+                ms=fmean[BF16], bound=fb, library_ms=None,
+                plain_ms=time_ms(lambda: fst.fused_exchange_plain(groups, spec, fplan, mesh, BF16),
+                                 3),
+                extra={"ms_unnarrowed": fmean[None], "ms_fp8": fmean[FP8]})
+        del st, groups
+
+    # DistributedDomain.exchange_loop at config 2 through each carrier, with
+    # and without a wire; the B7 main path's launch (one, narrowed)
+    for fused in (False, True):
+        name = "fused_exchange" if fused else "remote_axis"
+        line = []
+        for wire in (None, BF16, FP8):
+            dd = DistributedDomain(c2, c2, c2, device=dev)
+            dd.set_radius(2)
+            dd.set_methods(rdma_m)
+            dd.set_devices([dev] * 8)
+            dd.set_fused_exchange(fused)
+            dd.set_wire_dtype(wire)
+            hs = [dd.add_data(f"q{q}", "float32") for q in range(4)]
+            dd.realize()
+            st = wide_mesh(dd.spec, [f32] * 4, 650)
+            for q, h in enumerate(hs):
+                dd.set_curr(h, st[q])
+            fn = fst.fused_exchange if fused else rdma.remote_axis
+            fn.launches = fn.narrowed = 0
+            dd.exchange_loop(1)(dd.curr_state())
+            sync(dev)
+            want_n = (1 if fused else 3) * (dev.type == "cuda")
+            check(fn.launches == want_n and fn.narrowed == (want_n if wire else 0),
+                  f"config-2 exchange via {name}, wire {wire}: {fn.launches} launches, "
+                  f"{fn.narrowed} narrowed")
+            if fused and wire == BF16:
+                launches["fused_exchange_wire"] = fn.narrowed
+            loop10 = dd.exchange_loop(10)
+            ms = time_ms(lambda: loop10(dd.curr_state()), 3, warmup=1) / 10
+            line.append(f"{wire or 'unnarrowed'} {ms:.4f}")
+            del dd, st, loop10
+        log(f"mesh exchange config 2 over 8 positions via {name} (exchange_loop, host included), "
+            f"ms an exchange: {'; '.join(line)}")
+    return timings, launches, errs, cpu_refs
+
+
+def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, iters: int = 50,
+                       chunk: int = 25):
+    """Phase 10's narrowed wire, on ``dev``: B8 with a wire against its plain
+    version (bit patterns, NaN as one pattern, curr with its halos and nxt,
+    every position) at ``n``^3 (2,2,2) r1 (random fields, bf16 and fp8) and
+    24x20x16 (2,1,1) r1 (edge values, sel codes in [-1, 4), every wire);
+    ``steps`` steps at ``n``^3 over 8 positions through the fused loop with
+    bf16 and fp8 on the wire against phase 9's CPU loop (the fused and the
+    plain mesh loops agree, on the CPU as on the card); the main path
+    ``apps.jacobi3d.run(..., kernel_variant="fused", wire_dtype="bfloat16")``
+    with launch counts reset around it (75 launches, all narrowed) beside
+    the unnarrowed run in turns; B8 timed per launch at ``n``^3 over 8
+    positions unnarrowed, bf16, fp8, fp8, bf16, unnarrowed. Returns
+    ``(timings, launches, errs)``."""
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method, unshard_blocks
+    from stencil_tpu_torch.plan.ir import build_plan
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    rdma_m = Method.REMOTE_DMA
+    errs = {"fused_jacobi_mesh_wire": 0.0}
+    nan_patterns = 0
+
+    def rspec(size, part, r):
+        return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(r))
+
+    def fields(spec, seed, edges, codes):
+        p = spec.padded()
+        shape = (1, 1, 1, p.z, p.y, p.x)
+        vals = torch.tensor(WIRE_EDGES, dtype=torch.float64, device=dev)
+        gen.manual_seed(seed)
+        out = []
+        for _ in range(3 * spec.num_blocks()):
+            if edges:
+                out.append(vals[torch.randint(len(WIRE_EDGES), shape, generator=gen,
+                                              device=dev)].to(f32))
+            else:
+                out.append(torch.rand(shape, generator=gen, device=dev))
+        npos = spec.num_blocks()
+        sels = [torch.randint(*codes, shape, generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(npos)]
+        return out[:npos], out[npos:2 * npos], sels
+
+    spec1 = rspec((n,) * 3, (2, 2, 2), 1)
+    for i, (label, spec, edges, codes, wires) in enumerate((
+            (f"{n}^3 (2,2,2) r1", spec1, False, (0, 3), (BF16, FP8)),
+            ("24x20x16 (2,1,1) r1 edge values, sel in [-1, 4)", rspec((24, 20, 16), (2, 1, 1), 1),
+             True, (-1, 4), (BF16, "float16", FP8)))):
+        mesh = DeviceMesh(spec.dim, [dev] * spec.num_blocks())
+        plan = build_plan(spec, spec.dim, rdma_m, fused=True)
+        c, nx, s = fields(spec, 660 + 10 * i, edges, codes)
+        for wire in wires:
+            gc, gn = [b.clone() for b in c], [b.clone() for b in nx]
+            pc, pn = [b.clone() for b in c], [b.clone() for b in nx]
+            fst.fused_jacobi_mesh(gc, gn, s, spec, plan, mesh, wire)
+            fst.fused_jacobi_mesh_plain(pc, pn, s, spec, plan, mesh, wire)
+            res = [bits_equal(a, b) for a, b in zip(gc + gn, pc + pn)]
+            nan_patterns += sum(k for _e, k in res)
+            check(all(e for e, _k in res), f"fused_jacobi_mesh {label} {wire}: kernel != plain "
+                  "(bit patterns, NaN as one pattern)")
+            errs["fused_jacobi_mesh_wire"] = max(errs["fused_jacobi_mesh_wire"],
+                                                 max(wire_err(a, b)
+                                                     for a, b in zip(gc + gn, pc + pn)))
+            del gc, gn, pc, pn
+        log(f"fused_jacobi_mesh {label} through {', '.join(wires)}: equal (every position's curr "
+            "with halos, and nxt; bit patterns)")
+        del c, nx, s
+    log(f"wire checks of phase 10: {nan_patterns} NaN cells whose widened bits differ between "
+        "the card and the plain version (NaN as one pattern)")
+
+    # steps through the fused loop with a wire against phase 9's CPU loop
+    mesh8 = DeviceMesh((2, 2, 2), [dev] * 8)
+    for wire in (BF16, FP8):
+        ex = HaloExchange(spec1, rdma_m, mesh=mesh8, fused=True, wire_dtype=wire)
+        c = from_global(cpu_refs["field"], spec1, mesh8)
+        out, _ = make_jacobi_loop(ex, steps)(c, [torch.zeros_like(b) for b in c],
+                                             sphere_sel_blocks(spec1, mesh8))
+        check(np.array_equal(unshard_blocks(out, spec1), cpu_refs[wire]),
+              f"jacobi {n}^3 {steps} steps over 8 positions, fused loop with {wire} on the "
+              "wire: card != the CPU's loop")
+        log(f"jacobi {n}^3 {steps} steps over 8 positions, fused loop with {wire} on the wire: "
+            "== the CPU's loop on every cell")
+        del ex, c, out
+
+    # the main path with bf16 on the wire, beside the unnarrowed run in turns
+    launches, ms_iter = {}, {}
+    for wire in (None, BF16, BF16, None):
+        fst.fused_jacobi_mesh.launches = fst.fused_jacobi_mesh.narrowed = 0
+        rv = jacobi3d.run(n, n, n, devices=[dev] * 8, method=rdma_m, iters=iters, chunk=chunk,
+                          weak=False, kernel_variant="fused", wire_dtype=wire)
+        sync(dev)
+        got = (fst.fused_jacobi_mesh.launches, fst.fused_jacobi_mesh.narrowed)
+        run_steps = (iters + chunk) * (dev.type == "cuda")
+        check(got == (run_steps, run_steps if wire else 0),
+              f"jacobi3d fused over 8 positions, wire {wire}: (launches, narrowed) {got}")
+        fin = rv["domain"].get_curr_global(rv["handle"])
+        check(bool(np.isfinite(fin).all()) and fin.min() >= 0.0 and fin.max() <= 1.0,
+              f"jacobi3d fused over 8 positions, wire {wire}: field not finite or out of range")
+        ms_iter.setdefault(wire, []).append(rv["iter_trimean_s"] * 1e3)
+        log(f"jacobi3d {n}^3 over 8 positions of one card (remote-dma fused, wire {wire}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+            f"Mcells/s, (launches, narrowed) {got}")
+        if wire:
+            launches["fused_jacobi_mesh_wire"] = got[1]
+        del rv, fin
+    log(f"jacobi3d fused {n}^3 over 8 positions, ms/iter in turns: unnarrowed "
+        f"{', '.join(f'{v:.4f}' for v in ms_iter[None])}, bf16 on the wire "
+        f"{', '.join(f'{v:.4f}' for v in ms_iter[BF16])}")
+
+    # per launch in turns (cooperative launches: CUDA events, no graph)
+    plan = build_plan(spec1, (2, 2, 2), rdma_m, fused=True)
+    c, nx, s = fields(spec1, 690, False, (0, 3))
+    turns = (None, BF16, FP8, FP8, BF16, None)
+    per = {w: [] for w in turns}
+    for wire in turns:
+        per[wire].append(time_ms(
+            lambda w=wire: fst.fused_jacobi_mesh(c, nx, s, spec1, plan, mesh8, w), 20))
+    b = bound_ms(fst.fused_jacobi_mesh_bytes(plan, 8, spec1), 6 * n ** 3)
+    log(f"time fused_jacobi_mesh {n}^3 over 8 positions per launch in turns: "
+        + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in per[w])}"
+                    for w in dict.fromkeys(turns))
+        + f" ms (bound {b[0]:.4f} ms by {b[1]})")
+    mean = {w: sum(v) / len(v) for w, v in per.items()}
+    timings = {"fused_jacobi_mesh_wire": dict(
+        ms=mean[BF16], bound=b, library_ms=None,
+        plain_ms=time_ms(lambda: fst.fused_jacobi_mesh_plain(c, nx, s, spec1, plan, mesh8, BF16),
+                         3, warmup=1),
+        extra={"ms_unnarrowed": mean[None], "ms_fp8": mean[FP8]})}
+    return timings, launches, errs
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def from_global(g: torch.Tensor, spec, mesh):
+    """A global [z, y, x] tensor as a mesh's blocks (halos 0), on each
+    position's device."""
+    from stencil_tpu_torch.parallel import shard_blocks
+
+    return shard_blocks(g.to(mesh.devices[0]), spec, mesh)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -509,6 +1002,23 @@ def main() -> int:
     log(f"fused_jacobi: {fi['regs']} registers, {fi['local_bytes']} bytes of spill, "
         f"{fi['blocks_per_sm']} block(s) of {fi['threads']} threads per SM, "
         f"{fi['smem_bytes']} bytes of shared memory")
+    wire_names = {0: "unnarrowed", 1: "bf16", 2: "fp16", 3: "fp8 e4m3", 4: "fp32"}
+    for code in (1, 2, 3):
+        wi = fst.fused_info(0, code)
+        check(wi["threads"] == fsh["threads"] and wi["smem_bytes"] == fsh["smem_bytes"]
+              and wi["blocks_per_sm"] >= 1,
+              f"fused step kernel through the {wire_names[code]} wire: launch shape {wi}")
+        log(f"fused_jacobi through the {wire_names[code]} wire: {wi['regs']} registers, "
+            f"{wi['local_bytes']} bytes of spill, {wi['blocks_per_sm']} block(s) per SM")
+    regs = (ctypes.c_int * 2)()
+    for elem, codes in ((4, (0, 1, 2, 3)), (8, (0, 4, 1, 2, 3))):
+        for code in codes:
+            _native.check(_native.lib("remote_axis").remote_axis_info(elem, code, regs),
+                          "remote_axis_info")
+            check(code != 0 or regs[1] == 0,
+                  f"the unnarrowed {8 * elem}-bit row-move body spills")
+            log(f"row-move body (remote_axis, fused_exchange), {8 * elem}-bit words, "
+                f"{wire_names[code]}: {regs[0]} registers, {regs[1]} bytes of spill")
     in_flight = fi["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
     fj_lib = _native.lib("fused_jacobi")
     for size, part, r, aligned in (((512,) * 3, (1, 1, 1), 1, True),
@@ -1805,6 +2315,17 @@ def main() -> int:
             f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, sector floor "
             f"{sector_ms[name]:.4f} ms, Tensor.copy_ {t['library_ms']:.4f} ms)")
 
+    # the narrowed wire's forms of B6 and B7, and the plain mesh path with a wire
+    t9, l9, e9, wire_refs = mesh_wire_phase(dev, time_ms)
+    timings.update(t9)
+    launches.update(l9)
+    errs.update(e9)
+    for name in t9:
+        t = t9[name]
+        log(f"time {name} config 2, bf16 on the wire: {t['ms']:.4f} ms per launch (unnarrowed "
+            f"{t['extra']['ms_unnarrowed']:.4f}, fp8 {t['extra']['ms_fp8']:.4f}; plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+
     # -- 10. mesh variants: the fused step and the persistent chunk over 8 ---
     #        block positions, one cooperative launch for every position
     for key in ("fused_jacobi_mesh", "persistent_jacobi_mesh"):
@@ -1940,6 +2461,17 @@ def main() -> int:
     log(f"persistent_jacobi_mesh k=4: {timings['persistent_jacobi_mesh']['ms'] / 4:.4f} ms per "
         f"step; the design's own traffic bounds it at {design10:.4f} ms")
 
+    # the narrowed wire's form of B8, and the fused mesh path with a wire
+    t10, l10, e10 = variant_wire_phase(dev, time_ms, wire_refs)
+    del wire_refs
+    timings.update(t10)
+    launches.update(l10)
+    errs.update(e10)
+    t = t10["fused_jacobi_mesh_wire"]
+    log(f"time fused_jacobi_mesh 512^3 over 8 positions, bf16 on the wire: {t['ms']:.4f} ms per "
+        f"launch (unnarrowed {t['extra']['ms_unnarrowed']:.4f}, fp8 {t['extra']['ms_fp8']:.4f}; "
+        f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+
     # -- 11. the guarded main path: health kernel, headline leg, rollbacks ----
     from stencil_tpu_torch.ops import health_reduce as hr
 
@@ -1994,6 +2526,14 @@ def main() -> int:
                               "stencil_tpu/ops/fused_stencil.py:250"),
         "persistent_jacobi_mesh": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
                                    "stencil_tpu/ops/persistent_stencil.py:199"),
+        # the wire_dtype forms: each crossing word rounded through the wire
+        # (csrc/wire_round.cuh) between its load and its store
+        "remote_axis_wire": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                             "stencil_tpu/ops/remote_dma.py:101"),
+        "fused_exchange_wire": ("stencil_tpu_torch/csrc/fused_exchange.cu",
+                                "stencil_tpu/ops/fused_stencil.py:118"),
+        "fused_jacobi_mesh_wire": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
+                                   "stencil_tpu/ops/fused_stencil.py:292"),
         # no Pallas builder: the JAX guard's fused XLA reduction
         "health_reduce": ("stencil_tpu_torch/csrc/health_reduce.cu",
                           "stencil_tpu/fault/health.py:84"),

@@ -30,6 +30,7 @@ import torch
 
 from .domain import DataHandle, GridSpec
 from .geometry import Dim3, NodePartition, Radius, Rect3, exterior_regions, interior_region
+from .ops.halo_fill import wire_name
 from .parallel.exchange import HaloExchange, Method, shard_blocks, unshard_blocks
 from .parallel.mesh import DeviceMesh
 from .utils import logging as log
@@ -70,6 +71,7 @@ class DistributedDomain:
         self._method = Method.AXIS_COMPOSED
         self._fused = False
         self._persistent = False
+        self._wire_dtype: Optional[str] = None
         self._partition_dim: Optional[Dim3] = None
         self._devices: Optional[List[torch.device]] = None
         self.mesh: Optional[DeviceMesh] = None
@@ -125,6 +127,19 @@ class DistributedDomain:
         another method."""
         self._persistent = bool(enabled)
 
+    def set_wire_dtype(self, dtype) -> None:
+        """bf16-on-the-wire halo compression (``None`` or "" = off), as in the
+        JAX package: halo messages that cross between mesh positions narrow
+        to this dtype on the way and widen on arrival
+        (``HaloExchange(wire_dtype=...)``; ``ops/halo_fill.wire_narrow_dtype``
+        owns the policy: only floating quantities narrow, local copies stay
+        lossless). LOSSY by design: the exchanged halos round to the wire
+        precision. The port takes bfloat16, float16, float8_e4m3fn and, for
+        float64 data, float32; on one device it is a no-op. The checkpoint
+        manifest's ``wire_dtype`` and its restore warning wait for
+        ``plan_meta`` (ROADMAP.md queue A item 4)."""
+        self._wire_dtype = wire_name(dtype)
+
     def set_devices(self, devices: Sequence) -> None:
         """Run on these devices (reference ``set_gpus``, stencil.hpp:154).
         One entry: every block on that device. N entries: a mesh of N block
@@ -166,7 +181,8 @@ class DistributedDomain:
                 self.mesh = DeviceMesh(dim if dim.flatten() == n else Dim3(n, 1, 1),
                                        self._devices)
             self._exchange = HaloExchange(self.spec, self._method, fused=self._fused,
-                                          persistent=self._persistent, mesh=self.mesh)
+                                          persistent=self._persistent, mesh=self.mesh,
+                                          wire_dtype=self._wire_dtype)
             for idx, dt in enumerate(self._dtypes):
                 self._curr[idx] = self._zeros(dt)
                 self._next[idx] = self._zeros(dt)

@@ -39,10 +39,13 @@ Usage: python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 --iters
 (``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU).
 ``--method remote-dma`` with ``--kernel-variant fused`` (or ``--fused``) runs
 one fused step kernel per step; ``--kernel-variant persistent --deep-halo K``
-runs one whole-chunk kernel per K steps over radius-K halos.
+runs one whole-chunk kernel per K steps over radius-K halos. ``--wire-dtype
+bfloat16`` (or ``float8_e4m3fn``, ``float16``) narrows the halo messages
+that cross between mesh positions, in the plain and the fused mesh paths
+(a no-op on one device; the persistent variant over a mesh refuses it).
 
 Not carried over yet (ROADMAP.md queue A): the live sentinel and status
-file, autotuning, replanning, ParaView dumps and wire compression.
+file, autotuning, replanning and ParaView dumps.
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ def run(
     kernel_variant: Optional[str] = None,
     partition=None,
     devices=None,
+    wire_dtype: Optional[str] = None,
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 0,
     ckpt_keep: int = 3,
@@ -122,7 +126,8 @@ def run(
     which may repeat one card) runs a mesh of that many block positions,
     one block each (``DistributedDomain.set_devices``), and grows the
     domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``,
-    with or without a kernel variant.
+    with or without a kernel variant. ``wire_dtype`` narrows the halo
+    messages crossing between positions (``DistributedDomain.set_wire_dtype``).
 
     The guarded loop (see the module docstring): ``health_every`` (0 = off)
     and ``max_abs`` set the health check, ``max_rollbacks`` and
@@ -158,6 +163,8 @@ def run(
     dd.set_methods(method)
     dd.set_fused_exchange(fused)
     dd.set_persistent_exchange(kernel_variant == "persistent")
+    if wire_dtype:
+        dd.set_wire_dtype(wire_dtype)
     if partition is not None:
         dd.set_partition(partition)
     h = dd.add_data("temperature", "float32")
@@ -393,6 +400,11 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--devices", type=str, default=None,
                    help="comma list of torch devices, one block position each, "
                         "repeats allowed (e.g. cuda:0,cuda:0); needs --method remote-dma")
+    p.add_argument("--wire-dtype", type=str, default="",
+                   help="on-the-wire halo compression (bfloat16 or the fp8 "
+                        "tier float8_e4m3fn; also float16): wire-crossing "
+                        "exchange carriers narrow to this dtype (LOSSY — "
+                        "halos round to the wire precision)")
     add_guard_flags(p)
     args = p.parse_args(argv)
     if args.fused and args.kernel_variant == "persistent":
@@ -406,7 +418,7 @@ def main(argv: Optional[list] = None) -> int:
                 device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo,
                 fused=args.fused, kernel_variant=args.kernel_variant,
                 devices=args.devices.split(",") if args.devices else None,
-                **guard_kwargs(args))
+                wire_dtype=args.wire_dtype or None, **guard_kwargs(args))
     except RecoveryExhausted as e:
         # the evidence bundle is on disk; the distinct rc tells a revival
         # ladder "numerics broken" from a crash

@@ -35,6 +35,13 @@
 // one word a lane. Stores go straight into the destination's halo: no
 // landing buffer, no unpack.
 //
+// The wire_dtype form (make_fused_exchange_kernel's narrow staging, :118):
+// the segments of crossing directions (the plan's `crossing`; both x faces
+// share one axis, so one flag) round each word through the wire in registers
+// between load and store (wire_round.cuh); self-wrap hand-offs stay bit
+// copies. Rounding is idempotent, so this equals B6's composed phases with
+// the same wire bit for bit.
+//
 // Ordering: every message reads only compute cells, which no message
 // writes, and writes only halo cells, each by exactly one message; so one
 // launch needs no order among its threads. Positions on distinct GPUs will
@@ -47,10 +54,12 @@
 // ptrs: device table of (sender block, block at sender + the group's
 // direction) pointer rows, m rows per group of the work list; segs: device
 // table of nseg work-list rows (row_moves.cuh), their tasks ending at
-// `tasks`; elem_size: 4 or 8; sz / sy: the padded block's plane and row
-// strides in words. Launches on the current device, where every block lies.
+// `tasks`; elem_size: 4 or 8; wire: the wire code (wire_round.cuh; 0 copies
+// bits), applied to the segments flagged narrow (the crossing directions);
+// sz / sy: the padded block's plane and row strides in words. Launches on
+// the current device, where every block lies.
 extern "C" int fused_exchange_launch(const void* ptrs, int m, const void* segs, int nseg,
-                                     long long tasks, int elem_size, long long sz, long long sy,
-                                     void* stream) {
-  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, sz, sy, stream);
+                                     long long tasks, int elem_size, int wire, long long sz,
+                                     long long sy, void* stream) {
+  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, sz, sy, stream);
 }

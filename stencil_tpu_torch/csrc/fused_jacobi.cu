@@ -49,6 +49,15 @@
 // copies. The grid is every block that can be resident at once (occupancy x
 // SMs, with the ring's dynamic shared memory), and the z chunks are chosen for
 // that walk (zchunks_for).
+//
+// The narrowed wire (the TPU kernel's wire_dtype form, fused_stencil.py:292):
+// a launch takes one wire code W (wire_round.cuh; fp32 fields narrow to
+// bf16, fp16 or e4m3), and a segment flagged narrow (its box crosses between
+// positions) rounds each word of a unit between phase A's load and its store:
+// the TPU kernel's narrow staging and widening unpack, in registers, in the
+// same launch. W = NONE is the unnarrowed kernel, unchanged: the rounding is
+// compiled only into the W != NONE instantiations. One block has no
+// crossing box, so its form launches W = NONE.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,13 +66,14 @@
 
 #include "mesh_chunk.cuh"
 #include "sweep_runs.cuh"
+#include "wire_round.cuh"
 
 namespace {
 
 using jacobi::MeshMessage;
 using jacobi::MeshPosition;
 
-constexpr int SEG_COLS = 9;             // int64 columns of a work-list row
+constexpr int SEG_COLS = 10;            // int64 columns of a work-list row
 constexpr int MAX_SEGS = 26 * 3;        // a box splits into at most a head, a body and a tail
 constexpr int UNROLL = 4;               // units a thread loads before it stores
 constexpr int TASK = runs::NT * UNROLL;  // units of one task
@@ -71,9 +81,10 @@ constexpr int TASK = runs::NT * UNROLL;  // units of one task
 // One segment of the work list: `rows` rows of one message box (ey a plane),
 // each `units` units of `width` words, the first unit of the first row at
 // offset src (source) and dst (destination) of a position's block; `chunks`
-// tasks per message, the segments before it `start` tasks over all messages.
+// tasks per message, the segments before it `start` tasks over all messages;
+// `narrow` set where the box's words round through the launch's wire.
 struct RowSeg {
-  long long box, src, dst, units, width, ey, rows, chunks, start;
+  long long box, src, dst, units, width, ey, rows, chunks, start, narrow;
 };
 static_assert(sizeof(RowSeg) == SEG_COLS * sizeof(long long), "a work-list row");
 
@@ -86,8 +97,9 @@ struct Step {
   runs::Geometry g;
 };
 
-// Units i0 + u * NT (u < UNROLL, below n) of a segment, V a unit.
-template <typename V>
+// Units i0 + u * NT (u < UNROLL, below n) of a segment, V a unit, WIRE the
+// wire.
+template <typename V, int WIRE>
 __device__ __forceinline__ void move_units(const float* src, float* dst, const RowSeg& s,
                                            unsigned n, unsigned i0, long long sz, int sy) {
   constexpr int WORDS = sizeof(V) / sizeof(float);
@@ -102,6 +114,9 @@ __device__ __forceinline__ void move_units(const float* src, float* dst, const R
       const unsigned rz = r / ey, ry = r - rz * ey;
       off[u] = (long long)rz * sz + (long long)ry * sy + x * WORDS;
       v[u] = __ldcg(reinterpret_cast<const V*>(src + off[u]));
+      if constexpr (WIRE != wire::NONE) {
+        if (s.narrow) v[u] = wire::narrow<WIRE>(v[u]);
+      }
     }
   }
 #pragma unroll
@@ -110,6 +125,7 @@ __device__ __forceinline__ void move_units(const float* src, float* dst, const R
 }
 
 // Phase A: every task of the work list, the blocks taking tasks in turn.
+template <int WIRE>
 __device__ __forceinline__ void move_rows(const Step& s) {
   for (long long t = blockIdx.x; t < s.tasks; t += gridDim.x) {
     int lo = 0, hi = s.nseg - 1;
@@ -126,15 +142,16 @@ __device__ __forceinline__ void move_rows(const Step& s) {
     float* dst = s.pos[msg.dst].a + seg.dst;
     const unsigned n = (unsigned)(seg.rows * seg.units);
     const unsigned i0 = (unsigned)((k - j * seg.chunks) * TASK) + threadIdx.x;
-    if (seg.width == 4) move_units<float4>(src, dst, seg, n, i0, s.g.sz, s.g.sy);
-    else move_units<float>(src, dst, seg, n, i0, s.g.sz, s.g.sy);
+    if (seg.width == 4) move_units<float4, WIRE>(src, dst, seg, n, i0, s.g.sz, s.g.sy);
+    else move_units<float, WIRE>(src, dst, seg, n, i0, s.g.sz, s.g.sy);
   }
 }
 
+template <int WIRE>
 __global__ void __launch_bounds__(runs::NT, runs::MIN_BLOCKS)
 fused_step_kernel(const __grid_constant__ Step s) {
   extern __shared__ __align__(16) float smem[];
-  move_rows(s);
+  move_rows<WIRE>(s);
   cooperative_groups::this_grid().sync();
   const int per_pos = s.g.gx * s.g.gy * s.g.nzc;
   const int tiles = per_pos * s.npos;
@@ -163,8 +180,19 @@ int zchunks_for(long long cols, int nz, long long blocks) {
   return best;
 }
 
-cudaError_t occupancy(int* per_sm) {
-  return jacobi::mesh_chunk_occupancy(fused_step_kernel, runs::NT, (size_t)runs::SMEM, per_sm);
+// The kernel of a wire code, or null for one fp32 fields do not take.
+const void* kernel_for(int w) {
+  switch (w) {
+    case wire::NONE: return (const void*)fused_step_kernel<wire::NONE>;
+    case wire::BF16: return (const void*)fused_step_kernel<wire::BF16>;
+    case wire::F16: return (const void*)fused_step_kernel<wire::F16>;
+    case wire::E4M3: return (const void*)fused_step_kernel<wire::E4M3>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t occupancy(const void* kernel, int* per_sm) {
+  return jacobi::mesh_chunk_occupancy(kernel, runs::NT, (size_t)runs::SMEM, per_sm);
 }
 
 }  // namespace
@@ -176,21 +204,24 @@ cudaError_t occupancy(int* per_sm) {
 // every block a contiguous padded fp32 array with plane stride sz and row
 // stride sy, compute region at (zo, yo, xo) of nz x ny x nx cells, halos of
 // at least one cell; vec: every pointer on the 16-byte grid and sz, sy
-// multiples of 4; dev: the device of every block. A launch the device
-// refuses returns its error; there is no fallback.
+// multiples of 4; w: the wire code (wire_round.cuh; 0 copies bits) of the
+// segments flagged narrow; dev: the device of every block. A launch the
+// device refuses returns its error; there is no fallback.
 extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, int m,
                                    const void* segs, int nseg, int seg_cols, long long tasks,
                                    long long sz, long long sy, int zo, int yo, int xo, int nz,
-                                   int ny, int nx, int vec, int dev, void* stream) {
+                                   int ny, int nx, int vec, int w, int dev, void* stream) {
+  const void* kernel = kernel_for(w);
   if (npos < 1 || m < 1 || nseg < 1 || nseg > MAX_SEGS || seg_cols != SEG_COLS || tasks < 1 ||
       tasks > INT_MAX || nz < 1 || ny < 1 || nx < 1 || zo < 1 || yo < 1 || xo < 1 ||
-      sz >= (1LL << 31) || sy < xo + nx + 1 || sz < sy * (yo + ny + 1) || (vec != 0 && vec != 1))
+      sz >= (1LL << 31) || sy < xo + nx + 1 || sz < sy * (yo + ny + 1) || (vec != 0 && vec != 1) ||
+      !kernel)
     return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
   int sms = 0, per_sm = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = occupancy(&per_sm);
+  if (e == cudaSuccess) e = occupancy(kernel, &per_sm);
   if (e != cudaSuccess) return (int)e;
   if (per_sm * sms < 1) return (int)cudaErrorInvalidConfiguration;
   Step s;
@@ -220,22 +251,24 @@ extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, i
   g.vec = vec;
   if (cols * g.nzc > INT_MAX) return (int)cudaErrorInvalidValue;
   void* args[] = {&s};
-  e = cudaLaunchCooperativeKernel((const void*)fused_step_kernel, dim3(per_sm * sms),
+  e = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * sms),
                                   dim3(runs::NT), args, (size_t)runs::SMEM,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The kernel on device dev: r[0..4] = resident blocks per SM, registers per
-// thread, local (spill) bytes per thread, threads per block, dynamic shared
-// memory bytes.
-extern "C" int fused_jacobi_info(int dev, int* r) {
+// The kernel of wire code w on device dev: r[0..4] = resident blocks per SM,
+// registers per thread, local (spill) bytes per thread, threads per block,
+// dynamic shared memory bytes.
+extern "C" int fused_jacobi_info(int dev, int w, int* r) {
+  const void* kernel = kernel_for(w);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
-  cudaError_t e = occupancy(&r[0]);
+  cudaError_t e = occupancy(kernel, &r[0]);
   cudaFuncAttributes a;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fused_step_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return (int)e;
   r[1] = a.numRegs;
   r[2] = (int)a.localSizeBytes;

@@ -24,7 +24,7 @@
 //     partner).
 //
 // A segment's table row (COLS int64): group, src, dst, split, src2, dst2,
-// end, units, width, ey, rows, chunks, start. Row r of the segment lies
+// end, units, width, ey, rows, chunks, start, narrow. Row r of the segment lies
 // (r / ey) * sz + (r % ey) * sy words past its first row and takes `units`
 // units; unit k < split of a row copies words src + k * width.. of block P
 // into dst + .. of block Q, unit split <= k < end words
@@ -52,6 +52,14 @@
 // is read and written in one launch: units run in any order, and the sources
 // go through the read-only path. The kernel copies bits: T is the word
 // (unsigned int for fp32, unsigned long long for fp64).
+//
+// The narrowed wire (wire_round.cuh): a launch takes one wire code W, and a
+// segment whose `narrow` is set (its messages cross between positions; both
+// halves of a paired segment share one axis, so one flag) rounds every word
+// of a unit through the wire between its load and its store. W = NONE is the
+// bit copy, the same code as before the wire existed: the rounding is
+// compiled only into the W != NONE instantiations, and an integer group
+// always launches W = NONE.
 
 #pragma once
 
@@ -59,21 +67,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wire_round.cuh"
+
 namespace row_moves {
 
 constexpr int THREADS = 128;           // threads of a block
 constexpr int UNROLL = 1;              // units a thread loads before it stores
 constexpr int TASK = THREADS * UNROLL;  // units of one task
-constexpr int COLS = 13;               // int64 columns of a work-list row
+constexpr int COLS = 14;               // int64 columns of a work-list row
 
 struct Seg {
-  long long group, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start;
+  long long group, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start, narrow;
 };
 static_assert(sizeof(Seg) == COLS * sizeof(long long), "a work-list row");
 
 // Units i0 + u * THREADS (u < UNROLL, below n) of segment s between blocks p
-// and q; T a word, V a unit (T itself or a 16-byte vector).
-template <typename T, typename V>
+// and q; T a word, V a unit (T itself or a 16-byte vector), WIRE the wire.
+template <typename T, typename V, int WIRE>
 __device__ __forceinline__ void move_units(unsigned long long p, unsigned long long q,
                                            const Seg& s, unsigned n, unsigned i0, long long sz,
                                            long long sy) {
@@ -98,6 +108,9 @@ __device__ __forceinline__ void move_units(unsigned long long p, unsigned long l
       to[u] = reinterpret_cast<V*>(reinterpret_cast<T*>(second ? p : q) + row + x +
                                    (second ? s.dst2 : s.dst));
       v[u] = __ldg(reinterpret_cast<const V*>(from));
+      if constexpr (WIRE != wire::NONE) {
+        if (s.narrow) v[u] = wire::narrow_unit<T, WIRE>(v[u]);
+      }
     }
   }
 #pragma unroll
@@ -105,7 +118,7 @@ __device__ __forceinline__ void move_units(unsigned long long p, unsigned long l
     if (live[u]) *to[u] = v[u];
 }
 
-template <typename T>
+template <typename T, int WIRE>
 __global__ void __launch_bounds__(THREADS)
 move_rows_kernel(const unsigned long long* __restrict__ ptrs, int m,
                  const Seg* __restrict__ segs, int nseg, long long sz, long long sy) {
@@ -122,29 +135,69 @@ move_rows_kernel(const unsigned long long* __restrict__ ptrs, int m,
   const long long row = 2 * (s.group * m + j);
   const unsigned n = (unsigned)(s.rows * s.units);
   const unsigned i0 = (unsigned)(c * TASK) + threadIdx.x;
-  if (s.width == 1) move_units<T, T>(ptrs[row], ptrs[row + 1], s, n, i0, sz, sy);
-  else move_units<T, uint4>(ptrs[row], ptrs[row + 1], s, n, i0, sz, sy);
+  if (s.width == 1) move_units<T, T, WIRE>(ptrs[row], ptrs[row + 1], s, n, i0, sz, sy);
+  else move_units<T, uint4, WIRE>(ptrs[row], ptrs[row + 1], s, n, i0, sz, sy);
+}
+
+// The kernel of one word size and wire, or null for a pair it does not
+// take: fp32 words narrow to bf16, fp16 or e4m3, fp64 words also to fp32.
+template <typename T>
+inline const void* kernel_for(int w) {
+  switch (w) {
+    case wire::NONE: return (const void*)move_rows_kernel<T, wire::NONE>;
+    case wire::BF16: return (const void*)move_rows_kernel<T, wire::BF16>;
+    case wire::F16: return (const void*)move_rows_kernel<T, wire::F16>;
+    case wire::E4M3: return (const void*)move_rows_kernel<T, wire::E4M3>;
+    default: return nullptr;
+  }
+}
+
+template <>
+inline const void* kernel_for<unsigned long long>(int w) {
+  switch (w) {
+    case wire::NONE: return (const void*)move_rows_kernel<unsigned long long, wire::NONE>;
+    case wire::BF16: return (const void*)move_rows_kernel<unsigned long long, wire::BF16>;
+    case wire::F16: return (const void*)move_rows_kernel<unsigned long long, wire::F16>;
+    case wire::E4M3: return (const void*)move_rows_kernel<unsigned long long, wire::E4M3>;
+    case wire::F32: return (const void*)move_rows_kernel<unsigned long long, wire::F32>;
+    default: return nullptr;
+  }
+}
+
+inline const void* kernel_for(int elem_size, int w) {
+  if (elem_size == 4) return kernel_for<unsigned int>(w);
+  if (elem_size == 8) return kernel_for<unsigned long long>(w);
+  return nullptr;
 }
 
 // One launch over the work list, one block a task, on the current device:
 // ptrs a device table of (P, Q) pointer rows, m per group; segs a device
 // table of nseg work-list rows whose tasks end at `tasks`; elem_size the word
-// in bytes (4 or 8); sz / sy the blocks' plane and row strides in words.
+// in bytes (4 or 8); w the wire code (wire::NONE for the bit copy); sz / sy
+// the blocks' plane and row strides in words.
 inline int launch(const void* ptrs, int m, const void* segs, int nseg, long long tasks,
-                  int elem_size, long long sz, long long sy, void* stream) {
-  if (m < 0 || nseg < 1 || tasks < 0 || tasks > INT_MAX || sz < 0 || sy < 0 ||
-      (elem_size != 4 && elem_size != 8))
+                  int elem_size, int w, long long sz, long long sy, void* stream) {
+  const void* kernel = kernel_for(elem_size, w);
+  if (m < 0 || nseg < 1 || tasks < 0 || tasks > INT_MAX || sz < 0 || sy < 0 || !kernel)
     return (int)cudaErrorInvalidValue;
   if (tasks == 0 || m == 0) return 0;
-  const unsigned long long* p = (const unsigned long long*)ptrs;
-  const Seg* s = (const Seg*)segs;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (elem_size == 4)
-    move_rows_kernel<unsigned int><<<(unsigned)tasks, THREADS, 0, st>>>(p, m, s, nseg, sz, sy);
-  else
-    move_rows_kernel<unsigned long long><<<(unsigned)tasks, THREADS, 0, st>>>(p, m, s, nseg, sz,
-                                                                              sy);
-  return (int)cudaGetLastError();
+  void* args[] = {(void*)&ptrs, &m, (void*)&segs, &nseg, &sz, &sy};
+  cudaError_t e = cudaLaunchKernel(kernel, dim3((unsigned)tasks), dim3(THREADS), args, 0,
+                                   (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The instantiation of one word size and wire on the current device: r[0..1]
+// = registers and local (spill) bytes per thread.
+inline int info(int elem_size, int w, int* r) {
+  const void* kernel = kernel_for(elem_size, w);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  r[0] = a.numRegs;
+  r[1] = (int)a.localSizeBytes;
+  return 0;
 }
 
 }  // namespace row_moves

@@ -22,6 +22,15 @@ receiver halo cells, so all of them may run at once:
   distinct GPUs will need each launch to wait on its neighbours' previous
   reads (an event per neighbour); ROADMAP.md queue A item 5.
 
+A narrowed wire (``wire=``, the JAX package's ``wire_dtype``) rounds each
+floating word of a crossing direction's message (the plan's ``crossing``)
+through the wire between its load and its store
+(``csrc/wire_round.cuh``; plain: ``halo_fill.wire_round``); a self-wrap
+message stays a bit copy. Rounding is idempotent, so this direct form
+equals the composed exchange (B6) with the same wire bit for bit, as in the
+JAX package. The fused step takes the same wire over a mesh (its fields
+are fp32); on one block nothing crosses.
+
 The fused step (the TPU's ``make_fused_jacobi_kernel``) has two forms, and
 one kernel body, ``csrc/fused_jacobi.cu``, runs both: one cooperative launch
 per step moves every message into the destination position's halos
@@ -51,7 +60,8 @@ source, so the CPU tests hold them to the plain version.
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
 ``fused_jacobi.launches``, ``fused_jacobi_mesh.launches`` and
-``fused_exchange.launches``.
+``fused_exchange.launches``, those through a narrowed wire also in
+``fused_jacobi_mesh.narrowed`` and ``fused_exchange.narrowed``.
 """
 
 from __future__ import annotations
@@ -65,7 +75,7 @@ import torch
 from ..domain.grid import GridSpec
 from ..geometry import Dim3
 from . import _native, row_moves
-from .halo_fill import dtype_groups
+from .halo_fill import dtype_groups, wire_code, wire_round
 from .remote_dma import _check_mesh_blocks
 from .row_moves import message_rows
 from .stencil_kernels import _check_block, _device_of, sweep_plain
@@ -161,17 +171,18 @@ def _messages(plan, mesh):
     return [(ph, mesh.destinations(ph.direction)) for ph in plan.fused_phases]
 
 
-def fused_exchange_plain(blocks_by_position, spec: GridSpec, plan, mesh):
+def fused_exchange_plain(blocks_by_position, spec: GridSpec, plan, mesh, wire=None):
     """Every message of the fused plan in plain PyTorch, direction by
     direction and position by position: each block's compute box on the
     ``d`` side -> the ``-d`` side halo box of the block at position + d,
-    for every quantity of the group. In place; returns
-    ``blocks_by_position``."""
+    for every quantity of the group, a crossing message through the
+    narrowed ``wire`` when one is given (``halo_fill.wire_round``). In
+    place; returns ``blocks_by_position``."""
     for ph, dests in _messages(plan, mesh):
         s, d = box_slices(ph.src, ph.dst, ph.shape)
         for i, j in enumerate(dests):
             for src, dst in zip(blocks_by_position[i], blocks_by_position[j]):
-                dst[d] = src[s]
+                dst[d] = wire_round(src[s], wire) if ph.crossing else src[s]
     return blocks_by_position
 
 
@@ -183,45 +194,51 @@ def _x_face_pairs(steps):
     return ()
 
 
-def fused_exchange_work(plan, spec: GridSpec, vec: bool, word: int,
-                        m: int) -> row_moves.MoveWork:
+def fused_exchange_work(plan, spec: GridSpec, vec: bool, word: int, m: int,
+                        narrow: bool = False) -> row_moves.MoveWork:
     """The fused exchange's work list for ``m`` instances (positions x
     quantities) of ``word``-byte words: the plan's direction boxes by rows
     (:func:`message_rows`, the rows B8's phase A moves), the +x and -x
     faces as one paired segment, each box sent by a position to the
-    position + its direction."""
+    position + its direction; with ``narrow`` the crossing boxes' segments
+    round through the wire."""
     p = spec.padded()
     boxes = tuple((ph.src, ph.dst, ph.shape) for ph in plan.fused_phases)
     steps = tuple(ph.direction for ph in plan.fused_phases)
     return row_moves.move_work(boxes, steps, p.y * p.x, p.x, vec, word,
-                               _x_face_pairs(steps), m)
+                               _x_face_pairs(steps), m,
+                               tuple(narrow and ph.crossing for ph in plan.fused_phases))
 
 
-def fused_exchange(blocks_by_position, spec: GridSpec, plan, mesh):
+def fused_exchange(blocks_by_position, spec: GridSpec, plan, mesh, wire=None):
     """The fused exchange (see :func:`fused_exchange_plain`) of a same-dtype
     group: ``blocks_by_position[i]`` is the group's list of padded blocks at
     position ``i`` of ``mesh``, every position on the mesh's one device;
-    ``plan`` is the remote-dma fused plan of ``spec`` on ``mesh``. CPU
-    tensors take :func:`fused_exchange_plain`; CUDA tensors launch
+    ``plan`` is the remote-dma fused plan of ``spec`` on ``mesh``; ``wire``
+    the narrowed wire dtype or None. CPU tensors take
+    :func:`fused_exchange_plain`; CUDA tensors launch
     ``csrc/fused_exchange.cu`` once for every message (the work list of
-    :func:`fused_exchange_work`), or raise. In place; returns
-    ``blocks_by_position``."""
+    :func:`fused_exchange_work`, with the wire's code for the group's
+    dtype), or raise. In place; returns ``blocks_by_position``."""
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
     _check_plan(plan, mesh)
     if dev.type == "cpu":
-        return fused_exchange_plain(blocks_by_position, spec, plan, mesh)
+        return fused_exchange_plain(blocks_by_position, spec, plan, mesh, wire)
     p = spec.padded()
+    code = wire_code(blocks_by_position[0][0].dtype, wire)
     rc = row_moves.launch_moves(
         _native.lib("fused_exchange").fused_exchange_launch, "fused_exchange",
         (plan.fused_phases, p.y * p.x, p.x),
-        lambda vec, word, m: fused_exchange_work(plan, spec, vec, word, m), blocks_by_position,
-        mesh, p.y * p.x, p.x, dev)
+        lambda vec, word, m: fused_exchange_work(plan, spec, vec, word, m, code != 0),
+        blocks_by_position, mesh, p.y * p.x, p.x, dev, code)
     _native.check(rc, "fused_exchange")
     fused_exchange.launches += 1
+    fused_exchange.narrowed += code != 0
     return blocks_by_position
 
 
 fused_exchange.launches = 0
+fused_exchange.narrowed = 0  # the launches through a narrowed wire
 
 
 def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh) -> torch.device:
@@ -276,7 +293,7 @@ FUSED_TILE = (128, 8)
 FUSED_LOOK = 4
 FUSED_MIN_BLOCKS = 3
 ROW_UNROLL = 4
-SEG_COLS = 9
+SEG_COLS = 10
 MAX_SEGS = 26 * 3
 
 
@@ -326,83 +343,97 @@ def fused_zchunks(spec: GridSpec, positions: int, blocks: int) -> int:
     return min(range(1, max(1, nz // 4) + 1), key=lambda n: (steps(n), n))
 
 
-def fused_info(index: int) -> dict:
-    """What the fused step kernel reports on CUDA device ``index``: resident
-    blocks per SM, registers and local (spill) bytes per thread, threads and
-    dynamic shared memory per block."""
+def fused_info(index: int, wire: int = 0) -> dict:
+    """What the fused step kernel's instantiation for the wire code ``wire``
+    (``halo_fill.wire_code`` of fp32 data; 0 copies bits) reports on CUDA
+    device ``index``: resident blocks per SM, registers and local (spill)
+    bytes per thread, threads and dynamic shared memory per block."""
     r = (ctypes.c_int * 5)()
-    _native.check(_native.lib("fused_jacobi").fused_jacobi_info(index, r), "fused_jacobi_info")
+    _native.check(_native.lib("fused_jacobi").fused_jacobi_info(index, wire, r),
+                  "fused_jacobi_info")
     return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
 
 
 @functools.lru_cache(maxsize=64)
-def row_table(boxes, sz: int, sy: int, vec: bool, messages: int):
+def row_table(boxes, sz: int, sy: int, vec: bool, messages: int, narrow=()):
     """``(rows, tasks)``: :func:`message_rows` as the kernel's table, one
     row of ``SEG_COLS`` ints a segment (box, src, dst, units, width, ey,
     rows, tasks per message, tasks before it over all ``messages`` messages
-    of a box), and the tasks in all."""
+    of a box, narrow: 1 where the box's words round through the wire, from
+    ``narrow``, one bool a box, empty for none), and the tasks in all."""
     task = fused_shape()["task_units"]
+    flags = row_moves.narrow_flags(narrow, len(boxes))
     rows, start = [], 0
     for s in message_rows(boxes, sz, sy, vec):
         chunks = -(-(s.rows * s.units) // task)
-        rows.append((s.box, s.src, s.dst, s.units, s.width, s.ey, s.rows, chunks, start))
+        rows.append((s.box, s.src, s.dst, s.units, s.width, s.ey, s.rows, chunks, start,
+                     int(flags[s.box])))
         start += messages * chunks
     if not 1 <= len(rows) <= MAX_SEGS:
         raise ValueError(f"{len(rows)} work-list segments outside [1, {MAX_SEGS}]")
     return tuple(rows), start
 
 
-def _launch_fused(currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev) -> int:
+def _launch_fused(currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev, narrow=(),
+                  wire: int = 0) -> int:
     """One launch of ``csrc/fused_jacobi.cu`` over every position (one per
     ``currs`` entry), every message box ``b`` sent by position ``i`` to
-    ``dests_by_box[b][i]``; returns the CUDA error code."""
+    ``dests_by_box[b][i]``, the boxes flagged in ``narrow`` through the wire
+    code ``wire``; returns the CUDA error code."""
     pos, msg = mesh_tables(currs, nxts, sels, dests_by_box, dev)
     p, off, b = spec.padded(), spec.compute_offset(), spec.base
     sz, sy = p.y * p.x, p.x
     align = min(t.data_ptr() & -t.data_ptr() for t in (*currs, *nxts, *sels))
     vec = align % 16 == 0 and sz % 4 == 0 and sy % 4 == 0
     boxes = tuple((tuple(s), tuple(d), tuple(e)) for s, d, e in boxes)
-    rows, tasks = row_table(boxes, sz, sy, vec, len(currs))
+    rows, tasks = row_table(boxes, sz, sy, vec, len(currs), tuple(narrow))
     segs = _native.device_table(("fused_rows", rows), lambda: [v for row in rows for v in row],
                                 dev)
     return _native.lib("fused_jacobi").fused_jacobi_launch(
         pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), segs.data_ptr(), len(rows),
-        SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec), dev.index,
+        SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec), wire, dev.index,
         _native.stream_ptr(dev))
 
 
-def fused_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, plan, mesh):
+def fused_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, plan, mesh, wire=None):
     """One fused step over a mesh in plain PyTorch: every position's
     ``curr`` halos <- the fused plan's messages (:func:`fused_exchange_plain`,
-    in place), then each position's ``nxt`` compute region <- the sweep of
-    its ``curr`` reading those halos. Returns ``(currs, nxts)``."""
-    fused_exchange_plain([[c] for c in currs], spec, plan, mesh)
+    in place, the crossing ones through ``wire``), then each position's
+    ``nxt`` compute region <- the sweep of its ``curr`` reading those halos.
+    Returns ``(currs, nxts)``."""
+    fused_exchange_plain([[c] for c in currs], spec, plan, mesh, wire)
     bspec = spec.block_spec()
     for c, n, s in zip(currs, nxts, sels):
         sweep_plain(c, n, s, bspec, NO_WRAP)
     return currs, nxts
 
 
-def fused_jacobi_mesh(currs, nxts, sels, spec: GridSpec, plan, mesh):
+def fused_jacobi_mesh(currs, nxts, sels, spec: GridSpec, plan, mesh, wire=None):
     """One fused step of every position of ``mesh`` (see
     :func:`fused_jacobi_mesh_plain`), in place: lists of one padded block of
     ``spec`` per position, every position on the mesh's one device; ``plan``
-    is the remote-dma fused plan of ``spec`` on ``mesh``. CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/fused_jacobi.cu`` once
-    for every position, or raise. Returns ``(currs, nxts)``."""
+    is the remote-dma fused plan of ``spec`` on ``mesh``; ``wire`` the
+    narrowed wire dtype or None. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/fused_jacobi.cu`` once for every position (phase
+    A rounding the crossing boxes' words through the wire), or raise.
+    Returns ``(currs, nxts)``."""
     dev = check_mesh_fields(currs, nxts, sels, spec, mesh)
     require_face_radius(spec)
     messages = _messages(plan, mesh)
     if dev.type == "cpu":
-        return fused_jacobi_mesh_plain(currs, nxts, sels, spec, plan, mesh)
+        return fused_jacobi_mesh_plain(currs, nxts, sels, spec, plan, mesh, wire)
+    code = wire_code(torch.float32, wire)
     rc = _launch_fused(currs, nxts, sels, spec, [(ph.src, ph.dst, ph.shape) for ph, _ in messages],
-                       [dests for _ph, dests in messages], dev)
+                       [dests for _ph, dests in messages], dev,
+                       [code != 0 and ph.crossing for ph, _ in messages], code)
     _native.check(rc, "fused_jacobi_mesh")
     fused_jacobi_mesh.launches += 1
+    fused_jacobi_mesh.narrowed += code != 0
     return currs, nxts
 
 
 fused_jacobi_mesh.launches = 0
+fused_jacobi_mesh.narrowed = 0  # the launches through a narrowed wire
 
 
 def fused_jacobi_mesh_bytes(plan, positions: int, spec: GridSpec) -> int:
@@ -432,13 +463,15 @@ def fused_exchange_sector_bytes(plan, spec: GridSpec, nq: int, positions: int,
 
 class FusedRemoteDmaExchange:
     """The fused remote-dma transport of a ``HaloExchange(fused=True)`` over
-    a mesh: one :func:`fused_exchange` call per dtype group. ``state`` is
-    ``{key: [block per position]}``; in place."""
+    a mesh: one :func:`fused_exchange` call per dtype group, through the
+    exchange's wire. ``state`` is ``{key: [block per position]}``; in
+    place."""
 
     def __init__(self, ex):
         self.spec = ex.spec
         self.plan = ex.plan
         self.mesh = ex.mesh
+        self.wire = ex.wire_dtype
         # messages whose destination is another position, per dtype group
         self._crossing = sum(j != i for _ph, dests in _messages(self.plan, self.mesh)
                              for i, j in enumerate(dests))
@@ -448,6 +481,6 @@ class FusedRemoteDmaExchange:
         self.last_transfer_count = 0
         for _dt, keys in dtype_groups({k: blocks[0] for k, blocks in state.items()}):
             blocks = [[state[k][i] for k in keys] for i in range(len(self.mesh))]
-            fused_exchange(blocks, self.spec, self.plan, self.mesh)
+            fused_exchange(blocks, self.spec, self.plan, self.mesh, self.wire)
             self.last_transfer_count += self._crossing
         return state

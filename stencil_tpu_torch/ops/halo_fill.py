@@ -23,6 +23,15 @@ exchange stacks the residents of any residency this way.
 :func:`fill_layout` is what the kernel is told: the fill of one axis as two
 copies (runs) repeated over instances, and the vector width that divides
 them. It is pure Python, so the CPU tests hold it to the plain fill.
+
+The narrowed wire (``wire_dtype``, the JAX package's bf16-on-the-wire
+compression and its fp8 tier) is owned here too: :func:`wire_narrow_dtype`
+is the policy (only a floating carrier narrows, only to a strictly narrower
+floating wire; never an integer quantity, never a bitcast), :func:`wire_round`
+the plain version of a crossing word's narrow-then-widen, and
+:data:`WIRE_CODES` the codes the exchange kernels take
+(``csrc/wire_round.cuh``). The self-wrap fill never narrows: it copies inside
+one position.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,6 +73,103 @@ def pack_slabs(slabs: Sequence[torch.Tensor]) -> torch.Tensor:
 def unpack_slabs(carrier: torch.Tensor, nq: int) -> List[torch.Tensor]:
     """Inverse of :func:`pack_slabs`, including the Q=1 degeneration."""
     return [carrier] if nq == 1 else [carrier[q] for q in range(nq)]
+
+
+# the wire dtypes the kernels narrow through, by their code in
+# csrc/wire_round.cuh (0 is no narrowing); float32 narrows fp64 data only
+WIRE_CODES = {"bfloat16": 1, "float16": 2, "float8_e4m3fn": 3, "float32": 4}
+
+# (mantissa bits, least normal exponent, largest finite value, overflow to
+# +-inf or else to NaN) of the wires rounded by hand: once, from fp64
+_ROUNDED = {"float16": (10, -14, 65504.0, True), "float8_e4m3fn": (3, -6, 448.0, False)}
+
+
+def _torch_dtype(dt) -> torch.dtype:
+    if isinstance(dt, torch.dtype):
+        return dt
+    t = getattr(torch, str(dt), None)
+    if not isinstance(t, torch.dtype):
+        raise ValueError(f"unknown dtype {dt!r}")
+    return t
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def wire_name(wire) -> Optional[str]:
+    """The canonical name of a wire dtype (a torch dtype or its name), or
+    None for no wire (``None`` or ""). A floating wire the kernels cannot
+    round through raises ``NotImplementedError``; a non-floating one is a
+    no-op, as in the JAX package (nothing narrows to it)."""
+    if wire is None or wire == "":
+        return None
+    dt = _torch_dtype(wire)
+    name = _dtype_name(dt)
+    if dt.is_floating_point and name not in WIRE_CODES and dt != torch.float64:
+        raise NotImplementedError(
+            f"wire_dtype {name}: the port narrows through {', '.join(WIRE_CODES)} only "
+            "(other wire dtypes are ROADMAP.md queue B)")
+    return name
+
+
+def wire_narrow_dtype(native, wire) -> Optional[torch.dtype]:
+    """The dtype a wire-crossing carrier of ``native`` data travels as, or
+    None when it stays native (the JAX package's ``wire_narrow_dtype``):
+    both floating, and the wire strictly narrower than the data."""
+    name = wire_name(wire)
+    if name is None:
+        return None
+    native, w = _torch_dtype(native), _torch_dtype(name)
+    if not (native.is_floating_point and w.is_floating_point):
+        return None
+    if w.itemsize >= native.itemsize:
+        return None
+    return w
+
+
+def wire_code(native, wire) -> int:
+    """The kernels' code of ``wire`` for ``native`` data (0: no narrowing)."""
+    w = wire_narrow_dtype(native, wire)
+    return 0 if w is None else WIRE_CODES[_dtype_name(w)]
+
+
+def _round_once(t: torch.Tensor, fmt) -> torch.Tensor:
+    """``t`` rounded to nearest even into a format of ``fmt``
+    (:data:`_ROUNDED`) and widened back, in one rounding from fp64 (exact
+    for fp32 and fp64 data): the quantum of ``|x|``'s binade, or the
+    subnormal quantum below the least normal; overflow past the largest
+    finite value to +-inf or to NaN, as the JAX package's ``astype``."""
+    mant, emin, top, to_inf = fmt
+    x = t.to(torch.float64)
+    _m, e = torch.frexp(x)  # |x| = m 2^e, m in [0.5, 1)
+    q = torch.ldexp(torch.ones_like(x), (e - 1 - mant).clamp(min=emin - mant))
+    r = torch.round(x / q) * q  # half to even
+    bad = torch.full_like(r, math.nan)
+    over = torch.copysign(torch.full_like(r, math.inf), r) if to_inf else bad
+    r = torch.where(r.abs() > top, over, r)
+    r = torch.where(torch.isfinite(x), r, x if to_inf else bad)
+    return r.to(t.dtype)
+
+
+def wire_round(t: torch.Tensor, wire) -> torch.Tensor:
+    """Plain version of a crossing word's trip over the wire: ``t`` narrowed
+    to ``wire`` and widened back (``t`` itself when it does not narrow),
+    equal to the JAX package's ``x.astype(wire).astype(x.dtype)`` except
+    that IEEE subnormals are kept. fp32 wires (fp64 data) and bf16 wires
+    round through torch's ``.to``, bf16 from fp64 through fp32 (twice, as
+    the JAX package does); fp16 and fp8 (e4m3fn: overflow is NaN, not
+    saturation) round once from fp64 by hand, since torch rounds fp64
+    through fp32 and saturates fp8."""
+    w = wire_narrow_dtype(t.dtype, wire)
+    if w is None:
+        return t
+    name = _dtype_name(w)
+    if name in _ROUNDED:
+        return _round_once(t, _ROUNDED[name])
+    if w == torch.bfloat16:
+        return t.to(torch.float32).to(w).to(t.dtype)
+    return t.to(w).to(t.dtype)
 
 
 def axis_geom(spec: GridSpec, axis: str) -> Tuple[int, int, int, int]:

@@ -265,13 +265,14 @@ def _remote_loop(ex, iters: int, temporal_k):
 def _fused_loop(ex, iters: int, temporal_k):
     """Fused remote-dma: one fused step kernel per step (halo hand-offs into
     ``curr`` and the sweep into ``nxt``; over a mesh, every position's
-    messages and sweeps in one launch), then the swap."""
+    messages and sweeps in one launch, the crossing ones through the
+    exchange's wire), then the swap."""
     require_face_radius(ex.spec)
     _ignored(temporal_k, "the FUSED path runs one fused exchange+sweep substep per step")
     spec, plan, mesh = ex.spec, ex.plan, ex.mesh
     if ex.on_mesh:
         def step(curr, nxt, sel):
-            return fused_jacobi_mesh(curr, nxt, sel, spec, plan, mesh)
+            return fused_jacobi_mesh(curr, nxt, sel, spec, plan, mesh, ex.wire_dtype)
     else:
         def step(curr, nxt, sel):
             return fused_jacobi(curr, nxt, sel, spec, plan)

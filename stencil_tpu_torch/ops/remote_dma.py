@@ -19,6 +19,14 @@ straight into its ring neighbours' halos:
   adjacent lanes; the y and z phases' whole padded rows as 16-byte vectors;
 - :func:`remote_axis_plain` is the same copies by tensor slicing, position
   by position;
+- with a narrowed wire (``wire=``, the JAX package's ``wire_dtype``) every
+  slab a ring phase sends crosses between positions, so each of its
+  floating words is rounded through the wire between its load and its
+  store (``csrc/wire_round.cuh``; the plain version
+  ``halo_fill.wire_round``): the TPU kernel's narrow VMEM staging and
+  widening unpack, bit for bit, in the same one launch. An integer group
+  copies bits; an axis with one position is a self-wrap fill and never
+  narrows;
 - :class:`RemoteDmaExchange` is the transport of a ``HaloExchange`` over a
   mesh: ring phases through :func:`remote_axis`, an axis with one position
   through the fill kernel (``ops/halo_fill.self_fill``) on every position;
@@ -40,8 +48,9 @@ on distinct devices is refused.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
-``remote_axis.launches``. Not ported: the ``wire_dtype`` narrowing and the
-uneven ring's size table (ROADMAP.md queue B).
+``remote_axis.launches``, those through a narrowed wire also in
+``remote_axis.narrowed``. Not ported: the uneven ring's size table
+(ROADMAP.md queue B).
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ import torch
 
 from ..domain.grid import GridSpec
 from . import _native, row_moves
-from .halo_fill import MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, dtype_groups, self_fill
+from .halo_fill import (MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, dtype_groups, self_fill,
+                        wire_code, wire_round)
 
 
 def _check_mesh_blocks(blocks_by_position: Sequence[Sequence[torch.Tensor]], spec: GridSpec,
@@ -101,25 +111,26 @@ def _check_phase(spec: GridSpec, phase, mesh) -> None:
         raise ValueError(f"{phase.axis}-axis block size {n} < radius {max(rm, rp)}")
 
 
-def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh):
+def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
     """One axis phase in plain PyTorch, position by position: each block's
     hi slab ``[o + n - rm, o + n)`` along ``phase.axis`` -> its forward ring
     neighbour's lo halo ``[o - rm, o)``, its lo slab ``[o, o + rp)`` -> its
     backward neighbour's hi halo ``[o + n, o + n + rp)``, over the full
-    padded extent of the other axes, for every quantity of the group. In
-    place; returns ``blocks_by_position``."""
+    padded extent of the other axes, for every quantity of the group, each
+    slab through the narrowed ``wire`` when one is given
+    (``halo_fill.wire_round``). In place; returns ``blocks_by_position``."""
     o, n, rm, rp = axis_geom(spec, phase.axis)
     for i, pos in enumerate(mesh.positions()):
         bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(pos, phase.axis))
         for q, src in enumerate(blocks_by_position[i]):
             if rm:
                 dst = blocks_by_position[fwd][q]
-                dst[_axis_slice(dst, phase.axis, o - rm, o)] = \
-                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)]
+                dst[_axis_slice(dst, phase.axis, o - rm, o)] = wire_round(
+                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)], wire)
             if rp:
                 dst = blocks_by_position[bwd][q]
-                dst[_axis_slice(dst, phase.axis, o + n, o + n + rp)] = \
-                    src[_axis_slice(src, phase.axis, o, o + rp)]
+                dst[_axis_slice(dst, phase.axis, o + n, o + n + rp)] = wire_round(
+                    src[_axis_slice(src, phase.axis, o, o + rp)], wire)
     return blocks_by_position
 
 
@@ -145,42 +156,49 @@ def remote_axis_boxes(axis: str, geom, ext):
     return tuple(boxes), tuple(steps), pairs
 
 
-def remote_axis_work(spec: GridSpec, axis: str, vec: bool, word: int,
-                     m: int) -> row_moves.MoveWork:
+def remote_axis_work(spec: GridSpec, axis: str, vec: bool, word: int, m: int,
+                     narrow: bool = False) -> row_moves.MoveWork:
     """The phase's work list for ``m`` instances (positions x quantities)
     of ``word``-byte words: the slab boxes of :func:`remote_axis_boxes` by
     rows, the x phase's two slabs as one paired segment, the y and z
-    phases' whole padded rows as 16-byte vectors where ``vec``."""
+    phases' whole padded rows as 16-byte vectors where ``vec``; with
+    ``narrow`` every segment rounds through the wire (a ring phase's slabs
+    all cross)."""
     p = spec.padded()
     boxes, steps, pairs = remote_axis_boxes(axis, axis_geom(spec, axis), (p.z, p.y, p.x))
-    return row_moves.move_work(boxes, steps, p.y * p.x, p.x, vec, word, pairs, m)
+    return row_moves.move_work(boxes, steps, p.y * p.x, p.x, vec, word, pairs, m,
+                               (narrow,) * len(boxes))
 
 
-def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh):
+def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
     """One axis phase of the remote-dma exchange (see
     :func:`remote_axis_plain`) for a same-dtype group: ``blocks_by_position[i]``
     is the group's list of padded blocks at position ``i`` of ``mesh``
-    (flat order), every position on the mesh's one device. CPU tensors take
-    :func:`remote_axis_plain`; CUDA tensors launch ``csrc/remote_axis.cu``
-    once for every position and quantity (the work list of
-    :func:`remote_axis_work`), or raise. In place; returns
+    (flat order), every position on the mesh's one device; ``wire`` the
+    narrowed wire dtype or None. CPU tensors take :func:`remote_axis_plain`;
+    CUDA tensors launch ``csrc/remote_axis.cu`` once for every position and
+    quantity (the work list of :func:`remote_axis_work`, with the wire's
+    code for the group's dtype), or raise. In place; returns
     ``blocks_by_position``."""
     _check_phase(spec, phase, mesh)
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
     if dev.type == "cpu":
-        return remote_axis_plain(blocks_by_position, spec, phase, mesh)
+        return remote_axis_plain(blocks_by_position, spec, phase, mesh, wire)
     p = spec.padded()
+    code = wire_code(blocks_by_position[0][0].dtype, wire)
     geometry = (phase.axis, axis_geom(spec, phase.axis), (p.z, p.y, p.x))
     rc = row_moves.launch_moves(
         _native.lib("remote_axis").remote_axis_launch, "remote_axis", geometry,
-        lambda vec, word, m: remote_axis_work(spec, phase.axis, vec, word, m), blocks_by_position,
-        mesh, p.y * p.x, p.x, dev)
+        lambda vec, word, m: remote_axis_work(spec, phase.axis, vec, word, m, code != 0),
+        blocks_by_position, mesh, p.y * p.x, p.x, dev, code)
     _native.check(rc, f"remote_axis[{phase.axis}]")
     remote_axis.launches += 1
+    remote_axis.narrowed += code != 0
     return blocks_by_position
 
 
 remote_axis.launches = 0
+remote_axis.narrowed = 0  # the launches through a narrowed wire
 
 
 def remote_axis_bytes(spec: GridSpec, phase, nq: int, positions: int, itemsize: int) -> int:
@@ -217,13 +235,15 @@ def self_wrap_positions(state, keys, spec: GridSpec, axis: str) -> None:
 class RemoteDmaExchange:
     """The remote-dma transport of a ``HaloExchange`` over a mesh: the
     composed phases x -> y -> z, a ring phase as one :func:`remote_axis`
-    call per dtype group, an axis with one position as self-wrap fills.
-    ``state`` is ``{key: [block per position]}``; in place."""
+    call per dtype group (through the exchange's wire), an axis with one
+    position as self-wrap fills. ``state`` is ``{key: [block per
+    position]}``; in place."""
 
     def __init__(self, ex):
         self.spec = ex.spec
         self.plan = ex.plan
         self.mesh = ex.mesh
+        self.wire = ex.wire_dtype
         self.last_transfer_count = 0
 
     def __call__(self, state, axes=None):
@@ -235,7 +255,7 @@ class RemoteDmaExchange:
             for _dt, keys in groups:
                 if phase.ring > 1:
                     blocks = [[state[k][i] for k in keys] for i in range(len(self.mesh))]
-                    remote_axis(blocks, self.spec, phase, self.mesh)
+                    remote_axis(blocks, self.spec, phase, self.mesh, self.wire)
                     self.last_transfer_count += len(self.mesh) * (
                         (phase.rm > 0) + (phase.rp > 0))
                 else:

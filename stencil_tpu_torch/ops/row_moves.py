@@ -17,9 +17,12 @@ cells into a box of a receiver block's halo; it moves by rows, and
   the same 32-byte sectors sit on adjacent lanes of one warp instruction.
 
 :func:`move_work` lays the segments out as the kernel's table
-(``MOVE_COLS`` int64 a row) over the pointer groups of the boxes' steps;
-:func:`launch_moves` uploads it with the pointer rows, once per geometry
-and set of block addresses, and launches a carrier's entry.
+(``MOVE_COLS`` int64 a row) over the pointer groups of the boxes' steps,
+each segment flagged ``narrow`` when its box's messages cross between
+positions under a narrowed wire (``csrc/wire_round.cuh``: the kernel rounds
+those words between load and store); :func:`launch_moves` uploads it with
+the pointer rows, once per geometry, wire and set of block addresses, and
+launches a carrier's entry with the launch's wire code.
 The launch shape (:func:`move_shape`) is mirrored from the header, so the
 CPU tests hold the work lists to the plain versions.
 """
@@ -37,7 +40,7 @@ from . import _native
 # csrc/row_moves.cuh: THREADS, UNROLL, COLS
 MOVE_THREADS = 128
 MOVE_UNROLL = 1
-MOVE_COLS = 13
+MOVE_COLS = 14
 WARP = 32
 VECTOR_BYTES = 16
 SECTOR_BYTES = 32
@@ -123,13 +126,22 @@ def row_lanes(units: int) -> int:
     return units if units > WARP else 1 << (units - 1).bit_length()
 
 
+def narrow_flags(narrow, nboxes: int) -> Tuple[bool, ...]:
+    """One bool a box, from ``narrow`` (one a box; empty: none narrows)."""
+    flags = tuple(bool(f) for f in narrow) or (False,) * nboxes
+    if len(flags) != nboxes:
+        raise ValueError(f"{len(flags)} narrow flags for {nboxes} boxes")
+    return flags
+
+
 @dataclass(frozen=True)
 class MoveWork:
     """A work list as the kernel reads it: ``rows``, one tuple of
     :data:`MOVE_COLS` ints a segment (group, src, dst, split, src2, dst2,
-    end, units, width, ey, rows, chunks, start), ``chunks`` tasks per
-    instance and ``start`` tasks before it over all ``m`` instances of its
-    group (task ``start + c * m + j`` is chunk ``c`` of instance ``j``);
+    end, units, width, ey, rows, chunks, start, narrow), ``chunks`` tasks
+    per instance and ``start`` tasks before it over all ``m`` instances of
+    its group (task ``start + c * m + j`` is chunk ``c`` of instance ``j``),
+    ``narrow`` 1 where the segment's words round through the wire;
     ``steps``, each pointer group's (dx, dy, dz) step; ``tasks`` in all."""
 
     rows: tuple
@@ -138,14 +150,21 @@ class MoveWork:
 
 
 @functools.lru_cache(maxsize=128)
-def move_work(boxes, steps, sz: int, sy: int, vec: bool, word: int, pairs, m: int) -> MoveWork:
+def move_work(boxes, steps, sz: int, sy: int, vec: bool, word: int, pairs, m: int,
+              narrow=()) -> MoveWork:
     """The work list of the ``(src, dst, shape)`` boxes, box ``b`` sent by
     each sender to the block at its position + ``steps[b]``, for ``m``
     instances (positions x quantities) a box. Every box that is not the
     partner of a pair has a pointer group; a partner's message reads the
     group's second block and writes its first. A paired row takes
-    :func:`row_lanes` units, so it lies in one warp instruction."""
+    :func:`row_lanes` units, so it lies in one warp instruction. ``narrow``
+    (one bool a box; empty: none) flags the boxes whose words round
+    through the wire; the two boxes of a pair share one flag."""
     segs = message_rows(boxes, sz, sy, vec, word, pairs)
+    flags = narrow_flags(narrow, len(boxes))
+    for a, b in pairs:
+        if flags[a] != flags[b]:
+            raise ValueError(f"paired boxes {a} and {b} must share their narrow flag")
     partners = {c for _b, c in pairs}
     own = [b for b in range(len(boxes)) if b not in partners]
     group = {b: g for g, b in enumerate(own)}
@@ -159,17 +178,19 @@ def move_work(boxes, steps, sz: int, sy: int, vec: bool, word: int, pairs, m: in
         chunks = -(-n // task)
         second = (s.split, s.src2, s.dst2) if s.partner >= 0 else (s.units, s.src, s.dst)
         rows.append((group[s.box], s.src, s.dst, *second, s.units, lanes, s.width, s.ey,
-                     s.rows, chunks, start))
+                     s.rows, chunks, start, int(flags[s.box])))
         start += m * chunks
     return MoveWork(tuple(rows), tuple(steps[b] for b in own), start)
 
 
 def launch_moves(entry, name: str, geometry, work_of, blocks_by_position, mesh, sz: int,
-                 sy: int, dev) -> int:
+                 sy: int, dev, wire: int = 0) -> int:
     """Call a carrier's C entry (``remote_axis_launch`` or
-    ``fused_exchange_launch``) for the group of ``blocks_by_position``;
+    ``fused_exchange_launch``) for the group of ``blocks_by_position`` with
+    the wire code ``wire`` (``halo_fill.wire_code``; 0 copies bits);
     ``work_of(vec, word, m)`` gives the work list of ``geometry`` (which,
-    with the mesh, the quantities and the word, must determine it). The
+    with the mesh, the quantities, the word and the wire, must determine
+    it). The
     first call for a geometry and set of block addresses chooses 16-byte
     units (every address and both strides on the 16-byte grid) and uploads
     one device table: the pointer rows, for each group's step and each
@@ -192,10 +213,10 @@ def launch_moves(entry, name: str, geometry, work_of, blocks_by_position, mesh, 
                     rows += [ptrs[i * nq + q], ptrs[dests[i] * nq + q]]
         table = _native.upload(rows + [v for row in work.rows for v in row], dev)
         segs = table.data_ptr() + 8 * len(rows)
-        return (table, len(ptrs), segs, len(work.rows), work.tasks, word, sz, sy)
+        return (table, len(ptrs), segs, len(work.rows), work.tasks, word, wire, sz, sy)
 
     table, *rest = _native.kept(
-        (str(dev), "row_moves", name, geometry, tuple(mesh.dim), nq, word, ptrs), make)
+        (str(dev), "row_moves", name, geometry, tuple(mesh.dim), nq, word, wire, ptrs), make)
     return entry(table.data_ptr(), *rest, _native.stream_ptr(dev))
 
 

@@ -44,6 +44,13 @@ forms, one launch over every position (``ops/jacobi.py``).
 The mesh's positions must share one device (the reference's
 ``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
 waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
+
+``wire_dtype`` (the JAX package's bf16-on-the-wire compression and its fp8
+tier) narrows what crosses between positions of a mesh: the carriers and
+the fused step round each crossing floating word through the wire
+(``ops/halo_fill.wire_narrow_dtype`` is the policy). On one device nothing
+crosses, so a single block or a resident partition takes it as a no-op, as
+the JAX package does on a one-device mesh.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, halo_extent
 from ..ops.fused_stencil import FusedRemoteDmaExchange, kernel_supported
 from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom, dtype_groups,
-                             self_fill)
+                             self_fill, wire_name)
 from ..ops.remote_dma import RemoteDmaExchange
 from ..plan.ir import build_plan
 from .mesh import DeviceMesh
@@ -93,7 +100,9 @@ class HaloExchange:
     ``fused`` or ``persistent`` kernel variant) on one block; or, with
     ``mesh`` of several positions, remote-dma over the mesh (the axis
     carrier, or the fused exchange carrier with ``fused``), again with
-    either kernel variant."""
+    either kernel variant. ``wire_dtype`` narrows the carriers crossing
+    between positions (a no-op on one device); the persistent variant
+    over a mesh refuses it."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
                  fused: bool = False, persistent: bool = False,
@@ -101,10 +110,7 @@ class HaloExchange:
         if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
             raise NotImplementedError(
                 f"{method}: the port has the axis-composed and remote-dma exchanges only")
-        if wire_dtype is not None:
-            raise NotImplementedError(
-                f"wire_dtype={wire_dtype!r}: narrowing the remote-dma carriers is ROADMAP.md "
-                "queue B (B6 and B7)")
+        self.wire_dtype = wire_name(wire_dtype)
         self.mesh = mesh if mesh is not None and len(mesh) > 1 else None
         if self.mesh is None:
             # one device holds every block: the mesh is (1,1,1)
@@ -129,6 +135,13 @@ class HaloExchange:
                     "fused and persistent are mutually exclusive kernel "
                     "variants (the persistent chunk at k == 1 IS the "
                     "fused substep)")
+            if self.wire_dtype and self.mesh is not None:
+                raise NotImplementedError(
+                    f"wire_dtype={self.wire_dtype} with the persistent variant over a mesh: "
+                    "the JAX package diverges here (on the TPU its chunk kernel has no wire "
+                    "form and narrows nothing; on the CPU its once-a-chunk deep exchange "
+                    "narrows), so the port matches neither (ROADMAP.md queue C, \"Design "
+                    "divergences\")")
         if (self.fused or self.persistent) and not kernel_supported(spec, self.resident):
             variant = "fused compute+exchange" if self.fused else "persistent whole-chunk"
             raise ValueError(
@@ -154,7 +167,8 @@ class HaloExchange:
         self.spec = spec
         self.method = method
         self.plan = build_plan(spec, mesh_dim, method, resident=self.resident,
-                               fused=self.fused, persistent=self.persistent)
+                               wire_dtype=self.wire_dtype, fused=self.fused,
+                               persistent=self.persistent)
         # device-program launches per k-step chunk of the last persistent
         # loop call, counted as the JAX package counts them (ops/jacobi.py)
         self.last_launches_per_chunk = 0

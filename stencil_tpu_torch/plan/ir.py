@@ -13,15 +13,20 @@ persistent kernels (``ops/fused_stencil.py``, ``ops/persistent_stencil.py``)
 turn the fused phases into in-place hand-offs from compute cells to halo
 cells.
 
-Not carried over yet (ROADMAP.md queue A items 3 and 8): the direct26 and
-auto-spmd geometries, the hierarchical (DCN) level, wire compression, and
-the planner's ``PlanChoice``; each raises ``NotImplementedError``. Its
-problem key :class:`PlanConfig` is ported: the campaign's compile cache keys
-its programs with it.
+The wire model is carried over: a plan's ``wire_dtype`` (the narrowed wire
+of the remote-dma carriers, ``ops/halo_fill.wire_narrow_dtype``) prices
+wire-crossing cells at the narrowed itemsize in :meth:`ExchangePlan.wire_bytes`.
+
+Not carried over yet: the direct26 geometry (ROADMAP.md queue A item 2.3),
+the auto-spmd geometry and the hierarchical (DCN) level (queue A item 5), and
+the planner's ``PlanChoice`` (queue A item 4); each raises
+``NotImplementedError``. Its problem key :class:`PlanConfig` is ported: the
+campaign's compile cache keys its programs with it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
@@ -45,7 +50,26 @@ PERSISTENT_VARIANT = "persistent"
 # (axis name, stacked-array data dim, block dim) in exchange-phase order.
 AXIS_ORDER = (("x", 5, 2), ("y", 4, 1), ("z", 3, 0))
 
-_LATER = "ROADMAP.md queue A item 3"
+# where the geometries still to port stand in ROADMAP.md
+_LATER = {DIRECT26: "ROADMAP.md queue A item 2.3", AUTO_SPMD: "ROADMAP.md queue A item 5",
+          "hierarchy": "ROADMAP.md queue A item 5"}
+
+# Bytes a cell of each wire dtype pays (the JAX package's table; other
+# names resolve through numpy). The fp8 tier quarters fp32's wire bytes as
+# bfloat16 halves them.
+_WIRE_ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4, "float64": 8,
+                  "float8_e4m3fn": 1, "float8_e5m2": 1}
+
+
+def wire_itemsize(wire_dtype: Optional[str]) -> Optional[int]:
+    """Bytes per cell a wire-compressed carrier pays (None = native)."""
+    if wire_dtype is None:
+        return None
+    if wire_dtype in _WIRE_ITEMSIZE:
+        return _WIRE_ITEMSIZE[wire_dtype]
+    import numpy as np
+
+    return np.dtype(wire_dtype).itemsize
 
 
 @dataclass(frozen=True)
@@ -169,6 +193,8 @@ class ExchangePlan:
     fused_phases: Tuple[FusedPhaseIR, ...] = ()
     fused: bool = False
     persistent: bool = False
+    # the narrowed wire of crossing carriers (None: native)
+    wire_dtype: Optional[str] = None
 
     @property
     def batch_quantities(self) -> bool:
@@ -207,6 +233,21 @@ class ExchangePlan:
             return 2
         return 2 * int(k)
 
+    def wire_bytes(self, itemsizes: Sequence[int],
+                   floating: Optional[Sequence[bool]] = None) -> int:
+        """Bytes sent between positions per exchange, all quantities
+        (``itemsizes``): with ``wire_dtype`` set, a crossing cell of a
+        floating quantity pays the narrowed itemsize, an integer one
+        (``floating`` False; omitted, every quantity is floating) its
+        native one, as the lowering narrows only floating carriers."""
+        w = wire_itemsize(self.wire_dtype)
+        if w is None:
+            per_cell = sum(itemsizes)
+        else:
+            fl = [True] * len(itemsizes) if floating is None else list(floating)
+            per_cell = sum(min(i, w) if f else i for i, f in zip(itemsizes, fl))
+        return sum(p.wire_cells for p in self.phases) * per_cell
+
     def describe(self) -> str:
         """Human-readable plan dump."""
         lines = [
@@ -214,7 +255,8 @@ class ExchangePlan:
             f"partition={self.partition} mesh={self.mesh_dim} "
             f"resident={self.resident}"
             + (" (fused compute+exchange kernel)" if self.fused else "")
-            + (" (persistent whole-chunk kernel)" if self.persistent else ""),
+            + (" (persistent whole-chunk kernel)" if self.persistent else "")
+            + (f" wire_dtype={self.wire_dtype}" if self.wire_dtype else ""),
         ]
         for p in self.phases:
             if isinstance(p, FusedPhaseIR):
@@ -238,6 +280,11 @@ class ExchangePlan:
                 f"  total async remote copies/exchange (1 group): "
                 f"{self.dmas_per_exchange()} (kernel-initiated — the "
                 "census sees 0 ppermutes)")
+        if self.wire_dtype:
+            native = dataclasses.replace(self, wire_dtype=None)
+            lines.append(
+                f"  wire bytes (1 fp32 quantity): {self.wire_bytes([4])} "
+                f"({self.wire_dtype} on the wire; {native.wire_bytes([4])} native)")
         return "\n".join(lines)
 
 
@@ -347,17 +394,18 @@ def _fused_phases(spec, mesh_dim: Dim3) -> Tuple[FusedPhaseIR, ...]:
 
 
 def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
-               resident: Optional[Dim3] = None, fused: bool = False,
-               persistent: bool = False, hierarchy=None) -> ExchangePlan:
+               resident: Optional[Dim3] = None, wire_dtype: Optional[str] = None,
+               fused: bool = False, persistent: bool = False, hierarchy=None) -> ExchangePlan:
     """The ExchangePlan of one (GridSpec, mesh shape (x, y, z), method) for
     the axis-composed and remote-dma methods, the latter with its fused or
     persistent variant. ``method`` may be the enum or its value string;
-    ``resident`` defaults to ``spec.dim / mesh_dim``."""
+    ``resident`` defaults to ``spec.dim / mesh_dim``; ``wire_dtype``
+    narrows wire-crossing carriers in the byte model."""
     mval = getattr(method, "value", method)
     if mval not in METHODS:
         raise ValueError(f"unknown exchange method {method!r}")
     if hierarchy is not None:
-        raise NotImplementedError(f"hierarchical exchange plans: {_LATER}")
+        raise NotImplementedError(f"hierarchical exchange plans: {_LATER['hierarchy']}")
     if fused and mval != REMOTE_DMA:
         raise ValueError(
             "the fused compute+exchange variant is a REMOTE_DMA lowering "
@@ -371,7 +419,7 @@ def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
             "fused and persistent are distinct kernel variants of one "
             "plan — choose one (persistent at k == 1 IS the fused kernel)")
     if mval in (DIRECT26, AUTO_SPMD):
-        raise NotImplementedError(f"{mval} exchange plans: {_LATER}")
+        raise NotImplementedError(f"{mval} exchange plans: {_LATER[mval]}")
     md = Dim3.of(mesh_dim)
     if spec.dim.x % md.x or spec.dim.y % md.y or spec.dim.z % md.z:
         raise ValueError(f"mesh {md} does not divide partition {spec.dim}")
@@ -395,6 +443,7 @@ def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
         fused_phases=_fused_phases(spec, md) if fused else (),
         fused=fused,
         persistent=persistent,
+        wire_dtype=wire_dtype,
     )
 
 
@@ -451,4 +500,4 @@ class PlanChoice:
     """The planner's chosen plan: not ported yet."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError("PlanChoice (the plan/ autotuner): ROADMAP.md queue A item 8")
+        raise NotImplementedError("PlanChoice (the plan/ autotuner): ROADMAP.md queue A item 4")

@@ -115,7 +115,7 @@ def _unit_words(row, sz, sy):
     """``(side, k, src words, dst words)`` of each side of a work-list row
     that moves units: ``k`` the units' indices in a row, the words as
     offsets in the blocks (flat, one entry per word)."""
-    _g, src, dst, split, src2, dst2, end, units, width, ey, rows, _c, _s = row
+    _g, src, dst, split, src2, dst2, end, units, width, ey, rows, _c, _s, _n = row
     r = np.arange(rows, dtype=np.int64)
     base = (r // ey) * sz + (r % ey) * sy
     k = np.arange(units, dtype=np.int64)
@@ -178,7 +178,7 @@ def test_vectors_only_where_source_and_destination_agree_in_phase(name, size, di
     for label, work, _boxes, _steps in _works(spec, word, vec):
         wide = 0
         for row in work.rows:
-            _g, src, dst, split, _s2, _d2, end, units, width, _ey, _rows, _c, _st = row
+            _g, src, dst, split, _s2, _d2, end, units, width, _ey, _rows, _c, _st, _n = row
             if width == 1:
                 continue
             wide += 1
@@ -229,18 +229,20 @@ def test_paired_row_ends_share_one_warp_instruction(name, size, dim, radius, ali
             assert len(lone) == 1 and lone[0][8] == 1, label
 
 
-def replay_tables(blocks, ptr_rows, m, seg_rows, tasks, sz, sy):
+def replay_tables(blocks, ptr_rows, m, seg_rows, tasks, sz, sy, wire=None):
     """csrc/row_moves.cuh's kernel in plain torch indexing, one block a task,
     as it reads its tables: the segment by the starts, the chunk and the
-    instance (chunk-major), each unit's row, side and words; ``blocks`` maps
-    a pointer to its CPU block. In place."""
+    instance (chunk-major), each unit's row, side and words, a segment
+    flagged narrow through ``wire`` (``halo_fill.wire_round``, the plain
+    version of csrc/wire_round.cuh); ``blocks`` maps a pointer to its CPU
+    block. In place."""
     task = rmv.move_shape()["task_units"]
     starts = [row[12] for row in seg_rows]
     assert starts == sorted(starts) and starts[0] == 0
     assert tasks == starts[-1] + m * seg_rows[-1][11]
     for t in range(tasks):
         row = seg_rows[bisect.bisect_right(starts, t) - 1]
-        g, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start = row
+        g, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start, narrow = row
         c, j = divmod(t - start, m)
         assert c < chunks
         p, q = blocks[ptr_rows[2 * (g * m + j)]], blocks[ptr_rows[2 * (g * m + j) + 1]]
@@ -252,8 +254,9 @@ def replay_tables(blocks, ptr_rows, m, seg_rows, tasks, sz, sy):
                 (1, (k >= split) & (k < end), (k - split) * width, src2, dst2, q, p)):
             if keep.any():
                 off = (base[keep] + x[keep])[:, None] + np.arange(width)
+                words = a.view(-1)[torch.from_numpy((s0 + off).ravel())]
                 b.view(-1)[torch.from_numpy((d0 + off).ravel())] = \
-                    a.view(-1)[torch.from_numpy((s0 + off).ravel())]
+                    halo_fill.wire_round(words, wire) if narrow else words
 
 
 def _pointer_rows(blocks, mesh, steps):
@@ -379,18 +382,109 @@ def test_constants_mirror_the_kernel_source():
     fields = re.search(r"struct Seg \{\s*long long ([^;]+);", HEADER).group(1)
     assert [f.strip() for f in fields.split(",")] == [
         "group", "src", "dst", "split", "src2", "dst2", "end", "units", "width", "ey", "rows",
-        "chunks", "start"]
+        "chunks", "start", "narrow"]
     assert "const long long t = blockIdx.x;" in HEADER
     assert "const long long c = k / m, j = k - c * m;" in HEADER
-    assert HEADER.count("<<<(unsigned)tasks, THREADS, 0, st>>>") == 2
+    # one launch site for every instantiation: fp32 words through each wire
+    # but fp32, fp64 words through each
+    assert HEADER.count("cudaLaunchKernel(kernel, dim3((unsigned)tasks), dim3(THREADS)") == 1
+    assert HEADER.count("move_rows_kernel<T, wire::") == 4
+    assert HEADER.count("move_rows_kernel<unsigned long long, wire::") == 5
+    assert "move_rows_kernel<T, wire::F32>" not in HEADER
+    assert "if (s.narrow) v[u] = wire::narrow_unit<T, WIRE>(v[u]);" in HEADER
     for name in ("remote_axis", "fused_exchange"):
         src = (CSRC / f"{name}.cu").read_text()
         assert '#include "row_moves.cuh"' in src
-        assert "return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, sz, sy, stream);" \
-            in src
+        assert "return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, sz, sy, " \
+            "stream);" in src
+    wire_src = (CSRC / "wire_round.cuh").read_text()
+    for name, code in halo_fill.WIRE_CODES.items():
+        tag = {"bfloat16": "BF16", "float16": "F16", "float8_e4m3fn": "E4M3", "float32": "F32"}
+        assert f"constexpr int {tag[name]} = {code};" in wire_src
 
 
 @pytest.mark.parametrize("units,lanes", [(1, 1), (2, 2), (3, 4), (5, 8), (6, 8), (8, 8),
                                          (12, 16), (17, 32), (32, 32), (40, 40)])
 def test_row_lanes(units, lanes):
     assert rmv.row_lanes(units) == lanes
+
+
+# -- the narrowed wire ------------------------------------------------------------------
+
+WIRE_CASES = [c for c in CASES if c[0] in ("222-r1-f32", "112-r1-f64", "211-r2-f32-ragged",
+                                           "211-r1-f64-ragged-unaligned", "222-asym-x0-f32")]
+WIRE_IDS = [c[0] for c in WIRE_CASES]
+
+
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", WIRE_CASES, ids=WIRE_IDS)
+def test_narrow_flags_mark_the_crossing_segments(name, size, dim, radius, aligned, dtype):
+    """With a wire, B6's work list flags every segment (a ring phase's slabs
+    all cross) and B7's the segments of exactly the crossing direction
+    boxes, the paired x faces' one flag both halves'; without one, none;
+    the rows are otherwise those of the unnarrowed list."""
+    spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
+    for ph in _phases(spec):
+        plain = rdma.remote_axis_work(spec, ph.axis, vec, word, 3)
+        wired = rdma.remote_axis_work(spec, ph.axis, vec, word, 3, narrow=True)
+        assert [r[13] for r in plain.rows] == [0] * len(plain.rows)
+        assert [r[13] for r in wired.rows] == [1] * len(wired.rows)
+        assert [r[:13] for r in wired.rows] == [r[:13] for r in plain.rows]
+    plan, _boxes, steps = _fused(spec)
+    wired = fst.fused_exchange_work(plan, spec, vec, word, 3, narrow=True)
+    plain = fst.fused_exchange_work(plan, spec, vec, word, 3)
+    assert [r[:13] for r in wired.rows] == [r[:13] for r in plain.rows]
+    assert not any(r[13] for r in plain.rows)
+    box_of = _box_of(wired, steps)
+    for row in wired.rows:
+        for side, *_rest in _unit_words(row, sz, sy):
+            assert row[13] == plan.fused_phases[box_of(row[0], side)].crossing, name
+    crossing = {ph.direction for ph in plan.fused_phases if ph.crossing}
+    assert crossing == {ph.direction for ph in plan.fused_phases
+                        if any(c and n > 1 for c, n in zip(ph.direction, dim))}
+    assert any(r[13] for r in wired.rows)
+    if dim.count(1) > 0:  # a self-wrap axis: some boxes stay bit copies
+        assert not all(r[13] for r in wired.rows)
+
+
+def test_paired_boxes_share_their_narrow_flag():
+    spec, sz, sy, word, vec = _case(*CASES[0][1:])
+    boxes, steps, pairs = _slab_boxes(spec, "x")
+    with pytest.raises(ValueError, match="share their narrow flag"):
+        rmv.move_work(boxes, steps, sz, sy, vec, word, pairs, 1, (True, False))
+    with pytest.raises(ValueError, match="narrow flags"):
+        rmv.move_work(boxes, steps, sz, sy, vec, word, pairs, 1, (True,))
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "float8_e4m3fn", "float16", "float32"])
+@pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", WIRE_CASES[:3], ids=WIRE_IDS[:3])
+def test_replay_with_a_wire_equals_the_plain_versions(name, size, dim, radius, aligned, dtype,
+                                                      wire):
+    """Every phase's work list and the fused one with the wire's flags,
+    replayed with each flagged word through the wire, equal
+    remote_axis_plain and fused_exchange_plain with that wire on every cell
+    (NaN equal to NaN: fp8 overflows to NaN); an fp32 wire on fp32 data
+    flags nothing and copies bits."""
+    spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
+    mesh = DeviceMesh(dim, ["cpu"] * spec.num_blocks())
+    m = len(mesh) * 2
+    narrow = halo_fill.wire_code(torch.from_numpy(np.zeros(1, dtype)).dtype, wire) != 0
+    plan, _boxes, _steps = _fused(spec)
+    jobs = [(rdma.remote_axis_work(spec, ph.axis, vec, word, m, narrow),
+             lambda st, ph=ph: rdma.remote_axis_plain(st, spec, ph, mesh, wire))
+            for ph in _phases(spec)]
+    jobs.append((fst.fused_exchange_work(plan, spec, vec, word, m, narrow),
+                 lambda st: fst.fused_exchange_plain(st, spec, plan, mesh, wire)))
+    rng = np.random.RandomState(70)
+    p = spec.padded()
+    for work, plain in jobs:
+        got = [[torch.from_numpy((rng.standard_normal((1, 1, 1, p.z, p.y, p.x))
+                                  * 2.0 ** rng.uniform(-12, 9, (1, 1, 1, p.z, p.y, p.x)))
+                                 .astype(dtype)) for _ in range(2)]
+               for _ in range(spec.num_blocks())]
+        want = plain([[b.clone() for b in g] for g in got])
+        replay_tables({b.data_ptr(): b for g in got for b in g},
+                      _pointer_rows(got, mesh, work.steps), m, work.rows, work.tasks, sz, sy,
+                      wire)
+        for ga, gb in zip(got, want):
+            for a, b in zip(ga, gb):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())

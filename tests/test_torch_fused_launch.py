@@ -19,6 +19,7 @@ import torch
 from stencil_tpu_torch.domain import GridSpec
 from stencil_tpu_torch.geometry import Dim3, Radius
 from stencil_tpu_torch.ops import fused_stencil as fst
+from stencil_tpu_torch.ops.halo_fill import WIRE_CODES, wire_round
 from stencil_tpu_torch.parallel import DeviceMesh, Method
 from stencil_tpu_torch.plan.ir import build_plan
 
@@ -51,8 +52,12 @@ def test_constants_mirror_the_kernel_source():
     # the table row's fields, in the order message_rows / row_table write them
     fields = re.search(r"struct RowSeg \{\s*long long ([^;]+);", STEP_SRC).group(1)
     assert [f.strip() for f in fields.split(",")] == [
-        "box", "src", "dst", "units", "width", "ey", "rows", "chunks", "start"]
+        "box", "src", "dst", "units", "width", "ey", "rows", "chunks", "start", "narrow"]
     assert len(fields.split(",")) == fst.SEG_COLS
+    # the wire: fp32 fields through bf16, fp16 and e4m3, rounded in phase A
+    # between load and store on the flagged segments only
+    assert STEP_SRC.count("(const void*)fused_step_kernel<wire::") == 4
+    assert "if (s.narrow) v[u] = wire::narrow<WIRE>(v[u]);" in STEP_SRC
 
 
 def test_launch_shape():
@@ -210,13 +215,15 @@ def test_work_list_covers_every_halo_cell_once(size, dim, r, aligned):
     assert tasks == start
 
 
-def replay_rows(blocks, rows, msgs, m, sz, sy):
+def replay_rows(blocks, rows, msgs, m, sz, sy, wire=None):
     """Phase A as the kernel performs it, in plain torch indexing: for each
-    work-list row (box, src, dst, units, width, ey, rows, ...) and each of
-    the box's m messages (source, destination, box), the segment's words
-    from the source position's block into the destination's. In place."""
+    work-list row (box, src, dst, units, width, ey, rows, ..., narrow) and
+    each of the box's m messages (source, destination, box), the segment's
+    words from the source position's block into the destination's, through
+    ``wire`` where the row is flagged narrow. In place."""
     for row in rows:
         box, src, dst, units, width, ey, nrows = (int(v) for v in row[:7])
+        narrow = int(row[9])
         r = np.arange(nrows, dtype=np.int64)
         base = (r // ey) * sz + (r % ey) * sy
         words = (np.arange(units)[:, None] * width + np.arange(width)).ravel()
@@ -224,7 +231,8 @@ def replay_rows(blocks, rows, msgs, m, sz, sy):
         for j in range(m):
             s, d, b = (int(v) for v in msgs[box * m + j])
             assert b == box and s == j
-            blocks[d].view(-1)[dst + off] = blocks[s].view(-1)[src + off]
+            words = blocks[s].view(-1)[src + off]
+            blocks[d].view(-1)[dst + off] = wire_round(words, wire) if narrow else words
     return blocks
 
 
@@ -286,7 +294,8 @@ class FakeFusedCard:
         return self.tables[key]
 
     def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
-                            xo, nz, ny, nx, vec, dev, stream):
+                            xo, nz, ny, nx, vec, wire, dev, stream):
+        assert wire == 0  # one block: nothing crosses
         p = [[self.blocks[v] for v in self.tables[pos][3 * i:3 * i + 3]] for i in range(npos)]
         flat, msgs = self.tables[segs], self.tables[msg]
         assert ncols == fst.SEG_COLS and len(flat) == nseg * ncols
@@ -323,3 +332,38 @@ def test_one_block_is_the_one_position_case(monkeypatch, size, r):
     msgs = card.tables[("mesh_messages", ((0,),) * len(plan.fused_phases))]
     assert msgs.view(-1, 3)[:, :2].eq(0).all()
     assert card.tables[card.made[0]].tolist() == [c.data_ptr(), n.data_ptr(), s.data_ptr()]
+
+
+@pytest.mark.parametrize("size,dim", [((16, 16, 16), (2, 2, 2)), ((16, 16, 20), (1, 1, 2)),
+                                      ((24, 20, 16), (2, 1, 1))], ids=["222", "112", "211"])
+def test_narrow_flags_mark_the_crossing_boxes(size, dim):
+    """B8's table flags exactly the rows of crossing boxes (a direction with
+    a nonzero component on an axis of several positions), and replayed with
+    a wire gives fused_exchange_plain with that wire on every cell (NaN equal
+    to NaN); the rows are otherwise the unflagged table's."""
+    spec, plan, boxes, sz, sy, vec = _work(size, dim, 1, True)
+    npos = spec.num_blocks()
+    key = tuple((tuple(s), tuple(d), tuple(e)) for s, d, e in boxes)
+    crossing = [ph.crossing for ph in plan.fused_phases]
+    assert crossing == [any(c and n > 1 for c, n in zip(ph.direction, dim))
+                        for ph in plan.fused_phases]
+    plain_rows, tasks = fst.row_table(key, sz, sy, vec, npos)
+    rows, wtasks = fst.row_table(key, sz, sy, vec, npos, tuple(crossing))
+    assert tasks == wtasks and [r[:9] for r in rows] == [r[:9] for r in plain_rows]
+    assert [r[9] for r in rows] == [int(crossing[r[0]]) for r in rows]
+    assert not any(r[9] for r in plain_rows) and any(r[9] for r in rows)
+    assert all(crossing) == (1 not in dim)
+    mesh = DeviceMesh(dim, ["cpu"] * npos)
+    dests = [mesh.destinations(ph.direction) for ph in plan.fused_phases]
+    msgs = [(i, j, b) for b, ds in enumerate(dests) for i, j in enumerate(ds)]
+    p = spec.padded()
+    for wire in WIRE_CODES:
+        rng = np.random.RandomState(45)
+        got = [torch.from_numpy((rng.standard_normal((1, 1, 1, p.z, p.y, p.x))
+                                 * 2.0 ** rng.uniform(-12, 9, (1, 1, 1, p.z, p.y, p.x)))
+                                .astype(np.float32)) for _ in range(npos)]
+        want = [b.clone() for b in got]
+        fst.fused_exchange_plain([[b] for b in want], spec, plan, mesh, wire)
+        replay_rows(got, rows, msgs, npos, sz, sy, wire)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())

@@ -312,16 +312,20 @@ class FakeChunkCard:
         return 0
 
     def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
-                            xo, nz, ny, nx, vec, dev, stream):
+                            xo, nz, ny, nx, vec, code, dev, stream):
         """The fused step: its phase-A work list replayed as
-        tests/test_torch_fused_launch.py does, then one sweep per position."""
+        tests/test_torch_fused_launch.py does (the flagged rows through the
+        wire of the launch's code), then one sweep per position."""
         from test_torch_fused_launch import replay_rows
+
+        from stencil_tpu_torch.ops.halo_fill import WIRE_CODES
 
         p = self.positions(pos, npos)
         flat, msgs = self.tables[segs], self.tables[msg]
         assert ncols == tfused.SEG_COLS and len(flat) == nseg * ncols and m == npos
+        wire = {c: w for w, c in WIRE_CODES.items()}.get(code)
         replay_rows([a for a, _b, _s in p], [flat[i * ncols:(i + 1) * ncols] for i in range(nseg)],
-                    [msgs[3 * i:3 * i + 3] for i in range(len(msgs) // 3)], m, sz, sy)
+                    [msgs[3 * i:3 * i + 3] for i in range(len(msgs) // 3)], m, sz, sy, wire)
         return self.substeps(p, sz, sy, zo, yo, xo, nz, ny, nx, 1)
 
     def persistent_jacobi_launch(self, *args):
@@ -363,6 +367,31 @@ def test_fused_mesh_tables_move_the_plain_versions_cells(monkeypatch, size, dim)
                                  "mesh_positions"]
     for key in ("c", "n"):
         assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "float8_e4m3fn"])
+@pytest.mark.parametrize("size,dim", [FUSED_CASES[0], FUSED_CASES[3]],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_fused_mesh_tables_with_a_wire(monkeypatch, size, dim, wire):
+    """Two fused steps with a wire: the wrapper flags the crossing boxes'
+    rows and passes the wire's code; replayed through that wire, every cell
+    of every buffer equals the plain version's with the wire."""
+    tspec, tmesh, arrs = _mesh_fields(size, dim, 1, 36)
+    plan = tir.build_plan(tspec, dim, tir.REMOTE_DMA, fused=True)
+    want = mesh_state_from_jax(arrs, tspec, tmesh)
+    got = mesh_state_from_jax(arrs, tspec, tmesh)
+    card = FakeChunkCard(monkeypatch, [b for bl in got.values() for b in bl])
+    card.radius = tspec.radius
+    wc, wn, gc, gn = want["c"], want["n"], got["c"], got["n"]
+    for _ in range(2):
+        tfused.fused_jacobi_mesh_plain(wc, wn, want["s"], tspec, plan, tmesh, wire)
+        tfused.fused_jacobi_mesh(gc, gn, got["s"], tspec, plan, tmesh, wire)
+        wc, wn, gc, gn = wn, wc, gn, gc
+    rows = [k for k in card.tables if isinstance(k, tuple) and k[0] == "fused_rows"]
+    assert len(rows) == 1 and any(r[9] for r in rows[0][1])
+    for key in ("c", "n"):
+        for a, b in zip(got[key], want[key]):
+            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=key)
 
 
 @pytest.mark.parametrize("size,dim,k", [((16, 16, 16), (2, 2, 2), 3), ((24, 20, 16), (2, 1, 1), 2)],
@@ -435,8 +464,20 @@ def test_mesh_variants_on_uneven_partitions_raise(variant):
 
 @pytest.mark.parametrize("variant", ["fused", "persistent"])
 def test_mesh_variants_with_wire_dtype_raise(variant):
+    """The fused variant takes a wire over a mesh: 3 fused steps with bf16 on
+    the wire equal the JAX loop's with it (both buffers, halos included).
+    The persistent variant refuses it: the JAX package's two platforms
+    diverge there (ROADMAP.md queue C)."""
+    if variant == "fused":
+        got, want, tex, jex, _ts, _js = both_loops((16, 16, 16), (2, 2, 2), 1, 3, 35, fused=True,
+                                                   wire_dtype="bfloat16")
+        assert tex.wire_dtype == jex.wire_dtype == "bfloat16"
+        for key in ("c", "n"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        return
     spec = tgrid.GridSpec(tgeo.Dim3(16, 16, 16), tgeo.Dim3(2, 2, 2), tgeo.Radius.constant(2))
-    with pytest.raises(NotImplementedError, match="wire_dtype"):
+    with pytest.raises(NotImplementedError, match="wire_dtype=bfloat16 with the persistent "
+                                                  "variant over a mesh: the JAX package diverges"):
         tpar.HaloExchange(spec, RDMA_T, mesh=tpar.DeviceMesh((2, 2, 2), ["cpu"] * 8),
                           wire_dtype="bfloat16", **{variant: True})
 

@@ -23,6 +23,7 @@ import stencil_tpu_torch.parallel as tpar
 import stencil_tpu_torch.plan.ir as tir
 from stencil_tpu.parallel.mesh import BLOCK_PSPEC
 from stencil_tpu_torch import DistributedDomain
+from stencil_tpu_torch.domain import DataHandle
 from stencil_tpu_torch.convert import mesh_state_from_jax, mesh_state_to_numpy
 from stencil_tpu_torch.ops import remote_dma
 
@@ -121,7 +122,8 @@ def test_self_wrap_axes_go_through_the_fill_kernel_wrapper(monkeypatch):
     monkeypatch.setattr(remote_dma, "self_fill",
                         lambda b, s, a, **k: (fills.append((a, len(b))), real_fill(b, s, a, **k)))
     monkeypatch.setattr(remote_dma, "remote_axis",
-                        lambda b, s, ph, m: (rings.append(ph.axis), real_ring(b, s, ph, m)))
+                        lambda b, s, ph, m, wire: (rings.append(ph.axis),
+                                                   real_ring(b, s, ph, m, wire)))
     tspec, _jspec, tmesh, _jmesh = pair((16, 16, 20), (1, 1, 2), 1)
     ex = tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA, mesh=tmesh)
     ex({q: tpar.shard_blocks(np.zeros((20, 16, 16), F32), tspec, tmesh) for q in range(9)})
@@ -213,12 +215,28 @@ def test_axis_composed_on_a_mesh_raises():
 
 
 def test_uneven_partition_and_wire_dtype_raise():
+    """An uneven partition still raises; a wire over the mesh runs: the
+    domain's exchange with bf16 on the wire equals the JAX REMOTE_DMA
+    exchange with it on every cell."""
     with pytest.raises(NotImplementedError, match="uneven"):
         _domain(["cpu"] * 8, size=(17, 16, 16)).realize()
-    spec = tgrid.GridSpec(tgeo.Dim3(16, 16, 16), tgeo.Dim3(2, 2, 2), tgeo.Radius.constant(1))
-    with pytest.raises(NotImplementedError, match="wire_dtype"):
-        tpar.HaloExchange(spec, tpar.Method.REMOTE_DMA, mesh=tpar.DeviceMesh((2, 2, 2), ["cpu"] * 8),
-                          wire_dtype="bfloat16")
+    tspec, jspec, tmesh, jmesh = pair((16, 16, 16), (2, 2, 2), 1)
+    arrs = noisy(jspec, [F32, F64], 13)
+    jex = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA, wire_dtype="bfloat16")
+    want = jex({k: jax.device_put(v, NamedSharding(jmesh, BLOCK_PSPEC)) for k, v in arrs.items()})
+    dd = _domain(["cpu"] * 8)
+    handles = [DataHandle(0, "t", "float32"), dd.add_data("b", "float64")]
+    dd.set_wire_dtype("bfloat16")
+    dd.realize()
+    assert dd.halo_exchange.wire_dtype == "bfloat16" == dd.halo_exchange.plan.wire_dtype
+    st = mesh_state_from_jax(arrs, tspec, tmesh)
+    for i, h in enumerate(handles):
+        dd.set_curr(h, st[i])
+    dd.exchange()
+    got = mesh_state_to_numpy(dd.curr_state(), tspec)
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]))
+        assert not np.array_equal(got[k], arrs[k])
 
 
 def test_mesh_shape_and_neighbours():
@@ -285,7 +303,8 @@ def test_remote_axis_table_moves_the_plain_versions_slabs(monkeypatch):
             got = [[st[k][i] for k in st] for i in range(len(tmesh))]
             card = FakeCard(monkeypatch, remote_dma, got)
 
-            def launch(ptrs, m, segs, nseg, tasks, item, sz, sy, _st):
+            def launch(ptrs, m, segs, nseg, tasks, item, code, sz, sy, _st):
+                assert code == 0
                 table, cols = card.tables[ptrs][1], remote_dma.row_moves.MOVE_COLS
                 head = (segs - ptrs) // 8  # the pointer rows: one group in x, two in y and z
                 assert head == 2 * m * (1 if ph.axis == "x" else 2) and item == 4
