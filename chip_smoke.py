@@ -224,6 +224,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               child killed after its step-4 snapshot and resumed equal to
               the uninterrupted run; astaroth 64^3 fp64 with nan@2 in lnrho
               equal to its clean run.
+12. uneven -- uneven (remainder) partitions (uneven_phase): B6's uneven
+              ring (each block's hi slab and hi halo at its own size, the
+              pointers moved per block) against its plain version with
+              torch.equal on every cell of every position at 512^3 over 6
+              positions (3,2,1) r1, 67x45x29 (3,2,1) unaligned, 100x70x61
+              (2,3,1) with face radii x 2/1, y 1/2, z 1/1 and 512x64x32 over
+              5 positions (103/103/102/102/102), fp32 and fp64, unnarrowed
+              and through bf16 (fp64 also fp32) by bit pattern; each ring
+              phase timed per launch at 512^3 (3,2,1) r1 beside its bytes
+              bound and sector floor, with the uniform x phases of
+              513x512x512 (3,2,1) (the same padded pitch, also in turns
+              with the uneven one) and 512^3 (2,2,2); the resident uneven
+              exchange (512^3 (3,2,1) r3 x4, 13x11x9 (2,2,2) r2 fp64) on the
+              card against the CPU, every cell, and in GB/s; 8 steps from a
+              random field over 6 positions (plain, fused) and (3,2,1)
+              residents, bit-equal to the single-block default path; the
+              main paths apps.jacobi3d.run at 512^3 strong over 6 positions
+              (plain: 2 remote_axis, 1 fill, 6 sweeps a step; fused, the
+              host schedule: also 36 sweep_region shells a step) and over
+              (3,2,1) residents (1 sweep, 1 fill a step, no multistep),
+              launch counts reset around each; a guarded jacobi3d at 128^3
+              over 6 positions with nan@3 rolled back, equal to the clean
+              run; a checkpoint written on (3,2,1) restored on (2,2,2).
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -925,6 +948,359 @@ def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, ite
         plain_ms=time_ms(lambda: fst.fused_jacobi_mesh_plain(c, nx, s, spec1, plan, mesh8, BF16),
                          3, warmup=1),
         extra={"ms_unnarrowed": mean[None], "ms_fp8": mean[FP8]})}
+    return timings, launches, errs
+
+
+def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 61),
+                 iters: int = 10, chunk: int = 5, steps: int = 8, gn: int = 128,
+                 c2_gbs=None):
+    """Phase 12, uneven (remainder) partitions, on ``dev``: B6's uneven ring
+    (remote_axis over a ring whose blocks differ in size) against its plain
+    version with torch.equal on every cell of every position, from random
+    fields with noise in every halo, at ``n``^3 over 6 positions (3,2,1) r1,
+    ``small`` (3,2,1) unaligned, ``asym`` (2,3,1) with face radii x 2/1,
+    y 1/2, z 1/1 and 512x64x32 over 5 positions (5,1,1), in fp32 and
+    fp64, unnarrowed and through bf16 (fp64 also through fp32; bit patterns,
+    NaN as one pattern); each phase timed per launch at ``n``^3 (3,2,1) r1
+    beside its bytes bound and sector floor, with the uniform x phases of
+    ``n + 1`` x ``n`` x ``n`` (3,2,1) (the same padded pitch; also in
+    turns with the uneven one) and ``n``^3 (2,2,2) in the same call; the
+    resident uneven exchange (``n``^3 (3,2,1) r3 x4 fp32 and 13x11x9
+    (2,2,2) r2 fp64) on the card against the same
+    exchange on the CPU, every cell, with its fill launches, and in GB/s
+    beside ``c2_gbs``; ``steps`` steps from a random field over 6 positions
+    (plain and fused) and over (3,2,1) residents, bit-equal on the gathered
+    compute region to the single-block default path; the main paths
+    ``apps.jacobi3d.run`` at ``n``^3 strong over 6 positions (plain and
+    fused: ``iters`` steps in chunks of ``chunk`` after a warm-up chunk) and
+    over (3,2,1) residents, launch counts reset just before and read just
+    after, held to the counts per step; a guarded jacobi3d at ``gn``^3 over
+    6 positions with nan@3 rolled back, equal to the clean run; a
+    checkpoint written on (3,2,1) and restored on (2,2,2), equal on the
+    compute region; and each launch of the two uneven steps timed alone
+    (the per-position sweeps, the z fill, one position's shells; the
+    stacked sweep and the resident exchange). Sizes are arguments so that
+    the phase can be rehearsed on the CPU. Returns ``(timings, launches,
+    errs)``."""
+    from stencil_tpu_torch import DistributedDomain, GridSpec
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import shells
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import (DeviceMesh, HaloExchange, Method, shard_blocks,
+                                            unshard_blocks)
+    from stencil_tpu_torch.plan.ir import build_plan
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    f32, f64 = torch.float32, torch.float64
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    rd = Method.REMOTE_DMA
+
+    def spec_of(size, part, r, aligned=True):
+        if isinstance(r, int):
+            rad = Radius.constant(r)
+        else:
+            rad = Radius.constant(0)
+            for d, v in zip(((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1),
+                             (0, 0, 1)), r):
+                rad.set_dir(d, v)
+            rad.set_edge(1)
+            rad.set_corner(1)
+        return GridSpec(Dim3(*size), Dim3(*part), rad, aligned=aligned)
+
+    def mesh_of(spec, device=dev):
+        return DeviceMesh(spec.dim, [device] * spec.dim.flatten())
+
+    def rand_groups(spec, dtype, nq, seed):
+        """[[block per quantity] per position]: noise in every cell."""
+        gen.manual_seed(seed)
+        p = spec.padded()
+        return [[torch.rand((1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
+                            dtype=f64).to(dtype) for _ in range(nq)]
+                for _ in range(spec.num_blocks())]
+
+    def cloned(groups):
+        return [[b.clone() for b in g] for g in groups]
+
+    def rings(spec):
+        return [ph for ph in build_plan(spec, spec.dim, rd).remote_phases
+                if ph.ring > 1 and ph.active]
+
+    errs = {"remote_axis_uneven": 0.0}
+    nan_patterns = 0
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+
+    # -- B6's uneven ring against its plain version ----------------------------
+    spec6 = spec_of((n,) * 3, (3, 2, 1), 1)
+    cases = [(f"{n}^3 (3,2,1) r1", spec6, 1),
+             ("x".join(map(str, small)) + " (3,2,1) unaligned",
+              spec_of(small, (3, 2, 1), 1, aligned=False), 2),
+             ("x".join(map(str, asym)) + " (2,3,1) x 2/1 y 1/2 z 1/1",
+              spec_of(asym, (2, 3, 1), (2, 1, 1, 2, 1, 1)), 2),
+             ("512x64x32 (5,1,1)", spec_of((512, 64, 32), (5, 1, 1), 1), 1)]
+    for i, (label, spec, nq) in enumerate(cases):
+        check(not spec.is_uniform(), f"{label}: not an uneven partition")
+        mesh = mesh_of(spec)
+        for dt, wires in ((f32, (None, "bfloat16")), (f64, (None, "bfloat16", "float32"))):
+            start = rand_groups(spec, dt, nq, 1200 + 10 * i)
+            for ph in rings(spec):
+                for wire in wires:
+                    got = rdma.remote_axis(cloned(start), spec, ph, mesh, wire)
+                    want = rdma.remote_axis_plain(cloned(start), spec, ph, mesh, wire)
+                    sync(dev)
+                    if wire is None:
+                        errs["remote_axis_uneven"] = max(
+                            errs["remote_axis_uneven"],
+                            max(max_abs(a, b) for ga, gb in zip(got, want)
+                                for a, b in zip(ga, gb)))
+                        ok = all(torch.equal(a, b) for ga, gb in zip(got, want)
+                                 for a, b in zip(ga, gb))
+                    else:
+                        res = [bits_equal(a, b) for ga, gb in zip(got, want)
+                               for a, b in zip(ga, gb)]
+                        nan_patterns += sum(k for _e, k in res)
+                        ok = all(e for e, _k in res)
+                    check(ok, f"remote_axis uneven {label} {dt} {ph.axis} wire {wire}: "
+                              "kernel != plain")
+            del start
+        log(f"remote_axis uneven ring {label} (sizes x {spec.sizes_x}, y {spec.sizes_y}): "
+            "== plain on every cell of every position, fp32 and fp64, unnarrowed and through "
+            f"bf16 (fp64 also fp32) by bit pattern ({nan_patterns} NaN patterns differ)")
+
+    # each phase timed at n^3 (3,2,1) r1 x1, beside the uniform x phases of
+    # (n+1) x n x n (3,2,1) (the same padded pitch) and n^3 (2,2,2)
+    def copy_slabs(groups, spec, ph, mesh):
+        """The library yardstick: the phase's slabs moved by Tensor.copy_, one
+        call per slab."""
+        o, _base, rm, rp = halo_fill.axis_geom(spec, ph.axis)
+        sizes = rdma.ring_sizes(spec, ph.axis, mesh)
+        for j, pos in enumerate(mesh.positions()):
+            bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(pos, ph.axis))
+            for src, dfw, dbw in zip(groups[j], groups[fwd], groups[bwd]):
+                if rm:
+                    dfw[halo_fill._axis_slice(dfw, ph.axis, o - rm, o)].copy_(
+                        src[halo_fill._axis_slice(src, ph.axis, o + sizes[j] - rm,
+                                                  o + sizes[j])])
+                if rp:
+                    dbw[halo_fill._axis_slice(dbw, ph.axis, o + sizes[bwd],
+                                              o + sizes[bwd] + rp)].copy_(
+                        src[halo_fill._axis_slice(src, ph.axis, o, o + rp)])
+
+    mesh6 = mesh_of(spec6)
+    groups6 = rand_groups(spec6, f32, 1, 1300)
+    per = []
+    for ph in rings(spec6):
+        ms = time_ms(lambda ph=ph: rdma.remote_axis(groups6, spec6, ph, mesh6), 20, graph=True)
+        plain = time_ms(lambda ph=ph: rdma.remote_axis_plain(groups6, spec6, ph, mesh6), 3,
+                        warmup=1)
+        lib = time_ms(lambda ph=ph: copy_slabs(groups6, spec6, ph, mesh6), 5, graph=True)
+        nbytes = rdma.remote_axis_bytes(spec6, ph, 1, 6, 4)
+        sbytes = rdma.remote_axis_sector_bytes(spec6, ph, 1, 6, 4)
+        per.append((ms, plain, lib, nbytes))
+        log(f"time remote_axis uneven {n}^3 (3,2,1) r1 x1 {ph.axis}: {ms:.4f} ms per launch "
+            f"(plain {plain:.4f} ms, Tensor.copy_ {lib:.4f} ms, bound "
+            f"{bound_ms(nbytes, 0)[0]:.4f} ms by bytes, sector floor "
+            f"{bound_ms(sbytes, 0)[0]:.4f} ms)")
+    for label, uspec in ((f"{n + 1}x{n}x{n} (3,2,1) r1 (uniform, the same padded pitch)",
+                          spec_of((n + 1, n, n), (3, 2, 1), 1)),
+                         (f"{n}^3 (2,2,2) r1 (uniform)", spec_of((n,) * 3, (2, 2, 2), 1))):
+        check(uspec.is_uniform(), f"{label}: not uniform")
+        umesh = mesh_of(uspec)
+        ug = rand_groups(uspec, f32, 1, 1310)
+        (xph,) = [ph for ph in rings(uspec) if ph.axis == "x"]
+        ms = time_ms(lambda: rdma.remote_axis(ug, uspec, xph, umesh), 20, graph=True)
+        log(f"time remote_axis {label} x: {ms:.4f} ms per launch (bound "
+            f"{bound_ms(rdma.remote_axis_bytes(uspec, xph, 1, len(umesh), 4), 0)[0]:.4f} ms by "
+            f"bytes, sector floor "
+            f"{bound_ms(rdma.remote_axis_sector_bytes(uspec, xph, 1, len(umesh), 4), 0)[0]:.4f}"
+            f" ms; padded {tuple(uspec.padded())} against the uneven "
+            f"{tuple(spec6.padded())})")
+        if uspec.padded() == spec6.padded():
+            # the uneven and the uniform x phase at one pitch, in turns
+            (x6,) = [ph for ph in rings(spec6) if ph.axis == "x"]
+            turns = {"uneven": [], "uniform": []}
+            for turn in ("uneven", "uniform", "uniform", "uneven") * 2:
+                g_, s_, m_, ph_ = ((groups6, spec6, mesh6, x6) if turn == "uneven"
+                                   else (ug, uspec, umesh, xph))
+                turns[turn].append(time_ms(lambda: rdma.remote_axis(g_, s_, ph_, m_), 20,
+                                           graph=True))
+            log("time remote_axis x phase at one padded pitch, in turns (uneven, uniform, "
+                "uniform, uneven, twice): uneven "
+                + ", ".join(f"{v:.4f}" for v in turns["uneven"]) + " ms; uniform "
+                + ", ".join(f"{v:.4f}" for v in turns["uniform"]) + " ms")
+        del ug
+    del groups6
+    k = len(per)
+    timings = {"remote_axis_uneven": dict(
+        ms=sum(p[0] for p in per) / k, plain_ms=sum(p[1] for p in per) / k,
+        bound=bound_ms(sum(p[3] for p in per) / k, 0), library_ms=sum(p[2] for p in per) / k)}
+
+    # -- the resident uneven exchange, on the card against the CPU -------------
+    for label, spec, nq, dt in ((f"{n}^3 (3,2,1) r3 x4 fp32", spec_of((n,) * 3, (3, 2, 1), 3), 4,
+                                 f32),
+                                ("13x11x9 (2,2,2) r2 fp64", spec_of((13, 11, 9), (2, 2, 2), 2), 1,
+                                 f64)):
+        gen.manual_seed(1400)
+        card = {q: torch.rand(spec.stacked_shape_zyx(), generator=gen, device=dev,
+                              dtype=f64).to(dt) for q in range(nq)}
+        host = {q: t.cpu() for q, t in card.items()}
+        halo_fill.self_fill.launches = 0
+        HaloExchange(spec)(card)
+        sync(dev)
+        fills = halo_fill.self_fill.launches
+        HaloExchange(spec)(host)
+        check(all(torch.equal(card[q].cpu(), host[q]) for q in card),
+              f"resident uneven exchange {label}: card != CPU")
+        want_fills = -(-nq * spec.num_blocks() // halo_fill.MAX_FILL_GROUP) \
+            if spec.dim.z == 1 and on_card else 0
+        check(fills == want_fills, f"resident uneven exchange {label}: {fills} fill launches, "
+                                   f"expected {want_fills}")
+        log(f"resident uneven exchange {label} (sizes x {spec.sizes_x}, y {spec.sizes_y}, z "
+            f"{spec.sizes_z}): card == CPU on every cell; {fills} fill launch(es)")
+        del card, host
+    dd = DistributedDomain(n, n, n, device=dev)
+    dd.set_radius(3)
+    dd.set_partition((3, 2, 1))
+    for i in range(4):
+        dd.add_data(f"q{i}", "float32")
+    dd.realize()
+    loop10 = dd.exchange_loop(10)
+    ex_ms = time_ms(lambda: loop10(dd.curr_state()), 3, warmup=1) / 10
+    nbytes = dd.exchange_bytes_for_method(Method.AXIS_COMPOSED)
+    log(f"resident uneven exchange {n}^3 (3,2,1) r3 x4 via exchange_loop: {ex_ms:.4f} ms, "
+        f"{nbytes / ex_ms / 1e6:.2f} GB/s logical ({nbytes} bytes); uniform config 2 in this "
+        f"run {c2_gbs if c2_gbs is None else f'{c2_gbs:.2f}'} GB/s")
+    del dd, loop10
+
+    # -- steps from a random field against the single-block default path --------
+    spec1 = spec_of((n,) * 3, (1, 1, 1), 1)
+    gen.manual_seed(1500)
+    g = torch.rand((n, n, n), generator=gen, device=dev)
+    ref, _ = make_jacobi_loop(HaloExchange(spec1), steps)(
+        shard_blocks(g, spec1, dev), torch.zeros(spec1.stacked_shape_zyx(), device=dev),
+        sphere_sel_blocks(spec1, dev))
+    ref = unshard_blocks(ref, spec1)
+    specr = spec_of((n,) * 3, (3, 2, 1), 1)
+    for label, ex, c in (
+            ("6 positions, plain", HaloExchange(spec6, rd, mesh=mesh6),
+             shard_blocks(g, spec6, mesh6)),
+            ("6 positions, fused (host schedule)", HaloExchange(spec6, rd, mesh=mesh6, fused=True),
+             shard_blocks(g, spec6, mesh6)),
+            ("(3,2,1) residents", HaloExchange(specr), shard_blocks(g, specr, dev))):
+        on_mesh = ex.on_mesh
+        loop = make_jacobi_loop(ex, steps)
+        check(loop.temporal_k == 0, f"jacobi {label}: multistep depth {loop.temporal_k} on an "
+                                    "uneven partition")
+        nxt = [torch.zeros_like(b) for b in c] if on_mesh else torch.zeros_like(c)
+        out, _ = loop(c, nxt, sphere_sel_blocks(ex.spec, mesh6 if on_mesh else dev))
+        got = unshard_blocks(out, ex.spec)
+        check(np.array_equal(got, ref), f"jacobi {n}^3 {steps} steps over {label} != the "
+                                        "single-block default path")
+        log(f"jacobi {n}^3 {steps} steps over {label}: == the single-block default path")
+        del ex, c, out, got, nxt
+    del g, ref
+
+    # -- the main paths, launch counts reset just before and read just after ----
+    counted = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
+               "self_fill": halo_fill.self_fill, "jacobi_sweep_region": sk.sweep_region,
+               "jacobi_multistep": sk.multistep, "fused_jacobi_mesh": fst.fused_jacobi_mesh,
+               "fused_exchange": fst.fused_exchange}
+    total = iters + chunk  # the warm-up chunk advances the state
+    n_shells = 6 * 6  # every side of every position
+    launches = {}
+    for label, kw, per_step in (
+            ("6 positions, plain", dict(devices=[dev] * 6, method=rd),
+             {"remote_axis": 2, "jacobi_sweep": 6, "self_fill": 1}),
+            ("6 positions, fused", dict(devices=[dev] * 6, method=rd, kernel_variant="fused"),
+             {"remote_axis": 2, "jacobi_sweep": 6, "self_fill": 1,
+              "jacobi_sweep_region": n_shells}),
+            ("(3,2,1) residents", dict(device=dev, partition=(3, 2, 1)),
+             {"jacobi_sweep": 1, "self_fill": 1})):
+        for fn in counted.values():
+            fn.launches = 0
+        rv = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, weak=False, **kw)
+        sync(dev)
+        got = {name: fn.launches for name, fn in counted.items()}
+        want = {name: total * per_step.get(name, 0) * on_card for name in counted}
+        check(tuple(rv["domain"].spec.dim) == (3, 2, 1) and rv["temporal_k"] == 0,
+              f"jacobi3d {label}: partition {rv['domain'].spec.dim}, k {rv['temporal_k']}")
+        check(got == want, f"jacobi3d {n}^3 over {label}: launches {got}, expected {want}")
+        if label == "6 positions, plain":
+            launches["remote_axis_uneven"] = got["remote_axis"]
+        fin = rv["domain"].get_curr_global(rv["handle"])
+        check(bool(np.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0, f"jacobi3d {label}: field not finite or out of range")
+        log(jacobi3d.csv_row(rv))
+        log(f"jacobi3d {n}^3 strong over {label} (sizes x {rv['domain'].spec.sizes_x}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+            f"Mcells/s, launches {got}")
+        del rv, fin
+
+    # -- where the two uneven steps' device time goes: each launch alone --------
+    bspec6 = spec6.block_spec()
+    c6 = from_global(torch.rand((n, n, n), generator=gen, device=dev), spec6, mesh6)
+    sel6 = sphere_sel_blocks(spec6, mesh6)
+    n6 = [torch.zeros_like(b) for b in c6]
+    sweep_ms = [time_ms(lambda i=i: sk.sweep(c6[i], n6[i], sel6[i], bspec6, fst.NO_WRAP), 20,
+                        graph=True) for i in (0, 2)]
+    fill_ms = time_ms(lambda: rdma.self_wrap_positions({0: c6}, [0], spec6, "z"), 20, graph=True)
+    sizes0 = spec6.block_size((0, 0, 0))
+    rects = shells.shell_regions(spec6, (sizes0.z, sizes0.y, sizes0.x), (True,) * 3)
+    shell_ms = time_ms(lambda: [sk.sweep_region(c6[0], n6[0], sel6[0], bspec6, r)
+                                for r in rects], 20, graph=True)
+    log(f"uneven step over 6 positions, device ms per launch: sweep {sweep_ms[0]:.4f} "
+        f"({spec6.sizes_x[0]} wide), {sweep_ms[1]:.4f} ({spec6.sizes_x[2]} wide); z fill of "
+        f"the 6 blocks {fill_ms:.4f}; one position's {len(rects)} shells {shell_ms:.4f} "
+        "together")
+    del c6, sel6, n6
+    cr = shard_blocks(torch.rand((n, n, n), generator=gen, device=dev), specr, dev)
+    selr, nr = sphere_sel_blocks(specr, dev), torch.zeros_like(cr)
+    exr = HaloExchange(specr)
+    rsweep_ms = time_ms(lambda: sk.sweep(cr, nr, selr, specr, fst.NO_WRAP), 20, graph=True)
+    rex_ms = time_ms(lambda: exr(cr), 10, warmup=1)
+    log(f"uneven step over (3,2,1) residents: the stacked sweep {rsweep_ms:.4f} ms per launch; "
+        f"the exchange (indexed copies, rolls and one fill) {rex_ms:.4f} ms")
+    del cr, selr, nr, exr
+
+    # -- a guarded uneven run, and a checkpoint across partitions ---------------
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-uneven-") as tmp:
+        kw = dict(iters=8, weak=False, health_every=2, ckpt_every=2, rollback_backoff=0.01,
+                  devices=[dev] * 6, method=rd)
+        clean = jacobi3d.run(gn, gn, gn, ckpt_dir=os.path.join(tmp, "clean"), **kw)
+        check(not clean["domain"].spec.is_uniform(), f"guarded {gn}^3 over 6: uniform")
+        nan = jacobi3d.run(gn, gn, gn, ckpt_dir=os.path.join(tmp, "nan"), inject="nan@3", **kw)
+        a = nan["domain"].get_curr_global(nan["handle"])
+        check(np.array_equal(a, clean["domain"].get_curr_global(clean["handle"])),
+              f"guarded jacobi3d {gn}^3 over 6 positions nan@3: != the clean run")
+        log(f"guarded jacobi3d {gn}^3 over 6 positions {tuple(clean['domain'].spec.dim)} nan@3: "
+            f"rolled back, == the clean run ({nan['health_checks']} health checks)")
+        del clean, nan
+        dd = DistributedDomain(gn, gn, gn, device=dev)
+        dd.set_devices([dev] * 6)
+        dd.set_methods(rd)
+        dd.set_radius(1)
+        h = dd.add_data("temperature", "float32")
+        dd.realize()
+        gen.manual_seed(1600)
+        gg = torch.rand((gn, gn, gn), generator=gen, device=dev).cpu().numpy()
+        dd.set_curr_global(h, gg)
+        dd.save_checkpoint(os.path.join(tmp, "ck"), 4, asynchronous=False)
+        back = DistributedDomain(gn, gn, gn, device=dev)
+        back.set_devices([dev] * 8)
+        back.set_methods(rd)
+        back.set_radius(1)
+        bh = back.add_data("temperature", "float32")
+        back.realize()
+        check(back.restore_checkpoint(os.path.join(tmp, "ck")) == 4
+              and np.array_equal(back.get_curr_global(bh), gg),
+              "checkpoint written on (3,2,1), restored on (2,2,2): != the saved state")
+        log(f"checkpoint {gn}^3 written on {tuple(dd.spec.dim)} positions, restored on "
+            f"{tuple(back.spec.dim)}: == on the compute region")
     return timings, launches, errs
 
 
@@ -2484,6 +2860,19 @@ def main() -> int:
         f"bound {t['extra']['lanes_bound_ms']:.4f} ms); {hr.health_reduce.launches} launches "
         "in phase 11")
 
+    # -- 12. uneven partitions: B6's uneven ring, the resident uneven exchange --
+    #        and jacobi3d over 6 positions and (3,2,1) residents
+    t12, l12, e12 = uneven_phase(dev, time_ms,
+                                 c2_gbs=resident_gbs["config 2: 256^3 (2,2,2) r2 x4"])
+    timings.update(t12)
+    launches.update(l12)
+    errs.update(e12)
+    t = t12["remote_axis_uneven"]
+    log(f"time remote_axis uneven 512^3 (3,2,1) r1: {t['ms']:.4f} ms per launch, mean of its "
+        f"ring phases (plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by "
+        f"{t['bound'][1]}, Tensor.copy_ {t['library_ms']:.4f} ms); "
+        f"{l12['remote_axis_uneven']} launches on the 6-position main path")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -2537,6 +2926,9 @@ def main() -> int:
         # no Pallas builder: the JAX guard's fused XLA reduction
         "health_reduce": ("stencil_tpu_torch/csrc/health_reduce.cu",
                           "stencil_tpu/fault/health.py:84"),
+        # the uneven ring: each block's hi side at its own size (sz_my)
+        "remote_axis_uneven": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                               "stencil_tpu/ops/remote_dma.py:118"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -4,15 +4,18 @@ The port's counterpart of ``stencil_tpu.api`` (reference:
 include/stencil/stencil.hpp:33-225, src/stencil.cu). The surface is kept:
 ``set_radius`` -> ``add_data`` -> ``realize`` -> loop {compute /
 ``exchange`` / ``swap``}. With one device the port realizes one block (the
-default), or any uniform partition (``set_partition``) with every block
-resident on the device, as the JAX package stacks residents when a
-partition has more blocks than devices. With a list of N devices
+default), or any partition (``set_partition``), uniform or uneven (the
+reference's remainder rule: trailing blocks one cell smaller along an axis),
+with every block resident on the device, as the JAX package stacks
+residents when a partition has more blocks than devices. With a list of N devices
 (``set_devices``, which may name one card N times: the reference's
 ``dd.set_gpus({0,0})``, stencil.hpp:154) it realizes a mesh of N block
 positions, one block per position, each its own allocation, exchanged by
-``Method.REMOTE_DMA``. The exchange is ``parallel.exchange.HaloExchange``:
+``Method.REMOTE_DMA``; a count such as 6 splits 512^3 unevenly, (3,2,1) with
+x blocks of 171/171/170. The exchange is ``parallel.exchange.HaloExchange``:
 axis-composed, or remote-dma (with its fused and persistent kernel
-variants) on one block or over the mesh.
+variants; persistent on uniform partitions only) on one block or over the
+mesh.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -156,14 +159,12 @@ class DistributedDomain:
 
     def set_partition(self, dim) -> None:
         """Pin the partition grid (blocks along x, y, z): every block
-        resident on the one device, or one block per position of a mesh;
-        the partition must divide the domain evenly."""
+        resident on the one device, or one block per position of a mesh.
+        Any partition ``GridSpec`` takes, uneven included: an axis that the
+        block count does not divide gives its trailing blocks one cell
+        less."""
         dim = Dim3.of(dim)
-        s = self.size
-        if s.x % dim.x or s.y % dim.y or s.z % dim.z:
-            raise NotImplementedError(
-                f"uneven partition {dim} of {s}: uneven resident partitions are "
-                "item 1 of ROADMAP.md's list of what the resident path still lacks")
+        GridSpec(self.size, dim, Radius.constant(0))  # raises for an impossible split
         self._partition_dim = dim
 
     # -- realize -------------------------------------------------------------

@@ -1,14 +1,18 @@
 """jacobi3d — 7-point Jacobi heat diffusion on one GPU.
 
-``run(..., partition=(px, py, pz))`` splits the domain into a uniform
-partition with every block on the one GPU (as in the JAX app, the CLI has
-no flag for it). ``run(..., devices=[...], method=Method.REMOTE_DMA)`` (CLI
+``run(..., partition=(px, py, pz))`` splits the domain into a partition,
+uniform or uneven (trailing blocks one cell smaller where the count does
+not divide an axis), with every block on the one GPU (as in the JAX app,
+the CLI has no flag for it). ``run(..., devices=[...], method=Method.REMOTE_DMA)`` (CLI
 ``--devices cuda:0,cuda:0,...``) runs a mesh of one block position per
 entry, repeats allowed (the reference's ``set_gpus({0,0})``), weak-scaled
 by their number as in the JAX app: per step the remote-dma exchange, then
 one sweep per position; with ``kernel_variant="fused"`` one fused step
 launch per step over every position, with ``"persistent"`` one chunk
-launch per ``deep_halo`` steps.
+launch per ``deep_halo`` steps. A device count such as 6 at ``--no-weak``
+splits 512^3 unevenly, (3,2,1) with x blocks of 171/171/170: the plain and
+fused variants run it (fused by the host-orchestrated schedule, as in the
+JAX package); the persistent one raises.
 
 The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
 bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,
@@ -113,7 +117,8 @@ def run(
     realized ``domain`` and the temperature ``handle``).
 
     ``partition`` (blocks along x, y, z; default one block) splits the
-    domain into a uniform partition whose blocks all sit on the device.
+    domain into a partition, uniform or uneven, whose blocks all sit on
+    the device.
     ``overlap`` picks the multi-block step's structure (and lets the
     multistep engage there); on a single block every axis wraps inside the
     kernels and no exchange runs, so there is nothing to overlap.

@@ -87,7 +87,10 @@ def kernel_supported(spec: GridSpec, resident) -> bool:
     """What the fused and the persistent kernels take: uniform partitions,
     one resident block per device (the JAX package's
     ``fused_kernel_supported`` and ``persistent_kernel_supported``).
-    ``HaloExchange`` refuses either variant without it."""
+    ``HaloExchange`` refuses either variant on resident blocks; on an uneven
+    mesh the fused variant exchanges through the axis carrier and steps by
+    the host-orchestrated schedule (``ops/jacobi.py``), and the persistent
+    variant raises."""
     return spec.is_uniform() and Dim3.of(resident) == Dim3(1, 1, 1)
 
 

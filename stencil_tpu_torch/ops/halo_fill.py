@@ -174,7 +174,9 @@ def wire_round(t: torch.Tensor, wire) -> torch.Tensor:
 
 def axis_geom(spec: GridSpec, axis: str) -> Tuple[int, int, int, int]:
     """``(offset, size, rm, rp)`` of one axis: compute-region origin and
-    extent in the padded block, and the lo / hi halo widths."""
+    base (largest) extent in the padded block, and the lo / hi halo widths.
+    On a multi-block axis of an uneven partition a block's own size is
+    :func:`axis_sizes`'s."""
     off = spec.compute_offset()
     r = spec.radius
     if axis == "x":
@@ -184,6 +186,14 @@ def axis_geom(spec: GridSpec, axis: str) -> Tuple[int, int, int, int]:
     if axis == "z":
         return off.z, spec.base.z, r.z(-1), r.z(1)
     raise ValueError(f"unknown axis {axis!r}")
+
+
+def axis_sizes(spec: GridSpec, axis: str) -> Tuple[int, ...]:
+    """The block sizes along one axis, one per block index. ``axis_geom``'s
+    size is the base (largest) one; on an uneven partition a block's hi
+    side starts at its own size (a self-wrap axis has one block, whose size
+    is the base)."""
+    return {"x": spec.sizes_x, "y": spec.sizes_y, "z": spec.sizes_z}[axis]
 
 
 def _axis_slice(t: torch.Tensor, axis: str, lo: int, hi: int):

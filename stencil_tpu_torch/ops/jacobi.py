@@ -21,7 +21,11 @@ then re-sweeps the multi-block axes' shells from the exchanged halos
 multi-block axes and sweeps. With overlap and a depth k >= 2 (the deep
 halo, radius >= k), one exchange of the multi-block axes feeds each k-step
 multistep pass over every resident at its own global origin, and the
-``iters % k`` tail runs the overlap step.
+``iters % k`` tail runs the overlap step. On an uneven resident partition
+the JAX package keeps its XLA path (no Pallas, no overlap shells, no
+multistep), and so does the schedule here: each step is the full exchange,
+then one sweep of every block's full base extent reading the filled halos
+(cells past a smaller block's own size are dead pad).
 
 The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
@@ -35,7 +39,12 @@ step is one launch of the fused kernel's wire-crossing form over every
 position (:func:`fused_stencil.fused_jacobi_mesh`); the persistent chunk
 one launch of the chunk kernel's wire-crossing form
 (:func:`persistent_stencil.persistent_jacobi_mesh`), after the axis
-carrier has filled ``sel``'s deep halos once per loop call.
+carrier has filled ``sel``'s deep halos once per loop call. On an uneven
+mesh the plain step keeps its shape (the axis carrier takes the uneven
+ring); the fused step kernel is uniform-only, as on the TPU, so the fused
+variant runs the JAX package's host-orchestrated schedule
+(:func:`_uneven_fused_loop`), and the persistent variant is refused by the
+exchange.
 
 :func:`make_batched_jacobi_loop` steps a campaign slot, a ``(B, pz, py,
 px)`` stack of independent single-block tenants: one tenant-form sweep
@@ -57,10 +66,12 @@ from ..parallel.mesh import DeviceMesh
 from ..utils import logging as log
 from ..utils import timer
 from . import _native
-from .fused_stencil import NO_WRAP, fused_jacobi, fused_jacobi_mesh, require_face_radius
+from .fused_stencil import (NO_WRAP, fused_jacobi, fused_jacobi_mesh, kernel_supported,
+                            require_face_radius)
 from .halo_fill import wrap_fill_batched
 from .persistent_stencil import (check_chunk_depth, chunk_schedule, persistent_jacobi,
                                  persistent_jacobi_mesh, result_in_nxt)
+from .shells import dyn_block_sizes, include_axes, shell_regions
 from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
@@ -207,7 +218,13 @@ def _step_body(ex, overlap: bool):
     if not axes:  # every axis wraps inside the kernel: no exchange at all
         return lambda curr, nxt, sel: (sweep(curr, nxt, sel, spec, wrap), curr)
     require_face_radius(spec)
-    if overlap:
+    if not spec.is_uniform():
+        # the JAX package's XLA path for an uneven resident partition:
+        # serialized, the full exchange, then the full base extent
+        def body(curr, nxt, sel):
+            ex(curr)
+            return sweep(curr, nxt, sel, spec, NO_WRAP), curr
+    elif overlap:
         def body(curr, nxt, sel):
             # the sweep reads pre-exchange data; the shells' stencils also
             # read the single-block axes' halos, so the FULL exchange runs
@@ -262,14 +279,46 @@ def _remote_loop(ex, iters: int, temporal_k):
     return loop
 
 
+def _uneven_fused_loop(ex, iters: int):
+    """Fused remote-dma over an uneven mesh: the JAX package's
+    host-orchestrated schedule (``stencil_tpu/ops/jacobi.py``
+    ``_compile_jacobi_fused``), since the fused step kernel (B8) and the
+    fused exchange carrier (B7) take uniform partitions only, as on the
+    TPU. Per step: one full-base no-wrap sweep of every position on the
+    pre-exchange state; the mesh exchange (B6's uneven ring, B4 on the
+    single-position axes); then every side's boundary shell of every
+    position (``ops/shells``, at the block's own size on the hi side)
+    re-swept from the exchanged state (``sweep_region``); then the swap."""
+    spec, mesh = ex.spec, ex.mesh
+    bspec = spec.block_spec()
+    include = include_axes(spec, multi_block_only=False)
+    shells = [shell_regions(spec, dyn_block_sizes(spec, pos), include)
+              for pos in mesh.positions()]
+
+    def loop(curr, nxt, sel):
+        for _ in range(iters):
+            out = [sweep(c, n, s, bspec, NO_WRAP) for c, n, s in zip(curr, nxt, sel)]
+            ex(curr)
+            for c, o, s, rects in zip(curr, out, sel, shells):
+                for rect in rects:
+                    sweep_region(c, o, s, bspec, rect)
+            curr, nxt = out, curr
+        return curr, nxt
+
+    return loop
+
+
 def _fused_loop(ex, iters: int, temporal_k):
     """Fused remote-dma: one fused step kernel per step (halo hand-offs into
     ``curr`` and the sweep into ``nxt``; over a mesh, every position's
     messages and sweeps in one launch, the crossing ones through the
-    exchange's wire), then the swap."""
+    exchange's wire), then the swap. An uneven mesh runs
+    :func:`_uneven_fused_loop` instead."""
     require_face_radius(ex.spec)
     _ignored(temporal_k, "the FUSED path runs one fused exchange+sweep substep per step")
     spec, plan, mesh = ex.spec, ex.plan, ex.mesh
+    if not kernel_supported(spec, ex.resident):
+        return _uneven_fused_loop(ex, iters)
     if ex.on_mesh:
         def step(curr, nxt, sel):
             return fused_jacobi_mesh(curr, nxt, sel, spec, plan, mesh, ex.wire_dtype)
@@ -356,8 +405,9 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
     ``k`` is the deepest of ``min(12, (nz - 1) // 2, iters)`` (further
     capped by ``temporal_k`` and, on a multi-block partition, by the
     multi-block axes' radii) that :func:`plan_multistep_depth` takes. On a
-    multi-block partition the multistep engages only with ``overlap``, as
-    in the JAX package. ``standard_spheres`` declares that ``sel`` holds
+    multi-block partition the multistep engages only with ``overlap``, and
+    on an uneven partition never (``k`` = 0), as in the JAX package.
+    ``standard_spheres`` declares that ``sel`` holds
     the standard jacobi3d spheres (``sphere_sel(global_size)``): only then
     may the multistep run, since it derives the spheres from coordinates
     instead of reading ``sel``. The chosen depth is ``loop.temporal_k``
@@ -384,7 +434,8 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
                              (r.z(1), r.y(1), r.x(1))):
             if m:
                 k_want = min(k_want, rl, rh)
-        k = plan_multistep_depth(k_want) if standard_spheres and (overlap or not axes) else 0
+        k = (plan_multistep_depth(k_want)
+             if standard_spheres and (overlap or not axes) and spec.is_uniform() else 0)
         if k < 2:
             k = 0
         step = _step_body(ex, overlap)

@@ -34,6 +34,18 @@ straight into its ring neighbours' halos:
   last exchange, as the JAX transport counts its remote copies (one per
   side, position and dtype group: independent of the quantity count).
 
+Uneven (remainder) partitions, as the TPU kernel takes them: along a ring
+the slab extents are the same for every block, and only where a block's
+hi side starts depends on its own size ``n_i`` (the TPU kernel reads it
+from the plan's size table as ``sz_my``). Each block's hi slab is
+``[o + n_i - rm, o + n_i)`` and its hi halo ``[o + n_i, o + n_i + rp)``.
+The kernel keeps the uniform work list and takes the uneven ring through
+its pointer table (:func:`remote_axis_shifts`): the box that sends the hi
+slab forward moves its sender's pointer by ``(n_i - base)`` planes, rows or
+words, and the box that sends the lo slab back moves its receiver's; in
+the x phase's paired segment both hi sides are the sender's. One launch
+per phase and dtype group, as on a uniform ring.
+
 Ordering. Within a phase every read is of a compute row along the axis and
 every write of a halo row along it, which are disjoint (the block is at
 least the radius wide), so positions may run in any order inside a launch.
@@ -49,8 +61,7 @@ on distinct devices is refused.
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
 ``remote_axis.launches``, those through a narrowed wire also in
-``remote_axis.narrowed``. Not ported: the uneven ring's size table
-(ROADMAP.md queue B).
+``remote_axis.narrowed``.
 """
 
 from __future__ import annotations
@@ -61,18 +72,14 @@ import torch
 
 from ..domain.grid import GridSpec
 from . import _native, row_moves
-from .halo_fill import (MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, dtype_groups, self_fill,
-                        wire_code, wire_round)
+from .halo_fill import (MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, axis_sizes,
+                        dtype_groups, self_fill, wire_code, wire_round)
 
 
 def _check_mesh_blocks(blocks_by_position: Sequence[Sequence[torch.Tensor]], spec: GridSpec,
                        mesh) -> torch.device:
     """Every position holds the same number of same-dtype, contiguous padded
     blocks of ``spec`` on the mesh's one device; returns that device."""
-    if not spec.is_uniform():
-        raise NotImplementedError(
-            f"uneven partition {spec.dim} of {spec.global_size}: the mesh kernels take "
-            "uniform partitions (the uneven ring's size table is ROADMAP.md queue B)")
     if len(blocks_by_position) != len(mesh):
         raise ValueError(f"{len(blocks_by_position)} block groups for {len(mesh)} positions")
     dev = mesh.device
@@ -106,22 +113,32 @@ def _check_phase(spec: GridSpec, phase, mesh) -> None:
     if mesh.ring(phase.axis) != phase.ring:
         raise ValueError(f"phase ring {phase.ring} != the mesh's {mesh.ring(phase.axis)} "
                          f"positions along {phase.axis}")
-    _o, n, rm, rp = axis_geom(spec, phase.axis)
+    _o, _n, rm, rp = axis_geom(spec, phase.axis)
+    n = min(axis_sizes(spec, phase.axis))
     if n < max(rm, rp):
         raise ValueError(f"{phase.axis}-axis block size {n} < radius {max(rm, rp)}")
 
 
+def ring_sizes(spec: GridSpec, axis: str, mesh):
+    """Each position's block size along ``axis``, in the mesh's flat order."""
+    sizes, k = axis_sizes(spec, axis), "xyz".index(axis)
+    return tuple(sizes[pos[k]] for pos in mesh.positions())
+
+
 def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
     """One axis phase in plain PyTorch, position by position: each block's
-    hi slab ``[o + n - rm, o + n)`` along ``phase.axis`` -> its forward ring
-    neighbour's lo halo ``[o - rm, o)``, its lo slab ``[o, o + rp)`` -> its
-    backward neighbour's hi halo ``[o + n, o + n + rp)``, over the full
-    padded extent of the other axes, for every quantity of the group, each
-    slab through the narrowed ``wire`` when one is given
-    (``halo_fill.wire_round``). In place; returns ``blocks_by_position``."""
-    o, n, rm, rp = axis_geom(spec, phase.axis)
+    hi slab ``[o + n_i - rm, o + n_i)`` along ``phase.axis`` (``n_i`` its own
+    size, :func:`ring_sizes`) -> its forward ring neighbour's lo halo
+    ``[o - rm, o)``, its lo slab ``[o, o + rp)`` -> its backward neighbour
+    ``b``'s hi halo ``[o + n_b, o + n_b + rp)``, over the full padded extent
+    of the other axes, for every quantity of the group, each slab through
+    the narrowed ``wire`` when one is given (``halo_fill.wire_round``). In
+    place; returns ``blocks_by_position``."""
+    o, _base, rm, rp = axis_geom(spec, phase.axis)
+    sizes = ring_sizes(spec, phase.axis, mesh)
     for i, pos in enumerate(mesh.positions()):
         bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(pos, phase.axis))
+        n, nb = sizes[i], sizes[bwd]
         for q, src in enumerate(blocks_by_position[i]):
             if rm:
                 dst = blocks_by_position[fwd][q]
@@ -129,7 +146,7 @@ def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh, wire=None
                     src[_axis_slice(src, phase.axis, o + n - rm, o + n)], wire)
             if rp:
                 dst = blocks_by_position[bwd][q]
-                dst[_axis_slice(dst, phase.axis, o + n, o + n + rp)] = wire_round(
+                dst[_axis_slice(dst, phase.axis, o + nb, o + nb + rp)] = wire_round(
                     src[_axis_slice(src, phase.axis, o, o + rp)], wire)
     return blocks_by_position
 
@@ -170,6 +187,27 @@ def remote_axis_work(spec: GridSpec, axis: str, vec: bool, word: int, m: int,
                                (narrow,) * len(boxes))
 
 
+def remote_axis_shifts(spec: GridSpec, axis: str, mesh) -> dict:
+    """The uneven ring's pointer moves (``row_moves.pointer_rows``): for
+    each pointer group's step of the phase's work list, the word offset
+    ``(n_i - base) * stride`` of each position's hi side, on the block
+    whose hi side the group's box touches: the sender's for the hi slab
+    sent forward (and both halves of the x phase's paired segment), the
+    receiver's for the lo slab sent back into its hi halo. Empty on a
+    uniform ring."""
+    o, base, rm, rp = axis_geom(spec, axis)
+    sizes = ring_sizes(spec, axis, mesh)
+    if all(n == base for n in sizes):
+        return {}
+    p = spec.padded()
+    stride = {"x": 1, "y": p.x, "z": p.y * p.x}[axis]
+    hi = tuple((n - base) * stride for n in sizes)
+    _boxes, steps, pairs = remote_axis_boxes(axis, (o, base, rm, rp), (p.z, p.y, p.x))
+    partners = {c for _b, c in pairs}
+    return {step: ((hi, None) if sum(step) > 0 else (None, hi))
+            for b, step in enumerate(steps) if b not in partners}
+
+
 def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
     """One axis phase of the remote-dma exchange (see
     :func:`remote_axis_plain`) for a same-dtype group: ``blocks_by_position[i]``
@@ -178,7 +216,8 @@ def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
     narrowed wire dtype or None. CPU tensors take :func:`remote_axis_plain`;
     CUDA tensors launch ``csrc/remote_axis.cu`` once for every position and
     quantity (the work list of :func:`remote_axis_work`, with the wire's
-    code for the group's dtype), or raise. In place; returns
+    code for the group's dtype; on an uneven ring the pointers moved by
+    :func:`remote_axis_shifts`), or raise. In place; returns
     ``blocks_by_position``."""
     _check_phase(spec, phase, mesh)
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
@@ -186,11 +225,13 @@ def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
         return remote_axis_plain(blocks_by_position, spec, phase, mesh, wire)
     p = spec.padded()
     code = wire_code(blocks_by_position[0][0].dtype, wire)
-    geometry = (phase.axis, axis_geom(spec, phase.axis), (p.z, p.y, p.x))
+    geometry = (phase.axis, axis_geom(spec, phase.axis), (p.z, p.y, p.x),
+                axis_sizes(spec, phase.axis))
     rc = row_moves.launch_moves(
         _native.lib("remote_axis").remote_axis_launch, "remote_axis", geometry,
         lambda vec, word, m: remote_axis_work(spec, phase.axis, vec, word, m, code != 0),
-        blocks_by_position, mesh, p.y * p.x, p.x, dev, code)
+        blocks_by_position, mesh, p.y * p.x, p.x, dev, code,
+        lambda: remote_axis_shifts(spec, phase.axis, mesh))
     _native.check(rc, f"remote_axis[{phase.axis}]")
     remote_axis.launches += 1
     remote_axis.narrowed += code != 0
@@ -214,13 +255,17 @@ def remote_axis_sector_bytes(spec: GridSpec, phase, nq: int, positions: int,
                              itemsize: int) -> int:
     """The 32-byte sectors one phase must touch for ``nq`` quantities over
     ``positions`` blocks: a block's two slabs' sectors read once and its two
-    halos' sectors written once (``row_moves.sector_bytes``). In the x phase
-    a row end of a few words costs its whole sector, so this is that
-    phase's floor."""
+    halos' sectors written once (``row_moves.sector_bytes``), at the block's
+    own size along the ring (each index of the ring's size table holds
+    ``positions / ring`` blocks). In the x phase a row end of a few words
+    costs its whole sector, so this is that phase's floor."""
     p = spec.padded()
-    boxes, _steps, _pairs = remote_axis_boxes(phase.axis, axis_geom(spec, phase.axis),
-                                              (p.z, p.y, p.x))
-    return row_moves.sector_bytes(boxes, p.y * p.x, p.x, itemsize) * nq * positions
+    o, _base, rm, rp = axis_geom(spec, phase.axis)
+    sizes = axis_sizes(spec, phase.axis)
+    per = sum(row_moves.sector_bytes(
+        remote_axis_boxes(phase.axis, (o, n, rm, rp), (p.z, p.y, p.x))[0], p.y * p.x, p.x,
+        itemsize) for n in sizes)
+    return per * nq * positions // len(sizes)
 
 
 def self_wrap_positions(state, keys, spec: GridSpec, axis: str) -> None:

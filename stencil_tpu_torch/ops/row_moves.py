@@ -21,8 +21,13 @@ cells into a box of a receiver block's halo; it moves by rows, and
 each segment flagged ``narrow`` when its box's messages cross between
 positions under a narrowed wire (``csrc/wire_round.cuh``: the kernel rounds
 those words between load and store); :func:`launch_moves` uploads it with
-the pointer rows, once per geometry, wire and set of block addresses, and
-launches a carrier's entry with the launch's wire code.
+the pointer rows (:func:`pointer_rows`), once per geometry, wire and set of
+block addresses, and launches a carrier's entry with the launch's wire
+code. On an uneven ring the blocks differ only in where their hi side
+starts along the phase axis; every instance shares the work list's box
+coordinates, and the pointer of the block whose hi side a box touches is
+moved by that block's offset, so the kernel and the work list stay those
+of a uniform ring.
 The launch shape (:func:`move_shape`) is mirrored from the header, so the
 CPU tests hold the work lists to the plain versions.
 """
@@ -183,34 +188,52 @@ def move_work(boxes, steps, sz: int, sy: int, vec: bool, word: int, pairs, m: in
     return MoveWork(tuple(rows), tuple(steps[b] for b in own), start)
 
 
+def pointer_rows(ptrs, nq: int, mesh, steps, word: int, shifts=None) -> List[int]:
+    """The pointer table of a launch: for each group's step and each sender
+    position and quantity, (sender block, block at the sender's position +
+    step), from ``ptrs`` (position-major, then quantity). ``shifts`` maps a
+    step to ``(sender, receiver)``, each None or one word offset a position
+    (flat order), added to the pointer of that group's sender block or, by
+    the receiver's position, of its receiver block: the uneven ring's hi
+    sides (``remote_dma.remote_axis_shifts``)."""
+    rows = []
+    for step in steps:
+        dests = mesh.destinations(step)
+        s_off, r_off = (shifts or {}).get(step, (None, None))
+        for i in range(len(mesh)):
+            for q in range(nq):
+                rows += [ptrs[i * nq + q] + (word * s_off[i] if s_off else 0),
+                         ptrs[dests[i] * nq + q] + (word * r_off[dests[i]] if r_off else 0)]
+    return rows
+
+
 def launch_moves(entry, name: str, geometry, work_of, blocks_by_position, mesh, sz: int,
-                 sy: int, dev, wire: int = 0) -> int:
+                 sy: int, dev, wire: int = 0, shifts_of=None) -> int:
     """Call a carrier's C entry (``remote_axis_launch`` or
     ``fused_exchange_launch``) for the group of ``blocks_by_position`` with
     the wire code ``wire`` (``halo_fill.wire_code``; 0 copies bits);
     ``work_of(vec, word, m)`` gives the work list of ``geometry`` (which,
     with the mesh, the quantities, the word and the wire, must determine
-    it). The
+    it). ``shifts_of()`` gives the shifts (see :func:`pointer_rows`) that
+    move the pointers of an uneven ring's hi sides, which ``geometry``
+    must also determine; it keeps one launch per call. The
     first call for a geometry and set of block addresses chooses 16-byte
-    units (every address and both strides on the 16-byte grid) and uploads
-    one device table: the pointer rows, for each group's step and each
-    sender position and quantity (sender block, block at the sender's
-    position + step), then the work list's rows. The table and the launch's
-    other arguments are kept together (``_native.kept``), so later calls
-    find them by one key. Returns the CUDA error code."""
+    units (every address the kernel is given, shifts included, and both
+    strides on the 16-byte grid) and uploads one device table: the pointer
+    rows (:func:`pointer_rows`), then the work list's rows. The table and
+    the launch's other arguments are kept together (``_native.kept``), so
+    later calls find them by one key. Returns the CUDA error code."""
     nq, word = len(blocks_by_position[0]), blocks_by_position[0][0].element_size()
     ptrs = tuple(b.data_ptr() for group in blocks_by_position for b in group)
 
     def make():
-        vec = all(p % VECTOR_BYTES == 0 for p in ptrs) and \
+        shifts = shifts_of() if shifts_of is not None else {}
+        moved = [p + word * (off[i // nq] if off else 0) for pair in shifts.values()
+                 for off in pair for i, p in enumerate(ptrs)]
+        vec = all(p % VECTOR_BYTES == 0 for p in ptrs + tuple(moved)) and \
             (sz * word) % VECTOR_BYTES == 0 and (sy * word) % VECTOR_BYTES == 0
         work = work_of(vec, word, len(ptrs))
-        rows = []
-        for step in work.steps:
-            dests = mesh.destinations(step)
-            for i in range(len(mesh)):
-                for q in range(nq):
-                    rows += [ptrs[i * nq + q], ptrs[dests[i] * nq + q]]
+        rows = pointer_rows(ptrs, nq, mesh, work.steps, word, shifts)
         table = _native.upload(rows + [v for row in work.rows for v in row], dev)
         segs = table.data_ptr() + 8 * len(rows)
         return (table, len(ptrs), segs, len(work.rows), work.tasks, word, wire, sz, sy)

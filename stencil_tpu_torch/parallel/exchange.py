@@ -1,8 +1,9 @@
 """Periodic halo exchange of a domain whose blocks all sit on one device.
 
 The port's counterpart of ``stencil_tpu.parallel.exchange`` for one device:
-a (1,1,1) partition, or any uniform partition with every block resident on
-the device (the JAX package's oversubscribed layout, reference
+a (1,1,1) partition, or any partition, uniform or uneven (the reference's
+remainder rule, ``domain/grid.py``), with every block resident on the
+device (the JAX package's oversubscribed layout, reference
 ``dd.set_gpus({0,0})``, stencil.hpp:154). The axis-composed exchange runs
 the phases x then y then z; each spans the full padded extent of the other
 axes, so edges and corners compose exactly as in the JAX package.
@@ -19,7 +20,10 @@ axes, so edges and corners compose exactly as in the JAX package.
   halo takes its lo neighbour's hi boundary slab and its hi halo its hi
   neighbour's lo slab, cyclically (the ring is this one device). Per phase
   side and quantity, one rolled copy of the boundary slabs of every
-  resident moves them all (``torch.roll`` along the block dim).
+  resident moves them all (``torch.roll`` along the block dim). On an
+  uneven axis each block's hi slab and hi halo sit at its own size
+  (``o + n_i``), as in the JAX package's per-block offsets
+  (``_resident_sizes``): one indexed copy per block and side.
 
 ``Method.REMOTE_DMA`` moves the same composed slabs by copies a kernel
 issues; on one block every phase wraps onto the block itself, so its
@@ -40,7 +44,12 @@ axis carrier (``ops/remote_dma.RemoteDmaExchange``; also with
 ``persistent``, at the deep radius) or, with ``fused``, the fused exchange
 carrier (``ops/fused_stencil.FusedRemoteDmaExchange``). The fused and
 persistent jacobi loops then step through their kernels' wire-crossing
-forms, one launch over every position (``ops/jacobi.py``).
+forms, one launch over every position (``ops/jacobi.py``). On an uneven
+partition the axis carrier takes the uneven ring (B6's size table); the
+fused exchange carrier, the fused step and the persistent chunk take
+uniform partitions only, as on the TPU, so ``fused`` exchanges through the
+axis carrier and steps by the JAX package's host-orchestrated schedule,
+and ``persistent`` raises.
 The mesh's positions must share one device (the reference's
 ``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
 waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
@@ -64,8 +73,8 @@ import torch
 from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, halo_extent
 from ..ops.fused_stencil import FusedRemoteDmaExchange, kernel_supported
-from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom, dtype_groups,
-                             self_fill, wire_name)
+from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom, axis_sizes,
+                             dtype_groups, self_fill, wire_name)
 from ..ops.remote_dma import RemoteDmaExchange
 from ..plan.ir import build_plan
 from .mesh import DeviceMesh
@@ -96,11 +105,12 @@ def direction_bytes(spec: GridSpec, direction, itemsize: int) -> int:
 
 class HaloExchange:
     """The exchange of a domain whose blocks all sit on one device:
-    axis-composed over any uniform partition, or remote-dma (with its
-    ``fused`` or ``persistent`` kernel variant) on one block; or, with
-    ``mesh`` of several positions, remote-dma over the mesh (the axis
-    carrier, or the fused exchange carrier with ``fused``), again with
-    either kernel variant. ``wire_dtype`` narrows the carriers crossing
+    axis-composed over any partition, uniform or uneven, or remote-dma
+    (with its ``fused`` or ``persistent`` kernel variant) on one block; or,
+    with ``mesh`` of several positions, remote-dma over the mesh (the axis
+    carrier, or the fused exchange carrier with ``fused`` on a uniform
+    partition), again with either kernel variant (``persistent`` on a
+    uniform partition only). ``wire_dtype`` narrows the carriers crossing
     between positions (a no-op on one device); the persistent variant
     over a mesh refuses it."""
 
@@ -142,24 +152,25 @@ class HaloExchange:
                     "form and narrows nothing; on the CPU its once-a-chunk deep exchange "
                     "narrows), so the port matches neither (ROADMAP.md queue C, \"Design "
                     "divergences\")")
-        if (self.fused or self.persistent) and not kernel_supported(spec, self.resident):
+        if (self.fused or self.persistent) and self.oversubscribed:
             variant = "fused compute+exchange" if self.fused else "persistent whole-chunk"
             raise ValueError(
                 f"the {variant} variant supports single-resident partitions "
                 f"only (got resident {self.resident}); use plain REMOTE_DMA "
                 "or AXIS_COMPOSED for oversubscription")
+        if self.persistent and not spec.is_uniform():
+            raise NotImplementedError(
+                f"uneven partition {spec.dim} of {spec.global_size}: the persistent chunk "
+                "kernel is uniform-only, as on the TPU; the JAX package's XLA chunk body is "
+                "ROADMAP.md queue A item 2.6")
         if method == Method.REMOTE_DMA and self.oversubscribed:
             raise NotImplementedError(
                 f"REMOTE_DMA on resident blocks (partition {spec.dim} on one device) is "
                 "item 3 of ROADMAP.md's list of what the resident path still lacks; "
                 "use AXIS_COMPOSED")
-        if not spec.is_uniform():
-            raise NotImplementedError(
-                f"uneven partition {spec.dim} of {spec.global_size}: uneven resident "
-                "partitions are item 1 of ROADMAP.md's list of what the resident path "
-                "still lacks")
         for axis in AXIS_ORDER:
-            _o, n, rm, rp = axis_geom(spec, axis)
+            _o, _n, rm, rp = axis_geom(spec, axis)
+            n = min(axis_sizes(spec, axis))
             if n < max(rm, rp):
                 raise ValueError(
                     f"{axis}-axis block size {n} < radius {max(rm, rp)}: "
@@ -175,7 +186,9 @@ class HaloExchange:
         self._loops = {}
         self._remote = None
         if self.mesh is not None:
-            self._remote = (FusedRemoteDmaExchange if self.fused else RemoteDmaExchange)(self)
+            # the fused exchange carrier (B7) is uniform-only, as on the TPU
+            fused_carrier = self.fused and kernel_supported(spec, self.resident)
+            self._remote = (FusedRemoteDmaExchange if fused_carrier else RemoteDmaExchange)(self)
 
     @staticmethod
     def _check_mesh(spec: GridSpec, method: Method, mesh: DeviceMesh) -> Dim3:
@@ -225,7 +238,7 @@ class HaloExchange:
             self.exchange({0: state}, axes)
             return state
         if self.mesh is not None:
-            if self.fused:
+            if isinstance(self._remote, FusedRemoteDmaExchange):
                 if axes is not None:
                     raise ValueError("the fused exchange moves every direction at once")
                 return self._remote(state)
@@ -259,14 +272,41 @@ class HaloExchange:
     def _resident_phase(self, t: torch.Tensor, phase) -> None:
         """One axis phase over the resident blocks of one quantity: the lo
         halos take the hi boundary slabs rolled one block up the block dim,
-        the hi halos the lo slabs rolled one block down (cyclic)."""
+        the hi halos the lo slabs rolled one block down (cyclic). On an
+        uneven axis, block by block at each block's own size."""
         o, n, rm, rp = axis_geom(self.spec, phase.axis)
+        if not phase.uniform:
+            self._uneven_resident_phase(t, phase)
+            return
         if rm:
             t[_axis_slice(t, phase.axis, o - rm, o)] = torch.roll(
                 t[_axis_slice(t, phase.axis, o + n - rm, o + n)], 1, phase.bdim)
         if rp:
             t[_axis_slice(t, phase.axis, o + n, o + n + rp)] = torch.roll(
                 t[_axis_slice(t, phase.axis, o, o + rp)], -1, phase.bdim)
+
+    def _uneven_resident_phase(self, t: torch.Tensor, phase) -> None:
+        """:meth:`_resident_phase` on an uneven axis (the JAX package's
+        ``_axis_phase_resident_batched`` at ``_resident_sizes``): block
+        ``j``'s hi slab ``[o + n_j - rm, o + n_j)`` -> block ``j + 1``'s lo
+        halo ``[o - rm, o)``; block ``j``'s lo slab ``[o, o + rp)`` -> block
+        ``j - 1``'s hi halo ``[o + n_{j-1}, o + n_{j-1} + rp)``, cyclically.
+        Every read is of compute cells and every write of halo cells, so
+        the copies need no staging."""
+        o, _n, rm, rp = axis_geom(self.spec, phase.axis)
+        sizes = phase.sizes
+        c = len(sizes)
+        blocks = t.unbind(phase.bdim)
+        for j, src in enumerate(blocks):
+            n = sizes[j]
+            if rm:
+                dst = blocks[(j + 1) % c]
+                dst[_axis_slice(dst, phase.axis, o - rm, o)] = \
+                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)]
+            if rp:
+                dst, nb = blocks[(j - 1) % c], sizes[(j - 1) % c]
+                dst[_axis_slice(dst, phase.axis, o + nb, o + nb + rp)] = \
+                    src[_axis_slice(src, phase.axis, o, o + rp)]
 
     def make_loop(self, iters: int):
         """``loop(state) -> state`` running ``iters`` back-to-back exchanges

@@ -101,10 +101,14 @@ def test_domain_global_roundtrip_and_regions():
 def test_multi_block_raises():
     """Several devices under the axis-composed method raise (a mesh of
     positions runs REMOTE_DMA only); an uneven partition (every block on
-    the one device) is a ROADMAP item; a uniform one realizes."""
+    the one device, x blocks of 6/5/5) and a uniform one realize."""
+    three = DistributedDomain(16, 16, 16, device="cpu")
+    three.set_partition((3, 1, 1))
+    three.add_data("t", "float32")
+    three.realize()
+    assert three.spec.sizes_x == (6, 5, 5) and three.halo_exchange.oversubscribed
+    assert [r.extent().x for r in three.get_interior()] == [6, 5, 5]
     dd = DistributedDomain(16, 16, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dd.set_partition((3, 1, 1))
     two = DistributedDomain(16, 16, 16, device="cpu")
     two.set_devices(["cpu", "cpu"])
     two.add_data("t", "float32")

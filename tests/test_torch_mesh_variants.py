@@ -458,8 +458,27 @@ def test_mesh_variants_on_distinct_devices_raise(monkeypatch, variant):
 
 @pytest.mark.parametrize("variant", ["fused", "persistent"])
 def test_mesh_variants_on_uneven_partitions_raise(variant):
-    with pytest.raises(ValueError, match="variant supports single-resident partitions only"):
-        _domain(["cpu"] * 8, variant, size=(17, 16, 16)).realize()
+    """The persistent variant still raises on an uneven partition: its chunk
+    kernel is uniform-only, as on the TPU. The fused one runs the JAX
+    package's host-orchestrated schedule: 3 steps over 8 positions of a
+    17 x 16 x 16 domain equal the JAX loop's on the gathered compute region
+    and on the exchanged buffer's halo box at each block's own size."""
+    if variant == "persistent":
+        with pytest.raises(NotImplementedError, match="uneven partition.*the persistent chunk "
+                                                      "kernel is uniform-only, as on the TPU"):
+            _domain(["cpu"] * 8, variant, size=(17, 16, 16)).realize()
+        return
+    got, want, tex, _jex, tspec, jspec = both_loops((17, 16, 16), (2, 2, 2), 1, 3, 41,
+                                                    fused=True)
+    assert not tspec.is_uniform() and tex.fused
+    for key in ("c", "n"):
+        np.testing.assert_array_equal(compute(got[key], jspec), compute(want[key], jspec))
+    off = tspec.compute_offset()
+    for iz, iy, ix in np.ndindex(*tspec.stacked_shape_zyx()[:3]):
+        s = tspec.block_size((ix, iy, iz))
+        box = (iz, iy, ix, slice(off.z - 1, off.z + s.z + 1), slice(off.y - 1, off.y + s.y + 1),
+               slice(off.x - 1, off.x + s.x + 1))
+        np.testing.assert_array_equal(got["n"][box], want["n"][box])
 
 
 @pytest.mark.parametrize("variant", ["fused", "persistent"])

@@ -215,11 +215,22 @@ def test_axis_composed_on_a_mesh_raises():
 
 
 def test_uneven_partition_and_wire_dtype_raise():
-    """An uneven partition still raises; a wire over the mesh runs: the
-    domain's exchange with bf16 on the wire equals the JAX REMOTE_DMA
-    exchange with it on every cell."""
-    with pytest.raises(NotImplementedError, match="uneven"):
-        _domain(["cpu"] * 8, size=(17, 16, 16)).realize()
+    """Both now run. An uneven partition (x = 9 + 8) over 8 positions: the
+    domain's exchange through B6's uneven ring equals the JAX REMOTE_DMA
+    exchange on every cell. A wire over the mesh: the domain's exchange
+    with bf16 on the wire equals the JAX REMOTE_DMA exchange with it on
+    every cell."""
+    tspec, jspec, tmesh, jmesh = pair((17, 16, 16), (2, 2, 2), 1)
+    arrs = noisy(jspec, [F32], 17)
+    want = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA)(
+        {0: jax.device_put(arrs[0], NamedSharding(jmesh, BLOCK_PSPEC))})
+    dd = _domain(["cpu"] * 8, size=(17, 16, 16))
+    dd.realize()
+    assert dd.spec.sizes_x == (9, 8)
+    dd.set_curr(DataHandle(0, "t", "float32"), mesh_state_from_jax(arrs, tspec, tmesh)[0])
+    dd.exchange()
+    np.testing.assert_array_equal(mesh_state_to_numpy(dd.curr_state(), tspec)[0],
+                                  np.asarray(want[0]))
     tspec, jspec, tmesh, jmesh = pair((16, 16, 16), (2, 2, 2), 1)
     arrs = noisy(jspec, [F32, F64], 13)
     jex = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA, wire_dtype="bfloat16")

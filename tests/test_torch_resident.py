@@ -165,15 +165,24 @@ def test_self_wrap_axes_go_through_the_fill_wrapper(monkeypatch, part, dtypes):
 
 
 def test_exchange_refusals():
+    """REMOTE_DMA on resident blocks still raises; the uneven (1,1,2) split
+    of z = 21 (11 + 10) builds, as an exchange equal to the JAX package's
+    on every cell and as a domain."""
     tspec, _ = specs((12, 16, 20), (2, 2, 2), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpar.HaloExchange(tgrid.GridSpec(tgeo.Dim3(12, 16, 21), tgeo.Dim3(1, 1, 2),
-                                         tgeo.Radius.constant(1)))
+    tspec, jspec = specs((12, 16, 21), (1, 1, 2), 1)
+    tex, jex = tpar.HaloExchange(tspec), jpar.HaloExchange(jspec, one_device(jspec))
+    (arr,) = noisy_state(jspec, [np.float32], seed=21).values()
+    want = jex({0: jax.device_put(arr, jex.sharding())})[0]
+    t = torch.from_numpy(arr.copy())
+    tex(t)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want))
     dd = DistributedDomain(12, 16, 21, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dd.set_partition((1, 1, 2))
+    dd.set_partition((1, 1, 2))
+    dd.add_data("t", "float32")
+    dd.realize()
+    assert dd.spec.sizes_z == (11, 10)
 
 
 # -- the plan IR ---------------------------------------------------------------------
