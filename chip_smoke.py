@@ -20,10 +20,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               spill of each wire instantiation of the fused step (bf16,
               fp16, fp8 e4m3) and of the exchange carriers' row-move body
               (fp32 words unnarrowed and through bf16, fp16, fp8; fp64 words
-              also through fp32), the unnarrowed body held to no spill.
+              also through fp32), the unnarrowed body held to no spill;
+              the sweep kernel's (B1, the same body's flex_tile over a task
+              table) registers, spill bytes and blocks per SM, its launch
+              shape held to stencil_kernels' (no spill, 2 blocks of 352
+              threads; the fused step keeps 3).
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
-              odd sizes, non-wrapping axes, fp32 and fp64 fills; the
+              odd sizes, non-wrapping axes, fp32 and fp64 fills; the sweep
+              at 512^3 r1 and tight-x all-wrap, 100x70x50 unaligned,
+              256x64x40 tight-x, 33x21x13 r2 with z and x halos read,
+              67x45x29 and 130x70x40, each with random sel codes read on
+              every plane and on 6 planes, and the spheres on their planes;
+              the
               multistep at every k = 1..6 on 67x45x29 and 130x70x40 (ragged
               against its tile) with one and several z chunks and on the
               32^3 tenant size, tight-x at k = 2, 3, 5, 512^3 at the
@@ -88,8 +97,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               from random fields with noise in every halo) on (2,2,2) 512^3
               r4 at k = 2..4 (spheres crossing block edges), 100x70x60
               unaligned, (1,1,2) mixed wrap, and the (1,1,2) 128x16x20 case
-              whose spheres cross the periodic z edge; sweep_region on every
-              shell and the stacked sweep, the z-stack fill (x, y; fp32 and
+              whose spheres cross the periodic z edge; the stacked sweep and
+              every shell of every block in one launch (sweep_regions; and
+              sweep_region on one shell), random sel and the spheres on each
+              block's planes, the z-stack fill (x, y; fp32 and
               fp64) and the resident exchange (config 2, (1,1,2) and
               (2,1,1), on the card against the same exchange on the CPU,
               every cell, with its fill launches counted), all equal; 8
@@ -108,7 +119,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               sel) at B=64 of 32^3, B=3 of 33x21x13 r1 and r2, B=1 of 32^3 and
               B=70,000 of 4^3 (over the 65,535 limit of grid.y/z); a float64
               slot on the card raises; make_batched_jacobi_loop on the card
-              against the CPU (B=8 of 24^3, 3 steps, compute regions); the
+              against the CPU (B=8 of 24^3, 3 steps, compute regions; random
+              sel on the spheres' planes and on every plane, the CPU's then
+              zeroed off those planes, which the card does not read); the
               campaign CLI's A/B (apps.campaign.run_modes --mode ab
               --check-parity, 6 steps in chunks of 3) at 64 tenants of 32^3 and
               of 128^3, launch counts reset around each (6 tenant sweeps; 128
@@ -120,7 +133,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               nan@3 on t1 every time: t1 evicted with rc-43 evidence, the
               survivors byte-equal to a clean run, --resume revives t1
               byte-equal); the tenant sweep at B=64 of 128^3 against its plain
-              version (torch.equal), then timed per launch.
+              version (torch.equal), with the campaign's own call (the
+              spheres on their planes) at 64 of 32^3 and of 128^3 too, then
+              timed per launch.
 9. mesh -- eight block positions on the one card (DeviceMesh with the card
               named 8 times, one block per position, each its own
               allocation): the axis carrier remote_axis (every ring phase)
@@ -141,7 +156,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               field, bit-equal to the single-block default path; the main
               path apps.jacobi3d.run at 512^3 with devices=[cuda:0]*8 and
               method REMOTE_DMA (50 iters, chunks of 25: 225 remote_axis and
-              600 sweep launches, no other kernel), launch counts reset
+              75 sweep launches, one a step for the 8 positions, no other
+              kernel), launch counts reset
               around it; DistributedDomain.exchange_loop at config 2 through
               each carrier in GB/s beside the resident config-2 number of
               phase 7 and the Tensor.copy_ yardstick, and the B6 exchange's
@@ -150,8 +166,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               version, its bytes bound, its sector floor and Tensor.copy_
               (remote_axis per phase at config 2 and at 512^3 (2,2,2) r1,
               fused_exchange at both);
-              the per-position 256^3 sweep (no wrap) against its plain
-              version and timed per launch;
+              the sweep of the 8 positions of 256^3 in one launch (no wrap)
+              against its plain version, each position's spheres on its own
+              planes and random sel, timed per launch, and one position
+              alone;
               then the narrowed wire (mesh_wire_phase): remote_axis and
               fused_exchange with a wire against their plain versions by bit
               pattern on every cell of every position (NaN as one pattern)
@@ -164,7 +182,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               with bf16 and with fp8 on the wire against the same loop on
               the CPU; the main path apps.jacobi3d.run(512, 512, 512,
               devices=[cuda:0]*8, method REMOTE_DMA, wire_dtype="bfloat16")
-              (225 remote_axis launches, all narrowed, and 600 sweeps) beside
+              (225 remote_axis launches, all narrowed, and 75 sweeps of the
+              8 positions) beside
               the unnarrowed run in turns; B6 per phase at config 2 and
               512^3 r1 and B7 at config 2 timed per launch unnarrowed, bf16,
               fp8, fp8, bf16, unnarrowed, beside the bytes bound and sector
@@ -241,8 +260,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               random field over 6 positions (plain, fused) and (3,2,1)
               residents, bit-equal to the single-block default path; the
               main paths apps.jacobi3d.run at 512^3 strong over 6 positions
-              (plain: 2 remote_axis, 1 fill, 6 sweeps a step; fused, the
-              host schedule: also 36 sweep_region shells a step) and over
+              (plain: 2 remote_axis, 1 fill and 1 sweep of the 6 positions
+              a step; fused, the host schedule: also 1 launch of their 36
+              shells a step) and over
               (3,2,1) residents (1 sweep, 1 fill a step, no multistep),
               launch counts reset around each; a guarded jacobi3d at 128^3
               over 6 positions with nan@3 rolled back, equal to the clean
@@ -515,6 +535,31 @@ WIRE_EDGES = [0.0, -0.0, 1.0, 448.0, -448.0, 460.0, 464.0, -464.0, 465.0, 480.0,
 BF16, FP8 = "bfloat16", "float8_e4m3fn"
 
 
+def b1_times(time_ms, dev, run, plain, nbytes, reps: int = 20, plain_reps: int = 3) -> dict:
+    """A B1 form's device ms per launch (CUDA-graph replay) beside its plain
+    version's; its bound with sel read on its sel planes (the bytes the call
+    needs; ``nbytes`` = (12 bytes a cell, sel on its planes), as
+    ``stencil_kernels.sweep_bytes`` counts them); the 12-byte bound (sel on
+    every plane); and a three-stream torch.add over as many cells."""
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    full, ranged = nbytes
+    n = full // 12
+    a, b, o = (torch.rand(n, device=dev) for _ in range(3))
+    add_ms = time_ms(lambda: torch.add(a, b, out=o), reps, graph=True)
+    del a, b, o
+    return dict(ms=time_ms(run, reps, graph=True), plain_ms=time_ms(plain, plain_reps, warmup=1),
+                bound=bound_ms(ranged, 6 * n), library_ms=None,
+                extra={"bound_12b_ms": bound_ms(full, 6 * n)[0], "add_ms": add_ms})
+
+
+def b1_log(name: str, t: dict, what: str) -> None:
+    log(f"time {name} {what}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound'][0]:.4f} ms with sel on its planes, "
+        f"{t['extra']['bound_12b_ms']:.4f} ms at 12 bytes a cell; torch.add of as many "
+        f"cells {t['extra']['add_ms']:.4f} ms)")
+
+
 def bits_equal(x: torch.Tensor, y: torch.Tensor):
     """``(equal, nan_patterns)``: the bit patterns of ``x`` and ``y`` equal,
     every NaN taken as one pattern (the card's widened NaN is the
@@ -693,12 +738,12 @@ def mesh_wire_phase(dev, time_ms, n: int = 512, c2: int = 256, steps: int = 8, i
 
     # the main path with bf16 on the wire, beside the unnarrowed run in turns
     counted = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
-               "self_fill": halo_fill.self_fill, "jacobi_multistep": sk.multistep,
-               "fused_exchange": fst.fused_exchange}
+               "jacobi_sweep_positions": sk.sweep_positions, "self_fill": halo_fill.self_fill,
+               "jacobi_multistep": sk.multistep, "fused_exchange": fst.fused_exchange}
     launches, ms_iter = {}, {}
     run_steps = (iters + chunk) * (dev.type == "cuda")  # the CPU's plain versions launch nothing
-    want = {"remote_axis": 3 * run_steps, "jacobi_sweep": 8 * run_steps, "self_fill": 0,
-            "jacobi_multistep": 0, "fused_exchange": 0}
+    want = {"remote_axis": 3 * run_steps, "jacobi_sweep": 0, "jacobi_sweep_positions": run_steps,
+            "self_fill": 0, "jacobi_multistep": 0, "fused_exchange": 0}
     hot, cold = (m.cpu() for m in sk.sphere_masks_from_coords(rspec((n,) * 3, (1, 1, 1), 1), dev))
     for wire in (None, BF16, BF16, None):
         for fn in counted.values():
@@ -984,7 +1029,7 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
     errs)``."""
     from stencil_tpu_torch import DistributedDomain, GridSpec
     from stencil_tpu_torch.apps import jacobi3d
-    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
     from stencil_tpu_torch.ops import fused_stencil as fst
     from stencil_tpu_torch.ops import halo_fill
     from stencil_tpu_torch.ops import remote_dma as rdma
@@ -1206,19 +1251,21 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
     del g, ref
 
     # -- the main paths, launch counts reset just before and read just after ----
+    # one sweep_positions launch a step sweeps the 6 positions, one
+    # sweep_regions launch the 36 shells (every side of every position)
     counted = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
-               "self_fill": halo_fill.self_fill, "jacobi_sweep_region": sk.sweep_region,
+               "jacobi_sweep_positions_uneven": sk.sweep_positions, "self_fill": halo_fill.self_fill,
+               "jacobi_sweep_regions_uneven": sk.sweep_regions,
                "jacobi_multistep": sk.multistep, "fused_jacobi_mesh": fst.fused_jacobi_mesh,
                "fused_exchange": fst.fused_exchange}
     total = iters + chunk  # the warm-up chunk advances the state
-    n_shells = 6 * 6  # every side of every position
     launches = {}
     for label, kw, per_step in (
             ("6 positions, plain", dict(devices=[dev] * 6, method=rd),
-             {"remote_axis": 2, "jacobi_sweep": 6, "self_fill": 1}),
+             {"remote_axis": 2, "jacobi_sweep_positions_uneven": 1, "self_fill": 1}),
             ("6 positions, fused", dict(devices=[dev] * 6, method=rd, kernel_variant="fused"),
-             {"remote_axis": 2, "jacobi_sweep": 6, "self_fill": 1,
-              "jacobi_sweep_region": n_shells}),
+             {"remote_axis": 2, "jacobi_sweep_positions_uneven": 1, "self_fill": 1,
+              "jacobi_sweep_regions_uneven": 1}),
             ("(3,2,1) residents", dict(device=dev, partition=(3, 2, 1)),
              {"jacobi_sweep": 1, "self_fill": 1})):
         for fn in counted.values():
@@ -1232,6 +1279,9 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
         check(got == want, f"jacobi3d {n}^3 over {label}: launches {got}, expected {want}")
         if label == "6 positions, plain":
             launches["remote_axis_uneven"] = got["remote_axis"]
+            launches["jacobi_sweep_positions_uneven"] = got["jacobi_sweep_positions_uneven"]
+        if label == "6 positions, fused":
+            launches["jacobi_sweep_regions_uneven"] = got["jacobi_sweep_regions_uneven"]
         fin = rv["domain"].get_curr_global(rv["handle"])
         check(bool(np.isfinite(fin).all()) and float(fin.min()) >= 0.0
               and float(fin.max()) <= 1.0, f"jacobi3d {label}: field not finite or out of range")
@@ -1241,27 +1291,75 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
             f"Mcells/s, launches {got}")
         del rv, fin
 
-    # -- where the two uneven steps' device time goes: each launch alone --------
+    # -- B1 over the 6 uneven positions and their 36 shells, one launch each:
+    #    against the plain versions, then where the two uneven steps' device
+    #    time goes, each launch alone
     bspec6 = spec6.block_spec()
     c6 = from_global(torch.rand((n, n, n), generator=gen, device=dev), spec6, mesh6)
     sel6 = sphere_sel_blocks(spec6, mesh6)
     n6 = [torch.zeros_like(b) for b in c6]
-    sweep_ms = [time_ms(lambda i=i: sk.sweep(c6[i], n6[i], sel6[i], bspec6, fst.NO_WRAP), 20,
-                        graph=True) for i in (0, 2)]
+    rg6 = [sk.block_sel_range(spec6, Dim3.of(pos).z) for pos in mesh6.positions()]
+    rects6 = [shells.shell_regions(spec6, shells.dyn_block_sizes(spec6, pos), (True,) * 3)
+              for pos in mesh6.positions()]
+    gen.manual_seed(12)
+    rnd6 = [torch.randint(-1, 4, b.shape, generator=gen, device=dev, dtype=torch.int32)
+            for b in c6]
+    for what, s6, rg in (("spheres on their planes", sel6, rg6), ("random sel", rnd6, None)):
+        rgs = rg or [None] * len(c6)
+        got = sk.sweep_positions(c6, [b.clone() for b in n6], s6, bspec6, rg)
+        want = [sk.sweep_plain(c, b.clone(), s, bspec6, fst.NO_WRAP, r)
+                for c, b, s, r in zip(c6, n6, s6, rgs)]
+        outs = sk.sweep_regions(c6, [b.clone() for b in n6], s6, bspec6, rects6, rg)
+        wants = [b.clone() for b in n6]
+        for c, o, s, rs, r in zip(c6, wants, s6, rects6, rgs):
+            for rect in rs:
+                sk.region_plain(c, o, s, bspec6, rect, r)
+        sync(dev)
+        errs["jacobi_sweep_positions_uneven"] = max(errs.get("jacobi_sweep_positions_uneven", 0.0),
+                                          *(max_abs(a, b) for a, b in zip(got, want)))
+        errs["jacobi_sweep_regions_uneven"] = max(errs.get("jacobi_sweep_regions_uneven", 0.0),
+                                                 *(max_abs(a, b) for a, b in zip(outs, wants)))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"sweep of 6 uneven positions, {what}: kernel != plain")
+        check(all(torch.equal(a, b) for a, b in zip(outs, wants)),
+              f"the 36 shells of 6 uneven positions, {what}: kernel != plain")
+    log(f"sweep_positions over 6 uneven positions {spec6.sizes_x} x {spec6.sizes_y} and "
+        f"sweep_regions of their {sum(len(r) for r in rects6)} shells: equal with the spheres "
+        "on their planes and random sel")
+    del rnd6, got, want, outs, wants
+    whole6 = [Rect3(bspec6.compute_offset(), bspec6.compute_offset() + bspec6.base)]
+    nb6 = [sk.sweep_bytes(bspec6, whole6, r) for r in rg6]
+    timings["jacobi_sweep_positions_uneven"] = b1_times(
+        time_ms, dev, lambda: sk.sweep_positions(c6, n6, sel6, bspec6, rg6),
+        lambda: [sk.sweep_plain(c, b, s, bspec6, fst.NO_WRAP, r)
+                 for c, b, s, r in zip(c6, n6, sel6, rg6)],
+        (sum(f for f, _ in nb6), sum(g for _, g in nb6)), plain_reps=1)
+    b1_log("jacobi_sweep_positions_uneven", timings["jacobi_sweep_positions_uneven"],
+           f"6 positions of {bspec6.base.x}x{bspec6.base.y}x{bspec6.base.z} in one launch")
+    nb6 = [sk.sweep_bytes(bspec6, rs, r) for rs, r in zip(rects6, rg6)]
+    timings["jacobi_sweep_regions_uneven"] = b1_times(
+        time_ms, dev, lambda: sk.sweep_regions(c6, n6, sel6, bspec6, rects6, rg6),
+        lambda: [sk.region_plain(c, b, s, bspec6, rect, r)
+                 for c, b, s, rs, r in zip(c6, n6, sel6, rects6, rg6) for rect in rs],
+        (sum(f for f, _ in nb6), sum(g for _, g in nb6)), plain_reps=1)
+    b1_log("jacobi_sweep_regions_uneven", timings["jacobi_sweep_regions_uneven"],
+           f"the {sum(len(r) for r in rects6)} shells of 6 positions in one launch")
+    sweep_ms = [time_ms(lambda i=i: sk.sweep(c6[i], n6[i], sel6[i], bspec6, fst.NO_WRAP,
+                                             rg6[i]), 20, graph=True) for i in (0, 2)]
     fill_ms = time_ms(lambda: rdma.self_wrap_positions({0: c6}, [0], spec6, "z"), 20, graph=True)
-    sizes0 = spec6.block_size((0, 0, 0))
-    rects = shells.shell_regions(spec6, (sizes0.z, sizes0.y, sizes0.x), (True,) * 3)
-    shell_ms = time_ms(lambda: [sk.sweep_region(c6[0], n6[0], sel6[0], bspec6, r)
-                                for r in rects], 20, graph=True)
-    log(f"uneven step over 6 positions, device ms per launch: sweep {sweep_ms[0]:.4f} "
-        f"({spec6.sizes_x[0]} wide), {sweep_ms[1]:.4f} ({spec6.sizes_x[2]} wide); z fill of "
-        f"the 6 blocks {fill_ms:.4f}; one position's {len(rects)} shells {shell_ms:.4f} "
-        "together")
+    log(f"uneven step over 6 positions, device ms per launch: the 6 positions' sweep "
+        f"{timings['jacobi_sweep_positions_uneven']['ms']:.4f} (one position alone {sweep_ms[0]:.4f}, "
+        f"{spec6.sizes_x[0]} wide; {sweep_ms[1]:.4f}, {spec6.sizes_x[2]} wide); z fill of "
+        f"the 6 blocks {fill_ms:.4f}; the 36 shells "
+        f"{timings['jacobi_sweep_regions_uneven']['ms']:.4f}")
+    timings["jacobi_sweep_positions_uneven"]["extra"].update(position_171_ms=sweep_ms[0],
+                                                   position_170_ms=sweep_ms[1])
     del c6, sel6, n6
     cr = shard_blocks(torch.rand((n, n, n), generator=gen, device=dev), specr, dev)
     selr, nr = sphere_sel_blocks(specr, dev), torch.zeros_like(cr)
     exr = HaloExchange(specr)
-    rsweep_ms = time_ms(lambda: sk.sweep(cr, nr, selr, specr, fst.NO_WRAP), 20, graph=True)
+    rsweep_ms = time_ms(lambda: sk.sweep(cr, nr, selr, specr, fst.NO_WRAP,
+                                         sk.block_sel_ranges(specr)), 20, graph=True)
     rex_ms = time_ms(lambda: exr(cr), 10, warmup=1)
     log(f"uneven step over (3,2,1) residents: the stacked sweep {rsweep_ms:.4f} ms per launch; "
         f"the exchange (indexed copies, rolls and one fill) {rex_ms:.4f} ms")
@@ -1328,7 +1426,7 @@ def main() -> int:
     from stencil_tpu_torch.apps import jacobi3d
     from stencil_tpu_torch.astaroth.equations import Constants
     from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of
-    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
     from stencil_tpu_torch.ops import _native, halo_fill, stencil_kernels as sk
     from stencil_tpu_torch.ops import astaroth_substep as asub
     from stencil_tpu_torch.ops import fused_stencil as fst
@@ -1378,6 +1476,19 @@ def main() -> int:
     log(f"fused_jacobi: {fi['regs']} registers, {fi['local_bytes']} bytes of spill, "
         f"{fi['blocks_per_sm']} block(s) of {fi['threads']} threads per SM, "
         f"{fi['smem_bytes']} bytes of shared memory")
+    # B1 on the same body (sweep_runs.cuh's flex_tile): two blocks of 352
+    # threads per SM and no spill; B8 keeps three
+    si = sk.sweep_info(0)
+    check(si["threads"] == sk.SWEEP_THREADS and si["smem_bytes"] == sk.SWEEP_SMEM
+          and si["blocks_per_sm"] >= sk.SWEEP_MIN_BLOCKS and si["local_bytes"] == 0
+          and fi["blocks_per_sm"] >= fst.FUSED_MIN_BLOCKS,
+          f"sweep kernel: launch shape {si} differs from the wrapper's, holds fewer than "
+          f"{sk.SWEEP_MIN_BLOCKS} blocks per SM, or spills; or the fused step holds fewer than "
+          f"{fst.FUSED_MIN_BLOCKS} (fused step: {fi})")
+    log(f"jacobi_sweep (B1, the task-table walk): {si['regs']} registers, "
+        f"{si['local_bytes']} bytes of spill, {si['blocks_per_sm']} block(s) of "
+        f"{si['threads']} threads per SM, {si['smem_bytes']} bytes of shared memory; "
+        f"{sk.sweep_blocks_in_flight(0)} resident blocks")
     wire_names = {0: "unnarrowed", 1: "bf16", 2: "fp16", 3: "fp8 e4m3", 4: "fp32"}
     for code in (1, 2, 3):
         wi = fst.fused_info(0, code)
@@ -1442,6 +1553,18 @@ def main() -> int:
     def sel_block(spec):
         return sphere_sel_blocks(spec, dev)
 
+    def rand_sel(spec, seed, lo=0, hi=3):
+        gen.manual_seed(seed)
+        p = spec.padded()
+        return torch.randint(lo, hi, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def b1_form(run, plain, spec, rects, sel_range=None, blocks=None, reps=20, plain_reps=3):
+        """:func:`b1_times` of a form sweeping ``rects`` of ``blocks``
+        blocks of ``spec``, sel on ``sel_range``."""
+        return b1_times(time_ms, dev, run, plain, sk.sweep_bytes(spec, rects, sel_range, blocks),
+                        reps, plain_reps)
+
     # -- 2. kernels against their plain versions ----------------------------
     sweep_cases = [
         ("512^3 r1 aligned", GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1), Radius.constant(1)),
@@ -1452,15 +1575,30 @@ def main() -> int:
                                        Radius.constant(1).without_x()), (True, True, True)),
         ("33x21x13 r2 z/x halos read", GridSpec(Dim3(33, 21, 13), Dim3(1, 1, 1),
                                                 Radius.constant(2)), (False, True, False)),
+        ("512^3 tight-x all-wrap", GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1),
+                                            Radius.constant(1).without_x()), (True, True, True)),
+        ("67x45x29", GridSpec(Dim3(67, 45, 29), Dim3(1, 1, 1), Radius.constant(1)),
+         (True, True, True)),
+        ("130x70x40", GridSpec(Dim3(130, 70, 40), Dim3(1, 1, 1), Radius.constant(1)),
+         (True, True, True)),
     ]
+    # each with random sel codes in [-1, 4) on every plane and on planes
+    # 3..8 of the region, and with the spheres on their planes
     for i, (label, spec, wrap) in enumerate(sweep_cases):
-        curr, sel = rand_block(spec, 10 + i), sel_block(spec)
-        got = sk.sweep(curr, torch.zeros_like(curr), sel, spec, wrap)
-        want = sk.sweep_plain(curr, torch.zeros_like(curr), sel, spec, wrap)
-        torch.cuda.synchronize()
-        errs["jacobi_sweep"] = max(errs["jacobi_sweep"], max_abs(got, want))
-        check(torch.equal(got, want), f"sweep {label}: kernel != plain")
-        log(f"sweep {label}: equal")
+        curr = rand_block(spec, 10 + i)
+        z0 = spec.compute_offset().z
+        for what, sel, rng in (("random sel", rand_sel(spec, 20 + i, -1, 4), None),
+                               ("random sel on 6 planes", rand_sel(spec, 30 + i, -1, 4),
+                                (z0 + 3, z0 + 9)),
+                               ("spheres on their planes", sel_block(spec), sk.sel_z_range(spec))):
+            got = sk.sweep(curr, torch.zeros_like(curr), sel, spec, wrap, rng)
+            want = sk.sweep_plain(curr, torch.zeros_like(curr), sel, spec, wrap, rng)
+            torch.cuda.synchronize()
+            errs["jacobi_sweep"] = max(errs["jacobi_sweep"], max_abs(got, want))
+            check(torch.equal(got, want), f"sweep {label}, {what}: kernel != plain")
+        log(f"sweep {label} (tile {sk.sweep_tile(spec.base.x, spec.base.y, spec.compute_offset().x)}"
+            f"): equal with random sel, random sel on 6 planes and the spheres on their planes")
+    del curr, sel, got, want
 
     # every depth on shapes ragged against the 64-wide tile and both tile
     # heights (their shallow depths run several z chunks, their deep ones
@@ -1573,10 +1711,30 @@ def main() -> int:
     nxt = torch.zeros_like(curr)
     cells = 512 ** 3
     timings = {}
-    timings["jacobi_sweep"] = dict(
-        ms=time_ms(lambda: sk.sweep(curr, nxt, sel, spec512), 20, graph=True),
-        plain_ms=time_ms(lambda: sk.sweep_plain(curr, nxt, sel, spec512), 3, warmup=1),
-        bound=bound_ms(3 * 4 * cells, 6 * cells), library_ms=None)
+    # B1 on one block as the default path's tail calls it (sel on the
+    # spheres' planes), and reading sel on every plane; the tight-x layout
+    rg512 = sk.sel_z_range(spec512)
+    whole512 = [Rect3(spec512.compute_offset(), spec512.compute_offset() + spec512.base)]
+    timings["jacobi_sweep"] = b1_form(
+        lambda: sk.sweep(curr, nxt, sel, spec512, (True,) * 3, rg512),
+        lambda: sk.sweep_plain(curr, nxt, sel, spec512, (True,) * 3, rg512), spec512, whole512,
+        rg512)
+    timings["jacobi_sweep"]["extra"]["every_plane_ms"] = time_ms(
+        lambda: sk.sweep(curr, nxt, sel, spec512), 20, graph=True)
+    b1_log("jacobi_sweep", timings["jacobi_sweep"], "512^3 one block, sel on its planes")
+    log(f"time jacobi_sweep 512^3 one block, sel on every plane: "
+        f"{timings['jacobi_sweep']['extra']['every_plane_ms']:.4f} ms per launch")
+    spec_tx = sweep_cases[4][1]
+    ctx, stx = rand_block(spec_tx, 2), sel_block(spec_tx)
+    ntx = torch.zeros_like(ctx)
+    rgtx = sk.sel_z_range(spec_tx)
+    ttx = b1_form(lambda: sk.sweep(ctx, ntx, stx, spec_tx, (True,) * 3, rgtx),
+                  lambda: sk.sweep_plain(ctx, ntx, stx, spec_tx, (True,) * 3, rgtx), spec_tx,
+                  [Rect3(spec_tx.compute_offset(), spec_tx.compute_offset() + spec_tx.base)],
+                  rgtx, plain_reps=1)
+    b1_log("jacobi_sweep", ttx, "512^3 tight-x all-wrap, sel on its planes")
+    timings["jacobi_sweep"]["extra"]["tight_x_ms"] = ttx["ms"]
+    del ctx, stx, ntx, ttx
     timings["jacobi_multistep"] = dict(
         ms=time_ms(lambda: sk.multistep(curr, nxt, spec512, k512), 5, warmup=1, graph=True),
         plain_ms=time_ms(lambda: sk.multistep_plain(curr, nxt, spec512, k512), 1, warmup=1),
@@ -1844,12 +2002,6 @@ def main() -> int:
         del curr8, out8
 
     # -- 6. jacobi3d's remote-dma kernel variants ------------------------------
-    def rand_sel(spec, seed, lo=0, hi=3):
-        gen.manual_seed(seed)
-        p = spec.padded()
-        return torch.randint(lo, hi, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
-                             dtype=torch.int32)
-
     # (label, spec, sel codes): the unaligned layouts' row pitch moves the
     # 16-byte phase every row (808 and 2,060 bytes), so their runs move 4
     # bytes at a time, and their last tiles are ragged
@@ -1979,9 +2131,9 @@ def main() -> int:
         f"bounds it at {design:.4f} ms")
 
     # -- 7. resident: multi-block partitions, every block on the card ---------
-    from stencil_tpu_torch.ops.jacobi import jacobi_sweep, multi_block_layout
+    from stencil_tpu_torch.ops.jacobi import multi_block_layout
 
-    for key in ("jacobi_multistep_deep_halo", "jacobi_sweep_region", "self_fill_z_stack"):
+    for key in ("jacobi_multistep_deep_halo", "jacobi_sweep_regions", "self_fill_z_stack"):
         errs[key] = 0.0
 
     def rspec(size, part, r, aligned=True):
@@ -2036,26 +2188,36 @@ def main() -> int:
             f"{sk.multistep_zchunks(spec, k, sk.multistep_blocks_in_flight(dev, k))})")
     del c, got, want
 
-    # the stacked sweep and sweep_region on every shell
+    # the stacked sweep and every shell of every block in one launch
+    # (sweep_regions; sweep_region on one shell), random sel codes on every
+    # plane and the spheres on each block's own planes
     spec_m = rspec((200, 100, 60), (1, 1, 2), 3)
     for spec in (spec_h, spec_m):
         wrap, _axes, shells = multi_block_layout(spec)
         c = rand_stack(spec, 210)
         gen.manual_seed(211)
-        s7 = torch.randint(0, 3, spec.stacked_shape_zyx(), generator=gen, device=dev,
-                           dtype=torch.int32)
-        got = sk.sweep(c, torch.zeros_like(c), s7, spec, wrap)
-        want = sk.sweep_plain(c, torch.zeros_like(c), s7, spec, wrap)
-        for rect in shells:
-            sk.sweep_region(c, got, s7, spec, rect)
-            jacobi_sweep(c, want, rect, (s7 == 1, s7 == 2))
-        torch.cuda.synchronize()
-        errs["jacobi_sweep"] = max(errs["jacobi_sweep"], max_abs(got, want))
-        errs["jacobi_sweep_region"] = max(errs["jacobi_sweep_region"], max_abs(got, want))
-        check(torch.equal(got, want), f"stacked sweep + shells {spec.dim}: kernel != plain")
-        log(f"stacked sweep (wrap {wrap}) + {len(shells)} sweep_region shells, "
-            f"{spec.global_size} over {spec.dim}: equal")
-    del c, s7, got, want
+        rs7 = torch.randint(-1, 4, spec.stacked_shape_zyx(), generator=gen, device=dev,
+                            dtype=torch.int32)
+        for what, s7, rg in (("random sel", rs7, None),
+                             ("spheres on their planes", sphere_sel_blocks(spec, dev),
+                              sk.block_sel_ranges(spec))):
+            got = sk.sweep(c, torch.zeros_like(c), s7, spec, wrap, rg)
+            want = sk.sweep_plain(c, torch.zeros_like(c), s7, spec, wrap, rg)
+            sk.sweep_regions([c], [got], [s7], spec, [shells], [rg])
+            for rect in shells:
+                sk.region_plain(c, want, s7, spec, rect, rg)
+            one = sk.sweep_region(c, torch.zeros_like(c), s7, spec, shells[0], rg)
+            one_want = sk.region_plain(c, torch.zeros_like(c), s7, spec, shells[0], rg)
+            torch.cuda.synchronize()
+            errs["jacobi_sweep"] = max(errs["jacobi_sweep"], max_abs(got, want))
+            errs["jacobi_sweep_regions"] = max(errs["jacobi_sweep_regions"], max_abs(got, want),
+                                              max_abs(one, one_want))
+            check(torch.equal(got, want) and torch.equal(one, one_want),
+                  f"stacked sweep + shells {spec.dim}, {what}: kernel != plain")
+        log(f"stacked sweep (wrap {wrap}) + {len(shells)} shells of {spec.num_blocks()} blocks "
+            f"in one launch, {spec.global_size} over {spec.dim}: equal with random sel and the "
+            "spheres on their planes")
+    del c, rs7, s7, got, want, one, one_want
 
     # the z-stack fill over a (1,1,2) stack, x and y, fp32 and fp64
     spec_z = rspec((512,) * 3, (1, 1, 2), 3)
@@ -2118,15 +2280,16 @@ def main() -> int:
     del g8, ref8
 
     # the main paths: jacobi3d 512^3 over (2,2,2), deep halo 4 and 1
+    # (every shell of every block of a step in one sweep_regions launch)
     counted7 = {"jacobi_multistep": sk.multistep, "jacobi_sweep": sk.sweep,
-                "jacobi_sweep_region": sk.sweep_region, "self_fill": halo_fill.self_fill}
+                "jacobi_sweep_regions": sk.sweep_regions, "self_fill": halo_fill.self_fill}
     hot_d, cold_d = sk.sphere_masks_from_coords(spec512, dev)
     for label, kw, k_want, want in (
             ("deep_halo 4", dict(iters=50, chunk=25, deep_halo=4), kh,
              {"jacobi_multistep": 3 * (25 // kh), "jacobi_sweep": 3 * (25 % kh),
-              "jacobi_sweep_region": 6 * 3 * (25 % kh)}),
+              "jacobi_sweep_regions": 3 * (25 % kh)}),
             ("deep_halo 1", dict(iters=50, chunk=25, deep_halo=1), 0,
-             {"jacobi_sweep": 75, "jacobi_sweep_region": 450})):
+             {"jacobi_sweep": 75, "jacobi_sweep_regions": 75})):
         for fn in counted7.values():
             fn.launches = 0
         rv = jacobi3d.run(512, 512, 512, weak=False, partition=(2, 2, 2), **kw)
@@ -2142,7 +2305,7 @@ def main() -> int:
               f"jacobi3d (2,2,2) {label}: field not finite, out of range or spheres lost")
         if label == "deep_halo 4":
             launches["jacobi_multistep_deep_halo"] = got["jacobi_multistep"]
-            launches["jacobi_sweep_region"] = got["jacobi_sweep_region"]
+            launches["jacobi_sweep_regions"] = got["jacobi_sweep_regions"]
         log(jacobi3d.csv_row(rv))
         log(f"jacobi3d 512^3 (2,2,2) resident {label}: {rv['iter_trimean_s'] * 1e3:.4f} ms/iter "
             f"(trimean), {rv['mcells_per_s_per_dev']:.1f} Mcells/s, temporal_k "
@@ -2187,14 +2350,30 @@ def main() -> int:
         bound=bound_ms(4 * (grown + cells), 6 * kh * cells), library_ms=None)
     _wrap, _axes, shells_h = multi_block_layout(spec_h)
     s7 = place(sel_g, spec_h)
-    shell_cells = sum(rc.num_points() for rc in shells_h) * spec_h.num_blocks() / len(shells_h)
-    timings["jacobi_sweep_region"] = dict(
-        ms=time_ms(lambda: [sk.sweep_region(c, n7, s7, spec_h, rc) for rc in shells_h], 10,
-                   graph=True) / len(shells_h),
-        plain_ms=time_ms(lambda: [jacobi_sweep(c, n7, rc, (s7 == 1, s7 == 2))
-                                  for rc in shells_h], 2, warmup=1) / len(shells_h),
-        bound=bound_ms(12 * shell_cells, 6 * shell_cells), library_ms=None)
-    del c, n7, s7
+    rg_h = sk.block_sel_ranges(spec_h)
+    # a step's shells: all six of every block in one launch
+    timings["jacobi_sweep_regions"] = b1_form(
+        lambda: sk.sweep_regions([c], [n7], [s7], spec_h, [shells_h], [rg_h]),
+        lambda: [sk.region_plain(c, n7, s7, spec_h, rc, rg_h) for rc in shells_h],
+        spec_h, shells_h, rg_h, reps=10, plain_reps=1)
+    b1_log("jacobi_sweep_regions", timings["jacobi_sweep_regions"],
+           f"512^3 (2,2,2) r4, the {len(shells_h)} shells of 8 blocks in one launch")
+    # what jacobi_sweep_region measured until the shells became one launch:
+    # sweep_region's launch of one shell of the 8 blocks, the mean over the 6
+    one_shell = time_ms(lambda: [sk.sweep_region(c, n7, s7, spec_h, rc, rg_h) for rc in shells_h],
+                        10, graph=True) / len(shells_h)
+    timings["jacobi_sweep_regions"]["extra"]["one_shell_ms"] = one_shell
+    log(f"time sweep_region one r4 shell of 8 blocks a launch: {one_shell:.4f} ms (mean of "
+        f"{len(shells_h)})")
+    # the stacked sweep of the same blocks, wrap off on every axis
+    wrap_h, _axes, _shells = multi_block_layout(spec_h)
+    t7 = b1_form(lambda: sk.sweep(c, n7, s7, spec_h, wrap_h, rg_h),
+                 lambda: sk.sweep_plain(c, n7, s7, spec_h, wrap_h, rg_h), spec_h,
+                 [Rect3(spec_h.compute_offset(), spec_h.compute_offset() + spec_h.base)], rg_h,
+                 plain_reps=1)
+    b1_log("jacobi_sweep", t7, "512^3 (2,2,2) r4 stacked, each block's sel on its planes")
+    timings["jacobi_sweep"]["extra"]["stacked_ms"] = t7["ms"]
+    del c, n7, s7, t7
     qs = [rand_stack(spec_z, 270 + q) for q in range(4)]
 
     def zfill_plain():
@@ -2207,7 +2386,7 @@ def main() -> int:
         ms=mean("ms"), plain_ms=time_ms(zfill_plain, 5) / 2, bound=(mean("bound_ms"), "bytes"),
         library_ms=mean("copy_ms"), extra=extra)
     del qs
-    for name in ("jacobi_multistep_deep_halo", "jacobi_sweep_region", "self_fill_z_stack"):
+    for name in ("jacobi_multistep_deep_halo", "self_fill_z_stack"):
         t = timings[name]
         log(f"time {name}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
             f"bound {t['bound'][0]:.4f} ms by {t['bound'][1]}"
@@ -2250,6 +2429,20 @@ def main() -> int:
         errs["jacobi_sweep_batched"] = max(errs["jacobi_sweep_batched"], max_abs(got, want))
         check(torch.equal(got, want), f"tenant sweep {label}: kernel != plain")
         log(f"tenant sweep {label}: equal")
+    # the campaign's own call: every tenant's spheres on their planes
+    for i, size in enumerate((32, 128)):
+        spec = tenant_spec((size,) * 3)
+        p = spec.padded()
+        c, _s = rand_slot(spec, 64, 320 + i)
+        s8 = sphere_sel_blocks(spec, dev).view(1, p.z, p.y, p.x).expand(64, -1, -1, -1)
+        s8 = s8.contiguous()
+        got = sk.sweep_tenants(c, torch.zeros_like(c), s8, spec, sk.sel_z_range(spec))
+        want = sk.sweep_plain(c, torch.zeros_like(c), s8, spec, sel_range=sk.sel_z_range(spec))
+        torch.cuda.synchronize()
+        errs["jacobi_sweep_batched"] = max(errs["jacobi_sweep_batched"], max_abs(got, want))
+        check(torch.equal(got, want), f"tenant sweep B=64 of {size}^3, spheres on their "
+                                      "planes: kernel != plain")
+        log(f"tenant sweep B=64 of {size}^3 (pitch {p.x}), spheres on their planes: equal")
     del c, s8, got, want
     spec = tenant_spec((8, 8, 8))
     c, s8 = rand_slot(spec, 2, 310)
@@ -2260,17 +2453,32 @@ def main() -> int:
         refused = True
     check(refused, "a float64 slot on the card did not raise NotImplementedError")
 
-    # the batched loop on the card against the same loop on the CPU
+    # the batched loop on the card against the same loop on the CPU. The
+    # card reads sel on the spheres' planes only (sel_z_range, as the TPU
+    # kernel), the CPU on every plane (the JAX package's XLA branch): random
+    # codes on those planes and the spheres agree as they are; random codes
+    # on every plane agree with the CPU's loop given them zeroed elsewhere
     spec = tenant_spec((24, 24, 24))
     c, s8 = rand_slot(spec, 8, 320)
-    gc, gn = make_batched_jacobi_loop(spec, 3, device=dev)(c.clone(), torch.zeros_like(c), s8)
-    cc, cn = make_batched_jacobi_loop(spec, 3, device="cpu")(c.cpu(), torch.zeros_like(c.cpu()),
-                                                             s8.cpu())
+    p24 = spec.padded()
+    sph24 = sphere_sel_blocks(spec, dev).view(1, p24.z, p24.y, p24.x).expand(8, -1, -1, -1)
+    lo24, hi24 = sk.sel_z_range(spec)
+    planes24 = torch.zeros_like(s8)
+    planes24[:, lo24:hi24] = s8[:, lo24:hi24]
     cs = compute_of(spec)
-    check(torch.equal(gc[cs].cpu(), cc[cs]) and torch.equal(gn[cs].cpu(), cn[cs]),
-          "batched loop B=8 of 24^3, 3 steps: card != CPU")
-    log("make_batched_jacobi_loop B=8 of 24^3 3 steps: card == CPU on the compute regions")
-    del c, s8, gc, gn, cc, cn
+    for what, card_sel, cpu_sel in (
+            ("random sel on the spheres' planes", planes24, planes24),
+            ("the spheres", sph24.contiguous(), sph24),
+            ("random sel on every plane", s8, planes24)):
+        gc, gn = make_batched_jacobi_loop(spec, 3, device=dev)(
+            c.clone(), torch.zeros_like(c), card_sel)
+        cc, cn = make_batched_jacobi_loop(spec, 3, device="cpu")(
+            c.cpu(), torch.zeros_like(c.cpu()), cpu_sel.cpu())
+        check(torch.equal(gc[cs].cpu(), cc[cs]) and torch.equal(gn[cs].cpu(), cn[cs]),
+              f"batched loop B=8 of 24^3, 3 steps, {what}: card != CPU")
+    log("make_batched_jacobi_loop B=8 of 24^3 3 steps: card == CPU on the compute regions "
+        "(random sel and the spheres; sel off the spheres' planes ignored on the card)")
+    del c, s8, planes24, gc, gn, cc, cn
 
     counted8 = {"jacobi_sweep_batched": sk.sweep_tenants, "jacobi_sweep": sk.sweep,
                 "jacobi_multistep": sk.multistep}
@@ -2317,12 +2525,17 @@ def main() -> int:
             f"{out['parity']}, launches {got8}")
         steady, _, recs = run_campaign(shape + ["--steps", "30"])
         spec8 = tenant_spec((edge,) * 3)
-        c8, s88 = rand_slot(spec8, tenants, 330)
+        c8, _s = rand_slot(spec8, tenants, 330)
         n8 = torch.zeros_like(c8)
-        sweep3_ms = 3 * time_ms(lambda: sk.sweep_tenants(c8, n8, s88, spec8), 20, graph=True)
+        # the slot's own sweep: the spheres, read on their planes
+        p8 = spec8.padded()
+        s88 = sphere_sel_blocks(spec8, dev).view(1, p8.z, p8.y, p8.x).expand(tenants, -1, -1, -1)
+        s88, rg88 = s88.contiguous(), sk.sel_z_range(spec8)
+        sweep3_ms = 3 * time_ms(lambda: sk.sweep_tenants(c8, n8, s88, spec8, rg88), 20,
+                                graph=True)
         reduce_ms = time_ms(lambda: SlotHealthGuard._reduce({"temperature": c8}), 20, graph=True)
         dev_ms = sweep3_ms + reduce_ms
-        del c8, s88, n8
+        del c8, s88, n8, _s
         steps = [r["value"] * r["iters"] * 1e3 for r in recs
                  if r["name"] == "campaign.step_latency_s"]
         checks = [r["seconds"] * 1e3 for r in recs if r["name"] == "health.check"]
@@ -2377,15 +2590,31 @@ def main() -> int:
     log("tenant sweep B=64 of 128^3: equal")
     del got, want
     n8 = torch.zeros_like(c)
-    cells8 = 64 * 128 ** 3
-    timings["jacobi_sweep_batched"] = dict(
-        ms=time_ms(lambda: sk.sweep_tenants(c, n8, s8, spec), 20, graph=True),
-        plain_ms=time_ms(lambda: sk.sweep_plain(c, n8, s8, spec), 3, warmup=1),
-        bound=bound_ms(12 * cells8, 6 * cells8), library_ms=None)
-    del c, s8, n8
-    t = timings["jacobi_sweep_batched"]
-    log(f"time jacobi_sweep_batched B=64 of 128^3: {t['ms']:.4f} ms per launch (plain "
-        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+    whole8 = [Rect3(spec.compute_offset(), spec.compute_offset() + spec.base)]
+    # the campaign's call (the spheres on their planes), then random sel
+    # codes read on every plane; and 64 of 32^3
+    p8 = spec.padded()
+    sph8 = sphere_sel_blocks(spec, dev).view(1, p8.z, p8.y, p8.x).expand(64, -1, -1, -1)
+    sph8, rg8 = sph8.contiguous(), sk.sel_z_range(spec)
+    timings["jacobi_sweep_batched"] = b1_form(
+        lambda: sk.sweep_tenants(c, n8, sph8, spec, rg8),
+        lambda: sk.sweep_plain(c, n8, sph8, spec, sel_range=rg8), spec, whole8, rg8, blocks=64)
+    b1_log("jacobi_sweep_batched", timings["jacobi_sweep_batched"],
+           "B=64 of 128^3, the spheres on their planes")
+    t8 = b1_form(lambda: sk.sweep_tenants(c, n8, s8, spec),
+                 lambda: sk.sweep_plain(c, n8, s8, spec), spec, whole8, blocks=64)
+    b1_log("jacobi_sweep_batched", t8, "B=64 of 128^3, random sel on every plane")
+    timings["jacobi_sweep_batched"]["extra"]["every_plane_ms"] = t8["ms"]
+    spec32 = tenant_spec((32, 32, 32))
+    c32, s32 = rand_slot(spec32, 64, 341)
+    n32 = torch.zeros_like(c32)
+    t8 = b1_form(lambda: sk.sweep_tenants(c32, n32, s32, spec32),
+                 lambda: sk.sweep_plain(c32, n32, s32, spec32), spec32,
+                 [Rect3(spec32.compute_offset(), spec32.compute_offset() + spec32.base)],
+                 blocks=64)
+    b1_log("jacobi_sweep_batched", t8, "B=64 of 32^3, random sel on every plane")
+    timings["jacobi_sweep_batched"]["extra"]["b64_32_ms"] = t8["ms"]
+    del c, s8, n8, sph8, c32, s32, n32, t8
 
 
     # -- 9. mesh: eight block positions on the card -----------------------------
@@ -2526,20 +2755,21 @@ def main() -> int:
     del c9, out9, ex9
 
     # the main path: jacobi3d at 512^3 over 8 positions of one card
+    # (one sweep_positions launch a step covers the 8 positions)
     counted9 = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
-                "self_fill": halo_fill.self_fill, "jacobi_multistep": sk.multistep,
-                "fused_exchange": fst.fused_exchange}
+                "jacobi_sweep_positions": sk.sweep_positions, "self_fill": halo_fill.self_fill,
+                "jacobi_multistep": sk.multistep, "fused_exchange": fst.fused_exchange}
     for fn in counted9.values():
         fn.launches = 0
     rv = jacobi3d.run(512, 512, 512, devices=[dev] * 8, method=Method.REMOTE_DMA, iters=50,
                       chunk=25, weak=False)
     torch.cuda.synchronize()
     got9 = {name: fn.launches for name, fn in counted9.items()}
-    want9 = {"remote_axis": 75 * 3, "jacobi_sweep": 75 * 8, "self_fill": 0,
+    want9 = {"remote_axis": 75 * 3, "jacobi_sweep": 0, "jacobi_sweep_positions": 75, "self_fill": 0,
              "jacobi_multistep": 0, "fused_exchange": 0}
     check(got9 == want9, f"jacobi3d over 8 positions: launches {got9}, expected {want9}")
     launches["remote_axis"] = got9["remote_axis"]
-    launches["jacobi_sweep_mesh"] = got9["jacobi_sweep"]
+    launches["jacobi_sweep_positions"] = got9["jacobi_sweep_positions"]
     fin = gather(join_positions(rv["domain"].get_curr(rv["handle"]), rv["domain"].spec),
                  rv["domain"].spec)
     check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
@@ -2552,23 +2782,46 @@ def main() -> int:
         f"Mcells/s, launches {got9}")
     del rv, fin
 
-    # the main path's per-position sweep alone: one 256^3 block, no wrap
+    # the main path's sweep of the 8 positions (256^3 blocks, no wrap) in one
+    # launch, each position's spheres on its own planes, and with random sel
+    # codes on every plane; and one position alone
     bspec = spec_m1.block_spec()
-    c, s9 = rand_block(bspec, 460), rand_sel(bspec, 461)
-    n9 = torch.zeros_like(c)
-    cells9 = bspec.base.flatten()
-    errs["jacobi_sweep_mesh"] = max_abs(sk.sweep(c, n9.clone(), s9, bspec, fst.NO_WRAP),
-                                        sk.sweep_plain(c, n9.clone(), s9, bspec, fst.NO_WRAP))
-    check(errs["jacobi_sweep_mesh"] == 0.0, "per-position sweep 256^3: kernel != plain")
-    timings["jacobi_sweep_mesh"] = dict(
-        ms=time_ms(lambda: sk.sweep(c, n9, s9, bspec, fst.NO_WRAP), 40, graph=True),
-        plain_ms=time_ms(lambda: sk.sweep_plain(c, n9, s9, bspec, fst.NO_WRAP), 3, warmup=1),
-        bound=bound_ms(12 * cells9, 6 * cells9), library_ms=None)
-    del c, s9, n9
-    t = timings["jacobi_sweep_mesh"]
-    log(f"time jacobi_sweep per position 256^3 (no wrap): {t['ms']:.4f} ms per launch (plain "
-        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}); 8 per step "
-        f"= {8 * t['ms']:.4f} ms")
+    c9 = [rand_block(bspec, 460 + i) for i in range(8)]
+    n9 = [torch.zeros_like(b) for b in c9]
+    sph9 = sphere_sel_blocks(spec_m1, mesh8)
+    rnd9 = [rand_sel(bspec, 470 + i, -1, 4) for i in range(8)]
+    rg9 = [sk.block_sel_range(spec_m1, Dim3.of(pos).z) for pos in mesh8.positions()]
+    errs["jacobi_sweep_positions"] = 0.0
+    for what, s9, rg in (("spheres on their planes", sph9, rg9), ("random sel", rnd9, None)):
+        got = sk.sweep_positions(c9, [b.clone() for b in n9], s9, bspec, rg)
+        want = [sk.sweep_plain(c, n.clone(), s, bspec, fst.NO_WRAP, r)
+                for c, n, s, r in zip(c9, n9, s9, rg or [None] * 8)]
+        torch.cuda.synchronize()
+        errs["jacobi_sweep_positions"] = max(errs["jacobi_sweep_positions"],
+                                        *(max_abs(a, b) for a, b in zip(got, want)))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"sweep of 8 positions of 256^3, {what}: kernel != plain")
+    log("sweep_positions over 8 positions of 256^3: equal with the spheres on their planes "
+        "and random sel")
+    whole9 = [Rect3(bspec.compute_offset(), bspec.compute_offset() + bspec.base)]
+    timings["jacobi_sweep_positions"] = b1_form(
+        lambda: sk.sweep_positions(c9, n9, sph9, bspec, rg9),
+        lambda: [sk.sweep_plain(c, n, s, bspec, fst.NO_WRAP, r)
+                 for c, n, s, r in zip(c9, n9, sph9, rg9)], bspec, whole9 * 8, None,
+        plain_reps=1)
+    full9, ranged9 = 0, 0
+    for r in rg9:
+        f, g = sk.sweep_bytes(bspec, whole9, r)
+        full9, ranged9 = full9 + f, ranged9 + g
+    timings["jacobi_sweep_positions"]["bound"] = bound_ms(ranged9, full9 // 2)
+    b1_log("jacobi_sweep_positions", timings["jacobi_sweep_positions"],
+           "8 positions of 256^3 in one launch, each position's spheres on its planes")
+    one9 = b1_form(lambda: sk.sweep(c9[0], n9[0], sph9[0], bspec, fst.NO_WRAP, rg9[0]),
+                   lambda: sk.sweep_plain(c9[0], n9[0], sph9[0], bspec, fst.NO_WRAP, rg9[0]),
+                   bspec, whole9, rg9[0], reps=40, plain_reps=1)
+    b1_log("jacobi_sweep_positions", one9, "one position of 256^3 alone (z block 0)")
+    timings["jacobi_sweep_positions"]["extra"]["one_position_ms"] = one9["ms"]
+    del c9, n9, sph9, rnd9, got, want, one9
 
     # DistributedDomain.exchange_loop at config 2 through B6 and through B7
     def copy_slabs(state, spec, phases):
@@ -2895,7 +3148,7 @@ def main() -> int:
         # the z-stack fill
         "jacobi_multistep_deep_halo": ("stencil_tpu_torch/csrc/jacobi_multistep.cu",
                                        "stencil_tpu/ops/pallas_stencil.py:709"),
-        "jacobi_sweep_region": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+        "jacobi_sweep_regions": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
                                 "stencil_tpu/ops/pallas_stencil.py:119"),
         "self_fill_z_stack": ("stencil_tpu_torch/csrc/self_fill.cu",
                               "stencil_tpu/ops/halo_fill.py:236"),
@@ -2907,8 +3160,8 @@ def main() -> int:
                         "stencil_tpu/ops/remote_dma.py:68"),
         "fused_exchange": ("stencil_tpu_torch/csrc/fused_exchange.cu",
                            "stencil_tpu/ops/fused_stencil.py:100"),
-        # the sweep of one mesh position (no wrap), launched once per position
-        "jacobi_sweep_mesh": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+        # the sweep of every mesh position (no wrap), one launch a step
+        "jacobi_sweep_positions": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
                               "stencil_tpu/ops/pallas_stencil.py:119"),
         # the wire-crossing forms of the fused step and the persistent chunk
         "fused_jacobi_mesh": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
@@ -2929,6 +3182,12 @@ def main() -> int:
         # the uneven ring: each block's hi side at its own size (sz_my)
         "remote_axis_uneven": ("stencil_tpu_torch/csrc/remote_axis.cu",
                                "stencil_tpu/ops/remote_dma.py:118"),
+        # B1 over the 6 uneven positions, and over their 36 shells, one
+        # launch each a step (the uneven plain and fused steps)
+        "jacobi_sweep_positions_uneven": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                                "stencil_tpu/ops/pallas_stencil.py:119"),
+        "jacobi_sweep_regions_uneven": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                                       "stencil_tpu/ops/pallas_stencil.py:119"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -6,7 +6,18 @@
 Prints one JSON line per measurement, after a line naming the card
 (``nvidia-smi`` name and power limit):
 
-- ``jacobi_sweep``: one step at size^3, radius 1 (the jacobi3d layout);
+- ``jacobi_sweep`` (B1): one step at size^3, radius 1 (the jacobi3d
+  layout), reading sel on every plane; and every B1 form with ``"sel":
+  "planes"`` as the main paths call it, sel read on the spheres' planes
+  only, beside its bytes bound with sel on those planes (``bound_ms``), the
+  12-byte bound (``bound_12b_ms``) and a three-stream ``torch.add`` over as
+  many cells (``add_ms``): one block, tight-x (``"form": "tight-x"``), the
+  (2,2,2) r4 stack and every one of its shells in one launch
+  (``jacobi_sweep_regions``), the 64-tenant slots of (size/4)^3 and 32^3,
+  the eight (size/2)^3 mesh positions in one launch (``"form": "mesh
+  positions"``) and the six positions of size^3 over (3,2,1) with their
+  36 shells (``"form": "uneven positions"``, ``jacobi_sweep_regions``);
+  with ``--b1`` only these rows and the fused step's (B8) are printed;
 - ``jacobi_multistep`` at each depth k: ms per launch and per step beside
   its bytes bound (8 bytes a cell) and its unfused issue floor (7 fp32
   operations per stage update over the tiles' grown planes,
@@ -91,7 +102,9 @@ from ..ops import astaroth_substep as asub
 from ..ops import fused_stencil as fst
 from ..ops import persistent_stencil as pst
 from ..ops import stencil_kernels as sk
+from ..geometry import Rect3
 from ..ops.jacobi import multi_block_layout, sphere_sel_blocks
+from ..ops.shells import dyn_block_sizes, shell_regions
 from ..parallel import DeviceMesh, HaloExchange, Method
 from ..plan.ir import build_plan
 from ..utils.roofline import bound_ms, issue_ms
@@ -111,6 +124,95 @@ def chunk_launch_shape(k: int) -> dict:
             "smem_bytes": lib.persistent_jacobi_smem_bytes(k), "blocks_per_sm": blocks.value}
 
 
+def b1_row(run, nbytes, dev, reps: int) -> dict:
+    """A B1 form's ms per launch (CUDA-graph replay) beside its bound with
+    sel on its planes, its 12-byte bound and a three-stream ``torch.add``
+    over as many cells; ``nbytes`` = ``stencil_kernels.sweep_bytes``."""
+    full, ranged = nbytes
+    n = full // 12
+    a, b, o = (torch.rand(n, device=dev) for _ in range(3))
+    add_ms = cuda_time_ms(lambda: torch.add(a, b, out=o), reps, graph=True)
+    del a, b, o
+    return {"ms": cuda_time_ms(run, reps, graph=True), "bound_ms": bound_ms(ranged, 0)[0],
+            "bound_12b_ms": bound_ms(full, 0)[0], "add_ms": add_ms}
+
+
+def sweep_forms(n: int, gen, dev, reps: int) -> None:
+    """Every B1 form at the main paths' shapes, each as the main path calls
+    it (sel on the spheres' planes), one JSON line each."""
+    spec = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
+    for form, sp in (("one block", spec),
+                     ("tight-x", GridSpec(Dim3(n, n, n), Dim3(1, 1, 1),
+                                          Radius.constant(1).without_x()))):
+        pd = sp.padded()
+        curr = torch.rand((1, 1, 1, pd.z, pd.y, pd.x), generator=gen, device=dev)
+        nxt, sel, rg = torch.zeros_like(curr), sphere_sel_blocks(sp, dev), sk.sel_z_range(sp)
+        whole = [Rect3(sp.compute_offset(), sp.compute_offset() + sp.base)]
+        row = b1_row(lambda: sk.sweep(curr, nxt, sel, sp, (True,) * 3, rg),
+                     sk.sweep_bytes(sp, whole, rg), dev, reps)
+        print(json.dumps({"kernel": "jacobi_sweep", "form": form, "sel": "planes", "size": n,
+                          **row}), flush=True)
+        del curr, nxt, sel
+
+    specr = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(4))
+    curr = torch.rand(specr.stacked_shape_zyx(), generator=gen, device=dev)
+    nxt, sel, rg = torch.zeros_like(curr), sphere_sel_blocks(specr, dev), sk.block_sel_ranges(specr)
+    wrap, _axes, shells = multi_block_layout(specr)
+    whole = [Rect3(specr.compute_offset(), specr.compute_offset() + specr.base)]
+    row = b1_row(lambda: sk.sweep(curr, nxt, sel, specr, wrap, rg),
+                 sk.sweep_bytes(specr, whole, rg), dev, reps)
+    print(json.dumps({"kernel": "jacobi_sweep", "form": "stacked", "sel": "planes", "size": n,
+                      "partition": [2, 2, 2], **row}), flush=True)
+    row = b1_row(lambda: sk.sweep_regions([curr], [nxt], [sel], specr, [shells], [rg]),
+                 sk.sweep_bytes(specr, shells, rg), dev, reps * 2)
+    print(json.dumps({"kernel": "jacobi_sweep_regions", "form": "stacked", "sel": "planes",
+                      "size": n, "partition": [2, 2, 2], "radius": 4, "shells": len(shells),
+                      **row}), flush=True)
+    del curr, nxt, sel
+
+    for edge in (n // 4, 32):
+        spect = GridSpec(Dim3(edge, edge, edge), Dim3(1, 1, 1), Radius.constant(1),
+                         aligned=False)
+        pt = spect.padded()
+        curr = torch.rand((64, pt.z, pt.y, pt.x), generator=gen, device=dev)
+        nxt, rg = torch.zeros_like(curr), sk.sel_z_range(spect)
+        sel = sphere_sel_blocks(spect, dev).view(1, pt.z, pt.y, pt.x).expand(64, -1, -1, -1)
+        sel = sel.contiguous()
+        whole = [Rect3(spect.compute_offset(), spect.compute_offset() + spect.base)]
+        row = b1_row(lambda: sk.sweep_tenants(curr, nxt, sel, spect, rg),
+                     sk.sweep_bytes(spect, whole, rg, blocks=64), dev, reps)
+        print(json.dumps({"kernel": "jacobi_sweep", "form": "tenants", "sel": "planes",
+                          "tenants": 64, "size": edge, "pitch": pt.x, **row}), flush=True)
+        del curr, nxt, sel
+
+    for part, label in (((2, 2, 2), "mesh positions"), ((3, 2, 1), "uneven positions")):
+        specm = GridSpec(Dim3(n, n, n), Dim3(*part), Radius.constant(1))
+        mesh = DeviceMesh(part, [dev] * (part[0] * part[1] * part[2]))
+        bspec = specm.block_spec()
+        pm = bspec.padded()
+        currs = [torch.rand((1, 1, 1, pm.z, pm.y, pm.x), generator=gen, device=dev)
+                 for _ in range(len(mesh))]
+        nxts, sels = [torch.zeros_like(c) for c in currs], sphere_sel_blocks(specm, mesh)
+        rg = [sk.block_sel_range(specm, Dim3.of(pos).z) for pos in mesh.positions()]
+        whole = [Rect3(bspec.compute_offset(), bspec.compute_offset() + bspec.base)]
+        nb = [sk.sweep_bytes(bspec, whole, r) for r in rg]
+        row = b1_row(lambda: sk.sweep_positions(currs, nxts, sels, bspec, rg),
+                     (sum(f for f, _ in nb), sum(g for _, g in nb)), dev, reps)
+        print(json.dumps({"kernel": "jacobi_sweep", "form": label, "sel": "planes", "size": n,
+                          "partition": list(part), "block": list(bspec.base), **row}),
+              flush=True)
+        if label == "uneven positions":
+            rects = [shell_regions(specm, dyn_block_sizes(specm, pos), (True,) * 3)
+                     for pos in mesh.positions()]
+            nb = [sk.sweep_bytes(bspec, rs, r) for rs, r in zip(rects, rg)]
+            row = b1_row(lambda: sk.sweep_regions(currs, nxts, sels, bspec, rects, rg),
+                         (sum(f for f, _ in nb), sum(g for _, g in nb)), dev, reps * 2)
+            print(json.dumps({"kernel": "jacobi_sweep_regions", "form": label, "sel": "planes",
+                              "size": n, "partition": list(part),
+                              "shells": sum(len(r) for r in rects), **row}), flush=True)
+        del currs, nxts, sels
+
+
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(description="time the port's CUDA kernels on one GPU")
     p.add_argument("--size", type=int, default=512)
@@ -119,6 +221,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--astaroth-size", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--b1", action="store_true",
+                   help="only the sweep's (B1) forms and the fused step (B8)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs a CUDA device")
@@ -126,7 +230,7 @@ def main(argv: Optional[list] = None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     n = args.size
-    ks = [int(v) for v in args.ks.split(",")]
+    ks = [] if args.b1 else [int(v) for v in args.ks.split(",")]
     print(json.dumps({"card": bench_fill.card(), "torch": torch.__version__}), flush=True)
 
     spec = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
@@ -135,7 +239,9 @@ def main(argv: Optional[list] = None) -> int:
     nxt = torch.zeros_like(curr)
     sel = sphere_sel_blocks(spec, dev)
     ms = cuda_time_ms(lambda: sk.sweep(curr, nxt, sel, spec), args.reps, graph=True)
-    print(json.dumps({"kernel": "jacobi_sweep", "size": n, "ms": ms}), flush=True)
+    print(json.dumps({"kernel": "jacobi_sweep", "size": n, "ms": ms, **sk.sweep_info(dev.index)}),
+          flush=True)
+    sweep_forms(n, gen, dev, args.reps)
 
     for k in ks:
         ms = cuda_time_ms(lambda: sk.multistep(curr, nxt, spec, k), max(2, args.reps // 2),
@@ -188,8 +294,8 @@ def main(argv: Optional[list] = None) -> int:
               flush=True)
         del curr, nxt, sel
 
-    for label, part, axes in (("one block", (1, 1, 1), halo_fill.AXIS_ORDER),
-                              ("z-stack", (1, 1, 2), ("x", "y"))):
+    for label, part, axes in (() if args.b1 else (("one block", (1, 1, 1), halo_fill.AXIS_ORDER),
+                                                  ("z-stack", (1, 1, 2), ("x", "y")))):
         rows = bench_fill.measure(f"{n}^3 {label} r3 x4 fp32", bench_fill.case_spec(n, part, 3),
                                   4, torch.float32, axes, gen, dev, args.reps * 2)
         for row in rows:
@@ -248,7 +354,7 @@ def main(argv: Optional[list] = None) -> int:
     del curr, nxt, sel
 
     # the mesh kernels: eight positions on the card, one block each
-    for size, r, nq in ((n, 1, 1), (n // 2, 2, 4)):
+    for size, r, nq in (() if args.b1 else ((n, 1, 1), (n // 2, 2, 4))):
         specm = GridSpec(Dim3(size, size, size), Dim3(2, 2, 2), Radius.constant(r))
         mesh = DeviceMesh((2, 2, 2), [dev] * 8)
         pm = specm.padded()
@@ -327,6 +433,8 @@ def main(argv: Optional[list] = None) -> int:
                   flush=True)
         del currs, nxts, sels
 
+    if args.b1:
+        return 0
     na = args.astaroth_size
     info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",
                                        "astaroth.conf"))

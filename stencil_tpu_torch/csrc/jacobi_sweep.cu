@@ -1,109 +1,189 @@
-// One 7-point Jacobi step over the compute region of a padded fp32 block.
+// One 7-point Jacobi step over rects of padded fp32 blocks, one launch for a
+// table of sweep tasks.
 //
 // Replaces: stencil_tpu/ops/pallas_stencil.py make_pallas_jacobi_sweep
 // (the TPU kernel that tiles (tz, ty) slabs through VMEM with double-buffered
-// DMA). Python wrapper and plain PyTorch version:
-// stencil_tpu_torch/ops/stencil_kernels.py (sweep, sweep_plain).
+// DMA), in every form the port drives: one block or a resident stack (wrap
+// flags on the single-block axes), the batch= tenant form (every axis
+// wrapping onto the tenant), the overlap shells of a partition, every
+// position of a mesh, every shell of a step. Python wrappers, the table's
+// layout and plain PyTorch versions: stencil_tpu_torch/ops/stencil_kernels.py
+// (sweep, sweep_tenants, sweep_region, sweep_positions, sweep_regions;
+// sweep_table; sweep_plain).
 //
-// What bounds it on an H100: bytes. Per cell it reads curr and sel once and
-// writes out once (12 bytes) for 6 adds and a multiply, far below the card's
-// balance point, so the floor is 3 * 4 * nz*ny*nx bytes over the memory rate.
+// What it computes: for every task of the table and every block of the task,
+// out's cells of the task's rect <- the 6-neighbour average of curr,
+// (x_lo + x_hi + y_lo + y_hi + z_lo + z_hi) left to right times 1/6 rounded
+// to float32, then sel == 1 -> 1.0, sel == 2 -> 0.0 on the task's sel planes
+// only (the TPU kernel's sel_z_range: tiles outside the spheres' planes skip
+// the sel DMA and the select). On a wrapping axis the neighbour outside the
+// rect is the periodic one inside it, by index; otherwise it is read in
+// place (a halo cell, or a cell of curr outside a shell). Nothing else of
+// out is written. Tasks write disjoint cells and read only curr, so the
+// launch runs them in any order. (The TPU kernel also copies the input's
+// halo values into the rows it stores, a store-granularity artefact of its
+// tiles; nothing reads them, and this kernel does not.)
 //
-// Design (2.5D blocking): one thread per output (x, y) column; a 32x8 block
-// marches a z range and keeps the z-1 / z / z+1 values of its column in
-// registers (jacobi_column.cuh), so each curr plane is loaded from device
-// memory once per column. The x and y neighbours come through L1/L2
-// (adjacent threads read adjacent addresses, so loads along x coalesce);
-// curr is a const __restrict__ parameter, so its loads take the read-only
-// path. Self-wrap axes take the periodic neighbour by index arithmetic: on a
-// single block no halo cell is read at all, which also makes the tight-x
-// layout (Radius::without_x, no x halo columns) work unchanged. Non-wrapping
-// axes read the halo cells.
+// What bounds it on an H100: bytes. Per cell it reads curr once and writes
+// out once, and reads sel on the sel planes (8 to 12 bytes) for 6 adds and a
+// multiply, far below the card's balance point.
 //
-// Residents and tenants: one launch sweeps every block of a stack (block r
-// at r * bstride): the resident blocks of a partition, or the B independent
-// tenants of a campaign slot (stencil_tpu/ops/pallas_stencil.py
-// make_pallas_jacobi_sweep's batch= form, every axis wrapping onto the
-// tenant itself). A stack launches as a one-dimensional grid of x tiles, y
-// tiles, z ranges and blocks, in that order (fastest first), since grid.x
-// takes up to 2^31 - 1 blocks where grid.y and grid.z stop at 65,535: any
-// stack that fits in memory launches, and each block's tiles run together
-// as on a single block. A single block takes the STACK = false
-// instantiation, which computes no block offset and launches a (gx, gy, gz)
-// grid (one instantiation for both ran 1.09 ms against 0.94 at 512^3 on an
-// H100 80GB HBM3 at 700 W, apps/bench_kernels.py's jacobi_sweep). The same kernel
-// sweeps any rect of the blocks (the overlap shells of a multi-block
-// partition) when given the rect's origin and extent with the wrap flags
-// off.
+// Design: sweep_runs.cuh's body (B8's phase B), its B1 instantiation
+// (flex_tile): 4-cell x runs fed by a 6-plane cp.async ring, each task with
+// its own tile shape, wrap flags and sel range, 8-byte units where a row is
+// on the 8-byte grid only. A task row of the table (int64 columns, laid out
+// by stencil_kernels.sweep_table) stands for `count` blocks `stride`
+// elements apart (the tenants of a slot) and holds its tiles' shape and z
+// chunks, so a launch is a flat walk over every tile of every task: x tile
+// fastest, then y tile, z chunk, block and task. The grid is the blocks that
+// can be resident at once (or fewer when there are fewer tiles), each taking
+// tiles in turn; a block's thread 0 finds its tile's task by a binary search
+// over the rows' first tiles and stages the task's geometry in shared memory
+// (sweep_runs.cuh's Flex), where the other threads read it as they use it
+// (B8's geometry is a kernel parameter, B1's varies by task; every thread
+// searching and holding it in registers timed 2-4% slower at the uneven
+// positions and the 32^3 tenants on an H100, PERF.md). No grid barrier: an
+// ordinary launch.
 //
-// Only the compute region of `out` is written. (The TPU kernel also copies
-// the input's halo values into the rows it stores, a store-granularity
-// artefact of its tiles; nothing reads them, and this kernel does not.)
-//
-// Arithmetic: (x_lo + x_hi + y_lo + y_hi + z_lo + z_hi) summed left to right,
-// then multiplied by 1/6 rounded to float32 -- exactly what the JAX package
-// computes (XLA folds its `sum / 6` into that multiply). Built without fast
-// math and with -fmad=false, so every operation rounds as written.
-// Offsets are 64-bit: a padded 1024^3 block has more than 2^31 elements.
+// Arithmetic: built without fast math and with -fmad=false, so every
+// operation rounds as written: bit-exact to the plain versions and to the
+// JAX package (XLA folds its `sum / 6` into the multiply by 1/6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "jacobi_column.cuh"
+#include "sweep_runs.cuh"
 
 namespace {
 
-using namespace jacobi;
+constexpr int TASK_COLS = 21;  // int64 columns of a task row
 
-template <bool STACK>
-__global__ void __launch_bounds__(THREADS)
-jacobi_sweep_kernel(const float* __restrict__ curr, float* __restrict__ out,
-                    const int32_t* __restrict__ sel, long long sz, long long sy,
-                    long long bstride, int zo, int yo, int xo, int nz, int ny, int nx,
-                    int wz, int wy, int wx, int zchunk, int gx, int gy, int gz) {
-  unsigned int i = blockIdx.x;
-  const int bx = STACK ? i % gx : blockIdx.x;
-  const int by = STACK ? (i /= gx) % gy : blockIdx.y;
-  const int bz = STACK ? (i /= gy) % gz : blockIdx.z;
-  const int res = STACK ? i / gz : 0;
-  const int tx = bx * BX + threadIdx.x;
-  const int ty = by * BY + threadIdx.y;
-  const int z0 = bz * zchunk;
-  const int z1 = min(nz, z0 + zchunk);
-  if (tx >= nx || ty >= ny || z0 >= z1) return;
-  const long long b = STACK ? res * bstride : 0;
-  march_column(curr + b, out + b, sel + b, sz, zo, z0, z1, nz, wz,
-               column_at(tx, ty, xo, yo, nx, ny, wx, wy, sy));
+// One row of the task table.
+struct SweepTask {
+  long long curr, out, sel, stride, count, start, zo, yo, xo, nz, ny, nx, wrap, slo, shi, tx, ty,
+      gx, gy, zchunk, nzc;
+};
+static_assert(sizeof(SweepTask) == TASK_COLS * sizeof(long long), "a task row");
+
+// Everything a launch needs; passed as one __grid_constant__ parameter.
+struct Launch {
+  const SweepTask* task;
+  int ntask;
+  long long tiles;  // over every task
+  long long sz;     // plane stride of every block (elements)
+  int sy, py;       // row stride, padded rows
+  int align;        // words (4, 2 or 1) every pointer, stride and sz are a multiple of
+};
+
+// What the block's thread 0 reads of a tile's task for all its threads.
+struct TileOf {
+  const float* curr;
+  float* out;
+  const int32_t* sel;
+  int tx, ty, tz;
+};
+
+// Two blocks per SM, where B8 holds three: B1's geometry varies by task, and
+// at three blocks (56 registers a thread) the body spills; at two it takes
+// 72 and spills nothing (PERF.md).
+constexpr int MIN_BLOCKS = 2;
+
+__global__ void __launch_bounds__(runs::NT, MIN_BLOCKS)
+jacobi_sweep_kernel(const __grid_constant__ Launch L) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ runs::Flex f;
+  __shared__ TileOf at;
+  for (long long w = blockIdx.x; w < L.tiles; w += gridDim.x) {
+    // the previous tile ended with a barrier: f and at are free
+    if (threadIdx.x == 0) {
+      int lo = 0, hi = L.ntask - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (L.task[mid].start <= w) lo = mid;
+        else hi = mid - 1;
+      }
+      const SweepTask& k = L.task[lo];
+      f.sz = L.sz;
+      f.sy = L.sy;
+      f.py = L.py;
+      f.zo = (int)k.zo;
+      f.yo = (int)k.yo;
+      f.xo = (int)k.xo;
+      f.nz = (int)k.nz;
+      f.ny = (int)k.ny;
+      f.nx = (int)k.nx;
+      f.gx = (int)k.gx;
+      f.gy = (int)k.gy;
+      f.zchunk = (int)k.zchunk;
+      f.tx = (int)k.tx;
+      f.ty = (int)k.ty;
+      f.pitch = 4 * (((int)k.tx + 11) >> 2);
+      f.wrap = (int)k.wrap;
+      f.slo = (int)k.slo;
+      f.shi = (int)k.shi;
+      f.align = L.align;
+      const long long per_block = k.gx * k.gy * k.nzc;
+      const long long t = w - k.start;
+      const long long r = t / per_block;
+      const int u = (int)(t - r * per_block);
+      const long long off = r * k.stride;
+      at.curr = reinterpret_cast<const float*>(k.curr) + off;
+      at.out = reinterpret_cast<float*>(k.out) + off;
+      at.sel = reinterpret_cast<const int32_t*>(k.sel) + off;
+      at.tx = u % f.gx;
+      at.ty = u / f.gx % f.gy;
+      at.tz = u / (f.gx * f.gy);
+    }
+    __syncthreads();
+    runs::flex_tile(f, at.curr, at.out, at.sel, smem, at.tx, at.ty, at.tz);
+  }
 }
+
+static_assert(runs::B1_SMEM <= 48 * 1024, "within the shared memory a block gets unasked");
 
 }  // namespace
 
-// nres blocks of bstride elements each; (zo, yo, xo) / (nz, ny, nx): the
-// swept rect of every block. dev: the device the tensors are on.
-extern "C" int jacobi_sweep_launch(const void* curr, void* out, const void* sel,
-                                   long long sz, long long sy, long long bstride,
-                                   int nres, int zo, int yo, int xo, int nz, int ny,
-                                   int nx, int wz, int wy, int wx, int dev,
-                                   void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1 || nres < 1) return (int)cudaErrorInvalidValue;
-  DeviceScope on(dev);
-  if (on.error() != cudaSuccess) return (int)on.error();
-  SweepGrid g;
-  const cudaError_t e = sweep_grid(dev, nx, ny, nz, &g, nres);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks = (long long)g.gx * g.gy * g.gz * nres;
-  if (nres > 1 ? blocks > 2147483647LL : g.gy > 65535 || g.gz > 65535)
+// tasks: device table of ntask rows of task_cols int64 (stencil_kernels.
+// sweep_table), `tiles` tiles in all; every block a padded fp32 array (sel
+// int32) with plane stride sz, row stride sy and py rows; align: the words
+// (4, 2 or 1) every pointer, block stride and sz are a multiple of; grid:
+// the blocks to launch (at most the tiles); dev: the device of every block.
+// A launch the device refuses returns its error; there is no fallback.
+extern "C" int jacobi_sweep_launch(const void* tasks, int ntask, int task_cols, long long tiles,
+                                   long long sz, long long sy, long long py, int align, int grid,
+                                   int dev, void* stream) {
+  if (ntask < 1 || task_cols != TASK_COLS || tiles < 1 || grid < 1 || grid > tiles || sy < 1 ||
+      py < 1 || sz < sy * py || sz >= (1LL << 31) || (align != 1 && align != 2 && align != 4))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = nres > 1 ? dim3((unsigned)blocks) : dim3(g.gx, g.gy, g.gz);
-  const dim3 block(BX, BY);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (nres > 1)
-    jacobi_sweep_kernel<true><<<grid, block, 0, st>>>(
-        (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, bstride, zo, yo, xo,
-        nz, ny, nx, wz, wy, wx, g.zchunk, g.gx, g.gy, g.gz);
-  else
-    jacobi_sweep_kernel<false><<<grid, block, 0, st>>>(
-        (const float*)curr, (float*)out, (const int32_t*)sel, sz, sy, bstride, zo, yo, xo,
-        nz, ny, nx, wz, wy, wx, g.zchunk, g.gx, g.gy, g.gz);
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  Launch L;
+  L.task = (const SweepTask*)tasks;
+  L.ntask = ntask;
+  L.tiles = tiles;
+  L.sz = sz;
+  L.sy = (int)sy;
+  L.py = (int)py;
+  L.align = align;
+  jacobi_sweep_kernel<<<grid, runs::NT, (size_t)runs::B1_SMEM, (cudaStream_t)stream>>>(L);
   return (int)cudaGetLastError();
+}
+
+// On device dev: r[0..4] = resident blocks per SM, registers per thread,
+// local (spill) bytes per thread, threads per block, dynamic shared memory
+// bytes.
+extern "C" int jacobi_sweep_info(int dev, int* r) {
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[0], jacobi_sweep_kernel,
+                                                                runs::NT, (size_t)runs::B1_SMEM);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, jacobi_sweep_kernel);
+  if (e != cudaSuccess) return (int)e;
+  r[1] = a.numRegs;
+  r[2] = (int)a.localSizeBytes;
+  r[3] = runs::NT;
+  r[4] = (int)runs::B1_SMEM;
+  return 0;
 }

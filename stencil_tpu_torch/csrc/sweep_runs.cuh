@@ -1,29 +1,53 @@
-// One Jacobi sweep of an fp32 block whose halos are already filled, by
-// 4-cell x runs: the body of B8's fused step (fused_jacobi.cu), kept in a
-// header of its own so that B1's sweep can adopt it.
+// One Jacobi sweep of a tile of an fp32 block by 4-cell x runs: the body of
+// B8's fused step (fused_jacobi.cu) and of B1's sweep (jacobi_sweep.cu).
 //
-// What a tile computes: nxt's compute-region cells of one output tile (TX
-// wide, TY high, one z chunk) <- the 6-neighbour average of curr,
-// (x_lo + x_hi + y_lo + y_hi + z_lo + z_hi) left to right times 1/6 rounded
-// to float32, then sel == 1 -> 1.0, sel == 2 -> 0.0: the operand order of
-// every Jacobi kernel of the package, so a tile is bit-exact to the plain
-// sweep (built with -fmad=false). Neighbours outside the compute region are
-// read from curr's halos, with no wrap: the caller has filled them. Nothing
-// else of nxt is written.
+// What a tile computes: out's cells of one output tile (TX wide, TY high,
+// one z chunk) <- the 6-neighbour average of curr, (x_lo + x_hi + y_lo +
+// y_hi + z_lo + z_hi) left to right times 1/6 rounded to float32, then
+// sel == 1 -> 1.0, sel == 2 -> 0.0: the operand order of every Jacobi kernel
+// of the package, so a tile is bit-exact to the plain sweep (built with
+// -fmad=false). Nothing else of out is written.
+//
+// Two instantiations of one body (the template flag B1):
+// - B8's (B1 = false, sweep_tile): the compute region of a block whose halos
+//   are already filled, 128 x 8 tiles; neighbours outside the region are
+//   read from curr's halos, with no wrap.
+// - B1's (B1 = true, flex_tile): any rect of a block (the compute region, a
+//   shell), with what a task of jacobi_sweep.cu's table gives it:
+//   - a tile of its own shape (Flex::tx x Flex::ty, the ring's plane holding
+//     at most PLANE floats), so that a 171-wide block, a 1-cell x shell or a
+//     32^3 tenant does not idle most of a 128-wide tile's threads;
+//   - wrap flags: on a wrapping axis a neighbour outside the rect is the
+//     periodic one inside it, by index (as jacobi_multistep.cu maps its
+//     sources), so a single block or a tenant reads no halo at all and the
+//     tight-x layout (Radius::without_x, no x halo columns) works; a run is
+//     copied as one vector when its mapped cells are contiguous and aligned,
+//     and, in a row of several tiles, a row's end run whose x = -1 or x = nx
+//     wraps (x offset 1 to 3) as one vector of its own padded cells plus
+//     that one cell, patched in as the step takes the plane (copied 4 bytes
+//     a cell, such runs made a wrapped 512^3 sweep on an H100 slower than
+//     an unwrapped one; PERF.md);
+//   - a sel plane range [slo, shi): planes outside it load no sel and
+//     impose no sphere (the TPU kernel's sel_z_range);
+//   - 8-byte units where a row is on the 8-byte grid but not the 16-byte
+//     one (an even row pitch that is not a multiple of 4 floats: the
+//     campaign's unaligned tenants, pitch 34 or 130), chosen per run.
+//   Its loads may take any path: B1 writes nothing it reads.
 //
 // Design: the multistep kernel's (jacobi_multistep.cu) at depth 1.
 // - A thread owns a 4-cell x run of one row of the tile grown by one cell
-//   (ROWS = TY + 2 rows of RUNS runs). Runs sit on the padded block's
-//   16-byte grid: the first tile of a row starts at the compute region's
-//   first column and is up to 3 columns wider, every later tile starts its
-//   output on the grid, so a run's plane arrives as one 16-byte cp.async and
-//   its output leaves as one float4 store. Where the layout does not allow
-//   it (`vec` 0: a row pitch or plane stride that is not a multiple of 4
-//   floats, or a pointer off the 16-byte grid) and for runs clamped at a
-//   padded row's ends, cells move 4 bytes at a time.
+//   (ty + 2 rows of (tx + 11) / 4 runs). Runs sit on the padded block's
+//   16-byte grid: the first tile of a row starts at the region's first
+//   column and is up to 3 columns wider, every later tile starts its output
+//   on the grid, so a run's plane arrives as one 16-byte cp.async and its
+//   output leaves as one float4 store. Where the layout does not allow it
+//   (B8: `vec` 0, a row pitch or plane stride that is not a multiple of 4
+//   floats, or a pointer off the 16-byte grid; B1: per run, by its mapped
+//   address) and for runs clamped at a padded row's ends, cells move 8 or 4
+//   bytes at a time.
 // - curr's planes are copied LOOK planes ahead of use into a ring of
 //   RING = LOOK + 2 planes in shared memory by cp.async.cg (L2, coherent:
-//   other blocks of the launch wrote the halos; never the read-only path).
+//   other blocks of B8's launch wrote the halos; never the read-only path).
 //   The step loop is unrolled over the ring's slots (a multiple of 6), so
 //   every ring slot, window slot and sel buffer is a constant.
 // - z neighbours: a three-plane register window of the thread's own run;
@@ -32,10 +56,10 @@
 //   y - 1 and y + 1 of the ring's plane.
 // - sel arrives by 16-byte loads on the read-only path (it is never
 //   written), loaded one plane ahead of use into one of two register sets;
-//   nxt leaves by float4 stores.
+//   out leaves by float4 stores.
 // - One barrier a plane: plane j's copy has landed for every thread, and
 //   the slot plane j + LOOK goes to (plane j - 2's) is no longer read.
-// Offsets within a plane are 32-bit (the launch refuses a plane of 2^31
+// Offsets within a plane are 32-bit (the launches refuse a plane of 2^31
 // elements or more), plane offsets 64-bit.
 
 #pragma once
@@ -52,7 +76,7 @@ namespace runs {
 constexpr int TX = 128;         // output tile width, x (the first tile of a row is up to 3 wider)
 constexpr int TY = 8;           // output tile height, y
 constexpr int LOOK = 4;         // planes in flight ahead of use
-constexpr int MIN_BLOCKS = 3;   // resident blocks per SM the registers are bounded for
+constexpr int MIN_BLOCKS = 3;   // B8's resident blocks per SM (B1's: jacobi_sweep.cu)
 constexpr int RING = LOOK + 2;  // ring planes
 constexpr int ROWS = TY + 2;    // rows of the grown tile
 // runs of a row: enough for the widest tile grown by one cell on each side
@@ -63,11 +87,16 @@ constexpr int PLANE = ROWS * PITCH;
 constexpr int NT = (ROWS * RUNS + 31) / 32 * 32;  // threads of a block
 // a guard row, the ring, a guard row
 constexpr long long SMEM = 4LL * (RING * PLANE + 2 * PITCH);
+// B1's: then two patch cells per row (a tile has at most PLANE / 12 rows: a
+// run of 3) and ring slot, for the x-wrapped cells of a row's two end runs
+constexpr int PATCH_ROWS = PLANE / 12;
+constexpr long long B1_SMEM = SMEM + 4LL * RING * 2 * PATCH_ROWS;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float SIXTH = 1.0f / 6.0f;
 constexpr float HOT = 1.0f;
 constexpr float COLD = 0.0f;
 static_assert(RING % 6 == 0, "ring slots, window slots and sel sets repeat every RING steps");
+static_assert(PLANE / 4 <= NT, "a B1 tile of (ty + 2) x runs <= PLANE / 4 runs has a thread each");
 
 // The geometry of a sweep: the same for every block position and tile.
 struct Geometry {
@@ -80,16 +109,34 @@ struct Geometry {
   int vec;          // pointers and strides allow 16-byte runs
 };
 
-// Tiles along x of an nx-wide region starting at padded x = xo: the first is
-// [0, TX + a), tile t >= 1 is [t TX + a, (t + 1) TX + a), a = -xo mod 4, so
-// every tile after the first starts its output on the 16-byte grid.
-__host__ __device__ inline int tiles_x(int nx, int xo) {
-  const int t = (nx - (-xo & 3) + TX - 1) / TX;
+// B1's geometry of one task (jacobi_sweep.cu's table gives it): the rect
+// (Geometry's region), its own tile shape, wrap flags, sel range and
+// alignment; jacobi_sweep.cu stages it in shared memory, where B8's
+// Geometry is a kernel parameter.
+struct Flex : Geometry {
+  int tx, ty;    // tile width (multiple of 4) and height
+  int pitch;     // floats per ring row: 4 * (tx + 11) / 4 runs
+  int wrap;      // bit 0 x, bit 1 y, bit 2 z: periodic by index within the rect
+  int slo, shi;  // output planes (rect-relative) whose sel is read: [slo, shi)
+  int align;     // words (4, 2 or 1) that every pointer and plane stride are a multiple of
+};
+
+// Tiles along x of an nx-wide region starting at padded x = xo, tx wide:
+// the first is [0, tx + a), tile t >= 1 is [t tx + a, (t + 1) tx + a),
+// a = -xo mod 4, so every tile after the first starts its output on the
+// 16-byte grid.
+__host__ __device__ inline int tiles_x(int nx, int xo, int tx = TX) {
+  const int t = (nx - (-xo & 3) + tx - 1) / tx;
   return t < 1 ? 1 : t;
 }
 
 __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
+}
+
+__device__ __forceinline__ int wrapi(int a, int n) {
+  const int r = a % n;
+  return r < 0 ? r + n : r;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -101,9 +148,15 @@ __device__ __forceinline__ void cp16(float* dst, const float* src) {
                : "memory");
 }
 
-// 4 bytes can only go through L1 (cp.async.ca); no line of curr is in L1
-// before the barrier that precedes the sweep (the hand-offs read through L2),
-// and L1 starts empty at each launch, so no stale halo is read
+// 8 and 4 bytes can only go through L1 (cp.async.ca); no line of curr is in
+// L1 before the barrier that precedes B8's sweep (the hand-offs read through
+// L2), and L1 starts empty at each launch, so no stale halo is read; B1's
+// launch writes nothing it reads
+__device__ __forceinline__ void cp8(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
@@ -140,43 +193,90 @@ struct Tile {
 // What a thread owns: one 4-cell run of a row of the grown tile, at offset
 // me in a ring plane; whether it holds a cell of the grown tile (ld); its
 // source row's offset in a plane and its cells' source x (clamped into the
-// padded block); whether it copies as one vector (vcp); its output cells (st:
-// bits 0-3, and bit 8 when they store as one aligned vector) and their row
-// offset (ooff, of the run's first cell); per plane slot its cells' values
-// (w[slot][cell], slot = step mod 3) and two sets of sel values (step parity).
+// padded block, or wrapped); whether it copies as one 16-byte vector (vcp)
+// or as two 8-byte ones (v8, B1); its output cells (st: bits 0-3, bit 8 when
+// they store as one aligned 16-byte vector, bit 9 as two 8-byte ones, B1)
+// and their row offset (ooff, of the run's first cell); per plane slot its
+// cells' values (w[slot][cell], slot = step mod 3) and two sets of sel
+// values (step parity). B1 keeps one set of sel values, packed into two
+// bits a cell (sk: 1 hot, 2 cold, 0 the average) as the step that uses
+// them starts (two sets ran 4-7% slower where sel is read on every plane,
+// on an H100; PERF.md); folds the row offsets into its own pointers (src:
+// curr + yoff; dst, sp: out and sel + ooff); and, for a run whose x = -1
+// or x = nx wraps, copies the run from its own padded cells and that one
+// cell from the row's other end into the patch area (patch: its padded x
+// << 10 | (2 row + side) << 2 | cell, side 1 for x = nx; or -1).
 struct Run {
   float w[3][4];
   int sl[2][4];
   int me, lane, yoff, ooff, st;
   int xq[4];
-  bool ld, vcp;
+  bool ld, vcp, v8;
+  unsigned sk;
+  int patch;
+  const float* src;
+  float* dst;
+  const int32_t* sp;
 };
+
+// B1's patch cell r = 2 row + side in ring slot Q (after the trailing guard
+// row).
+__device__ __forceinline__ float* patch_cell(const Tile& b, int q, int r) {
+  return b.ring + RING * PLANE + PITCH + q * 2 * PATCH_ROWS + r;
+}
 
 // Copy the run's cells of step jj's plane (Z0 - 1 + jj) into ring slot Q
 // (one commit group per step, empty past the chunk).
-template <int Q>
+template <bool B1, int Q>
 __device__ __forceinline__ void copy_plane(const Geometry& g, const Tile& b, const Run& c,
                                            int jj) {
   if (c.ld && jj < b.nsteps) {
-    const float* src = b.curr + (long long)(g.zo + b.Z0 - 1 + jj) * g.sz + c.yoff;
+    int z = b.Z0 - 1 + jj;
+    if constexpr (B1) {
+      if (static_cast<const Flex&>(g).wrap & 4) z = z < 0 ? z + g.nz : (z >= g.nz ? z - g.nz : z);
+    }
+    const float* src;
+    if constexpr (B1) src = c.src + (long long)(g.zo + z) * g.sz;
+    else src = b.curr + (long long)(g.zo + z) * g.sz + c.yoff;
     float* dst = b.ring + Q * PLANE + c.me;
     if (c.vcp) {
       cp16(dst, src + c.xq[0]);
+    } else if (B1 && c.v8) {
+      cp8(dst, src + c.xq[0]);
+      cp8(dst + 2, src + c.xq[2]);
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) cp4(dst + q, src + c.xq[q]);
+    }
+    if constexpr (B1) {
+      if (c.patch >= 0) cp4(patch_cell(b, Q, c.patch >> 2 & 255), src + (c.patch >> 10));
     }
   }
   cp_commit();
 }
 
-// The run's sel values at output plane v.
+// The run's sel values at output plane v (B1: 0 outside the sel range).
+template <bool B1>
 __device__ __forceinline__ void load_sel(const Geometry& g, const Tile& b, const Run& c, int v,
                                          int (&s)[4]) {
-  const int32_t* p = b.sel + (long long)(g.zo + v) * g.sz + c.ooff;
+  if constexpr (B1) {
+    const Flex& f = static_cast<const Flex&>(g);
+    if (v < f.slo || v >= f.shi) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[q] = 0;
+      return;
+    }
+  }
+  const int32_t* p;
+  if constexpr (B1) p = c.sp + (long long)(g.zo + v) * g.sz;
+  else p = b.sel + (long long)(g.zo + v) * g.sz + c.ooff;
   if (c.st & 256) {
     const int4 a = __ldg(reinterpret_cast<const int4*>(p));
     s[0] = a.x, s[1] = a.y, s[2] = a.z, s[3] = a.w;
+  } else if (B1 && (c.st & 512)) {
+    const int2 a = __ldg(reinterpret_cast<const int2*>(p));
+    const int2 d = __ldg(reinterpret_cast<const int2*>(p + 2));
+    s[0] = a.x, s[1] = a.y, s[2] = d.x, s[3] = d.y;
   } else {
 #pragma unroll
     for (int q = 0; q < 4; ++q) s[q] = c.st >> q & 1 ? __ldg(p + q) : 0;
@@ -184,25 +284,49 @@ __device__ __forceinline__ void load_sel(const Geometry& g, const Tile& b, const
 }
 
 // The first LOOK planes' copies.
-template <int Q>
+template <bool B1, int Q>
 __device__ __forceinline__ void prologue(const Geometry& g, const Tile& b, const Run& c) {
-  copy_plane<Q>(g, b, c, Q);
-  if constexpr (Q + 1 < LOOK) prologue<Q + 1>(g, b, c);
+  copy_plane<B1, Q>(g, b, c, Q);
+  if constexpr (Q + 1 < LOOK) prologue<B1, Q + 1>(g, b, c);
 }
 
 // Step j (P = j mod RING): wait for plane j, barrier, copy plane j + LOOK,
 // load sel for step j + 1's output plane, take plane j into the window, then
 // compute output plane v = Z0 + j - 2 from planes j - 2, j - 1 and j.
-template <int P>
+template <bool B1, int P>
 __device__ __forceinline__ void step(const Geometry& g, const Tile& b, Run& c, int j) {
   cp_wait<LOOK - 1>();
   __syncthreads();
-  copy_plane<(P + LOOK) % RING>(g, b, c, j + LOOK);
-  if (c.st && j >= 1 && j + 1 < b.nsteps) load_sel(g, b, c, b.Z0 + j - 1, c.sl[(P + 1) & 1]);
+  copy_plane<B1, (P + LOOK) % RING>(g, b, c, j + LOOK);
+  if constexpr (B1) {
+    // this step's output plane's sel values, loaded a step ago: packed
+    // before the set takes the next plane's
+    c.sk = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      c.sk |= (c.sl[0][q] == 1 ? 1u : (c.sl[0][q] == 2 ? 2u : 0u)) << 2 * q;
+    if (c.st && j >= 1 && j + 1 < b.nsteps) load_sel<B1>(g, b, c, b.Z0 + j - 1, c.sl[0]);
+  } else {
+    if (c.st && j >= 1 && j + 1 < b.nsteps)
+      load_sel<B1>(g, b, c, b.Z0 + j - 1, c.sl[(P + 1) & 1]);
+  }
   if (c.ld) {
     const float4 a = *reinterpret_cast<const float4*>(b.ring + P * PLANE + c.me);
     float(&w)[4] = c.w[P % 3];
     w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+    if constexpr (B1) {
+      // the wrapped cell, into the window and into the ring, where the
+      // next step's neighbours read plane j (after its barrier)
+      if (c.patch >= 0) {
+        const float v = *patch_cell(b, P, c.patch >> 2 & 255);
+        float* r = b.ring + P * PLANE + c.me;
+        const int q = c.patch & 3;
+        if (q == 0) w[0] = v, r[0] = v;
+        else if (q == 1) w[1] = v, r[1] = v;
+        else if (q == 2) w[2] = v, r[2] = v;
+        else w[3] = v, r[3] = v;
+      }
+    }
   }
   if (j < 2) return;
   const float(&m)[4] = c.w[(P + 2) % 3];   // plane j - 1: the output plane
@@ -212,22 +336,37 @@ __device__ __forceinline__ void step(const Geometry& g, const Tile& b, Run& c, i
   float xl = __shfl_up_sync(FULL, m[3], 1);
   float xr = __shfl_down_sync(FULL, m[0], 1);
   if (!c.st) return;
+  int pitch = PITCH;
+  if constexpr (B1) pitch = static_cast<const Flex&>(g).pitch;
   const float* in = b.ring + ((P + RING - 1) % RING) * PLANE + c.me;
   if (c.lane == 0) xl = in[-1];
   if (c.lane == 31) xr = in[4];
-  const float4 yl = *reinterpret_cast<const float4*>(in - PITCH);
-  const float4 yh = *reinterpret_cast<const float4*>(in + PITCH);
-  const int(&s)[4] = c.sl[P & 1];
+  const float4 yl = *reinterpret_cast<const float4*>(in - pitch);
+  const float4 yh = *reinterpret_cast<const float4*>(in + pitch);
   float o[4];
   o[0] = avg6(xl, m[1], yl.x, yh.x, lo[0], hi[0]);
   o[1] = avg6(m[0], m[2], yl.y, yh.y, lo[1], hi[1]);
   o[2] = avg6(m[1], m[3], yl.z, yh.z, lo[2], hi[2]);
   o[3] = avg6(m[2], xr, yl.w, yh.w, lo[3], hi[3]);
+  if constexpr (B1) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) o[q] = s[q] == 1 ? HOT : (s[q] == 2 ? COLD : o[q]);
-  float* d = b.out + (long long)(g.zo + b.Z0 + j - 2) * g.sz + c.ooff;
+    for (int q = 0; q < 4; ++q) {
+      const unsigned k = c.sk >> 2 * q & 3u;
+      o[q] = k == 1u ? HOT : (k == 2u ? COLD : o[q]);
+    }
+  } else {
+    const int(&s)[4] = c.sl[P & 1];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[q] = s[q] == 1 ? HOT : (s[q] == 2 ? COLD : o[q]);
+  }
+  float* d;
+  if constexpr (B1) d = c.dst + (long long)(g.zo + b.Z0 + j - 2) * g.sz;
+  else d = b.out + (long long)(g.zo + b.Z0 + j - 2) * g.sz + c.ooff;
   if (c.st & 256) {
     *reinterpret_cast<float4*>(d) = make_float4(o[0], o[1], o[2], o[3]);
+  } else if (B1 && (c.st & 512)) {
+    *reinterpret_cast<float2*>(d) = make_float2(o[0], o[1]);
+    *reinterpret_cast<float2*>(d + 2) = make_float2(o[2], o[3]);
   } else {
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -236,16 +375,25 @@ __device__ __forceinline__ void step(const Geometry& g, const Tile& b, Run& c, i
 }
 
 // Steps j + P .. j + RING - 1 that lie in the chunk, unrolled.
-template <int P>
+template <bool B1, int P>
 __device__ __forceinline__ void steps(const Geometry& g, const Tile& b, Run& c, int j) {
-  if (j + P < b.nsteps) step<P>(g, b, c, j + P);
-  if constexpr (P + 1 < RING) steps<P + 1>(g, b, c, j);
+  if (j + P < b.nsteps) step<B1, P>(g, b, c, j + P);
+  if constexpr (P + 1 < RING) steps<B1, P + 1>(g, b, c, j);
 }
 
-// Tile t of one block position (x fastest, then y, then z chunk): nxt <- one
-// sweep of curr over the tile, by a block of NT threads with SMEM bytes of
-// dynamic shared memory. Ends with a barrier, so the block may start its
-// next tile in the same shared memory.
+// The tile's plane steps, then a barrier, so the block may start its next
+// tile in the same shared memory.
+template <bool B1>
+__device__ __forceinline__ void march(const Geometry& g, const Tile& b, Run& c) {
+  prologue<B1, 0>(g, b, c);
+  for (int j = 0; j < b.nsteps; j += RING) steps<B1, 0>(g, b, c, j);
+  cp_wait<0>();
+  __syncthreads();
+}
+
+// B8: tile t of one block position (x fastest, then y, then z chunk): nxt
+// <- one sweep of curr over the tile, by a block of NT threads with SMEM
+// bytes of dynamic shared memory. Ends with a barrier.
 __device__ __forceinline__ void sweep_tile(const Geometry& g, const float* curr,
                                            float* __restrict__ out,
                                            const int32_t* __restrict__ sel, float* smem,
@@ -291,11 +439,93 @@ __device__ __forceinline__ void sweep_tile(const Geometry& g, const float* curr,
     if (c.st == 15 && g.vec) c.st |= 256;
   }
   c.ooff = (g.yo + ly) * g.sy + g.xo + lx0;
+  march<false>(g, b, c);
+}
 
-  prologue<0>(g, b, c);
-  for (int j = 0; j < b.nsteps; j += RING) steps<0>(g, b, c, j);
-  cp_wait<0>();
-  __syncthreads();
+// B1: tile (tx, ty, tz) of the rect f describes (origin (zo, yo, xo) in the
+// padded block, nz x ny x nx cells; f in shared memory), of f's shape: out
+// <- one sweep of curr over the tile, wrapping by index where f says,
+// imposing sel on f's planes. A block of NT threads with SMEM bytes of
+// dynamic shared memory. Ends with a barrier.
+__device__ __forceinline__ void flex_tile(const Flex& f, const float* curr, float* out,
+                                          const int32_t* sel, float* smem, int tx, int ty,
+                                          int tz) {
+  const Geometry& g = f;
+  const int runs = f.pitch >> 2;  // runs of a row, as RUNS for TX
+  const int rows = f.ty + 2;
+  const int a = -g.xo & 3;
+  const int X0 = tx == 0 ? 0 : tx * f.tx + a;
+  const int W = min(g.nx, (tx + 1) * f.tx + a) - X0;
+  const int Y0 = ty * f.ty;
+  Tile b;
+  b.curr = curr;
+  b.out = out;
+  b.sel = sel;
+  b.ring = smem + PITCH;
+  b.Z0 = tz * g.zchunk;
+  b.nsteps = min(g.nz, b.Z0 + g.zchunk) - b.Z0 + 2;
+  const bool wx = f.wrap & 1, wy = f.wrap & 2;
+  const int e = (g.xo + X0 - 1) & 3;
+
+  Run c;
+  const int th = threadIdx.x;
+  c.lane = th & 31;
+  const int row = th / runs, rn = th - row * runs;
+  c.me = row * f.pitch + 4 * rn;
+  c.ld = th < rows * runs && 4 * rn + 3 >= e && 4 * rn <= e + W + 1;
+  const int lx0 = X0 - 1 - e + 4 * rn;  // rect-local x of the run's first cell
+  const int ly = Y0 - 1 + row;          // rect-local y of its row
+  // source cells: by index wrap on a wrapping axis, otherwise clamped into
+  // the padded block (cells past the grown tile feed no output)
+  c.yoff = (wy ? g.yo + wrapi(ly, g.ny) : clampi(g.yo + ly, 0, g.py - 1)) * g.sy;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    c.xq[q] = wx ? g.xo + wrapi(lx0 + q, g.nx) : clampi(g.xo + lx0 + q, 0, g.sy - 1);
+  // the vector width of the mapped cells' address
+  const bool run4 = c.xq[1] == c.xq[0] + 1 && c.xq[2] == c.xq[0] + 2 && c.xq[3] == c.xq[0] + 3;
+  const int ph = (c.yoff + c.xq[0]) & 3;
+  c.vcp = run4 && f.align == 4 && ph == 0;
+  c.v8 = run4 && !c.vcp && f.align >= 2 && (ph & 1) == 0;
+  c.patch = -1;
+  if (wx && f.gx > 1 && !c.vcp && !c.v8) {
+    // a row's end run whose x = -1 or x = nx wraps to the other end: of its
+    // cells only that one is read from there (as a neighbour of x = 0 or
+    // x = nx - 1); copy the run from its own padded cells, which lie on the
+    // grid, and the one cell apart (patched in as the step takes the plane).
+    // Only where a row spans several tiles: with one tile a row (a 128^3
+    // tenant) the 4-byte copies timed faster (PERF.md)
+    const int u0 = g.xo + lx0, uph = (c.yoff + u0) & 3;
+    int pq = 0, ps = 0, side = 0, n = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (lx0 + q == -1) pq = q, ps = g.xo + g.nx - 1, ++n;
+      else if (lx0 + q == g.nx) pq = q, ps = g.xo, side = 1, ++n;
+    }
+    if (n == 1 && u0 >= 0 && u0 + 3 < g.sy && f.align >= 2 && (uph & 1) == 0) {
+      c.patch = ps << 10 | (2 * row + side) << 2 | pq;
+      c.xq[0] = u0;
+      c.xq[2] = u0 + 2;
+      c.vcp = f.align == 4 && uph == 0;
+      c.v8 = !c.vcp;
+    }
+  }
+  // output cells: columns [e + 1, e + 1 + W), rows [1, ty], inside the rect
+  c.st = 0;
+  c.ooff = (g.yo + ly) * g.sy + g.xo + lx0;
+  if (c.ld && row >= 1 && row <= f.ty && ly < g.ny) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = lx0 + q - X0;
+      if (col >= 0 && col < W) c.st |= 1 << q;
+    }
+    const int po = c.ooff & 3;
+    if (c.st == 15 && f.align == 4 && po == 0) c.st |= 256;
+    else if (c.st == 15 && f.align >= 2 && (po & 1) == 0) c.st |= 512;
+  }
+  c.src = curr + c.yoff;
+  c.dst = out + c.ooff;
+  c.sp = sel + c.ooff;
+  march<true>(g, b, c);
 }
 
 }  // namespace runs

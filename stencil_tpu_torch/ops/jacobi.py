@@ -17,7 +17,8 @@ the loops follow the JAX package's Pallas branch of ``_compile_jacobi``:
 the kernels wrap the single-block axes and read halos on the multi-block
 ones. A step with overlap sweeps pre-exchange data, runs the full exchange,
 then re-sweeps the multi-block axes' shells from the exchanged halos
-(:func:`stencil_kernels.sweep_region`); without overlap it exchanges the
+(every shell of every block in one launch,
+:func:`stencil_kernels.sweep_regions`); without overlap it exchanges the
 multi-block axes and sweeps. With overlap and a depth k >= 2 (the deep
 halo, radius >= k), one exchange of the multi-block axes feeds each k-step
 multistep pass over every resident at its own global origin, and the
@@ -33,7 +34,7 @@ kernel (one launch per step) or the persistent chunk kernel (one launch per
 k-step chunk), by the exchange's kernel variant. Over a mesh of several
 block positions (``HaloExchange(mesh=...)``, operands are lists of blocks)
 each variant keeps its shape: the plain step is the exchange (axis-carrier
-phases, self-wrap fills) and one sweep launch per position with no
+phases, self-wrap fills) and one sweep launch over every position with no
 in-kernel wrap (the JAX package's ``_compile_jacobi_remote``); the fused
 step is one launch of the fused kernel's wire-crossing form over every
 position (:func:`fused_stencil.fused_jacobi_mesh`); the persistent chunk
@@ -77,13 +78,17 @@ from .stencil_kernels import (
     HOT_TEMP,
     TEMPORAL_K_CAP,
     _sphere_masks,
+    block_sel_range,
+    block_sel_ranges,
     multi_block_axes,
     multistep,
     plan_multistep_depth,
+    sel_z_range,
     sixth,
     sphere_masks_from_coords,
     sweep,
-    sweep_region,
+    sweep_positions,
+    sweep_regions,
     sweep_tenants,
 )
 
@@ -209,34 +214,48 @@ def multi_block_layout(spec) -> Tuple[Tuple[bool, bool, bool], Tuple[str, ...], 
     return wrap, axes, shells
 
 
-def _step_body(ex, overlap: bool):
+def _sel_ranges(ex, standard_spheres: bool):
+    """The planes each block's ``sel`` is imposed on, as the TPU kernel's
+    ``sel_z_range`` skips the others: each block's (or mesh position's)
+    own sphere planes when ``sel`` holds the standard jacobi3d spheres,
+    else None (every plane)."""
+    if not standard_spheres:
+        return None
+    spec = ex.spec
+    if ex.on_mesh:
+        return [block_sel_range(spec, Dim3.of(pos).z) for pos in ex.mesh.positions()]
+    return block_sel_ranges(spec)
+
+
+def _step_body(ex, overlap: bool, ranges=None):
     """``body(curr, nxt, sel) -> (out, curr)``: one step of the domain of
-    ``ex`` (the JAX package's Pallas ``body``). ``curr``'s halos are
-    updated in place by the exchange."""
+    ``ex`` (the JAX package's Pallas ``body``), ``sel`` imposed on each
+    block's ``ranges`` (:func:`_sel_ranges`). ``curr``'s halos are updated
+    in place by the exchange."""
     spec = ex.spec
     wrap, axes, shells = multi_block_layout(spec)
     if not axes:  # every axis wraps inside the kernel: no exchange at all
-        return lambda curr, nxt, sel: (sweep(curr, nxt, sel, spec, wrap), curr)
+        return lambda curr, nxt, sel: (sweep(curr, nxt, sel, spec, wrap, ranges), curr)
     require_face_radius(spec)
     if not spec.is_uniform():
         # the JAX package's XLA path for an uneven resident partition:
         # serialized, the full exchange, then the full base extent
         def body(curr, nxt, sel):
             ex(curr)
-            return sweep(curr, nxt, sel, spec, NO_WRAP), curr
+            return sweep(curr, nxt, sel, spec, NO_WRAP, ranges), curr
     elif overlap:
         def body(curr, nxt, sel):
             # the sweep reads pre-exchange data; the shells' stencils also
-            # read the single-block axes' halos, so the FULL exchange runs
-            out = sweep(curr, nxt, sel, spec, wrap)
+            # read the single-block axes' halos, so the FULL exchange runs;
+            # every shell of every block in one launch
+            out = sweep(curr, nxt, sel, spec, wrap, ranges)
             ex(curr)
-            for rect in shells:
-                sweep_region(curr, out, sel, spec, rect)
+            sweep_regions([curr], [out], [sel], spec, [shells], [ranges])
             return out, curr
     else:
         def body(curr, nxt, sel):
             ex.exchange(curr, axes=axes)
-            return sweep(curr, nxt, sel, spec, wrap), curr
+            return sweep(curr, nxt, sel, spec, wrap, ranges), curr
     return body
 
 
@@ -246,29 +265,29 @@ def _ignored(temporal_k, why: str) -> None:
                  f"with in-step exchanges; {why}")
 
 
-def _sweep_step(ex):
+def _sweep_step(ex, ranges=None):
     """``step(curr, nxt, sel) -> out``: one no-wrap sweep reading the filled
-    halos, one launch per position over a mesh (whose operands are lists
-    of blocks)."""
+    halos, ``sel`` imposed on each block's ``ranges``; over a mesh (whose
+    operands are lists of blocks) one launch for every position."""
     spec = ex.spec
     if ex.on_mesh:
         bspec = spec.block_spec()
 
         def step(curr, nxt, sel):
-            return [sweep(c, n, s, bspec, NO_WRAP) for c, n, s in zip(curr, nxt, sel)]
+            return sweep_positions(curr, nxt, sel, bspec, ranges)
     else:
         def step(curr, nxt, sel):
-            return sweep(curr, nxt, sel, spec, NO_WRAP)
+            return sweep(curr, nxt, sel, spec, NO_WRAP, ranges)
     return step
 
 
-def _remote_loop(ex, iters: int, temporal_k):
+def _remote_loop(ex, iters: int, temporal_k, ranges=None):
     """Plain remote-dma: per step the exchange (three fills on one block;
     the mesh exchange over a mesh), then the sweep reading the filled
     halos, then the swap."""
     require_face_radius(ex.spec)
     _ignored(temporal_k, "the REMOTE_DMA path runs per-step exchange + sweep dispatches")
-    step = _sweep_step(ex)
+    step = _sweep_step(ex, ranges)
 
     def loop(curr, nxt, sel):
         for _ in range(iters):
@@ -279,7 +298,7 @@ def _remote_loop(ex, iters: int, temporal_k):
     return loop
 
 
-def _uneven_fused_loop(ex, iters: int):
+def _uneven_fused_loop(ex, iters: int, ranges=None):
     """Fused remote-dma over an uneven mesh: the JAX package's
     host-orchestrated schedule (``stencil_tpu/ops/jacobi.py``
     ``_compile_jacobi_fused``), since the fused step kernel (B8) and the
@@ -288,7 +307,9 @@ def _uneven_fused_loop(ex, iters: int):
     pre-exchange state; the mesh exchange (B6's uneven ring, B4 on the
     single-position axes); then every side's boundary shell of every
     position (``ops/shells``, at the block's own size on the hi side)
-    re-swept from the exchanged state (``sweep_region``); then the swap."""
+    re-swept from the exchanged state; then the swap. The sweeps are one
+    launch (``sweep_positions``), and so are the shells
+    (``sweep_regions``), ``sel`` imposed on each position's ``ranges``."""
     spec, mesh = ex.spec, ex.mesh
     bspec = spec.block_spec()
     include = include_axes(spec, multi_block_only=False)
@@ -297,18 +318,16 @@ def _uneven_fused_loop(ex, iters: int):
 
     def loop(curr, nxt, sel):
         for _ in range(iters):
-            out = [sweep(c, n, s, bspec, NO_WRAP) for c, n, s in zip(curr, nxt, sel)]
+            out = sweep_positions(curr, nxt, sel, bspec, ranges)
             ex(curr)
-            for c, o, s, rects in zip(curr, out, sel, shells):
-                for rect in rects:
-                    sweep_region(c, o, s, bspec, rect)
+            sweep_regions(curr, out, sel, bspec, shells, ranges)
             curr, nxt = out, curr
         return curr, nxt
 
     return loop
 
 
-def _fused_loop(ex, iters: int, temporal_k):
+def _fused_loop(ex, iters: int, temporal_k, ranges=None):
     """Fused remote-dma: one fused step kernel per step (halo hand-offs into
     ``curr`` and the sweep into ``nxt``; over a mesh, every position's
     messages and sweeps in one launch, the crossing ones through the
@@ -318,7 +337,7 @@ def _fused_loop(ex, iters: int, temporal_k):
     _ignored(temporal_k, "the FUSED path runs one fused exchange+sweep substep per step")
     spec, plan, mesh = ex.spec, ex.plan, ex.mesh
     if not kernel_supported(spec, ex.resident):
-        return _uneven_fused_loop(ex, iters)
+        return _uneven_fused_loop(ex, iters, ranges)
     if ex.on_mesh:
         def step(curr, nxt, sel):
             return fused_jacobi_mesh(curr, nxt, sel, spec, plan, mesh, ex.wire_dtype)
@@ -335,7 +354,7 @@ def _fused_loop(ex, iters: int, temporal_k):
     return loop
 
 
-def _persistent_loop(ex, iters: int, temporal_k):
+def _persistent_loop(ex, iters: int, temporal_k, ranges=None):
     """Persistent remote-dma: ``sel``'s halos filled once per loop call (in
     place; sel is step-invariant; over a mesh by the axis carrier at the
     deep radius), then per chunk of ``chunk_schedule(iters, k)`` one
@@ -354,7 +373,7 @@ def _persistent_loop(ex, iters: int, temporal_k):
     sched = chunk_schedule(iters, k)
     if sched:
         check_chunk_depth(spec, max(sched))
-    tail = _sweep_step(ex)
+    tail = _sweep_step(ex, ranges)
     if ex.on_mesh:
         def chunk(curr, nxt, sel, d):
             persistent_jacobi_mesh(curr, nxt, sel, spec, d, ex.mesh)
@@ -383,16 +402,17 @@ def _persistent_loop(ex, iters: int, temporal_k):
     return loop
 
 
-def make_jacobi_step(ex, overlap: bool = True):
+def make_jacobi_step(ex, overlap: bool = True, standard_spheres: bool = True):
     """``step(curr, nxt, sel) -> (new_curr, new_next)`` for the domain of
     HaloExchange ``ex``: one sweep into ``nxt``, then the swap. On a single
     block every axis wraps inside the kernel, so no exchange runs and the
     result is ``(sweep(curr, nxt), curr)``; a multi-block partition
     exchanges (see the module docstring; ``overlap`` picks the structure).
-    A remote-dma exchange takes its one-step loop."""
+    A remote-dma exchange takes its one-step loop. ``standard_spheres`` as
+    for :func:`make_jacobi_loop`."""
     if ex.method == Method.REMOTE_DMA:
-        return make_jacobi_loop(ex, 1)
-    return _step_body(ex, overlap)
+        return make_jacobi_loop(ex, 1, standard_spheres=standard_spheres)
+    return _step_body(ex, overlap, _sel_ranges(ex, standard_spheres))
 
 
 def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: bool = True,
@@ -410,16 +430,20 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
     ``standard_spheres`` declares that ``sel`` holds
     the standard jacobi3d spheres (``sphere_sel(global_size)``): only then
     may the multistep run, since it derives the spheres from coordinates
-    instead of reading ``sel``. The chosen depth is ``loop.temporal_k``
-    (0 when only sweeps run).
+    instead of reading ``sel``, and only then do the sweeps read ``sel``
+    on each block's sphere planes alone (:func:`stencil_kernels.
+    block_sel_range`, as the TPU kernel's ``sel_z_range``); otherwise on
+    every plane. The chosen depth is ``loop.temporal_k`` (0 when only
+    sweeps run).
 
     A remote-dma exchange runs its own loop instead (see the module
     docstring); ``temporal_k`` is then the persistent chunk depth, and the
     plain and fused loops ignore it with a warning, as in the JAX package."""
+    ranges = _sel_ranges(ex, standard_spheres)
     if ex.method == Method.REMOTE_DMA:
         if ex.persistent:
-            return _persistent_loop(ex, iters, temporal_k)
-        loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k)
+            return _persistent_loop(ex, iters, temporal_k, ranges)
+        loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k, ranges)
         loop.temporal_k = 0
         return loop
     with timer.timed("jacobi.build"), timer.trace_range("jacobi.build"):
@@ -438,7 +462,7 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
              if standard_spheres and (overlap or not axes) and spec.is_uniform() else 0)
         if k < 2:
             k = 0
-        step = _step_body(ex, overlap)
+        step = _step_body(ex, overlap, ranges)
 
     def loop(curr, nxt, sel):
         n_multi, n_single = divmod(iters, k) if k else (0, iters)
@@ -464,18 +488,21 @@ def make_batched_jacobi_loop(spec, iters: int, *, device=None):
     (``GridSpec(size, Dim3(1, 1, 1), radius)``); each tenant is its own
     periodic box and nothing crosses the tenant axis. ``sel`` is the int32
     sphere code, per tenant ``(B, pz, py, px)`` (on the CPU a shared
-    ``(pz, py, px)`` also broadcasts).
+    ``(pz, py, px)`` also broadcasts), nonzero only on the spheres' planes
+    (:func:`stencil_kernels.sel_z_range`), as the campaign's is.
 
     The loop runs on ``device`` (default: the current CUDA device) and
     refuses tensors elsewhere. On the card each step is one launch of the
     tenant-form sweep (:func:`stencil_kernels.sweep_tenants`), which wraps
-    every axis in-kernel and never fills a halo, as the JAX package's Pallas
-    branch: a step returns ``(out, curr)``. On the CPU each step is the JAX
-    package's XLA branch: the composed self-wrap fill of ``curr``
-    (:func:`halo_fill.wrap_fill_batched`, in place) and the region sweep,
-    returning ``(out, filled curr)``. The compute regions agree bit for
-    bit; the halos differ. Updates in place, like every loop of the port:
-    the caller keeps its own copy of a state it may roll back to."""
+    every axis in-kernel, never fills a halo and reads ``sel`` on the
+    spheres' planes only, as the JAX package's Pallas branch: a step returns
+    ``(out, curr)``. On the CPU each step is the JAX package's XLA branch:
+    the composed self-wrap fill of ``curr`` (:func:`halo_fill.wrap_fill_batched`,
+    in place) and the region sweep, reading ``sel`` on every plane,
+    returning ``(out, filled curr)``. For a ``sel`` of that form the compute
+    regions agree bit for bit (off those planes the card ignores ``sel``;
+    the TPU kernel skips it on the tiles outside them); the halos differ. Updates in place, like every loop of
+    the port: the caller keeps its own copy of a state it may roll back to."""
     if spec.dim != Dim3(1, 1, 1):
         raise ValueError(
             "batched tenants are single-block domains; got partition "
@@ -496,10 +523,11 @@ def make_batched_jacobi_loop(spec, iters: int, *, device=None):
             return curr, nxt
     else:
         _native.lib("jacobi_sweep")  # the first-use kernel build belongs to the program
+        srange = sel_z_range(spec)
 
         def run(curr, nxt, sel):
             for _ in range(iters):
-                curr, nxt = sweep_tenants(curr, nxt, sel, spec), curr
+                curr, nxt = sweep_tenants(curr, nxt, sel, spec, srange), curr
             return curr, nxt
 
     def loop(curr, nxt, sel):

@@ -4,17 +4,23 @@ The port's counterpart of ``stencil_tpu.ops.pallas_stencil``:
 
 - :func:`sweep` launches ``csrc/jacobi_sweep.cu`` (replacing the TPU's
   ``make_pallas_jacobi_sweep``); :func:`sweep_plain` is the same step in
-  plain PyTorch. :func:`sweep_region` launches the same kernel on one rect
-  with every wrap flag off (the overlap shells of a multi-block partition);
-  its plain version is ``ops.jacobi.jacobi_sweep``.
+  plain PyTorch. The kernel takes a table of sweep tasks (a rect of a
+  block or a stack of blocks, its wrap flags and its sel planes,
+  :func:`sweep_table`), so one launch serves every form:
+  :func:`sweep_region` (one rect of every block, wrap off: an overlap
+  shell; plain version :func:`region_plain`), :func:`sweep_tenants` (a
+  campaign slot's ``(B, pz, py, px)`` stack of independent tenants, every
+  axis wrapping onto each tenant: the TPU kernel's ``batch=`` form),
+  :func:`sweep_positions` (every position of a mesh) and
+  :func:`sweep_regions` (every shell of every block or position of a
+  step). ``sel`` may be read on a range of planes only
+  (:func:`sel_z_range`, :func:`block_sel_range`: the TPU kernel's
+  ``sel_z_range``); the plain versions take the same range.
 - :func:`multistep` launches ``csrc/jacobi_multistep.cu`` (replacing the
   TPU's ``make_pallas_jacobi_multistep`` and ``_make_multistep_row_tiled``,
   single-block and deep-halo forms): k steps in one launch, the
   intermediate stages kept in shared memory; :func:`multistep_plain` is k
   plain steps.
-- :func:`sweep_tenants` launches the same sweep kernel over a campaign
-  slot's ``(B, pz, py, px)`` stack of independent tenants, every axis
-  wrapping onto each tenant (the TPU kernel's ``batch=`` form).
 - :func:`plan_multistep_depth` is the port's own depth planner, bounded by
   the 227 KB of shared memory a Hopper block may use.
 
@@ -43,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,15 +123,18 @@ def _average(nb) -> torch.Tensor:
     return s * sixth(s.dtype)
 
 
-def sweep_plain(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
+def sweep_plain(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True), sel_range=None):
     """One Jacobi step in plain PyTorch: writes the compute region of
     ``nxt`` (in place; returns it). ``sel`` is the int32 sphere code
     (0 stencil, 1 hot, 2 cold) in the same padded layout. ``wrap`` =
     ``(wz, wy, wx)`` marks the single-block axes whose periodic neighbour
-    is taken from the opposite face instead of the halo."""
+    is taken from the opposite face instead of the halo. ``sel_range``:
+    the allocation-local planes ``[lo, hi)`` on which ``sel`` is imposed
+    (the TPU kernel's ``sel_z_range``; :func:`sel_z_range`), one pair for
+    every block or one pair a block; None imposes it on every plane."""
     cs = _region(spec)
     avg = _average(_neighbours(curr, spec, wrap))
-    s = sel[cs]
+    s = _ranged_sel(sel, spec, sel_range)[cs]
     nxt[cs] = torch.where(s == 1, HOT_TEMP, torch.where(s == 2, COLD_TEMP, avg))
     return nxt
 
@@ -315,26 +324,289 @@ def _device_of(*ts) -> torch.device:
     return dev
 
 
-def _launch_sweep(curr, nxt, sel, spec: GridSpec, dev, lo: Dim3, n: Dim3, wrap,
-                  nblocks: int) -> None:
+# The sweep kernel's launch (csrc/sweep_runs.cuh: TX, TY, LOOK, PLANE, NT,
+# B1_SMEM; csrc/jacobi_sweep.cu: MIN_BLOCKS, TASK_COLS and the task row's
+# fields).
+SWEEP_TILE = (128, 8)
+SWEEP_LOOK = 4
+SWEEP_MIN_BLOCKS = 2
+SWEEP_PLANE = 1360  # floats of one ring plane: a tile's (ty + 2) rows of 4 * runs
+SWEEP_THREADS = 352
+# a guard row, the ring of LOOK + 2 planes, a guard row, two patch cells per
+# row (at most PLANE / 12) and ring slot
+SWEEP_SMEM = 4 * ((SWEEP_LOOK + 2) * (SWEEP_PLANE + 2 * (SWEEP_PLANE // 12))
+                  + 2 * 4 * ((SWEEP_TILE[0] + 11) // 4))
+SWEEP_TASK_FIELDS = ("curr", "out", "sel", "stride", "count", "start", "zo", "yo", "xo", "nz",
+                     "ny", "nx", "wrap", "slo", "shi", "tx", "ty", "gx", "gy", "zchunk", "nzc")
+SWEEP_TASK_COLS = len(SWEEP_TASK_FIELDS)
+
+
+def sel_z_range(spec: GridSpec) -> Tuple[int, int]:
+    """The allocation-local ``[lo, hi)`` planes that may hold sphere cells
+    in any block of ``spec`` (the union over the z blocks), ``(0, 0)`` when
+    none does: the spheres span global z in ``[zc - R, zc + R]``,
+    ``zc = gz // 2``, ``R = gx // 10``. The port's copy of the JAX package's
+    ``pallas_stencil.sel_z_range``, which its Pallas sweep skips ``sel``
+    outside of."""
+    lo, hi = spec.padded().z, 0
+    for iz in range(spec.dim.z):
+        blo, bhi = block_sel_range(spec, iz)
+        if blo < bhi:
+            lo, hi = min(lo, blo), max(hi, bhi)
+    return (lo, hi) if lo < hi else (0, 0)
+
+
+def block_sel_range(spec: GridSpec, iz: int) -> Tuple[int, int]:
+    """The allocation-local ``[lo, hi)`` planes of z block ``iz`` that may
+    hold sphere cells, ``(0, 0)`` for none: the tightest range, within
+    :func:`sel_z_range`."""
+    g = spec.global_size
+    zc, r = g.z // 2, g.x // 10
+    o, s = sum(spec.sizes_z[:iz]), spec.sizes_z[iz]
+    blo, bhi = max(zc - r - o, 0), min(zc + r + 1 - o, s)
+    if blo >= bhi:
+        return (0, 0)
+    zo = spec.compute_offset().z
+    return (zo + blo, zo + bhi)
+
+
+def block_sel_ranges(spec: GridSpec) -> list:
+    """:func:`block_sel_range` of every block of ``spec``, in the stacked
+    order (z slowest)."""
+    d = spec.dim
+    return [block_sel_range(spec, iz) for iz in range(d.z) for _ in range(d.y * d.x)]
+
+
+def _block_ranges(sel_range, nblocks: int) -> Optional[list]:
+    """``sel_range`` as one ``(lo, hi)`` a block, or None for every plane:
+    None, one pair for every block, or one pair a block."""
+    if sel_range is None:
+        return None
+    if len(sel_range) == 2 and all(isinstance(v, (int, np.integer)) for v in sel_range):
+        return [tuple(int(v) for v in sel_range)] * nblocks
+    if len(sel_range) != nblocks:
+        raise ValueError(f"{len(sel_range)} sel ranges for {nblocks} blocks")
+    return [tuple(int(v) for v in r) for r in sel_range]
+
+
+def _ranged_sel(sel: torch.Tensor, spec: GridSpec, sel_range) -> torch.Tensor:
+    """``sel`` with the planes outside each block's sel range zeroed (a
+    copy), or ``sel`` itself for every plane: what the kernel imposes."""
     p = spec.padded()
+    nb = sel.numel() // (p.z * p.y * p.x)
+    ranges = _block_ranges(sel_range, nb)
+    if ranges is None:
+        return sel
+    s = sel.clone()
+    v = s.view(nb, p.z, p.y, p.x)
+    for b, (lo, hi) in enumerate(ranges):
+        v[b, :max(0, lo)] = 0
+        v[b, max(lo, hi, 0):] = 0
+    return s
+
+
+def sweep_tile(nx: int, ny: int, xo: int) -> Tuple[int, int]:
+    """The tile ``(tx, ty)`` B1 sweeps an ``nx`` x ``ny`` rect at padded x
+    ``xo`` with: of the widths ``tx`` (a multiple of 4) whose grown tile,
+    ``ty + 2`` rows of ``(tx + 11) // 4`` 4-cell runs, fills at most a ring
+    plane (``SWEEP_PLANE`` floats) with ``ty >= 1``, one with the fewest
+    tiles a plane (``sweep_tiles_x`` x ``ceil(ny / ty)``); on a tie the
+    widest up to ``SWEEP_TILE``'s 128 (B8's measured tile), else the
+    narrowest. 128 x 8 on a wide rect; a 171-wide block takes 56 x 19, a
+    1-cell x shell 4 x 111, a 1-row y shell 256 x 3, a 32^3 tenant 32 x 32."""
+    best = None
+    tx = 4
+    while True:
+        runs = (tx + 11) // 4
+        ty = SWEEP_PLANE // (4 * runs) - 2
+        if ty < 1:
+            break
+        wide = tx > SWEEP_TILE[0]
+        key = (sweep_tiles_x(nx, xo, tx) * -(-ny // ty), wide, tx if wide else -tx)
+        if best is None or key < best[0]:
+            best = (key, (tx, ty))
+        tx += 4
+    return best[1]
+
+
+def sweep_tiles_x(nx: int, xo: int, tx: int) -> int:
+    """Tiles along x of an ``nx``-wide rect at padded x ``xo``, ``tx``
+    wide (``tiles_x`` in ``csrc/sweep_runs.cuh``): tile 0 spans
+    ``[0, tx + a)``, tile t ``[t tx + a, (t + 1) tx + a)``, ``a = -xo mod
+    4``."""
+    return max(1, (nx - (-xo % 4) + tx - 1) // tx)
+
+
+# The most planes a z chunk of a sweep task takes: at 512^3, one-wave
+# launches of 512-plane chunks ran slower than two-chunk ones (one block,
+# the 6 uneven positions; timed by forcing the chunk on an H100, PERF.md)
+SWEEP_CHUNK_MAX = 256
+
+
+def sweep_chunk(work, blocks: int) -> int:
+    """Output planes per z chunk of a launch over ``work``, one ``(cols,
+    nz)`` a task (its tile columns over all its blocks, its planes), walked
+    by ``blocks`` resident blocks: of the chunks ``c = ceil(max nz / n)``
+    from ``SWEEP_CHUNK_MAX`` planes down to 4 (or the deepest task's planes
+    when fewer), the one whose walk ends soonest (B8's rule,
+    ``fused_jacobi.cu``'s ``zchunks_for``): ``ceil(tiles / blocks)`` rounds
+    of ``c + 2`` plane steps (a chunk and its warm-up), a task's tiles
+    counted with chunks of ``min(c, nz)``; the fewest chunks on a tie."""
+    top = max(nz for _, nz in work)
+    slots = max(1, blocks)
+
+    def cost(n):
+        c = -(-top // n)
+        tiles = sum(cols * -(-nz // min(c, nz)) for cols, nz in work)
+        return -(-tiles // slots) * (c + 2)
+
+    lo = -(-top // SWEEP_CHUNK_MAX)
+    n = min(range(lo, max(lo, top // 4) + 1), key=lambda n: (cost(n), n))
+    return -(-top // n)
+
+
+class SweepTask(NamedTuple):
+    """One task of B1's table before its tiles are laid out: ``count``
+    blocks ``stride`` elements apart from the pointers ``curr``, ``out``
+    and ``sel`` (``data_ptr`` values); the rect ``lo`` (z, y, x, in the
+    padded block) of ``n`` (z, y, x) cells; ``wrap`` (z, y, x); ``sel``
+    imposed on the allocation-local planes ``[slo, shi)``."""
+
+    curr: int
+    out: int
+    sel: int
+    stride: int
+    count: int
+    lo: Tuple[int, int, int]
+    n: Tuple[int, int, int]
+    wrap: Tuple[bool, bool, bool]
+    slo: int
+    shi: int
+
+
+def sweep_table(tasks, blocks: int) -> Tuple[tuple, int]:
+    """``(rows, tiles)``: the kernel's task table, one row of
+    ``SWEEP_TASK_FIELDS`` a task (its tile shape by :func:`sweep_tile`, its
+    z chunks by :func:`sweep_chunk` over every task, its sel planes
+    rect-relative and clipped, none when empty, the tiles of the rows
+    before it), and the tiles in all."""
+    shapes = [sweep_tile(t.n[2], t.n[1], t.lo[2]) for t in tasks]
+    cols = [sweep_tiles_x(t.n[2], t.lo[2], tx) * -(-t.n[1] // ty)
+            for t, (tx, ty) in zip(tasks, shapes)]
+    chunk = sweep_chunk([(c * t.count, t.n[0]) for t, c in zip(tasks, cols)], blocks)
+    rows, start = [], 0
+    for t, (tx, ty), c in zip(tasks, shapes, cols):
+        nz, gy = t.n[0], -(-t.n[1] // ty)
+        zchunk = min(chunk, nz)
+        nzc = -(-nz // zchunk)
+        slo = min(max(t.slo - t.lo[0], 0), nz)
+        shi = min(max(t.shi - t.lo[0], 0), nz)
+        if slo >= shi:
+            slo = shi = 0
+        wrap = int(t.wrap[2]) | int(t.wrap[1]) << 1 | int(t.wrap[0]) << 2
+        rows.append((t.curr, t.out, t.sel, t.stride, t.count, start, *t.lo, *t.n, wrap, slo, shi,
+                     tx, ty, c // gy, gy, zchunk, nzc))
+        start += t.count * c * nzc
+    return tuple(rows), start
+
+
+def sweep_bytes(spec: GridSpec, rects, sel_range=None, blocks: Optional[int] = None
+                ) -> Tuple[int, int]:
+    """``(every plane, sel planes)``: the least bytes one sweep of ``rects``
+    (allocation-local) of each of ``blocks`` blocks of ``spec`` (default
+    all of its partition's) moves: curr read and out written once a cell,
+    and sel read once a cell on every plane (12 bytes a cell), or only on
+    its sel planes (``sel_range`` as for :func:`sweep_plain`)."""
+    nb = spec.num_blocks() if blocks is None else blocks
+    ranges = _block_ranges(sel_range, nb) or [(0, spec.padded().z)] * nb
+    full = ranged = 0
+    for rect in rects:
+        n = rect.hi - rect.lo
+        plane = n.y * n.x
+        for lo, hi in ranges:
+            full += 12 * plane * n.z
+            ranged += 8 * plane * n.z + 4 * plane * max(0, min(hi, rect.hi.z) - max(lo, rect.lo.z))
+    return full, ranged
+
+
+def sweep_info(index: int) -> dict:
+    """What the sweep kernel reports on CUDA device ``index``: resident
+    blocks per SM, registers and local (spill) bytes per thread, threads and
+    dynamic shared memory per block."""
+    r = (ctypes.c_int * 5)()
+    _native.check(_native.lib("jacobi_sweep").jacobi_sweep_info(index, r), "jacobi_sweep_info")
+    return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_blocks_in_flight(index: int) -> int:
+    """SMs x resident sweep blocks per SM on CUDA device ``index``."""
+    per_sm = sweep_info(index)["blocks_per_sm"]
+    return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm)
+
+
+def _alignment(ts, sz: int) -> int:
+    """The words (4, 2 or 1) every tensor's address and the plane stride
+    ``sz`` are a multiple of."""
+    low = min(t.data_ptr() & -t.data_ptr() for t in ts) // 4
+    for w in (4, 2):
+        if low % w == 0 and sz % w == 0:
+            return w
+    return 1
+
+
+def _launch_tasks(tasks, tensors, spec: GridSpec, dev) -> None:
+    """One launch of ``csrc/jacobi_sweep.cu`` over ``tasks``, whose
+    pointers lie in ``tensors``; every block is a padded block of
+    ``spec``. The table is made once per task list (``_native.kept``)."""
+    p = spec.padded()
+    sz = p.y * p.x
+    blocks = sweep_blocks_in_flight(dev.index)
+    tasks = tuple(tasks)
+    rows, tiles = _native.kept(("sweep_rows", tasks, blocks),
+                               lambda: sweep_table(tasks, blocks))
+    table = _native.device_table(("sweep_tasks", rows), lambda: [v for r in rows for v in r], dev)
     rc = _native.lib("jacobi_sweep").jacobi_sweep_launch(
-        curr.data_ptr(), nxt.data_ptr(), sel.data_ptr(), p.y * p.x, p.x,
-        p.z * p.y * p.x, nblocks, lo.z, lo.y, lo.x, n.z, n.y, n.x,
-        int(wrap[0]), int(wrap[1]), int(wrap[2]), dev.index, _native.stream_ptr(dev))
+        table.data_ptr(), len(rows), SWEEP_TASK_COLS, tiles, sz, p.x, p.y,
+        _alignment(tensors, sz), min(tiles, blocks), dev.index, _native.stream_ptr(dev))
     _native.check(rc, "jacobi_sweep")
 
 
-def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
+def _stack_tasks(curr, out, sel, spec: GridSpec, rect: Rect3, wrap, sel_range) -> list:
+    """The tasks of one rect of every block of the stacks ``curr``, ``out``
+    and ``sel``: one task for every block when ``sel_range`` is None or one
+    pair, else one a block with its own range."""
+    p = spec.padded()
+    bsize = p.z * p.y * p.x
+    nb = curr.numel() // bsize
+    lo, n = rect.lo, rect.hi - rect.lo
+    geo = ((lo.z, lo.y, lo.x), (n.z, n.y, n.x), tuple(bool(w) for w in wrap))
+    ranges = _block_ranges(sel_range, nb)
+    if ranges is None or len(set(ranges)) == 1:
+        slo, shi = ranges[0] if ranges else (0, p.z)
+        return [SweepTask(curr.data_ptr(), out.data_ptr(), sel.data_ptr(), bsize, nb, *geo,
+                          slo, shi)]
+    return [SweepTask(curr.data_ptr() + 4 * b * bsize, out.data_ptr() + 4 * b * bsize,
+                      sel.data_ptr() + 4 * b * bsize, bsize, 1, *geo, slo, shi)
+            for b, (slo, shi) in enumerate(ranges)]
+
+
+def _compute_rect(spec: GridSpec) -> Rect3:
+    off = spec.compute_offset()
+    return Rect3(off, off + spec.base)
+
+
+def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True), sel_range=None):
     """One Jacobi step of every block: ``nxt``'s compute regions <- the
     6-neighbour average of ``curr`` with the ``sel`` spheres imposed (in
-    place; returns ``nxt``). See :func:`sweep_plain` for the arguments."""
+    place; returns ``nxt``). See :func:`sweep_plain` for the arguments. On
+    the card one launch of ``csrc/jacobi_sweep.cu`` covers every block."""
     _check_fields(spec, curr, nxt, sel)
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
-        return sweep_plain(curr, nxt, sel, spec, wrap)
-    _launch_sweep(curr, nxt, sel, spec, dev, spec.compute_offset(), spec.base, wrap,
-                  spec.num_blocks())
+        return sweep_plain(curr, nxt, sel, spec, wrap, sel_range)
+    _launch_tasks(_stack_tasks(curr, nxt, sel, spec, _compute_rect(spec), wrap, sel_range),
+                  (curr, nxt, sel), spec, dev)
     sweep.launches += 1
     return nxt
 
@@ -342,14 +614,16 @@ def sweep(curr, nxt, sel, spec: GridSpec, wrap=(True, True, True)):
 sweep.launches = 0
 
 
-def sweep_tenants(curr, nxt, sel, spec: GridSpec):
+def sweep_tenants(curr, nxt, sel, spec: GridSpec, sel_range=None):
     """One Jacobi step of every tenant of a campaign slot: ``curr``, ``nxt``
     and ``sel`` are ``(B, pz, py, px)`` stacks of B independent tenants, each
     a single block of the one-block ``spec``; every axis of every tenant
-    wraps onto the tenant itself and nothing crosses the tenant axis.
+    wraps onto the tenant itself and nothing crosses the tenant axis;
+    ``sel_range`` as for :func:`sweep_plain` (one pair for every tenant).
     ``nxt``'s compute regions <- the step (in place; returns ``nxt``). CPU
     tensors take :func:`sweep_plain` over the stack; CUDA tensors launch
-    ``csrc/jacobi_sweep.cu`` once for all B tenants, or raise."""
+    ``csrc/jacobi_sweep.cu`` once for all B tenants (one task of B blocks),
+    or raise."""
     if spec.dim != Dim3(1, 1, 1):
         raise ValueError(f"tenants are single-block domains; got partition {spec.dim}")
     nb = curr.shape[0] if curr.dim() == 4 else 0
@@ -357,9 +631,12 @@ def sweep_tenants(curr, nxt, sel, spec: GridSpec):
         raise ValueError(f"curr: shape {tuple(curr.shape)} is not a stack of tenants")
     _check_fields(spec, curr, nxt, sel, nb)
     dev = _device_of(curr, nxt, sel)
+    if sel_range is not None:
+        sel_range = tuple(sel_range)
     if dev.type == "cpu":
-        return sweep_plain(curr, nxt, sel, spec)
-    _launch_sweep(curr, nxt, sel, spec, dev, spec.compute_offset(), spec.base, (True,) * 3, nb)
+        return sweep_plain(curr, nxt, sel, spec, sel_range=sel_range)
+    _launch_tasks(_stack_tasks(curr, nxt, sel, spec, _compute_rect(spec), (True,) * 3,
+                               sel_range), (curr, nxt, sel), spec, dev)
     sweep_tenants.launches += 1
     return nxt
 
@@ -367,32 +644,124 @@ def sweep_tenants(curr, nxt, sel, spec: GridSpec):
 sweep_tenants.launches = 0
 
 
-def sweep_region(curr, nxt, sel, spec: GridSpec, rect: Rect3):
-    """One Jacobi step over ``rect`` (allocation-local, inside the compute
-    region) of every block, reading every neighbour in place, halos
-    included (in place; returns ``nxt``). CPU tensors take the plain
-    region sweep ``ops.jacobi.jacobi_sweep`` with masks ``(sel == 1,
-    sel == 2)``; CUDA tensors launch ``csrc/jacobi_sweep.cu`` on the rect
-    with its wrap flags off, or raise."""
-    _check_fields(spec, curr, nxt, sel)
+def _check_rect(spec: GridSpec, rect: Rect3) -> None:
     off = spec.compute_offset()
     hi = off + spec.base
     if not (off.x <= rect.lo.x < rect.hi.x <= hi.x and off.y <= rect.lo.y < rect.hi.y <= hi.y
             and off.z <= rect.lo.z < rect.hi.z <= hi.z):
         raise ValueError(f"sweep_region: {rect} is empty or outside the compute region")
+
+
+def region_plain(curr, nxt, sel, spec: GridSpec, rect: Rect3, sel_range=None):
+    """One Jacobi step over ``rect`` of every block in plain PyTorch: the
+    region sweep ``ops.jacobi.jacobi_sweep`` with masks ``(sel == 1, sel ==
+    2)`` on the sel planes (``sel_range`` as for :func:`sweep_plain`)."""
+    # imported here: ops.jacobi imports this module
+    from .jacobi import jacobi_sweep
+
+    s = _ranged_sel(sel, spec, sel_range)
+    return jacobi_sweep(curr, nxt, rect, (s == 1, s == 2))
+
+
+def sweep_region(curr, nxt, sel, spec: GridSpec, rect: Rect3, sel_range=None):
+    """One Jacobi step over ``rect`` (allocation-local, inside the compute
+    region) of every block, reading every neighbour in place, halos
+    included (in place; returns ``nxt``). CPU tensors take
+    :func:`region_plain`; CUDA tensors launch ``csrc/jacobi_sweep.cu`` on
+    the rect with its wrap flags off, or raise."""
+    _check_fields(spec, curr, nxt, sel)
+    _check_rect(spec, rect)
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
-        # imported here: ops.jacobi imports this module
-        from .jacobi import jacobi_sweep
-
-        return jacobi_sweep(curr, nxt, rect, (sel == 1, sel == 2))
-    _launch_sweep(curr, nxt, sel, spec, dev, rect.lo, rect.hi - rect.lo, (False,) * 3,
-                  spec.num_blocks())
+        return region_plain(curr, nxt, sel, spec, rect, sel_range)
+    _launch_tasks(_stack_tasks(curr, nxt, sel, spec, rect, (False,) * 3, sel_range),
+                  (curr, nxt, sel), spec, dev)
     sweep_region.launches += 1
     return nxt
 
 
 sweep_region.launches = 0
+
+
+def _check_lists(currs, outs, sels, spec: GridSpec) -> torch.device:
+    """One entry per block stack in each list, each a stack of ``spec``'s
+    blocks, all on one device, every ``curr`` and ``out`` its own buffer."""
+    if not len(currs) == len(outs) == len(sels) >= 1:
+        raise ValueError(f"{len(currs)} curr, {len(outs)} out and {len(sels)} sel entries")
+    for c, o, s in zip(currs, outs, sels):
+        _check_fields(spec, c, o, s)
+    dev = _device_of(*currs, *outs, *sels)
+    if len({t.data_ptr() for t in (*currs, *outs)}) != 2 * len(currs):
+        raise ValueError("every curr and out must be its own buffer")
+    return dev
+
+
+def _entry_ranges(sel_ranges, n: int) -> list:
+    if sel_ranges is None:
+        return [None] * n
+    if len(sel_ranges) != n:
+        raise ValueError(f"{len(sel_ranges)} sel ranges for {n} entries")
+    return list(sel_ranges)
+
+
+def sweep_positions(currs, nxts, sels, bspec: GridSpec, sel_ranges=None):
+    """One Jacobi step of every position of a mesh: lists of one padded
+    block of ``bspec`` (the block spec) per position; each ``nxt``'s compute
+    region <- the sweep of its ``curr``, reading the filled halos (no
+    wrap), ``sels[i]`` imposed on ``sel_ranges[i]``'s planes (None: every
+    plane; see :func:`sweep_plain`). In place; returns ``nxts``. CPU
+    tensors take :func:`sweep_plain` per position; CUDA tensors launch
+    ``csrc/jacobi_sweep.cu`` once for every position, or raise."""
+    dev = _check_lists(currs, nxts, sels, bspec)
+    ranges = _entry_ranges(sel_ranges, len(currs))
+    if dev.type == "cpu":
+        for c, n, s, r in zip(currs, nxts, sels, ranges):
+            sweep_plain(c, n, s, bspec, (False,) * 3, r)
+        return nxts
+    rect = _compute_rect(bspec)
+    tasks = [t for c, n, s, r in zip(currs, nxts, sels, ranges)
+             for t in _stack_tasks(c, n, s, bspec, rect, (False,) * 3, r)]
+    _launch_tasks(tasks, (*currs, *nxts, *sels), bspec, dev)
+    sweep_positions.launches += 1
+    return nxts
+
+
+sweep_positions.launches = 0
+
+
+def sweep_regions(currs, outs, sels, spec: GridSpec, rects, sel_ranges=None):
+    """One Jacobi step over every rect of every block stack: ``currs``,
+    ``outs`` and ``sels`` are lists of stacks of ``spec``'s blocks (a
+    resident stack, or one block a mesh position), ``rects[i]`` the rects
+    (allocation-local, inside the compute region) swept in every block of
+    entry ``i``, reading every neighbour in place, ``sel_ranges[i]`` its
+    sel planes (None, one pair, or one pair a block; see
+    :func:`sweep_plain`). The rects of an entry may overlap (every one reads
+    only ``curr``, so a cell written twice gets one value). In place;
+    returns ``outs``. CPU tensors take :func:`region_plain` rect by rect;
+    CUDA tensors launch ``csrc/jacobi_sweep.cu`` once for every rect of
+    every entry, or raise."""
+    dev = _check_lists(currs, outs, sels, spec)
+    if len(rects) != len(currs):
+        raise ValueError(f"{len(rects)} rect lists for {len(currs)} entries")
+    for rs in rects:
+        for rect in rs:
+            _check_rect(spec, rect)
+    ranges = _entry_ranges(sel_ranges, len(currs))
+    if dev.type == "cpu":
+        for c, o, s, rs, r in zip(currs, outs, sels, rects, ranges):
+            for rect in rs:
+                region_plain(c, o, s, spec, rect, r)
+        return outs
+    tasks = [t for c, o, s, rs, r in zip(currs, outs, sels, rects, ranges) for rect in rs
+             for t in _stack_tasks(c, o, s, spec, rect, (False,) * 3, r)]
+    if tasks:
+        _launch_tasks(tasks, (*currs, *outs, *sels), spec, dev)
+        sweep_regions.launches += 1
+    return outs
+
+
+sweep_regions.launches = 0
 
 
 def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int) -> int:

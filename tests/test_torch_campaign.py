@@ -27,6 +27,7 @@ import stencil_tpu_torch.domain.grid as tgrid
 import stencil_tpu_torch.geometry as tgeo
 import stencil_tpu_torch.obs.telemetry as ttel
 import stencil_tpu_torch.ops.jacobi as tjac
+import stencil_tpu_torch.ops.stencil_kernels as tsk
 import stencil_tpu_torch.plan.ir as tir
 from stencil_tpu_torch.apps import campaign as tapp
 from stencil_tpu_torch.campaign.driver import pick_slot
@@ -95,6 +96,27 @@ def test_batched_loop_matches_interpreted_pallas_batch_kernel():
         jnp.asarray(c), jnp.asarray(n), jnp.asarray(s))
     ct, _ = tjac.make_batched_jacobi_loop(tspec, 1, device="cpu")(
         *state_from_jax({"c": c, "n": n, "s": s}, tspec, "cpu").values())
+    np.testing.assert_array_equal(ct.numpy()[region(tspec)], np.asarray(cj)[region(tspec)])
+
+
+@pytest.mark.parametrize("size", [(20, 16, 12), (33, 21, 13)])
+def test_tenant_sweep_sel_range_matches_interpreted_pallas_batch_kernel(size):
+    """Random sel codes on sel_z_range's planes (a strict subset at these
+    sizes) and none elsewhere, the sel the card's batched loop takes: the
+    TPU kernel's batch= form and the port's plain tenant sweep given that
+    range (what the card's kernel computes) agree on the compute regions.
+    Bit-exact."""
+    B = 2
+    tspec, jspec = specs(size, 1, aligned=True)
+    c, n, s = slot_inputs(tspec, B, np.float32, seed=11)
+    lo, hi = tsk.sel_z_range(tspec)
+    assert 0 < lo < hi < tspec.padded().z
+    s[:, :lo] = 0
+    s[:, hi:] = 0
+    cj, _ = jjac.make_batched_jacobi_loop(jspec, 1, use_pallas=True, batch=B, interpret=True)(
+        jnp.asarray(c), jnp.asarray(n), jnp.asarray(s))
+    ct = tsk.sweep_tenants(torch.from_numpy(c), torch.zeros(c.shape), torch.from_numpy(s), tspec,
+                           (lo, hi))
     np.testing.assert_array_equal(ct.numpy()[region(tspec)], np.asarray(cj)[region(tspec)])
 
 

@@ -230,3 +230,116 @@ def test_float64_sweep_and_multistep_match_jax(radius):
     want = np.asarray(xla_step(xla_step(want)))
     np.testing.assert_array_equal(three.numpy()[(0, 0, 0) + region(jspec)],
                                   want[(0, 0, 0) + region(jspec)])
+
+
+# -- the sel plane range (the TPU kernel's sel_z_range) ---------------------------
+
+
+def pair(size, part, radius):
+    return (tgrid.GridSpec(tgeo.Dim3(*size), tgeo.Dim3(*part), tgeo.Radius.constant(radius)),
+            jgrid.GridSpec(jgeo.Dim3(*size), jgeo.Dim3(*part), jgeo.Radius.constant(radius)))
+
+
+@pytest.mark.parametrize("size,part,radius", [
+    ((16, 16, 16), (1, 1, 1), 1), ((40, 16, 8), (1, 1, 1), 2), ((512, 512, 512), (1, 1, 1), 1),
+    ((32, 24, 20), (2, 2, 2), 4), ((512, 512, 512), (2, 2, 2), 1), ((20, 16, 12), (3, 2, 1), 1),
+    ((40, 40, 33), (1, 1, 3), 1), ((64, 64, 61), (2, 1, 4), 2), ((100, 64, 40), (1, 1, 5), 3)])
+def test_sel_z_range_matches_jax(size, part, radius):
+    """The port's copy of sel_z_range equals the JAX package's on uniform,
+    stacked and uneven specs; each block's own range lies within it."""
+    ts, js = pair(size, part, radius)
+    lo, hi = tk.sel_z_range(ts)
+    assert (lo, hi) == tuple(jps.sel_z_range(js))
+    for blo, bhi in tk.block_sel_ranges(ts):
+        assert blo >= bhi or lo <= blo < bhi <= hi
+
+
+@pytest.mark.parametrize("size", SWEEP_SIZES + [(64, 24, 21)])
+@pytest.mark.parametrize("ranged", [False, True])
+def test_sweep_sel_range_matches_pallas(size, ranged):
+    """Seeded numpy fields through the interpreted Pallas sweep and the
+    port's plain sweep: with the spheres' sel and both kernels reading it
+    on sel_z_range's planes only, and with random sel codes read on every
+    plane (the Pallas range the whole block). Bit-exact."""
+    ts, js = specs(size)
+    curr, sel = padded_state(ts, seed=sum(size))
+    if not ranged:
+        sel = np.random.RandomState(3).randint(-1, 4, size=sel.shape).astype(np.int32)
+    jrange = jps.sel_z_range(js) if ranged else (0, js.padded().z)
+    fn = jps.make_pallas_jacobi_sweep(js, jrange, interpret=True, wrap=(True, True, True))
+    want = np.asarray(fn(jnp.asarray(curr), jnp.zeros_like(curr), jnp.asarray(sel)))
+    got = tk.sweep_plain(t(curr), torch.zeros(curr.shape), t(sel), ts, (True,) * 3,
+                         tk.sel_z_range(ts) if ranged else None)
+    np.testing.assert_array_equal(got.numpy()[region(ts)], want[region(ts)])
+
+
+def _xla_region(src, rect, sel):
+    masks = (jnp.asarray(sel == 1), jnp.asarray(sel == 2))
+    return np.asarray(jax.jit(lambda s, o: jjac.jacobi_sweep(s, o, rect, masks))(
+        jnp.asarray(src), jnp.zeros_like(src)))
+
+
+def _jrect(r):
+    return jgeo.Rect3(jgeo.Dim3(r.lo.x, r.lo.y, r.lo.z), jgeo.Dim3(r.hi.x, r.hi.y, r.hi.z))
+
+
+def test_stack_and_shells_with_sel_ranges_match_xla():
+    """A (2,2,2) r4 resident stack, random fields and halos, the spheres'
+    sel: the stacked sweep (no axis wraps) and every overlap shell, each
+    block's sel on its own planes, against the JAX XLA region sweep of the
+    same blocks with sel on every plane. Bit-exact."""
+    ts, js = pair((32, 24, 20), (2, 2, 2), 4)
+    shape = ts.stacked_shape_zyx()
+    curr = np.random.RandomState(8).rand(*shape).astype(np.float32)
+    sel = tjac.sphere_sel_blocks(ts, "cpu").numpy()
+    wrap, _axes, shells = tjac.multi_block_layout(ts)
+    rg = tk.block_sel_ranges(ts)
+    got = tk.sweep_plain(t(curr), torch.zeros(shape), t(sel), ts, wrap, rg)
+    for rect in shells:
+        tk.region_plain(t(curr), got, t(sel), ts, rect, rg)
+    off = ts.compute_offset()
+    want = _xla_region(curr, _jrect(tgeo.Rect3(off, off + ts.base)), sel)
+    np.testing.assert_array_equal(got.numpy(), want)
+    shell_got = torch.zeros(shape)
+    for rect in shells:
+        tk.region_plain(t(curr), shell_got, t(sel), ts, rect, rg)
+        w = _xla_region(curr, _jrect(rect), sel)
+        sl = (..., slice(rect.lo.z, rect.hi.z), slice(rect.lo.y, rect.hi.y),
+              slice(rect.lo.x, rect.hi.x))
+        np.testing.assert_array_equal(shell_got.numpy()[sl], w[sl])
+
+
+@pytest.mark.parametrize("size,part", [((32, 32, 32), (2, 2, 2)), ((20, 16, 12), (3, 2, 1))])
+def test_positions_and_shells_with_sel_ranges_match_xla(size, part):
+    """Eight mesh positions and six uneven ones: sweep_positions' and
+    sweep_regions' plain versions, each position's sel on its own planes,
+    against the JAX XLA region sweep of each position's block (halos read
+    in place) with sel on every plane. Bit-exact."""
+    from stencil_tpu_torch.ops.shells import dyn_block_sizes, shell_regions
+    from stencil_tpu_torch.parallel import DeviceMesh
+
+    ts, _js = pair(size, part, 1)
+    mesh = DeviceMesh(part, ["cpu"] * (part[0] * part[1] * part[2]))
+    bspec = ts.block_spec()
+    p = bspec.padded()
+    rng = np.random.RandomState(sum(size))
+    currs = [rng.rand(1, 1, 1, p.z, p.y, p.x).astype(np.float32) for _ in range(len(mesh))]
+    sels = [s.numpy() for s in tjac.sphere_sel_blocks(ts, mesh)]
+    rg = [tk.block_sel_range(ts, pos[2]) for pos in mesh.positions()]
+    outs = tk.sweep_positions([t(c) for c in currs], [torch.zeros(c.shape) for c in currs],
+                              [t(s) for s in sels], bspec, rg)
+    off = bspec.compute_offset()
+    whole = _jrect(tgeo.Rect3(off, off + bspec.base))
+    for c, s, o in zip(currs, sels, outs):
+        np.testing.assert_array_equal(o.numpy(), _xla_region(c, whole, s))
+    rects = [shell_regions(ts, dyn_block_sizes(ts, pos), (True,) * 3) for pos in mesh.positions()]
+    outs = tk.sweep_regions([t(c) for c in currs], [torch.zeros(c.shape) for c in currs],
+                            [t(s) for s in sels], bspec, rects, rg)
+    for c, s, o, rs in zip(currs, sels, outs, rects):
+        want = np.zeros(c.shape, np.float32)
+        for rect in rs:
+            w = _xla_region(c, _jrect(rect), s)
+            sl = (..., slice(rect.lo.z, rect.hi.z), slice(rect.lo.y, rect.hi.y),
+                  slice(rect.lo.x, rect.hi.x))
+            want[sl] = w[sl]
+        np.testing.assert_array_equal(o.numpy(), want)

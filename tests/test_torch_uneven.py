@@ -40,6 +40,7 @@ from stencil_tpu_torch import DistributedDomain
 from stencil_tpu_torch.convert import (mesh_state_from_jax, mesh_state_to_numpy, state_from_jax,
                                        state_to_numpy)
 from stencil_tpu_torch.ops import halo_fill, remote_dma, row_moves, shells
+from stencil_tpu_torch.ops import stencil_kernels as tk
 from stencil_tpu_torch.ops.health_reduce import health_reduce
 
 torch.set_num_threads(2)
@@ -529,28 +530,33 @@ def face_cells(shape, r):
 
 def test_mesh_fused_uneven_launch_schedule(monkeypatch):
     """The uneven fused step's calls per step on (3,2,1): one full-base
-    sweep per position, the exchange, then every position's six shells,
-    each at the block's own size on its hi side."""
+    sweep of every position (one launch), the exchange, then every
+    position's six shells, each at the block's own size on its hi side
+    (one launch), each position's sel on its own sphere planes."""
     tspec, _j = specs((13, 11, 9), (3, 2, 1), 1)
     tmesh, _jm = meshes((3, 2, 1))
     tex = tpar.HaloExchange(tspec, RDMA_T, mesh=tmesh, fused=True)
     calls = []
-    monkeypatch.setattr(tjac, "sweep", lambda c, n, s, spec, wrap: calls.append(("sweep", wrap))
+    monkeypatch.setattr(tjac, "sweep_positions",
+                        lambda c, n, s, spec, ranges: calls.append(("sweep", len(c), ranges))
                         or n)
-    monkeypatch.setattr(tjac, "sweep_region",
-                        lambda c, n, s, spec, rect: calls.append(("shell", rect)) or n)
+    monkeypatch.setattr(tjac, "sweep_regions",
+                        lambda c, o, s, spec, rects, ranges: calls.append(("shells", rects))
+                        or o)
     real = tex._remote
     monkeypatch.setattr(tex, "_remote", lambda st, axes=None: calls.append(("ex",)) or real(st))
     st = tpar.shard_blocks(np.zeros((9, 11, 13), F32), tspec, tmesh)
     sel = tjac.sphere_sel_blocks(tspec, tmesh)
     tjac.make_jacobi_loop(tex, 2)(st, [b.clone() for b in st], sel)
-    per_step = [("sweep", tjac.NO_WRAP)] * 6 + [("ex",)]
+    ranges = [tk.block_sel_range(tspec, pos[2]) for pos in tmesh.positions()]
+    per_step = [("sweep", 6, ranges), ("ex",)]
     off = tspec.compute_offset()
+    rects = []
     for pos in tmesh.positions():
         s = tspec.block_size(pos)
-        per_step += [("shell", rect) for rect in shells.shell_regions(
-            tspec, (s.z, s.y, s.x), (True, True, True))]
-        assert per_step[-1][1].lo.x == off.x + s.x - 1  # the x hi shell
+        rects.append(shells.shell_regions(tspec, (s.z, s.y, s.x), (True, True, True)))
+        assert rects[-1][-1].lo.x == off.x + s.x - 1  # the x hi shell
+    per_step.append(("shells", rects))
     assert calls == per_step * 2
 
 
