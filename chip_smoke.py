@@ -11,9 +11,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               (held to persistent_stencil.chunk_passes for k = 1..12), its
               dynamic shared memory and resident blocks per SM; each
               multistep instantiation's registers, spill bytes and blocks
-              per SM, its threads and shared memory held to the wrapper's
-              (stencil_kernels.multistep_shape), no spill at the planner's
-              depth; the fused step kernel's registers, spill bytes and
+              per SM, fp32 and fp64, its threads and shared memory held to
+              the wrapper's (stencil_kernels.multistep_shape), no spill at
+              the planner's depth in fp32 and at any depth in fp64, the
+              fp32 k=3 build at 80 registers and one 736-thread block per
+              SM; the fused step kernel's registers, spill bytes and
               blocks per SM (no spill, at least 2 blocks), its launch shape
               held to fused_stencil.fused_shape and its z-chunk rule to
               fused_stencil.fused_zchunks at five shapes; the registers and
@@ -22,9 +24,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               (fp32 words unnarrowed and through bf16, fp16, fp8; fp64 words
               also through fp32), the unnarrowed body held to no spill;
               the sweep kernel's (B1, the same body's flex_tile over a task
-              table) registers, spill bytes and blocks per SM, its launch
-              shape held to stencil_kernels' (no spill, 2 blocks of 352
-              threads; the fused step keeps 3).
+              table) registers, spill bytes and blocks per SM in fp32 and
+              fp64, its launch shape held to stencil_kernels' (no spill, 2
+              blocks of 352 threads; the fused step keeps 3); B1's fp32
+              build held to 72 registers and B8's to 56 (the fp64 templates
+              leave them as they were).
 2. kernels -- each kernel against its plain version on the card with
               torch.equal, at several shapes (aligned, unaligned, tight-x,
               odd sizes, non-wrapping axes, fp32 and fp64 fills; the sweep
@@ -118,7 +122,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               launch) against its plain version (torch.equal, random fields and
               sel) at B=64 of 32^3, B=3 of 33x21x13 r1 and r2, B=1 of 32^3 and
               B=70,000 of 4^3 (over the 65,535 limit of grid.y/z); a float64
-              slot on the card raises; make_batched_jacobi_loop on the card
+              slot on the card against the same slot on the CPU;
+              make_batched_jacobi_loop on the card
               against the CPU (B=8 of 24^3, 3 steps, compute regions; random
               sel on the spheres' planes and on every plane, the CPU's then
               zeroed off those planes, which the card does not read); the
@@ -267,6 +272,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               launch counts reset around each; a guarded jacobi3d at 128^3
               over 6 positions with nan@3 rolled back, equal to the clean
               run; a checkpoint written on (3,2,1) restored on (2,2,2).
+13. float64 -- Jacobi in fp64 on the card (fp64_phase): the fp64
+              instantiations of the sweep (B1) and the multistep (B2/B3)
+              against their plain versions with torch.equal: B1 at phase
+              2's one-block shapes with random sel on every plane and on 6
+              planes and the spheres on their planes, the tenant stacks of
+              64 x 128^3 and 64 x 32^3 (pitches 130 and 34), the stacked
+              (2,2,2) r4 sweep of 512^3 and its 48 shells, the 8 positions
+              of 256^3, the 6 uneven positions of 512^3 and their 36
+              shells; B2 at every k = 1..6 on 67x45x29 and 130x70x40 (one
+              and several z chunks) and its deep-halo form on (2,2,2) 512^3
+              r4 at k = 2..4; each timed per launch at the main path's
+              shape beside its plain version and its bound; 2k+2 steps at
+              512^3 bit-equal to the plain versions; the fp64 main paths
+              apps.jacobi3d.run(512, 512, 512, dtype="float64") on one
+              block (24 multistep passes and 3 sweeps, as fp32), over
+              (2,2,2) residents with deep halo 4 and 1, over 8 positions
+              and over 6 uneven positions (plain and fused), and the
+              campaign CLI's A/B --dtype float64 --check-parity at 64
+              tenants of 128^3 and of 32^3 (its kernel build reported
+              outside the timed spans), launch counts reset around each.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -535,29 +560,33 @@ WIRE_EDGES = [0.0, -0.0, 1.0, 448.0, -448.0, 460.0, 464.0, -464.0, 465.0, 480.0,
 BF16, FP8 = "bfloat16", "float8_e4m3fn"
 
 
-def b1_times(time_ms, dev, run, plain, nbytes, reps: int = 20, plain_reps: int = 3) -> dict:
+def b1_times(time_ms, dev, run, plain, nbytes, reps: int = 20, plain_reps: int = 3,
+             dtype=torch.float32) -> dict:
     """A B1 form's device ms per launch (CUDA-graph replay) beside its plain
     version's; its bound with sel read on its sel planes (the bytes the call
-    needs; ``nbytes`` = (12 bytes a cell, sel on its planes), as
-    ``stencil_kernels.sweep_bytes`` counts them); the 12-byte bound (sel on
-    every plane); and a three-stream torch.add over as many cells."""
+    needs; ``nbytes`` = (every plane, sel on its planes), as
+    ``stencil_kernels.sweep_bytes`` counts them for ``dtype``'s cells: 12
+    bytes a cell in fp32, 20 in fp64 with sel on every plane); the bound
+    with sel on every plane; and a three-stream torch.add of ``dtype`` over
+    as many cells."""
     from stencil_tpu_torch.utils.roofline import bound_ms
 
     full, ranged = nbytes
-    n = full // 12
-    a, b, o = (torch.rand(n, device=dev) for _ in range(3))
+    n = full // (2 * torch.empty((), dtype=dtype).element_size() + 4)
+    a, b, o = (torch.rand(n, device=dev, dtype=dtype) for _ in range(3))
     add_ms = time_ms(lambda: torch.add(a, b, out=o), reps, graph=True)
     del a, b, o
     return dict(ms=time_ms(run, reps, graph=True), plain_ms=time_ms(plain, plain_reps, warmup=1),
-                bound=bound_ms(ranged, 6 * n), library_ms=None,
-                extra={"bound_12b_ms": bound_ms(full, 6 * n)[0], "add_ms": add_ms})
+                bound=bound_ms(ranged, 6 * n, dtype), library_ms=None,
+                extra={"bound_every_plane_ms": bound_ms(full, 6 * n, dtype)[0],
+                       "add_ms": add_ms})
 
 
 def b1_log(name: str, t: dict, what: str) -> None:
     log(f"time {name} {what}: {t['ms']:.4f} ms per launch (plain {t['plain_ms']:.4f} ms, "
         f"bound {t['bound'][0]:.4f} ms with sel on its planes, "
-        f"{t['extra']['bound_12b_ms']:.4f} ms at 12 bytes a cell; torch.add of as many "
-        f"cells {t['extra']['add_ms']:.4f} ms)")
+        f"{t['extra']['bound_every_plane_ms']:.4f} ms with sel on every plane; torch.add of as "
+        f"many cells {t['extra']['add_ms']:.4f} ms)")
 
 
 def bits_equal(x: torch.Tensor, y: torch.Tensor):
@@ -1402,6 +1431,379 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
     return timings, launches, errs
 
 
+# (registers, threads, blocks per SM) of the fp32 instantiations that the
+# float64 forms share a body with (B2 at k=3, B8, B1), as their redesigns
+# built them: the element-type templates leave them as they were
+FP32_BUILDS = {"jacobi_multistep": (80, 736, 1), "fused_jacobi": (56, 352, 3),
+               "jacobi_sweep": (72, 352, 2)}
+
+# the float64 forms in the {"kernels": [...]} line, each beside the fp32
+# entry whose source and TPU builder it shares
+FP64_FORMS = {"jacobi_sweep_f64": "jacobi_sweep", "jacobi_sweep_batched_f64": "jacobi_sweep_batched",
+              "jacobi_sweep_regions_f64": "jacobi_sweep_regions",
+              "jacobi_sweep_positions_f64": "jacobi_sweep_positions",
+              "jacobi_sweep_positions_uneven_f64": "jacobi_sweep_positions_uneven",
+              "jacobi_sweep_regions_uneven_f64": "jacobi_sweep_regions_uneven",
+              "jacobi_multistep_f64": "jacobi_multistep",
+              "jacobi_multistep_deep_halo_f64": "jacobi_multistep_deep_halo"}
+
+
+def fp64_phase(dev, time_ms, n: int = 512, tenant_edges=(128, 32), tenants: int = 64,
+               iters: int = 50, chunk: int = 25, small=((67, 45, 29), (130, 70, 40))):
+    """Phase 13, Jacobi in float64 on ``dev``: the fp64 instantiations of B1
+    (csrc/jacobi_sweep.cu) and B2/B3 (csrc/jacobi_multistep.cu) against
+    their plain versions with torch.equal, from random fields with noise in
+    every halo, and the float64 main paths with their launch counts.
+
+    - B1, one block at phase 2's shapes (``n``^3 r1, 100x70x50 unaligned,
+      256x64x40 tight-x, 33x21x13 r2 with z and x halos read, ``n``^3
+      tight-x all-wrap, 67x45x29, 130x70x40), each with random sel codes in
+      [-1, 4) on every plane and on 6 planes, and the spheres on their
+      planes; the tenant stacks of ``tenants`` x ``tenant_edges``^3
+      (unaligned: pitches 130 and 34); the stacked (2,2,2) r4 sweep of
+      ``n``^3 and its 48 shells in one launch; the 8 positions of
+      (``n``/2)^3; the 6 uneven positions of ``n``^3 over (3,2,1) and their
+      36 shells; each form timed per launch at the main path's shape beside
+      its plain version, its bound (sel on its planes, 16 bytes a cell plus
+      4 on those planes) and a three-stream fp64 torch.add of as many cells.
+    - B2, every depth k = 1..6 on the ``small`` shapes (one and several z
+      chunks), and the deep-halo form on (2,2,2) ``n``^3 r4 at k = 2..4;
+      each form timed at the planner's depth beside its plain version and
+      its bytes bound.
+    - The main paths, launch counts set to 0 just before and read just
+      after: ``apps.jacobi3d.run(n, n, n, dtype="float64")`` on one block
+      (``iters`` steps in chunks of ``chunk`` after a warm-up chunk:
+      multistep passes and sweep tails as in fp32), over (2,2,2) residents
+      with deep halo 4 and 1, over 8 positions (plain remote-dma) and over 6
+      uneven positions (plain, and fused by the host schedule), each final
+      field float64, finite, in [0, 1] with the spheres held; 2k + 2 steps
+      at ``n``^3 through the kernels bit-equal to the plain versions; and
+      the campaign CLI's A/B ``--dtype float64 --check-parity`` at
+      ``tenants`` tenants of each edge (6 tenant sweeps and 2 multistep
+      passes a tenant).
+
+    Sizes are arguments so that the phase can be rehearsed on the CPU (where
+    the plain versions count no launch). Returns ``(timings, launches,
+    errs)``, keyed by the names of :data:`FP64_FORMS`."""
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import campaign as campaign_app
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill, shells
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import (make_jacobi_loop, multi_block_layout,
+                                              sphere_sel_blocks)
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    f64 = torch.float64
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+    gen = torch.Generator(device=dev)
+    kp = sk.MULTISTEP_KPLAN
+    errs = {name: 0.0 for name in FP64_FORMS}
+    timings, launches = {}, {}
+
+    def spec_of(size, part=(1, 1, 1), r=1, aligned=True, tight_x=False):
+        rad = Radius.constant(r)
+        return GridSpec(Dim3(*size), Dim3(*part), rad.without_x() if tight_x else rad,
+                        aligned=aligned)
+
+    def rand(shape, seed):
+        gen.manual_seed(seed)
+        return torch.rand(shape, generator=gen, device=dev, dtype=f64)
+
+    def rsel(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randint(-1, 4, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def held(name, pairs, label):
+        sync(dev)
+        pairs = list(pairs)
+        errs[name] = max(errs[name], *(max_abs(a, b) for a, b in pairs))
+        check(all(torch.equal(a, b) for a, b in pairs), f"{name} {label}: kernel != plain")
+
+    def whole(spec):
+        off = spec.compute_offset()
+        return [Rect3(off, off + spec.base)]
+
+    def timed(name, what, run, plain, nbytes, reps=20):
+        timings[name] = b1_times(time_ms, dev, run, plain, nbytes, reps, 1, f64)
+        b1_log(name, timings[name], what)
+
+    # -- B1, one block: phase 2's shapes -----------------------------------------
+    cases = [(f"{n}^3 r1", spec_of((n,) * 3), (True,) * 3),
+             ("100x70x50 r1 unaligned", spec_of((100, 70, 50), aligned=False), (True,) * 3),
+             ("256x64x40 tight-x", spec_of((256, 64, 40), tight_x=True), (True,) * 3),
+             ("33x21x13 r2 z/x halos read", spec_of((33, 21, 13), r=2), (False, True, False)),
+             (f"{n}^3 tight-x all-wrap", spec_of((n,) * 3, tight_x=True), (True,) * 3),
+             ("67x45x29", spec_of((67, 45, 29)), (True,) * 3),
+             ("130x70x40", spec_of((130, 70, 40)), (True,) * 3)]
+    for i, (label, spec, wrap) in enumerate(cases):
+        shape = spec.stacked_shape_zyx()
+        c = rand(shape, 1300 + i)
+        z0 = spec.compute_offset().z
+        for what, sel, rg in (("random sel", rsel(shape, 1310 + i), None),
+                              ("random sel on 6 planes", rsel(shape, 1320 + i), (z0 + 3, z0 + 9)),
+                              ("spheres on their planes", sphere_sel_blocks(spec, dev),
+                               sk.sel_z_range(spec))):
+            held("jacobi_sweep_f64", [(sk.sweep(c, torch.zeros_like(c), sel, spec, wrap, rg),
+                                       sk.sweep_plain(c, torch.zeros_like(c), sel, spec, wrap,
+                                                      rg))], f"{label}, {what}")
+        log(f"sweep fp64 {label} (tile "
+            f"{sk.sweep_tile(spec.base.x, spec.base.y, spec.compute_offset().x, 8)}): equal with "
+            "random sel, random sel on 6 planes and the spheres on their planes")
+    spec1 = cases[0][1]
+    c = rand(spec1.stacked_shape_zyx(), 1307)
+    nx, sel1, rg1 = torch.zeros_like(c), sphere_sel_blocks(spec1, dev), sk.sel_z_range(spec1)
+    timed("jacobi_sweep_f64", f"{n}^3 one block, sel on its planes",
+          lambda: sk.sweep(c, nx, sel1, spec1, (True,) * 3, rg1),
+          lambda: sk.sweep_plain(c, nx, sel1, spec1, (True,) * 3, rg1),
+          sk.sweep_bytes(spec1, whole(spec1), rg1, item=8))
+    timings["jacobi_sweep_f64"]["extra"]["every_plane_ms"] = time_ms(
+        lambda: sk.sweep(c, nx, sel1, spec1), 20, graph=True)
+    del c, nx
+
+    # -- B1, the campaign's tenant stacks ------------------------------------------
+    for i, edge in enumerate(tenant_edges):
+        spec = spec_of((edge,) * 3, aligned=False)
+        p = spec.padded()
+        shape = (tenants, p.z, p.y, p.x)
+        c = rand(shape, 1330 + i)
+        sph = sphere_sel_blocks(spec, dev).view(1, p.z, p.y, p.x).expand(tenants, -1, -1, -1)
+        sph, rg = sph.contiguous(), sk.sel_z_range(spec)
+        for what, sel, r in (("random sel", rsel(shape, 1335 + i), None),
+                             ("the spheres on their planes", sph, rg)):
+            held("jacobi_sweep_batched_f64",
+                 [(sk.sweep_tenants(c, torch.zeros_like(c), sel, spec, r),
+                   sk.sweep_plain(c, torch.zeros_like(c), sel, spec, sel_range=r))],
+                 f"B={tenants} of {edge}^3, {what}")
+        log(f"tenant sweep fp64 B={tenants} of {edge}^3 (pitch {p.x}): equal with random sel "
+            "and the spheres on their planes")
+        if i == 0:
+            nx = torch.zeros_like(c)
+            timed("jacobi_sweep_batched_f64", f"B={tenants} of {edge}^3, the spheres on their "
+                  "planes", lambda: sk.sweep_tenants(c, nx, sph, spec, rg),
+                  lambda: sk.sweep_plain(c, nx, sph, spec, sel_range=rg),
+                  sk.sweep_bytes(spec, whole(spec), rg, tenants, 8))
+        del c, sph
+
+    # -- B1, the stacked (2,2,2) r4 sweep and its 48 shells ---------------------------
+    spec_h = spec_of((n,) * 3, (2, 2, 2), 4)
+    wrap_h, _axes, shells_h = multi_block_layout(spec_h)
+    shape = spec_h.stacked_shape_zyx()
+    c = rand(shape, 1340)
+    sph_h, rg_h = sphere_sel_blocks(spec_h, dev), sk.block_sel_ranges(spec_h)
+    for what, sel, rg in (("random sel", rsel(shape, 1341), None),
+                          ("the spheres on each block's planes", sph_h, rg_h)):
+        got = sk.sweep(c, torch.zeros_like(c), sel, spec_h, wrap_h, rg)
+        want = sk.sweep_plain(c, torch.zeros_like(c), sel, spec_h, wrap_h, rg)
+        sk.sweep_regions([c], [got], [sel], spec_h, [shells_h], [rg])
+        for rect in shells_h:
+            sk.region_plain(c, want, sel, spec_h, rect, rg)
+        held("jacobi_sweep_regions_f64", [(got, want)], f"(2,2,2) r4 stack and shells, {what}")
+    log(f"stacked sweep fp64 {n}^3 (2,2,2) r4 + its {len(shells_h) * 8} shells in one launch: "
+        "equal with random sel and the spheres on each block's planes")
+    nx = torch.zeros_like(c)
+    timed("jacobi_sweep_regions_f64", f"{n}^3 (2,2,2) r4, the {len(shells_h) * 8} shells in "
+          "one launch", lambda: sk.sweep_regions([c], [nx], [sph_h], spec_h, [shells_h], [rg_h]),
+          lambda: [sk.region_plain(c, nx, sph_h, spec_h, rc, rg_h) for rc in shells_h],
+          sk.sweep_bytes(spec_h, shells_h, rg_h, item=8), reps=10)
+    del c, nx, got, want
+
+    # -- B1 over the 8 positions and over the 6 uneven ones and their shells ------
+    def positions(spec, seed, label, name, shell_name=None):
+        mesh = DeviceMesh(spec.dim, [dev] * spec.dim.flatten())
+        bspec = spec.block_spec()
+        p = bspec.padded()
+        bshape = (1, 1, 1, p.z, p.y, p.x)
+        cs = [rand(bshape, seed + i) for i in range(len(mesh))]
+        ns = [torch.zeros_like(b) for b in cs]
+        sph = sphere_sel_blocks(spec, mesh)
+        rgs = [sk.block_sel_range(spec, Dim3.of(pos).z) for pos in mesh.positions()]
+        rects = [shells.shell_regions(spec, shells.dyn_block_sizes(spec, pos), (True,) * 3)
+                 for pos in mesh.positions()]
+        rnd = [rsel(bshape, seed + 20 + i) for i in range(len(mesh))]
+        for what, sels, rg in (("the spheres on their planes", sph, rgs), ("random sel", rnd, None)):
+            rl = rg or [None] * len(mesh)
+            got = sk.sweep_positions(cs, [b.clone() for b in ns], sels, bspec, rg)
+            want = [sk.sweep_plain(c, b.clone(), s, bspec, fst.NO_WRAP, r)
+                    for c, b, s, r in zip(cs, ns, sels, rl)]
+            held(name, zip(got, want), f"{label}, {what}")
+            if shell_name:
+                outs = sk.sweep_regions(cs, [b.clone() for b in ns], sels, bspec, rects, rg)
+                wants = [b.clone() for b in ns]
+                for c, o, s, rs, r in zip(cs, wants, sels, rects, rl):
+                    for rect in rs:
+                        sk.region_plain(c, o, s, bspec, rect, r)
+                held(shell_name, zip(outs, wants), f"the shells of {label}, {what}")
+        log(f"sweep_positions fp64 over {label}"
+            + (f" and sweep_regions of their {sum(len(r) for r in rects)} shells" if shell_name
+               else "") + ": equal with the spheres on their planes and random sel")
+        nb = [sk.sweep_bytes(bspec, whole(bspec), r, item=8) for r in rgs]
+        timed(name, f"{label} in one launch, each position's spheres on its planes",
+              lambda: sk.sweep_positions(cs, ns, sph, bspec, rgs),
+              lambda: [sk.sweep_plain(c, b, s, bspec, fst.NO_WRAP, r)
+                       for c, b, s, r in zip(cs, ns, sph, rgs)],
+              (sum(f for f, _ in nb), sum(g for _, g in nb)))
+        if shell_name:
+            nb = [sk.sweep_bytes(bspec, rs, r, item=8) for rs, r in zip(rects, rgs)]
+            timed(shell_name, f"the {sum(len(r) for r in rects)} shells of {label} in one launch",
+                  lambda: sk.sweep_regions(cs, ns, sph, bspec, rects, rgs),
+                  lambda: [sk.region_plain(c, b, s, bspec, rect, r)
+                           for c, b, s, rs, r in zip(cs, ns, sph, rects, rgs) for rect in rs],
+                  (sum(f for f, _ in nb), sum(g for _, g in nb)), reps=10)
+
+    positions(spec_of((n,) * 3, (2, 2, 2)), 1350, f"8 positions of {n // 2}^3",
+              "jacobi_sweep_positions_f64")
+    positions(spec_of((n,) * 3, (3, 2, 1)), 1380, f"6 uneven positions of {n}^3 (3,2,1)",
+              "jacobi_sweep_positions_uneven_f64", "jacobi_sweep_regions_uneven_f64")
+
+    # -- B2: every depth, one and several z chunks; the deep-halo form -------------
+    chunk_counts = set()
+    for size in small:
+        spec = spec_of(size)
+        for k in range(1, sk.MULTISTEP_KMAX + 1):
+            c = rand(spec.stacked_shape_zyx(), 1390 + k)
+            held("jacobi_multistep_f64", [(sk.multistep(c, torch.zeros_like(c), spec, k),
+                                           sk.multistep_plain(c, torch.zeros_like(c), spec, k))],
+                 f"{size} k={k}")
+            if on_card:
+                chunk_counts.add(min(2, sk.multistep_zchunks(
+                    spec, k, sk.multistep_blocks_in_flight(dev, k, 8), 8)))
+        log(f"multistep fp64 {'x'.join(map(str, size))} k=1..{sk.MULTISTEP_KMAX}: equal")
+    check(not on_card or chunk_counts == {1, 2}, "multistep fp64 ran one z-chunk regime only")
+    for k in range(2, 5):
+        c = rand(spec_h.stacked_shape_zyx(), 1400 + k)
+        held("jacobi_multistep_deep_halo_f64",
+             [(sk.multistep(c, torch.zeros_like(c), spec_h, k),
+               sk.multistep_plain(c, torch.zeros_like(c), spec_h, k))], f"(2,2,2) r4 k={k}")
+    log(f"deep-halo multistep fp64 {n}^3 (2,2,2) r4 k=2..4: equal")
+    cells = n ** 3
+    c = rand(spec1.stacked_shape_zyx(), 1410)
+    nx = torch.zeros_like(c)
+    timings["jacobi_multistep_f64"] = dict(
+        ms=time_ms(lambda: sk.multistep(c, nx, spec1, kp), 5, warmup=1, graph=True),
+        plain_ms=time_ms(lambda: sk.multistep_plain(c, nx, spec1, kp), 1, warmup=1),
+        bound=bound_ms(2 * 8 * cells, 6 * kp * cells, f64), library_ms=None)
+    c = rand(spec_h.stacked_shape_zyx(), 1411)
+    nx = torch.zeros_like(c)
+    grown = 8 * (n // 2 + 2 * kp) ** 3
+    timings["jacobi_multistep_deep_halo_f64"] = dict(
+        ms=time_ms(lambda: sk.multistep(c, nx, spec_h, kp), 5, warmup=1, graph=True),
+        plain_ms=time_ms(lambda: sk.multistep_plain(c, nx, spec_h, kp), 1, warmup=1),
+        bound=bound_ms(8 * (grown + cells), 6 * kp * cells, f64), library_ms=None)
+    for name in ("jacobi_multistep_f64", "jacobi_multistep_deep_halo_f64"):
+        t = timings[name]
+        log(f"time {name} {n}^3 k={kp}: {t['ms']:.4f} ms per launch, {t['ms'] / kp:.4f} ms per "
+            f"step (plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by "
+            f"{t['bound'][1]})")
+    del c, nx
+
+    # -- the main paths ------------------------------------------------------------
+    # 2k + 2 steps through the kernels against the plain versions
+    loop = make_jacobi_loop(HaloExchange(spec1), 2 * kp + 2)
+    start = rand(spec1.stacked_shape_zyx(), 1420)
+    c, nx = loop(start.clone(), torch.zeros_like(start), sel1)
+    pc, pn = start.clone(), torch.zeros_like(start)
+    for _ in range(2):
+        pc, pn = sk.multistep_plain(pc, pn, spec1, kp), pc
+    for _ in range(2):
+        pc, pn = sk.sweep_plain(pc, pn, sel1, spec1), pc
+    sync(dev)
+    check(torch.equal(c, pc) and torch.equal(nx, pn),
+          f"jacobi fp64 {n}^3 {2 * kp + 2} steps: kernel path != plain path")
+    log(f"jacobi fp64 {n}^3 {2 * kp + 2} steps: kernel path == plain path")
+    del loop, start, c, nx, pc, pn
+
+    counted = {"jacobi_multistep": sk.multistep, "jacobi_sweep": sk.sweep,
+               "jacobi_sweep_regions": sk.sweep_regions, "jacobi_sweep_positions": sk.sweep_positions,
+               "remote_axis": rdma.remote_axis, "self_fill": halo_fill.self_fill}
+    total = iters + chunk  # the warm-up chunk advances the state
+    nch = total // chunk
+    rd = Method.REMOTE_DMA
+    hot, cold = sk.sphere_masks_from_coords(spec1, "cpu")
+    # (label, run's arguments, its depth, launches, the kernels line's forms
+    # whose launches it gives, by the wrapper that counts them)
+    for label, kw, k_want, want, forms in (
+            ("one block", dict(device=dev), kp,
+             {"jacobi_multistep": nch * (chunk // kp), "jacobi_sweep": nch * (chunk % kp)},
+             {"jacobi_sweep_f64": "jacobi_sweep", "jacobi_multistep_f64": "jacobi_multistep"}),
+            ("(2,2,2) residents, deep_halo 4", dict(device=dev, partition=(2, 2, 2), deep_halo=4),
+             kp, {"jacobi_multistep": nch * (chunk // kp), "jacobi_sweep": nch * (chunk % kp),
+                  "jacobi_sweep_regions": nch * (chunk % kp)},
+             {"jacobi_sweep_regions_f64": "jacobi_sweep_regions",
+              "jacobi_multistep_deep_halo_f64": "jacobi_multistep"}),
+            ("(2,2,2) residents, deep_halo 1", dict(device=dev, partition=(2, 2, 2)), 0,
+             {"jacobi_sweep": total, "jacobi_sweep_regions": total}, {}),
+            ("8 positions, plain remote-dma", dict(devices=[dev] * 8, method=rd), 0,
+             {"remote_axis": 3 * total, "jacobi_sweep_positions": total},
+             {"jacobi_sweep_positions_f64": "jacobi_sweep_positions"}),
+            ("6 uneven positions, plain remote-dma", dict(devices=[dev] * 6, method=rd), 0,
+             {"remote_axis": 2 * total, "jacobi_sweep_positions": total, "self_fill": total},
+             {"jacobi_sweep_positions_uneven_f64": "jacobi_sweep_positions"}),
+            ("6 uneven positions, fused (the host schedule)",
+             dict(devices=[dev] * 6, method=rd, kernel_variant="fused"), 0,
+             {"remote_axis": 2 * total, "jacobi_sweep_positions": total, "self_fill": total,
+              "jacobi_sweep_regions": total},
+             {"jacobi_sweep_regions_uneven_f64": "jacobi_sweep_regions"})):
+        for fn in counted.values():
+            fn.launches = 0
+        rv = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, weak=False, dtype="float64", **kw)
+        sync(dev)
+        got = {name: fn.launches for name, fn in counted.items()}
+        wanted = {name: want.get(name, 0) * on_card for name in counted}
+        check(got == wanted, f"jacobi3d fp64 {n}^3 {label}: launches {got}, expected {wanted}")
+        check(rv["temporal_k"] == k_want, f"jacobi3d fp64 {label}: k={rv['temporal_k']}")
+        fin = torch.from_numpy(rv["domain"].get_curr_global(rv["handle"]))
+        check(fin.dtype == f64 and tuple(fin.shape) == (n,) * 3
+              and bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0 and bool((fin[hot] == 1.0).all())
+              and bool((fin[cold] == 0.0).all()),
+              f"jacobi3d fp64 {label}: field not float64, not finite, out of range or spheres "
+              "lost")
+        launches.update({form: got[key] for form, key in forms.items()})
+        log(jacobi3d.csv_row(rv))
+        log(f"jacobi3d fp64 {n}^3 {label}: {rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
+            f"{rv['mcells_per_s']:.1f} Mcells/s, temporal_k {rv['temporal_k']}, launches {got}")
+        del rv, fin
+    del hot, cold
+
+    # the campaign CLI's A/B in float64 at each tenant edge
+    counted8 = {"jacobi_sweep_batched": sk.sweep_tenants, "jacobi_sweep": sk.sweep,
+                "jacobi_multistep": sk.multistep}
+    for edge in tenant_edges:
+        argv = ["--tenants", str(tenants), "--slot", str(tenants), "--size", str(edge),
+                "--chunk", "3", "--steps", "6", "--mode", "ab", "--check-parity", "--dtype",
+                "float64", "--device", str(dev)]
+        for fn in counted8.values():
+            fn.launches = 0
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-fp64-campaign-") as d:
+            out = campaign_app.run_modes(campaign_app.parse_args(argv), os.path.join(d, "c"))
+        sync(dev)
+        got = {name: fn.launches for name, fn in counted8.items()}
+        wanted = {"jacobi_sweep_batched": 6 * on_card, "jacobi_sweep": 0,
+                  "jacobi_multistep": 2 * tenants * on_card}
+        check(got == wanted, f"campaign A/B fp64 {tenants} x {edge}^3: launches {got}, "
+                             f"expected {wanted}")
+        check(out["parity"] == "ok" and out["evicted"] == [] and out["dtype"] == "float64",
+              f"campaign A/B fp64 {tenants} x {edge}^3: parity {out['parity']}, evicted "
+              f"{out['evicted']}")
+        for res in out["_batched"]["results"].values():
+            check(res.final.dtype == np.float64 and res.final.shape == (edge,) * 3
+                  and bool(np.isfinite(res.final).all()),
+                  f"campaign fp64 {edge}^3 tenant {res.tid}: not float64, finite and whole")
+        launches.setdefault("jacobi_sweep_batched_f64", got["jacobi_sweep_batched"])
+        log(f"campaign A/B fp64 {tenants} tenants of {edge}^3, 6 steps in chunks of 3: kernel "
+            f"build {out['build_s']} s (outside the timed spans), batched "
+            f"{out['batched_mcells_per_s']} Mcells/s (p50 {out['batched_p50_step_s']} s), "
+            f"sequential {out['sequential_mcells_per_s']} Mcells/s (p50 "
+            f"{out['sequential_p50_step_s']} s), ratio {out['batched_over_sequential']}, parity "
+            f"{out['parity']}, launches {got}")
+    return timings, launches, errs
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1454,41 +1856,58 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"ptxas {name}: {line.strip()}")
     ms_lib = _native.lib("jacobi_multistep")
-    for k in range(1, sk.MULTISTEP_KMAX + 1):
-        check(ms_lib.jacobi_multistep_smem_bytes(k) == sk.multistep_smem_bytes(k),
-              f"multistep smem formula differs from the kernel's at k={k}")
-        for mb in (False, True):
-            mi = sk.multistep_info(0, k, mb)
-            check(mi["threads"] == sk.multistep_shape(k)["threads"] and mi["blocks_per_sm"] >= 1
-                  and mi["smem_bytes"] == sk.multistep_smem_bytes(k),
-                  f"multistep k={k} mb={mb}: launch shape {mi} differs from the wrapper's")
-            check(k != sk.MULTISTEP_KPLAN or mi["local_bytes"] == 0,
-                  f"multistep at the planner's depth k={k} spills: {mi}")
-            log(f"jacobi_multistep k={k} {'deep-halo' if mb else 'single-block'}: "
-                f"{mi['regs']} registers, {mi['local_bytes']} bytes of spill, "
-                f"{mi['blocks_per_sm']} block(s) of {mi['threads']} threads per SM, "
-                f"{mi['smem_bytes']} bytes of shared memory")
+    for item, tname in ((4, "fp32"), (8, "fp64")):
+        for k in range(1, sk.MULTISTEP_KMAX + 1):
+            check(ms_lib.jacobi_multistep_smem_bytes(k, item) == sk.multistep_smem_bytes(k, item),
+                  f"multistep {tname} smem formula differs from the kernel's at k={k}")
+            for mb in (False, True):
+                mi = sk.multistep_info(0, k, mb, item)
+                check(mi["threads"] == sk.multistep_shape(k, item)["threads"]
+                      and mi["blocks_per_sm"] >= 1
+                      and mi["smem_bytes"] == sk.multistep_smem_bytes(k, item),
+                      f"multistep {tname} k={k} mb={mb}: launch shape {mi} differs from the "
+                      "wrapper's")
+                # fp32 at the planner's depth; fp64 at every depth
+                check((item == 4 and k != sk.MULTISTEP_KPLAN) or mi["local_bytes"] == 0,
+                      f"multistep {tname} k={k} mb={mb} spills: {mi}")
+                log(f"jacobi_multistep {tname} k={k} {'deep-halo' if mb else 'single-block'}: "
+                    f"{mi['regs']} registers, {mi['local_bytes']} bytes of spill, "
+                    f"{mi['blocks_per_sm']} block(s) of {mi['threads']} threads per SM, "
+                    f"{mi['smem_bytes']} bytes of shared memory")
+    # the fp32 instantiation at the planner's depth, as its redesign built it
+    mi = sk.multistep_info(0, sk.MULTISTEP_KPLAN, False, 4)
+    check((mi["regs"], mi["threads"], mi["blocks_per_sm"]) == FP32_BUILDS["jacobi_multistep"],
+          f"multistep fp32 k={sk.MULTISTEP_KPLAN}: {mi}, not (registers, threads, blocks) "
+          f"{FP32_BUILDS['jacobi_multistep']}")
     fi, fsh = fst.fused_info(0), fst.fused_shape()
     check(fi["threads"] == fsh["threads"] and fi["smem_bytes"] == fsh["smem_bytes"]
           and fi["blocks_per_sm"] >= 2 and fi["local_bytes"] == 0,
           f"fused step kernel: launch shape {fi} differs from the wrapper's {fsh}, holds fewer "
           "than 2 blocks per SM, or spills")
+    check((fi["regs"], fi["threads"], fi["blocks_per_sm"]) == FP32_BUILDS["fused_jacobi"],
+          f"fused step kernel: {fi}, not (registers, threads, blocks) "
+          f"{FP32_BUILDS['fused_jacobi']}")
     log(f"fused_jacobi: {fi['regs']} registers, {fi['local_bytes']} bytes of spill, "
         f"{fi['blocks_per_sm']} block(s) of {fi['threads']} threads per SM, "
         f"{fi['smem_bytes']} bytes of shared memory")
     # B1 on the same body (sweep_runs.cuh's flex_tile): two blocks of 352
     # threads per SM and no spill; B8 keeps three
-    si = sk.sweep_info(0)
-    check(si["threads"] == sk.SWEEP_THREADS and si["smem_bytes"] == sk.SWEEP_SMEM
-          and si["blocks_per_sm"] >= sk.SWEEP_MIN_BLOCKS and si["local_bytes"] == 0
-          and fi["blocks_per_sm"] >= fst.FUSED_MIN_BLOCKS,
-          f"sweep kernel: launch shape {si} differs from the wrapper's, holds fewer than "
-          f"{sk.SWEEP_MIN_BLOCKS} blocks per SM, or spills; or the fused step holds fewer than "
-          f"{fst.FUSED_MIN_BLOCKS} (fused step: {fi})")
-    log(f"jacobi_sweep (B1, the task-table walk): {si['regs']} registers, "
-        f"{si['local_bytes']} bytes of spill, {si['blocks_per_sm']} block(s) of "
-        f"{si['threads']} threads per SM, {si['smem_bytes']} bytes of shared memory; "
-        f"{sk.sweep_blocks_in_flight(0)} resident blocks")
+    for item, tname in ((4, "fp32"), (8, "fp64")):
+        si = sk.sweep_info(0, item)
+        check(si["threads"] == sk.SWEEP_THREADS and si["smem_bytes"] == sk.SWEEP_SMEM
+              and si["blocks_per_sm"] >= sk.SWEEP_MIN_BLOCKS and si["local_bytes"] == 0
+              and fi["blocks_per_sm"] >= fst.FUSED_MIN_BLOCKS,
+              f"sweep kernel {tname}: launch shape {si} differs from the wrapper's, holds fewer "
+              f"than {sk.SWEEP_MIN_BLOCKS} blocks per SM, or spills; or the fused step holds "
+              f"fewer than {fst.FUSED_MIN_BLOCKS} (fused step: {fi})")
+        check(item == 8 or (si["regs"], si["threads"], si["blocks_per_sm"])
+              == FP32_BUILDS["jacobi_sweep"],
+              f"sweep kernel fp32: {si}, not (registers, threads, blocks) "
+              f"{FP32_BUILDS['jacobi_sweep']}")
+        log(f"jacobi_sweep {tname} (B1, the task-table walk): {si['regs']} registers, "
+            f"{si['local_bytes']} bytes of spill, {si['blocks_per_sm']} block(s) of "
+            f"{si['threads']} threads per SM, {si['smem_bytes']} bytes of shared memory; "
+            f"{sk.sweep_blocks_in_flight(0, item)} resident blocks")
     wire_names = {0: "unnarrowed", 1: "bf16", 2: "fp16", 3: "fp8 e4m3", 4: "fp32"}
     for code in (1, 2, 3):
         wi = fst.fused_info(0, code)
@@ -2444,14 +2863,15 @@ def main() -> int:
                                       "planes: kernel != plain")
         log(f"tenant sweep B=64 of {size}^3 (pitch {p.x}), spheres on their planes: equal")
     del c, s8, got, want
+    # a float64 slot on the card against the same slot on the CPU
     spec = tenant_spec((8, 8, 8))
     c, s8 = rand_slot(spec, 2, 310)
-    try:
-        sk.sweep_tenants(c.double(), torch.zeros_like(c).double(), s8, spec)
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused, "a float64 slot on the card did not raise NotImplementedError")
+    c = c.double()
+    got = sk.sweep_tenants(c, torch.zeros_like(c), s8, spec)
+    want = sk.sweep_tenants(c.cpu(), torch.zeros_like(c.cpu()), s8.cpu(), spec)
+    check(got.dtype == torch.float64 and torch.equal(got.cpu(), want),
+          "tenant sweep B=2 of 8^3 fp64: card != CPU")
+    log("tenant sweep B=2 of 8^3 fp64: card == CPU")
 
     # the batched loop on the card against the same loop on the CPU. The
     # card reads sel on the spheres' planes only (sel_z_range, as the TPU
@@ -2514,6 +2934,13 @@ def main() -> int:
         check(got8 == want8, f"campaign A/B {tenants} x {edge}^3: launches {got8}, expected {want8}")
         check(out["parity"] == "ok" and out["evicted"] == [],
               f"campaign A/B {tenants} x {edge}^3: parity {out['parity']}, evicted {out['evicted']}")
+        # the kernels are built (or loaded) before either mode is timed: no
+        # step holds a build of seconds
+        check(out["build_s"] >= 0.0 and out["sequential_p99_step_s"] < 1.0
+              and out["batched_p99_step_s"] < 1.0,
+              f"campaign A/B {tenants} x {edge}^3: a step of a second or more (build_s "
+              f"{out['build_s']}, p99 {out['sequential_p99_step_s']}, "
+              f"{out['batched_p99_step_s']})")
         for res in out["_batched"]["results"].values():
             check(res.final.shape == (edge,) * 3 and bool(np.isfinite(res.final).all()),
                   f"campaign {edge}^3 tenant {res.tid}: not finite or wrong shape")
@@ -2522,7 +2949,8 @@ def main() -> int:
             f"{out['batched_p99_step_s']} s per step), sequential "
             f"{out['sequential_mcells_per_s']} Mcells/s (p50 {out['sequential_p50_step_s']} s, p99 "
             f"{out['sequential_p99_step_s']} s), ratio {out['batched_over_sequential']}, parity "
-            f"{out['parity']}, launches {got8}")
+            f"{out['parity']}, launches {got8}; kernel build {out['build_s']} s outside the "
+            "timed spans")
         steady, _, recs = run_campaign(shape + ["--steps", "30"])
         spec8 = tenant_spec((edge,) * 3)
         c8, _s = rand_slot(spec8, tenants, 330)
@@ -3126,6 +3554,12 @@ def main() -> int:
         f"{t['bound'][1]}, Tensor.copy_ {t['library_ms']:.4f} ms); "
         f"{l12['remote_axis_uneven']} launches on the 6-position main path")
 
+    # -- 13. float64: the fp64 forms of B1 and B2/B3 and the fp64 main paths ---
+    t13, l13, e13 = fp64_phase(dev, time_ms)
+    timings.update(t13)
+    launches.update(l13)
+    errs.update(e13)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -3189,6 +3623,9 @@ def main() -> int:
         "jacobi_sweep_regions_uneven": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
                                        "stencil_tpu/ops/pallas_stencil.py:119"),
     }
+    # the float64 forms: the same sources and TPU builders (whose Pallas
+    # kernels are float32 only; the JAX package steps float64 on XLA)
+    meta.update({name: meta[base] for name, base in FP64_FORMS.items()})
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timings[name]

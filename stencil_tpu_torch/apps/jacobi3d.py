@@ -103,6 +103,7 @@ def run(
     partition=None,
     devices=None,
     wire_dtype: Optional[str] = None,
+    dtype: str = "float32",
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 0,
     ckpt_keep: int = 3,
@@ -133,6 +134,10 @@ def run(
     domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``,
     with or without a kernel variant. ``wire_dtype`` narrows the halo
     messages crossing between positions (``DistributedDomain.set_wire_dtype``).
+    ``dtype`` ("float32" or "float64") is the temperature field's type: a
+    float64 field steps through the kernels' float64 forms on every path
+    but the fused and persistent variants, which are float32 as in the JAX
+    package (no CLI flag: the JAX app steps float32).
 
     The guarded loop (see the module docstring): ``health_every`` (0 = off)
     and ``max_abs`` set the health check, ``max_rollbacks`` and
@@ -172,7 +177,7 @@ def run(
         dd.set_wire_dtype(wire_dtype)
     if partition is not None:
         dd.set_partition(partition)
-    h = dd.add_data("temperature", "float32")
+    h = dd.add_data("temperature", dtype)
     dd.realize()
     dev = dd.device
 

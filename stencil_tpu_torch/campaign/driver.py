@@ -41,7 +41,7 @@ live slot tensors in place.
 baseline (aggregate Mcells/s and p50/p99 per-step latency).
 
 Entry points run on the current CUDA device unless ``device="cpu"`` is
-passed. Not carried over yet (ROADMAP.md queue A item 7): the ``astaroth``
+passed. Not carried over yet (ROADMAP.md queue A item 3): the ``astaroth``
 workload (raises ``NotImplementedError``; :func:`astaroth_init_state` is
 ported for it), ``batch_devices`` (a slot lives on one device), and the
 live sentinel, status file and plan hot-swap.
@@ -235,7 +235,7 @@ def _check_workloads(jobs: Sequence[TenantJob]) -> None:
         if j.workload == "astaroth":
             raise NotImplementedError(
                 f"tenant {j.tid}: astaroth campaign tenants need a batched substep "
-                "kernel (ROADMAP.md queue A item 7)")
+                "kernel (ROADMAP.md queue A item 3)")
         if j.workload not in WORKLOADS:
             raise ValueError(f"tenant {j.tid}: unknown workload {j.workload!r} "
                              f"(known: {sorted(WORKLOADS)})")

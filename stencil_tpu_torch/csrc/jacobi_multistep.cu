@@ -1,5 +1,5 @@
-// k Jacobi steps in one launch over the padded fp32 blocks of a uniform
-// partition, every block resident on one device.
+// k Jacobi steps in one launch over the padded fp32 or fp64 blocks of a
+// uniform partition, every block resident on one device.
 //
 // Replaces: stencil_tpu/ops/pallas_stencil.py make_pallas_jacobi_multistep
 // (full-plane z wavefront) and _make_multistep_row_tiled (the same wavefront
@@ -9,7 +9,8 @@
 // multistep_plain).
 //
 // What bounds it on an H100. The floor is bytes: ONE read of curr plus ONE
-// write of out per k steps (0.32 ms at 512^3), since the intermediate stages
+// write of out per k steps (0.32 ms at 512^3 in fp32, 0.64 in fp64), since
+// the intermediate stages
 // never go to device memory. Keeping them on chip costs work that bytes do
 // not count: a tile recomputes its neighbours' ghost zones (1.1x the cell
 // updates at k = 3), and every stage of every plane passes through shared
@@ -17,12 +18,15 @@
 // the bytes floor (PERF.md): what sets the pace is the instructions the
 // on-chip stages issue, one block of 23 warps per SM at its 80-register cap,
 // with the stage-0 stream and the output stores overlapping them only in
-// part. Scalar global accesses held this kernel's first design back: blocks
+// part. fp64 halves the card's issue rate (64 lanes an SM), so its floor in
+// issue is twice fp32's. Scalar global accesses held this kernel's first
+// design back: blocks
 // whose runs straddle a wrapped or unaligned edge ran slower than the
 // others, and the slowest block sets the launch's time.
 //
 // Design (ghost-zone temporal blocking with a register z-march). A block
-// owns a TX-wide output tile of one resident block (TY rows at k <= KLO,
+// owns a TX-wide output tile of one resident block (TX: 256 bytes of cells,
+// 64 in fp32, 32 in fp64; TY rows at k <= KLO,
 // TYHI deeper, where the register windows grow) and marches a z chunk with
 // k + 1 stages. Stage 0 is the input plane grown by k cells on each side;
 // stage s computes the plane grown by k - s from stage s - 1, and stage k is
@@ -32,15 +36,18 @@
 // neighbours come from shared memory, where each stage keeps two planes
 // (one read while the other is written), so a step ends with a single
 // barrier. What the design does about the limits:
-// - Each thread owns a 4-cell x run of one row of the grown plane, the same
-//   in every stage: its own cells give most of its x neighbours, warp
-//   shuffles the two at the run's ends (shared memory for lanes 0 and 31),
-//   and 16-byte row reads the y neighbours. No warp idles on a second cell.
+// - Each thread owns a 16-byte x run of one row of the grown plane (C = 4
+//   fp32 cells or 2 fp64 cells), the same in every stage: its own cells give
+//   most of its x neighbours, warp shuffles the two at the run's ends
+//   (shared memory for lanes 0 and 31), and 16-byte row reads the y
+//   neighbours. No warp idles on a second cell. The fp64 form keeps the
+//   bytes of the fp32 one (a tile half as wide in cells), so its shared
+//   memory and threads are those of the fp32 tile.
 // - Runs start on the padded block's 16-byte grid, and every tile after the
 //   first of a row starts its output there too, so stage 0 arrives as one
 //   16-byte cp.async per run and the output leaves as one 16-byte store per
-//   run; only runs that straddle a wrapped edge copy 4 bytes at a time, and
-//   only the block's own first and last columns store fewer than 4.
+//   run; only runs that straddle a wrapped edge copy a cell at a time, and
+//   only the block's own first and last columns store fewer than C.
 // - Stage 0 is copied LOOK planes ahead of use into a ring of LOOK + 2 = 6
 //   planes, with no registers held for it. The step loop is unrolled over
 //   the ring's 6 slots, so every ring slot, buffer parity and window slot is
@@ -75,15 +82,15 @@
 // clamped exactly as on the block that owns it. On the standard spheres that
 // equals the JAX package's sqrt-truncating sel array, so one launch equals k
 // one-step sweeps bit for bit: every stage sums (x_lo + x_hi + y_lo + y_hi +
-// z_lo + z_hi) left to right and multiplies by 1/6 rounded to float32, as the
+// z_lo + z_hi) left to right and multiplies by 1/6 rounded to the type, as the
 // sweep does; only where each value comes from (registers, shuffles or
 // shared memory) differs. Plane offsets are 64-bit, in-plane offsets 32-bit
 // (the launch refuses a plane of 2^31 elements or more).
 //
-// Shared memory (Shape<K>::SMEM): a guard row, the stage-0 ring, two planes
-// for each of stages 1..k-1, a guard row; a plane is the grown tile's rows
-// at a pitch of RUNS runs of 4. The Python side (stencil_kernels.py
-// multistep_shape) mirrors these formulas.
+// Shared memory (Shape<K, T>::SMEM): a guard row, the stage-0 ring, two
+// planes for each of stages 1..k-1, a guard row; a plane is the grown tile's
+// rows at a pitch of RUNS runs of C cells. The Python side
+// (stencil_kernels.py multistep_shape) mirrors these formulas.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -93,37 +100,47 @@
 
 namespace {
 
-constexpr int TX = 64;    // output tile width, x (the first tile of a row is up to 3 wider)
+// output tile width in bytes, TX cells (the first tile of a row is up to
+// C - 1 cells wider)
+constexpr int TX_BYTES = 256;
 constexpr int TY = 32;    // output tile height, y, at k <= KLO
-constexpr int TYHI = 16;  // output tile height at k > KLO
+constexpr int TYHI = 16;  // output tile height at k > KLO (fp64: half; see Shape)
 constexpr int KLO = 3;    // deepest k with the TY-high tile
 constexpr int KMAX = 6;   // deepest k instantiated (register windows grow with k)
 constexpr int LOOK = 4;   // stage-0 planes in flight ahead of use
 constexpr unsigned FULL = 0xffffffffu;
-constexpr float SIXTH = 1.0f / 6.0f;
 constexpr float HOT = 1.0f;
 constexpr float COLD = 0.0f;
 
-// The launch shape at depth K. A thread owns one 4-cell run of a row of the
-// grown plane; a row has RUNS runs, enough for the widest tile grown by K on
-// both sides at any 16-byte phase of its first cell.
-template <int K>
+// The launch shape at depth K for cells of type T. A thread owns one
+// 16-byte run (C cells) of a row of the grown plane; a row has RUNS runs,
+// enough for the widest tile grown by K on both sides at any 16-byte phase
+// of its first cell. Beyond KLO an fp64 tile is TYHI / 2 rows high: its
+// register windows take twice the registers a cell, and at 16 rows k = 6
+// spilled 112 bytes at the 80-register cap of its 672 threads (an H100,
+// PERF.md); at 8 rows every depth's block is at most 512 threads.
+template <int K, typename T>
 struct Shape {
-  static constexpr int TYK = K <= KLO ? TY : TYHI;
+  static constexpr int C = 16 / (int)sizeof(T);
+  static constexpr int TX = TX_BYTES / (int)sizeof(T);
+  static constexpr int TYK = K <= KLO ? TY : TYHI * 4 / (int)sizeof(T);
   static constexpr int ROWS = TYK + 2 * K;
-  static constexpr int RUNS = (3 + TX + 3 + 2 * K + 3) / 4;
-  static constexpr int PITCH = 4 * RUNS;  // floats per shared-memory row
+  static constexpr int RUNS = (C - 1 + TX + C - 1 + 2 * K + C - 1) / C;
+  static constexpr int PITCH = C * RUNS;  // cells per shared-memory row
   static constexpr int PLANE = ROWS * PITCH;
   static constexpr int RING = LOOK + 2;
   static constexpr int PLANES = RING + 2 * (K - 1);
   static constexpr int NT = (ROWS * RUNS + 31) / 32 * 32;
-  static constexpr long long SMEM = 4LL * (PLANES * PLANE + 2 * PITCH);
+  static constexpr long long SMEM = (long long)sizeof(T) * (PLANES * PLANE + 2 * PITCH);
+  static constexpr T SIXTH = T(1) / T(6);
   static_assert(RING == 6 && LOOK == 4, "the step loop is unrolled over 6 ring slots");
+  static_assert(C == 4 || C == 2, "fp32 or fp64 cells");
 };
 
+template <typename T>
 struct Params {
-  const float* curr;
-  float* out;
+  const T* curr;
+  T* out;
   long long sz, bstride;       // strides (elements) of z and of a resident block
   int sy, py;                  // stride of y (x is unit); padded rows
   int zo, yo, xo;              // compute-region origin in the padded block
@@ -150,14 +167,35 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 
-__device__ __forceinline__ void cp4(float* dst, const float* src) {
+// one cell
+__device__ __forceinline__ void cp_cell(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+__device__ __forceinline__ void cp_cell(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// A run's cells by one 16-byte access (shared or global memory).
+__device__ __forceinline__ void ld_run(const float* p, float (&o)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w;
+}
+__device__ __forceinline__ void ld_run(const double* p, double (&o)[2]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  o[0] = a.x, o[1] = a.y;
+}
+__device__ __forceinline__ void st_run(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void st_run(double* p, const double (&o)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(o[0], o[1]);
 }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
@@ -168,81 +206,84 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // (x_lo + x_hi + y_lo + y_hi + z_lo + z_hi) * 1/6, left to right
-__device__ __forceinline__ float avg6(float xl, float xh, float yl, float yh, float zl,
-                                      float zh) {
-  float s = xl + xh;
+template <typename T>
+__device__ __forceinline__ T avg6(T xl, T xh, T yl, T yh, T zl, T zh) {
+  T s = xl + xh;
   s = s + yl;
   s = s + yh;
   s = s + zl;
   s = s + zh;
-  return s * SIXTH;
+  return s * Shape<1, T>::SIXTH;
 }
 
 // What a block knows of its tile, the same for all its threads. The tile's
 // output columns are block-local x in [X0, X1): tiles after the first start
 // where the padded row is 16-byte aligned, so that their output runs are
 // whole aligned vectors.
+template <typename T>
 struct Tile {
-  const float* curr;  // the resident's block
-  float* out;
-  float* ring;        // stage-0 ring, after the leading guard row
-  float* bufs;        // stages 1..K-1, two planes each
+  const T* curr;      // the resident's block
+  T* out;
+  T* ring;            // stage-0 ring, after the leading guard row
+  T* bufs;            // stages 1..K-1, two planes each
   int X0, X1, Y0, Z0, nsteps, e;
   int oz;             // the resident's global z origin
   bool zm;            // z has several blocks (deep halo)
 };
 
-// What a thread owns: one 4-cell run of a row of the grown plane, at offset
+// What a thread owns: one C-cell run of a row of the grown plane, at offset
 // me in a plane; the largest stage a cell of it is needed at (-1: none); its
 // lane; its cells' block-local x (from lx0); its source row's offset and its
 // cells' source x (xq; the first is also the output x when the run lies in
 // the block), and whether the run copies as one 16-byte vector (vcp); its
-// output cells (st: bits 0-3, and bit 8 when they store as one aligned
-// vector); for the spheres, its row's squared y distance from their centre,
+// output cells (st: bits 0 to C - 1, and bit 8 when they store as one
+// aligned vector); for the spheres, its row's squared y distance from their centre,
 // its first cell's wrapped global x and the least squared x distance of its
 // cells from either centre; and per stage s < K its planes' values,
 // w[s][slot][cell], slot = (step - s) mod 3.
-template <int K>
+template <int K, typename T>
 struct Run {
-  float w[K][3][4];
+  static constexpr int C = Shape<K, T>::C;
+  T w[K][3][C];
   int me, smax, lane, lx0, yoff, st, dy2, gx0, dxm2;
-  int xq[4];
+  int xq[C];
   bool vcp;
 };
 
 // Copy the run's cells of relative plane jj into its ring slot, jj mod RING
 // = Q (one commit group per step, empty past the chunk).
-template <int K, int Q>
-__device__ __forceinline__ void issue(const Params& p, const Tile& b, const Run<K>& c, int jj) {
-  using S = Shape<K>;
+template <int K, int Q, typename T>
+__device__ __forceinline__ void issue(const Params<T>& p, const Tile<T>& b, const Run<K, T>& c,
+                                      int jj) {
+  using S = Shape<K, T>;
   if (c.smax >= 0 && jj < b.nsteps) {
     const int u = b.Z0 - K + jj;
     const int zu = b.zm ? u : (u < 0 ? u + p.nz : (u >= p.nz ? u - p.nz : u));
-    const float* src = b.curr + (long long)(p.zo + zu) * p.sz + c.yoff;
-    float* dst = b.ring + Q * S::PLANE + c.me;
+    const T* src = b.curr + (long long)(p.zo + zu) * p.sz + c.yoff;
+    T* dst = b.ring + Q * S::PLANE + c.me;
     if (c.vcp) {
       cp16(dst, src + c.xq[0]);
     } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) cp4(dst + q, src + c.xq[q]);
+      for (int q = 0; q < S::C; ++q) cp_cell(dst + q, src + c.xq[q]);
     }
   }
   cp_commit();
 }
 
 // The spheres on plane v (dz from the hot centre): hot wins over cold.
-template <int K>
-__device__ __forceinline__ void spheres(const Params& p, const Run<K>& c, int dz,
-                                        float (&o)[4]) {
+template <int K, typename T>
+__device__ __forceinline__ void spheres(const Params<T>& p, const Run<K, T>& c, int dz,
+                                        T (&o)[Shape<K, T>::C]) {
   const int yz = c.dy2 + dz * dz;
   if (c.dxm2 + yz < p.thresh) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < Shape<K, T>::C; ++q) {
       int gx = c.gx0 + q;
       while (gx >= p.gx) gx -= p.gx;
       const int dx = gx - p.hx;
       const int dc = dx - p.dhc;
-      o[q] = dx * dx + yz < p.thresh ? HOT : (dc * dc + yz < p.thresh ? COLD : o[q]);
+      o[q] = dx * dx + yz < p.thresh ? T(HOT) : (dc * dc + yz < p.thresh ? T(COLD) : o[q]);
     }
   }
 }
@@ -251,18 +292,14 @@ __device__ __forceinline__ void spheres(const Params& p, const Run<K>& c, int dz
 // buffer parity and window slot below is a constant): wait for stage 0's
 // plane j, barrier, copy plane j + LOOK, load plane j into the window, then
 // stages 1..K.
-template <int K, int P>
-__device__ __forceinline__ void step(const Params& p, const Tile& b, Run<K>& c, int j) {
-  using S = Shape<K>;
-  constexpr int PITCH = S::PITCH, RING = S::RING;
+template <int K, int P, typename T>
+__device__ __forceinline__ void step(const Params<T>& p, const Tile<T>& b, Run<K, T>& c, int j) {
+  using S = Shape<K, T>;
+  constexpr int PITCH = S::PITCH, RING = S::RING, C = S::C;
   cp_wait<LOOK - 1>();
   __syncthreads();
   issue<K, (P + LOOK) % RING>(p, b, c, j + LOOK);
-  if (c.smax >= 0) {
-    const float4 a = *reinterpret_cast<const float4*>(b.ring + P * S::PLANE + c.me);
-    float(&w0)[4] = c.w[0][P % 3];
-    w0[0] = a.x, w0[1] = a.y, w0[2] = a.z, w0[3] = a.w;
-  }
+  if (c.smax >= 0) ld_run(b.ring + P * S::PLANE + c.me, c.w[0][P % 3]);
   // which stages' planes hold sphere cells: stage s works on plane
   // Z0 - K + j - s, whose wrapped global z lies within k planes of the block
   // (k <= nz, so one correction wraps it)
@@ -279,58 +316,62 @@ __device__ __forceinline__ void step(const Params& p, const Tile& b, Run<K>& c, 
 #pragma unroll
   for (int s = 1; s <= K; ++s) {
     if (j < 2 * s) continue;
-    const float(&m)[4] = c.w[s - 1][(P - s + 12) % 3];   // plane v of stage s - 1
-    const float(&lo)[4] = c.w[s - 1][(P - s + 11) % 3];  // plane v - 1
-    const float(&hi)[4] = c.w[s - 1][(P - s + 13) % 3];  // plane v + 1
+    const T(&m)[C] = c.w[s - 1][(P - s + 12) % 3];   // plane v of stage s - 1
+    const T(&lo)[C] = c.w[s - 1][(P - s + 11) % 3];  // plane v - 1
+    const T(&hi)[C] = c.w[s - 1][(P - s + 13) % 3];  // plane v + 1
     // x edges from the neighbouring runs' lanes; lanes 0 and 31 read theirs
-    float xl = __shfl_up_sync(FULL, m[3], 1);
-    float xr = __shfl_down_sync(FULL, m[0], 1);
+    T xl = __shfl_up_sync(FULL, m[C - 1], 1);
+    T xr = __shfl_down_sync(FULL, m[0], 1);
     if (c.smax < s) continue;
     const int v = b.Z0 - K + j - s;  // the plane stage s computes
     // stage s - 1 at plane v: the ring slot of plane j - 1, or the buffer
     // stage s - 1 wrote one step ago
-    const float* in = (s == 1 ? b.ring + ((P + RING - 1) % RING) * S::PLANE
-                              : b.bufs + (2 * (s - 2) + ((P - s + RING) & 1)) * S::PLANE) +
-                      c.me;
+    const T* in = (s == 1 ? b.ring + ((P + RING - 1) % RING) * S::PLANE
+                          : b.bufs + (2 * (s - 2) + ((P - s + RING) & 1)) * S::PLANE) +
+                  c.me;
     if (c.lane == 0) xl = in[-1];
-    if (c.lane == 31) xr = in[4];
-    const float4 up = *reinterpret_cast<const float4*>(in - PITCH);
-    const float4 dn = *reinterpret_cast<const float4*>(in + PITCH);
-    float o[4];
-    o[0] = avg6(xl, m[1], up.x, dn.x, lo[0], hi[0]);
-    o[1] = avg6(m[0], m[2], up.y, dn.y, lo[1], hi[1]);
-    o[2] = avg6(m[1], m[3], up.z, dn.z, lo[2], hi[2]);
-    o[3] = avg6(m[2], xr, up.w, dn.w, lo[3], hi[3]);
+    if (c.lane == 31) xr = in[C];
+    T up[C], dn[C];
+    ld_run(in - PITCH, up);
+    ld_run(in + PITCH, dn);
+    T o[C];
+    o[0] = avg6(xl, m[1], up[0], dn[0], lo[0], hi[0]);
+#pragma unroll
+    for (int q = 1; q < C - 1; ++q) o[q] = avg6(m[q - 1], m[q + 1], up[q], dn[q], lo[q], hi[q]);
+    o[C - 1] = avg6(m[C - 2], xr, up[C - 1], dn[C - 1], lo[C - 1], hi[C - 1]);
     if (band >> s & 1) {
       const int zg = b.oz + v;
       spheres<K>(p, c, (zg < 0 ? zg + p.gz : (zg >= p.gz ? zg - p.gz : zg)) - p.hz, o);
     }
     if (s < K) {
-      float(&nw)[4] = c.w[s][(P - s + 12) % 3];
-      nw[0] = o[0], nw[1] = o[1], nw[2] = o[2], nw[3] = o[3];
-      *reinterpret_cast<float4*>(b.bufs + (2 * (s - 1) + ((P - s + RING) & 1)) * S::PLANE +
-                                 c.me) = make_float4(o[0], o[1], o[2], o[3]);
+      T(&nw)[C] = c.w[s][(P - s + 12) % 3];
+#pragma unroll
+      for (int q = 0; q < C; ++q) nw[q] = o[q];
+      st_run(b.bufs + (2 * (s - 1) + ((P - s + RING) & 1)) * S::PLANE + c.me, o);
     } else if (c.st) {
       // the output, inside the block, where offsets are unwrapped
-      float* d = b.out + (long long)(p.zo + v) * p.sz + c.yoff;
+      T* d = b.out + (long long)(p.zo + v) * p.sz + c.yoff;
       if (c.st & 256) {
-        *reinterpret_cast<float4*>(d + c.xq[0]) = make_float4(o[0], o[1], o[2], o[3]);
+        st_run(d + c.xq[0], o);
       } else {
         d += p.xo + c.lx0;
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < C; ++q)
           if (c.st >> q & 1) d[q] = o[q];
       }
     }
   }
 }
 
-template <int K, bool MB>
-__global__ void __launch_bounds__(Shape<K>::NT, 1)
-    jacobi_multistep_kernel(const __grid_constant__ Params p) {
-  using S = Shape<K>;
-  extern __shared__ __align__(16) float smem[];
-  Tile b;
+template <int K, bool MB, typename T>
+__global__ void __launch_bounds__(Shape<K, T>::NT, 1)
+    jacobi_multistep_kernel(const __grid_constant__ Params<T> p) {
+  using S = Shape<K, T>;
+  constexpr int C = S::C, TX = S::TX;
+  // declared as words in every instantiation (one type for the one array)
+  extern __shared__ __align__(16) float smem_words[];
+  T* smem = reinterpret_cast<T*>(smem_words);
+  Tile<T> b;
   const int res = MB ? blockIdx.z / p.nzc : 0;
   const int rx = res % p.bx, ry = (res / p.bx) % p.by, rz = res / (p.bx * p.by);
   const int ox = MB ? rx * p.nx : 0, oy = MB ? ry * p.ny : 0;
@@ -342,48 +383,48 @@ __global__ void __launch_bounds__(Shape<K>::NT, 1)
   const bool xm = MB && p.bx > 1, ym = MB && p.by > 1;
   b.zm = MB && p.bz > 1;
   const int tx = blockIdx.x;
-  b.X0 = tx == 0 ? 0 : tx * TX + (-p.xo & 3);
-  b.X1 = min(p.nx, (tx + 1) * TX + (-p.xo & 3));
+  b.X0 = tx == 0 ? 0 : tx * TX + (-p.xo & (C - 1));
+  b.X1 = min(p.nx, (tx + 1) * TX + (-p.xo & (C - 1)));
   if (b.X0 >= b.X1) return;  // the whole block: a last tile with no columns
   b.Y0 = blockIdx.y * S::TYK;
   b.Z0 = (blockIdx.z - res * p.nzc) * p.zchunk;
   b.nsteps = min(p.nz, b.Z0 + p.zchunk) - b.Z0 + 2 * K;
   // column col of the grown plane is block-local x = X0 - K - e + col: runs
-  // of 4 start on the padded block's 16-byte grid
-  b.e = (p.xo + b.X0 - K) & 3;
+  // of C start on the padded block's 16-byte grid
+  b.e = (p.xo + b.X0 - K) & (C - 1);
   const int W = b.X1 - b.X0;
 
-  Run<K> c;
+  Run<K, T> c;
   const int t = threadIdx.x;
   c.lane = t & 31;
   const int row = t / S::RUNS, rn = t - row * S::RUNS;
-  c.me = row * S::PITCH + 4 * rn;
+  c.me = row * S::PITCH + C * rn;
   c.smax = -1;
   if (t < S::ROWS * S::RUNS) {
     // stage s needs rows [s, ROWS - s) and columns [e + s, e + W + 2K - s)
     const int sr = min(row, S::ROWS - 1 - row);
-    const int sc = min(4 * rn + 3 - b.e, b.e + W + 2 * K - 1 - 4 * rn);
+    const int sc = min(C * rn + C - 1 - b.e, b.e + W + 2 * K - 1 - C * rn);
     c.smax = min(min(sr, sc), K);
   }
-  c.lx0 = b.X0 - K - b.e + 4 * rn;
+  c.lx0 = b.X0 - K - b.e + C * rn;
   const int ly = b.Y0 - K + row;
   // source cells: by index wrap on a single-block axis, clamped into the
   // padded block on a deep-halo axis (cells farther out than k feed no
   // output)
   c.yoff = (ym ? clampi(p.yo + ly, 0, p.py - 1) : p.yo + wrapi(ly, p.ny)) * p.sy;
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
+  for (int q = 0; q < C; ++q)
     c.xq[q] = xm ? clampi(p.xo + c.lx0 + q, 0, p.sy - 1) : p.xo + wrapi(c.lx0 + q, p.nx);
-  c.vcp = p.vec && c.xq[3] == c.xq[0] + 3 && (c.xq[0] & 3) == 0;
+  c.vcp = p.vec && c.xq[C - 1] == c.xq[0] + C - 1 && (c.xq[0] & (C - 1)) == 0;
   // output cells: columns [e + K, e + K + W), rows [K, K + TYK), in the block
   c.st = 0;
   if (c.smax >= K && row < K + S::TYK && ly < p.ny) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = 4 * rn + q - b.e - K;
+    for (int q = 0; q < C; ++q) {
+      const int col = C * rn + q - b.e - K;
       if (col >= 0 && col < W) c.st |= 1 << q;
     }
-    if (c.st == 15 && p.vec && ((p.xo + c.lx0) & 3) == 0) c.st |= 256;
+    if (c.st == (1 << C) - 1 && p.vec && ((p.xo + c.lx0) & (C - 1)) == 0) c.st |= 256;
   }
   // the spheres: at the wrapped global coordinate
   const int gy = wrapi(oy + ly, p.gy) - p.hy;
@@ -391,7 +432,7 @@ __global__ void __launch_bounds__(Shape<K>::NT, 1)
   c.gx0 = wrapi(ox + c.lx0, p.gx);
   c.dxm2 = INT_MAX;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < C; ++q) {
     const int dx = wrapi(c.gx0 + q, p.gx) - p.hx, dc = dx - p.dhc;
     c.dxm2 = min(c.dxm2, min(dx * dx, dc * dc));
   }
@@ -411,36 +452,36 @@ __global__ void __launch_bounds__(Shape<K>::NT, 1)
   cp_wait<0>();
 }
 
-template <int K, bool MB>
-int launch_mb(const Params& p, dim3 grid, cudaStream_t st) {
-  using S = Shape<K>;
+template <int K, bool MB, typename T>
+int launch_mb(const Params<T>& p, dim3 grid, cudaStream_t st) {
+  using S = Shape<K, T>;
   grid.y = (p.ny + S::TYK - 1) / S::TYK;
-  cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, MB>,
+  cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, MB, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S::SMEM);
   if (err != cudaSuccess) return (int)err;
-  jacobi_multistep_kernel<K, MB><<<grid, S::NT, S::SMEM, st>>>(p);
+  jacobi_multistep_kernel<K, MB, T><<<grid, S::NT, S::SMEM, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int launch(const Params& p, dim3 grid, cudaStream_t st) {
+template <int K, typename T>
+int launch(const Params<T>& p, dim3 grid, cudaStream_t st) {
   return p.bz * p.by * p.bx > 1 ? launch_mb<K, true>(p, grid, st)
                                 : launch_mb<K, false>(p, grid, st);
 }
 
 // r[0..4]: resident blocks per SM, registers per thread, local (spill)
 // bytes per thread, threads per block, dynamic shared memory bytes.
-template <int K, bool MB>
+template <int K, bool MB, typename T>
 int info(int* r) {
-  using S = Shape<K>;
-  cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, MB>,
+  using S = Shape<K, T>;
+  cudaError_t err = cudaFuncSetAttribute(jacobi_multistep_kernel<K, MB, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S::SMEM);
   cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, jacobi_multistep_kernel<K, MB>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, jacobi_multistep_kernel<K, MB, T>);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[0], jacobi_multistep_kernel<K, MB>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[0], jacobi_multistep_kernel<K, MB, T>,
                                                         S::NT, S::SMEM);
   if (err != cudaSuccess) return (int)err;
   r[1] = a.numRegs;
@@ -450,55 +491,40 @@ int info(int* r) {
   return 0;
 }
 
-template <bool MB>
+template <bool MB, typename T>
 int info_k(int k, int* r) {
   switch (k) {
-    case 1: return info<1, MB>(r);
-    case 2: return info<2, MB>(r);
-    case 3: return info<3, MB>(r);
-    case 4: return info<4, MB>(r);
-    case 5: return info<5, MB>(r);
-    case 6: return info<6, MB>(r);
+    case 1: return info<1, MB, T>(r);
+    case 2: return info<2, MB, T>(r);
+    case 3: return info<3, MB, T>(r);
+    case 4: return info<4, MB, T>(r);
+    case 5: return info<5, MB, T>(r);
+    case 6: return info<6, MB, T>(r);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
 long long smem_bytes(int k) {
   switch (k) {
-    case 1: return Shape<1>::SMEM;
-    case 2: return Shape<2>::SMEM;
-    case 3: return Shape<3>::SMEM;
-    case 4: return Shape<4>::SMEM;
-    case 5: return Shape<5>::SMEM;
-    case 6: return Shape<6>::SMEM;
+    case 1: return Shape<1, T>::SMEM;
+    case 2: return Shape<2, T>::SMEM;
+    case 3: return Shape<3, T>::SMEM;
+    case 4: return Shape<4, T>::SMEM;
+    case 5: return Shape<5, T>::SMEM;
+    case 6: return Shape<6, T>::SMEM;
     default: return -1;
   }
 }
 
-}  // namespace
-
-extern "C" long long jacobi_multistep_smem_bytes(int k) { return smem_bytes(k); }
-
-// curr / out: distinct stacks of bz * by * bx padded fp32 blocks (resident
-// r = (iz * by + iy) * bx + ix at r * bstride), strides (sz, sy, 1). Each
-// block's compute region is [zo, zo+nz) x [yo, yo+ny) x [xo, xo+nx); an axis
-// with several blocks needs halos of radius >= k on both sides, already
-// exchanged. (gx, gy, gz) is the global size the spheres are placed in;
-// zchunks is the number of z chunks per block; dev the tensors' device.
-extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz,
-                                       long long sy, long long bstride, int zo, int yo,
-                                       int xo, int nz, int ny, int nx, int bz, int by,
-                                       int bx, int k, int gx, int gy, int gz,
-                                       int zchunks, int dev, void* stream) {
-  if (k < 1 || k > KMAX || k > nz || nz < 1 || ny < 1 || nx < 1 || zchunks < 1 ||
-      bz < 1 || by < 1 || bx < 1 || sz > INT_MAX || sy > sz ||
-      (long long)bz * by * bx * zchunks > 65535)
-    return (int)cudaErrorInvalidValue;
-  jacobi::DeviceScope on(dev);
-  if (on.error() != cudaSuccess) return (int)on.error();
-  Params p;
-  p.curr = (const float*)curr;
-  p.out = (float*)out;
+template <typename T>
+int launch_item(const void* curr, void* out, long long sz, long long sy, long long bstride,
+                int zo, int yo, int xo, int nz, int ny, int nx, int bz, int by, int bx, int k,
+                int gx, int gy, int gz, int zchunks, cudaStream_t st) {
+  constexpr int C = 16 / (int)sizeof(T), TX = TX_BYTES / (int)sizeof(T);
+  Params<T> p;
+  p.curr = (const T*)curr;
+  p.out = (T*)out;
   p.sz = sz;
   p.sy = (int)sy;
   p.py = (int)(sz / sy);
@@ -523,10 +549,9 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
   p.dhc = gx * 2 / 3 - gx / 3;
   p.band = gx / 10;
   p.thresh = (gx / 10 + 1) * (gx / 10 + 1);
-  p.vec = ((uintptr_t)curr % 16 == 0) && ((uintptr_t)out % 16 == 0) && sz % 4 == 0 &&
-          sy % 4 == 0 && bstride % 4 == 0;
+  p.vec = ((uintptr_t)curr % 16 == 0) && ((uintptr_t)out % 16 == 0) && sz % C == 0 &&
+          sy % C == 0 && bstride % C == 0;
   const dim3 grid((nx + TX - 1) / TX, 1, bz * by * bx * p.nzc);  // grid.y: launch_mb
-  cudaStream_t st = (cudaStream_t)stream;
   switch (k) {
     case 1: return launch<1>(p, grid, st);
     case 2: return launch<2>(p, grid, st);
@@ -537,11 +562,47 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
   }
 }
 
-// The instantiation of depth k (mb: the multi-block one) on device dev:
-// r[0..4] = resident blocks per SM, registers per thread, local (spill)
-// bytes per thread, threads per block, dynamic shared memory bytes.
-extern "C" int jacobi_multistep_info(int k, int mb, int dev, int* r) {
+}  // namespace
+
+// Shared memory of one block at depth k for item-byte cells (4: fp32, 8:
+// fp64).
+extern "C" long long jacobi_multistep_smem_bytes(int k, int item) {
+  return item == 8 ? smem_bytes<double>(k) : (item == 4 ? smem_bytes<float>(k) : -1);
+}
+
+// curr / out: distinct stacks of bz * by * bx padded blocks of item-byte
+// cells (4: fp32, 8: fp64; resident r = (iz * by + iy) * bx + ix at r *
+// bstride), strides (sz, sy, 1). Each block's compute region is [zo, zo+nz)
+// x [yo, yo+ny) x [xo, xo+nx); an axis with several blocks needs halos of
+// radius >= k on both sides, already exchanged. (gx, gy, gz) is the global
+// size the spheres are placed in; zchunks is the number of z chunks per
+// block; dev the tensors' device.
+extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz,
+                                       long long sy, long long bstride, int zo, int yo,
+                                       int xo, int nz, int ny, int nx, int bz, int by,
+                                       int bx, int k, int gx, int gy, int gz,
+                                       int zchunks, int item, int dev, void* stream) {
+  if (k < 1 || k > KMAX || k > nz || nz < 1 || ny < 1 || nx < 1 || zchunks < 1 ||
+      bz < 1 || by < 1 || bx < 1 || sz > INT_MAX || sy > sz || (item != 4 && item != 8) ||
+      (long long)bz * by * bx * zchunks > 65535)
+    return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
-  return mb ? info_k<true>(k, r) : info_k<false>(k, r);
+  cudaStream_t st = (cudaStream_t)stream;
+  return item == 8 ? launch_item<double>(curr, out, sz, sy, bstride, zo, yo, xo, nz, ny, nx, bz,
+                                         by, bx, k, gx, gy, gz, zchunks, st)
+                   : launch_item<float>(curr, out, sz, sy, bstride, zo, yo, xo, nz, ny, nx, bz,
+                                        by, bx, k, gx, gy, gz, zchunks, st);
+}
+
+// The instantiation of depth k (mb: the multi-block one) for item-byte cells
+// on device dev: r[0..4] = resident blocks per SM, registers per thread,
+// local (spill) bytes per thread, threads per block, dynamic shared memory
+// bytes.
+extern "C" int jacobi_multistep_info(int k, int mb, int item, int dev, int* r) {
+  if (item != 4 && item != 8) return (int)cudaErrorInvalidValue;
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  if (item == 8) return mb ? info_k<true, double>(k, r) : info_k<false, double>(k, r);
+  return mb ? info_k<true, float>(k, r) : info_k<false, float>(k, r);
 }

@@ -46,14 +46,14 @@ _L = ctypes.c_longlong
 # C entry points: name -> (restype, argtypes)
 SIGNATURES = {
     "jacobi_sweep": {
-        "jacobi_sweep_launch": (_I, [_P, _I, _I, _L, _L, _L, _L, _I, _I, _I, _P]),
-        "jacobi_sweep_info": (_I, [_I, ctypes.POINTER(_I)]),
+        "jacobi_sweep_launch": (_I, [_P, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I, _P]),
+        "jacobi_sweep_info": (_I, [_I, _I, ctypes.POINTER(_I)]),
     },
     "jacobi_multistep": {
         "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-        "jacobi_multistep_smem_bytes": (_L, [_I]),
-        "jacobi_multistep_info": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "jacobi_multistep_smem_bytes": (_L, [_I, _I]),
+        "jacobi_multistep_info": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     },
     "self_fill": {
         "self_fill_launch": (_I, [ctypes.POINTER(_P), _I, _I, _I, ctypes.POINTER(_L), _L,

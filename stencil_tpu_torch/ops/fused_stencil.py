@@ -107,6 +107,22 @@ def box_rows(boxes) -> ctypes.Array:
     return (ctypes.c_int * max(1, len(flat)))(*flat)
 
 
+def require_float32_fields(t: torch.Tensor, what: str) -> None:
+    """Raise ``NotImplementedError`` for a float64 field: the fused step
+    (B8) and the persistent chunk (B9) are float32 kernels, as the JAX
+    package builds them (``make_fused_jacobi_kernel`` and
+    ``make_persistent_jacobi_kernel`` take no dtype), on the CPU as on the
+    card. The JAX package runs a float64 domain through these variants on
+    XLA (its kernels are TPU-only); the port runs float64 Jacobi on its
+    other paths (ROADMAP.md queue C, Design divergences)."""
+    if t.dtype == torch.float64:
+        raise NotImplementedError(
+            f"{what}: float64 fields with the fused or persistent kernel variant diverge from "
+            "the JAX package, which runs them on XLA: these kernels are float32, as the JAX "
+            "package builds them; float64 Jacobi runs on the default and plain remote-dma "
+            "paths (ROADMAP.md queue C, Design divergences)")
+
+
 def require_face_radius(spec: GridSpec) -> None:
     r = spec.radius
     if min(r.x(-1), r.x(1), r.y(-1), r.y(1), r.z(-1), r.z(1)) < 1:
@@ -141,6 +157,7 @@ def fused_jacobi(curr, nxt, sel, spec: GridSpec, plan):
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/fused_jacobi.cu`` over one position whose messages all wrap onto
     the block, or raise."""
+    require_float32_fields(curr, "fused_jacobi")
     _check_block(curr, spec, torch.float32, "curr")
     _check_block(nxt, spec, torch.float32, "nxt")
     _check_block(sel, spec, torch.int32, "sel")
@@ -244,13 +261,15 @@ fused_exchange.launches = 0
 fused_exchange.narrowed = 0  # the launches through a narrowed wire
 
 
-def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh) -> torch.device:
-    """``currs``, ``nxts`` (float32) and ``sels`` (int32): one contiguous
+def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh, what: str) -> torch.device:
+    """``currs``, ``nxts`` (float32; float64 raises
+    :func:`require_float32_fields`) and ``sels`` (int32): one contiguous
     padded block of ``spec`` per position of ``mesh``, all on the mesh's one
     device, every ``curr`` and ``nxt`` its own buffer; returns the device."""
     if not len(currs) == len(nxts) == len(sels) == len(mesh):
         raise ValueError(f"{len(currs)} curr, {len(nxts)} nxt and {len(sels)} sel blocks "
                          f"for {len(mesh)} positions")
+    require_float32_fields(currs[0], what)
     dev = _check_mesh_blocks([[c, n] for c, n in zip(currs, nxts)], spec, mesh)
     _check_mesh_blocks([[s] for s in sels], spec, mesh)
     if currs[0].dtype != torch.float32 or sels[0].dtype != torch.int32:
@@ -420,7 +439,7 @@ def fused_jacobi_mesh(currs, nxts, sels, spec: GridSpec, plan, mesh, wire=None):
     tensors launch ``csrc/fused_jacobi.cu`` once for every position (phase
     A rounding the crossing boxes' words through the wire), or raise.
     Returns ``(currs, nxts)``."""
-    dev = check_mesh_fields(currs, nxts, sels, spec, mesh)
+    dev = check_mesh_fields(currs, nxts, sels, spec, mesh, "fused_jacobi_mesh")
     require_face_radius(spec)
     messages = _messages(plan, mesh)
     if dev.type == "cpu":

@@ -49,7 +49,8 @@ from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, Rect3
 from ..plan.ir import direction_boxes
 from . import _native
-from .fused_stencil import box_slices, check_mesh_fields, launch_mesh_chunk
+from .fused_stencil import (box_slices, check_mesh_fields, launch_mesh_chunk,
+                            require_float32_fields)
 from .stencil_kernels import _check_block, _device_of
 
 
@@ -191,6 +192,7 @@ def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
 def persistent_jacobi(curr, nxt, sel, spec: GridSpec, k: int):
     """One k-step chunk (see :func:`persistent_jacobi_plain`), in place, in
     one launch; returns ``(curr', out', sel)`` = ``(curr, nxt, sel)``."""
+    require_float32_fields(curr, "persistent_jacobi")
     _check_block(curr, spec, torch.float32, "curr")
     _check_block(nxt, spec, torch.float32, "nxt")
     _check_block(sel, spec, torch.int32, "sel")
@@ -234,7 +236,7 @@ def persistent_jacobi_mesh(currs, nxts, sels, spec: GridSpec, k: int, mesh):
     halo-filled. CPU tensors take the plain version; CUDA tensors launch
     ``csrc/persistent_jacobi.cu`` once for every position, or raise.
     Returns ``(currs, nxts, sels)``."""
-    dev = check_mesh_fields(currs, nxts, sels, spec, mesh)
+    dev = check_mesh_fields(currs, nxts, sels, spec, mesh, "persistent_jacobi_mesh")
     _require_kernel_form(spec, k, mesh)
     if dev.type == "cpu":
         return persistent_jacobi_mesh_plain(currs, nxts, sels, spec, k, mesh)

@@ -40,9 +40,12 @@ bit: XLA folds its ``sum / 6`` into that multiply, in float32 and float64
 alike (a true divide differs in about a third of all cells). PyTorch keeps
 each op as written, on the CPU and on CUDA.
 
-Fields are float32 or float64. The plain versions take both; the CUDA
-kernels are float32, as the TPU kernels are, and a float64 field on the
-card raises ``NotImplementedError``.
+Fields are float32 or float64, and so are the kernels: each CUDA kernel is
+instantiated for both element types (the TPU kernels are float32 only; the
+JAX package steps float64 on XLA). A thread's run is 16 bytes in either
+type, 4 float32 or 2 float64 cells, so the launch shapes below take the
+element size (``item``, 4 or 8 bytes) and an fp64 tile is as many bytes as
+the fp32 one, half as many cells. ``sel`` stays int32 in both.
 """
 
 from __future__ import annotations
@@ -63,10 +66,10 @@ COLD_TEMP = 0.0
 SIXTH = float(np.float32(1.0) / np.float32(6.0))
 FIELD_DTYPES = (torch.float32, torch.float64)
 
-# Mirrors csrc/jacobi_multistep.cu: output tile (x, and y at k <= KLO),
-# the tile height at deeper k, the deepest k the kernel takes, stage-0
-# planes copied ahead of use, and the shared memory one block may use on an
-# H100 (232,448 bytes).
+# Mirrors csrc/jacobi_multistep.cu: output tile (x in fp32 cells, 256
+# bytes; and y at k <= KLO), the tile height at deeper k, the deepest k the
+# kernel takes, stage-0 planes copied ahead of use, and the shared memory
+# one block may use on an H100 (232,448 bytes).
 MULTISTEP_TILE = (64, 32)  # (x, y)
 MULTISTEP_TILE_Y_HI = 16
 MULTISTEP_KLO = 3
@@ -233,23 +236,35 @@ def multistep_plain(curr, nxt, spec: GridSpec, k: int):
     return nxt
 
 
-def multistep_shape(k: int) -> dict:
-    """The multistep kernel's launch shape at depth ``k`` (``Shape<K>`` in
-    ``csrc/jacobi_multistep.cu``): the output tile (``tile``: x, y); a
-    thread owns a 4-cell x run of a row of the tile grown by k (``rows``);
-    a row holds ``runs`` runs, enough for the widest tile (the first of a
-    row is up to 3 columns wider) at any 16-byte phase of its first cell;
-    shared memory holds a guard row, a stage-0 ring of ``LOOK + 2`` planes,
-    two planes for each of stages 1..k-1 and a guard row."""
-    tx = MULTISTEP_TILE[0]
-    ty = MULTISTEP_TILE[1] if k <= MULTISTEP_KLO else MULTISTEP_TILE_Y_HI
+def run_cells(item: int) -> int:
+    """Cells of a 16-byte run of ``item``-byte cells: 4 in float32, 2 in
+    float64."""
+    if item not in (4, 8):
+        raise ValueError(f"cells of {item} bytes: the kernels take float32 or float64")
+    return 16 // item
+
+
+def multistep_shape(k: int, item: int = 4) -> dict:
+    """The multistep kernel's launch shape at depth ``k`` for ``item``-byte
+    cells (``Shape<K, T>`` in ``csrc/jacobi_multistep.cu``): the output tile
+    (``tile``: x, y; x 256 bytes of cells); a thread owns a C-cell x run
+    (16 bytes, :func:`run_cells`) of a row of the tile grown by k
+    (``rows``); a row holds ``runs`` runs, enough for the widest tile (the
+    first of a row is up to C - 1 columns wider) at any 16-byte phase of its
+    first cell; shared memory holds a guard row, a stage-0 ring of ``LOOK +
+    2`` planes, two planes for each of stages 1..k-1 and a guard row. Deeper
+    than ``MULTISTEP_KLO`` an fp64 tile is half as high (its windows take
+    twice the registers a cell)."""
+    c = run_cells(item)
+    tx = MULTISTEP_TILE[0] * 4 // item
+    ty = MULTISTEP_TILE[1] if k <= MULTISTEP_KLO else MULTISTEP_TILE_Y_HI * 4 // item
     rows = ty + 2 * k
-    runs = -(-(3 + tx + 3 + 2 * k) // 4)
-    pitch = 4 * runs
+    runs = -(-(2 * (c - 1) + tx + 2 * k) // c)
+    pitch = c * runs
     planes = MULTISTEP_LOOK + 2 + 2 * (k - 1)
     return {"tile": (tx, ty), "rows": rows, "runs": runs, "pitch": pitch, "planes": planes,
             "threads": -(-(rows * runs) // 32) * 32,
-            "smem_bytes": 4 * (planes * rows * pitch + 2 * pitch)}
+            "smem_bytes": item * (planes * rows * pitch + 2 * pitch)}
 
 
 def multistep_stage_updates(spec: GridSpec, k: int) -> int:
@@ -264,10 +279,11 @@ def multistep_stage_updates(spec: GridSpec, k: int) -> int:
     return tiles * sum((tx + 2 * g) * (ty + 2 * g) * (b.z + 2 * g) for g in range(k))
 
 
-def multistep_smem_bytes(k: int) -> int:
-    """Shared memory of one multistep block at depth ``k`` (the kernel
-    exports the same formula as ``jacobi_multistep_smem_bytes``)."""
-    return multistep_shape(k)["smem_bytes"]
+def multistep_smem_bytes(k: int, item: int = 4) -> int:
+    """Shared memory of one multistep block at depth ``k`` for ``item``-byte
+    cells (the kernel exports the same formula as
+    ``jacobi_multistep_smem_bytes``)."""
+    return multistep_shape(k, item)["smem_bytes"]
 
 
 def plan_multistep_depth(k_want: int) -> int:
@@ -308,7 +324,8 @@ def _check_fields(spec: GridSpec, curr, nxt, sel=None, stack: Optional[int] = No
 
 def _device_of(*ts) -> torch.device:
     """The operands' one device; ``ts[0]`` and ``ts[1]`` are curr and nxt.
-    A float64 field on the card raises: the kernels are float32."""
+    The kernels take the fields' element type (float32 or float64, checked
+    by :func:`_check_fields`) from ``ts[0]``."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError("operands on different devices")
@@ -316,17 +333,12 @@ def _device_of(*ts) -> torch.device:
         raise ValueError(f"kernels run on cuda or cpu tensors, not {dev}")
     if ts[0].data_ptr() == ts[1].data_ptr():
         raise ValueError("curr and nxt must be distinct buffers")
-    if dev.type == "cuda" and ts[0].dtype != torch.float32:
-        raise NotImplementedError(
-            f"{ts[0].dtype} fields on CUDA: the Jacobi kernels are float32, as the TPU "
-            "kernels are (a float64 instantiation is queued in ROADMAP.md); pass "
-            "device='cpu' for the plain versions")
     return dev
 
 
 # The sweep kernel's launch (csrc/sweep_runs.cuh: TX, TY, LOOK, PLANE, NT,
 # B1_SMEM; csrc/jacobi_sweep.cu: MIN_BLOCKS, TASK_COLS and the task row's
-# fields).
+# fields), in fp32 cells; an fp64 launch keeps the bytes (:func:`sweep_plane`).
 SWEEP_TILE = (128, 8)
 SWEEP_LOOK = 4
 SWEEP_MIN_BLOCKS = 2
@@ -405,36 +417,52 @@ def _ranged_sel(sel: torch.Tensor, spec: GridSpec, sel_range) -> torch.Tensor:
     return s
 
 
-def sweep_tile(nx: int, ny: int, xo: int) -> Tuple[int, int]:
+def sweep_plane(item: int = 4) -> int:
+    """Elements of one ring plane for ``item``-byte cells: the bytes of
+    ``SWEEP_PLANE`` floats (``Elem<T>::PLANE_T`` in csrc/sweep_runs.cuh)."""
+    return SWEEP_PLANE * 4 // item
+
+
+def sweep_runs(tx: int, item: int = 4) -> int:
+    """16-byte runs of a ring row for a ``tx``-wide tile of ``item``-byte
+    cells: ``(tx + 3C - 1) // C``, C cells a run (:func:`run_cells`)."""
+    c = run_cells(item)
+    return (tx + 3 * c - 1) // c
+
+
+def sweep_tile(nx: int, ny: int, xo: int, item: int = 4) -> Tuple[int, int]:
     """The tile ``(tx, ty)`` B1 sweeps an ``nx`` x ``ny`` rect at padded x
-    ``xo`` with: of the widths ``tx`` (a multiple of 4) whose grown tile,
-    ``ty + 2`` rows of ``(tx + 11) // 4`` 4-cell runs, fills at most a ring
-    plane (``SWEEP_PLANE`` floats) with ``ty >= 1``, one with the fewest
-    tiles a plane (``sweep_tiles_x`` x ``ceil(ny / ty)``); on a tie the
-    widest up to ``SWEEP_TILE``'s 128 (B8's measured tile), else the
-    narrowest. 128 x 8 on a wide rect; a 171-wide block takes 56 x 19, a
-    1-cell x shell 4 x 111, a 1-row y shell 256 x 3, a 32^3 tenant 32 x 32."""
+    ``xo`` with, for ``item``-byte cells: of the widths ``tx`` (a multiple
+    of C, the cells of a 16-byte run) whose grown tile, ``ty + 2`` rows of
+    :func:`sweep_runs` runs, fills at most a ring plane (:func:`sweep_plane`
+    elements) with ``ty >= 1``, one with the fewest tiles a plane
+    (``sweep_tiles_x`` x ``ceil(ny / ty)``); on a tie the widest up to
+    ``SWEEP_TILE``'s 128 fp32 cells (B8's measured tile; 64 fp64 cells, the
+    same bytes), else the narrowest. In fp32 128 x 8 on a wide rect; a
+    171-wide block takes 56 x 19, a 1-cell x shell 4 x 111, a 1-row y shell
+    256 x 3, a 32^3 tenant 32 x 32. In fp64 64 x 8 on a wide rect."""
+    c = run_cells(item)
+    plane, cap = sweep_plane(item), SWEEP_TILE[0] * 4 // item
     best = None
-    tx = 4
+    tx = c
     while True:
-        runs = (tx + 11) // 4
-        ty = SWEEP_PLANE // (4 * runs) - 2
+        ty = plane // (c * sweep_runs(tx, item)) - 2
         if ty < 1:
             break
-        wide = tx > SWEEP_TILE[0]
-        key = (sweep_tiles_x(nx, xo, tx) * -(-ny // ty), wide, tx if wide else -tx)
+        wide = tx > cap
+        key = (sweep_tiles_x(nx, xo, tx, item) * -(-ny // ty), wide, tx if wide else -tx)
         if best is None or key < best[0]:
             best = (key, (tx, ty))
-        tx += 4
+        tx += c
     return best[1]
 
 
-def sweep_tiles_x(nx: int, xo: int, tx: int) -> int:
+def sweep_tiles_x(nx: int, xo: int, tx: int, item: int = 4) -> int:
     """Tiles along x of an ``nx``-wide rect at padded x ``xo``, ``tx``
     wide (``tiles_x`` in ``csrc/sweep_runs.cuh``): tile 0 spans
     ``[0, tx + a)``, tile t ``[t tx + a, (t + 1) tx + a)``, ``a = -xo mod
-    4``."""
-    return max(1, (nx - (-xo % 4) + tx - 1) // tx)
+    C`` (C cells of ``item`` bytes a 16-byte run)."""
+    return max(1, (nx - (-xo % run_cells(item)) + tx - 1) // tx)
 
 
 # The most planes a z chunk of a sweep task takes: at 512^3, one-wave
@@ -484,14 +512,14 @@ class SweepTask(NamedTuple):
     shi: int
 
 
-def sweep_table(tasks, blocks: int) -> Tuple[tuple, int]:
-    """``(rows, tiles)``: the kernel's task table, one row of
-    ``SWEEP_TASK_FIELDS`` a task (its tile shape by :func:`sweep_tile`, its
-    z chunks by :func:`sweep_chunk` over every task, its sel planes
-    rect-relative and clipped, none when empty, the tiles of the rows
-    before it), and the tiles in all."""
-    shapes = [sweep_tile(t.n[2], t.n[1], t.lo[2]) for t in tasks]
-    cols = [sweep_tiles_x(t.n[2], t.lo[2], tx) * -(-t.n[1] // ty)
+def sweep_table(tasks, blocks: int, item: int = 4) -> Tuple[tuple, int]:
+    """``(rows, tiles)``: the kernel's task table for ``item``-byte cells,
+    one row of ``SWEEP_TASK_FIELDS`` a task (its tile shape by
+    :func:`sweep_tile`, its z chunks by :func:`sweep_chunk` over every task,
+    its sel planes rect-relative and clipped, none when empty, the tiles of
+    the rows before it), and the tiles in all."""
+    shapes = [sweep_tile(t.n[2], t.n[1], t.lo[2], item) for t in tasks]
+    cols = [sweep_tiles_x(t.n[2], t.lo[2], tx, item) * -(-t.n[1] // ty)
             for t, (tx, ty) in zip(tasks, shapes)]
     chunk = sweep_chunk([(c * t.count, t.n[0]) for t, c in zip(tasks, cols)], blocks)
     rows, start = [], 0
@@ -510,13 +538,14 @@ def sweep_table(tasks, blocks: int) -> Tuple[tuple, int]:
     return tuple(rows), start
 
 
-def sweep_bytes(spec: GridSpec, rects, sel_range=None, blocks: Optional[int] = None
-                ) -> Tuple[int, int]:
+def sweep_bytes(spec: GridSpec, rects, sel_range=None, blocks: Optional[int] = None,
+                item: int = 4) -> Tuple[int, int]:
     """``(every plane, sel planes)``: the least bytes one sweep of ``rects``
     (allocation-local) of each of ``blocks`` blocks of ``spec`` (default
-    all of its partition's) moves: curr read and out written once a cell,
-    and sel read once a cell on every plane (12 bytes a cell), or only on
-    its sel planes (``sel_range`` as for :func:`sweep_plain`)."""
+    all of its partition's) moves for ``item``-byte cells: curr read and out
+    written once a cell, and the int32 sel read once a cell on every plane
+    (12 bytes a cell in fp32, 20 in fp64), or only on its sel planes
+    (``sel_range`` as for :func:`sweep_plain`)."""
     nb = spec.num_blocks() if blocks is None else blocks
     ranges = _block_ranges(sel_range, nb) or [(0, spec.padded().z)] * nb
     full = ranged = 0
@@ -524,51 +553,61 @@ def sweep_bytes(spec: GridSpec, rects, sel_range=None, blocks: Optional[int] = N
         n = rect.hi - rect.lo
         plane = n.y * n.x
         for lo, hi in ranges:
-            full += 12 * plane * n.z
-            ranged += 8 * plane * n.z + 4 * plane * max(0, min(hi, rect.hi.z) - max(lo, rect.lo.z))
+            full += (2 * item + 4) * plane * n.z
+            ranged += (2 * item * plane * n.z
+                       + 4 * plane * max(0, min(hi, rect.hi.z) - max(lo, rect.lo.z)))
     return full, ranged
 
 
-def sweep_info(index: int) -> dict:
-    """What the sweep kernel reports on CUDA device ``index``: resident
-    blocks per SM, registers and local (spill) bytes per thread, threads and
-    dynamic shared memory per block."""
+def sweep_info(index: int, item: int = 4) -> dict:
+    """What the sweep kernel's instantiation for ``item``-byte cells
+    reports on CUDA device ``index``: resident blocks per SM, registers and
+    local (spill) bytes per thread, threads and dynamic shared memory per
+    block."""
     r = (ctypes.c_int * 5)()
-    _native.check(_native.lib("jacobi_sweep").jacobi_sweep_info(index, r), "jacobi_sweep_info")
+    _native.check(_native.lib("jacobi_sweep").jacobi_sweep_info(index, item, r),
+                  "jacobi_sweep_info")
     return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
 
 
 @functools.lru_cache(maxsize=None)
-def sweep_blocks_in_flight(index: int) -> int:
-    """SMs x resident sweep blocks per SM on CUDA device ``index``."""
-    per_sm = sweep_info(index)["blocks_per_sm"]
+def sweep_blocks_in_flight(index: int, item: int = 4) -> int:
+    """SMs x resident sweep blocks per SM on CUDA device ``index`` for
+    ``item``-byte cells."""
+    per_sm = sweep_info(index, item)["blocks_per_sm"]
     return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm)
 
 
-def _alignment(ts, sz: int) -> int:
-    """The words (4, 2 or 1) every tensor's address and the plane stride
-    ``sz`` are a multiple of."""
-    low = min(t.data_ptr() & -t.data_ptr() for t in ts) // 4
-    for w in (4, 2):
+def _alignment(ts, sz: int, cells: int = 4) -> int:
+    """The cells (``cells``, the cells of a 16-byte run, then halved down
+    to 1) that every tensor's address, counted in its own elements, and the
+    plane stride ``sz`` are a multiple of."""
+    low = min((t.data_ptr() & -t.data_ptr()) // t.element_size() for t in ts)
+    w = cells
+    while w > 1:
         if low % w == 0 and sz % w == 0:
             return w
+        w //= 2
     return 1
 
 
 def _launch_tasks(tasks, tensors, spec: GridSpec, dev) -> None:
     """One launch of ``csrc/jacobi_sweep.cu`` over ``tasks``, whose
-    pointers lie in ``tensors``; every block is a padded block of
-    ``spec``. The table is made once per task list (``_native.kept``)."""
+    pointers lie in ``tensors`` (``tensors[0]``'s type, float32 or float64,
+    picks the instantiation); every block is a padded block of ``spec``. The
+    table is made once per task list (``_native.kept``)."""
     p = spec.padded()
     sz = p.y * p.x
-    blocks = sweep_blocks_in_flight(dev.index)
+    item = tensors[0].element_size()
+    blocks = sweep_blocks_in_flight(dev.index, item)
     tasks = tuple(tasks)
-    rows, tiles = _native.kept(("sweep_rows", tasks, blocks),
-                               lambda: sweep_table(tasks, blocks))
+    rows, tiles = _native.kept(("sweep_rows", tasks, blocks, item),
+                               lambda: sweep_table(tasks, blocks, item))
     table = _native.device_table(("sweep_tasks", rows), lambda: [v for r in rows for v in r], dev)
     rc = _native.lib("jacobi_sweep").jacobi_sweep_launch(
         table.data_ptr(), len(rows), SWEEP_TASK_COLS, tiles, sz, p.x, p.y,
-        _alignment(tensors, sz), min(tiles, blocks), dev.index, _native.stream_ptr(dev))
+        _alignment(tensors, sz, run_cells(item)), item, min(tiles, blocks), dev.index,
+        _native.stream_ptr(dev))
     _native.check(rc, "jacobi_sweep")
 
 
@@ -586,8 +625,9 @@ def _stack_tasks(curr, out, sel, spec: GridSpec, rect: Rect3, wrap, sel_range) -
         slo, shi = ranges[0] if ranges else (0, p.z)
         return [SweepTask(curr.data_ptr(), out.data_ptr(), sel.data_ptr(), bsize, nb, *geo,
                           slo, shi)]
-    return [SweepTask(curr.data_ptr() + 4 * b * bsize, out.data_ptr() + 4 * b * bsize,
-                      sel.data_ptr() + 4 * b * bsize, bsize, 1, *geo, slo, shi)
+    fb, sb = curr.element_size() * bsize, sel.element_size() * bsize
+    return [SweepTask(curr.data_ptr() + b * fb, out.data_ptr() + b * fb, sel.data_ptr() + b * sb,
+                      bsize, 1, *geo, slo, shi)
             for b, (slo, shi) in enumerate(ranges)]
 
 
@@ -764,15 +804,15 @@ def sweep_regions(currs, outs, sels, spec: GridSpec, rects, sel_ranges=None):
 sweep_regions.launches = 0
 
 
-def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int) -> int:
+def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int, item: int = 4) -> int:
     """z chunks per tile column: the count whose launch the device
     finishes soonest, in plane steps (a chunk of c planes takes c + 2k
     steps, its 2k warm-up included), with ``blocks_in_flight`` (the SMs
     times the multistep blocks an SM holds) running at once: every block's
     steps shared evenly over them, plus one block's steps for the last to
     finish; the fewest chunks on a tie. No chunk is shorter than 4k
-    planes."""
-    tx, ty = multistep_shape(k)["tile"]
+    planes. The tiles are those of ``item``-byte cells."""
+    tx, ty = multistep_shape(k, item)["tile"]
     b = spec.base
     tiles = -(-b.x // tx) * -(-b.y // ty) * spec.num_blocks()
     slots = max(1, blocks_in_flight)
@@ -784,25 +824,26 @@ def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int) -> int:
     return min(range(1, max(1, b.z // max(4 * k, 1)) + 1), key=lambda n: (steps(n), n))
 
 
-def multistep_blocks_in_flight(dev: torch.device, k: int) -> int:
-    """SMs x resident multistep blocks per SM at depth ``k`` on ``dev``."""
-    return _blocks_in_flight(dev.index, k)
+def multistep_blocks_in_flight(dev: torch.device, k: int, item: int = 4) -> int:
+    """SMs x resident multistep blocks per SM at depth ``k`` on ``dev`` for
+    ``item``-byte cells."""
+    return _blocks_in_flight(dev.index, k, item)
 
 
-def multistep_info(index: int, k: int, multi_block: bool = False) -> dict:
-    """What the depth-``k`` instantiation (``multi_block``: the deep-halo
-    one) reports on CUDA device ``index``: resident blocks per SM,
-    registers and local (spill) bytes per thread, threads and dynamic
-    shared memory per block."""
+def multistep_info(index: int, k: int, multi_block: bool = False, item: int = 4) -> dict:
+    """What the depth-``k`` instantiation for ``item``-byte cells
+    (``multi_block``: the deep-halo one) reports on CUDA device ``index``:
+    resident blocks per SM, registers and local (spill) bytes per thread,
+    threads and dynamic shared memory per block."""
     r = (ctypes.c_int * 5)()
     _native.check(_native.lib("jacobi_multistep").jacobi_multistep_info(
-        k, int(multi_block), index, r), "jacobi_multistep_info")
+        k, int(multi_block), item, index, r), "jacobi_multistep_info")
     return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_in_flight(index: int, k: int) -> int:
-    per_sm = multistep_info(index, k, multi_block=True)["blocks_per_sm"]
+def _blocks_in_flight(index: int, k: int, item: int) -> int:
+    per_sm = multistep_info(index, k, multi_block=True, item=item)["blocks_per_sm"]
     return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm)
 
 
@@ -824,11 +865,12 @@ def multistep(curr, nxt, spec: GridSpec, k: int):
         return multistep_plain(curr, nxt, spec, k)
     p, off, b, g, d = (spec.padded(), spec.compute_offset(), spec.base, spec.global_size,
                        spec.dim)
+    item = curr.element_size()
     rc = _native.lib("jacobi_multistep").jacobi_multistep_launch(
         curr.data_ptr(), nxt.data_ptr(), p.y * p.x, p.x, p.z * p.y * p.x,
         off.z, off.y, off.x, b.z, b.y, b.x, d.z, d.y, d.x, k, g.x, g.y, g.z,
-        multistep_zchunks(spec, k, multistep_blocks_in_flight(dev, k)), dev.index,
-        _native.stream_ptr(dev))
+        multistep_zchunks(spec, k, multistep_blocks_in_flight(dev, k, item), item), item,
+        dev.index, _native.stream_ptr(dev))
     _native.check(rc, "jacobi_multistep")
     multistep.launches += 1
     return nxt

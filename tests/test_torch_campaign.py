@@ -328,6 +328,37 @@ def test_unported_workloads_raise(tmp_path):
                              str(tmp_path), device="cpu")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_app_ab_builds_first_and_matches_jax(tmp_path, monkeypatch, dtype):
+    """The CLI's A/B with --check-parity (float64 too): the kernel build
+    runs once, before the first timed chunk of either mode, and its seconds
+    are their own field; every tenant's final field, batched and
+    sequential, equals the JAX package's driver on the same jobs."""
+    from stencil_tpu_torch.campaign import driver as tdrv
+
+    events = []
+    monkeypatch.setattr(tapp, "build_kernels", lambda device: events.append("build") or 0.25)
+    real_sync = tdrv.hard_sync
+    monkeypatch.setattr(tdrv, "hard_sync", lambda dev: events.append("chunk") or real_sync(dev))
+    args = tapp.parse_args(["--tenants", "3", "--slot", "2", "--size", "12", "--steps", "4",
+                            "--chunk", "2", "--mode", "ab", "--check-parity", "--dtype", dtype,
+                            "--init-seed", "10", "--device", "cpu"])
+    out = tapp.run_modes(args, str(tmp_path / "t"))
+    assert events[0] == "build" and events.count("build") == 1 and "chunk" in events
+    assert out["build_s"] == 0.25 and out["parity"] == "ok" and out["dtype"] == dtype
+    jb = jcamp.CampaignDriver(jobs_for(jcamp, 3, dtype), 2, str(tmp_path / "j"), chunk=2,
+                              devices=DEV1).run()
+    want = finals(jb)
+    for got in (finals(out["_batched"]), finals(out["_sequential"])):
+        assert set(got) == set(want) == {"t0", "t1", "t2"}
+        for tid in want:
+            assert got[tid].dtype == np.dtype(dtype)
+            assert got[tid].tobytes() == want[tid].tobytes(), tid
+    # on the CPU the real hook builds nothing
+    monkeypatch.undo()
+    assert tapp.build_kernels("cpu") == 0.0
+
+
 def test_app_ab_and_fault_run(tmp_path, capsys):
     """The CLI end to end: the A/B with --check-parity, the fault run that
     evicts t1, and --resume on the same campaign dir."""

@@ -433,3 +433,33 @@ def test_check_chunk_depth_matches_jax(size, part, r, depth):
     assert kernel_supported(tspec, resident) == \
         jpers.persistent_kernel_supported(jspec, jgeo.Dim3(1, 1, 1)) == \
         fused_kernel_supported(jspec, jgeo.Dim3(1, 1, 1))
+
+
+# -- float64 with the fused and persistent variants ---------------------------------------
+
+@pytest.mark.parametrize("devices", [None, ["cpu"] * 8], ids=["one block", "8 positions"])
+@pytest.mark.parametrize("variant", ["fused", "persistent"])
+def test_float64_fused_and_persistent_variants_raise(variant, devices):
+    """The fused step (B8) and the persistent chunk (B9) are float32 kernels,
+    as the JAX package builds them: a float64 field raises
+    NotImplementedError naming the divergence (the JAX package runs such a
+    domain on XLA), through the app and through each kernel wrapper, on the
+    CPU as on the card. The plain remote-dma path takes float64."""
+    kw = dict(iters=4, weak=False, method=tpar.Method.REMOTE_DMA, kernel_variant=variant,
+              dtype="float64", deep_halo=2 if variant == "persistent" else 1)
+    kw.update(dict(devices=devices) if devices else dict(device="cpu"))
+    with pytest.raises(NotImplementedError, match="float64.*diverge.*Design divergences"):
+        tapp.run(16, 16, 16, **kw)
+    kw.pop("kernel_variant")
+    got = tapp.run(16, 16, 16, **kw)
+    assert got["domain"].get_curr_global(got["handle"]).dtype == np.float64
+    tspec, _ = specs((16, 16, 14), (1, 1, 1), 2)
+    f64 = torch.zeros(tspec.stacked_shape_zyx(), dtype=torch.float64)
+    sel = torch.zeros(tspec.stacked_shape_zyx(), dtype=torch.int32)
+    from stencil_tpu_torch.ops import fused_stencil as tfused
+
+    plan = tir.build_plan(tspec, (1, 1, 1), tpar.Method.REMOTE_DMA, fused=True)
+    with pytest.raises(NotImplementedError, match="fused_jacobi: float64"):
+        tfused.fused_jacobi(f64, f64.clone(), sel, tspec, plan)
+    with pytest.raises(NotImplementedError, match="persistent_jacobi: float64"):
+        tpers.persistent_jacobi(f64, f64.clone(), sel, tspec, 2)

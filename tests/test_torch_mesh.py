@@ -74,10 +74,15 @@ def test_domain_scatter_exchange_gather_matches_jax():
     np.testing.assert_array_equal(tdd.get_curr_global(th), g)
 
 
-def test_jacobi_four_steps_match_jax():
-    """16^3 over 8 positions, 4 REMOTE_DMA steps from the uniform start."""
-    (tdd, th), (jdd, jh) = domains()
-    start = np.full((16, 16, 16), INIT_TEMP, np.float32)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_jacobi_four_steps_match_jax(dtype):
+    """16^3 over 8 positions, 4 REMOTE_DMA steps (the exchange and one sweep
+    of every position a step) from the uniform start in float32, from a
+    random field in float64; the JAX domain's mesh is ``grid_mesh`` over its
+    8 CPU devices."""
+    (tdd, th), (jdd, jh) = domains(dtype=dtype)
+    start = (np.full((16, 16, 16), INIT_TEMP, np.float32) if dtype == "float32"
+             else np.random.RandomState(16).rand(16, 16, 16))
     jdd.set_curr_global(jh, start)
     jsel = jpar.exchange.shard_blocks(sphere_sel((16, 16, 16)), jdd.spec, jdd.mesh)
     c = jdd.get_curr(jh)
@@ -88,8 +93,9 @@ def test_jacobi_four_steps_match_jax():
     np.testing.assert_array_equal(mesh_state_to_numpy({"s": sel}, tdd.spec)["s"], np.asarray(jsel))
     loop = tjac.make_jacobi_loop(tdd.halo_exchange, 4)
     tc, _tn = loop(tdd.get_curr(th), tdd.get_next(th), sel)
-    np.testing.assert_array_equal(tpar.unshard_blocks(tc, tdd.spec),
-                                  jpar.exchange.unshard_blocks(c, jdd.spec))
+    got = tpar.unshard_blocks(tc, tdd.spec)
+    assert got.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, jpar.exchange.unshard_blocks(c, jdd.spec))
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
 """The multistep kernel's launch shape, shared-memory budget, z-chunk rule
 and depth planner, mirrored in Python (ops/stencil_kernels.py) and held to
-the kernel source; and the single-block pass's issue floor. CPU only: the
-kernel itself is held to its plain version by chip_smoke.py phases 2 and 7."""
+the kernel source, for fp32 and fp64 cells (16-byte runs of 4 or 2 cells, a
+tile of 256 bytes of cells); and the single-block pass's issue floor. CPU
+only: the kernel itself is held to its plain version by chip_smoke.py
+phases 2, 7 and 13."""
 
 import pathlib
 import re
@@ -21,6 +23,7 @@ SMEM_PER_BLOCK = 232_448
 SMEM_PER_SM = 233_472
 MAX_THREADS = 1024
 KS = range(1, sk.MULTISTEP_KMAX + 1)
+ITEMS = (4, 8)
 
 
 def _const(name):
@@ -28,53 +31,77 @@ def _const(name):
 
 
 def test_constants_mirror_the_kernel_source():
-    assert sk.MULTISTEP_TILE == (_const("TX"), _const("TY"))
+    assert sk.MULTISTEP_TILE == (_const("TX_BYTES") // 4, _const("TY"))
     assert sk.MULTISTEP_TILE_Y_HI == _const("TYHI")
     assert sk.MULTISTEP_KLO == _const("KLO")
     assert sk.MULTISTEP_KMAX == _const("KMAX")
     assert sk.MULTISTEP_LOOK == _const("LOOK")
     assert sk.SMEM_LIMIT == SMEM_PER_BLOCK
+    # the shape's formulas, per cell type (Shape<K, T>)
+    for text in ("C = 16 / (int)sizeof(T)", "TX = TX_BYTES / (int)sizeof(T)",
+                 "TYK = K <= KLO ? TY : TYHI * 4 / (int)sizeof(T)",
+                 "RUNS = (C - 1 + TX + C - 1 + 2 * K + C - 1) / C", "PITCH = C * RUNS",
+                 "SMEM = (long long)sizeof(T) * (PLANES * PLANE + 2 * PITCH)"):
+        assert text in SRC, text
 
 
+@pytest.mark.parametrize("item", ITEMS)
 @pytest.mark.parametrize("k", KS)
-def test_launch_shape(k):
-    """One 4-cell run per thread, a row of runs wide enough for the first
-    tile of a row (up to 3 columns wider) grown by k at any 16-byte phase,
-    threads in whole warps."""
-    sh = sk.multistep_shape(k)
+def test_launch_shape(k, item):
+    """One 16-byte run (C cells) per thread, a row of runs wide enough for
+    the first tile of a row (up to C - 1 columns wider) grown by k at any
+    16-byte phase, threads in whole warps; the fp64 tile is as many bytes
+    wide as the fp32 one, so it has as many runs a row give or take the
+    k cells of its ghost zone."""
+    c = 16 // item
+    sh = sk.multistep_shape(k, item)
     tx, ty = sh["tile"]
-    assert ty == (_const("TY") if k <= _const("KLO") else _const("TYHI"))
+    assert tx * item == _const("TX_BYTES")
+    assert ty == (_const("TY") if k <= _const("KLO") else _const("TYHI") * 4 // item)
     assert sh["rows"] == ty + 2 * k
-    assert 4 * sh["runs"] >= 3 + tx + 3 + 2 * k > 4 * (sh["runs"] - 1)
-    assert sh["pitch"] == 4 * sh["runs"] and sh["pitch"] * 4 % 16 == 0
+    assert c * sh["runs"] >= (c - 1) + tx + (c - 1) + 2 * k > c * (sh["runs"] - 1)
+    assert sh["pitch"] == c * sh["runs"] and sh["pitch"] * item % 16 == 0
     t = sh["threads"]
     assert t % 32 == 0 and sh["rows"] * sh["runs"] <= t < sh["rows"] * sh["runs"] + 32
     assert t <= MAX_THREADS
 
 
+@pytest.mark.parametrize("item", ITEMS)
 @pytest.mark.parametrize("k", KS)
-def test_shared_memory_budget(k):
+def test_shared_memory_budget(k, item):
     """A guard row, the stage-0 ring of LOOK + 2 planes, two planes per
-    intermediate stage and a guard row, within one block's limit."""
-    sh = sk.multistep_shape(k)
+    intermediate stage and a guard row, within one block's limit, in both
+    cell types."""
+    sh = sk.multistep_shape(k, item)
     planes = _const("LOOK") + 2 + 2 * (k - 1)
-    want = 4 * (planes * sh["rows"] * sh["pitch"] + 2 * sh["pitch"])
-    assert sk.multistep_smem_bytes(k) == want <= SMEM_PER_BLOCK
+    want = item * (planes * sh["rows"] * sh["pitch"] + 2 * sh["pitch"])
+    assert sk.multistep_smem_bytes(k, item) == want <= SMEM_PER_BLOCK
     # one block of every depth fits an SM
     assert want + 1024 <= SMEM_PER_SM
+    if item == 8 and k <= sk.MULTISTEP_KLO:
+        # the same bytes as the fp32 tile, give or take the ghost zone's cells
+        f32 = sk.multistep_smem_bytes(k, 4)
+        assert 0.9 * f32 <= want <= 1.2 * f32
+    if item == 8:
+        # at most 512 threads at every depth: the 128-register cap
+        assert sh["threads"] <= (768 if k <= sk.MULTISTEP_KLO else 512)
 
 
-@pytest.mark.parametrize("size,part,k,slots,want", [
-    ((512, 512, 512), (1, 1, 1), 3, 132, 9),   # the main path: 128 tiles
-    ((512, 512, 512), (2, 2, 2), 3, 132, 4),   # resident deep_halo=4: 256 tiles
-    ((128, 128, 128), (1, 1, 1), 3, 132, 10),  # the campaign's 128^3 tenants
-    ((32, 32, 32), (1, 1, 1), 3, 132, 2),      # and its 32^3 tenants
-    ((512, 512, 512), (1, 1, 1), 4, 132, 5),
-    ((32, 32, 32), (1, 1, 1), 6, 132, 1),
+@pytest.mark.parametrize("size,part,k,slots,item,want", [
+    ((512, 512, 512), (1, 1, 1), 3, 132, 4, 9),   # the main path: 128 tiles
+    ((512, 512, 512), (2, 2, 2), 3, 132, 4, 4),   # resident deep_halo=4: 256 tiles
+    ((128, 128, 128), (1, 1, 1), 3, 132, 4, 10),  # the campaign's 128^3 tenants
+    ((32, 32, 32), (1, 1, 1), 3, 132, 4, 2),      # and its 32^3 tenants
+    ((512, 512, 512), (1, 1, 1), 4, 132, 4, 5),
+    ((32, 32, 32), (1, 1, 1), 6, 132, 4, 1),
+    ((512, 512, 512), (1, 1, 1), 3, 132, 8, 8),   # fp64: 256 tiles of 32 x 32
+    ((512, 512, 512), (2, 2, 2), 3, 132, 8, 4),   # fp64 residents: 512 tiles
+    ((128, 128, 128), (1, 1, 1), 3, 132, 8, 10),
+    ((32, 32, 32), (1, 1, 1), 3, 132, 8, 2),
 ])
-def test_zchunks_on_the_layouts(size, part, k, slots, want):
+def test_zchunks_on_the_layouts(size, part, k, slots, item, want):
     spec = GridSpec(Dim3(*size), Dim3(*part), Radius.constant(max(k, 1)))
-    assert sk.multistep_zchunks(spec, k, slots) == want
+    assert sk.multistep_zchunks(spec, k, slots, item) == want
 
 
 @pytest.mark.parametrize("size,part", [((512, 512, 512), (1, 1, 1)),
@@ -85,18 +112,19 @@ def test_zchunks_on_the_layouts(size, part, k, slots, want):
                                        ((130, 70, 40), (1, 1, 1))])
 @pytest.mark.parametrize("k", [1, 3, 6])
 @pytest.mark.parametrize("slots", [1, 132, 264])
-def test_zchunks_rule(size, part, k, slots):
+@pytest.mark.parametrize("item", ITEMS)
+def test_zchunks_rule(size, part, k, slots, item):
     """At least one chunk, none shorter than 4k planes unless there is only
     one, every plane covered once, and no other count finishes sooner by
     the rule's own measure (every block's steps spread over the slots plus
     one block's steps)."""
     spec = GridSpec(Dim3(*size), Dim3(*part), Radius.constant(k))
-    n = sk.multistep_zchunks(spec, k, slots)
+    n = sk.multistep_zchunks(spec, k, slots, item)
     nz = spec.base.z
     assert 1 <= n <= max(1, nz // (4 * k))
     chunk = -(-nz // n)
     assert chunk * n >= nz and chunk * (n - 1) < nz
-    tx, ty = sk.multistep_shape(k)["tile"]
+    tx, ty = sk.multistep_shape(k, item)["tile"]
     tiles = -(-size[0] // part[0] // tx) * -(-size[1] // part[1] // ty) * spec.num_blocks()
 
     def steps(m):

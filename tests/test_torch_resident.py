@@ -319,32 +319,43 @@ def test_z_stack_fill_matches_pallas(axis):
 
 # -- the jacobi step and loop -----------------------------------------------------------
 
-def _jacobi_pair(size, part, r, seed):
+def _jacobi_pair(size, part, r, seed, dtype=np.float32):
     tspec, jspec = specs(size, part, r)
     mesh = one_device(jspec)
     jex = jpar.HaloExchange(jspec, mesh)
     rng = np.random.RandomState(seed)
-    field = rng.rand(*size[::-1]).astype(np.float32)
+    field = rng.rand(*size[::-1]).astype(dtype)
     jsel = jpar.exchange.shard_blocks(jjac.sphere_sel(jgeo.Dim3(*size)), jspec, mesh)
     return tspec, jspec, mesh, jex, field, jsel
 
 
 @pytest.mark.parametrize("overlap", [True, False])
-@pytest.mark.parametrize("size,part,r,iters", [((16, 16, 24), (2, 2, 2), 2, 5),
-                                               ((20, 16, 24), (1, 1, 2), 3, 7)])
-def test_jacobi_loop_matches_jax(size, part, r, iters, overlap):
+@pytest.mark.parametrize("size,part,r,iters,dtype", [
+    ((16, 16, 24), (2, 2, 2), 2, 5, np.float32),
+    ((20, 16, 24), (1, 1, 2), 3, 7, np.float32),
+    ((24, 24, 24), (2, 2, 2), 4, 7, np.float64),   # deep_halo 4: k = 3 passes, a tail step
+    ((16, 16, 24), (2, 2, 2), 1, 4, np.float64),   # deep_halo 1: sweeps and shells
+    ((20, 16, 24), (1, 1, 2), 3, 7, np.float64)])
+def test_jacobi_loop_matches_jax(size, part, r, iters, dtype, overlap):
     """Multistep passes plus a tail with overlap (k = 2 then 1 tail step;
-    k = 3 then 1), sweeps only without; against the JAX XLA path and its
-    interpreted Pallas path (deep-halo multistep included)."""
-    tspec, jspec, mesh, jex, field, jsel = _jacobi_pair(size, part, r, seed=iters)
+    k = 3 then 1), sweeps only without (and at radius 1); against the JAX
+    XLA path and, in float32, its interpreted Pallas path (deep-halo
+    multistep included; the Pallas kernels are float32 only). Float64 runs
+    the same schedule through the kernels' plain versions."""
+    tspec, jspec, mesh, jex, field, jsel = _jacobi_pair(size, part, r, seed=iters, dtype=dtype)
     tex = tpar.HaloExchange(tspec)
     c0 = jpar.exchange.shard_blocks(field, jspec, mesh)
     tstate = state_from_jax({"c": np.asarray(c0), "s": np.asarray(jsel)}, tspec, "cpu")
+    assert tstate["c"].dtype == (torch.float64 if dtype == np.float64 else torch.float32)
     tloop = tjac.make_jacobi_loop(tex, iters, overlap=overlap)
-    assert tloop.temporal_k == ((2 if part == (2, 2, 2) else 3) if overlap else 0)
+    k = min(3, r, iters, (tspec.base.z - 1) // 2) if overlap else 0
+    assert tloop.temporal_k == (k if k >= 2 else 0)
     tc, _ = tloop(tstate["c"], torch.zeros_like(tstate["c"]), tstate["s"])
     got = tpar.unshard_blocks(tc, tspec)
-    for kw in (dict(use_pallas=False), dict(use_pallas=True, interpret=True)):
+    assert got.dtype == dtype
+    kws = [dict(use_pallas=False)] + ([dict(use_pallas=True, interpret=True)]
+                                      if dtype == np.float32 else [])
+    for kw in kws:
         loop = jjac.make_jacobi_loop(jex, iters, overlap=overlap, **kw)
         jc, _ = loop(jpar.exchange.shard_blocks(field, jspec, mesh),
                      jpar.exchange.shard_blocks(np.zeros_like(field), jspec, mesh), jsel)

@@ -4,9 +4,10 @@ source (csrc/sweep_runs.cuh, csrc/jacobi_sweep.cu); the tiles of every task
 cover each output cell of its rect once; and the table, replayed in Python
 as the kernel walks it (tiles, index wrap, sel planes), gives the plain
 versions' cells bit for bit in every form (one block, a resident stack and
-its shells, mesh positions uniform and uneven, tenants). CPU only: the
-kernel itself is held to its plain version by chip_smoke.py. Inputs are
-random numpy fields from a seed; tolerance: bit-exact."""
+its shells, mesh positions uniform and uneven, tenants), in float32 and
+in float64 (16-byte runs of 2 cells, the fp64 instantiation's layout). CPU
+only: the kernel itself is held to its plain version by chip_smoke.py.
+Inputs are random numpy fields from a seed; tolerance: bit-exact."""
 
 import pathlib
 import re
@@ -30,6 +31,8 @@ SWEEP_SRC = (CSRC / "jacobi_sweep.cu").read_text()
 NO_WRAP = (False, False, False)
 # an H100's resident sweep blocks (132 SMs x 2), for the z-chunk rule
 BLOCKS = 264
+# the fields' types the kernel is instantiated for, and their cell bytes
+DTYPES = {np.float32: 4, np.float64: 8}
 
 
 def _const(src, name):
@@ -59,11 +62,14 @@ def test_constants_mirror_the_kernel_source():
     assert SWEEP_SRC.count("<<<") == 1
 
 
-def test_launch_shape():
+@pytest.mark.parametrize("item", [4, 8])
+def test_launch_shape(item):
     """Every tile the rule may pick fits a ring plane and has a thread per
     run; MIN_BLOCKS blocks fit an SM's shared memory and threads, and the
     registers they leave a thread hold the body without spilling (72 on
-    an H100)."""
+    an H100 in fp32). The fp64 instantiation keeps the bytes: a ring plane
+    of half as many cells, 16-byte runs of 2 cells, the same threads and
+    shared memory (``Elem<T>`` in the source)."""
     tx, ty = sk.SWEEP_TILE
     runs = (tx + 11) // 4
     assert sk.SWEEP_PLANE == (ty + 2) * 4 * runs
@@ -72,37 +78,59 @@ def test_launch_shape():
     assert sk.SWEEP_MIN_BLOCKS * (sk.SWEEP_SMEM + 1024) <= 233_472
     assert sk.SWEEP_MIN_BLOCKS * sk.SWEEP_THREADS <= 2048
     assert 65_536 // (sk.SWEEP_MIN_BLOCKS * sk.SWEEP_THREADS) // 8 * 8 >= 72
+    c = sk.run_cells(item)
+    assert c * item == 16 and sk.sweep_plane(item) * item == sk.SWEEP_PLANE * 4
+    assert "PLANE_T = PLANE * 4 / (int)sizeof(T)" in RUNS_SRC
+    assert "C = 16 / (int)sizeof(T)" in RUNS_SRC
+    # the widest grown tile's runs have a thread each, in either type
+    tx = c
+    while sk.sweep_plane(item) // (c * sk.sweep_runs(tx, item)) - 2 >= 1:
+        rows = sk.sweep_plane(item) // (c * sk.sweep_runs(tx, item))
+        assert rows * sk.sweep_runs(tx, item) <= sk.SWEEP_THREADS
+        tx += c
+    # the kernel's pitch for a task's tile is the wrapper's runs of C cells
+    assert "f.pitch = E::C * (((int)k.tx + 3 * E::C - 1) >> E::SHIFT);" in SWEEP_SRC
+    assert sk.sweep_runs(128, 4) == (128 + 11) // 4 and sk.sweep_runs(64, 8) == 34
 
 
-def _tiles_of(nx, ny, xo):
-    """Every candidate (count, tx, ty) of the tile rule."""
-    out, tx = [], 4
+def _tiles_of(nx, ny, xo, item=4):
+    """Every candidate (count, tx, ty) of the tile rule: widths of whole
+    16-byte runs (C cells) whose grown tile's runs of C cells fill at most
+    a ring plane of the fp32 plane's bytes."""
+    c = 16 // item
+    plane = sk.SWEEP_PLANE * 4 // item
+    out, tx = [], c
     while True:
-        runs = (tx + 11) // 4
-        ty = sk.SWEEP_PLANE // (4 * runs) - 2
+        runs = (tx + 3 * c - 1) // c
+        ty = plane // (c * runs) - 2
         if ty < 1:
             return out
-        out.append((sk.sweep_tiles_x(nx, xo, tx) * -(-ny // ty), tx, ty))
-        tx += 4
+        out.append((sk.sweep_tiles_x(nx, xo, tx, item) * -(-ny // ty), tx, ty))
+        tx += c
 
 
-@pytest.mark.parametrize("nx,ny,xo,want", [
-    (512, 512, 0, (128, 8)), (512, 512, 1, (128, 8)), (256, 256, 1, (128, 8)),
-    (171, 256, 1, (56, 19)), (170, 256, 1, (56, 19)), (32, 32, 1, (32, 32)),
-    (128, 128, 1, (128, 8)), (1, 256, 1, (4, 111)), (256, 1, 1, (256, 3)),
-    (4, 256, 4, (4, 111)), (67, 45, 1, (72, 15))])
-def test_tile_rule(nx, ny, xo, want):
-    """The fewest tiles a plane; on a tie the widest up to 128, else the
-    narrowest; the grown tile fits a ring plane."""
-    tx, ty = sk.sweep_tile(nx, ny, xo)
+@pytest.mark.parametrize("nx,ny,xo,item,want", [
+    (512, 512, 0, 4, (128, 8)), (512, 512, 1, 4, (128, 8)), (256, 256, 1, 4, (128, 8)),
+    (171, 256, 1, 4, (56, 19)), (170, 256, 1, 4, (56, 19)), (32, 32, 1, 4, (32, 32)),
+    (128, 128, 1, 4, (128, 8)), (1, 256, 1, 4, (4, 111)), (256, 1, 1, 4, (256, 3)),
+    (4, 256, 4, 4, (4, 111)), (67, 45, 1, 4, (72, 15)),
+    (512, 512, 0, 8, (64, 8)), (512, 512, 1, 8, (64, 8)), (256, 256, 1, 8, (64, 8)),
+    (171, 256, 1, 8, (44, 12)), (32, 32, 1, 8, (32, 16)), (128, 128, 1, 8, (64, 8)),
+    (1, 256, 1, 8, (2, 111)), (256, 1, 1, 8, (128, 3)), (67, 45, 1, 8, (36, 15))])
+def test_tile_rule(nx, ny, xo, item, want):
+    """The fewest tiles a plane; on a tie the widest up to 128 fp32 cells
+    (64 fp64 cells: the same bytes), else the narrowest; the grown tile fits
+    a ring plane."""
+    c = 16 // item
+    tx, ty = sk.sweep_tile(nx, ny, xo, item)
     assert (tx, ty) == want
-    runs = (tx + 11) // 4
-    assert tx % 4 == 0 and ty >= 1 and (ty + 2) * 4 * runs <= sk.SWEEP_PLANE
-    cands = _tiles_of(nx, ny, xo)
-    least = min(c for c, _, _ in cands)
-    assert sk.sweep_tiles_x(nx, xo, tx) * -(-ny // ty) == least
-    ties = [t for c, t, _ in cands if c == least]
-    small = [t for t in ties if t <= 128]
+    runs = (tx + 3 * c - 1) // c
+    assert tx % c == 0 and ty >= 1 and (ty + 2) * c * runs <= sk.SWEEP_PLANE * 4 // item
+    cands = _tiles_of(nx, ny, xo, item)
+    least = min(n for n, _, _ in cands)
+    assert sk.sweep_tiles_x(nx, xo, tx, item) * -(-ny // ty) == least
+    ties = [t for n, t, _ in cands if n == least]
+    small = [t for t in ties if t <= 512 // item]
     assert tx == (max(small) if small else min(ties))
 
 
@@ -137,10 +165,10 @@ def _row(rows, i):
     return dict(zip(sk.SWEEP_TASK_FIELDS, rows[i]))
 
 
-def _tile_cells(t, i, j, k):
+def _tile_cells(t, i, j, k, item=4):
     """The (x, y, z) ranges, rect-relative, of tile (i, j, k) of task row t,
-    as sweep_runs.cuh's flex_tile lays them out."""
-    a = -t["xo"] % 4
+    as sweep_runs.cuh's flex_tile lays them out for ``item``-byte cells."""
+    a = -t["xo"] % (16 // item)
     x0 = 0 if i == 0 else i * t["tx"] + a
     x1 = min(t["nx"], (i + 1) * t["tx"] + a)
     y0 = j * t["ty"]
@@ -154,6 +182,7 @@ def _task(lo, n, wrap=(True, True, True), count=1):
     return sk.SweepTask(0, 0, 0, 0, count, lo, n, wrap, 0, 1 << 20)
 
 
+@pytest.mark.parametrize("item", [4, 8])
 @pytest.mark.parametrize("label,lo,n", [
     ("512 tight-x wrap", (1, 8, 0), (512, 512, 512)),
     ("512 r1", (1, 8, 1), (512, 512, 512)),
@@ -164,29 +193,31 @@ def _task(lo, n, wrap=(True, True, True), count=1):
     ("1-cell z shell", (512, 8, 1), (1, 256, 171)),
     ("tenant pitch 34", (1, 1, 1), (32, 32, 32)),
     ("tenant pitch 130", (1, 1, 1), (128, 128, 128))])
-def test_tiles_cover_each_output_cell_once(label, lo, n):
+def test_tiles_cover_each_output_cell_once(label, lo, n, item):
     """Per axis the tiles partition the rect (so the product covers each
     cell once); every tile after the first of a row starts on the padded
     row's 16-byte grid; the grown tile fits its row of runs and the last
-    run holds no output; the walk's tile count is the table's."""
-    rows, tiles = sk.sweep_table([_task(lo, n)], BLOCKS)
+    run holds no output; the walk's tile count is the table's. In either
+    cell type (C cells a 16-byte run)."""
+    c = 16 // item
+    rows, tiles = sk.sweep_table([_task(lo, n)], BLOCKS, item)
     t = _row(rows, 0)
     assert t["start"] == 0 and tiles == t["gx"] * t["gy"] * t["nzc"] * t["count"]
-    runs = (t["tx"] + 11) // 4
+    runs = (t["tx"] + 3 * c - 1) // c
     xs, ys, zs = [], [], []
     for i in range(t["gx"]):
-        (x0, x1), _, _ = _tile_cells(t, i, 0, 0)
+        (x0, x1), _, _ = _tile_cells(t, i, 0, 0, item)
         assert x1 > x0
         if i:
-            assert (t["xo"] + x0) % 4 == 0
-        e = (t["xo"] + x0 - 1) % 4
-        assert e + (x1 - x0) + 2 <= 4 * runs and e + (x1 - x0) < 4 * (runs - 1)
+            assert (t["xo"] + x0) % c == 0
+        e = (t["xo"] + x0 - 1) % c
+        assert e + (x1 - x0) + 2 <= c * runs and e + (x1 - x0) < c * (runs - 1)
         xs += range(x0, x1)
     for j in range(t["gy"]):
-        _, (y0, y1), _ = _tile_cells(t, 0, j, 0)
+        _, (y0, y1), _ = _tile_cells(t, 0, j, 0, item)
         ys += range(y0, y1)
     for k in range(t["nzc"]):
-        _, _, (z0, z1) = _tile_cells(t, 0, 0, k)
+        _, _, (z0, z1) = _tile_cells(t, 0, 0, k, item)
         zs += range(z0, z1)
     assert xs == list(range(n[2])) and ys == list(range(n[1])) and zs == list(range(n[0]))
 
@@ -205,7 +236,7 @@ class FakeSweepCard:
         self.tensors = list(tensors)
         self.tables, self.launches, self.writes = {}, [], {}
         monkeypatch.setattr(sk, "_device_of", lambda *a: self)
-        monkeypatch.setattr(sk, "sweep_blocks_in_flight", lambda index: BLOCKS)
+        monkeypatch.setattr(sk, "sweep_blocks_in_flight", lambda index, item=4: BLOCKS)
         monkeypatch.setattr(sk._native, "device_table", self.device_table)
         monkeypatch.setattr(sk._native, "stream_ptr", lambda dev: 0)
         monkeypatch.setattr(sk._native, "lib", lambda name: self)
@@ -220,13 +251,16 @@ class FakeSweepCard:
     def block(self, ptr, pz, py, px, item=4):
         for t in self.tensors:
             base = t.data_ptr()
-            if base <= ptr < base + t.numel() * item:
+            if t.element_size() == item and base <= ptr < base + t.numel() * item:
                 off = (ptr - base) // item
                 return t.view(-1)[off:off + pz * py * px].view(pz, py, px)
         raise AssertionError(f"pointer {ptr} in no tensor")
 
-    def jacobi_sweep_launch(self, table, ntask, cols, tiles, sz, sy, py, align, grid, dev, stream):
+    def jacobi_sweep_launch(self, table, ntask, cols, tiles, sz, sy, py, align, item, grid, dev,
+                            stream):
         assert cols == sk.SWEEP_TASK_COLS and 1 <= grid <= min(tiles, BLOCKS)
+        assert item in (4, 8) and align in (1, 2, 4) and align <= 16 // item
+        self.item = item
         flat = self.tables[table]
         rows = [flat[i * cols:(i + 1) * cols] for i in range(ntask)]
         assert len(flat) == ntask * cols
@@ -240,18 +274,18 @@ class FakeSweepCard:
             per = t["gx"] * t["gy"] * t["nzc"]
             r, u = divmod(w - t["start"], per)
             assert r < t["count"]
-            off = r * t["stride"] * 4
-            self.tile(t, off, sz, sy, py, u % t["gx"], u // t["gx"] % t["gy"],
+            self.tile(t, r * t["stride"], sz, sy, py, u % t["gx"], u // t["gx"] % t["gy"],
                       u // (t["gx"] * t["gy"]))
         self.launches.append((ntask, tiles, align))
         return 0
 
     def tile(self, t, off, sz, sy, py, i, j, k):
-        pz = self.pz
-        curr = self.block(t["curr"] + off, pz, py, sy)
-        out = self.block(t["out"] + off, pz, py, sy)
-        sel = self.block(t["sel"] + off, pz, py, sy, 4)
-        (x0, x1), (y0, y1), (z0, z1) = _tile_cells(t, i, j, k)
+        pz, item = self.pz, self.item
+        curr = self.block(t["curr"] + off * item, pz, py, sy, item)
+        out = self.block(t["out"] + off * item, pz, py, sy, item)
+        sel = self.block(t["sel"] + off * 4, pz, py, sy, 4)
+        assert curr.element_size() == item and sel.dtype == torch.int32
+        (x0, x1), (y0, y1), (z0, z1) = _tile_cells(t, i, j, k, item)
         if x1 <= x0 or y1 <= y0 or z1 <= z0:
             return
         wx, wy, wz = t["wrap"] & 1, t["wrap"] & 2, t["wrap"] & 4
@@ -269,7 +303,7 @@ class FakeSweepCard:
         s = at(0, 0, -1) + at(0, 0, 1)
         for d in ((0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0)):
             s = s + at(*d)
-        avg = s * sk.SIXTH
+        avg = s * sk.sixth(curr.dtype)
         zs = slice(t["zo"] + z0, t["zo"] + z1)
         ys = slice(t["yo"] + y0, t["yo"] + y1)
         xs = slice(t["xo"] + x0, t["xo"] + x1)
@@ -300,20 +334,21 @@ def _rsel(rng, shape):
 ONE = Dim3(1, 1, 1)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("size,radius,wrap", [
     ((36, 20, 12), Radius.constant(1).without_x(), (True, True, True)),
     ((33, 21, 13), Radius.constant(2), (False, True, False)),
     ((67, 45, 29), Radius.constant(1), (True, True, True)),
     ((20, 9, 7), Radius.constant(1), (True, False, True))])
 @pytest.mark.parametrize("ranged", [False, True])
-def test_replay_one_block(monkeypatch, size, radius, wrap, ranged):
+def test_replay_one_block(monkeypatch, size, radius, wrap, ranged, dtype):
     """One block, random fields and halos, random sel codes in [-1, 4):
     the replayed table equals sweep_plain (with the same sel planes), and
     writes each compute cell once."""
     spec = GridSpec(Dim3(*size), ONE, radius)
     p = spec.padded()
     rng = np.random.RandomState(sum(size))
-    c, s = _rand(rng, (1, 1, 1, p.z, p.y, p.x)), _rsel(rng, (1, 1, 1, p.z, p.y, p.x))
+    c, s = _rand(rng, (1, 1, 1, p.z, p.y, p.x), dtype), _rsel(rng, (1, 1, 1, p.z, p.y, p.x))
     rg = (spec.compute_offset().z + 2, spec.compute_offset().z + 5) if ranged else None
     want = sk.sweep_plain(c, torch.zeros_like(c), s, spec, wrap, rg)
     got = torch.zeros_like(c)
@@ -327,8 +362,9 @@ def test_replay_one_block(monkeypatch, size, radius, wrap, ranged):
     assert len(card.launches) == 1
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("n,B", [(32, 2), (12, 3), (4, 5)])
-def test_replay_tenants(monkeypatch, n, B):
+def test_replay_tenants(monkeypatch, n, B, dtype):
     """A campaign slot of unaligned tenants (pitch n + 2): one task of B
     blocks, every axis wrapping onto the tenant; with random sel read on
     every plane, and with the spheres read on their planes."""
@@ -336,7 +372,7 @@ def test_replay_tenants(monkeypatch, n, B):
     p = spec.padded()
     assert p.x == n + 2
     rng = np.random.RandomState(n)
-    c, s = _rand(rng, (B, p.z, p.y, p.x)), _rsel(rng, (B, p.z, p.y, p.x))
+    c, s = _rand(rng, (B, p.z, p.y, p.x), dtype), _rsel(rng, (B, p.z, p.y, p.x))
     sph = tjac.sphere_sel_blocks(spec, "cpu").view(1, p.z, p.y, p.x).expand(B, -1, -1, -1)
     sph = sph.contiguous()
     for sel, rg in ((s, None), (sph, sk.sel_z_range(spec))):
@@ -348,22 +384,23 @@ def test_replay_tenants(monkeypatch, n, B):
         assert card.launches[0][0] == 1  # one task row for every tenant
 
 
-def _stack_case(global_size, part, r, seed):
+def _stack_case(global_size, part, r, seed, dtype=np.float32):
     spec = GridSpec(Dim3(*global_size), Dim3(*part), Radius.constant(r))
     rng = np.random.RandomState(seed)
     shape = spec.stacked_shape_zyx()
-    return spec, _rand(rng, shape), tjac.sphere_sel_blocks(spec, "cpu"), _rsel(rng, shape)
+    return spec, _rand(rng, shape, dtype), tjac.sphere_sel_blocks(spec, "cpu"), _rsel(rng, shape)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("global_size,part", [((32, 24, 20), (2, 2, 2)),
                                               ((24, 20, 32), (1, 1, 2))])
-def test_replay_stack_and_shells(monkeypatch, global_size, part):
+def test_replay_stack_and_shells(monkeypatch, global_size, part, dtype):
     """A resident stack at radius 4: the stacked sweep (wrap on the
     single-block axes) and every overlap shell of every block in one
     launch, each block's sel on its own sphere planes, equal the plain
     sweep and region sweeps (ops.jacobi.jacobi_sweep) bit for bit; with
     random sel on every plane too."""
-    spec, c, sph, rs = _stack_case(global_size, part, 4, seed=sum(global_size))
+    spec, c, sph, rs = _stack_case(global_size, part, 4, seed=sum(global_size), dtype=dtype)
     wrap, _axes, shells = tjac.multi_block_layout(spec)
     off = spec.compute_offset()
     for sel, ranges in ((sph, sk.block_sel_ranges(spec)), (rs, None)):
@@ -381,13 +418,13 @@ def test_replay_stack_and_shells(monkeypatch, global_size, part):
     assert off.z == 4
 
 
-def _mesh_case(global_size, part, seed):
+def _mesh_case(global_size, part, seed, dtype=np.float32):
     spec = GridSpec(Dim3(*global_size), Dim3(*part), Radius.constant(1))
     mesh = DeviceMesh(part, ["cpu"] * (part[0] * part[1] * part[2]))
     bspec = spec.block_spec()
     p = bspec.padded()
     rng = np.random.RandomState(seed)
-    currs = [_rand(rng, (1, 1, 1, p.z, p.y, p.x)) for _ in range(len(mesh))]
+    currs = [_rand(rng, (1, 1, 1, p.z, p.y, p.x), dtype) for _ in range(len(mesh))]
     sels = tjac.sphere_sel_blocks(spec, mesh)
     ranges = [sk.block_sel_range(spec, Dim3.of(pos).z) for pos in mesh.positions()]
     shells = [shell_regions(spec, dyn_block_sizes(spec, pos), (True, True, True))
@@ -395,16 +432,17 @@ def _mesh_case(global_size, part, seed):
     return spec, bspec, mesh, currs, sels, ranges, shells
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("global_size,part", [((32, 32, 32), (2, 2, 2)),
                                               ((20, 16, 12), (3, 2, 1)),
                                               ((22, 18, 10), (3, 2, 1))])
-def test_replay_positions_and_shells(monkeypatch, global_size, part):
+def test_replay_positions_and_shells(monkeypatch, global_size, part, dtype):
     """Every position of a mesh, uniform (8 positions) and uneven (6,
     (3,2,1)): one sweep_positions launch equals sweep_plain per position,
     and one sweep_regions launch of every position's six shells (at its
     own size on the hi side) equals the region sweeps, bit for bit."""
     spec, bspec, mesh, currs, sels, ranges, shells = _mesh_case(global_size, part,
-                                                                sum(global_size))
+                                                                sum(global_size), dtype)
     pz = bspec.padded().z
     nxts = [torch.zeros_like(c) for c in currs]
     card = _card(monkeypatch, [*currs, *nxts, *sels], pz)
@@ -424,15 +462,16 @@ def test_replay_positions_and_shells(monkeypatch, global_size, part):
     assert card.launches[1][0] == sum(len(r) for r in shells)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("part,fused", [((2, 2, 2), False), ((3, 2, 1), False),
                                         ((3, 2, 1), True)])
-def test_the_loops_launch_once_a_step(monkeypatch, part, fused):
+def test_the_loops_launch_once_a_step(monkeypatch, part, fused, dtype):
     """The plain mesh step is one sweep_positions launch a step, uniform or
     uneven; the uneven fused step one sweep_positions and one sweep_regions
     launch a step; the replayed loop gives the CPU loop's cells."""
     from stencil_tpu_torch.parallel import HaloExchange, Method
 
-    spec, bspec, mesh, currs, sels, _r, _s = _mesh_case((16, 16, 16), part, 5)
+    spec, bspec, mesh, currs, sels, _r, _s = _mesh_case((16, 16, 16), part, 5, dtype)
     ex = HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, fused=fused)
     nxts = [torch.zeros_like(c) for c in currs]
     want, _ = tjac.make_jacobi_loop(ex, 3)([c.clone() for c in currs],
@@ -480,27 +519,29 @@ def _cover_by_formula(spec, lo, hi):
             assert (blo, bhi) == (min(want), max(want) + 1) and lo <= blo and bhi <= hi
 
 
-def _run_layout(t, sy, yoff, align, i, rn):
+def _run_layout(t, sy, yoff, align, i, rn, item=4):
     """A Python copy of flex_tile's per-run choice (csrc/sweep_runs.cuh) for
     run rn of a row at plane offset yoff in x tile i of task row t: the
-    padded x each of its 4 ring cells is copied from, and how (16, 8 or 4
-    bytes a copy, and a patched cell)."""
-    a = -t["xo"] % 4
+    padded x each of its C ring cells is copied from, and how (16, 8 or 4
+    bytes a copy, and a patched cell; an fp64 run copies 16 bytes or a
+    cell at a time, and patches nothing)."""
+    c = 16 // item
+    a = -t["xo"] % c
     x0 = 0 if i == 0 else i * t["tx"] + a
     w = min(t["nx"], (i + 1) * t["tx"] + a) - x0
-    e = (t["xo"] + x0 - 1) % 4
-    if not (4 * rn + 3 >= e and 4 * rn <= e + w + 1):
+    e = (t["xo"] + x0 - 1) % c
+    if not (c * rn + c - 1 >= e and c * rn <= e + w + 1):
         return None  # no cell of the grown tile: copies nothing
-    lx0 = x0 - 1 - e + 4 * rn
+    lx0 = x0 - 1 - e + c * rn
     wx = t["wrap"] & 1
     xq = [t["xo"] + ((lx0 + q) % t["nx"]) if wx else min(max(t["xo"] + lx0 + q, 0), sy - 1)
-          for q in range(4)]
-    run4 = xq == [xq[0] + q for q in range(4)]
-    ph = (yoff + xq[0]) % 4
-    vcp = run4 and align == 4 and ph == 0
-    v8 = run4 and not vcp and align >= 2 and ph % 2 == 0
+          for q in range(c)]
+    run4 = xq == [xq[0] + q for q in range(c)]
+    ph = (yoff + xq[0]) % c
+    vcp = run4 and align == c and ph == 0
+    v8 = c == 4 and run4 and not vcp and align >= 2 and ph % 2 == 0
     patch = None
-    if wx and t["gx"] > 1 and not vcp and not v8:
+    if c == 4 and wx and t["gx"] > 1 and not vcp and not v8:
         u0 = t["xo"] + lx0
         cells = [(q, t["xo"] + t["nx"] - 1 if lx0 + q == -1 else t["xo"])
                  for q in range(4) if lx0 + q in (-1, t["nx"])]
@@ -512,47 +553,52 @@ def _run_layout(t, sy, yoff, align, i, rn):
     src = list(xq)
     if patch:
         src[patch[0]] = patch[1]
-    return lx0, src, ("16" if vcp else "8" if v8 else "4"), patch, xq
+    return lx0, src, ("16" if vcp else "8" if v8 else str(item)), patch, xq
 
 
-@pytest.mark.parametrize("nx,xo,sy,align", [
-    (512, 1, 640, 4), (512, 0, 512, 4), (512, 2, 640, 4), (512, 3, 640, 4), (512, 4, 640, 4),
-    (128, 1, 130, 4), (32, 1, 34, 4), (128, 1, 130, 2), (67, 1, 128, 4), (171, 1, 514, 4),
-    (170, 1, 514, 2), (33, 2, 37, 1), (2, 1, 4, 4), (4, 1, 6, 4), (5, 3, 11, 1)])
-def test_runs_copy_the_cells_the_sweep_reads(nx, xo, sy, align):
+@pytest.mark.parametrize("nx,xo,sy,align,item", [
+    (512, 1, 640, 4, 4), (512, 0, 512, 4, 4), (512, 2, 640, 4, 4), (512, 3, 640, 4, 4),
+    (512, 4, 640, 4, 4), (128, 1, 130, 4, 4), (32, 1, 34, 4, 4), (128, 1, 130, 2, 4),
+    (67, 1, 128, 4, 4), (171, 1, 514, 4, 4), (170, 1, 514, 2, 4), (33, 2, 37, 1, 4),
+    (2, 1, 4, 4, 4), (4, 1, 6, 4, 4), (5, 3, 11, 1, 4),
+    (512, 1, 640, 2, 8), (512, 0, 512, 2, 8), (512, 2, 640, 2, 8), (128, 1, 130, 2, 8),
+    (32, 1, 34, 2, 8), (67, 1, 128, 2, 8), (171, 1, 514, 2, 8), (33, 2, 37, 1, 8),
+    (2, 1, 4, 2, 8), (5, 3, 11, 1, 8)])
+def test_runs_copy_the_cells_the_sweep_reads(nx, xo, sy, align, item):
     """Every run of every x tile of an x-wrapping rect, on rows of both
     parities of the padded pitch: the cells it leaves in the ring, for x
     in [-1, nx] (what any output reads), are the periodic images; a vector
     copy lies on its grid and inside the padded row; a patched run has one
     wrapped cell and copies the rest from its own padded cells; a run
-    falls back to 4-byte copies only where the layout or a tiny row
-    leaves no vector."""
-    tx, ty = sk.sweep_tile(nx, 8, xo)
+    falls back to copies of a cell only where the layout or a tiny row
+    leaves no vector. In fp32 and fp64 (runs of 2 cells, no patch)."""
+    c = 16 // item
+    tx, ty = sk.sweep_tile(nx, 8, xo, item)
     rows, _ = sk.sweep_table([sk.SweepTask(0, 0, 0, 0, 1, (1, 1, xo), (8, 8, nx), (True,) * 3,
-                                           0, 0)], BLOCKS)
+                                           0, 0)], BLOCKS, item)
     t = _row(rows, 0)
     kinds = set()
     for yoff in (sy, 2 * sy):
         for i in range(t["gx"]):
             sides = []  # a row's patched cells: at most one at each end (its patch cells)
-            for rn in range((tx + 11) // 4):
-                run = _run_layout(t, sy, yoff, align, i, rn)
+            for rn in range(sk.sweep_runs(tx, item)):
+                run = _run_layout(t, sy, yoff, align, i, rn, item)
                 if run is None:
                     continue
                 lx0, src, kind, patch, xq = run
                 kinds.add(kind)
-                for q in range(4):
+                for q in range(c):
                     x = lx0 + q
                     if -1 <= x <= nx:
                         assert src[q] == xo + x % nx, (i, rn, q)
-                if kind != "4":
-                    w = int(kind) // 4
-                    assert (yoff + xq[0]) % w == 0 and 0 <= xq[0] and xq[3] < sy
+                if kind != str(item):
+                    w = int(kind) // item
+                    assert (yoff + xq[0]) % w == 0 and 0 <= xq[0] and xq[c - 1] < sy
                 if patch:
-                    assert sum(1 for q in range(4) if lx0 + q in (-1, nx)) == 1
+                    assert sum(1 for q in range(c) if lx0 + q in (-1, nx)) == 1
                     sides.append(lx0 + patch[0] == nx)
             assert sorted(sides) == sorted(set(sides))
-    if align == 4 and sy % 4 == 0 and nx > 2 and t["gx"] > 1:
+    if item == 4 and align == 4 and sy % 4 == 0 and nx > 2 and t["gx"] > 1:
         assert kinds <= {"16"}
     if nx <= 2:
-        assert "4" in kinds
+        assert str(item) in kinds

@@ -426,27 +426,28 @@ def test_resident_uneven_across_the_resident_axis():
 
 # -- the jacobi loops -------------------------------------------------------------------
 
-def start_fields(jspec, size, jmesh, seed):
+def start_fields(jspec, size, jmesh, seed, dtype=F32):
     rng = np.random.RandomState(seed)
     shape = jspec.stacked_shape_zyx()
     sel = np.asarray(jpar.exchange.shard_blocks(jjac.sphere_sel(jgeo.Dim3(*size)), jspec, jmesh))
-    return {"c": rng.rand(*shape).astype(F32), "n": rng.rand(*shape).astype(F32), "s": sel}
+    return {"c": rng.rand(*shape).astype(dtype), "n": rng.rand(*shape).astype(dtype), "s": sel}
 
 
+@pytest.mark.parametrize("dtype", [F32, F64])
 @pytest.mark.parametrize("overlap", [True, False])
 @pytest.mark.parametrize("size,dim,r,iters", [((19, 15, 10), (2, 2, 2), 1, 3),
                                               ((19, 18, 16), (2, 2, 2), 2, 4),
                                               ((13, 11, 9), (3, 2, 1), 1, 3)],
                          ids=["222-r1", "x-uneven-r2", "321-r1"])
-def test_resident_uneven_jacobi_matches_jax(size, dim, r, iters, overlap):
+def test_resident_uneven_jacobi_matches_jax(size, dim, r, iters, overlap, dtype):
     """Resident AXIS_COMPOSED over an uneven partition
     (tests/test_jacobi.py:55, :736): no multistep (``temporal_k`` 0), the
     serialized exchange-then-sweep step; both buffers, every cell, against
-    the JAX package's XLA loop on one device."""
+    the JAX package's XLA loop on one device, in float32 and float64."""
     tspec, jspec = specs(size, dim, r)
     mesh = one_device()
     jex = jpar.HaloExchange(jspec, mesh)
-    arrs = start_fields(jspec, size, mesh, iters)
+    arrs = start_fields(jspec, size, mesh, iters, dtype)
     js = {k: jax.device_put(v, jex.sharding()) for k, v in arrs.items()}
     jc, jn = jjac.make_jacobi_loop(jex, iters, overlap=overlap)(js["c"], js["n"], js["s"])
     tloop = tjac.make_jacobi_loop(tpar.HaloExchange(tspec), iters, overlap=overlap)
@@ -464,10 +465,10 @@ def test_resident_uneven_jacobi_matches_jax(size, dim, r, iters, overlap):
     np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur))
 
 
-def mesh_loops(size, dim, r, iters, seed, **kw):
+def mesh_loops(size, dim, r, iters, seed, dtype=F32, **kw):
     tspec, jspec = specs(size, dim, r)
     tmesh, jmesh = meshes(dim)
-    arrs = start_fields(jspec, size, jmesh, seed)
+    arrs = start_fields(jspec, size, jmesh, seed, dtype)
     jex = jpar.HaloExchange(jspec, jmesh, RDMA_J, **kw)
     js = {k: jax.device_put(v, NamedSharding(jmesh, BLOCK_PSPEC)) for k, v in arrs.items()}
     jc, jn = jjac.make_jacobi_loop(jex, iters)(js["c"], js["n"], js["s"])
@@ -485,19 +486,23 @@ MESH_JACOBI = [((19, 15, 10), (2, 2, 2), 1), ((13, 11, 9), (3, 2, 1), 1),
 MESH_IDS = ["222-r1", "321-r1", "511-r1", "222-r2"]
 
 
+@pytest.mark.parametrize("dtype", [F32, F64])
 @pytest.mark.parametrize("size,dim,r", MESH_JACOBI, ids=MESH_IDS)
-def test_mesh_plain_uneven_jacobi_matches_jax(size, dim, r):
+def test_mesh_plain_uneven_jacobi_matches_jax(size, dim, r, dtype):
     """Plain remote-dma over an uneven mesh: 3 steps of the exchange (B6's
-    uneven ring, B4) and one sweep per position; both buffers, every cell."""
-    got, want, tspec, _js, _tex = mesh_loops(size, dim, r, 3, 21)
+    uneven ring, B4) and one sweep per position; both buffers, every cell,
+    in float32 and float64."""
+    got, want, tspec, _js, _tex = mesh_loops(size, dim, r, 3, 21, dtype)
     assert not tspec.is_uniform()
     for key in ("c", "n"):
+        assert got[key].dtype == dtype
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
-@pytest.mark.parametrize("wire", [None, "bfloat16"])
+@pytest.mark.parametrize("dtype,wire", [(F32, None), (F32, "bfloat16"), (F64, None),
+                                        (F64, "float32")])
 @pytest.mark.parametrize("size,dim,r", MESH_JACOBI, ids=MESH_IDS)
-def test_mesh_fused_uneven_jacobi_matches_jax(size, dim, r, wire):
+def test_mesh_fused_uneven_jacobi_matches_jax(size, dim, r, dtype, wire):
     """Fused remote-dma over an uneven mesh (tests/test_fused_stencil.py:176,
     :182): the host-orchestrated schedule (pre-exchange sweeps, the mesh
     exchange, every side's shell); 3 steps, bf16 on the wire too. The
@@ -508,7 +513,8 @@ def test_mesh_fused_uneven_jacobi_matches_jax(size, dim, r, wire):
     7-point stencil reads, hold the full-base sweep's dead cells: the axis
     carrier fills pad cells the fused messages leave, and a smaller block's
     dead cells sit where its edge halos are."""
-    got, want, tspec, jspec, tex = mesh_loops(size, dim, r, 3, 23, fused=True, wire_dtype=wire)
+    got, want, tspec, jspec, tex = mesh_loops(size, dim, r, 3, 23, dtype, fused=True,
+                                              wire_dtype=wire)
     assert isinstance(tex._remote, remote_dma.RemoteDmaExchange)
     for key in ("c", "n"):
         np.testing.assert_array_equal(jpar.exchange.unshard_blocks(jnp.asarray(got[key]), jspec),
