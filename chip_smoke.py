@@ -292,6 +292,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               campaign CLI's A/B --dtype float64 --check-parity at 64
               tenants of 128^3 and of 32^3 (its kernel build reported
               outside the timed spans), launch counts reset around each.
+14. astaroth-resident -- Astaroth over resident blocks
+              (astaroth_resident_phase, rehearsable on the CPU at small
+              sizes with a stand-in timer): the substep kernel's table form
+              (substep_tasks) against its plain version with torch.equal in
+              fp64 and fp32, stages 0-2, over every block of stacks ragged
+              against its 32x4 tile (40x24x20 over (2,2,2), 33x13x14 over
+              (1,1,2)) and of the uneven 67x45x29 over (2,2,2), the 48-shell
+              tables of 64^3 and of the uneven partition (tensor-copy and
+              cp.async tasks in one launch), and fp64 fields off 16-byte
+              alignment; apps.astaroth.run(partition=(2,2,2)) at the conf's
+              256^3 a block in fp64 and fp32 and at nx=128 with overlap and
+              without, in turns, launch counts reset around each (4 table
+              launches an iteration with overlap, one of them the shells; 3
+              without); a small resident run and an uneven step on the card
+              against the CPU; the table launch over 8 residents of 256^3,
+              its 48 shells and the 8-field fp64 exchange timed beside
+              their bounds and plain versions.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -1804,6 +1821,256 @@ def fp64_phase(dev, time_ms, n: int = 512, tenant_edges=(128, 32), tenants: int 
     return timings, launches, errs
 
 
+def astaroth_resident_phase(dev, time_ms, n: int = 256, strong_nx: int = 128, iters: int = 10,
+                            small_nx: int = 16, shell_edge: int = 64, timed: bool = True):
+    """Phase 14, Astaroth over resident blocks on ``dev``: the table form of
+    the substep kernel (``substep_tasks``, csrc/astaroth_substep.cu) and
+    the app over a partition whose blocks all sit on the card.
+
+    - The table form against its plain version with torch.equal, fp64 and
+      fp32, stages 0-2, from random fields (halos and pad included) at dt
+      0.1: every block's compute region of stacks ragged against the 32x4
+      tile (40x24x20 over (2,2,2), 33x13x14 over (1,1,2)) and of an uneven
+      partition (67x45x29 over (2,2,2): blocks of 34/33, 23/22 and 15/14);
+      the 48-shell table of ``shell_edge``^3 over (2,2,2) and the uneven
+      one's, at stage 0 (its tensor-copy and cp.async tasks side by side in
+      fp64); fp64 stacks one cell off 16-byte alignment (every task on
+      cp.async).
+    - More tasks than one launch's table holds (the 540 shells of 80x72x48
+      over (5,6,3), three launches), and the main path's shape: stages 0-2
+      over the 8 residents of ``n``^3 and their 48 shells at stage 0, in
+      fp64 and fp32, each plain pass timed.
+    - ``apps.astaroth.run(partition=(2,2,2))`` at the conf's ``n``^3 a block
+      (the JAX app's 8-device run) in fp64 and fp32, and at ``nx =
+      strong_nx`` (``(2 strong_nx)``^3 global); in fp64 both with overlap
+      and without, in turns (overlap, none, none, overlap); launch counts
+      set to 0 just before and read just after each: 4 table launches an
+      iteration with overlap (one of them the shells), 3 without, and no
+      fill launch.
+    - A (2,2,2) run of ``small_nx``^3 blocks, and 2 overlap iterations of
+      the uneven 67x45x29, on the card against the same on the CPU (the
+      plain versions, which the CPU tests hold to stencil_tpu): relative
+      1e-10.
+    - Timed (``timed``): the table launch over the 8 residents of ``n``^3 on
+      the main path's stage mix, its 48-shell launch and the 8-field fp64
+      exchange of those residents, each beside its bound and (but the
+      exchange) its plain version.
+
+    Sizes are arguments so that the phase can be rehearsed on the CPU (where
+    the plain versions count no launch). Returns ``(timings, launches,
+    errs)`` keyed ``astaroth_substep_resident`` and ``astaroth_substep_shells``."""
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.astaroth.equations import Constants
+    from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of, make_astaroth_step
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.parallel import HaloExchange, unshard_blocks
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+    gen = torch.Generator(device=dev)
+    ainfo = astaroth_app.load()
+    consts, ids = Constants.from_info(ainfo), inv_ds_of(ainfo)
+    names = ("astaroth_substep_resident", "astaroth_substep_shells")
+    errs = {name: 0.0 for name in names}
+    timings, launches = {}, {}
+
+    def spec_of(size, part):
+        return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(3))
+
+    def rand8(spec, seed, dtype, offset=0):
+        """8 random stacks (scaled to [0, 0.1)), ``offset`` cells into their
+        buffers (off 16-byte alignment when odd in fp64)."""
+        shape = spec.stacked_shape_zyx()
+        out = []
+        for f in range(8):
+            gen.manual_seed(seed + f)
+            flat = torch.rand(int(np.prod(shape)) + offset, generator=gen, device=dev,
+                              dtype=dtype) * 0.1
+            out.append(flat[offset:].view(shape))
+        return out
+
+    def held(name, label, spec, tasks, dtype, stages, offset=0, time_plain=None):
+        """``stages`` through the kernel and through the plain version from
+        the same out stacks, torch.equal on every cell, and the launches
+        counted: one a stage per :data:`MAX_TASKS` tasks. With
+        ``time_plain`` (the timer) each plain pass is timed; returns the
+        plain ms by stage."""
+        curr8 = rand8(spec, 1400, dtype, offset)
+        ok, op = rand8(spec, 1500, dtype, offset), rand8(spec, 1500, dtype, offset)
+        before, plain_ms = asub.substep_tasks.launches, {}
+        for s in stages:
+            asub.substep_tasks(curr8, ok, spec, tasks, consts, ids, s, 0.1)
+
+            def plain(s=s):
+                asub.substep_tasks_plain(curr8, op, spec, tasks, consts, ids, s, 0.1)
+
+            if time_plain is None:
+                plain()
+            else:
+                plain_ms[s] = time_plain(plain, 1, warmup=0)
+        sync(dev)
+        launched = asub.substep_tasks.launches - before
+        want = len(stages) * -(-len(tasks) // asub.MAX_TASKS) * on_card
+        check(launched == want, f"{name} {label}: {launched} launches, expected {want}")
+        errs[name] = max(errs[name], *(max_abs(a, b) for a, b in zip(ok, op)))
+        check(all(torch.equal(a, b) for a, b in zip(ok, op)),
+              f"{name} {label}: kernel != plain version (max abs err {errs[name]:.3e})")
+        item = torch.empty((), dtype=dtype).element_size()
+        aligned = all(t.data_ptr() % 16 == 0 for t in curr8)
+        tma = sum(r[-1] for r in asub.substep_table(tasks, spec, 132, item, aligned)[0])
+        log(f"{name} {label} {str(dtype)[6:]} stages {list(stages)}: {len(tasks)} tasks "
+            f"({tma} by tensor copies) in {launched} launch(es), equal")
+        return plain_ms
+
+    # -- the table form against its plain version -----------------------------------
+    for dtype in (torch.float64, torch.float32):
+        for size, part in (((40, 24, 20), (2, 2, 2)), ((33, 13, 14), (1, 1, 2)),
+                           ((67, 45, 29), (2, 2, 2))):
+            spec = spec_of(size, part)
+            label = f"{'x'.join(map(str, size))} over {part}"
+            held(names[0], label, spec, asub.compute_tasks(spec), dtype, (0, 1, 2))
+            if size == (67, 45, 29):
+                held(names[1], label + " shells", spec, asub.shell_tasks(spec), dtype, (0,))
+        spec = spec_of((shell_edge,) * 3, (2, 2, 2))
+        held(names[1], f"{shell_edge}^3 over (2, 2, 2) shells", spec, asub.shell_tasks(spec),
+             dtype, (0,))
+        # more tasks than one launch's table holds: the 540 shells of 90 blocks
+        spec = spec_of((80, 72, 48), (5, 6, 3))
+        held(names[1], "80x72x48 over (5, 6, 3) shells", spec, asub.shell_tasks(spec), dtype,
+             (0,))
+    spec = spec_of((40, 24, 20), (2, 2, 2))
+    held(names[0], "40x24x20 over (2, 2, 2), fields one cell off alignment", spec,
+         asub.compute_tasks(spec), torch.float64, (0, 1, 2), offset=1)
+
+    # -- the main path: the app over (2,2,2) residents ----------------------------------
+    def app_run(label, dtype, nx, overlap):
+        asub.substep_tasks.launches = asub.substep_tasks.shells = 0
+        halo_fill.self_fill.launches = 0
+        ra = astaroth_app.run(iters=iters, nx=nx, dtype=dtype, overlap=overlap, device=dev,
+                              partition=(2, 2, 2))
+        sync(dev)
+        it = ra["iters_run"] + 1  # the warm-up chunk advances the state
+        got = (asub.substep_tasks.launches, asub.substep_tasks.shells,
+               halo_fill.self_fill.launches)
+        want = ((4 if overlap else 3) * it * on_card, it * overlap * on_card, 0)
+        check(got == want, f"astaroth {label}: launches (table, of which shells, fill) {got}, "
+                           f"expected {want}")
+        dd, h = ra["domain"], ra["handles"]
+        for k in FIELDS:
+            t = dd.get_curr(h[k])
+            check(tuple(t.shape) == dd.spec.stacked_shape_zyx() and t.dtype == getattr(torch, dtype)
+                  and bool(torch.isfinite(t).all()), f"astaroth {label} {k}: not finite")
+        check(dd.size == Dim3(2 * nx, 2 * nx, 2 * nx), f"astaroth {label}: global {dd.size}")
+        log(astaroth_app.csv_row(ra))
+        log(f"astaroth {label}: {ra['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
+            f"{ra['mcells_per_s']:.1f} Mcells/s, exchange {ra['exch_trimean_s'] * 1e3:.4f} ms, "
+            f"launches (table, of which shells, fill) {got}")
+        return ra, got
+
+    # overlap and no overlap in turns (overlap, none, none, overlap) at n^3 a
+    # block and at strong_nx in fp64; overlap in fp32
+    for dtype, nx, turns in (("float64", n, (True, False, False, True)), ("float32", n, (True,)),
+                             ("float64", strong_nx, (True, False, False, True))):
+        per = {True: [], False: []}
+        for overlap in turns:
+            ra, got = app_run(f"(2,2,2) x {nx}^3 a block {dtype}, "
+                              f"{'overlap' if overlap else 'no overlap'}", dtype, nx, overlap)
+            if (dtype, nx) == ("float64", n) and names[1] not in launches:
+                launches[names[0]], launches[names[1]] = got[0] - got[1], got[1]
+            per[overlap].append(ra["iter_trimean_s"] * 1e3)
+            del ra
+        if per[False]:
+            gap = np.mean(per[True]) - np.mean(per[False])
+            log(f"astaroth (2,2,2) x {nx}^3 a block {dtype} in turns: overlap "
+                f"{', '.join(f'{v:.4f}' for v in per[True])}, no overlap "
+                f"{', '.join(f'{v:.4f}' for v in per[False])} ms/iter (mean gap {gap:.4f} ms, "
+                f"{100 * gap / np.mean(per[False]):.1f}% of no overlap)")
+
+    # -- small runs on the card against the same on the CPU --------------------------
+    rg = astaroth_app.run(iters=3, nx=small_nx, dt=1e-5, device=dev, partition=(2, 2, 2))
+    rc = astaroth_app.run(iters=3, nx=small_nx, dt=1e-5, device="cpu", partition=(2, 2, 2))
+    small_err = 0.0
+    for k in FIELDS:
+        a = rg["domain"].get_curr_global(rg["handles"][k])
+        b = rc["domain"].get_curr_global(rc["handles"][k])
+        small_err = max(small_err, float(np.abs(a - b).max() / np.abs(b).max()))
+    check(small_err <= 1e-10, f"astaroth (2,2,2) x {small_nx}^3 card vs CPU: rel err "
+                              f"{small_err:.3e}")
+    log(f"astaroth (2,2,2) x {small_nx}^3 fp64 3 iterations, card vs CPU: max rel err "
+        f"{small_err:.3e}")
+    del rg, rc
+    spec = spec_of((67, 45, 29), (2, 2, 2))
+    state = {}
+    for where in (dev, torch.device("cpu")):
+        curr = {k: t.to(where) for k, t in zip(FIELDS, rand8(spec, 1600, torch.float64))}
+        nxt = {k: torch.zeros_like(t) for k, t in curr.items()}
+        step = make_astaroth_step(HaloExchange(spec), ainfo, dt=1e-5, iters=2, dtype="float64")
+        curr, _ = step(curr, nxt)
+        state[where.type] = {k: unshard_blocks(t.cpu(), spec) for k, t in curr.items()}
+    uneven_err = max(float(np.abs(state[dev.type][k] - state["cpu"][k]).max()
+                           / np.abs(state["cpu"][k]).max()) for k in FIELDS)
+    check(uneven_err <= 1e-10, f"astaroth uneven 67x45x29 over (2,2,2): card vs CPU rel err "
+                               f"{uneven_err:.3e}")
+    log(f"astaroth uneven 67x45x29 over (2,2,2) fp64 2 iterations, card vs CPU: max rel err "
+        f"{uneven_err:.3e}")
+    del state, curr, nxt
+
+    # -- the main path's shape: 8 residents of n^3 -------------------------------------
+    # stages 0-2 over every block and the 48 shells at stage 0, each plain pass
+    # timed once (its time is the kernels line's plain_ms)
+    spec = spec_of((2 * n,) * 3, (2, 2, 2))
+    full, shells = asub.compute_tasks(spec), asub.shell_tasks(spec)
+    plain_ms = {}
+    for dtype in (torch.float64, torch.float32):
+        label = f"8 x {n}^3 over (2, 2, 2)"
+        plain_ms[dtype] = (held(names[0], label, spec, full, dtype, (0, 1, 2), time_plain=time_ms),
+                           held(names[1], label + " shells", spec, shells, dtype, (0,),
+                                time_plain=time_ms)[0])
+
+    if not timed:
+        return timings, launches, errs
+    for dtype in (torch.float64, torch.float32):
+        item = torch.empty((), dtype=dtype).element_size()
+        curr8, out8 = rand8(spec, 1700, dtype), rand8(spec, 1800, dtype)
+
+        def run(tasks, s):
+            return lambda: asub.substep_tasks(curr8, out8, spec, tasks, consts, ids, s, 1e-8)
+
+        st = [time_ms(run(full, s), 4, warmup=1, graph=True) for s in (0, 1)]
+        pl, pl_shells = plain_ms[dtype]
+        cells = spec.global_size.flatten()
+        nbytes = (asub.tasks_bytes(full, item, 0) + 2 * asub.tasks_bytes(full, item, 1)) / 3
+        flops = (asub.FLOPS_PER_CELL[0] + 2 * asub.FLOPS_PER_CELL[1]) / 3 * cells
+        t = dict(ms=(st[0] + 2 * st[1]) / 3, plain_ms=(pl[0] + pl[1] + pl[2]) / 3,
+                 bound=bound_ms(nbytes, flops, dtype), library_ms=None)
+        log(f"time astaroth_substep_resident 8 x {n}^3 {dtype}: {t['ms']:.4f} ms per launch on "
+            f"the main path's mix (stage 0 {st[0]:.4f}, stages 1-2 {st[1]:.4f}; plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
+        sh_cells = sum((r.hi - r.lo).flatten() for _, r in shells)
+        ts = dict(ms=time_ms(run(shells, 0), 6, warmup=1, graph=True), plain_ms=pl_shells,
+                  bound=bound_ms(asub.tasks_bytes(shells, item, 0),
+                                 asub.FLOPS_PER_CELL[0] * sh_cells, dtype), library_ms=None)
+        log(f"time astaroth_substep_shells 48 shells of 8 x {n}^3 {dtype}: {ts['ms']:.4f} ms per "
+            f"launch ({sh_cells} cells; plain {ts['plain_ms']:.4f} ms, bound "
+            f"{ts['bound'][0]:.4f} ms by {ts['bound'][1]})")
+        if dtype == torch.float64:
+            timings[names[0]], timings[names[1]] = t, ts
+            # the 8-field exchange of the same residents (torch.roll and
+            # copies: no kernel of the port on (2,2,2), every axis multi-block)
+            ex = HaloExchange(spec)
+            state = dict(zip(FIELDS, curr8))
+            ex_ms = time_ms(lambda: ex(state), 5, warmup=1)
+            nb = 2 * ex.bytes_logical([item] * 8)
+            log(f"time astaroth exchange (2,2,2) x {n}^3 r3 8 fp64 fields: {ex_ms:.4f} ms "
+                f"({nb / 2 / 1e6:.1f} MB of halos, read and written: bound "
+                f"{bound_ms(nb, 0)[0]:.4f} ms by bytes)")
+        del curr8, out8
+    return timings, launches, errs
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2356,15 +2623,18 @@ def main() -> int:
 
     # the main path: apps.astaroth.run at the conf's 256^3, fp64 then fp32
     for dtype in ("float64", "float32"):
-        asub.substep.launches = halo_fill.self_fill.launches = 0
+        asub.substep_tasks.launches = asub.substep_tasks.shells = 0
+        halo_fill.self_fill.launches = 0
         ra = astaroth_app.run(iters=10, dtype=dtype)
         torch.cuda.synchronize()
-        n_sub, n_fill = asub.substep.launches, halo_fill.self_fill.launches
+        n_sub, n_fill = asub.substep_tasks.launches, halo_fill.self_fill.launches
         it = ra["iters_run"]
-        # warm-up + timed iterations, 3 stages and one exchange each; plus one
-        # timed exchange after each (one-iteration) chunk
-        check(n_sub == 3 * (it + 1), f"astaroth {dtype}: {n_sub} substep launches, "
-              f"expected {3 * (it + 1)}")
+        # warm-up + timed iterations, 3 stages (one task each: the one block)
+        # and one exchange each; plus one timed exchange after each
+        # (one-iteration) chunk
+        check(n_sub == 3 * (it + 1) and asub.substep_tasks.shells == 0,
+              f"astaroth {dtype}: {n_sub} substep launches ({asub.substep_tasks.shells} of "
+              f"shells), expected {3 * (it + 1)} (none)")
         check(n_fill == 3 * (it + 1) + 3 * it, f"astaroth {dtype}: {n_fill} fill launches, "
               f"expected {3 * (2 * it + 1)}")
         for k in FIELDS:
@@ -3560,6 +3830,12 @@ def main() -> int:
     launches.update(l13)
     errs.update(e13)
 
+    # -- 14. astaroth over resident blocks: B5's table form and the app ----------
+    t14, l14, e14 = astaroth_resident_phase(dev, time_ms)
+    timings.update(t14)
+    launches.update(l14)
+    errs.update(e14)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -3622,6 +3898,13 @@ def main() -> int:
                                 "stencil_tpu/ops/pallas_stencil.py:119"),
         "jacobi_sweep_regions_uneven": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
                                        "stencil_tpu/ops/pallas_stencil.py:119"),
+        # B5's table form over every resident block (the JAX package runs
+        # the Pallas substep once per resident), and over their exterior
+        # shells (its overlap iteration re-integrates them after the exchange)
+        "astaroth_substep_resident": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                                      "stencil_tpu/ops/pallas_astaroth.py:202"),
+        "astaroth_substep_shells": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                                    "stencil_tpu/ops/pallas_astaroth.py:202"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)

@@ -1,4 +1,4 @@
-"""astaroth — the MHD mini-app on one GPU.
+"""astaroth — the MHD mini-app on one GPU, weak-scaled over resident blocks.
 
 The port's counterpart of ``stencil_tpu.apps.astaroth`` (reference:
 astaroth/astaroth.cu): 8 fields in double precision (the reference's type;
@@ -7,7 +7,16 @@ substeps, buffers swapped per iteration, dt = 1e-8. Init: hash-random
 everything, constant 0.5 lnrho, radial-explosion velocity
 (astaroth.cu:493-520). Output row as in the reference (astaroth.cu:672-679):
 
-  <devices>,<nx>,<ny>,<nz>,<iter trimean s>,<exch trimean s>
+  <processes>,<nx>,<ny>,<nz>,<iter trimean s>,<exch trimean s>
+
+``run(partition=(px, py, pz))`` (no CLI flag, as in jacobi3d) weak-scales
+the run as the JAX app does over its devices (``decompose_zyx(len(devices))``,
+``stencil_tpu/apps/astaroth.py:127-137``): the global size is the conf's
+extents times the partition, and every block of it is resident on the one
+GPU, so ``partition=(2, 2, 2)`` is the JAX app's 8-device run (and
+``(1, 1, 2)``, ``(1, 2, 2)`` its 2- and 4-device runs). The processes
+column reports the block count, as the JAX app's 8-device row reports 8;
+nx/ny/nz stay the conf's per-block extents.
 
 The schedule is the JAX app's: one untimed warm-up chunk that advances the
 state, then chunks of ``chunk`` iterations (``iters`` rounded up to a chunk
@@ -29,9 +38,11 @@ always saved with a checkpoint dir, and warm-up then runs on copies.
 Usage: python -m stencil_tpu_torch.apps.astaroth 10 [--nx 256] [--f32]
 (``--device cpu --nx 16`` runs the plain PyTorch versions on the CPU).
 
-Not carried over yet (ROADMAP.md queue A): the multi-device decomposition,
-boundary conditions other than periodic, autotuning, the kernel-variant
-flag and the ParaView dumps.
+Not carried over yet (ROADMAP.md): blocks on several GPUs or over a mesh of
+positions, autotuning, ``--per-quantity-exchange``, ``--no-pallas``, the
+kernel-variant flag, ``--trivial`` / ``--random`` placement and the ParaView
+dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
+never calls, as in the JAX package and the reference.
 """
 
 from __future__ import annotations
@@ -92,14 +103,18 @@ def init_fields(dd: DistributedDomain, handles: dict, info, dtype: str) -> None:
     dd.set_curr_global(handles["uuz"], uuz)
 
 
-def make_domain(info, dtype: str = "float64", device=None):
-    """A realized one-GPU domain of the config's size with the 8 fields at
-    radius 3, initialised as the reference does; returns ``(dd, handles)``."""
-    d3 = decompose_zyx(1)
+def make_domain(info, dtype: str = "float64", device=None, partition=None):
+    """A realized one-GPU domain with the 8 fields at radius 3, initialised
+    as the reference does; returns ``(dd, handles)``. Its size is the
+    config's extents times ``partition`` (blocks along x, y, z, all
+    resident; default one block)."""
+    d3 = Dim3.of(partition) if partition is not None else decompose_zyx(1)
     size = Dim3(info.int_params["AC_nx"] * d3.x, info.int_params["AC_ny"] * d3.y,
                 info.int_params["AC_nz"] * d3.z)
     dd = DistributedDomain(size.x, size.y, size.z, device=device)
     dd.set_radius(3)
+    if d3.flatten() > 1:
+        dd.set_partition(d3)
     handles = {name: dd.add_data(name, dtype) for name in FIELDS}
     dd.realize()
     init_fields(dd, handles, info, dtype)
@@ -138,15 +153,17 @@ def run(
     max_rollbacks: int = 3,
     rollback_backoff: float = 0.25,
     inject: Optional[str] = None,
+    partition=None,
 ) -> dict:
     """Run ``iters`` iterations (plus one untimed warm-up chunk) on one
-    device and return the timing row, the domain and its handles. The
-    checkpoint, health and injection arguments are jacobi3d's (see the
-    module docstring); raises
+    device and return the timing row, the domain and its handles.
+    ``partition`` (blocks along x, y, z) weak-scales the conf's extents over
+    that many resident blocks (see the module docstring). The checkpoint,
+    health and injection arguments are jacobi3d's; raises
     :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when recovery gives
     up."""
     info = load(conf, nx)
-    dd, handles = make_domain(info, dtype, device)
+    dd, handles = make_domain(info, dtype, device, partition)
     dev = dd.device
     curr = {name: dd.get_curr(handles[name]) for name in FIELDS}
     nxt = {name: dd.get_next(handles[name]) for name in FIELDS}
@@ -293,8 +310,9 @@ def run(
     trimean = iter_time.trimean()
     cells = dd.size.flatten()
     result = {
-        "processes": 1,
+        "processes": dd.spec.num_blocks(),  # the JAX app's devices: one block each
         "devices": 1,
+        "partition": dd.spec.dim,
         "nx": info.int_params["AC_nx"],
         "ny": info.int_params["AC_ny"],
         "nz": info.int_params["AC_nz"],
@@ -321,7 +339,7 @@ def run(
 
 def csv_row(r: dict) -> str:
     return (
-        f"{r['devices']},{r['nx']},{r['ny']},{r['nz']},"
+        f"{r['processes']},{r['nx']},{r['ny']},{r['nz']},"
         f"{r['iter_trimean_s']:e},{r['exch_trimean_s']:e}"
     )
 
@@ -337,7 +355,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--reductions", action="store_true", help="print field reductions")
     p.add_argument("--no-compute", action="store_true", help="time the exchange alone")
     p.add_argument("--no-overlap", action="store_true",
-                   help="disable interior/exterior overlap (no effect on one block)")
+                   help="disable interior/exterior overlap (no effect on one block "
+                        "or an uneven partition)")
     p.add_argument("--chunk", type=int, default=1,
                    help="iterations per timed chunk (a final partial chunk "
                         "still runs a full chunk)")

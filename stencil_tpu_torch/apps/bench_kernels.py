@@ -47,7 +47,12 @@ Prints one JSON line per measurement, after a line naming the card
   fields; stage 2 moves the same bytes), beside its bound
   (``utils.roofline.bound_ms``), its unfused issue floor
   (``utils.roofline.issue_ms``) and the instantiation's registers, spill
-  bytes and blocks per SM;
+  bytes and blocks per SM; and its table form (``substep_tasks``) over
+  the eight resident astaroth-size^3 blocks of a (2,2,2) partition (one
+  launch, every block's compute region: ``"form": "residents"``) and over
+  their 48 exterior shells at stage 0 (``"form": "shells"``), each beside
+  its bound and issue floor; with ``--astaroth-resident`` only the
+  substep's rows are printed;
 - the resident forms, at size^3 over a (2,2,2) partition with radius-4
   halos (eight (size/2)^3 blocks on the card, jacobi3d's ``deep_halo=4``
   layout): ``jacobi_multistep`` in its deep-halo form at each k >= 2 of
@@ -213,6 +218,53 @@ def sweep_forms(n: int, gen, dev, reps: int) -> None:
         del currs, nxts, sels
 
 
+def astaroth_rows(na: int, gen, dev, reps: int, resident: bool = False) -> None:
+    """The substep's rows (B5): one na^3 block at stages 0 and 1 in fp64 and
+    fp32; with ``resident`` also its table form over the 8 resident na^3
+    blocks of a (2,2,2) partition and over their 48 shells (stage 0)."""
+    info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",
+                                       "astaroth.conf"))
+    consts, ids = Constants.from_info(info), inv_ds_of(info)
+    speca = GridSpec(Dim3(na, na, na), Dim3(1, 1, 1), Radius.constant(3))
+    specr = GridSpec(Dim3(2 * na, 2 * na, 2 * na), Dim3(2, 2, 2), Radius.constant(3))
+    forms = [("one block", speca, None)]
+    if resident:
+        forms += [("residents", specr, asub.compute_tasks(specr)),
+                  ("shells", specr, asub.shell_tasks(specr))]
+    # the one-block rows first, in both dtypes, as the full run times them
+    # (before the residents' 28 GB of fp64 stacks pass through the allocator)
+    for form, spec, tasks in forms:
+        for dtype in (torch.float64, torch.float32):
+            item = torch.empty((), dtype=dtype).element_size()
+            shape = spec.stacked_shape_zyx() if tasks else spec.block_shape_zyx()
+            curr8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
+                     for _ in range(8)]
+            out8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
+                    for _ in range(8)]
+            for stage in ((0,) if form == "shells" else (0, 1)):
+                if tasks is None:
+                    def fn():
+                        asub.substep(curr8, out8, spec, consts, ids, stage, 1e-8)
+                    nbytes, cells = asub.stage_bytes(spec, item, stage), spec.base.flatten()
+                    row = {}
+                else:
+                    def fn():
+                        asub.substep_tasks(curr8, out8, spec, tasks, consts, ids, stage, 1e-8)
+                    nbytes = asub.tasks_bytes(tasks, item, stage)
+                    cells = sum((t.rect.hi - t.rect.lo).flatten() for t in tasks)
+                    row = {"form": form, "tasks": len(tasks)}
+                ms = cuda_time_ms(fn, reps, warmup=1, graph=True)
+                flops = asub.FLOPS_PER_CELL[stage] * cells
+                bound, bound_by = bound_ms(nbytes, flops, dtype)
+                print(json.dumps({"kernel": "astaroth_substep", "size": na, **row,
+                                  "dtype": str(dtype).replace("torch.", ""), "stage": stage,
+                                  "ms": ms, "bytes": nbytes, "flops": flops, "bound_ms": bound,
+                                  "bound_by": bound_by, "issue_ms": issue_ms(flops, dtype),
+                                  "mcells_per_s": cells / ms / 1e3,
+                                  **asub.substep_info(dev.index, item, stage)}), flush=True)
+            del curr8, out8
+
+
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(description="time the port's CUDA kernels on one GPU")
     p.add_argument("--size", type=int, default=512)
@@ -223,6 +275,9 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--b1", action="store_true",
                    help="only the sweep's (B1) forms and the fused step (B8)")
+    p.add_argument("--astaroth-resident", action="store_true",
+                   help="only the Astaroth substep's rows (B5): one block, and its table "
+                        "form over 8 residents and over their shells")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs a CUDA device")
@@ -232,6 +287,9 @@ def main(argv: Optional[list] = None) -> int:
     n = args.size
     ks = [] if args.b1 else [int(v) for v in args.ks.split(",")]
     print(json.dumps({"card": bench_fill.card(), "torch": torch.__version__}), flush=True)
+    if args.astaroth_resident:
+        astaroth_rows(args.astaroth_size, gen, dev, args.reps, resident=True)
+        return 0
 
     spec = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
     pd = spec.padded()
@@ -435,32 +493,7 @@ def main(argv: Optional[list] = None) -> int:
 
     if args.b1:
         return 0
-    na = args.astaroth_size
-    info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",
-                                       "astaroth.conf"))
-    consts, ids = Constants.from_info(info), inv_ds_of(info)
-    speca = GridSpec(Dim3(na, na, na), Dim3(1, 1, 1), Radius.constant(3))
-    shape = speca.block_shape_zyx()
-    cells = speca.base.flatten()
-    for dtype in (torch.float64, torch.float32):
-        curr8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
-                 for _ in range(8)]
-        out8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
-                for _ in range(8)]
-        item = curr8[0].element_size()
-        for stage in (0, 1):
-            ms = cuda_time_ms(lambda: asub.substep(curr8, out8, speca, consts, ids, stage, 1e-8),
-                              args.reps, warmup=1, graph=True)
-            nbytes = asub.stage_bytes(speca, item, stage)
-            flops = asub.FLOPS_PER_CELL[stage] * cells
-            bound, bound_by = bound_ms(nbytes, flops, dtype)
-            print(json.dumps({"kernel": "astaroth_substep", "size": na,
-                              "dtype": str(dtype).replace("torch.", ""), "stage": stage,
-                              "ms": ms, "bytes": nbytes, "flops": flops, "bound_ms": bound,
-                              "bound_by": bound_by, "issue_ms": issue_ms(flops, dtype),
-                              "mcells_per_s": cells / ms / 1e3,
-                              **asub.substep_info(dev.index, item, stage)}), flush=True)
-        del curr8, out8
+    astaroth_rows(args.astaroth_size, gen, dev, args.reps)
     return 0
 
 

@@ -1,9 +1,13 @@
-"""Reductions over the compute cells of a one-block domain.
+"""Reductions over the owned compute cells of a domain on one device.
 
 The port's counterpart of ``stencil_tpu.astaroth.reductions`` (reference:
 astaroth/reductions.cuh:1-60 — max/min/rms/sum over scalar fields and
-vector magnitudes). On one device a reduction is a masked torch reduction;
-the mask keeps halo and pad cells out.
+vector magnitudes). The blocks are one, or every resident block of a
+partition (uniform or uneven), stacked on the device: a reduction is a
+masked torch reduction over the stack, where the JAX package reduces each
+device's blocks and combines them with ``pmax``/``psum`` over its mesh. The
+mask keeps halo, pad and (on an uneven partition) each smaller block's dead
+tail out; it is built once and kept on each device it is used on.
 """
 
 from __future__ import annotations
@@ -37,9 +41,15 @@ class Reductions:
         self.spec = ex.spec
         self._mask = torch.from_numpy(compute_mask(ex.spec))
         self._count = int(self._mask.sum())
+        self._on = {}
+
+    def _mask_on(self, device) -> torch.Tensor:
+        if device not in self._on:
+            self._on[device] = self._mask.to(device)
+        return self._on[device]
 
     def _stats(self, arr: torch.Tensor) -> Dict[str, float]:
-        m = self._mask.to(arr.device)
+        m = self._mask_on(arr.device)
         return {
             "max": float(torch.where(m, arr, -torch.inf).max()),
             "min": float(torch.where(m, arr, torch.inf).min()),

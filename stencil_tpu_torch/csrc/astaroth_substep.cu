@@ -4,9 +4,16 @@
 // kernel that slides a VMEM window of field planes down each y strip, with
 // DMA semaphores and shift/ring window disciplines; fp32 only). Its two
 // variants compute one function; this kernel serves both, in fp64 (the
-// reference workload's type) and fp32. Python wrapper and plain PyTorch
-// version: stencil_tpu_torch/ops/astaroth_substep.py (substep,
-// substep_plain), whose math is stencil_tpu_torch/astaroth/{fd,equations}.py.
+// reference workload's type) and fp32, in every form the port drives: one
+// block (the JAX package's single-block path), every resident block of a
+// partition stacked on the card (its per-resident loop,
+// stencil_tpu/astaroth/integrate.py:340-360, at each block's own extent on an
+// uneven partition) and every resident's exterior shells after the exchange
+// (its overlap iteration's re-integration, :392-401), one launch each.
+// Python wrappers, the task table's layout and plain PyTorch versions:
+// stencil_tpu_torch/ops/astaroth_substep.py (substep, substep_tasks;
+// substep_table; substep_plain, substep_tasks_plain), whose math is
+// stencil_tpu_torch/astaroth/{fd,equations}.py.
 //
 // What it computes, per compute cell: the 6th-order value / gradient /
 // Hessian pencils of each field (fd.field_data; reach +-3 along each axis
@@ -65,9 +72,23 @@
 // MOM and SCA sync on it, they read each other's values too). At stages
 // 1-2 each thread's out values are loaded at the top of its plane, ahead
 // of the derivatives. Out-of-range threads of a ragged tile are masked,
-// never returned: they fill the ring and take part in every barrier. The
-// grid is sized from the occupancy of the instantiation launched
-// (ops/astaroth_substep.py substep_zchunk).
+// never returned: they fill the ring and take part in every barrier.
+//
+// A launch walks a table of tasks (int32 rows laid out in Python by
+// ops/astaroth_substep.substep_table, the model of B1's sweep table): a
+// task is one block of the stacks and a rect in it, with its tile columns
+// and rows and the z planes a block of it marches, so the grid is every
+// tile of every task, x tile fastest, then y tile, z chunk and task; one
+// block of the grid is one tile's z chunk, as in the one-block launch, and
+// finds its task by a binary search over the rows' first tiles. The table
+// is a launch parameter (at most MAX_TASKS rows; a longer one is cut into
+// several launches), so its values stay block-uniform. The one-block launch
+// is the one-task case. A task's planes are its block's planes block * pz
+// further down the stacks, so one tensor map per field spans every
+// resident; whether tensor copies fill a task's ring is the table's choice
+// per task (a shell's box starts at an odd x in fp64).
+// The z chunks are sized from the occupancy of the instantiation launched
+// (ops/astaroth_substep.py substep_table).
 //
 // Floating point: every expression follows fd.py's and equations.py's
 // operand order term by term, each evaluated by one thread (values only
@@ -494,34 +515,74 @@ __device__ __forceinline__ void each_field(int g, Fn&& fn) {
   }
 }
 
+constexpr int TASK_COLS = 12;   // int32 columns of a task row
+constexpr int MAX_TASKS = 256;  // rows a launch's table holds
+
+// One row of the task table (ops/astaroth_substep.substep_table): the
+// task's first tile in the launch's walk; the resident block it updates, an
+// index into the stacks of padded blocks; its rect's origin (z, y, x) in
+// that block and its extent; its tile columns and rows; the z planes a block
+// of it marches; whether tensor copies fill its ring.
+struct SubstepTask {
+  int start, block, zo, yo, xo, nz, ny, nx, gx, gy, zchunk, tma;
+};
+static_assert(sizeof(SubstepTask) == TASK_COLS * sizeof(int), "a task row");
+
+// The table travels in the launch's parameters (12 KB of the 32 KB a launch
+// may pass): every thread reads its block's row at a block-uniform index, so
+// the row's values stay uniform, as the one-block launch's parameters were,
+// and the plane loop keeps its uniform control and addressing (a table in
+// device memory, found by thread 0 and handed over through shared memory,
+// ran the one-block launch 4-8% slower in fp64 on an H100, PERF.md).
+struct Table {
+  int ntask;
+  SubstepTask row[MAX_TASKS];
+};
+
 template <typename T, bool FIRST>
 __global__ void __launch_bounds__(THREADS, min_blocks<T>())
 astaroth_substep_kernel(const __grid_constant__ In<T> in, Out<T> out,
-                        const __grid_constant__ Maps maps, int tma, Coefs<T> k, int sz, int sy,
-                        int zo, int yo, int xo, int nz, int ny, int nx, int zchunk) {
+                        const __grid_constant__ Maps maps, int maps_ok, Coefs<T> k,
+                        const __grid_constant__ Table tab, int sz, int sy, int pz) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);  // [NF][SLOTS][PSTRIDE]
   T* const hand = ring + NF * SLOTS * PSTRIDE;      // [NH][CELLS]
   unsigned long long* const fill_bar = reinterpret_cast<unsigned long long*>(hand + NH * CELLS);
   const int tid = threadIdx.x + BX * (threadIdx.y + BY * threadIdx.z);
   const int grp = threadIdx.z;
-  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  // the block's task: the last row whose first tile is at most this block's
+  const int w = blockIdx.x;
+  int lo = 0, hi = tab.ntask - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tab.row[mid].start <= w) lo = mid;
+    else hi = mid - 1;
+  }
+  const SubstepTask& t = tab.row[lo];
+  const int gxy = t.gx * t.gy, u = w - t.start, tz = u / gxy, r = u - tz * gxy;
+  const int x0 = r % t.gx * BX, y0 = r / t.gx * BY;
+  const int nz = t.nz, ny = t.ny, nx = t.nx, yo = t.yo, xo = t.xo;
+  const int zo = t.block * pz + t.zo;  // the rect's first plane in the stacks
   const int tx = x0 + threadIdx.x, ty = y0 + threadIdx.y;
   const bool live = tx < nx && ty < ny;
-  const int z0 = blockIdx.z * zchunk;
-  const int z1 = min(nz, z0 + zchunk);
+  const int z0 = tz * t.zchunk;
+  const int z1 = min(nz, z0 + t.zchunk);
+  const bool tma = maps_ok && t.tma;
 
-  // With tensor maps (fp64 whose rows and planes start 16-byte aligned),
-  // one thread copies each field's footprint plane with one tensor copy;
-  // the unit fills what lies outside the padded block with zeros, which no
-  // compute cell reads. Otherwise each thread copies one footprint cell of
-  // every field with cp.async, if it lies in the padded block.
+  // With tensor maps (fp64 whose rows, planes and box starts are 16-byte
+  // aligned), one thread copies each field's footprint plane with one
+  // tensor copy; the unit fills what lies outside the padded block with
+  // zeros, which no compute cell reads. Otherwise each thread copies one
+  // footprint cell of every field with cp.async, if it lies in the rect
+  // grown by H.
   if (tma && tid == 0) mbar_init(fill_bar);
   bar_sync(TOP);
   unsigned phase = 0;
   const int frow = tid / RW, fcol = tid % RW;
   const bool fills = tid < PLANE && x0 - H + fcol < nx + H && y0 - H + frow < ny + H;
-  const long long fsrc = (long long)(yo + y0 - H + frow) * sy + (xo + x0 - H + fcol);
+  // in-plane offsets fit 32 bits (3 sz < 2^30): each saves a register the
+  // fp64 stages 1-2 need, at the 168 a 384-thread block may hold
+  const int fsrc = (yo + y0 - H + frow) * sy + (xo + x0 - H + fcol);
   // planes zp0 .. zp0 + np - 1 of every field, plane zp into its slot
   // (zp - z0 + H) mod SLOTS
   auto fill = [&](int zp0, int np) {
@@ -562,7 +623,7 @@ astaroth_substep_kernel(const __grid_constant__ In<T> in, Out<T> out,
   q.slot = slot;
   T ov[3] = {T(0), T(0), T(0)};
   q.ov = ov;
-  const long long col = (long long)(yo + ty) * sy + (xo + tx);
+  const int col = (yo + ty) * sy + (xo + tx);
   for (int z = z0; z < z1; ++z) {
     q.c = (long long)(zo + z) * sz + col;
     // out's values first: they are the only reads from device memory
@@ -638,21 +699,20 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// Each field's tensor map over (x, y, z) = (sy, sz / sy, zo + nz + H)
-// values with a RW x RH x 1 box; false where the layout does not allow
-// them: fp32 (a footprint row of 152 bytes is no multiple of 16), or rows,
-// planes or the boxes' first column (xo - H + a multiple of 32) not
-// 16-byte aligned (the card refuses such a box start).
+// Each field's tensor map over its stack of nblocks padded blocks, (x, y,
+// z) = (sy, sz / sy, nblocks * pz) values with a RW x RH x 1 box (a task's
+// planes are its block's, block * pz further); false where the layout does
+// not allow them: fp32 (a footprint row of 152 bytes is no multiple of 16),
+// or rows, planes or a field's first value not 16-byte aligned. Each task's
+// box starts (xo - H + a multiple of 32) are the table's tma column.
 template <typename T>
-bool make_maps(const In<T>& in, long long sz, long long sy, int xo, int zo, int nz, Maps* maps) {
-  if (sizeof(T) != 8 || sy * sizeof(T) % 16 || sz * sizeof(T) % 16 || sz % sy ||
-      (xo - H) * sizeof(T) % 16)
-    return false;
+bool make_maps(const In<T>& in, long long sz, long long sy, long long planes, Maps* maps) {
+  if (sizeof(T) != 8 || sy * sizeof(T) % 16 || sz * sizeof(T) % 16 || sz % sy) return false;
   for (int f = 0; f < NF; ++f)
     if (reinterpret_cast<uintptr_t>(in.p[f]) % 16) return false;
   const EncodeTiled enc = encoder();
   if (!enc) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)sy, (cuuint64_t)(sz / sy), (cuuint64_t)(zo + nz + H)};
+  const cuuint64_t dims[3] = {(cuuint64_t)sy, (cuuint64_t)(sz / sy), (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)(sy * sizeof(T)), (cuuint64_t)(sz * sizeof(T))};
   const cuuint32_t box[3] = {RW, RH, 1}, step[3] = {1, 1, 1};
   for (int f = 0; f < NF; ++f)
@@ -673,9 +733,8 @@ cudaError_t allow_smem() {
 }
 
 template <typename T, bool FIRST>
-int launch(void* const* curr, void* const* out, const double* prm, long long sz,
-           long long sy, int zo, int yo, int xo, int nz, int ny, int nx, int zchunk,
-           cudaStream_t st) {
+int launch(void* const* curr, void* const* out, const double* prm, const Table& tab, int tiles,
+           long long sz, long long sy, int pz, int nblocks, cudaStream_t st) {
   In<T> in;
   Out<T> o;
   for (int f = 0; f < NF; ++f) {
@@ -684,12 +743,13 @@ int launch(void* const* curr, void* const* out, const double* prm, long long sz,
   }
   const cudaError_t err = allow_smem<T, FIRST>();
   if (err != cudaSuccess) return (int)err;
+  int tma = 0;
+  for (int i = 0; i < tab.ntask; ++i) tma |= tab.row[i].tma;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  const int tma = make_maps<T>(in, sz, sy, xo, zo, nz, &maps) ? 1 : 0;
-  const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY, (nz + zchunk - 1) / zchunk);
-  astaroth_substep_kernel<T, FIRST><<<grid, dim3(BX, BY, GROUPS), smem_bytes<T>(), st>>>(
-      in, o, maps, tma, make_coefs<T>(prm), (int)sz, (int)sy, zo, yo, xo, nz, ny, nx, zchunk);
+  const int maps_ok = tma && make_maps<T>(in, sz, sy, (long long)nblocks * pz, &maps) ? 1 : 0;
+  astaroth_substep_kernel<T, FIRST><<<tiles, dim3(BX, BY, GROUPS), smem_bytes<T>(), st>>>(
+      in, o, maps, maps_ok, make_coefs<T>(prm), tab, (int)sz, (int)sy, pz);
   return (int)cudaGetLastError();
 }
 
@@ -714,31 +774,35 @@ int info(int* r) {
 }  // namespace
 
 // curr / out: host arrays of 8 device pointers (FIELDS order: lnrho, uux,
-// uuy, uuz, ax, ay, az, entropy) to contiguous padded (pz, py, px) blocks.
-// sz / sy: plane and row strides; (zo, yo, xo) / (nz, ny, nx): compute
-// offset and extent, with at least 3 halo cells on every side. prm: the 16
-// doubles listed in make_coefs. first: 1 for RK3 stage 0 (out not read).
-// zchunk: z planes a block marches; dev: the device the fields are on.
-extern "C" int astaroth_substep_launch(void* const* curr, void* const* out,
-                                       int elem_size, const double* prm,
-                                       int nprm, int first, long long sz,
-                                       long long sy, int zo, int yo, int xo,
-                                       int nz, int ny, int nx, int zchunk, int dev,
-                                       void* stream) {
-  if (nprm != 16 || nz < 1 || ny < 1 || nx < 1 || zo < 3 || yo < 3 || xo < 3 ||
-      zchunk < 1 || (nz + zchunk - 1) / zchunk > 65535 || 3 * sz > (1LL << 30) ||
-      sz > (1LL << 30))
+// uuy, uuz, ax, ay, az, entropy), each to a contiguous stack of nblocks
+// padded (pz, py, px) blocks. prm: the 16 doubles listed in make_coefs.
+// first: 1 for RK3 stage 0 (out not read). rows: a host array of ntask
+// (at most MAX_TASKS) rows of task_cols int32 (ops/astaroth_substep.
+// substep_table), the first starting at tile 0, `tiles` blocks to launch in
+// all; each task's rect lies in its block with at least 3 halo cells on every
+// side. sz / sy: plane and row strides. dev: the device the fields are on. A
+// launch the device refuses returns its error; there is no fallback.
+extern "C" int astaroth_substep_launch(void* const* curr, void* const* out, int elem_size,
+                                       const double* prm, int nprm, int first, const int* rows,
+                                       int ntask, int task_cols, long long tiles, long long sz,
+                                       long long sy, int pz, int nblocks, int dev, void* stream) {
+  if (nprm != 16 || ntask < 1 || ntask > MAX_TASKS || task_cols != TASK_COLS || tiles < 1 ||
+      tiles >= (1LL << 31) || rows[0] != 0 || sy < 1 || sz < sy || pz < 2 * H + 1 ||
+      nblocks < 1 || (long long)nblocks * pz >= (1LL << 31) || 3 * sz > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
+  Table tab;
+  tab.ntask = ntask;
+  memcpy(tab.row, rows, (size_t)ntask * sizeof(SubstepTask));
   cudaStream_t st = (cudaStream_t)stream;
-  const int fi = first ? 1 : 0;
+  const int fi = first ? 1 : 0, n = (int)tiles;
   if (elem_size == 8)
-    return fi ? launch<double, true>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st)
-              : launch<double, false>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st);
+    return fi ? launch<double, true>(curr, out, prm, tab, n, sz, sy, pz, nblocks, st)
+              : launch<double, false>(curr, out, prm, tab, n, sz, sy, pz, nblocks, st);
   if (elem_size == 4)
-    return fi ? launch<float, true>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st)
-              : launch<float, false>(curr, out, prm, sz, sy, zo, yo, xo, nz, ny, nx, zchunk, st);
+    return fi ? launch<float, true>(curr, out, prm, tab, n, sz, sy, pz, nblocks, st)
+              : launch<float, false>(curr, out, prm, tab, n, sz, sy, pz, nblocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

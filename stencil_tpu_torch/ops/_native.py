@@ -82,8 +82,9 @@ SIGNATURES = {
     },
     "astaroth_substep": {
         "astaroth_substep_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
-                                         ctypes.POINTER(ctypes.c_double), _I, _I, _L,
-                                         _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                                         ctypes.POINTER(ctypes.c_double), _I, _I,
+                                         ctypes.POINTER(_I), _I, _I, _L, _L, _L, _I, _I, _I,
+                                         _P]),
         "astaroth_substep_info": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
     },
     "health_reduce": {

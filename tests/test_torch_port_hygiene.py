@@ -108,6 +108,7 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     calls = []
     for mod, name in ((stencil_kernels, "sweep_plain"), (stencil_kernels, "multistep_plain"),
                       (halo_fill, "self_fill_plain"), (astaroth_substep, "substep_plain"),
+                      (astaroth_substep, "substep_tasks_plain"),
                       (fused_stencil, "fused_jacobi_plain"),
                       (persistent_stencil, "persistent_jacobi_plain"),
                       (remote_dma, "remote_axis_plain"), (fused_stencil, "fused_exchange_plain"),
@@ -118,6 +119,7 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
         "finite_and_max_plain") or (torch.ones(()), torch.zeros(())))
     launches = (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                 halo_fill.self_fill.launches, astaroth_substep.substep.launches,
+                astaroth_substep.substep_tasks.launches,
                 fused_stencil.fused_jacobi.launches, persistent_stencil.persistent_jacobi.launches,
                 remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches,
                 fused_stencil.fused_jacobi_mesh.launches,
@@ -129,6 +131,9 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     halo_fill.self_fill([_block(spec, f32)], spec, "x")
     spec3, consts = _astaroth_spec()
     astaroth_substep.substep(_fields(spec3), _fields(spec3), spec3, consts, (1.0,) * 3, 0, 1e-3)
+    tasks = astaroth_substep.compute_tasks(spec3)
+    astaroth_substep.substep_tasks(_fields(spec3), _fields(spec3), spec3, tasks, consts,
+                                   (1.0,) * 3, 0, 1e-3)
     plan = build_plan(spec, (1, 1, 1), Method.REMOTE_DMA, fused=True)
     fused_stencil.fused_jacobi(_block(spec, f32), _block(spec, f32), _block(spec, torch.int32),
                                spec, plan)
@@ -143,12 +148,13 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(pspec, "cpu"), pspec, 2, pmesh)
     health_reduce.health_reduce([[_block(spec, f32)]])
     assert calls == ["sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
-                     "fused_jacobi_plain", "persistent_jacobi_plain", "remote_axis_plain",
+                     "substep_tasks_plain", "fused_jacobi_plain", "persistent_jacobi_plain", "remote_axis_plain",
                      "fused_exchange_plain", "fused_jacobi_mesh_plain",
                      "persistent_jacobi_mesh_plain", "finite_and_max_plain"]
     # the plain versions are not launches
     assert launches == (stencil_kernels.sweep.launches, stencil_kernels.multistep.launches,
                         halo_fill.self_fill.launches, astaroth_substep.substep.launches,
+                        astaroth_substep.substep_tasks.launches,
                         fused_stencil.fused_jacobi.launches,
                         persistent_stencil.persistent_jacobi.launches,
                         remote_dma.remote_axis.launches, fused_stencil.fused_exchange.launches,
@@ -167,6 +173,9 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
         astaroth_substep.substep(_fields(spec3, "meta"), _fields(spec3, "meta"), spec3, consts,
                                  (1.0,) * 3, 0, 1e-3)
     with pytest.raises(ValueError):
+        astaroth_substep.substep_tasks(_fields(spec3, "meta"), _fields(spec3, "meta"), spec3,
+                                       tasks, consts, (1.0,) * 3, 0, 1e-3)
+    with pytest.raises(ValueError):
         fused_stencil.fused_jacobi(*meta, _block(spec, torch.int32, "meta"), spec, plan)
     with pytest.raises(ValueError):
         persistent_stencil.persistent_jacobi(_block(spec2, f32, "meta"), _block(spec2, f32, "meta"),
@@ -183,7 +192,7 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
         persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(pspec, "meta"), pspec, 2, pmesh)
     with pytest.raises(ValueError):
         health_reduce.health_reduce([[_block(spec, f32, "meta")]])
-    assert len(calls) == 11
+    assert len(calls) == 12
 
 
 def _mesh_case(device, r=1):
@@ -215,7 +224,7 @@ def test_wrappers_have_no_fallback():
 
 
 PLAIN = ("sweep_plain", "multistep_plain", "self_fill_plain", "substep_plain",
-         "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep", "remote_axis_plain",
+         "substep_tasks_plain", "fused_jacobi_plain", "persistent_jacobi_plain", "jacobi_sweep", "remote_axis_plain",
          "fused_exchange_plain", "fused_jacobi_mesh_plain", "persistent_jacobi_mesh_plain",
          "finite_and_max_plain")
 

@@ -1,16 +1,20 @@
-"""The Astaroth substep kernel's launch shape, shared-memory budget and ring
-schedule, mirrored in Python (ops/astaroth_substep.py) and held to the
-kernel source; and the unfused issue floor of utils/roofline.py. CPU only:
-the kernel itself is held to its plain version by chip_smoke.py phase 5."""
+"""The Astaroth substep kernel's launch shape, shared-memory budget, ring
+schedule and task table, mirrored in Python (ops/astaroth_substep.py) and
+held to the kernel source (the table's rows, its z chunks, the kernel's
+walk over it replayed, the tensor-copy choice per task); and the unfused
+issue floor of utils/roofline.py. CPU only: the kernel itself is held to
+its plain version by chip_smoke.py phases 5 and 14."""
 
+import collections
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
 from stencil_tpu_torch.domain import GridSpec
-from stencil_tpu_torch.geometry import Dim3, Radius
+from stencil_tpu_torch.geometry import Dim3, Radius, Rect3, interior_region
 from stencil_tpu_torch.ops import astaroth_substep as asub
 from stencil_tpu_torch.utils import roofline
 
@@ -119,3 +123,151 @@ def test_ring_schedule(z0, z1):
         if z + 1 < z1:
             assert slot(z + h + 1) not in {slot(p) for p in window}
             held[slot(z + h + 1)] = z + h + 1
+
+
+# -- the task table (substep_tasks): rows, z chunks, the walk, the TMA choice ------
+
+def test_task_row_mirrors_the_kernel_source():
+    body = re.search(r"struct SubstepTask \{(.*?)\};", SRC, re.S).group(1)
+    cols = re.findall(r"\b(\w+)\s*[,;]", body)
+    assert cols == ["start", "block", "zo", "yo", "xo", "nz", "ny", "nx", "gx", "gy", "zchunk",
+                    "tma"]
+    assert asub.TASK_COLS == _const("TASK_COLS") == len(cols)
+
+
+def _spec(size, part, aligned=True):
+    return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(3), aligned=aligned)
+
+
+def _walk(rows, tiles):
+    """The kernel's walk: for each block of the grid, its task row (thread
+    0's binary search over the rows' first tiles) and its tile's first
+    column, row and plane in the rect and its planes."""
+    starts = [r[0] for r in rows]
+    for w in range(tiles):
+        lo, hi = 0, len(rows) - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if starts[mid] <= w:
+                lo = mid
+            else:
+                hi = mid - 1
+        t = rows[lo]
+        gx, gy, zc = t[8], t[9], t[10]
+        u = w - t[0]
+        tz, r = divmod(u, gx * gy)
+        z0 = tz * zc
+        yield lo, (r % gx) * asub.TILE[0], (r // gx) * asub.TILE[1], z0, min(t[5] - z0, zc)
+
+
+TABLES = {
+    "40x24x20 (2,2,2)": ((40, 24, 20), (2, 2, 2), "compute"),
+    "33x13x14 (1,1,2)": ((33, 13, 14), (1, 1, 2), "compute"),
+    "67x45x29 (2,2,2) uneven": ((67, 45, 29), (2, 2, 2), "compute"),
+    "64^3 (2,2,2) shells": ((64, 64, 64), (2, 2, 2), "shells"),
+    "67x45x29 (2,2,2) uneven shells": ((67, 45, 29), (2, 2, 2), "shells"),
+}
+
+
+@pytest.mark.parametrize("blocks_in_flight", [1, 132, 264])
+@pytest.mark.parametrize("case", sorted(TABLES))
+def test_table_walk_covers_every_cell_of_every_task_once(case, blocks_in_flight):
+    """Every cell of every task is some block's (live) cell exactly once, no
+    block of the grid is empty, and each task's z chunks cover its planes
+    with no empty chunk."""
+    size, part, kind = TABLES[case]
+    spec = _spec(size, part)
+    tasks = asub.compute_tasks(spec) if kind == "compute" else asub.shell_tasks(spec)
+    rows, tiles = asub.substep_table(tasks, spec, blocks_in_flight, 8)
+    assert len(rows[0]) == asub.TASK_COLS and rows[0][0] == 0
+    cover = []
+    for t, row in zip(tasks, rows):
+        n = t.rect.hi - t.rect.lo
+        assert row[1:8] == (t.block, t.rect.lo.z, t.rect.lo.y, t.rect.lo.x, n.z, n.y, n.x)
+        assert 1 <= row[10] <= n.z and row[8:10] == asub.tile_grid(n)
+        cover.append(np.zeros((n.z, n.y, n.x), dtype=np.int32))
+    for i, x0, y0, z0, n in _walk(rows, tiles):
+        assert n >= 1 and x0 < rows[i][7] and y0 < rows[i][6]
+        cover[i][z0:z0 + n, y0:y0 + asub.TILE[1], x0:x0 + asub.TILE[0]] += 1
+    assert all((c == 1).all() for c in cover)
+
+
+@pytest.mark.parametrize("size", [(256, 256, 256), (64, 64, 64), (40, 24, 20), (33, 13, 7),
+                                  (200, 100, 61), (1, 1, 1)])
+@pytest.mark.parametrize("blocks_in_flight", [1, 132, 264])
+def test_one_task_table_is_the_one_block_launch(size, blocks_in_flight):
+    """substep's table: one row, the one-block z chunk, its grid's blocks."""
+    spec = _spec(size, (1, 1, 1))
+    off = spec.compute_offset()
+    rows, tiles = asub.substep_table(((0, Rect3(off, off + spec.base)),), spec,
+                                     blocks_in_flight, 8)
+    zc = asub.substep_zchunk(spec, blocks_in_flight)
+    gx, gy = asub.tile_grid(spec.base)
+    assert len(rows) == 1 and rows[0][10] == zc and tiles == gx * gy * -(-size[2] // zc)
+
+
+def test_shells_and_interior_tile_every_compute_region_once():
+    """6 shells a block (48 on (2,2,2)), each block's at its own extent on an
+    uneven partition; with the interior they cover the compute region once."""
+    for size, part in (((64, 64, 64), (2, 2, 2)), ((67, 45, 29), (2, 2, 2)),
+                       ((33, 13, 14), (1, 1, 2))):
+        spec = _spec(size, part)
+        shells = asub.shell_tasks(spec)
+        assert len(shells) == 6 * spec.num_blocks()
+        for j, c in asub.compute_tasks(spec):
+            n = c.hi - c.lo
+            cover = np.zeros((n.z, n.y, n.x), dtype=np.int32)
+            rects = [r for b, r in shells if b == j] + [interior_region(c, spec.radius)]
+            for r in rects:
+                lo, hi = r.lo - c.lo, r.hi - c.lo
+                cover[lo.z:hi.z, lo.y:hi.y, lo.x:hi.x] += 1
+            assert (cover == 1).all() and n == spec.block_size(asub.block_index(spec, j))
+
+
+def test_tma_choice_per_task():
+    """fp64 tasks whose boxes start 16-byte aligned take tensor copies: every
+    compute region (x from 3) and the +y, +z, -x shells; the +x shell (x
+    from 3 + 253) and the -y, -z shells (x from 6) do not. fp32, unaligned
+    fields and an odd x pitch never do."""
+    spec = _spec((512, 512, 512), (2, 2, 2))
+    rows, _ = asub.substep_table(asub.compute_tasks(spec), spec, 132, 8)
+    assert [r[-1] for r in rows] == [1] * 8
+    shells = asub.shell_tasks(spec)
+    rows, _ = asub.substep_table(shells, spec, 132, 8)
+    assert [r[4] for r in rows[:6]] == [256, 3, 3, 3, 6, 6]
+    assert [r[-1] for r in rows] == [0, 1, 1, 1, 0, 0] * 8
+    assert all(r[-1] == 0 for r in asub.substep_table(shells, spec, 132, 4)[0])
+    assert all(r[-1] == 0 for r in asub.substep_table(shells, spec, 132, 8, aligned=False)[0])
+    odd = _spec((33, 13, 14), (1, 1, 2), aligned=False)
+    assert odd.padded().x % 2 == 1
+    assert all(r[-1] == 0 for r in asub.substep_table(asub.compute_tasks(odd), odd, 132, 8)[0])
+
+
+def test_task_bytes():
+    spec = _spec((512, 512, 512), (2, 2, 2))
+    cells = sum((r.hi - r.lo).flatten() for _, r in asub.shell_tasks(spec))
+    assert cells == 512 ** 3 - 8 * 250 ** 3
+    assert asub.tasks_bytes(asub.shell_tasks(spec), 8, 0) == 16 * 8 * cells
+    assert asub.tasks_bytes(asub.compute_tasks(spec), 4, 1) == 24 * 4 * 512 ** 3
+
+
+def test_long_tables_are_cut_into_launches():
+    """A table longer than MAX_TASKS rows (the kernel's parameter table) goes
+    out in several launches, each group's first tiles counted from 0, the
+    groups' tiles summing to the table's; the kernel's walk over each group
+    covers its tasks' cells once."""
+    assert asub.MAX_TASKS == _const("MAX_TASKS")
+    spec = _spec((100, 72, 54), (5, 6, 3))  # 90 blocks of 20x12x18: 540 shells
+    shells = asub.shell_tasks(spec)
+    rows, tiles = asub.substep_table(shells, spec, 132, 8)
+    groups = asub.table_launches(rows, tiles)
+    assert [len(g) for g, _ in groups] == [256, 256, 28]
+    assert sum(t for _, t in groups) == tiles
+    done = 0
+    for g, t in groups:
+        assert g[0][0] == 0 and all(a[0] < b[0] for a, b in zip(g, g[1:]))
+        assert [r[1:] for r in g] == [r[1:] for r in rows[done:done + len(g)]]
+        seen = collections.Counter(i for i, *_ in _walk(g, t))
+        assert sorted(seen) == list(range(len(g)))
+        done += len(g)
+    assert asub.table_launches(rows[:3], rows[3][0]) == [(rows[:3], rows[3][0])]
