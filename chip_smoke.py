@@ -309,6 +309,38 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               against the CPU; the table launch over 8 residents of 256^3,
               its 48 shells and the 8-field fp64 exchange timed beside
               their bounds and plain versions.
+15. surface -- the rest of the one-card exchange surface (surface_phase,
+              rehearsable on the CPU at small sizes with a stand-in timer):
+              DIRECT26 and REMOTE_DMA over (2,2,2) residents at 512^3 fp32
+              r1, each bit-equal to AXIS_COMPOSED's exchange on the same
+              state (every compute and halo cell; REMOTE_DMA every cell),
+              in ms and GB/s logical with their launch counts (REMOTE_DMA:
+              3 remote_axis, every block an endpoint; DIRECT26: no kernel),
+              and DIRECT26 on an uneven 67x45x29 (2,2,2) r2 fp32 + fp64
+              state on the card against the CPU, every cell; remote_axis
+              over the 8 resident endpoints against its plain version,
+              timed per phase; 8 blocks on 4 positions (2,2,1), bit-equal
+              to the resident exchange (3 launches); 8 direct26 steps from
+              a random field bit-equal to the plain versions and to the
+              resident axis-composed path; the stacked no-wrap sweep of
+              the direct26 step against its plain version and timed; the
+              main paths jacobi3d 512^3 over (2,2,2) with --direct26 (one
+              sweep launch a step, nothing else), with remote-dma (3
+              remote_axis and one sweep a step) and with remote-dma on 4
+              positions (3 remote_axis and one sweep of the 8 blocks a
+              step), 50 iters in chunks of 25, launch counts reset around
+              each, the three final fields equal; --multistep-rows at the
+              kernel's tile heights (32 rows at k=3, 16 at k=4: kernel
+              torch.equal to the plain multistep; the loop with rows=32
+              equal to the default loop; 16 at k=3 refused); B9's uneven
+              form at 512^3 over 6 positions (3,2,1), k=4 and a depth-3
+              tail, torch.equal to persistent_jacobi_mesh_plain (both
+              buffers and sel), timed by CUDA events beside its bytes bound
+              and the deep exchange before it, 8 steps bit-equal to the
+              single-block default path, and jacobi3d 512^3 over those 6
+              positions with kernel_variant persistent, deep_halo 4 (48
+              iters in chunks of 24: 18 chunk launches of the uneven form,
+              42 remote_axis and 21 fills, 2 launches a chunk).
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -2068,6 +2100,397 @@ def astaroth_resident_phase(dev, time_ms, n: int = 256, strong_nx: int = 128, it
                 f"({nb / 2 / 1e6:.1f} MB of halos, read and written: bound "
                 f"{bound_ms(nb, 0)[0]:.4f} ms by bytes)")
         del curr8, out8
+    return timings, launches, errs
+
+
+def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 50,
+                  chunk: int = 25, steps: int = 8, pers_iters: int = 48, pers_chunk: int = 24,
+                  ms_n: int = 512):
+    """Phase 15, the rest of the one-card exchange surface, on ``dev``:
+    DIRECT26 and REMOTE_DMA over (2,2,2) residents at ``n``^3 fp32 r1, each
+    exchange bit-equal to AXIS_COMPOSED's on the same state (every compute
+    and halo cell; REMOTE_DMA on every cell), timed with its GB/s logical and
+    launch counts, and DIRECT26 on the uneven ``small`` (2,2,2) r2 fp32 +
+    fp64 on the card against the CPU, every cell; B6 over the 8 resident
+    endpoints against its plain version (torch.equal) and timed per launch;
+    8 blocks on 4 mesh positions ((2,2,1), two z residents a position)
+    bit-equal to the resident exchange; the main paths jacobi3d ``n``^3 over
+    (2,2,2) with ``--direct26`` and with REMOTE_DMA (``iters`` steps in
+    chunks of ``chunk`` after a warm-up chunk; one stacked B1 launch a step,
+    and 3 B6 launches a step for REMOTE_DMA), launch counts reset just
+    before and read just after; ``steps`` direct26 steps from a random field
+    bit-equal to the same steps through the plain versions and to the
+    resident axis-composed path; ``multistep_rows`` at each tile height the
+    multistep kernel is built for (fp32: 32 at k <= 3, 16 deeper): the
+    kernel ``torch.equal`` to the plain multistep at ``ms_n``^3, the loop
+    with the legal height equal to the default loop, an unbuilt height
+    refused; B9's uneven form at ``n``^3 over 6 positions (3,2,1), k=4 and a
+    depth-3 tail chunk, ``torch.equal`` to ``persistent_jacobi_mesh_plain``
+    (both buffers and sel), timed by CUDA events beside its bytes bound,
+    ``steps`` steps bit-equal to the single-block default path, and
+    ``apps.jacobi3d.run`` at ``n``^3 over those 6 positions with
+    ``kernel_variant="persistent"``, ``deep_halo=4`` (``pers_iters`` steps
+    in chunks of ``pers_chunk``), launch counts reset around it. Sizes are
+    arguments so the phase can be rehearsed on the CPU (``time_ms`` a
+    stand-in). Returns ``(timings, launches, errs)``."""
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius, Rect3
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import (check_multistep_rows, make_jacobi_loop,
+                                              multistep_heights, sphere_sel_blocks)
+    from stencil_tpu_torch.parallel import (DeviceMesh, HaloExchange, Method, join_positions,
+                                            split_positions, unshard_blocks)
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    f32, f64 = torch.float32, torch.float64
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    rd, d26 = Method.REMOTE_DMA, Method.DIRECT26
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+    timings, launches, errs = {}, {}, {}
+
+    def rand_stack(spec, seed, dtype=f32):
+        gen.manual_seed(seed)
+        return torch.rand(spec.stacked_shape_zyx(), generator=gen, device=dev,
+                          dtype=f64).to(dtype)
+
+    def halo_boxes(spec, r):
+        """Each block's compute region grown by ``r``: (block index, slices)."""
+        off = spec.compute_offset()
+        for iz, iy, ix in np.ndindex(spec.dim.z, spec.dim.y, spec.dim.x):
+            s = spec.block_size((ix, iy, iz))
+            yield (iz, iy, ix), (slice(off.z - r, off.z + s.z + r),
+                                 slice(off.y - r, off.y + s.y + r),
+                                 slice(off.x - r, off.x + s.x + r))
+
+    def halos_equal(a, b, spec, r):
+        return all(torch.equal(a[j][box], b[j][box]) for j, box in halo_boxes(spec, r))
+
+    counted = {"remote_axis": rdma.remote_axis, "jacobi_sweep": sk.sweep,
+               "self_fill": halo_fill.self_fill, "jacobi_multistep": sk.multistep,
+               "sweep_regions": sk.sweep_regions, "sweep_positions": sk.sweep_positions,
+               "persistent_jacobi_mesh": pst.persistent_jacobi_mesh,
+               "fused_jacobi_mesh": fst.fused_jacobi_mesh, "fused_exchange": fst.fused_exchange}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        pst.persistent_jacobi_mesh.uneven = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # -- DIRECT26 and REMOTE_DMA over (2,2,2) residents --------------------------
+    spec = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(1))
+    base = rand_stack(spec, 1500)
+    ref = base.clone()
+    HaloExchange(spec)(ref)
+    comp = HaloExchange(spec)
+    t_c = base.clone()
+    comp_ms = time_ms(lambda: comp(t_c), 10)
+    nbytes = comp.bytes_logical([4])
+    log(f"axis-composed exchange {n}^3 (2,2,2) r1 residents: {comp_ms:.4f} ms, "
+        f"{nbytes / comp_ms / 1e6:.2f} GB/s logical")
+    per_exchange = {d26: {}, rd: {"remote_axis": 3}}
+    for m in (d26, rd):
+        ex = HaloExchange(spec, m)
+        t = base.clone()
+        reset()
+        ex(t)
+        sync(dev)
+        got = read()
+        want = {name: per_exchange[m].get(name, 0) * on_card for name in counted}
+        check(got == want, f"{m.value} exchange over residents: launches {got}, expected {want}")
+        check(halos_equal(t, ref, spec, 1), f"{m.value} exchange over (2,2,2) residents != "
+                                            "axis-composed on a compute or halo cell")
+        check(m == d26 or torch.equal(t, ref), "remote-dma over residents != axis-composed")
+        ms = time_ms(lambda: ex(t), 10)
+        log(f"{m.value} exchange {n}^3 (2,2,2) r1 residents: == axis-composed on every compute "
+            f"and halo cell{' (and every cell)' if m == rd else ''}; {ms:.4f} ms, "
+            f"{nbytes / ms / 1e6:.2f} GB/s logical ({ex.bytes_moved([4])} bytes moved), "
+            f"launches {dict((k, v) for k, v in got.items() if v)}")
+        timings[f"exchange_{m.value}"] = ms
+        del t, ex
+
+    # DIRECT26 on an uneven partition of mixed dtypes, the card against the CPU
+    sspec = GridSpec(Dim3(*small), Dim3(2, 2, 2), Radius.constant(2))
+    st = {0: rand_stack(sspec, 1501), 1: rand_stack(sspec, 1502, f64)}
+    st_cpu = {k: v.to(cpu) for k, v in st.items()}
+    HaloExchange(sspec, d26)(st)
+    HaloExchange(sspec, d26)(st_cpu)
+    check(all(torch.equal(st[k].to(cpu), st_cpu[k]) for k in st),
+          "direct26 uneven exchange: card != CPU")
+    log(f"direct26 exchange {'x'.join(map(str, small))} (2,2,2) r2 fp32 + fp64: card == CPU on "
+        "every cell (dead pad included)")
+    del st, st_cpu
+
+    # -- B6 over the 8 resident endpoints against its plain version -------------------
+    ex_r = HaloExchange(spec, rd)
+    remote = ex_r._remote
+    bmesh = remote._block_mesh(dev)
+    t = base.clone()
+    ends = remote._endpoints(t)
+    pl = base.clone()
+    pends = remote._endpoints(pl)
+    per = []
+    errs["remote_axis_resident"] = 0.0
+    for ph in remote.block_plan.remote_phases:
+        rdma.remote_axis([[b] for b in ends], spec, ph, bmesh)
+        rdma.remote_axis_plain([[b] for b in pends], spec, ph, bmesh)
+        sync(dev)
+        errs["remote_axis_resident"] = max(errs["remote_axis_resident"], max_abs(t, pl))
+        check(torch.equal(t, pl), f"remote_axis over resident endpoints {ph.axis}: kernel != plain")
+        ms = time_ms(lambda ph=ph: rdma.remote_axis([[b] for b in ends], spec, ph, bmesh), 20,
+                     graph=True)
+        plain = time_ms(lambda ph=ph: rdma.remote_axis_plain([[b] for b in pends], spec, ph,
+                                                             bmesh), 3, warmup=1)
+        nb = rdma.remote_axis_bytes(spec, ph, 1, 8, 4)
+        per.append((ms, plain, nb))
+        log(f"time remote_axis over the 8 resident endpoints {n}^3 r1 {ph.axis}: {ms:.4f} ms per "
+            f"launch (plain {plain:.4f} ms, bound {bound_ms(nb, 0)[0]:.4f} ms by bytes, sector "
+            f"floor {bound_ms(rdma.remote_axis_sector_bytes(spec, ph, 1, 8, 4), 0)[0]:.4f} ms)")
+    k3 = len(per)
+    timings["remote_axis_resident"] = dict(
+        ms=sum(p[0] for p in per) / k3, plain_ms=sum(p[1] for p in per) / k3,
+        bound=bound_ms(sum(p[2] for p in per) / k3, 0), library_ms=None)
+    del t, pl, ends, pends
+
+    # -- 8 blocks on 4 mesh positions: the endpoints span positions ------------------
+    mesh4 = DeviceMesh((2, 2, 1), [dev] * 4)
+    stacks = split_positions(base, spec, mesh4)
+    ex4 = HaloExchange(spec, rd, mesh=mesh4)
+    check(tuple(ex4.resident) == (1, 1, 2) and all(tuple(s.shape[:3]) == (2, 1, 1)
+                                                   for s in stacks), "oversubscribed layout")
+    reset()
+    ex4({0: stacks})
+    sync(dev)
+    got = read()
+    check(got["remote_axis"] == 3 * on_card and sum(got.values()) == got["remote_axis"],
+          f"8 blocks on 4 positions: launches {got}")
+    check(torch.equal(join_positions(stacks, spec), ref),
+          "8 blocks on 4 positions != the resident exchange")
+    ms4 = time_ms(lambda: ex4({0: stacks}), 10)
+    timings["remote_axis_resident"]["extra"] = {"oversubscribed_exchange_ms": ms4,
+                                                "resident_exchange_ms": timings["exchange_remote-dma"],
+                                                "direct26_exchange_ms": timings["exchange_direct26"],
+                                                "composed_exchange_ms": comp_ms}
+    log(f"remote-dma exchange, 8 blocks of {n}^3 on 4 positions (2,2,1): == the resident "
+        f"exchange on every cell; {ms4:.4f} ms, {nbytes / ms4 / 1e6:.2f} GB/s logical, "
+        f"{ex4.last_transfer_count} slabs left a position; launches {got['remote_axis']}")
+    del stacks, ex4, ex_r, remote, base, ref, t_c
+
+    # -- direct26 steps: kernels vs plain versions vs the resident composed path -----
+    gen.manual_seed(1510)
+    g = torch.rand((n, n, n), generator=gen, device=dev, dtype=f64).to(f32)
+    from stencil_tpu_torch.parallel import shard_blocks
+
+    sel = sphere_sel_blocks(spec, dev)
+    ranges = sk.block_sel_ranges(spec)
+    outs = {}
+    for label, ex in (("direct26", HaloExchange(spec, d26)), ("composed", HaloExchange(spec))):
+        c = shard_blocks(g, spec, dev)
+        out, _ = make_jacobi_loop(ex, steps)(c, torch.zeros_like(c), sel)
+        outs[label] = unshard_blocks(out, spec)
+    ex = HaloExchange(spec, d26)
+    c = shard_blocks(g, spec, dev)
+    nx_ = torch.zeros_like(c)
+    for _ in range(steps):
+        ex(c)
+        c, nx_ = sk.sweep_plain(c, nx_, sel, spec, fst.NO_WRAP, ranges), c
+    outs["plain"] = unshard_blocks(c, spec)
+    check(np.array_equal(outs["direct26"], outs["plain"])
+          and np.array_equal(outs["direct26"], outs["composed"]),
+          f"jacobi {n}^3 (2,2,2) {steps} steps: direct26 != its plain versions or the composed path")
+    log(f"jacobi {n}^3 (2,2,2) {steps} steps, direct26: == the plain versions == the resident "
+        "axis-composed path")
+    del g, c, nx_, outs
+
+    # the stacked sweep of the direct26 step (no wrap, each block's sphere planes)
+    st = rand_stack(spec, 1520)
+    o15 = torch.zeros_like(st)
+    s15 = sphere_sel_blocks(spec, dev)
+    off = spec.compute_offset()
+    rect = Rect3(off, off + spec.base)
+    timings["jacobi_sweep_direct26"] = b1_times(
+        time_ms, dev, lambda: sk.sweep(st, o15, s15, spec, fst.NO_WRAP, ranges),
+        lambda: sk.sweep_plain(st, o15, s15, spec, fst.NO_WRAP, ranges),
+        sk.sweep_bytes(spec, [rect], ranges))
+    b1_log("jacobi_sweep_direct26", timings["jacobi_sweep_direct26"],
+           f"{n}^3 (2,2,2) r1 stack, no wrap")
+    a = sk.sweep(st, o15.clone(), s15, spec, fst.NO_WRAP, ranges)
+    b = sk.sweep_plain(st, o15.clone(), s15, spec, fst.NO_WRAP, ranges)
+    sync(dev)
+    errs["jacobi_sweep_direct26"] = max_abs(a, b)
+    check(torch.equal(a, b), "the direct26 stacked sweep: kernel != plain")
+    del st, o15, s15, a, b
+
+    # -- the main paths: jacobi3d over (2,2,2) with --direct26 and with remote-dma ----
+    total = iters + chunk
+    finals = {}
+    for label, kw, per_step in (
+            ("direct26", dict(device=dev, method=d26), {"jacobi_sweep": 1}),
+            ("remote-dma", dict(device=dev, method=rd), {"jacobi_sweep": 1, "remote_axis": 3}),
+            ("remote-dma, 8 blocks on 4 positions", dict(devices=[dev] * 4, method=rd),
+             {"sweep_positions": 1, "remote_axis": 3})):
+        reset()
+        rv = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, weak=False, partition=(2, 2, 2),
+                          **kw)
+        sync(dev)
+        got = read()
+        want = {name: total * per_step.get(name, 0) * on_card for name in counted}
+        check(got == want, f"jacobi3d {n}^3 (2,2,2) {label}: launches {got}, expected {want}")
+        check(rv["temporal_k"] == 0, f"jacobi3d {label}: multistep depth {rv['temporal_k']}")
+        fin = finals[label] = rv["domain"].get_curr_global(rv["handle"])
+        check(bool(np.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0, f"jacobi3d {label}: field not finite or out of range")
+        if label == "direct26":
+            launches["jacobi_sweep_direct26"] = got["jacobi_sweep"]
+        elif label == "remote-dma":
+            launches["remote_axis_resident"] = got["remote_axis"]
+        log(jacobi3d.csv_row(rv))
+        log(f"jacobi3d {n}^3 over (2,2,2) residents ({label}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+            f"Mcells/s, launches {dict((k, v) for k, v in got.items() if v)}")
+        del rv, fin
+    check(all(np.array_equal(f, finals["direct26"]) for f in finals.values()),
+          "jacobi3d over (2,2,2): direct26, remote-dma and 4 positions end in different fields")
+    log(f"jacobi3d {n}^3 over (2,2,2): direct26 == remote-dma == 8 blocks on 4 positions after "
+        f"{total} steps")
+    del finals
+
+    # -- --multistep-rows: each tile height the kernel is built for ------------------
+    heights = multistep_heights()
+    one = GridSpec(Dim3(ms_n, ms_n, ms_n), Dim3(1, 1, 1), Radius.constant(1))
+    # the planner's depth (32-row tiles) and the first deeper one (16-row)
+    for k in (sk.MULTISTEP_KPLAN, sk.MULTISTEP_KLO + 1):
+        rows = heights[(k, "float32")]
+        check_multistep_rows(rows, k)
+        c = rand_stack(one, 1530 + k)
+        a = sk.multistep(c, torch.zeros_like(c), one, k)
+        b = sk.multistep_plain(c, torch.zeros_like(c), one, k)
+        sync(dev)
+        check(torch.equal(a, b), f"multistep k={k} ({rows}-row tiles): kernel != plain")
+        log(f"multistep_rows={rows} (k={k}, the kernel's tile height there): kernel == plain "
+            f"multistep at {ms_n}^3")
+        del c, a, b
+    try:
+        check_multistep_rows(16, 3)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None, "multistep_rows=16 at k=3 was not refused")
+    log(f"multistep_rows=16 at k=3 refused: {refused[:90]}...")
+    ex1 = HaloExchange(one)
+    c = rand_stack(one, 1540)
+    s1 = sphere_sel_blocks(one, dev)
+    la = make_jacobi_loop(ex1, 6, multistep_rows=32)
+    a, _ = la(c.clone(), torch.zeros_like(c), s1)
+    b, _ = make_jacobi_loop(ex1, 6)(c.clone(), torch.zeros_like(c), s1)
+    sync(dev)
+    check(la.temporal_k == 3 and torch.equal(a, b),
+          "the loop with multistep_rows=32 != the default loop")
+    log(f"jacobi {ms_n}^3 6 steps with multistep_rows=32 (k=3): == the default loop")
+    del c, s1, a, b
+
+    # -- B9's uneven form at n^3 over 6 positions ----------------------------------
+    spec6 = GridSpec(Dim3(n, n, n), Dim3(3, 2, 1), Radius.constant(4))
+    mesh6 = DeviceMesh((3, 2, 1), [dev] * 6)
+    ex6 = HaloExchange(spec6, rd, mesh=mesh6, persistent=True)
+    ext = pst.position_extents(spec6, mesh6)
+    check(not spec6.is_uniform() and len(set(ext)) > 1, "the 6-position split is not uneven")
+
+    def rand_pos(seed, dtype=f32):
+        gen.manual_seed(seed)
+        p = spec6.padded()
+        if dtype == torch.int32:
+            return [torch.randint(-1, 4, (1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
+                                  dtype=dtype) for _ in range(6)]
+        return [torch.rand((1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev, dtype=f64)
+                .to(dtype) for _ in range(6)]
+
+    errs["persistent_jacobi_mesh_uneven"] = 0.0
+    for k in (4, 3):
+        c, nx_, s = rand_pos(1550 + k), rand_pos(1560 + k), rand_pos(1570 + k, torch.int32)
+        ex6(c)
+        ex6(s)
+        pc, pn, ps = [b.clone() for b in c], [b.clone() for b in nx_], [b.clone() for b in s]
+        reset()
+        pst.persistent_jacobi_mesh(c, nx_, s, spec6, k, mesh6)
+        check(pst.persistent_jacobi_mesh.uneven == on_card, "the uneven form did not launch")
+        pst.persistent_jacobi_mesh_plain(pc, pn, ps, spec6, k, mesh6)
+        sync(dev)
+        errs["persistent_jacobi_mesh_uneven"] = max(
+            errs["persistent_jacobi_mesh_uneven"],
+            max(max_abs(x, y) for x, y in zip(c + nx_, pc + pn)))
+        check(all(torch.equal(x, y) for x, y in zip(c + nx_ + s, pc + pn + ps)),
+              f"persistent_jacobi_mesh uneven {n}^3 (3,2,1) k={k}: kernel != plain")
+        log(f"persistent_jacobi_mesh uneven {n}^3 (3,2,1) k={k}: == plain (both buffers and sel "
+            "of every position)")
+        if k == 4:
+            grown = sum((x + 2 * gg) * (y + 2 * gg) * (z + 2 * gg) for z, y, x in ext
+                        for gg in range(k))
+            nb = sum(pst.chunk_bytes(spec6, k, (x, y, z)) for z, y, x in ext)
+            timings["persistent_jacobi_mesh_uneven"] = dict(
+                ms=time_ms(lambda: pst.persistent_jacobi_mesh(c, nx_, s, spec6, 4, mesh6), 10),
+                plain_ms=time_ms(lambda: pst.persistent_jacobi_mesh_plain(c, nx_, s, spec6, 4,
+                                                                          mesh6), 1, warmup=1),
+                bound=bound_ms(nb, 6 * grown), library_ms=None,
+                extra={"deep_exchange_ms": time_ms(lambda: ex6(c), 10)})
+        del c, nx_, s, pc, pn, ps
+    t = timings["persistent_jacobi_mesh_uneven"]
+    log(f"time persistent_jacobi_mesh uneven {n}^3 (3,2,1) k=4: {t['ms']:.4f} ms per launch "
+        f"(plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}); the "
+        f"deep exchange before it {t['extra']['deep_exchange_ms']:.4f} ms")
+
+    # steps steps over the 6 positions (k=4) against the single-block default path
+    gen.manual_seed(1580)
+    g = torch.rand((n, n, n), generator=gen, device=dev, dtype=f64).to(f32)
+    one1 = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
+    c1 = shard_blocks(g, one1, dev)
+    ref1, _ = make_jacobi_loop(HaloExchange(one1), steps)(c1, torch.zeros_like(c1),
+                                                          sphere_sel_blocks(one1, dev))
+    ref1 = unshard_blocks(ref1, one1)
+    c6 = shard_blocks(g, spec6, mesh6)
+    out6, _ = make_jacobi_loop(ex6, steps, temporal_k=4)(c6, [torch.zeros_like(b) for b in c6],
+                                                         sphere_sel_blocks(spec6, mesh6))
+    check(np.array_equal(unshard_blocks(out6, spec6), ref1),
+          f"jacobi {n}^3 {steps} steps over 6 positions, persistent k=4 != the single-block "
+          "default path")
+    log(f"jacobi {n}^3 {steps} steps over 6 positions, persistent (uneven form, k=4): == the "
+        "single-block default path")
+    del g, c1, ref1, c6, out6
+
+    # the main path: jacobi3d over 6 positions with the persistent variant
+    reset()
+    rv = jacobi3d.run(n, n, n, devices=[dev] * 6, method=rd, iters=pers_iters, chunk=pers_chunk,
+                      weak=False, kernel_variant="persistent", deep_halo=4)
+    sync(dev)
+    got = read()
+    chunks = (pers_iters + pers_chunk) // 4
+    calls = (pers_iters + pers_chunk) // pers_chunk
+    want = {name: 0 for name in counted}
+    want.update({"persistent_jacobi_mesh": chunks * on_card,
+                 "remote_axis": 2 * (chunks + calls) * on_card,
+                 "self_fill": (chunks + calls) * on_card})
+    check(got == want and pst.persistent_jacobi_mesh.uneven == chunks * on_card,
+          f"jacobi3d persistent over 6 positions: launches {got}, expected {want}")
+    lpc = rv["domain"].halo_exchange.last_launches_per_chunk
+    check(lpc == 2, f"jacobi3d persistent over 6 positions: {lpc} launches per chunk, not 2")
+    fin = rv["domain"].get_curr_global(rv["handle"])
+    check(bool(np.isfinite(fin).all()) and float(fin.min()) >= 0.0 and float(fin.max()) <= 1.0,
+          "jacobi3d persistent over 6 positions: field not finite or out of range")
+    launches["persistent_jacobi_mesh_uneven"] = got["persistent_jacobi_mesh"]
+    timings["persistent_jacobi_mesh_uneven"]["extra"]["ms_per_iter"] = rv["iter_trimean_s"] * 1e3
+    log(jacobi3d.csv_row(rv))
+    log(f"jacobi3d {n}^3 over 6 positions (3,2,1), persistent k=4 (uneven form): "
+        f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), {rv['mcells_per_s']:.1f} "
+        f"Mcells/s, launches {dict((k, v) for k, v in got.items() if v)}, {lpc} a chunk")
+    del rv, fin, ex6
     return timings, launches, errs
 
 
@@ -3836,6 +4259,13 @@ def main() -> int:
     launches.update(l14)
     errs.update(e14)
 
+    # -- 15. the rest of the one-card surface: DIRECT26, REMOTE_DMA on residents, ---
+    #        multistep rows, B9's uneven chunk
+    t15, l15, e15 = surface_phase(dev, time_ms)
+    timings.update(t15)
+    launches.update(l15)
+    errs.update(e15)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -3905,6 +4335,15 @@ def main() -> int:
                                       "stencil_tpu/ops/pallas_astaroth.py:202"),
         "astaroth_substep_shells": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
                                     "stencil_tpu/ops/pallas_astaroth.py:202"),
+        # B6 with every resident block an endpoint (REMOTE_DMA on residents,
+        # and 8 blocks on 4 positions); B1 over the stack on the direct26
+        # step; B9's uneven form (no messages, each position at its extent)
+        "remote_axis_resident": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                                 "stencil_tpu/ops/remote_dma.py:68"),
+        "jacobi_sweep_direct26": ("stencil_tpu_torch/csrc/jacobi_sweep.cu",
+                                  "stencil_tpu/ops/pallas_stencil.py:119"),
+        "persistent_jacobi_mesh_uneven": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
+                                          "stencil_tpu/ops/persistent_stencil.py:199"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)

@@ -12,10 +12,14 @@ residents when a partition has more blocks than devices. With a list of N device
 ``dd.set_gpus({0,0})``, stencil.hpp:154) it realizes a mesh of N block
 positions, one block per position, each its own allocation, exchanged by
 ``Method.REMOTE_DMA``; a count such as 6 splits 512^3 unevenly, (3,2,1) with
-x blocks of 171/171/170. The exchange is ``parallel.exchange.HaloExchange``:
-axis-composed, or remote-dma (with its fused and persistent kernel
-variants; persistent on uniform partitions only) on one block or over the
-mesh.
+x blocks of 171/171/170; a pinned partition with more blocks than positions
+stacks the extra blocks on each position (the JAX package's
+``stack_residents``). The exchange is ``parallel.exchange.HaloExchange``:
+axis-composed or direct26 on one device, or remote-dma (with its fused and
+persistent kernel variants on one block a position) on one device or over
+the mesh. ``set_quantity_batching``, ``run_exchanges``, ``set_output_prefix``
+and ``write_plan`` (the plan and block-comm matrix files, byte for byte the
+JAX package's) are the JAX package's.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -25,6 +29,7 @@ visible; ``device="cpu"`` runs the plain PyTorch versions of the kernels
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -32,9 +37,10 @@ import numpy as np
 import torch
 
 from .domain import DataHandle, GridSpec
-from .geometry import Dim3, NodePartition, Radius, Rect3, exterior_regions, interior_region
+from .geometry import (DIRECTIONS_26, Dim3, NodePartition, Radius, Rect3, exterior_regions,
+                       halo_extent, interior_region, stack_residents)
 from .ops.halo_fill import wire_name
-from .parallel.exchange import HaloExchange, Method, shard_blocks, unshard_blocks
+from .parallel.exchange import HaloExchange, Method, direction_bytes, shard_blocks, unshard_blocks
 from .parallel.mesh import DeviceMesh
 from .utils import logging as log
 from .utils import timer
@@ -60,10 +66,11 @@ def resolve_device(device=None) -> torch.device:
 
 class DistributedDomain:
     """A multi-quantity 3D periodic domain: every block on one device, or
-    one block per position of a mesh (``set_devices`` with several
-    entries). On a mesh each quantity's curr and next are lists of
-    ``(1, 1, 1, pz, py, px)`` blocks, one per position in the mesh's flat
-    order (x fastest)."""
+    the blocks spread over the positions of a mesh (``set_devices`` with
+    several entries). On a mesh each quantity's curr and next are lists of
+    ``(cz, cy, cx, pz, py, px)`` stacks, one per position in the mesh's flat
+    order (x fastest): one block a position, or each position's resident
+    blocks when the partition has more blocks than positions."""
 
     def __init__(self, x: int, y: int, z: int, device=None):
         self.size = Dim3(x, y, z)
@@ -72,6 +79,8 @@ class DistributedDomain:
         self._names: List[str] = []
         self._dtypes: List[torch.dtype] = []
         self._method = Method.AXIS_COMPOSED
+        self._batch_quantities = True
+        self._output_prefix = os.environ.get("STENCIL_OUTPUT_PREFIX", "")
         self._fused = False
         self._persistent = False
         self._wire_dtype: Optional[str] = None
@@ -104,12 +113,27 @@ class DistributedDomain:
         return DataHandle(idx, self._names[-1], str(dt).replace("torch.", ""))
 
     def set_methods(self, method: Method) -> None:
-        """Exchange strategy (reference: stencil.hpp:139): AXIS_COMPOSED or
-        REMOTE_DMA."""
-        if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
+        """Exchange strategy (reference: stencil.hpp:139): AXIS_COMPOSED,
+        DIRECT26 or REMOTE_DMA."""
+        if not isinstance(method, Method):
             raise NotImplementedError(
-                f"{method}: the port has the axis-composed and remote-dma exchanges only")
+                f"{method}: the port has the axis-composed, direct26 and remote-dma exchanges")
         self._method = method
+
+    def set_quantity_batching(self, enabled: bool) -> None:
+        """Quantity-batched exchange (default on): each message or slab of a
+        same-dtype group of quantities moves as one packed carrier (one
+        axis-carrier launch a phase, up to 16 blocks a fill launch), so the
+        carrier count per exchange does not grow with the quantity count.
+        Off, every quantity moves on its own (the A/B baseline). The cells
+        are the same either way. Applied at realize()."""
+        self._batch_quantities = bool(enabled)
+
+    def set_output_prefix(self, prefix: str) -> None:
+        """Prefix of the files the domain writes: realize() writes
+        :meth:`write_plan`'s files under it when it is not empty (default:
+        the ``STENCIL_OUTPUT_PREFIX`` environment variable)."""
+        self._output_prefix = prefix
 
     def set_fused_exchange(self, enabled: bool) -> None:
         """The FUSED compute+exchange variant of ``Method.REMOTE_DMA``: the
@@ -148,7 +172,8 @@ class DistributedDomain:
         One entry: every block on that device. N entries: a mesh of N block
         positions, which may name one device several times; the partition
         is ``NodePartition(size, radius, 1, N)`` unless ``set_partition``
-        pins one, and the exchange is ``Method.REMOTE_DMA``. Positions on
+        pins one (a multiple of N blocks stacks residents on each position,
+        z first), and the exchange is ``Method.REMOTE_DMA``. Positions on
         distinct GPUs are refused at realize() (ROADMAP.md queue A item
         5)."""
         devices = [resolve_device(d) for d in devices]
@@ -159,10 +184,11 @@ class DistributedDomain:
 
     def set_partition(self, dim) -> None:
         """Pin the partition grid (blocks along x, y, z): every block
-        resident on the one device, or one block per position of a mesh.
-        Any partition ``GridSpec`` takes, uneven included: an axis that the
-        block count does not divide gives its trailing blocks one cell
-        less."""
+        resident on the one device, or spread over the positions of a mesh
+        (one block each, or each position's stack of residents when the
+        partition has a multiple of their number). Any partition
+        ``GridSpec`` takes, uneven included: an axis that the block count
+        does not divide gives its trailing blocks one cell less."""
         dim = Dim3.of(dim)
         GridSpec(self.size, dim, Radius.constant(0))  # raises for an impossible split
         self._partition_dim = dim
@@ -177,13 +203,20 @@ class DistributedDomain:
             dim = self._partition_dim or NodePartition(self.size, self.radius, 1, n).dim()
             self.spec = GridSpec(self.size, dim, self.radius)
             if self._devices:
-                # one block per position; a partition of another block count
-                # is refused by the exchange
-                self.mesh = DeviceMesh(dim if dim.flatten() == n else Dim3(n, 1, 1),
-                                       self._devices)
+                # one block per position, or (a multiple of the positions)
+                # each position's resident stack, stacked z-heaviest first
+                mesh_dim = dim
+                if dim.flatten() != n:
+                    c, rem = divmod(dim.flatten(), n)
+                    if rem:
+                        raise ValueError(f"partition {dim} has {dim.flatten()} blocks, not a "
+                                         f"multiple of {n} devices")
+                    mesh_dim = stack_residents(dim, c)
+                self.mesh = DeviceMesh(mesh_dim, self._devices)
             self._exchange = HaloExchange(self.spec, self._method, fused=self._fused,
                                           persistent=self._persistent, mesh=self.mesh,
-                                          wire_dtype=self._wire_dtype)
+                                          wire_dtype=self._wire_dtype,
+                                          batch_quantities=self._batch_quantities)
             for idx, dt in enumerate(self._dtypes):
                 self._curr[idx] = self._zeros(dt)
                 self._next[idx] = self._zeros(dt)
@@ -191,13 +224,15 @@ class DistributedDomain:
         self._realized = True
         log.debug(f"realized {self.size} over {dim} blocks of {self.spec.base}, "
                   f"padded {self.spec.padded()} on {self.device}")
+        if self._output_prefix:
+            self.write_plan(self._output_prefix)
 
     def _zeros(self, dtype):
-        """A zero quantity: the stacked tensor, or a mesh's blocks."""
+        """A zero quantity: the stacked tensor, or a mesh's stacks."""
         if self.mesh is None:
             return torch.zeros(self.spec.stacked_shape_zyx(), dtype=dtype, device=self.device)
-        p = self.spec.padded()
-        return [torch.zeros((1, 1, 1, p.z, p.y, p.x), dtype=dtype, device=d)
+        p, c = self.spec.padded(), self._exchange.resident
+        return [torch.zeros((c.z, c.y, c.x, p.z, p.y, p.x), dtype=dtype, device=d)
                 for d in self.mesh.devices]
 
     # -- data access ---------------------------------------------------------
@@ -252,6 +287,16 @@ class DistributedDomain:
         quantity dict (see :meth:`curr_state`); does not synchronize."""
         return self._exchange.make_loop(iters)
 
+    def run_exchanges(self, iters: int) -> None:
+        """Run ``iters`` back-to-back exchanges on the domain's current
+        state and wait for the device."""
+        t0 = time.perf_counter()
+        with timer.timed("exchange"), timer.trace_range("stencil.exchange_loop"):
+            self.exchange_loop(iters)(self._curr)
+            hard_sync(self.device)
+        self.time_exchange += time.perf_counter() - t0
+        self.num_exchanges += iters
+
     def swap(self) -> None:
         """Swap curr/next (reference: src/stencil.cu:852-872)."""
         t0 = time.perf_counter()
@@ -275,6 +320,36 @@ class DistributedDomain:
         """Per-block exterior slabs (reference: src/stencil.cu:927-977)."""
         return [exterior_regions(c, interior_region(c, self.radius))
                 for c in self._computes()]
+
+    # -- observability -------------------------------------------------------
+    def write_plan(self, prefix: str) -> None:
+        """Write the exchange plan (``{prefix}plan_0.txt``) and the
+        block-to-block byte matrix (``{prefix}mat_npy_loadtxt.txt``, for
+        numpy's loadtxt), the same files, byte for byte, as the JAX package
+        writes for the same domain (reference: src/stencil.cu:482-637)."""
+        md = self.mesh.dim if self.mesh is not None else Dim3(1, 1, 1)
+        itemsizes = self._itemsizes()
+        with open(f"{prefix}plan_0.txt", "w") as f:
+            f.write(f"global {self.size} dim {self.spec.dim} base {self.spec.base}\n")
+            f.write(f"radius {self.radius}\n")
+            f.write(f"method {self._method.value}\n")
+            f.write(f"mesh {dict(z=md.z, y=md.y, x=md.x)}\n")
+            for d in DIRECTIONS_26:
+                b = direction_bytes(self.spec, d, sum(itemsizes))
+                f.write(f"dir ({d.x},{d.y},{d.z}) bytes {b}\n")
+        d = self.spec.dim
+        nb = self.spec.num_blocks()
+        mat = np.zeros((nb, nb), dtype=np.int64)
+        for i in range(nb):
+            src = Dim3(i % d.x, (i // d.x) % d.y, i // (d.x * d.y))
+            for dd in DIRECTIONS_26:
+                if self.radius.dir(dd) == 0:
+                    continue
+                dst = (src + dd).wrap(d)
+                j = dst.x + dst.y * d.x + dst.z * d.x * d.y
+                ext = halo_extent(dd, self.spec.block_size(src), self.radius)
+                mat[i, j] += ext.flatten() * sum(itemsizes)
+        np.savetxt(f"{prefix}mat_npy_loadtxt.txt", mat, fmt="%d")
 
     # -- accounting (reference: src/stencil.cu:139-161) ----------------------
     def _itemsizes(self) -> List[int]:

@@ -38,10 +38,19 @@ always saved with a checkpoint dir, and warm-up then runs on copies.
 Usage: python -m stencil_tpu_torch.apps.astaroth 10 [--nx 256] [--f32]
 (``--device cpu --nx 16`` runs the plain PyTorch versions on the CPU).
 
+``--per-quantity-exchange`` turns quantity batching off
+(``DistributedDomain.set_quantity_batching``): every field's slabs move on
+their own instead of one packed carrier for the 8 fields; the cells are the
+same. ``--kernel-variant shift|ring`` names the TPU substep kernel's
+sliding-window discipline; both give the same bits there, and the port's one
+substep kernel serves both (the run's row records the choice).
+``--no-pallas`` asks for the unfused substep path: on the CPU that is the
+path that runs (the plain PyTorch version), and on the card the port has
+none, so it raises rather than fall back.
+
 Not carried over yet (ROADMAP.md): blocks on several GPUs or over a mesh of
-positions, autotuning, ``--per-quantity-exchange``, ``--no-pallas``, the
-kernel-variant flag, ``--trivial`` / ``--random`` placement and the ParaView
-dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
+positions, autotuning, ``--trivial`` / ``--random`` placement and the
+ParaView dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
 never calls, as in the JAX package and the reference.
 """
 
@@ -55,7 +64,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..api import DistributedDomain
+from ..api import DistributedDomain, resolve_device
 from ..astaroth.config import load_config
 from ..astaroth.init import const_init, hash_init, radial_explosion_init
 from ..astaroth.integrate import FIELDS, make_astaroth_step
@@ -103,11 +112,16 @@ def init_fields(dd: DistributedDomain, handles: dict, info, dtype: str) -> None:
     dd.set_curr_global(handles["uuz"], uuz)
 
 
-def make_domain(info, dtype: str = "float64", device=None, partition=None):
+KERNEL_VARIANTS = ("shift", "ring")
+
+
+def make_domain(info, dtype: str = "float64", device=None, partition=None,
+                batch_quantities: bool = True):
     """A realized one-GPU domain with the 8 fields at radius 3, initialised
     as the reference does; returns ``(dd, handles)``. Its size is the
     config's extents times ``partition`` (blocks along x, y, z, all
-    resident; default one block)."""
+    resident; default one block); ``batch_quantities`` as
+    ``DistributedDomain.set_quantity_batching``."""
     d3 = Dim3.of(partition) if partition is not None else decompose_zyx(1)
     size = Dim3(info.int_params["AC_nx"] * d3.x, info.int_params["AC_ny"] * d3.y,
                 info.int_params["AC_nz"] * d3.z)
@@ -115,6 +129,7 @@ def make_domain(info, dtype: str = "float64", device=None, partition=None):
     dd.set_radius(3)
     if d3.flatten() > 1:
         dd.set_partition(d3)
+    dd.set_quantity_batching(batch_quantities)
     handles = {name: dd.add_data(name, dtype) for name in FIELDS}
     dd.realize()
     init_fields(dd, handles, info, dtype)
@@ -154,6 +169,9 @@ def run(
     rollback_backoff: float = 0.25,
     inject: Optional[str] = None,
     partition=None,
+    batch_quantities: bool = True,
+    kernel_variant: Optional[str] = None,
+    use_pallas: Optional[bool] = None,
 ) -> dict:
     """Run ``iters`` iterations (plus one untimed warm-up chunk) on one
     device and return the timing row, the domain and its handles.
@@ -161,9 +179,21 @@ def run(
     that many resident blocks (see the module docstring). The checkpoint,
     health and injection arguments are jacobi3d's; raises
     :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when recovery gives
-    up."""
+    up. ``batch_quantities``, ``kernel_variant`` ("shift", the default, or
+    "ring") and ``use_pallas`` (False: the unfused path, which runs only on
+    the CPU) are the JAX app's (see the module docstring)."""
+    variant = kernel_variant or "shift"
+    if variant not in KERNEL_VARIANTS:
+        raise ValueError(f"unknown kernel_variant {kernel_variant!r}: valid values are "
+                         f"{', '.join(KERNEL_VARIANTS)}")
+    if use_pallas is False and resolve_device(device).type == "cuda":
+        raise NotImplementedError(
+            "use_pallas=False (--no-pallas) asks for the unfused substep path, which the "
+            "port has only on the CPU: on a CUDA device the substep is the hand-written "
+            "kernel (csrc/astaroth_substep.cu), and the plain PyTorch version runs only on "
+            "CPU tensors; pass device='cpu' for the unfused path")
     info = load(conf, nx)
-    dd, handles = make_domain(info, dtype, device, partition)
+    dd, handles = make_domain(info, dtype, device, partition, batch_quantities)
     dev = dd.device
     curr = {name: dd.get_curr(handles[name]) for name in FIELDS}
     nxt = {name: dd.get_next(handles[name]) for name in FIELDS}
@@ -318,6 +348,8 @@ def run(
         "nz": info.int_params["AC_nz"],
         "global": dd.size,
         "dtype": dtype,
+        "kernel_variant": variant,
+        "batch_quantities": batch_quantities,
         "iter_trimean_s": trimean,
         "exch_trimean_s": exch_time.trimean(),
         "iters_run": iters_run,
@@ -363,6 +395,15 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain PyTorch versions)")
+    p.add_argument("--no-pallas", action="store_true",
+                   help="the unfused substep path: the plain PyTorch version on the CPU; "
+                        "the card has no unfused path, so there it raises")
+    p.add_argument("--per-quantity-exchange", action="store_true",
+                   help="disable quantity batching: one carrier per field per phase "
+                        "instead of one packed carrier for all 8 fields (the A/B baseline)")
+    p.add_argument("--kernel-variant", choices=KERNEL_VARIANTS, default=None,
+                   help="the substep kernel's sliding-window discipline of the TPU kernel, "
+                        "'shift' (default) or 'ring': the same bits, one kernel on the card")
     add_guard_flags(p)
     args = p.parse_args(argv)
     if args.f32 and args.f64:
@@ -371,13 +412,17 @@ def main(argv: Optional[list] = None) -> int:
         r = run(iters=args.iters, conf=args.conf, nx=args.nx,
                 dtype="float32" if args.f32 else "float64", no_compute=args.no_compute,
                 overlap=not args.no_overlap, reductions=args.reductions,
-                chunk=args.chunk, device=args.device, **guard_kwargs(args))
+                chunk=args.chunk, device=args.device,
+                batch_quantities=not args.per_quantity_exchange,
+                kernel_variant=args.kernel_variant,
+                use_pallas=False if args.no_pallas else None, **guard_kwargs(args))
     except RecoveryExhausted as e:
         log.error(f"astaroth: {e}")
         return FAULT_RC
     print(csv_row(r))
     log.info(f"{r['dtype']} on {r['device']}: {r['iter_trimean_s'] * 1e3:.4f} ms/iter, "
-             f"{r['mcells_per_s']:.1f} Mcells/s")
+             f"{r['mcells_per_s']:.1f} Mcells/s, kernel variant {r['kernel_variant']}, "
+             f"quantity batching {'on' if r['batch_quantities'] else 'off'}")
     log.info(timer.report())
     for k, v in r.get("reductions", {}).items():
         log.info(f"{k}: {v}")

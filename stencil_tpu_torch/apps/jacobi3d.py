@@ -41,6 +41,12 @@ run (rc 17) right after the first snapshot at a step >= K is durable.
 
 Usage: python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 --iters 5
 (``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU).
+``--direct26`` exchanges by the reference's 26 per-direction messages
+(``--method`` overrides it), then sweeps every block in one launch.
+``--multistep-rows R`` is the JAX app's strip height of the multistep: on
+the card the multistep kernel's tile height, so only the height its depth
+is built for is accepted. ``--prefix P`` writes the domain's plan files
+(``P``plan_0.txt, ``P``mat_npy_loadtxt.txt) at realize.
 ``--method remote-dma`` with ``--kernel-variant fused`` (or ``--fused``) runs
 one fused step kernel per step; ``--kernel-variant persistent --deep-halo K``
 runs one whole-chunk kernel per K steps over radius-K halos. ``--wire-dtype
@@ -49,7 +55,8 @@ that cross between mesh positions, in the plain and the fused mesh paths
 (a no-op on one device; the persistent variant over a mesh refuses it).
 
 Not carried over yet (ROADMAP.md queue A): the live sentinel and status
-file, autotuning, replanning and ParaView dumps.
+file, autotuning, replanning and ParaView dumps (which ``--prefix`` also
+names in the JAX app).
 """
 
 from __future__ import annotations
@@ -113,6 +120,8 @@ def run(
     max_rollbacks: int = 3,
     rollback_backoff: float = 0.25,
     inject: Optional[str] = None,
+    prefix: str = "",
+    multistep_rows: Optional[int] = None,
 ) -> dict:
     """Run jacobi3d on one device and return the result row (plus the
     realized ``domain`` and the temperature ``handle``).
@@ -146,7 +155,9 @@ def run(
     ``ckpt_dir`` with ``ckpt_every`` (0 = only the final state) and
     ``ckpt_keep`` the snapshots, ``resume`` the restart from the newest
     one. Raises :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when
-    recovery gives up."""
+    recovery gives up. ``prefix`` (``DistributedDomain.set_output_prefix``)
+    makes realize() write the domain's plan files under it;
+    ``multistep_rows`` goes to ``make_jacobi_loop``."""
     if fused and kernel_variant is None:
         kernel_variant = "fused"
     if kernel_variant == "fused":
@@ -177,6 +188,8 @@ def run(
         dd.set_wire_dtype(wire_dtype)
     if partition is not None:
         dd.set_partition(partition)
+    if prefix:
+        dd.set_output_prefix(prefix)
     h = dd.add_data("temperature", dtype)
     dd.realize()
     dev = dd.device
@@ -218,7 +231,8 @@ def run(
 
     def get_loop(k: int):
         if k not in loops:
-            loops[k] = make_jacobi_loop(dd.halo_exchange, k, overlap=overlap, temporal_k=tk)
+            loops[k] = make_jacobi_loop(dd.halo_exchange, k, overlap=overlap, temporal_k=tk,
+                                        multistep_rows=multistep_rows)
         return loops[k]
 
     guard = HealthGuard(every=health_every, max_abs=max_abs) if health_every > 0 else None
@@ -394,8 +408,9 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--deep-halo", type=int, default=1,
                    help="realize radius-K halos; K >= 2 also pins the "
                         "multistep depth (or the persistent chunk depth) to K")
+    p.add_argument("--direct26", action="store_true", help="use 26 per-direction messages")
     p.add_argument("--method", choices=[m.value for m in Method], default=None,
-                   help="exchange strategy (default axis-composed)")
+                   help="exchange strategy (default axis-composed; overrides --direct26)")
     p.add_argument("--fused", action="store_true",
                    help="the fused compute+exchange variant of --method "
                         "remote-dma: one kernel per step hands off every "
@@ -415,6 +430,14 @@ def main(argv: Optional[list] = None) -> int:
                         "tier float8_e4m3fn; also float16): wire-crossing "
                         "exchange carriers narrow to this dtype (LOSSY — "
                         "halos round to the wire precision)")
+    p.add_argument("--prefix", type=str, default="",
+                   help="prefix of the files the run writes: the domain's plan files "
+                        "(plan_0.txt, mat_npy_loadtxt.txt) at realize; the JAX app's "
+                        "ParaView dumps are not ported yet")
+    p.add_argument("--multistep-rows", type=int, default=None,
+                   help="the multistep's strip height: on the card its tile height, so only "
+                        "a height the kernel is built for at the chosen depth is accepted "
+                        "(a warning when the multistep does not engage)")
     add_guard_flags(p)
     args = p.parse_args(argv)
     if args.fused and args.kernel_variant == "persistent":
@@ -424,11 +447,13 @@ def main(argv: Optional[list] = None) -> int:
         p.error("--device conflicts with --devices")
     try:
         r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
-                method=Method(args.method) if args.method else Method.AXIS_COMPOSED,
+                method=Method(args.method) if args.method
+                else (Method.DIRECT26 if args.direct26 else Method.AXIS_COMPOSED),
                 device=args.device, weak=not args.no_weak, deep_halo=args.deep_halo,
                 fused=args.fused, kernel_variant=args.kernel_variant,
                 devices=args.devices.split(",") if args.devices else None,
-                wire_dtype=args.wire_dtype or None, **guard_kwargs(args))
+                wire_dtype=args.wire_dtype or None, prefix=args.prefix,
+                multistep_rows=args.multistep_rows, **guard_kwargs(args))
     except RecoveryExhausted as e:
         # the evidence bundle is on disk; the distinct rc tells a revival
         # ladder "numerics broken" from a crash

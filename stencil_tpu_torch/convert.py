@@ -16,7 +16,8 @@ On a mesh of block positions the port keeps one ``(1, 1, 1, pz, py, px)``
 block per position where the JAX package shards one stacked array over its
 device mesh: :func:`mesh_state_from_jax` splits the JAX package's sharded
 arrays (as numpy) into the mesh's blocks, and :func:`mesh_state_to_numpy`
-joins them back.
+joins them back. :func:`block_from_jax` carries a JAX ``LocalBlock`` (one
+subdomain's double-buffered quantities) across as the port's.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .domain import GridSpec
+from .domain import GridSpec, LocalBlock
+from .geometry import DIRECTIONS_26, Radius
 from .parallel.exchange import join_positions, split_positions
 
 
@@ -72,3 +74,21 @@ def mesh_state_to_numpy(state: Mapping, spec: GridSpec) -> Dict:
     ``{key: [block per position]}``."""
     return {key: join_positions(blocks, spec).detach().cpu().numpy()
             for key, blocks in state.items()}
+
+
+def block_from_jax(jblock, device) -> LocalBlock:
+    """The port's ``LocalBlock`` on ``device`` holding a copy of the JAX
+    package's block ``jblock``: the same size, origin, radius (direction by
+    direction), quantities (names and dtypes, in order) and curr and next
+    arrays."""
+    r = Radius.constant(0)
+    for d in DIRECTIONS_26:
+        r.set_dir(d, jblock.radius.dir(d.x, d.y, d.z))
+    b = LocalBlock(tuple(jblock.size.as_tuple()), tuple(jblock.origin.as_tuple()), r, device)
+    handles = [b.add_data(h.name, h.dtype) for h in jblock.handles()]
+    if jblock._realized:
+        b.realize()
+        for h, jh in zip(handles, jblock.handles()):
+            b.set_curr(h, torch.from_numpy(np.array(jblock.get_curr(jh))))
+            b.set_next(h, torch.from_numpy(np.array(jblock.get_next(jh))))
+    return b

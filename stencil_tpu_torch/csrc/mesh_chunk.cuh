@@ -8,6 +8,10 @@
 //
 // Tables (int64, in device memory, made by the Python wrappers):
 // - positions: npos rows of (a, b, sel) pointers; a holds curr, b nxt;
+// - extents (the uneven form only; null on a uniform partition): npos rows of
+//   (nz, ny, nx), each position's own compute extent. The uneven form runs
+//   no messages (B6 fills the deep halos before the launch) and each
+//   position's passes sweep its own grown regions;
 // - messages: m rows per direction box, in box order, of (source position,
 //   destination position, box index). A message copies the source's a cells
 //   of the box's src start into the destination's a halo at its dst start
@@ -72,6 +76,7 @@ struct MeshMessage {
 struct MeshChunk {
   const MeshPosition* pos;
   const MeshMessage* msg;
+  const long long* ext;  // per-position (nz, ny, nx), or null: every position nz x ny x nx
   int npos, m, k;
   long long sz, sy;
   int zo, yo, xo, nz, ny, nx;
@@ -168,114 +173,155 @@ inline long long onchip_smem_bytes(int D) {
   return 2LL * D * (ONCHIP_TILE + 2 * D) * (ONCHIP_TILE + 2 * D) * (long long)sizeof(float);
 }
 
-// One pass of depth D by blocks of NT threads: reads `from_b ? b : a` over
-// the compute region grown by g + D and writes the other buffer over the
-// region grown by g.
+// One output tile of a depth-D pass by a block of NT threads: the ONCHIP_TILE^2
+// columns from (X0, Y0) and planes [Z0, Z1) of position p's written region
+// (ex x ey in-plane, first cell (x0, y0, z0) of the padded block), read from
+// `from_b ? b : a` over the tile grown by D and written to the other buffer.
 template <int D, int NT>
-__device__ __forceinline__ void onchip_pass(const MeshChunk& c, int g, bool from_b,
-                                            float* smem) {
+__device__ __forceinline__ void onchip_tile(const MeshChunk& c, const MeshPosition p, int X0,
+                                            int Y0, int Z0, int Z1, int ex, int ey, int x0,
+                                            int y0, int z0, bool from_b, float* smem) {
   constexpr int WG = ONCHIP_TILE + 2 * D;
   constexpr int G = WG * WG;
   constexpr int M = (G + NT - 1) / NT;  // cells per thread
-  const int ex = c.nx + 2 * g, ey = c.ny + 2 * g, ez = c.nz + 2 * g;
-  const int gx = (ex + ONCHIP_TILE - 1) / ONCHIP_TILE, gy = (ey + ONCHIP_TILE - 1) / ONCHIP_TILE;
-  const int cols = gx * gy;
-  const int zchunk = zchunk_for((long long)TILES_PER_BLOCK * gridDim.x, (long long)cols * c.npos,
-                                ez);
-  const int per_pos = cols * ((ez + zchunk - 1) / zchunk);
-  const int tiles = per_pos * c.npos;
-  // the written region's first cell in the padded block; the source region
-  // starts D cells before it on each axis
-  const int x0 = c.xo - g, y0 = c.yo - g, z0 = c.zo - g;
   const int t = threadIdx.x;
+  const float* src = from_b ? p.b : p.a;
+  float* dst = from_b ? p.a : p.b;
 
-  for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
-    const MeshPosition p = c.pos[w / per_pos];
-    const int u = w % per_pos;
-    const int X0 = (u % gx) * ONCHIP_TILE, Y0 = ((u / gx) % gy) * ONCHIP_TILE;
-    const int Z0 = (u / cols) * zchunk;
-    const int Z1 = min(ez, Z0 + zchunk);
-    const float* src = from_b ? p.b : p.a;
-    float* dst = from_b ? p.a : p.b;
-
-    // this thread's cells q = t + i * NT of the grown plane: its ring (the
-    // distance from the plane's edge: stage s computes the cell iff
-    // ring >= s) and the in-plane offset of its source cell (-1: none)
-    int ring[M], off[M];
+  // this thread's cells q = t + i * NT of the grown plane: its ring (the
+  // distance from the plane's edge: stage s computes the cell iff
+  // ring >= s) and the in-plane offset of its source cell (-1: none)
+  int ring[M], off[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int q = t + i * NT;
+    const int qy = q / WG, qx = q - qy * WG;
+    const int oy = Y0 + qy - D, ox = X0 + qx - D;  // in the written region
+    ring[i] = q < G ? min(min(qy, WG - 1 - qy), min(qx, WG - 1 - qx)) : -1;
+    if (ring[i] >= D && (ox >= ex || oy >= ey)) ring[i] = D - 1;
+    off[i] = q < G ? (y0 + min(oy, ey + D - 1)) * (int)c.sy + x0 + min(ox, ex + D - 1) : -1;
+  }
+  float win[D][M][3];  // stage s at this cell for its last three planes, oldest first
+  unsigned code[M];    // sel codes of the last planes, newest in bits 0-1
+  float pf[M];         // the next source plane
+  int ps[M];           // and its sel
+  auto load = [&](int j) {
+    const long long pz = (long long)(z0 + Z0 - D + j) * c.sz;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      const int q = t + i * NT;
-      const int qy = q / WG, qx = q - qy * WG;
-      const int oy = Y0 + qy - D, ox = X0 + qx - D;  // in the written region
-      ring[i] = q < G ? min(min(qy, WG - 1 - qy), min(qx, WG - 1 - qx)) : -1;
-      if (ring[i] >= D && (ox >= ex || oy >= ey)) ring[i] = D - 1;
-      off[i] = q < G ? (y0 + min(oy, ey + D - 1)) * (int)c.sy + x0 + min(ox, ex + D - 1) : -1;
+      if (off[i] >= 0) {
+        pf[i] = __ldcg(src + pz + off[i]);
+        ps[i] = ring[i] >= 1 ? __ldg(p.sel + pz + off[i]) : 0;
+      }
     }
-    float win[D][M][3];  // stage s at this cell for its last three planes, oldest first
-    unsigned code[M];    // sel codes of the last planes, newest in bits 0-1
-    float pf[M];         // the next source plane
-    int ps[M];           // and its sel
-    auto load = [&](int j) {
-      const long long pz = (long long)(z0 + Z0 - D + j) * c.sz;
+  };
+#pragma unroll
+  for (int i = 0; i < M; ++i) code[i] = 0;
+  load(0);
+
+  const int nsteps = (Z1 - Z0) + 2 * D;
+  for (int j = 0; j < nsteps; ++j) {
+    // stage 0: the source plane Z0 - D + j
+    {
+      float* s0 = smem + ((Z0 - D + j) & 1) * G;
 #pragma unroll
       for (int i = 0; i < M; ++i) {
         if (off[i] >= 0) {
-          pf[i] = __ldcg(src + pz + off[i]);
-          ps[i] = ring[i] >= 1 ? __ldg(p.sel + pz + off[i]) : 0;
+          win[0][i][0] = win[0][i][1];
+          win[0][i][1] = win[0][i][2];
+          win[0][i][2] = pf[i];
+          s0[t + i * NT] = pf[i];
+          code[i] = (code[i] << 2) | (ps[i] == 1 ? 1u : (ps[i] == 2 ? 2u : 0u));
         }
       }
-    };
+      if (j + 1 < nsteps) load(j + 1);
+    }
 #pragma unroll
-    for (int i = 0; i < M; ++i) code[i] = 0;
-    load(0);
-
-    const int nsteps = (Z1 - Z0) + 2 * D;
-    for (int j = 0; j < nsteps; ++j) {
-      // stage 0: the source plane Z0 - D + j
-      {
-        float* s0 = smem + ((Z0 - D + j) & 1) * G;
+    for (int s = 1; s <= D; ++s) {
+      if (j >= 2 * s) {
+        const int v = Z0 - D + j - s;  // the plane stage s computes
+        const float* in = smem + (2 * (s - 1) + (v & 1)) * G;
 #pragma unroll
         for (int i = 0; i < M; ++i) {
-          if (off[i] >= 0) {
-            win[0][i][0] = win[0][i][1];
-            win[0][i][1] = win[0][i][2];
-            win[0][i][2] = pf[i];
-            s0[t + i * NT] = pf[i];
-            code[i] = (code[i] << 2) | (ps[i] == 1 ? 1u : (ps[i] == 2 ? 2u : 0u));
-          }
-        }
-        if (j + 1 < nsteps) load(j + 1);
-      }
-#pragma unroll
-      for (int s = 1; s <= D; ++s) {
-        if (j >= 2 * s) {
-          const int v = Z0 - D + j - s;  // the plane stage s computes
-          const float* in = smem + (2 * (s - 1) + (v & 1)) * G;
-#pragma unroll
-          for (int i = 0; i < M; ++i) {
-            if (ring[i] >= s) {
-              const int q = t + i * NT;
-              float sum = in[q - 1] + in[q + 1];
-              sum = sum + in[q - WG];
-              sum = sum + in[q + WG];
-              sum = sum + win[s - 1][i][0];
-              sum = sum + win[s - 1][i][2];
-              const unsigned h = (code[i] >> (2 * s)) & 3u;
-              const float val = h == 1u ? HOT : (h == 2u ? COLD : sum * SIXTH);
-              if (s < D) {
-                win[s][i][0] = win[s][i][1];
-                win[s][i][1] = win[s][i][2];
-                win[s][i][2] = val;
-                smem[(2 * s + (v & 1)) * G + q] = val;
-              } else {
-                // a stage-D cell lies in the written region: off is unclamped
-                dst[(long long)(z0 + v) * c.sz + off[i]] = val;
-              }
+          if (ring[i] >= s) {
+            const int q = t + i * NT;
+            float sum = in[q - 1] + in[q + 1];
+            sum = sum + in[q - WG];
+            sum = sum + in[q + WG];
+            sum = sum + win[s - 1][i][0];
+            sum = sum + win[s - 1][i][2];
+            const unsigned h = (code[i] >> (2 * s)) & 3u;
+            const float val = h == 1u ? HOT : (h == 2u ? COLD : sum * SIXTH);
+            if (s < D) {
+              win[s][i][0] = win[s][i][1];
+              win[s][i][1] = win[s][i][2];
+              win[s][i][2] = val;
+              smem[(2 * s + (v & 1)) * G + q] = val;
+            } else {
+              // a stage-D cell lies in the written region: off is unclamped
+              dst[(long long)(z0 + v) * c.sz + off[i]] = val;
             }
           }
         }
       }
-      __syncthreads();
+    }
+    __syncthreads();
+  }
+}
+
+// One pass of depth D by blocks of NT threads: reads `from_b ? b : a` over
+// the compute region grown by g + D and writes the other buffer over the
+// region grown by g. Uniform: every position nz x ny x nx, the tiles of one
+// position after another. UNEVEN: each position at its extent from c.ext,
+// its tiles after those of the positions before it; the z chunk is chosen
+// once from every position's columns and the largest extent.
+template <int D, int NT, bool UNEVEN>
+__device__ __forceinline__ void onchip_pass(const MeshChunk& c, int g, bool from_b,
+                                            float* smem) {
+  // the written region's first cell in the padded block; the source region
+  // starts D cells before it on each axis
+  const int x0 = c.xo - g, y0 = c.yo - g, z0 = c.zo - g;
+  const int ez0 = c.nz + 2 * g;
+  if constexpr (!UNEVEN) {
+    const int ex = c.nx + 2 * g, ey = c.ny + 2 * g;
+    const int gx = (ex + ONCHIP_TILE - 1) / ONCHIP_TILE,
+              gy = (ey + ONCHIP_TILE - 1) / ONCHIP_TILE;
+    const int cols = gx * gy;
+    const int zchunk = zchunk_for((long long)TILES_PER_BLOCK * gridDim.x,
+                                  (long long)cols * c.npos, ez0);
+    const int per_pos = cols * ((ez0 + zchunk - 1) / zchunk);
+    const int tiles = per_pos * c.npos;
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+      const int u = w % per_pos;
+      const int Z0 = (u / cols) * zchunk;
+      onchip_tile<D, NT>(c, c.pos[w / per_pos], (u % gx) * ONCHIP_TILE,
+                         ((u / gx) % gy) * ONCHIP_TILE, Z0, min(ez0, Z0 + zchunk), ex, ey, x0,
+                         y0, z0, from_b, smem);
+    }
+  } else {
+    auto tiles_of = [&](int i, int zchunk, int* ex, int* ey, int* ez, int* gx, int* gy) {
+      *ex = (int)c.ext[3 * i + 2] + 2 * g;
+      *ey = (int)c.ext[3 * i + 1] + 2 * g;
+      *ez = (int)c.ext[3 * i] + 2 * g;
+      *gx = (*ex + ONCHIP_TILE - 1) / ONCHIP_TILE;
+      *gy = (*ey + ONCHIP_TILE - 1) / ONCHIP_TILE;
+      return *gx * *gy * ((*ez + zchunk - 1) / zchunk);
+    };
+    int ex, ey, ez, gx, gy;
+    long long all_cols = 0;
+    for (int i = 0; i < c.npos; ++i) {
+      tiles_of(i, 1, &ex, &ey, &ez, &gx, &gy);
+      all_cols += (long long)gx * gy;
+    }
+    const int zchunk = zchunk_for((long long)TILES_PER_BLOCK * gridDim.x, all_cols, ez0);
+    int tiles = 0;
+    for (int i = 0; i < c.npos; ++i) tiles += tiles_of(i, zchunk, &ex, &ey, &ez, &gx, &gy);
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+      int pi = 0, u = w;
+      for (int n; u >= (n = tiles_of(pi, zchunk, &ex, &ey, &ez, &gx, &gy)); ++pi) u -= n;
+      const int Z0 = (u / (gx * gy)) * zchunk;
+      onchip_tile<D, NT>(c, c.pos[pi], (u % gx) * ONCHIP_TILE, ((u / gx) % gy) * ONCHIP_TILE,
+                         Z0, min(ez, Z0 + zchunk), ex, ey, x0, y0, z0, from_b, smem);
     }
   }
 }
@@ -284,13 +330,13 @@ __device__ __forceinline__ void onchip_pass(const MeshChunk& c, int g, bool from
 // Pass depths are K or K - 1 (pass_depth); MULTI instantiates the K - 1 body,
 // which a chunk of one pass (k <= ONCHIP_KMAX) never runs, so that its
 // registers go to the one body it does run.
-template <int K, bool MULTI>
+template <int K, bool MULTI, bool UNEVEN>
 __device__ __forceinline__ void mesh_onchip_chunk(const MeshChunk& c) {
   constexpr int NT = onchip_threads(K);
   extern __shared__ float onchip_smem[];  // [stage 0..D-1][plane & 1][WG * WG]
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
-  mesh_messages(c);
+  if constexpr (!UNEVEN) mesh_messages(c);
   const int n = chunk_passes(c.k);
   int left = c.k;
   for (int p = 0; p < n; ++p) {
@@ -298,9 +344,9 @@ __device__ __forceinline__ void mesh_onchip_chunk(const MeshChunk& c) {
     const int d = pass_depth(c.k, p);
     left -= d;
     if (d == K) {
-      onchip_pass<K, NT>(c, left, p & 1, onchip_smem);
+      onchip_pass<K, NT, UNEVEN>(c, left, p & 1, onchip_smem);
     } else if constexpr (MULTI && K > 2) {
-      onchip_pass<K - 1, NT>(c, left, p & 1, onchip_smem);
+      onchip_pass<K - 1, NT, UNEVEN>(c, left, p & 1, onchip_smem);
     }
   }
 }
@@ -308,11 +354,13 @@ __device__ __forceinline__ void mesh_onchip_chunk(const MeshChunk& c) {
 // Fill a MeshChunk from the wrappers' arguments; false if the boxes do not fit.
 inline bool make_mesh_chunk(const void* pos, int npos, const void* msg, int m, const int* boxes,
                             int nboxes, long long sz, long long sy, int zo, int yo, int xo,
-                            int nz, int ny, int nx, int k, MeshChunk* c) {
+                            int nz, int ny, int nx, int k, MeshChunk* c,
+                            const void* ext = nullptr) {
   if (npos < 1 || m < 0 || nz < 1 || ny < 1 || nx < 1 || k < 1) return false;
   if (!make_dir_boxes(boxes, nboxes, &c->boxes)) return false;
   c->pos = (const MeshPosition*)pos;
   c->msg = (const MeshMessage*)msg;
+  c->ext = (const long long*)ext;
   c->npos = npos;
   c->m = m;
   c->k = k;

@@ -9,8 +9,11 @@
 // VMEM ring). Python wrappers and plain PyTorch versions:
 // stencil_tpu_torch/ops/persistent_stencil.py (persistent_jacobi /
 // persistent_jacobi_plain for one block, persistent_jacobi_mesh /
-// persistent_jacobi_mesh_plain for a mesh). A single block is the
-// one-position case: its messages all wrap onto itself.
+// persistent_jacobi_mesh_plain for a mesh, uniform or uneven). A single block
+// is the one-position case: its messages all wrap onto itself. On an uneven
+// partition the launch takes each position's own extent and runs no
+// messages (persistent_jacobi_uneven_launch): the caller's deep exchange has
+// filled the halos.
 //
 // The result contract (mesh_chunk.cuh, mesh_onchip_chunk): each position's a
 // holds curr, b nxt. The messages copy compute cells into the destination
@@ -45,8 +48,9 @@
 // .sync() after the messages and between passes. One launch per (device,
 // chunk) covers every position, so no kernel ever waits for another launch.
 // The kernel is instantiated for pass depths K = 2..6, with and without the
-// K - 1 body of a chunk of several passes; a chunk runs the instantiation of
-// its deepest pass.
+// K - 1 body of a chunk of several passes, and each once more for the uneven
+// form (its own walk, so the uniform instantiations keep their code); a chunk
+// runs the instantiation of its deepest pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,32 +61,34 @@ namespace {
 
 using namespace jacobi;
 
-template <int K, bool MULTI>
+template <int K, bool MULTI, bool UNEVEN>
 __global__ void __launch_bounds__(onchip_threads(K), 1)
 persistent_jacobi_kernel(const __grid_constant__ MeshChunk c) {
-  mesh_onchip_chunk<K, MULTI>(c);
+  mesh_onchip_chunk<K, MULTI, UNEVEN>(c);
 }
 
 // the depth of the instantiation a depth-k chunk runs: its deepest pass
 int depth_of(int k) { return pass_depth(k, 0); }
 
-template <int K>
+template <int K, bool UNEVEN = false>
 cudaError_t launch(const MeshChunk& c, int dev, void* stream) {
   const size_t smem = (size_t)onchip_smem_bytes(K);
   const dim3 block(onchip_threads(K));
   return chunk_passes(c.k) > 1
-             ? mesh_chunk_launch(persistent_jacobi_kernel<K, true>, c, dev, stream, block, smem)
-             : mesh_chunk_launch(persistent_jacobi_kernel<K, false>, c, dev, stream, block, smem);
+             ? mesh_chunk_launch(persistent_jacobi_kernel<K, true, UNEVEN>, c, dev, stream, block,
+                                 smem)
+             : mesh_chunk_launch(persistent_jacobi_kernel<K, false, UNEVEN>, c, dev, stream, block,
+                                 smem);
 }
 
 template <int K>
 cudaError_t occupancy(int k, int* blocks) {
   const size_t smem = (size_t)onchip_smem_bytes(K);
   return chunk_passes(k) > 1
-             ? mesh_chunk_occupancy(persistent_jacobi_kernel<K, true>, onchip_threads(K), smem,
-                                    blocks)
-             : mesh_chunk_occupancy(persistent_jacobi_kernel<K, false>, onchip_threads(K), smem,
-                                    blocks);
+             ? mesh_chunk_occupancy(persistent_jacobi_kernel<K, true, false>, onchip_threads(K),
+                                    smem, blocks)
+             : mesh_chunk_occupancy(persistent_jacobi_kernel<K, false, false>, onchip_threads(K),
+                                    smem, blocks);
 }
 
 }  // namespace
@@ -108,6 +114,32 @@ extern "C" int persistent_jacobi_launch(const void* pos, int npos, const void* m
     case 4: return (int)launch<4>(c, dev, stream);
     case 5: return (int)launch<5>(c, dev, stream);
     case 6: return (int)launch<6>(c, dev, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The uneven form (a mesh of an uneven partition, the TPU kernel's refusal,
+// stencil_tpu/ops/jacobi.py:560-616, where the JAX package runs one deep
+// exchange and its XLA chunk body): no messages, since the caller's deep
+// exchange (B6's uneven ring, at the chunk's radius) has filled every halo;
+// then the same passes, each position's tiles at its own extent. ext: device
+// table of npos rows (nz, ny, nx), int64; nz, ny, nx: the largest (the base
+// block). The result contract is the uniform form's.
+extern "C" int persistent_jacobi_uneven_launch(const void* pos, int npos, const void* ext,
+                                               long long sz, long long sy, int zo, int yo,
+                                               int xo, int nz, int ny, int nx, int k, int dev,
+                                               void* stream) {
+  MeshChunk c;
+  if (k < 2 || ext == nullptr || sz >= (1LL << 31) ||
+      !make_mesh_chunk(pos, npos, nullptr, 0, nullptr, 0, sz, sy, zo, yo, xo, nz, ny, nx, k, &c,
+                       ext))
+    return (int)cudaErrorInvalidValue;
+  switch (depth_of(k)) {
+    case 2: return (int)launch<2, true>(c, dev, stream);
+    case 3: return (int)launch<3, true>(c, dev, stream);
+    case 4: return (int)launch<4, true>(c, dev, stream);
+    case 5: return (int)launch<5, true>(c, dev, stream);
+    case 6: return (int)launch<6, true>(c, dev, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

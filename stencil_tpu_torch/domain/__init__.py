@@ -1,4 +1,5 @@
+from .block import LocalBlock, block_compute_slices, block_rect_slices
 from .grid import GridSpec
 from .handle import DataHandle
 
-__all__ = ["DataHandle", "GridSpec"]
+__all__ = ["DataHandle", "GridSpec", "LocalBlock", "block_compute_slices", "block_rect_slices"]

@@ -68,6 +68,8 @@ SIGNATURES = {
     "persistent_jacobi": {
         "persistent_jacobi_launch": (_I, [_P, _I, _P, _I, ctypes.POINTER(_I), _I, _L, _L,
                                           _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "persistent_jacobi_uneven_launch": (_I, [_P, _I, _P, _L, _L, _I, _I, _I, _I, _I, _I,
+                                                 _I, _I, _P]),
         "persistent_jacobi_passes": (_I, [_I, ctypes.POINTER(_I), _I]),
         "persistent_jacobi_smem_bytes": (_L, [_I]),
         "persistent_jacobi_blocks_per_sm": (_I, [_I, _I, ctypes.POINTER(_I)]),

@@ -28,6 +28,14 @@ multistep), and so does the schedule here: each step is the full exchange,
 then one sweep of every block's full base extent reading the filled halos
 (cells past a smaller block's own size are dead pad).
 
+The direct26 method takes the full 26-message exchange every step, with no
+axis subsetting, no overlap shells and no multistep (the JAX package's
+Pallas branch has no axis phases to subset there), then one sweep of every
+resident that reads the exchanged halos (no in-kernel wrap: after a full
+exchange the wrap would read the same values, and the JAX package's kernel
+takes the halos too); on the card that sweep is one launch of B1's task
+table over the resident stack.
+
 The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
 kernel (one launch per step) or the persistent chunk kernel (one launch per
@@ -44,8 +52,15 @@ carrier has filled ``sel``'s deep halos once per loop call. On an uneven
 mesh the plain step keeps its shape (the axis carrier takes the uneven
 ring); the fused step kernel is uniform-only, as on the TPU, so the fused
 variant runs the JAX package's host-orchestrated schedule
-(:func:`_uneven_fused_loop`), and the persistent variant is refused by the
-exchange.
+(:func:`_uneven_fused_loop`), and the persistent chunk takes its uneven
+form: per chunk the deep exchange (B6's uneven ring) and one launch of the
+chunk body over every position at its own size
+(:func:`persistent_stencil.persistent_jacobi_mesh`), 2 launches a chunk as
+the JAX package counts them. On resident blocks the plain remote-dma step
+is the exchange (the axis carrier over every block) and one sweep launch
+over every block: the stack of one device, or each position's stack of an
+oversubscribed mesh (the blocks as views into their stacks); the fused and
+persistent variants take one block a position, as in the JAX package.
 
 :func:`make_batched_jacobi_loop` steps a campaign slot, a ``(B, pz, py,
 px)`` stack of independent single-block tenants: one tenant-form sweep
@@ -62,7 +77,7 @@ import torch
 
 from ..api import resolve_device
 from ..geometry import Dim3, Rect3, exterior_regions
-from ..parallel.exchange import Method, shard_blocks
+from ..parallel.exchange import Method, shard_blocks, split_positions
 from ..parallel.mesh import DeviceMesh
 from ..utils import logging as log
 from ..utils import timer
@@ -76,12 +91,14 @@ from .shells import dyn_block_sizes, include_axes, shell_regions
 from .stencil_kernels import (
     COLD_TEMP,
     HOT_TEMP,
+    MULTISTEP_KMAX,
     TEMPORAL_K_CAP,
     _sphere_masks,
     block_sel_range,
     block_sel_ranges,
     multi_block_axes,
     multistep,
+    multistep_shape,
     plan_multistep_depth,
     sel_z_range,
     sixth,
@@ -169,6 +186,8 @@ def sphere_sel_blocks(spec, device):
     if not isinstance(device, DeviceMesh):
         hot, cold = sphere_masks_from_coords(spec, device)
         return shard_blocks(hot.to(torch.int32) + 2 * cold.to(torch.int32), spec, device)
+    if device.dim != spec.dim:  # each position's resident stack
+        return split_positions(sphere_sel_blocks(spec, device.device), spec, device)
     g, p, off = spec.global_size, spec.padded(), spec.compute_offset()
     blocks = []
     for pos, dev in zip(device.positions(), device.devices):
@@ -222,7 +241,7 @@ def _sel_ranges(ex, standard_spheres: bool):
     if not standard_spheres:
         return None
     spec = ex.spec
-    if ex.on_mesh:
+    if ex.on_mesh and not ex.oversubscribed:
         return [block_sel_range(spec, Dim3.of(pos).z) for pos in ex.mesh.positions()]
     return block_sel_ranges(spec)
 
@@ -233,6 +252,13 @@ def _step_body(ex, overlap: bool, ranges=None):
     block's ``ranges`` (:func:`_sel_ranges`). ``curr``'s halos are updated
     in place by the exchange."""
     spec = ex.spec
+    if ex.method == Method.DIRECT26:
+        require_face_radius(spec)
+
+        def body(curr, nxt, sel):
+            ex(curr)
+            return sweep(curr, nxt, sel, spec, NO_WRAP, ranges), curr
+        return body
     wrap, axes, shells = multi_block_layout(spec)
     if not axes:  # every axis wraps inside the kernel: no exchange at all
         return lambda curr, nxt, sel: (sweep(curr, nxt, sel, spec, wrap, ranges), curr)
@@ -268,9 +294,17 @@ def _ignored(temporal_k, why: str) -> None:
 def _sweep_step(ex, ranges=None):
     """``step(curr, nxt, sel) -> out``: one no-wrap sweep reading the filled
     halos, ``sel`` imposed on each block's ``ranges``; over a mesh (whose
-    operands are lists of blocks) one launch for every position."""
+    operands are lists of per-position stacks) one launch for every block
+    of every position, each a view into its stack (the exchange's
+    endpoints)."""
     spec = ex.spec
-    if ex.on_mesh:
+    if ex.on_mesh and ex.oversubscribed:
+        bspec, ends = spec.block_spec(), ex._remote._endpoints
+
+        def step(curr, nxt, sel):
+            sweep_positions(ends(curr), ends(nxt), ends(sel), bspec, ranges)
+            return nxt
+    elif ex.on_mesh:
         bspec = spec.block_spec()
 
         def step(curr, nxt, sel):
@@ -364,9 +398,11 @@ def _persistent_loop(ex, iters: int, temporal_k, ranges=None):
     where ``result_in_nxt`` says; the other buffer becomes the scratch.
     ``ex.last_launches_per_chunk`` counts as the JAX package does: 1 per
     kernel chunk on the card, 2 per chunk that runs as exchange + chunk
-    program (the CPU's plain versions, a depth-1 tail)."""
+    program (the CPU's plain versions, a depth-1 tail, and every chunk of an
+    uneven mesh: its deep exchange, then the chunk kernel's uneven form)."""
     spec = ex.spec
     require_face_radius(spec)
+    uneven = not spec.is_uniform()
     r = spec.radius
     k = (int(temporal_k) if temporal_k is not None
          else min(r.x(-1), r.x(1), r.y(-1), r.y(1), r.z(-1), r.z(1)))
@@ -387,9 +423,11 @@ def _persistent_loop(ex, iters: int, temporal_k, ranges=None):
         launches = 0
         for d in sched:
             if d >= 2:
+                if uneven:
+                    ex(curr)  # the deep halo, once a chunk
                 chunk(curr, nxt, sel, d)
                 out, scratch = (nxt, curr) if result_in_nxt(d) else (curr, nxt)
-                launches += 1 if on_card else 2
+                launches += 1 if on_card and not uneven else 2
             else:
                 ex(curr)
                 out, scratch = tail(curr, nxt, sel), curr
@@ -400,6 +438,29 @@ def _persistent_loop(ex, iters: int, temporal_k, ranges=None):
 
     loop.temporal_k = k
     return loop
+
+
+def multistep_heights() -> dict:
+    """The tile heights the multistep kernel is built for: ``{(k, dtype
+    name): rows}`` for every depth and both cell types."""
+    return {(k, name): multistep_shape(k, item)["tile"][1]
+            for k in range(1, MULTISTEP_KMAX + 1)
+            for name, item in (("float32", 4), ("float64", 8))}
+
+
+def check_multistep_rows(rows: int, k: int) -> None:
+    """Refuse a ``multistep_rows`` the depth-``k`` multistep kernel is not
+    built for (the JAX package's ``valid_strip_rows`` assertion): on the
+    card the rows are the kernel's tile height, which its instantiation
+    fixes, so a legal value selects nothing new; the error names the
+    heights each depth is built for."""
+    legal = {multistep_heights()[(k, name)] for name in ("float32", "float64")}
+    if rows not in legal:
+        built = ", ".join(f"k={kk} {name}: {h}" for (kk, name), h in
+                          sorted(multistep_heights().items()))
+        raise ValueError(f"multistep_rows={rows} illegal for k={k}: the multistep kernel "
+                         f"is built for tile heights {sorted(legal)} at this depth "
+                         f"({built})")
 
 
 def make_jacobi_step(ex, overlap: bool = True, standard_spheres: bool = True):
@@ -416,7 +477,7 @@ def make_jacobi_step(ex, overlap: bool = True, standard_spheres: bool = True):
 
 
 def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: bool = True,
-                     temporal_k: Optional[int] = None):
+                     temporal_k: Optional[int] = None, multistep_rows: Optional[int] = None):
     """``loop(curr, nxt, sel) -> (new_curr, new_next)`` advancing ``iters``
     steps: ``iters // k`` multistep passes of depth ``k`` (each
     ``(multistep(c, x), c)``, after an exchange of the multi-block axes on
@@ -436,11 +497,22 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
     every plane. The chosen depth is ``loop.temporal_k`` (0 when only
     sweeps run).
 
+    ``multistep_rows`` is the JAX package's strip height of the multistep
+    (its row-tiled staging); on the card it is the multistep kernel's tile
+    height, which each depth's instantiation fixes, so a value the kernel is
+    not built for raises (:func:`check_multistep_rows`) and a legal one
+    changes nothing; when the multistep does not engage it is ignored with
+    a warning, as in the JAX package.
+
     A remote-dma exchange runs its own loop instead (see the module
     docstring); ``temporal_k`` is then the persistent chunk depth, and the
-    plain and fused loops ignore it with a warning, as in the JAX package."""
+    plain and fused loops ignore it with a warning, as in the JAX package.
+    A direct26 exchange runs the full exchange and a sweep every step."""
     ranges = _sel_ranges(ex, standard_spheres)
     if ex.method == Method.REMOTE_DMA:
+        if multistep_rows is not None:
+            log.warn(f"multistep_rows={multistep_rows} ignored: row-strip staging is the "
+                     "composed multistep's knob")
         if ex.persistent:
             return _persistent_loop(ex, iters, temporal_k, ranges)
         loop = (_fused_loop if ex.fused else _remote_loop)(ex, iters, temporal_k, ranges)
@@ -459,9 +531,19 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
             if m:
                 k_want = min(k_want, rl, rh)
         k = (plan_multistep_depth(k_want)
-             if standard_spheres and (overlap or not axes) and spec.is_uniform() else 0)
+             if standard_spheres and (overlap or not axes) and spec.is_uniform()
+             and ex.method == Method.AXIS_COMPOSED else 0)
         if k < 2:
             k = 0
+        if multistep_rows is not None:
+            if k:
+                check_multistep_rows(int(multistep_rows), k)
+            else:
+                # a probe must never attribute per-step numbers to row tiling
+                log.warn(f"multistep_rows={multistep_rows} ignored: the temporal multistep "
+                         "did not engage (overlap off, non-uniform partition, direct26, "
+                         "iters/radius too small, or non-standard spheres) - timings reflect "
+                         "the per-step kernels")
         step = _step_body(ex, overlap, ranges)
 
     def loop(curr, nxt, sel):

@@ -19,6 +19,16 @@ operand order, so the chunk equals k plain steps bit for bit.
   substeps of every position; :func:`persistent_jacobi_mesh_plain` is the
   deep messages position by position, then the chunk body per position.
   One block is the kernel's one-position case.
+- On an uneven partition (remainder splits, where the TPU kernel refuses and
+  the JAX package runs one deep exchange and its XLA chunk body,
+  ``stencil_tpu/ops/jacobi.py:560-616``) :func:`persistent_jacobi_mesh`
+  takes the kernel's uneven form: no messages, since the caller's deep
+  exchange (B6's uneven ring at the chunk's radius) has filled the halos,
+  then the passes of every position, each over its own grown regions at its
+  own extent (a table of the positions' extents,
+  ``persistent_jacobi_uneven_launch``); its plain version is
+  :func:`make_persistent_chunk_body` at each position's own size. Its
+  launches are also counted in ``persistent_jacobi_mesh.uneven``.
 
 The result contract. The kernel keeps every substep of a tile on chip, in
 on-chip passes of at most :data:`ONCHIP_KMAX` substeps
@@ -85,6 +95,40 @@ def check_chunk_depth(spec: GridSpec, depth: int) -> None:
 # the deepest on-chip pass the kernel instantiates (csrc/mesh_chunk.cuh
 # ONCHIP_KMAX): its register windows grow with the depth
 ONCHIP_KMAX = 6
+# csrc/mesh_chunk.cuh: a pass's output tile edge (x and y), and the tiles
+# wanted per resident block when choosing the z chunk
+ONCHIP_TILE = 32
+TILES_PER_BLOCK = 4
+
+
+def zchunk_for(want: int, cols: int, nz: int) -> int:
+    """Planes of a z chunk (csrc/jacobi_column.cuh ``zchunk_for``): ``nz``
+    split into ``ceil(want / cols)`` chunks, at least one, at most ``nz``."""
+    nzc = min(max(1, -(-want // cols)), nz)
+    return -(-nz // nzc)
+
+
+def onchip_walk(extents, g: int, blocks: int) -> list:
+    """The tiles one on-chip pass walks (``onchip_pass`` in
+    ``csrc/mesh_chunk.cuh``) over positions of compute ``extents`` (``(nz,
+    ny, nx)`` each; every position the first's on a uniform mesh, where the
+    kernel takes no extent table), writing each position's region grown by
+    ``g``, with ``blocks`` resident blocks: ``[(position, X0, Y0, Z0, Z1, ex,
+    ey)]`` in the walk's order, each a ``ONCHIP_TILE``-square column of
+    planes ``[Z0, Z1)`` of the position's ``ex`` x ``ey`` region (tile offsets
+    from the region's first cell). The z chunk is chosen once a pass, from
+    every position's columns and the largest extent."""
+    grown = [(z + 2 * g, y + 2 * g, x + 2 * g) for z, y, x in extents]
+    t = ONCHIP_TILE
+    cols = [-(-ex // t) * -(-ey // t) for _ez, ey, ex in grown]
+    zchunk = zchunk_for(TILES_PER_BLOCK * blocks, sum(cols), max(e[0] for e in grown))
+    out = []
+    for i, (ez, ey, ex) in enumerate(grown):
+        gx, gy = -(-ex // t), -(-ey // t)
+        for u in range(gx * gy * -(-ez // zchunk)):
+            z0 = (u // (gx * gy)) * zchunk
+            out.append((i, (u % gx) * t, ((u // gx) % gy) * t, z0, min(ez, z0 + zchunk), ex, ey))
+    return out
 
 
 def chunk_passes(k: int) -> List[int]:
@@ -105,18 +149,20 @@ def result_in_nxt(k: int) -> bool:
     return len(chunk_passes(k)) % 2 == 1
 
 
-def make_persistent_chunk_body(spec: GridSpec, depth: int):
+def make_persistent_chunk_body(spec: GridSpec, depth: int, size=None):
     """``chunk(curr, nxt, sel) -> (result, other)`` over one halo-filled
     block, in place, as the kernel writes it: for each on-chip pass of
     :func:`chunk_passes`, its substeps on temporaries (substep ``s`` of a
     chunk computing the region grown ``depth - 1 - s`` cells per side) and
     only the pass's last substep stored, into the other buffer. The result
-    is in ``nxt`` when :func:`result_in_nxt`, else in ``curr``."""
+    is in ``nxt`` when :func:`result_in_nxt`, else in ``curr``. ``size``
+    (x, y, z; default the base block) is the block's own compute extent, as
+    a smaller block of an uneven partition has it."""
     from .jacobi import jacobi_sweep
 
     check_chunk_depth(spec, depth)
     off = spec.compute_offset()
-    base = spec.base
+    base = spec.base if size is None else Dim3.of(size)
 
     def rect(g):
         return Rect3(Dim3(off.x - g, off.y - g, off.z - g),
@@ -152,6 +198,8 @@ def deep_dir_phases(spec: GridSpec, mesh_dim):
 
 
 def _require_kernel_form(spec: GridSpec, k: int, mesh=None) -> None:
+    """One block, or a mesh of one block a position (uniform or uneven), at
+    a depth ``k >= 2`` the realized halo feeds."""
     if mesh is None and spec.dim != Dim3(1, 1, 1):
         raise NotImplementedError(
             f"partition {spec.dim}: persistent_jacobi runs one block; a mesh of block "
@@ -211,13 +259,26 @@ def persistent_jacobi(curr, nxt, sel, spec: GridSpec, k: int):
 persistent_jacobi.launches = 0
 
 
+def position_extents(spec: GridSpec, mesh) -> tuple:
+    """Each position's compute extent ``(nz, ny, nx)``, in the mesh's flat
+    order: the uneven form's extent table."""
+    return tuple((b.z, b.y, b.x) for b in (spec.block_size(pos) for pos in mesh.positions()))
+
+
 def persistent_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, k: int, mesh):
     """One k-step chunk over a mesh in plain PyTorch: every position's
     ``curr`` halos <- the deep messages (:func:`deep_dir_phases` on the
     mesh, the message toward ``d`` to position + d; in place), then the
-    chunk body on each position. Returns ``(currs, nxts, sels)``; the
-    result is in ``nxts`` when :func:`result_in_nxt`, else in ``currs``."""
+    chunk body on each position. On an uneven partition no messages (the
+    caller's deep exchange has filled the halos) and each position's body
+    at its own size. Returns ``(currs, nxts, sels)``; the result is in
+    ``nxts`` when :func:`result_in_nxt`, else in ``currs``."""
     _require_kernel_form(spec, k, mesh)
+    if not spec.is_uniform():
+        bspec = spec.block_spec()
+        for c, n, s, (z, y, x) in zip(currs, nxts, sels, position_extents(spec, mesh)):
+            make_persistent_chunk_body(bspec, k, (x, y, z))(c, n, s)
+        return currs, nxts, sels
     boxes, dests_by_box = _deep_messages(spec, mesh)
     for (src, dst, shape), dests in zip(boxes, dests_by_box):
         s, d = box_slices(src, dst, shape)
@@ -233,29 +294,52 @@ def persistent_jacobi_mesh(currs, nxts, sels, spec: GridSpec, k: int, mesh):
     """One k-step chunk of every position of ``mesh`` (see
     :func:`persistent_jacobi_mesh_plain`), in place: lists of one padded
     block of ``spec`` per position, on the mesh's one device, ``sels``
-    halo-filled. CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/persistent_jacobi.cu`` once for every position, or raise.
-    Returns ``(currs, nxts, sels)``."""
+    halo-filled (and on an uneven partition ``currs`` too, at radius k).
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/persistent_jacobi.cu`` once for every position (its uneven form
+    on an uneven partition), or raise. Returns ``(currs, nxts, sels)``."""
     dev = check_mesh_fields(currs, nxts, sels, spec, mesh, "persistent_jacobi_mesh")
     _require_kernel_form(spec, k, mesh)
     if dev.type == "cpu":
         return persistent_jacobi_mesh_plain(currs, nxts, sels, spec, k, mesh)
-    boxes, dests = _deep_messages(spec, mesh)
-    rc = launch_mesh_chunk(_native.lib("persistent_jacobi").persistent_jacobi_launch, currs,
-                           nxts, sels, spec, boxes, dests, dev, k)
+    lib = _native.lib("persistent_jacobi")
+    if spec.is_uniform():
+        boxes, dests = _deep_messages(spec, mesh)
+        rc = launch_mesh_chunk(lib.persistent_jacobi_launch, currs, nxts, sels, spec, boxes,
+                               dests, dev, k)
+    else:
+        rc = launch_uneven_chunk(lib.persistent_jacobi_uneven_launch, currs, nxts, sels, spec,
+                                 mesh, dev, k)
+        persistent_jacobi_mesh.uneven += 1
     _native.check(rc, "persistent_jacobi_mesh")
     persistent_jacobi_mesh.launches += 1
     return currs, nxts, sels
 
 
 persistent_jacobi_mesh.launches = 0
+persistent_jacobi_mesh.uneven = 0  # the launches of the uneven form
 
 
-def chunk_bytes(spec: GridSpec, k: int) -> int:
+def launch_uneven_chunk(entry, currs, nxts, sels, spec: GridSpec, mesh, dev, k: int) -> int:
+    """Call the uneven form's entry (``persistent_jacobi_uneven_launch``)
+    over every position: the position table of :func:`mesh_tables`' rows and
+    the extent table (:func:`position_extents`), each kept per key; returns
+    its CUDA error code."""
+    ptrs = tuple(t.data_ptr() for row in zip(currs, nxts, sels) for t in row)
+    pos = _native.device_table(("mesh_positions", ptrs), lambda: list(ptrs), dev)
+    ext = position_extents(spec, mesh)
+    table = _native.device_table(("mesh_extents", ext), lambda: [v for e in ext for v in e], dev)
+    p, off, b = spec.padded(), spec.compute_offset(), spec.base
+    return entry(pos.data_ptr(), len(currs), table.data_ptr(), p.y * p.x, p.x, off.z, off.y,
+                 off.x, b.z, b.y, b.x, k, dev.index, _native.stream_ptr(dev))
+
+
+def chunk_bytes(spec: GridSpec, k: int, size=None) -> int:
     """The least bytes a chunk must move: one read of ``curr`` and ``sel``
     and one write of the result over the block grown by its radius-k halo
-    (4 bytes each)."""
-    b = spec.base
+    (4 bytes each); ``size`` (x, y, z) a block's own extent (default the
+    base block)."""
+    b = spec.base if size is None else Dim3.of(size)
     return 12 * (b.x + 2 * k) * (b.y + 2 * k) * (b.z + 2 * k)
 
 

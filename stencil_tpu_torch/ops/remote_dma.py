@@ -2,7 +2,9 @@
 
 The port's counterpart of ``stencil_tpu.ops.remote_dma``. A mesh
 (``parallel.mesh.DeviceMesh``) holds one block per position, each its own
-allocation; each axis phase of the composed x -> y -> z geometry (the
+allocation (on more blocks than positions, or on the resident blocks of
+one device, every block is an endpoint: :class:`RemoteDmaExchange`); each
+axis phase of the composed x -> y -> z geometry (the
 plan's ``RemoteDmaPhaseIR``) moves every position's two boundary slabs
 straight into its ring neighbours' halos:
 
@@ -71,6 +73,7 @@ from typing import Sequence
 import torch
 
 from ..domain.grid import GridSpec
+from ..geometry import Dim3
 from . import _native, row_moves
 from .halo_fill import (MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, axis_sizes,
                         dtype_groups, self_fill, wire_code, wire_round)
@@ -278,31 +281,73 @@ def self_wrap_positions(state, keys, spec: GridSpec, axis: str) -> None:
 
 
 class RemoteDmaExchange:
-    """The remote-dma transport of a ``HaloExchange`` over a mesh: the
-    composed phases x -> y -> z, a ring phase as one :func:`remote_axis`
-    call per dtype group (through the exchange's wire), an axis with one
-    position as self-wrap fills. ``state`` is ``{key: [block per
-    position]}``; in place."""
+    """The remote-dma transport of a ``HaloExchange`` over a mesh, or over
+    the resident blocks of one device: the composed phases x -> y -> z over
+    the partition's blocks, each block an endpoint (a view into its
+    position's stack, or into the device's resident stack), a ring phase
+    as one :func:`remote_axis` call per same-dtype group (through the
+    exchange's wire) or per quantity (quantity batching off), an axis with
+    one block as self-wrap fills. ``state`` is ``{key: [stack per
+    position]}`` on a mesh, ``{key: stacked tensor}`` on one device; in
+    place. ``last_transfer_count`` counts the slabs that left a position
+    (resident shifts stay on it)."""
 
     def __init__(self, ex):
+        from ..plan.ir import REMOTE_DMA, build_plan
+
         self.spec = ex.spec
         self.plan = ex.plan
         self.mesh = ex.mesh
-        self.wire = ex.wire_dtype
+        self.wire = ex.wire_dtype if ex.mesh is not None else None
+        self.batch = ex.batch_quantities
+        self.blocks_of_positions = ex.mesh is None or ex.resident != Dim3(1, 1, 1)
+        # the carriers' phases: a ring over every block of the partition
+        self.block_plan = (build_plan(self.spec, self.spec.dim, REMOTE_DMA)
+                           if self.blocks_of_positions else self.plan)
+        self._block_meshes = {}
         self.last_transfer_count = 0
+
+    def _block_mesh(self, dev):
+        """The mesh of every block of the partition on ``dev`` (flat order,
+        x fastest), which the carriers' work lists and pointer tables take."""
+        from ..parallel.mesh import DeviceMesh
+
+        if dev not in self._block_meshes:
+            self._block_meshes[dev] = DeviceMesh(self.spec.dim, [dev] * self.spec.num_blocks())
+        return self._block_meshes[dev]
+
+    def _endpoints(self, stacks):
+        """One quantity's blocks as ``(1, 1, 1, pz, py, px)`` views in the
+        partition's flat order, from its stacked tensor (one device) or its
+        list of per-position stacks (a mesh)."""
+        if not self.blocks_of_positions:
+            return list(stacks)
+        p = self.spec.padded()
+        if self.mesh is None:
+            return list(stacks.view(-1, 1, 1, 1, p.z, p.y, p.x).unbind(0))
+        from ..parallel.exchange import position_blocks
+
+        return [stacks[i][j].view(1, 1, 1, p.z, p.y, p.x)
+                for i, j in position_blocks(self.spec, self.mesh)]
 
     def __call__(self, state, axes=None):
         self.last_transfer_count = 0
-        groups = dtype_groups({k: blocks[0] for k, blocks in state.items()})
-        for phase in self.plan.remote_phases:
+        first = next(iter(state.values()))
+        dev = (first[0] if isinstance(first, (list, tuple)) else first).device
+        mesh = self._block_mesh(dev) if self.blocks_of_positions else self.mesh
+        ends = {k: self._endpoints(v) for k, v in state.items()}
+        groups = [keys for _dt, keys in dtype_groups({k: b[0] for k, b in ends.items()})]
+        if not self.batch:
+            groups = [[k] for keys in groups for k in keys]
+        for phase, block_phase in zip(self.plan.remote_phases, self.block_plan.remote_phases):
             if not phase.active or (axes is not None and phase.axis not in axes):
                 continue
-            for _dt, keys in groups:
-                if phase.ring > 1:
-                    blocks = [[state[k][i] for k in keys] for i in range(len(self.mesh))]
-                    remote_axis(blocks, self.spec, phase, self.mesh, self.wire)
-                    self.last_transfer_count += len(self.mesh) * (
-                        (phase.rm > 0) + (phase.rp > 0))
+            for keys in groups:
+                if block_phase.ring > 1:
+                    blocks = [[ends[k][i] for k in keys] for i in range(len(mesh))]
+                    remote_axis(blocks, self.spec, block_phase, mesh, self.wire)
                 else:
-                    self_wrap_positions(state, keys, self.spec, phase.axis)
+                    self_wrap_positions(ends, keys, self.spec, phase.axis)
+                if phase.ring > 1:
+                    self.last_transfer_count += len(self.mesh) * ((phase.rm > 0) + (phase.rp > 0))
         return state

@@ -25,31 +25,61 @@ axes, so edges and corners compose exactly as in the JAX package.
   (``o + n_i``), as in the JAX package's per-block offsets
   (``_resident_sizes``): one indexed copy per block and side.
 
+``Method.DIRECT26`` is the reference's literal 26 messages (the JAX
+package's ``_direct26_batched`` and ``_direct26_batched_uneven``): per
+active direction of the plan's ``direct_phases``, every resident's
+exact-extent box of compute cells goes to the resident one block further
+along that direction (cyclically; ``torch.roll`` of the gathered boxes over
+the block dims, the JAX package's ``_roll_blocks`` on one device). On an
+uneven partition the boxes keep the base block size on the direction's
+zero axes (each block's box starts at its own hi side on a nonzero axis),
+the messages run face -> edge -> corner, and a padded write that spills
+into a band of a later direction is overwritten there, as in the JAX
+package, dead pad included. Copies and rolls are the port's counterpart of
+the XLA data movement the JAX package compiles this method to; it has no
+Pallas kernel.
+
 ``Method.REMOTE_DMA`` moves the same composed slabs by copies a kernel
 issues; on one block every phase wraps onto the block itself, so its
 exchange is the same three fills (the JAX package takes its composed body
-there too). Its ``fused`` and ``persistent`` kernel variants change the step
-loops (``ops/jacobi.py``), which then exchange inside their own kernels.
-REMOTE_DMA on resident blocks is not ported yet (ROADMAP.md).
+there too). On resident blocks every block is an endpoint of the axis
+carrier (``ops/remote_dma.RemoteDmaExchange``: a view into its stack), so
+a ring phase over the blocks is one launch of B6 per dtype group, and an
+axis with one block a self-wrap fill; the plan keeps the REMOTE_DMA
+accounting of the (1,1,1) mesh. Its ``fused`` and ``persistent`` kernel
+variants change the step loops (``ops/jacobi.py``), which then exchange
+inside their own kernels; they take one block per position, as in the JAX
+package.
+
+``batch_quantities`` (``DistributedDomain.set_quantity_batching``) picks the
+carrier of a same-dtype group: on (the default), the direct26 messages and
+the resident phases move the group's boxes as one packed carrier per
+message or side, and the fills take up to ``MAX_FILL_GROUP`` blocks a
+launch; off, every quantity moves on its own. The cells are the same either
+way.
 
 State layout, as in the JAX package: each quantity is one tensor of shape
 ``(bz, by, bx, pz, py, px)``. Unlike the JAX version, the exchange updates
 the tensors in place (it still returns the state dict).
 
 Over a mesh of several block positions (``mesh=``, a
-``parallel.mesh.DeviceMesh`` with one block per position) each quantity is
-a list of ``(1, 1, 1, pz, py, px)`` blocks, one per position in the mesh's
-flat order, each its own allocation, and the exchange is REMOTE_DMA: the
+``parallel.mesh.DeviceMesh``) each quantity is a list of ``(cz, cy, cx, pz,
+py, px)`` stacks, one per position in the mesh's flat order, each its own
+allocation: one block a position (``(1, 1, 1, ...)``), or the resident
+blocks of an oversubscribed mesh (partition / mesh shape, position
+``(ix, iy, iz)`` holding blocks ``ix * cx ...``), every block then an
+endpoint of the axis carrier. The exchange is REMOTE_DMA: the
 axis carrier (``ops/remote_dma.RemoteDmaExchange``; also with
 ``persistent``, at the deep radius) or, with ``fused``, the fused exchange
 carrier (``ops/fused_stencil.FusedRemoteDmaExchange``). The fused and
 persistent jacobi loops then step through their kernels' wire-crossing
 forms, one launch over every position (``ops/jacobi.py``). On an uneven
 partition the axis carrier takes the uneven ring (B6's size table); the
-fused exchange carrier, the fused step and the persistent chunk take
-uniform partitions only, as on the TPU, so ``fused`` exchanges through the
-axis carrier and steps by the JAX package's host-orchestrated schedule,
-and ``persistent`` raises.
+fused exchange carrier and the fused step take uniform partitions only, as
+on the TPU, so ``fused`` exchanges through the axis carrier and steps by
+the JAX package's host-orchestrated schedule, and ``persistent`` runs the
+deep exchange through the axis carrier once a chunk, then the chunk
+kernel's uneven form (messages off, each position at its own extent).
 The mesh's positions must share one device (the reference's
 ``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
 waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
@@ -72,9 +102,9 @@ import torch
 
 from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, halo_extent
-from ..ops.fused_stencil import FusedRemoteDmaExchange, kernel_supported
+from ..ops.fused_stencil import FusedRemoteDmaExchange, box_slices, kernel_supported
 from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom, axis_sizes,
-                             dtype_groups, self_fill, wire_name)
+                             dtype_groups, pack_slabs, self_fill, unpack_slabs, wire_name)
 from ..ops.remote_dma import RemoteDmaExchange
 from ..plan.ir import build_plan
 from .mesh import DeviceMesh
@@ -82,9 +112,11 @@ from .mesh import DeviceMesh
 
 class Method(enum.Enum):
     """Exchange strategy, named as in the JAX package; the port has the
-    axis-composed and remote-dma exchanges so far."""
+    axis-composed, direct26 and remote-dma exchanges (auto-spmd, the SPMD
+    partitioner's, is ROADMAP.md queue A item 5)."""
 
     AXIS_COMPOSED = "axis-composed"
+    DIRECT26 = "direct26"
     REMOTE_DMA = "remote-dma"
 
 
@@ -105,22 +137,26 @@ def direction_bytes(spec: GridSpec, direction, itemsize: int) -> int:
 
 class HaloExchange:
     """The exchange of a domain whose blocks all sit on one device:
-    axis-composed over any partition, uniform or uneven, or remote-dma
-    (with its ``fused`` or ``persistent`` kernel variant) on one block; or,
-    with ``mesh`` of several positions, remote-dma over the mesh (the axis
-    carrier, or the fused exchange carrier with ``fused`` on a uniform
-    partition), again with either kernel variant (``persistent`` on a
-    uniform partition only). ``wire_dtype`` narrows the carriers crossing
-    between positions (a no-op on one device); the persistent variant
-    over a mesh refuses it."""
+    axis-composed or direct26 over any partition, uniform or uneven, or
+    remote-dma (with its ``fused`` or ``persistent`` kernel variant on one
+    block, plain on resident blocks); or, with ``mesh`` of several
+    positions, remote-dma over the mesh (the axis carrier, or the fused
+    exchange carrier with ``fused`` on a uniform partition), with either
+    kernel variant on one block a position, and plain on more blocks than
+    positions. ``wire_dtype`` narrows the carriers crossing between
+    positions (a no-op on one device); the persistent variant over a mesh
+    and an oversubscribed mesh refuse it. ``batch_quantities`` picks one
+    carrier per same-dtype group (default) or one per quantity."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
                  fused: bool = False, persistent: bool = False,
-                 mesh: Optional[DeviceMesh] = None, wire_dtype=None):
-        if method not in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
+                 mesh: Optional[DeviceMesh] = None, wire_dtype=None,
+                 batch_quantities: bool = True):
+        if not isinstance(method, Method):
             raise NotImplementedError(
-                f"{method}: the port has the axis-composed and remote-dma exchanges only")
+                f"{method}: the port has the axis-composed, direct26 and remote-dma exchanges")
         self.wire_dtype = wire_name(wire_dtype)
+        self.batch_quantities = bool(batch_quantities)
         self.mesh = mesh if mesh is not None and len(mesh) > 1 else None
         if self.mesh is None:
             # one device holds every block: the mesh is (1,1,1)
@@ -128,7 +164,7 @@ class HaloExchange:
             self.resident = spec.dim
         else:
             mesh_dim = self._check_mesh(spec, method, self.mesh)
-            self.resident = Dim3(1, 1, 1)
+            self.resident = position_resident(spec, self.mesh)
         self.fused = bool(fused)
         if self.fused and method != Method.REMOTE_DMA:
             raise ValueError(
@@ -158,16 +194,12 @@ class HaloExchange:
                 f"the {variant} variant supports single-resident partitions "
                 f"only (got resident {self.resident}); use plain REMOTE_DMA "
                 "or AXIS_COMPOSED for oversubscription")
-        if self.persistent and not spec.is_uniform():
+        if self.wire_dtype and self.mesh is not None and self.oversubscribed:
             raise NotImplementedError(
-                f"uneven partition {spec.dim} of {spec.global_size}: the persistent chunk "
-                "kernel is uniform-only, as on the TPU; the JAX package's XLA chunk body is "
-                "ROADMAP.md queue A item 2.6")
-        if method == Method.REMOTE_DMA and self.oversubscribed:
-            raise NotImplementedError(
-                f"REMOTE_DMA on resident blocks (partition {spec.dim} on one device) is "
-                "item 3 of ROADMAP.md's list of what the resident path still lacks; "
-                "use AXIS_COMPOSED")
+                f"wire_dtype={self.wire_dtype} on an oversubscribed mesh (resident "
+                f"{self.resident}): the axis carrier narrows every slab of a ring phase, "
+                "and the shifts between residents of one position must stay lossless "
+                "(ROADMAP.md queue A item 5)")
         for axis in AXIS_ORDER:
             _o, _n, rm, rp = axis_geom(spec, axis)
             n = min(axis_sizes(spec, axis))
@@ -177,9 +209,9 @@ class HaloExchange:
                     "halo would span multiple blocks")
         self.spec = spec
         self.method = method
-        self.plan = build_plan(spec, mesh_dim, method, resident=self.resident,
-                               wire_dtype=self.wire_dtype, fused=self.fused,
-                               persistent=self.persistent)
+        self.plan = build_plan(spec, mesh_dim, method, batch_quantities=self.batch_quantities,
+                               resident=self.resident, wire_dtype=self.wire_dtype,
+                               fused=self.fused, persistent=self.persistent)
         # device-program launches per k-step chunk of the last persistent
         # loop call, counted as the JAX package counts them (ops/jacobi.py)
         self.last_launches_per_chunk = 0
@@ -189,22 +221,20 @@ class HaloExchange:
             # the fused exchange carrier (B7) is uniform-only, as on the TPU
             fused_carrier = self.fused and kernel_supported(spec, self.resident)
             self._remote = (FusedRemoteDmaExchange if fused_carrier else RemoteDmaExchange)(self)
+        elif method == Method.REMOTE_DMA and self.oversubscribed:
+            # every resident block an endpoint of the axis carrier (B6)
+            self._remote = RemoteDmaExchange(self)
 
     @staticmethod
     def _check_mesh(spec: GridSpec, method: Method, mesh: DeviceMesh) -> Dim3:
-        """A mesh of several positions: REMOTE_DMA, one block per position,
-        every position on one device. Returns the mesh shape."""
+        """A mesh of several positions: REMOTE_DMA, the partition a multiple
+        of the mesh on every axis, every position on one device. Returns the
+        mesh shape."""
         if method != Method.REMOTE_DMA:
             raise NotImplementedError(
                 f"{method} on a mesh of {len(mesh)} positions: the port exchanges a mesh by "
                 "REMOTE_DMA only (collectives between GPUs are ROADMAP.md queue A item 5)")
-        if spec.num_blocks() > len(mesh):
-            raise NotImplementedError(
-                f"partition {spec.dim} ({spec.num_blocks()} blocks) on {len(mesh)} positions: "
-                "REMOTE_DMA takes one block per position, as the JAX carrier does; "
-                "oversubscribed REMOTE_DMA is ROADMAP.md queue A item 2")
-        if spec.dim != mesh.dim:
-            raise ValueError(f"mesh {mesh.dim} does not match partition {spec.dim}")
+        position_resident(spec, mesh)
         mesh.device  # raises for positions on distinct devices
         return mesh.dim
 
@@ -216,7 +246,7 @@ class HaloExchange:
     @property
     def last_transfer_count(self) -> int:
         """Slabs or messages sent to another position by the last mesh
-        exchange (0 on one position)."""
+        exchange (0 on one device)."""
         return self._remote.last_transfer_count if self._remote is not None else 0
 
     @property
@@ -237,23 +267,81 @@ class HaloExchange:
         if isinstance(state, (torch.Tensor, list, tuple)):
             self.exchange({0: state}, axes)
             return state
-        if self.mesh is not None:
+        if self._remote is not None:
             if isinstance(self._remote, FusedRemoteDmaExchange):
                 if axes is not None:
                     raise ValueError("the fused exchange moves every direction at once")
                 return self._remote(state)
             return self._remote(state, axes)
-        groups = dtype_groups(state)
+        if self.method == Method.DIRECT26:
+            if axes is not None:
+                raise ValueError("axis subsetting requires AXIS_COMPOSED")
+            for ts in self._carriers(state):
+                self._direct26(ts)
+            return state
         for phase in self.plan.axis_phases:
             if not phase.active or (axes is not None and phase.axis not in axes):
                 continue
-            for _dt, keys in groups:
+            for ts in self._carriers(state):
                 if phase.resident > 1:
-                    for k in keys:
-                        self._resident_phase(state[k], phase)
+                    self._resident_phase(ts, phase)
                 else:
-                    self._self_wrap_phase([state[k] for k in keys], phase.axis)
+                    self._self_wrap_phase(ts, phase.axis)
         return state
+
+    def _carriers(self, state) -> List[List[torch.Tensor]]:
+        """The tensors that move as one carrier: each same-dtype group of
+        ``state``, or each quantity alone when quantity batching is off."""
+        groups = [[state[k] for k in keys] for _dt, keys in dtype_groups(state)]
+        return groups if self.batch_quantities else [[t] for g in groups for t in g]
+
+    def _direct26(self, ts: List[torch.Tensor]) -> None:
+        """The 26 messages over the resident stacks ``ts`` (one same-dtype
+        carrier): per direction of the plan, each block's box gathered into
+        one carrier, rolled one block along the direction over the block
+        dims (cyclic), and written into the receivers' halo boxes. On a
+        uniform partition every box is the same rect, so a message is one
+        slice per quantity; on an uneven one each block's box starts at its
+        own hi side along the direction's nonzero axes."""
+        uniform = self.spec.is_uniform()
+        for ph in self.plan.direct_phases:
+            d = ph.direction
+            dims = [i for i, c in enumerate((d[2], d[1], d[0])) if c]
+            shifts = [(d[2], d[1], d[0])[i] for i in dims]
+            if uniform:
+                src, dst = box_slices(ph.src, ph.dst, ph.shape)
+                carrier = pack_slabs([t[src] for t in ts])
+            else:
+                boxes = self._uneven_boxes(ph)
+                carrier = pack_slabs([torch.stack([
+                    t[j][s] for j, (s, _d) in zip(np.ndindex(*t.shape[:3]), boxes)
+                ]).view(*t.shape[:3], *ph.shape) for t in ts])
+            boff = 1 if len(ts) > 1 else 0
+            carrier = torch.roll(carrier, shifts, [boff + i for i in dims])
+            for t, piece in zip(ts, unpack_slabs(carrier, len(ts))):
+                if uniform:
+                    t[dst] = piece
+                else:
+                    for j, (_s, dbox) in zip(np.ndindex(*t.shape[:3]), boxes):
+                        t[j][dbox] = piece[j]
+
+    def _uneven_boxes(self, ph):
+        """``[(src, dst)]`` slices of each block's box of direct26 message
+        ``ph`` on an uneven partition, in stacked (z, y, x) block order:
+        ``ph.shape`` from the block's hi side (``o + n - rm`` / ``o + n``)
+        along a +/- component, from the compute origin elsewhere."""
+        spec, r, off = self.spec, self.spec.radius, self.spec.compute_offset()
+        d = Dim3.of(ph.direction)
+        out = []
+        for iz, iy, ix in np.ndindex(spec.dim.z, spec.dim.y, spec.dim.x):
+            size = spec.block_size((ix, iy, iz))
+            src, dst = [], []
+            for dc, o, n, rm in zip((d.z, d.y, d.x), (off.z, off.y, off.x),
+                                    (size.z, size.y, size.x), (r.z(-1), r.y(-1), r.x(-1))):
+                src.append(o + n - rm if dc == 1 else o)
+                dst.append(o - rm if dc == 1 else o + n if dc == -1 else o)
+            out.append(box_slices(src, dst, ph.shape))
+        return out
 
     def _self_wrap_phase(self, ts, axis: str) -> None:
         """One self-wrap axis over every resident of the same-dtype
@@ -269,21 +357,25 @@ class HaloExchange:
         for i in range(0, len(blocks), MAX_FILL_GROUP):
             self_fill(blocks[i:i + MAX_FILL_GROUP], self.spec, axis, z_stack=z_stack)
 
-    def _resident_phase(self, t: torch.Tensor, phase) -> None:
-        """One axis phase over the resident blocks of one quantity: the lo
-        halos take the hi boundary slabs rolled one block up the block dim,
-        the hi halos the lo slabs rolled one block down (cyclic). On an
-        uneven axis, block by block at each block's own size."""
+    def _resident_phase(self, ts: List[torch.Tensor], phase) -> None:
+        """One axis phase over the resident blocks of the carrier ``ts``:
+        the lo halos take the hi boundary slabs rolled one block up the
+        block dim, the hi halos the lo slabs rolled one block down (cyclic),
+        the group's slabs packed into one carrier a side. On an uneven axis,
+        block by block at each block's own size."""
         o, n, rm, rp = axis_geom(self.spec, phase.axis)
         if not phase.uniform:
-            self._uneven_resident_phase(t, phase)
+            for t in ts:
+                self._uneven_resident_phase(t, phase)
             return
-        if rm:
-            t[_axis_slice(t, phase.axis, o - rm, o)] = torch.roll(
-                t[_axis_slice(t, phase.axis, o + n - rm, o + n)], 1, phase.bdim)
-        if rp:
-            t[_axis_slice(t, phase.axis, o + n, o + n + rp)] = torch.roll(
-                t[_axis_slice(t, phase.axis, o, o + rp)], -1, phase.bdim)
+        boff = 1 if len(ts) > 1 else 0
+        for width, lo, hi, shift in ((rm, o + n - rm, o - rm, 1), (rp, o, o + n, -1)):
+            if not width:
+                continue
+            carrier = torch.roll(pack_slabs([t[_axis_slice(t, phase.axis, lo, lo + width)]
+                                             for t in ts]), shift, boff + phase.bdim)
+            for t, piece in zip(ts, unpack_slabs(carrier, len(ts))):
+                t[_axis_slice(t, phase.axis, hi, hi + width)] = piece
 
     def _uneven_resident_phase(self, t: torch.Tensor, phase) -> None:
         """:meth:`_resident_phase` on an uneven axis (the JAX package's
@@ -327,21 +419,56 @@ class HaloExchange:
 
     def bytes_moved(self, itemsizes: Sequence[int]) -> int:
         """Bytes relocated by the composed phases, whose slabs span full
-        padded extents (>= bytes_logical)."""
+        padded extents (>= bytes_logical); for direct26 the logical bytes on
+        a uniform partition, and on an uneven one the messages' extents
+        padded to the base block size on their zero axes."""
         p = self.spec.padded()
         r = self.spec.radius
+        if self.method == Method.DIRECT26:
+            if self.spec.is_uniform():
+                return self.bytes_logical(itemsizes)
+            b = self.spec.base
+            total = 0
+            for d in DIRECTIONS_26:
+                if r.dir(-d) == 0:
+                    continue
+                ext = 1
+                for dc, rm, rp, n in ((d.z, r.z(-1), r.z(1), b.z), (d.y, r.y(-1), r.y(1), b.y),
+                                      (d.x, r.x(-1), r.x(1), b.x)):
+                    ext *= rm if dc == 1 else rp if dc == -1 else n
+                total += ext
+            return total * sum(itemsizes) * self.spec.num_blocks()
         per_item = (r.x(-1) + r.x(1)) * p.y * p.z
         per_item += (r.y(-1) + r.y(1)) * p.x * p.z
         per_item += (r.z(-1) + r.z(1)) * p.x * p.y
         return per_item * sum(itemsizes) * self.spec.num_blocks()
 
 
+def position_resident(spec: GridSpec, mesh: DeviceMesh) -> Dim3:
+    """Blocks a position of ``mesh`` holds along x, y and z (the partition
+    over the mesh shape, which must divide it)."""
+    d, m = spec.dim, mesh.dim
+    if d.x % m.x or d.y % m.y or d.z % m.z:
+        raise ValueError(f"mesh {m} does not divide partition {d}")
+    return Dim3(d.x // m.x, d.y // m.y, d.z // m.z)
+
+
+def position_blocks(spec: GridSpec, mesh: DeviceMesh):
+    """``[(position index, (jz, jy, jx))]`` of every block of the partition
+    in the stacked (z, y, x) block order: the position that holds it and its
+    place in that position's stack."""
+    c = position_resident(spec, mesh)
+    return [(mesh.index((ix // c.x, iy // c.y, iz // c.z)), (iz % c.z, iy % c.y, ix % c.x))
+            for iz, iy, ix in np.ndindex(spec.dim.z, spec.dim.y, spec.dim.x)]
+
+
 def shard_blocks(global_zyx, spec: GridSpec, device) -> Union[torch.Tensor, List[torch.Tensor]]:
     """Scatter a global [z,y,x] array (numpy, or a tensor) into the stacked
     padded layout ``(bz, by, bx, pz, py, px)`` on ``device``, keeping its
     dtype; halo and pad cells are 0. With a ``DeviceMesh`` for ``device``,
-    the blocks of a mesh: one ``(1, 1, 1, pz, py, px)`` block per position,
-    on that position's device (the JAX package's
+    the stacks of a mesh: one ``(cz, cy, cx, pz, py, px)`` stack of its
+    resident blocks per position (one block when the mesh matches the
+    partition), on that position's device (the JAX package's
     ``shard_blocks(global, spec, mesh)``)."""
     g = spec.global_size
     mesh = device if isinstance(device, DeviceMesh) else None
@@ -349,8 +476,7 @@ def shard_blocks(global_zyx, spec: GridSpec, device) -> Union[torch.Tensor, List
     if tuple(src.shape) != (g.z, g.y, g.x):
         raise ValueError(
             f"global array shape {tuple(src.shape)} != grid ({g.z}, {g.y}, {g.x})")
-    if mesh is not None:
-        _check_positions(spec, mesh)
+    if mesh is not None and position_resident(spec, mesh) == Dim3(1, 1, 1):
         p = spec.padded()
         blocks = []
         for pos, dev in zip(mesh.positions(), mesh.devices):
@@ -358,18 +484,19 @@ def shard_blocks(global_zyx, spec: GridSpec, device) -> Union[torch.Tensor, List
             b[0, 0, 0][_compute(spec, pos)] = src[_global(spec, pos)].to(dev)
             blocks.append(b)
         return blocks
-    stacked = torch.zeros(spec.stacked_shape_zyx(), dtype=src.dtype, device=device)
+    stacked = torch.zeros(spec.stacked_shape_zyx(), dtype=src.dtype,
+                          device=src.device if mesh else device)
     for iz in range(spec.dim.z):
         for iy in range(spec.dim.y):
             for ix in range(spec.dim.x):
                 stacked[iz, iy, ix][_compute(spec, (ix, iy, iz))] = \
                     src[_global(spec, (ix, iy, iz))]
-    return stacked
+    return split_positions(stacked, spec, mesh) if mesh is not None else stacked
 
 
 def unshard_blocks(stacked, spec: GridSpec) -> np.ndarray:
     """Gather the compute regions of a stacked tensor, or of a mesh's list
-    of per-position blocks, into a global [z,y,x] host array (halos
+    of per-position stacks, into a global [z,y,x] host array (halos
     dropped)."""
     g = spec.global_size
     arr = join_positions(stacked, spec) if isinstance(stacked, (list, tuple)) else stacked
@@ -394,25 +521,32 @@ def _global(spec: GridSpec, pos):
     return (slice(o.z, o.z + s.z), slice(o.y, o.y + s.y), slice(o.x, o.x + s.x))
 
 
-def _check_positions(spec: GridSpec, mesh: DeviceMesh) -> None:
-    if spec.dim != mesh.dim:
-        raise ValueError(f"mesh {mesh.dim} does not match partition {spec.dim}")
+def _stack_slices(spec: GridSpec, mesh: DeviceMesh, pos):
+    """Slices of the stacked block dims (z, y, x) that position ``pos``
+    holds."""
+    c = position_resident(spec, mesh)
+    return tuple(slice(i * n, (i + 1) * n) for i, n in zip(pos[::-1], (c.z, c.y, c.x)))
 
 
 def split_positions(stacked: torch.Tensor, spec: GridSpec, mesh: DeviceMesh) -> List[torch.Tensor]:
-    """A stacked ``(bz, by, bx, pz, py, px)`` tensor as a mesh's blocks: a
-    copy of each block, on its position's device, in flat order."""
-    _check_positions(spec, mesh)
+    """A stacked ``(bz, by, bx, pz, py, px)`` tensor as a mesh's stacks: a
+    copy of each position's ``(cz, cy, cx, pz, py, px)`` resident blocks, on
+    its position's device, in flat order."""
     if tuple(stacked.shape) != spec.stacked_shape_zyx():
         raise ValueError(f"shape {tuple(stacked.shape)} != {spec.stacked_shape_zyx()}")
-    p = spec.padded()
-    flat = stacked.reshape(-1, 1, 1, 1, p.z, p.y, p.x)
-    return [flat[i].to(dev, copy=True) for i, dev in enumerate(mesh.devices)]
+    return [stacked[_stack_slices(spec, mesh, pos)].to(dev, copy=True).contiguous()
+            for pos, dev in zip(mesh.positions(), mesh.devices)]
 
 
 def join_positions(blocks: Sequence[torch.Tensor], spec: GridSpec) -> torch.Tensor:
-    """A mesh's per-position blocks as one stacked ``(bz, by, bx, pz, py,
-    px)`` tensor (a copy, on the first block's device)."""
+    """A mesh's per-position stacks as one stacked ``(bz, by, bx, pz, py,
+    px)`` tensor (a copy, on the first stack's device); the mesh shape is
+    the partition over each stack's block dims."""
     dev = blocks[0].device
-    return torch.cat([b.reshape(1, *b.shape[-3:]).to(dev) for b in blocks]).view(
-        spec.stacked_shape_zyx())
+    c = Dim3(blocks[0].shape[2], blocks[0].shape[1], blocks[0].shape[0])
+    d = spec.dim
+    mesh = DeviceMesh(Dim3(d.x // c.x, d.y // c.y, d.z // c.z), ["cpu"] * len(blocks))
+    out = torch.empty(spec.stacked_shape_zyx(), dtype=blocks[0].dtype, device=dev)
+    for pos, b in zip(mesh.positions(), blocks):
+        out[_stack_slices(spec, mesh, pos)] = b.to(dev)
+    return out

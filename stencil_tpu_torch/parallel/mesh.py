@@ -1,7 +1,9 @@
 """A mesh of block positions: the partition grid laid onto devices.
 
 The port's counterpart of ``stencil_tpu.parallel.mesh`` (``grid_mesh``,
-``mesh_dim``). A :class:`DeviceMesh` holds one block per position; position
+``mesh_dim``). A :class:`DeviceMesh` holds one block per position (or a
+stack of resident blocks per position, ``parallel.exchange.position_blocks``;
+the exchange then runs a mesh of every block); position
 ``(ix, iy, iz)`` has flat index ``ix + dx * (iy + dy * iz)`` (z slowest, x
 fastest), the order of the JAX package's ``grid_mesh`` device array and of
 the stacked block layout ``(bz, by, bx, pz, py, px)``. Each position's

@@ -1,8 +1,11 @@
 """ExchangePlan IR — the declarative geometry of a halo exchange.
 
 The port's own copy of the part of ``stencil_tpu.plan.ir`` that the
-axis-composed and remote-dma exchanges lower from: the composed axis phases
-(:class:`AxisPhaseIR`), their kernel-initiated twins
+axis-composed, direct26 and remote-dma exchanges lower from: the composed
+axis phases (:class:`AxisPhaseIR`), the direct26 per-direction messages
+(:class:`DirectPhaseIR`: exact extents on a uniform partition; on an uneven
+one the orthogonal extents padded to the base block size and the messages
+in face -> edge -> corner order), the axis phases' kernel-initiated twins
 (:class:`RemoteDmaPhaseIR`), the fused variant's exact-extent per-direction
 messages (:class:`FusedPhaseIR`) and :func:`build_plan`. It is pure
 geometry — no torch, no devices — and builds plans for any partition, so
@@ -17,8 +20,8 @@ The wire model is carried over: a plan's ``wire_dtype`` (the narrowed wire
 of the remote-dma carriers, ``ops/halo_fill.wire_narrow_dtype``) prices
 wire-crossing cells at the narrowed itemsize in :meth:`ExchangePlan.wire_bytes`.
 
-Not carried over yet: the direct26 geometry (ROADMAP.md queue A item 2.3),
-the auto-spmd geometry and the hierarchical (DCN) level (queue A item 5), and
+Not carried over yet: the auto-spmd geometry and the hierarchical (DCN)
+level (ROADMAP.md queue A item 5), and
 the planner's ``PlanChoice`` (queue A item 4); each raises
 ``NotImplementedError``. Its problem key :class:`PlanConfig` is ported: the
 campaign's compile cache keys its programs with it.
@@ -51,8 +54,7 @@ PERSISTENT_VARIANT = "persistent"
 AXIS_ORDER = (("x", 5, 2), ("y", 4, 1), ("z", 3, 0))
 
 # where the geometries still to port stand in ROADMAP.md
-_LATER = {DIRECT26: "ROADMAP.md queue A item 2.3", AUTO_SPMD: "ROADMAP.md queue A item 5",
-          "hierarchy": "ROADMAP.md queue A item 5"}
+_LATER = {AUTO_SPMD: "ROADMAP.md queue A item 5", "hierarchy": "ROADMAP.md queue A item 5"}
 
 # Bytes a cell of each wire dtype pays (the JAX package's table; other
 # names resolve through numpy). The fp8 tier quarters fp32's wire bytes as
@@ -109,6 +111,30 @@ class AxisPhaseIR:
         if self.ring <= 1 or not self.active:
             return 0
         return (1 if self.rm > 0 else 0) + (1 if self.rp > 0 else 0)
+
+
+@dataclass(frozen=True)
+class DirectPhaseIR:
+    """One DIRECT26 direction message: ``shape`` (z, y, x) is the radius
+    along the direction's nonzero axes and the base block size on the
+    others; ``src``/``dst`` are block-local starts on a uniform partition
+    (None on an uneven one, where they depend on each block's size).
+    ``pairs`` is the flattened 26-neighbour permutation when every block
+    has its own position; with residents the move composes per-axis block
+    shifts, one collective per nonzero component whose axis has several
+    positions (``collective_count``)."""
+
+    direction: Tuple[int, int, int]       # (dx, dy, dz)
+    shape: Tuple[int, int, int]           # carrier extent (z, y, x)
+    src: Optional[Tuple[int, int, int]]
+    dst: Optional[Tuple[int, int, int]]
+    pairs: Tuple[Tuple[int, int], ...]
+    collective_count: int
+    wire_cells: int
+    local_cells: int
+
+    def collectives(self) -> int:
+        return self.collective_count
 
 
 @dataclass(frozen=True)
@@ -189,6 +215,7 @@ class ExchangePlan:
     mesh_dim: Tuple[int, int, int]
     resident: Tuple[int, int, int]
     axis_phases: Tuple[AxisPhaseIR, ...]
+    direct_phases: Tuple[DirectPhaseIR, ...] = ()
     remote_phases: Tuple[RemoteDmaPhaseIR, ...] = ()
     fused_phases: Tuple[FusedPhaseIR, ...] = ()
     fused: bool = False
@@ -202,6 +229,8 @@ class ExchangePlan:
 
     @property
     def phases(self) -> Tuple:
+        if self.method == DIRECT26:
+            return self.direct_phases
         if self.method == REMOTE_DMA:
             return self.fused_phases if self.fused else self.remote_phases
         return self.axis_phases
@@ -269,11 +298,15 @@ class ExchangePlan:
                     f"  axis {p.axis}: ring={p.ring} resident={p.resident} "
                     f"rm={p.rm} rp={p.rp} permutes=0 dmas={p.dmas()} "
                     f"wire_cells={p.wire_cells} local_cells={p.local_cells}")
-            else:
+            elif isinstance(p, AxisPhaseIR):
                 lines.append(
                     f"  axis {p.axis}: ring={p.ring} resident={p.resident} "
                     f"rm={p.rm} rp={p.rp} permutes={p.collectives()} "
                     f"wire_cells={p.wire_cells} local_cells={p.local_cells}")
+            else:
+                lines.append(
+                    f"  dir {p.direction}: shape(zyx)={p.shape} "
+                    f"permutes={p.collectives()} wire_cells={p.wire_cells}")
         lines.append(f"  total permutes/exchange (1 group): {self.collectives_per_exchange()}")
         if self.method == REMOTE_DMA:
             lines.append(
@@ -329,6 +362,51 @@ def _axis_phases(spec, mesh_dim: Dim3, resident: Dim3) -> Tuple[AxisPhaseIR, ...
     return tuple(phases)
 
 
+def _perm26(dim: Dim3, d: Dim3) -> Tuple[Tuple[int, int], ...]:
+    """Flattened (z, y, x)-major permutation sending toward ``d`` (one
+    block per position)."""
+    pairs = []
+    for iz in range(dim.z):
+        for iy in range(dim.y):
+            for ix in range(dim.x):
+                src = (iz * dim.y + iy) * dim.x + ix
+                jz, jy, jx = (iz + d.z) % dim.z, (iy + d.y) % dim.y, (ix + d.x) % dim.x
+                pairs.append((src, (jz * dim.y + jy) * dim.x + jx))
+    return tuple(pairs)
+
+
+def _direct_phases(spec, mesh_dim: Dim3, resident: Dim3) -> Tuple[DirectPhaseIR, ...]:
+    """The active directions (``radius.dir(-d) != 0``), each a message of
+    the base-size extent on its zero axes; on an uneven partition in face ->
+    edge -> corner order (a padded write may spill only into a band of a
+    direction with more nonzero components, written later). Directions of
+    zero extent are dropped."""
+    uniform = spec.is_uniform()
+    oversub = resident != Dim3(1, 1, 1)
+    nblocks = spec.num_blocks()
+    md = {"z": mesh_dim.z, "y": mesh_dim.y, "x": mesh_dim.x}
+    dirs = [d for d in DIRECTIONS_26 if spec.radius.dir(-d) != 0]
+    if not uniform:
+        dirs.sort(key=lambda d: abs(d.x) + abs(d.y) + abs(d.z))
+    phases = []
+    for d, src, dst, shape in direction_boxes(spec, dirs):
+        if any(e == 0 for e in shape):
+            continue
+        if oversub:
+            comp = {"z": d.z, "y": d.y, "x": d.x}
+            count = sum(1 for a in ("z", "y", "x") if comp[a] != 0 and md[a] > 1)
+            pairs: Tuple[Tuple[int, int], ...] = ()
+        else:
+            count, pairs = 1, _perm26(spec.dim, d)
+        cells = shape[0] * shape[1] * shape[2] * nblocks
+        phases.append(DirectPhaseIR(
+            direction=(d.x, d.y, d.z), shape=shape,
+            src=src if uniform else None, dst=dst if uniform else None,
+            pairs=pairs, collective_count=count,
+            wire_cells=cells if count else 0, local_cells=0 if count else cells))
+    return tuple(phases)
+
+
 def _remote_phases(axis_phases) -> Tuple[RemoteDmaPhaseIR, ...]:
     return tuple(
         RemoteDmaPhaseIR(
@@ -343,7 +421,8 @@ def direction_boxes(spec, directions):
     coordinates for each of ``directions`` on a uniform partition: the
     message toward ``d`` reads the sender's compute cells on its ``d`` side
     and fills the receiver's ``-d`` halo, radius deep along ``d``'s nonzero
-    axes and the block's extent on the others."""
+    axes and the block's extent on the others. On an uneven partition these
+    are the base-size block's boxes (the direct26 carrier extents)."""
     r, base, off = spec.radius, spec.base, spec.compute_offset()
     out = []
     for d in directions:
@@ -397,8 +476,8 @@ def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
                resident: Optional[Dim3] = None, wire_dtype: Optional[str] = None,
                fused: bool = False, persistent: bool = False, hierarchy=None) -> ExchangePlan:
     """The ExchangePlan of one (GridSpec, mesh shape (x, y, z), method) for
-    the axis-composed and remote-dma methods, the latter with its fused or
-    persistent variant. ``method`` may be the enum or its value string;
+    the axis-composed, direct26 and remote-dma methods, the last with its
+    fused or persistent variant. ``method`` may be the enum or its value string;
     ``resident`` defaults to ``spec.dim / mesh_dim``; ``wire_dtype``
     narrows wire-crossing carriers in the byte model."""
     mval = getattr(method, "value", method)
@@ -418,7 +497,7 @@ def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
         raise ValueError(
             "fused and persistent are distinct kernel variants of one "
             "plan — choose one (persistent at k == 1 IS the fused kernel)")
-    if mval in (DIRECT26, AUTO_SPMD):
+    if mval == AUTO_SPMD:
         raise NotImplementedError(f"{mval} exchange plans: {_LATER[mval]}")
     md = Dim3.of(mesh_dim)
     if spec.dim.x % md.x or spec.dim.y % md.y or spec.dim.z % md.z:
@@ -439,6 +518,7 @@ def build_plan(spec, mesh_dim, method, batch_quantities: bool = True,
         mesh_dim=(md.x, md.y, md.z),
         resident=(resident.x, resident.y, resident.z),
         axis_phases=axis_phases,
+        direct_phases=_direct_phases(spec, md, resident) if mval == DIRECT26 else (),
         remote_phases=_remote_phases(axis_phases) if mval == REMOTE_DMA else (),
         fused_phases=_fused_phases(spec, md) if fused else (),
         fused=fused,

@@ -24,7 +24,7 @@ from stencil_tpu_torch.ops import fused_stencil as fst
 from stencil_tpu_torch.ops import halo_fill
 from stencil_tpu_torch.ops import remote_dma as rdma
 from stencil_tpu_torch.ops import row_moves as rmv
-from stencil_tpu_torch.parallel import DeviceMesh, Method
+from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method
 from stencil_tpu_torch.plan.ir import build_plan
 
 torch.set_num_threads(2)
@@ -488,3 +488,65 @@ def test_replay_with_a_wire_equals_the_plain_versions(name, size, dim, radius, a
         for ga, gb in zip(got, want):
             for a, b in zip(ga, gb):
                 np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# -- B6 over resident blocks: every block an endpoint ---------------------------------------
+
+class EndpointCard:
+    """Stands in for the card in remote_axis's CUDA branch: the tables it
+    uploads are kept, and each launch is replayed (``replay_tables``) on the
+    CPU views its pointer rows name, so a resident block, a view into its
+    stack, is an endpoint like a position's block. ``calls`` keeps each
+    launch's instance count."""
+
+    type, index = "cuda", 0
+
+    def __init__(self, monkeypatch, stacks, spec):
+        p = spec.padded()
+        self.blocks = {v.data_ptr(): v for t in stacks
+                       for v in t.reshape(-1, p.z, p.y, p.x).unbind(0)}
+        self.tables, self.calls = {}, []
+        monkeypatch.setattr(rdma, "_check_mesh_blocks", lambda *a: self)
+        monkeypatch.setattr(rdma._native, "kept", lambda key, make: make())
+        monkeypatch.setattr(rdma._native, "upload", self.upload)
+        monkeypatch.setattr(rdma._native, "stream_ptr", lambda dev: 0)
+        monkeypatch.setattr(rdma._native, "lib", lambda name: self)
+
+    def upload(self, values, device):
+        t = torch.tensor(values, dtype=torch.int64)
+        self.tables[t.data_ptr()] = t.tolist()
+        return t
+
+    def remote_axis_launch(self, ptrs, m, segs, nseg, tasks, word, code, sz, sy, _stream):
+        table = self.tables[ptrs]
+        head = (segs - ptrs) // 8
+        rows = [table[i:i + rmv.MOVE_COLS] for i in range(head, len(table), rmv.MOVE_COLS)]
+        assert len(rows) == nseg and code == 0
+        assert set(table[:head]) <= set(self.blocks)  # every pointer a block's start
+        self.calls.append(m)
+        replay_tables(self.blocks, table[:head], m, rows, tasks, sz, sy)
+        return 0
+
+
+@pytest.mark.parametrize("dim,nq", [((2, 2, 2), 1), ((2, 1, 2), 3), ((1, 3, 1), 2)],
+                         ids=["222-1q", "212-3q", "131-2q"])
+def test_resident_endpoint_tables_replay_to_the_plain_version(monkeypatch, dim, nq):
+    """REMOTE_DMA over the resident blocks of one device on the card: one
+    launch a ring phase (the partition's axes with several blocks), its
+    pointer rows the blocks' own starts inside the stack (B6's table over
+    the block mesh), replayed as the kernel reads it, equal to the CPU's
+    exchange on every cell; an axis with one block is a fill."""
+    spec = GridSpec(Dim3(12, 18, 16), Dim3(*dim), Radius.constant(2))
+    rng = np.random.RandomState(60 + nq)
+    want = {q: torch.from_numpy(rng.rand(*spec.stacked_shape_zyx()).astype(np.float32))
+            for q in range(nq)}
+    got = {q: t.clone() for q, t in want.items()}
+    HaloExchange(spec, Method.REMOTE_DMA)(want)
+    card = EndpointCard(monkeypatch, list(got.values()), spec)
+    before = rdma.remote_axis.launches
+    HaloExchange(spec, Method.REMOTE_DMA)(got)
+    rings = sum(1 for n in dim if n > 1)
+    assert rdma.remote_axis.launches - before == rings == len(card.calls)
+    assert card.calls == [spec.num_blocks() * nq] * rings
+    for q in want:
+        assert torch.equal(got[q], want[q])

@@ -367,3 +367,53 @@ def test_narrow_flags_mark_the_crossing_boxes(size, dim):
         replay_rows(got, rows, msgs, npos, sz, sy, wire)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+# -- B9's pass walk, uniform and uneven -------------------------------------------------
+
+CHUNK_SRC = (CSRC / "mesh_chunk.cuh").read_text()
+
+
+def test_chunk_walk_constants_mirror_the_kernel_source():
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+
+    assert pst.ONCHIP_TILE == _const(CHUNK_SRC, "ONCHIP_TILE")
+    assert pst.TILES_PER_BLOCK == _const(CHUNK_SRC, "TILES_PER_BLOCK")
+    assert pst.ONCHIP_KMAX == _const(CHUNK_SRC, "ONCHIP_KMAX")
+    # the uneven form: the extent table's rows, read per position, the tile
+    # walk's z chunk chosen once from every position's columns
+    assert "const long long* ext;" in CHUNK_SRC
+    assert "*ex = (int)c.ext[3 * i + 2] + 2 * g;" in CHUNK_SRC
+    assert "zchunk_for((long long)TILES_PER_BLOCK * gridDim.x, all_cols, ez0)" in CHUNK_SRC
+
+
+@pytest.mark.parametrize("size,dim,k", [((512, 512, 512), (3, 2, 1), 4), ((67, 45, 29), (3, 2, 1), 3),
+                                        ((17, 19, 16), (2, 2, 2), 2), ((64, 64, 64), (2, 2, 2), 4)],
+                         ids=["512-321-k4", "67x45x29-321-k3", "17x19x16-222-k2", "64-222-k4"])
+@pytest.mark.parametrize("blocks", [132, 7])
+def test_chunk_walk_covers_each_positions_region_once(size, dim, k, blocks):
+    """Every pass of a depth-k chunk: the tiles cover each position's
+    region grown by the depth left, at its own extent, every cell once; on a
+    uniform mesh the walk is the uniform kernel's (every position the same
+    tiles, ``per_pos`` each)."""
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+
+    spec = GridSpec(Dim3(*size), Dim3(*dim), Radius.constant(k))
+    mesh = DeviceMesh(dim, ["cpu"] * spec.num_blocks())
+    ext = pst.position_extents(spec, mesh)
+    assert len(set(ext)) == (1 if spec.is_uniform() else len(set(ext)))
+    left = k
+    for d in pst.chunk_passes(k):
+        left -= d
+        tiles = pst.onchip_walk(ext, left, blocks)
+        for i, (nz, ny, nx) in enumerate(ext):
+            ez, ey, ex = nz + 2 * left, ny + 2 * left, nx + 2 * left
+            seen = np.zeros((ez, ey, ex), np.int32)
+            for pos, x0, y0, z0, z1, tx, ty in tiles:
+                if pos == i:
+                    assert (tx, ty) == (ex, ey)
+                    seen[z0:z1, y0:y0 + pst.ONCHIP_TILE, x0:x0 + pst.ONCHIP_TILE] += 1
+            assert (seen == 1).all(), (i, left)
+        if spec.is_uniform():
+            per = len(tiles) // len(ext)
+            assert [t[0] for t in tiles] == [i for i in range(len(ext)) for _ in range(per)]

@@ -126,10 +126,21 @@ def test_jacobi3d_cli_devices(capsys):
 
 
 def test_mesh_app_refusals():
+    """AXIS_COMPOSED on a mesh and ``device`` with ``devices`` raise. More
+    blocks than positions now run: (2,2,2) blocks on 4 positions (two z
+    residents a position, the JAX package's ``stack_residents``), 4 steps
+    in chunks of 2, equal to the JAX app on 4 devices (per step the
+    exchange with every block an endpoint, then one sweep of every
+    block)."""
     with pytest.raises(NotImplementedError, match="REMOTE_DMA only"):
         tapp.run(16, 16, 16, devices=CPU8, iters=1, weak=False)
-    with pytest.raises(NotImplementedError, match="one block per position"):
-        tapp.run(16, 16, 16, devices=["cpu"] * 4, method=RDMA_T, iters=1, weak=False,
-                 partition=(2, 2, 2))
+    got = tapp.run(16, 16, 16, devices=["cpu"] * 4, method=RDMA_T, iters=4, chunk=2, weak=False,
+                   partition=(2, 2, 2))
+    want = japp.run(16, 16, 16, devices=jax.devices()[:4], method=RDMA_J, iters=4, chunk=2,
+                    weak=False, partition=(2, 2, 2))
+    assert tuple(got["domain"].mesh.dim) == (2, 2, 1)
+    np.testing.assert_array_equal(got["domain"].get_curr_global(got["handle"]),
+                                  want["domain"].get_curr_global(want["handle"]))
+    assert tapp.csv_row(got).split(",")[:8] == japp.csv_row(want).split(",")[:8]
     with pytest.raises(ValueError, match="not both"):
         tapp.run(16, 16, 16, device="cpu", devices=CPU8, method=RDMA_T, iters=1)

@@ -332,6 +332,21 @@ class FakeChunkCard:
         *args, _dev, _stream = args
         return self.run(*args)
 
+    def persistent_jacobi_uneven_launch(self, pos, npos, ext, sz, sy, zo, yo, xo, nz, ny, nx, k,
+                                        _dev, _stream):
+        """The uneven form: no messages; each position's passes at the
+        extent its row of the extent table gives, inside the base block."""
+        rows = self.tables[ext]
+        assert len(rows) == 3 * npos
+        spec = tgrid.GridSpec(tgeo.Dim3(nx, ny, nz), tgeo.Dim3(1, 1, 1), self.radius)
+        assert (sy, sz) == (spec.padded().x, spec.padded().x * spec.padded().y)
+        assert (zo, yo, xo) == tuple(getattr(spec.compute_offset(), a) for a in "zyx")
+        for (a, b, sel), i in zip(self.positions(pos, npos), range(npos)):
+            ez, ey, ex = rows[3 * i:3 * i + 3]
+            assert ez <= nz and ey <= ny and ex <= nx
+            tpers.make_persistent_chunk_body(spec, k, (ex, ey, ez))(a, b, sel)
+        return 0
+
 
 def _mesh_fields(size, dim, r, seed):
     tspec, jspec, tmesh, _jmesh = pair(size, dim, r)
@@ -416,6 +431,36 @@ def test_persistent_mesh_tables_move_the_plain_versions_cells(monkeypatch, size,
         assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
 
 
+@pytest.mark.parametrize("size,dim,k", [((17, 19, 16), (2, 2, 2), 2), ((18, 20, 22), (1, 2, 4), 3)],
+                         ids=["17x19x16-222-k2", "18x20x22-124-k3"])
+def test_persistent_uneven_mesh_tables(monkeypatch, size, dim, k):
+    """The uneven form's CUDA branch: one position table and one extent
+    table (each position's own extent, flat order), no message table, and
+    the plain version's cells in every buffer over two chunks through the
+    swap; the launches counted as uneven."""
+    tspec, tmesh, arrs = _mesh_fields(size, dim, k, 37)
+    tex = tpar.HaloExchange(tspec, RDMA_T, mesh=tmesh)
+    want = mesh_state_from_jax(arrs, tspec, tmesh)
+    got = mesh_state_from_jax(arrs, tspec, tmesh)
+    tex(want["c"])
+    tex(got["c"])
+    card = FakeChunkCard(monkeypatch, [b for bl in got.values() for b in bl])
+    card.radius = tspec.radius
+    before = (tpers.persistent_jacobi_mesh.launches, tpers.persistent_jacobi_mesh.uneven)
+    wc, wn, gc, gn = want["c"], want["n"], got["c"], got["n"]
+    for _ in range(2):
+        tpers.persistent_jacobi_mesh_plain(wc, wn, want["s"], tspec, k, tmesh)
+        tpers.persistent_jacobi_mesh(gc, gn, got["s"], tspec, k, tmesh)
+        wc, wn, gc, gn = wn, wc, gn, gc
+    assert (tpers.persistent_jacobi_mesh.launches, tpers.persistent_jacobi_mesh.uneven) == (
+        before[0] + 2, before[1] + 2)
+    assert sorted(card.made) == ["mesh_extents", "mesh_positions", "mesh_positions"]
+    ext = [k_ for k_ in card.tables if isinstance(k_, tuple) and k_[0] == "mesh_extents"][0][1]
+    assert ext == tpers.position_extents(tspec, tmesh) and len(set(ext)) > 1
+    for key in ("c", "n"):
+        assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key
+
+
 def test_one_block_persistent_is_the_one_position_case(monkeypatch):
     """The one-block wrapper builds a one-position table whose messages all
     wrap onto the block, and gives the plain version's cells."""
@@ -458,15 +503,20 @@ def test_mesh_variants_on_distinct_devices_raise(monkeypatch, variant):
 
 @pytest.mark.parametrize("variant", ["fused", "persistent"])
 def test_mesh_variants_on_uneven_partitions_raise(variant):
-    """The persistent variant still raises on an uneven partition: its chunk
-    kernel is uniform-only, as on the TPU. The fused one runs the JAX
-    package's host-orchestrated schedule: 3 steps over 8 positions of a
-    17 x 16 x 16 domain equal the JAX loop's on the gathered compute region
-    and on the exchanged buffer's halo box at each block's own size."""
+    """Both variants run on an uneven partition. The persistent one takes
+    the chunk kernel's uneven form (per chunk B6's deep exchange, then one
+    chunk over every position at its own extent): 5 steps at k = 2 over 8
+    positions of a 17 x 16 x 16 domain equal the JAX loop's on the gathered
+    compute region, 2 dispatches a chunk. The fused one runs the JAX
+    package's host-orchestrated schedule: 3 steps equal the JAX loop's on
+    the gathered compute region and on the exchanged buffer's halo box at
+    each block's own size."""
     if variant == "persistent":
-        with pytest.raises(NotImplementedError, match="uneven partition.*the persistent chunk "
-                                                      "kernel is uniform-only, as on the TPU"):
-            _domain(["cpu"] * 8, variant, size=(17, 16, 16)).realize()
+        got, want, tex, jex, tspec, jspec = both_loops((17, 16, 16), (2, 2, 2), 2, 5, 41,
+                                                       persistent=True, temporal_k=2)
+        assert not tspec.is_uniform() and tex.persistent
+        np.testing.assert_array_equal(compute(got["c"], jspec), compute(want["c"], jspec))
+        assert tex.last_launches_per_chunk == jex.last_launches_per_chunk == 2
         return
     got, want, tex, _jex, tspec, jspec = both_loops((17, 16, 16), (2, 2, 2), 1, 3, 41,
                                                     fused=True)
@@ -479,6 +529,33 @@ def test_mesh_variants_on_uneven_partitions_raise(variant):
         box = (iz, iy, ix, slice(off.z - 1, off.z + s.z + 1), slice(off.y - 1, off.y + s.y + 1),
                slice(off.x - 1, off.x + s.x + 1))
         np.testing.assert_array_equal(got["n"][box], want["n"][box])
+
+
+# tests/test_persistent_stencil.py's uneven cases (against AXIS_COMPOSED
+# there; here against the JAX persistent loop and its AXIS_COMPOSED loop)
+UNEVEN_PERSISTENT = [("uneven-k2", (18, 20, 22), (1, 2, 4), 2, 6),
+                     ("uneven-k3-tail1", (18, 20, 22), (1, 2, 4), 3, 7)]
+
+
+@pytest.mark.parametrize("name,size,dim,k,iters", UNEVEN_PERSISTENT,
+                         ids=[c[0] for c in UNEVEN_PERSISTENT])
+def test_persistent_uneven_mesh_loop_matches_jax(name, size, dim, k, iters):
+    """The uneven form over 8 positions of an 18 x 20 x 22 domain split
+    (1,2,4) (z blocks 6/6/5/5): the gathered compute region equals the JAX
+    persistent loop's and its composed loop's, 2 dispatches a chunk, tail
+    chunks included; the result buffer's compute region at each position's
+    own size is where ``result_in_nxt`` puts it."""
+    got, want, tex, jex, tspec, jspec = both_loops(size, dim, k, iters, 50 + k, persistent=True,
+                                                   temporal_k=k)
+    assert not tspec.is_uniform()
+    np.testing.assert_array_equal(compute(got["c"], jspec), compute(want["c"], jspec))
+    assert tex.last_launches_per_chunk == jex.last_launches_per_chunk == 2
+    jspec_mesh = jpar.grid_mesh(jgeo.Dim3(*dim), jax.devices()[:8])
+    cex = jpar.HaloExchange(jspec, jspec_mesh, jpar.Method.AXIS_COMPOSED)
+    arrs = start_state(jspec, size, 50 + k)
+    js = {key: jax.device_put(v, NamedSharding(jspec_mesh, BLOCK_PSPEC)) for key, v in arrs.items()}
+    cc, _ = jjac.make_jacobi_loop(cex, iters)(js["c"], js["n"], js["s"])
+    np.testing.assert_array_equal(compute(got["c"], jspec), compute(np.asarray(cc), jspec))
 
 
 @pytest.mark.parametrize("variant", ["fused", "persistent"])

@@ -195,6 +195,28 @@ def test_wrappers_take_plain_versions_only_on_cpu(monkeypatch):
     assert len(calls) == 12
 
 
+def test_uneven_persistent_wrapper_takes_plain_only_on_cpu(monkeypatch):
+    """The chunk kernel's uneven form (an uneven mesh) is one more branch of
+    ``persistent_jacobi_mesh``: on CPU tensors its plain version, counted
+    as no launch; on another device refused."""
+    calls = []
+    monkeypatch.setattr(persistent_stencil, "persistent_jacobi_mesh_plain",
+                        lambda *a, **k: calls.append("persistent_jacobi_mesh_plain"))
+    spec = GridSpec(Dim3(17, 12, 10), Dim3(2, 1, 1), Radius.constant(2))
+    assert not spec.is_uniform()
+    mesh = DeviceMesh((2, 1, 1), ["cpu"] * 2)
+    before = (persistent_stencil.persistent_jacobi_mesh.launches,
+              persistent_stencil.persistent_jacobi_mesh.uneven)
+    persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(spec, "cpu"), spec, 2, mesh)
+    assert calls == ["persistent_jacobi_mesh_plain"]
+    assert before == (persistent_stencil.persistent_jacobi_mesh.launches,
+                      persistent_stencil.persistent_jacobi_mesh.uneven)
+    with pytest.raises(ValueError):
+        persistent_stencil.persistent_jacobi_mesh(*_mesh_fields(spec, "meta"), spec, 2,
+                                                  DeviceMesh((2, 1, 1), ["meta"] * 2))
+    assert len(calls) == 1
+
+
 def _mesh_case(device, r=1):
     """A (2,1,1) mesh of two positions on ``device``, its fused remote-dma
     plan (whose remote phases are the plain carrier's too) and one fp32

@@ -202,11 +202,57 @@ def test_positions_on_distinct_cuda_devices_raise(monkeypatch):
 
 
 def test_more_blocks_than_positions_raise():
-    with pytest.raises(NotImplementedError, match="one block per position"):
-        _domain(["cpu"] * 4, partition=(2, 2, 2)).realize()
-    spec = tgrid.GridSpec(tgeo.Dim3(16, 16, 16), tgeo.Dim3(2, 2, 2), tgeo.Radius.constant(1))
-    with pytest.raises(NotImplementedError, match="one block per position"):
-        tpar.HaloExchange(spec, tpar.Method.REMOTE_DMA, mesh=tpar.DeviceMesh((2, 2, 1), ["cpu"] * 4))
+    """More blocks than positions now run: a domain of (2,2,2) blocks on 4
+    positions stacks two z residents on each ((2,2,1) mesh, the JAX
+    package's ``stack_residents``), and its exchange, every block an
+    endpoint of the axis carrier, equals the JAX REMOTE_DMA exchange of the
+    same domain on 4 devices on every cell."""
+    dd = _domain(["cpu"] * 4, partition=(2, 2, 2))
+    dd.realize()
+    assert tuple(dd.mesh.dim) == (2, 2, 1) and tuple(dd.halo_exchange.resident) == (1, 1, 2)
+    assert all(tuple(b.shape[:3]) == (2, 1, 1) for b in dd.get_curr(DataHandle(0)))
+    rng = np.random.RandomState(12)
+    field = rng.rand(16, 16, 16).astype(F32)
+    dd.set_curr_global(DataHandle(0), field)
+    dd.exchange()
+    _tspec, jspec, _tm, _jm = pair((16, 16, 16), (2, 2, 2), 1)
+    jmesh = jpar.grid_mesh(jgeo.Dim3(2, 2, 1), jax.devices()[:4])
+    jex = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA)
+    want = jex({0: jpar.exchange.shard_blocks(field, jspec, jmesh)})[0]
+    got = mesh_state_to_numpy({0: dd.get_curr(DataHandle(0))}, dd.spec)[0]
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(dd.get_curr_global(DataHandle(0)), field)
+    assert dd.halo_exchange.last_transfer_count == jex._remote.last_transfer_count
+
+
+# tests/test_remote_dma.py's oversubscribed cases: (2,2,2) blocks on a
+# (2,2,1) mesh, and an uneven split on a (2,1,2) mesh in fp64
+OVERSUB = [("oversubscribed", (16, 16, 16), (2, 2, 2), (2, 2, 1), [F32, F32]),
+           ("uneven-oversub-f64", (17, 16, 16), (2, 2, 2), (2, 1, 2), [F64, F64])]
+
+
+@pytest.mark.parametrize("batch", [True, False], ids=["batched", "per-quantity"])
+@pytest.mark.parametrize("name,size,dim,mesh_dim,dtypes", OVERSUB, ids=[c[0] for c in OVERSUB])
+def test_oversubscribed_exchange_matches_jax(name, size, dim, mesh_dim, dtypes, batch):
+    """Every cell of every quantity, and the copies that left a position,
+    against the JAX package's emulation on 4 virtual devices; the mesh's
+    stacks are views' owners (each block a view into its position's
+    stack)."""
+    tspec, jspec, _tm, _jm = pair(size, dim, 1)
+    n = int(np.prod(mesh_dim))
+    jmesh = jpar.grid_mesh(jgeo.Dim3(*mesh_dim), jax.devices()[:n])
+    tmesh = tpar.DeviceMesh(mesh_dim, ["cpu"] * n)
+    arrs = noisy(jspec, dtypes, 13)
+    jex = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA, batch_quantities=batch)
+    want = jex({k: jax.device_put(v, NamedSharding(jmesh, BLOCK_PSPEC)) for k, v in arrs.items()})
+    tex = tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA, mesh=tmesh, batch_quantities=batch)
+    st = mesh_state_from_jax(arrs, tspec, tmesh)
+    assert [tuple(b.shape[:3]) for b in st[0]] == [tuple(tex.resident)[::-1]] * n
+    tex(st)
+    got = mesh_state_to_numpy(st, tspec)
+    for k in arrs:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=name)
+    assert tex.last_transfer_count == jex._remote.last_transfer_count > 0
 
 
 def test_axis_composed_on_a_mesh_raises():
@@ -332,3 +378,30 @@ def test_remote_axis_table_moves_the_plain_versions_slabs(monkeypatch):
             for ga, gb in zip(got, want):
                 for a, b in zip(ga, gb):
                     assert torch.equal(a, b), (size, ph.axis)
+
+
+@pytest.mark.parametrize("name,size,dim,mesh_dim,dtypes", OVERSUB, ids=[c[0] for c in OVERSUB])
+def test_oversubscribed_jacobi_loop_matches_jax(name, size, dim, mesh_dim, dtypes):
+    """3 plain remote-dma steps over more blocks than positions: per step
+    the exchange (every block an endpoint) and one sweep of every block,
+    each a view into its position's stack; the gathered compute region
+    equals the JAX loop's on 4 devices (fp32, and fp64 uneven)."""
+    import stencil_tpu.ops.jacobi as jjac
+    import stencil_tpu_torch.ops.jacobi as tjac
+
+    tspec, jspec, _tm, _jm = pair(size, dim, 1)
+    n = int(np.prod(mesh_dim))
+    jmesh = jpar.grid_mesh(jgeo.Dim3(*mesh_dim), jax.devices()[:n])
+    tmesh = tpar.DeviceMesh(mesh_dim, ["cpu"] * n)
+    rng = np.random.RandomState(14)
+    shape = jspec.stacked_shape_zyx()
+    arrs = {"c": rng.rand(*shape).astype(dtypes[0]), "n": rng.rand(*shape).astype(dtypes[0]),
+            "s": np.asarray(jpar.exchange.shard_blocks(jjac.sphere_sel(size), jspec, jmesh))}
+    jex = jpar.HaloExchange(jspec, jmesh, jpar.Method.REMOTE_DMA)
+    js = {k: jax.device_put(v, NamedSharding(jmesh, BLOCK_PSPEC)) for k, v in arrs.items()}
+    jc, _ = jjac.make_jacobi_loop(jex, 3)(js["c"], js["n"], js["s"])
+    tex = tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA, mesh=tmesh)
+    ts = mesh_state_from_jax(arrs, tspec, tmesh)
+    tc, _ = tjac.make_jacobi_loop(tex, 3)(ts["c"], ts["n"], ts["s"])
+    np.testing.assert_array_equal(tpar.unshard_blocks(tc, tspec),
+                                  jpar.exchange.unshard_blocks(jc, jspec), err_msg=name)

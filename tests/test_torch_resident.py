@@ -165,12 +165,20 @@ def test_self_wrap_axes_go_through_the_fill_wrapper(monkeypatch, part, dtypes):
 
 
 def test_exchange_refusals():
-    """REMOTE_DMA on resident blocks still raises; the uneven (1,1,2) split
-    of z = 21 (11 + 10) builds, as an exchange equal to the JAX package's
-    on every cell and as a domain."""
-    tspec, _ = specs((12, 16, 20), (2, 2, 2), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA)
+    """REMOTE_DMA on resident blocks now runs: the axis carrier over every
+    block equals the axis-composed exchange on every cell, under the
+    REMOTE_DMA plan's accounting (no copy leaves the device). The uneven
+    (1,1,2) split of z = 21 (11 + 10) builds, as an exchange equal to the
+    JAX package's on every cell and as a domain."""
+    tspec, jspec = specs((12, 16, 20), (2, 2, 2), 1)
+    (arr,) = noisy_state(jspec, [np.float32], seed=20).values()
+    rdma, comp = torch.from_numpy(arr.copy()), torch.from_numpy(arr.copy())
+    ex = tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA)
+    ex(rdma)
+    tpar.HaloExchange(tspec)(comp)
+    assert torch.equal(rdma, comp)
+    assert [p.axis for p in ex.plan.remote_phases] == ["x", "y", "z"]
+    assert ex.plan.dmas_per_exchange() == ex.last_transfer_count == 0
     tspec, jspec = specs((12, 16, 21), (1, 1, 2), 1)
     tex, jex = tpar.HaloExchange(tspec), jpar.HaloExchange(jspec, one_device(jspec))
     (arr,) = noisy_state(jspec, [np.float32], seed=21).values()

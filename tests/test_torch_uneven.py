@@ -334,6 +334,58 @@ def test_uneven_tables_replay_to_the_plain_version(monkeypatch, name, size, dim,
         assert all(widths == [1] for _m, _w, widths in x_calls)
 
 
+class _StackSlots:
+    """Sizes ArenaCard's slots for whole stacks: ``padded()`` is one stack
+    of ``blocks`` padded blocks of ``spec``."""
+
+    def __init__(self, spec, blocks):
+        p = spec.padded()
+        self.p = tgeo.Dim3(p.x, p.y, p.z * blocks)
+
+    def padded(self):
+        return self.p
+
+
+@pytest.mark.parametrize("mesh_dim", [None, (2, 1, 2)], ids=["one-device", "oversub-212"])
+def test_uneven_resident_endpoints_replay_to_the_plain_version(monkeypatch, mesh_dim):
+    """REMOTE_DMA over the resident blocks of an uneven (2,2,2) split of
+    17 x 16 x 16 in fp64, on one device and on a (2,1,2) mesh of stacks:
+    the table the card gets (every block an endpoint, a view into its
+    stack; pointers moved by the uneven ring's shifts) replayed on an arena
+    equals the plain exchange on every cell, and that the JAX package's
+    (tests/test_remote_dma.py's uneven-oversub-f64 case)."""
+    tspec, jspec = specs((17, 16, 16), (2, 2, 2), 1)
+    arrs = noisy(jspec, [F64, F64], 19)
+    if mesh_dim is None:
+        jmesh, tmesh = one_device(), None
+        state = lambda: state_from_jax(arrs, tspec, "cpu")  # noqa: E731
+    else:
+        tmesh = tpar.DeviceMesh(mesh_dim, ["cpu"] * 4)
+        jmesh = jpar.grid_mesh(jgeo.Dim3(*mesh_dim), jax.devices()[:4])
+        state = lambda: mesh_state_from_jax(arrs, tspec, tmesh)  # noqa: E731
+    jex = jpar.HaloExchange(jspec, jmesh, RDMA_J)
+    jwant = jex({k: jax.device_put(v, NamedSharding(jmesh, BLOCK_PSPEC)) for k, v in arrs.items()})
+    tex = tpar.HaloExchange(tspec, RDMA_T, mesh=tmesh)
+    want = state()
+    tex(want)
+    st = state()
+    keys = list(st)
+    per = st[keys[0]] if tmesh is not None else [st[keys[0]]]
+    card = ArenaCard(monkeypatch, _StackSlots(tspec, per[0].shape[:3].numel()),
+                     [[st[k][i] if tmesh is not None else st[k] for k in keys]
+                      for i in range(len(per))])
+    cst = ({k: [card.groups[i][q] for i in range(len(per))] for q, k in enumerate(keys)}
+           if tmesh is not None else {k: card.groups[0][q] for q, k in enumerate(keys)})
+    tex(cst)
+    assert len(card.calls) == 3  # x, y and z: a ring over the blocks, one dtype group
+    to_np = ((lambda s: mesh_state_to_numpy(s, tspec)) if tmesh is not None
+             else state_to_numpy)
+    got, ref = to_np(cst), to_np(want)
+    for k in keys:
+        np.testing.assert_array_equal(got[k], ref[k])
+        np.testing.assert_array_equal(got[k], np.asarray(jwant[k]))
+
+
 def test_uneven_sector_floor_counts_each_blocks_own_size():
     """remote_axis_sector_bytes on an uneven ring is the sum over ring
     indices of a block's sectors at its own size (a row end at o + n_i
@@ -566,11 +618,28 @@ def test_mesh_fused_uneven_launch_schedule(monkeypatch):
     assert calls == per_step * 2
 
 
-def test_persistent_on_uneven_mesh_raises():
+def test_persistent_on_uneven_mesh_raises(monkeypatch):
+    """The persistent variant on an uneven mesh now runs the chunk kernel's
+    uneven form: 5 steps at k = 2 are sel's deep exchange once, then per
+    chunk the deep exchange (B6's uneven ring) and one chunk launch over
+    every position (2 dispatches a chunk, the depth-1 tail the exchange and
+    a sweep)."""
     tspec, _j = specs((17, 16, 16), (2, 2, 2), 2)
-    with pytest.raises(NotImplementedError, match="uneven partitions?.*persistent chunk kernel "
-                                                  "is uniform-only, as on the TPU"):
-        tpar.HaloExchange(tspec, RDMA_T, mesh=meshes((2, 2, 2))[0], persistent=True)
+    tmesh = meshes((2, 2, 2))[0]
+    tex = tpar.HaloExchange(tspec, RDMA_T, mesh=tmesh, persistent=True)
+    assert tex.plan.persistent and tex.plan.launches_per_chunk(2) == 2
+    calls = []
+    real = tex._remote
+    monkeypatch.setattr(tex, "_remote", lambda st, axes=None: calls.append("ex") or real(st))
+    chunk = tjac.persistent_jacobi_mesh
+    monkeypatch.setattr(tjac, "persistent_jacobi_mesh",
+                        lambda c, n, s, spec, d, mesh: calls.append(f"chunk{d}")
+                        or chunk(c, n, s, spec, d, mesh))
+    st = tpar.shard_blocks(np.full((16, 16, 17), 0.5, F32), tspec, tmesh)
+    sel = tjac.sphere_sel_blocks(tspec, tmesh)
+    tjac.make_jacobi_loop(tex, 5, temporal_k=2)(st, [b.clone() for b in st], sel)
+    assert calls == ["ex"] + ["ex", "chunk2"] * 2 + ["ex"]
+    assert tex.last_launches_per_chunk == 2
 
 
 # -- the domain, checkpoints and the health check -----------------------------------------
