@@ -341,6 +341,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               positions with kernel_variant persistent, deep_halo 4 (48
               iters in chunks of 24: 18 chunk launches of the uneven form,
               42 remote_axis and 21 fills, 2 launches a chunk).
+16. tenants -- the serving path (tenants_phase, rehearsable on the CPU at
+              small sizes with a stand-in timer): B5's tenant form (one task
+              a tenant of a (B, pz, py, px) stack) against its plain version
+              with torch.equal, fp64 and fp32, stages 0-2, random fields at
+              dt 0.1, at 64 x 32^3, 5 x 33x13x7 (odd pitch: no tensor
+              copies) and 300 x 6x5x4 (two launches a stage), each lane of
+              the first two also equal to its one-block launch; B4's tenant
+              form (x, y, z over 8 fields, z wrapping each tenant) against
+              wrap_fill_batched at 64 x 32^3 fp64 and fp32 and 5 x 33x13x7;
+              both timed per launch beside their bytes bounds and plain
+              versions; apps.campaign --workload astaroth --mode batched at
+              64 x 32^3 and 8 x 128^3 fp64 with t1 faulted and evicted,
+              launch counts reset around each (3 fills and 3 substep
+              launches an iteration), every retired tenant byte-equal to it
+              stepped alone (B = 1), with tenant Mcells/s and p50/p99 step
+              latency; the serving daemon in process (jacobi 32^3 and 64^3
+              fp32 and astaroth 32^3 fp64 jobs, mixed priorities, a quota,
+              a ledger-priced rejection, a second wave from the first chunk
+              boundary, a slot grown mid-run): every job retired, its
+              results/<job>.json written and its final field byte-equal to
+              the batch CampaignDriver's, every record valid; a daemon
+              drained mid-run and a second revived on its directory, no
+              retired job re-run, every result byte-equal to the
+              uninterrupted serve's.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -2494,6 +2518,409 @@ def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 5
     return timings, launches, errs
 
 
+def tenants_phase(dev, time_ms, tenants: int = 64, edge: int = 32, big=(8, 128),
+                  ragged=(5, (33, 13, 7)), many=(300, (6, 5, 4)), steps: int = 6,
+                  chunk: int = 3, serve_edges=(32, 64), serve_steps: int = 8,
+                  timed: bool = True):
+    """Phase 16, the serving path on ``dev``: Astaroth tenants on B5's and
+    B4's tenant forms, the Astaroth campaign, and the serving daemon.
+
+    - B5's tenant form (``substep_tasks`` over ``tenant_tasks``: one task a
+      tenant of a ``(B, pz, py, px)`` stack, one launch a stage) against its
+      plain version with torch.equal, fp64 and fp32, stages 0-2, random
+      fields at dt 0.1: ``tenants`` of ``edge``^3 (tensor copies in fp64),
+      the ragged tenants (an odd x pitch: every task on cp.async) and more
+      tenants than one launch's table holds (two launches a stage). Each
+      lane of the tenant launch also equals the same tenant through the
+      one-block launch (``substep``).
+    - B4's tenant form (``wrap_fill_tenants``: x, y, z over the 8 fields,
+      one launch an axis, z wrapping each tenant onto itself) against
+      ``wrap_fill_batched`` with torch.equal at ``tenants`` x ``edge``^3
+      fp64 and fp32 and the ragged tenants.
+    - Timed (``timed``): B5's tenant launch on the campaign's stage mix and
+      B4's tenant fill per axis, each beside its bytes bound and its plain
+      version.
+    - ``apps.campaign`` with ``--workload astaroth --mode batched`` at
+      ``tenants`` x ``edge``^3 and ``big`` fp64, ``steps`` steps in chunks
+      of ``chunk``, tenant t1 faulted every time from step 3 (evicted, the
+      others retire); launch counts set to 0 just before and read just
+      after: 3 fills and 3 substep launches (one per 256 tenants) an
+      iteration, the iterations counted as the driver runs them. Every
+      retired tenant equals the same tenant stepped alone through the
+      tenant form with B = 1, byte for byte.
+    - The serving daemon in process: a first wave of jobs (jacobi
+      ``serve_edges`` fp32 in two buckets, astaroth ``edge``^3 fp64, mixed
+      priorities, one owner over its quota, one deadline that the seeded
+      ledger prices infeasible) dropped before ``serve()``, a second wave of
+      the running slot's bucket dropped from its first chunk boundary,
+      elastic widths 1..8 so that the running slot grows; every job retires
+      with ``results/<job>.json``, its final field byte-equal to the batch
+      ``CampaignDriver``'s; every record valid under the port's schema.
+      Then a daemon drained after its first retirement and a second one
+      revived on its directory: no retired job re-run, every result
+      byte-equal to the uninterrupted serve's.
+
+    Sizes are arguments so that the phase can be rehearsed on the CPU (where
+    the plain versions count no launch). Returns ``(timings, launches,
+    errs)`` keyed ``astaroth_substep_tenants`` and ``self_fill_tenants``."""
+    import stencil_tpu_torch.astaroth.integrate as integ
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import campaign as campaign_app
+    from stencil_tpu_torch.astaroth.equations import Constants
+    from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of
+    from stencil_tpu_torch.campaign import CampaignDriver, TenantJob, astaroth_init_state
+    from stencil_tpu_torch.campaign.driver import WORKLOADS
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.obs import ledger as ledger_mod
+    from stencil_tpu_torch.obs import telemetry
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.serve import ServeScheduler, job_from_doc
+    from stencil_tpu_torch.serve.admission import LEDGER_METRIC, bucket_label
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+    gen = torch.Generator(device=dev)
+    names = ("astaroth_substep_tenants", "self_fill_tenants")
+    errs = {name: 0.0 for name in names}
+    timings, launches = {}, {}
+
+    def spec_of(size):
+        return GridSpec(Dim3(*size), Dim3(1, 1, 1), Radius.constant(3), aligned=False)
+
+    def info_of(spec):
+        return WORKLOADS["astaroth"]._info(spec)
+
+    def rand8(spec, b, seed, dtype):
+        p = spec.padded()
+        out = []
+        for f in range(8):
+            gen.manual_seed(seed + f)
+            out.append(torch.rand((b, p.z, p.y, p.x), generator=gen, device=dev,
+                                  dtype=dtype) * 0.1)
+        return out
+
+    # -- B5's tenant form against its plain version and the one-block launch ------------
+    def held_substep(label, size, b, dtype, one_block):
+        spec = spec_of(size)
+        ainfo = info_of(spec)
+        consts, ids = Constants.from_info(ainfo), inv_ds_of(ainfo)
+        tasks = asub.tenant_tasks(spec, b)
+        curr8, out0 = rand8(spec, b, 1900, dtype), rand8(spec, b, 2000, dtype)
+        ok, op = [t.clone() for t in out0], [t.clone() for t in out0]
+        before = asub.substep_tasks.launches
+        for s in (0, 1, 2):
+            asub.substep_tasks(curr8, ok, spec, tasks, consts, ids, s, 0.1)
+            asub.substep_tasks_plain(curr8, op, spec, tasks, consts, ids, s, 0.1)
+        sync(dev)
+        launched = asub.substep_tasks.launches - before
+        want = 3 * -(-b // asub.MAX_TASKS) * on_card
+        check(launched == want, f"B5 tenants {label}: {launched} launches, expected {want}")
+        errs[names[0]] = max(errs[names[0]], *(max_abs(a, c) for a, c in zip(ok, op)))
+        check(all(torch.equal(a, c) for a, c in zip(ok, op)),
+              f"B5 tenants {label}: kernel != plain version (max abs err {errs[names[0]]:.3e})")
+        item = torch.empty((), dtype=dtype).element_size()
+        tma = sum(r[-1] for r in asub.substep_table(tasks, spec, 132, item)[0])
+        if one_block:
+            for j in range(b):
+                o1 = [t[j].clone() for t in out0]
+                for s in (0, 1, 2):
+                    asub.substep([t[j] for t in curr8], o1, spec, consts, ids, s, 0.1)
+                check(all(torch.equal(a[j], c) for a, c in zip(ok, o1)),
+                      f"B5 tenants {label}: lane {j} != the one-block launch of that tenant")
+        log(f"astaroth_substep tenants {label} {str(dtype)[6:]} stages 0-2: {b} tasks ({tma} by "
+            f"tensor copies) in {launched} launch(es), equal to the plain version"
+            + (f" and, lane by lane, to {b} one-block launches" if one_block else ""))
+
+    rb, rsize = ragged
+    mb, msize = many
+    for dtype in (torch.float64, torch.float32):
+        held_substep(f"{tenants} x {edge}^3", (edge,) * 3, tenants, dtype, True)
+        held_substep(f"{rb} x {'x'.join(map(str, rsize))}", rsize, rb, dtype, True)
+        held_substep(f"{mb} x {'x'.join(map(str, msize))}", msize, mb, dtype, False)
+
+    # -- B4's tenant form against wrap_fill_batched -------------------------------------
+    def held_fill(label, size, b, dtype):
+        spec = spec_of(size)
+        fields = rand8(spec, b, 2100, dtype)  # halos random too
+        want = [t.clone() for t in fields]
+        before = halo_fill.self_fill.launches
+        halo_fill.wrap_fill_tenants(spec, fields)
+        for t in want:
+            halo_fill.wrap_fill_batched(spec, t)
+        sync(dev)
+        launched = halo_fill.self_fill.launches - before
+        check(launched == 3 * on_card, f"B4 tenants {label}: {launched} launches, expected 3")
+        errs[names[1]] = max(errs[names[1]], *(max_abs(a, c) for a, c in zip(fields, want)))
+        check(all(torch.equal(a, c) for a, c in zip(fields, want)),
+              f"B4 tenants {label}: kernel != wrap_fill_batched")
+        log(f"self_fill tenants {label} {str(dtype)[6:]}: x, y, z over 8 fields in {launched} "
+            "launches, equal to wrap_fill_batched")
+
+    for dtype in (torch.float64, torch.float32):
+        held_fill(f"{tenants} x {edge}^3", (edge,) * 3, tenants, dtype)
+    held_fill(f"{rb} x {'x'.join(map(str, rsize))}", rsize, rb, torch.float64)
+
+    # -- timed: B5's tenant launch on the stage mix and B4's tenant fill per axis -------
+    if timed:
+        spec = spec_of((edge,) * 3)
+        ainfo = info_of(spec)
+        consts, ids = Constants.from_info(ainfo), inv_ds_of(ainfo)
+        tasks = asub.tenant_tasks(spec, tenants)
+        cells = tenants * edge ** 3
+        for dtype in (torch.float64, torch.float32):
+            item = torch.empty((), dtype=dtype).element_size()
+            curr8, out8 = rand8(spec, tenants, 2200, dtype), rand8(spec, tenants, 2300, dtype)
+
+            def run(s):
+                return lambda: asub.substep_tasks(curr8, out8, spec, tasks, consts, ids, s, 1e-8)
+
+            def plain(s):
+                return lambda: asub.substep_tasks_plain(curr8, out8, spec, tasks, consts, ids, s,
+                                                        1e-8)
+
+            st = [time_ms(run(s), 10, warmup=1, graph=True) for s in (0, 1)]
+            pl = [time_ms(plain(s), 1, warmup=0) for s in (0, 1)]
+            nbytes = (asub.tasks_bytes(tasks, item, 0) + 2 * asub.tasks_bytes(tasks, item, 1)) / 3
+            flops = (asub.FLOPS_PER_CELL[0] + 2 * asub.FLOPS_PER_CELL[1]) / 3 * cells
+            t = dict(ms=(st[0] + 2 * st[1]) / 3, plain_ms=(pl[0] + 2 * pl[1]) / 3,
+                     bound=bound_ms(nbytes, flops, dtype), library_ms=None)
+            log(f"time astaroth_substep_tenants {tenants} x {edge}^3 {str(dtype)[6:]}: "
+                f"{t['ms']:.4f} ms per launch on the campaign's mix (stage 0 {st[0]:.4f}, stages "
+                f"1-2 {st[1]:.4f}; plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by "
+                f"{t['bound'][1]}; {t['ms'] / t['bound'][0]:.2f}x)")
+            if dtype == torch.float64:
+                timings[names[0]] = t
+            del curr8, out8
+        fields = rand8(spec, tenants, 2400, torch.float64)
+        per, plain_per, nb = {}, {}, {}
+        for axis in halo_fill.AXIS_ORDER:
+            per[axis] = time_ms(lambda: halo_fill.self_fill(fields, spec, axis, z_stack=tenants,
+                                                            tenants=True), 20, warmup=2,
+                                graph=True)
+            plain_per[axis] = time_ms(lambda: halo_fill.self_fill_plain(fields, spec, axis), 1,
+                                      warmup=0)
+            nb[axis] = 8 * tenants * halo_fill.fill_bytes(spec, axis, 8)
+        mean = lambda d: sum(d.values()) / 3  # noqa: E731
+        timings[names[1]] = dict(ms=mean(per), plain_ms=mean(plain_per),
+                                 bound=bound_ms(mean(nb), 0), library_ms=None)
+        t = timings[names[1]]
+        log(f"time self_fill_tenants {tenants} x {edge}^3 r3 8 fp64 fields: {t['ms']:.4f} ms per "
+            f"launch, mean of x {per['x']:.4f} / y {per['y']:.4f} / z {per['z']:.4f} (plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, "
+            f"{mean(nb) / 1e6:.1f} MB an axis read and written)")
+        del fields
+
+    # -- the Astaroth campaign through apps.campaign ------------------------------------
+    made = integ.make_batched_astaroth_step
+    iterations = [0]
+
+    def counting(spec, info, dt=1e-8, iters=1, device=None):
+        fn = made(spec, info, dt=dt, iters=iters, device=device)
+
+        def run(curr, out):
+            iterations[0] += iters
+            return fn(curr, out)
+
+        return run
+
+    def campaign_run(b, e):
+        spec = spec_of((e,) * 3)
+        argv = ["--workload", "astaroth", "--mode", "batched", "--tenants", str(b), "--slot",
+                str(b), "--size", str(e), "--steps", str(steps), "--chunk", str(chunk),
+                "--dtype", "float64", "--device", str(dev), "--inject",
+                "nan@3:tenant=t1:repeat=always", "--max-rollbacks", "1", "--rollback-backoff",
+                "0"]
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-astaroth-campaign-") as d:
+            args = campaign_app.parse_args(argv + ["--campaign-dir", d])
+            campaign_app.build_kernels(args.device)
+            iterations[0] = 0
+            asub.substep_tasks.launches = 0
+            halo_fill.self_fill.launches = 0
+            integ.make_batched_astaroth_step = counting
+            try:
+                out = campaign_app.run_modes(args, d)
+            finally:
+                integ.make_batched_astaroth_step = made
+            sync(dev)
+            got = (asub.substep_tasks.launches, halo_fill.self_fill.launches)
+        want = (3 * iterations[0] * -(-b // asub.MAX_TASKS) * on_card, 3 * iterations[0] * on_card)
+        check(iterations[0] >= steps and got == want,
+              f"astaroth campaign {b} x {e}^3: launches (substep, fill) {got}, expected {want} "
+              f"for {iterations[0]} iterations")
+        res = out["_batched"]["results"]
+        check(out["evicted"] == ["t1"] and len(res) == b
+              and all(r.outcome == "done" and r.steps == steps for t, r in res.items()
+                      if t != "t1"),
+              f"astaroth campaign {b} x {e}^3: evicted {out['evicted']}, outcomes "
+              f"{sorted({r.outcome for r in res.values()})}")
+        # each retired tenant against the same tenant stepped alone (B = 1)
+        alone = made(spec, info_of(spec), dt=WORKLOADS["astaroth"].dt, iters=steps, device=dev)
+        p, off = spec.padded(), spec.compute_offset()
+        inner = (0, slice(off.z, off.z + e), slice(off.y, off.y + e), slice(off.x, off.x + e))
+        for i in range(b):
+            tid = f"t{i}"
+            if tid == "t1":
+                continue
+            job = TenantJob(tid, (e, e, e), steps, "float64", seed=i, workload="astaroth")
+            curr = {}
+            for k, a in astaroth_init_state(job).items():
+                t = torch.zeros((1, p.z, p.y, p.x), dtype=torch.float64, device=dev)
+                t[inner] = torch.from_numpy(a).to(dev)
+                curr[k] = t
+            curr, _ = alone(curr, {k: torch.zeros_like(t) for k, t in curr.items()})
+            for k in FIELDS:
+                check(np.array_equal(curr[k][inner].cpu().numpy(), res[tid].finals[k]),
+                      f"astaroth campaign {b} x {e}^3: tenant {tid} {k} != the tenant alone")
+        log(f"astaroth campaign {b} x {e}^3 fp64, {steps} steps in chunks of {chunk}, t1 faulted "
+            f"from step 3: t1 evicted, {b - 1} retired, each byte-equal to its tenant stepped "
+            f"alone; {iterations[0]} iterations, launches (substep, fill) {got}; "
+            f"{out['batched_mcells_per_s']:.1f} tenant Mcells/s, step p50 "
+            f"{out['batched_p50_step_s'] * 1e3:.4f} ms, p99 {out['batched_p99_step_s'] * 1e3:.4f} "
+            f"ms")
+        return got
+
+    got = campaign_run(tenants, edge)
+    launches[names[0]], launches[names[1]] = got
+    campaign_run(*big)
+
+    # -- the serving daemon ----------------------------------------------------------------
+    def doc(jid, size, workload="jacobi", dtype="float32", priority="normal", tenant=None,
+            deadline_ms=None, seed=0):
+        d = {"job": jid, "size": size, "steps": serve_steps, "workload": workload,
+             "dtype": dtype, "priority": priority, "seed": seed}
+        if tenant:
+            d["tenant"] = tenant
+        if deadline_ms is not None:
+            d["deadline_ms"] = deadline_ms
+        return d
+
+    def drop(sdir, d):
+        inc = os.path.join(sdir, "jobs", "incoming")
+        os.makedirs(inc, exist_ok=True)
+        tmp = os.path.join(inc, f".tmp-{d['job']}.json")
+        with open(tmp, "w") as f:
+            json.dump(d, f)
+        os.replace(tmp, os.path.join(inc, f"{d['job']}.json"))
+
+    e0, e1 = serve_edges
+    first = [doc("j0", e0, priority="high", seed=1), doc("j1", e0, seed=2),
+             doc("k0", e1, priority="low", seed=3), doc("k1", e1, priority="high", seed=4),
+             doc("a0", edge, "astaroth", "float64", seed=5),
+             doc("a1", edge, "astaroth", "float64", priority="low", seed=6),
+             doc("b0", e0, tenant="bob", seed=7), doc("b1", e1, tenant="bob", seed=8),
+             doc("b2", e0, tenant="bob", priority="low", seed=9),
+             doc("late-bound", e0, deadline_ms=1e-3, seed=10)]
+    buckets = {(e0, "float32", "jacobi"), (e1, "float32", "jacobi"),
+               (edge, "float64", "astaroth")}
+
+    class Serve(ServeScheduler):
+        """Drops the second wave (the running slot's bucket) at its first
+        chunk boundary."""
+
+        def __init__(self, *a, late=0, **kw):
+            super().__init__(*a, **kw)
+            self._late = late
+
+        def _observe_chunk(self, bucket, per, done_now):
+            (size, dtype, workload) = bucket
+            for i in range(self._late):
+                drop(self.serve_dir, doc(f"late{i}", size[0], workload, dtype, seed=20 + i))
+            self._late = 0
+            super()._observe_chunk(bucket, per, done_now)
+
+    class DrainMidRun(ServeScheduler):
+        """Requests a drain at the first chunk boundary after its first
+        retirement: the running slot parks mid-trajectory."""
+
+        def _observe_chunk(self, bucket, per, done_now):
+            super()._observe_chunk(bucket, per, done_now)
+            if self._retired_run:
+                self.request_drain("smoke")
+
+    kw = dict(device=dev, chunk=2, max_idle_s=0.5, max_wall_s=60.0, poll_s=0.02,
+              slot_min=1, slot_max=8, packing=True, fairness=True, preempt=True)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as d:
+        sdir, lpath, metrics = (os.path.join(d, n) for n in ("s", "ledger.jsonl", "m.jsonl"))
+        # the deadline pricing and the resize's priced remaining wall: 50 ms
+        # a step in every bucket, from a ledger this phase writes
+        ledger_mod.append_entries(lpath, [ledger_mod.make_entry(
+            LEDGER_METRIC, 50.0, label="seed", unit="ms", platform=dev.type, source="serve",
+            config={"bucket": bucket_label(((s,) * 3, dt, wl))},
+            detail={"bucket": bucket_label(((s,) * 3, dt, wl)), "samples": 8})
+            for s, dt, wl in sorted(buckets)])
+        for dd in first:
+            drop(sdir, dd)
+        telemetry.configure(metrics_out=metrics, app="chip-smoke-serve")
+        t0 = time.perf_counter()
+        try:
+            out = Serve(sdir, 2, late=4, quota=2, admission_ledger=lpath, **kw).serve()
+        finally:
+            telemetry.get().close()
+        wall = time.perf_counter() - t0
+        recs = [json.loads(ln) for ln in open(metrics) if ln.strip()]
+        bad = [e for r in recs for e in telemetry.validate_record(r)]
+        check(not bad, f"serve: invalid telemetry records {bad[:3]}")
+        count = lambda name: sum(r["name"] == name for r in recs)  # noqa: E731
+        served = {dd["job"] for dd in first if dd["job"] != "late-bound"} | {
+            f"late{i}" for i in range(4)}
+        check(out["retired"] == len(served) and out["rejected"] == 1 and out["deferred"] >= 1
+              and out["resizes"] >= 1 and out["backfills"] >= 0 and count("serve.resized") >= 1,
+              f"serve: {({k: out[k] for k in ('retired', 'rejected', 'deferred', 'resizes')})}")
+        results = out["results"]
+        for jid in sorted(served):
+            with open(os.path.join(sdir, "results", f"{jid}.json")) as f:
+                rdoc = json.load(f)
+            check(rdoc["outcome"] == "done" and rdoc["steps"] == serve_steps
+                  and results[jid].outcome == "done", f"serve: job {jid} result {rdoc}")
+        # every result against the batch driver on the same jobs
+        specs = {}
+        for name in sorted(os.listdir(os.path.join(sdir, "jobs", "claimed"))):
+            with open(os.path.join(sdir, "jobs", "claimed", name)) as f:
+                specs[name[:-5]] = json.load(f)
+        jobs = [job_from_doc(specs[j], i) for i, j in enumerate(sorted(served))]
+        batch = CampaignDriver(jobs, 4, os.path.join(d, "batch"), device=dev, chunk=2).run()
+        for jid in sorted(served):
+            a, c = results[jid].finals, batch["results"][jid].finals
+            check(sorted(a) == sorted(c) and all(a[k].tobytes() == c[k].tobytes() for k in a),
+                  f"serve: job {jid} != the batch CampaignDriver's")
+        log(f"serve in process: {out['retired']} jobs retired in {wall:.2f} s "
+            f"({out['retired'] / wall:.3f} jobs/s; {out['slots']} slots), admitted "
+            f"{out['admitted']}, deferred {out['deferred']}, rejected {out['rejected']}, "
+            f"backfills {out['backfills']}, resizes {out['resizes']} "
+            f"({[(r['from_width'], r['to_width'], r['reason']) for r in recs if r['name'] == 'serve.resized']}), "
+            f"preemptions {out['preemptions']}; records: "
+            + ", ".join(f"{n} {count(n)}" for n in sorted({r['name'] for r in recs
+                                                          if r['name'].startswith('serve.')}))
+            + "; every result byte-equal to the batch driver's")
+
+        # drain after the first retirement, then revive on the same directory
+        rdir = os.path.join(d, "r")
+        for dd in first[:6]:
+            drop(rdir, dd)
+        out1 = DrainMidRun(rdir, 2, **kw).serve()
+        with open(os.path.join(rdir, "serve-state.json")) as f:
+            parked = sorted(j for j, st in json.load(f)["jobs"].items()
+                            if st["state"] == "queued" and st["steps_done"] > 0)
+        out2 = ServeScheduler(rdir, 2, **kw).serve()
+        done1 = {t for t, r in out1["results"].items() if r.outcome == "done"}
+        done2 = {t for t, r in out2["results"].items() if r.outcome == "done"}
+        want = {dd["job"] for dd in first[:6]}
+        check(out1["outcome"] == "drained" and done1 and parked and not done1 & done2
+              and done1 | done2 == want and out2["revived"] == len(want) - len(done1),
+              f"serve drain/revive: first {sorted(done1)}, revived {out2['revived']} and "
+              f"retired {sorted(done2)}")
+        for jid in sorted(want):
+            a = (out1 if jid in done1 else out2)["results"][jid].finals
+            c = results[jid].finals
+            check(all(a[k].tobytes() == c[k].tobytes() for k in c),
+                  f"serve drain/revive: job {jid} != the uninterrupted serve's")
+        log(f"serve drained mid-run after retiring {sorted(done1)} ({parked} parked "
+            f"mid-trajectory), a second daemon revived {out2['revived']} job(s) and retired "
+            f"{sorted(done2)}: none re-run, every result byte-equal to the uninterrupted serve's")
+    return timings, launches, errs
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -4266,6 +4693,13 @@ def main() -> int:
     launches.update(l15)
     errs.update(e15)
 
+    # -- 16. the serving path: B5's and B4's tenant forms, the Astaroth campaign, ---
+    #        the serving daemon
+    t16, l16, e16 = tenants_phase(dev, time_ms)
+    timings.update(t16)
+    launches.update(l16)
+    errs.update(e16)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -4344,6 +4778,13 @@ def main() -> int:
                                   "stencil_tpu/ops/pallas_stencil.py:119"),
         "persistent_jacobi_mesh_uneven": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
                                           "stencil_tpu/ops/persistent_stencil.py:199"),
+        # B5 over a campaign slot's tenant stack (one task a tenant; the JAX
+        # package steps Astaroth tenants on XLA), and B4 over the same stack
+        # (z wrapping each tenant onto itself)
+        "astaroth_substep_tenants": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                                     "stencil_tpu/ops/pallas_astaroth.py:202"),
+        "self_fill_tenants": ("stencil_tpu_torch/csrc/self_fill.cu",
+                              "stencil_tpu/ops/halo_fill.py:236"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)

@@ -1,7 +1,8 @@
 """campaign — multi-tenant batched serving of many small domains on one GPU.
 
 The port's counterpart of ``stencil_tpu.apps.campaign``: queue N tenant jobs
-(independent periodic jacobi boxes, seeded per-tenant initial fields), serve
+(independent periodic boxes of one ``--workload``: jacobi heat, or 8-field
+Astaroth MHD; seeded per-tenant initial fields), serve
 them in fixed-size batch slots under one program per shape bucket
 (``--mode batched``), one at a time through the single-domain machinery
 (``--mode sequential``), or both back to back with the ratio and an optional
@@ -22,16 +23,17 @@ Usage: python -m stencil_tpu_torch.apps.campaign --tenants 64 --slot 64 \\
            --size 32 --steps 6 --chunk 3 --mode ab --check-parity
 (``--device cpu`` runs the kernels' plain versions on the CPU; ``--dtype
 float64`` steps float64 tenants, on the card through the kernels' float64
-forms).
+forms; ``--workload astaroth`` serves ``--mode batched`` only, as in the JAX
+app: its sequential baseline is a B=1 slot through the driver).
 
 On the card the kernels are built (or loaded) before anything is timed:
 the line's ``build_s`` is that set-up, and no mode's step times hold it.
 
 The JAX app's ``--use-pallas`` is not ported: here the device decides (the
-card runs the hand-written kernel, the CPU the plain version). ``--cpu``,
-``--workload``, ``--replan``, ``--plan-db`` and the live-observability flags
-wait for the astaroth tenants, ``plan/`` and ``obs/live`` (ROADMAP.md queue
-A items 7-9).
+card runs the hand-written kernels, the CPU the plain versions). ``--cpu``
+gives way to ``--device``. ``--replan``, ``--plan-db`` and the
+live-observability flags wait for ``plan/`` and ``obs/live`` (ROADMAP.md
+queue A item 4).
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def build_jobs(args) -> list:
     deadlines = parse_deadlines(args.deadline_ms)
     return [
         TenantJob(f"t{i}", (args.size, args.size, args.size), args.steps,
-                  args.dtype, seed=args.init_seed + i,
+                  args.dtype, seed=args.init_seed + i, workload=args.workload,
                   deadline_ms=deadlines.get(f"t{i}", deadlines.get("*")))
         for i in range(args.tenants)
     ]
@@ -116,7 +118,8 @@ def run_modes(args, campaign_dir: str) -> dict:
     out: dict = {
         "app": "campaign", "mode": args.mode, "tenants": args.tenants,
         "slot": args.slot, "size": args.size, "steps": args.steps,
-        "dtype": args.dtype, "devices": 1, "campaign_dir": campaign_dir,
+        "dtype": args.dtype, "workload": args.workload, "devices": 1,
+        "campaign_dir": campaign_dir,
         "build_s": round(build_kernels(args.device), 3),
     }
 
@@ -189,6 +192,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--size", type=int, default=16, help="per-tenant cubic domain edge")
     p.add_argument("--steps", type=int, default=6, help="steps per tenant")
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    p.add_argument("--workload", choices=["jacobi", "astaroth"], default="jacobi",
+                   help="tenant physics: jacobi (single-quantity heat) or astaroth (8-field "
+                        "MHD through the batched RK3 step); astaroth serves --mode batched "
+                        "only (its sequential baseline is a B=1 slot)")
     p.add_argument("--chunk", type=int, default=2, help="steps per guarded chunk")
     p.add_argument("--mode", choices=["batched", "sequential", "ab"], default="batched",
                    help="ab = sequential baseline then batched, with their ratio")
@@ -238,6 +245,9 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
         deadlines = parse_deadlines(args.deadline_ms)
     except ValueError as e:
         p.error(f"bad --deadline-ms: {e}")
+    if args.workload == "astaroth" and args.mode != "batched":
+        p.error("--workload astaroth serves --mode batched only (the sequential baseline "
+                "is a B=1 slot through the driver)")
     unknown = sorted(set(deadlines) - {f"t{i}" for i in range(args.tenants)} - {"*"})
     if unknown:
         p.error(f"--deadline-ms names unknown tenant(s) {unknown} "

@@ -25,6 +25,12 @@ partition (the JAX package's serialized path for uneven residents,
 current stream; the exchange on a second stream beside stage 0, which is
 what the hoisted order is for, is later speed work (ROADMAP.md).
 
+:func:`make_batched_astaroth_step` is the multi-tenant campaign's step:
+``(B, pz, py, px)`` stacks of independent one-block tenants, each wrapping
+its own halos. Per iteration the tenant fill of ``curr`` (B4's tenant form,
+x -> y -> z, 3 launches for the 8 fields) and the 3 stages, each one launch
+of B5's tenant form over every tenant, then one swap.
+
 The in buffers stay constant across the three stages of an iteration, so
 all three compute the same rate field; the three kernel passes are kept
 all the same, because they are the work the reference performs.
@@ -36,9 +42,12 @@ from typing import Dict
 
 import torch
 
-from ..geometry import Rect3
+from ..api import resolve_device
+from ..geometry import Dim3, Rect3
 from ..ops.astaroth_substep import (FIELDS, RK3_ALPHA, RK3_BETA, compute_tasks,
-                                    require_supported, shell_tasks, substep_tasks)
+                                    require_supported, shell_tasks, substep_tasks,
+                                    tenant_tasks)
+from ..ops.halo_fill import wrap_fill_tenants
 from .config import AcMeshInfo
 from .equations import Constants, continuity, entropy, induction, momentum
 from .fd import field_data
@@ -144,6 +153,57 @@ def make_astaroth_step(ex, info: AcMeshInfo, dt: float = 1e-8, overlap: bool = T
         return out, curr  # one swap per iteration (astaroth.cu:642-648)
 
     def fn(curr, out):
+        for _ in range(iters):
+            curr, out = iteration(curr, out)
+        return curr, out
+
+    return fn
+
+
+def make_batched_astaroth_step(spec, info: AcMeshInfo, dt: float = 1e-8, iters: int = 1,
+                               device=None):
+    """The multi-tenant batched Astaroth iteration: ``fn(curr, out) ->
+    (curr, out)`` over dicts of ``(B, pz, py, px)`` stacked tenant fields
+    keyed by :data:`FIELDS`, each tenant an independent one-block periodic
+    MHD box. The counterpart of the JAX package's
+    ``make_batched_astaroth_step``.
+
+    ``spec`` describes one tenant (``GridSpec(size, Dim3(1, 1, 1),
+    Radius.constant(3))``); the leading axis stacks B tenants. Per iteration
+    the reference swap-per-iteration structure runs once: the periodic
+    self-wrap of every tenant (``halo_fill.wrap_fill_tenants``: composed x
+    -> y -> z, so the 6th-order cross stencils see the edge and corner halos
+    of a one-block exchange), stages 0-2 over every tenant's compute region
+    from the filled ``curr``, and one swap. On the card that is 3 fill
+    launches and 3 substep launches (:func:`tenant_tasks`, one per
+    ``MAX_TASKS`` tenants); on the CPU the plain fill and
+    ``integrate_region``. The step runs on ``device`` (default: the current
+    CUDA device) and refuses tensors elsewhere; it updates in place, like
+    every loop of the port (the returned dicts are the same tensors,
+    swapped)."""
+    r = spec.radius
+    if spec.dim != Dim3(1, 1, 1):
+        raise ValueError(f"batched tenants are single-block domains; got partition {spec.dim}")
+    if min(r.x(-1), r.x(1), r.y(-1), r.y(1), r.z(-1), r.z(1)) < 3:
+        raise ValueError("astaroth needs face radius >= 3 (6th-order stencils)")
+    dev = resolve_device(device)
+    inv_ds = inv_ds_of(info)
+    c = Constants.from_info(info)
+    tables = {}  # the task list per stack height
+
+    def iteration(curr, out):
+        c8, o8 = tuple(curr[k] for k in FIELDS), tuple(out[k] for k in FIELDS)
+        wrap_fill_tenants(spec, c8)
+        b = c8[0].shape[0]
+        tasks = tables.get(b) or tables.setdefault(b, tenant_tasks(spec, b))
+        for s in range(3):
+            substep_tasks(c8, o8, spec, tasks, c, inv_ds, s, dt)
+        return out, curr  # one swap per iteration (astaroth.cu:642-648)
+
+    def fn(curr, out):
+        bad = [str(t.device) for t in (*curr.values(), *out.values()) if t.device != dev]
+        if bad:
+            raise ValueError(f"batched astaroth step built for {dev}; operands on {bad}")
         for _ in range(iters):
             curr, out = iteration(curr, out)
         return curr, out

@@ -2,11 +2,13 @@
 
 The port's counterpart of ``stencil_tpu.campaign``: ``driver.CampaignDriver``
 packs queued tenant jobs into fixed-size batch slots, steps each slot as one
-``(B, z, y, x)`` stack (on the card, one tenant-form sweep launch per step)
-through ``fault/recover.run_guarded`` (per-lane health, rc-43 eviction with
+``(B, z, y, x)`` stack per quantity (on the card, jacobi: one tenant-form
+sweep launch a step; astaroth: 3 tenant-form fill and 3 substep launches a
+step) through ``fault/recover.run_guarded`` (per-lane health, rc-43 eviction with
 backfill, per-tenant ``ckpt/`` snapshots), and ``compile_cache`` makes the
 one-program-many-slots economics measurable. ``run_sequential`` is the
-one-tenant-at-a-time baseline.
+one-tenant-at-a-time jacobi baseline. ``serve/`` turns the driver into the
+always-on daemon.
 
 The user-facing surface is ``apps/campaign.py``. It exports what the JAX
 package's ``campaign`` does, except ``batch_devices``: a slot lives on one

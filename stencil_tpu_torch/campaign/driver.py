@@ -1,17 +1,22 @@
 """Multi-tenant batched campaigns: one program, many small domains.
 
 The port's counterpart of ``stencil_tpu.campaign.driver``. Floods of small
-independent periodic jacobi boxes are served in fixed-size batch slots:
+independent periodic boxes of one workload (jacobi heat, or 8-field
+Astaroth MHD) are served in fixed-size batch slots:
 
 - **Queue -> slots.** Tenant jobs queue FIFO; the driver packs them into
   slots of ``slot_size`` lanes, bucketed by shape (grid, dtype, workload):
   a slot's program depends only on its bucket. When the queue drains below
   a full slot, the empty lanes are dead tenants (zeros, never attributed).
-- **Batched stepping.** A slot's state is one ``(B, pz, py, px)`` stack on
-  the driver's device (``ops/jacobi.make_batched_jacobi_loop``): on the card
-  one launch of the tenant-form sweep kernel per step; each tenant is its
-  own periodic box, nothing crosses the tenant axis, and one program serves
-  every same-shape slot through the :class:`~.compile_cache.CompileCache`.
+- **Batched stepping.** A slot's state is one ``(B, pz, py, px)`` stack per
+  quantity on the driver's device. Jacobi tenants step through
+  ``ops/jacobi.make_batched_jacobi_loop`` (on the card one launch of the
+  tenant-form sweep kernel per step); Astaroth tenants through
+  ``astaroth/integrate.make_batched_astaroth_step`` (on the card, per step,
+  3 launches of the fill's tenant form and 3 of the substep kernel's tenant
+  table). Each tenant is its own periodic box, nothing crosses the tenant
+  axis, and one program serves every same-shape slot through the
+  :class:`~.compile_cache.CompileCache`.
 - **Guarded slots.** Each slot segment runs through
   ``fault/recover.run_guarded`` with a per-lane
   :class:`~.health.SlotHealthGuard` and an optional
@@ -41,10 +46,11 @@ live slot tensors in place.
 baseline (aggregate Mcells/s and p50/p99 per-step latency).
 
 Entry points run on the current CUDA device unless ``device="cpu"`` is
-passed. Not carried over yet (ROADMAP.md queue A item 3): the ``astaroth``
-workload (raises ``NotImplementedError``; :func:`astaroth_init_state` is
-ported for it), ``batch_devices`` (a slot lives on one device), and the
-live sentinel, status file and plan hot-swap.
+passed. ``batch_devices`` is not carried over (a slot lives on one device).
+The live sentinel, status file and plan hot-swap wait for ``obs/live``,
+``obs/status`` and ``plan/replan`` (ROADMAP.md queue A item 4): the
+driver's ``sentinel``, ``status`` and ``replan`` stay None, so a serving
+layer's guards read as in the JAX package.
 """
 
 from __future__ import annotations
@@ -78,15 +84,13 @@ from .health import SlotHealthGuard, TenantFault
 from .inject import SlotInjector
 
 QUANTITY = "temperature"
-# a tenant's online p99 is judged against its deadline only once this many
-# latency samples exist (one cold chunk must not condemn a tenant)
-SLO_MIN_SAMPLES = 3
 
 
 @dataclass
 class TenantJob:
-    """One queued simulation: an independent periodic box of one workload
-    (``"jacobi"``, single-quantity heat)."""
+    """One queued simulation: an independent periodic box of one workload:
+    ``"jacobi"`` (single-quantity heat) or ``"astaroth"`` (8-field MHD
+    through ``make_batched_astaroth_step``)."""
 
     tid: str
     size: Tuple[int, int, int]      # (x, y, z)
@@ -171,6 +175,7 @@ class _JacobiWorkload:
     """Single-quantity periodic heat."""
 
     default_radius = 1
+    needs_sel = True
 
     def quantity_names(self, job_dtype: str):
         return [QUANTITY]
@@ -189,7 +194,52 @@ class _JacobiWorkload:
         return {QUANTITY: c}
 
 
-WORKLOADS = {"jacobi": _JacobiWorkload()}
+class _AstarothWorkload:
+    """8-field MHD tenants through ``make_batched_astaroth_step``: no sel (no
+    sphere sources), radius 3 (6th-order cross stencils), one reference
+    swap-per-iteration RK3 step per slot step, the conf read from the
+    port's own ``astaroth/astaroth.conf`` with the tenant's extents."""
+
+    default_radius = 3
+    needs_sel = False
+    dt = 1e-8
+
+    def quantity_names(self, job_dtype: str):
+        from ..astaroth.integrate import FIELDS
+
+        return list(FIELDS)
+
+    def init_state(self, job: TenantJob) -> Dict[str, np.ndarray]:
+        return astaroth_init_state(job)
+
+    def _info(self, spec):
+        from ..astaroth import config as ac_config
+
+        conf = os.path.join(os.path.dirname(__file__), "..", "astaroth", "astaroth.conf")
+        info, _ok = ac_config.load_config(conf)
+        b = spec.base
+        info.int_params["AC_nx"] = int(b.x)
+        info.int_params["AC_ny"] = int(b.y)
+        info.int_params["AC_nz"] = int(b.z)
+        info.update_builtin_params()
+        return info
+
+    def build_loop(self, spec, iters: int, device):
+        from ..astaroth.integrate import make_batched_astaroth_step
+
+        return make_batched_astaroth_step(spec, self._info(spec), dt=self.dt, iters=iters,
+                                          device=device)
+
+    def step(self, loop, state: Dict, scratch: Dict, sel) -> Dict:
+        """Advance the slot; ``scratch`` (every field's other buffer) is
+        updated in place to the pair's new out buffers."""
+        curr, out = loop(state, scratch)
+        curr = dict(curr)  # after an odd number of steps it is ``scratch`` itself
+        scratch.update(out)
+        return curr
+
+
+WORKLOADS = {"jacobi": _JacobiWorkload(), "astaroth": _AstarothWorkload()}
 
 
 def _clone(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -232,10 +282,6 @@ def plan_slots(jobs: Sequence[TenantJob],
 
 def _check_workloads(jobs: Sequence[TenantJob]) -> None:
     for j in jobs:
-        if j.workload == "astaroth":
-            raise NotImplementedError(
-                f"tenant {j.tid}: astaroth campaign tenants need a batched substep "
-                "kernel (ROADMAP.md queue A item 3)")
         if j.workload not in WORKLOADS:
             raise ValueError(f"tenant {j.tid}: unknown workload {j.workload!r} "
                              f"(known: {sorted(WORKLOADS)})")
@@ -264,6 +310,7 @@ class CampaignDriver:
         inject_seed: int = 0,
         resume: bool = False,
         cache: Optional[CompileCache] = None,
+        slo_min_samples: int = 3,
     ):
         if slot_size < 1:
             raise ValueError(f"slot_size must be >= 1, got {slot_size}")
@@ -288,6 +335,15 @@ class CampaignDriver:
         self.inject_seed = inject_seed
         self.resume = bool(resume)
         self.cache = cache if cache is not None else CompileCache()
+        # the live sentinel, status writer and plan hot-swap (ROADMAP.md
+        # queue A item 4): None until obs/live, obs/status and plan/replan
+        # are ported
+        self.sentinel = None
+        self.status = None
+        self.replan = None
+        # a tenant's online p99 is judged against its deadline only once this
+        # many latency samples exist (one cold chunk must not condemn a tenant)
+        self.slo_min_samples = max(1, int(slo_min_samples))
         self._lane_lat: Dict[str, deque] = {}
         self._slo_violated: set = set()
         # the running slot's lanes and width, published for a serving
@@ -455,11 +511,14 @@ class CampaignDriver:
         B = int(width) if width else self.slot_size
         inner = (slice(off.z, off.z + z), slice(off.y, off.y + y), slice(off.x, off.x + x))
 
-        # the standard hot/cold spheres, one copy per tenant: the kernel
-        # reads a (B, pz, py, px) sel, as the TPU kernel does
-        sel_np = np.zeros((p.z, p.y, p.x), np.int32)
-        sel_np[inner] = sphere_sel((x, y, z))
-        sel = torch.from_numpy(sel_np).to(dev).expand(B, -1, -1, -1).contiguous()
+        # jacobi: the standard hot/cold spheres, one copy per tenant (the
+        # kernel reads a (B, pz, py, px) sel, as the TPU kernel does);
+        # astaroth has no source geometry
+        sel = None
+        if wl.needs_sel:
+            sel_np = np.zeros((p.z, p.y, p.x), np.int32)
+            sel_np[inner] = sphere_sel((x, y, z))
+            sel = torch.from_numpy(sel_np).to(dev).expand(B, -1, -1, -1).contiguous()
 
         lanes = [Lane(i) for i in range(B)]
         self._cur_lanes = lanes
@@ -578,7 +637,7 @@ class CampaignDriver:
                 if job is None or job.deadline_ms is None:
                     continue
                 samples = self._lane_lat.get(job.tid)
-                if (not samples or len(samples) < SLO_MIN_SAMPLES
+                if (not samples or len(samples) < self.slo_min_samples
                         or job.tid in self._slo_violated):
                     continue
                 p50_ms, p99_ms = lane_stats(l)
@@ -750,7 +809,8 @@ def run_sequential(jobs: Sequence[TenantJob], *, device=None, radius: int = 1,
         if j.workload != "jacobi":
             raise NotImplementedError(
                 f"run_sequential serves jacobi tenants only (tenant {j.tid} is "
-                f"{j.workload!r})")
+                f"{j.workload!r}); the astaroth sequential baseline is a B=1 slot through "
+                "the batched driver")
     dev = resolve_device(device)
     cache = cache if cache is not None else CompileCache()
     rec = telemetry.get()

@@ -1,4 +1,6 @@
-"""Observability: the structured telemetry of the port (:mod:`.telemetry`).
+"""Observability: the structured telemetry of the port (:mod:`.telemetry`)
+and the cross-run performance ledger (:mod:`.ledger`, which prices the
+serving daemon's admission).
 
 :data:`FAULT_RC` is the exit code of a run whose recovery gave up (the
 JAX package keeps it in ``obs/watchdog.py``, whose supervisor is not

@@ -43,9 +43,10 @@ SCHEMA_VERSION = 1
 KINDS = ("span", "counter", "gauge", "meta", "heartbeat")
 REQUIRED_KEYS = ("v", "run", "proc", "kind", "name", "t")
 
-# The typed payload of the fault / health / recover / checkpoint records and
-# the multi-tenant layer's campaign.* / compile.* / slo.* vocabulary, as the
-# JAX package's schema types them.
+# The typed payload of the fault / health / recover / checkpoint records, the
+# multi-tenant layer's campaign.* / compile.* / slo.* vocabulary and the
+# serving layer's replan.requested and serve.*, as the JAX package's schema
+# types them.
 NAME_FIELDS = {
     "fault.injected": (("fault_kind", str), ("step", int)),
     "health.fault": (("fault_kind", str), ("quantity", str), ("step", int)),
@@ -65,6 +66,20 @@ NAME_FIELDS = {
     "compile.build": (("key", str),),
     "compile.build_s": (("key", str),),
     "slo.violation": (("tenant", str), ("step", int)),
+    "replan.requested": (("reason", str), ("step", int)),
+    # the serving vocabulary (serve/): admission verdicts, result streaming,
+    # drain / park / revival, and the capacity engine's decisions
+    "serve.admitted": (("job", str),),
+    "serve.rejected": (("job", str), ("reason", str)),
+    "serve.deferred": (("job", str), ("reason", str)),
+    "serve.retired": (("job", str), ("outcome", str)),
+    "serve.parked": (("job", str), ("step", int)),
+    "serve.drain": (("reason", str),),
+    "serve.revived": (("jobs", int),),
+    "serve.packed": (("bucket", str), ("width", int)),
+    "serve.preempted": (("job", str), ("gain_ms", float), ("resume_cost_ms", float)),
+    "serve.preempt_veto": (("job", str), ("gain_ms", float), ("resume_cost_ms", float)),
+    "serve.resized": (("from_width", int), ("to_width", int), ("reason", str)),
 }
 
 

@@ -14,8 +14,11 @@ The port's counterpart of ``stencil_tpu.ops.pallas_astaroth``:
   block of a partition) and a rect in it, each block's compute region at
   its own extent (:func:`compute_tasks`, the JAX package's per-resident
   loop) or its exterior shells (:func:`shell_tasks`, the overlap
-  iteration's re-integration after the exchange). :func:`substep_table`
-  lays the table out; :func:`substep` is its one-task case;
+  iteration's re-integration after the exchange), or one task per tenant
+  of a campaign slot's ``(B, pz, py, px)`` stacks (:func:`tenant_tasks`,
+  each tenant's whole compute region; the halos are filled first, per
+  tenant, by ``halo_fill.wrap_fill_tenants``). :func:`substep_table` lays
+  the table out; :func:`substep` is its one-task case;
 - :func:`substep_plain` and :func:`substep_tasks_plain` are the same stage
   through ``astaroth.fd`` and ``astaroth.equations`` in PyTorch, over z
   slabs so that the ~74 derivative tensors and the equations' temporaries
@@ -167,6 +170,29 @@ def compute_tasks(spec: GridSpec) -> Tuple[SubstepTask, ...]:
     """Every block's compute region: the tasks of one stage over a
     partition (uneven blocks at their own extents)."""
     return tuple(SubstepTask(j, block_compute(spec, j)) for j in range(spec.num_blocks()))
+
+
+def tenant_tasks(spec: GridSpec, tenants: int) -> Tuple[SubstepTask, ...]:
+    """One task per tenant of a ``(tenants, pz, py, px)`` stack of a
+    one-block ``spec``: tenant ``j``'s whole compute region at the base
+    extent, the batched campaign's stage (all tenants in one launch up to
+    :data:`MAX_TASKS`)."""
+    if spec.num_blocks() != 1:
+        raise ValueError(f"tenant stacks are single-block domains; got partition {spec.dim}")
+    if tenants < 1:
+        raise ValueError(f"a tenant stack holds at least one tenant, not {tenants}")
+    rect = _whole(spec)[0].rect
+    return tuple(SubstepTask(j, rect) for j in range(tenants))
+
+
+def _all_whole(spec: GridSpec, tasks) -> bool:
+    """Whether every task is its block's whole compute region: its own
+    extent in a partition's stacks, the base extent in a tenant stack (a
+    one-block ``spec``, every tenant's region the same rect)."""
+    if spec.num_blocks() == 1:
+        rect = _whole(spec)[0].rect
+        return all(t.rect == rect for t in tasks)
+    return all(t.rect == block_compute(spec, t.block) for t in tasks)
 
 
 def shell_tasks(spec: GridSpec) -> Tuple[SubstepTask, ...]:
@@ -326,7 +352,9 @@ def _check(curr8, out8, spec: GridSpec, stage: int, stacks: bool = False) -> tor
 def _check_tasks(tasks, spec: GridSpec, nblocks: int, stage: int) -> None:
     """Each task a block of the stacks and a non-empty rect with 3 halo cells
     on every side; at stages 1-2, whole compute regions of distinct blocks
-    (stages 1-2 read ``out``: a shell would apply its stage twice)."""
+    (stages 1-2 read ``out``: a shell would apply its stage twice): of a
+    partition's stacks, or of a tenant stack (a one-block ``spec`` over
+    ``nblocks`` tenants)."""
     if not tasks:
         raise ValueError("substep_tasks needs at least one task")
     p = spec.padded()
@@ -339,8 +367,8 @@ def _check_tasks(tasks, spec: GridSpec, nblocks: int, stage: int) -> None:
                 raise ValueError(f"task rect {rect} is empty or leaves fewer than {HALO} halo "
                                  f"cells in the padded ({p.z}, {p.y}, {p.x}) block")
     if stage:
-        if len({j for j, _ in tasks}) != len(tasks) or nblocks != spec.num_blocks() or any(
-                rect != block_compute(spec, j) for j, rect in tasks):
+        if (len({j for j, _ in tasks}) != len(tasks) or spec.num_blocks() not in (1, nblocks)
+                or not _all_whole(spec, tasks)):
             raise ValueError(f"a shell task at stage {stage}: stages 1-2 read out and take "
                              "whole compute regions of distinct blocks only")
 
@@ -415,7 +443,7 @@ def substep_tasks(curr8: Sequence[torch.Tensor], out8: Sequence[torch.Tensor],
         return substep_tasks_plain(curr8, out8, spec, tasks, c, inv_ds, stage, dt)
     n = _launch(curr8, out8, spec, tasks, c, inv_ds, stage, dt, dev, nblocks)
     substep_tasks.launches += n
-    if any(t.rect != block_compute(spec, t.block) for t in tasks):
+    if not _all_whole(spec, tasks):
         substep_tasks.shells += n
     return tuple(out8)
 

@@ -20,6 +20,14 @@ plane, so one launch over the stack viewed as one
 kernel's ``z_stack`` form does for a ``(cz, 1, 1)`` residency. The port's
 exchange stacks the residents of any residency this way.
 
+``tenants=True`` marks the stack's blocks as independent tenants (the
+campaign's ``(B, pz, py, px)`` slot state): x and y fill as for a z-stack,
+and z wraps each tenant onto itself, the z fill's two runs repeated over
+the B tenants a block apart. :func:`wrap_fill_tenants` fills a tenant stack
+x -> y -> z, three launches for a same-dtype group of up to
+:data:`MAX_FILL_GROUP` quantities; :func:`wrap_fill_batched` is its plain
+version.
+
 :func:`fill_layout` is what the kernel is told: the fill of one axis as two
 copies (runs) repeated over instances, and the vector width that divides
 them. It is pure Python, so the CPU tests hold it to the plain fill.
@@ -247,21 +255,22 @@ SECTOR_BYTES = 32
 
 
 def fill_layout(spec: GridSpec, axis: str, elem_size: int, z_stack: int = 1,
-                ptr_align: int = 16) -> FillLayout:
+                ptr_align: int = 16, tenants: bool = False) -> FillLayout:
     """The runs of ``axis``'s fill for ``elem_size``-byte words and the
     widest access (16 bytes, 8, or one word) that divides every run's
     start and length, the stride and ``ptr_align`` (the largest power of
     two that divides every block's address). Empty runs (a zero radius on
-    one side) are left out."""
-    if z_stack > 1 and axis == "z":
-        raise ValueError(f"z_stack={z_stack}: a z-stack fills the x and y axes only")
+    one side) are left out. With ``tenants`` the ``z_stack`` blocks are
+    independent tenants, and z wraps each onto itself: its runs repeat
+    over the tenants, one padded block apart."""
+    _check_stack(axis, z_stack, tenants)
     o, n, rm, rp = axis_geom(spec, axis)
     p = spec.padded()
     unit = {"z": p.y * p.x, "y": p.x, "x": 1}[axis]
     runs = tuple((d * unit, s * unit, w * unit)
                  for d, s, w in ((o - rm, o + n - rm, rm), (o + n, o, rp)) if w)
     if axis == "z":
-        body, count, stride = "runs", 1, 0
+        body, count, stride = "runs", z_stack, p.z * p.y * p.x if z_stack > 1 else 0
     elif axis == "y":
         body, count, stride = "runs", z_stack * p.z, p.y * p.x
     else:
@@ -305,16 +314,21 @@ def fill_sector_bytes(layout: FillLayout, elem_size: int) -> int:
     return total * SECTOR_BYTES
 
 
+def _check_stack(axis: str, z_stack: int, tenants: bool) -> None:
+    if z_stack < 1 or (z_stack > 1 and axis == "z" and not tenants):
+        raise ValueError(f"z_stack={z_stack}: a z-stack of resident blocks fills the x and y "
+                         "axes only (tenants=True wraps each block's z onto itself)")
+
+
 def _check_blocks(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str,
-                  z_stack: int = 1) -> None:
+                  z_stack: int = 1, tenants: bool = False) -> None:
     p = spec.padded()
     o, n, rm, rp = axis_geom(spec, axis)
     if not 1 <= len(blocks) <= MAX_FILL_GROUP:
         raise ValueError(f"fill group of {len(blocks)} outside [1, {MAX_FILL_GROUP}]")
     if n < max(rm, rp):
         raise ValueError(f"{axis}-axis block size {n} < radius {max(rm, rp)}")
-    if z_stack < 1 or (z_stack > 1 and axis == "z"):
-        raise ValueError(f"z_stack={z_stack}: a z-stack fills the x and y axes only")
+    _check_stack(axis, z_stack, tenants)
     b0 = blocks[0]
     for b in blocks:
         if b.dtype != b0.dtype or b.device != b0.device:
@@ -329,14 +343,16 @@ def _check_blocks(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str,
         raise ValueError(f"fill copies 4- or 8-byte elements, not {b0.dtype}")
 
 
-def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str, z_stack: int = 1):
+def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str, z_stack: int = 1,
+              tenants: bool = False):
     """Fill both periodic halos of ``axis`` in place for every block of a
     same-dtype group (at most :data:`MAX_FILL_GROUP`); with ``z_stack > 1``
     each tensor is a contiguous stack of that many resident blocks and
-    ``axis`` is x or y. CPU tensors take :func:`self_fill_plain`; CUDA
-    tensors launch ``csrc/self_fill.cu`` (one launch for the group) or
-    raise."""
-    _check_blocks(blocks, spec, axis, z_stack)
+    ``axis`` is x or y, or (``tenants``) of that many independent tenants
+    and ``axis`` any of the three. CPU tensors take
+    :func:`self_fill_plain`; CUDA tensors launch ``csrc/self_fill.cu`` (one
+    launch for the group) or raise."""
+    _check_blocks(blocks, spec, axis, z_stack, tenants)
     dev = blocks[0].device
     if dev.type == "cpu":
         return self_fill_plain(blocks, spec, axis)
@@ -344,7 +360,7 @@ def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str, z_stack
         raise ValueError(f"self_fill runs on cuda or cpu tensors, not {dev}")
     addrs = [b.data_ptr() for b in blocks]
     align = min(min(a & -a for a in addrs), VECTOR_BYTES[0])
-    lay = fill_layout(spec, axis, blocks[0].element_size(), z_stack, align)
+    lay = fill_layout(spec, axis, blocks[0].element_size(), z_stack, align, tenants)
     if not lay.runs:
         return list(blocks)
     runs = [v for run in lay.runs for v in run] + [0] * (3 * (2 - len(lay.runs)))
@@ -358,6 +374,23 @@ def self_fill(blocks: Sequence[torch.Tensor], spec: GridSpec, axis: str, z_stack
 
 
 self_fill.launches = 0
+
+
+def wrap_fill_tenants(spec: GridSpec, fields: Sequence[torch.Tensor]):
+    """Periodic self-wrap fill of every tenant of same-dtype ``(B, pz, py,
+    px)`` stacks, in place, in the composed x -> y -> z order: per axis one
+    :func:`self_fill` launch (``tenants=True``) for each group of up to
+    :data:`MAX_FILL_GROUP` stacks, so 8 Astaroth fields take 3 launches.
+    The counterpart of the JAX package's ``wrap_fill_batched`` on a tenant
+    stack; CPU stacks take the plain fill. Returns the stacks."""
+    fields = list(fields)
+    if not fields or fields[0].dim() != 4:
+        raise ValueError("wrap_fill_tenants takes (B, pz, py, px) tenant stacks")
+    b = fields[0].shape[0]
+    for axis in AXIS_ORDER:
+        for i in range(0, len(fields), MAX_FILL_GROUP):
+            self_fill(fields[i:i + MAX_FILL_GROUP], spec, axis, z_stack=b, tenants=True)
+    return fields
 
 
 def wrap_fill_batched(spec: GridSpec, a: torch.Tensor) -> torch.Tensor:

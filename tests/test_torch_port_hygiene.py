@@ -405,3 +405,26 @@ def test_campaign_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                             "--campaign-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The Astaroth tenants' batched step, an Astaroth campaign, the serving
+    daemon and its CLI run on the card unless told otherwise."""
+    from stencil_tpu_torch import campaign, serve
+    from stencil_tpu_torch.apps import campaign as campaign_app
+    from stencil_tpu_torch.apps import serve as serve_app
+    from stencil_tpu_torch.astaroth.integrate import make_batched_astaroth_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = GridSpec(Dim3(8, 8, 8), Dim3(1, 1, 1), Radius.constant(3), aligned=False)
+    info = campaign.WORKLOADS["astaroth"]._info(spec)
+    jobs = [campaign.TenantJob("a0", (8, 8, 8), 2, "float64", workload="astaroth")]
+    for call in (lambda: make_batched_astaroth_step(spec, info),
+                 lambda: campaign.CampaignDriver(jobs, 1, str(tmp_path)),
+                 lambda: campaign_app.main(["--workload", "astaroth", "--tenants", "1",
+                                            "--size", "8", "--campaign-dir", str(tmp_path)]),
+                 lambda: serve.ServeScheduler(str(tmp_path / "s"), 1),
+                 lambda: serve_app.main(["--serve-dir", str(tmp_path / "s")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert serve.ServeScheduler(str(tmp_path / "s"), 1, device="cpu").device.type == "cpu"
