@@ -365,6 +365,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               drained mid-run and a second revived on its directory, no
               retired job re-run, every result byte-equal to the
               uninterrupted serve's.
+17. astaroth-mesh -- Astaroth over a mesh of block positions
+              (astaroth_mesh_phase, rehearsable on the CPU at small sizes
+              with a stand-in timer): the substep's one-stack registers
+              held to fp64 157 / 168 and fp32 77 / 80 with no spill, its
+              positions form's printed (no spill); B5's positions form
+              (one launch for up to 8 positions, each position's stacks
+              its own allocation) against its plain version with
+              torch.equal, stages 0-2 and the shells, at 8 x 128^3 fp64
+              and fp32, uneven 67x45x29 over (2,2,2) in fp32 and in fp64
+              with one position off 16-byte alignment, 12 positions of
+              60x40x28 over (3,2,2) (two launches a stage) and (2,2,2) on
+              2 positions; the step over 8 positions of 128^3 fp64 (overlap
+              and not), the mixed (1,1,2) over 2 positions (B4 on x and
+              y), (2,2,2) on 4 positions and the uneven split, each equal
+              cell for cell to the same run over resident blocks, and
+              make_fused_astaroth_loop (B7) equal to the composed mesh
+              step, launch counts held (4 positions launches an iteration
+              with overlap, B6's axis phases, B7 once); one exchange of
+              the 8 fp64 fields by B6 and by B7 over 8 positions of 256^3
+              and by B6 and B4 over the (1,1,2) mesh, each equal on every
+              compute and halo cell to the resident exchange, timed; apps.astaroth.run
+              over 8 positions at 256^3 a position in fp64 (with overlap
+              and without) with launch counts, beside the resident
+              55.6269 ms/iter; the positions launch over 8 x
+              256^3 fp64 and its 48 shells timed beside their plain
+              versions and bounds, and the resident table launch over the
+              same cells in the same call.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -2921,6 +2948,414 @@ def tenants_phase(dev, time_ms, tenants: int = 64, edge: int = 32, big=(8, 128),
     return timings, launches, errs
 
 
+# the one-stack instantiations' registers at stage 0 and stages 1-2, as the
+# task-table form was built, which the positions form's own instantiation
+# leaves as they were
+SUBSTEP_REGS = {(8, 0): 157, (8, 1): 168, (4, 0): 77, (4, 1): 80}
+# (2,2,2) x 256^3 fp64 over resident blocks, the overlap iteration and the
+# table launch on the main path's mix (PERF.md, the resident rows; NVIDIA H100
+# 80GB HBM3, 700 W)
+RESIDENT_ITER_MS, RESIDENT_TABLE_MS = 55.6269, 15.6474
+
+
+def astaroth_mesh_phase(dev, time_ms, n: int = 256, mid: int = 128, iters: int = 3,
+                        app_iters: int = 6, small=(67, 45, 29), many=(60, 40, 28),
+                        timed: bool = True):
+    """Phase 17, Astaroth over a mesh of block positions on ``dev`` (every
+    position on the one card, each position's stacks their own
+    allocations): B5's positions form (``substep_positions``,
+    csrc/astaroth_substep.cu) and the step, the fused loop and the app
+    over the mesh.
+
+    - The instantiations' registers, spill and blocks per SM: the one-stack
+      form's held to the task table's (fp64 157 / 168, fp32 77 / 80, no
+      spill), the positions form's with no spill.
+    - The positions form against its plain version with torch.equal, stages
+      0-2 and the shells at stage 0, from random fields (halos and pad
+      included) at dt 0.1: 8 positions of ``mid``^3 fp64 (tensor copies)
+      and fp32; the uneven ``small`` over (2,2,2) (odd extents) in fp32 and
+      in fp64 with one position's fields one cell off 16-byte alignment
+      (its tasks on cp.async, the others' on tensor copies); 12 positions
+      of ``many`` over (3,2,2), above the 8 one launch takes (2 launches a
+      stage); (2,2,2) blocks on 2 positions (4 residents each); and the
+      main path's 8 positions of ``n``^3 fp64 at stages 0-1 and the
+      shells, each plain pass timed.
+    - The step over the mesh against the same step over the resident blocks
+      of one stack, torch.equal on every compute cell after ``iters``
+      iterations (the same kernel arithmetic, and exchanges that copy
+      bits): (2,2,2) x ``mid``^3 fp64 with overlap and without, the mixed
+      (1,1,2) over 2 positions (x and y wrap by B4), (2,2,2) blocks on 4
+      positions, the uneven ``small``; and ``make_fused_astaroth_loop`` (B7
+      over the 8 fields) against the composed mesh step. Launches counted
+      around each: with overlap 4 positions launches an iteration (one of
+      them the shells), without 3; B6's phases (3 an exchange on (2,2,2),
+      1 on (1,1,2) beside 2 B4 fills), B7 once an iteration in the fused
+      loop; no one-stack launch.
+    - One exchange of 8 fp64 fields, against the resident exchange of the
+      same stacks on every compute and halo cell, launches counted and
+      timed: B6 over (2,2,2) x ``n``^3 on 8 positions, B7 (the fused
+      exchange) on the same, and the mixed (1,1,2) x ``n``^3 on 2
+      positions (B6 on z, B4 on x and y).
+    - ``apps.astaroth.run(devices=[dev] * 8, method=REMOTE_DMA)`` at the
+      conf's ``n``^3 a position in fp64, with overlap and without; launch
+      counts set to 0 just before and read just after each.
+    - Timed (``timed``): the positions launch over 8 x ``n``^3 fp64 on the
+      main path's stage mix and its 48-shell launch, each beside its bound
+      and plain version, and the resident table launch over the same cells
+      in the same call.
+
+    Sizes are arguments so that the phase can be rehearsed on the CPU (where
+    the plain versions count no launch). Returns ``(timings, launches,
+    errs)`` keyed ``astaroth_substep_positions`` and
+    ``astaroth_substep_positions_shells``."""
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.astaroth.equations import Constants
+    from stencil_tpu_torch.astaroth.integrate import (FIELDS, inv_ds_of, make_astaroth_step,
+                                                      make_fused_astaroth_loop)
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import fused_stencil, halo_fill, remote_dma
+    from stencil_tpu_torch.astaroth.reductions import compute_mask
+    from stencil_tpu_torch.parallel import (DeviceMesh, HaloExchange, Method, join_positions,
+                                            split_positions)
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+    gen = torch.Generator(device=dev)
+    ainfo = astaroth_app.load()
+    consts, ids = Constants.from_info(ainfo), inv_ds_of(ainfo)
+    names = ("astaroth_substep_positions", "astaroth_substep_positions_shells")
+    errs = {name: 0.0 for name in names}
+    timings, launches = {}, {}
+
+    def spec_of(size, part):
+        return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(3))
+
+    # -- the instantiations ---------------------------------------------------------
+    if on_card:
+        for item, tname in ((8, "fp64"), (4, "fp32")):
+            for stage in (0, 1):
+                one = asub.substep_info(dev.index, item, stage)
+                pos = asub.substep_info(dev.index, item, stage, positions=True)
+                check(one["regs"] == SUBSTEP_REGS[item, stage] and one["local_bytes"] == 0,
+                      f"astaroth_substep {tname} stage {stage}: {one}, not "
+                      f"{SUBSTEP_REGS[item, stage]} registers and no spill")
+                check(pos["local_bytes"] == 0 and pos["blocks_per_sm"] == one["blocks_per_sm"],
+                      f"astaroth_substep positions {tname} stage {stage} spills or loses a "
+                      f"block: {pos}")
+                log(f"astaroth_substep {tname} stage {'0' if stage == 0 else '1-2'}: one stack "
+                    f"{one['regs']} registers, positions form {pos['regs']} registers, "
+                    f"{pos['local_bytes']} bytes of spill, {pos['blocks_per_sm']} block(s) "
+                    f"per SM")
+
+    def stacks(spec, resident, seed, dtype, off_pos=()):
+        """8 lists of one random ``resident`` stack per position (scaled to
+        [0, 0.1)), each its own allocation; the positions in ``off_pos`` one
+        cell off 16-byte alignment."""
+        r, p = Dim3.of(resident), spec.padded()
+        shape = (r.z, r.y, r.x, p.z, p.y, p.x)
+        npos = asub.position_mesh(spec, r).flatten()
+        out = []
+        for f in range(8):
+            per = []
+            for q in range(npos):
+                gen.manual_seed(seed + 97 * f + q)
+                off = int(q in off_pos)
+                flat = torch.rand(int(np.prod(shape)) + off, generator=gen, device=dev,
+                                  dtype=dtype) * 0.1
+                per.append(flat[off:].view(shape))
+            out.append(per)
+        return out
+
+    def held(name, label, spec, resident, tasks, dtype, stages, want, off_pos=(),
+             time_plain=None):
+        """``stages`` through the kernel and through the plain version from
+        the same out stacks, torch.equal on every cell, ``want`` launches a
+        stage; with ``time_plain`` (the timer) each plain pass is timed;
+        returns the plain ms by stage."""
+        curr8 = stacks(spec, resident, 1700, dtype, off_pos)
+        ok = stacks(spec, resident, 1800, dtype, off_pos)
+        op = stacks(spec, resident, 1800, dtype, off_pos)
+        before, plain_ms = asub.substep_positions.launches, {}
+        for s in stages:
+            asub.substep_positions(curr8, ok, spec, tasks, consts, ids, s, 0.1)
+
+            def plain(s=s):
+                asub.substep_positions_plain(curr8, op, spec, tasks, consts, ids, s, 0.1)
+
+            if time_plain is None:
+                plain()
+            else:
+                plain_ms[s] = time_plain(plain, 1, warmup=0)
+        sync(dev)
+        launched = asub.substep_positions.launches - before
+        check(launched == len(stages) * want * on_card,
+              f"{name} {label}: {launched} launches, expected {len(stages) * want * on_card}")
+        pairs = [(a, b) for fa, fb in zip(ok, op) for a, b in zip(fa, fb)]
+        errs[name] = max(errs[name], *(max_abs(a, b) for a, b in pairs))
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"{name} {label}: kernel != plain version (max abs err {errs[name]:.3e})")
+        item = torch.empty((), dtype=dtype).element_size()
+        aligned = [all(f[q].data_ptr() % 16 == 0 for f in curr8) for q in range(len(curr8[0]))]
+        rows, _ = asub.position_table(tasks, spec, 132, item, aligned)
+        log(f"{name} {label} {str(dtype)[6:]} stages {list(stages)}: {len(tasks)} tasks over "
+            f"{len(curr8[0])} positions ({sum(r[-2] for r in rows)} by tensor copies) in "
+            f"{launched} launch(es), equal")
+        del curr8, ok, op
+        return plain_ms
+
+    # -- the positions form against its plain version ------------------------------
+    one = Dim3(1, 1, 1)
+    spec = spec_of((2 * mid,) * 3, (2, 2, 2))
+    for dtype in (torch.float64, torch.float32):
+        held(names[0], f"8 x {mid}^3", spec, one, asub.position_compute_tasks(spec, one), dtype,
+             (0, 1, 2), 1)
+        held(names[1], f"8 x {mid}^3 shells", spec, one, asub.position_shell_tasks(spec, one),
+             dtype, (0,), 1)
+    spec = spec_of(small, (2, 2, 2))
+    label = f"uneven {'x'.join(map(str, small))} over (2, 2, 2)"
+    held(names[0], label, spec, one, asub.position_compute_tasks(spec, one), torch.float32,
+         (0, 1, 2), 1)
+    held(names[0], label + ", position 3 off alignment", spec, one,
+         asub.position_compute_tasks(spec, one), torch.float64, (0, 1, 2), 1, off_pos=(3,))
+    held(names[1], label + " shells", spec, one, asub.position_shell_tasks(spec, one),
+         torch.float64, (0,), 1, off_pos=(3,))
+    spec = spec_of(many, (3, 2, 2))
+    for dtype in (torch.float64, torch.float32):
+        label = f"12 positions of {'x'.join(map(str, many))} over (3, 2, 2)"
+        held(names[0], label, spec, one, asub.position_compute_tasks(spec, one), dtype,
+             (0, 1, 2), 2)
+        held(names[1], label + " shells", spec, one, asub.position_shell_tasks(spec, one), dtype,
+             (0,), 2)
+    spec = spec_of((40, 24, 20), (2, 2, 2))
+    res = Dim3(1, 2, 2)
+    held(names[0], "40x24x20 (2,2,2) on 2 positions", spec, res,
+         asub.position_compute_tasks(spec, res), torch.float64, (0, 1, 2), 1)
+    held(names[1], "40x24x20 (2,2,2) on 2 positions shells", spec, res,
+         asub.position_shell_tasks(spec, res), torch.float64, (0,), 1)
+
+    # -- the step over the mesh against the step over resident blocks --------------
+    def counts():
+        return (asub.substep_positions.launches, asub.substep_positions.shells,
+                remote_dma.remote_axis.launches, halo_fill.self_fill.launches,
+                fused_stencil.fused_exchange.launches, asub.substep_tasks.launches)
+
+    def zero_counts():
+        asub.substep_positions.launches = asub.substep_positions.shells = 0
+        remote_dma.remote_axis.launches = halo_fill.self_fill.launches = 0
+        fused_stencil.fused_exchange.launches = asub.substep_tasks.launches = 0
+
+    def mesh_run(label, size, part, mesh_dim, mode, want, fused=False, dt=1e-5, ref=None):
+        """``iters`` fp64 iterations from random fields over ``mesh_dim``
+        positions (``mode``: overlap / serial / fused), launches (positions,
+        of which shells, B6, B4, B7, one-stack) held to ``want`` an
+        iteration; returns the gathered compute cells, torch.equal to
+        ``ref`` when given."""
+        spec = spec_of(size, part)
+        stacked = {k: t for k, t in zip(FIELDS, (
+            x[0] for x in stacks(spec, spec.dim, 1900, torch.float64)))}
+        mesh = DeviceMesh(Dim3(*mesh_dim), [dev] * Dim3(*mesh_dim).flatten())
+        ex = HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, fused=fused)
+        curr = {k: split_positions(t, spec, mesh) for k, t in stacked.items()}
+        nxt = {k: [torch.zeros_like(b) for b in v] for k, v in curr.items()}
+        if fused:
+            step = make_fused_astaroth_loop(ex, ainfo, iters=iters, dt=dt, dtype="float64")
+        else:
+            step = make_astaroth_step(ex, ainfo, dt=dt, iters=iters, dtype="float64",
+                                      overlap=mode == "overlap")
+        sync(dev)
+        zero_counts()
+        curr, nxt = step(curr, nxt)
+        sync(dev)
+        got = counts()
+        check(got == tuple(w * iters * on_card for w in want),
+              f"astaroth mesh {label}: launches (positions, shells, B6, B4, B7, one-stack) "
+              f"{got}, expected {tuple(w * iters * on_card for w in want)}")
+        cells = {k: join_positions(curr[k], spec) for k in FIELDS}
+        if ref is None:
+            # the same fields stepped over resident blocks of one stack
+            rcurr = stacked
+            rnxt = {k: torch.zeros_like(t) for k, t in rcurr.items()}
+            rstep = make_astaroth_step(HaloExchange(spec), ainfo, dt=dt, iters=iters,
+                                       dtype="float64", overlap=mode == "overlap")
+            ref, _ = rstep(rcurr, rnxt)
+        same = all(torch.equal(cells[k][mask(spec)], ref[k][mask(spec)]) for k in FIELDS)
+        check(same, f"astaroth mesh {label}: not equal to the reference run")
+        log(f"astaroth mesh {label} fp64 {iters} iterations: launches (positions, shells, B6, "
+            f"B4, B7, one-stack) {got}, every compute cell equal to the "
+            f"{'composed mesh step' if fused else 'resident run'}")
+        return cells
+
+    masks = {}
+
+    def mask(spec):
+        key = (spec.global_size, spec.dim)
+        if key not in masks:
+            masks[key] = torch.from_numpy(compute_mask(spec)).to(dev)
+        return masks[key]
+
+    cube = (2 * mid,) * 3
+    over = mesh_run(f"(2,2,2) x {mid}^3 over 8 positions, overlap", cube, (2, 2, 2),
+                    (2, 2, 2), "overlap", (4, 1, 3, 0, 0, 0))
+    mesh_run(f"(2,2,2) x {mid}^3 over 8 positions, no overlap", cube, (2, 2, 2), (2, 2, 2),
+             "serial", (3, 0, 3, 0, 0, 0))
+    mesh_run(f"(2,2,2) x {mid}^3 fused loop", cube, (2, 2, 2), (2, 2, 2), "fused",
+             (4, 1, 0, 0, 1, 0), fused=True, ref=over)
+    del over
+    mesh_run(f"(1,1,2) x {mid}^3 over 2 positions, overlap", (mid, mid, 2 * mid), (1, 1, 2),
+             (1, 1, 2), "overlap", (4, 1, 1, 2, 0, 0))
+    mesh_run("(2,2,2) x 40x24x20 on 4 positions, overlap", (40, 24, 20), (2, 2, 2), (2, 2, 1),
+             "overlap", (4, 1, 3, 0, 0, 0))
+    mesh_run(f"uneven {'x'.join(map(str, small))} over 8 positions", small, (2, 2, 2),
+             (2, 2, 2), "overlap", (3, 0, 3, 0, 0, 0))
+    masks.clear()
+    log(f"astaroth mesh phase: steps done at {time.perf_counter() - t0:.1f} s")
+
+    # -- the exchanges of the mesh step (B6, B7, B4) at this slice's shapes ----------
+    def exchange_held(label, size, part, mesh_dim, fused, want, timed_ex):
+        """One exchange of 8 random fp64 fields over ``mesh_dim`` positions
+        against the resident exchange of the same stacks (every block's
+        compute region and halos, edges and corners included: both copy
+        bits), its launches (B6, B4, B7) held to
+        ``want``; with ``timed_ex`` timed by CUDA events beside its bytes
+        (each halo cell read and written once). Returns the ms."""
+        spec = spec_of(size, part)
+        stacked = {k: x[0] for k, x in zip(FIELDS, stacks(spec, spec.dim, 2200, torch.float64))}
+        mesh = DeviceMesh(Dim3(*mesh_dim), [dev] * Dim3(*mesh_dim).flatten())
+        ex = HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, fused=fused)
+        state = {k: split_positions(t, spec, mesh) for k, t in stacked.items()}
+        sync(dev)
+        zero_counts()
+        ex(state)
+        sync(dev)
+        got = counts()[2:5]
+        check(got == tuple(w * on_card for w in want),
+              f"astaroth exchange {label}: launches (B6, B4, B7) {got}, expected {want}")
+        HaloExchange(spec)(stacked)
+        # every block's compute region grown by its halos (edges and corners
+        # included): the cells a stage reads
+        off, b, r = spec.compute_offset(), spec.base, 3
+        grown = (..., slice(off.z - r, off.z + b.z + r), slice(off.y - r, off.y + b.y + r),
+                 slice(off.x - r, off.x + b.x + r))
+        check(all(torch.equal(join_positions(state[k], spec)[grown], stacked[k][grown])
+                  for k in FIELDS),
+              f"astaroth exchange {label}: not equal to the resident exchange")
+        ms = time_ms(lambda: ex(state), 5, warmup=1) if timed_ex else float("nan")
+        nb = 2 * ex.bytes_logical([8] * 8)
+        log(f"astaroth exchange {label} r3 8 fp64 fields: launches (B6, B4, B7) {got}, every "
+            f"halo and compute cell equal to the resident exchange; {ms:.4f} ms ({nb / 2 / 1e6:.1f} MB of halos "
+            f"read and written: bound {bound_ms(nb, 0)[0]:.4f} ms by bytes)")
+        del stacked, state
+        return ms
+
+    ex_ms = {
+        "b6": exchange_held(f"(2,2,2) x {n}^3 over 8 positions (B6)", (2 * n,) * 3, (2, 2, 2),
+                            (2, 2, 2), False, (3, 0, 0), timed),
+        "b7": exchange_held(f"(2,2,2) x {n}^3 over 8 positions, fused (B7)", (2 * n,) * 3,
+                            (2, 2, 2), (2, 2, 2), True, (0, 0, 1), timed),
+        "b4": exchange_held(f"(1,1,2) x {n}^3 over 2 positions (B6 z, B4 x and y)",
+                            (n, n, 2 * n), (1, 1, 2), (1, 1, 2), False, (1, 2, 0), timed),
+    }
+    log(f"astaroth mesh phase: exchanges done at {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path: the app over 8 positions -------------------------------------
+    def app_run(label, dtype, overlap):
+        zero_counts()
+        ra = astaroth_app.run(iters=app_iters, nx=n, dtype=dtype, overlap=overlap,
+                              devices=[dev] * 8, method=Method.REMOTE_DMA)
+        sync(dev)
+        it = ra["iters_run"] + 1  # the warm-up chunk advances the state
+        got = counts()
+        # B6: 3 phases an exchange, one an iteration and one after each
+        # timed chunk (the app's exchange share)
+        want = tuple(w * on_card for w in ((4 if overlap else 3) * it, it * overlap,
+                                          3 * (it + ra["iters_run"]), 0, 0, 0))
+        check(got == want, f"astaroth app {label}: launches (positions, shells, B6, B4, B7, "
+                           f"one-stack) {got}, expected {want}")
+        dd, h = ra["domain"], ra["handles"]
+        p = dd.spec.padded()
+        for k in FIELDS:
+            ts = dd.get_curr(h[k])
+            check(len(ts) == 8 and all(tuple(t.shape) == (1, 1, 1, p.z, p.y, p.x)
+                                       and t.dtype == getattr(torch, dtype)
+                                       and bool(torch.isfinite(t).all()) for t in ts),
+                  f"astaroth app {label} {k}: not 8 finite blocks")
+        check(dd.size == Dim3(2 * n, 2 * n, 2 * n) and ra["devices"] == 8
+              and ra["processes"] == 1, f"astaroth app {label}: global {dd.size}, row "
+                                         f"{ra['processes']} processes {ra['devices']} devices")
+        log(astaroth_app.csv_row(ra))
+        log(f"astaroth app {label}: {ra['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
+            f"{ra['mcells_per_s']:.1f} Mcells/s, exchange {ra['exch_trimean_s'] * 1e3:.4f} ms, "
+            f"launches {got}")
+        return ra, got
+
+    # one run each: the app's init of the 512^3 global fields takes most of
+    # a run's 20 s
+    per = {True: [], False: []}
+    for overlap in (True, False):
+        ra, got = app_run(f"8 positions x {n}^3 float64, {'overlap' if overlap else 'no overlap'}",
+                          "float64", overlap)
+        if names[0] not in launches:
+            launches[names[0]], launches[names[1]] = got[0] - got[1], got[1]
+        per[overlap].append(ra["iter_trimean_s"] * 1e3)
+        del ra
+    log(f"astaroth app 8 positions x {n}^3 float64: overlap {per[True][0]:.4f}, no overlap "
+        f"{per[False][0]:.4f} ms/iter (gap {per[True][0] - per[False][0]:.4f} ms); resident "
+        f"(2,2,2) x 256^3 overlap {RESIDENT_ITER_MS} ms/iter (PERF.md)")
+    log(f"astaroth mesh phase: app runs done at {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path's shape: 8 positions of n^3 -----------------------------------
+    spec = spec_of((2 * n,) * 3, (2, 2, 2))
+    full, shells = asub.position_compute_tasks(spec, one), asub.position_shell_tasks(spec, one)
+    label = f"8 x {n}^3"
+    pl = held(names[0], label, spec, one, full, torch.float64, (0, 1), 1, time_plain=time_ms)
+    pl_shells = held(names[1], label + " shells", spec, one, shells, torch.float64, (0,), 1,
+                     time_plain=time_ms)[0]
+    log(f"astaroth mesh phase: main shape held at {time.perf_counter() - t0:.1f} s")
+    if not timed:
+        return timings, launches, errs
+    item = 8
+    curr8, out8 = stacks(spec, one, 2000, torch.float64), stacks(spec, one, 2100, torch.float64)
+
+    def run(tasks, s):
+        return lambda: asub.substep_positions(curr8, out8, spec, tasks, consts, ids, s, 1e-8)
+
+    st = [time_ms(run(full, s), 4, warmup=1, graph=True) for s in (0, 1)]
+    cells = spec.global_size.flatten()
+    nbytes = (asub.tasks_bytes(full, item, 0) + 2 * asub.tasks_bytes(full, item, 1)) / 3
+    flops = (asub.FLOPS_PER_CELL[0] + 2 * asub.FLOPS_PER_CELL[1]) / 3 * cells
+    t = dict(ms=(st[0] + 2 * st[1]) / 3, plain_ms=(pl[0] + 2 * pl[1]) / 3,
+             bound=bound_ms(nbytes, flops, torch.float64), library_ms=None,
+             extra={"exchange_b6_ms": ex_ms["b6"], "exchange_b7_ms": ex_ms["b7"],
+                    "exchange_mixed_ms": ex_ms["b4"]})
+    sh_cells = sum((r.hi - r.lo).flatten() for _, _, r in shells)
+    ts = dict(ms=time_ms(run(shells, 0), 6, warmup=1, graph=True), plain_ms=pl_shells,
+              bound=bound_ms(asub.tasks_bytes(shells, item, 0),
+                             asub.FLOPS_PER_CELL[0] * sh_cells, torch.float64), library_ms=None)
+    timings[names[0]], timings[names[1]] = t, ts
+    del curr8, out8
+    # the resident table launch over the same cells, in the same call
+    rcurr = [torch.rand(spec.stacked_shape_zyx(), generator=gen, device=dev,
+                        dtype=torch.float64) * 0.1 for _ in range(8)]
+    rout = [torch.rand_like(x) for x in rcurr]
+    rfull = asub.compute_tasks(spec)
+    rst = [time_ms(lambda s=s: asub.substep_tasks(rcurr, rout, spec, rfull, consts, ids, s, 1e-8),
+                   4, warmup=1, graph=True) for s in (0, 1)]
+    del rcurr, rout
+    log(f"time astaroth_substep_positions 8 positions x {n}^3 float64: {t['ms']:.4f} ms per "
+        f"launch on the main path's mix (stage 0 {st[0]:.4f}, stages 1-2 {st[1]:.4f}; plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}); the "
+        f"resident table launch over the same cells {(rst[0] + 2 * rst[1]) / 3:.4f} ms in this "
+        f"call ({RESIDENT_TABLE_MS} ms, PERF.md)")
+    log(f"time astaroth_substep_positions_shells 48 shells of 8 positions x {n}^3 float64: "
+        f"{ts['ms']:.4f} ms per launch ({sh_cells} cells; plain {ts['plain_ms']:.4f} ms, bound "
+        f"{ts['bound'][0]:.4f} ms by {ts['bound'][1]})")
+    log(f"astaroth mesh phase: {time.perf_counter() - t0:.1f} s")
+    return timings, launches, errs
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -4700,6 +5135,13 @@ def main() -> int:
     launches.update(l16)
     errs.update(e16)
 
+    # -- 17. astaroth over a mesh of block positions: B5's positions form, the ---
+    #        step, the fused loop and the app over 8 positions
+    t17, l17, e17 = astaroth_mesh_phase(dev, time_ms)
+    timings.update(t17)
+    launches.update(l17)
+    errs.update(e17)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -4785,6 +5227,13 @@ def main() -> int:
                                      "stencil_tpu/ops/pallas_astaroth.py:202"),
         "self_fill_tenants": ("stencil_tpu_torch/csrc/self_fill.cu",
                               "stencil_tpu/ops/halo_fill.py:236"),
+        # B5's positions form: every position of a mesh in one launch (the
+        # JAX package runs the Pallas substep inside shard_map on every
+        # device), and every position's shells
+        "astaroth_substep_positions": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                                       "stencil_tpu/ops/pallas_astaroth.py:202"),
+        "astaroth_substep_positions_shells": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                                              "stencil_tpu/ops/pallas_astaroth.py:202"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)

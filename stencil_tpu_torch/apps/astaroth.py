@@ -1,4 +1,5 @@
-"""astaroth — the MHD mini-app on one GPU, weak-scaled over resident blocks.
+"""astaroth — the MHD mini-app on one GPU, weak-scaled over resident blocks
+or over a mesh of block positions.
 
 The port's counterpart of ``stencil_tpu.apps.astaroth`` (reference:
 astaroth/astaroth.cu): 8 fields in double precision (the reference's type;
@@ -18,6 +19,19 @@ GPU, so ``partition=(2, 2, 2)`` is the JAX app's 8-device run (and
 column reports the block count, as the JAX app's 8-device row reports 8;
 nx/ny/nz stay the conf's per-block extents.
 
+``run(devices=[...], method=Method.REMOTE_DMA)`` (CLI ``--devices
+cuda:0,cuda:0,...``, which takes REMOTE_DMA) is the JAX app's multi-device
+run itself: the conf's extents times ``decompose_zyx(len(devices))``, one
+block a position of a mesh that may name one card several times (the
+reference's ``set_gpus({0,0})``), exchanged by B6 over the 8 fields and
+stepped by the substep's positions form, every position in one launch a
+stage (``astaroth/integrate.py``). Its row is the JAX app's for the same
+device count: ``devices`` counts the positions, ``processes`` is 1 (one
+process drives them, as ``jax.process_count()`` on the JAX app's host), and
+the CSV's first column is the device count, as the JAX app's. The
+reductions run over every position's block; the guarded engine's flags run
+over the mesh state, as jacobi3d's do.
+
 The schedule is the JAX app's: one untimed warm-up chunk that advances the
 state, then chunks of ``chunk`` iterations (``iters`` rounded up to a chunk
 multiple), each timed on the host clock up to a device synchronize. The
@@ -36,7 +50,8 @@ first chunk end past each ``ckpt_every`` multiple. The final state is
 always saved with a checkpoint dir, and warm-up then runs on copies.
 
 Usage: python -m stencil_tpu_torch.apps.astaroth 10 [--nx 256] [--f32]
-(``--device cpu --nx 16`` runs the plain PyTorch versions on the CPU).
+[--devices cuda:0,cuda:0] (``--device cpu --nx 16`` runs the plain PyTorch
+versions on the CPU, ``--devices cpu,cpu --nx 16`` a mesh of them).
 
 ``--per-quantity-exchange`` turns quantity batching off
 (``DistributedDomain.set_quantity_batching``): every field's slabs move on
@@ -48,9 +63,9 @@ substep kernel serves both (the run's row records the choice).
 path that runs (the plain PyTorch version), and on the card the port has
 none, so it raises rather than fall back.
 
-Not carried over yet (ROADMAP.md): blocks on several GPUs or over a mesh of
-positions, autotuning, ``--trivial`` / ``--random`` placement and the
-ParaView dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
+Not carried over yet (ROADMAP.md): positions on distinct GPUs (a mesh
+names one card), autotuning, ``--trivial`` / ``--random`` placement and
+the ParaView dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
 never calls, as in the JAX package and the reference.
 """
 
@@ -72,6 +87,7 @@ from ..astaroth.reductions import Reductions
 from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, RecoveryPolicy,
                      chunk_plan, run_guarded)
 from ..geometry import Dim3, prime_factors
+from ..parallel import Method
 from ..utils import logging as log
 from ..utils import timer
 from ..utils.statistics import Statistics
@@ -116,18 +132,30 @@ KERNEL_VARIANTS = ("shift", "ring")
 
 
 def make_domain(info, dtype: str = "float64", device=None, partition=None,
-                batch_quantities: bool = True):
-    """A realized one-GPU domain with the 8 fields at radius 3, initialised
-    as the reference does; returns ``(dd, handles)``. Its size is the
-    config's extents times ``partition`` (blocks along x, y, z, all
-    resident; default one block); ``batch_quantities`` as
-    ``DistributedDomain.set_quantity_batching``."""
-    d3 = Dim3.of(partition) if partition is not None else decompose_zyx(1)
+                batch_quantities: bool = True, devices=None, method=Method.AXIS_COMPOSED):
+    """A realized domain with the 8 fields at radius 3, initialised as the
+    reference does; returns ``(dd, handles)``. Its size is the config's
+    extents times ``partition`` (blocks along x, y, z, all resident on one
+    GPU; default one block), or with ``devices`` times
+    ``decompose_zyx(len(devices))``, one block a position of a mesh over
+    them; ``batch_quantities`` as ``DistributedDomain.set_quantity_batching``,
+    ``method`` as ``set_methods``."""
+    if devices is not None and (device is not None or partition is not None):
+        raise ValueError("pass devices= alone, not with device= or partition=")
+    devices = list(devices) if devices is not None else None
+    if devices:
+        d3 = decompose_zyx(len(devices))
+    else:
+        d3 = Dim3.of(partition) if partition is not None else decompose_zyx(1)
     size = Dim3(info.int_params["AC_nx"] * d3.x, info.int_params["AC_ny"] * d3.y,
                 info.int_params["AC_nz"] * d3.z)
-    dd = DistributedDomain(size.x, size.y, size.z, device=device)
+    dd = DistributedDomain(size.x, size.y, size.z,
+                           device=devices[0] if devices else device)
     dd.set_radius(3)
-    if d3.flatten() > 1:
+    dd.set_methods(method)
+    if devices:
+        dd.set_devices(devices)
+    elif d3.flatten() > 1:
         dd.set_partition(d3)
     dd.set_quantity_batching(batch_quantities)
     handles = {name: dd.add_data(name, dtype) for name in FIELDS}
@@ -172,11 +200,15 @@ def run(
     batch_quantities: bool = True,
     kernel_variant: Optional[str] = None,
     use_pallas: Optional[bool] = None,
+    devices=None,
+    method: Method = Method.AXIS_COMPOSED,
 ) -> dict:
-    """Run ``iters`` iterations (plus one untimed warm-up chunk) on one
-    device and return the timing row, the domain and its handles.
-    ``partition`` (blocks along x, y, z) weak-scales the conf's extents over
-    that many resident blocks (see the module docstring). The checkpoint,
+    """Run ``iters`` iterations (plus one untimed warm-up chunk) and return
+    the timing row, the domain and its handles. ``partition`` (blocks
+    along x, y, z) weak-scales the conf's extents over that many resident
+    blocks on one device; ``devices`` (torch devices, repeats allowed, with
+    ``method=Method.REMOTE_DMA``) over a mesh of that many block positions
+    (see the module docstring). The checkpoint,
     health and injection arguments are jacobi3d's; raises
     :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when recovery gives
     up. ``batch_quantities``, ``kernel_variant`` ("shift", the default, or
@@ -186,14 +218,15 @@ def run(
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel_variant {kernel_variant!r}: valid values are "
                          f"{', '.join(KERNEL_VARIANTS)}")
-    if use_pallas is False and resolve_device(device).type == "cuda":
+    if use_pallas is False and resolve_device(devices[0] if devices else device).type == "cuda":
         raise NotImplementedError(
             "use_pallas=False (--no-pallas) asks for the unfused substep path, which the "
             "port has only on the CPU: on a CUDA device the substep is the hand-written "
             "kernel (csrc/astaroth_substep.cu), and the plain PyTorch version runs only on "
             "CPU tensors; pass device='cpu' for the unfused path")
     info = load(conf, nx)
-    dd, handles = make_domain(info, dtype, device, partition, batch_quantities)
+    dd, handles = make_domain(info, dtype, device, partition, batch_quantities, devices,
+                              method)
     dev = dd.device
     curr = {name: dd.get_curr(handles[name]) for name in FIELDS}
     nxt = {name: dd.get_next(handles[name]) for name in FIELDS}
@@ -242,8 +275,7 @@ def run(
         with timer.timed("astaroth.warmup"):
             if ckpt_dir:
                 # a checkpointed run is step-exact: warm up on copies
-                get_step(chunk)({k: v.clone() for k, v in curr.items()},
-                                {k: v.clone() for k, v in nxt.items()})
+                get_step(chunk)(_copy(curr), _copy(nxt))
             else:
                 curr, nxt = get_step(chunk)(curr, nxt)
             hard_sync(dev)
@@ -340,8 +372,10 @@ def run(
     trimean = iter_time.trimean()
     cells = dd.size.flatten()
     result = {
-        "processes": dd.spec.num_blocks(),  # the JAX app's devices: one block each
-        "devices": 1,
+        # a resident run stands in for the JAX app's run over one device a
+        # block; a mesh run is that run, one process driving its positions
+        "processes": 1 if dd.mesh is not None else dd.spec.num_blocks(),
+        "devices": len(dd.mesh) if dd.mesh is not None else 1,
         "partition": dd.spec.dim,
         "nx": info.int_params["AC_nx"],
         "ny": info.int_params["AC_ny"],
@@ -370,14 +404,23 @@ def run(
 
 
 def csv_row(r: dict) -> str:
+    """The reference's row; its first column is the JAX app's device count:
+    a mesh's positions, or the blocks of a resident run."""
     return (
-        f"{r['processes']},{r['nx']},{r['ny']},{r['nz']},"
+        f"{max(r['processes'], r['devices'])},{r['nx']},{r['ny']},{r['nz']},"
         f"{r['iter_trimean_s']:e},{r['exch_trimean_s']:e}"
     )
 
 
+def _copy(state: dict) -> dict:
+    """A copy of a field dict (tensors, or a mesh's lists of them)."""
+    return {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+            for k, v in state.items()}
+
+
 def main(argv: Optional[list] = None) -> int:
-    p = argparse.ArgumentParser(description="Astaroth MHD mini-app (one GPU)")
+    p = argparse.ArgumentParser(description="Astaroth MHD mini-app (one GPU; a mesh of "
+                                            "block positions with --devices)")
     p.add_argument("iters", type=int, nargs="?", default=10)
     p.add_argument("--conf", default=DEFAULT_CONF)
     p.add_argument("--nx", type=int, default=None, help="override AC_n{x,y,z}")
@@ -395,6 +438,10 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain PyTorch versions)")
+    p.add_argument("--devices", type=str, default=None,
+                   help="comma list of torch devices, one block position each, repeats "
+                        "allowed (e.g. cuda:0,cuda:0): the domain grows by "
+                        "decompose_zyx(count), exchanged by remote-dma")
     p.add_argument("--no-pallas", action="store_true",
                    help="the unfused substep path: the plain PyTorch version on the CPU; "
                         "the card has no unfused path, so there it raises")
@@ -408,11 +455,15 @@ def main(argv: Optional[list] = None) -> int:
     args = p.parse_args(argv)
     if args.f32 and args.f64:
         p.error("--f32 and --f64 exclude each other")
+    if args.device and args.devices:
+        p.error("--device conflicts with --devices")
     try:
         r = run(iters=args.iters, conf=args.conf, nx=args.nx,
                 dtype="float32" if args.f32 else "float64", no_compute=args.no_compute,
                 overlap=not args.no_overlap, reductions=args.reductions,
                 chunk=args.chunk, device=args.device,
+                devices=args.devices.split(",") if args.devices else None,
+                method=Method.REMOTE_DMA if args.devices else Method.AXIS_COMPOSED,
                 batch_quantities=not args.per_quantity_exchange,
                 kernel_variant=args.kernel_variant,
                 use_pallas=False if args.no_pallas else None, **guard_kwargs(args))

@@ -50,9 +50,12 @@ Prints one JSON line per measurement, after a line naming the card
   bytes and blocks per SM; and its table form (``substep_tasks``) over
   the eight resident astaroth-size^3 blocks of a (2,2,2) partition (one
   launch, every block's compute region: ``"form": "residents"``) and over
-  their 48 exterior shells at stage 0 (``"form": "shells"``), each beside
-  its bound and issue floor; with ``--astaroth-resident`` only the
-  substep's rows are printed;
+  their 48 exterior shells at stage 0 (``"form": "shells"``), and its
+  positions form (``substep_positions``) over 8 mesh positions of
+  astaroth-size^3, each position's stacks their own allocations (one
+  launch: ``"form": "positions"``) and over their 48 shells
+  (``"form": "position shells"``), each beside its bound and issue floor;
+  with ``--astaroth-resident`` only the substep's rows are printed;
 - the resident forms, at size^3 over a (2,2,2) partition with radius-4
   halos (eight (size/2)^3 blocks on the card, jacobi3d's ``deep_halo=4``
   layout): ``jacobi_multistep`` in its deep-halo form at each k >= 2 of
@@ -221,27 +224,39 @@ def sweep_forms(n: int, gen, dev, reps: int) -> None:
 def astaroth_rows(na: int, gen, dev, reps: int, resident: bool = False) -> None:
     """The substep's rows (B5): one na^3 block at stages 0 and 1 in fp64 and
     fp32; with ``resident`` also its table form over the 8 resident na^3
-    blocks of a (2,2,2) partition and over their 48 shells (stage 0)."""
+    blocks of a (2,2,2) partition and over their 48 shells (stage 0), and
+    its positions form over 8 mesh positions of na^3 and their shells."""
     info, _ = load_config(os.path.join(os.path.dirname(__file__), "..", "astaroth",
                                        "astaroth.conf"))
     consts, ids = Constants.from_info(info), inv_ds_of(info)
     speca = GridSpec(Dim3(na, na, na), Dim3(1, 1, 1), Radius.constant(3))
     specr = GridSpec(Dim3(2 * na, 2 * na, 2 * na), Dim3(2, 2, 2), Radius.constant(3))
     forms = [("one block", speca, None)]
+    one = Dim3(1, 1, 1)
     if resident:
         forms += [("residents", specr, asub.compute_tasks(specr)),
-                  ("shells", specr, asub.shell_tasks(specr))]
+                  ("shells", specr, asub.shell_tasks(specr)),
+                  ("positions", specr, asub.position_compute_tasks(specr, one)),
+                  ("position shells", specr, asub.position_shell_tasks(specr, one))]
     # the one-block rows first, in both dtypes, as the full run times them
     # (before the residents' 28 GB of fp64 stacks pass through the allocator)
     for form, spec, tasks in forms:
         for dtype in (torch.float64, torch.float32):
             item = torch.empty((), dtype=dtype).element_size()
             shape = spec.stacked_shape_zyx() if tasks else spec.block_shape_zyx()
-            curr8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
-                     for _ in range(8)]
-            out8 = [torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
-                    for _ in range(8)]
-            for stage in ((0,) if form == "shells" else (0, 1)):
+            positions = form.startswith("position")
+            kernel = asub.substep_positions if positions else asub.substep_tasks
+
+            def rand():
+                if positions:  # one (1, 1, 1, pz, py, px) allocation a position
+                    p = spec.padded()
+                    return [torch.rand((1, 1, 1, p.z, p.y, p.x), generator=gen, device=dev,
+                                       dtype=dtype) * 0.1 for _ in range(spec.num_blocks())]
+                return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 0.1
+
+            curr8 = [rand() for _ in range(8)]
+            out8 = [rand() for _ in range(8)]
+            for stage in ((0,) if form.endswith("shells") else (0, 1)):
                 if tasks is None:
                     def fn():
                         asub.substep(curr8, out8, spec, consts, ids, stage, 1e-8)
@@ -249,7 +264,7 @@ def astaroth_rows(na: int, gen, dev, reps: int, resident: bool = False) -> None:
                     row = {}
                 else:
                     def fn():
-                        asub.substep_tasks(curr8, out8, spec, tasks, consts, ids, stage, 1e-8)
+                        kernel(curr8, out8, spec, tasks, consts, ids, stage, 1e-8)
                     nbytes = asub.tasks_bytes(tasks, item, stage)
                     cells = sum((t.rect.hi - t.rect.lo).flatten() for t in tasks)
                     row = {"form": form, "tasks": len(tasks)}
@@ -261,7 +276,8 @@ def astaroth_rows(na: int, gen, dev, reps: int, resident: bool = False) -> None:
                                   "ms": ms, "bytes": nbytes, "flops": flops, "bound_ms": bound,
                                   "bound_by": bound_by, "issue_ms": issue_ms(flops, dtype),
                                   "mcells_per_s": cells / ms / 1e3,
-                                  **asub.substep_info(dev.index, item, stage)}), flush=True)
+                                  **asub.substep_info(dev.index, item, stage, positions)}),
+                      flush=True)
             del curr8, out8
 
 
@@ -276,8 +292,9 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--b1", action="store_true",
                    help="only the sweep's (B1) forms and the fused step (B8)")
     p.add_argument("--astaroth-resident", action="store_true",
-                   help="only the Astaroth substep's rows (B5): one block, and its table "
-                        "form over 8 residents and over their shells")
+                   help="only the Astaroth substep's rows (B5): one block, its table form "
+                        "over 8 residents and over their shells, and its positions form "
+                        "over 8 mesh positions and their shells")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs a CUDA device")

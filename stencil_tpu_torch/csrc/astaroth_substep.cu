@@ -9,10 +9,15 @@
 // partition stacked on the card (its per-resident loop,
 // stencil_tpu/astaroth/integrate.py:340-360, at each block's own extent on an
 // uneven partition) and every resident's exterior shells after the exchange
-// (its overlap iteration's re-integration, :392-401), one launch each.
+// (its overlap iteration's re-integration, :392-401), one launch each; and
+// every position of a mesh of block positions, each position's stacks their
+// own allocations (the JAX package runs the substep inside shard_map on
+// every device of its mesh, :312-330, 489-496), one launch for up to
+// MAX_POSITIONS positions.
 // Python wrappers, the task table's layout and plain PyTorch versions:
-// stencil_tpu_torch/ops/astaroth_substep.py (substep, substep_tasks;
-// substep_table; substep_plain, substep_tasks_plain), whose math is
+// stencil_tpu_torch/ops/astaroth_substep.py (substep, substep_tasks,
+// substep_positions; substep_table, position_table; substep_plain,
+// substep_tasks_plain, substep_positions_plain), whose math is
 // stencil_tpu_torch/astaroth/{fd,equations}.py.
 //
 // What it computes, per compute cell: the 6th-order value / gradient /
@@ -86,7 +91,12 @@
 // is the one-task case. A task's planes are its block's planes block * pz
 // further down the stacks, so one tensor map per field spans every
 // resident; whether tensor copies fill a task's ring is the table's choice
-// per task (a shell's box starts at an odd x in fp64).
+// per task (a shell's box starts at an odd x in fp64). The positions form is
+// its own instantiation of the same tile body (substep_tile): a row also
+// names its position, which picks that position's 8 + 8 pointers and 8
+// tensor maps (each made on the position's own base address) at a
+// block-uniform index, and the one-stack instantiation keeps its registers
+// and its time (PERF.md).
 // The z chunks are sized from the occupancy of the instantiation launched
 // (ops/astaroth_substep.py substep_table).
 //
@@ -539,26 +549,62 @@ struct Table {
   SubstepTask row[MAX_TASKS];
 };
 
+// The positions form (a mesh of block positions, each position's stacks
+// their own allocations): a task row also names its position, an index
+// into the launch's MAX_POSITIONS sets of field pointers and tensor maps.
+// The table and those sets travel in the parameters together: 13 KB of
+// rows and 9 KB of pointers and maps (8 positions x 8 fields x 128 B), of
+// the 32 KB a launch may pass; a mesh of more positions goes out in
+// several launches (ops/astaroth_substep.position_launches).
+constexpr int POSITION_COLS = 13;  // int32 columns of a positions row
+constexpr int MAX_POSITIONS = 8;   // positions one launch takes
+
+struct PositionTask {
+  SubstepTask task;
+  int pos;
+};
+static_assert(sizeof(PositionTask) == POSITION_COLS * sizeof(int), "a positions row");
+
+struct PositionTable {
+  int ntask;
+  PositionTask row[MAX_TASKS];
+};
+
+template <typename T>
+struct Positions {
+  In<T> in[MAX_POSITIONS];
+  Out<T> out[MAX_POSITIONS];
+  Maps maps[MAX_POSITIONS];
+};
+
+__device__ __forceinline__ int row_start(const SubstepTask& r) { return r.start; }
+__device__ __forceinline__ int row_start(const PositionTask& r) { return r.task.start; }
+
+// the block's task: the last row whose first tile is at most block w's
+template <typename Tab>
+__device__ __forceinline__ int find_task(const Tab& tab, int w) {
+  int lo = 0, hi = tab.ntask - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (row_start(tab.row[mid]) <= w) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// One block of the grid: tile w - t.start of task t, over the stacks whose
+// pointers are `in` / `out` and tensor maps `maps` (valid when maps_ok).
 template <typename T, bool FIRST>
-__global__ void __launch_bounds__(THREADS, min_blocks<T>())
-astaroth_substep_kernel(const __grid_constant__ In<T> in, Out<T> out,
-                        const __grid_constant__ Maps maps, int maps_ok, Coefs<T> k,
-                        const __grid_constant__ Table tab, int sz, int sy, int pz) {
+__device__ __forceinline__ void substep_tile(const In<T>& in, const Out<T>& out,
+                                             const Maps& maps, bool maps_ok, const Coefs<T>& k,
+                                             const SubstepTask& t, int w, int sz, int sy,
+                                             int pz) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);  // [NF][SLOTS][PSTRIDE]
   T* const hand = ring + NF * SLOTS * PSTRIDE;      // [NH][CELLS]
   unsigned long long* const fill_bar = reinterpret_cast<unsigned long long*>(hand + NH * CELLS);
   const int tid = threadIdx.x + BX * (threadIdx.y + BY * threadIdx.z);
   const int grp = threadIdx.z;
-  // the block's task: the last row whose first tile is at most this block's
-  const int w = blockIdx.x;
-  int lo = 0, hi = tab.ntask - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (tab.row[mid].start <= w) lo = mid;
-    else hi = mid - 1;
-  }
-  const SubstepTask& t = tab.row[lo];
   const int gxy = t.gx * t.gy, u = w - t.start, tz = u / gxy, r = u - tz * gxy;
   const int x0 = r % t.gx * BX, y0 = r / t.gx * BY;
   const int nz = t.nz, ny = t.ny, nx = t.nx, yo = t.yo, xo = t.xo;
@@ -649,6 +695,30 @@ astaroth_substep_kernel(const __grid_constant__ In<T> in, Out<T> out,
   }
 }
 
+template <typename T, bool FIRST>
+__global__ void __launch_bounds__(THREADS, min_blocks<T>())
+astaroth_substep_kernel(const __grid_constant__ In<T> in, Out<T> out,
+                        const __grid_constant__ Maps maps, int maps_ok, Coefs<T> k,
+                        const __grid_constant__ Table tab, int sz, int sy, int pz) {
+  const int w = blockIdx.x;
+  substep_tile<T, FIRST>(in, out, maps, maps_ok != 0, k, tab.row[find_task(tab, w)], w, sz, sy,
+                         pz);
+}
+
+// The positions form: the task's position picks its pointers and maps
+// (maps_ok: bit p for position p), at a block-uniform index.
+template <typename T, bool FIRST>
+__global__ void __launch_bounds__(THREADS, min_blocks<T>())
+astaroth_substep_positions_kernel(const __grid_constant__ Positions<T> f, int maps_ok, Coefs<T> k,
+                                  const __grid_constant__ PositionTable tab, int sz, int sy,
+                                  int pz) {
+  const int w = blockIdx.x;
+  const PositionTask& r = tab.row[find_task(tab, w)];
+  const int pos = r.pos;
+  substep_tile<T, FIRST>(f.in[pos], f.out[pos], f.maps[pos], (maps_ok >> pos) & 1, k, r.task, w,
+                         sz, sy, pz);
+}
+
 template <typename T>
 Coefs<T> make_coefs(const double* p) {
   // p: inv_dsx, inv_dsy, inv_dsz, cs2_sound, gamma, cp_sound, lnrho0, lnT0,
@@ -725,10 +795,9 @@ bool make_maps(const In<T>& in, long long sz, long long sy, long long planes, Ma
 }
 
 // dynamic shared memory above 48 KB has to be asked for, per kernel
-template <typename T, bool FIRST>
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(astaroth_substep_kernel<T, FIRST>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T, typename K>
+cudaError_t allow_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem_bytes<T>());
 }
 
@@ -741,7 +810,7 @@ int launch(void* const* curr, void* const* out, const double* prm, const Table& 
     in.p[f] = (const T*)curr[f];
     o.p[f] = (T*)out[f];
   }
-  const cudaError_t err = allow_smem<T, FIRST>();
+  const cudaError_t err = allow_smem<T>(astaroth_substep_kernel<T, FIRST>);
   if (err != cudaSuccess) return (int)err;
   int tma = 0;
   for (int i = 0; i < tab.ntask; ++i) tma |= tab.row[i].tma;
@@ -753,22 +822,56 @@ int launch(void* const* curr, void* const* out, const double* prm, const Table& 
   return (int)cudaGetLastError();
 }
 
-// what the instantiation reports: blocks per SM, registers, local (spill)
-// bytes, threads per block, dynamic shared memory bytes
+// curr / out: npos x NF pointers, position-major; each position's maps are
+// made when one of its tasks asks for tensor copies, each on its own base
+// address (make_maps checks its 16-byte alignment)
 template <typename T, bool FIRST>
-int info(int* r) {
-  cudaError_t err = allow_smem<T, FIRST>();
+int launch_positions(void* const* curr, void* const* out, int npos, const double* prm,
+                     const PositionTable& tab, int tiles, long long sz, long long sy, int pz,
+                     int nblocks, cudaStream_t st) {
+  Positions<T> f;
+  memset(&f, 0, sizeof(f));
+  for (int p = 0; p < npos; ++p)
+    for (int q = 0; q < NF; ++q) {
+      f.in[p].p[q] = (const T*)curr[p * NF + q];
+      f.out[p].p[q] = (T*)out[p * NF + q];
+    }
+  const cudaError_t err = allow_smem<T>(astaroth_substep_positions_kernel<T, FIRST>);
+  if (err != cudaSuccess) return (int)err;
+  int tma[MAX_POSITIONS] = {0};
+  for (int i = 0; i < tab.ntask; ++i) tma[tab.row[i].pos] |= tab.row[i].task.tma;
+  int maps_ok = 0;
+  for (int p = 0; p < npos; ++p)
+    if (tma[p] && make_maps<T>(f.in[p], sz, sy, (long long)nblocks * pz, &f.maps[p]))
+      maps_ok |= 1 << p;
+  astaroth_substep_positions_kernel<T, FIRST>
+      <<<tiles, dim3(BX, BY, GROUPS), smem_bytes<T>(), st>>>(f, maps_ok, make_coefs<T>(prm), tab,
+                                                             (int)sz, (int)sy, pz);
+  return (int)cudaGetLastError();
+}
+
+// what an instantiation reports: blocks per SM, registers, local (spill)
+// bytes, threads per block, dynamic shared memory bytes
+template <typename T, typename K>
+int info(K kernel, int* r) {
+  cudaError_t err = allow_smem<T>(kernel);
   cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, astaroth_substep_kernel<T, FIRST>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &r[0], astaroth_substep_kernel<T, FIRST>, THREADS, smem_bytes<T>());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r[0], kernel, THREADS, smem_bytes<T>());
   if (err != cudaSuccess) return (int)err;
   r[1] = a.numRegs;
   r[2] = (int)a.localSizeBytes;
   r[3] = THREADS;
   r[4] = (int)smem_bytes<T>();
   return 0;
+}
+
+bool bad_shape(int nprm, int ntask, long long tiles, const int* rows, long long sz, long long sy,
+               int pz, int nblocks) {
+  return nprm != 16 || ntask < 1 || ntask > MAX_TASKS || tiles < 1 || tiles >= (1LL << 31) ||
+         rows[0] != 0 || sy < 1 || sz < sy || pz < 2 * H + 1 || nblocks < 1 ||
+         (long long)nblocks * pz >= (1LL << 31) || 3 * sz > (1LL << 30);
 }
 
 }  // namespace
@@ -786,9 +889,7 @@ extern "C" int astaroth_substep_launch(void* const* curr, void* const* out, int 
                                        const double* prm, int nprm, int first, const int* rows,
                                        int ntask, int task_cols, long long tiles, long long sz,
                                        long long sy, int pz, int nblocks, int dev, void* stream) {
-  if (nprm != 16 || ntask < 1 || ntask > MAX_TASKS || task_cols != TASK_COLS || tiles < 1 ||
-      tiles >= (1LL << 31) || rows[0] != 0 || sy < 1 || sz < sy || pz < 2 * H + 1 ||
-      nblocks < 1 || (long long)nblocks * pz >= (1LL << 31) || 3 * sz > (1LL << 30))
+  if (task_cols != TASK_COLS || bad_shape(nprm, ntask, tiles, rows, sz, sy, pz, nblocks))
     return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
@@ -806,13 +907,68 @@ extern "C" int astaroth_substep_launch(void* const* curr, void* const* out, int 
   return (int)cudaErrorInvalidValue;
 }
 
+// The positions form over npos (at most MAX_POSITIONS) positions: curr /
+// out hold npos x 8 device pointers, position-major (position p's field f
+// at p * 8 + f), each to that position's contiguous stack of nblocks padded
+// blocks (every position's stacks the same shape, each its own
+// allocation); rows are position_cols int32 each (ops/astaroth_substep.
+// position_table: a substep row, then the task's position in 0 .. npos-1).
+// The rest as astaroth_substep_launch.
+extern "C" int astaroth_substep_positions_launch(void* const* curr, void* const* out, int npos,
+                                                 int elem_size, const double* prm, int nprm,
+                                                 int first, const int* rows, int ntask,
+                                                 int position_cols, long long tiles, long long sz,
+                                                 long long sy, int pz, int nblocks, int dev,
+                                                 void* stream) {
+  if (position_cols != POSITION_COLS || npos < 1 || npos > MAX_POSITIONS ||
+      bad_shape(nprm, ntask, tiles, rows, sz, sy, pz, nblocks))
+    return (int)cudaErrorInvalidValue;
+  PositionTable tab;
+  tab.ntask = ntask;
+  memcpy(tab.row, rows, (size_t)ntask * sizeof(PositionTask));
+  for (int i = 0; i < ntask; ++i)
+    if (tab.row[i].pos < 0 || tab.row[i].pos >= npos || tab.row[i].task.block < 0 ||
+        tab.row[i].task.block >= nblocks)
+      return (int)cudaErrorInvalidValue;
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int fi = first ? 1 : 0, n = (int)tiles;
+  if (elem_size == 8)
+    return fi ? launch_positions<double, true>(curr, out, npos, prm, tab, n, sz, sy, pz, nblocks, st)
+              : launch_positions<double, false>(curr, out, npos, prm, tab, n, sz, sy, pz, nblocks,
+                                                st);
+  if (elem_size == 4)
+    return fi ? launch_positions<float, true>(curr, out, npos, prm, tab, n, sz, sy, pz, nblocks, st)
+              : launch_positions<float, false>(curr, out, npos, prm, tab, n, sz, sy, pz, nblocks,
+                                               st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The instantiation a launch of elem_size / first runs, on dev: r[0..4] =
 // resident blocks per SM, registers per thread, local (spill) bytes per
 // thread, threads per block, dynamic shared memory bytes.
 extern "C" int astaroth_substep_info(int elem_size, int first, int dev, int* r) {
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
-  if (elem_size == 8) return first ? info<double, true>(r) : info<double, false>(r);
-  if (elem_size == 4) return first ? info<float, true>(r) : info<float, false>(r);
+  if (elem_size == 8)
+    return first ? info<double>(astaroth_substep_kernel<double, true>, r)
+                 : info<double>(astaroth_substep_kernel<double, false>, r);
+  if (elem_size == 4)
+    return first ? info<float>(astaroth_substep_kernel<float, true>, r)
+                 : info<float>(astaroth_substep_kernel<float, false>, r);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same for the positions form's instantiation.
+extern "C" int astaroth_substep_positions_info(int elem_size, int first, int dev, int* r) {
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  if (elem_size == 8)
+    return first ? info<double>(astaroth_substep_positions_kernel<double, true>, r)
+                 : info<double>(astaroth_substep_positions_kernel<double, false>, r);
+  if (elem_size == 4)
+    return first ? info<float>(astaroth_substep_positions_kernel<float, true>, r)
+                 : info<float>(astaroth_substep_positions_kernel<float, false>, r);
   return (int)cudaErrorInvalidValue;
 }

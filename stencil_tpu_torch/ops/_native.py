@@ -88,6 +88,11 @@ SIGNATURES = {
                                          ctypes.POINTER(_I), _I, _I, _L, _L, _L, _I, _I, _I,
                                          _P]),
         "astaroth_substep_info": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
+        "astaroth_substep_positions_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
+                                                   _I, ctypes.POINTER(ctypes.c_double), _I, _I,
+                                                   ctypes.POINTER(_I), _I, _I, _L, _L, _L, _I,
+                                                   _I, _I, _P]),
+        "astaroth_substep_positions_info": (_I, [_I, _I, _I, ctypes.POINTER(_I)]),
     },
     "health_reduce": {
         "health_reduce_launch": (_I, [_P, _L, _P, _I, _P, _I, _P]),

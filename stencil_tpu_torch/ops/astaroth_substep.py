@@ -19,20 +19,30 @@ The port's counterpart of ``stencil_tpu.ops.pallas_astaroth``:
   each tenant's whole compute region; the halos are filled first, per
   tenant, by ``halo_fill.wrap_fill_tenants``). :func:`substep_table` lays
   the table out; :func:`substep` is its one-task case;
-- :func:`substep_plain` and :func:`substep_tasks_plain` are the same stage
+- :func:`substep_positions` is the table over a mesh of block positions,
+  each position's stacks their own allocations: a task also names its
+  position (:func:`position_compute_tasks`, :func:`position_shell_tasks`;
+  :func:`position_table`), and one launch takes up to
+  :data:`MAX_POSITIONS` positions' pointers and tensor maps
+  (:func:`position_launches` cuts a larger mesh);
+- :func:`substep_plain`, :func:`substep_tasks_plain` and
+  :func:`substep_positions_plain` are the same stage
   through ``astaroth.fd`` and ``astaroth.equations`` in PyTorch, over z
   slabs so that the ~74 derivative tensors and the equations' temporaries
   stay small at 256^3.
 
 The wrappers take their plain versions only for tensors on the CPU; on a
 CUDA tensor they launch the kernel or raise. They count their launches in
-``substep.launches`` and ``substep_tasks.launches`` (and, of the latter,
-the launches that hold shell tasks in ``substep_tasks.shells``).
+``substep.launches``, ``substep_tasks.launches`` and
+``substep_positions.launches`` (and, of the latter two, the launches that
+hold shell tasks in ``.shells``).
 
 Layout: 8 + 8 padded ``(pz, py, px)`` blocks of one dtype (views of the
 stacked ``(1, 1, 1, pz, py, px)`` state are fine), or for
 :func:`substep_tasks` 8 + 8 contiguous stacks of them (the stacked
-``(bz, by, bx, pz, py, px)`` state), ordered like :data:`FIELDS`, with a
+``(bz, by, bx, pz, py, px)`` state), or for :func:`substep_positions` 8 + 8
+lists of one ``(cz, cy, cx, pz, py, px)`` stack per position (a mesh
+state's fields), ordered like :data:`FIELDS`, with a
 radius of at least 3 on all six faces (inline x halos; the TPU's tight-x
 layout is a lane-roll device and not taken). Only the tasks' cells of
 ``out`` are written; the rest keeps its contents.
@@ -254,6 +264,93 @@ def table_launches(rows, tiles: int):
     return out
 
 
+POSITION_COLS = 13  # a task row and its position (csrc/astaroth_substep.cu PositionTask)
+MAX_POSITIONS = 8  # positions one launch takes (csrc/astaroth_substep.cu Positions)
+
+
+class PositionTask(NamedTuple):
+    """One task of the positions form: block ``block`` of position
+    ``position``'s stacks (both flat indices, x fastest; positions in the
+    mesh's order) and the rect of it to update, allocation-local."""
+
+    position: int
+    block: int
+    rect: Rect3
+
+
+def position_mesh(spec: GridSpec, resident) -> Dim3:
+    """Positions along x, y and z when each holds ``resident`` blocks."""
+    d, r = spec.dim, Dim3.of(resident)
+    if d.x % r.x or d.y % r.y or d.z % r.z:
+        raise ValueError(f"{r} blocks a position do not divide partition {d}")
+    return Dim3(d.x // r.x, d.y // r.y, d.z // r.z)
+
+
+def position_block(spec: GridSpec, resident, position: int, j: int) -> int:
+    """The partition's flat block index (x fastest) of block ``j`` of
+    position ``position``'s ``resident`` stack."""
+    r, m, d = Dim3.of(resident), position_mesh(spec, resident), spec.dim
+    ix = position % m.x * r.x + j % r.x
+    iy = position // m.x % m.y * r.y + j // r.x % r.y
+    iz = position // (m.x * m.y) * r.z + j // (r.x * r.y)
+    return ix + d.x * (iy + d.y * iz)
+
+
+def position_compute_tasks(spec: GridSpec, resident) -> Tuple[PositionTask, ...]:
+    """Every position's blocks' compute regions, each at its own extent,
+    position by position: a stage over a mesh."""
+    r, m = Dim3.of(resident), position_mesh(spec, resident)
+    return tuple(PositionTask(p, j, block_compute(spec, position_block(spec, r, p, j)))
+                 for p in range(m.flatten()) for j in range(r.flatten()))
+
+
+def position_shell_tasks(spec: GridSpec, resident) -> Tuple[PositionTask, ...]:
+    """Every position's blocks' exterior shells (6 a block at radius 3),
+    position by position: the overlap iteration's stage-0 re-integration."""
+    out = []
+    for p, j, c in position_compute_tasks(spec, resident):
+        out.extend(PositionTask(p, j, r)
+                   for r in exterior_regions(c, interior_region(c, spec.radius)))
+    return tuple(out)
+
+
+def position_table(tasks, spec: GridSpec, blocks_in_flight: int, item: int,
+                   aligned: Sequence[bool]) -> Tuple[tuple, int]:
+    """``(rows, tiles)``: :func:`substep_table`'s rows of the tasks' blocks
+    and rects, each followed by its position (:data:`POSITION_COLS`
+    columns), a task's tensor copies also asking its position's fields to
+    be 16-byte aligned (``aligned[position]``)."""
+    tasks = [PositionTask(*t) for t in tasks]
+    rows, tiles = substep_table([SubstepTask(t.block, t.rect) for t in tasks], spec,
+                                blocks_in_flight, item)
+    return tuple(r[:-1] + (r[-1] & int(aligned[t.position]), t.position)
+                 for r, t in zip(rows, tasks)), tiles
+
+
+def position_launches(rows, tiles: int):
+    """``[(rows, tiles, positions), ...]``: the positions table cut into
+    launches of at most :data:`MAX_TASKS` rows and :data:`MAX_POSITIONS`
+    positions, each group's first tiles counted from 0 and its rows' last
+    column an index into ``positions``, the group's mesh positions."""
+    groups, cur = [], []
+    for i, r in enumerate(rows):
+        seen = {c[-1] for c in cur}
+        if cur and (len(cur) == MAX_TASKS or (r[-1] not in seen and len(seen) == MAX_POSITIONS)):
+            groups.append((cur, i))
+            cur = []
+        cur.append(r)
+    groups.append((cur, len(rows)))
+    out = []
+    for group, end in groups:
+        first = group[0][0]
+        last = rows[end][0] if end < len(rows) else tiles
+        positions = tuple(dict.fromkeys(r[-1] for r in group))
+        local = {p: i for i, p in enumerate(positions)}
+        out.append((tuple((r[0] - first,) + tuple(r[1:-1]) + (local[r[-1]],) for r in group),
+                    last - first, positions))
+    return out
+
+
 def tasks_bytes(tasks, itemsize: int, stage: int) -> int:
     """Bytes a stage over ``tasks`` must move: each task's cells read from 8
     fields and written to 8, plus 8 out fields read at stages 1-2."""
@@ -262,20 +359,23 @@ def tasks_bytes(tasks, itemsize: int, stage: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def substep_info(index: int, itemsize: int, stage: int) -> dict:
+def substep_info(index: int, itemsize: int, stage: int, positions: bool = False) -> dict:
     """What the kernel instantiation of ``itemsize`` and ``stage`` (stage 0
-    or the others) reports on CUDA device ``index``: resident blocks per SM,
-    registers and local (spill) bytes per thread, threads and dynamic shared
-    memory per block."""
+    or the others), the positions form's with ``positions``, reports on
+    CUDA device ``index``: resident blocks per SM, registers and local
+    (spill) bytes per thread, threads and dynamic shared memory per
+    block."""
+    lib = _native.lib("astaroth_substep")
+    fn = lib.astaroth_substep_positions_info if positions else lib.astaroth_substep_info
     r = (ctypes.c_int * 5)()
-    _native.check(_native.lib("astaroth_substep").astaroth_substep_info(
-        itemsize, int(stage == 0), index, r), "astaroth_substep_info")
+    _native.check(fn(itemsize, int(stage == 0), index, r), "astaroth_substep_info")
     return dict(zip(("blocks_per_sm", "regs", "local_bytes", "threads", "smem_bytes"), r))
 
 
-def substep_blocks_in_flight(dev: torch.device, itemsize: int, stage: int) -> int:
+def substep_blocks_in_flight(dev: torch.device, itemsize: int, stage: int,
+                             positions: bool = False) -> int:
     """SMs x resident blocks per SM of the instantiation a launch runs."""
-    per_sm = substep_info(dev.index, itemsize, stage)["blocks_per_sm"]
+    per_sm = substep_info(dev.index, itemsize, stage, positions)["blocks_per_sm"]
     return torch.cuda.get_device_properties(dev.index).multi_processor_count * max(1, per_sm)
 
 
@@ -305,6 +405,20 @@ def substep_tasks_plain(curr8: Sequence[torch.Tensor], out8: Sequence[torch.Tens
         for z0 in range(lo.z, hi.z, planes):
             slab = Rect3(Dim3(lo.x, lo.y, z0), Dim3(hi.x, hi.y, min(hi.z, z0 + planes)))
             integrate_region(stage, slab, inv_ds, c, dt, curr, out)
+    return tuple(out8)
+
+
+def substep_positions_plain(curr8, out8, spec: GridSpec, tasks, c, inv_ds, stage: int,
+                            dt: float):
+    """One RK3 stage of all 8 fields over ``tasks`` (:class:`PositionTask`)
+    of a mesh in plain PyTorch: position by position,
+    :func:`substep_tasks_plain` over its stacks and its tasks (returns
+    ``out8``, the 8 lists of per-position stacks)."""
+    tasks = [PositionTask(*t) for t in tasks]
+    for p in sorted({t.position for t in tasks}):
+        substep_tasks_plain([f[p] for f in curr8], [f[p] for f in out8], spec,
+                            [(t.block, t.rect) for t in tasks if t.position == p],
+                            c, inv_ds, stage, dt)
     return tuple(out8)
 
 
@@ -373,16 +487,22 @@ def _check_tasks(tasks, spec: GridSpec, nblocks: int, stage: int) -> None:
                              "whole compute regions of distinct blocks only")
 
 
+def _coefs(c, inv_ds, stage: int, dt: float):
+    """The 16 doubles the kernel's coefficients are made from
+    (csrc/astaroth_substep.cu make_coefs)."""
+    alpha_over_pb = RK3_ALPHA[stage] / RK3_BETA[stage - 1] if stage else 0.0
+    return (ctypes.c_double * 16)(
+        *inv_ds, c.cs2_sound, c.gamma, c.cp_sound, c.lnrho0, c.lnT0, c.mu0, c.eta,
+        c.nu_visc, c.zeta, c.chi, dt, RK3_BETA[stage], alpha_over_pb)
+
+
 def _launch(curr8, out8, spec: GridSpec, tasks, c, inv_ds, stage: int, dt: float,
             dev: torch.device, nblocks: int) -> int:
     """Launch ``csrc/astaroth_substep.cu`` over ``tasks`` of the stacks
     ``curr8`` / ``out8``: one launch, or one per :data:`MAX_TASKS` tasks;
     returns the launches. The tables are made once per task list, dtype and
     alignment (``_native.kept``)."""
-    alpha_over_pb = RK3_ALPHA[stage] / RK3_BETA[stage - 1] if stage else 0.0
-    prm = (ctypes.c_double * 16)(
-        *inv_ds, c.cs2_sound, c.gamma, c.cp_sound, c.lnrho0, c.lnT0, c.mu0, c.eta,
-        c.nu_visc, c.zeta, c.chi, dt, RK3_BETA[stage], alpha_over_pb)
+    prm = _coefs(c, inv_ds, stage, dt)
     cp = (ctypes.c_void_p * NF)(*[t.data_ptr() for t in curr8])
     op = (ctypes.c_void_p * NF)(*[t.data_ptr() for t in out8])
     p = spec.padded()
@@ -450,3 +570,120 @@ def substep_tasks(curr8: Sequence[torch.Tensor], out8: Sequence[torch.Tensor],
 
 substep_tasks.launches = 0
 substep_tasks.shells = 0
+
+
+def _check_positions(curr8, out8, spec: GridSpec, stage: int) -> Tuple[torch.device, Dim3]:
+    """8 + 8 lists of one ``(cz, cy, cx, pz, py, px)`` stack per position,
+    every stack of one shape, dtype and device, each its own buffer; returns
+    the device and the blocks a position holds."""
+    if len(curr8) != NF or len(out8) != NF:
+        raise ValueError(f"substep_positions takes {NF} curr and {NF} out lists "
+                         f"({', '.join(FIELDS)})")
+    npos = len(curr8[0])
+    if npos < 1 or any(len(f) != npos for f in (*curr8, *out8)):
+        raise ValueError("substep_positions takes one stack a position in every list")
+    first = curr8[0][0]
+    if first.dim() != 6:
+        raise ValueError(f"a position's stack is (cz, cy, cx, pz, py, px), not "
+                         f"{tuple(first.shape)}")
+    dev = None
+    for p in range(npos):
+        dev = _check([f[p] for f in curr8], [f[p] for f in out8], spec, stage, stacks=True)
+        for t in (*(f[p] for f in curr8), *(f[p] for f in out8)):
+            if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
+                raise ValueError("every position's stacks share one shape, dtype and device")
+    if len({t.data_ptr() for f in (*curr8, *out8) for t in f}) != 2 * NF * npos:
+        raise ValueError("every position's curr and out stacks must be distinct buffers")
+    resident = Dim3(first.shape[2], first.shape[1], first.shape[0])
+    if position_mesh(spec, resident).flatten() != npos:
+        raise ValueError(f"{npos} positions of {resident} blocks do not hold partition "
+                         f"{spec.dim}")
+    return dev, resident
+
+
+def _check_position_tasks(tasks, spec: GridSpec, resident: Dim3, stage: int) -> None:
+    """:func:`_check_tasks` position by position; at stages 1-2 each task
+    its block's whole compute region."""
+    if not tasks:
+        raise ValueError("substep_positions needs at least one task")
+    npos = position_mesh(spec, resident).flatten()
+    for p in {t.position for t in tasks}:
+        if not 0 <= p < npos:
+            raise ValueError(f"task position {p} outside the mesh's {npos} positions")
+        _check_tasks([(t.block, t.rect) for t in tasks if t.position == p], spec,
+                     resident.flatten(), 0)
+    if stage and (len({(t.position, t.block) for t in tasks}) != len(tasks)
+                  or not _positions_whole(spec, resident, tasks)):
+        raise ValueError(f"a shell task at stage {stage}: stages 1-2 read out and take "
+                         "whole compute regions of distinct blocks only")
+
+
+def _positions_whole(spec: GridSpec, resident: Dim3, tasks) -> bool:
+    """Whether every task is its block's whole compute region."""
+    return all(t.rect == block_compute(spec, position_block(spec, resident, t.position, t.block))
+               for t in tasks)
+
+
+def _launch_positions(curr8, out8, spec: GridSpec, tasks, c, inv_ds, stage: int, dt: float,
+                      dev: torch.device, nblocks: int) -> int:
+    """Launch the positions form of ``csrc/astaroth_substep.cu`` over
+    ``tasks``: one launch per :data:`MAX_POSITIONS` positions and
+    :data:`MAX_TASKS` tasks (:func:`position_launches`); returns the
+    launches. The tables are made once per task list, dtype and alignment
+    (``_native.kept``)."""
+    prm = _coefs(c, inv_ds, stage, dt)
+    p = spec.padded()
+    item = curr8[0][0].element_size()
+    npos = len(curr8[0])
+    aligned = tuple(all(f[q].data_ptr() % 16 == 0 for f in curr8) for q in range(npos))
+    bif = substep_blocks_in_flight(dev, item, stage, positions=True)
+
+    def make():
+        out = []
+        for rows, tiles, positions in position_launches(
+                *position_table(tasks, spec, bif, item, aligned)):
+            flat = [v for r in rows for v in r]
+            out.append(((ctypes.c_int * len(flat))(*flat), len(rows), tiles, positions))
+        return out
+
+    lib = _native.lib("astaroth_substep")
+    launches = _native.kept(("substep_positions", p.x, tasks, bif, item, aligned), make)
+    for rows, ntask, tiles, positions in launches:
+        cp = (ctypes.c_void_p * (NF * len(positions)))(
+            *[f[q].data_ptr() for q in positions for f in curr8])
+        op = (ctypes.c_void_p * (NF * len(positions)))(
+            *[f[q].data_ptr() for q in positions for f in out8])
+        rc = lib.astaroth_substep_positions_launch(
+            cp, op, len(positions), item, prm, 16, int(stage == 0), rows, ntask, POSITION_COLS,
+            tiles, p.y * p.x, p.x, p.z, nblocks, dev.index, _native.stream_ptr(dev))
+        _native.check(rc, f"astaroth_substep_positions[{stage}]")
+    return len(launches)
+
+
+def substep_positions(curr8, out8, spec: GridSpec, tasks, c, inv_ds, stage: int, dt: float):
+    """One RK3 stage of all 8 fields over ``tasks`` (:class:`PositionTask`
+    triples of a position, a block of its stacks and a rect, e.g.
+    :func:`position_compute_tasks` or :func:`position_shell_tasks`) of a
+    mesh of block positions: ``curr8`` and ``out8`` are 8 lists (ordered
+    like :data:`FIELDS`) of one ``(cz, cy, cx, pz, py, px)`` stack per
+    position, each its own allocation; each task's cells of ``out8`` are
+    updated in place from ``curr8`` (returns ``out8``). One launch covers
+    every position, one per :data:`MAX_POSITIONS` positions or
+    :data:`MAX_TASKS` tasks beyond. A shell task runs at stage 0 only. CPU
+    tensors take :func:`substep_positions_plain`; CUDA tensors launch
+    ``csrc/astaroth_substep.cu`` or raise."""
+    dev, resident = _check_positions(curr8, out8, spec, stage)
+    tasks = tuple(PositionTask(*t) for t in tasks)
+    _check_position_tasks(tasks, spec, resident, stage)
+    if dev.type == "cpu":
+        return substep_positions_plain(curr8, out8, spec, tasks, c, inv_ds, stage, dt)
+    n = _launch_positions(curr8, out8, spec, tasks, c, inv_ds, stage, dt, dev,
+                          resident.flatten())
+    substep_positions.launches += n
+    if not _positions_whole(spec, resident, tasks):
+        substep_positions.shells += n
+    return tuple(out8)
+
+
+substep_positions.launches = 0
+substep_positions.shells = 0

@@ -249,13 +249,39 @@ def test_table_form_refuses():
 
 
 def test_step_refuses_a_mesh_of_positions():
+    """A mesh of positions takes only REMOTE_DMA, as every mesh of the port
+    (AXIS_COMPOSED over positions raises at realize, ROADMAP.md queue A item
+    5); over REMOTE_DMA the step runs on the mesh and gives the resident
+    step's cells."""
     tinfo, _ = configs((16, 16, 16))
-    dd = DistributedDomain(16, 16, 16, device="cpu")
-    dd.set_radius(3)
-    dd.set_devices(["cpu"] * 8)
-    dd.set_methods(Method.REMOTE_DMA)
-    for k in FIELDS:
-        dd.add_data(k, "float64")
-    dd.realize()
+
+    def domain(method, devices):
+        dd = DistributedDomain(16, 16, 16, device="cpu")
+        dd.set_radius(3)
+        dd.set_partition((2, 2, 2))
+        if devices:
+            dd.set_devices(devices)
+        dd.set_methods(method)
+        hs = [dd.add_data(k, "float64") for k in FIELDS]
+        return dd, hs
+
+    dd, _ = domain(Method.AXIS_COMPOSED, ["cpu"] * 8)
     with pytest.raises(NotImplementedError, match="mesh"):
-        make_astaroth_step(dd.halo_exchange, tinfo, dtype="float64")
+        dd.realize()
+    rng = np.random.RandomState(4)
+    g = {k: rng.randn(16, 16, 16) * 0.05 + 0.5 * (k == "lnrho") for k in FIELDS}
+    cells = []
+    for method, devices in ((Method.REMOTE_DMA, ["cpu"] * 8), (Method.AXIS_COMPOSED, None)):
+        dd, hs = domain(method, devices)
+        dd.realize()
+        for h, k in zip(hs, FIELDS):
+            dd.set_curr_global(h, g[k])
+        curr, nxt = dd.curr_state(), dd.next_state()
+        step = make_astaroth_step(dd.halo_exchange, tinfo, dt=1e-3, iters=2, dtype="float64")
+        curr, _ = step({k: curr[h.idx] for h, k in zip(hs, FIELDS)},
+                       {k: nxt[h.idx] for h, k in zip(hs, FIELDS)})
+        for h, k in zip(hs, FIELDS):
+            dd.set_curr(h, curr[k])
+        cells.append([dd.get_curr_global(h) for h in hs])
+    for k, a, b in zip(FIELDS, *cells):
+        np.testing.assert_array_equal(a, b, err_msg=k)

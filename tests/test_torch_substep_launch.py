@@ -271,3 +271,136 @@ def test_long_tables_are_cut_into_launches():
         assert sorted(seen) == list(range(len(g)))
         done += len(g)
     assert asub.table_launches(rows[:3], rows[3][0]) == [(rows[:3], rows[3][0])]
+
+
+# -- the positions form (substep_positions): its rows, its position column, the split --
+
+def test_position_row_mirrors_the_kernel_source():
+    """A positions row is a task row and its position; one launch takes up
+    to MAX_POSITIONS positions' pointers and tensor maps, and its
+    parameters (the table, the positions' 8 + 8 pointers and 8 maps of 128
+    bytes each, the coefficients) fit the 32,764 bytes a launch may pass."""
+    body = re.search(r"struct PositionTask \{(.*?)\};", SRC, re.S).group(1)
+    assert re.findall(r"\b(\w+)\s*;", body) == ["task", "pos"]
+    assert asub.POSITION_COLS == _const("POSITION_COLS") == asub.TASK_COLS + 1
+    assert asub.MAX_POSITIONS == _const("MAX_POSITIONS")
+    table = 4 + asub.MAX_TASKS * 4 * asub.POSITION_COLS
+    positions = asub.MAX_POSITIONS * (2 * asub.NF * 8 + asub.NF * 128)
+    coefs, scalars = 24 * 8, 4 * 4
+    assert table + positions + coefs + scalars + 64 <= 32_764
+
+
+MESHES = {
+    "(2,2,2) on 8": ((40, 24, 20), (2, 2, 2), (1, 1, 1)),
+    "(1,1,2) on 2": ((33, 13, 14), (1, 1, 2), (1, 1, 1)),
+    "(2,2,2) on 4": ((40, 24, 20), (2, 2, 2), (1, 1, 2)),
+    "(2,2,2) on 2": ((40, 24, 20), (2, 2, 2), (1, 2, 2)),
+    "uneven 19x16x14 on 8": ((19, 16, 14), (2, 2, 2), (1, 1, 1)),
+    "(3,2,2) on 12": ((60, 40, 28), (3, 2, 2), (1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESHES))
+def test_position_tasks_are_the_partition_blocks(case):
+    """Each position's tasks are its stack's blocks, in the stack's order,
+    each the compute region (and the 6 shells) of the partition block that
+    split_positions puts there, at its own extent."""
+    from stencil_tpu_torch.parallel import DeviceMesh, split_positions
+
+    size, part, res = MESHES[case]
+    spec = _spec(size, part)
+    r = Dim3(*res)
+    mesh_dim = asub.position_mesh(spec, r)
+    full = asub.position_compute_tasks(spec, r)
+    assert len(full) == spec.num_blocks()
+    assert [(t.position, t.block) for t in full] == [
+        (p, j) for p in range(mesh_dim.flatten()) for j in range(r.flatten())]
+    # a stacked tensor of block indices, split as a mesh's state
+    ids = torch.arange(spec.num_blocks(), dtype=torch.int64).view(
+        spec.dim.z, spec.dim.y, spec.dim.x, 1, 1, 1)
+    p = spec.padded()
+    stacked = ids.expand(*ids.shape[:3], p.z, p.y, p.x).contiguous()
+    mesh = DeviceMesh(mesh_dim, ["cpu"] * mesh_dim.flatten())
+    pos = split_positions(stacked, spec, mesh)
+    for t in full:
+        j = int(pos[t.position].reshape(-1, p.z, p.y, p.x)[t.block, 0, 0, 0])
+        assert asub.position_block(spec, r, t.position, t.block) == j
+        assert t.rect == asub.block_compute(spec, j)
+    shells = asub.position_shell_tasks(spec, r)
+    assert len(shells) == 6 * len(full)
+    assert {(t.position, t.block) for t in shells} == {(t.position, t.block) for t in full}
+
+
+@pytest.mark.parametrize("case", sorted(MESHES))
+def test_position_table_walk_covers_every_task_once(case):
+    """The positions table's rows are substep_table's rows of the same
+    blocks and rects, each followed by its position; the kernel's walk over
+    each launch covers every cell of every task once."""
+    size, part, res = MESHES[case]
+    spec = _spec(size, part)
+    r = Dim3(*res)
+    npos = asub.position_mesh(spec, r).flatten()
+    for tasks in (asub.position_compute_tasks(spec, r), asub.position_shell_tasks(spec, r)):
+        rows, tiles = asub.position_table(tasks, spec, 132, 8, [True] * npos)
+        plain, ptiles = asub.substep_table([(t.block, t.rect) for t in tasks], spec, 132, 8)
+        assert ptiles == tiles and [row[:-1] for row in rows] == list(plain)
+        assert [row[-1] for row in rows] == [t.position for t in tasks]
+        assert all(len(row) == asub.POSITION_COLS for row in rows)
+        seen = collections.Counter()
+        for g, t, positions in asub.position_launches(rows, tiles):
+            assert len(positions) <= asub.MAX_POSITIONS and len(g) <= asub.MAX_TASKS
+            for i, x0, y0, z0, n in _walk(g, t):
+                seen[positions[g[i][-1]], g[i][1], g[i][2:5]] += n
+        want = collections.Counter()
+        for t in tasks:
+            gx, gy = asub.tile_grid(t.rect.hi - t.rect.lo)
+            n = t.rect.hi - t.rect.lo
+            want[t.position, t.block, (t.rect.lo.z, t.rect.lo.y, t.rect.lo.x)] += gx * gy * n.z
+        assert seen == want
+
+
+def test_meshes_beyond_the_launch_limit_are_split():
+    """More positions than one launch takes: the 12 positions of (3,2,2) go
+    out in two launches, 8 then 4, each group's first tiles counted from
+    0, its positions column local to the group; a long shell table is cut
+    by MAX_TASKS as well as by MAX_POSITIONS."""
+    spec = _spec((60, 40, 28), (3, 2, 2))
+    one = Dim3(1, 1, 1)
+    tasks = asub.position_compute_tasks(spec, one)
+    rows, tiles = asub.position_table(tasks, spec, 132, 8, [True] * 12)
+    groups = asub.position_launches(rows, tiles)
+    assert [(len(g), p) for g, _, p in groups] == [(8, tuple(range(8))), (4, (8, 9, 10, 11))]
+    assert sum(t for _, t, _ in groups) == tiles
+    for g, t, positions in groups:
+        assert g[0][0] == 0 and [r[-1] for r in g] == list(range(len(positions)))
+    # 90 blocks of 20x12x18 on 45 positions of 2: 540 shells
+    spec = _spec((100, 72, 54), (5, 6, 3))
+    res = Dim3(1, 2, 1)
+    shells = asub.position_shell_tasks(spec, res)
+    rows, tiles = asub.position_table(shells, spec, 132, 8, [True] * 45)
+    groups = asub.position_launches(rows, tiles)
+    # 8 positions of 2 blocks of 6 shells: 96 rows a launch
+    assert [len(g) for g, _, _ in groups] == [96] * 5 + [60]
+    assert [len(p) for _, _, p in groups] == [8] * 5 + [5]
+    assert sum(t for _, t, _ in groups) == tiles
+    # one position of many blocks: cut by MAX_TASKS only
+    spec = _spec((100, 72, 54), (5, 6, 3))
+    shells = asub.position_shell_tasks(spec, spec.dim)
+    rows, tiles = asub.position_table(shells, spec, 132, 8, [True])
+    assert [len(g) for g, _, _ in asub.position_launches(rows, tiles)] == [256, 256, 28]
+
+
+def test_position_tma_choice_per_position():
+    """A position whose fields are off 16-byte alignment takes cp.async for
+    every task; the others keep the table's choice."""
+    spec = _spec((512, 512, 512), (2, 2, 2))
+    one = Dim3(1, 1, 1)
+    aligned = [True] * 8
+    aligned[3] = False
+    rows, _ = asub.position_table(asub.position_compute_tasks(spec, one), spec, 132, 8, aligned)
+    assert [r[-2] for r in rows] == [1, 1, 1, 0, 1, 1, 1, 1]
+    rows, _ = asub.position_table(asub.position_shell_tasks(spec, one), spec, 132, 8, aligned)
+    assert [r[-2] for r in rows] == [0, 1, 1, 1, 0, 0] * 3 + [0] * 6 + [0, 1, 1, 1, 0, 0] * 4
+    rows, _ = asub.position_table(asub.position_compute_tasks(spec, one), spec, 132, 4,
+                                  [True] * 8)
+    assert all(r[-2] == 0 for r in rows)
