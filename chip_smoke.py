@@ -393,6 +393,31 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               versions and bounds, and the resident table launch over the
               same cells in the same call.
 
+18. plan -- the exchange planner (plan_phase, rehearsable on the CPU at
+              small sizes): apps.jacobi3d.run at 512^3 fp32 with
+              autotune=True and a plan DB in a temporary directory on one
+              device (each candidate's static cost and each probe's
+              trimean printed, no probe failed, launches held to the
+              probes', the chosen plan's loop and the attribution
+              epilogue's), again as a DB hit (zero probes, the same
+              choice); the same over 8 positions of 512^3 (REMOTE_DMA plain
+              and fused over the partitions of 8; B6, B7 and B4 under the
+              probes); a guarded loop over 8 positions on the plain plan
+              (B1 + B6) with a sentinel, a status file and a
+              ReplanController latched after chunk 2 whose re-tune returns
+              the fused choice (B8 after the swap, B7 for the swap's
+              exchange; launches held before and after, replan.applied
+              recorded, the status file valid, the compute region
+              torch.equal to an unswapped run); plan_tool calibrate
+              --platform cuda on the 8-position runs' metrics (the fitted
+              row printed, the mesh config re-ranked with it, the static
+              winner beside the measured one); apps.astaroth.run at 256^3
+              fp64 with autotune=True; the serving daemon in process with
+              --replan, --plan-db, --status-file and --live-sentinel (SLO
+              pressure swaps between slots; every result byte-equal to the
+              batch driver's). The kernels line's rows carry the phase's
+              launches as plan_phase_launches.
+
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
 {"ok": true, "device": {...}}. Without a visible GPU it exits non-zero
@@ -3356,6 +3381,442 @@ def astaroth_mesh_phase(dev, time_ms, n: int = 256, mid: int = 128, iters: int =
     return timings, launches, errs
 
 
+def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
+               iters: int = 50, chunk: int = 25, swap_iters: int = 48, swap_chunk: int = 8,
+               ast_iters: int = 3, cal_probes: int = 6, serve_edges=(32, 64), tmp=None):
+    """Phase 18, the exchange planner on the card (``plan/``, rehearsable on
+    the CPU at small sizes, where the plain versions count no launch):
+
+    - ``apps.jacobi3d.run`` at ``n``^3 fp32 with ``autotune=True`` and a plan
+      DB in a temporary directory, on one device: each candidate's static
+      cost and each probe's trimean printed, no probe failed; launches
+      counted from 0 around the run and held to the probes' exchanges (8 a
+      probe: one warm-up loop of 4 and 4 timed), the chosen plan's loop (a
+      warm-up chunk and the timed chunks) and the end-of-run attribution's
+      40 exchanges; a second run hits the DB (zero probes, the same choice),
+      its launches held to the plan's alone.
+    - The same over ``["cuda:0"] * 8`` positions at ``mesh_n``^3 (strong):
+      REMOTE_DMA plain and fused over the partitions of 8, B6 / B7 / B4
+      launches of the probes printed and held.
+    - The hot-swap: a guarded jacobi3d loop (``fault.run_guarded``) at
+      ``mesh_n``^3 over 8 positions on the plain REMOTE_DMA plan (B1's
+      positions sweep + B6) with a live sentinel, a status file and a
+      ``ReplanController`` whose request is latched after the second chunk
+      and whose re-tune returns the fused choice: the rest of the run goes
+      through B8 (its launch counts held before and after the swap, the
+      swap's one exchange by B7), ``replan.applied`` is recorded, the status
+      file validates, and the compute region equals an unswapped run of the
+      same steps (``torch.equal``). Both runs end with the exchange
+      attribution.
+    - Calibration: the plain carrier's probes over ``cal_probes``
+      partitions of 8 besides (``autotune(variants=(None,))``, 40 exchanges
+      a probe in 8 samples; B6 and B4 launches held), then the 8-position
+      runs' metrics file through ``plan_tool calibrate --platform cuda``
+      (its copy count: each exchange's kernel launches); the fitted row
+      printed (n, r², each constant) and held to ``calibrate``'s checks
+      (the fit and the DB's validation raise otherwise); the mesh config
+      re-ranked with it, the static winner printed beside the measured
+      one.
+    - ``apps.astaroth.run`` at ``ast_n``^3 fp64 with ``autotune=True`` on one
+      device: its probes (no failure), choice and substep launches.
+    - Serving: the daemon (``apps/serve``'s scheduler from its flags) in
+      process with ``--replan``, ``--plan-db``, ``--status-file`` and
+      ``--live-sentinel`` over jacobi jobs of the two ``serve_edges``, one
+      with a deadline under any p99: SLO pressure latches a swap at a slot
+      boundary (``replan.applied``), the status file validates, and every
+      result equals the batch ``CampaignDriver``'s on the same jobs.
+
+    Returns ``(launches, report)``: the phase's launch count per kernel row
+    of the kernels line, and the numbers PERF.md records."""
+    from stencil_tpu_torch import DistributedDomain
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.apps import jacobi3d, plan_tool
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.obs import telemetry
+    from stencil_tpu_torch.obs.live import LiveSentinel
+    from stencil_tpu_torch.obs.status import StatusWriter, read_status, validate_status
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.fault import chunk_plan, run_guarded
+    from stencil_tpu_torch.parallel import Method
+    from stencil_tpu_torch.plan import db as plandb
+    from stencil_tpu_torch.plan.autotune import autotune
+    from stencil_tpu_torch.plan.cost import enumerate_candidates, feasible, rank
+    from stencil_tpu_torch.plan.ir import PlanChoice, PlanConfig, build_plan
+    from stencil_tpu_torch.plan.replan import ReplanController
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"  # the plain versions (a CPU rehearsal) count no launch
+    tmp = tmp or tempfile.mkdtemp(prefix="plan_phase_")
+    os.makedirs(tmp, exist_ok=True)
+    db_path = os.path.join(tmp, "plans.json")
+    counted = {"jacobi_sweep": sk.sweep, "jacobi_multistep": sk.multistep,
+               "self_fill": halo_fill.self_fill, "fused_jacobi": fst.fused_jacobi,
+               "remote_axis": rdma.remote_axis, "fused_exchange": fst.fused_exchange,
+               "jacobi_sweep_positions": sk.sweep_positions,
+               "fused_jacobi_mesh": fst.fused_jacobi_mesh,
+               "astaroth_substep_resident": asub.substep_tasks}
+    phase_launches = {name: 0 for name in counted}
+    report = {}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        got = {name: fn.launches for name, fn in counted.items()}
+        for name, v in got.items():
+            phase_launches[name] += v
+        return got
+
+    def held(label, got, want):
+        want = {k: v * on_card for k, v in want.items() if v * on_card}
+        nonzero = {k: v for k, v in got.items() if v}
+        check(nonzero == want, f"{label}: launches {nonzero}, expected {want}")
+        log(f"{label}: launches {nonzero or '{}'} (held)")
+
+    def exchange_launches(config, choice):
+        """Kernel launches of one exchange of ``choice``'s plan."""
+        spec, mesh_dim, resident = feasible(config, choice)
+        if choice.method == Method.DIRECT26.value:
+            return {}
+        plan = build_plan(spec, mesh_dim, choice.method, resident=resident)
+        if Dim3.of(mesh_dim).flatten() == 1:
+            return {"self_fill": sum(1 for p in plan.axis_phases if p.active)}
+        if choice.is_fused:
+            return {"fused_exchange": 1}
+        out = {"remote_axis": sum(1 for p in plan.remote_phases if p.active and p.ring > 1),
+               "self_fill": sum(1 for p in plan.remote_phases if p.active and p.ring == 1)}
+        return out
+
+    def add(total, per, times):
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v * times
+
+    def loop_launches(config, choice, chunks, temporal_k):
+        """The jacobi loop of ``choice`` over ``chunks`` (step counts)."""
+        out = {}
+        steps = sum(chunks)
+        mesh = config.ndev > 1
+        if choice.method == Method.REMOTE_DMA.value:
+            if choice.is_fused:
+                add(out, {"fused_jacobi_mesh" if mesh else "fused_jacobi": 1}, steps)
+            else:
+                add(out, exchange_launches(config, choice), steps)
+                add(out, {"jacobi_sweep_positions" if mesh else "jacobi_sweep": 1}, steps)
+        elif choice.method == Method.DIRECT26.value:
+            add(out, {"jacobi_sweep": 1}, steps)
+        else:
+            k = temporal_k
+            for c in chunks:
+                add(out, {"jacobi_multistep": c // k if k else 0, "jacobi_sweep": c % k if k else c}, 1)
+        return out
+
+    def probe_launches(config, probes):
+        out = {}
+        for p in probes:
+            add(out, exchange_launches(config, PlanChoice.from_json(p["choice"])), 8)
+        return out
+
+    def show_tuning(label, res):
+        log(f"{label}: {res.candidates} candidates, {res.probes_run} probes, chose "
+            f"{res.choice.label()} ({res.source}, calibration {res.calibration_provenance})")
+        for cost, ch in res.ranked[:6]:
+            log(f"  static {ch.label():40s} {cost.total_s * 1e3:10.4f} ms/step "
+                f"(exchange {cost.exchange_s * 1e3:.4f} ms, dmas {cost.dmas}, "
+                f"wire {cost.wire_bytes} B)")
+        for p in res.probes:
+            check("trimean_s" in p, f"{label}: probe {p['label']} failed: {p.get('error')}")
+            log(f"  probe  {p['label']:40s} {p['trimean_s'] * 1e3:10.4f} ms per exchange, "
+                f"{p['gb_per_s']:.2f} GB/s logical")
+        report[label] = {"choice": res.choice.label(), "source": res.source,
+                         "probes": {p["label"]: p["trimean_s"] for p in res.probes},
+                         "static": {ch.label(): c.total_s for c, ch in res.ranked[:6]}}
+
+    # -- autotune on one device, then the DB hit ------------------------------------
+    chunks = [chunk] * (1 + iters // chunk)  # the warm-up chunk advances the state
+    one_metrics = os.path.join(tmp, "one.jsonl")
+    for attempt in ("tune", "hit"):
+        telemetry.configure(metrics_out=one_metrics, app="chip_smoke")
+        sync(dev)
+        reset()
+        r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, weak=False, device=dev,
+                         autotune=True, plan_db=db_path)
+        sync(dev)
+        got = read()
+        res = r["domain"].autotune_result
+        config = res.config
+        want = loop_launches(config, res.choice, chunks, r["temporal_k"])
+        add(want, exchange_launches(config, res.choice), 40)  # the attribution epilogue
+        if attempt == "tune":
+            show_tuning(f"jacobi3d {n}^3 autotune on one device", res)
+            check(not res.cache_hit and res.probes_run == len(res.probes) > 0,
+                  f"one-device autotune: {res.probes_run} probes, cache hit {res.cache_hit}")
+            add(want, probe_launches(config, res.probes), 1)
+            first = res.choice
+        else:
+            check(res.cache_hit and res.probes_run == 0 and res.choice == first,
+                  f"one-device DB replay: cache hit {res.cache_hit}, {res.probes_run} probes, "
+                  f"{res.choice.label()} (tuned {first.label()})")
+            log(f"jacobi3d {n}^3 autotune again: DB hit, zero probes, {res.choice.label()}")
+        held(f"jacobi3d {n}^3 one device, {attempt} ({res.choice.label()}, "
+             f"k={r['temporal_k']})", got, want)
+        report[f"one device {attempt} iter_trimean_s"] = r["iter_trimean_s"]
+        del r, res
+    telemetry.configure(None)
+
+    # -- autotune over 8 positions of the card ----------------------------------------
+    mesh_metrics = os.path.join(tmp, "mesh.jsonl")
+    telemetry.configure(metrics_out=mesh_metrics, app="chip_smoke")
+    devices = [dev] * 8
+    for attempt in ("tune", "hit"):
+        sync(dev)
+        reset()
+        r = jacobi3d.run(mesh_n, mesh_n, mesh_n, iters=iters, chunk=chunk, weak=False,
+                         devices=devices, method=Method.REMOTE_DMA, autotune=True,
+                         plan_db=db_path)
+        sync(dev)
+        got = read()
+        res = r["domain"].autotune_result
+        config = res.config
+        want = loop_launches(config, res.choice, chunks, 0)
+        add(want, exchange_launches(config, res.choice), 40)
+        if attempt == "tune":
+            show_tuning(f"jacobi3d {mesh_n}^3 autotune over 8 positions", res)
+            check(not res.cache_hit and res.probes_run == len(res.probes) > 0,
+                  f"mesh autotune: {res.probes_run} probes, cache hit {res.cache_hit}")
+            probes = probe_launches(config, res.probes)
+            log(f"  the probes' launches: B6 {probes.get('remote_axis', 0) * on_card}, "
+                f"B7 {probes.get('fused_exchange', 0) * on_card}, "
+                f"B4 {probes.get('self_fill', 0) * on_card}")
+            add(want, probes, 1)
+            mesh_first = res.choice
+            mesh_config = config
+        else:
+            check(res.cache_hit and res.probes_run == 0 and res.choice == mesh_first,
+                  f"mesh DB replay: cache hit {res.cache_hit}, {res.probes_run} probes, "
+                  f"{res.choice.label()}")
+            log(f"jacobi3d {mesh_n}^3 over 8 positions again: DB hit, zero probes")
+        held(f"jacobi3d {mesh_n}^3 over 8 positions, {attempt} ({res.choice.label()})", got,
+             want)
+        report[f"mesh {attempt} iter_trimean_s"] = r["iter_trimean_s"]
+        del r, res
+
+    # -- the hot-swap: plain REMOTE_DMA (B1 + B6) -> fused (B8) between chunks --------
+    plain = PlanChoice((2, 2, 2), Method.REMOTE_DMA.value)
+    fused = PlanChoice((2, 2, 2), Method.REMOTE_DMA.value, kernel_variant="fused")
+    status_path = os.path.join(tmp, "status.json")
+
+    def guarded(swap: bool):
+        dd = DistributedDomain(mesh_n, mesh_n, mesh_n, device=dev, plan=plain)
+        dd.set_devices(devices)
+        dd.set_radius(1)
+        h = dd.add_data("temperature", "float32")
+        dd.realize()
+        for b in dd.get_curr(h):
+            b.fill_(INIT_TEMP)
+        sel = sphere_sel_blocks(dd.spec, dd.mesh)
+        nxt = dd.get_next(h)
+        loops = {}
+        rec = telemetry.get()
+
+        def step_fn(st, k):
+            nonlocal nxt
+            if k not in loops:
+                loops[k] = make_jacobi_loop(dd.halo_exchange, k)
+            c, nxt = loops[k](st["temperature"], nxt, sel)
+            sync(dev)
+            return {"temperature": c}
+
+        def apply_fn(choice, st):
+            nonlocal sel, nxt
+            dd.set_curr(h, st["temperature"])
+            dd.replan(choice)
+            loops.clear()
+            sel = sphere_sel_blocks(dd.spec, dd.mesh)
+            nxt = dd.get_next(h)
+            return {"temperature": dd.get_curr(h)}
+
+        sentinel = LiveSentinel(rec=rec) if swap else None
+        status = StatusWriter(status_path, app="chip_smoke", run=rec.run_id) if swap else None
+        controller = None
+        if swap:
+            controller = ReplanController(
+                lambda: fused, apply_fn, sentinel=sentinel,
+                current_choice=PlanChoice.from_json(dd.plan_meta()["choice"]),
+                config=PlanConfig.make(dd.size, dd.radius, ["float32"], 8, dev.type))
+        chunks_seen = []
+        before = {}
+
+        def on_chunk(st, k, per, done):
+            chunks_seen.append(k)
+            if swap and len(chunks_seen) == 2:
+                sync(dev)
+                before.update(read())
+                reset()
+                # a request as the sentinel's hook would latch it, so that the
+                # check does not wait on a real slowdown
+                controller.request({"reason": "latched after chunk 2", "step": done})
+
+        sync(dev)
+        reset()
+        state, done = run_guarded({"temperature": dd.get_curr(h)}, start=0, iters=swap_iters,
+                                  plan_fn=lambda s: chunk_plan(s, swap_iters, swap_chunk),
+                                  step_fn=step_fn, on_chunk=on_chunk, sentinel=sentinel,
+                                  status=status, replan=controller, app="chip_smoke")
+        sync(dev)
+        after = read()
+        dd.set_curr(h, state["temperature"])
+        dd.set_next(h, nxt)
+        jacobi3d.attribute_exchange(dd, h, swap_chunk, rec, devices)
+        return dd, h, controller, before, after, status
+
+    dd_ref, h_ref, _c, _b, ref_counts, _s = guarded(False)
+    steps_before = 2 * swap_chunk
+    held(f"guarded {mesh_n}^3 over 8 positions, unswapped ({swap_iters} plain steps)",
+         ref_counts, {"remote_axis": 3 * swap_iters, "jacobi_sweep_positions": swap_iters})
+    ref = dd_ref.get_curr_global(h_ref)
+    del dd_ref
+    dd_sw, h_sw, controller, before, after, status = guarded(True)
+    held(f"hot-swap, before the swap ({steps_before} plain steps)", before,
+         {"remote_axis": 3 * steps_before, "jacobi_sweep_positions": steps_before})
+    # the swap's one exchange (B7 under the fused plan) and then B8 a step
+    held(f"hot-swap, after the swap ({swap_iters - steps_before} fused steps)", after,
+         {"fused_exchange": 1, "fused_jacobi_mesh": swap_iters - steps_before})
+    check(controller.swaps == 1 and dd_sw.plan_choice == fused,
+          f"hot-swap: {controller.swaps} swaps, plan {dd_sw.plan_choice}")
+    recs = [json.loads(ln) for ln in open(mesh_metrics) if ln.strip()]
+    applied = [x for x in recs if x.get("name") == "replan.applied"]
+    check(len(applied) == 1 and applied[0]["new"] == fused.label(),
+          f"hot-swap: replan.applied records {applied}")
+    doc = read_status(status_path)
+    errs_s = validate_status(doc)
+    check(doc is not None and not errs_s and doc["step"] == swap_iters,
+          f"hot-swap: status file {doc} invalid: {errs_s}")
+    got = dd_sw.get_curr_global(h_sw)
+    same = torch.equal(torch.from_numpy(got), torch.from_numpy(ref))
+    check(same, "hot-swap: the swapped run's compute region differs from the unswapped run")
+    log(f"hot-swap {plain.label()} -> {fused.label()} after chunk 2 of {swap_iters // swap_chunk}: "
+        f"replan.applied recorded, status file valid (step {doc['step']}), compute region "
+        "torch.equal to the unswapped run")
+    del dd_sw, got, ref
+
+    # -- the card's calibration row, from the 8-position runs -------------------------
+    # plus the plain carrier's probes over more partitions of 8 (B6 on the ring
+    # axes, B4 on the others; the tuned runs above probe the statically best
+    # few, which may all be fused)
+    sync(dev)
+    reset()
+    res = autotune(Dim3(mesh_n, mesh_n, mesh_n), Radius.constant(1), ["float32"],
+                   devices=devices, variants=(None,), top_n=cal_probes, probe_iters=40,
+                   force=True)
+    sync(dev)
+    got = read()
+    show_tuning(f"{mesh_n}^3 over 8 positions, the plain carrier's probes", res)
+    want = {}
+    for p in res.probes:  # 40 timed exchanges and 5 warm-up ones a probe
+        add(want, exchange_launches(res.config, PlanChoice.from_json(p["choice"])), 45)
+    held(f"the plain carrier's {len(res.probes)} probes (B6, B4)", got, want)
+    telemetry.configure(None)
+    out = subprocess.run([sys.executable, "-m", "stencil_tpu_torch.apps.plan_tool", "calibrate",
+                          "--db", db_path, "--platform", dev.type, "--from-metrics",
+                          mesh_metrics], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in out.stdout.splitlines():
+        log(f"  calibrate: {line}")
+    check(out.returncode == 0, f"plan_tool calibrate failed: {out.stderr[-2000:]}")
+    row = plandb.lookup_calibration(plandb.load_db(db_path), dev.type)
+    check(row is not None and row["n"] >= 2 and row["r2"] == row["r2"],
+          f"calibration row {row}")
+    cal = row["calibration"]
+    log(f"fitted {dev.type} row: n={row['n']} r2={row['r2']:.4f} bandwidth fitted "
+        f"{row['bandwidth_fit']}: {json.dumps(cal, sort_keys=True)}")
+    reranked = rank(mesh_config, enumerate_candidates(mesh_config, methods=("remote-dma",)), cal)
+    log(f"re-ranked with the fitted row: static winner {reranked[0][1].label()} "
+        f"({reranked[0][0].total_s * 1e3:.4f} ms/step); measured winner {mesh_first.label()}")
+    report["calibration"] = {k: row[k] for k in ("n", "r2", "bandwidth_fit", "provenance")}
+    report["calibration"]["calibration"] = cal
+    report["reranked_winner"] = reranked[0][1].label()
+
+    # -- astaroth --autotune on one device ------------------------------------------
+    sync(dev)
+    reset()
+    r = astaroth_app.run(iters=ast_iters, nx=ast_n, dtype="float64", device=dev, autotune=True,
+                         plan_db=db_path)
+    sync(dev)
+    got = read()
+    res = r["domain"].autotune_result
+    show_tuning(f"astaroth {ast_n}^3 fp64 autotune on one device", res)
+    check(got["astaroth_substep_resident"] == 3 * (ast_iters + 1) * on_card,
+          f"astaroth autotune: {got['astaroth_substep_resident']} substep launches, expected "
+          f"{3 * (ast_iters + 1) * on_card}")
+    log(f"astaroth {ast_n}^3 fp64 on {r['plan']}: {r['iter_trimean_s'] * 1e3:.4f} ms/iter, "
+        f"launches {dict((k, v) for k, v in got.items() if v)}")
+    report["astaroth iter_trimean_s"] = r["iter_trimean_s"]
+    del r, res
+
+    # -- serving with the live layer and the between-slot swap ------------------------
+    from stencil_tpu_torch.apps import serve as serve_app
+    from stencil_tpu_torch.apps._bench_common import (canonicalize_live_config, finish_live,
+                                                      make_live)
+    from stencil_tpu_torch.campaign import CampaignDriver
+    from stencil_tpu_torch.serve import job_from_doc
+
+    sdir, smetrics, sstatus = (os.path.join(tmp, n) for n in ("srv", "serve.jsonl",
+                                                              "serve-status.json"))
+    inc = os.path.join(sdir, "jobs", "incoming")
+    os.makedirs(inc)
+    for i, (jid, edge, deadline) in enumerate((("s0", serve_edges[0], 1e-3),
+                                                ("s1", serve_edges[0], None),
+                                                ("s2", serve_edges[1], None))):
+        job = {"job": jid, "size": edge, "steps": 6, "workload": "jacobi",
+               "dtype": "float32", "seed": 30 + i}
+        if deadline is not None:
+            job["deadline_ms"] = deadline  # under any p99: SLO pressure
+        with open(os.path.join(inc, f".tmp-{jid}.json"), "w") as f:
+            json.dump(job, f)
+        os.replace(os.path.join(inc, f".tmp-{jid}.json"), os.path.join(inc, f"{jid}.json"))
+    args = serve_app.parser().parse_args([
+        "--serve-dir", sdir, "--slot", "2", "--device", str(dev), "--chunk", "2",
+        "--max-idle-s", "0.5", "--poll-s", "0.02", "--replan", "--plan-db", db_path,
+        "--status-file", sstatus, "--live-sentinel", "--metrics-out", smetrics])
+    canonicalize_live_config(args)
+    rec = telemetry.configure(metrics_out=smetrics, app="serve")
+    sentinel, status = make_live(args, rec, "serve")
+    sched = serve_app.build_scheduler(args, {}, sentinel=sentinel, status=status)
+    out = sched.serve()
+    finish_live(rec, sentinel, status, outcome=out["outcome"])
+    telemetry.configure(None)
+    recs = [json.loads(ln) for ln in open(smetrics) if ln.strip()]
+    applied = [x for x in recs if x["name"] == "replan.applied"]
+    pressure = [x for x in recs if x["name"] == "replan.requested"
+                and x.get("reason") == "slo-pressure"]
+    doc = read_status(sstatus)
+    check(out["retired"] == 3 and pressure and applied and not validate_status(doc)
+          and doc["outcome"] == out["outcome"] and doc["queue"]["retired"] == 3,
+          f"serve with the live layer: {out['retired']} retired, {len(pressure)} pressure "
+          f"requests, {len(applied)} swaps, status {doc}")
+    specs = {}
+    for name in sorted(os.listdir(os.path.join(sdir, "jobs", "claimed"))):
+        with open(os.path.join(sdir, "jobs", "claimed", name)) as f:
+            specs[name[:-5]] = json.load(f)
+    jobs = [job_from_doc(specs[j], i) for i, j in enumerate(sorted(specs))]
+    batch = CampaignDriver(jobs, 2, os.path.join(tmp, "batch"), device=dev, chunk=2).run()
+    for jid in sorted(specs):
+        a, c = out["results"][jid].finals, batch["results"][jid].finals
+        check(sorted(a) == sorted(c) and all(a[k].tobytes() == c[k].tobytes() for k in a),
+              f"serve with the live layer: job {jid} != the batch CampaignDriver's")
+    log(f"serve with --replan --plan-db --status-file --live-sentinel: 3 jobs retired over "
+        f"{out['slots']} slots, SLO pressure swapped {applied[0]['old']} -> {applied[0]['new']} "
+        f"between slots, status file valid, every result byte-equal to the batch driver's")
+    log(f"phase 18 (plan) {time.perf_counter() - t0:.1f} s")
+    return phase_launches, report
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -5141,6 +5602,13 @@ def main() -> int:
     timings.update(t17)
     launches.update(l17)
     errs.update(e17)
+
+    # -- 18. the exchange planner: autotune on one device and over 8 positions, ---
+    #        the DB replay, the hot-swap, the card's calibration row, astaroth
+    l18, plan_report = plan_phase(dev)
+    for name, v in l18.items():
+        timings[name].setdefault("extra", {})["plan_phase_launches"] = v
+    log(f"plan phase report: {json.dumps(plan_report, sort_keys=True, default=str)}")
 
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -21,6 +21,16 @@ the mesh. ``set_quantity_batching``, ``run_exchanges``, ``set_output_prefix``
 and ``write_plan`` (the plan and block-comm matrix files, byte for byte the
 JAX package's) are the JAX package's.
 
+The planner (``plan/``) drives a domain as in the JAX package: ``plan=`` /
+:meth:`set_plan` applies a tuned :class:`~.plan.ir.PlanChoice` at realize()
+as one unit (partition, method, batching, fused or persistent variant; an
+explicit :meth:`set_partition` wins over it, with a warning), ``autotune=``
+/ :meth:`enable_autotune` tunes one at realize() against the plan DB
+``plan_db`` (``plan/autotune.py``, over this domain's device or positions),
+:meth:`plan_meta` is the effective plan that checkpoint manifests record
+(with the wire dtype; a resume under another plan or wire warns), and
+:meth:`replan` hot-swaps the plan of a realized domain, state bit for bit.
+
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
 visible; ``device="cpu"`` runs the plain PyTorch versions of the kernels
@@ -72,7 +82,8 @@ class DistributedDomain:
     order (x fastest): one block a position, or each position's resident
     blocks when the partition has more blocks than positions."""
 
-    def __init__(self, x: int, y: int, z: int, device=None):
+    def __init__(self, x: int, y: int, z: int, device=None, plan=None,
+                 autotune: bool = False, plan_db: Optional[str] = None):
         self.size = Dim3(x, y, z)
         self.radius = Radius.constant(0)
         self.device = resolve_device(device)
@@ -94,6 +105,18 @@ class DistributedDomain:
         self.time_exchange = 0.0
         self.time_swap = 0.0
         self.num_exchanges = 0
+        # exchange planning (plan/): an explicit tuned choice, or tuning at
+        # realize() against the on-disk plan DB
+        self._plan_choice = None
+        self._autotune_opts: Optional[dict] = None
+        self.autotune_result = None
+        if plan is not None:
+            self.set_plan(plan)
+            if autotune:
+                log.warn("explicit plan= suppresses autotune=: the given choice is applied "
+                         "as it is (drop plan= to re-tune)")
+        if autotune:
+            self.enable_autotune(db_path=plan_db)
 
     # -- configuration (pre-realize) ----------------------------------------
     def set_radius(self, r) -> None:
@@ -119,6 +142,36 @@ class DistributedDomain:
             raise NotImplementedError(
                 f"{method}: the port has the axis-composed, direct26 and remote-dma exchanges")
         self._method = method
+
+    def set_plan(self, choice) -> None:
+        """Apply a tuned exchange plan (a ``plan.ir.PlanChoice`` or its JSON
+        dict) at realize(): its partition, method, quantity batching and
+        kernel variant as one unit. ``multistep_k`` rides along for the apps
+        that own that knob (:attr:`plan_choice`). An explicit
+        :meth:`set_partition` wins over the plan's partition, with a warning,
+        and then none of the plan is applied. A hierarchy or a non-identity
+        placement raises at realize() (ROADMAP.md queue A item 5)."""
+        from .plan.ir import PlanChoice
+
+        if isinstance(choice, dict):
+            choice = PlanChoice.from_json(choice)
+        self._plan_choice = choice
+
+    def enable_autotune(self, db_path: Optional[str] = None, probe: bool = True,
+                        top_n: int = 3, probe_iters: int = 4, ks: Sequence[int] = (1,),
+                        force: bool = False) -> None:
+        """Tune the exchange plan at realize() (``plan/autotune.autotune``
+        over this domain's device or mesh positions): the plan DB first (a
+        hit replays with zero probes), else the static ranking's top
+        ``top_n`` timed and the winner stored in ``db_path``. The result is
+        :attr:`autotune_result`."""
+        self._autotune_opts = dict(db_path=db_path, probe=probe, top_n=top_n,
+                                   probe_iters=probe_iters, ks=tuple(ks), force=force)
+
+    @property
+    def plan_choice(self):
+        """The applied tuned choice (None on a plan-less domain)."""
+        return self._plan_choice
 
     def set_quantity_batching(self, enabled: bool) -> None:
         """Quantity-batched exchange (default on): each message or slab of a
@@ -162,9 +215,9 @@ class DistributedDomain:
         owns the policy: only floating quantities narrow, local copies stay
         lossless). LOSSY by design: the exchanged halos round to the wire
         precision. The port takes bfloat16, float16, float8_e4m3fn and, for
-        float64 data, float32; on one device it is a no-op. The checkpoint
-        manifest's ``wire_dtype`` and its restore warning wait for
-        ``plan_meta`` (ROADMAP.md queue A item 4)."""
+        float64 data, float32; on one device it is a no-op. Checkpoint
+        manifests record it (:meth:`plan_meta`), and a resume under another
+        wire warns."""
         self._wire_dtype = wire_name(dtype)
 
     def set_devices(self, devices: Sequence) -> None:
@@ -200,6 +253,7 @@ class DistributedDomain:
         t0 = time.perf_counter()
         with timer.timed("setup.realize"), timer.trace_range("stencil.realize"):
             n = len(self._devices) if self._devices else 1
+            self._apply_plan()
             dim = self._partition_dim or NodePartition(self.size, self.radius, 1, n).dim()
             self.spec = GridSpec(self.size, dim, self.radius)
             if self._devices:
@@ -226,6 +280,43 @@ class DistributedDomain:
                   f"padded {self.spec.padded()} on {self.device}")
         if self._output_prefix:
             self.write_plan(self._output_prefix)
+
+    def _apply_plan(self) -> None:
+        """Tune when asked, then apply the tuned choice as one unit (the
+        JAX package's realize())."""
+        if self._autotune_opts is not None and self._plan_choice is None:
+            if not self._dtypes:
+                log.warn("autotune: no quantities declared; skipping")
+            else:
+                from .plan.autotune import autotune as _plan_autotune
+
+                opts = self._autotune_opts
+                self.autotune_result = _plan_autotune(
+                    self.size, self.radius, self._dtype_names(),
+                    devices=self._devices or [self.device], db_path=opts["db_path"],
+                    probe=opts["probe"], top_n=opts["top_n"], probe_iters=opts["probe_iters"],
+                    ks=opts["ks"], force=opts["force"])
+                self._plan_choice = self.autotune_result.choice
+        ch = self._plan_choice
+        if ch is None:
+            return
+        ch.realizable()
+        if self._partition_dim is not None and self._partition_dim != Dim3.of(ch.partition):
+            # the choice was tuned as a unit: an explicit partition overrides
+            # the whole plan, not pieces of it
+            log.warn(f"explicit partition {self._partition_dim} overrides the tuned plan "
+                     f"{ch.label()}; the plan's method and batching are NOT applied (re-tune "
+                     "with the pinned partition instead)")
+            self._plan_choice = None
+            return
+        self._method = Method(ch.method)
+        self._batch_quantities = ch.batch_quantities
+        # the choice owns the variant both ways: a plain choice clears an
+        # earlier set_fused_exchange(True)
+        self._fused = ch.is_fused
+        self._persistent = ch.is_persistent
+        if self._partition_dim is None:
+            self._partition_dim = Dim3.of(ch.partition)
 
     def _zeros(self, dtype):
         """A zero quantity: the stacked tensor, or a mesh's stacks."""
@@ -364,6 +455,109 @@ class DistributedDomain:
     def exchange_bytes_moved(self) -> int:
         return self._exchange.bytes_moved(self._itemsizes())
 
+    # -- the plan (plan/) -----------------------------------------------------
+    def plan_meta(self) -> dict:
+        """The effective exchange plan of the realized domain, what the
+        checkpoint manifests record (``meta.plan``) so that a resume can warn
+        when a snapshot tuned under one plan or wire is revived under another
+        (the state restores bit for bit either way). ``host_blocks`` is the
+        host of each mesh position: all 0, one card."""
+        from .plan.ir import FUSED_VARIANT, PERSISTENT_VARIANT, PlanChoice, PlanConfig
+
+        if not self._realized:
+            raise RuntimeError("plan_meta requires realize()")
+        n = len(self.mesh) if self.mesh is not None else 1
+        cfg = PlanConfig.make(self.size, self.radius, self._dtype_names(), n, self.device.type)
+        ch = self._plan_choice
+        choice = PlanChoice(
+            partition=(self.spec.dim.x, self.spec.dim.y, self.spec.dim.z),
+            method=self._method.value, batch_quantities=self._batch_quantities,
+            multistep_k=ch.multistep_k if ch is not None else 1,
+            kernel_variant=(ch.kernel_variant if ch is not None
+                            else FUSED_VARIANT if self._fused
+                            else PERSISTENT_VARIANT if self._persistent else None),
+            placement=ch.placement if ch is not None else None)
+        return {"key": cfg.to_json(), "choice": choice.to_json(), "tuned": ch is not None,
+                "wire_dtype": self._wire_dtype, "host_blocks": [0] * n}
+
+    def _warn_plan_mismatch(self, manifest: dict) -> None:
+        """Warn when the snapshot's plan or wire differs from this domain's
+        (the JAX package's rules: absent fields are identity / flat; an
+        untuned partition-only change is the supported elastic resume)."""
+        saved = (manifest.get("meta") or {}).get("plan")
+        if not saved:
+            return  # a snapshot written without a plan: nothing to compare
+        here = self.plan_meta()
+        saved_ch = dict(saved.get("choice") or {})
+        here_ch = dict(here["choice"])
+        for k in ("placement", "hierarchy", "host_placement"):
+            saved_ch.setdefault(k, None)
+            here_ch.setdefault(k, None)
+        saved_hosts = saved.get("host_blocks")
+        if saved_hosts is not None and saved_hosts != here.get("host_blocks"):
+            log.warn(f"ckpt: snapshot was written on host fabric {saved_hosts} but this run "
+                     f"realizes {here.get('host_blocks')} (host index per mesh position) - "
+                     "the elastic restore is bit-exact, but exchange timings differ")
+        if not (saved.get("tuned") or here["tuned"]):
+            for k in ("partition", "placement"):
+                saved_ch.pop(k, None)
+                here_ch.pop(k, None)
+        saved_m, here_m = saved_ch.get("method"), here_ch.get("method")
+        known = {m.value for m in Method}
+        unknown = (f" (method {saved_m!r} is unknown to this build)"
+                   if saved_m is not None and saved_m not in known else "")
+        wire_delta = saved.get("wire_dtype") != here.get("wire_dtype")
+        if saved_ch != here_ch or wire_delta:
+            detail = f" (exchange method {saved_m} -> {here_m})" if saved_m != here_m else ""
+            if wire_delta:
+                detail += (f" (wire_dtype {saved.get('wire_dtype')} -> {here.get('wire_dtype')}: "
+                           "halos exchanged after restore round to the NEW wire precision)")
+            log.warn(f"ckpt: snapshot was written under exchange plan {saved.get('choice')} "
+                     f"but this run uses {here['choice']}{detail}{unknown} - the elastic "
+                     "restore is still bit-exact, but the programs differ; re-tune "
+                     "(--autotune) or pass the snapshot's plan to keep measurements comparable")
+
+    def replan(self, choice) -> None:
+        """Hot-swap the exchange plan of a realized domain, in place: what
+        ``plan/replan.ReplanController`` calls between guarded-loop chunks.
+        ``choice`` (a ``PlanChoice`` or its JSON dict) is applied as a unit,
+        any explicit partition cleared. Every quantity's compute region is
+        gathered to the host, the domain re-realized under the new plan, the
+        regions scattered back and every halo rebuilt by one exchange: the
+        state after the swap equals the state before it, bit for bit. If the
+        new choice fails to realize, the old plan is put back (with the
+        gathered state) and the error re-raised."""
+        from .plan.ir import PlanChoice
+
+        if not self._realized:
+            raise RuntimeError("replan() requires a realized domain (use set_plan before "
+                               "realize() for the initial choice)")
+        if isinstance(choice, dict):
+            choice = PlanChoice.from_json(choice)
+        with timer.timed("setup.replan"), timer.trace_range("stencil.replan"):
+            globs = {idx: unshard_blocks(self._curr[idx], self.spec) for idx in self._curr}
+            old = (self._plan_choice, self._partition_dim, self._method,
+                   self._batch_quantities, self._fused, self._persistent)
+
+            def install(ch):
+                self._plan_choice = ch
+                self._realized = False
+                self._curr, self._next = {}, {}
+                self.realize()
+                for idx, g in globs.items():
+                    self.set_curr_global(DataHandle(idx, self._names[idx], ""), g)
+                if self.radius.max_radius() > 0:
+                    self.exchange()
+
+            self._partition_dim = None
+            try:
+                install(choice)
+            except Exception:
+                (_ch, self._partition_dim, self._method, self._batch_quantities, self._fused,
+                 self._persistent) = old
+                install(old[0])
+                raise
+
     # -- checkpoint / restart (ckpt/) ----------------------------------------
     # One process holds every block, so there is no multi-process branch:
     # per-process shards and a manifest merge come with processes and hosts
@@ -385,10 +579,11 @@ class DistributedDomain:
 
         arrays = {name: self._curr[i] for i, name in enumerate(self._names)}
         dtypes = dict(zip(self._names, self._dtype_names()))
+        extra_meta = {"plan": self.plan_meta()}
         if not asynchronous:
             with timer.timed("ckpt.save"), timer.trace_range("ckpt.save"):
                 write_snapshot(ckpt_dir, step, self.spec, host_snapshot(self.spec, arrays),
-                               dtypes=dtypes, keep=keep)
+                               dtypes=dtypes, keep=keep, extra_meta=extra_meta)
             return
         cp = getattr(self, "_checkpointer", None)
         if cp is None or cp.ckpt_dir != ckpt_dir:
@@ -396,7 +591,7 @@ class DistributedDomain:
                 cp.close()
             cp = self._checkpointer = AsyncCheckpointer(ckpt_dir, keep=keep, dtypes=dtypes)
         cp.keep = keep
-        cp.save(self.spec, arrays, step)
+        cp.save(self.spec, arrays, step, extra_meta=extra_meta)
 
     def flush_checkpoints(self) -> None:
         """Block until the in-flight async snapshot (if any) is durable,
@@ -434,6 +629,9 @@ class DistributedDomain:
             log.info(f"ckpt: no valid compatible snapshot under {ckpt_dir}")
             return None
         snap, manifest = found
+        # restoring under another plan is legal (the restore is elastic);
+        # say so, so that measurements stay attributable
+        self._warn_plan_mismatch(manifest)
         rec = telemetry.get()
         with rec.span("ckpt.restore", phase="ckpt", step=manifest["step"]):
             nbytes = 0

@@ -1,14 +1,114 @@
-"""What the port's apps share around a run (the port's own copy of the
-part of ``stencil_tpu.apps._bench_common`` that the guarded apps use).
-
-The metrics and live-monitoring flags of the JAX module wait for the
-watchdog, the sentinel and the status file (ROADMAP.md queue A item 4).
-"""
+"""What the port's apps share around a run (the port's own copy of
+``stencil_tpu.apps._bench_common``): the metrics flags, the live flags (the
+in-run sentinel and the status file), the resume policy, and
+:func:`time_exchange`, the timed exchange loop the plan probes measure
+with."""
 
 from __future__ import annotations
 
+import json
+import os
+import time
+from typing import Optional, Sequence
+
+import torch
+
 from ..obs import telemetry
 from ..utils import logging as log
+from ..utils.statistics import Statistics
+from ..utils.sync import hard_sync
+
+
+def add_metrics_flags(p) -> None:
+    """``--metrics-out`` (telemetry JSONL) and ``--run-id``."""
+    p.add_argument("--metrics-out", default=os.environ.get("STENCIL_METRICS_OUT", ""),
+                   help="append telemetry records (one JSON object per line; schema "
+                        "stencil_tpu_torch/obs/telemetry.py) to this file")
+    p.add_argument("--run-id", default="", help="telemetry run id (default: generated)")
+
+
+def start_metrics(args, app: str) -> "telemetry.Recorder":
+    """Install the process-default recorder from parsed flags; the run's
+    argv config is its first record, so a metrics file describes itself."""
+    return telemetry.configure(metrics_out=getattr(args, "metrics_out", "") or None, app=app,
+                               run_id=getattr(args, "run_id", "") or None, config=vars(args))
+
+
+def finish_metrics(rec: "telemetry.Recorder") -> None:
+    """Close the recorder's sink (a no-op on a disabled recorder)."""
+    if rec.enabled:
+        rec.close()
+
+
+def add_live_flags(p) -> None:
+    """The live flags of the guarded apps: an in-run anomaly sentinel over
+    the chunk-cycle step latency, and an atomic run-status snapshot."""
+    p.add_argument("--status-file", default=os.environ.get("STENCIL_STATUS_FILE", ""),
+                   help="rewrite an atomic run-status snapshot here every chunk (step, "
+                        "throughput, health counts, anomalies)")
+    p.add_argument("--live-sentinel", action="store_true",
+                   help="in-run anomaly detection: judge each chunk's per-step latency "
+                        "against a streaming trimean+-MAD band (obs/live.py); excursions "
+                        "record anomaly.detected / replan.requested mid-run")
+    p.add_argument("--live-config", default="",
+                   help="sentinel knobs as JSON (inline '{...}' or a file path): "
+                        "{\"*\": {window, min_history, mad_k, rel_tol, abs_tol, direction, "
+                        "clear_after}, \"<key>\": {...}}")
+
+
+def load_live_config(value: str) -> dict:
+    """Parse ``--live-config``: inline JSON or a JSON file path. Raises
+    OSError / ValueError, which the apps turn into an argparse error."""
+    if not value:
+        return {}
+    if value.lstrip()[:1] in ("{", "["):
+        text = value
+    else:
+        with open(value) as f:
+            text = f.read()
+    cfg = json.loads(text)
+    if not isinstance(cfg, dict):
+        raise ValueError("--live-config must be a JSON object")
+    from ..obs.live import validate_config
+
+    errs = validate_config(cfg)
+    if errs:
+        raise ValueError("; ".join(errs))
+    return cfg
+
+
+def canonicalize_live_config(args) -> dict:
+    """Validate ``--live-config`` at parse time and rewrite the flag to
+    canonical inline JSON, so what was validated is what runs."""
+    cfg = load_live_config(getattr(args, "live_config", ""))
+    args.live_config = json.dumps(cfg) if cfg else ""
+    return cfg
+
+
+def make_live(args, rec: "telemetry.Recorder", app: str):
+    """``(sentinel, status writer)`` from parsed flags; None for each flag
+    not given."""
+    sentinel = status = None
+    if getattr(args, "live_sentinel", False):
+        from ..obs.live import LiveSentinel
+
+        sentinel = LiveSentinel(load_live_config(getattr(args, "live_config", "")), rec=rec)
+    if getattr(args, "status_file", ""):
+        from ..obs.status import StatusWriter
+
+        status = StatusWriter(args.status_file, app=app, run=rec.run_id)
+    return sentinel, status
+
+
+def finish_live(rec: "telemetry.Recorder", sentinel, status, outcome: Optional[str] = None,
+                gauge: bool = True) -> None:
+    """The live epilogue: the run's anomaly count as the
+    ``live.anomaly_count`` gauge, and the final snapshot's outcome."""
+    if gauge and sentinel is not None and rec.enabled:
+        rec.gauge("live.anomaly_count", float(sentinel.detected_total), phase="live")
+    if status is not None:
+        status.update(outcome=outcome,
+                      anomalies=sentinel.summary() if sentinel is not None else None)
 
 
 def resume_from_checkpoint(dd, ckpt_dir: str, iters: int) -> int:
@@ -26,3 +126,109 @@ def resume_from_checkpoint(dd, ckpt_dir: str, iters: int) -> int:
     telemetry.get().gauge("ckpt.resumed_from_step", start, phase="ckpt")
     log.info(f"resuming from checkpointed step {start}")
     return start
+
+
+def fabric(devices) -> dict:
+    """What measured a sample: the platform, the mesh positions and, on the
+    card, its name (the attribution records' ``fabric_*`` fields)."""
+    dev = torch.device(devices[0])
+    out = {"platform": dev.type, "positions": len(devices)}
+    if dev.type == "cuda":
+        out["card"] = torch.cuda.get_device_name(dev)
+    return out
+
+
+def time_exchange(size, radius, iters: int, method=None, devices: Optional[Sequence] = None,
+                  quantities: int = 4, dtype: str = "float32", chunk: int = 10,
+                  batch_quantities: bool = True, partition=None, fused: bool = False) -> dict:
+    """Realize a domain of ``quantities`` quantities on ``devices`` (one
+    device, or a mesh of positions; default the current CUDA device) and
+    time ``iters`` exchanges in chunks of ``chunk``, after one warm-up call
+    of every chunk size: on the card by CUDA events around each chunk, on
+    the CPU by the host clock. ``partition``, ``batch_quantities`` and
+    ``fused`` configure the domain as the plan probes need. With the recorder enabled it records each chunk (``exchange.iter``),
+    its attribution against the cost model (``plan.attrib.phase``), the
+    plan's fingerprint and the trimean and GB/s gauges. Returns the stats
+    and the ``domain`` (drop it to free its memory)."""
+    from ..api import DistributedDomain
+    from ..parallel.exchange import Method
+
+    method = method or Method.AXIS_COMPOSED
+    devices = list(devices) if devices is not None else [None]
+    dd = DistributedDomain(size.x, size.y, size.z, device=devices[0])
+    if len(devices) > 1:
+        dd.set_devices(devices)
+    dd.set_radius(radius)
+    dd.set_methods(method)
+    dd.set_quantity_batching(batch_quantities)
+    dd.set_fused_exchange(fused)
+    if partition is not None:
+        dd.set_partition(partition)
+    for i in range(quantities):
+        dd.add_data(f"d{i}", dtype)
+    dd.realize()
+    dev = dd.device
+    rec = telemetry.get()
+    itemsizes = [torch.empty((), dtype=getattr(torch, dtype)).element_size()] * quantities
+    state = dd.curr_state()
+    chunk = max(1, min(chunk, iters))
+    sizes = {chunk} | ({iters % chunk} if iters % chunk else set())
+    loops = {k: dd.halo_exchange.make_loop(k) for k in sizes}
+    tags = {"variant": "fused"} if fused else {}
+    with rec.span("exchange.warmup", phase="compile", method=method.value,
+                  batched=batch_quantities, **tags):
+        for fn in loops.values():
+            state = fn(state)
+        hard_sync(dev)
+    stats = Statistics()
+    samples = []
+    done = 0
+    card = dev.type == "cuda"
+    while done < iters:
+        k = min(chunk, iters - done)
+        if card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state = loops[k](state)
+            end.record()
+            end.synchronize()
+            per = start.elapsed_time(end) / 1e3 / k
+        else:
+            t0 = time.perf_counter()
+            state = loops[k](state)
+            per = (time.perf_counter() - t0) / k
+        stats.insert(per)
+        samples.append(per)
+        rec.emit("span", "exchange.iter", phase="exchange", seconds=per, iters=k,
+                 method=method.value, batched=batch_quantities, **tags)
+        done += k
+    logical = dd.halo_exchange.bytes_logical(itemsizes)
+    if rec.enabled:
+        from ..obs import attribution
+        from ..plan.cost import default_provenance
+        from ..plan.ir import PlanChoice, PlanConfig
+
+        pm = dd.plan_meta()
+        pchoice = PlanChoice.from_json(pm["choice"])
+        pconfig = PlanConfig.from_json(pm["key"])
+        attribution.attribute_and_judge(
+            rec, pconfig, pchoice, samples, phase="exchange.iter",
+            kernel_variant="fused" if fused else None,
+            fabric=fabric(dd.mesh.devices if dd.mesh is not None else [dev]))
+        rec.meta("plan.fingerprint", fingerprint=pchoice.fingerprint(), choice=pchoice.label(),
+                 calibration=default_provenance(pconfig.platform), **tags)
+        rec.gauge("exchange.trimean_s", stats.trimean(), phase="exchange", unit="s",
+                  method=method.value, batched=batch_quantities, **tags)
+        rec.gauge("exchange.gb_per_s", logical / stats.trimean() / 1e9, phase="exchange",
+                  method=method.value, batched=batch_quantities, **tags)
+    return {
+        "domain": dd,
+        "stats": stats,
+        "trimean_s": stats.trimean(),
+        "min_s": stats.min(),
+        "bytes_logical": logical,
+        "bytes_moved": dd.halo_exchange.bytes_moved(itemsizes),
+        "gb_per_s": logical / stats.trimean() / 1e9,
+        "local_size": dd.spec.base,
+        "devices": len(devices),
+    }

@@ -63,9 +63,15 @@ substep kernel serves both (the run's row records the choice).
 path that runs (the plain PyTorch version), and on the card the port has
 none, so it raises rather than fall back.
 
+``--autotune`` (with ``--plan-db PATH``) tunes the 8-field exchange's plan
+at realize() as the JAX app does (``plan/autotune.py``: on one device over
+AXIS_COMPOSED, DIRECT26 and REMOTE_DMA with quantity batching on and off,
+over ``--devices`` positions over REMOTE_DMA's partitions and variants; a
+DB hit replays with zero probes); the step is built on the plan applied.
+
 Not carried over yet (ROADMAP.md): positions on distinct GPUs (a mesh
-names one card), autotuning, ``--trivial`` / ``--random`` placement and
-the ParaView dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
+names one card), ``--trivial`` / ``--random`` placement and the ParaView
+dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
 never calls, as in the JAX package and the reference.
 """
 
@@ -132,14 +138,17 @@ KERNEL_VARIANTS = ("shift", "ring")
 
 
 def make_domain(info, dtype: str = "float64", device=None, partition=None,
-                batch_quantities: bool = True, devices=None, method=Method.AXIS_COMPOSED):
+                batch_quantities: bool = True, devices=None, method=Method.AXIS_COMPOSED,
+                autotune: bool = False, plan_db: Optional[str] = None):
     """A realized domain with the 8 fields at radius 3, initialised as the
     reference does; returns ``(dd, handles)``. Its size is the config's
     extents times ``partition`` (blocks along x, y, z, all resident on one
     GPU; default one block), or with ``devices`` times
     ``decompose_zyx(len(devices))``, one block a position of a mesh over
     them; ``batch_quantities`` as ``DistributedDomain.set_quantity_batching``,
-    ``method`` as ``set_methods``."""
+    ``method`` as ``set_methods``; ``autotune`` (``plan_db``) as
+    ``enable_autotune``, whose tuned plan then owns the method, batching
+    and partition (an explicit ``partition`` still wins, with a warning)."""
     if devices is not None and (device is not None or partition is not None):
         raise ValueError("pass devices= alone, not with device= or partition=")
     devices = list(devices) if devices is not None else None
@@ -158,6 +167,8 @@ def make_domain(info, dtype: str = "float64", device=None, partition=None,
     elif d3.flatten() > 1:
         dd.set_partition(d3)
     dd.set_quantity_batching(batch_quantities)
+    if autotune:
+        dd.enable_autotune(db_path=plan_db)
     handles = {name: dd.add_data(name, dtype) for name in FIELDS}
     dd.realize()
     init_fields(dd, handles, info, dtype)
@@ -202,6 +213,8 @@ def run(
     use_pallas: Optional[bool] = None,
     devices=None,
     method: Method = Method.AXIS_COMPOSED,
+    autotune: bool = False,
+    plan_db: Optional[str] = None,
 ) -> dict:
     """Run ``iters`` iterations (plus one untimed warm-up chunk) and return
     the timing row, the domain and its handles. ``partition`` (blocks
@@ -213,7 +226,9 @@ def run(
     :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when recovery gives
     up. ``batch_quantities``, ``kernel_variant`` ("shift", the default, or
     "ring") and ``use_pallas`` (False: the unfused path, which runs only on
-    the CPU) are the JAX app's (see the module docstring)."""
+    the CPU) are the JAX app's (see the module docstring). ``autotune``
+    and ``plan_db`` tune the exchange plan at realize(); the row's
+    ``plan`` names the choice applied (None untuned)."""
     variant = kernel_variant or "shift"
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel_variant {kernel_variant!r}: valid values are "
@@ -226,7 +241,9 @@ def run(
             "CPU tensors; pass device='cpu' for the unfused path")
     info = load(conf, nx)
     dd, handles = make_domain(info, dtype, device, partition, batch_quantities, devices,
-                              method)
+                              method, autotune=autotune, plan_db=plan_db)
+    if dd.plan_choice is not None:
+        batch_quantities = dd.plan_choice.batch_quantities
     dev = dd.device
     curr = {name: dd.get_curr(handles[name]) for name in FIELDS}
     nxt = {name: dd.get_next(handles[name]) for name in FIELDS}
@@ -384,6 +401,7 @@ def run(
         "dtype": dtype,
         "kernel_variant": variant,
         "batch_quantities": batch_quantities,
+        "plan": dd.plan_choice.label() if dd.plan_choice is not None else None,
         "iter_trimean_s": trimean,
         "exch_trimean_s": exch_time.trimean(),
         "iters_run": iters_run,
@@ -451,6 +469,10 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--kernel-variant", choices=KERNEL_VARIANTS, default=None,
                    help="the substep kernel's sliding-window discipline of the TPU kernel, "
                         "'shift' (default) or 'ring': the same bits, one kernel on the card")
+    p.add_argument("--autotune", action="store_true",
+                   help="choose the exchange plan (partition x method x quantity batching) "
+                        "with the plan/ autotuner; a plan-DB hit replays with zero probes")
+    p.add_argument("--plan-db", type=str, default="", help="on-disk plan DB (JSON) for --autotune")
     add_guard_flags(p)
     args = p.parse_args(argv)
     if args.f32 and args.f64:
@@ -466,7 +488,8 @@ def main(argv: Optional[list] = None) -> int:
                 method=Method.REMOTE_DMA if args.devices else Method.AXIS_COMPOSED,
                 batch_quantities=not args.per_quantity_exchange,
                 kernel_variant=args.kernel_variant,
-                use_pallas=False if args.no_pallas else None, **guard_kwargs(args))
+                use_pallas=False if args.no_pallas else None, autotune=args.autotune,
+                plan_db=args.plan_db or None, **guard_kwargs(args))
     except RecoveryExhausted as e:
         log.error(f"astaroth: {e}")
         return FAULT_RC

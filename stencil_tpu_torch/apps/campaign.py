@@ -29,11 +29,17 @@ app: its sequential baseline is a B=1 slot through the driver).
 On the card the kernels are built (or loaded) before anything is timed:
 the line's ``build_s`` is that set-up, and no mode's step times hold it.
 
+The live layer rides the batched driver, as in the JAX app:
+``--live-sentinel`` (``--live-config``) judges each slot's chunk latencies
+per shape bucket, ``--status-file`` rewrites the lane table and SLO
+verdicts every chunk, and ``--replan`` (with the sentinel and a
+``--plan-db``) re-tunes the bucket's exchange plan statically at the next
+slot boundary when the sentinel requests it and stores it in the DB: the
+slot programs are bucket-keyed, so the swap is the DB install.
+
 The JAX app's ``--use-pallas`` is not ported: here the device decides (the
 card runs the hand-written kernels, the CPU the plain versions). ``--cpu``
-gives way to ``--device``. ``--replan``, ``--plan-db`` and the
-live-observability flags wait for ``plan/`` and ``obs/live`` (ROADMAP.md
-queue A item 4).
+gives way to ``--device``.
 """
 
 from __future__ import annotations
@@ -108,11 +114,12 @@ def build_kernels(device) -> float:
     return time.perf_counter() - t0
 
 
-def run_modes(args, campaign_dir: str) -> dict:
+def run_modes(args, campaign_dir: str, sentinel=None, status=None) -> dict:
     """Run the modes ``args.mode`` names, the kernel build first and on its
     own (``build_s``); returns the summary line's dict, with the driver
     summaries under ``"_sequential"`` and ``"_batched"`` (left out of the
-    printed line)."""
+    printed line). ``sentinel`` and ``status`` ride the batched driver;
+    ``args.replan`` (with a sentinel) swaps plans between its slots."""
     jobs = build_jobs(args)
     rec = telemetry.get()
     out: dict = {
@@ -139,20 +146,30 @@ def run_modes(args, campaign_dir: str) -> dict:
 
     bat = None
     if args.mode in ("batched", "ab"):
+        controller = None
+        if getattr(args, "replan", False) and sentinel is not None:
+            controller = slot_replan(args, sentinel)
+        elif getattr(args, "replan", False):
+            log.warn("campaign: --replan needs --live-sentinel; ignoring")
         drv = CampaignDriver(
             jobs, args.slot, campaign_dir, device=args.device, chunk=args.chunk,
             ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
             health_every=args.health_every, max_abs=args.max_abs or None,
             max_rollbacks=args.max_rollbacks, rollback_backoff=args.rollback_backoff,
             inject=args.inject or None, inject_seed=args.inject_seed,
-            resume=args.resume, cache=CompileCache())
+            resume=args.resume, cache=CompileCache(), sentinel=sentinel, status=status,
+            replan=controller)
         bat = drv.run()
+        if controller is not None:
+            out["replans_applied"] = controller.swaps
+            out["replans_rejected"] = controller.rejected
         out["batched_mcells_per_s"] = round(bat["aggregate_mcells_per_s"], 3)
         out["batched_p50_step_s"] = _round6(bat["p50_step_s"])
         out["batched_p99_step_s"] = _round6(bat["p99_step_s"])
         out["slots"] = bat["slots"]
         out["evicted"] = bat["evicted"]
         out["slo_violations"] = bat["slo_violations"]
+        out["anomalies"] = bat["anomalies"]
         out["cache"] = bat["cache"]
         _finite_gauge(rec, "campaign.batched_mcells_per_s",
                       bat["aggregate_mcells_per_s"], phase="step")
@@ -181,6 +198,33 @@ def run_modes(args, campaign_dir: str) -> dict:
                 log.error(f"campaign: batched results differ from sequential for "
                           f"{mismatches}")
     return out
+
+
+def slot_replan(args, sentinel):
+    """The campaign's between-slot swap: a latched ``replan.requested``
+    re-tunes the bucket's exchange-plan config (statically, with
+    ``force=True``: a slot must not stall on probes) and stores it in
+    ``--plan-db``, where every later plan consumer replays it. The slot
+    programs are bucket-keyed, so the apply is the DB install."""
+    from ..campaign.driver import WORKLOADS
+    from ..geometry import Dim3, Radius
+    from ..plan.replan import ReplanController
+
+    wl = WORKLOADS[args.workload]
+    nq = len(wl.quantity_names(args.dtype))
+    device = resolve_device(args.device)
+
+    def retune_fn():
+        from ..plan.autotune import autotune
+
+        return autotune(Dim3(args.size, args.size, args.size),
+                        Radius.constant(wl.default_radius), [args.dtype] * nq,
+                        devices=[device], db_path=args.plan_db or None, probe=False,
+                        force=True).choice
+
+    controller = ReplanController(retune_fn, lambda choice, st: None, sentinel=sentinel)
+    sentinel.on_replan = controller.request
+    return controller
 
 
 def parser() -> argparse.ArgumentParser:
@@ -233,6 +277,15 @@ def parser() -> argparse.ArgumentParser:
                         "plain versions)")
     p.add_argument("--metrics-out", default="",
                    help="append the run's telemetry records (JSON lines) to this file")
+    p.add_argument("--replan", action="store_true",
+                   help="between-slot plan hot-swap (needs --live-sentinel, batched/ab "
+                        "mode): a latched replan.requested re-tunes the bucket's exchange "
+                        "plan at the next slot boundary and stores it in --plan-db "
+                        "(replan.applied / replan.rejected records)")
+    p.add_argument("--plan-db", default="", help="plan DB the --replan re-tune stores into")
+    from ._bench_common import add_live_flags
+
+    add_live_flags(p)
     return p
 
 
@@ -252,16 +305,42 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     if unknown:
         p.error(f"--deadline-ms names unknown tenant(s) {unknown} "
                 f"(tenants are t0..t{args.tenants - 1})")
+    if args.mode == "sequential":
+        # the live layer rides the guarded batched driver
+        if args.live_sentinel:
+            p.error("--live-sentinel rides the batched driver; --mode sequential runs "
+                    "outside it (use batched or ab)")
+        if args.replan:
+            p.error("--replan swaps plans at slot boundaries of the batched driver; --mode "
+                    "sequential has none (use batched or ab)")
+        if args.status_file:
+            log.warn("campaign: --status-file/STENCIL_STATUS_FILE is ignored in --mode "
+                     "sequential (status snapshots ride the guarded batched driver)")
+            args.status_file = ""
+    if args.replan and not args.plan_db:
+        p.error("--replan stores the re-tuned plan into --plan-db; pass one (the swap "
+                "would otherwise install nothing)")
+    from ._bench_common import canonicalize_live_config
+
+    try:
+        canonicalize_live_config(args)
+    except (OSError, ValueError) as e:
+        p.error(f"bad --live-config: {e}")
     return args
 
 
 def main(argv: Optional[list] = None) -> int:
+    from ._bench_common import finish_live, make_live
+
     args = parse_args(argv)
-    telemetry.configure(metrics_out=args.metrics_out or None, app="campaign",
-                        config=vars(args))
+    rec = telemetry.configure(metrics_out=args.metrics_out or None, app="campaign",
+                              config=vars(args))
+    sentinel, status = make_live(args, rec, "campaign")
     campaign_dir = args.campaign_dir or tempfile.mkdtemp(prefix="campaign-")
-    out = run_modes(args, campaign_dir)
+    out = run_modes(args, campaign_dir, sentinel=sentinel, status=status)
     print(json.dumps({k: v for k, v in out.items() if not k.startswith("_")}, default=str))
+    # gauge=False: the driver's run() recorded live.anomaly_count
+    finish_live(rec, sentinel, status, outcome="done", gauge=False)
     telemetry.get().close()
     return 1 if out.get("parity") == "MISMATCH" else 0
 

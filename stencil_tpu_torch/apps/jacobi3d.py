@@ -54,9 +54,20 @@ bfloat16`` (or ``float8_e4m3fn``, ``float16``) narrows the halo messages
 that cross between mesh positions, in the plain and the fused mesh paths
 (a no-op on one device; the persistent variant over a mesh refuses it).
 
-Not carried over yet (ROADMAP.md queue A): the live sentinel and status
-file, autotuning, replanning and ParaView dumps (which ``--prefix`` also
-names in the JAX app).
+The planner and the live layer, as in the JAX app: ``--autotune`` (with
+``--plan-db PATH``) tunes the exchange plan at realize() over the run's
+device or ``--devices`` positions (``plan/autotune.py``: a DB hit replays
+with zero probes), and the loops are built from the plan applied, so a tuned
+fused choice steps by the fused kernel. ``--metrics-out`` records telemetry,
+ending with the exchange's attribution (``plan.attrib.phase``, phase
+``jacobi.exchange``) and the plan's ``plan.fingerprint``.
+``--live-sentinel`` (``--live-config``) judges each chunk's step latency,
+``--status-file`` rewrites a snapshot every chunk, and ``--replan`` (with the
+sentinel; ``--replan-probe`` probes the re-tune) hot-swaps the plan between
+chunks through ``DistributedDomain.replan`` when the sentinel requests it.
+
+Not carried over yet (ROADMAP.md queue A): the ParaView dumps (which
+``--prefix`` also names in the JAX app).
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from ..api import DistributedDomain
 from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, RecoveryPolicy,
                      chunk_plan, run_guarded)
 from ..geometry import Dim3, prime_factors
+from ..obs import telemetry
 from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks
 from ..parallel.exchange import Method
 from ..utils import logging as log
@@ -122,6 +134,12 @@ def run(
     inject: Optional[str] = None,
     prefix: str = "",
     multistep_rows: Optional[int] = None,
+    autotune: bool = False,
+    plan_db: Optional[str] = None,
+    sentinel=None,
+    status=None,
+    replan: bool = False,
+    replan_probe: bool = False,
 ) -> dict:
     """Run jacobi3d on one device and return the result row (plus the
     realized ``domain`` and the temperature ``handle``).
@@ -157,7 +175,16 @@ def run(
     one. Raises :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when
     recovery gives up. ``prefix`` (``DistributedDomain.set_output_prefix``)
     makes realize() write the domain's plan files under it;
-    ``multistep_rows`` goes to ``make_jacobi_loop``."""
+    ``multistep_rows`` goes to ``make_jacobi_loop``.
+
+    ``autotune`` tunes the exchange plan at realize() (``plan_db`` the plan
+    DB), over ``devices`` or the one device; the row's method and kernel
+    variant are then the tuned plan's. ``sentinel`` (``obs/live.
+    LiveSentinel``) and ``status`` (``obs/status.StatusWriter``) go to the
+    guarded loop; ``replan`` (with a sentinel) hot-swaps the plan when the
+    sentinel requests it, re-tuning through ``plan_db`` statically, or with
+    probes under ``replan_probe``. With the recorder enabled the run ends
+    with the exchange's attribution and the plan's fingerprint."""
     if fused and kernel_variant is None:
         kernel_variant = "fused"
     if kernel_variant == "fused":
@@ -190,9 +217,18 @@ def run(
         dd.set_partition(partition)
     if prefix:
         dd.set_output_prefix(prefix)
+    if autotune:
+        # partition x method x batching x variant from the DB or by probes;
+        # an explicit partition still wins (realize() warns)
+        dd.enable_autotune(db_path=plan_db)
     h = dd.add_data("temperature", dtype)
     dd.realize()
     dev = dd.device
+    if dd.plan_choice is not None:
+        # the tuned plan labels the row, and its variant picks the loops
+        method = dd._method
+        kernel_variant = dd.plan_choice.kernel_variant
+    rec = telemetry.get()
 
     # init: uniform lukewarm field (reference: bin/jacobi3d.cu:18-27)
     init = dd.get_curr(h)
@@ -293,6 +329,38 @@ def run(
             quarantine_snapshot(ckpt_dir, snapshot_name(s),
                                 reason="restored state failed health check")
 
+    # the mid-run hot-swap: the sentinel's replan.requested latches the
+    # controller, which re-tunes and installs the new plan between chunks
+    # through DistributedDomain.replan (bit for bit); the loops are rebuilt
+    # from the plan installed
+    controller = None
+    if replan and sentinel is None:
+        log.warn("--replan needs --live-sentinel (replan.requested is the trigger); ignoring")
+    elif replan:
+        from ..plan.ir import PlanChoice, PlanConfig
+        from ..plan.replan import ReplanController
+
+        def retune_fn():
+            from ..plan.autotune import autotune as _plan_autotune
+
+            return _plan_autotune(dd.size, dd.radius, [dtype], devices=devices or [dev],
+                                  db_path=plan_db, probe=replan_probe, force=True).choice
+
+        def apply_replan(choice, st):
+            nonlocal sel, nxt
+            dd.set_curr(h, st["temperature"])
+            dd.replan(choice)
+            loops.clear()  # the old plan's loops are stale
+            sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
+            nxt = dd.get_next(h)
+            return {"temperature": dd.get_curr(h)}
+
+        controller = ReplanController(
+            retune_fn, apply_replan, sentinel=sentinel,
+            current_choice=PlanChoice.from_json(dd.plan_meta()["choice"]),
+            config=PlanConfig.make(dd.size, dd.radius, [dtype], n, dev.type))
+        sentinel.on_replan = controller.request
+
     loop_t0 = time.perf_counter()
     state, done = run_guarded(
         {"temperature": curr}, start=start, iters=iters, plan_fn=plan_fn, step_fn=step_fn,
@@ -300,11 +368,16 @@ def run(
         policy=RecoveryPolicy(max_rollbacks=max_rollbacks, backoff_s=rollback_backoff),
         save_fn=save_fn, ckpt_every=ckpt_every, restore_fn=restore_fn,
         quarantine_fn=quarantine_fn, flush_fn=flush_fn, on_chunk=on_chunk, spec=dd.spec,
-        ckpt_dir=ckpt_dir, app="jacobi3d")
+        ckpt_dir=ckpt_dir, app="jacobi3d", sentinel=sentinel, status=status,
+        replan=controller)
     # the whole loop's wall clock, including what the per-chunk times leave
     # out: health checks, saves, injected faults, backoff and rollbacks
     loop_wall_s = time.perf_counter() - loop_t0
     curr = state["temperature"]
+    if controller is not None and controller.swaps:
+        # the row describes the plan that finished the run
+        method = dd._method
+        kernel_variant = dd.plan_choice.kernel_variant
     if ckpt_dir:
         if done > start or start == 0:
             # the final state is always durable (step == iters)
@@ -314,6 +387,8 @@ def run(
         dd.finish_checkpoints()
     dd.set_curr(h, curr)
     dd.set_next(h, nxt)
+    if rec.enabled:
+        attribute_exchange(dd, h, chunk, rec, devices or [dev])
 
     if iter_time.count() == 0:
         log.info(f"resume found step {start} >= iters {iters}; no timed work")
@@ -343,6 +418,46 @@ def run(
         "domain": dd,
         "handle": h,
     }
+
+
+def attribute_exchange(dd, h, chunk: int, rec, devices) -> None:
+    """The run's epilogue under a recorder: time the exchange alone on the
+    final state (3 samples of up to 10 back-to-back exchanges; an exchange
+    leaves exchanged data as it is), record each against the cost model's
+    prediction for the applied plan (``plan.attrib.phase``, phase
+    ``jacobi.exchange``, priced by the tuned calibration when there is one)
+    and the plan's ``plan.fingerprint``."""
+    from ..obs import attribution
+    from ..plan.ir import PlanChoice, PlanConfig
+    from ._bench_common import fabric
+
+    state = {h.idx: dd.get_curr(h)}
+    n_ex = max(1, min(chunk, 10))
+    exch_loop = dd.halo_exchange.make_loop(n_ex)
+    with rec.span("jacobi.exchange_warmup", phase="compile"):
+        exch_loop(state)
+        hard_sync(dd.device)
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        exch_loop(state)
+        hard_sync(dd.device)
+        per = (time.perf_counter() - t0) / n_ex
+        samples.append(per)
+        rec.emit("span", "jacobi.exchange", phase="exchange", seconds=per, iters=n_ex)
+    pm = dd.plan_meta()
+    choice = PlanChoice.from_json(pm["choice"])
+    config = PlanConfig.from_json(pm["key"])
+    tuned = dd.autotune_result
+    attribution.attribute_and_judge(
+        rec, config, choice, samples, phase="jacobi.exchange",
+        calibration=tuned.calibration if tuned is not None else None,
+        kernel_variant=choice.kernel_variant, fabric=fabric(devices))
+    from ..plan.cost import default_provenance
+
+    rec.meta("plan.fingerprint", fingerprint=choice.fingerprint(), choice=choice.label(),
+             calibration=(tuned.calibration_provenance if tuned is not None
+                          else default_provenance(config.platform)))
 
 
 def _copy(state):
@@ -438,13 +553,37 @@ def main(argv: Optional[list] = None) -> int:
                    help="the multistep's strip height: on the card its tile height, so only "
                         "a height the kernel is built for at the chosen depth is accepted "
                         "(a warning when the multistep does not engage)")
+    p.add_argument("--autotune", action="store_true",
+                   help="choose the exchange plan (partition x method x quantity batching x "
+                        "kernel variant) with the plan/ autotuner: a plan-DB hit replays with "
+                        "zero probes, a miss probes the top static candidates")
+    p.add_argument("--plan-db", type=str, default="",
+                   help="on-disk plan DB (JSON) for --autotune and --replan")
+    p.add_argument("--replan", action="store_true",
+                   help="mid-run plan hot-swap (needs --live-sentinel): on replan.requested "
+                        "the plan is re-tuned and installed between chunks "
+                        "(replan.applied / replan.rejected records)")
+    p.add_argument("--replan-probe", action="store_true",
+                   help="with --replan, refine the re-tune with measured probes "
+                        "(default: static ranking only)")
     add_guard_flags(p)
+    from ._bench_common import (add_live_flags, add_metrics_flags, canonicalize_live_config,
+                                finish_live, finish_metrics, make_live, start_metrics)
+
+    add_live_flags(p)
+    add_metrics_flags(p)
     args = p.parse_args(argv)
+    try:
+        canonicalize_live_config(args)
+    except (OSError, ValueError) as e:
+        p.error(f"bad --live-config: {e}")
     if args.fused and args.kernel_variant == "persistent":
         p.error("--fused conflicts with --kernel-variant persistent "
                 "(mutually exclusive kernel variants)")
     if args.device and args.devices:
         p.error("--device conflicts with --devices")
+    rec = start_metrics(args, "jacobi3d")
+    sentinel, status = make_live(args, rec, "jacobi3d")
     try:
         r = run(args.x, args.y, args.z, iters=args.iters, overlap=not args.no_overlap,
                 method=Method(args.method) if args.method
@@ -453,12 +592,18 @@ def main(argv: Optional[list] = None) -> int:
                 fused=args.fused, kernel_variant=args.kernel_variant,
                 devices=args.devices.split(",") if args.devices else None,
                 wire_dtype=args.wire_dtype or None, prefix=args.prefix,
-                multistep_rows=args.multistep_rows, **guard_kwargs(args))
+                multistep_rows=args.multistep_rows, autotune=args.autotune,
+                plan_db=args.plan_db or None, sentinel=sentinel, status=status,
+                replan=args.replan, replan_probe=args.replan_probe, **guard_kwargs(args))
     except RecoveryExhausted as e:
         # the evidence bundle is on disk; the distinct rc tells a revival
         # ladder "numerics broken" from a crash
         log.error(f"jacobi3d: {e}")
+        finish_live(rec, sentinel, status, outcome="fault")
+        finish_metrics(rec)
         return FAULT_RC
+    finish_live(rec, sentinel, status, outcome="done")
+    finish_metrics(rec)
     print(csv_row(r))
     log.info(f"mcells/s = {r['mcells_per_s']:.1f} ({r['mcells_per_s_per_dev']:.1f}/device) "
              f"on {r['device']}, kernel variant {r['kernel_variant']}, k={r['temporal_k']}")

@@ -31,10 +31,12 @@ Lifecycle:
   drained.
 
 ``--device`` takes the place of the JAX app's ``--cpu N``: a slot lives on
-one device. ``--replan``, ``--plan-db`` and the live-observability flags
-(``--status-file``, ``--live-sentinel``, ``--live-config``) raise until
-``plan/replan``, ``obs/status`` and ``obs/live`` are ported (ROADMAP.md
-queue A item 4).
+one device. The live flags are the JAX app's: ``--live-sentinel``
+(``--live-config``) watches the slots' chunk latencies, ``--status-file``
+rewrites a snapshot with the ``queue`` section every chunk, and
+``--replan`` (with ``--plan-db``) re-tunes the last slot's bucket at the
+next slot boundary when the sentinel or SLO pressure (a deadline under the
+bucket's online p99) requests it, storing the plan in the DB.
 
 Usage: python -m stencil_tpu_torch.apps.serve --serve-dir /srv/stencil \\
            --slot 4 --quota 2 --max-idle-s 30 --metrics-out serve.jsonl
@@ -73,10 +75,10 @@ def parse_weights(spec: str) -> dict:
     return weights
 
 
-def build_scheduler(args, weights: dict):
+def build_scheduler(args, weights: dict, sentinel=None, status=None):
     from ..serve import ServeScheduler
 
-    return ServeScheduler(
+    sched = ServeScheduler(
         args.serve_dir, args.slot,
         quota=args.quota, admission_ledger=args.admission_ledger or None,
         poll_s=args.poll_s, max_idle_s=args.max_idle_s, max_wall_s=args.max_wall_s,
@@ -87,7 +89,35 @@ def build_scheduler(args, weights: dict):
         device=args.device, chunk=args.chunk,
         ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
         health_every=args.health_every, max_abs=args.max_abs or None,
-        max_rollbacks=args.max_rollbacks, rollback_backoff=args.rollback_backoff)
+        max_rollbacks=args.max_rollbacks, rollback_backoff=args.rollback_backoff,
+        sentinel=sentinel, status=status)
+    if args.replan:
+        # the campaign's between-slot swap, with serving's extra trigger:
+        # SLO pressure latches the controller as a sentinel anomaly does; the
+        # re-tune targets the last slot's bucket, statically (a slot must not
+        # stall on probes), and is stored in --plan-db
+        from ..campaign.driver import WORKLOADS
+        from ..geometry import Dim3, Radius
+        from ..plan.replan import ReplanController
+
+        def retune_fn():
+            from ..plan.autotune import autotune
+
+            bucket = sched._last_bucket
+            if bucket is None:
+                raise ValueError("no slot has run yet; nothing to retune")
+            (size, dtype, workload) = bucket
+            wl = WORKLOADS[workload]
+            nq = len(wl.quantity_names(dtype))
+            return autotune(Dim3(size[0], size[1], size[2]), Radius.constant(wl.default_radius),
+                            [dtype] * nq, devices=[sched.device], db_path=args.plan_db or None,
+                            probe=False, force=True).choice
+
+        controller = ReplanController(retune_fn, lambda choice, st: None, sentinel=sentinel)
+        if sentinel is not None:
+            sentinel.on_replan = controller.request
+        sched.replan = controller
+    return sched
 
 
 def install_kill_hook(sched) -> None:
@@ -164,42 +194,43 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--max-rollbacks", type=int, default=2)
     p.add_argument("--rollback-backoff", type=float, default=0.05)
     p.add_argument("--replan", action="store_true",
-                   help="between-slot plan hot-swap (not ported yet: raises)")
-    p.add_argument("--plan-db", default="",
-                   help="plan DB the --replan re-tune persists into (not ported yet: raises)")
+                   help="between-slot plan hot-swap: SLO pressure (deadline-at-risk vs the "
+                        "bucket's online p99) or a sentinel anomaly latches a re-tune of the "
+                        "last slot's bucket, stored in --plan-db")
+    p.add_argument("--plan-db", default="", help="plan DB the --replan re-tune stores into")
     p.add_argument("--device", type=str, default=None,
                    help="torch device of the slots (default: the current CUDA device; 'cpu' "
                         "runs the plain versions)")
     p.add_argument("--metrics-out", default="",
                    help="append the run's telemetry records (JSON lines) to this file")
     p.add_argument("--run-id", default="", help="telemetry run id (default: generated)")
-    p.add_argument("--status-file", default="",
-                   help="atomic run-status snapshot (not ported yet: raises)")
-    p.add_argument("--live-sentinel", action="store_true",
-                   help="in-run anomaly detection (not ported yet: raises)")
-    p.add_argument("--live-config", default="",
-                   help="sentinel knobs as JSON (not ported yet: raises)")
+    from ._bench_common import add_live_flags
+
+    add_live_flags(p)
     return p
 
 
 def main(argv: Optional[list] = None) -> int:
     p = parser()
+    from ._bench_common import canonicalize_live_config, finish_live, make_live
+
     args = p.parse_args(argv)
-    unported = [f for f, on in (("--replan", args.replan), ("--plan-db", args.plan_db),
-                                ("--status-file", args.status_file),
-                                ("--live-sentinel", args.live_sentinel),
-                                ("--live-config", args.live_config)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: the plan hot-swap, status file and live sentinel are not "
-            "ported yet (ROADMAP.md queue A item 4)")
+    if args.replan and not args.plan_db:
+        # the swap's apply is the DB install: without a DB it installs nothing
+        p.error("--replan stores the re-tuned plan into --plan-db; pass one (the swap would "
+                "otherwise install nothing)")
+    try:
+        canonicalize_live_config(args)
+    except (OSError, ValueError) as e:
+        p.error(f"bad --live-config: {e}")
     try:
         weights = parse_weights(args.fair_weights)
     except ValueError as e:
         p.error(str(e))
     rec = telemetry.configure(metrics_out=args.metrics_out or None, app="serve",
                               run_id=args.run_id or None, config=vars(args))
-    sched = build_scheduler(args, weights)
+    sentinel, status = make_live(args, rec, "serve")
+    sched = build_scheduler(args, weights, sentinel=sentinel, status=status)
     install_kill_hook(sched)
     # SIGTERM = drain: stop claiming, park lanes at the next segment
     # boundary, persist the queue, exit 0
@@ -212,6 +243,7 @@ def main(argv: Optional[list] = None) -> int:
     if isinstance(out.get("tenants_per_hour"), float):
         out["tenants_per_hour"] = round(out["tenants_per_hour"], 3)
     print(json.dumps(out, default=str))
+    finish_live(rec, sentinel, status, outcome=summary["outcome"])
     rec.close()
     return 0
 

@@ -132,10 +132,15 @@ def make_astaroth_step(ex, info: AcMeshInfo, dt: float = 1e-8, overlap: bool = T
     JAX package's fused path on one block has no shell that depends on
     another block's halo), and an uneven partition, resident or over a mesh,
     takes the serialized order (the cells of the JAX package's
-    dynamic-offset shells)."""
+    dynamic-offset shells), as does a partition whose blocks have no
+    interior (an extent within the radius of both sides, which a tuned plan
+    may pick); the two orders give the same bits."""
     spec = ex.spec
     require_supported(spec, getattr(torch, dtype) if isinstance(dtype, str) else dtype)
-    hoisted = overlap and spec.is_uniform() and spec.num_blocks() > 1
+    r, b = spec.radius, spec.base
+    interior = all(n > lo + hi for n, lo, hi in ((b.x, r.x(-1), r.x(1)), (b.y, r.y(-1), r.y(1)),
+                                                 (b.z, r.z(-1), r.z(1))))
+    hoisted = overlap and spec.is_uniform() and spec.num_blocks() > 1 and interior
     return _make_loop(ex, info, dt, iters, "swap" if swap_per_substep
                       else "hoisted" if hoisted else "serial")
 

@@ -47,10 +47,13 @@ baseline (aggregate Mcells/s and p50/p99 per-step latency).
 
 Entry points run on the current CUDA device unless ``device="cpu"`` is
 passed. ``batch_devices`` is not carried over (a slot lives on one device).
-The live sentinel, status file and plan hot-swap wait for ``obs/live``,
-``obs/status`` and ``plan/replan`` (ROADMAP.md queue A item 4): the
-driver's ``sentinel``, ``status`` and ``replan`` stay None, so a serving
-layer's guards read as in the JAX package.
+The live layer rides the guarded slot loop as in the JAX package: a
+``sentinel`` (``obs/live.LiveSentinel``) judges each chunk's per-step
+latency under a per-bucket key (``step.latency_s[XxYxZ,dtype,workload]``),
+a ``status`` writer (``obs/status.StatusWriter``) gets the per-lane tenant
+table and the SLO verdicts every chunk, and a ``replan`` controller
+(``plan/replan.ReplanController``) swaps between slots: a slot's programs
+are bucket-keyed, so the slot boundary is the campaign's safe point.
 """
 
 from __future__ import annotations
@@ -310,7 +313,10 @@ class CampaignDriver:
         inject_seed: int = 0,
         resume: bool = False,
         cache: Optional[CompileCache] = None,
+        sentinel=None,
+        status=None,
         slo_min_samples: int = 3,
+        replan=None,
     ):
         if slot_size < 1:
             raise ValueError(f"slot_size must be >= 1, got {slot_size}")
@@ -335,12 +341,12 @@ class CampaignDriver:
         self.inject_seed = inject_seed
         self.resume = bool(resume)
         self.cache = cache if cache is not None else CompileCache()
-        # the live sentinel, status writer and plan hot-swap (ROADMAP.md
-        # queue A item 4): None until obs/live, obs/status and plan/replan
-        # are ported
-        self.sentinel = None
-        self.status = None
-        self.replan = None
+        # the live layer: the sentinel watches per-bucket chunk latencies,
+        # the status writer gets the lane table each chunk, and the plan
+        # hot-swap runs at slot boundaries
+        self.sentinel = sentinel
+        self.status = status
+        self.replan = replan
         # a tenant's online p99 is judged against its deadline only once this
         # many latency samples exist (one cold chunk must not condemn a tenant)
         self.slo_min_samples = max(1, int(slo_min_samples))
@@ -468,6 +474,10 @@ class CampaignDriver:
             cell_steps += stats["cell_steps"]
             wall += stats["wall_s"]
             slot_idx += 1
+            if self.replan is not None and self.replan.pending:
+                # between slots: the swap the guarded loop performs between
+                # chunks, at the campaign's own safe boundary
+                self.replan.maybe_swap(None, slot_idx)
         agg = cell_steps / wall / 1e6 if wall > 0 else 0.0
         summary = {
             "results": results,
@@ -482,8 +492,11 @@ class CampaignDriver:
             "evicted": sorted(t for t, r in results.items()
                               if r.outcome == "fault"),
             "slo_violations": sorted(self._slo_violated),
+            "anomalies": self.sentinel.detected_total if self.sentinel is not None else 0,
             "cache": self.cache.stats(),
         }
+        if self.sentinel is not None:
+            rec.gauge("live.anomaly_count", float(self.sentinel.detected_total), phase="live")
         rec.meta("campaign.summary", slots=slot_idx,
                  tenants=len(self.jobs), evicted=len(summary["evicted"]),
                  slo_violations=len(summary["slo_violations"]),
@@ -652,6 +665,21 @@ class CampaignDriver:
                              f"online p99 {p99_ms:.3g} ms > deadline "
                              f"{job.deadline_ms:g} ms")
 
+        def lane_table(done_now: int):
+            """The status file's ``lanes`` section."""
+            rows = []
+            for l in lanes:
+                job = l.tenant
+                p50_ms, p99_ms = lane_stats(l)
+                rows.append({
+                    "lane": l.idx, "tenant": job.tid if job else None,
+                    "step": int(l.tenant_step(done_now)) if job else None,
+                    "steps": job.steps if job else None, "p50_ms": p50_ms, "p99_ms": p99_ms,
+                    "deadline_ms": job.deadline_ms if job else None,
+                    "slo": (None if job is None or job.deadline_ms is None
+                            else "violated" if job.tid in self._slo_violated else "ok")})
+            return rows
+
         def on_chunk(st, k, per, done_now):
             nonlocal cell_steps, wall
             n_active = sum(1 for l in lanes if l.tenant is not None)
@@ -669,6 +697,11 @@ class CampaignDriver:
             self._refresh_queue(queue)
             self._observe_chunk(bucket, per, done_now)
             check_slo(done_now)
+            if self.status is not None:
+                # staged: run_guarded's update right after flushes it in the
+                # same atomic write
+                self.status.set(lanes=lane_table(done_now),
+                                slo={"violations": sorted(self._slo_violated)})
 
         def save_fn(s, st):
             nonlocal stash
@@ -717,7 +750,10 @@ class CampaignDriver:
                     save_fn=save_fn if self.ckpt_every > 0 else None,
                     ckpt_every=self.ckpt_every, restore_fn=restore_fn,
                     on_chunk=on_chunk, spec=None, ckpt_dir=self.campaign_dir,
-                    evidence_dir=self.campaign_dir, app="campaign")
+                    evidence_dir=self.campaign_dir, app="campaign", sentinel=self.sentinel,
+                    # per bucket: two shapes run at different cadences
+                    sentinel_key=f"step.latency_s[{x}x{y}x{z},{dtype},{workload}]",
+                    status=self.status)
             except RecoveryExhausted as e:
                 curr = self._evict(e, spec, lanes, stash, backfill, results, slot_idx, names)
                 slot_step = stash[0]

@@ -21,6 +21,12 @@ The port's kernels update their buffers in place, where JAX arrays are
 immutable: a restore hook must hand back state that the next chunks may
 overwrite, and keep its own copy (the campaign driver clones its stash on
 the device).
+
+Beside recovery the loop carries the live layer, as in the JAX package: a
+sentinel (``obs/live.LiveSentinel``) judges each chunk's per-step latency,
+a status writer (``obs/status.StatusWriter``) rewrites its snapshot every
+chunk, and a hot-swap controller (``plan/replan.ReplanController``) swaps
+the exchange plan between chunks when a request is latched.
 """
 
 from __future__ import annotations
@@ -136,8 +142,10 @@ def run_guarded(
     evidence_dir: Optional[str] = None,
     app: Optional[str] = None,
     sentinel=None,
+    sentinel_key: str = "step.latency_s",
     status=None,
     replan=None,
+    clock: Callable[[], float] = time.perf_counter,
 ) -> Tuple[Dict, int]:
     """Drive the step loop from ``start`` to ``iters``; returns the final
     ``(state, step)``.
@@ -157,14 +165,21 @@ def run_guarded(
       injections) so "newest snapshot" never races the writer thread.
     - ``on_chunk(state, k, per_iter_s, step)`` observes each timed chunk
       (statistics, telemetry, dumps); may return a replacement state.
-    - ``sentinel``, ``status`` and ``replan`` (the JAX package's live
-      anomaly sentinel, status file and plan hot-swap) are not ported yet:
-      they take None only (ROADMAP.md queue A item 4).
+    - ``sentinel`` (``obs/live.LiveSentinel``) observes each chunk's
+      whole-cycle per-step latency under ``sentinel_key``: step, injection,
+      health check and save, wider than the step alone, so an injected
+      slowdown or a slow save shows; a detection records
+      ``anomaly.detected`` / ``replan.requested`` mid-run.
+    - ``status`` (``obs/status.StatusWriter``) gets an atomic snapshot per
+      chunk: step, latency, health counts, anomaly state.
+    - ``replan`` (``plan/replan.ReplanController``): when a request is
+      latched (the sentinel's ``on_replan`` hook, or the caller), the swap
+      runs after the chunk, between chunks, and may return a re-sharded
+      state, which replaces ``state``; a rejected swap continues on the
+      old plan.
+    - ``clock`` is the engine's timer (``time.perf_counter``); a test passes
+      a stand-in to drive the sentinel without wall-clock time.
     """
-    if sentinel is not None or status is not None or replan is not None:
-        raise NotImplementedError(
-            "run_guarded: the live sentinel, the status file and the plan hot-swap "
-            "are not ported yet (ROADMAP.md queue A item 4); pass None")
     rec = telemetry.get()
     policy = policy or RecoveryPolicy()
     done = int(start)
@@ -176,6 +191,24 @@ def run_guarded(
                      "them?)")
     rollbacks: Dict[int, int] = {}
     fault_log: List[dict] = []
+    health_checks = 0
+    # a campaign calls run_guarded once per slot segment on one status
+    # writer: the health section accumulates on what the snapshot shows
+    base_health = {"checks": 0, "faults": 0, "rollbacks": 0}
+    if status is not None and isinstance(status.doc.get("health"), dict):
+        prev_h = status.doc["health"]
+        base_health = {k: int(prev_h.get(k, 0)) for k in base_health}
+
+    def _status_update(step: int, per: Optional[float] = None) -> None:
+        if status is None:
+            return
+        status.update(
+            step=int(step), iters=int(iters), per_step_s=per,
+            steps_per_s=(1.0 / per if per and per > 0 else None),
+            health={"checks": base_health["checks"] + health_checks,
+                    "faults": base_health["faults"] + len(fault_log),
+                    "rollbacks": base_health["rollbacks"] + sum(rollbacks.values())},
+            anomalies=sentinel.summary() if sentinel is not None else None)
 
     def _abort(fault: NumericalFault, reason: str) -> None:
         payload = {
@@ -204,9 +237,9 @@ def run_guarded(
         try:
             for k in plan:
                 prev = done
-                t0 = time.perf_counter()
+                t0 = clock()
                 state = step_fn(state, k)
-                per = (time.perf_counter() - t0) / k
+                per = (clock() - t0) / k
                 done = prev + k
                 if injector is not None:
                     state = injector.fire_due(state, prev, done, spec=spec,
@@ -219,10 +252,26 @@ def run_guarded(
                     # a due save forces a check even off the health cadence:
                     # a poisoned state must never become a rollback target
                     guard.check(state, step=done)
+                    health_checks += 1
                 if save_due:
                     save_fn(done, state)
+                cycle = per
+                if sentinel is not None:
+                    # the whole chunk cycle per step: an injected slowdown
+                    # lands here, not in `per`
+                    cycle = (clock() - t0) / k
+                    sentinel.observe(sentinel_key, cycle, step=done, unit="s")
                 if on_chunk is not None:
                     state = on_chunk(state, k, per, done) or state
+                # after on_chunk, so a section it stages rides the same write
+                _status_update(done, cycle)
+                if replan is not None and replan.pending:
+                    # the chunk is done and its status durable: the one safe
+                    # point to swap the plan (the remaining chunk sizes are
+                    # step counts, valid under any plan)
+                    swapped = replan.maybe_swap(state, done)
+                    if swapped is not None:
+                        state = swapped
             return state, done
         except NumericalFault as f:
             n = rollbacks.get(f.step, 0) + 1
@@ -279,3 +328,4 @@ def run_guarded(
             log.warn(f"fault: rolled back from step {done} to checkpointed "
                      f"step {rstep}")
             done = rstep
+            _status_update(done)  # the snapshot shows the rollback

@@ -1,0 +1,242 @@
+"""Map measured exchange time back onto the plan IR's prediction.
+
+The port's own copy of ``stencil_tpu.obs.attribution``: the measure step of
+the predict -> measure -> refit loop. Each timed exchange phase (a probe's
+``exchange.iter`` chunks, jacobi3d's ``jacobi.exchange`` epilogue) becomes
+one ``plan.attrib.phase`` meta record pairing the installed calibration's
+prediction with the measured seconds at the same (method, collectives,
+wire_bytes) point:
+
+    plan.attrib.phase  phase= method= kernel_variant=
+                       predicted_s= measured_s= residual=
+                       collectives= wire_bytes=
+
+These records are what ``plan/calibrate.fit`` (and ``plan_tool
+calibrate``) fits. :func:`judge_drift` is the band check: the trimean of
+the measured samples +- max(k * MAD, rtol * |center|, atol), with the
+prediction as the judged value.
+
+For remote-dma plans ``collectives`` carries the copy count the cost model
+prices: on the CPU the plan IR's DMA count (``ExchangePlan.
+dmas_per_exchange``), as in the JAX package; on the card the kernel
+launches the port's exchange issues (``ExchangePlan.carrier_launches``: B6's
+axis phases, B7's one launch, B4's fills, the counts ``chip_smoke.py``
+reads), with ``wire_bytes`` every byte they move (crossing and local). That
+is the count whose per-copy constant the ``"cuda"`` fit recovers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+from ..plan import cost as plan_cost
+from ..plan.ir import REMOTE_DMA, PlanChoice, PlanConfig
+from .ledger import mad, trimean
+
+ATTRIB_NAME = "plan.attrib.phase"
+DRIFT_NAME = "calibration.drift"
+
+# the JAX package's band defaults (its perf_tool's evaluate_gate)
+DEFAULT_MAD_K = 3.0
+DEFAULT_REL_TOL = 0.05
+DEFAULT_ABS_TOL = 0.0
+
+
+@dataclass(frozen=True)
+class PhasePrediction:
+    """The cost model's view of one exchange phase under a calibration."""
+
+    method: str
+    predicted_s: float
+    collectives: int     # DMA count for remote-dma (per-copy pricing)
+    wire_bytes: int
+    provenance: str = "modeled(default)"
+
+
+def predict_exchange(config: PlanConfig, choice: PlanChoice,
+                     calibration: Optional[dict] = None,
+                     ) -> Optional[PhasePrediction]:
+    """Price one step's exchange for ``choice`` under ``calibration``
+    (None = DEFAULT_CALIBRATION) — None when the choice is infeasible
+    for the config."""
+    c = plan_cost.score(config, choice, calibration)
+    if c is None:
+        return None
+    prov = plan_cost.default_provenance(config.platform)
+    if calibration:
+        prov = str(calibration.get("provenance", "override"))
+    n = c.dmas if choice.method == REMOTE_DMA else c.collectives
+    nbytes = c.wire_bytes
+    if choice.method == REMOTE_DMA and config.platform == "cuda":
+        nbytes += c.local_bytes  # the card's model prices both at one rate
+    return PhasePrediction(method=choice.method,
+                           predicted_s=float(c.exchange_s),
+                           collectives=int(n),
+                           wire_bytes=int(nbytes),
+                           provenance=prov)
+
+
+def emit_phase(rec, pred: PhasePrediction, measured_s: float, *,
+               phase: str, kernel_variant: Optional[str] = None,
+               fabric: Optional[Dict[str, object]] = None) -> Optional[dict]:
+    """Emit one attribution record (one measured sample of one phase).
+
+    ``fabric`` is machine_info's fabric fingerprint (procs/hosts/
+    platform); its scalars ride along as extra fields so a fitted row
+    can be traced to the fabric it was measured on. No-op (None) when
+    the recorder is disabled — attribution must never tax an
+    uninstrumented run.
+    """
+    if rec is None or not getattr(rec, "enabled", False):
+        return None
+    extra: Dict[str, object] = {}
+    for k, v in (fabric or {}).items():
+        if isinstance(v, (str, int, float, bool)):
+            extra[f"fabric_{k}"] = v
+    return rec.meta(
+        ATTRIB_NAME,
+        phase=phase,
+        method=pred.method,
+        kernel_variant=kernel_variant,
+        predicted_s=float(pred.predicted_s),
+        measured_s=float(measured_s),
+        residual=float(measured_s - pred.predicted_s),
+        collectives=int(pred.collectives),
+        wire_bytes=int(pred.wire_bytes),
+        provenance=pred.provenance,
+        **extra)
+
+
+@dataclass(frozen=True)
+class DriftVerdict:
+    """judge_drift's answer: did the prediction fall out of the band?"""
+
+    ok: bool
+    phase: str
+    predicted_s: float
+    center: float        # trimean of the measured samples
+    lo: float
+    hi: float
+    n: int
+
+    def describe(self) -> str:
+        state = "within" if self.ok else "OUTSIDE"
+        return (f"{self.phase}: predicted {self.predicted_s:.3e}s {state} "
+                f"measured band [{self.lo:.3e}, {self.hi:.3e}] "
+                f"(center {self.center:.3e}s, n={self.n})")
+
+
+def judge_drift(phase: str, predicted_s: float,
+                samples: Sequence[float], *,
+                mad_k: float = DEFAULT_MAD_K,
+                rel_tol: float = DEFAULT_REL_TOL,
+                abs_tol: float = DEFAULT_ABS_TOL) -> DriftVerdict:
+    """The drift band check.
+
+    Center = trimean of
+    the measured samples, tolerance = max(mad_k·MAD, rel_tol·|center|,
+    abs_tol), direction both. The judged value is the calibration's
+    PREDICTION: drift means the installed constants no longer describe
+    the fabric, whichever side they miss on. Keep rel_tol < 1 — at 1
+    the low band edge hits zero and an under-prediction (the fabric
+    slower than the model says) can never trip.
+    """
+    vals = [float(v) for v in samples]
+    if not vals:
+        raise ValueError(f"no measured samples for phase {phase!r}")
+    center = trimean(vals)
+    tol = max(mad_k * mad(vals), rel_tol * abs(center), abs_tol)
+    lo, hi = center - tol, center + tol
+    return DriftVerdict(ok=lo <= predicted_s <= hi, phase=phase,
+                        predicted_s=float(predicted_s), center=center,
+                        lo=lo, hi=hi, n=len(vals))
+
+
+def emit_drift(rec, verdict: DriftVerdict) -> Optional[dict]:
+    """Record a tripped in-run verdict (``calibration.drift`` meta).
+    Emits nothing for a healthy phase:
+    the marker is an alarm, not a pulse."""
+    if rec is None or not getattr(rec, "enabled", False) or verdict.ok:
+        return None
+    return rec.meta(DRIFT_NAME,
+                    phase=verdict.phase,
+                    predicted_s=float(verdict.predicted_s),
+                    measured_s=float(verdict.center),
+                    band_lo=float(verdict.lo),
+                    band_hi=float(verdict.hi),
+                    n=verdict.n)
+
+
+def attribute_and_judge(rec, config: PlanConfig, choice: PlanChoice,
+                        samples_s: Sequence[float], *, phase: str,
+                        calibration: Optional[dict] = None,
+                        kernel_variant: Optional[str] = None,
+                        fabric: Optional[Dict[str, object]] = None,
+                        rel_tol: float = 0.75) -> Optional[DriftVerdict]:
+    """The one-call in-run path (jacobi epilogue, _bench_common): emit
+    one attribution record per measured sample, then apply the drift
+    band leniently (wide rel_tol — an in-run check on a handful of
+    noisy samples flags multiple-x staleness, not 5% drift; the strict
+    judgement belongs to a full metrics file).
+    rel_tol must stay BELOW 1: at 1 the band's low edge reaches zero
+    and a prediction far below the measured center — the canonical
+    "fabric got slower than the model" staleness — can never trip.
+    Returns the verdict, or None when the choice is infeasible /
+    recorder disabled / no samples."""
+    if rec is None or not getattr(rec, "enabled", False) or not samples_s:
+        return None
+    pred = predict_exchange(config, choice, calibration)
+    if pred is None:
+        return None
+    for s in samples_s:
+        emit_phase(rec, pred, s, phase=phase,
+                   kernel_variant=kernel_variant, fabric=fabric)
+    verdict = judge_drift(phase, pred.predicted_s, samples_s,
+                          rel_tol=rel_tol)
+    emit_drift(rec, verdict)
+    return verdict
+
+
+def phases_from_records(records: Sequence[dict]
+                        ) -> Dict[str, Dict[str, object]]:
+    """Group a metrics file's attribution records for the drift
+    sentinel: key -> {"predicted_s": latest prediction, "samples":
+    [measured...], "method": str, "provenance": str}. Grouping is by
+    (phase, method) — an autotune run's probe records put several
+    methods under one phase name, and their samples must never be
+    judged against one prediction. The key is the plain phase name
+    when a single method owns it, ``phase[method]`` otherwise. The
+    prediction is taken from the LAST record of each group (all of one
+    run's records for a group share it; across concatenated runs the
+    newest calibration wins — that is the one being judged)."""
+    groups: Dict[tuple, Dict[str, object]] = {}
+    for r in records:
+        if r.get("kind") != "meta" or r.get("name") != ATTRIB_NAME:
+            continue
+        g = groups.setdefault((str(r["phase"]), str(r["method"])),
+                              {"samples": [], "predicted_s": 0.0,
+                               "method": "", "provenance": ""})
+        g["samples"].append(float(r["measured_s"]))
+        g["predicted_s"] = float(r["predicted_s"])
+        g["method"] = str(r["method"])
+        g["provenance"] = str(r.get("provenance", ""))
+    per_phase: Dict[str, int] = {}
+    for phase, _ in groups:
+        per_phase[phase] = per_phase.get(phase, 0) + 1
+    return {
+        (phase if per_phase[phase] == 1 else f"{phase}[{method}]"): g
+        for (phase, method), g in groups.items()
+    }
+
+
+def ledger_detail(pred: PhasePrediction, *, phase: str,
+                  samples: int) -> Dict[str, object]:
+    """The ``detail`` dict a ledger entry derived from attribution
+    carries — exactly the fields ``plan/calibrate.samples_from_ledger``
+    needs to reconstruct a Sample."""
+    return {"phase": phase, "method": pred.method,
+            "collectives": int(pred.collectives),
+            "wire_bytes": int(pred.wire_bytes),
+            "predicted_s": float(pred.predicted_s),
+            "provenance": pred.provenance, "samples": int(samples)}

@@ -31,9 +31,12 @@ verbatim, corrupt or future-versioned ledgers are rejected loudly
 
 :func:`host_fingerprint` names what measured an entry: the platform and,
 on the card, its name (``torch.cuda.get_device_name``). The serving layer
-writes it into its entries' ``detail``. The JAX module's ingest of bench
-payloads and metrics files belongs to ``apps/perf_tool``, which is not
-ported yet (ROADMAP.md queue A item 4).
+writes it into its entries' ``detail``, and ``plan_tool calibrate
+--from-ledger`` fits the planner's constants from its ``plan.attrib.*``
+entries (``plan/calibrate.samples_from_ledger``). The JAX module's ingest of
+bench payloads and metrics files (which writes those entries from a run's
+``plan.attrib.phase`` records) belongs to ``apps/perf_tool``, which waits
+with ``apps/report`` in ROADMAP.md queue A item 4.
 """
 
 from __future__ import annotations

@@ -16,8 +16,9 @@ validates under both. Every line carries:
 plus per kind: spans carry ``seconds``; counters an integer ``value`` and/or
 ``bytes``; gauges a numeric ``value``; heartbeats an integer ``seq``; metas
 are free-form. :func:`validate_record` is the schema authority, and
-:data:`NAME_FIELDS` types the payload of the names the fault and campaign
-layers emit.
+:data:`NAME_FIELDS` types the payload of the names the fault, campaign, live
+and planner layers emit, and :data:`KNOWN_NAMES` adds the planner's untyped
+ones.
 
 Spans ride ``utils.timer.timed`` (the global buckets) and
 ``timer.trace_range`` (a ``torch.profiler`` range of the same name).
@@ -44,9 +45,9 @@ KINDS = ("span", "counter", "gauge", "meta", "heartbeat")
 REQUIRED_KEYS = ("v", "run", "proc", "kind", "name", "t")
 
 # The typed payload of the fault / health / recover / checkpoint records, the
-# multi-tenant layer's campaign.* / compile.* / slo.* vocabulary and the
-# serving layer's replan.requested and serve.*, as the JAX package's schema
-# types them.
+# multi-tenant layer's campaign.* / compile.* / slo.* vocabulary, the live
+# sentinel's anomaly.* and the planner's replan.* / plan.* / calibration.*,
+# and the serving layer's serve.*, as the JAX package's schema types them.
 NAME_FIELDS = {
     "fault.injected": (("fault_kind", str), ("step", int)),
     "health.fault": (("fault_kind", str), ("quantity", str), ("step", int)),
@@ -66,7 +67,21 @@ NAME_FIELDS = {
     "compile.build": (("key", str),),
     "compile.build_s": (("key", str),),
     "slo.violation": (("tenant", str), ("step", int)),
+    # the live sentinel (obs/live.py) and the plan hot-swap (plan/replan.py)
+    "anomaly.detected": (("metric", str), ("step", int)),
+    "anomaly.cleared": (("metric", str), ("step", int)),
     "replan.requested": (("reason", str), ("step", int)),
+    "replan.applied": (("old", str), ("new", str), ("step", int)),
+    "replan.rejected": (("reason", str), ("step", int)),
+    # the planner's measure and refit steps (obs/attribution.py,
+    # plan/calibrate.py): a timed exchange against its prediction, the
+    # run's plan stamp, a fitted row, a tripped drift band
+    "plan.attrib.phase": (("phase", str), ("method", str), ("predicted_s", float),
+                          ("measured_s", float), ("residual", float), ("collectives", int),
+                          ("wire_bytes", int)),
+    "plan.fingerprint": (("fingerprint", str), ("choice", str), ("calibration", str)),
+    "calibration.fitted": (("platform", str), ("n", int), ("provenance", str)),
+    "calibration.drift": (("phase", str), ("predicted_s", float), ("measured_s", float)),
     # the serving vocabulary (serve/): admission verdicts, result streaming,
     # drain / park / revival, and the capacity engine's decisions
     "serve.admitted": (("job", str),),
@@ -81,6 +96,17 @@ NAME_FIELDS = {
     "serve.preempt_veto": (("job", str), ("gain_ms", float), ("resume_cost_ms", float)),
     "serve.resized": (("from_width", int), ("to_width", int), ("reason", str)),
 }
+
+
+# The names the planner and the live layer record beside NAME_FIELDS' typed
+# ones (the JAX package's KNOWN_NAMES for them): the autotuner's gauges,
+# counter and spans, the probes' exchange timings, the sentinel's count.
+KNOWN_NAMES = frozenset(NAME_FIELDS) | frozenset({
+    "plan.autotune", "plan.cache_hit", "plan.candidates", "plan.chosen", "plan.probe",
+    "plan.probe_trimean_s", "plan.probes_run",
+    "exchange.warmup", "exchange.iter", "exchange.trimean_s", "exchange.gb_per_s",
+    "jacobi.exchange", "jacobi.exchange_warmup", "live.anomaly_count", "config",
+})
 
 
 def new_run_id() -> str:

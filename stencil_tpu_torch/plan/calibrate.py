@@ -1,0 +1,289 @@
+"""Fit the cost model's constants from measured attribution records.
+
+The port's own copy of ``stencil_tpu.plan.calibrate`` (pure stdlib): the
+refit step of the predict -> measure -> refit loop. ``obs/attribution.py``
+pairs each timed exchange with the plan IR's prediction
+(``plan.attrib.phase`` records); :func:`fit` turns those samples back into
+constants by least squares over the cost model's linear form:
+
+    measured_s  ~  overhead[method] * collectives  +  wire_bytes / bw
+
+For ``remote-dma`` samples ``collectives`` carries the copy count (on the
+card, the carrier launches' copies the exchange really issues), so the same
+fit recovers the per-copy constant: on ``"cuda"`` it lands in
+``remote_dma.dma_overhead_s`` (the card's row, ``plan/cost.py``, with the
+fitted bandwidth also as the carrier's ``remote_dma.wire_bytes_per_s``,
+which ``score`` reads first), on the CPU in
+``remote_dma.cpu_emulation_overhead_s``. A fit builds on the platform's
+constants (``cost.platform_calibration``): when every sample sits at one
+(collectives, bytes) point the bandwidth is pinned at that row's value and
+only the overheads are fitted. Degenerate input (fewer than two samples, a
+sample with no copy or collective, a non-physical result) is refused with
+:class:`CalibrationError`. The fitted row lives in the plan DB
+(``calibrations``) with provenance ``fitted(n=..., r2=...)``, and
+``plan/autotune.py`` installs it for its platform.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .cost import DEFAULT_CALIBRATION, platform_calibration
+from .ir import AUTO_SPMD, AXIS_COMPOSED, DIRECT26, METHODS, REMOTE_DMA
+
+ATTRIB_NAME = "plan.attrib.phase"
+PERMUTE_METHODS = (AXIS_COMPOSED, DIRECT26, AUTO_SPMD)
+
+
+class CalibrationError(ValueError):
+    """Degenerate or non-physical calibration input — refused loudly."""
+
+
+@dataclass(frozen=True)
+class Sample:
+    """One measured attribution point (one ``plan.attrib.phase`` record)."""
+
+    method: str
+    collectives: int      # permute count, or DMA count for remote-dma
+    wire_bytes: int
+    measured_s: float
+    phase: str = ""
+
+    def validate(self) -> Optional[str]:
+        if self.method not in METHODS:
+            return f"unknown method {self.method!r}"
+        if self.collectives < 0 or self.wire_bytes < 0:
+            return "negative collectives/wire_bytes"
+        if not (self.measured_s == self.measured_s
+                and self.measured_s > 0.0):  # NaN-safe positivity
+            return f"non-positive measured_s {self.measured_s!r}"
+        return None
+
+
+def provenance_string(n: int, r2: float) -> str:
+    return f"fitted(n={n}, r2={r2:.3f})"
+
+
+def samples_from_records(records: Sequence[dict]) -> List[Sample]:
+    """Extract attribution samples from telemetry records (the
+    ``--metrics-out`` JSONL, already schema-validated by the caller).
+    Malformed attribution records raise — a fit over silently dropped
+    samples would claim an n it does not have."""
+    out: List[Sample] = []
+    for r in records:
+        if r.get("kind") != "meta" or r.get("name") != ATTRIB_NAME:
+            continue
+        s = Sample(method=str(r["method"]),
+                   collectives=int(r["collectives"]),
+                   wire_bytes=int(r["wire_bytes"]),
+                   measured_s=float(r["measured_s"]),
+                   phase=str(r.get("phase", "")))
+        err = s.validate()
+        if err:
+            raise CalibrationError(f"bad attribution record: {err}")
+        out.append(s)
+    return out
+
+
+def samples_from_ledger(entries: Sequence[dict]) -> List[Sample]:
+    """Reconstruct samples from ledger entries (the ``plan.attrib.*``
+    rows obs/ledger ingest writes). Lower resolution than
+    ``samples_from_records``: the ledger folds a run's samples into one
+    trimean per (phase, method) and dedups by entry key, so a fit from
+    the ledger sees one point per run/config where the metrics file had
+    several."""
+    out: List[Sample] = []
+    for e in entries:
+        if not str(e.get("metric", "")).startswith("plan.attrib."):
+            continue
+        d = e.get("detail") or {}
+        if not {"method", "collectives", "wire_bytes"} <= set(d):
+            continue
+        s = Sample(method=str(d["method"]),
+                   collectives=int(d["collectives"]),
+                   wire_bytes=int(d["wire_bytes"]),
+                   measured_s=float(e["value"]),
+                   phase=str(d.get("phase", "")))
+        err = s.validate()
+        if err:
+            raise CalibrationError(f"bad ledger attribution entry: {err}")
+        out.append(s)
+    return out
+
+
+# -- the least-squares core (pure stdlib) -------------------------------------
+
+
+def _solve(a: List[List[float]], b: List[float]) -> Optional[List[float]]:
+    """Gaussian elimination with partial pivoting on a tiny system;
+    None when singular (rank-deficient within tolerance)."""
+    n = len(a)
+    m = [row[:] + [b[i]] for i, row in enumerate(a)]
+    scale = max((abs(v) for row in a for v in row), default=0.0)
+    if scale == 0.0:
+        return None
+    eps = 1e-12 * scale
+    for col in range(n):
+        piv = max(range(col, n), key=lambda r: abs(m[r][col]))
+        if abs(m[piv][col]) <= eps:
+            return None
+        m[col], m[piv] = m[piv], m[col]
+        for r in range(n):
+            if r == col:
+                continue
+            f = m[r][col] / m[col][col]
+            for c in range(col, n + 1):
+                m[r][c] -= f * m[col][c]
+    return [m[i][n] / m[i][i] for i in range(n)]
+
+
+def _lstsq(rows: List[List[float]], b: List[float]) -> Optional[List[float]]:
+    """min ||Ax - b|| via normal equations (the design has <= 5 columns;
+    conditioning is a non-issue at these sizes). None when singular."""
+    if not rows:
+        return None
+    ncol = len(rows[0])
+    # column scaling: collectives are O(1..100), wire bytes O(1e5..1e9);
+    # raw normal equations would read the bandwidth column as "singular"
+    # purely on magnitude. Scale each column to unit max first.
+    scales = [max(abs(r[c]) for r in rows) or 1.0 for c in range(ncol)]
+    srows = [[r[c] / scales[c] for c in range(ncol)] for r in rows]
+    ata = [[sum(r[i] * r[j] for r in srows) for j in range(ncol)]
+           for i in range(ncol)]
+    atb = [sum(r[i] * bi for r, bi in zip(srows, b)) for i in range(ncol)]
+    x = _solve(ata, atb)
+    if x is None:
+        return None
+    return [x[c] / scales[c] for c in range(ncol)]
+
+
+def _r2(predicted: Sequence[float], measured: Sequence[float]) -> float:
+    mean = sum(measured) / len(measured)
+    ss_tot = sum((v - mean) ** 2 for v in measured)
+    ss_res = sum((p - v) ** 2 for p, v in zip(predicted, measured))
+    if ss_tot <= 0.0:
+        # all samples identical: the model either nails the point or not
+        return 1.0 if ss_res <= 1e-18 else 0.0
+    return 1.0 - ss_res / ss_tot
+
+
+def fit(samples: Sequence[Sample], *, platform: str = "cpu",
+        base: Optional[dict] = None) -> dict:
+    """Fit a calibration override from attribution samples.
+
+    Returns a plan-DB calibration row::
+
+        {"calibration": {...score() override dict...},
+         "provenance": "fitted(n=…, r2=…)",
+         "n": int, "r2": float, "platform": str,
+         "bandwidth_fit": bool,   # False when pinned at the base value
+         "written_t": float}
+
+    Raises :class:`CalibrationError` on degenerate input: fewer than two
+    samples (a single point cannot separate overhead from bandwidth),
+    zero-collective samples, or a fit that comes out non-physical
+    (overhead <= 0 — garbage in, refused out)."""
+    samples = list(samples)
+    if len(samples) < 2:
+        raise CalibrationError(
+            f"need >= 2 attribution samples to fit, got {len(samples)} — "
+            "a single sample cannot separate per-collective overhead from "
+            "wire bandwidth")
+    for s in samples:
+        err = s.validate()
+        if err:
+            raise CalibrationError(f"bad sample: {err}")
+        if s.collectives == 0:
+            raise CalibrationError(
+                f"sample for {s.method} has 0 collectives/DMAs — its "
+                "overhead column is unidentifiable")
+    base = base or platform_calibration(platform)
+    base_bw = float(base.get("wire_bytes_per_s",
+                             DEFAULT_CALIBRATION["wire_bytes_per_s"]))
+    methods = sorted({s.method for s in samples})
+
+    rows = [[float(s.collectives) if s.method == m else 0.0
+             for m in methods] + [float(s.wire_bytes)] for s in samples]
+    b = [s.measured_s for s in samples]
+    x = _lstsq(rows, b)
+    bandwidth_fit = x is not None and x[-1] > 0.0
+    if not bandwidth_fit:
+        # the bandwidth direction is unidentifiable (every sample at one
+        # (collectives, bytes) point) or came out non-physical: pin it
+        # at the base calibration and fit only what the data determines
+        rows = [[float(s.collectives) if s.method == m else 0.0
+                 for m in methods] for s in samples]
+        b = [s.measured_s - s.wire_bytes / base_bw for s in samples]
+        x = _lstsq(rows, b)
+        if x is None:
+            raise CalibrationError(
+                "rank-deficient attribution set: the per-method overhead "
+                "columns are not independent (need samples from distinct "
+                "methods or distinct collective counts)")
+        x = x + [1.0 / base_bw]
+
+    overheads = dict(zip(methods, x[:-1]))
+    inv_bw = x[-1]
+    for m, ov in overheads.items():
+        if not (ov == ov and ov > 0.0):
+            raise CalibrationError(
+                f"non-physical fit: overhead {ov!r} s/collective for "
+                f"{m} — refusing to install (check the attribution "
+                "samples; measured time below the modeled wire time?)")
+    wire_bps = 1.0 / inv_bw
+
+    predicted = [overheads[s.method] * s.collectives
+                 + s.wire_bytes / wire_bps for s in samples]
+    r2 = _r2(predicted, [s.measured_s for s in samples])
+
+    cal: Dict[str, object] = {}
+    permute = {m: overheads[m] for m in methods if m in PERMUTE_METHODS}
+    if permute:
+        cal["permute_overhead_s"] = permute
+    n = len(samples)
+    prov = provenance_string(n, r2)
+    if REMOTE_DMA in overheads:
+        key = ("dma_overhead_s" if platform == "cuda"
+               else "cpu_emulation_overhead_s")
+        cal["remote_dma"] = {key: overheads[REMOTE_DMA],
+                             "provenance": prov}
+    if bandwidth_fit:
+        cal["wire_bytes_per_s"] = wire_bps
+        if platform == "cuda" and REMOTE_DMA in overheads:
+            # score() prices remote-dma wire by the remote_dma row's rate
+            # first: on the card the fitted rate is that carrier's
+            cal["remote_dma"]["wire_bytes_per_s"] = wire_bps
+    cal["provenance"] = prov
+    return {
+        "calibration": cal,
+        "provenance": prov,
+        "n": n,
+        "r2": r2,
+        "platform": platform,
+        "bandwidth_fit": bandwidth_fit,
+        "written_t": time.time(),
+    }
+
+
+def diff_rows(fitted: dict, base: Optional[dict] = None
+              ) -> List[Tuple[str, float, float]]:
+    """(constant, fitted value, base value) per fitted scalar — the
+    ``plan_tool calibration diff`` table. ``base`` defaults to the fitted
+    row's platform constants."""
+    base = base or platform_calibration(str(fitted.get("platform", "cpu")))
+    cal = fitted.get("calibration", fitted)
+    out: List[Tuple[str, float, float]] = []
+    for m, v in sorted((cal.get("permute_overhead_s") or {}).items()):
+        out.append((f"permute_overhead_s[{m}]", float(v),
+                    float(base["permute_overhead_s"].get(m, float("nan")))))
+    rd = cal.get("remote_dma") or {}
+    for k in ("dma_overhead_s", "cpu_emulation_overhead_s"):
+        if k in rd:
+            out.append((f"remote_dma.{k}", float(rd[k]),
+                        float(base["remote_dma"].get(k, float("nan")))))
+    if "wire_bytes_per_s" in cal:
+        out.append(("wire_bytes_per_s", float(cal["wire_bytes_per_s"]),
+                    float(base["wire_bytes_per_s"])))
+    return out

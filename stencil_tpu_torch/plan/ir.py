@@ -20,21 +20,27 @@ The wire model is carried over: a plan's ``wire_dtype`` (the narrowed wire
 of the remote-dma carriers, ``ops/halo_fill.wire_narrow_dtype``) prices
 wire-crossing cells at the narrowed itemsize in :meth:`ExchangePlan.wire_bytes`.
 
-Not carried over yet: the auto-spmd geometry and the hierarchical (DCN)
-level (ROADMAP.md queue A item 5), and
-the planner's ``PlanChoice`` (queue A item 4); each raises
-``NotImplementedError``. Its problem key :class:`PlanConfig` is ported: the
-campaign's compile cache keys its programs with it.
+The planner's vocabulary is ported too: :class:`PlanConfig` (the problem
+key the plan DB and the campaign's compile cache key with) and
+:class:`PlanChoice` (one point of the search space: partition, method,
+batching, temporal depth, kernel variant), whose JSON form is the JAX
+package's, so a plan DB or checkpoint manifest of either package loads in
+the other. Not carried over yet: the auto-spmd geometry and the hierarchical
+(DCN) level (ROADMAP.md queue A item 5), which raise
+``NotImplementedError``; a choice that carries a hierarchy or a
+non-identity placement parses and round-trips, and raises where a domain
+would realize it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
-from ..geometry import DIRECTIONS_26, Dim3
+from ..geometry import DIRECTIONS_26, Dim3, Radius
 
 # Method value strings (mirrors parallel.exchange.Method).
 AXIS_COMPOSED = "axis-composed"
@@ -52,6 +58,9 @@ PERSISTENT_VARIANT = "persistent"
 
 # (axis name, stacked-array data dim, block dim) in exchange-phase order.
 AXIS_ORDER = (("x", 5, 2), ("y", 4, 1), ("z", 3, 0))
+
+# blocks one launch of the fill kernel takes (ops/halo_fill.MAX_FILL_GROUP)
+FILL_GROUP = 16
 
 # where the geometries still to port stand in ROADMAP.md
 _LATER = {AUTO_SPMD: "ROADMAP.md queue A item 5", "hierarchy": "ROADMAP.md queue A item 5"}
@@ -249,6 +258,31 @@ class ExchangePlan:
         phases = self.fused_phases if self.fused else self.remote_phases
         return sum(p.dmas() for p in phases) * carriers
 
+    def carrier_launches(self, carriers: Sequence[int], dtype_groups: int) -> int:
+        """Kernel launches of one REMOTE_DMA exchange on the card, the copy
+        count the "cuda" cost model prices (0 for the other methods).
+        ``carriers`` holds each carrier's quantity count (a same-dtype group
+        when batching, else 1 each). A fused plan over several positions of a
+        uniform partition is one fused-exchange launch (B7) per dtype group;
+        otherwise each active axis phase takes, per carrier, one axis-carrier
+        launch (B6) where the partition has several blocks along the axis, or
+        self-wrap fills (B4) of every block, ``FILL_GROUP`` blocks a launch."""
+        if self.method != REMOTE_DMA:
+            return 0
+        px, py, pz = self.partition
+        mx, my, mz = self.mesh_dim
+        uniform = all(p.uniform for p in self.axis_phases)
+        if self.fused and mx * my * mz > 1 and uniform:
+            return dtype_groups
+        nblocks = px * py * pz
+        n = 0
+        for ph in self.remote_phases:
+            if not ph.active:
+                continue
+            for q in carriers:
+                n += 1 if ph.blocks > 1 else -(-q * nblocks // FILL_GROUP)
+        return n
+
     def launches_per_chunk(self, k: int = 1) -> int:
         """Device-program dispatches one k-step chunk pays, in the JAX
         package's unit: persistent 2 (deep exchange + chunk program; the
@@ -276,6 +310,11 @@ class ExchangePlan:
             fl = [True] * len(itemsizes) if floating is None else list(floating)
             per_cell = sum(min(i, w) if f else i for i, f in zip(itemsizes, fl))
         return sum(p.wire_cells for p in self.phases) * per_cell
+
+    def local_bytes(self, itemsizes: Sequence[int]) -> int:
+        """Bytes moved without crossing between positions (self-wrap
+        fills, resident-neighbour shifts), all quantities."""
+        return sum(p.local_cells for p in self.phases) * sum(itemsizes)
 
     def describe(self) -> str:
         """Human-readable plan dump."""
@@ -562,6 +601,36 @@ class PlanConfig:
                    quantities=tuple(sorted(counts.items())), ndev=int(ndev),
                    platform=str(platform))
 
+    @property
+    def num_quantities(self) -> int:
+        return sum(n for _dt, n in self.quantities)
+
+    @property
+    def dtype_group_count(self) -> int:
+        return max(1, len(self.quantities))
+
+    def itemsizes(self) -> Tuple[int, ...]:
+        """Bytes per cell of each quantity, in key order."""
+        import numpy as np
+
+        out = []
+        for dt, n in self.quantities:
+            out.extend([np.dtype(dt).itemsize] * n)
+        return tuple(out)
+
+    def floating_flags(self) -> Tuple[bool, ...]:
+        """Per-quantity floatness, aligned with :meth:`itemsizes`: only
+        floating carriers narrow on the wire (``ExchangePlan.wire_bytes``)."""
+        import numpy as np
+
+        out = []
+        for dt, n in self.quantities:
+            out.extend([bool(np.issubdtype(np.dtype(dt), np.floating))] * n)
+        return tuple(out)
+
+    def radius_obj(self) -> Radius:
+        return radius_from_dirs(self.radius)
+
     def key(self) -> str:
         """Stable string key: sorted-key compact JSON."""
         return json.dumps({
@@ -575,9 +644,172 @@ class PlanConfig:
     def to_json(self) -> dict:
         return json.loads(self.key())
 
+    @classmethod
+    def from_json(cls, obj: dict) -> "PlanConfig":
+        return cls(grid=tuple(obj["grid"]),
+                   radius=tuple(tuple(t) for t in obj["radius"]),
+                   quantities=tuple((str(d), int(n)) for d, n in obj["quantities"]),
+                   ndev=int(obj["ndev"]), platform=str(obj.get("platform", "cpu")))
 
+
+def radius_from_dirs(dirs) -> Radius:
+    """The Radius of a :func:`radius_dirs` serialization."""
+    r = Radius.constant(0)
+    for dx, dy, dz, v in dirs:
+        r.set_dir((dx, dy, dz), v)
+    return r
+
+
+def validate_placement(placement, ndev: int) -> Optional[str]:
+    """``None`` (identity) or a permutation of ``range(ndev)`` mapping mesh
+    position i (row-major z, y, x) to the index of the device hosting it:
+    the JAX package's one placement-shape check. Returns an error string,
+    or None when valid."""
+    if placement is None:
+        return None
+    try:
+        f = [int(v) for v in placement]
+    except (TypeError, ValueError):
+        return f"placement must be a sequence of ints, got {placement!r}"
+    if len(f) != ndev:
+        return f"placement has {len(f)} entries for {ndev} mesh positions"
+    if sorted(f) != list(range(ndev)):
+        return f"placement {f} is not a permutation of range({ndev})"
+    return None
+
+
+def validate_hierarchy(hierarchy, mesh_dim) -> Optional[str]:
+    """``None`` (flat) or an ``(axis, hosts)`` outer split whose host count
+    divides the mesh extent along ``axis``: the JAX package's check, which
+    the plan DB applies to a stored choice. Returns an error string, or
+    None when valid."""
+    if hierarchy is None:
+        return None
+    try:
+        axis, hosts = hierarchy
+        axis = str(axis)
+        hosts = int(hosts)
+    except (TypeError, ValueError):
+        return f"hierarchy must be an (axis, hosts) pair, got {hierarchy!r}"
+    if axis not in ("x", "y", "z"):
+        return f"hierarchy axis must be 'x'|'y'|'z', got {axis!r}"
+    if hosts < 1:
+        return f"hierarchy needs hosts >= 1, got {hosts}"
+    md = Dim3.of(mesh_dim)
+    n = {"x": md.x, "y": md.y, "z": md.z}[axis]
+    if n % hosts:
+        return f"{hosts} hosts do not divide the {axis} mesh extent {n}"
+    return None
+
+
+@dataclass(frozen=True)
 class PlanChoice:
-    """The planner's chosen plan: not ported yet."""
+    """One point of the planner's search space, what the autotuner picks
+    and the plan DB stores: partition (blocks x, y, z) x exchange method x
+    quantity batching x temporal depth ``multistep_k`` x kernel variant
+    (``"fused"`` or ``"persistent"`` on REMOTE_DMA).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("PlanChoice (the plan/ autotuner): ROADMAP.md queue A item 4")
+    ``placement`` (mesh position -> device index), ``hierarchy`` (the
+    outer ``(axis, hosts)`` split) and ``host_placement`` are the JAX
+    package's fields, kept so its DB entries and manifests load here; an
+    absent field is identity / flat, the JAX migration default. A domain
+    realizes only the identity placement and no hierarchy (positions on
+    distinct GPUs and several hosts are ROADMAP.md queue A item 5)."""
+
+    partition: Tuple[int, int, int]
+    method: str
+    batch_quantities: bool = True
+    multistep_k: int = 1
+    kernel_variant: Optional[str] = None
+    placement: Optional[Tuple[int, ...]] = None
+    hierarchy: Optional[Tuple[str, int]] = None
+    host_placement: Optional[Tuple[int, ...]] = None
+
+    def to_json(self) -> dict:
+        return {
+            "partition": list(self.partition),
+            "method": self.method,
+            "batch_quantities": self.batch_quantities,
+            "multistep_k": self.multistep_k,
+            "kernel_variant": self.kernel_variant,
+            "placement": None if self.placement is None else list(self.placement),
+            "hierarchy": (None if self.hierarchy is None
+                          else [self.hierarchy[0], self.hierarchy[1]]),
+            "host_placement": (None if self.host_placement is None
+                               else list(self.host_placement)),
+        }
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "PlanChoice":
+        placement = obj.get("placement")
+        hierarchy = obj.get("hierarchy")
+        host_placement = obj.get("host_placement")
+        return cls(
+            partition=tuple(obj["partition"]),
+            method=str(obj["method"]),
+            batch_quantities=bool(obj.get("batch_quantities", True)),
+            multistep_k=int(obj.get("multistep_k", 1)),
+            kernel_variant=obj.get("kernel_variant"),
+            placement=None if placement is None else tuple(int(v) for v in placement),
+            hierarchy=(None if hierarchy is None
+                       else (str(hierarchy[0]), int(hierarchy[1]))),
+            host_placement=(None if host_placement is None
+                            else tuple(int(v) for v in host_placement)),
+        )
+
+    @property
+    def is_fused(self) -> bool:
+        """The fused compute+exchange variant of REMOTE_DMA."""
+        return self.kernel_variant == FUSED_VARIANT
+
+    @property
+    def is_persistent(self) -> bool:
+        """The persistent whole-chunk variant of REMOTE_DMA (``multistep_k``
+        is the chunk depth)."""
+        return self.kernel_variant == PERSISTENT_VARIANT
+
+    @property
+    def is_placed(self) -> bool:
+        """A non-identity block placement."""
+        return (self.placement is not None
+                and list(self.placement) != list(range(len(self.placement))))
+
+    @property
+    def is_hierarchical(self) -> bool:
+        """A real (multi-host) outer split."""
+        return self.hierarchy is not None and self.hierarchy[1] > 1
+
+    def fingerprint(self) -> str:
+        """12 hex characters of the sha256 of the canonical JSON: the key
+        that joins a metrics file, the plan DB and a fitted calibration."""
+        blob = json.dumps(self.to_json(), sort_keys=True, separators=(",", ":"))
+        return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+    def label(self) -> str:
+        px, py, pz = self.partition
+        s = f"{px}x{py}x{pz}/{self.method}"
+        s += "/batched" if self.batch_quantities else "/per-quantity"
+        if self.multistep_k > 1:
+            s += f"/k={self.multistep_k}"
+        if self.kernel_variant:
+            s += f"/{self.kernel_variant}"
+        if self.hierarchy is not None:
+            s += f"/h={self.hierarchy[0]}{self.hierarchy[1]}"
+        if (self.host_placement is not None
+                and list(self.host_placement) != list(range(len(self.host_placement)))):
+            s += "/hp=" + "-".join(str(v) for v in self.host_placement)
+        if self.is_placed:
+            s += "/p=" + "-".join(str(v) for v in self.placement)
+        return s
+
+    def realizable(self) -> None:
+        """Raise for what a domain cannot realize: a hierarchy or a
+        non-identity placement (ROADMAP.md queue A item 5)."""
+        if self.hierarchy is not None or self.host_placement is not None:
+            raise NotImplementedError(
+                f"plan {self.label()}: hierarchical (multi-host) plans are ROADMAP.md "
+                "queue A item 5")
+        if self.is_placed:
+            raise NotImplementedError(
+                f"plan {self.label()}: a non-identity block placement needs positions on "
+                "distinct devices (ROADMAP.md queue A item 5)")

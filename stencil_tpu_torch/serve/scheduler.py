@@ -41,9 +41,9 @@ WHEN they may enter:
 - **SLO pressure.** ``_observe_chunk`` prices every chunk into the
   :class:`~.admission.BucketPricer`; when a queued or running job's
   deadline falls under the bucket's online p99, the scheduler emits a
-  first-class ``replan.requested`` (reason ``slo-pressure``) and, once a
-  plan hot-swap is attached (``replan``; ROADMAP.md queue A item 4, None
-  until then), latches it for the next slot boundary.
+  first-class ``replan.requested`` (reason ``slo-pressure``) and, when a
+  plan hot-swap is attached (``replan``), latches it for the next slot
+  boundary.
 - **Result streaming.** ``_on_result`` writes ``results/<job>.json``
   atomically the moment a tenant retires (or faults out), emits
   ``serve.retired``, and promotes deferred jobs into freed quota.
@@ -54,9 +54,9 @@ WHEN they may enter:
   daemon resumes admitted-but-unserved jobs and never re-runs retired
   ones.
 
-A slot runs on the driver's one device; ``status`` and ``sentinel`` stay
-None until ``obs/status`` and ``obs/live`` are ported, and the guards that
-read them are the JAX package's.
+A slot runs on the driver's one device. The driver's ``sentinel`` and
+``status`` (``obs/live``, ``obs/status``) watch the slots as in the JAX
+package, the status file carrying the daemon's ``queue`` section.
 """
 
 from __future__ import annotations

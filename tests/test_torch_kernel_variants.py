@@ -116,9 +116,11 @@ def test_launches_per_chunk_error_and_what_is_left():
     got = tir.build_plan(tspec, (1, 1, 1), "direct26")
     assert got.describe() == jir.build_plan(jspec, (1, 1, 1), "direct26").describe()
     assert len(got.direct_phases) == 26
+    # PlanChoice is ported; what a domain cannot realize still refuses
     for call in (lambda: tir.build_plan(tspec, (1, 1, 1), "auto-spmd"),
                  lambda: tir.build_plan(tspec, (1, 1, 1), "axis-composed", hierarchy=("z", 1)),
-                 tir.PlanChoice):
+                 tir.PlanChoice((2, 2, 2), "remote-dma", hierarchy=("z", 2)).realizable,
+                 tir.PlanChoice((2, 1, 1), "remote-dma", placement=(1, 0)).realizable):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

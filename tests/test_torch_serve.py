@@ -425,13 +425,16 @@ def test_job_schema_matches_jax(bad, msg):
         assert t.bucket() == j.bucket()
 
 
-def test_serve_app_refuses_unported_flags(tmp_path):
+def test_serve_app_refuses_unported_flags(tmp_path, capsys):
+    """The live flags are ported; what the JAX app refuses, the port
+    refuses: --replan without a --plan-db, and a bad --live-config."""
     from stencil_tpu_torch.apps import serve as tapp
 
-    for flag in (["--replan"], ["--plan-db", "x"], ["--status-file", "s"], ["--live-sentinel"],
-                 ["--live-config", "{}"]):
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
+    for flag, msg in ((["--replan"], "--plan-db"),
+                      (["--live-config", '{"k": {"min_history": 0}}'], "bad --live-config")):
+        with pytest.raises(SystemExit):
             tapp.main(["--serve-dir", str(tmp_path), "--device", "cpu"] + flag)
+        assert msg in capsys.readouterr().err
 
 
 def test_serve_app_kill_hook_and_revival(tmp_path):
