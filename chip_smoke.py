@@ -20,9 +20,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               held to fused_stencil.fused_shape and its z-chunk rule to
               fused_stencil.fused_zchunks at five shapes; the registers and
               spill of each wire instantiation of the fused step (bf16,
-              fp16, fp8 e4m3) and of the exchange carriers' row-move body
-              (fp32 words unnarrowed and through bf16, fp16, fp8; fp64 words
-              also through fp32), the unnarrowed body held to no spill;
+              fp16, fp8 e4m3, fp8 e5m2 and SOFT, the software formats) and
+              of the exchange carriers' row-move body (fp32 words
+              unnarrowed and through bf16, fp16, e4m3, e5m2 and SOFT; fp64
+              words also through fp32), none spilling, the unnarrowed body
+              held to 32 registers for both words;
               the sweep kernel's (B1, the same body's flex_tile over a task
               table) registers, spill bytes and blocks per SM in fp32 and
               fp64, its launch shape held to stencil_kernels' (no spill, 2
@@ -193,7 +195,27 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               512^3 r1 and B7 at config 2 timed per launch unnarrowed, bf16,
               fp8, fp8, bf16, unnarrowed, beside the bytes bound and sector
               floor; exchange_loop at config 2 through each carrier with
-              and without a wire.
+              and without a wire; 8 steps with fp8 e5m2 on the wire too;
+              then every other format the JAX package narrows through
+              (mesh_formats_phase; e5m2, e4m3fnuz, e5m2fnuz, e4m3b11fnuz,
+              e3m4, e4m3, e8m0fnu, fp4 e2m1fn): B6 per ring phase and B7
+              against their plain versions by bit pattern on fields of each
+              format's edge values (its largest value, overflow tie, least
+              normal and subnormals, +-0, +-inf, NaN) at 32^3 (2,2,2) r2
+              fp32 and 40x36x20 (1,2,2) r1 fp64 and on a 64^3 fp32 + fp64
+              + int32 dict, each mesh exchange on the card against the CPU;
+              the wire on an oversubscribed mesh ((4,2,2) blocks of 256^3 on
+              (2,2,2) positions, fp32 through bf16 and e3m4, fp64 through
+              fp32 and e5m2; (2,2,2) blocks of 128^3 on (1,2,2), x's
+              residents bit copies) against its plain version with its
+              narrowed launches held; one Astaroth step and one fused-loop
+              iteration over (2,2,2) x 128^3 fp64 through an fp32 wire
+              against the same run with the carriers' plain versions; B6
+              per phase, B7 and the oversubscribed exchange at config 2
+              timed unnarrowed, e5m2, e4m3 (a software format), e4m3,
+              e5m2, unnarrowed; jacobi3d 512^3 over 8 positions through
+              e5m2 and through e4m3, and over (4,2,2) blocks on them through
+              e5m2, launch counts held.
 10. mesh variants -- the wire-crossing forms of the fused step and the
               persistent chunk, one cooperative launch over every position
               of the mesh: fused_jacobi_mesh against its plain version
@@ -224,7 +246,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               with kernel_variant fused and wire_dtype="bfloat16" (75
               launches, all narrowed) beside the unnarrowed run in turns;
               the kernel timed per launch at 512^3 over 8 positions
-              unnarrowed, bf16, fp8, fp8, bf16, unnarrowed.
+              unnarrowed, bf16, fp8, fp8, bf16, unnarrowed; the fused loop
+              with e5m2 on the wire too; then (variant_formats_phase) B8
+              through every other format against its plain version by bit
+              pattern at 24x20x16 (2,1,1) r1 of edge values and through e5m2
+              and e4m3 at 512^3 (2,2,2) r1, the fused main path through each
+              of the two (75 launches, all narrowed), and B8 timed per
+              launch unnarrowed, e5m2, e4m3, e4m3, e5m2, unnarrowed.
 
 11. guarded -- the guarded main path (guarded_phase): the fused health
               reduction (csrc/health_reduce.cu) against its plain version
@@ -683,6 +711,12 @@ WIRE_EDGES = [0.0, -0.0, 1.0, 448.0, -448.0, 460.0, 464.0, -464.0, 465.0, 480.0,
               1e-40, -1e-40, 1e-45, 2.0 ** -10 + 2.0 ** -40, 1 + 2.0 ** -4 + 2.0 ** -40,
               1 + 2.0 ** -11 + 2.0 ** -40, 1 + 2.0 ** -8 + 2.0 ** -30, 0.1, 1 / 3]
 BF16, FP8 = "bfloat16", "float8_e4m3fn"
+# the formats the port narrows through beside bf16, fp16, e4m3fn and fp32:
+# e5m2 by the card's conversion, the others by the SOFT instantiation
+# (csrc/wire_round.cuh); SOFT_TIMED is the software format timed beside e5m2
+NEW_WIRES = ("float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz",
+             "float8_e3m4", "float8_e4m3", "float8_e8m0fnu", "float4_e2m1fn")
+E5M2, SOFT_TIMED = "float8_e5m2", "float8_e4m3"
 
 
 def b1_times(time_ms, dev, run, plain, nbytes, reps: int = 20, plain_reps: int = 3,
@@ -746,9 +780,9 @@ def mesh_wire_phase(dev, time_ms, n: int = 512, c2: int = 256, steps: int = 8, i
     + int32 dict (int32 copied bitwise), and every (data, wire) pair on
     fields of edge values at 32^3; each case's whole mesh exchange, plain and
     fused, on the card against the same exchange on the CPU; ``steps`` steps
-    at ``n``^3 over 8 positions through the plain loop with bf16 and fp8 on
-    the wire against the same loop on the CPU (kept for phase 10's fused
-    loop); the main path ``apps.jacobi3d.run(n, n, n, devices=[dev] * 8,
+    at ``n``^3 over 8 positions through the plain loop with bf16, fp8
+    e4m3fn, e5m2 and :data:`SOFT_TIMED` on the wire against the same loop on
+    the CPU (kept for phase 10's fused loop); the main path ``apps.jacobi3d.run(n, n, n, devices=[dev] * 8,
     method=REMOTE_DMA, wire_dtype="bfloat16")`` with launch counts reset
     around it (those of the unnarrowed run, every B6 launch narrowed),
     beside the unnarrowed run in turns; B6 per phase at config 2 and ``n``^3
@@ -868,13 +902,15 @@ def mesh_wire_phase(dev, time_ms, n: int = 512, c2: int = 256, steps: int = 8, i
         "canonical NaN)")
 
     # steps at n^3 over 8 positions through the plain loop with a wire, on
-    # the card against the CPU (the field is in [0, 1), inside fp8's range)
+    # the card against the CPU (the field is in [0, 1), inside fp8's range):
+    # bf16, e4m3fn and e5m2 by the card's conversions, SOFT_TIMED by the
+    # SOFT instantiation
     spec1 = rspec((n,) * 3, (2, 2, 2), 1)
     mesh8, cpu8 = mesh_of(spec1), mesh_of(spec1, cpu)
     gen.manual_seed(630)
     g = torch.rand((n, n, n), generator=gen, device=dev)
     cpu_refs = {}
-    for wire in (BF16, FP8):
+    for wire in (BF16, FP8, E5M2, SOFT_TIMED):
         outs = []
         for mesh in (mesh8, cpu8):
             ex = HaloExchange(spec1, rdma_m, mesh=mesh, wire_dtype=wire)
@@ -1020,8 +1056,9 @@ def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, ite
     every position) at ``n``^3 (2,2,2) r1 (random fields, bf16 and fp8) and
     24x20x16 (2,1,1) r1 (edge values, sel codes in [-1, 4), every wire);
     ``steps`` steps at ``n``^3 over 8 positions through the fused loop with
-    bf16 and fp8 on the wire against phase 9's CPU loop (the fused and the
-    plain mesh loops agree, on the CPU as on the card); the main path
+    bf16, fp8 e4m3fn, fp8 e5m2 and :data:`SOFT_TIMED` on the wire against
+    phase 9's CPU loop (the fused and the plain mesh loops agree, on the CPU
+    as on the card); the main path
     ``apps.jacobi3d.run(..., kernel_variant="fused", wire_dtype="bfloat16")``
     with launch counts reset around it (75 launches, all narrowed) beside
     the unnarrowed run in turns; B8 timed per launch at ``n``^3 over 8
@@ -1091,7 +1128,7 @@ def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, ite
 
     # steps through the fused loop with a wire against phase 9's CPU loop
     mesh8 = DeviceMesh((2, 2, 2), [dev] * 8)
-    for wire in (BF16, FP8):
+    for wire in (BF16, FP8, E5M2, SOFT_TIMED):
         ex = HaloExchange(spec1, rdma_m, mesh=mesh8, fused=True, wire_dtype=wire)
         c = from_global(cpu_refs["field"], spec1, mesh8)
         out, _ = make_jacobi_loop(ex, steps)(c, [torch.zeros_like(b) for b in c],
@@ -1147,6 +1184,512 @@ def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, ite
         plain_ms=time_ms(lambda: fst.fused_jacobi_mesh_plain(c, nx, s, spec1, plan, mesh8, BF16),
                          3, warmup=1),
         extra={"ms_unnarrowed": mean[None], "ms_fp8": mean[FP8]})}
+    return timings, launches, errs
+
+
+def format_edges():
+    """The new formats' edge values, both signs: each format's largest
+    value, its overflow tie and the tie's neighbours, twice the largest, its
+    least normal (and just above), its least subnormal with a half, a
+    quarter and ties around it, an exponent-only format's least value, the
+    tie at 1 and fp64 values 2^-40 to either side of it (one rounding and
+    two differ there), and 0, inf, NaN."""
+    import math
+
+    from stencil_tpu_torch.ops.halo_fill import WIRE_FORMATS
+
+    vals = [0.0, math.inf, math.nan, 1.0, 1.5, 3.0, 3.3, 0.1]
+    for name in NEW_WIRES:
+        f = WIRE_FORMATS[name]
+        e = math.floor(math.log2(f.top))
+        tie = f.top + 2.0 ** (e - f.mant - 1)
+        sub = 2.0 ** (f.emin - f.mant)
+        half = 1 + 2.0 ** -(f.mant + 1)
+        vals += [f.top, tie, math.nextafter(tie, 0.0), math.nextafter(tie, math.inf), 2 * f.top,
+                 2.0 ** f.emin, 2.0 ** f.emin * (1 + 2.0 ** -20), 2.0 ** (f.emin - 1), sub,
+                 sub / 2, sub / 4, 1.5 * sub, 2.5 * sub, half, half + 2.0 ** -40,
+                 half - 2.0 ** -40]
+    return [s * v for v in vals for s in (1.0, -1.0)]
+
+
+class plain_carriers:
+    """Within the block, B6's and B7's wrappers run their plain versions on
+    whatever tensors they are given (the card's included) and count
+    nothing: the plain version of a path that calls them."""
+
+    def __enter__(self):
+        from stencil_tpu_torch.ops import fused_stencil as fst
+        from stencil_tpu_torch.ops import remote_dma as rdma
+
+        self.saved = (rdma.remote_axis, fst.fused_exchange)
+        rdma.remote_axis = lambda b, s, ph, m, w=None, local=None: \
+            rdma.remote_axis_plain(b, s, ph, m, w, local)
+        fst.fused_exchange = fst.fused_exchange_plain
+        return self
+
+    def __exit__(self, *exc):
+        from stencil_tpu_torch.ops import fused_stencil as fst
+        from stencil_tpu_torch.ops import remote_dma as rdma
+
+        rdma.remote_axis, fst.fused_exchange = self.saved
+        return False
+
+
+def mesh_formats_phase(dev, time_ms, n: int = 512, c2: int = 256, over: int = 256,
+                       mixed: int = 128, ast: int = 128, small: int = 32, iters: int = 50,
+                       chunk: int = 25):
+    """Phase 9's every-format wire, on ``dev``: B6 (every ring phase) and B7
+    through each of :data:`NEW_WIRES` against their plain versions by bit
+    pattern on every cell of every position (NaN as one pattern), on fields
+    of :func:`format_edges` at ``small``^3 (2,2,2) r2 fp32 and 40x36x20
+    (1,2,2) r1 fp64 and on random fields of a 64^3 (2,2,2) r1 fp32 + fp64 +
+    int32 dict (int32 copied bitwise), and each case's whole mesh exchange,
+    plain and fused, on the card against the CPU; the wire on an
+    oversubscribed mesh: (4,2,2) blocks of ``over``^3 on (2,2,2) positions
+    in fp32 (bf16, e3m4) and fp64 (fp32, e5m2) and (2,2,2) blocks of
+    ``mixed``^3 on (1,2,2) positions (x's ring of one: its shifts stay bit
+    copies), one exchange each against its plain version by bit pattern on
+    every cell, launches held (3 an exchange; every one narrowed on (2,2,2)
+    positions, 2 on (1,2,2)); one Astaroth step and one fused-loop iteration over
+    (2,2,2) x ``ast``^3 fp64 with an fp32 wire, each against the same run
+    with the carriers' plain versions (torch.equal on every field), launches
+    held; B6 per phase and B7 at config 2 (``c2``^3 (2,2,2) r2 x4 fp32)
+    through e5m2 and :data:`SOFT_TIMED` against their plain versions by bit
+    pattern, then they and the oversubscribed exchange timed per launch
+    unnarrowed, e5m2,
+    :data:`SOFT_TIMED`, :data:`SOFT_TIMED`, e5m2, unnarrowed; exchange_loop
+    at config 2 through each carrier with e5m2 and the software format
+    (its launch counts); the main paths ``apps.jacobi3d.run(n, n, n,
+    devices=[dev] * 8, method=REMOTE_DMA)`` through e5m2 and the software
+    format, and over (4,2,2) blocks on the 8 positions through e5m2, launch
+    counts reset around each (3 remote_axis launches a step, every one
+    narrowed). Sizes are arguments so that the phase can be rehearsed on
+    the CPU. Returns ``(timings, launches, errs)``."""
+    from stencil_tpu_torch import DistributedDomain, GridSpec
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.astaroth.integrate import (FIELDS, make_astaroth_step,
+                                                      make_fused_astaroth_loop)
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method, split_positions
+    from stencil_tpu_torch.plan.ir import build_plan
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    rdma_m = Method.REMOTE_DMA
+    names = ("remote_axis_wire_e5m2", "remote_axis_wire_soft", "fused_exchange_wire_e5m2",
+             "fused_exchange_wire_soft", "remote_axis_wire_oversubscribed")
+    errs = {name: 0.0 for name in names}
+    timings, launches = {}, {}
+    nan_patterns = 0
+    edges = torch.tensor(format_edges(), dtype=f64, device=dev)
+
+    def rspec(size, part, r):
+        return GridSpec(Dim3(*size), Dim3(*part), Radius.constant(r))
+
+    def fields(spec, dtypes, seed, edged=False, mesh=None):
+        """{q: [stack per position of ``mesh``]} (one block a position
+        without one): edge values or random sign and magnitude 2^U(-12, 9)
+        in every cell; an int32 quantity random integers."""
+        p = spec.padded()
+        shape = tuple(spec.stacked_shape_zyx())
+        out = {}
+        for q, dt in enumerate(dtypes):
+            gen.manual_seed(seed + q)
+            if dt == i32:
+                g = torch.randint(-2 ** 30, 2 ** 30, shape, generator=gen, device=dev, dtype=i32)
+            elif edged:
+                g = edges[torch.randint(len(edges), shape, generator=gen, device=dev)].to(dt)
+            else:
+                g = (torch.randn(shape, generator=gen, device=dev, dtype=f64) * torch.exp2(
+                    torch.rand(shape, generator=gen, device=dev, dtype=f64) * 21 - 12)).to(dt)
+            if mesh is None:
+                out[q] = [b.view(1, 1, 1, p.z, p.y, p.x).clone()
+                          for b in g.view(-1, p.z, p.y, p.x).unbind(0)]
+            else:
+                out[q] = split_positions(g, spec, mesh)
+            del g
+        return out
+
+    def cloned(groups):
+        return [[b.clone() for b in g] for g in groups]
+
+    def held(name, label, got, want):
+        nonlocal nan_patterns
+        res = [bits_equal(a, b) for ga, gb in zip(got, want) for a, b in zip(ga, gb)]
+        nan_patterns += sum(k for _e, k in res)
+        check(all(e for e, _k in res), f"{name} {label}: kernel != plain (bit patterns, NaN as "
+              "one pattern)")
+        errs[name] = max(errs[name], max(wire_err(a, b) for ga, gb in zip(got, want)
+                                         for a, b in zip(ga, gb)))
+
+    def key_of(wire):
+        return "e5m2" if wire == E5M2 else "soft"
+
+    # -- every new format through B6 and B7, kernel against plain -------------------
+    for i, (label, spec, dts, edged) in enumerate((
+            (f"edge values {small}^3 (2,2,2) r2 fp32", rspec((small,) * 3, (2, 2, 2), 2), [f32],
+             True),
+            ("edge values 40x36x20 (1,2,2) r1 fp64", rspec((40, 36, 20), (1, 2, 2), 1), [f64],
+             True),
+            ("64^3 (2,2,2) r1 fp32 + fp64 + int32", rspec((64,) * 3, (2, 2, 2), 1),
+             [f32, f64, i32], False))):
+        mesh = DeviceMesh(spec.dim, [dev] * spec.num_blocks())
+        cpu_mesh = DeviceMesh(spec.dim, [cpu] * spec.num_blocks())
+        st = fields(spec, dts, 700 + 10 * i, edged)
+        plan = build_plan(spec, spec.dim, rdma_m)
+        fplan = build_plan(spec, spec.dim, rdma_m, fused=True)
+        for wire in NEW_WIRES:
+            for dt in dict.fromkeys(dts):
+                start = [[st[k][j] for k, d in enumerate(dts) if d == dt]
+                         for j in range(spec.num_blocks())]
+                for ph in plan.remote_phases:
+                    if ph.ring > 1 and ph.active:
+                        got = rdma.remote_axis(cloned(start), spec, ph, mesh, wire)
+                        want = rdma.remote_axis_plain(cloned(start), spec, ph, mesh, wire)
+                        held(f"remote_axis_wire_{key_of(wire)}", f"{label} {dt} {ph.axis} {wire}",
+                             got, want)
+                got = fst.fused_exchange(cloned(start), spec, fplan, mesh, wire)
+                want = fst.fused_exchange_plain(cloned(start), spec, fplan, mesh, wire)
+                held(f"fused_exchange_wire_{key_of(wire)}", f"{label} {dt} {wire}", got, want)
+            for fused in (False, True):
+                card = {q: [b.clone() for b in bl] for q, bl in st.items()}
+                host = {q: [b.cpu() for b in bl] for q, bl in st.items()}
+                HaloExchange(spec, rdma_m, mesh=mesh, fused=fused, wire_dtype=wire)(card)
+                HaloExchange(spec, rdma_m, mesh=cpu_mesh, fused=fused, wire_dtype=wire)(host)
+                for q in st:
+                    check(all(bits_equal(a.cpu(), b)[0] for a, b in zip(card[q], host[q])),
+                          f"mesh exchange {label} fused={fused} {wire} q{q}: card != CPU")
+                del card, host
+        log(f"mesh {label} through each of {', '.join(NEW_WIRES)}: remote_axis and "
+            "fused_exchange == plain (bit patterns, every cell); both exchanges on the card == "
+            "the CPU")
+        del st
+    log(f"every-format wire checks: {nan_patterns} NaN cells whose widened bits differ between "
+        "the card and the plain version (NaN as one pattern)")
+
+    # -- the wire on an oversubscribed mesh: only the slabs between positions round ----
+    def oversubscribed(label, size, part, mesh_dim, dt, wires, narrowed, timed=False):
+        spec = rspec(size, part, 1)
+        mesh = DeviceMesh(Dim3(*mesh_dim), [dev] * Dim3(*mesh_dim).flatten())
+        st = fields(spec, [dt], 760, mesh=mesh)
+        per = {}
+        for wire in wires:
+            ex = HaloExchange(spec, rdma_m, mesh=mesh, wire_dtype=wire)
+            card = {0: [b.clone() for b in st[0]]}
+            plain = {0: [b.clone() for b in st[0]]}
+            rdma.remote_axis.launches = rdma.remote_axis.narrowed = 0
+            ex(card)
+            sync(dev)
+            got = (rdma.remote_axis.launches, rdma.remote_axis.narrowed)
+            check(got == (3 * on_card, narrowed * on_card),
+                  f"oversubscribed {label} {wire}: (launches, narrowed) {got}, expected "
+                  f"{(3 * on_card, narrowed * on_card)}")
+            with plain_carriers():
+                ex(plain)
+            res = [bits_equal(a, b) for a, b in zip(card[0], plain[0])]
+            check(all(e for e, _k in res), f"oversubscribed {label} {wire}: kernel != plain")
+            errs["remote_axis_wire_oversubscribed"] = max(
+                errs["remote_axis_wire_oversubscribed"],
+                max(wire_err(a, b) for a, b in zip(card[0], plain[0])))
+            del card, plain
+            log(f"oversubscribed mesh {label} {dt} through {wire}: (launches, narrowed) {got}, "
+                "every cell of every block == the plain version (bit patterns)")
+        if timed:
+            ex_of = {w: HaloExchange(spec, rdma_m, mesh=mesh, wire_dtype=w)
+                     for w in (None, E5M2, SOFT_TIMED)}
+            ex_of[None](st)
+            for w in (None, E5M2, SOFT_TIMED, SOFT_TIMED, E5M2, None):
+                per.setdefault(w, []).append(time_ms(lambda w=w: ex_of[w](st), 10, graph=True)
+                                             / 3)
+            with plain_carriers():
+                plain = time_ms(lambda: ex_of[E5M2](st), 3) / 3
+            ring = [ph for ph in build_plan(spec, spec.dim, rdma_m).remote_phases if ph.active]
+            nbytes = sum(rdma.remote_axis_bytes(spec, ph, 1, spec.num_blocks(), dt.itemsize)
+                         for ph in ring) / len(ring)
+            timings["remote_axis_wire_oversubscribed"] = dict(
+                ms=sum(per[E5M2]) / len(per[E5M2]), plain_ms=plain, bound=bound_ms(nbytes, 0),
+                library_ms=None, extra={"ms_unnarrowed": sum(per[None]) / len(per[None]),
+                                        "ms_soft": sum(per[SOFT_TIMED]) / len(per[SOFT_TIMED])})
+            log(f"time oversubscribed {label} exchange (CUDA-graph replay), per launch (mean "
+                "of its 3) in turns: "
+                + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in per[w])}"
+                            for w in dict.fromkeys(per))
+                + f" ms (bound {bound_ms(nbytes, 0)[0]:.4f} ms by bytes)")
+        del st
+
+    oversubscribed(f"(4,2,2) x {over}^3 on (2,2,2) positions", (4 * over, 2 * over, 2 * over),
+                   (4, 2, 2), (2, 2, 2), f32, (BF16, "float8_e3m4"), 3, timed=True)
+    oversubscribed(f"(4,2,2) x {over}^3 on (2,2,2) positions", (4 * over, 2 * over, 2 * over),
+                   (4, 2, 2), (2, 2, 2), f64, ("float32", E5M2), 3)
+    oversubscribed(f"(2,2,2) x {mixed}^3 on (1,2,2) positions", (2 * mixed,) * 3, (2, 2, 2),
+                   (1, 2, 2), f32, (E5M2,), 2)
+    log(f"every-format wire phase: oversubscribed done at {time.perf_counter() - t0:.1f} s")
+
+    # -- the Astaroth mesh with an fp32 wire: one step, one fused-loop iteration --------
+    ainfo = astaroth_app.load()
+    spec = rspec((2 * ast,) * 3, (2, 2, 2), 3)
+    mesh = DeviceMesh((2, 2, 2), [dev] * 8)
+    gen.manual_seed(780)
+    g = {k: torch.rand(tuple(spec.stacked_shape_zyx()), generator=gen, device=dev,
+                       dtype=f64) for k in FIELDS}
+    for fused in (False, True):
+        outs = []
+        for plain in (False, True):
+            fn = fst.fused_exchange if fused else rdma.remote_axis
+            fn.launches = fn.narrowed = 0
+            ex = HaloExchange(spec, rdma_m, mesh=mesh, fused=fused, wire_dtype="float32")
+            curr = {k: split_positions(t, spec, mesh) for k, t in g.items()}
+            nxt = {k: [torch.zeros_like(b) for b in v] for k, v in curr.items()}
+            step = (make_fused_astaroth_loop(ex, ainfo, iters=1, dt=1e-5, dtype="float64")
+                    if fused else make_astaroth_step(ex, ainfo, dt=1e-5, iters=1, dtype="float64"))
+            sync(dev)
+            if plain:
+                with plain_carriers():
+                    curr, nxt = step(curr, nxt)
+            else:
+                curr, nxt = step(curr, nxt)
+            sync(dev)
+            counts = (fn.launches, fn.narrowed)
+            want = (0, 0) if plain or not on_card else ((1, 1) if fused else (3, 3))
+            check(counts == want, f"astaroth mesh {'fused loop' if fused else 'step'} with an "
+                  f"fp32 wire: (launches, narrowed) {counts}, expected {want}")
+            outs.append(curr)
+            del ex, nxt, step
+        check(all(torch.equal(a, b) for k in FIELDS for a, b in zip(outs[0][k], outs[1][k])),
+              f"astaroth mesh {'fused loop' if fused else 'step'} (2,2,2) x {ast}^3 fp64 with an "
+              "fp32 wire: card != the same run with the carriers' plain versions")
+        log(f"astaroth mesh {'fused loop' if fused else 'step'} (2,2,2) x {ast}^3 fp64, fp32 on "
+            f"the wire, one iteration: every field == the run with the carriers' plain versions "
+            f"({'B7 once, narrowed' if fused else 'B6 3 launches, all narrowed'})")
+        del outs
+    del g
+
+    # -- B6 per phase and B7 at config 2, in turns -----------------------------------
+    spec = rspec((c2,) * 3, (2, 2, 2), 2)
+    mesh = DeviceMesh((2, 2, 2), [dev] * 8)
+    st = fields(spec, [f32] * 4, 790)
+    groups = [[st[q][j] for q in range(4)] for j in range(8)]
+    ring = [ph for ph in build_plan(spec, (2, 2, 2), rdma_m).remote_phases if ph.active]
+    fplan = build_plan(spec, (2, 2, 2), rdma_m, fused=True)
+    for wire in (E5M2, SOFT_TIMED):
+        for ph in ring:
+            held(f"remote_axis_wire_{key_of(wire)}", f"config 2 {ph.axis} {wire}",
+                 rdma.remote_axis(cloned(groups), spec, ph, mesh, wire),
+                 rdma.remote_axis_plain(cloned(groups), spec, ph, mesh, wire))
+        held(f"fused_exchange_wire_{key_of(wire)}", f"config 2 {wire}",
+             fst.fused_exchange(cloned(groups), spec, fplan, mesh, wire),
+             fst.fused_exchange_plain(cloned(groups), spec, fplan, mesh, wire))
+    log(f"config 2 ({c2}^3 (2,2,2) r2 x4 fp32) through {E5M2} and {SOFT_TIMED}: remote_axis "
+        "(each phase) and fused_exchange == plain (bit patterns, every cell)")
+    turns = (None, E5M2, SOFT_TIMED, SOFT_TIMED, E5M2, None)
+    per = {w: [[] for _ in ring] for w in turns}
+    fper = {w: [] for w in turns}
+    for wire in turns:
+        for k, ph in enumerate(ring):
+            per[wire][k].append(time_ms(
+                lambda ph=ph, w=wire: rdma.remote_axis(groups, spec, ph, mesh, w), 20, graph=True))
+        fper[wire].append(time_ms(lambda w=wire: fst.fused_exchange(groups, spec, fplan, mesh, w),
+                                  20, graph=True))
+    for k, ph in enumerate(ring):
+        log(f"time remote_axis config 2 {ph.axis} per launch in turns: "
+            + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in per[w][k])}"
+                        for w in dict.fromkeys(turns))
+            + f" ms (bound {bound_ms(rdma.remote_axis_bytes(spec, ph, 4, 8, 4), 0)[0]:.4f} ms)")
+    log("time fused_exchange config 2 per launch in turns: "
+        + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in fper[w])}"
+                    for w in dict.fromkeys(turns)) + " ms")
+    mean = {w: sum(sum(v) / len(v) for v in per[w]) / len(ring) for w in per}
+    fmean = {w: sum(v) / len(v) for w, v in fper.items()}
+    nbytes = sum(rdma.remote_axis_bytes(spec, ph, 4, 8, 4) for ph in ring) / len(ring)
+    fb = bound_ms(fst.fused_exchange_bytes(fplan, 4, 8, 4), 0)
+    for wire in (E5M2, SOFT_TIMED):
+        timings[f"remote_axis_wire_{key_of(wire)}"] = dict(
+            ms=mean[wire], bound=bound_ms(nbytes, 0), library_ms=None,
+            plain_ms=time_ms(lambda w=wire: [rdma.remote_axis_plain(groups, spec, ph, mesh, w)
+                                             for ph in ring], 3) / len(ring),
+            extra={"ms_unnarrowed": mean[None], "wire": wire})
+        timings[f"fused_exchange_wire_{key_of(wire)}"] = dict(
+            ms=fmean[wire], bound=fb, library_ms=None,
+            plain_ms=time_ms(lambda w=wire: fst.fused_exchange_plain(groups, spec, fplan, mesh,
+                                                                     w), 3),
+            extra={"ms_unnarrowed": fmean[None], "wire": wire})
+    del st, groups
+
+    # -- exchange_loop at config 2 through each carrier: the B7 launches -------------
+    for fused in (False, True):
+        name = "fused_exchange" if fused else "remote_axis"
+        fn = fst.fused_exchange if fused else rdma.remote_axis
+        for wire in (E5M2, SOFT_TIMED):
+            dd = DistributedDomain(c2, c2, c2, device=dev)
+            dd.set_radius(2)
+            dd.set_methods(rdma_m)
+            dd.set_devices([dev] * 8)
+            dd.set_fused_exchange(fused)
+            dd.set_wire_dtype(wire)
+            hs = [dd.add_data(f"q{q}", "float32") for q in range(4)]
+            dd.realize()
+            st = fields(dd.spec, [f32] * 4, 795)
+            for q, h in enumerate(hs):
+                dd.set_curr(h, st[q])
+            fn.launches = fn.narrowed = 0
+            dd.exchange_loop(1)(dd.curr_state())
+            sync(dev)
+            want_n = (1 if fused else 3) * on_card
+            check(fn.launches == want_n and fn.narrowed == want_n,
+                  f"config-2 exchange via {name}, wire {wire}: {fn.launches} launches, "
+                  f"{fn.narrowed} narrowed")
+            if fused:
+                launches[f"fused_exchange_wire_{key_of(wire)}"] = fn.narrowed
+            del dd, st
+
+    # -- the main paths: jacobi3d over 8 positions through e5m2 and the software ----
+    #    format, and over (4,2,2) blocks on the 8 positions through e5m2
+    run_steps = (iters + chunk) * on_card
+    hot, cold = (m.cpu() for m in sk.sphere_masks_from_coords(rspec((n,) * 3, (1, 1, 1), 1), dev))
+    for key, wire, kw in (("e5m2", E5M2, {}), ("soft", SOFT_TIMED, {}),
+                          ("oversubscribed", E5M2, {"partition": (4, 2, 2)})):
+        rdma.remote_axis.launches = rdma.remote_axis.narrowed = 0
+        rv = jacobi3d.run(n, n, n, devices=[dev] * 8, method=rdma_m, iters=iters, chunk=chunk,
+                          weak=False, wire_dtype=wire, **kw)
+        sync(dev)
+        got = (rdma.remote_axis.launches, rdma.remote_axis.narrowed)
+        m = rv["domain"].mesh.dim  # an axis whose positions' ring is 1 narrows nothing
+        want = (3 * run_steps, sum(k > 1 for k in (m.x, m.y, m.z)) * run_steps)
+        check(got == want, f"jacobi3d over 8 positions {kw} (mesh {m}), wire {wire}: "
+              f"remote_axis (launches, narrowed) {got}, expected {want}")
+        fin = torch.from_numpy(rv["domain"].get_curr_global(rv["handle"]))
+        check(bool(torch.isfinite(fin).all()) and float(fin.min()) >= 0.0
+              and float(fin.max()) <= 1.0 and bool((fin[hot] == 1.0).all())
+              and bool((fin[cold] == 0.0).all()),
+              f"jacobi3d over 8 positions {kw}, wire {wire}: field not finite, out of range or "
+              "spheres lost")
+        launches[f"remote_axis_wire_{key}"] = got[1]
+        log(f"jacobi3d {n}^3 over 8 positions {kw} (mesh {m}; remote-dma, wire {wire}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), remote_axis (launches, "
+            f"narrowed) {got}")
+        del rv, fin
+    log(f"every-format wire phase (9): {time.perf_counter() - t0:.1f} s")
+    return timings, launches, errs
+
+
+def variant_formats_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: int = 25):
+    """Phase 10's every-format wire, on ``dev``: B8 through each of
+    :data:`NEW_WIRES` against its plain version by bit pattern (NaN as one
+    pattern; curr with its halos and nxt, every position) at 24x20x16
+    (2,1,1) r1 of :func:`format_edges` with sel codes in [-1, 4), and
+    through e5m2 and :data:`SOFT_TIMED` at ``n``^3 (2,2,2) r1 from random
+    fields; the main path ``apps.jacobi3d.run(..., kernel_variant="fused")``
+    over 8 positions through each of the two (75 launches, all narrowed);
+    B8 timed per launch at ``n``^3 over 8 positions unnarrowed, e5m2, the
+    software format, the software format, e5m2, unnarrowed. Returns
+    ``(timings, launches, errs)``."""
+    from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.parallel import DeviceMesh, Method
+    from stencil_tpu_torch.plan.ir import build_plan
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    rdma_m = Method.REMOTE_DMA
+    names = ("fused_jacobi_mesh_wire_e5m2", "fused_jacobi_mesh_wire_soft")
+    errs = {name: 0.0 for name in names}
+    edges = torch.tensor(format_edges(), dtype=torch.float64, device=dev)
+    nan_patterns = 0
+
+    def fields(spec, seed, edged, codes):
+        p = spec.padded()
+        shape = (1, 1, 1, p.z, p.y, p.x)
+        gen.manual_seed(seed)
+        npos = spec.num_blocks()
+        out = [edges[torch.randint(len(edges), shape, generator=gen, device=dev)].to(f32)
+               if edged else torch.rand(shape, generator=gen, device=dev)
+               for _ in range(2 * npos)]
+        sels = [torch.randint(*codes, shape, generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(npos)]
+        return out[:npos], out[npos:], sels
+
+    spec1 = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(1))
+    mesh8 = DeviceMesh((2, 2, 2), [dev] * 8)
+    for i, (label, spec, edged, codes, wires) in enumerate((
+            ("24x20x16 (2,1,1) r1 edge values, sel in [-1, 4)",
+             GridSpec(Dim3(24, 20, 16), Dim3(2, 1, 1), Radius.constant(1)), True, (-1, 4),
+             NEW_WIRES),
+            (f"{n}^3 (2,2,2) r1", spec1, False, (0, 3), (E5M2, SOFT_TIMED)))):
+        mesh = DeviceMesh(spec.dim, [dev] * spec.num_blocks())
+        plan = build_plan(spec, spec.dim, rdma_m, fused=True)
+        c, nx, s = fields(spec, 800 + 10 * i, edged, codes)
+        for wire in wires:
+            gc, gn = [b.clone() for b in c], [b.clone() for b in nx]
+            pc, pn = [b.clone() for b in c], [b.clone() for b in nx]
+            fst.fused_jacobi_mesh(gc, gn, s, spec, plan, mesh, wire)
+            fst.fused_jacobi_mesh_plain(pc, pn, s, spec, plan, mesh, wire)
+            res = [bits_equal(a, b) for a, b in zip(gc + gn, pc + pn)]
+            nan_patterns += sum(k for _e, k in res)
+            check(all(e for e, _k in res), f"fused_jacobi_mesh {label} {wire}: kernel != plain "
+                  "(bit patterns, NaN as one pattern)")
+            key = names[0] if wire == E5M2 else names[1]
+            errs[key] = max(errs[key], max(wire_err(a, b) for a, b in zip(gc + gn, pc + pn)))
+            del gc, gn, pc, pn
+        log(f"fused_jacobi_mesh {label} through each of {', '.join(wires)}: equal (every "
+            "position's curr with halos, and nxt; bit patterns)")
+        del c, nx, s
+    log(f"every-format wire checks of phase 10: {nan_patterns} NaN cells whose widened bits "
+        "differ between the card and the plain version (NaN as one pattern)")
+
+    # the main paths through e5m2 and the software format
+    launches = {}
+    run_steps = (iters + chunk) * on_card
+    for key, wire in zip(names, (E5M2, SOFT_TIMED)):
+        fst.fused_jacobi_mesh.launches = fst.fused_jacobi_mesh.narrowed = 0
+        rv = jacobi3d.run(n, n, n, devices=[dev] * 8, method=rdma_m, iters=iters, chunk=chunk,
+                          weak=False, kernel_variant="fused", wire_dtype=wire)
+        sync(dev)
+        got = (fst.fused_jacobi_mesh.launches, fst.fused_jacobi_mesh.narrowed)
+        check(got == (run_steps, run_steps),
+              f"jacobi3d fused over 8 positions, wire {wire}: (launches, narrowed) {got}")
+        fin = rv["domain"].get_curr_global(rv["handle"])
+        check(bool(np.isfinite(fin).all()) and fin.min() >= 0.0 and fin.max() <= 1.0,
+              f"jacobi3d fused over 8 positions, wire {wire}: field not finite or out of range")
+        launches[key] = got[1]
+        log(f"jacobi3d {n}^3 over 8 positions (remote-dma fused, wire {wire}): "
+            f"{rv['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), (launches, narrowed) {got}")
+        del rv, fin
+
+    # per launch in turns (cooperative launches: CUDA events, no graph)
+    plan = build_plan(spec1, (2, 2, 2), rdma_m, fused=True)
+    c, nx, s = fields(spec1, 890, False, (0, 3))
+    turns = (None, E5M2, SOFT_TIMED, SOFT_TIMED, E5M2, None)
+    per = {w: [] for w in turns}
+    for wire in turns:
+        per[wire].append(time_ms(
+            lambda w=wire: fst.fused_jacobi_mesh(c, nx, s, spec1, plan, mesh8, w), 20))
+    b = bound_ms(fst.fused_jacobi_mesh_bytes(plan, 8, spec1), 6 * n ** 3)
+    log(f"time fused_jacobi_mesh {n}^3 over 8 positions per launch in turns: "
+        + "; ".join(f"{w or 'unnarrowed'} {', '.join(f'{v:.4f}' for v in per[w])}"
+                    for w in dict.fromkeys(turns))
+        + f" ms (bound {b[0]:.4f} ms by {b[1]})")
+    timings = {}
+    for key, wire in zip(names, (E5M2, SOFT_TIMED)):
+        timings[key] = dict(
+            ms=sum(per[wire]) / len(per[wire]), bound=b, library_ms=None,
+            plain_ms=time_ms(lambda w=wire: fst.fused_jacobi_mesh_plain(c, nx, s, spec1, plan,
+                                                                        mesh8, w), 3, warmup=1),
+            extra={"ms_unnarrowed": sum(per[None]) / len(per[None]), "wire": wire})
+    del c, nx, s
+    log(f"every-format wire phase (10): {time.perf_counter() - t0:.1f} s")
     return timings, launches, errs
 
 
@@ -1561,6 +2104,8 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
 # built them: the element-type templates leave them as they were
 FP32_BUILDS = {"jacobi_multistep": (80, 736, 1), "fused_jacobi": (56, 352, 3),
                "jacobi_sweep": (72, 352, 2)}
+# the unnarrowed row-move body's registers (B6 and B7), fp32 and fp64 words
+ROW_MOVE_REGS = 32
 
 # the float64 forms in the {"kernels": [...]} line, each beside the fp32
 # entry whose source and TPU builder it shares
@@ -3921,21 +4466,26 @@ def main() -> int:
             f"{si['local_bytes']} bytes of spill, {si['blocks_per_sm']} block(s) of "
             f"{si['threads']} threads per SM, {si['smem_bytes']} bytes of shared memory; "
             f"{sk.sweep_blocks_in_flight(0, item)} resident blocks")
-    wire_names = {0: "unnarrowed", 1: "bf16", 2: "fp16", 3: "fp8 e4m3", 4: "fp32"}
-    for code in (1, 2, 3):
+    wire_names = {0: "unnarrowed", 1: "bf16", 2: "fp16", 3: "fp8 e4m3", 4: "fp32",
+                  5: "fp8 e5m2", halo_fill.SOFT_WIRE: "software formats (SOFT)"}
+    for code in (1, 2, 3, 5, halo_fill.SOFT_WIRE):
         wi = fst.fused_info(0, code)
         check(wi["threads"] == fsh["threads"] and wi["smem_bytes"] == fsh["smem_bytes"]
-              and wi["blocks_per_sm"] >= 1,
-              f"fused step kernel through the {wire_names[code]} wire: launch shape {wi}")
+              and wi["blocks_per_sm"] >= 1 and wi["local_bytes"] == 0,
+              f"fused step kernel through the {wire_names[code]} wire: launch shape {wi} "
+              "(or it spills)")
         log(f"fused_jacobi through the {wire_names[code]} wire: {wi['regs']} registers, "
             f"{wi['local_bytes']} bytes of spill, {wi['blocks_per_sm']} block(s) per SM")
     regs = (ctypes.c_int * 2)()
-    for elem, codes in ((4, (0, 1, 2, 3)), (8, (0, 4, 1, 2, 3))):
+    for elem, codes in ((4, (0, 1, 2, 3, 5, halo_fill.SOFT_WIRE)),
+                        (8, (0, 4, 1, 2, 3, 5, halo_fill.SOFT_WIRE))):
         for code in codes:
             _native.check(_native.lib("remote_axis").remote_axis_info(elem, code, regs),
                           "remote_axis_info")
-            check(code != 0 or regs[1] == 0,
-                  f"the unnarrowed {8 * elem}-bit row-move body spills")
+            check(regs[1] == 0 and (code != 0 or regs[0] == ROW_MOVE_REGS),
+                  f"the {8 * elem}-bit row-move body through the {wire_names[code]} wire: "
+                  f"{regs[0]} registers, {regs[1]} bytes of spill (the unnarrowed body holds "
+                  f"{ROW_MOVE_REGS}; no instantiation spills)")
             log(f"row-move body (remote_axis, fused_exchange), {8 * elem}-bit words, "
                 f"{wire_names[code]}: {regs[0]} registers, {regs[1]} bytes of spill")
     in_flight = fi["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
@@ -5399,6 +5949,17 @@ def main() -> int:
             f"{t['extra']['ms_unnarrowed']:.4f}, fp8 {t['extra']['ms_fp8']:.4f}; plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
 
+    # every other format the JAX package narrows through, B6 and B7; the
+    # wire on an oversubscribed mesh and on the Astaroth mesh
+    t9b, l9b, e9b = mesh_formats_phase(dev, time_ms)
+    timings.update(t9b)
+    launches.update(l9b)
+    errs.update(e9b)
+    for name, t in t9b.items():
+        log(f"time {name} ({t['extra'].get('wire', 'float8_e5m2')}): {t['ms']:.4f} ms per launch "
+            f"(unnarrowed {t['extra']['ms_unnarrowed']:.4f}; plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms by {t['bound'][1]}); {l9b[name]} launches on its main path")
+
     # -- 10. mesh variants: the fused step and the persistent chunk over 8 ---
     #        block positions, one cooperative launch for every position
     for key in ("fused_jacobi_mesh", "persistent_jacobi_mesh"):
@@ -5545,6 +6106,16 @@ def main() -> int:
         f"launch (unnarrowed {t['extra']['ms_unnarrowed']:.4f}, fp8 {t['extra']['ms_fp8']:.4f}; "
         f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]})")
 
+    # B8 through every other format
+    t10b, l10b, e10b = variant_formats_phase(dev, time_ms)
+    timings.update(t10b)
+    launches.update(l10b)
+    errs.update(e10b)
+    for name, t in t10b.items():
+        log(f"time {name} ({t['extra']['wire']}): {t['ms']:.4f} ms per launch (unnarrowed "
+            f"{t['extra']['ms_unnarrowed']:.4f}; plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms by {t['bound'][1]}); {l10b[name]} launches on its main path")
+
     # -- 11. the guarded main path: health kernel, headline leg, rollbacks ----
     from stencil_tpu_torch.ops import health_reduce as hr
 
@@ -5660,6 +6231,24 @@ def main() -> int:
                                 "stencil_tpu/ops/fused_stencil.py:118"),
         "fused_jacobi_mesh_wire": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
                                    "stencil_tpu/ops/fused_stencil.py:292"),
+        # the same through fp8 e5m2 (the card's conversion) and through a
+        # format the card does not convert (the SOFT instantiation); B6's
+        # over the blocks of an oversubscribed mesh (only the slabs between
+        # positions round)
+        "remote_axis_wire_e5m2": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                                  "stencil_tpu/ops/remote_dma.py:101"),
+        "remote_axis_wire_soft": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                                  "stencil_tpu/ops/remote_dma.py:101"),
+        "fused_exchange_wire_e5m2": ("stencil_tpu_torch/csrc/fused_exchange.cu",
+                                     "stencil_tpu/ops/fused_stencil.py:118"),
+        "fused_exchange_wire_soft": ("stencil_tpu_torch/csrc/fused_exchange.cu",
+                                     "stencil_tpu/ops/fused_stencil.py:118"),
+        "fused_jacobi_mesh_wire_e5m2": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
+                                        "stencil_tpu/ops/fused_stencil.py:292"),
+        "fused_jacobi_mesh_wire_soft": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
+                                        "stencil_tpu/ops/fused_stencil.py:292"),
+        "remote_axis_wire_oversubscribed": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                                            "stencil_tpu/ops/remote_dma.py:101"),
         # no Pallas builder: the JAX guard's fused XLA reduction
         "health_reduce": ("stencil_tpu_torch/csrc/health_reduce.cu",
                           "stencil_tpu/fault/health.py:84"),

@@ -211,11 +211,13 @@ class DistributedDomain:
         """bf16-on-the-wire halo compression (``None`` or "" = off), as in the
         JAX package: halo messages that cross between mesh positions narrow
         to this dtype on the way and widen on arrival
-        (``HaloExchange(wire_dtype=...)``; ``ops/halo_fill.wire_narrow_dtype``
+        (``HaloExchange(wire_dtype=...)``; ``ops/halo_fill.wire_format``
         owns the policy: only floating quantities narrow, local copies stay
         lossless). LOSSY by design: the exchanged halos round to the wire
-        precision. The port takes bfloat16, float16, float8_e4m3fn and, for
-        float64 data, float32; on one device it is a no-op. Checkpoint
+        precision. The port takes every floating format the JAX package
+        does (``ops/halo_fill.WIRE_FORMATS``: bfloat16, float16, the fp8
+        and fp4 formats and, for float64 data, float32); on one device it
+        is a no-op. Checkpoint
         manifests record it (:meth:`plan_meta`), and a resume under another
         wire warns."""
         self._wire_dtype = wire_name(dtype)

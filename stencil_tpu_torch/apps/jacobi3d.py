@@ -50,9 +50,10 @@ is built for is accepted. ``--prefix P`` writes the domain's plan files
 ``--method remote-dma`` with ``--kernel-variant fused`` (or ``--fused``) runs
 one fused step kernel per step; ``--kernel-variant persistent --deep-halo K``
 runs one whole-chunk kernel per K steps over radius-K halos. ``--wire-dtype
-bfloat16`` (or ``float8_e4m3fn``, ``float16``) narrows the halo messages
-that cross between mesh positions, in the plain and the fused mesh paths
-(a no-op on one device; the persistent variant over a mesh refuses it).
+bfloat16`` (or ``float16``, or any fp8 or fp4 format the JAX package takes,
+``ops/halo_fill.WIRE_FORMATS``) narrows the halo messages that cross
+between mesh positions, in the plain and the fused mesh paths (a no-op on
+one device; the persistent variant over a mesh refuses it).
 
 The planner and the live layer, as in the JAX app: ``--autotune`` (with
 ``--plan-db PATH``) tunes the exchange plan at realize() over the run's
@@ -84,6 +85,7 @@ from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, Recove
                      chunk_plan, run_guarded)
 from ..geometry import Dim3, prime_factors
 from ..obs import telemetry
+from ..ops.halo_fill import WIRE_FORMATS
 from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks
 from ..parallel.exchange import Method
 from ..utils import logging as log
@@ -541,10 +543,10 @@ def main(argv: Optional[list] = None) -> int:
                    help="comma list of torch devices, one block position each, "
                         "repeats allowed (e.g. cuda:0,cuda:0); needs --method remote-dma")
     p.add_argument("--wire-dtype", type=str, default="",
-                   help="on-the-wire halo compression (bfloat16 or the fp8 "
-                        "tier float8_e4m3fn; also float16): wire-crossing "
-                        "exchange carriers narrow to this dtype (LOSSY — "
-                        "halos round to the wire precision)")
+                   help="on-the-wire halo compression, one of "
+                        f"{', '.join(WIRE_FORMATS)} (float32 narrows float64 "
+                        "data only): wire-crossing exchange carriers narrow to "
+                        "this format (LOSSY — halos round to the wire precision)")
     p.add_argument("--prefix", type=str, default="",
                    help="prefix of the files the run writes: the domain's plan files "
                         "(plan_0.txt, mat_npy_loadtxt.txt) at realize; the JAX app's "

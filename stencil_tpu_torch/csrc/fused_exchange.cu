@@ -55,11 +55,11 @@
 // direction) pointer rows, m rows per group of the work list; segs: device
 // table of nseg work-list rows (row_moves.cuh), their tasks ending at
 // `tasks`; elem_size: 4 or 8; wire: the wire code (wire_round.cuh; 0 copies
-// bits), applied to the segments flagged narrow (the crossing directions);
-// sz / sy: the padded block's plane and row strides in words. Launches on
+// bits) and fmt its format's parameters (halo_fill.wire_params), applied to
+// the segments flagged narrow (the crossing directions); sz / sy: the padded block's plane and row strides in words. Launches on
 // the current device, where every block lies.
 extern "C" int fused_exchange_launch(const void* ptrs, int m, const void* segs, int nseg,
-                                     long long tasks, int elem_size, int wire, long long sz,
-                                     long long sy, void* stream) {
-  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, sz, sy, stream);
+                                     long long tasks, int elem_size, int wire, const double* fmt,
+                                     long long sz, long long sy, void* stream) {
+  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, fmt, sz, sy, stream);
 }

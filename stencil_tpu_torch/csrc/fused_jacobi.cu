@@ -52,7 +52,8 @@
 //
 // The narrowed wire (the TPU kernel's wire_dtype form, fused_stencil.py:292):
 // a launch takes one wire code W (wire_round.cuh; fp32 fields narrow to
-// bf16, fp16 or e4m3), and a segment flagged narrow (its box crosses between
+// bf16, fp16, e4m3, e5m2, or any other format as W = SOFT by the format in
+// the launch's parameters), and a segment flagged narrow (its box crosses between
 // positions) rounds each word of a unit between phase A's load and its store:
 // the TPU kernel's narrow staging and widening unpack, in registers, in the
 // same launch. W = NONE is the unnarrowed kernel, unchanged: the rounding is
@@ -95,13 +96,15 @@ struct Step {
   int npos, m, nseg;
   long long tasks;
   runs::Geometry g;
+  wire::Format fmt;  // the format W = SOFT rounds into
 };
 
 // Units i0 + u * NT (u < UNROLL, below n) of a segment, V a unit, WIRE the
-// wire.
+// wire of format f.
 template <typename V, int WIRE>
 __device__ __forceinline__ void move_units(const float* src, float* dst, const RowSeg& s,
-                                           unsigned n, unsigned i0, long long sz, int sy) {
+                                           unsigned n, unsigned i0, long long sz, int sy,
+                                           const wire::Format& f) {
   constexpr int WORDS = sizeof(V) / sizeof(float);
   const unsigned units = (unsigned)s.units, ey = (unsigned)s.ey;
   long long off[UNROLL];
@@ -115,7 +118,7 @@ __device__ __forceinline__ void move_units(const float* src, float* dst, const R
       off[u] = (long long)rz * sz + (long long)ry * sy + x * WORDS;
       v[u] = __ldcg(reinterpret_cast<const V*>(src + off[u]));
       if constexpr (WIRE != wire::NONE) {
-        if (s.narrow) v[u] = wire::narrow<WIRE>(v[u]);
+        if (s.narrow) v[u] = wire::narrow<WIRE>(v[u], f);
       }
     }
   }
@@ -142,8 +145,8 @@ __device__ __forceinline__ void move_rows(const Step& s) {
     float* dst = s.pos[msg.dst].a + seg.dst;
     const unsigned n = (unsigned)(seg.rows * seg.units);
     const unsigned i0 = (unsigned)((k - j * seg.chunks) * TASK) + threadIdx.x;
-    if (seg.width == 4) move_units<float4, WIRE>(src, dst, seg, n, i0, s.g.sz, s.g.sy);
-    else move_units<float, WIRE>(src, dst, seg, n, i0, s.g.sz, s.g.sy);
+    if (seg.width == 4) move_units<float4, WIRE>(src, dst, seg, n, i0, s.g.sz, s.g.sy, s.fmt);
+    else move_units<float, WIRE>(src, dst, seg, n, i0, s.g.sz, s.g.sy, s.fmt);
   }
 }
 
@@ -187,6 +190,8 @@ const void* kernel_for(int w) {
     case wire::BF16: return (const void*)fused_step_kernel<wire::BF16>;
     case wire::F16: return (const void*)fused_step_kernel<wire::F16>;
     case wire::E4M3: return (const void*)fused_step_kernel<wire::E4M3>;
+    case wire::E5M2: return (const void*)fused_step_kernel<wire::E5M2>;
+    case wire::SOFT: return (const void*)fused_step_kernel<wire::SOFT>;
     default: return nullptr;
   }
 }
@@ -205,17 +210,20 @@ cudaError_t occupancy(const void* kernel, int* per_sm) {
 // stride sy, compute region at (zo, yo, xo) of nz x ny x nx cells, halos of
 // at least one cell; vec: every pointer on the 16-byte grid and sz, sy
 // multiples of 4; w: the wire code (wire_round.cuh; 0 copies bits) of the
-// segments flagged narrow; dev: the device of every block. A launch the
+// segments flagged narrow, fmt its format's parameters
+// (halo_fill.wire_params; read for wire::SOFT); dev: the device of every
+// block. A launch the
 // device refuses returns its error; there is no fallback.
 extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, int m,
                                    const void* segs, int nseg, int seg_cols, long long tasks,
                                    long long sz, long long sy, int zo, int yo, int xo, int nz,
-                                   int ny, int nx, int vec, int w, int dev, void* stream) {
+                                   int ny, int nx, int vec, int w, const double* fmt, int dev,
+                                   void* stream) {
   const void* kernel = kernel_for(w);
   if (npos < 1 || m < 1 || nseg < 1 || nseg > MAX_SEGS || seg_cols != SEG_COLS || tasks < 1 ||
       tasks > INT_MAX || nz < 1 || ny < 1 || nx < 1 || zo < 1 || yo < 1 || xo < 1 ||
       sz >= (1LL << 31) || sy < xo + nx + 1 || sz < sy * (yo + ny + 1) || (vec != 0 && vec != 1) ||
-      !kernel)
+      !kernel || (w == wire::SOFT && !fmt))
     return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
@@ -232,6 +240,7 @@ extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, i
   s.m = m;
   s.nseg = nseg;
   s.tasks = tasks;
+  s.fmt = wire::Format::from(fmt);
   runs::Geometry& g = s.g;
   g.sz = sz;
   g.sy = (int)sy;

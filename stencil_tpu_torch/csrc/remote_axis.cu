@@ -38,11 +38,15 @@
 // same-GPU PeerAccessSender write): no landing buffer and no unpack.
 //
 // The wire_dtype form (make_remote_axis_kernel's narrow VMEM staging,
-// :101-146): with a wire code every slab word is rounded through the wire in
-// registers between its load and its store (wire_round.cuh; a ring phase's
-// slabs all cross), so the halo receives the narrowed-and-widened word in the
-// same one launch. An axis with one position is not this kernel's: it is a
-// self-wrap fill and never narrows.
+// :101-146): with a wire code every slab word that leaves its position is
+// rounded through the wire in registers between its load and its store
+// (wire_round.cuh), so the halo receives the narrowed-and-widened word in the
+// same one launch. With one block a position every slab of a ring phase
+// leaves; over the blocks of an oversubscribed mesh the pointer rows of a
+// sender whose neighbour shares its position are marked local
+// (row_moves.cuh), and those shifts stay bit copies in the same launch, as
+// the TPU carrier moves them locally. An axis with one position is not this
+// kernel's: it is a self-wrap fill and never narrows.
 //
 // Ordering: within one phase every read is of a compute-region row along
 // the axis and every write of a halo row along it; these are disjoint (the
@@ -57,13 +61,14 @@
 // ptrs: device table of (sender block, neighbour block) pointer rows, m rows
 // per group of the work list; segs: device table of nseg work-list rows
 // (row_moves.cuh), their tasks ending at `tasks`; elem_size: 4 or 8; wire:
-// the wire code (wire_round.cuh; 0 copies bits), applied to the segments
-// flagged narrow; sz / sy: the padded block's plane and row strides in
+// the wire code (wire_round.cuh; 0 copies bits) and fmt its format's
+// parameters (halo_fill.wire_params), applied to the segments flagged narrow
+// on the instances not marked local; sz / sy: the padded block's plane and row strides in
 // words. Launches on the current device, where every block lies.
 extern "C" int remote_axis_launch(const void* ptrs, int m, const void* segs, int nseg,
-                                  long long tasks, int elem_size, int wire, long long sz,
-                                  long long sy, void* stream) {
-  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, sz, sy, stream);
+                                  long long tasks, int elem_size, int wire, const double* fmt,
+                                  long long sz, long long sy, void* stream) {
+  return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, fmt, sz, sy, stream);
 }
 
 // The row-move body's instantiation for elem_size-byte words and the wire code

@@ -53,13 +53,18 @@
 // go through the read-only path. The kernel copies bits: T is the word
 // (unsigned int for fp32, unsigned long long for fp64).
 //
-// The narrowed wire (wire_round.cuh): a launch takes one wire code W, and a
-// segment whose `narrow` is set (its messages cross between positions; both
-// halves of a paired segment share one axis, so one flag) rounds every word
-// of a unit through the wire between its load and its store. W = NONE is the
-// bit copy, the same code as before the wire existed: the rounding is
-// compiled only into the W != NONE instantiations, and an integer group
-// always launches W = NONE.
+// The narrowed wire (wire_round.cuh): a launch takes one wire code W (and,
+// for W = SOFT, the format it rounds into), and a segment whose `narrow` is
+// set (its messages cross between positions; both halves of a paired
+// segment share one axis, so one flag) rounds every word of a unit through
+// the wire between its load and its store, unless the instance's pointer
+// row marks it local: bit 0 of its sender pointer (the words are at least 4
+// bytes, so a block's address never sets it) says the instance's messages of
+// that group stay on one position, as the shifts between the residents of
+// an oversubscribed mesh do. W = NONE is the bit copy, the same code as
+// before the wire existed: the rounding and the mark are compiled only into
+// the W != NONE instantiations, and an integer group always launches
+// W = NONE.
 
 #pragma once
 
@@ -82,11 +87,12 @@ struct Seg {
 static_assert(sizeof(Seg) == COLS * sizeof(long long), "a work-list row");
 
 // Units i0 + u * THREADS (u < UNROLL, below n) of segment s between blocks p
-// and q; T a word, V a unit (T itself or a 16-byte vector), WIRE the wire.
+// and q; T a word, V a unit (T itself or a 16-byte vector), WIRE the wire of
+// format f, through which the words round where `narrow`.
 template <typename T, typename V, int WIRE>
 __device__ __forceinline__ void move_units(unsigned long long p, unsigned long long q,
                                            const Seg& s, unsigned n, unsigned i0, long long sz,
-                                           long long sy) {
+                                           long long sy, bool narrow, const wire::Format& f) {
   constexpr long long W = sizeof(V) / sizeof(T);
   const unsigned units = (unsigned)s.units, ey = (unsigned)s.ey, split = (unsigned)s.split;
   const unsigned end = (unsigned)s.end;
@@ -109,7 +115,7 @@ __device__ __forceinline__ void move_units(unsigned long long p, unsigned long l
                                    (second ? s.dst2 : s.dst));
       v[u] = __ldg(reinterpret_cast<const V*>(from));
       if constexpr (WIRE != wire::NONE) {
-        if (s.narrow) v[u] = wire::narrow_unit<T, WIRE>(v[u]);
+        if (narrow) v[u] = wire::narrow_unit<T, WIRE>(v[u], f);
       }
     }
   }
@@ -121,7 +127,8 @@ __device__ __forceinline__ void move_units(unsigned long long p, unsigned long l
 template <typename T, int WIRE>
 __global__ void __launch_bounds__(THREADS)
 move_rows_kernel(const unsigned long long* __restrict__ ptrs, int m,
-                 const Seg* __restrict__ segs, int nseg, long long sz, long long sy) {
+                 const Seg* __restrict__ segs, int nseg, long long sz, long long sy,
+                 const __grid_constant__ wire::Format fmt) {
   const long long t = blockIdx.x;
   int lo = 0, hi = nseg - 1;
   while (lo < hi) {
@@ -135,12 +142,19 @@ move_rows_kernel(const unsigned long long* __restrict__ ptrs, int m,
   const long long row = 2 * (s.group * m + j);
   const unsigned n = (unsigned)(s.rows * s.units);
   const unsigned i0 = (unsigned)(c * TASK) + threadIdx.x;
-  if (s.width == 1) move_units<T, T, WIRE>(ptrs[row], ptrs[row + 1], s, n, i0, sz, sy);
-  else move_units<T, uint4, WIRE>(ptrs[row], ptrs[row + 1], s, n, i0, sz, sy);
+  unsigned long long p = ptrs[row];
+  bool narrow = false;
+  if constexpr (WIRE != wire::NONE) {
+    narrow = s.narrow && !(p & 1ull);
+    p &= ~1ull;
+  }
+  if (s.width == 1) move_units<T, T, WIRE>(p, ptrs[row + 1], s, n, i0, sz, sy, narrow, fmt);
+  else move_units<T, uint4, WIRE>(p, ptrs[row + 1], s, n, i0, sz, sy, narrow, fmt);
 }
 
 // The kernel of one word size and wire, or null for a pair it does not
-// take: fp32 words narrow to bf16, fp16 or e4m3, fp64 words also to fp32.
+// take: fp32 words narrow to bf16, fp16, e4m3, e5m2 or a SOFT format, fp64
+// words also to fp32.
 template <typename T>
 inline const void* kernel_for(int w) {
   switch (w) {
@@ -148,18 +162,23 @@ inline const void* kernel_for(int w) {
     case wire::BF16: return (const void*)move_rows_kernel<T, wire::BF16>;
     case wire::F16: return (const void*)move_rows_kernel<T, wire::F16>;
     case wire::E4M3: return (const void*)move_rows_kernel<T, wire::E4M3>;
+    case wire::E5M2: return (const void*)move_rows_kernel<T, wire::E5M2>;
+    case wire::SOFT: return (const void*)move_rows_kernel<T, wire::SOFT>;
     default: return nullptr;
   }
 }
 
 template <>
 inline const void* kernel_for<unsigned long long>(int w) {
+  using U = unsigned long long;
   switch (w) {
-    case wire::NONE: return (const void*)move_rows_kernel<unsigned long long, wire::NONE>;
-    case wire::BF16: return (const void*)move_rows_kernel<unsigned long long, wire::BF16>;
-    case wire::F16: return (const void*)move_rows_kernel<unsigned long long, wire::F16>;
-    case wire::E4M3: return (const void*)move_rows_kernel<unsigned long long, wire::E4M3>;
-    case wire::F32: return (const void*)move_rows_kernel<unsigned long long, wire::F32>;
+    case wire::NONE: return (const void*)move_rows_kernel<U, wire::NONE>;
+    case wire::BF16: return (const void*)move_rows_kernel<U, wire::BF16>;
+    case wire::F16: return (const void*)move_rows_kernel<U, wire::F16>;
+    case wire::E4M3: return (const void*)move_rows_kernel<U, wire::E4M3>;
+    case wire::F32: return (const void*)move_rows_kernel<U, wire::F32>;
+    case wire::E5M2: return (const void*)move_rows_kernel<U, wire::E5M2>;
+    case wire::SOFT: return (const void*)move_rows_kernel<U, wire::SOFT>;
     default: return nullptr;
   }
 }
@@ -173,15 +192,19 @@ inline const void* kernel_for(int elem_size, int w) {
 // One launch over the work list, one block a task, on the current device:
 // ptrs a device table of (P, Q) pointer rows, m per group; segs a device
 // table of nseg work-list rows whose tasks end at `tasks`; elem_size the word
-// in bytes (4 or 8); w the wire code (wire::NONE for the bit copy); sz / sy
-// the blocks' plane and row strides in words.
+// in bytes (4 or 8); w the wire code (wire::NONE for the bit copy) and fmt
+// its format's WIRE_PARAMS doubles (read for wire::SOFT; may be null
+// otherwise); sz / sy the blocks' plane and row strides in words.
 inline int launch(const void* ptrs, int m, const void* segs, int nseg, long long tasks,
-                  int elem_size, int w, long long sz, long long sy, void* stream) {
+                  int elem_size, int w, const double* fmt, long long sz, long long sy,
+                  void* stream) {
   const void* kernel = kernel_for(elem_size, w);
   if (m < 0 || nseg < 1 || tasks < 0 || tasks > INT_MAX || sz < 0 || sy < 0 || !kernel)
     return (int)cudaErrorInvalidValue;
+  if (w == wire::SOFT && !fmt) return (int)cudaErrorInvalidValue;
   if (tasks == 0 || m == 0) return 0;
-  void* args[] = {(void*)&ptrs, &m, (void*)&segs, &nseg, &sz, &sy};
+  wire::Format f = wire::Format::from(fmt);
+  void* args[] = {(void*)&ptrs, &m, (void*)&segs, &nseg, &sz, &sy, &f};
   cudaError_t e = cudaLaunchKernel(kernel, dim3((unsigned)tasks), dim3(THREADS), args, 0,
                                    (cudaStream_t)stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();

@@ -61,7 +61,8 @@ SIGNATURES = {
     },
     "fused_jacobi": {
         "fused_jacobi_launch": (_I, [_P, _I, _P, _I, _P, _I, _I, _L, _L, _L, _I, _I, _I,
-                                     _I, _I, _I, _I, _I, _I, _P]),
+                                     _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_double), _I,
+                                     _P]),
         "fused_jacobi_info": (_I, [_I, _I, ctypes.POINTER(_I)]),
         "fused_jacobi_zchunks": (_I, [_I, _I, _I, _I, _I, _I]),
     },
@@ -76,11 +77,13 @@ SIGNATURES = {
         "persistent_jacobi_threads": (_I, [_I]),
     },
     "remote_axis": {
-        "remote_axis_launch": (_I, [_P, _I, _P, _I, _L, _I, _I, _L, _L, _P]),
+        "remote_axis_launch": (_I, [_P, _I, _P, _I, _L, _I, _I, ctypes.POINTER(ctypes.c_double),
+                                    _L, _L, _P]),
         "remote_axis_info": (_I, [_I, _I, ctypes.POINTER(_I)]),
     },
     "fused_exchange": {
-        "fused_exchange_launch": (_I, [_P, _I, _P, _I, _L, _I, _I, _L, _L, _P]),
+        "fused_exchange_launch": (_I, [_P, _I, _P, _I, _L, _I, _I,
+                                       ctypes.POINTER(ctypes.c_double), _L, _L, _P]),
     },
     "astaroth_substep": {
         "astaroth_substep_launch": (_I, [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,

@@ -75,7 +75,7 @@ import torch
 from ..domain.grid import GridSpec
 from ..geometry import Dim3
 from . import _native, row_moves
-from .halo_fill import dtype_groups, wire_code, wire_round
+from .halo_fill import dtype_groups, wire_format, wire_params, wire_round
 from .remote_dma import _check_mesh_blocks
 from .row_moves import message_rows
 from .stencil_kernels import _check_block, _device_of, sweep_plain
@@ -238,22 +238,22 @@ def fused_exchange(blocks_by_position, spec: GridSpec, plan, mesh, wire=None):
     the narrowed wire dtype or None. CPU tensors take
     :func:`fused_exchange_plain`; CUDA tensors launch
     ``csrc/fused_exchange.cu`` once for every message (the work list of
-    :func:`fused_exchange_work`, with the wire's code for the group's
+    :func:`fused_exchange_work`, with the wire's format for the group's
     dtype), or raise. In place; returns ``blocks_by_position``."""
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
     _check_plan(plan, mesh)
     if dev.type == "cpu":
         return fused_exchange_plain(blocks_by_position, spec, plan, mesh, wire)
     p = spec.padded()
-    code = wire_code(blocks_by_position[0][0].dtype, wire)
+    fmt = wire_format(blocks_by_position[0][0].dtype, wire)
     rc = row_moves.launch_moves(
         _native.lib("fused_exchange").fused_exchange_launch, "fused_exchange",
         (plan.fused_phases, p.y * p.x, p.x),
-        lambda vec, word, m: fused_exchange_work(plan, spec, vec, word, m, code != 0),
-        blocks_by_position, mesh, p.y * p.x, p.x, dev, code)
+        lambda vec, word, m: fused_exchange_work(plan, spec, vec, word, m, fmt is not None),
+        blocks_by_position, mesh, p.y * p.x, p.x, dev, fmt)
     _native.check(rc, "fused_exchange")
     fused_exchange.launches += 1
-    fused_exchange.narrowed += code != 0
+    fused_exchange.narrowed += fmt is not None
     return blocks_by_position
 
 
@@ -367,7 +367,8 @@ def fused_zchunks(spec: GridSpec, positions: int, blocks: int) -> int:
 
 def fused_info(index: int, wire: int = 0) -> dict:
     """What the fused step kernel's instantiation for the wire code ``wire``
-    (``halo_fill.wire_code`` of fp32 data; 0 copies bits) reports on CUDA
+    (a ``halo_fill.WireFormat``'s code: 0 copies bits, ``SOFT_WIRE`` is
+    every format the card does not convert) reports on CUDA
     device ``index``: resident blocks per SM, registers and local (spill)
     bytes per thread, threads and dynamic shared memory per block."""
     r = (ctypes.c_int * 5)()
@@ -397,11 +398,11 @@ def row_table(boxes, sz: int, sy: int, vec: bool, messages: int, narrow=()):
 
 
 def _launch_fused(currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev, narrow=(),
-                  wire: int = 0) -> int:
+                  wire=None) -> int:
     """One launch of ``csrc/fused_jacobi.cu`` over every position (one per
     ``currs`` entry), every message box ``b`` sent by position ``i`` to
     ``dests_by_box[b][i]``, the boxes flagged in ``narrow`` through the wire
-    code ``wire``; returns the CUDA error code."""
+    format ``wire`` (None: bit copies); returns the CUDA error code."""
     pos, msg = mesh_tables(currs, nxts, sels, dests_by_box, dev)
     p, off, b = spec.padded(), spec.compute_offset(), spec.base
     sz, sy = p.y * p.x, p.x
@@ -413,7 +414,8 @@ def _launch_fused(currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev, n
                                 dev)
     return _native.lib("fused_jacobi").fused_jacobi_launch(
         pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), segs.data_ptr(), len(rows),
-        SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec), wire, dev.index,
+        SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec),
+        0 if wire is None else wire.code, wire_params(wire), dev.index,
         _native.stream_ptr(dev))
 
 
@@ -444,13 +446,13 @@ def fused_jacobi_mesh(currs, nxts, sels, spec: GridSpec, plan, mesh, wire=None):
     messages = _messages(plan, mesh)
     if dev.type == "cpu":
         return fused_jacobi_mesh_plain(currs, nxts, sels, spec, plan, mesh, wire)
-    code = wire_code(torch.float32, wire)
+    fmt = wire_format(torch.float32, wire)
     rc = _launch_fused(currs, nxts, sels, spec, [(ph.src, ph.dst, ph.shape) for ph, _ in messages],
                        [dests for _ph, dests in messages], dev,
-                       [code != 0 and ph.crossing for ph, _ in messages], code)
+                       [fmt is not None and ph.crossing for ph, _ in messages], fmt)
     _native.check(rc, "fused_jacobi_mesh")
     fused_jacobi_mesh.launches += 1
-    fused_jacobi_mesh.narrowed += code != 0
+    fused_jacobi_mesh.narrowed += fmt is not None
     return currs, nxts
 
 

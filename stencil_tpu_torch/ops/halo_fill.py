@@ -33,18 +33,22 @@ copies (runs) repeated over instances, and the vector width that divides
 them. It is pure Python, so the CPU tests hold it to the plain fill.
 
 The narrowed wire (``wire_dtype``, the JAX package's bf16-on-the-wire
-compression and its fp8 tier) is owned here too: :func:`wire_narrow_dtype`
-is the policy (only a floating carrier narrows, only to a strictly narrower
-floating wire; never an integer quantity, never a bitcast), :func:`wire_round`
-the plain version of a crossing word's narrow-then-widen, and
-:data:`WIRE_CODES` the codes the exchange kernels take
-(``csrc/wire_round.cuh``). The self-wrap fill never narrows: it copies inside
-one position.
+compression, its fp8 tier and every other floating format it narrows
+through) is owned here too. A wire is a format of the port's own table,
+:data:`WIRE_FORMATS` (name, bytes a cell, the kernels' code, and its
+rounding parameters; torch lacks several of these dtypes and no narrow
+tensor is ever made). :func:`wire_format` is the policy (only a floating
+carrier narrows, only to a strictly narrower floating wire; never an
+integer quantity, never a bitcast), :func:`wire_round` the plain version
+of a crossing word's narrow-then-widen, and a format's ``code`` and
+:func:`wire_params` what the exchange kernels take (``csrc/wire_round.cuh``).
+The self-wrap fill never narrows: it copies inside one position.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -83,13 +87,74 @@ def unpack_slabs(carrier: torch.Tensor, nq: int) -> List[torch.Tensor]:
     return [carrier] if nq == 1 else [carrier[q] for q in range(nq)]
 
 
-# the wire dtypes the kernels narrow through, by their code in
-# csrc/wire_round.cuh (0 is no narrowing); float32 narrows fp64 data only
-WIRE_CODES = {"bfloat16": 1, "float16": 2, "float8_e4m3fn": 3, "float32": 4}
+# The kernels' wire codes (csrc/wire_round.cuh): 0 is no narrowing; bf16,
+# fp16, e4m3fn, e5m2 and fp32 (fp64 data only) are rounded by the card's
+# conversions, each its own instantiation; every other format shares one
+# instantiation, SOFT_WIRE, which rounds by the format's parameters
+# (:func:`wire_params`) passed with the launch.
+SOFT_WIRE = 6
 
-# (mantissa bits, least normal exponent, largest finite value, overflow to
-# +-inf or else to NaN) of the wires rounded by hand: once, from fp64
-_ROUNDED = {"float16": (10, -14, 65504.0, True), "float8_e4m3fn": (3, -6, 448.0, False)}
+
+@dataclass(frozen=True)
+class WireFormat:
+    """A floating wire format: its name (the JAX package's dtype name), the
+    bytes a cell of it pays, the kernels' code, and how a value rounds into
+    it: to nearest even at the quantum of ``mant`` stored mantissa bits in
+    its binade, or below the least normal ``2 ** emin`` at the subnormal
+    quantum ``2 ** (emin - mant)``; a result past ``top`` (the largest
+    finite value), and an infinity, becomes +-inf, NaN or +-``top`` by
+    ``overflow``. Without ``signed_zero`` a zero result is +0; with
+    ``nan_to_zero`` (a format without NaN) a NaN becomes -0. An
+    ``exp_only`` format holds powers of two alone: no sign and no zero, so
+    a value that is not positive is NaN, and a result that rounds to zero
+    is the least value ``2 ** (emin - 1)`` (fp32 data; fp64 data below it
+    is NaN), as XLA converts."""
+
+    name: str
+    itemsize: int
+    code: int
+    mant: int
+    emin: int
+    top: float
+    overflow: str  # "inf", "nan" or "saturate"
+    signed_zero: bool = True
+    nan_to_zero: bool = False
+    exp_only: bool = False
+
+    @property
+    def over(self) -> float:
+        """What a value past ``top`` becomes, before its sign."""
+        return {"inf": math.inf, "nan": math.nan, "saturate": self.top}[self.overflow]
+
+    @property
+    def least(self) -> float:
+        """An exponent-only format's least value (half its least normal)."""
+        return 2.0 ** (self.emin - 1)
+
+
+def _fmt(name, code, mant, emin, top, overflow, itemsize=1, **kw) -> WireFormat:
+    return WireFormat(name, itemsize, code, mant, emin, float(top), overflow, **kw)
+
+
+# every floating wire the port narrows through, by the JAX package's name;
+# bf16 and fp32 round through torch's conversion in the plain version
+WIRE_FORMATS = {f.name: f for f in (
+    _fmt("bfloat16", 1, 7, -126, (2 - 2.0 ** -7) * 2.0 ** 127, "inf", 2),
+    _fmt("float16", 2, 10, -14, 65504, "inf", 2),
+    _fmt("float8_e4m3fn", 3, 3, -6, 448, "nan"),
+    _fmt("float32", 4, 23, -126, (2 - 2.0 ** -23) * 2.0 ** 127, "inf", 4),
+    _fmt("float8_e5m2", 5, 2, -14, 57344, "inf"),
+    _fmt("float8_e4m3fnuz", SOFT_WIRE, 3, -7, 240, "nan", signed_zero=False),
+    _fmt("float8_e5m2fnuz", SOFT_WIRE, 2, -15, 57344, "nan", signed_zero=False),
+    _fmt("float8_e4m3b11fnuz", SOFT_WIRE, 3, -10, 30, "nan", signed_zero=False),
+    _fmt("float8_e3m4", SOFT_WIRE, 4, -2, 15.5, "inf"),
+    _fmt("float8_e4m3", SOFT_WIRE, 3, -6, 240, "inf"),
+    _fmt("float8_e8m0fnu", SOFT_WIRE, 0, -126, 2.0 ** 127, "nan", exp_only=True),
+    _fmt("float4_e2m1fn", SOFT_WIRE, 1, 0, 6, "saturate", nan_to_zero=True),
+)}
+
+# doubles of a launch's format parameters (csrc/wire_round.cuh Format::from)
+WIRE_PARAMS = 8
 
 
 def _torch_dtype(dt) -> torch.dtype:
@@ -106,78 +171,87 @@ def _dtype_name(dt: torch.dtype) -> str:
 
 
 def wire_name(wire) -> Optional[str]:
-    """The canonical name of a wire dtype (a torch dtype or its name), or
-    None for no wire (``None`` or ""). A floating wire the kernels cannot
-    round through raises ``NotImplementedError``; a non-floating one is a
-    no-op, as in the JAX package (nothing narrows to it)."""
+    """The canonical name of a wire dtype (a torch dtype or a name), or
+    None for no wire (``None`` or ""): a format of :data:`WIRE_FORMATS`, or
+    a dtype nothing narrows to (``float64``, an integer), which is a no-op
+    as in the JAX package."""
     if wire is None or wire == "":
         return None
-    dt = _torch_dtype(wire)
-    name = _dtype_name(dt)
-    if dt.is_floating_point and name not in WIRE_CODES and dt != torch.float64:
-        raise NotImplementedError(
-            f"wire_dtype {name}: the port narrows through {', '.join(WIRE_CODES)} only "
-            "(other wire dtypes are ROADMAP.md queue B)")
-    return name
+    name = _dtype_name(wire) if isinstance(wire, torch.dtype) else str(wire)
+    if name in WIRE_FORMATS:
+        return name
+    dt = _torch_dtype(name)
+    if dt.is_floating_point and dt != torch.float64:
+        raise ValueError(f"wire_dtype {name}: a floating dtype the port has no wire format for")
+    return _dtype_name(dt)
 
 
-def wire_narrow_dtype(native, wire) -> Optional[torch.dtype]:
-    """The dtype a wire-crossing carrier of ``native`` data travels as, or
+def wire_format(native, wire) -> Optional[WireFormat]:
+    """The format a wire-crossing carrier of ``native`` data travels in, or
     None when it stays native (the JAX package's ``wire_narrow_dtype``):
     both floating, and the wire strictly narrower than the data."""
     name = wire_name(wire)
-    if name is None:
+    native = _torch_dtype(native)
+    if name not in WIRE_FORMATS or not native.is_floating_point:
         return None
-    native, w = _torch_dtype(native), _torch_dtype(name)
-    if not (native.is_floating_point and w.is_floating_point):
-        return None
-    if w.itemsize >= native.itemsize:
-        return None
-    return w
+    fmt = WIRE_FORMATS[name]
+    return fmt if fmt.itemsize < native.itemsize else None
 
 
-def wire_code(native, wire) -> int:
-    """The kernels' code of ``wire`` for ``native`` data (0: no narrowing)."""
-    w = wire_narrow_dtype(native, wire)
-    return 0 if w is None else WIRE_CODES[_dtype_name(w)]
+@functools.lru_cache(maxsize=None)
+def wire_params(fmt: Optional[WireFormat]):
+    """The :data:`WIRE_PARAMS` doubles a launch passes for ``fmt`` (zeros
+    for no wire), as a ctypes array made once per format: mantissa bits,
+    least normal exponent, largest finite value, what a value past it
+    becomes, what a NaN becomes, the least value of an exponent-only
+    format, signed zero, exponent only."""
+    vals = (0.0,) * WIRE_PARAMS if fmt is None else (
+        float(fmt.mant), float(fmt.emin), fmt.top, fmt.over,
+        -0.0 if fmt.nan_to_zero else math.nan, fmt.least, float(fmt.signed_zero),
+        float(fmt.exp_only))
+    return (ctypes.c_double * WIRE_PARAMS)(*vals)
 
 
-def _round_once(t: torch.Tensor, fmt) -> torch.Tensor:
-    """``t`` rounded to nearest even into a format of ``fmt``
-    (:data:`_ROUNDED`) and widened back, in one rounding from fp64 (exact
-    for fp32 and fp64 data): the quantum of ``|x|``'s binade, or the
-    subnormal quantum below the least normal; overflow past the largest
-    finite value to +-inf or to NaN, as the JAX package's ``astype``."""
-    mant, emin, top, to_inf = fmt
+def _round_format(t: torch.Tensor, fmt: WireFormat) -> torch.Tensor:
+    """``t`` rounded into ``fmt`` and widened back, in one rounding from the
+    data's own value (computed in fp64, exact for fp32 and fp64 data): to
+    nearest even at the quantum of ``|x|``'s binade, or the subnormal
+    quantum below the least normal; then ``fmt``'s rules for overflow,
+    zero, NaN and an exponent-only format, as the JAX package's ``astype``
+    under ``jax.jit``."""
     x = t.to(torch.float64)
-    _m, e = torch.frexp(x)  # |x| = m 2^e, m in [0.5, 1)
-    q = torch.ldexp(torch.ones_like(x), (e - 1 - mant).clamp(min=emin - mant))
-    r = torch.round(x / q) * q  # half to even
-    bad = torch.full_like(r, math.nan)
-    over = torch.copysign(torch.full_like(r, math.inf), r) if to_inf else bad
-    r = torch.where(r.abs() > top, over, r)
-    r = torch.where(torch.isfinite(x), r, x if to_inf else bad)
-    return r.to(t.dtype)
+    a = x.abs()
+    _m, e = torch.frexp(a)  # a = m 2^e, m in [0.5, 1)
+    q = torch.ldexp(torch.ones_like(a), ((e - 1).clamp(min=fmt.emin) - fmt.mant))
+    r = torch.round(torch.where(torch.isfinite(a), a, 0.0) / q) * q  # half to even
+    r = torch.where((r > fmt.top) | torch.isinf(a), fmt.over, r)
+    if fmt.exp_only:
+        r = torch.where(r == 0, fmt.least, r)
+        if t.dtype == torch.float64:
+            r = torch.where(a < fmt.least, math.nan, r)
+        return torch.where(x > 0, r, math.nan).to(t.dtype)
+    r = torch.copysign(r, x) if fmt.signed_zero else torch.where(r == 0, 0.0, torch.copysign(r, x))
+    return torch.where(torch.isnan(x), -0.0 if fmt.nan_to_zero else math.nan, r).to(t.dtype)
 
 
 def wire_round(t: torch.Tensor, wire) -> torch.Tensor:
     """Plain version of a crossing word's trip over the wire: ``t`` narrowed
     to ``wire`` and widened back (``t`` itself when it does not narrow),
-    equal to the JAX package's ``x.astype(wire).astype(x.dtype)`` except
-    that IEEE subnormals are kept. fp32 wires (fp64 data) and bf16 wires
-    round through torch's ``.to``, bf16 from fp64 through fp32 (twice, as
-    the JAX package does); fp16 and fp8 (e4m3fn: overflow is NaN, not
-    saturation) round once from fp64 by hand, since torch rounds fp64
-    through fp32 and saturates fp8."""
-    w = wire_narrow_dtype(t.dtype, wire)
-    if w is None:
+    equal to the JAX package's ``jax.jit(lambda x:
+    x.astype(wire).astype(x.dtype))`` except that IEEE subnormals are kept.
+    fp32 wires (fp64 data) and bf16 wires round through torch's ``.to``,
+    bf16 from fp64 through fp32 (twice, as the JAX package does); every
+    other format rounds once from the data's value by its parameters
+    (:func:`_round_format`), since torch rounds fp64 through fp32,
+    saturates fp8 and lacks most of these formats."""
+    fmt = wire_format(t.dtype, wire)
+    if fmt is None:
         return t
-    name = _dtype_name(w)
-    if name in _ROUNDED:
-        return _round_once(t, _ROUNDED[name])
-    if w == torch.bfloat16:
-        return t.to(torch.float32).to(w).to(t.dtype)
-    return t.to(w).to(t.dtype)
+    if fmt.name == "bfloat16":
+        return t.to(torch.float32).to(torch.bfloat16).to(t.dtype)
+    if fmt.name == "float32":
+        return t.to(torch.float32).to(t.dtype)
+    return _round_format(t, fmt)
 
 
 def axis_geom(spec: GridSpec, axis: str) -> Tuple[int, int, int, int]:

@@ -21,14 +21,17 @@ straight into its ring neighbours' halos:
   adjacent lanes; the y and z phases' whole padded rows as 16-byte vectors;
 - :func:`remote_axis_plain` is the same copies by tensor slicing, position
   by position;
-- with a narrowed wire (``wire=``, the JAX package's ``wire_dtype``) every
-  slab a ring phase sends crosses between positions, so each of its
-  floating words is rounded through the wire between its load and its
-  store (``csrc/wire_round.cuh``; the plain version
-  ``halo_fill.wire_round``): the TPU kernel's narrow VMEM staging and
-  widening unpack, bit for bit, in the same one launch. An integer group
-  copies bits; an axis with one position is a self-wrap fill and never
-  narrows;
+- with a narrowed wire (``wire=``, the JAX package's ``wire_dtype``) each
+  floating word of a slab that leaves its position is rounded through the
+  wire between its load and its store (``csrc/wire_round.cuh``; the plain
+  version ``halo_fill.wire_round``): the TPU kernel's narrow VMEM staging
+  and widening unpack, bit for bit, in the same one launch. With one block
+  a position every slab of a ring phase leaves; over the blocks of an
+  oversubscribed mesh only the slabs between positions do, and the shifts
+  between the residents of one position stay bit copies
+  (:func:`remote_axis_local` marks them, per sender block and direction).
+  An integer group copies bits; an axis with one position is a self-wrap
+  fill and never narrows;
 - :class:`RemoteDmaExchange` is the transport of a ``HaloExchange`` over a
   mesh: ring phases through :func:`remote_axis`, an axis with one position
   through the fill kernel (``ops/halo_fill.self_fill``) on every position;
@@ -76,7 +79,7 @@ from ..domain.grid import GridSpec
 from ..geometry import Dim3
 from . import _native, row_moves
 from .halo_fill import (MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, axis_sizes,
-                        dtype_groups, self_fill, wire_code, wire_round)
+                        dtype_groups, self_fill, wire_format, wire_round)
 
 
 def _check_mesh_blocks(blocks_by_position: Sequence[Sequence[torch.Tensor]], spec: GridSpec,
@@ -128,30 +131,58 @@ def ring_sizes(spec: GridSpec, axis: str, mesh):
     return tuple(sizes[pos[k]] for pos in mesh.positions())
 
 
-def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
+def remote_axis_plain(blocks_by_position, spec: GridSpec, phase, mesh, wire=None, local=None):
     """One axis phase in plain PyTorch, position by position: each block's
     hi slab ``[o + n_i - rm, o + n_i)`` along ``phase.axis`` (``n_i`` its own
     size, :func:`ring_sizes`) -> its forward ring neighbour's lo halo
     ``[o - rm, o)``, its lo slab ``[o, o + rp)`` -> its backward neighbour
     ``b``'s hi halo ``[o + n_b, o + n_b + rp)``, over the full padded extent
     of the other axes, for every quantity of the group, each slab through
-    the narrowed ``wire`` when one is given (``halo_fill.wire_round``). In
-    place; returns ``blocks_by_position``."""
+    the narrowed ``wire`` when one is given (``halo_fill.wire_round``),
+    except a slab ``local`` (:func:`remote_axis_local`) marks as staying on
+    its position. In place; returns ``blocks_by_position``."""
     o, _base, rm, rp = axis_geom(spec, phase.axis)
     sizes = ring_sizes(spec, phase.axis, mesh)
+    k = "xyz".index(phase.axis)
+    marks = dict(local or ())
+    fwd_local, bwd_local = (marks.get(tuple(sign if a == k else 0 for a in range(3)))
+                            for sign in (1, -1))
     for i, pos in enumerate(mesh.positions()):
         bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(pos, phase.axis))
         n, nb = sizes[i], sizes[bwd]
+        fwd_wire = None if fwd_local and fwd_local[i] else wire
+        bwd_wire = None if bwd_local and bwd_local[i] else wire
         for q, src in enumerate(blocks_by_position[i]):
             if rm:
                 dst = blocks_by_position[fwd][q]
                 dst[_axis_slice(dst, phase.axis, o - rm, o)] = wire_round(
-                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)], wire)
+                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)], fwd_wire)
             if rp:
                 dst = blocks_by_position[bwd][q]
                 dst[_axis_slice(dst, phase.axis, o + nb, o + nb + rp)] = wire_round(
-                    src[_axis_slice(src, phase.axis, o, o + rp)], wire)
+                    src[_axis_slice(src, phase.axis, o, o + rp)], bwd_wire)
     return blocks_by_position
+
+
+def remote_axis_local(axis: str, partition, resident):
+    """Which slabs of an axis phase over every block of ``partition``
+    (blocks a position holds: ``resident``, each a Dim3) stay on their
+    position: ``((step, flags), ...)`` for the forward and backward steps,
+    one bool a sender block in the block mesh's flat order, set where the
+    block and its ring neighbour share a position (a shift between
+    residents). With one block a position nothing stays; on an axis whose
+    positions' ring is 1 everything does (``remote_emu``'s ``m > 1``)."""
+    k = "xyz".index(axis)
+    dims = (partition.x, partition.y, partition.z)
+    nb, c = dims[k], (resident.x, resident.y, resident.z)[k]
+    out = []
+    for sign in (1, -1):
+        flags = []
+        for i in range(partition.flatten()):
+            j = (i % dims[0], (i // dims[0]) % dims[1], i // (dims[0] * dims[1]))[k]
+            flags.append(j // c == (j + sign) % nb // c)
+        out.append((tuple(sign if a == k else 0 for a in range(3)), tuple(flags)))
+    return tuple(out)
 
 
 def remote_axis_boxes(axis: str, geom, ext):
@@ -211,38 +242,42 @@ def remote_axis_shifts(spec: GridSpec, axis: str, mesh) -> dict:
             for b, step in enumerate(steps) if b not in partners}
 
 
-def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
+def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None, local=None):
     """One axis phase of the remote-dma exchange (see
     :func:`remote_axis_plain`) for a same-dtype group: ``blocks_by_position[i]``
     is the group's list of padded blocks at position ``i`` of ``mesh``
     (flat order), every position on the mesh's one device; ``wire`` the
-    narrowed wire dtype or None. CPU tensors take :func:`remote_axis_plain`;
-    CUDA tensors launch ``csrc/remote_axis.cu`` once for every position and
-    quantity (the work list of :func:`remote_axis_work`, with the wire's
-    code for the group's dtype; on an uneven ring the pointers moved by
-    :func:`remote_axis_shifts`), or raise. In place; returns
-    ``blocks_by_position``."""
+    narrowed wire dtype or None; ``local`` the slabs that stay on their
+    position (:func:`remote_axis_local`; None: every slab leaves). CPU
+    tensors take :func:`remote_axis_plain`; CUDA tensors launch
+    ``csrc/remote_axis.cu`` once for every position and quantity (the work
+    list of :func:`remote_axis_work`, with the wire's format for the group's
+    dtype and the local senders marked in the pointer rows; on an uneven
+    ring the pointers moved by :func:`remote_axis_shifts`), or raise. In
+    place; returns ``blocks_by_position``."""
     _check_phase(spec, phase, mesh)
     dev = _check_mesh_blocks(blocks_by_position, spec, mesh)
     if dev.type == "cpu":
-        return remote_axis_plain(blocks_by_position, spec, phase, mesh, wire)
+        return remote_axis_plain(blocks_by_position, spec, phase, mesh, wire, local)
     p = spec.padded()
-    code = wire_code(blocks_by_position[0][0].dtype, wire)
+    fmt = wire_format(blocks_by_position[0][0].dtype, wire)
+    if local and all(all(flags) for _step, flags in local):
+        fmt = None  # every slab stays on its position: bit copies
     geometry = (phase.axis, axis_geom(spec, phase.axis), (p.z, p.y, p.x),
                 axis_sizes(spec, phase.axis))
     rc = row_moves.launch_moves(
         _native.lib("remote_axis").remote_axis_launch, "remote_axis", geometry,
-        lambda vec, word, m: remote_axis_work(spec, phase.axis, vec, word, m, code != 0),
-        blocks_by_position, mesh, p.y * p.x, p.x, dev, code,
-        lambda: remote_axis_shifts(spec, phase.axis, mesh))
+        lambda vec, word, m: remote_axis_work(spec, phase.axis, vec, word, m, fmt is not None),
+        blocks_by_position, mesh, p.y * p.x, p.x, dev, fmt,
+        lambda: remote_axis_shifts(spec, phase.axis, mesh), local)
     _native.check(rc, f"remote_axis[{phase.axis}]")
     remote_axis.launches += 1
-    remote_axis.narrowed += code != 0
+    remote_axis.narrowed += fmt is not None
     return blocks_by_position
 
 
 remote_axis.launches = 0
-remote_axis.narrowed = 0  # the launches through a narrowed wire
+remote_axis.narrowed = 0  # the launches that round anything through a narrowed wire
 
 
 def remote_axis_bytes(spec: GridSpec, phase, nq: int, positions: int, itemsize: int) -> int:
@@ -290,7 +325,7 @@ class RemoteDmaExchange:
     one block as self-wrap fills. ``state`` is ``{key: [stack per
     position]}`` on a mesh, ``{key: stacked tensor}`` on one device; in
     place. ``last_transfer_count`` counts the slabs that left a position
-    (resident shifts stay on it)."""
+    (resident shifts stay on it, and a wire leaves them bit copies)."""
 
     def __init__(self, ex):
         from ..plan.ir import REMOTE_DMA, build_plan
@@ -305,6 +340,9 @@ class RemoteDmaExchange:
         self.block_plan = (build_plan(self.spec, self.spec.dim, REMOTE_DMA)
                            if self.blocks_of_positions else self.plan)
         self._block_meshes = {}
+        # the resident shifts of an oversubscribed mesh, per axis
+        self.local = ({axis: remote_axis_local(axis, self.spec.dim, ex.resident) for axis in "xyz"}
+                      if self.blocks_of_positions and self.wire else {})
         self.last_transfer_count = 0
 
     def _block_mesh(self, dev):
@@ -345,7 +383,8 @@ class RemoteDmaExchange:
             for keys in groups:
                 if block_phase.ring > 1:
                     blocks = [[ends[k][i] for k in keys] for i in range(len(mesh))]
-                    remote_axis(blocks, self.spec, block_phase, mesh, self.wire)
+                    remote_axis(blocks, self.spec, block_phase, mesh, self.wire,
+                                self.local.get(phase.axis))
                 else:
                     self_wrap_positions(ends, keys, self.spec, phase.axis)
                 if phase.ring > 1:

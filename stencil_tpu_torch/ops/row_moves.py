@@ -21,9 +21,11 @@ cells into a box of a receiver block's halo; it moves by rows, and
 each segment flagged ``narrow`` when its box's messages cross between
 positions under a narrowed wire (``csrc/wire_round.cuh``: the kernel rounds
 those words between load and store); :func:`launch_moves` uploads it with
-the pointer rows (:func:`pointer_rows`), once per geometry, wire and set of
-block addresses, and launches a carrier's entry with the launch's wire
-code. On an uneven ring the blocks differ only in where their hi side
+the pointer rows (:func:`pointer_rows`; a sender instance whose messages
+stay on its position, as between the residents of an oversubscribed mesh,
+marked local there), once per geometry, wire and set of block addresses,
+and launches a carrier's entry with the launch's wire code and format. On
+an uneven ring the blocks differ only in where their hi side
 starts along the phase axis; every instance shares the work list's box
 coordinates, and the pointer of the block whose hi side a box touches is
 moved by that block's offset, so the kernel and the work list stay those
@@ -41,6 +43,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from . import _native
+from .halo_fill import wire_params
 
 # csrc/row_moves.cuh: THREADS, UNROLL, COLS
 MOVE_THREADS = 128
@@ -188,43 +191,53 @@ def move_work(boxes, steps, sz: int, sy: int, vec: bool, word: int, pairs, m: in
     return MoveWork(tuple(rows), tuple(steps[b] for b in own), start)
 
 
-def pointer_rows(ptrs, nq: int, mesh, steps, word: int, shifts=None) -> List[int]:
+def pointer_rows(ptrs, nq: int, mesh, steps, word: int, shifts=None, local=None) -> List[int]:
     """The pointer table of a launch: for each group's step and each sender
     position and quantity, (sender block, block at the sender's position +
     step), from ``ptrs`` (position-major, then quantity). ``shifts`` maps a
     step to ``(sender, receiver)``, each None or one word offset a position
     (flat order), added to the pointer of that group's sender block or, by
     the receiver's position, of its receiver block: the uneven ring's hi
-    sides (``remote_dma.remote_axis_shifts``)."""
+    sides (``remote_dma.remote_axis_shifts``). ``local`` maps a step to one
+    bool a sender position (flat order): where set, bit 0 of the sender
+    pointer marks the instance's messages of that group local, so a
+    narrowed wire leaves them bit copies (``csrc/row_moves.cuh``)."""
     rows = []
     for step in steps:
         dests = mesh.destinations(step)
         s_off, r_off = (shifts or {}).get(step, (None, None))
+        marks = (local or {}).get(step)
         for i in range(len(mesh)):
+            mark = 1 if marks is not None and marks[i] else 0
             for q in range(nq):
-                rows += [ptrs[i * nq + q] + (word * s_off[i] if s_off else 0),
+                rows += [(ptrs[i * nq + q] + (word * s_off[i] if s_off else 0)) | mark,
                          ptrs[dests[i] * nq + q] + (word * r_off[dests[i]] if r_off else 0)]
     return rows
 
 
 def launch_moves(entry, name: str, geometry, work_of, blocks_by_position, mesh, sz: int,
-                 sy: int, dev, wire: int = 0, shifts_of=None) -> int:
+                 sy: int, dev, wire=None, shifts_of=None, local=None) -> int:
     """Call a carrier's C entry (``remote_axis_launch`` or
-    ``fused_exchange_launch``) for the group of ``blocks_by_position`` with
-    the wire code ``wire`` (``halo_fill.wire_code``; 0 copies bits);
-    ``work_of(vec, word, m)`` gives the work list of ``geometry`` (which,
-    with the mesh, the quantities, the word and the wire, must determine
-    it). ``shifts_of()`` gives the shifts (see :func:`pointer_rows`) that
-    move the pointers of an uneven ring's hi sides, which ``geometry``
-    must also determine; it keeps one launch per call. The
-    first call for a geometry and set of block addresses chooses 16-byte
-    units (every address the kernel is given, shifts included, and both
-    strides on the 16-byte grid) and uploads one device table: the pointer
-    rows (:func:`pointer_rows`), then the work list's rows. The table and
-    the launch's other arguments are kept together (``_native.kept``), so
-    later calls find them by one key. Returns the CUDA error code."""
+    ``fused_exchange_launch``) for the group of ``blocks_by_position``
+    through the wire format ``wire`` (``halo_fill.wire_format`` of the
+    group's dtype; None copies bits); ``work_of(vec, word, m)`` gives the
+    work list of ``geometry`` (which, with the mesh, the quantities, the
+    word and the wire, must determine it). ``shifts_of()`` gives the shifts
+    (see :func:`pointer_rows`) that move the pointers of an uneven ring's
+    hi sides, which ``geometry`` must also determine; it keeps one launch
+    per call. ``local`` (hashable: ``((step, flags), ...)``) marks the
+    sender instances whose messages stay on their position (see
+    :func:`pointer_rows`). The first call for a geometry and set of block
+    addresses chooses 16-byte units (every address the kernel is given,
+    shifts included, and both strides on the 16-byte grid) and uploads one
+    device table: the pointer rows (:func:`pointer_rows`), then the work
+    list's rows. The table and the launch's other arguments, the wire's
+    code and parameters (``halo_fill.wire_params``) among them, are kept
+    together (``_native.kept``), so later calls find them by one key.
+    Returns the CUDA error code."""
     nq, word = len(blocks_by_position[0]), blocks_by_position[0][0].element_size()
     ptrs = tuple(b.data_ptr() for group in blocks_by_position for b in group)
+    code = 0 if wire is None else wire.code
 
     def make():
         shifts = shifts_of() if shifts_of is not None else {}
@@ -233,13 +246,16 @@ def launch_moves(entry, name: str, geometry, work_of, blocks_by_position, mesh, 
         vec = all(p % VECTOR_BYTES == 0 for p in ptrs + tuple(moved)) and \
             (sz * word) % VECTOR_BYTES == 0 and (sy * word) % VECTOR_BYTES == 0
         work = work_of(vec, word, len(ptrs))
-        rows = pointer_rows(ptrs, nq, mesh, work.steps, word, shifts)
+        rows = pointer_rows(ptrs, nq, mesh, work.steps, word, shifts,
+                            dict(local) if wire is not None and local else None)
         table = _native.upload(rows + [v for row in work.rows for v in row], dev)
         segs = table.data_ptr() + 8 * len(rows)
-        return (table, len(ptrs), segs, len(work.rows), work.tasks, word, wire, sz, sy)
+        return (table, len(ptrs), segs, len(work.rows), work.tasks, word, code,
+                wire_params(wire), sz, sy)
 
     table, *rest = _native.kept(
-        (str(dev), "row_moves", name, geometry, tuple(mesh.dim), nq, word, wire, ptrs), make)
+        (str(dev), "row_moves", name, geometry, tuple(mesh.dim), nq, word,
+         None if wire is None else wire.name, local, ptrs), make)
     return entry(table.data_ptr(), *rest, _native.stream_ptr(dev))
 
 

@@ -84,12 +84,16 @@ The mesh's positions must share one device (the reference's
 ``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
 waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
 
-``wire_dtype`` (the JAX package's bf16-on-the-wire compression and its fp8
-tier) narrows what crosses between positions of a mesh: the carriers and
-the fused step round each crossing floating word through the wire
-(``ops/halo_fill.wire_narrow_dtype`` is the policy). On one device nothing
-crosses, so a single block or a resident partition takes it as a no-op, as
-the JAX package does on a one-device mesh.
+``wire_dtype`` (the JAX package's bf16-on-the-wire compression, its fp8
+tier and every other floating format it narrows through,
+``ops/halo_fill.WIRE_FORMATS``) narrows what crosses between positions of
+a mesh: the carriers and the fused step round each crossing floating word
+through the wire (``ops/halo_fill.wire_format`` is the policy). On an
+oversubscribed mesh only the slabs between positions round; the shifts
+between the residents of one position stay lossless, as in the JAX
+package. On one device nothing crosses, so a single block or a resident
+partition takes it as a no-op, as the JAX package does on a one-device
+mesh.
 """
 
 from __future__ import annotations
@@ -145,7 +149,7 @@ class HaloExchange:
     kernel variant on one block a position, and plain on more blocks than
     positions. ``wire_dtype`` narrows the carriers crossing between
     positions (a no-op on one device); the persistent variant over a mesh
-    and an oversubscribed mesh refuse it. ``batch_quantities`` picks one
+    refuses it. ``batch_quantities`` picks one
     carrier per same-dtype group (default) or one per quantity."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
@@ -194,12 +198,6 @@ class HaloExchange:
                 f"the {variant} variant supports single-resident partitions "
                 f"only (got resident {self.resident}); use plain REMOTE_DMA "
                 "or AXIS_COMPOSED for oversubscription")
-        if self.wire_dtype and self.mesh is not None and self.oversubscribed:
-            raise NotImplementedError(
-                f"wire_dtype={self.wire_dtype} on an oversubscribed mesh (resident "
-                f"{self.resident}): the axis carrier narrows every slab of a ring phase, "
-                "and the shifts between residents of one position must stay lossless "
-                "(ROADMAP.md queue A item 5)")
         for axis in AXIS_ORDER:
             _o, _n, rm, rp = axis_geom(spec, axis)
             n = min(axis_sizes(spec, axis))

@@ -17,7 +17,7 @@ turn the fused phases into in-place hand-offs from compute cells to halo
 cells.
 
 The wire model is carried over: a plan's ``wire_dtype`` (the narrowed wire
-of the remote-dma carriers, ``ops/halo_fill.wire_narrow_dtype``) prices
+of the remote-dma carriers, ``ops/halo_fill.wire_format``) prices
 wire-crossing cells at the narrowed itemsize in :meth:`ExchangePlan.wire_bytes`.
 
 The planner's vocabulary is ported too: :class:`PlanConfig` (the problem
@@ -65,19 +65,18 @@ FILL_GROUP = 16
 # where the geometries still to port stand in ROADMAP.md
 _LATER = {AUTO_SPMD: "ROADMAP.md queue A item 5", "hierarchy": "ROADMAP.md queue A item 5"}
 
-# Bytes a cell of each wire dtype pays (the JAX package's table; other
-# names resolve through numpy). The fp8 tier quarters fp32's wire bytes as
-# bfloat16 halves them.
-_WIRE_ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4, "float64": 8,
-                  "float8_e4m3fn": 1, "float8_e5m2": 1}
-
-
 def wire_itemsize(wire_dtype: Optional[str]) -> Optional[int]:
-    """Bytes per cell a wire-compressed carrier pays (None = native)."""
+    """Bytes per cell a wire-compressed carrier pays (None = native): a
+    wire format's own (``ops/halo_fill.WIRE_FORMATS``; each fp8 and fp4
+    format one byte, as numpy says with ``ml_dtypes``), else numpy's
+    itemsize of the name. The fp8 tier quarters fp32's wire bytes as
+    bfloat16 halves them."""
+    from ..ops.halo_fill import WIRE_FORMATS
+
     if wire_dtype is None:
         return None
-    if wire_dtype in _WIRE_ITEMSIZE:
-        return _WIRE_ITEMSIZE[wire_dtype]
+    if wire_dtype in WIRE_FORMATS:
+        return WIRE_FORMATS[wire_dtype].itemsize
     import numpy as np
 
     return np.dtype(wire_dtype).itemsize

@@ -229,13 +229,26 @@ def test_paired_row_ends_share_one_warp_instruction(name, size, dim, radius, ali
             assert len(lone) == 1 and lone[0][8] == 1, label
 
 
+def launch_wire(code, fmt):
+    """The wire format name a launch's code and parameters (``fmt``, the
+    ``halo_fill.wire_params`` doubles) select, None for code 0."""
+    if code == 0:
+        return None
+    for f in halo_fill.WIRE_FORMATS.values():
+        if f.code == code and (code != halo_fill.SOFT_WIRE or np.array_equal(
+                np.array(list(fmt)), np.array(list(halo_fill.wire_params(f))), equal_nan=True)):
+            return f.name
+    raise AssertionError(f"no wire format of code {code} and parameters {list(fmt)}")
+
+
 def replay_tables(blocks, ptr_rows, m, seg_rows, tasks, sz, sy, wire=None):
     """csrc/row_moves.cuh's kernel in plain torch indexing, one block a task,
     as it reads its tables: the segment by the starts, the chunk and the
     instance (chunk-major), each unit's row, side and words, a segment
     flagged narrow through ``wire`` (``halo_fill.wire_round``, the plain
-    version of csrc/wire_round.cuh); ``blocks`` maps a pointer to its CPU
-    block. In place."""
+    version of csrc/wire_round.cuh) unless bit 0 of the instance's sender
+    pointer marks it local; ``blocks`` maps a pointer to its CPU block. In
+    place."""
     task = rmv.move_shape()["task_units"]
     starts = [row[12] for row in seg_rows]
     assert starts == sorted(starts) and starts[0] == 0
@@ -245,7 +258,9 @@ def replay_tables(blocks, ptr_rows, m, seg_rows, tasks, sz, sy, wire=None):
         g, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start, narrow = row
         c, j = divmod(t - start, m)
         assert c < chunks
-        p, q = blocks[ptr_rows[2 * (g * m + j)]], blocks[ptr_rows[2 * (g * m + j) + 1]]
+        sender = ptr_rows[2 * (g * m + j)]
+        narrow = narrow and not sender & 1
+        p, q = blocks[sender & ~1], blocks[ptr_rows[2 * (g * m + j) + 1]]
         i = np.arange(c * task, min((c + 1) * task, rows * units), dtype=np.int64)
         r, k = np.divmod(i, units)
         base = (r // ey) * sz + (r % ey) * sy
@@ -388,19 +403,30 @@ def test_constants_mirror_the_kernel_source():
     # one launch site for every instantiation: fp32 words through each wire
     # but fp32, fp64 words through each
     assert HEADER.count("cudaLaunchKernel(kernel, dim3((unsigned)tasks), dim3(THREADS)") == 1
-    assert HEADER.count("move_rows_kernel<T, wire::") == 4
-    assert HEADER.count("move_rows_kernel<unsigned long long, wire::") == 5
+    assert HEADER.count("move_rows_kernel<T, wire::") == 6
+    assert HEADER.count("move_rows_kernel<U, wire::") == 7
     assert "move_rows_kernel<T, wire::F32>" not in HEADER
-    assert "if (s.narrow) v[u] = wire::narrow_unit<T, WIRE>(v[u]);" in HEADER
+    assert "if (narrow) v[u] = wire::narrow_unit<T, WIRE>(v[u], f);" in HEADER
+    # the local mark: bit 0 of the sender pointer, read and cleared only
+    # where a wire is compiled in
+    assert "narrow = s.narrow && !(p & 1ull);" in HEADER and "p &= ~1ull;" in HEADER
     for name in ("remote_axis", "fused_exchange"):
         src = (CSRC / f"{name}.cu").read_text()
         assert '#include "row_moves.cuh"' in src
-        assert "return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, sz, sy, " \
-            "stream);" in src
+        assert "return row_moves::launch(ptrs, m, segs, nseg, tasks, elem_size, wire, fmt, sz, " \
+            "sy, stream);" in src
     wire_src = (CSRC / "wire_round.cuh").read_text()
-    for name, code in halo_fill.WIRE_CODES.items():
-        tag = {"bfloat16": "BF16", "float16": "F16", "float8_e4m3fn": "E4M3", "float32": "F32"}
-        assert f"constexpr int {tag[name]} = {code};" in wire_src
+    tag = {"bfloat16": "BF16", "float16": "F16", "float8_e4m3fn": "E4M3", "float32": "F32",
+           "float8_e5m2": "E5M2"}
+    for fmt in halo_fill.WIRE_FORMATS.values():
+        assert f"constexpr int {tag.get(fmt.name, 'SOFT')} = {fmt.code};" in wire_src
+    # the launch's format parameters, in wire_params' order
+    order = re.search(r"static Format from\(const double\* p\) \{(.*?)\n  \}", wire_src,
+                      re.S).group(1)
+    fields = re.findall(r"f\.(\w+) = [^;]*p\[(\d)\]", order)
+    assert [int(i) for _f, i in fields] == list(range(halo_fill.WIRE_PARAMS))
+    assert [f for f, _i in fields] == ["mant", "emin", "top", "over", "nan_out", "least",
+                                       "signed_zero", "exp_only"]
 
 
 @pytest.mark.parametrize("units,lanes", [(1, 1), (2, 2), (3, 4), (5, 8), (6, 8), (8, 8),
@@ -455,7 +481,8 @@ def test_paired_boxes_share_their_narrow_flag():
         rmv.move_work(boxes, steps, sz, sy, vec, word, pairs, 1, (True,))
 
 
-@pytest.mark.parametrize("wire", ["bfloat16", "float8_e4m3fn", "float16", "float32"])
+@pytest.mark.parametrize("wire", ["bfloat16", "float8_e4m3fn", "float16", "float32",
+                                  "float8_e5m2", "float8_e3m4", "float8_e8m0fnu"])
 @pytest.mark.parametrize("name,size,dim,radius,aligned,dtype", WIRE_CASES[:3], ids=WIRE_IDS[:3])
 def test_replay_with_a_wire_equals_the_plain_versions(name, size, dim, radius, aligned, dtype,
                                                       wire):
@@ -467,7 +494,7 @@ def test_replay_with_a_wire_equals_the_plain_versions(name, size, dim, radius, a
     spec, sz, sy, word, vec = _case(size, dim, radius, aligned, dtype)
     mesh = DeviceMesh(dim, ["cpu"] * spec.num_blocks())
     m = len(mesh) * 2
-    narrow = halo_fill.wire_code(torch.from_numpy(np.zeros(1, dtype)).dtype, wire) != 0
+    narrow = halo_fill.wire_format(torch.from_numpy(np.zeros(1, dtype)).dtype, wire) is not None
     plan, _boxes, _steps = _fused(spec)
     jobs = [(rdma.remote_axis_work(spec, ph.axis, vec, word, m, narrow),
              lambda st, ph=ph: rdma.remote_axis_plain(st, spec, ph, mesh, wire))
@@ -497,7 +524,8 @@ class EndpointCard:
     uploads are kept, and each launch is replayed (``replay_tables``) on the
     CPU views its pointer rows name, so a resident block, a view into its
     stack, is an endpoint like a position's block. ``calls`` keeps each
-    launch's instance count."""
+    launch's instance count, ``marks`` its sender rows' local marks and
+    ``wires`` its wire format's name."""
 
     type, index = "cuda", 0
 
@@ -505,7 +533,7 @@ class EndpointCard:
         p = spec.padded()
         self.blocks = {v.data_ptr(): v for t in stacks
                        for v in t.reshape(-1, p.z, p.y, p.x).unbind(0)}
-        self.tables, self.calls = {}, []
+        self.tables, self.calls, self.marks, self.wires = {}, [], [], []
         monkeypatch.setattr(rdma, "_check_mesh_blocks", lambda *a: self)
         monkeypatch.setattr(rdma._native, "kept", lambda key, make: make())
         monkeypatch.setattr(rdma._native, "upload", self.upload)
@@ -517,14 +545,18 @@ class EndpointCard:
         self.tables[t.data_ptr()] = t.tolist()
         return t
 
-    def remote_axis_launch(self, ptrs, m, segs, nseg, tasks, word, code, sz, sy, _stream):
+    def remote_axis_launch(self, ptrs, m, segs, nseg, tasks, word, code, fmt, sz, sy,
+                           _stream):
         table = self.tables[ptrs]
         head = (segs - ptrs) // 8
         rows = [table[i:i + rmv.MOVE_COLS] for i in range(head, len(table), rmv.MOVE_COLS)]
-        assert len(rows) == nseg and code == 0
-        assert set(table[:head]) <= set(self.blocks)  # every pointer a block's start
+        assert len(rows) == nseg
+        # every pointer a block's start, a sender's with its local mark
+        assert {p & ~1 for p in table[:head]} <= set(self.blocks)
         self.calls.append(m)
-        replay_tables(self.blocks, table[:head], m, rows, tasks, sz, sy)
+        self.marks.append([p & 1 for p in table[:head:2]])
+        self.wires.append(launch_wire(code, fmt))
+        replay_tables(self.blocks, table[:head], m, rows, tasks, sz, sy, self.wires[-1])
         return 0
 
 
@@ -550,3 +582,85 @@ def test_resident_endpoint_tables_replay_to_the_plain_version(monkeypatch, dim, 
     assert card.calls == [spec.num_blocks() * nq] * rings
     for q in want:
         assert torch.equal(got[q], want[q])
+
+
+# -- the wire on an oversubscribed mesh: narrowing per block and direction ---------------
+
+# (partition, mesh): every axis crossing; x with a ring of one position but
+# two residents; an uneven-free mix of 1, 2 and 3 residents a position
+OVERSUB = [((4, 2, 2), (2, 2, 2)), ((2, 2, 2), (1, 2, 2)), ((3, 2, 4), (1, 2, 2)),
+           ((2, 4, 1), (2, 2, 1))]
+OVERSUB_IDS = ["422-on-222", "222-on-122", "324-on-122", "241-on-221"]
+
+
+@pytest.mark.parametrize("part,mesh_dim", OVERSUB, ids=OVERSUB_IDS)
+def test_local_marks_follow_the_partition(part, mesh_dim):
+    """remote_axis_local marks a sender block's message along each step
+    local exactly where the block and its ring neighbour sit on one
+    position (``parallel.exchange.position_blocks``): never with one block
+    a position, always on an axis whose positions' ring is 1."""
+    from stencil_tpu_torch.parallel.exchange import position_blocks, position_resident
+
+    spec = GridSpec(Dim3(*(4 * n for n in part)), Dim3(*part), Radius.constant(1))
+    mesh = DeviceMesh(mesh_dim, ["cpu"] * Dim3(*mesh_dim).flatten())
+    res = position_resident(spec, mesh)
+    where = [i for i, _j in position_blocks(spec, mesh)]
+    blocks = DeviceMesh(part, ["cpu"] * spec.num_blocks())
+    for k, axis in enumerate("xyz"):
+        marks = dict(rdma.remote_axis_local(axis, spec.dim, res))
+        for sign in (1, -1):
+            step = tuple(sign if a == k else 0 for a in range(3))
+            dests = blocks.destinations(step)
+            assert marks[step] == tuple(where[i] == where[d] for i, d in enumerate(dests))
+        if mesh.ring(axis) == 1:
+            assert all(all(f) for f in marks.values())
+        elif (res.x, res.y, res.z)[k] == 1:
+            assert not any(any(f) for f in marks.values())
+    one = dict(rdma.remote_axis_local("x", Dim3(2, 2, 2), Dim3(1, 1, 1)))
+    assert not any(any(f) for f in one.values())
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "float8_e5m2", "float4_e2m1fn"])
+@pytest.mark.parametrize("part,mesh_dim", OVERSUB[:3], ids=OVERSUB_IDS[:3])
+def test_oversubscribed_wire_tables_replay_to_the_plain_version(monkeypatch, part, mesh_dim,
+                                                                wire):
+    """An oversubscribed mesh with a wire on the card: one launch a ring
+    phase over every block, each sender row marked local where its message
+    stays on its position (remote_axis_local), a phase whose messages all
+    stay launched unnarrowed (and not counted in ``narrowed``); replayed as
+    the kernel reads it, equal to the CPU's exchange with the wire on every
+    cell, fp32 and fp64 quantities, which rounds only the slabs between
+    positions."""
+    from stencil_tpu_torch.parallel.exchange import position_resident, split_positions
+
+    spec = GridSpec(Dim3(*(4 * n for n in part)), Dim3(*part), Radius.constant(2))
+    mesh = DeviceMesh(mesh_dim, ["cpu"] * Dim3(*mesh_dim).flatten())
+    rng = np.random.RandomState(90)
+    shape = spec.stacked_shape_zyx()
+    g = {q: torch.from_numpy((rng.standard_normal(shape) * 2.0 ** rng.uniform(-12, 9, shape))
+                             .astype(dt)) for q, dt in enumerate((F32, F64))}
+    want, got, native = ({q: split_positions(t, spec, mesh) for q, t in g.items()}
+                         for _ in range(3))
+    HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, wire_dtype=wire)(want)
+    HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh)(native)
+    card = EndpointCard(monkeypatch, [b for bl in got.values() for b in bl], spec)
+    launches, narrowed = rdma.remote_axis.launches, rdma.remote_axis.narrowed
+    HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, wire_dtype=wire)(got)
+    res = position_resident(spec, mesh)
+    rings = [a for a, n in zip("xyz", part) if n > 1]
+    crossing = [a for a in rings if mesh.ring(a) > 1]
+    assert rdma.remote_axis.launches - launches == 2 * len(rings) == len(card.calls)
+    assert rdma.remote_axis.narrowed - narrowed == 2 * len(crossing)
+    for i, axis in enumerate(a for a in rings for _dt in (F32, F64)):
+        local = dict(rdma.remote_axis_local(axis, spec.dim, res))
+        steps = [s for s in local if axis != "x" or sum(s) > 0]  # x: one paired group
+        if axis in crossing:
+            assert card.wires[i] == wire
+            assert card.marks[i] == [int(f) for st in steps for f in local[st]]
+        else:
+            assert card.wires[i] is None and not any(card.marks[i])
+    for q in want:
+        for a, b in zip(got[q], want[q]):
+            assert torch.equal(a, b), q
+    # and the wire did round what crossed
+    assert not all(torch.equal(a, b) for q in want for a, b in zip(want[q], native[q]))

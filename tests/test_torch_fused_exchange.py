@@ -167,7 +167,7 @@ def test_fused_exchange_table_moves_the_plain_versions_boxes(monkeypatch):
             tables[t.data_ptr()] = (t, t.tolist())
             return t
 
-        def launch(ptrs, m, segs, nseg, tasks, item, code, sz, sy, _st):
+        def launch(ptrs, m, segs, nseg, tasks, item, code, _fmt, sz, sy, _st):
             assert code == 0
             table, cols = tables[ptrs][1], row_moves.MOVE_COLS
             head = (segs - ptrs) // 8

@@ -19,7 +19,7 @@ import torch
 from stencil_tpu_torch.domain import GridSpec
 from stencil_tpu_torch.geometry import Dim3, Radius
 from stencil_tpu_torch.ops import fused_stencil as fst
-from stencil_tpu_torch.ops.halo_fill import WIRE_CODES, wire_round
+from stencil_tpu_torch.ops.halo_fill import WIRE_FORMATS, wire_round
 from stencil_tpu_torch.parallel import DeviceMesh, Method
 from stencil_tpu_torch.plan.ir import build_plan
 
@@ -54,10 +54,12 @@ def test_constants_mirror_the_kernel_source():
     assert [f.strip() for f in fields.split(",")] == [
         "box", "src", "dst", "units", "width", "ey", "rows", "chunks", "start", "narrow"]
     assert len(fields.split(",")) == fst.SEG_COLS
-    # the wire: fp32 fields through bf16, fp16 and e4m3, rounded in phase A
-    # between load and store on the flagged segments only
-    assert STEP_SRC.count("(const void*)fused_step_kernel<wire::") == 4
-    assert "if (s.narrow) v[u] = wire::narrow<WIRE>(v[u]);" in STEP_SRC
+    # the wire: fp32 fields through bf16, fp16, e4m3, e5m2 and the SOFT
+    # formats (by the launch's format), rounded in phase A between load and
+    # store on the flagged segments only
+    assert STEP_SRC.count("(const void*)fused_step_kernel<wire::") == 6
+    assert "if (s.narrow) v[u] = wire::narrow<WIRE>(v[u], f);" in STEP_SRC
+    assert "s.fmt = wire::Format::from(fmt);" in STEP_SRC
 
 
 def test_launch_shape():
@@ -294,7 +296,7 @@ class FakeFusedCard:
         return self.tables[key]
 
     def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
-                            xo, nz, ny, nx, vec, wire, dev, stream):
+                            xo, nz, ny, nx, vec, wire, fmt, dev, stream):
         assert wire == 0  # one block: nothing crosses
         p = [[self.blocks[v] for v in self.tables[pos][3 * i:3 * i + 3]] for i in range(npos)]
         flat, msgs = self.tables[segs], self.tables[msg]
@@ -357,7 +359,7 @@ def test_narrow_flags_mark_the_crossing_boxes(size, dim):
     dests = [mesh.destinations(ph.direction) for ph in plan.fused_phases]
     msgs = [(i, j, b) for b, ds in enumerate(dests) for i, j in enumerate(ds)]
     p = spec.padded()
-    for wire in WIRE_CODES:
+    for wire in WIRE_FORMATS:
         rng = np.random.RandomState(45)
         got = [torch.from_numpy((rng.standard_normal((1, 1, 1, p.z, p.y, p.x))
                                  * 2.0 ** rng.uniform(-12, 9, (1, 1, 1, p.z, p.y, p.x)))

@@ -312,18 +312,17 @@ class FakeChunkCard:
         return 0
 
     def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
-                            xo, nz, ny, nx, vec, code, dev, stream):
+                            xo, nz, ny, nx, vec, code, fmt, dev, stream):
         """The fused step: its phase-A work list replayed as
         tests/test_torch_fused_launch.py does (the flagged rows through the
-        wire of the launch's code), then one sweep per position."""
+        wire of the launch's code and format), then one sweep per position."""
+        from test_torch_exchange_launch import launch_wire
         from test_torch_fused_launch import replay_rows
-
-        from stencil_tpu_torch.ops.halo_fill import WIRE_CODES
 
         p = self.positions(pos, npos)
         flat, msgs = self.tables[segs], self.tables[msg]
         assert ncols == tfused.SEG_COLS and len(flat) == nseg * ncols and m == npos
-        wire = {c: w for w, c in WIRE_CODES.items()}.get(code)
+        wire = launch_wire(code, fmt)
         replay_rows([a for a, _b, _s in p], [flat[i * ncols:(i + 1) * ncols] for i in range(nseg)],
                     [msgs[3 * i:3 * i + 3] for i in range(len(msgs) // 3)], m, sz, sy, wire)
         return self.substeps(p, sz, sy, zo, yo, xo, nz, ny, nx, 1)

@@ -122,8 +122,8 @@ def test_self_wrap_axes_go_through_the_fill_kernel_wrapper(monkeypatch):
     monkeypatch.setattr(remote_dma, "self_fill",
                         lambda b, s, a, **k: (fills.append((a, len(b))), real_fill(b, s, a, **k)))
     monkeypatch.setattr(remote_dma, "remote_axis",
-                        lambda b, s, ph, m, wire: (rings.append(ph.axis),
-                                                   real_ring(b, s, ph, m, wire)))
+                        lambda b, s, ph, m, wire, local=None: (
+                            rings.append(ph.axis), real_ring(b, s, ph, m, wire, local)))
     tspec, _jspec, tmesh, _jmesh = pair((16, 16, 20), (1, 1, 2), 1)
     ex = tpar.HaloExchange(tspec, tpar.Method.REMOTE_DMA, mesh=tmesh)
     ex({q: tpar.shard_blocks(np.zeros((20, 16, 16), F32), tspec, tmesh) for q in range(9)})
@@ -360,7 +360,7 @@ def test_remote_axis_table_moves_the_plain_versions_slabs(monkeypatch):
             got = [[st[k][i] for k in st] for i in range(len(tmesh))]
             card = FakeCard(monkeypatch, remote_dma, got)
 
-            def launch(ptrs, m, segs, nseg, tasks, item, code, sz, sy, _st):
+            def launch(ptrs, m, segs, nseg, tasks, item, code, _fmt, sz, sy, _st):
                 assert code == 0
                 table, cols = card.tables[ptrs][1], remote_dma.row_moves.MOVE_COLS
                 head = (segs - ptrs) // 8  # the pointer rows: one group in x, two in y and z

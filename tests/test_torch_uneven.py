@@ -40,6 +40,7 @@ from stencil_tpu_torch import DistributedDomain
 from stencil_tpu_torch.convert import (mesh_state_from_jax, mesh_state_to_numpy, state_from_jax,
                                        state_to_numpy)
 from stencil_tpu_torch.ops import halo_fill, remote_dma, row_moves, shells
+from test_torch_exchange_launch import launch_wire
 from stencil_tpu_torch.ops import stencil_kernels as tk
 from stencil_tpu_torch.ops.health_reduce import health_reduce
 
@@ -47,7 +48,6 @@ torch.set_num_threads(2)
 
 F32, F64 = np.float32, np.float64
 RDMA_T, RDMA_J = tpar.Method.REMOTE_DMA, jpar.Method.REMOTE_DMA
-WIRE_NAMES = {code: name for name, code in halo_fill.WIRE_CODES.items()}
 
 
 def radius(geo, r):
@@ -238,7 +238,7 @@ class ArenaCard:
         self.tables[t.data_ptr()] = t.tolist()
         return t
 
-    def remote_axis_launch(self, ptrs, m, segs, nseg, tasks, word, code, sz, sy, _stream):
+    def remote_axis_launch(self, ptrs, m, segs, nseg, tasks, word, code, fmt, sz, sy, _stream):
         table = self.tables[ptrs]
         head = (segs - ptrs) // 8
         rows = [table[i:i + row_moves.MOVE_COLS] for i in range(head, len(table),
@@ -246,15 +246,15 @@ class ArenaCard:
         assert len(rows) == nseg
         arena = next(a for a in self.arenas.values() if a.element_size() == word)
         self.calls.append((m, word, sorted({r[8] for r in rows})))
-        replay_arena(arena, table[:head], m, rows, tasks, sz, sy,
-                     WIRE_NAMES.get(code))
+        replay_arena(arena, table[:head], m, rows, tasks, sz, sy, launch_wire(code, fmt))
         return 0
 
 
 def replay_arena(arena, ptr_rows, m, seg_rows, tasks, sz, sy, wire=None):
     """csrc/row_moves.cuh over a flat arena: pointers are arena addresses
     (possibly moved off a block's start), units as the kernel computes
-    them; a narrow segment rounds through ``wire``. In place."""
+    them; a narrow segment rounds through ``wire`` unless its sender row
+    is marked local. In place."""
     task = row_moves.move_shape()["task_units"]
     word, a0 = arena.element_size(), arena.data_ptr()
     flat = arena.view(-1)
@@ -263,7 +263,9 @@ def replay_arena(arena, ptr_rows, m, seg_rows, tasks, sz, sy, wire=None):
         row = seg_rows[bisect.bisect_right(starts, t) - 1]
         g, src, dst, split, src2, dst2, end, units, width, ey, rows, chunks, start, narrow = row
         c, j = divmod(t - start, m)
-        p = (ptr_rows[2 * (g * m + j)] - a0) // word
+        sender = ptr_rows[2 * (g * m + j)]
+        narrow = narrow and not sender & 1  # the local mark (row_moves.cuh)
+        p = ((sender & ~1) - a0) // word
         q = (ptr_rows[2 * (g * m + j) + 1] - a0) // word
         i = np.arange(c * task, min((c + 1) * task, rows * units), dtype=np.int64)
         r, k = np.divmod(i, units)

@@ -1,5 +1,7 @@
 """The narrowed wire (``wire_dtype``: bf16 on the wire and its fp8 tier) in
-the port, against the JAX package on its virtual CPU devices: the rounding
+the port, against the JAX package on its virtual CPU devices (the other
+fp8 and fp4 formats' rounding and carriers: ``test_torch_wire_formats.py``;
+an oversubscribed mesh: ``test_torch_wire_oversub.py``): the rounding
 of a crossing word (``halo_fill.wire_round``) against ``astype`` under
 ``jax.jit`` for every supported pair, edge values included; the policy and
 the byte model; the axis carrier's (B6) and the fused exchange's (B7) plain
@@ -133,18 +135,25 @@ def test_fp64_subnormal_narrowing_is_kept(wire):
 # -- the policy and the byte model ---------------------------------------------------
 
 DTYPES = ["int32", "float16", "bfloat16", "float32", "float64", "float8_e4m3fn"]
+# every other floating format the JAX package narrows through, and a
+# non-floating one
+WIRES = DTYPES + ["float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz",
+                  "float8_e3m4", "float8_e4m3", "float8_e8m0fnu", "float4_e2m1fn", "int8"]
 
 
 @pytest.mark.parametrize("native", DTYPES)
 def test_wire_policy_and_itemsize_match_jax(native):
-    for wire in DTYPES:
+    """For data of each dtype, each wire narrows (to that format) exactly
+    when JAX's ``wire_narrow_dtype`` says so, and prices a cell at JAX's
+    itemsize."""
+    for wire in WIRES:
         want = jfill.wire_narrow_dtype(jnp.dtype(native), wire)
-        got = tfill.wire_narrow_dtype(getattr(torch, native), wire)
-        assert (None if got is None else str(got).replace("torch.", "")) == \
+        got = tfill.wire_format(getattr(torch, native), wire)
+        assert (None if got is None else got.name) == \
             (None if want is None else str(want)), (native, wire)
         assert tir.wire_itemsize(wire) == jir.wire_itemsize(wire)
-        assert tfill.wire_code(getattr(torch, native), wire) == \
-            (0 if got is None else tfill.WIRE_CODES[str(got).replace("torch.", "")])
+        if got is not None:
+            assert got.itemsize == jnp.dtype(wire).itemsize
     assert tir.wire_itemsize(None) is None
 
 
@@ -152,20 +161,27 @@ def test_wire_names():
     assert tfill.wire_name(None) is None and tfill.wire_name("") is None
     assert tfill.wire_name(torch.bfloat16) == BF16 and tfill.wire_name(FP8) == FP8
     assert tfill.wire_name("float64") == "float64" and tfill.wire_name("int8") == "int8"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfill.wire_name("float8_e5m2")
+    # every format the JAX package narrows through has a name and a format
+    # (e5m2 by the card's conversion, the others by the SOFT instantiation)
+    assert tfill.wire_name("float8_e5m2") == "float8_e5m2"
+    assert tfill.wire_name(torch.float8_e5m2) == "float8_e5m2"
+    e5m2 = tfill.wire_format(torch.float32, "float8_e5m2")
+    assert (e5m2.mant, e5m2.emin, e5m2.top, e5m2.overflow, e5m2.code) == \
+        (2, -14, 57344.0, "inf", 5)
+    assert tfill.wire_format(torch.float64, "float4_e2m1fn").code == tfill.SOFT_WIRE
     with pytest.raises(ValueError, match="unknown dtype"):
         tfill.wire_name("bf17")
-    assert tfill.wire_code(torch.float32, "float32") == 0
-    assert tfill.wire_code(torch.float64, "float32") == tfill.WIRE_CODES["float32"]
-    assert tfill.wire_code(torch.int32, FP8) == 0
+    assert tfill.wire_format(torch.float32, "float32") is None
+    assert tfill.wire_format(torch.float64, "float32").code == 4
+    assert tfill.wire_format(torch.int32, FP8) is None
 
 
 PLAN_KINDS = [("axis-composed", {}), ("remote-dma", {}), ("remote-dma", {"fused": True})]
 
 
 @pytest.mark.parametrize("dim", [(2, 2, 2), (2, 1, 1)], ids=["222", "211"])
-@pytest.mark.parametrize("wire", [BF16, FP8])
+@pytest.mark.parametrize("wire", [BF16, FP8, "float8_e5m2", "float8_e4m3b11fnuz",
+                                  "float8_e8m0fnu", "float4_e2m1fn"])
 def test_plan_wire_bytes_match_jax(dim, wire):
     """Composed, remote-dma and fused plans: the fields, the description
     and the wire bytes (native, narrowed, and with an int32 quantity that
@@ -182,7 +198,7 @@ def test_plan_wire_bytes_match_jax(dim, wire):
             assert got.wire_bytes(sizes, floating) == want.wire_bytes(sizes, floating)
             assert native.wire_bytes(sizes, floating) == \
                 jir.build_plan(jspec, dim, method, **kw).wire_bytes(sizes, floating)
-        assert native.wire_bytes([4]) == {BF16: 2, FP8: 4}[wire] * got.wire_bytes([4]) > 0
+        assert native.wire_bytes([4]) == 4 // tir.wire_itemsize(wire) * got.wire_bytes([4]) > 0
         assert got.wire_bytes([4], [False]) == native.wire_bytes([4])
 
 
@@ -325,7 +341,7 @@ def field(r):
     return r["domain"].get_curr_global(r["handle"])
 
 
-@pytest.mark.parametrize("wire", [BF16, FP8])
+@pytest.mark.parametrize("wire", [BF16, FP8, "float8_e5m2"])
 @pytest.mark.parametrize("variant", [None, "fused"], ids=["plain", "fused"])
 def test_jacobi3d_mesh_wire_matches_jax_app(variant, wire):
     """16^3 over 8 positions, 5 steps in chunks of 2 after a warm-up chunk:
@@ -377,7 +393,12 @@ def test_jacobi3d_cli_wire_dtype(capsys):
     want = japp.run(16, 16, 16, devices=jax.devices()[:8], method=RDMA_J, iters=5, weak=False,
                     wire_dtype=BF16)
     assert row[:8] == japp.csv_row(want).split(",")[:8]
-    with pytest.raises(NotImplementedError, match="float8_e5m2"):
-        tapp.main(argv[:-1] + ["float8_e5m2"])
+    # a format the card does not convert runs too (the SOFT instantiation on
+    # the card; its plain version here), as the JAX app does
+    assert tapp.main(argv[:-1] + ["float8_e4m3b11fnuz"]) == 0
+    row = capsys.readouterr().out.strip().splitlines()[-1].split(",")
+    want = japp.run(16, 16, 16, devices=jax.devices()[:8], method=RDMA_J, iters=5, weak=False,
+                    wire_dtype="float8_e4m3b11fnuz")
+    assert row[:8] == japp.csv_row(want).split(",")[:8]
     with pytest.raises(ValueError, match="unknown dtype"):
         tapp.main(argv[:-1] + ["bf17"])
