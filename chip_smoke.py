@@ -445,6 +445,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               pressure swaps between slots; every result byte-equal to the
               batch driver's). The kernels line's rows carry the phase's
               launches as plan_phase_launches.
+19. tools -- the measurement tools (tools_phase, rehearsable on the CPU at
+              small sizes): obs.xprof.capture (a torch.profiler capture)
+              around apps.jacobi3d.run at 512^3 fp32 on one block (a warm-up
+              and one 25-step chunk) and over 8 positions (plain
+              remote-dma): the gate yields True, the dump is parsed,
+              range_seconds gives jacobi.chunk device seconds, each kernel's
+              events (matched by its __global__ name) equal its wrapper's
+              launch counter around the run and one chunk's inside the
+              chunk's device span, the multistep's profiler mean within 15%
+              of its CUDA-event time, the top five kernels and the
+              chunk's device busy share printed; a capture of B8's and B9's
+              cooperative mesh launches, the health kernel and a CUDA
+              graph's replay (what does not show is printed); the record
+              tools on the one-block run's metrics file (trace export valid,
+              report --validate 0, the chunk spans, perf_tool ingest under
+              two labels, trend, gate 0 or 1); apps.bench_exchange (the
+              radius sweep at 256^3 x4, B4's launches held; the ablation over
+              (2,2,2) residents bit for bit, census 6 / 26 / 0, auto-spmd
+              skipped; config 2 over 8 positions by B6 and B7, launches
+              held; the bf16 wire A/B's gate); apps.bench_pack at 512^3 r3
+              (26 rows, each direction's bytes); apps.measure_overlap at
+              512^3 over 8 positions with --trace (hidden_frac, the sweep
+              kernel in the trace). The B2 and B1 rows of the kernels line
+              carry the profiler's mean ms as profiler_ms.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -455,6 +479,7 @@ before printing any result.
 from __future__ import annotations
 
 import ctypes
+import glob
 import json
 import os
 import subprocess
@@ -1213,26 +1238,68 @@ def format_edges():
 
 
 class plain_carriers:
-    """Within the block, B6's and B7's wrappers run their plain versions on
-    whatever tensors they are given (the card's included) and count
-    nothing: the plain version of a path that calls them."""
+    """Within the block, B6's and B7's wrappers (with ``fill``, B4's too, as
+    a mesh exchange calls it) run their plain versions on whatever tensors
+    they are given (the card's included) and count nothing: the plain
+    version of a path that calls them."""
+
+    def __init__(self, fill: bool = False):
+        self.fill = fill
 
     def __enter__(self):
         from stencil_tpu_torch.ops import fused_stencil as fst
+        from stencil_tpu_torch.ops import halo_fill
         from stencil_tpu_torch.ops import remote_dma as rdma
 
-        self.saved = (rdma.remote_axis, fst.fused_exchange)
+        self.saved = (rdma.remote_axis, fst.fused_exchange, rdma.self_fill)
         rdma.remote_axis = lambda b, s, ph, m, w=None, local=None: \
             rdma.remote_axis_plain(b, s, ph, m, w, local)
         fst.fused_exchange = fst.fused_exchange_plain
+        if self.fill:
+            rdma.self_fill = lambda b, s, axis: halo_fill.self_fill_plain(b, s, axis)
         return self
 
     def __exit__(self, *exc):
         from stencil_tpu_torch.ops import fused_stencil as fst
         from stencil_tpu_torch.ops import remote_dma as rdma
 
-        rdma.remote_axis, fst.fused_exchange = self.saved
+        rdma.remote_axis, fst.fused_exchange, rdma.self_fill = self.saved
         return False
+
+
+def copy_slabs(state, spec, mesh, phases):
+    """The library yardstick of a mesh exchange's axis phases: B6's slabs
+    (an axis of one position: its self-wrap) moved by Tensor.copy_, one
+    call per slab and quantity."""
+    from stencil_tpu_torch.ops import halo_fill
+
+    for ph in phases:
+        o, n, rm, rp = halo_fill.axis_geom(spec, ph.axis)
+        for i, pos in enumerate(mesh.positions()):
+            bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(pos, ph.axis))
+            for blocks in state.values():
+                src = blocks[i]
+                if rm:
+                    dst = blocks[fwd]
+                    dst[halo_fill._axis_slice(dst, ph.axis, o - rm, o)].copy_(
+                        src[halo_fill._axis_slice(src, ph.axis, o + n - rm, o + n)])
+                if rp:
+                    dst = blocks[bwd]
+                    dst[halo_fill._axis_slice(dst, ph.axis, o + n, o + n + rp)].copy_(
+                        src[halo_fill._axis_slice(src, ph.axis, o, o + rp)])
+
+
+def copy_boxes(state, mesh, plan):
+    """The library yardstick of a fused mesh exchange: B7's messages moved by
+    Tensor.copy_, one call per message and quantity."""
+    from stencil_tpu_torch.ops import fused_stencil as fst
+
+    for ph in plan.fused_phases:
+        s_, d_ = fst.box_slices(ph.src, ph.dst, ph.shape)
+        for i, pos in enumerate(mesh.positions()):
+            j = mesh.index(mesh.shifted(pos, ph.direction))
+            for blocks in state.values():
+                blocks[j][d_].copy_(blocks[i][s_])
 
 
 def mesh_formats_phase(dev, time_ms, n: int = 512, c2: int = 256, over: int = 256,
@@ -3812,13 +3879,25 @@ def astaroth_mesh_phase(dev, time_ms, n: int = 256, mid: int = 128, iters: int =
         check(all(torch.equal(join_positions(state[k], spec)[grown], stacked[k][grown])
                   for k in FIELDS),
               f"astaroth exchange {label}: not equal to the resident exchange")
-        ms = time_ms(lambda: ex(state), 5, warmup=1) if timed_ex else float("nan")
+        ms = plain = lib = float("nan")
+        if timed_ex:
+            ms = time_ms(lambda: ex(state), 5, warmup=1)
+            # the plain versions of every carrier the exchange launches (B6,
+            # B7, B4) on the card's tensors, and Tensor.copy_ of the same
+            # slabs or messages
+            with plain_carriers(fill=True):
+                plain = time_ms(lambda: ex(state), 2, warmup=1)
+            lib = time_ms(lambda: copy_boxes(state, mesh, ex.plan) if fused else
+                          copy_slabs(state, spec, mesh,
+                                     [ph for ph in ex.plan.remote_phases if ph.active]),
+                          3, warmup=1)
         nb = 2 * ex.bytes_logical([8] * 8)
         log(f"astaroth exchange {label} r3 8 fp64 fields: launches (B6, B4, B7) {got}, every "
             f"halo and compute cell equal to the resident exchange; {ms:.4f} ms ({nb / 2 / 1e6:.1f} MB of halos "
-            f"read and written: bound {bound_ms(nb, 0)[0]:.4f} ms by bytes)")
+            f"read and written: bound {bound_ms(nb, 0)[0]:.4f} ms by bytes); plain versions "
+            f"{plain:.4f} ms, Tensor.copy_ of the same slabs {lib:.4f} ms")
         del stacked, state
-        return ms
+        return {"ms": ms, "plain_ms": plain, "copy_ms": lib}
 
     ex_ms = {
         "b6": exchange_held(f"(2,2,2) x {n}^3 over 8 positions (B6)", (2 * n,) * 3, (2, 2, 2),
@@ -3898,8 +3977,9 @@ def astaroth_mesh_phase(dev, time_ms, n: int = 256, mid: int = 128, iters: int =
     flops = (asub.FLOPS_PER_CELL[0] + 2 * asub.FLOPS_PER_CELL[1]) / 3 * cells
     t = dict(ms=(st[0] + 2 * st[1]) / 3, plain_ms=(pl[0] + 2 * pl[1]) / 3,
              bound=bound_ms(nbytes, flops, torch.float64), library_ms=None,
-             extra={"exchange_b6_ms": ex_ms["b6"], "exchange_b7_ms": ex_ms["b7"],
-                    "exchange_mixed_ms": ex_ms["b4"]})
+             extra={f"exchange_{label}_{k}": v
+                    for name, label in (("b6", "b6"), ("b7", "b7"), ("b4", "mixed"))
+                    for k, v in ex_ms[name].items()})
     sh_cells = sum((r.hi - r.lo).flatten() for _, _, r in shells)
     ts = dict(ms=time_ms(run(shells, 0), 6, warmup=1, graph=True), plain_ms=pl_shells,
               bound=bound_ms(asub.tasks_bytes(shells, item, 0),
@@ -4360,6 +4440,441 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
         f"between slots, status file valid, every result byte-equal to the batch driver's")
     log(f"phase 18 (plan) {time.perf_counter() - t0:.1f} s")
     return phase_launches, report
+
+
+# -- phase 19: the measurement tools ------------------------------------------------
+
+# each launch counter beside the __global__ kernel its wrapper launches (the
+# trace names a kernel by its demangled signature: match by this prefix)
+GLOBAL_OF = {"multistep": "jacobi_multistep_kernel", "sweep": "jacobi_sweep_kernel",
+             "sweep_positions": "jacobi_sweep_kernel", "remote_axis": "move_rows_kernel",
+             "fused_jacobi_mesh": "fused_step_kernel",
+             "persistent_jacobi_mesh": "persistent_jacobi_kernel",
+             "health_reduce": "health_kernel"}
+
+
+def kernel_base(name: str) -> str:
+    """A kernel's ``__global__`` name from the trace's demangled signature,
+    its namespaces dropped (``void (anonymous
+    namespace)::jacobi_multistep_kernel<3, float>(Params<float>)`` and
+    ``void row_moves::move_rows_kernel<...>(...)`` -> the bare name)."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    for stop in "<(":
+        i = name.find(stop)
+        if i > 0:
+            name = name[:i]
+    return name.strip().rsplit("::", 1)[-1]
+
+
+def trace_x_events(logdir: str):
+    """Every complete event of the Chrome-trace dumps under ``logdir``."""
+    evs = []
+    for path in glob.glob(os.path.join(logdir, "**", "*.trace.json"), recursive=True):
+        with open(path) as f:
+            evs += [e for e in json.load(f).get("traceEvents", [])
+                    if isinstance(e, dict) and e.get("ph") == "X"
+                    and isinstance(e.get("dur"), (int, float))]
+    return evs
+
+
+def device_span(evs, name: str, work_cats):
+    """``(lo, hi, route)`` in µs of range ``name`` on the device timeline:
+    its ``gpu_user_annotation`` events, else the device work whose launch
+    (the runtime event with its correlation id) lies in the host range."""
+    ann = [e for e in evs if e.get("cat") == "gpu_user_annotation" and e.get("name") == name]
+    if ann:
+        return (min(e["ts"] for e in ann), max(e["ts"] + e["dur"] for e in ann),
+                "gpu_user_annotation")
+    host = [e for e in evs if e.get("cat") == "user_annotation" and e.get("name") == name]
+    launch = {(e.get("args") or {}).get("correlation"): e["ts"] for e in evs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    work = [e for e in evs if e.get("cat") in work_cats
+            and any(h["ts"] <= launch.get((e.get("args") or {}).get("correlation"), -1)
+                    <= h["ts"] + h["dur"] for h in host)]
+    if not work:
+        return None
+    return (min(e["ts"] for e in work), max(e["ts"] + e["dur"] for e in work), "correlation")
+
+
+def busy_share(evs, lo: float, hi: float, work_cats) -> float:
+    """The union of the device work's intervals over ``[lo, hi]``, as a
+    share of it."""
+    iv = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in evs
+                if e.get("cat") in work_cats and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for s, e in iv:
+        s = max(s, end)
+        if e > s:
+            busy += e - s
+            end = e
+    return busy / (hi - lo) if hi > lo else 0.0
+
+
+def tools_phase(dev, n: int = 512, chunk: int = 25, variant_n: int = 256, ex_n: int = 256,
+                ex_iters: int = 20, pack_n: int = 512, pack_iters: int = 20,
+                overlap_n: int = 512, overlap_iters: int = 10, rounds: int = 3):
+    """Phase 19, the measurement tools on the card (rehearsable on the CPU at
+    small sizes, where ``capture`` yields False and the plain versions count
+    no launch):
+
+    a. ``obs.xprof.capture`` around ``apps.jacobi3d.run`` at ``n``^3 fp32 on
+       one block (a warm-up chunk and one timed ``chunk``-step chunk), then
+       around the plain remote-dma loop over 8 positions: the gate yields
+       True, the dump is found and parsed, ``range_seconds`` gives device
+       seconds > 0 for ``jacobi.chunk``, each kernel's event count equals its
+       wrapper's launch counter around the same run, the chunk's own
+       kernels are one chunk's, the profiler's mean multistep duration is
+       within 15% of the CUDA-event time of the same launch shape (timed
+       right after the capture), the five kernels with the most device seconds
+       and each chunk's device busy share (the union of the device work over
+       the chunk's device span) printed; then a capture of the cooperative
+       launches (B8's and B9's mesh forms), the health kernel and a CUDA
+       graph's replay, each kernel's events beside its launches (what does
+       not show is printed, not failed).
+    b. The record tools on a metrics file of the one-block run:
+       ``trace_export.write_trace`` and ``validate_trace`` == [],
+       ``report --validate`` 0, ``report``'s chunk spans (``jacobi.iter``),
+       ``perf_tool ingest`` under two labels, ``trend``, ``gate`` (0 or 1).
+    c. ``apps.bench_exchange``: the radius sweep at ``ex_n``^3 x4 on one
+       block (5 rows, B4's launches held to the plans'), the ablation over
+       (2,2,2) residents (three methods bit for bit, auto-spmd skipped,
+       census 6 / 26 / 0), REMOTE_DMA plain and fused over 8 positions at
+       config 2 (launches held) and the bf16 wire A/B there (its gate).
+    d. ``apps.bench_pack`` at ``pack_n``^3 r3: 26 rows, each direction's
+       bytes its halo rect's.
+    e. ``apps.measure_overlap`` at ``overlap_n``^3 over 8 positions (strong),
+       r1, with ``--trace``: the four variants and ``hidden_frac``, and
+       ``range_seconds`` on the trace finds the sweep kernel.
+
+    Returns ``(report, profiler_ms)``: the numbers PERF.md records, and the
+    profiler's mean kernel ms of the B2 and B1 rows on the main path."""
+    import contextlib
+    import io
+
+    from stencil_tpu_torch.apps import bench_exchange as be
+    from stencil_tpu_torch.apps import bench_pack as bp
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.apps import measure_overlap as mo
+    from stencil_tpu_torch.apps import perf_tool, report as report_app
+    from stencil_tpu_torch.apps._bench_common import time_exchange
+    from stencil_tpu_torch.domain import GridSpec
+    from stencil_tpu_torch.geometry import DIRECTIONS_26, Dim3, Radius, halo_rect
+    from stencil_tpu_torch.obs import telemetry, trace_export, xprof
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import health_reduce as hr
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import sphere_sel_blocks
+    from stencil_tpu_torch.parallel import Method
+    from stencil_tpu_torch.plan.ir import build_plan
+    from stencil_tpu_torch.utils.timer import cuda_time_ms
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    pos8 = [dev] * 8
+    wrappers = {"multistep": sk.multistep, "sweep": sk.sweep,
+                "sweep_positions": sk.sweep_positions, "remote_axis": rdma.remote_axis,
+                "fused_jacobi_mesh": fst.fused_jacobi_mesh,
+                "persistent_jacobi_mesh": pst.persistent_jacobi_mesh,
+                "health_reduce": hr.health_reduce}
+    work = xprof.DEVICE_WORK
+    out, prof_ms = {}, {}
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="tools_phase_")
+    tmp = tmp_ctx.name
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def kernel_events(logdir):
+        """{__global__ name: [durations µs]} of a capture's kernels."""
+        got = {}
+        for e in xprof.device_events(logdir):
+            if e["cat"] == "kernel":
+                got.setdefault(kernel_base(e["name"]), []).append(e["dur"])
+        return got
+
+    def held(label, logdir, names):
+        """Each wrapper's launches beside its kernel's events, held equal;
+        returns the capture's kernel events."""
+        kev = kernel_events(logdir)
+        log(f"tools {label}: kernels in the trace: "
+            + ", ".join(f"{name} x{len(d)}" for name, d in sorted(kev.items())))
+        for w in names:
+            g = GLOBAL_OF[w]
+            evn = len(kev.get(g, ()))
+            log(f"tools {label}: {w} launches {wrappers[w].launches}, {g} events {evn}")
+            check(evn == wrappers[w].launches,
+                  f"tools {label}: {evn} {g} events in the trace, {wrappers[w].launches} expected")
+        return kev
+
+    # -- a. the capture of the main path ----------------------------------------------
+    k = sk.plan_multistep_depth(min(sk.TEMPORAL_K_CAP, (n - 1) // 2, chunk))
+    per_chunk = {"multistep": chunk // k, "sweep": chunk % k}
+    captures = [("one block", os.path.join(tmp, "one"), dict(), ("multistep", "sweep"),
+                 per_chunk),
+                ("8 positions", os.path.join(tmp, "mesh"),
+                 dict(devices=pos8, method=Method.REMOTE_DMA), ("remote_axis",
+                                                                 "sweep_positions"),
+                 {"remote_axis": 3 * chunk, "sweep_positions": chunk})]
+    for label, logdir, kw, names, one_chunk in captures:
+        zero()
+        sync(dev)
+        with xprof.capture(logdir) as tracing:
+            r = jacobi3d.run(n, n, n, iters=chunk, weak=False, chunk=chunk, warmup=1,
+                             device=None if kw else dev, **kw)
+        sync(dev)
+        check(tracing == on_card, f"tools {label}: the capture's gate yielded {tracing} on "
+              f"{dev.type}")
+        got = {w: wrappers[w].launches for w in names}
+        want = {w: 2 * v * on_card for w, v in one_chunk.items()}
+        check(got == want, f"tools {label}: launches {got} around a warm-up and one chunk, "
+              f"expected {want}")
+        log(f"tools {label} {n}^3: {r['iter_trimean_s'] * 1e3:.4f} ms/iter, launches {got}, "
+            f"capture {'on' if tracing else 'off (no CUDA profiler)'}")
+        del r
+        if not tracing:
+            check(not os.path.exists(logdir), f"tools {label}: a capture that is off wrote")
+            continue
+        # one dump, where range_seconds looks for it
+        files = glob.glob(os.path.join(logdir, "plugins", "profile", "*", "*.trace.json"))
+        check(len(files) == 1, f"tools {label}: {len(files)} dumps under {logdir}")
+        secs = xprof.range_seconds(logdir, ["jacobi.chunk"])
+        check(secs.get("jacobi.chunk", 0) > 0, f"tools {label}: no device seconds for "
+              f"jacobi.chunk ({secs})")
+        kev = held(label, logdir, names)
+        evs = trace_x_events(logdir)
+        span = device_span(evs, "jacobi.chunk", work)
+        check(span is not None, f"tools {label}: no device span for jacobi.chunk")
+        lo, hi, route = span
+        inside = {}
+        for e in evs:
+            if e.get("cat") == "kernel" and lo <= e["ts"] and e["ts"] + e["dur"] <= hi:
+                inside[kernel_base(e["name"])] = inside.get(kernel_base(e["name"]), 0) + 1
+        check(all(inside.get(GLOBAL_OF[w], 0) == v for w, v in one_chunk.items()),
+              f"tools {label}: {inside} kernels inside the chunk's span, {one_chunk} expected")
+        share = busy_share(evs, lo, hi, work)
+        allk = {}
+        for e in xprof.device_events(logdir):
+            allk[kernel_base(e["name"])] = allk.get(kernel_base(e["name"]), 0.0) + e["dur"]
+        five = sorted(allk.items(), key=lambda kv: -kv[1])[:5]
+        log(f"tools {label}: jacobi.chunk {secs['jacobi.chunk'] * 1e3:.4f} ms on the device "
+            f"(range_seconds), span {(hi - lo) / 1e3:.4f} ms by {route}, device busy "
+            f"{share:.4f} of it; kernels inside {inside}")
+        log(f"tools {label}: top five kernels by device ms: "
+            + ", ".join(f"{name} {us / 1e3:.4f}" for name, us in five))
+        out[label] = {"chunk_device_ms": secs["jacobi.chunk"] * 1e3,
+                      "span_ms": (hi - lo) / 1e3, "span_route": route, "busy_share": share,
+                      "top5_ms": {name: us / 1e3 for name, us in five}}
+        for w in names:
+            d = kev.get(GLOBAL_OF[w], [])
+            mean = sum(d) / len(d) / 1e3
+            out[label][f"{GLOBAL_OF[w]}_mean_ms"] = mean
+            if label == "one block":
+                prof_ms["jacobi_multistep" if w == "multistep" else "jacobi_sweep"] = mean
+    if on_card:
+        # the same launch shapes timed by CUDA events (a CUDA graph of 20
+        # launches replayed), outside any capture
+        spec = GridSpec(Dim3(n, n, n), Dim3(1, 1, 1), Radius.constant(1))
+        c = torch.rand(spec.stacked_shape_zyx(), device=dev)
+        x = torch.zeros_like(c)
+        sel = sphere_sel_blocks(spec, dev)
+        ev_ms = {"jacobi_multistep": cuda_time_ms(lambda: sk.multistep(c, x, spec, k), 20,
+                                                  graph=True),
+                 "jacobi_sweep": cuda_time_ms(lambda: sk.sweep(c, x, sel, spec, (True,) * 3,
+                                                               sk.sel_z_range(spec)), 20,
+                                              graph=True)}
+        del c, x, sel
+        for w, row in (("multistep", "jacobi_multistep"), ("sweep", "jacobi_sweep")):
+            log(f"tools: {GLOBAL_OF[w]} at {n}^3 on the main path: profiler mean "
+                f"{prof_ms[row]:.4f} ms, CUDA events {ev_ms[row]:.4f} ms")
+        check(abs(prof_ms["jacobi_multistep"] - ev_ms["jacobi_multistep"])
+              <= 0.15 * ev_ms["jacobi_multistep"],
+              f"tools: the profiler's multistep mean {prof_ms['jacobi_multistep']:.4f} ms is "
+              f"not within 15% of its CUDA-event time {ev_ms['jacobi_multistep']:.4f} ms")
+        out["profiler_ms"] = dict(prof_ms)
+        out["cuda_event_ms"] = ev_ms
+
+        # the cooperative launches, the health kernel and a CUDA graph's replay
+        logdir = os.path.join(tmp, "variants")
+        zero()
+        shows = {}
+        with xprof.capture(logdir):
+            jacobi3d.run(variant_n, variant_n, variant_n, iters=2, weak=False, chunk=2,
+                         warmup=0, devices=pos8, method=Method.REMOTE_DMA,
+                         kernel_variant="fused")
+            jacobi3d.run(variant_n, variant_n, variant_n, iters=4, weak=False, chunk=4,
+                         warmup=0, devices=pos8, method=Method.REMOTE_DMA,
+                         kernel_variant="persistent", deep_halo=4)
+            jacobi3d.run(variant_n, variant_n, variant_n, iters=4, weak=False, chunk=2,
+                         warmup=0, device=dev, health_every=2)
+            graph_launches = sk.multistep.launches
+            spec = GridSpec(Dim3(variant_n, variant_n, variant_n), Dim3(1, 1, 1),
+                            Radius.constant(1))
+            c = torch.zeros(spec.stacked_shape_zyx(), device=dev)
+            x = torch.zeros_like(c)
+            try:
+                cuda_time_ms(lambda: sk.multistep(c, x, spec, k), 3, warmup=1, graph=True)
+                graph_note = "graph replayed"
+            except Exception as e:  # noqa: BLE001 - what does not work is recorded
+                graph_note = f"graph capture under the profiler failed: {e}"
+            graph_launches = sk.multistep.launches - graph_launches
+            sync(dev)
+        kev = kernel_events(logdir)
+        for w in ("fused_jacobi_mesh", "persistent_jacobi_mesh", "health_reduce"):
+            g = GLOBAL_OF[w]
+            shows[w] = (wrappers[w].launches, len(kev.get(g, ())))
+            log(f"tools variants: {w} ({g}) launches {shows[w][0]}, events {shows[w][1]}"
+                + ("" if shows[w][0] == shows[w][1] else "  <- NOT all in the trace"))
+        # the graph: 1 warm-up and 3 captured calls counted, 1 + 3 replayed kernels run
+        ms_ev = len(kev.get("jacobi_multistep_kernel", ()))
+        log(f"tools variants: CUDA graph of the multistep: {graph_note}; wrapper counted "
+            f"{graph_launches} (warm-up + captured calls), the trace holds {ms_ev} "
+            f"jacobi_multistep_kernel events (of which the health run's own)")
+        out["variants"] = {w: {"launches": a, "events": b} for w, (a, b) in shows.items()}
+        out["variants"]["graph"] = {"note": graph_note, "counted": graph_launches,
+                                    "multistep_events": ms_ev}
+        del c, x
+    log(f"tools phase: captures done at {time.perf_counter() - t0:.1f} s")
+
+    # -- b. the record tools on a metrics file of the one-block run ---------------------
+    metrics = os.path.join(tmp, "m.jsonl")
+    telemetry.configure(metrics_out=metrics, app="jacobi3d", config={"x": n, "device": "card"})
+    try:
+        jacobi3d.run(n, n, n, iters=chunk, weak=False, chunk=chunk, warmup=1,
+                     device=dev)
+    finally:
+        telemetry.configure()
+    records, errors = report_app.load([metrics])
+    check(not errors and records, f"tools: metrics file errors {errors[:3]}")
+    trace_path = os.path.join(tmp, "trace.json")
+    n_ev = trace_export.write_trace(trace_path, records)
+    with open(trace_path) as f:
+        check(trace_export.validate_trace(json.load(f)) == [], "tools: invalid trace")
+
+    def cli(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue()
+
+    rc, text = cli(report_app.main, [metrics, "--validate"])
+    check(rc == 0, f"tools: report --validate rc {rc}: {text}")
+    rc, text = cli(report_app.main, [metrics])
+    spans = [ln for ln in text.splitlines() if ln.startswith("jacobi.iter,")]
+    check(rc == 0 and spans, f"tools: report printed no chunk spans (rc {rc})")
+    log(f"tools: {len(records)} records, trace of {n_ev} events valid, report --validate "
+        f"rc 0; the chunk spans: {spans[0]}")
+    led = os.path.join(tmp, "L.jsonl")
+    for label in ("tools-a", "tools-b"):
+        rc, text = cli(perf_tool.main, ["ingest", "--ledger", led, "--label", label,
+                                        "--platform", dev.type, "--spans", metrics])
+        check(rc == 0, f"tools: perf_tool ingest rc {rc}")
+    rc, text = cli(perf_tool.main, ["trend", "--ledger", led])
+    check(rc == 0, f"tools: perf_tool trend rc {rc}")
+    rc, text = cli(perf_tool.main, ["gate", "--ledger", led])
+    check(rc in (0, 1), f"tools: perf_tool gate rc {rc} (a usage error)")
+    verdicts = [ln for ln in text.splitlines() if ln.startswith("GATE")]
+    log(f"tools: perf_tool gate rc {rc}, {len(verdicts)} verdicts, e.g. {verdicts[:2]}")
+    out["record_tools"] = {"records": len(records), "trace_events": n_ev, "gate_rc": rc}
+    log(f"tools phase: record tools done at {time.perf_counter() - t0:.1f} s")
+
+    # -- c. bench_exchange on the card ---------------------------------------------------
+    halo_fill.self_fill.launches = 0
+    rows = be.run(ex_n, ex_n, ex_n, iters=ex_iters, quantities=4, devices=[dev])
+    sync(dev)
+    check(len(rows) == 5, f"tools: {len(rows)} sweep rows")
+    c10 = min(10, ex_iters)
+    calls = ex_iters + c10 + (ex_iters % c10)  # the timed exchanges and the warm-up's
+    fills = sum(sum(1 for ph in build_plan(GridSpec(Dim3(ex_n, ex_n, ex_n), Dim3(1, 1, 1), rad),
+                                           (1, 1, 1), Method.AXIS_COMPOSED).axis_phases
+                    if ph.active) for _name, rad in be.sweep_radii())
+    check(halo_fill.self_fill.launches == calls * fills * on_card,
+          f"tools: radius sweep {halo_fill.self_fill.launches} fill launches, expected "
+          f"{calls * fills * on_card}")
+    for row in rows:
+        log(f"tools bench_exchange sweep: {be.report_row(row)}  "
+            f"({row['bytes_per_s'] / 1e9:.2f} GB/s)")
+    out["sweep_gbps"] = {row["config"]: row["bytes_per_s"] / 1e9 for row in rows}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        arows, agree = be.ablate(ex_n, ex_n, ex_n, iters=ex_iters, quantities=4,
+                                 devices=[dev])
+    check("# skipping auto-spmd:" in buf.getvalue(), "tools: auto-spmd not reported skipped")
+    by = {r_["config"].split("method=")[1]: r_ for r_ in arows}
+    check(agree and sorted(by) == ["axis-composed", "direct26", "remote-dma"],
+          f"tools: ablation rows {sorted(by)}, agreement {agree}")
+    check([by[m]["cp_count"] for m in ("axis-composed", "direct26", "remote-dma")] == [6, 26, 0],
+          "tools: ablation census columns")
+    for row in arows:
+        log(f"tools bench_exchange ablate (2,2,2) residents: {be.ablate_row(row)}  "
+            f"({row['bytes_per_s'] / 1e9:.2f} GB/s)")
+    out["ablate_gbps"] = {m: by[m]["bytes_per_s"] / 1e9 for m in by}
+    out["mesh_gbps"] = {}
+    for fused in (False, True):
+        rdma.remote_axis.launches = fst.fused_exchange.launches = 0
+        r = time_exchange(Dim3(ex_n, ex_n, ex_n), Radius.constant(2), ex_iters,
+                          method=Method.REMOTE_DMA, devices=pos8, quantities=4, fused=fused)
+        sync(dev)
+        got = fst.fused_exchange.launches if fused else rdma.remote_axis.launches
+        want = calls * (1 if fused else 3) * on_card
+        check(got == want, f"tools: config 2 over 8 positions fused={fused}: {got} launches, "
+              f"expected {want}")
+        name = "B7 fused" if fused else "B6"
+        out["mesh_gbps"][name] = r["gb_per_s"]
+        log(f"tools bench_exchange config 2 over 8 positions via {name}: "
+            f"{r['trimean_s'] * 1e3:.4f} ms, {r['gb_per_s']:.2f} GB/s logical "
+            f"(PERF.md section 5: B6 132.69, B7 208.97 GB/s); {got} launches")
+        del r
+    wrows, ratio, err = be.wire_ab(ex_n, ex_n, ex_n, iters=ex_iters, quantities=4,
+                                   devices=pos8, method=Method.REMOTE_DMA, wire="bfloat16")
+    thr, bound = be.wire_gate("bfloat16")
+    check(ratio >= thr and err["max_rel_err"] <= bound
+          and len({w["cp_count"] for w in wrows}) == 1,
+          f"tools: wire A/B gate: ratio {ratio}, err {err}")
+    for row in wrows:
+        log(f"tools bench_exchange wire A/B: {be.ablate_row(row)}  "
+            f"({row['bytes_per_s'] / 1e9:.2f} GB/s)")
+    log(f"tools wire A/B bf16: {ratio:.3f}x fewer wire bytes, max rel err "
+        f"{err['max_rel_err']:.3e} (gate {thr:g}x, {bound:g}): PASS")
+    out["wire_ab"] = {"ratio": ratio, **err,
+                      "gbps": {w["config"]: w["bytes_per_s"] / 1e9 for w in wrows}}
+    log(f"tools phase: bench_exchange done at {time.perf_counter() - t0:.1f} s")
+
+    # -- d. bench_pack ----------------------------------------------------------------
+    prow = bp.run(pack_n, pack_n, pack_n, radius=3, iters=pack_iters, device=dev)
+    size, rad = Dim3(pack_n, pack_n, pack_n), Radius.constant(3)
+    check(len(prow) == 26 and all(
+        p["bytes"] == halo_rect(d, size, rad, halo=True).extent().flatten() * 4
+        for p, d in zip(prow, DIRECTIONS_26)), "tools: bench_pack rows")
+    log("tools bench_pack " + f"{pack_n}^3 r3 GB/s: " + ", ".join(
+        f"({p['dir'][0]} {p['dir'][1]} {p['dir'][2]}) {p['gb_per_s']:.2f}" for p in prow))
+    out["pack_gbps"] = {str(p["dir"]): p["gb_per_s"] for p in prow}
+
+    # -- e. measure_overlap -------------------------------------------------------------
+    trace_dir = os.path.join(tmp, "overlap")
+    r = mo.run(overlap_n, overlap_n, overlap_n, radius=1, iters=overlap_iters, rounds=rounds,
+               devices=pos8, weak=False, trace_dir=trace_dir)
+    log(f"tools measure_overlap: {mo.csv_row(r)}  hidden_frac {r['hidden_frac']:.3f}")
+    out["overlap"] = {k_: r[k_] for k_ in ("compute_s", "exchange_s", "serial_s", "overlap_s",
+                                          "hidden_s", "hidden_frac")}
+    if on_card:
+        secs = xprof.range_seconds(trace_dir)
+        sw = {k_: v for k_, v in secs.items() if kernel_base(k_) == "jacobi_sweep_kernel"}
+        check(sw and all(v > 0 for v in sw.values()),
+              f"tools: measure_overlap's trace has no jacobi_sweep_kernel ({sorted(secs)[:5]})")
+        out["overlap"]["trace_sweep_ms"] = sum(sw.values()) * 1e3
+        log(f"tools measure_overlap trace: jacobi_sweep_kernel {sum(sw.values()) * 1e3:.4f} "
+            f"ms on the device; overlap.overlap "
+            f"{secs.get('overlap.overlap', 0.0) * 1e3:.4f} ms")
+    del r
+    tmp_ctx.cleanup()
+    log(f"phase 19 (tools) {time.perf_counter() - t0:.1f} s")
+    return out, prof_ms
 
 
 def sync(dev) -> None:
@@ -5818,34 +6333,6 @@ def main() -> int:
     del c9, n9, sph9, rnd9, got, want, one9
 
     # DistributedDomain.exchange_loop at config 2 through B6 and through B7
-    def copy_slabs(state, spec, phases):
-        """The library yardstick: B6's slabs moved by Tensor.copy_, one call
-        per slab."""
-        for ph in phases:
-            o, n, rm, rp = halo_fill.axis_geom(spec, ph.axis)
-            for i, pos in enumerate(mesh8.positions()):
-                bwd, fwd = (mesh8.index(q) for q in mesh8.ring_neighbors(pos, ph.axis))
-                for blocks in state.values():
-                    src = blocks[i]
-                    if rm:
-                        dst = blocks[fwd]
-                        dst[halo_fill._axis_slice(dst, ph.axis, o - rm, o)].copy_(
-                            src[halo_fill._axis_slice(src, ph.axis, o + n - rm, o + n)])
-                    if rp:
-                        dst = blocks[bwd]
-                        dst[halo_fill._axis_slice(dst, ph.axis, o + n, o + n + rp)].copy_(
-                            src[halo_fill._axis_slice(src, ph.axis, o, o + rp)])
-
-    def copy_boxes(state, plan):
-        """The library yardstick: B7's messages moved by Tensor.copy_, one
-        call per message."""
-        for ph in plan.fused_phases:
-            s_, d_ = fst.box_slices(ph.src, ph.dst, ph.shape)
-            for i, pos in enumerate(mesh8.positions()):
-                j = mesh8.index(mesh8.shifted(pos, ph.direction))
-                for blocks in state.values():
-                    blocks[j][d_].copy_(blocks[i][s_])
-
     c2 = resident_gbs["config 2: 256^3 (2,2,2) r2 x4"]
     sector_ms = {}  # each carrier's sector floor, for the log only
     for fused in (False, True):
@@ -5879,7 +6366,7 @@ def main() -> int:
             kern_ms = time_ms(lambda: fst.fused_exchange(groups, dd.spec, plan9, mesh8), 20,
                               graph=True)
             plain_ms = time_ms(lambda: fst.fused_exchange_plain(groups, dd.spec, plan9, mesh8), 3)
-            lib_ms = time_ms(lambda: copy_boxes(dd.curr_state(), plan9), 5, graph=True)
+            lib_ms = time_ms(lambda: copy_boxes(dd.curr_state(), mesh8, plan9), 5, graph=True)
             kbytes = fst.fused_exchange_bytes(plan9, 4, 8, 4)
             sbytes = fst.fused_exchange_sector_bytes(plan9, dd.spec, 4, 8, 4)
         else:
@@ -5892,7 +6379,7 @@ def main() -> int:
                                  graph=True) for ph in ring]
             kern_ms = sum(per_phase) / len(ring)
             plain_ms = time_ms(lambda: phases(rdma.remote_axis_plain), 3) / len(ring)
-            lib_ms = time_ms(lambda: copy_slabs(dd.curr_state(), dd.spec, ring), 5,
+            lib_ms = time_ms(lambda: copy_slabs(dd.curr_state(), dd.spec, mesh8, ring), 5,
                              graph=True) / len(ring)
             kbytes = sum(rdma.remote_axis_bytes(dd.spec, ph, 4, 8, 4) for ph in ring) / len(ring)
             sbytes = sum(rdma.remote_axis_sector_bytes(dd.spec, ph, 4, 8, 4)
@@ -6180,6 +6667,13 @@ def main() -> int:
     for name, v in l18.items():
         timings[name].setdefault("extra", {})["plan_phase_launches"] = v
     log(f"plan phase report: {json.dumps(plan_report, sort_keys=True, default=str)}")
+
+    # -- 19. the measurement tools: the profiler capture, the record tools, the ---
+    #        bench apps
+    tools_report, profiler_ms = tools_phase(dev)
+    for name, v in profiler_ms.items():
+        timings[name].setdefault("extra", {})["profiler_ms"] = v
+    log(f"tools phase report: {json.dumps(tools_report, sort_keys=True, default=str)}")
 
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,8 +1,9 @@
 """What the port's apps share around a run (the port's own copy of
 ``stencil_tpu.apps._bench_common``): the metrics flags, the live flags (the
-in-run sentinel and the status file), the resume policy, and
-:func:`time_exchange`, the timed exchange loop the plan probes measure
-with."""
+in-run sentinel and the status file), the resume policy,
+:func:`coord_state` (the coordinate fields the method ablation compares
+bit for bit), and :func:`time_exchange`, the timed exchange loop the bench
+apps and the plan probes measure with."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import os
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..obs import telemetry
@@ -138,21 +140,47 @@ def fabric(devices) -> dict:
     return out
 
 
+def coord_state(dd, quantities: int):
+    """Deterministic per-quantity coordinate fields on a realized domain
+    (value = z*1e6 + y*1e3 + x + quantity index, float32): the bit-for-bit
+    agreement fixture of the method ablation, the JAX package's
+    ``coord_state`` on the port's layout (a stacked tensor, or a mesh's
+    per-position stacks)."""
+    from ..parallel.exchange import shard_blocks
+
+    g = dd.spec.global_size
+    coord = (np.arange(g.z)[:, None, None] * 1_000_000.0
+             + np.arange(g.y)[None, :, None] * 1_000.0
+             + np.arange(g.x)[None, None, :]).astype(np.float32)
+    return {i: shard_blocks(coord + i, dd.spec, dd.mesh or dd.device) for i in range(quantities)}
+
+
 def time_exchange(size, radius, iters: int, method=None, devices: Optional[Sequence] = None,
-                  quantities: int = 4, dtype: str = "float32", chunk: int = 10,
-                  batch_quantities: bool = True, partition=None, fused: bool = False) -> dict:
+                  placement=None, quantities: int = 4, dtype: str = "float32", chunk: int = 10,
+                  prefix: str = "", batch_quantities: bool = True, partition=None,
+                  wire_dtype=None, fused: bool = False, hierarchy=None) -> dict:
     """Realize a domain of ``quantities`` quantities on ``devices`` (one
     device, or a mesh of positions; default the current CUDA device) and
     time ``iters`` exchanges in chunks of ``chunk``, after one warm-up call
     of every chunk size: on the card by CUDA events around each chunk, on
-    the CPU by the host clock. ``partition``, ``batch_quantities`` and
-    ``fused`` configure the domain as the plan probes need. With the recorder enabled it records each chunk (``exchange.iter``),
-    its attribution against the cost model (``plan.attrib.phase``), the
-    plan's fingerprint and the trimean and GB/s gauges. Returns the stats
-    and the ``domain`` (drop it to free its memory)."""
+    the CPU by the host clock. ``partition``, ``batch_quantities``,
+    ``wire_dtype`` (the narrowed wire between positions) and ``fused``
+    configure the domain as the bench apps and plan probes need; ``prefix``
+    makes realize() write the plan files under it. ``placement`` and
+    ``hierarchy`` (a placed mesh, a two-level transport) raise
+    NotImplementedError: positions on distinct GPUs are ROADMAP.md queue A
+    item 5. With the recorder enabled it records each chunk
+    (``exchange.iter``), its attribution against the cost model
+    (``plan.attrib.phase``), the plan's fingerprint and the trimean and
+    GB/s gauges. Returns the stats and the ``domain`` (drop it to free its
+    memory)."""
     from ..api import DistributedDomain
     from ..parallel.exchange import Method
 
+    if placement is not None or hierarchy is not None:
+        raise NotImplementedError(
+            "time_exchange: placement= and hierarchy= need positions on distinct GPUs "
+            "(ROADMAP.md queue A item 5)")
     method = method or Method.AXIS_COMPOSED
     devices = list(devices) if devices is not None else [None]
     dd = DistributedDomain(size.x, size.y, size.z, device=devices[0])
@@ -162,8 +190,12 @@ def time_exchange(size, radius, iters: int, method=None, devices: Optional[Seque
     dd.set_methods(method)
     dd.set_quantity_batching(batch_quantities)
     dd.set_fused_exchange(fused)
+    if wire_dtype:
+        dd.set_wire_dtype(wire_dtype)
     if partition is not None:
         dd.set_partition(partition)
+    if prefix:
+        dd.set_output_prefix(prefix)
     for i in range(quantities):
         dd.add_data(f"d{i}", dtype)
     dd.realize()
@@ -174,7 +206,10 @@ def time_exchange(size, radius, iters: int, method=None, devices: Optional[Seque
     chunk = max(1, min(chunk, iters))
     sizes = {chunk} | ({iters % chunk} if iters % chunk else set())
     loops = {k: dd.halo_exchange.make_loop(k) for k in sizes}
-    tags = {"variant": "fused"} if fused else {}
+    # the wire and variant tags keep an A/B run's legs apart in aggregation
+    tags = {"wire": str(wire_dtype)} if wire_dtype else {}
+    if fused:
+        tags["variant"] = "fused"
     with rec.span("exchange.warmup", phase="compile", method=method.value,
                   batched=batch_quantities, **tags):
         for fn in loops.values():

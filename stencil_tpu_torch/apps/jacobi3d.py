@@ -74,6 +74,7 @@ Not carried over yet (ROADMAP.md queue A): the ParaView dumps (which
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 from typing import Optional
@@ -233,13 +234,14 @@ def run(
     rec = telemetry.get()
 
     # init: uniform lukewarm field (reference: bin/jacobi3d.cu:18-27)
-    init = dd.get_curr(h)
-    if dd.mesh is None:
-        init.fill_(INIT_TEMP)
-    else:
-        for b in init:
-            b.fill_(INIT_TEMP)
-    sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
+    with rec.span("jacobi.init", phase="init"):
+        init = dd.get_curr(h)
+        if dd.mesh is None:
+            init.fill_(INIT_TEMP)
+        else:
+            for b in init:
+                b.fill_(INIT_TEMP)
+        sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
 
     # checkpoint/restart: a resume replaces the fresh init with the newest
     # valid snapshot's state, elastically (another partition or package)
@@ -285,20 +287,21 @@ def run(
                                  health_every if guard is not None else 0),
                           at=injector.steps() if injector is not None else ())
 
-    if ckpt_dir:
-        # a checkpointed run is step-exact (save at k, resume, continue to
-        # n == an uninterrupted run to n): warm-up runs each distinct chunk
-        # size of the schedule on copies, never advancing the state
-        if warmup:
-            for k in dict.fromkeys(plan_fn(start)):
-                get_loop(k)(_copy(curr), _copy(nxt), sel)
+    with rec.span("jacobi.warmup", phase="compile", iters=warmup * chunk):
+        if ckpt_dir:
+            # a checkpointed run is step-exact (save at k, resume, continue
+            # to n == an uninterrupted run to n): warm-up runs each distinct
+            # chunk size of the schedule on copies, never advancing the state
+            if warmup:
+                for k in dict.fromkeys(plan_fn(start)):
+                    get_loop(k)(_copy(curr), _copy(nxt), sel)
+                hard_sync(dev)
+        else:
+            # warm-up advances the state, as in the JAX app
+            loop = get_loop(chunk)
+            for _ in range(warmup):
+                curr, nxt = loop(curr, nxt, sel)
             hard_sync(dev)
-    else:
-        # warm-up advances the state, as in the JAX app
-        loop = get_loop(chunk)
-        for _ in range(warmup):
-            curr, nxt = loop(curr, nxt, sel)
-        hard_sync(dev)
 
     # the loop writes in place and swaps (curr, scratch): each chunk's
     # result is the state, its other buffer the next scratch; a rollback
@@ -314,6 +317,7 @@ def run(
 
     def on_chunk(st, k, per, done_now):
         iter_time.insert(per)
+        rec.emit("span", "jacobi.iter", phase="step", seconds=per, iters=k)
 
     save_fn = restore_fn = quarantine_fn = flush_fn = None
     if ckpt_dir:
@@ -397,6 +401,15 @@ def run(
         iter_time.insert(float("inf"))
     cells = size.flatten()
     trimean = iter_time.trimean()
+    if rec.enabled:
+        # the JAX app's closing records, under its names
+        rec.gauge("jacobi.loop_wall_s", loop_wall_s, phase="step", unit="s")
+        rec.gauge("jacobi.mcells_per_s", cells / trimean / 1e6, phase="step")
+        rec.gauge("jacobi.mcells_per_s_per_dev", cells / trimean / 1e6 / n, phase="step")
+        if math.isfinite(trimean):  # inf would serialize as non-strict JSON
+            rec.gauge("jacobi.iter_trimean_s", trimean, phase="step", unit="s")
+        rec.counter("jacobi.exchange_bytes", bytes=dd.exchange_bytes_for_method(method),
+                    phase="exchange", method=method.value)
     return {
         "app": "jacobi3d",
         "method": method.value,

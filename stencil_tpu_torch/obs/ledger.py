@@ -33,10 +33,16 @@ verbatim, corrupt or future-versioned ledgers are rejected loudly
 on the card, its name (``torch.cuda.get_device_name``). The serving layer
 writes it into its entries' ``detail``, and ``plan_tool calibrate
 --from-ledger`` fits the planner's constants from its ``plan.attrib.*``
-entries (``plan/calibrate.samples_from_ledger``). The JAX module's ingest of
-bench payloads and metrics files (which writes those entries from a run's
-``plan.attrib.phase`` records) belongs to ``apps/perf_tool``, which waits
-with ``apps/report`` in ROADMAP.md queue A item 4.
+entries (``plan/calibrate.samples_from_ledger``).
+
+The ingest half maps the payload shapes the repo produces into entries, as
+the JAX module does and with the same entries: a bench payload
+(:func:`entries_from_bench_payload`), the committed ``BENCH_r0N.json`` and
+``MULTICHIP_r0N.json`` wrappers (:func:`entries_from_legacy_bench`,
+:func:`entries_from_legacy_multichip`) and a metrics JSONL's records
+(:func:`entries_from_metrics_records`: per-gauge trimeans, optional span
+trimeans, and one ``plan.attrib.<phase>`` entry per attributed phase and
+method). ``apps/perf_tool ingest`` drives it.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import math
 import os
 import subprocess
 import time
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 try:
     import fcntl  # POSIX; absent on Windows: appends degrade to unlocked
@@ -292,3 +298,183 @@ def git_rev(cwd: Optional[str] = None) -> Optional[str]:
         return None
     rev = out.stdout.strip()
     return rev if out.returncode == 0 and rev else None
+
+
+# -- ingest: the three payload shapes the repo already produces ---------------
+
+
+def entries_from_bench_payload(payload: dict, *, label: str,
+                               rev: Optional[str] = None,
+                               source: str = "bench",
+                               t: Optional[float] = None) -> List[dict]:
+    """Map one bench.py payload (``{"metric", "value", "unit",
+    "vs_baseline", "detail": {...}}``) into v1 entries: the headline
+    metric, its ``vs_baseline`` ratio, and every numeric ``detail.*`` leg
+    (nulls and strings skipped — a missing astaroth row is absence, not a
+    zero)."""
+    detail = payload.get("detail") or {}
+    platform = str(detail.get("platform") or "unknown")
+    config = {"platform": platform, "size": detail.get("size")}
+    out: List[dict] = []
+
+    def add(metric, value, unit=None):
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            return
+        if not math.isfinite(float(value)):
+            return
+        out.append(make_entry(metric, value, label=label, unit=unit,
+                              platform=platform, config=config, rev=rev,
+                              source=source, t=t))
+
+    add(payload.get("metric"), payload.get("value"), payload.get("unit"))
+    if payload.get("metric"):
+        add(f"{payload['metric']}.vs_baseline", payload.get("vs_baseline"),
+            "ratio")
+    for k, v in sorted(detail.items()):
+        if k in ("platform", "size", "leg_errors"):
+            continue  # config/diagnostics, not measurements
+        add(k, v)
+    # guard against a payload with no usable metric name at all
+    return [e for e in out if isinstance(e["metric"], str) and e["metric"]]
+
+
+def entries_from_legacy_bench(doc: dict, *, label: Optional[str] = None,
+                              rev: Optional[str] = None,
+                              t: Optional[float] = None) -> List[dict]:
+    """Ingest one committed BENCH_r0N.json (the round wrapper:
+    ``{"n", "cmd", "rc", "tail", "parsed": payload?}``). The round label
+    comes from ``n`` (``r05``); a failed round (rc != 0 / no parsed
+    payload, e.g. BENCH_r03) still lands a ``bench.rc`` entry so the
+    trend shows the outage instead of skipping the round."""
+    if label is None:
+        n = doc.get("n")
+        label = f"r{int(n):02d}" if isinstance(n, int) else "legacy"
+    out: List[dict] = []
+    parsed = doc.get("parsed")
+    platform = "unknown"
+    if isinstance(parsed, dict):
+        out = entries_from_bench_payload(parsed, label=label, rev=rev,
+                                         source="legacy-bench", t=t)
+        platform = str((parsed.get("detail") or {}).get("platform")
+                       or "unknown")
+    rc = doc.get("rc")
+    if isinstance(rc, int) and not isinstance(rc, bool):
+        out.append(make_entry("bench.rc", rc, label=label, unit="rc",
+                              platform=platform, config={"cmd": doc.get("cmd")},
+                              rev=rev, source="legacy-bench", t=t))
+    return out
+
+
+def entries_from_legacy_multichip(doc: dict, *, label: str,
+                                  rev: Optional[str] = None,
+                                  t: Optional[float] = None) -> List[dict]:
+    """Ingest one committed MULTICHIP_r0N.json (``{"n_devices", "rc",
+    "ok", "skipped", "tail"}``). The label must come from the caller
+    (the file carries no round number — perf_tool infers it from the
+    filename)."""
+    config = {"n_devices": doc.get("n_devices")}
+    out = [make_entry("multichip_dryrun_ok",
+                      1.0 if doc.get("ok") else 0.0, label=label,
+                      unit="bool", platform="unknown", config=config,
+                      rev=rev, source="legacy-multichip", t=t,
+                      detail={"rc": doc.get("rc"),
+                              "skipped": bool(doc.get("skipped"))})]
+    return out
+
+
+def entries_from_metrics_records(records: Sequence[dict], *,
+                                 label: Optional[str] = None,
+                                 platform: str = "unknown",
+                                 rev: Optional[str] = None,
+                                 spans: bool = False,
+                                 t: Optional[float] = None) -> List[dict]:
+    """Ingest telemetry metrics records (the ``--metrics-out`` JSONL,
+    already schema-validated by the caller): one entry per gauge name —
+    the TRIMEAN over that gauge's samples across the file (the
+    reference's robust-stat discipline), split per method/batched tag
+    exactly like ``apps/report.py`` aggregation so A/B legs never fold.
+    ``spans=True`` also ingests per-span second trimeans as
+    ``<name>.trimean_s``. The config fingerprint comes from the run's
+    ``config`` meta record when present (a self-describing metrics file
+    lands under its real configuration key)."""
+    gauges: Dict[str, List[float]] = {}
+    span_s: Dict[str, List[float]] = {}
+    units: Dict[str, str] = {}
+    attrib: Dict[Tuple[str, str], dict] = {}
+    config: Optional[dict] = None
+    run_id: Optional[str] = None
+    newest_t = None
+    for r in records:
+        run_id = run_id or r.get("run")
+        rt = r.get("t")
+        if isinstance(rt, (int, float)):
+            newest_t = rt if newest_t is None else max(newest_t, rt)
+        if r.get("kind") == "meta" and r.get("name") == "config" and \
+                isinstance(r.get("config"), dict) and config is None:
+            config = r["config"]
+        if r.get("kind") == "meta" and r.get("name") == "plan.attrib.phase":
+            # the observatory's calibration evidence: fold a run's
+            # samples to one trimean per (phase, method), carrying the
+            # (collectives, wire_bytes) point plan/calibrate's
+            # samples_from_ledger refits from
+            g = attrib.setdefault((str(r["phase"]), str(r["method"])), {
+                "samples": [], "collectives": int(r["collectives"]),
+                "wire_bytes": int(r["wire_bytes"]),
+                "predicted_s": float(r["predicted_s"]),
+                "provenance": str(r.get("provenance", "")),
+            })
+            v = float(r["measured_s"])
+            if math.isfinite(v):
+                g["samples"].append(v)
+        tags = [str(r[k]) for k in ("method", "batched") if k in r]
+        key = r["name"] + (f"[{','.join(tags)}]" if tags else "")
+        # a NaN sample from a degenerate run must be dropped HERE: NaN
+        # poisons sorted() so the trimean of the remaining good samples
+        # comes out silently wrong, not NaN (the bench-payload path's
+        # add() applies the same finite filter)
+        if r.get("kind") == "gauge":
+            v = float(r["value"])
+            if math.isfinite(v):
+                gauges.setdefault(key, []).append(v)
+                if isinstance(r.get("unit"), str):
+                    units.setdefault(key, r["unit"])
+        elif r.get("kind") == "span" and spans:
+            v = float(r["seconds"])
+            if math.isfinite(v):
+                span_s.setdefault(key, []).append(v)
+    label = label or run_id or "metrics"
+    when = t if t is not None else newest_t
+    out: List[dict] = []
+    for name, vals in sorted(gauges.items()):
+        tm = trimean(vals)
+        if not math.isfinite(tm):
+            continue
+        out.append(make_entry(name, tm, label=label, unit=units.get(name),
+                              platform=platform, config=config, rev=rev,
+                              source="metrics", run=run_id, t=when,
+                              detail={"samples": len(vals)}))
+    for name, vals in sorted(span_s.items()):
+        tm = trimean(vals)
+        if not math.isfinite(tm):
+            continue
+        out.append(make_entry(f"{name}.trimean_s", tm, label=label, unit="s",
+                              platform=platform, config=config, rev=rev,
+                              source="metrics", run=run_id, t=when,
+                              detail={"samples": len(vals)}))
+    for (phase, method), g in sorted(attrib.items()):
+        if not g["samples"]:
+            continue
+        tm = trimean(g["samples"])
+        if not math.isfinite(tm):
+            continue
+        out.append(make_entry(
+            f"plan.attrib.{phase}", tm, label=f"{label}[{method}]",
+            unit="s", platform=platform, config=config, rev=rev,
+            source="metrics", run=run_id, t=when,
+            detail={"phase": phase, "method": method,
+                    "collectives": g["collectives"],
+                    "wire_bytes": g["wire_bytes"],
+                    "predicted_s": g["predicted_s"],
+                    "provenance": g["provenance"],
+                    "samples": len(g["samples"])}))
+    return out

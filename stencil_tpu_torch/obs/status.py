@@ -26,9 +26,9 @@ Status document (schema v1)::
      "queue": {"depth": int, "admitted": int, "rejected": int,
                "backfills": int, ...}?}
 
-The JAX package's ``report --status`` reader, its heartbeat and its
-supervisor are not ported (ROADMAP.md queue A item 4); :func:`render_status`
-is the top-like rendering that reader prints.
+``apps/report --status`` is the reader, and :func:`render_status` the
+top-like rendering it prints. The JAX package's heartbeat and supervisor
+(``obs/watchdog``) are not ported (ROADMAP.md queue A item 4.5).
 """
 
 from __future__ import annotations

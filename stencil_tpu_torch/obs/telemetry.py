@@ -98,14 +98,19 @@ NAME_FIELDS = {
 }
 
 
-# The names the planner and the live layer record beside NAME_FIELDS' typed
-# ones (the JAX package's KNOWN_NAMES for them): the autotuner's gauges,
-# counter and spans, the probes' exchange timings, the sentinel's count.
+# The names the planner, the live layer and the bench apps record beside
+# NAME_FIELDS' typed ones (the JAX package's KNOWN_NAMES for them): the
+# autotuner's gauges, counter and spans, the probes' exchange timings, the
+# sentinel's count, the ablation, batching and wire A/B verdicts, the pack
+# and overlap gauges.
 KNOWN_NAMES = frozenset(NAME_FIELDS) | frozenset({
     "plan.autotune", "plan.cache_hit", "plan.candidates", "plan.chosen", "plan.probe",
     "plan.probe_trimean_s", "plan.probes_run",
     "exchange.warmup", "exchange.iter", "exchange.trimean_s", "exchange.gb_per_s",
     "jacobi.exchange", "jacobi.exchange_warmup", "live.anomaly_count", "config",
+    "ablate.bit_for_bit_agreement", "batched_ab.bit_for_bit_agreement",
+    "batched_ab.q_independent", "bench_pack.gb_per_s", "overlap.hidden_frac",
+    "wire_ab.bytes_ratio", "wire_ab.max_abs_err", "wire_ab.max_rel_err", "wire_ab.max_ulp_err",
 })
 
 
