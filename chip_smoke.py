@@ -91,10 +91,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               200x100x60 k=4, 33x21x13 and k=8); the
               main paths from the app's init, launch counts reset around
               each: apps.jacobi3d.run at 512^3 with kernel_variant fused
-              (50 iters, chunks of 25: 75 fused launches, no other kernel)
-              and persistent with deep_halo 4 (48 iters, chunks of 24: 18
-              chunk launches, 9 fills of sel), and the plain remote-dma
-              method (15 steps); 8 steps at 512^3 from a random field
+              (50 iters, chunks of 25, the warm-up's 3 included: 125 fused
+              launches, no other kernel) and persistent with deep_halo 4
+              (48 iters, chunks of 24: 30 chunk launches, 15 fills of sel),
+              and the plain remote-dma method (25 steps); 8 steps at 512^3 from a random field
               through the fused and the persistent (k=4) loops, bit-equal on
               the compute region to the default multistep path; each kernel
               timed per launch at 512^3 beside its plain version and bound.
@@ -162,9 +162,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               and 512^3 r1; 8 steps at 512^3 over 8 positions from a random
               field, bit-equal to the single-block default path; the main
               path apps.jacobi3d.run at 512^3 with devices=[cuda:0]*8 and
-              method REMOTE_DMA (50 iters, chunks of 25: 225 remote_axis and
-              75 sweep launches, one a step for the 8 positions, no other
-              kernel), launch counts reset
+              method REMOTE_DMA (50 iters, chunks of 25, the warm-up's 3
+              included: 375 remote_axis and 125 sweep launches, one a step
+              for the 8 positions, no other kernel), launch counts reset
               around it; DistributedDomain.exchange_loop at config 2 through
               each carrier in GB/s beside the resident config-2 number of
               phase 7 and the Tensor.copy_ yardstick, and the B6 exchange's
@@ -189,7 +189,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               with bf16 and with fp8 on the wire against the same loop on
               the CPU; the main path apps.jacobi3d.run(512, 512, 512,
               devices=[cuda:0]*8, method REMOTE_DMA, wire_dtype="bfloat16")
-              (225 remote_axis launches, all narrowed, and 75 sweeps of the
+              (375 remote_axis launches, all narrowed, and 125 sweeps of the
               8 positions) beside
               the unnarrowed run in turns; B6 per phase at config 2 and
               512^3 r1 and B7 at config 2 timed per launch unnarrowed, bf16,
@@ -232,18 +232,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               bit-equal on the compute region to the single-block default
               path and to the plain mesh loop; the main paths
               apps.jacobi3d.run at 512^3 with devices=[cuda:0]*8, method
-              REMOTE_DMA and kernel_variant fused (50 iters, chunks of 25:
-              75 fused_jacobi_mesh launches, no other kernel) and
-              persistent with deep_halo 4 (48 iters, chunks of 24: 18
-              chunk launches and 9 remote_axis launches, sel's exchange once
-              per loop call), launch counts reset around each; each kernel
+              REMOTE_DMA and kernel_variant fused (50 iters, chunks of 25,
+              the warm-up's 3 included: 125 fused_jacobi_mesh launches, no
+              other kernel) and persistent with deep_halo 4 (48 iters,
+              chunks of 24: 30 chunk launches and 15 remote_axis launches,
+              sel's exchange once per loop call), launch counts reset
+              around each; each kernel
               timed per launch at 512^3 beside its plain version and bound;
               then the narrowed wire (variant_wire_phase): fused_jacobi_mesh
               with a wire against its plain version by bit pattern at 512^3
               (2,2,2) r1 (bf16, fp8) and 24x20x16 (2,1,1) r1 of edge values
               (bf16, fp16, fp8); 8 steps of the fused loop with bf16 and with
               fp8 on the wire against phase 9's CPU loop; the main path
-              with kernel_variant fused and wire_dtype="bfloat16" (75
+              with kernel_variant fused and wire_dtype="bfloat16" (125
               launches, all narrowed) beside the unnarrowed run in turns;
               the kernel timed per launch at 512^3 over 8 positions
               unnarrowed, bf16, fp8, fp8, bf16, unnarrowed; the fused loop
@@ -251,7 +252,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               through every other format against its plain version by bit
               pattern at 24x20x16 (2,1,1) r1 of edge values and through e5m2
               and e4m3 at 512^3 (2,2,2) r1, the fused main path through each
-              of the two (75 launches, all narrowed), and B8 timed per
+              of the two (125 launches, all narrowed), and B8 timed per
               launch unnarrowed, e5m2, e4m3, e4m3, e5m2, unnarrowed.
 
 11. guarded -- the guarded main path (guarded_phase): the fused health
@@ -357,7 +358,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               remote_axis and one sweep a step) and with remote-dma on 4
               positions (3 remote_axis and one sweep of the 8 blocks a
               step), 50 iters in chunks of 25, launch counts reset around
-              each, the three final fields equal; --multistep-rows at the
+              each, the three final fields equal; B6 over the 8 resident
+              endpoints timed beside Tensor.copy_ of its slabs;
+              --multistep-rows at the
               kernel's tile heights (32 rows at k=3, 16 at k=4: kernel
               torch.equal to the plain multistep; the loop with rows=32
               equal to the default loop; 16 at k=3 refused); B9's uneven
@@ -367,8 +370,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               and the deep exchange before it, 8 steps bit-equal to the
               single-block default path, and jacobi3d 512^3 over those 6
               positions with kernel_variant persistent, deep_halo 4 (48
-              iters in chunks of 24: 18 chunk launches of the uneven form,
-              42 remote_axis and 21 fills, 2 launches a chunk).
+              iters in chunks of 24, the warm-up's 3 included: 30 chunk
+              launches of the uneven form, 70 remote_axis and 35 fills, 2
+              launches a chunk).
 16. tenants -- the serving path (tenants_phase, rehearsable on the CPU at
               small sizes with a stand-in timer): B5's tenant form (one task
               a tenant of a (B, pz, py, px) stack) against its plain version
@@ -379,7 +383,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               form (x, y, z over 8 fields, z wrapping each tenant) against
               wrap_fill_batched at 64 x 32^3 fp64 and fp32 and 5 x 33x13x7;
               both timed per launch beside their bytes bounds and plain
-              versions; apps.campaign --workload astaroth --mode batched at
+              versions, B4's also beside Tensor.copy_ of its slabs;
+              apps.campaign --workload astaroth --mode batched at
               64 x 32^3 and 8 x 128^3 fp64 with t1 faulted and evicted,
               launch counts reset around each (3 fills and 3 substep
               launches an iteration), every retired tenant byte-equal to it
@@ -469,6 +474,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               512^3 over 8 positions with --trace (hidden_frac, the sweep
               kernel in the trace). The B2 and B1 rows of the kernels line
               carry the profiler's mean ms as profiler_ms.
+20. analysis -- the one-device tools (analysis_phase, rehearsable on
+              the CPU at small sizes, where the host-sync check is listed as
+              not made and no wrapper counts a launch): analysis.jit_audit
+              at 512^3 on one block and over 8 positions (the clean chunk
+              loop, warmed on each chunk size from both buffer orders,
+              passes with no first-use work and no host sync caught under
+              torch.cuda.set_sync_debug_mode("error"); inject=recompile and
+              inject=host-sync each fail); analysis.verify_plan over the
+              default grid (16^3 over 8 positions of the card) and at the
+              main path's shapes (512^3 one block; config 2 over 8 positions;
+              plain, fused and persistent k=4): every counted check agrees
+              (messages and their bytes, copies to other positions, B4/B6/B7
+              launches against ExchangePlan.carrier_launches, launches per
+              chunk and the chunk kernel's count), a perturb_collectives=1
+              sweep fails every config, and the --time verdicts are printed
+              as measurements; apps.machine_info --json (the records
+              validate, the inventory names the H100 with capability 9.0,
+              8 positions of cuda:0 all at DIST_SELF); obs.watchdog.supervise
+              over jacobi3d children at 128^3 (a 6 s slow@20 sleep under a
+              3 s heartbeat deadline ends ok, its heartbeat note past step
+              20; stall@3 killed as a stall long before its budget, its note
+              at step 3; an exhausted rollback ends with FAULT_RC, its
+              metrics archived); the ParaView dumps of jacobi3d 128^3 over
+              (2,2,2) residents and over 8 positions and of astaroth 64^3
+              (--paraview-final) byte-equal to the plain writer's, the
+              residents' dump timed; apps.lint_tool lint over the port tree,
+              clean against its baseline.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -498,6 +530,31 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def warm_chunks(iters: int, chunk: int, ckpt: bool = False, warmup: int = 1,
+                every=()) -> list:
+    """The chunk sizes ``apps.jacobi3d.run`` runs before its timed chunks:
+    each distinct size of its schedule (``fault.chunk_plan``, broken at
+    ``every``) from both buffer orders (``ops/jacobi.warm_jacobi_loops``),
+    then, without a checkpoint dir, ``warmup`` chunks that advance the
+    state. The launch counts of a run follow from these and the schedule."""
+    from stencil_tpu_torch.fault import chunk_plan
+
+    if not warmup:
+        return []
+    chunk = min(chunk, iters)
+    sizes = dict.fromkeys(chunk_plan(0, iters, chunk, every=every))
+    return [k for k in sizes for _ in range(2)] + ([] if ckpt else [chunk] * warmup)
+
+
+def run_chunks(iters: int, chunk: int, **kw) -> list:
+    """Every chunk ``apps.jacobi3d.run`` runs, its warm-up's
+    (:func:`warm_chunks`, which takes ``kw``) and then its schedule's."""
+    from stencil_tpu_torch.fault import chunk_plan
+
+    return warm_chunks(iters, chunk, **kw) + chunk_plan(0, iters, min(chunk, iters),
+                                                        every=kw.get("every", ()))
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -956,7 +1013,7 @@ def mesh_wire_phase(dev, time_ms, n: int = 512, c2: int = 256, steps: int = 8, i
                "jacobi_sweep_positions": sk.sweep_positions, "self_fill": halo_fill.self_fill,
                "jacobi_multistep": sk.multistep, "fused_exchange": fst.fused_exchange}
     launches, ms_iter = {}, {}
-    run_steps = (iters + chunk) * (dev.type == "cuda")  # the CPU's plain versions launch nothing
+    run_steps = sum(run_chunks(iters, chunk)) * (dev.type == "cuda")  # the CPU launches nothing
     want = {"remote_axis": 3 * run_steps, "jacobi_sweep": 0, "jacobi_sweep_positions": run_steps,
             "self_fill": 0, "jacobi_multistep": 0, "fused_exchange": 0}
     hot, cold = (m.cpu() for m in sk.sphere_masks_from_coords(rspec((n,) * 3, (1, 1, 1), 1), dev))
@@ -1085,7 +1142,7 @@ def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, ite
     phase 9's CPU loop (the fused and the plain mesh loops agree, on the CPU
     as on the card); the main path
     ``apps.jacobi3d.run(..., kernel_variant="fused", wire_dtype="bfloat16")``
-    with launch counts reset around it (75 launches, all narrowed) beside
+    with launch counts reset around it (125 launches, all narrowed) beside
     the unnarrowed run in turns; B8 timed per launch at ``n``^3 over 8
     positions unnarrowed, bf16, fp8, fp8, bf16, unnarrowed. Returns
     ``(timings, launches, errs)``."""
@@ -1173,7 +1230,7 @@ def variant_wire_phase(dev, time_ms, cpu_refs, n: int = 512, steps: int = 8, ite
                           weak=False, kernel_variant="fused", wire_dtype=wire)
         sync(dev)
         got = (fst.fused_jacobi_mesh.launches, fst.fused_jacobi_mesh.narrowed)
-        run_steps = (iters + chunk) * (dev.type == "cuda")
+        run_steps = sum(run_chunks(iters, chunk)) * (dev.type == "cuda")
         check(got == (run_steps, run_steps if wire else 0),
               f"jacobi3d fused over 8 positions, wire {wire}: (launches, narrowed) {got}")
         fin = rv["domain"].get_curr_global(rv["handle"])
@@ -1619,7 +1676,7 @@ def mesh_formats_phase(dev, time_ms, n: int = 512, c2: int = 256, over: int = 25
 
     # -- the main paths: jacobi3d over 8 positions through e5m2 and the software ----
     #    format, and over (4,2,2) blocks on the 8 positions through e5m2
-    run_steps = (iters + chunk) * on_card
+    run_steps = sum(run_chunks(iters, chunk)) * on_card
     hot, cold = (m.cpu() for m in sk.sphere_masks_from_coords(rspec((n,) * 3, (1, 1, 1), 1), dev))
     for key, wire, kw in (("e5m2", E5M2, {}), ("soft", SOFT_TIMED, {}),
                           ("oversubscribed", E5M2, {"partition": (4, 2, 2)})):
@@ -1654,7 +1711,7 @@ def variant_formats_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: in
     (2,1,1) r1 of :func:`format_edges` with sel codes in [-1, 4), and
     through e5m2 and :data:`SOFT_TIMED` at ``n``^3 (2,2,2) r1 from random
     fields; the main path ``apps.jacobi3d.run(..., kernel_variant="fused")``
-    over 8 positions through each of the two (75 launches, all narrowed);
+    over 8 positions through each of the two (125 launches, all narrowed);
     B8 timed per launch at ``n``^3 over 8 positions unnarrowed, e5m2, the
     software format, the software format, e5m2, unnarrowed. Returns
     ``(timings, launches, errs)``."""
@@ -1718,7 +1775,7 @@ def variant_formats_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: in
 
     # the main paths through e5m2 and the software format
     launches = {}
-    run_steps = (iters + chunk) * on_card
+    run_steps = sum(run_chunks(iters, chunk)) * on_card
     for key, wire in zip(names, (E5M2, SOFT_TIMED)):
         fst.fused_jacobi_mesh.launches = fst.fused_jacobi_mesh.narrowed = 0
         rv = jacobi3d.run(n, n, n, devices=[dev] * 8, method=rdma_m, iters=iters, chunk=chunk,
@@ -1781,7 +1838,7 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
     (plain and fused) and over (3,2,1) residents, bit-equal on the gathered
     compute region to the single-block default path; the main paths
     ``apps.jacobi3d.run`` at ``n``^3 strong over 6 positions (plain and
-    fused: ``iters`` steps in chunks of ``chunk`` after a warm-up chunk) and
+    fused: ``iters`` steps in chunks of ``chunk`` after the warm-up) and
     over (3,2,1) residents, launch counts reset just before and read just
     after, held to the counts per step; a guarded jacobi3d at ``gn``^3 over
     6 positions with nan@3 rolled back, equal to the clean run; a
@@ -2022,7 +2079,7 @@ def uneven_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), asym=(100, 70, 
                "jacobi_sweep_regions_uneven": sk.sweep_regions,
                "jacobi_multistep": sk.multistep, "fused_jacobi_mesh": fst.fused_jacobi_mesh,
                "fused_exchange": fst.fused_exchange}
-    total = iters + chunk  # the warm-up chunk advances the state
+    total = sum(run_chunks(iters, chunk))  # the warm-up's steps and the timed ones
     launches = {}
     for label, kw, per_step in (
             ("6 positions, plain", dict(devices=[dev] * 6, method=rd),
@@ -2209,7 +2266,7 @@ def fp64_phase(dev, time_ms, n: int = 512, tenant_edges=(128, 32), tenants: int 
       its bytes bound.
     - The main paths, launch counts set to 0 just before and read just
       after: ``apps.jacobi3d.run(n, n, n, dtype="float64")`` on one block
-      (``iters`` steps in chunks of ``chunk`` after a warm-up chunk:
+      (``iters`` steps in chunks of ``chunk`` after the warm-up:
       multistep passes and sweep tails as in fp32), over (2,2,2) residents
       with deep halo 4 and 1, over 8 positions (plain remote-dma) and over 6
       uneven positions (plain, and fused by the host schedule), each final
@@ -2457,8 +2514,8 @@ def fp64_phase(dev, time_ms, n: int = 512, tenant_edges=(128, 32), tenants: int 
     counted = {"jacobi_multistep": sk.multistep, "jacobi_sweep": sk.sweep,
                "jacobi_sweep_regions": sk.sweep_regions, "jacobi_sweep_positions": sk.sweep_positions,
                "remote_axis": rdma.remote_axis, "self_fill": halo_fill.self_fill}
-    total = iters + chunk  # the warm-up chunk advances the state
-    nch = total // chunk
+    runs = run_chunks(iters, chunk)  # the warm-up's chunks and the timed ones, all `chunk`
+    total, nch = sum(runs), len(runs)
     rd = Method.REMOTE_DMA
     hot, cold = sk.sphere_masks_from_coords(spec1, "cpu")
     # (label, run's arguments, its depth, launches, the kernels line's forms
@@ -2804,7 +2861,7 @@ def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 5
     8 blocks on 4 mesh positions ((2,2,1), two z residents a position)
     bit-equal to the resident exchange; the main paths jacobi3d ``n``^3 over
     (2,2,2) with ``--direct26`` and with REMOTE_DMA (``iters`` steps in
-    chunks of ``chunk`` after a warm-up chunk; one stacked B1 launch a step,
+    chunks of ``chunk`` after the warm-up; one stacked B1 launch a step,
     and 3 B6 launches a step for REMOTE_DMA), launch counts reset just
     before and read just after; ``steps`` direct26 steps from a random field
     bit-equal to the same steps through the plain versions and to the
@@ -2925,6 +2982,7 @@ def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 5
     ends = remote._endpoints(t)
     pl = base.clone()
     pends = remote._endpoints(pl)
+    lends = remote._endpoints(base.clone())  # the Tensor.copy_ yardstick's own blocks
     per = []
     errs["remote_axis_resident"] = 0.0
     for ph in remote.block_plan.remote_phases:
@@ -2937,16 +2995,20 @@ def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 5
                      graph=True)
         plain = time_ms(lambda ph=ph: rdma.remote_axis_plain([[b] for b in pends], spec, ph,
                                                              bmesh), 3, warmup=1)
+        # the same slabs by Tensor.copy_, one call per slab (copy_slabs, the
+        # mesh forms' yardstick), replayed like the kernel
+        lib = time_ms(lambda ph=ph: copy_slabs({0: lends}, spec, bmesh, [ph]), 20, graph=True)
         nb = rdma.remote_axis_bytes(spec, ph, 1, 8, 4)
-        per.append((ms, plain, nb))
+        per.append((ms, plain, nb, lib))
         log(f"time remote_axis over the 8 resident endpoints {n}^3 r1 {ph.axis}: {ms:.4f} ms per "
-            f"launch (plain {plain:.4f} ms, bound {bound_ms(nb, 0)[0]:.4f} ms by bytes, sector "
-            f"floor {bound_ms(rdma.remote_axis_sector_bytes(spec, ph, 1, 8, 4), 0)[0]:.4f} ms)")
+            f"launch (plain {plain:.4f} ms, Tensor.copy_ {lib:.4f} ms, bound "
+            f"{bound_ms(nb, 0)[0]:.4f} ms by bytes, sector floor "
+            f"{bound_ms(rdma.remote_axis_sector_bytes(spec, ph, 1, 8, 4), 0)[0]:.4f} ms)")
     k3 = len(per)
     timings["remote_axis_resident"] = dict(
         ms=sum(p[0] for p in per) / k3, plain_ms=sum(p[1] for p in per) / k3,
-        bound=bound_ms(sum(p[2] for p in per) / k3, 0), library_ms=None)
-    del t, pl, ends, pends
+        bound=bound_ms(sum(p[2] for p in per) / k3, 0), library_ms=sum(p[3] for p in per) / k3)
+    del t, pl, ends, pends, lends
 
     # -- 8 blocks on 4 mesh positions: the endpoints span positions ------------------
     mesh4 = DeviceMesh((2, 2, 1), [dev] * 4)
@@ -3018,7 +3080,7 @@ def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 5
     del st, o15, s15, a, b
 
     # -- the main paths: jacobi3d over (2,2,2) with --direct26 and with remote-dma ----
-    total = iters + chunk
+    total = sum(run_chunks(iters, chunk))
     finals = {}
     for label, kw, per_step in (
             ("direct26", dict(device=dev, method=d26), {"jacobi_sweep": 1}),
@@ -3159,8 +3221,9 @@ def surface_phase(dev, time_ms, n: int = 512, small=(67, 45, 29), iters: int = 5
                       weak=False, kernel_variant="persistent", deep_halo=4)
     sync(dev)
     got = read()
-    chunks = (pers_iters + pers_chunk) // 4
-    calls = (pers_iters + pers_chunk) // pers_chunk
+    runs = run_chunks(pers_iters, pers_chunk)
+    chunks = sum(c // 4 for c in runs)
+    calls = len(runs)
     want = {name: 0 for name in counted}
     want.update({"persistent_jacobi_mesh": chunks * on_card,
                  "remote_axis": 2 * (chunks + calls) * on_card,
@@ -3229,6 +3292,7 @@ def tenants_phase(dev, time_ms, tenants: int = 64, edge: int = 32, big=(8, 128),
     errs)`` keyed ``astaroth_substep_tenants`` and ``self_fill_tenants``."""
     import stencil_tpu_torch.astaroth.integrate as integ
     from stencil_tpu_torch import GridSpec
+    from stencil_tpu_torch.apps import bench_fill
     from stencil_tpu_torch.apps import campaign as campaign_app
     from stencil_tpu_torch.astaroth.equations import Constants
     from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of
@@ -3357,22 +3421,27 @@ def tenants_phase(dev, time_ms, tenants: int = 64, edge: int = 32, big=(8, 128),
                 timings[names[0]] = t
             del curr8, out8
         fields = rand8(spec, tenants, 2400, torch.float64)
-        per, plain_per, nb = {}, {}, {}
+        per, plain_per, nb, lib = {}, {}, {}, {}
         for axis in halo_fill.AXIS_ORDER:
             per[axis] = time_ms(lambda: halo_fill.self_fill(fields, spec, axis, z_stack=tenants,
                                                             tenants=True), 20, warmup=2,
                                 graph=True)
             plain_per[axis] = time_ms(lambda: halo_fill.self_fill_plain(fields, spec, axis), 1,
                                       warmup=0)
+            # the same rows by Tensor.copy_, two slab copies a field over
+            # the whole tenant stack (bench_fill's yardstick), replayed alike
+            lib[axis] = time_ms(lambda: bench_fill.copy_slabs(fields, spec, axis), 20,
+                                warmup=2, graph=True)
             nb[axis] = 8 * tenants * halo_fill.fill_bytes(spec, axis, 8)
         mean = lambda d: sum(d.values()) / 3  # noqa: E731
         timings[names[1]] = dict(ms=mean(per), plain_ms=mean(plain_per),
-                                 bound=bound_ms(mean(nb), 0), library_ms=None)
+                                 bound=bound_ms(mean(nb), 0), library_ms=mean(lib))
         t = timings[names[1]]
         log(f"time self_fill_tenants {tenants} x {edge}^3 r3 8 fp64 fields: {t['ms']:.4f} ms per "
             f"launch, mean of x {per['x']:.4f} / y {per['y']:.4f} / z {per['z']:.4f} (plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by {t['bound'][1]}, "
-            f"{mean(nb) / 1e6:.1f} MB an axis read and written)")
+            f"{t['plain_ms']:.4f} ms, Tensor.copy_ {t['library_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms by {t['bound'][1]}, {mean(nb) / 1e6:.1f} MB an axis read "
+            "and written)")
         del fields
 
     # -- the Astaroth campaign through apps.campaign ------------------------------------
@@ -4016,8 +4085,8 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
       DB in a temporary directory, on one device: each candidate's static
       cost and each probe's trimean printed, no probe failed; launches
       counted from 0 around the run and held to the probes' exchanges (8 a
-      probe: one warm-up loop of 4 and 4 timed), the chosen plan's loop (a
-      warm-up chunk and the timed chunks) and the end-of-run attribution's
+      probe: one warm-up loop of 4 and 4 timed), the chosen plan's loop (the
+      warm-up's chunks and the timed chunks) and the end-of-run attribution's
       40 exchanges; a second run hits the DB (zero probes, the same choice),
       its launches held to the plan's alone.
     - The same over ``["cuda:0"] * 8`` positions at ``mesh_n``^3 (strong):
@@ -4163,7 +4232,7 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
                          "static": {ch.label(): c.total_s for c, ch in res.ranked[:6]}}
 
     # -- autotune on one device, then the DB hit ------------------------------------
-    chunks = [chunk] * (1 + iters // chunk)  # the warm-up chunk advances the state
+    chunks = run_chunks(iters, chunk)  # the warm-up's chunks and the timed ones
     one_metrics = os.path.join(tmp, "one.jsonl")
     for attempt in ("tune", "hit"):
         telemetry.configure(metrics_out=one_metrics, app="chip_smoke")
@@ -4520,7 +4589,7 @@ def tools_phase(dev, n: int = 512, chunk: int = 25, variant_n: int = 256, ex_n: 
     no launch):
 
     a. ``obs.xprof.capture`` around ``apps.jacobi3d.run`` at ``n``^3 fp32 on
-       one block (a warm-up chunk and one timed ``chunk``-step chunk), then
+       one block (the warm-up's chunks and one timed ``chunk``-step chunk), then
        around the plain remote-dma loop over 8 positions: the gate yields
        True, the dump is found and parsed, ``range_seconds`` gives device
        seconds > 0 for ``jacobi.chunk``, each kernel's event count equals its
@@ -4631,8 +4700,8 @@ def tools_phase(dev, n: int = 512, chunk: int = 25, variant_n: int = 256, ex_n: 
         check(tracing == on_card, f"tools {label}: the capture's gate yielded {tracing} on "
               f"{dev.type}")
         got = {w: wrappers[w].launches for w in names}
-        want = {w: 2 * v * on_card for w, v in one_chunk.items()}
-        check(got == want, f"tools {label}: launches {got} around a warm-up and one chunk, "
+        want = {w: len(run_chunks(chunk, chunk)) * v * on_card for w, v in one_chunk.items()}
+        check(got == want, f"tools {label}: launches {got} around the warm-up and one chunk, "
               f"expected {want}")
         log(f"tools {label} {n}^3: {r['iter_trimean_s'] * 1e3:.4f} ms/iter, launches {got}, "
             f"capture {'on' if tracing else 'off (no CUDA profiler)'}")
@@ -4875,6 +4944,307 @@ def tools_phase(dev, n: int = 512, chunk: int = 25, variant_n: int = 256, ex_n: 
     tmp_ctx.cleanup()
     log(f"phase 19 (tools) {time.perf_counter() - t0:.1f} s")
     return out, prof_ms
+
+
+def analysis_phase(dev, n: int = 512, c2: int = 512, grid: int = 16, pv_n: int = 128,
+                   ast_n: int = 64, child_n: int = 128, jit_iters: int = 10,
+                   jit_chunk: int = 4, time_iters: int = 6):
+    """Phase 20, the one-device tools on the card (rehearsable on the CPU at
+    small sizes, where the host-sync check is reported as not made and the
+    kernel wrappers count no launch):
+
+    a. ``analysis.jit_audit`` at ``n``^3 on one block and over 8 positions
+       (``jit_iters`` steps in chunks of ``jit_chunk``): the clean run
+       passes (no first-use work, no host sync caught under
+       ``torch.cuda.set_sync_debug_mode``), ``inject="recompile"`` fails
+       (the cold tail chunk's loop build and table uploads) and
+       ``inject="host-sync"`` fails (the caught sync); the counts printed.
+    b. ``analysis.verify_plan`` over the default grid (``grid``^3, 8
+       positions) and at the main path's shapes (``n``^3 one block;
+       config 2, ``c2``^3 over (2,2,2) r2 x4, over 8 positions; plain,
+       fused and persistent k=4): every counted check agrees (B4/B6/B7
+       launches, copies to other positions, messages and bytes, the
+       persistent loop's B4/B6/B9 launches); a ``perturb_collectives=1``
+       sweep fails every config;
+       the ``--time`` verdicts printed as measurements (not a gate).
+    c. ``apps.machine_info --json``: the records validate, the inventory
+       names the card with its capability, and the distance matrix over 8
+       positions of the card is all ``DIST_SELF``.
+    d. ``obs.watchdog.supervise`` over three jacobi3d children at
+       ``child_n``^3, side by side: a run with ``--metrics-out`` and a 6 s
+       ``slow@20`` sleep under a 3 s heartbeat deadline ends ok (the beats
+       kept it alive), its heartbeat note past step 20; ``--inject stall@3``
+       is killed as a stall within seconds of its heartbeat deadline, long
+       before its wall budget; ``--inject nan@3:repeat=always
+       --max-rollbacks 1`` ends with ``FAULT_RC`` and its metrics archived.
+    e. ParaView dumps: jacobi3d ``pv_n``^3 over (2,2,2) residents and over
+       8 positions with ``paraview=True``; each final dump byte-equal to the
+       same state written by the plain writer; the ``pv_n``^3 dump of the
+       residents timed; astaroth ``ast_n``^3 ``paraview_final`` equal to its
+       plain writer's. All under a temporary directory, deleted.
+    f. ``apps.lint_tool lint`` over the port tree: clean against its
+       baseline.
+
+    Returns the report (the numbers PERF.md records)."""
+    import concurrent.futures
+    import contextlib
+    import io
+
+    from stencil_tpu_torch.analysis import jit_audit as ja
+    from stencil_tpu_torch.analysis import verify_plan as vp
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.apps import jacobi3d, lint_tool, machine_info
+    from stencil_tpu_torch.obs import telemetry, watchdog
+    from stencil_tpu_torch.parallel import Method
+    from stencil_tpu_torch.parallel.device_topo import DIST_SAME_PROCESS, DIST_SELF
+    from stencil_tpu_torch.utils import paraview
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    pos8 = [dev] * 8
+    out = {}
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="analysis_phase_")
+    tmp = tmp_ctx.name
+
+    # -- a. jit-audit: clean, recompile and host-sync, one block and 8 positions -----
+    for where, devs in (("one block", [dev]), ("8 positions", pos8)):
+        runs = {}
+        for inject in (None, "recompile", "host-sync"):
+            r = ja.run_audit(size=n, iters=jit_iters, chunk=jit_chunk, inject=inject,
+                             devices=devs)
+            runs[inject or "clean"] = r.to_json()
+            log(f"jit-audit {n}^3 {where} inject={inject}: ok={r.ok}, {r.recompiles} "
+                f"first-use event(s) {r.first_use}, {len(r.transfer_trips)} host sync(s) "
+                f"caught, {r.warmup_compiles} in warm-up"
+                + (f"; not made: {[m['check'] for m in r.not_made]}" if r.not_made else ""))
+            for trip in r.transfer_trips:
+                log(f"  host sync: {trip}")
+            made = not r.not_made
+            check(made == on_card, f"jit-audit: the host-sync check made={made} on {dev.type}")
+            if inject is None:
+                check(r.ok, f"jit-audit clean {where}: {r.to_json()}")
+            elif inject == "recompile":
+                check(not r.ok and r.recompiles > 0, f"jit-audit recompile {where} passed")
+            elif on_card:
+                check(not r.ok and r.transfer_trips, f"jit-audit host-sync {where} passed")
+            else:
+                check(r.ok and r.not_made[0]["check"] == "host-sync",
+                      "jit-audit host-sync on the CPU: the check must be listed as not made")
+        out[f"jit_audit_{where.replace(' ', '_')}"] = runs
+
+    # -- b. verify-plan: the default grid, the main path's shapes, perturbed, timed --
+    def verdicts(res, label):
+        for v in res["verdicts"]:
+            made = [c for c in v.checks if c["ok"] is not None]
+            log(f"verify-plan {label} {v.label}: ok={v.ok} "
+                + "; ".join(f"{c['name']} {c['predicted']}/{c['actual']}" for c in made)
+                + (f" ({v.reason})" if v.reason else ""))
+            unmade = [c["name"] for c in v.checks if c["ok"] is None]
+            # the launch counts are the card's alone; the persistent loop's
+            # JAX-unit dispatches are the CPU's
+            persistent = v.method == vp.PERSISTENT_METHOD_LABEL
+            if on_card:
+                want = ["launches_per_chunk"] if persistent else []
+            else:
+                want = ((["carrier_launches"] if v.method.startswith("remote-dma") else [])
+                        + (["chunk_loop_launches", "chunk_kernel_launches"]
+                           if persistent else []))
+            check(unmade == want, f"verify-plan {v.label}: checks not made {unmade} on "
+                  f"{dev.type}")
+
+    res = vp.run_sweep(vp.sweep_configs(size=grid), devices=pos8)
+    verdicts(res, "grid")
+    check(res["checked"] == 30 and res["failed"] == 0 and res["skipped"] == 0,
+          f"verify-plan default grid: {res['checked']} checked, {res['failed']} failed, "
+          f"{res['skipped']} skipped")
+    main_cfgs = (vp.sweep_configs(size=n, radius=1, partitions=((1, 1, 1),),
+                                  methods=("axis-composed", "remote-dma",
+                                           vp.FUSED_METHOD_LABEL, vp.PERSISTENT_METHOD_LABEL),
+                                  qsets=(("float32",),))
+                 + vp.sweep_configs(size=c2, radius=2, partitions=((2, 2, 2),),
+                                    methods=("remote-dma", vp.FUSED_METHOD_LABEL,
+                                             vp.PERSISTENT_METHOD_LABEL),
+                                    qsets=(("float32",) * 4,)))
+    for cfg in main_cfgs:
+        if cfg["method"] == vp.PERSISTENT_METHOD_LABEL:
+            cfg["k"] = 4
+    res = vp.run_sweep(main_cfgs, devices=pos8)
+    verdicts(res, "main path")
+    check(res["checked"] == len(main_cfgs) and res["failed"] == 0,
+          f"verify-plan main path: {res['checked']} checked, {res['failed']} failed")
+    if on_card:
+        names = {c["name"] for v in res["verdicts"] for c in v.checks}
+        check({"carrier_launches", "chunk_loop_launches", "chunk_kernel_launches"} <= names,
+              f"verify-plan main path: launch checks missing ({sorted(names)})")
+    res = vp.run_sweep(vp.sweep_configs(size=grid), devices=pos8, perturb_collectives=1)
+    check(res["checked"] == 30 and res["failed"] == 30,
+          f"verify-plan perturbed: {res['failed']} of {res['checked']} failed, not all")
+    log(f"verify-plan perturb_collectives=1: {res['failed']} of {res['checked']} failed")
+    timed = []
+    for cfgs in (vp.sweep_configs(size=grid, partitions=((2, 2, 2),), qsets=(("float32",),)),
+                 vp.sweep_configs(size=c2, radius=2, partitions=((2, 2, 2),),
+                                  methods=("remote-dma", vp.FUSED_METHOD_LABEL),
+                                  qsets=(("float32",) * 4,))):
+        for v in vp.run_time_sweep(cfgs, devices=pos8, iters=time_iters)["verdicts"]:
+            c = v.checks[0] if v.checks else {}
+            log(f"verify-plan --time {v.label}: predicted {c.get('predicted')} "
+                f"{'within' if v.ok else 'OUTSIDE'} {c.get('actual', v.reason)}")
+            timed.append({"label": v.label, "ok": v.ok, "predicted": c.get("predicted"),
+                          "measured": c.get("actual")})
+    out["verify_plan_time"] = timed
+
+    # -- c. machine_info --json --------------------------------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = machine_info.main(["--json"] if on_card else ["--json", "--cpu", "1"])
+    check(rc == 0, f"machine_info --json rc {rc}")
+    n_ok, errors = telemetry.validate_jsonl(buf.getvalue().splitlines())
+    check(n_ok >= 6 and not errors, f"machine_info records: {n_ok} valid, errors {errors[:3]}")
+    recs = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.strip()]
+    devs = [r for r in recs if r["name"] == "machine.device"]
+    check(len(devs) == torch.cuda.device_count() if on_card else len(devs) == 1,
+          f"machine_info: {len(devs)} device records")
+    if on_card:
+        check("H100" in devs[0]["device_kind"] and devs[0]["capability"] == [9, 0],
+              f"machine_info: the inventory names {devs[0]}")
+    fab = next(r for r in recs if r["name"] == "machine.fabric")
+    log(f"machine_info: {devs[0]}; fabric {fab}")
+    dist = machine_info.run(devices=pos8)["dist"]
+    off = DIST_SELF if on_card else DIST_SAME_PROCESS  # a CPU position is a virtual device
+    check(all(dist[i][j] == (DIST_SELF if i == j else off) for i in range(8) for j in range(8)),
+          f"machine_info: the distance matrix over 8 positions of {dev}:\n{dist}")
+    out["machine_info"] = {"device": devs[0], "fabric": fab}
+
+    # -- d. watchdog: supervised jacobi3d children -------------------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    size = ["--x", str(child_n), "--y", str(child_n), "--z", str(child_n), "--no-weak"]
+    size += [] if on_card else ["--device", "cpu"]
+    beat_child = ("import json, os, sys\n"
+                  "from stencil_tpu_torch.apps import jacobi3d\n"
+                  "rc = jacobi3d.main(sys.argv[1:])\n"
+                  "print('HEARTBEAT', open(os.environ['STENCIL_HEARTBEAT_FILE']).read().strip())\n"
+                  "sys.exit(rc)\n")
+    metrics = os.path.join(tmp, "child.jsonl")
+    # the three children run side by side, each under its own supervisor
+    hb_s, budget = 5.0, 240.0
+    archive = os.path.join(tmp, "evidence")
+    fault_metrics = os.path.join(tmp, "fault.jsonl")
+    jacobi_cmd = [sys.executable, "-m", "stencil_tpu_torch.apps.jacobi3d"] + size
+    runs = {
+        # a 6 s sleep at step 20 under a 3 s heartbeat deadline: only the
+        # beats (the recorder's thread) keep the child alive through it
+        "ok": ([sys.executable, "-c", beat_child] + size
+               + ["--iters", "40", "--inject", "slow@20:seconds=6", "--metrics-out", metrics],
+               dict(timeout_s=300, heartbeat_timeout_s=3, first_beat_grace_s=120, poll_s=0.1)),
+        "stall": (jacobi_cmd + ["--iters", "10", "--inject", "stall@3"],
+                  dict(timeout_s=budget, heartbeat_timeout_s=hb_s, first_beat_grace_s=120,
+                       poll_s=0.1)),
+        "fault": (jacobi_cmd + ["--iters", "6", "--health-every", "2", "--ckpt-dir",
+                                os.path.join(tmp, "ck"), "--ckpt-every", "2", "--inject",
+                                "nan@3:repeat=always", "--max-rollbacks", "1",
+                                "--rollback-backoff", "0", "--metrics-out", fault_metrics],
+                  dict(timeout_s=300, heartbeat_timeout_s=60, archive_dir=archive,
+                       metrics_path=fault_metrics)),
+    }
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        futs = {k: pool.submit(watchdog.supervise, cmd, env=env, cwd=root,
+                               name=f"jacobi3d-{k}", **kw) for k, (cmd, kw) in runs.items()}
+        att, att_s, att_f = (futs[k].result() for k in ("ok", "stall", "fault"))
+    note = next((json.loads(ln.split(" ", 1)[1]) for ln in att.stdout.splitlines()
+                 if ln.startswith("HEARTBEAT ")), None)
+    log(f"watchdog ok child: outcome {att.outcome} rc {att.rc} in {att.seconds:.1f} s "
+        f"through a 6 s sleep under a 3 s heartbeat deadline, heartbeat note {note}")
+    check(att.outcome == watchdog.OK and att.seconds > 6 and note is not None
+          and note.get("step", 0) >= 20,
+          f"watchdog ok child: {att.summary()} note {note}\n{att.stderr_tail[-2000:]}")
+    n_ok, errors = telemetry.validate_jsonl(open(metrics))
+    check(n_ok > 0 and not errors, f"watchdog ok child's metrics: {errors[:3]}")
+    log(f"watchdog stall child: outcome {att_s.outcome} in {att_s.seconds:.1f} s (budget "
+        f"{budget:.0f} s, heartbeat deadline {hb_s:.0f} s), note "
+        f"{watchdog.format_heartbeat_note(att_s.heartbeat_note)!r}")
+    check(att_s.outcome == watchdog.STALL and att_s.seconds < budget / 2
+          and (att_s.heartbeat_note or {}).get("step") == 3,
+          f"watchdog stall child: {att_s.summary()} note {att_s.heartbeat_note}\n"
+          f"{att_s.stderr_tail[-2000:]}")
+    log(f"watchdog fault child: outcome {att_f.outcome} rc {att_f.rc} in {att_f.seconds:.1f} s, "
+        f"metrics archived {bool(att_f.metrics_log_path)}")
+    check(att_f.outcome == watchdog.FAULT and att_f.rc == watchdog.FAULT_RC
+          and att_f.metrics_log_path and os.path.exists(att_f.metrics_log_path),
+          f"watchdog fault child: {att_f.summary()}\n{att_f.stderr_tail[-2000:]}")
+    out["watchdog"] = {"ok_s": att.seconds, "stall_s": att_s.seconds, "fault_s": att_f.seconds}
+
+    # -- e. ParaView dumps ---------------------------------------------------------------
+    @contextlib.contextmanager
+    def plain_writer():
+        """The domain's dumps through the writer's plain version, for the
+        reference files."""
+        native = paraview.write
+        paraview.write = paraview.write_plain
+        try:
+            yield
+        finally:
+            paraview.write = native
+
+    def same_files(a, b):
+        files = sorted(glob.glob(a + "_*.txt"))
+        check(files and len(files) == len(glob.glob(b + "_*.txt")),
+              f"paraview: {len(files)} files at {a}")
+        for f in files:
+            with open(f, "rb") as x, open(b + f[len(a):], "rb") as y:
+                check(x.read() == y.read(), f"paraview: {f} differs from the plain writer's")
+        return len(files)
+
+    pv = {}
+    for label, kw in (("residents", dict(partition=(2, 2, 2), device=dev)),
+                      ("positions", dict(devices=pos8, method=Method.REMOTE_DMA))):
+        pre = os.path.join(tmp, f"{label}_")
+        r = jacobi3d.run(pv_n, pv_n, pv_n, iters=4, weak=False, paraview=True, prefix=pre,
+                         **kw)
+        dd = r["domain"]
+        check(len(glob.glob(pre + "jacobi3d_init_*.txt")) == 8, f"paraview {label}: init dumps")
+        with plain_writer():
+            dd.write_paraview(pre + "plain_final")
+        files = same_files(pre + "jacobi3d_final", pre + "plain_final")
+        if label == "residents":
+            ts = []
+            for i in range(3):
+                sync(dev)
+                t1 = time.perf_counter()
+                dd.write_paraview(pre + f"timed{i}")
+                ts.append(time.perf_counter() - t1)
+            pv["dump_s"] = ts
+            log(f"paraview {pv_n}^3 (2,2,2) residents: {files} files byte-equal to the plain "
+                f"writer's; the dump {', '.join(f'{t:.3f}' for t in ts)} s "
+                f"({pv_n ** 3 / min(ts) / 1e6:.2f} M rows/s)")
+        else:
+            log(f"paraview {pv_n}^3 over 8 positions: {files} files byte-equal to the plain "
+                "writer's")
+        del r, dd
+    pre = os.path.join(tmp, "ast_")
+    r = astaroth_app.run(iters=1, nx=ast_n, device=dev, paraview_final=True, prefix=pre)
+    with plain_writer():
+        r["domain"].write_paraview(pre + "plain")
+    files = same_files(pre + "final", pre + "plain")
+    with open(pre + "final_0.txt") as f:
+        header = f.readline().strip()
+    check(header == "Z,Y,X," + ",".join(r["domain"]._names), f"paraview astaroth header {header}")
+    log(f"paraview astaroth {ast_n}^3 final: {files} file(s) byte-equal to the plain writer's")
+    out["paraview"] = pv
+    del r
+
+    # -- f. the port's lint, clean against its baseline -----------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_tool.main(["lint", "--root", root])
+    log(f"lint_tool lint: rc {rc}: {buf.getvalue().strip().splitlines()[-1]}")
+    check(rc == 0, f"lint_tool lint rc {rc}:\n{buf.getvalue()[-2000:]}")
+
+    tmp_ctx.cleanup()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 20 (analysis) {out['seconds']:.1f} s")
+    return out
 
 
 def sync(dev) -> None:
@@ -5281,9 +5651,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches["jacobi_sweep"], launches["jacobi_multistep"] = sk.sweep.launches, sk.multistep.launches
     check(r["temporal_k"] == k512, f"jacobi3d ran k={r['temporal_k']}, planner says {k512}")
-    # 3 chunks of 25 steps (the warm-up's and two timed): 25 // k passes and
+    # chunks of 25 steps (the warm-up's and two timed): 25 // k passes and
     # 25 % k sweeps each
-    want3 = {"jacobi_sweep": 3 * (25 % k512), "jacobi_multistep": 3 * (25 // k512)}
+    nch3 = len(run_chunks(50, 25))
+    want3 = {"jacobi_sweep": nch3 * (25 % k512), "jacobi_multistep": nch3 * (25 // k512)}
     check(launches == want3, f"jacobi3d 512^3: launches {launches}, expected {want3}")
     log(jacobi3d.csv_row(r))
     log(f"jacobi3d 512^3: {r['iter_trimean_s'] * 1e3:.4f} ms/iter (trimean), "
@@ -5552,12 +5923,17 @@ def main() -> int:
     counted = {"fused_jacobi": fst.fused_jacobi, "persistent_jacobi": pst.persistent_jacobi,
                "jacobi_sweep": sk.sweep, "jacobi_multistep": sk.multistep,
                "self_fill": halo_fill.self_fill}
+    # the warm-up's chunks and the timed ones: a fused launch or a sweep and
+    # 3 fills a step; the persistent loop's chunk kernel every 4 steps and
+    # its 3 sel fills a loop call
+    r50, r48, r10 = run_chunks(50, 25), run_chunks(48, 24), run_chunks(10, 5)
     variant_runs = [
         ("fused", dict(iters=50, chunk=25, kernel_variant="fused"),
-         {"fused_jacobi": 75}),
+         {"fused_jacobi": sum(r50)}),
         ("persistent", dict(iters=48, chunk=24, kernel_variant="persistent", deep_halo=4),
-         {"persistent_jacobi": 18, "self_fill": 9}),
-        ("plain remote-dma", dict(iters=10, chunk=5), {"jacobi_sweep": 15, "self_fill": 45}),
+         {"persistent_jacobi": sum(c // 4 for c in r48), "self_fill": 3 * len(r48)}),
+        ("plain remote-dma", dict(iters=10, chunk=5),
+         {"jacobi_sweep": sum(r10), "self_fill": 3 * sum(r10)}),
     ]
     for label, kw, want in variant_runs:
         for fn in counted.values():
@@ -5784,12 +6160,13 @@ def main() -> int:
     counted7 = {"jacobi_multistep": sk.multistep, "jacobi_sweep": sk.sweep,
                 "jacobi_sweep_regions": sk.sweep_regions, "self_fill": halo_fill.self_fill}
     hot_d, cold_d = sk.sphere_masks_from_coords(spec512, dev)
+    r7 = run_chunks(50, 25)  # the warm-up's chunks of 25 and the two timed ones
     for label, kw, k_want, want in (
             ("deep_halo 4", dict(iters=50, chunk=25, deep_halo=4), kh,
-             {"jacobi_multistep": 3 * (25 // kh), "jacobi_sweep": 3 * (25 % kh),
-              "jacobi_sweep_regions": 3 * (25 % kh)}),
+             {"jacobi_multistep": len(r7) * (25 // kh), "jacobi_sweep": len(r7) * (25 % kh),
+              "jacobi_sweep_regions": len(r7) * (25 % kh)}),
             ("deep_halo 1", dict(iters=50, chunk=25, deep_halo=1), 0,
-             {"jacobi_sweep": 75, "jacobi_sweep_regions": 75})):
+             {"jacobi_sweep": sum(r7), "jacobi_sweep_regions": sum(r7)})):
         for fn in counted7.values():
             fn.launches = 0
         rv = jacobi3d.run(512, 512, 512, weak=False, partition=(2, 2, 2), **kw)
@@ -6274,8 +6651,9 @@ def main() -> int:
                       chunk=25, weak=False)
     torch.cuda.synchronize()
     got9 = {name: fn.launches for name, fn in counted9.items()}
-    want9 = {"remote_axis": 75 * 3, "jacobi_sweep": 0, "jacobi_sweep_positions": 75, "self_fill": 0,
-             "jacobi_multistep": 0, "fused_exchange": 0}
+    steps9 = sum(run_chunks(50, 25))  # the warm-up's steps and the timed ones
+    want9 = {"remote_axis": steps9 * 3, "jacobi_sweep": 0, "jacobi_sweep_positions": steps9,
+             "self_fill": 0, "jacobi_multistep": 0, "fused_exchange": 0}
     check(got9 == want9, f"jacobi3d over 8 positions: launches {got9}, expected {want9}")
     launches["remote_axis"] = got9["remote_axis"]
     launches["jacobi_sweep_positions"] = got9["jacobi_sweep_positions"]
@@ -6521,10 +6899,14 @@ def main() -> int:
     counted10 = {**counted9, "fused_jacobi_mesh": fst.fused_jacobi_mesh,
                  "persistent_jacobi_mesh": pst.persistent_jacobi_mesh,
                  "fused_jacobi": fst.fused_jacobi, "persistent_jacobi": pst.persistent_jacobi}
+    # the warm-up's chunks and the timed ones: a fused launch a step; the
+    # chunk kernel every 4 steps and sel's 3 B6 phases a loop call
+    r50, r48 = run_chunks(50, 25), run_chunks(48, 24)
     mesh_runs = [
-        ("fused", dict(iters=50, chunk=25, kernel_variant="fused"), {"fused_jacobi_mesh": 75}),
+        ("fused", dict(iters=50, chunk=25, kernel_variant="fused"),
+         {"fused_jacobi_mesh": sum(r50)}),
         ("persistent", dict(iters=48, chunk=24, kernel_variant="persistent", deep_halo=4),
-         {"persistent_jacobi_mesh": 18, "remote_axis": 9}),
+         {"persistent_jacobi_mesh": sum(c // 4 for c in r48), "remote_axis": 3 * len(r48)}),
     ]
     for label, kw, want in mesh_runs:
         for fn in counted10.values():
@@ -6674,6 +7056,11 @@ def main() -> int:
     for name, v in profiler_ms.items():
         timings[name].setdefault("extra", {})["profiler_ms"] = v
     log(f"tools phase report: {json.dumps(tools_report, sort_keys=True, default=str)}")
+
+    # -- 20. the one-device tools: jit-audit, verify-plan, machine_info, the -----
+    #        watchdog, the ParaView dumps, the lint
+    analysis_report = analysis_phase(dev)
+    log(f"analysis phase report: {json.dumps(analysis_report, sort_keys=True, default=str)}")
 
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

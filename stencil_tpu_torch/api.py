@@ -444,6 +444,39 @@ class DistributedDomain:
                 mat[i, j] += ext.flatten() * sum(itemsizes)
         np.savetxt(f"{prefix}mat_npy_loadtxt.txt", mat, fmt="%d")
 
+    def write_paraview(self, prefix: str, zero_nans: bool = False) -> None:
+        """Per-block CSV dump of the interior, ``{prefix}_{i}.txt`` for block
+        ``i`` (x fastest): the columns Z,Y,X,<quantity names> of the
+        reference (src/stencil.cu:1188-1264) and the JAX package's bytes.
+        Each quantity's ``curr`` (a stack, or a mesh's stacks) is read to
+        the host once; ``zero_nans`` maps NaN to 0 (and +-inf to the dtype's
+        extremes, numpy's ``nan_to_num``, as the JAX package does). The rows
+        stream from the C++ writer (``utils/paraview.write``)."""
+        from .parallel.exchange import join_positions
+        from .utils import paraview
+
+        hosts = []
+        for idx in range(len(self._names)):
+            cur = self._curr[idx]
+            if isinstance(cur, (list, tuple)):
+                cur = join_positions(cur, self.spec)
+            hosts.append(cur.detach().cpu().numpy())
+        off = self.spec.compute_offset()
+        d = self.spec.dim
+        header = ",".join(["Z", "Y", "X"] + list(self._names))
+        for i in range(self.spec.num_blocks()):
+            idx3 = Dim3(i % d.x, (i // d.x) % d.y, i // (d.x * d.y))
+            sz = self.spec.block_size(idx3)
+            origin = self.spec.block_origin(idx3)
+            qs = []
+            for host in hosts:
+                q = host[idx3.z, idx3.y, idx3.x][off.z:off.z + sz.z, off.y:off.y + sz.y,
+                                                  off.x:off.x + sz.x]
+                qs.append(np.nan_to_num(q, nan=0.0) if zero_nans else q)
+            path = f"{prefix}_{i}.txt"
+            paraview.write(path, header, (origin.z, origin.y, origin.x), (sz.z, sz.y, sz.x), qs)
+            log.info(f"wrote paraview file {path}")
+
     # -- accounting (reference: src/stencil.cu:139-161) ----------------------
     def _itemsizes(self) -> List[int]:
         return [torch.empty((), dtype=dt).element_size() for dt in self._dtypes]

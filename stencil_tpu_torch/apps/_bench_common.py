@@ -130,16 +130,6 @@ def resume_from_checkpoint(dd, ckpt_dir: str, iters: int) -> int:
     return start
 
 
-def fabric(devices) -> dict:
-    """What measured a sample: the platform, the mesh positions and, on the
-    card, its name (the attribution records' ``fabric_*`` fields)."""
-    dev = torch.device(devices[0])
-    out = {"platform": dev.type, "positions": len(devices)}
-    if dev.type == "cuda":
-        out["card"] = torch.cuda.get_device_name(dev)
-    return out
-
-
 def coord_state(dd, quantities: int):
     """Deterministic per-quantity coordinate fields on a realized domain
     (value = z*1e6 + y*1e3 + x + quantity index, float32): the bit-for-bit
@@ -242,6 +232,7 @@ def time_exchange(size, radius, iters: int, method=None, devices: Optional[Seque
         from ..obs import attribution
         from ..plan.cost import default_provenance
         from ..plan.ir import PlanChoice, PlanConfig
+        from .machine_info import fabric_fingerprint
 
         pm = dd.plan_meta()
         pchoice = PlanChoice.from_json(pm["choice"])
@@ -249,7 +240,8 @@ def time_exchange(size, radius, iters: int, method=None, devices: Optional[Seque
         attribution.attribute_and_judge(
             rec, pconfig, pchoice, samples, phase="exchange.iter",
             kernel_variant="fused" if fused else None,
-            fabric=fabric(dd.mesh.devices if dd.mesh is not None else [dev]))
+            fabric=fabric_fingerprint(devices=dd.mesh.devices if dd.mesh is not None
+                                      else [dev]))
         rec.meta("plan.fingerprint", fingerprint=pchoice.fingerprint(), choice=pchoice.label(),
                  calibration=default_provenance(pconfig.platform), **tags)
         rec.gauge("exchange.trimean_s", stats.trimean(), phase="exchange", unit="s",

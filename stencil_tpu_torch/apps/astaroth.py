@@ -69,9 +69,13 @@ AXIS_COMPOSED, DIRECT26 and REMOTE_DMA with quantity batching on and off,
 over ``--devices`` positions over REMOTE_DMA's partitions and variants; a
 DB hit replays with zero probes); the step is built on the plan applied.
 
-Not carried over yet (ROADMAP.md): positions on distinct GPUs (a mesh
-names one card), ``--trivial`` / ``--random`` placement and the ParaView
-dumps. Non-periodic boundaries are ``astaroth.boundconds``, which the app
+``--paraview-init`` and ``--paraview-final`` write the JAX app's ParaView
+dumps of the 8 fields (``DistributedDomain.write_paraview``): ``init_<i>.txt``
+and ``final_<i>.txt`` per block, under ``--prefix``.
+
+Not carried over yet (ROADMAP.md queue A item 5): positions on distinct
+GPUs (a mesh names one card) and ``--trivial`` / ``--random`` placement.
+Non-periodic boundaries are ``astaroth.boundconds``, which the app
 never calls, as in the JAX package and the reference.
 """
 
@@ -215,6 +219,9 @@ def run(
     method: Method = Method.AXIS_COMPOSED,
     autotune: bool = False,
     plan_db: Optional[str] = None,
+    paraview_init: bool = False,
+    paraview_final: bool = False,
+    prefix: str = "",
 ) -> dict:
     """Run ``iters`` iterations (plus one untimed warm-up chunk) and return
     the timing row, the domain and its handles. ``partition`` (blocks
@@ -228,7 +235,9 @@ def run(
     "ring") and ``use_pallas`` (False: the unfused path, which runs only on
     the CPU) are the JAX app's (see the module docstring). ``autotune``
     and ``plan_db`` tune the exchange plan at realize(); the row's
-    ``plan`` names the choice applied (None untuned)."""
+    ``plan`` names the choice applied (None untuned). ``paraview_init`` and
+    ``paraview_final`` write the ParaView dumps ``{prefix}init`` and
+    ``{prefix}final`` of the initial and final fields."""
     variant = kernel_variant or "shift"
     if variant not in KERNEL_VARIANTS:
         raise ValueError(f"unknown kernel_variant {kernel_variant!r}: valid values are "
@@ -245,6 +254,8 @@ def run(
     if dd.plan_choice is not None:
         batch_quantities = dd.plan_choice.batch_quantities
     dev = dd.device
+    if paraview_init:
+        dd.write_paraview(prefix + "init")
     curr = {name: dd.get_curr(handles[name]) for name in FIELDS}
     nxt = {name: dd.get_next(handles[name]) for name in FIELDS}
 
@@ -385,6 +396,8 @@ def run(
     for name in FIELDS:
         dd.set_curr(handles[name], curr[name])
         dd.set_next(handles[name], nxt[name])
+    if paraview_final:
+        dd.write_paraview(prefix + "final")
 
     trimean = iter_time.trimean()
     cells = dd.size.flatten()
@@ -473,6 +486,13 @@ def main(argv: Optional[list] = None) -> int:
                    help="choose the exchange plan (partition x method x quantity batching) "
                         "with the plan/ autotuner; a plan-DB hit replays with zero probes")
     p.add_argument("--plan-db", type=str, default="", help="on-disk plan DB (JSON) for --autotune")
+    p.add_argument("--paraview-init", action="store_true",
+                   help="write a ParaView dump of the initial fields")
+    p.add_argument("--paraview-final", action="store_true",
+                   help="write a ParaView dump of the final fields")
+    p.add_argument("--prefix", type=str, default="",
+                   help="prefix of the ParaView dumps (default: init_<i>.txt and "
+                        "final_<i>.txt in the working directory)")
     add_guard_flags(p)
     args = p.parse_args(argv)
     if args.f32 and args.f64:
@@ -489,7 +509,9 @@ def main(argv: Optional[list] = None) -> int:
                 batch_quantities=not args.per_quantity_exchange,
                 kernel_variant=args.kernel_variant,
                 use_pallas=False if args.no_pallas else None, autotune=args.autotune,
-                plan_db=args.plan_db or None, **guard_kwargs(args))
+                plan_db=args.plan_db or None, paraview_init=args.paraview_init,
+                paraview_final=args.paraview_final, prefix=args.prefix,
+                **guard_kwargs(args))
     except RecoveryExhausted as e:
         log.error(f"astaroth: {e}")
         return FAULT_RC

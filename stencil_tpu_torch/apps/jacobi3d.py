@@ -35,8 +35,12 @@ exits 43 (``FAULT_RC``) with an evidence file when recovery gives up.
 package's format (asynchronously; the final state at ``iters`` always) and
 ``--resume`` continues from the newest one. One schedule (``chunk_plan``,
 broken at checkpoint, health and injection steps) drives warm-up and the
-timed loop; with a checkpoint dir, warm-up runs on copies of the state, so a
-checkpointed run is step-exact. ``STENCIL_CKPT_KILL_AFTER_SAVE=K`` kills the
+timed loop. Warm-up runs each chunk size of the schedule from both orders
+of the two buffers and puts the state back
+(``ops/jacobi.warm_jacobi_loops``), so no timed chunk uploads a kernel
+table; without a checkpoint dir one chunk then advances the state, as in
+the JAX app, and with one nothing does, so a checkpointed run is
+step-exact. ``STENCIL_CKPT_KILL_AFTER_SAVE=K`` kills the
 run (rc 17) right after the first snapshot at a step >= K is durable.
 
 Usage: python -m stencil_tpu_torch.apps.jacobi3d --x 512 --y 512 --z 512 --iters 5
@@ -67,8 +71,10 @@ ending with the exchange's attribution (``plan.attrib.phase``, phase
 sentinel; ``--replan-probe`` probes the re-tune) hot-swaps the plan between
 chunks through ``DistributedDomain.replan`` when the sentinel requests it.
 
-Not carried over yet (ROADMAP.md queue A): the ParaView dumps (which
-``--prefix`` also names in the JAX app).
+``--paraview`` writes the JAX app's ParaView dumps under ``--prefix``
+(``DistributedDomain.write_paraview``): ``jacobi3d_init`` and
+``jacobi3d_final``, and with ``--paraview-every N`` (which makes the chunk
+one step unless ``chunk`` is given) ``jacobi3d_<step>`` every N steps.
 """
 
 from __future__ import annotations
@@ -87,7 +93,7 @@ from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, Recove
 from ..geometry import Dim3, prime_factors
 from ..obs import telemetry
 from ..ops.halo_fill import WIRE_FORMATS
-from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks
+from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks, warm_jacobi_loops
 from ..parallel.exchange import Method
 from ..utils import logging as log
 from ..utils import timer
@@ -136,6 +142,8 @@ def run(
     rollback_backoff: float = 0.25,
     inject: Optional[str] = None,
     prefix: str = "",
+    paraview: bool = False,
+    paraview_every: int = -1,
     multistep_rows: Optional[int] = None,
     autotune: bool = False,
     plan_db: Optional[str] = None,
@@ -177,7 +185,11 @@ def run(
     ``ckpt_keep`` the snapshots, ``resume`` the restart from the newest
     one. Raises :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when
     recovery gives up. ``prefix`` (``DistributedDomain.set_output_prefix``)
-    makes realize() write the domain's plan files under it;
+    makes realize() write the domain's plan files under it, and names the
+    ParaView dumps: ``paraview`` writes ``{prefix}jacobi3d_init`` and
+    ``{prefix}jacobi3d_final``, and with ``paraview_every`` > 0 also
+    ``{prefix}jacobi3d_<step>`` every that many steps (one-step chunks
+    unless ``chunk`` is given), as the JAX app does;
     ``multistep_rows`` goes to ``make_jacobi_loop``.
 
     ``autotune`` tunes the exchange plan at realize() (``plan_db`` the plan
@@ -243,6 +255,9 @@ def run(
                 b.fill_(INIT_TEMP)
         sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
 
+    if paraview:
+        dd.write_paraview(prefix + "jacobi3d_init")
+
     # checkpoint/restart: a resume replaces the fresh init with the newest
     # valid snapshot's state, elastically (another partition or package)
     start = 0
@@ -263,8 +278,9 @@ def run(
             os._exit(17)
 
     curr, nxt = dd.get_curr(h), dd.get_next(h)
+    stepwise = paraview and paraview_every > 0
     if chunk is None:
-        chunk = min(iters, 10)
+        chunk = 1 if stepwise else min(iters, 10)
     chunk = min(chunk, iters)
     tk = deep_halo if deep_halo >= 2 else None
     loops = {}
@@ -288,20 +304,19 @@ def run(
                           at=injector.steps() if injector is not None else ())
 
     with rec.span("jacobi.warmup", phase="compile", iters=warmup * chunk):
-        if ckpt_dir:
-            # a checkpointed run is step-exact (save at k, resume, continue
-            # to n == an uninterrupted run to n): warm-up runs each distinct
-            # chunk size of the schedule on copies, never advancing the state
-            if warmup:
-                for k in dict.fromkeys(plan_fn(start)):
-                    get_loop(k)(_copy(curr), _copy(nxt), sel)
-                hard_sync(dev)
-        else:
-            # warm-up advances the state, as in the JAX app
+        if warmup:
+            # each distinct chunk size of the schedule from both buffer
+            # orders on the state's own buffers (the kernels' tables are
+            # kept by address), the state put back
+            warm_jacobi_loops(get_loop, dict.fromkeys(plan_fn(start)), curr, nxt, sel)
+        if not ckpt_dir:
+            # then warm-up advances the state, as in the JAX app; a
+            # checkpointed run is step-exact (save at k, resume, continue to
+            # n == an uninterrupted run to n), so it never advances here
             loop = get_loop(chunk)
             for _ in range(warmup):
                 curr, nxt = loop(curr, nxt, sel)
-            hard_sync(dev)
+        hard_sync(dev)
 
     # the loop writes in place and swaps (curr, scratch): each chunk's
     # result is the state, its other buffer the next scratch; a rollback
@@ -318,6 +333,9 @@ def run(
     def on_chunk(st, k, per, done_now):
         iter_time.insert(per)
         rec.emit("span", "jacobi.iter", phase="step", seconds=per, iters=k)
+        if stepwise and done_now % paraview_every == 0:
+            dd.set_curr(h, st["temperature"])
+            dd.write_paraview(f"{prefix}jacobi3d_{done_now}")
 
     save_fn = restore_fn = quarantine_fn = flush_fn = None
     if ckpt_dir:
@@ -393,6 +411,8 @@ def run(
         dd.finish_checkpoints()
     dd.set_curr(h, curr)
     dd.set_next(h, nxt)
+    if paraview:
+        dd.write_paraview(prefix + "jacobi3d_final")
     if rec.enabled:
         attribute_exchange(dd, h, chunk, rec, devices or [dev])
 
@@ -444,7 +464,7 @@ def attribute_exchange(dd, h, chunk: int, rec, devices) -> None:
     and the plan's ``plan.fingerprint``."""
     from ..obs import attribution
     from ..plan.ir import PlanChoice, PlanConfig
-    from ._bench_common import fabric
+    from .machine_info import fabric_fingerprint
 
     state = {h.idx: dd.get_curr(h)}
     n_ex = max(1, min(chunk, 10))
@@ -467,17 +487,13 @@ def attribute_exchange(dd, h, chunk: int, rec, devices) -> None:
     attribution.attribute_and_judge(
         rec, config, choice, samples, phase="jacobi.exchange",
         calibration=tuned.calibration if tuned is not None else None,
-        kernel_variant=choice.kernel_variant, fabric=fabric(devices))
+        kernel_variant=choice.kernel_variant,
+        fabric=fabric_fingerprint(devices=devices))
     from ..plan.cost import default_provenance
 
     rec.meta("plan.fingerprint", fingerprint=choice.fingerprint(), choice=choice.label(),
              calibration=(tuned.calibration_provenance if tuned is not None
                           else default_provenance(config.platform)))
-
-
-def _copy(state):
-    """A throwaway copy of a quantity: a tensor, or a mesh's blocks."""
-    return [b.clone() for b in state] if isinstance(state, list) else state.clone()
 
 
 def csv_row(r: dict) -> str:
@@ -562,8 +578,12 @@ def main(argv: Optional[list] = None) -> int:
                         "this format (LOSSY — halos round to the wire precision)")
     p.add_argument("--prefix", type=str, default="",
                    help="prefix of the files the run writes: the domain's plan files "
-                        "(plan_0.txt, mat_npy_loadtxt.txt) at realize; the JAX app's "
-                        "ParaView dumps are not ported yet")
+                        "(plan_0.txt, mat_npy_loadtxt.txt) at realize and the ParaView "
+                        "dumps")
+    p.add_argument("--paraview", action="store_true",
+                   help="write ParaView dumps of the initial and final state")
+    p.add_argument("--paraview-every", type=int, default=-1,
+                   help="with --paraview, also dump every N iterations")
     p.add_argument("--multistep-rows", type=int, default=None,
                    help="the multistep's strip height: on the card its tile height, so only "
                         "a height the kernel is built for at the chosen depth is accepted "
@@ -607,6 +627,7 @@ def main(argv: Optional[list] = None) -> int:
                 fused=args.fused, kernel_variant=args.kernel_variant,
                 devices=args.devices.split(",") if args.devices else None,
                 wire_dtype=args.wire_dtype or None, prefix=args.prefix,
+                paraview=args.paraview, paraview_every=args.paraview_every,
                 multistep_rows=args.multistep_rows, autotune=args.autotune,
                 plan_db=args.plan_db or None, sentinel=sentinel, status=status,
                 replan=args.replan, replan_probe=args.replan_probe, **guard_kwargs(args))

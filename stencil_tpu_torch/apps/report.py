@@ -44,11 +44,9 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..obs import telemetry
+# the heartbeat file a supervised run touches; --follow reads only its mtime
+from ..obs.watchdog import HEARTBEAT_FILE_ENV
 from ..utils.statistics import Statistics
-
-# the heartbeat file a supervised run touches (the JAX package's
-# obs/watchdog.HEARTBEAT_FILE_ENV); --follow reads only its mtime
-HEARTBEAT_FILE_ENV = "STENCIL_HEARTBEAT_FILE"
 
 
 def load(paths: List[str]) -> Tuple[List[dict], List[str]]:

@@ -17,7 +17,8 @@ Spec grammar: comma/semicolon-separated items of ``kind@step[:k=v...]``:
   exchange sends, a corrupted halo payload.
 - ``ckpt-truncate@K``: truncate the newest snapshot's first payload (the
   recovery must fall back to the previous good snapshot).
-- ``stall@K``: sleep until a watchdog kills the run.
+- ``stall@K``: stop beating the heartbeat (its thread too) and sleep until
+  a watchdog kills the run.
 - ``crash@K[:rc=N]``: ``os._exit(rc)`` (default rc 7).
 - ``slow@K[:seconds=S]``: one sleep of S seconds (default 1.0).
 
@@ -217,6 +218,10 @@ class FaultPlan:
             self._record(inj)
             log.warn(f"fault: stall@{inj.step}: sleeping until a watchdog "
                      "kills this run")
+            # stop beating, the heartbeat thread included: a sleeping
+            # interpreter still runs that thread, and a supervisor must see
+            # the wedge this injection stands for
+            telemetry.get().stop_heartbeat()
             # sleep in slices so an unsupervised run can be interrupted
             for _ in range(3600):
                 time.sleep(1.0)

@@ -241,6 +241,7 @@ def run_guarded(
                 state = step_fn(state, k)
                 per = (clock() - t0) / k
                 done = prev + k
+                rec.note_step(done)  # the heartbeat note: the last step reached
                 if injector is not None:
                     state = injector.fire_due(state, prev, done, spec=spec,
                                               ckpt_dir=ckpt_dir,
@@ -328,4 +329,5 @@ def run_guarded(
             log.warn(f"fault: rolled back from step {done} to checkpointed "
                      f"step {rstep}")
             done = rstep
+            rec.note_step(done)
             _status_update(done)  # the snapshot shows the rollback

@@ -53,6 +53,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -126,12 +127,15 @@ def config_fingerprint(config: Optional[dict]) -> str:
 def host_fingerprint(device) -> dict:
     """``{"platform", "device"}`` of a torch device: ``"cuda"`` and the
     card's name (``torch.cuda.get_device_name``), or ``"cpu"`` and
-    ``"cpu"``. Imports torch only when asked about a card."""
+    ``"cpu"``. This module stays stdlib-only (it is loaded by file path),
+    so a card is named through the torch its caller has already loaded."""
     kind = getattr(device, "type", str(device).split(":")[0])
     if kind != "cuda":
         return {"platform": kind, "device": kind}
-    import torch
-
+    torch = sys.modules.get("torch")
+    if torch is None:
+        raise RuntimeError(f"host_fingerprint({device!r}): naming a CUDA device needs torch "
+                           "loaded by the caller")
     return {"platform": "cuda", "device": torch.cuda.get_device_name(device)}
 
 

@@ -27,8 +27,9 @@ Status document (schema v1)::
                "backfills": int, ...}?}
 
 ``apps/report --status`` is the reader, and :func:`render_status` the
-top-like rendering it prints. The JAX package's heartbeat and supervisor
-(``obs/watchdog``) are not ported (ROADMAP.md queue A item 4.5).
+top-like rendering it prints. The liveness of a supervised run is the
+heartbeat file (``obs/watchdog``), which the status snapshot does not
+replace.
 """
 
 from __future__ import annotations

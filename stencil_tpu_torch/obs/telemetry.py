@@ -23,8 +23,13 @@ ones.
 Spans ride ``utils.timer.timed`` (the global buckets) and
 ``timer.trace_range`` (a ``torch.profiler`` range of the same name).
 
-Not carried over: the watchdog heartbeat file and thread (the supervisor is
-not ported), and the census, exchange-truth and DMA-traffic records, which
+Heartbeats close the loop with :mod:`.watchdog`: when the supervisor set
+``STENCIL_HEARTBEAT_FILE``, every emitted record (rate-limited) and a
+background thread (for long silent stretches such as a kernel build)
+touch that file, with a small JSON note of the last step and the current
+span; the watchdog reads only its mtime.
+
+Not carried over: the census, exchange-truth and DMA-traffic records, which
 read XLA HLO and Mosaic lowerings that have no counterpart here.
 """
 
@@ -36,9 +41,10 @@ import os
 import threading
 import time
 import uuid
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from ..utils import timer
+from .watchdog import HEARTBEAT_FILE_ENV, HEARTBEAT_INTERVAL_ENV
 
 SCHEMA_VERSION = 1
 KINDS = ("span", "counter", "gauge", "meta", "heartbeat")
@@ -95,6 +101,13 @@ NAME_FIELDS = {
     "serve.preempted": (("job", str), ("gain_ms", float), ("resume_cost_ms", float)),
     "serve.preempt_veto": (("job", str), ("gain_ms", float), ("resume_cost_ms", float)),
     "serve.resized": (("from_width", int), ("to_width", int), ("reason", str)),
+    # the static-analysis vocabulary (analysis/, apps/lint_tool): per-config
+    # plan-auditor verdicts, the sweep and audit summaries, the lint summary
+    "analysis.plan_verdict": (("method", str), ("ok", int)),
+    "analysis.plan_mismatch": (("method", str),),
+    "analysis.plan_sweep": (("checked", int), ("failed", int), ("skipped", int)),
+    "analysis.jit_audit": (("ok", int), ("recompiles", int), ("transfers", int)),
+    "analysis.lint": (("findings", int), ("new", int)),
 }
 
 
@@ -111,6 +124,18 @@ KNOWN_NAMES = frozenset(NAME_FIELDS) | frozenset({
     "ablate.bit_for_bit_agreement", "batched_ab.bit_for_bit_agreement",
     "batched_ab.q_independent", "bench_pack.gb_per_s", "overlap.hidden_frac",
     "wire_ab.bytes_ratio", "wire_ab.max_abs_err", "wire_ab.max_rel_err", "wire_ab.max_ulp_err",
+    # the checkpoint layer's counters and spans, the apps' closing gauges and
+    # the serving daemon's exit gauges
+    "ckpt.bytes_read", "ckpt.bytes_written", "ckpt.files_written", "ckpt.quarantined",
+    "ckpt.restore", "ckpt.resumed", "ckpt.resumed_from_step", "ckpt.save", "ckpt.write",
+    "jacobi.exchange_bytes", "jacobi.init", "jacobi.iter", "jacobi.iter_trimean_s",
+    "jacobi.loop_wall_s", "jacobi.mcells_per_s", "jacobi.mcells_per_s_per_dev",
+    "jacobi.warmup", "recover.backoff_s",
+    "serve.p99_ms", "serve.queue_depth", "serve.slot_width", "serve.tenants_per_hour",
+    # the analysis spans, the heartbeat record and machine_info's inventory
+    "analysis.verify_plan", "analysis.jit_warmup", "analysis.jit_audit_loop", "hb",
+    "machine", "machine.bandwidth_matrix", "machine.device", "machine.distance_matrix",
+    "machine.fabric", "machine.partition",
 })
 
 
@@ -136,6 +161,16 @@ class Recorder:
         self.path = os.fspath(sink) if self._owns_sink else None
         self._sink = open(sink, "a", buffering=1) if self._owns_sink else sink
         self._lock = threading.Lock()
+        self._hb_path = os.environ.get(HEARTBEAT_FILE_ENV) or None
+        self._hb_interval = float(os.environ.get(HEARTBEAT_INTERVAL_ENV, "5") or 5)
+        self._hb_last = 0.0
+        self._hb_seq = 0
+        self._hb_thread: Optional[threading.Thread] = None
+        self._hb_stop = threading.Event()
+        # the progress the heartbeat note quotes (last step, current span);
+        # shared with the beat thread: plain dict reads and writes, where a
+        # beat quoting the old or the new value is true either way
+        self._progress: Dict[str, object] = {}
 
     @property
     def enabled(self) -> bool:
@@ -144,8 +179,8 @@ class Recorder:
 
     def emit(self, kind: str, name: str, *, phase: Optional[str] = None,
              **fields) -> dict:
-        """Build one record and write it to the sink; returns the record.
-        Fields whose value is None are left out."""
+        """Build one record, write it to the sink and touch the heartbeat
+        file; returns the record. Fields whose value is None are left out."""
         rec = {"v": SCHEMA_VERSION, "run": self.run_id, "proc": 0,
                "kind": kind, "name": name, "t": self._clock()}
         if self.app:
@@ -158,6 +193,7 @@ class Recorder:
             with self._lock:
                 self._sink.write(line + "\n")
                 self._sink.flush()
+        self._maybe_beat()
         return rec
 
     @contextlib.contextmanager
@@ -166,10 +202,13 @@ class Recorder:
         """Timed region: timer bucket + profiler range + one span record,
         emitted even when the body raises (the failed span is evidence)."""
         t0 = time.perf_counter()
+        prev_span = self._progress.get("span")
+        self._progress["span"] = name  # the heartbeat note quotes it
         try:
             with timer.timed(bucket or name), timer.trace_range(name):
                 yield
         finally:
+            self._progress["span"] = prev_span
             self.emit("span", name, phase=phase,
                       seconds=time.perf_counter() - t0, **tags)
 
@@ -187,7 +226,76 @@ class Recorder:
     def meta(self, name: str, **fields) -> dict:
         return self.emit("meta", name, **fields)
 
+    # -- heartbeat (the watchdog's contract) -------------------------------------
+    def heartbeat(self) -> None:
+        """Touch the heartbeat file and emit a ``heartbeat`` record."""
+        self._hb_seq += 1
+        self._touch_hb()
+        if self._sink is not None:
+            self.emit("heartbeat", "hb", seq=self._hb_seq)
+        else:
+            self._hb_last = time.monotonic()
+
+    def note_step(self, step: int) -> None:
+        """The last completed step, for the heartbeat note (the guarded loop
+        calls this per chunk): a stall report then says "at step 412 in
+        jacobi.iter", not a bare age."""
+        self._progress["step"] = int(step)
+
+    def _touch_hb(self) -> None:
+        if not self._hb_path:
+            return
+        # the body is a small JSON note the watchdog's stall report quotes;
+        # liveness is the mtime alone, so a reader that only stats the file
+        # and a hand-touched beat file both keep working
+        note = {"t": time.time()}
+        note.update({k: v for k, v in self._progress.items() if v is not None})
+        try:
+            with open(self._hb_path, "w") as f:
+                f.write(json.dumps(note) + "\n")
+        except (OSError, TypeError, ValueError):
+            pass  # a torn-down supervisor must not crash the measurement
+
+    def _maybe_beat(self) -> None:
+        """A rate-limited beat on every record: a chatty child never needs
+        an explicit heartbeat call."""
+        if not self._hb_path:
+            return
+        now = time.monotonic()
+        if now - self._hb_last >= self._hb_interval:
+            self._hb_last = now
+            self._touch_hb()
+
+    def start_heartbeat_thread(self, interval_s: Optional[float] = None) -> bool:
+        """Beat from a daemon thread, so a long silent stretch (a kernel
+        build) does not read as a stall. A wedge that freezes the
+        interpreter freezes this thread too, which is when the watchdog
+        should fire. A no-op (False) without a supervisor."""
+        if not self._hb_path or self._hb_thread is not None:
+            return False
+        interval = interval_s or self._hb_interval
+
+        def beat():
+            while not self._hb_stop.wait(interval):
+                self._hb_seq += 1
+                self._touch_hb()
+
+        self._touch_hb()  # the first beat at once: it starts the stall clock
+        self._hb_thread = threading.Thread(target=beat, name="stencil-heartbeat", daemon=True)
+        self._hb_thread.start()
+        return True
+
+    def stop_heartbeat(self) -> None:
+        """One last beat, whose note quotes the progress reached, then
+        silence, the thread and the per-record beats alike: what a process
+        wedged there looks like to the watchdog (``fault/inject``'s
+        ``stall@K``)."""
+        self._touch_hb()
+        self._hb_stop.set()
+        self._hb_path = None
+
     def close(self) -> None:
+        self._hb_stop.set()
         if self._owns_sink and self._sink is not None:
             try:
                 self._sink.close()
@@ -201,11 +309,12 @@ _recorder: Optional[Recorder] = None
 
 
 def configure(metrics_out: Optional[str] = None, app: Optional[str] = None,
-              run_id: Optional[str] = None,
-              config: Optional[dict] = None) -> Recorder:
+              run_id: Optional[str] = None, config: Optional[dict] = None,
+              heartbeat_thread: bool = True) -> Recorder:
     """Install the process-default recorder (what ``--metrics-out`` wires);
     its first record is the run's ``config`` meta, so every metrics file
-    describes itself."""
+    describes itself, and the heartbeat thread starts when a supervisor is
+    attached."""
     global _recorder
     if _recorder is not None:
         _recorder.close()
@@ -214,6 +323,8 @@ def configure(metrics_out: Optional[str] = None, app: Optional[str] = None,
         clean = {k: v for k, v in config.items()
                  if isinstance(v, (str, int, float, bool, type(None)))}
         _recorder.meta("config", config=clean)
+    if heartbeat_thread:
+        _recorder.start_heartbeat_thread()
     return _recorder
 
 

@@ -14,6 +14,15 @@ to their plain PyTorch versions bit for bit.
 
 Nothing here runs on import; on a machine without ``nvcc`` only the first
 kernel launch fails, with the reason.
+
+The host-side C++ of ``stencil_tpu_torch/csrc_host`` (the ParaView writer)
+is built the same way by ``g++`` (:func:`build_host`).
+
+:data:`first_use` counts the work a warmed-up loop never does again, the
+port's counterpart of a JAX compile: kernel and host library builds and
+loads, table uploads (a :func:`kept` or :func:`device_table` miss), CUDA
+graph captures and step-loop builds. ``analysis/jit_audit`` fails a loop
+that does any of it after its warm-up.
 """
 
 from __future__ import annotations
@@ -117,6 +126,14 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_info = BuildInfo()
 
+first_use = {"build": 0, "table": 0, "graph": 0, "loop": 0}
+
+
+def note_first_use(kind: str) -> None:
+    """Count one piece of first-use work of ``kind`` (a key of
+    :data:`first_use`)."""
+    first_use[kind] += 1
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -169,6 +186,7 @@ def build(src: str, name: str) -> ctypes.CDLL:
     """``src`` (a ``.cu`` file with a plain C interface) compiled with the
     kernels' flags into their build directory, once per content, and
     loaded. The caller sets its entry points' types."""
+    note_first_use("build")
     out, job = _start(src, name)
     _finish(src, name, out, job)
     return ctypes.CDLL(out)
@@ -199,6 +217,7 @@ def lib(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building all on first use."""
     with _lock:
         if not _libs:
+            note_first_use("build")
             build_all()
             for n, fns in SIGNATURES.items():
                 so = ctypes.CDLL(_lib_path(_src(n), n))
@@ -207,6 +226,41 @@ def lib(name: str) -> ctypes.CDLL:
                     getattr(so, fn).argtypes = args
                 _libs[n] = so
         return _libs[name]
+
+
+CSRC_HOST = os.path.join(os.path.dirname(CSRC), "csrc_host")
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-Wall", "-Wextra")
+_host_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_host(name: str) -> ctypes.CDLL:
+    """``csrc_host/<name>.cpp`` (host C++ with a plain C interface) compiled
+    by ``g++`` into the build directory once per content and flags, and
+    loaded (once per process). Raises with the compiler's output when the
+    build fails; the caller sets its entry points' types."""
+    with _lock:
+        if name in _host_libs:
+            return _host_libs[name]
+        note_first_use("build")
+        src = os.path.join(CSRC_HOST, name + ".cpp")
+        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+        out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+        if not os.path.exists(out):
+            gxx = shutil.which("g++") or shutil.which("c++")
+            if gxx is None:
+                raise RuntimeError(f"no C++ compiler (g++) on PATH: {name}.cpp cannot be built")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            p = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, src], capture_output=True,
+                               text=True, timeout=300)
+            if p.returncode != 0:
+                raise RuntimeError(f"g++ failed for {name}.cpp (rc {p.returncode}):\n"
+                                   f"{p.stdout}{p.stderr}")
+            os.replace(tmp, out)
+        _host_libs[name] = ctypes.CDLL(out)
+        return _host_libs[name]
 
 
 def check(rc: int, what: str) -> None:
@@ -227,6 +281,7 @@ def kept(key, make):
     for the newest :data:`MAX_TABLES` keys used."""
     t = _tables.get(key)
     if t is None:
+        note_first_use("table")
         t = make()
         _tables[key] = t
         if len(_tables) > MAX_TABLES:

@@ -473,6 +473,7 @@ def make_jacobi_step(ex, overlap: bool = True, standard_spheres: bool = True):
     for :func:`make_jacobi_loop`."""
     if ex.method == Method.REMOTE_DMA:
         return make_jacobi_loop(ex, 1, standard_spheres=standard_spheres)
+    _native.note_first_use("loop")
     return _step_body(ex, overlap, _sel_ranges(ex, standard_spheres))
 
 
@@ -507,7 +508,10 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
     A remote-dma exchange runs its own loop instead (see the module
     docstring); ``temporal_k`` is then the persistent chunk depth, and the
     plain and fused loops ignore it with a warning, as in the JAX package.
-    A direct26 exchange runs the full exchange and a sweep every step."""
+    A direct26 exchange runs the full exchange and a sweep every step.
+    Each call is first-use work (``ops/_native.first_use``), which a
+    warmed-up loop never repeats."""
+    _native.note_first_use("loop")
     ranges = _sel_ranges(ex, standard_spheres)
     if ex.method == Method.REMOTE_DMA:
         if multistep_rows is not None:
@@ -558,6 +562,24 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
 
     loop.temporal_k = k
     return loop
+
+
+def warm_jacobi_loops(get_loop, sizes, curr, nxt, sel) -> None:
+    """The warm-up of a chunk loop: ``get_loop(k)(a, b, sel)`` for every
+    chunk size ``k`` of ``sizes`` from both orders of the two buffers, then
+    ``curr`` put back as it was (``nxt`` is scratch). The kernels keep their
+    tables by the addresses a launch reads and writes (``_native.kept``),
+    and a chunk may start from either order (a multistep pass or an odd
+    chunk swaps them), so a warm-up from one order leaves table uploads,
+    each with its host sync, in the first chunks of the other. What the
+    warm-up leaves in ``nxt`` never reaches a result: a chunk writes every
+    compute cell of its output and fills the halos it reads."""
+    keep = [b.clone() for b in curr] if isinstance(curr, list) else curr.clone()
+    for k in sizes:
+        for a, b in ((curr, nxt), (nxt, curr)):
+            get_loop(k)(a, b, sel)
+    for b, kept in (zip(curr, keep) if isinstance(curr, list) else ((curr, keep),)):
+        b.copy_(kept)
 
 
 def make_batched_jacobi_loop(spec, iters: int, *, device=None):

@@ -213,6 +213,12 @@ class HaloExchange:
         # device-program launches per k-step chunk of the last persistent
         # loop call, counted as the JAX package counts them (ops/jacobi.py)
         self.last_launches_per_chunk = 0
+        # the messages between blocks the last exchange issued (a rolled
+        # resident slab per phase side and carrier, a direct26 box per
+        # direction and carrier; a self-wrap fill is none) and the bytes of
+        # the halo boxes they wrote, counted as each is issued
+        self.last_message_count = 0
+        self.last_message_bytes = 0
         self._loops = {}
         self._remote = None
         if self.mesh is not None:
@@ -265,6 +271,8 @@ class HaloExchange:
         if isinstance(state, (torch.Tensor, list, tuple)):
             self.exchange({0: state}, axes)
             return state
+        self.last_message_count = 0
+        self.last_message_bytes = 0
         if self._remote is not None:
             if isinstance(self._remote, FusedRemoteDmaExchange):
                 if axes is not None:
@@ -316,6 +324,9 @@ class HaloExchange:
                 ]).view(*t.shape[:3], *ph.shape) for t in ts])
             boff = 1 if len(ts) > 1 else 0
             carrier = torch.roll(carrier, shifts, [boff + i for i in dims])
+            # the message writes every box of the carrier
+            self.last_message_count += 1
+            self.last_message_bytes += carrier.numel() * carrier.element_size()
             for t, piece in zip(ts, unpack_slabs(carrier, len(ts))):
                 if uniform:
                     t[dst] = piece
@@ -363,7 +374,12 @@ class HaloExchange:
         block by block at each block's own size."""
         o, n, rm, rp = axis_geom(self.spec, phase.axis)
         if not phase.uniform:
+            # a side's message writes a halo slab of every block of the
+            # carrier: the slab's width times the stacks' face along the axis
+            self.last_message_count += (rm > 0) + (rp > 0)
             for t in ts:
+                face = t.numel() // t.shape[t.dim() - 3 + "zyx".index(phase.axis)]
+                self.last_message_bytes += (rm + rp) * face * t.element_size()
                 self._uneven_resident_phase(t, phase)
             return
         boff = 1 if len(ts) > 1 else 0
@@ -372,6 +388,8 @@ class HaloExchange:
                 continue
             carrier = torch.roll(pack_slabs([t[_axis_slice(t, phase.axis, lo, lo + width)]
                                              for t in ts]), shift, boff + phase.bdim)
+            self.last_message_count += 1
+            self.last_message_bytes += carrier.numel() * carrier.element_size()
             for t, piece in zip(ts, unpack_slabs(carrier, len(ts))):
                 t[_axis_slice(t, phase.axis, hi, hi + width)] = piece
 

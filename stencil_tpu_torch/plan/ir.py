@@ -284,9 +284,10 @@ class ExchangePlan:
 
     def launches_per_chunk(self, k: int = 1) -> int:
         """Device-program dispatches one k-step chunk pays, in the JAX
-        package's unit: persistent 2 (deep exchange + chunk program; the
-        whole-chunk kernel is 1, which the step loop records instead),
-        plain and fused REMOTE_DMA 2 per step, the other methods 1."""
+        package's unit: persistent 2 (deep exchange + chunk program),
+        plain and fused REMOTE_DMA 2 per step, the other methods 1. The
+        card's kernel launches differ for the persistent chunk
+        (:meth:`chunk_loop_launches`)."""
         if int(k) < 1:
             raise ValueError(f"launches_per_chunk needs k >= 1, got {k}")
         if self.method != REMOTE_DMA:
@@ -294,6 +295,20 @@ class ExchangePlan:
         if self.persistent:
             return 2
         return 2 * int(k)
+
+    def chunk_loop_launches(self, chunks: int) -> int:
+        """Kernel launches on the card of one persistent chunk loop over one
+        quantity, ``chunks`` chunks of depth >= 2: the loop fills ``sel``'s
+        halos once (one exchange of one carrier), then each chunk is one
+        chunk-kernel launch (B9). Where the card differs from the JAX unit
+        (:meth:`launches_per_chunk`): on a uniform partition B9 exchanges
+        the deep halo inside itself, so a chunk is one launch; on an uneven
+        one the deep exchange's carrier launches precede it."""
+        if not self.persistent:
+            raise ValueError("chunk_loop_launches is the persistent variant's")
+        fill = self.carrier_launches([1], 1)
+        uniform = all(p.uniform for p in self.axis_phases)
+        return fill + int(chunks) * (1 + (0 if uniform else fill))
 
     def wire_bytes(self, itemsizes: Sequence[int],
                    floating: Optional[Sequence[bool]] = None) -> int:

@@ -48,6 +48,9 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
     torch.cuda.synchronize()
     run = lambda: [fn() for _ in range(reps)]  # noqa: E731
     if graph:
+        from ..ops import _native
+
+        _native.note_first_use("graph")
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             run()
