@@ -501,6 +501,30 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               (--paraview-final) byte-equal to the plain writer's, the
               residents' dump timed; apps.lint_tool lint over the port tree,
               clean against its baseline.
+21. processes -- several processes on the one card (processes_phase): the
+              IPC offset check (a block exported from inside a caching-
+              allocator segment, read through the handle plus its offset,
+              and not at the segment's base); one exchange at 512^3 over
+              8 positions of (2,2,2), r1, 4 fp32 quantities, through
+              apps.launch_multiprocess over 2 ranks x 4 positions and 8
+              ranks x 1, unnarrowed and through bf16, and the uneven
+              (3,2,1) ring over 2 ranks x 3 positions: B6's cross-process
+              form (remote_axis_across, each rank's launch over its own
+              receivers after the neighbour handshake, parallel/ipc),
+              every block gathered on rank 0 and held torch.equal to B6's
+              plain version on the card and to the one-process
+              exchange of the same input, its launches held, ms an
+              exchange and the handshake's host ms printed; jacobi3d at
+              512^3 by remote-dma over 2 x 4 and 8 x 1 (50 iters in chunks
+              of 25), each rank's B6 and B1 launches held to 3 and 1 a
+              step, the gathered field torch.equal to the one-process
+              8-position run of the same steps, ms/iter by CUDA events
+              beside the one-process mesh's, and a handshake alone; rank
+              0's launch of each phase timed alone (CUDA-graph replay)
+              beside its plain version and bound; the
+              refusals (a position on a second card's UUID, the fused
+              variant across processes). Rehearsable on the CPU only in
+              its parts (tests/test_torch_multiprocess.py).
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -5247,6 +5271,363 @@ def analysis_phase(dev, n: int = 512, c2: int = 512, grid: int = 16, pv_n: int =
     return out
 
 
+PROC_SEED = 2100
+
+
+def position_block(i: int, q: int, p, dev, seed: int = PROC_SEED) -> torch.Tensor:
+    """Position ``i``'s input block of quantity ``q``: noise in every cell,
+    halos included, from ``(seed, q, i)``, so that any process makes the
+    same block."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1000 * q + i)
+    return torch.rand((1, 1, 1, p.z, p.y, p.x), generator=g, device=dev)
+
+
+def processes_exchange(dev, n: int, npos: int, wire, part, rank: int) -> dict:
+    """One rank's part of an exchange over processes: the domain of 4 fp32
+    quantities at n^3 r1 over ``npos`` positions a rank, filled from
+    :func:`position_block`, exchanged once (launches counted), gathered on
+    rank 0 and held there to B6's plain version (remote_axis_plain and
+    self_fill_plain on a one-process mesh of the card) and to the
+    one-process exchange of the same input; then 10 exchanges timed."""
+    from stencil_tpu_torch import DistributedDomain
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method
+    from stencil_tpu_torch.plan.ir import build_plan
+
+    dd = DistributedDomain(n, n, n, device=dev)
+    dd.set_radius(1)
+    dd.set_methods(Method.REMOTE_DMA)
+    dd.set_devices([dev] * npos)
+    if part:
+        dd.set_partition(part)
+    if wire:
+        dd.set_wire_dtype(wire)
+    hs = [dd.add_data(f"q{q}", "float32") for q in range(4)]
+    dd.realize()
+    spec, mesh, p = dd.spec, dd.mesh, dd.spec.padded()
+    for q, h in enumerate(hs):
+        for i in mesh.local_positions():
+            dd.get_curr(h)[i].copy_(position_block(i, q, p, dev))
+    phases = [ph for ph in build_plan(spec, mesh.dim, Method.REMOTE_DMA).remote_phases
+              if ph.active]
+    rdma.remote_axis.launches = rdma.remote_axis.narrowed = 0
+    dd.exchange()
+    res = {"wire": wire, "dim": list(spec.dim), "positions": len(mesh),
+           "launches": rdma.remote_axis.launches, "narrowed": rdma.remote_axis.narrowed,
+           "want_launches": sum(ph.ring > 1 for ph in phases)}
+    gathered = [dd.peers.gather(dd.get_curr(h)) for h in hs]
+    if rank == 0:
+        one = DeviceMesh(mesh.dim, [dev] * len(mesh))
+        plain = [[position_block(i, q, p, dev) for q in range(4)] for i in range(len(mesh))]
+        for ph in phases:
+            if ph.ring > 1:
+                rdma.remote_axis_plain(plain, spec, ph, one, wire)
+            else:
+                for blocks in plain:
+                    halo_fill.self_fill_plain(blocks, spec, ph.axis)
+        ex1 = HaloExchange(spec, Method.REMOTE_DMA, mesh=one, wire_dtype=wire)
+        state = {q: [position_block(i, q, p, dev) for i in range(len(mesh))] for q in range(4)}
+        ex1(state)
+        res["equal_plain"] = all(torch.equal(gathered[q][i], plain[i][q])
+                                 for q in range(4) for i in range(len(mesh)))
+        res["equal_one_process"] = all(torch.equal(gathered[q][i], state[q][i])
+                                       for q in range(4) for i in range(len(mesh)))
+        res["max_abs_err"] = max(float((gathered[q][i] - plain[i][q]).abs().max())
+                                 for q in range(4) for i in range(len(mesh)))
+        del plain, state, ex1
+    del gathered
+    order = dd.peers.order
+    host0, notice0, shakes0 = order.host_s, order.notice_s, order.handshakes
+    loop = dd.exchange_loop(10)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loop(dd.curr_state())
+    end.record()
+    end.synchronize()
+    res["ms_exchange"] = start.elapsed_time(end) / 10
+    res["handshake_host_ms"] = (order.host_s - host0) / 10 * 1e3
+    res["notice_host_ms"] = (order.notice_s - notice0) / 10 * 1e3
+    res["handshakes"] = (order.handshakes - shakes0) / 10
+    dd.peers.close()
+    torch.distributed.barrier()  # every rank has unmapped before any frees
+    del dd
+    torch.cuda.empty_cache()
+    return res
+
+
+def ipc_offset_check(dev, rank: int) -> dict:
+    """A block exported from inside a caching-allocator segment: rank 0
+    exports a small tensor allocated after others (a nonzero offset in its
+    segment), rank 1 reads it through the handle plus the offset and holds
+    it equal, and holds the segment's base (offset 0) unequal, so a lost
+    offset is caught."""
+    from stencil_tpu_torch.parallel import ipc
+
+    dist = torch.distributed
+    keep, mine = [], None
+    if rank == 0:
+        for _ in range(16):
+            keep.append(torch.full((256,), -1.0, device=dev))
+            blk = torch.arange(256.0, device=dev)
+            keep.append(blk)
+            handle, off = ipc.mem_handle(blk)
+            if off:
+                mine = (handle, off)
+                break
+        torch.cuda.synchronize(dev)
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, mine)
+    res = {"offset": got[0][1] if got[0] else 0}
+    if rank == 1 and got[0]:
+        base = ipc.open_mem(got[0][0])
+        like = torch.empty(256, device=dev)
+        right = ipc.cuda_view(base + got[0][1], 1024, like)
+        wrong = ipc.cuda_view(base, 1024, like)
+        res["equal_at_offset"] = bool(torch.equal(right, torch.arange(256.0, device=dev)))
+        res["equal_at_base"] = bool(torch.equal(wrong, torch.arange(256.0, device=dev)))
+        ipc.close_mem(got[0][0])
+    dist.barrier()
+    return res
+
+
+def processes_worker(out: str, n: int, iters: int, chunk: int) -> int:
+    """One rank of phase 21 (run by apps.launch_multiprocess as ``python -m
+    chip_smoke --processes-worker OUT N ITERS CHUNK``): the IPC offset
+    check, the exchanges, the fused refusal, and jacobi3d with its launch
+    counts, its field (rank 0 saves it) and its ms/iter; then rank 0 times
+    each phase's launch alone. Writes ``OUT/report_<rank>.json``."""
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import Method, distributed, ipc
+    from stencil_tpu_torch.utils.roofline import bound_ms
+    from stencil_tpu_torch.utils.timer import cuda_time_ms
+
+    distributed.maybe_init_from_env()
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    k = len(distributed.default_positions())
+    t0 = time.perf_counter()
+    rep = {"rank": rank, "world": world, "positions": k}
+    if world >= 2:
+        rep["ipc"] = ipc_offset_check(dev, rank)
+    configs = [(None, k, None), ("bfloat16", k, None)]
+    if world == 2:
+        configs.append((None, 3, (3, 2, 1)))  # the uneven ring, 2 ranks x 3 positions
+    rep["exchanges"] = [processes_exchange(dev, n, npos, wire, part, rank)
+                        for wire, npos, part in configs]
+    try:
+        jacobi3d.run(64, 64, 64, iters=1, method=Method.REMOTE_DMA, kernel_variant="fused",
+                     weak=False)
+        rep["fused_raised"] = None
+    except NotImplementedError as e:
+        rep["fused_raised"] = str(e)
+    # jacobi3d by remote-dma: the main path, counts reset around it
+    rdma.remote_axis.launches = sk.sweep_positions.launches = 0
+    r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, method=Method.REMOTE_DMA, weak=False)
+    torch.cuda.synchronize(dev)
+    rep["b6_launches"], rep["b1_launches"] = rdma.remote_axis.launches, sk.sweep_positions.launches
+    rep["row"] = jacobi3d.csv_row(r)
+    dd, h = r["domain"], r["handle"]
+    field = dd.get_curr_global(h)
+    if rank == 0:
+        np.save(os.path.join(out, "jacobi.npy"), field)
+    del field
+    torch.distributed.barrier()  # the timed chunk starts together
+    # ms/iter by CUDA events over one more chunk, and the handshake's host time
+    loop = make_jacobi_loop(dd.halo_exchange, chunk)
+    sel = sphere_sel_blocks(dd.spec, dd.mesh)
+    curr, nxt = dd.get_curr(h), dd.get_next(h)
+    order = dd.peers.order
+    host0, notice0 = order.host_s, order.notice_s
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    curr, nxt = loop(curr, nxt, sel)
+    end.record()
+    end.synchronize()
+    rep["ms_iter"] = start.elapsed_time(end) / chunk
+    rep["handshake_host_ms_per_step"] = (order.host_s - host0) / chunk * 1e3
+    rep["notice_host_ms_per_step"] = (order.notice_s - notice0) / chunk * 1e3
+    # the handshake alone: 100 of each crossing axis's, no launch between
+    torch.distributed.barrier()
+    crossing = [a for a, ranks in order.neighbours.items() if ranks]
+    host0, shakes0 = order.host_s, order.handshakes
+    for _ in range(100):
+        for a in crossing:
+            order.before(a)
+    torch.cuda.synchronize(dev)
+    rep["handshake_alone_ms"] = ((order.host_s - host0) / max(1, order.handshakes - shakes0)
+                                 * 1e3)
+    # each phase's launch alone on rank 0 (the others wait at a barrier; the
+    # launch is idempotent: it rewrites the same halos from unchanged slabs)
+    torch.distributed.barrier()
+    if rank == 0:
+        spec, mesh, peers = dd.spec, dd.mesh, dd.peers
+        qb = peers.buffer_of(curr)
+        like = curr[mesh.local_positions()[0]]
+        nbytes = like.numel() * like.element_size()
+        views = [[curr[i]] if mesh.is_local(i) else
+                 [ipc.cuda_view(peers.pointer(i, *qb), nbytes, like)]
+                 for i in range(len(mesh))]
+        rep["phases"] = {}
+        for ph in dd.halo_exchange.plan.remote_phases:
+            if not (ph.active and ph.ring > 1):
+                continue
+
+            def ptrs_of(i):
+                return (peers.pointer(i, *qb),)
+
+            # device time: 20 launches replayed from a CUDA graph
+            ms = cuda_time_ms(lambda ph=ph: rdma.remote_axis_across(
+                ptrs_of, 1, torch.float32, spec, ph, mesh, dev), 20, graph=True)
+            start.record()
+            for _ in range(3):
+                rdma.remote_axis_receivers_plain(views, spec, ph, mesh)
+            end.record()
+            end.synchronize()
+            nb = rdma.remote_axis_bytes(spec, ph, 1, len(mesh.local_positions()), 4)
+            rep["phases"][ph.axis] = {"ms": ms, "plain_ms": start.elapsed_time(end) / 3,
+                                      "bound_ms": bound_ms(nb, 0)[0], "bytes": nb,
+                                      "crosses": bool(mesh.neighbour_ranks(ph.axis))}
+    dd.peers.close()
+    torch.distributed.barrier()
+    rep["seconds"] = time.perf_counter() - t0
+    path = os.path.join(out, f"report_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rep, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def processes_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: int = 25,
+                    layouts=((2, 4), (8, 1)), timeout: float = 420.0):
+    """Phase 21: the refusal of a position on a second card, the
+    one-process 8-position jacobi3d run of the same steps (the field the
+    ranks must equal, and its ms/iter), then each layout (processes x
+    positions) through apps.launch_multiprocess running
+    :func:`processes_worker`, every rank's report held. Returns the
+    kernels line's timings, launches and errors of ``remote_axis_across``."""
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.apps import launch_multiprocess as lm
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import DeviceMesh, Method, distributed
+
+    t0 = time.perf_counter()
+    uuid = distributed.card_uuid(dev)
+    fake = [distributed.Position(i, i // 4, "host", str(dev), uuid if i < 4 else uuid + "-2")
+            for i in range(8)]
+    try:
+        DeviceMesh((2, 2, 2), fake)
+        check(False, "a position on a second card's UUID was not refused")
+    except NotImplementedError as e:
+        check("queue A item 5" in str(e), f"the second card's refusal names no queue item: {e}")
+        log(f"processes: a position on a second card raises: {e}")
+    # the one-process mesh of the same steps (phase 9's path)
+    r1 = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, devices=[dev] * 8,
+                      method=Method.REMOTE_DMA, weak=False)
+    dd1, h1 = r1["domain"], r1["handle"]
+    want = dd1.get_curr_global(h1)
+    loop1 = make_jacobi_loop(dd1.halo_exchange, chunk)
+    sel1 = sphere_sel_blocks(dd1.spec, dd1.mesh)
+    one_ms = time_ms(lambda: loop1(dd1.get_curr(h1), dd1.get_next(h1), sel1), 1,
+                     warmup=1) / chunk
+    del r1, dd1, loop1, sel1
+    torch.cuda.empty_cache()
+    log(f"processes: one-process jacobi3d {n}^3 over 8 positions: {one_ms:.4f} ms/iter")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [root] + [v for v in os.environ.get("PYTHONPATH", "").split(os.pathsep) if v])
+    steps = sum(run_chunks(iters, chunk))
+    out = tempfile.mkdtemp(prefix="chip_smoke_processes_")
+    found = {}
+    for nprocs, k in layouts:
+        d = os.path.join(out, f"{nprocs}x{k}")
+        os.makedirs(d)
+        t1 = time.perf_counter()
+        with open(os.path.join(d, "ranks.log"), "w") as ranks_log:
+            rc = lm.launch(nprocs, k, "chip_smoke",
+                           ["--processes-worker", d, str(n), str(iters), str(chunk)],
+                           timeout=timeout, build=False, stdout=ranks_log,
+                           stderr=subprocess.STDOUT)
+        text = open(os.path.join(d, "ranks.log")).read()
+        check(rc == 0, f"phase 21 over {nprocs} x {k} failed (rc {rc}):\n{text[-6000:]}")
+        reps = [json.load(open(os.path.join(d, f"report_{r}.json"))) for r in range(nprocs)]
+        label = f"{nprocs} x {k}"
+        if nprocs >= 2:
+            ipc0 = reps[1]["ipc"]
+            check(ipc0["offset"] > 0 and ipc0["equal_at_offset"] and not ipc0["equal_at_base"],
+                  f"IPC offset check over {label}: {ipc0}")
+            log(f"processes {label}: IPC block at offset {ipc0['offset']} of its segment read "
+                "back equal; the segment's base differs")
+        for ex in reps[0]["exchanges"]:
+            check(ex["equal_plain"] and ex["equal_one_process"],
+                  f"exchange over {label} {ex['dim']} wire {ex['wire']}: not equal to B6's plain "
+                  f"version ({ex['equal_plain']}) or the one-process exchange "
+                  f"({ex['equal_one_process']}), max abs err {ex['max_abs_err']}")
+        for rep in reps:
+            for ex in rep["exchanges"]:
+                check(ex["launches"] == ex["want_launches"]
+                      and ex["narrowed"] == (ex["launches"] if ex["wire"] else 0),
+                      f"rank {rep['rank']} over {label}: {ex['launches']} B6 launches "
+                      f"({ex['narrowed']} narrowed), want {ex['want_launches']}")
+            check("queue B item 6" in (rep["fused_raised"] or ""),
+                  f"rank {rep['rank']}: the fused variant across processes: {rep['fused_raised']}")
+            check(rep["b6_launches"] == 3 * steps and rep["b1_launches"] == steps,
+                  f"rank {rep['rank']} over {label}: jacobi3d launched B6 {rep['b6_launches']} "
+                  f"and B1 {rep['b1_launches']} times, want {3 * steps} and {steps}")
+        for ex in reps[0]["exchanges"]:
+            log(f"processes {label}: exchange {n}^3 {ex['dim']} over {ex['positions']} positions "
+                f"x4 fp32, wire {ex['wire'] or 'unnarrowed'}: equal to B6's plain version and "
+                f"to the one-process exchange; {ex['launches']} B6 launches a rank; "
+                f"{ex['ms_exchange']:.4f} ms an exchange on rank 0, handshake host "
+                f"{ex['handshake_host_ms']:.4f} ms an exchange ({ex['handshakes']:.0f} "
+                f"handshakes; their notices {ex['notice_host_ms']:.4f} ms)")
+        got = np.load(os.path.join(d, "jacobi.npy"))
+        check(torch.equal(torch.from_numpy(got), torch.from_numpy(want)),
+              f"jacobi3d over {label}: the field differs from the one-process mesh run")
+        del got
+        for rep in reps:
+            log(f"processes {label} rank {rep['rank']}: jacobi3d B6 {rep['b6_launches']} and B1 "
+                f"{rep['b1_launches']} launches ({steps} steps), {rep['ms_iter']:.4f} ms/iter by "
+                f"CUDA events, handshake host {rep['handshake_host_ms_per_step']:.4f} ms a step "
+                f"(notices {rep['notice_host_ms_per_step']:.4f}), a handshake alone "
+                f"{rep['handshake_alone_ms']:.4f} ms, {rep['seconds']:.1f} s")
+        log(f"processes {label}: jacobi3d {n}^3 field equal to the one-process run; "
+            f"{reps[0]['row']}; ms/iter {reps[0]['ms_iter']:.4f} beside the one-process mesh's "
+            f"{one_ms:.4f}")
+        for axis, t in reps[0]["phases"].items():
+            log(f"processes {label}: rank 0's B6 launch, {axis} phase "
+                f"({'crosses processes' if t['crosses'] else 'local neighbours'}): "
+                f"{t['ms']:.4f} ms (CUDA-graph replay; plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms by bytes)")
+        found[(nprocs, k)] = (reps, time.perf_counter() - t1)
+        log(f"processes {label}: {time.perf_counter() - t1:.1f} s")
+    reps, _s = found[layouts[0]]
+    ph = reps[0]["phases"]
+    mean = lambda key: sum(t[key] for t in ph.values()) / len(ph)  # noqa: E731
+    nb = sum(t["bytes"] for t in ph.values()) / len(ph)
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    extra = {"ms_iter_" + f"{p}x{k}": found[(p, k)][0][0]["ms_iter"] for p, k in layouts}
+    extra["ms_iter_one_process"] = one_ms
+    extra.update({f"ms_{p}x{k}": {a: t["ms"] for a, t in found[(p, k)][0][0]["phases"].items()}
+                  for p, k in layouts})
+    extra["handshake_host_ms_per_step"] = reps[0]["handshake_host_ms_per_step"]
+    extra["handshake_alone_ms"] = {f"{p}x{k}": found[(p, k)][0][0]["handshake_alone_ms"]
+                                   for p, k in layouts}
+    timings = {"remote_axis_across": dict(ms=mean("ms"), plain_ms=mean("plain_ms"),
+                                          bound=bound_ms(nb, 0), library_ms=None, extra=extra)}
+    launches = {"remote_axis_across": reps[0]["b6_launches"]}
+    errs = {"remote_axis_across": max(ex["max_abs_err"] for p, k in layouts
+                                      for ex in found[(p, k)][0][0]["exchanges"])}
+    log(f"processes phase: {time.perf_counter() - t0:.1f} s")
+    return timings, launches, errs
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -7062,6 +7443,12 @@ def main() -> int:
     analysis_report = analysis_phase(dev)
     log(f"analysis phase report: {json.dumps(analysis_report, sort_keys=True, default=str)}")
 
+    # -- 21. several processes on the one card: B6's cross-process form ---------
+    t21, l21, e21 = processes_phase(dev, time_ms)
+    timings.update(t21)
+    launches.update(l21)
+    errs.update(e21)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -7172,6 +7559,10 @@ def main() -> int:
                                        "stencil_tpu/ops/pallas_astaroth.py:202"),
         "astaroth_substep_positions_shells": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
                                               "stencil_tpu/ops/pallas_astaroth.py:202"),
+        # B6 across processes: each rank's launch over its own receivers,
+        # its neighbours' blocks through CUDA IPC
+        "remote_axis_across": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                               "stencil_tpu/ops/remote_dma.py:68"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)
@@ -7194,4 +7585,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--processes-worker"]:
+        sys.exit(processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
     sys.exit(main())

@@ -31,6 +31,16 @@ explicit :meth:`set_partition` wins over it, with a warning), ``autotune=``
 (with the wire dtype; a resume under another plan or wire warns), and
 :meth:`replan` hot-swaps the plan of a realized domain, state bit for bit.
 
+In a process group of several ranks (``parallel/distributed``) each rank
+names its own positions (``set_devices``, or its one device); realize()
+gathers them into the global list in rank order, partitions the domain
+two-level, ``NodePartition(size, radius, processes, positions /
+processes)`` as the JAX package does, and allocates only this rank's
+positions (another rank's entry of each list is None). On the card the
+ranks then export their curr and next stacks to each other through CUDA
+IPC (``parallel/ipc.PeerBuffers``). The checkpoint calls skip, counted and
+warned once, as the JAX package's do across processes.
+
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
 visible; ``device="cpu"`` runs the plain PyTorch versions of the kernels
@@ -50,7 +60,9 @@ from .domain import DataHandle, GridSpec
 from .geometry import (DIRECTIONS_26, Dim3, NodePartition, Radius, Rect3, exterior_regions,
                        halo_extent, interior_region, stack_residents)
 from .ops.halo_fill import wire_name
-from .parallel.exchange import HaloExchange, Method, direction_bytes, shard_blocks, unshard_blocks
+from .parallel import distributed
+from .parallel.exchange import (HaloExchange, Method, direction_bytes, gather_positions,
+                                shard_blocks, unshard_blocks)
 from .parallel.mesh import DeviceMesh
 from .utils import logging as log
 from .utils import timer
@@ -98,6 +110,8 @@ class DistributedDomain:
         self._partition_dim: Optional[Dim3] = None
         self._devices: Optional[List[torch.device]] = None
         self.mesh: Optional[DeviceMesh] = None
+        # a mesh spread over processes on the card: the CUDA IPC buffers
+        self.peers = None
         self._realized = False
         self._curr: Dict[int, torch.Tensor] = {}
         self._next: Dict[int, torch.Tensor] = {}
@@ -228,7 +242,8 @@ class DistributedDomain:
         positions, which may name one device several times; the partition
         is ``NodePartition(size, radius, 1, N)`` unless ``set_partition``
         pins one (a multiple of N blocks stacks residents on each position,
-        z first), and the exchange is ``Method.REMOTE_DMA``. Positions on
+        z first), and the exchange is ``Method.REMOTE_DMA``. In a process
+        group of several ranks these are this rank's positions. Positions on
         distinct GPUs are refused at realize() (ROADMAP.md queue A item
         5)."""
         devices = [resolve_device(d) for d in devices]
@@ -254,11 +269,17 @@ class DistributedDomain:
         the exchange (reference: src/stencil.cu:241-850)."""
         t0 = time.perf_counter()
         with timer.timed("setup.realize"), timer.trace_range("stencil.realize"):
-            n = len(self._devices) if self._devices else 1
+            procs = distributed.process_count()
+            positions = self._devices or [self.device]
+            if procs > 1:
+                positions = distributed.global_positions(positions)
+            on_mesh = bool(self._devices) or procs > 1
+            n = len(positions)
             self._apply_plan()
-            dim = self._partition_dim or NodePartition(self.size, self.radius, 1, n).dim()
+            dim = self._partition_dim or NodePartition(self.size, self.radius, procs,
+                                                       max(1, n // procs)).dim()
             self.spec = GridSpec(self.size, dim, self.radius)
-            if self._devices:
+            if on_mesh:
                 # one block per position, or (a multiple of the positions)
                 # each position's resident stack, stacked z-heaviest first
                 mesh_dim = dim
@@ -268,7 +289,7 @@ class DistributedDomain:
                         raise ValueError(f"partition {dim} has {dim.flatten()} blocks, not a "
                                          f"multiple of {n} devices")
                     mesh_dim = stack_residents(dim, c)
-                self.mesh = DeviceMesh(mesh_dim, self._devices)
+                self.mesh = DeviceMesh(mesh_dim, positions)
             self._exchange = HaloExchange(self.spec, self._method, fused=self._fused,
                                           persistent=self._persistent, mesh=self.mesh,
                                           wire_dtype=self._wire_dtype,
@@ -276,6 +297,15 @@ class DistributedDomain:
             for idx, dt in enumerate(self._dtypes):
                 self._curr[idx] = self._zeros(dt)
                 self._next[idx] = self._zeros(dt)
+            if self.mesh is not None and self.mesh.multi_process:
+                self.device = self.mesh.device
+                if self.device.type == "cuda" and self._dtypes:
+                    from .parallel.ipc import PeerBuffers
+
+                    bufs = {(idx, b): st[idx] for idx in self._curr
+                            for b, st in ((0, self._curr), (1, self._next))}
+                    self.peers = PeerBuffers(self.mesh, bufs)
+                    self._exchange.attach_peers(self.peers)
         self.time_realize = time.perf_counter() - t0
         self._realized = True
         log.debug(f"realized {self.size} over {dim} blocks of {self.spec.base}, "
@@ -287,6 +317,10 @@ class DistributedDomain:
         """Tune when asked, then apply the tuned choice as one unit (the
         JAX package's realize())."""
         if self._autotune_opts is not None and self._plan_choice is None:
+            if distributed.process_count() > 1:
+                raise NotImplementedError(
+                    "autotune over positions of several processes: the planner's half of "
+                    "ROADMAP.md queue A item 5")
             if not self._dtypes:
                 log.warn("autotune: no quantities declared; skipping")
             else:
@@ -326,7 +360,7 @@ class DistributedDomain:
             return torch.zeros(self.spec.stacked_shape_zyx(), dtype=dtype, device=self.device)
         p, c = self.spec.padded(), self._exchange.resident
         return [torch.zeros((c.z, c.y, c.x, p.z, p.y, p.x), dtype=dtype, device=d)
-                for d in self.mesh.devices]
+                if self.mesh.is_local(i) else None for i, d in enumerate(self.mesh.devices)]
 
     # -- data access ---------------------------------------------------------
     def get_curr(self, h: DataHandle) -> torch.Tensor:
@@ -352,13 +386,24 @@ class DistributedDomain:
         mesh's blocks on a mesh)."""
         dt = self._dtypes[h.idx]
         np_dt = torch.empty((), dtype=dt).numpy().dtype
-        self._curr[h.idx] = shard_blocks(global_zyx.astype(np_dt), self.spec,
-                                         self.mesh or self.device)
+        blocks = shard_blocks(global_zyx.astype(np_dt), self.spec, self.mesh or self.device)
+        if self.mesh is not None and self.mesh.multi_process:
+            # this rank's part, into the buffers the other ranks map
+            for i in self.mesh.local_positions():
+                self._curr[h.idx][i].copy_(blocks[i])
+            return
+        self._curr[h.idx] = blocks
 
-    def get_curr_global(self, h: DataHandle) -> np.ndarray:
+    def get_curr_global(self, h: DataHandle) -> Optional[np.ndarray]:
         """Gather the compute region to a host array [z,y,x] (from every
-        position on a mesh)."""
-        return unshard_blocks(self._curr[h.idx], self.spec)
+        position on a mesh). Across processes a collective, whose array
+        lands on rank 0 (None on the others)."""
+        stacks = self._curr[h.idx]
+        if self.mesh is not None and self.mesh.multi_process:
+            stacks = gather_positions(stacks, self.mesh, self.peers)
+            if stacks is None:
+                return None
+        return unshard_blocks(stacks, self.spec)
 
     # -- the iteration API (reference: stencil.hpp:182-215) ------------------
     @property
@@ -458,9 +503,15 @@ class DistributedDomain:
         hosts = []
         for idx in range(len(self._names)):
             cur = self._curr[idx]
+            if self.mesh is not None and self.mesh.multi_process:
+                cur = gather_positions(cur, self.mesh, self.peers)
+                if cur is None:
+                    continue  # rank 0 writes the files
             if isinstance(cur, (list, tuple)):
                 cur = join_positions(cur, self.spec)
             hosts.append(cur.detach().cpu().numpy())
+        if not hosts and self._names:
+            return
         off = self.spec.compute_offset()
         d = self.spec.dim
         header = ",".join(["Z", "Y", "X"] + list(self._names))
@@ -496,7 +547,7 @@ class DistributedDomain:
         checkpoint manifests record (``meta.plan``) so that a resume can warn
         when a snapshot tuned under one plan or wire is revived under another
         (the state restores bit for bit either way). ``host_blocks`` is the
-        host of each mesh position: all 0, one card."""
+        host of each mesh position: its owning process."""
         from .plan.ir import FUSED_VARIANT, PERSISTENT_VARIANT, PlanChoice, PlanConfig
 
         if not self._realized:
@@ -512,8 +563,9 @@ class DistributedDomain:
                             else FUSED_VARIANT if self._fused
                             else PERSISTENT_VARIANT if self._persistent else None),
             placement=ch.placement if ch is not None else None)
+        hosts = list(self.mesh.owners) if self.mesh is not None else [0]
         return {"key": cfg.to_json(), "choice": choice.to_json(), "tuned": ch is not None,
-                "wire_dtype": self._wire_dtype, "host_blocks": [0] * n}
+                "wire_dtype": self._wire_dtype, "host_blocks": hosts}
 
     def _warn_plan_mismatch(self, manifest: dict) -> None:
         """Warn when the snapshot's plan or wire differs from this domain's
@@ -569,6 +621,10 @@ class DistributedDomain:
                                "realize() for the initial choice)")
         if isinstance(choice, dict):
             choice = PlanChoice.from_json(choice)
+        if self.mesh is not None and self.mesh.multi_process:
+            raise NotImplementedError(
+                "replan over positions of several processes: the planner's half of ROADMAP.md "
+                "queue A item 5")
         with timer.timed("setup.replan"), timer.trace_range("stencil.replan"):
             globs = {idx: unshard_blocks(self._curr[idx], self.spec) for idx in self._curr}
             old = (self._plan_choice, self._partition_dim, self._method,
@@ -594,11 +650,26 @@ class DistributedDomain:
                 raise
 
     # -- checkpoint / restart (ckpt/) ----------------------------------------
-    # One process holds every block, so there is no multi-process branch:
-    # per-process shards and a manifest merge come with processes and hosts
-    # (ROADMAP.md queue A item 5).
+    # Across processes the calls skip, as the JAX package's do: per-process
+    # shards and a manifest merge are ROADMAP.md queue A item 5.
     def _dtype_names(self) -> List[str]:
         return [str(dt).replace("torch.", "") for dt in self._dtypes]
+
+    def _skip_checkpoint(self, name: str, **fields) -> bool:
+        """Across processes, count ``name`` (``ckpt.save_skipped`` or
+        ``ckpt.restore_skipped``), warn once, and return True."""
+        if distributed.process_count() == 1:
+            return False
+        from .obs import telemetry
+
+        telemetry.get().counter(name, value=1, phase="ckpt",
+                                reason="multi-process checkpoints unsupported", **fields)
+        if not getattr(self, "_ckpt_skip_warned", False):
+            self._ckpt_skip_warned = True
+            log.warn("ckpt: multi-process checkpoints are not supported yet; skipping (every "
+                     "skip is counted as ckpt.save_skipped / ckpt.restore_skipped; this "
+                     "warning is not repeated)")
+        return True
 
     def save_checkpoint(self, ckpt_dir: str, step: int, *, keep: int = 3,
                         asynchronous: bool = True) -> None:
@@ -612,6 +683,8 @@ class DistributedDomain:
         :meth:`finish_checkpoints` before exiting."""
         from .ckpt import AsyncCheckpointer, host_snapshot, write_snapshot
 
+        if self._skip_checkpoint("ckpt.save_skipped", step=int(step)):
+            return
         arrays = {name: self._curr[i] for i, name in enumerate(self._names)}
         dtypes = dict(zip(self._names, self._dtype_names()))
         extra_meta = {"plan": self.plan_meta()}
@@ -658,6 +731,8 @@ class DistributedDomain:
 
         if not self._realized:
             raise RuntimeError("restore_checkpoint requires realize()")
+        if self._skip_checkpoint("ckpt.restore_skipped"):
+            return None
         found = find_resume(ckpt_dir, accept=lambda m: check_compatible(
             m, self.size, self._names, self._dtype_names()))
         if found is None:

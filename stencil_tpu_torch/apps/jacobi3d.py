@@ -94,6 +94,7 @@ from ..geometry import Dim3, prime_factors
 from ..obs import telemetry
 from ..ops.halo_fill import WIRE_FORMATS
 from ..ops.jacobi import INIT_TEMP, make_jacobi_loop, sphere_sel_blocks, warm_jacobi_loops
+from ..parallel import distributed
 from ..parallel.exchange import Method
 from ..utils import logging as log
 from ..utils import timer
@@ -215,8 +216,12 @@ def run(
             "'fused' and 'persistent'")
     if devices is not None and device is not None:
         raise ValueError("pass device= or devices=, not both")
+    procs = distributed.process_count()
+    if devices is None and device is None and procs > 1:
+        devices = distributed.default_positions()
     devices = list(devices) if devices is not None else None
-    n = len(devices) if devices else 1
+    # positions of the run: every process's (a collective across processes)
+    n = distributed.position_count(len(devices) if devices else 1)
     size = weak_scale(x, y, z, n) if weak else Dim3(x, y, z)
     dd = DistributedDomain(size.x, size.y, size.z,
                            device=devices[0] if devices else device)
@@ -252,7 +257,8 @@ def run(
             init.fill_(INIT_TEMP)
         else:
             for b in init:
-                b.fill_(INIT_TEMP)
+                if b is not None:  # None: another process's position
+                    b.fill_(INIT_TEMP)
         sel = sphere_sel_blocks(dd.spec, dd.mesh or dev)
 
     if paraview:
@@ -433,9 +439,10 @@ def run(
     return {
         "app": "jacobi3d",
         "method": method.value,
-        "processes": 1,
+        "processes": procs,
         "devices": n,
-        "device_list": [str(d) for d in devices] if devices else [str(dev)],
+        "device_list": ([str(d) for d in dd.mesh.devices] if dd.mesh is not None
+                        else [str(dev)]),
         "x": size.x,
         "y": size.y,
         "z": size.z,
@@ -543,6 +550,8 @@ def guard_kwargs(args) -> dict:
 
 
 def main(argv: Optional[list] = None) -> int:
+    # a launch of several processes (apps/launch_multiprocess) joins its group
+    distributed.maybe_init_from_env()
     p = argparse.ArgumentParser(description="3D Jacobi heat diffusion (one GPU)")
     p.add_argument("--x", type=int, default=512)
     p.add_argument("--y", type=int, default=512)
@@ -640,7 +649,8 @@ def main(argv: Optional[list] = None) -> int:
         return FAULT_RC
     finish_live(rec, sentinel, status, outcome="done")
     finish_metrics(rec)
-    print(csv_row(r))
+    if distributed.process_index() == 0:
+        print(csv_row(r))
     log.info(f"mcells/s = {r['mcells_per_s']:.1f} ({r['mcells_per_s_per_dev']:.1f}/device) "
              f"on {r['device']}, kernel variant {r['kernel_variant']}, k={r['temporal_k']}")
     log.info(timer.report())

@@ -51,10 +51,16 @@
 // Ordering: within one phase every read is of a compute-region row along
 // the axis and every write of a halo row along it; these are disjoint (the
 // block is at least the radius wide). Phase y reads the x halos that phase x
-// wrote, so the phases must run in order: on one card they are launches on
-// one stream. Positions on distinct GPUs will also need each phase to wait
-// on its ring neighbours' previous phase (an event per neighbour), which is
-// the TPU kernel's barrier.
+// wrote, so the phases must run in order: in one process they are launches
+// on one stream.
+//
+// The cross-process form (remote_dma.remote_axis_across) is this kernel
+// unchanged: each process launches over its own receivers, with the work
+// list unpaired and each pointer row pairing a sender block (its own, or a
+// neighbour's mapped through CUDA IPC) with its receiver, so a process
+// writes only its own memory. Before each phase the stream waits on an
+// interprocess event of each neighbouring process (parallel/ipc.py), the
+// TPU kernel's neighbour barrier.
 
 #include "row_moves.cuh"
 

@@ -67,9 +67,23 @@ def finite_and_max(x: torch.Tensor, dims=None):
 
 def _groups(state):
     """The check's tensor groups of a state, one per quantity (sorted by
-    name): a tensor, or a mesh quantity's blocks."""
-    return [list(v) if isinstance(v, (list, tuple)) else [v]
+    name): a tensor, or a mesh quantity's blocks (this process's: another
+    process's position is None)."""
+    return [[b for b in v if b is not None] if isinstance(v, (list, tuple)) else [v]
             for v in (state[n] for n in sorted(state))]
+
+
+def _across_processes(vals: torch.Tensor) -> torch.Tensor:
+    """The ``(2, Q)`` verdicts of every process of a run (each reduced its
+    own positions): all finite where every rank's are, the largest max
+    |u|, so that every rank takes the same decision."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return vals
+    finite, amax = vals[0].clone(), vals[1].clone()
+    dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    return torch.stack([finite, amax])
 
 
 class HealthGuard:
@@ -105,7 +119,7 @@ class HealthGuard:
         self.checks += 1
         with rec.span("health.check", phase="health", step=int(step),
                       quantities=len(state)):
-            finite, amax = self._reduce(state).cpu().numpy()
+            finite, amax = _across_processes(self._reduce(state).cpu()).numpy()
         for i, name in enumerate(sorted(state)):
             kind = None
             if not finite[i]:

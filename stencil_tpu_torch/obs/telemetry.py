@@ -8,7 +8,7 @@ validates under both. Every line carries:
 
 - ``v``:     schema version (1)
 - ``run``:   run id (shared by every record of one measurement run)
-- ``proc``:  process index (0: the port runs one process per device)
+- ``proc``:  process index (the rank in the run's process group, 0 without one)
 - ``kind``:  ``span`` | ``counter`` | ``gauge`` | ``meta`` | ``heartbeat``
 - ``name``:  record name (e.g. ``campaign.evict``, ``compile.build_s``)
 - ``t``:     unix wall time of emission
@@ -44,6 +44,7 @@ import uuid
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from ..utils import timer
+from ..utils.logging import process_index
 from .watchdog import HEARTBEAT_FILE_ENV, HEARTBEAT_INTERVAL_ENV
 
 SCHEMA_VERSION = 1
@@ -181,7 +182,7 @@ class Recorder:
              **fields) -> dict:
         """Build one record, write it to the sink and touch the heartbeat
         file; returns the record. Fields whose value is None are left out."""
-        rec = {"v": SCHEMA_VERSION, "run": self.run_id, "proc": 0,
+        rec = {"v": SCHEMA_VERSION, "run": self.run_id, "proc": process_index(),
                "kind": kind, "name": name, "t": self._clock()}
         if self.app:
             rec["app"] = self.app

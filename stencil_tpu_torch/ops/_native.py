@@ -15,6 +15,10 @@ to their plain PyTorch versions bit for bit.
 Nothing here runs on import; on a machine without ``nvcc`` only the first
 kernel launch fails, with the reason.
 
+Several processes may build at once (the ranks of a run on one card): the
+builds take a file lock on the build directory (``fcntl``), so the first
+rank compiles and the others find its libraries and load them.
+
 The host-side C++ of ``stencil_tpu_torch/csrc_host`` (the ParaView writer)
 is built the same way by ``g++`` (:func:`build_host`).
 
@@ -27,7 +31,9 @@ that does any of it after its warm-up.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -110,7 +116,23 @@ SIGNATURES = {
         "health_reduce_launch": (_I, [_P, _L, _P, _I, _P, _I, _P]),
         "health_reduce_task_bytes": (_L, []),
     },
+    # no kernel: CUDA IPC handles and interprocess events (parallel/ipc.py)
+    "ipc": {
+        "ipc_mem_handle": (_I, [_P, _P, ctypes.POINTER(_L)]),
+        "ipc_open_mem": (_I, [_P, ctypes.POINTER(_P)]),
+        "ipc_close_mem": (_I, [_P]),
+        "ipc_event_create": (_I, [ctypes.POINTER(_P)]),
+        "ipc_event_handle": (_I, [_P, _P]),
+        "ipc_open_event": (_I, [_P, ctypes.POINTER(_P)]),
+        "ipc_event_record": (_I, [_P, _P]),
+        "ipc_stream_wait": (_I, [_P, _P]),
+        "ipc_event_destroy": (_I, [_P]),
+    },
 }
+
+# libraries a source links beside the CUDA runtime (ipc.cu reaches
+# libcuda.so.1 through dlopen)
+LINK_FLAGS = {"ipc": ("-ldl",)}
 
 
 @dataclass
@@ -146,7 +168,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str, name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     # the headers are hashed into every library: any of them may be included
     for path in [src] + [os.path.join(CSRC, f) for f in sorted(os.listdir(CSRC))
                          if f.endswith(".cuh")]:
@@ -164,7 +186,8 @@ def _start(src: str, name: str):
         return out, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src, *LINK_FLAGS.get(name, ())],
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp)
 
@@ -182,13 +205,28 @@ def _finish(src: str, name: str, out: str, job) -> None:
     os.replace(tmp, out)
 
 
+@contextlib.contextmanager
+def build_lock():
+    """An exclusive lock on the build directory, held across processes
+    (``fcntl.flock`` on its ``.lock`` file), so that ranks starting together
+    build each library once."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(src: str, name: str) -> ctypes.CDLL:
     """``src`` (a ``.cu`` file with a plain C interface) compiled with the
     kernels' flags into their build directory, once per content, and
     loaded. The caller sets its entry points' types."""
     note_first_use("build")
-    out, job = _start(src, name)
-    _finish(src, name, out, job)
+    with build_lock():
+        out, job = _start(src, name)
+        _finish(src, name, out, job)
     return ctypes.CDLL(out)
 
 
@@ -200,13 +238,14 @@ def build_all() -> BuildInfo:
     """Compile every missing library of ``csrc``, one ``nvcc`` per source,
     in parallel. Raises with the compiler's output if any build fails."""
     t0 = time.perf_counter()
-    jobs = {name: _start(_src(name), name) for name in SIGNATURES}
     failed = []
-    for name, (out, job) in jobs.items():
-        try:
-            _finish(_src(name), name, out, job)
-        except RuntimeError as e:
-            failed.append(str(e))
+    with build_lock():
+        jobs = {name: _start(_src(name), name) for name in SIGNATURES}
+        for name, (out, job) in jobs.items():
+            try:
+                _finish(_src(name), name, out, job)
+            except RuntimeError as e:
+                failed.append(str(e))
     build_info.seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -247,20 +286,26 @@ def build_host(name: str) -> ctypes.CDLL:
         with open(src, "rb") as f:
             h.update(f.read())
         out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
-        if not os.path.exists(out):
-            gxx = shutil.which("g++") or shutil.which("c++")
-            if gxx is None:
-                raise RuntimeError(f"no C++ compiler (g++) on PATH: {name}.cpp cannot be built")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            p = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, src], capture_output=True,
-                               text=True, timeout=300)
-            if p.returncode != 0:
-                raise RuntimeError(f"g++ failed for {name}.cpp (rc {p.returncode}):\n"
-                                   f"{p.stdout}{p.stderr}")
-            os.replace(tmp, out)
+        with build_lock():
+            _build_host(out, src, name)
         _host_libs[name] = ctypes.CDLL(out)
         return _host_libs[name]
+
+
+def _build_host(out: str, src: str, name: str) -> None:
+    """g++ of ``src`` into ``out`` unless it exists (under the build lock)."""
+    if os.path.exists(out):
+        return
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError(f"no C++ compiler (g++) on PATH: {name}.cpp cannot be built")
+    tmp = f"{out}.{os.getpid()}.tmp"
+    p = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, src], capture_output=True, text=True,
+                       timeout=300)
+    if p.returncode != 0:
+        raise RuntimeError(f"g++ failed for {name}.cpp (rc {p.returncode}):\n"
+                           f"{p.stdout}{p.stderr}")
+    os.replace(tmp, out)
 
 
 def check(rc: int, what: str) -> None:

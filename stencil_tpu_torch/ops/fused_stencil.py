@@ -18,9 +18,11 @@ receiver halo cells, so all of them may run at once:
   position by position; :class:`FusedRemoteDmaExchange` is the transport
   of a ``HaloExchange(fused=True)`` over a mesh, with
   ``last_transfer_count`` (messages sent to another position per dtype
-  group) as the JAX transport counts its remote copies. Positions on
-  distinct GPUs will need each launch to wait on its neighbours' previous
-  reads (an event per neighbour); ROADMAP.md queue A item 5.
+  group) as the JAX transport counts its remote copies. Positions of
+  other processes need each launch to wait on its neighbours' previous
+  reads (an event per neighbour, as B6's cross-process form waits); a
+  mesh spread over processes refuses the fused variant, ROADMAP.md queue B
+  item 6.
 
 A narrowed wire (``wire=``, the JAX package's ``wire_dtype``) rounds each
 floating word of a crossing direction's message (the plan's ``crossing``)

@@ -182,7 +182,7 @@ def sphere_sel_blocks(spec, device):
     (:func:`stencil_kernels.sphere_masks_from_coords`), and a 512^3 grid
     takes seconds of host time the other way. With a ``DeviceMesh`` for
     ``device``, a mesh's blocks, each built on its position's device from
-    its block's global coordinates."""
+    its block's global coordinates (None at another process's position)."""
     if not isinstance(device, DeviceMesh):
         hot, cold = sphere_masks_from_coords(spec, device)
         return shard_blocks(hot.to(torch.int32) + 2 * cold.to(torch.int32), spec, device)
@@ -190,7 +190,10 @@ def sphere_sel_blocks(spec, device):
         return split_positions(sphere_sel_blocks(spec, device.device), spec, device)
     g, p, off = spec.global_size, spec.padded(), spec.compute_offset()
     blocks = []
-    for pos, dev in zip(device.positions(), device.devices):
+    for i, (pos, dev) in enumerate(zip(device.positions(), device.devices)):
+        if not device.is_local(i):
+            blocks.append(None)  # another process's position
+            continue
         o, b = spec.block_origin(pos), spec.block_size(pos)
         hot, cold = _sphere_masks(g, *(torch.arange(a, a + n, device=dev)
                                        for a, n in ((o.z, b.z), (o.y, b.y), (o.x, b.x))))
@@ -296,7 +299,7 @@ def _sweep_step(ex, ranges=None):
     halos, ``sel`` imposed on each block's ``ranges``; over a mesh (whose
     operands are lists of per-position stacks) one launch for every block
     of every position, each a view into its stack (the exchange's
-    endpoints)."""
+    endpoints); over positions of several processes, for this process's."""
     spec = ex.spec
     if ex.on_mesh and ex.oversubscribed:
         bspec, ends = spec.block_spec(), ex._remote._endpoints
@@ -305,10 +308,13 @@ def _sweep_step(ex, ranges=None):
             sweep_positions(ends(curr), ends(nxt), ends(sel), bspec, ranges)
             return nxt
     elif ex.on_mesh:
-        bspec = spec.block_spec()
+        bspec, locs = spec.block_spec(), ex.mesh.local_positions()
+        lranges = [ranges[i] for i in locs] if ranges is not None else None
 
         def step(curr, nxt, sel):
-            return sweep_positions(curr, nxt, sel, bspec, ranges)
+            sweep_positions([curr[i] for i in locs], [nxt[i] for i in locs],
+                            [sel[i] for i in locs], bspec, lranges)
+            return nxt
     else:
         def step(curr, nxt, sel):
             return sweep(curr, nxt, sel, spec, NO_WRAP, ranges)
@@ -574,12 +580,14 @@ def warm_jacobi_loops(get_loop, sizes, curr, nxt, sel) -> None:
     each with its host sync, in the first chunks of the other. What the
     warm-up leaves in ``nxt`` never reaches a result: a chunk writes every
     compute cell of its output and fills the halos it reads."""
-    keep = [b.clone() for b in curr] if isinstance(curr, list) else curr.clone()
+    keep = ([None if b is None else b.clone() for b in curr] if isinstance(curr, list)
+            else curr.clone())
     for k in sizes:
         for a, b in ((curr, nxt), (nxt, curr)):
             get_loop(k)(a, b, sel)
     for b, kept in (zip(curr, keep) if isinstance(curr, list) else ((curr, keep),)):
-        b.copy_(kept)
+        if b is not None:  # None: another process's position
+            b.copy_(kept)
 
 
 def make_batched_jacobi_loop(spec, iters: int, *, device=None):

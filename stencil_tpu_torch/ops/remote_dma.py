@@ -56,12 +56,19 @@ every write of a halo row along it, which are disjoint (the block is at
 least the radius wide), so positions may run in any order inside a launch.
 Between phases a position's halo rows along x are read by phase y (the y
 slabs span the full padded x extent), so phase y must follow every phase-x
-launch: on one card every launch is on the current stream, in order.
-Positions on distinct GPUs will need each phase to wait on its ring
-neighbours' previous phase (an event per neighbour, the JAX kernel's
-neighbour barrier, ``stencil_tpu/ops/remote_dma.py:153-160``); that and NCCL
-across hosts are ROADMAP.md queue A item 5, and a mesh whose positions sit
-on distinct devices is refused.
+launch: in one process every launch is on the current stream, in order.
+
+Positions spread over several processes (``DeviceMesh.multi_process``):
+each rank's launch of a phase covers the messages into its own positions,
+one launch per (axis phase, dtype group) with the rows of the uniform work
+list unpaired (:func:`remote_axis_across`): each row pairs a sender block,
+local or mapped through CUDA IPC (``parallel/ipc.PeerBuffers``, in the
+buffer order of the current step), with the rank's own receiver block, so
+a rank writes only its own memory. Before each phase the ranks run the TPU
+kernel's neighbour barrier (``stencil_tpu/ops/remote_dma.py:153-160``) as
+an event per neighbouring rank (``parallel/ipc.PhaseOrder``). On the CPU
+the same slabs travel over gloo (:func:`remote_axis_gloo`). Positions on
+another card or host (NCCL between GPUs) are ROADMAP.md queue A item 5.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
@@ -79,7 +86,7 @@ from ..domain.grid import GridSpec
 from ..geometry import Dim3
 from . import _native, row_moves
 from .halo_fill import (MAX_FILL_GROUP, _AXIS_DIM, _axis_slice, axis_geom, axis_sizes,
-                        dtype_groups, self_fill, wire_format, wire_round)
+                        dtype_groups, self_fill, wire_format, wire_params, wire_round)
 
 
 def _check_mesh_blocks(blocks_by_position: Sequence[Sequence[torch.Tensor]], spec: GridSpec,
@@ -185,7 +192,7 @@ def remote_axis_local(axis: str, partition, resident):
     return tuple(out)
 
 
-def remote_axis_boxes(axis: str, geom, ext):
+def remote_axis_boxes(axis: str, geom, ext, paired: bool = True):
     """``(boxes, steps, pairs)`` of one axis phase, for the axis's
     ``geom`` = ``(o, n, rm, rp)`` (``halo_fill.axis_geom``) and the padded
     block's ``ext`` (z, y, x): the hi slab ``[o + n - rm, o + n)`` -> lo halo
@@ -203,7 +210,7 @@ def remote_axis_boxes(axis: str, geom, ext):
                           tuple(dst if i == a else 0 for i in range(3)),
                           tuple(width if i == a else e for i, e in enumerate(ext))))
             steps.append(tuple(sign if i == k else 0 for i in range(3)))
-    pairs = ((0, 1),) if axis == "x" and len(boxes) == 2 else ()
+    pairs = ((0, 1),) if paired and axis == "x" and len(boxes) == 2 else ()
     return tuple(boxes), tuple(steps), pairs
 
 
@@ -221,7 +228,7 @@ def remote_axis_work(spec: GridSpec, axis: str, vec: bool, word: int, m: int,
                                (narrow,) * len(boxes))
 
 
-def remote_axis_shifts(spec: GridSpec, axis: str, mesh) -> dict:
+def remote_axis_shifts(spec: GridSpec, axis: str, mesh, paired: bool = True) -> dict:
     """The uneven ring's pointer moves (``row_moves.pointer_rows``): for
     each pointer group's step of the phase's work list, the word offset
     ``(n_i - base) * stride`` of each position's hi side, on the block
@@ -236,7 +243,7 @@ def remote_axis_shifts(spec: GridSpec, axis: str, mesh) -> dict:
     p = spec.padded()
     stride = {"x": 1, "y": p.x, "z": p.y * p.x}[axis]
     hi = tuple((n - base) * stride for n in sizes)
-    _boxes, steps, pairs = remote_axis_boxes(axis, (o, base, rm, rp), (p.z, p.y, p.x))
+    _boxes, steps, pairs = remote_axis_boxes(axis, (o, base, rm, rp), (p.z, p.y, p.x), paired)
     partners = {c for _b, c in pairs}
     return {step: ((hi, None) if sum(step) > 0 else (None, hi))
             for b, step in enumerate(steps) if b not in partners}
@@ -278,6 +285,153 @@ def remote_axis(blocks_by_position, spec: GridSpec, phase, mesh, wire=None, loca
 
 remote_axis.launches = 0
 remote_axis.narrowed = 0  # the launches that round anything through a narrowed wire
+
+
+def remote_axis_gloo(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
+    """:func:`remote_axis_plain` over a mesh spread over processes, on the
+    CPU: ``blocks_by_position[i]`` is the group's list of blocks at
+    position ``i`` of this process, None at another rank's. Each local
+    sender's two slabs (the slices of :func:`remote_axis_plain`, each
+    rounded through ``wire``) are copied into a local receiver, or go out
+    packed as one message a side to the receiver's rank by gloo
+    ``isend``; the slabs into local halos from other ranks arrive by
+    ``irecv`` (the tag names the receiver position and side). In place;
+    returns ``blocks_by_position``."""
+    dist = torch.distributed
+    axis = phase.axis
+    o, _base, rm, rp = axis_geom(spec, axis)
+    sizes = ring_sizes(spec, axis, mesh)
+    reqs, keep, landing = [], [], []
+    for i in mesh.local_positions():
+        bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(mesh.position(i), axis))
+        src = blocks_by_position[i]
+        # side 0: a hi slab into the forward neighbour's lo halo; side 1: a
+        # lo slab into the backward neighbour's hi halo
+        for width, dest, lo, side in ((rm, fwd, o + sizes[i] - rm, 0), (rp, bwd, o, 1)):
+            if not width:
+                continue
+            slabs = [wire_round(b[_axis_slice(b, axis, lo, lo + width)], wire) for b in src]
+            if mesh.is_local(dest):
+                at = o - rm if side == 0 else o + sizes[dest]
+                for b, piece in zip(blocks_by_position[dest], slabs):
+                    b[_axis_slice(b, axis, at, at + width)] = piece
+            else:
+                keep.append(torch.cat([piece.reshape(-1) for piece in slabs]))
+                reqs.append(dist.isend(keep[-1], mesh.owner(dest), tag=2 * dest + side))
+        for width, sender, at, side in ((rm, bwd, o - rm, 0), (rp, fwd, o + sizes[i], 1)):
+            if not width or mesh.is_local(sender):
+                continue
+            views = [b[_axis_slice(b, axis, at, at + width)] for b in src]
+            buf = torch.empty(sum(v.numel() for v in views), dtype=src[0].dtype)
+            reqs.append(dist.irecv(buf, mesh.owner(sender), tag=2 * i + side))
+            landing.append((buf, views))
+    for req in reqs:
+        req.wait()
+    for buf, views in landing:
+        at = 0
+        for v in views:
+            v.copy_(buf[at:at + v.numel()].view(v.shape))
+            at += v.numel()
+    return blocks_by_position
+
+
+def remote_axis_receivers_plain(blocks_by_position, spec: GridSpec, phase, mesh, wire=None):
+    """The plain version of :func:`remote_axis_across`: the slabs of
+    :func:`remote_axis_plain` that land in this process's positions, each
+    receiver's lo halo from its backward neighbour's hi slab and its hi halo
+    from its forward neighbour's lo slab, through ``wire``.
+    ``blocks_by_position[i]`` is the group's list of blocks at position
+    ``i`` (another process's reached through a mapped view), or None where
+    no local position needs it. In place; returns ``blocks_by_position``."""
+    o, _base, rm, rp = axis_geom(spec, phase.axis)
+    sizes = ring_sizes(spec, phase.axis, mesh)
+    for r in mesh.local_positions():
+        bwd, fwd = (mesh.index(q) for q in mesh.ring_neighbors(mesh.position(r), phase.axis))
+        for q, dst in enumerate(blocks_by_position[r]):
+            if rm:
+                src, n = blocks_by_position[bwd][q], sizes[bwd]
+                dst[_axis_slice(dst, phase.axis, o - rm, o)] = wire_round(
+                    src[_axis_slice(src, phase.axis, o + n - rm, o + n)], wire)
+            if rp:
+                src = blocks_by_position[fwd][q]
+                at = o + sizes[r]
+                dst[_axis_slice(dst, phase.axis, at, at + rp)] = wire_round(
+                    src[_axis_slice(src, phase.axis, o, o + rp)], wire)
+    return blocks_by_position
+
+
+def receiver_rows(ptrs_of, nq: int, mesh, steps, word: int, shifts=None):
+    """The pointer table of a launch over this process's receivers: for
+    each group's step and each local position ``r`` and quantity, (block of
+    the sender ``r - step``, block of ``r``), from ``ptrs_of(i)`` (the
+    group's ``nq`` addresses at position ``i``, local or mapped);
+    ``shifts`` as for ``row_moves.pointer_rows``, by the sender's and the
+    receiver's position."""
+    rows = []
+    for step in steps:
+        back = tuple(-c for c in step)
+        s_off, r_off = (shifts or {}).get(step, (None, None))
+        for r in mesh.local_positions():
+            i = mesh.index(mesh.shifted(mesh.position(r), back))
+            src, dst = ptrs_of(i), ptrs_of(r)
+            for q in range(nq):
+                rows += [src[q] + (word * s_off[i] if s_off else 0),
+                         dst[q] + (word * r_off[r] if r_off else 0)]
+    return rows
+
+
+def remote_axis_across(ptrs_of, nq: int, dtype, spec: GridSpec, phase, mesh, dev, wire=None):
+    """B6's cross-process form: one launch of ``csrc/remote_axis.cu`` that
+    fills every halo of this process's positions along ``phase.axis`` for a
+    same-dtype group of ``nq`` quantities, reading each sender's boundary
+    slab through ``ptrs_of(i)`` (its ``nq`` block addresses: this process's,
+    or another's mapped through CUDA IPC). The work list is the uniform
+    one of :func:`remote_axis_work`, unpaired (a paired x row would write
+    the sender's memory too), over ``m`` = local positions x quantities;
+    each row's (sender, receiver) pair comes from :func:`receiver_rows`,
+    moved on an uneven ring (:func:`remote_axis_shifts`); every slab
+    crosses positions, so a narrowed ``wire`` rounds them all. The caller
+    orders the launch after its neighbours' (``parallel/ipc.PhaseOrder``).
+    Its plain version is :func:`remote_axis_receivers_plain`; on the CPU a
+    mesh spread over processes exchanges through :func:`remote_axis_gloo`."""
+    _check_phase(spec, phase, mesh)
+    p = spec.padded()
+    sz, sy = p.y * p.x, p.x
+    word = torch.empty((), dtype=dtype).element_size()
+    if word not in (4, 8):
+        raise ValueError(f"the exchange copies 4- or 8-byte elements, not {dtype}")
+    fmt = wire_format(dtype, wire)
+    locs = mesh.local_positions()
+    # the blocks the rows name: the receivers and their ring neighbours
+    ends = sorted({j for r in locs for j in
+                   (r, *(mesh.index(q) for q in mesh.ring_neighbors(mesh.position(r),
+                                                                   phase.axis)))})
+    ptrs = tuple(a for i in ends for a in ptrs_of(i))
+    geom = axis_geom(spec, phase.axis)
+    m = len(locs) * nq
+
+    def make():
+        shifts = remote_axis_shifts(spec, phase.axis, mesh, paired=False)
+        boxes, steps, _pairs = remote_axis_boxes(phase.axis, geom, (p.z, p.y, p.x), False)
+        rows = receiver_rows(ptrs_of, nq, mesh, steps, word, shifts)
+        vec = all(a % row_moves.VECTOR_BYTES == 0 for a in rows) and \
+            (sz * word) % row_moves.VECTOR_BYTES == 0 and (sy * word) % row_moves.VECTOR_BYTES == 0
+        # unpaired, every box has its pointer group, in the boxes' order
+        work = row_moves.move_work(boxes, steps, sz, sy, vec, word, (), m,
+                                   (fmt is not None,) * len(boxes))
+        table = _native.upload(rows + [v for row in work.rows for v in row], dev)
+        return (table, m, table.data_ptr() + 8 * len(rows), len(work.rows), work.tasks, word,
+                0 if fmt is None else fmt.code, wire_params(fmt), sz, sy)
+
+    table, *rest = _native.kept(
+        (str(dev), "row_moves", "remote_axis_across", phase.axis, geom, (p.z, p.y, p.x),
+         axis_sizes(spec, phase.axis), tuple(mesh.dim), locs, nq, word,
+         None if fmt is None else fmt.name, tuple(ends), ptrs), make)
+    rc = _native.lib("remote_axis").remote_axis_launch(table.data_ptr(), *rest,
+                                                       _native.stream_ptr(dev))
+    _native.check(rc, f"remote_axis across processes [{phase.axis}]")
+    remote_axis.launches += 1
+    remote_axis.narrowed += fmt is not None
 
 
 def remote_axis_bytes(spec: GridSpec, phase, nq: int, positions: int, itemsize: int) -> int:
@@ -344,6 +498,10 @@ class RemoteDmaExchange:
         self.local = ({axis: remote_axis_local(axis, self.spec.dim, ex.resident) for axis in "xyz"}
                       if self.blocks_of_positions and self.wire else {})
         self.last_transfer_count = 0
+        # positions of other processes: the CUDA IPC buffers and phase order
+        # (parallel/ipc.PeerBuffers), attached at realize on the card
+        self.across = ex.mesh is not None and ex.mesh.multi_process
+        self.peers = None
 
     def _block_mesh(self, dev):
         """The mesh of every block of the partition on ``dev`` (flat order,
@@ -370,6 +528,8 @@ class RemoteDmaExchange:
 
     def __call__(self, state, axes=None):
         self.last_transfer_count = 0
+        if self.across:
+            return self._across(state, axes)
         first = next(iter(state.values()))
         dev = (first[0] if isinstance(first, (list, tuple)) else first).device
         mesh = self._block_mesh(dev) if self.blocks_of_positions else self.mesh
@@ -389,4 +549,55 @@ class RemoteDmaExchange:
                     self_wrap_positions(ends, keys, self.spec, phase.axis)
                 if phase.ring > 1:
                     self.last_transfer_count += len(self.mesh) * ((phase.rm > 0) + (phase.rp > 0))
+        return state
+
+    def _across(self, state, axes=None):
+        """The exchange of a mesh spread over processes (one block a
+        position; another rank's position None in each list): per phase,
+        on the card the neighbour barrier (``parallel/ipc.PhaseOrder``) and
+        one :func:`remote_axis_across` launch per group over this rank's
+        receivers; on the CPU :func:`remote_axis_gloo`. An axis with one
+        position is a self-wrap fill of the local positions.
+        ``last_transfer_count`` counts the slabs this rank's positions
+        sent."""
+        from ..parallel.ipc import ordered_phases
+
+        mesh, spec = self.mesh, self.spec
+        locs = mesh.local_positions()
+        dev = state[next(iter(state))][locs[0]].device
+        groups = [keys for _dt, keys in dtype_groups({k: v[locs[0]] for k, v in state.items()})]
+        if not self.batch:
+            groups = [[k] for keys in groups for k in keys]
+        phases = {ph.axis: ph for ph in self.plan.remote_phases
+                  if ph.active and (axes is None or ph.axis in axes)}
+        local_ends = {k: [v[i] for i in locs] for k, v in state.items()}
+        if dev.type == "cuda":
+            if self.peers is None:
+                raise RuntimeError("a mesh spread over processes exchanges on the card through "
+                                   "the buffers DistributedDomain.realize exports "
+                                   "(parallel/ipc.PeerBuffers)")
+            where = {k: self.peers.buffer_of(v) for k, v in state.items()}
+
+        def launch(axis):
+            phase = phases[axis]
+            for keys in groups:
+                if phase.ring == 1:
+                    self_wrap_positions(local_ends, keys, spec, axis)
+                    continue
+                if dev.type == "cpu":
+                    remote_axis_gloo([[state[k][i] for k in keys] if mesh.is_local(i) else None
+                                      for i in range(len(mesh))], spec, phase, mesh, self.wire)
+                else:
+                    def ptrs_of(i, keys=keys):
+                        return tuple(self.peers.pointer(i, *where[k]) for k in keys)
+
+                    remote_axis_across(ptrs_of, len(keys), state[keys[0]][locs[0]].dtype, spec,
+                                       phase, mesh, dev, self.wire)
+                self.last_transfer_count += len(locs) * ((phase.rm > 0) + (phase.rp > 0))
+
+        if dev.type == "cpu":
+            for axis in phases:
+                launch(axis)
+        else:
+            ordered_phases(self.peers.order, list(phases), launch)
         return state

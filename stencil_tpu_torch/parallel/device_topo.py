@@ -21,10 +21,14 @@ between devices of one process, :data:`DIST_REMOTE` across processes.
 - A CPU position stands for one virtual CPU device of the JAX package's
   mesh (what the tests hold the port to), so two CPU positions are
   distinct devices of one process, :data:`DIST_SAME_PROCESS` apart.
+- Positions of distinct hosts (:func:`host_assignment`: the owning
+  process of a ``parallel.distributed.Position``, or the emulated host of
+  the virtual-host knob) are :data:`DIST_REMOTE` apart, as in the JAX
+  package: on one card too, since a position in another process moves its
+  halos through CUDA IPC and an event handshake.
 
-The virtual-host knob (``STENCIL_VIRTUAL_HOSTS``) and the host groups of
-several processes are ROADMAP.md queue A item 5; ``apps/machine_info``
-reads the knob into the fabric fingerprint only, as the JAX package's does.
+The virtual-host knob (``STENCIL_VIRTUAL_HOSTS=N``) splits the index-sorted
+position list into N emulated hosts, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from __future__ import annotations
 import os
 import re
 import subprocess
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -111,11 +115,54 @@ def _smi_index(index: int) -> int:
     return index
 
 
+def virtual_hosts() -> int:
+    """The ``STENCIL_VIRTUAL_HOSTS`` count (0: the knob is off)."""
+    raw = os.environ.get(VIRTUAL_HOSTS_ENV, "").strip()
+    if not raw:
+        return 0
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"{VIRTUAL_HOSTS_ENV}={raw!r} is not an integer host count")
+    return max(0, n)
+
+
+def _device(p) -> torch.device:
+    return torch.device(getattr(p, "device", p))
+
+
+def host_assignment(positions: Sequence, hosts: Optional[int] = None) -> List[int]:
+    """Each position's host index. With N virtual hosts (``hosts``, by
+    default the knob) the index-sorted list splits into N contiguous
+    segments, so a permutation never moves a position to another emulated
+    host; with the knob off a position's host is its owning process (a
+    ``parallel.distributed.Position``), 0 for a bare torch device."""
+    n = len(positions)
+    h = virtual_hosts() if hosts is None else int(hosts)
+    if h > 0:
+        if n % h:
+            raise ValueError(f"{h} virtual hosts do not divide {n} devices")
+        ids = [getattr(p, "index", i) for i, p in enumerate(positions)]
+        rank = {pid: r for r, pid in enumerate(sorted(ids))}
+        return [rank[pid] * h // n for pid in ids]
+    return [int(getattr(p, "process_index", 0)) for p in positions]
+
+
+def host_groups(positions: Sequence, hosts: Optional[int] = None) -> List[list]:
+    """Positions grouped by host (ascending host index)."""
+    groups: dict = {}
+    for p, hidx in zip(positions, host_assignment(positions, hosts)):
+        groups.setdefault(hidx, []).append(p)
+    return [groups[k] for k in sorted(groups)]
+
+
 def distance_matrix(positions: Sequence, topo: Optional[str] = None) -> np.ndarray:
-    """Distances between the devices of ``positions`` (torch devices or
-    their names). ``topo`` is ``nvidia-smi topo -m``'s text, read from the
-    tool only when two positions name distinct CUDA devices."""
-    devs = [torch.device(p) for p in positions]
+    """Distances between ``positions`` (torch devices, their names, or
+    ``parallel.distributed.Position`` entries). ``topo`` is ``nvidia-smi
+    topo -m``'s text, read from the tool only when two positions of one
+    host name distinct CUDA devices."""
+    devs = [_device(p) for p in positions]
+    assign = host_assignment(positions)
     n = len(devs)
     m = np.zeros((n, n), dtype=np.float64)
     links = None
@@ -123,6 +170,8 @@ def distance_matrix(positions: Sequence, topo: Optional[str] = None) -> np.ndarr
         for j, b in enumerate(devs):
             if i == j:
                 m[i, j] = DIST_SELF
+            elif assign[i] != assign[j]:
+                m[i, j] = DIST_REMOTE
             elif a.type == "cuda" and b.type == "cuda":
                 ia, ib = a.index or 0, b.index or 0
                 if ia == ib:

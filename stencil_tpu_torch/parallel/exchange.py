@@ -80,9 +80,15 @@ on the TPU, so ``fused`` exchanges through the axis carrier and steps by
 the JAX package's host-orchestrated schedule, and ``persistent`` runs the
 deep exchange through the axis carrier once a chunk, then the chunk
 kernel's uneven form (messages off, each position at its own extent).
-The mesh's positions must share one device (the reference's
-``set_gpus({0,0})``); positions on distinct GPUs (peer access and event
-waits between phases) and NCCL across hosts are ROADMAP.md queue A item 5.
+This process's positions must share one device (the reference's
+``set_gpus({0,0})``). The positions may be spread over several processes
+(``DeviceMesh.multi_process``, one block a position): each rank holds its
+own positions' stacks (None at another rank's) and the axis carrier fills
+its halos through CUDA IPC on one card, or over gloo on the CPU
+(``ops/remote_dma.RemoteDmaExchange``); the fused and persistent variants
+and more blocks than positions across processes are ROADMAP.md queue B
+item 6. Positions on distinct GPUs (peer access, NCCL between GPUs) are
+queue A item 5.
 
 ``wire_dtype`` (the JAX package's bf16-on-the-wire compression, its fp8
 tier and every other floating format it narrows through,
@@ -192,6 +198,16 @@ class HaloExchange:
                     "form and narrows nothing; on the CPU its once-a-chunk deep exchange "
                     "narrows), so the port matches neither (ROADMAP.md queue C, \"Design "
                     "divergences\")")
+        if self.mesh is not None and self.mesh.multi_process:
+            if self.fused or self.persistent:
+                raise NotImplementedError(
+                    f"the {'fused' if self.fused else 'persistent'} kernel variant over "
+                    "positions of several processes: one launch per rank with the waits "
+                    "between its sections is ROADMAP.md queue B item 6")
+            if self.oversubscribed:
+                raise NotImplementedError(
+                    f"{self.resident} blocks a position over positions of several processes: "
+                    "ROADMAP.md queue B item 6")
         if (self.fused or self.persistent) and self.oversubscribed:
             variant = "fused compute+exchange" if self.fused else "persistent whole-chunk"
             raise ValueError(
@@ -242,6 +258,11 @@ class HaloExchange:
         mesh.device  # raises for positions on distinct devices
         return mesh.dim
 
+    def attach_peers(self, peers) -> None:
+        """The CUDA IPC buffers and phase order (``parallel/ipc.PeerBuffers``)
+        of a mesh spread over processes on the card."""
+        self._remote.peers = peers
+
     @property
     def on_mesh(self) -> bool:
         """Blocks on a mesh of several positions (per-position state)."""
@@ -250,7 +271,8 @@ class HaloExchange:
     @property
     def last_transfer_count(self) -> int:
         """Slabs or messages sent to another position by the last mesh
-        exchange (0 on one device)."""
+        exchange (0 on one device); over processes, by this rank's
+        positions."""
         return self._remote.last_transfer_count if self._remote is not None else 0
 
     @property
@@ -485,7 +507,8 @@ def shard_blocks(global_zyx, spec: GridSpec, device) -> Union[torch.Tensor, List
     the stacks of a mesh: one ``(cz, cy, cx, pz, py, px)`` stack of its
     resident blocks per position (one block when the mesh matches the
     partition), on that position's device (the JAX package's
-    ``shard_blocks(global, spec, mesh)``)."""
+    ``shard_blocks(global, spec, mesh)``); None at another process's
+    position."""
     g = spec.global_size
     mesh = device if isinstance(device, DeviceMesh) else None
     src = torch.as_tensor(global_zyx, device=None if mesh else device)
@@ -495,7 +518,10 @@ def shard_blocks(global_zyx, spec: GridSpec, device) -> Union[torch.Tensor, List
     if mesh is not None and position_resident(spec, mesh) == Dim3(1, 1, 1):
         p = spec.padded()
         blocks = []
-        for pos, dev in zip(mesh.positions(), mesh.devices):
+        for i, (pos, dev) in enumerate(zip(mesh.positions(), mesh.devices)):
+            if not mesh.is_local(i):
+                blocks.append(None)  # another process's position
+                continue
             b = torch.zeros((1, 1, 1, p.z, p.y, p.x), dtype=src.dtype, device=dev)
             b[0, 0, 0][_compute(spec, pos)] = src[_global(spec, pos)].to(dev)
             blocks.append(b)
@@ -551,7 +577,8 @@ def split_positions(stacked: torch.Tensor, spec: GridSpec, mesh: DeviceMesh) -> 
     if tuple(stacked.shape) != spec.stacked_shape_zyx():
         raise ValueError(f"shape {tuple(stacked.shape)} != {spec.stacked_shape_zyx()}")
     return [stacked[_stack_slices(spec, mesh, pos)].to(dev, copy=True).contiguous()
-            for pos, dev in zip(mesh.positions(), mesh.devices)]
+            if mesh.is_local(i) else None
+            for i, (pos, dev) in enumerate(zip(mesh.positions(), mesh.devices))]
 
 
 def join_positions(blocks: Sequence[torch.Tensor], spec: GridSpec) -> torch.Tensor:
@@ -565,4 +592,32 @@ def join_positions(blocks: Sequence[torch.Tensor], spec: GridSpec) -> torch.Tens
     out = torch.empty(spec.stacked_shape_zyx(), dtype=blocks[0].dtype, device=dev)
     for pos, b in zip(mesh.positions(), blocks):
         out[_stack_slices(spec, mesh, pos)] = b.to(dev)
+    return out
+
+
+def gather_positions(stacks: Sequence[Optional[torch.Tensor]], mesh: DeviceMesh,
+                     peers=None) -> Optional[List[torch.Tensor]]:
+    """Every position's stack of a mesh spread over processes, on rank 0
+    (None on the others): over gloo from the CPU, through the mapped
+    pointers on the card (``peers``, the domain's ``parallel/ipc.
+    PeerBuffers``). Collective. A mesh of one process returns its list."""
+    if not mesh.multi_process:
+        return list(stacks)
+    locs = mesh.local_positions()
+    like = stacks[locs[0]]
+    if like.device.type == "cuda":
+        if peers is None:
+            raise RuntimeError("gathering positions of several processes on the card needs "
+                               "their exported buffers (parallel/ipc.PeerBuffers)")
+        return peers.gather(stacks)
+    dist = torch.distributed
+    if mesh.rank != 0:
+        for i in locs:
+            dist.send(stacks[i].contiguous(), 0, tag=i)
+        return None
+    out = list(stacks)
+    for i in range(len(mesh)):
+        if not mesh.is_local(i):
+            out[i] = torch.empty_like(like)
+            dist.recv(out[i], mesh.owner(i), tag=i)
     return out

@@ -1,0 +1,343 @@
+"""CUDA IPC between the processes of one card, and the order of their phases.
+
+The transport of B6's cross-process form (``ops/remote_dma``): the port's
+counterpart of the reference's colocated path (``tx_ipc.cpp``,
+``tx_colocated.cu:45-153``: the receiver shares its curr and next quantity
+buffers, the sender's kernel reads or writes them through the mapped
+pointer, events and notify messages order the two processes). The C side is
+``csrc/ipc.cu`` (``cudaIpcGetMemHandle`` / ``cudaIpcOpenMemHandle`` with
+``cudaIpcMemLazyEnablePeerAccess`` / ``cudaIpcCloseMemHandle``, interprocess
+events and their handles).
+
+:class:`PeerBuffers` is made at ``DistributedDomain.realize`` (a
+collective): each rank exports the curr and the next stack of every
+quantity of its positions (both, since the jacobi loops swap them, as the
+reference's ``ColoHaloSender::swap`` does, src/tx_colocated.cu:169-176) and
+one interprocess event; the handles travel over gloo, and each rank opens
+those of its ring neighbours once. A handle names the whole allocation
+that holds a block (PyTorch's caching allocator carves blocks out of
+larger segments), so every export carries the block's offset into it,
+which the opener adds. :meth:`PeerBuffers.close` (also run when the
+buffers are garbage-collected) unmaps what it opened and destroys its
+events; every rank closes before any frees the exported blocks (a barrier
+between), so no mapping outlives the memory it maps.
+
+:class:`PhaseOrder` is the TPU kernel's neighbour barrier
+(``stencil_tpu/ops/remote_dma.py:153-160``) between launches of separate
+processes: before an axis phase a rank records its event after its prior
+work, tells its ring neighbours on that axis over gloo (the reference's
+notify, ``tx_cuda.cuh:473-483``), and once their notices have arrived its
+stream waits on their events; only then does it launch. The notice comes
+first because ``cudaStreamWaitEvent`` waits on the newest record issued
+before it: without the host order a wait could pass on the previous
+phase's record. Every position of a rank lies on its one stream, so one
+event a rank covers them; a rank waits on one event per neighbouring rank.
+No kernel spins on a flag: without MPS the kernels of two processes
+time-slice on the card and are never resident together.
+
+Each rank's launch of a phase fills its own positions' halos (it reads its
+neighbours' boundary slabs through the mapped pointers), so a phase of a
+rank ends when its halos have landed, as the TPU kernel's ends on its
+receive semaphores. That makes the one handshake a phase enough: a rank's
+phase reads a neighbour's cells only after the neighbour's previous phase
+(whose halos it may read) and sweep, and a rank writes only its own cells,
+which its neighbours read no later than the phase whose event it waits on
+next (PERF.md section 6, the entry on B6 across processes, has the
+argument).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops import _native
+
+HANDLE_BYTES = 64  # CUDA_IPC_HANDLE_SIZE
+
+
+def _lib():
+    return _native.lib("ipc")
+
+
+def mem_handle(t: torch.Tensor) -> Tuple[bytes, int]:
+    """``(handle, offset)`` of a CUDA tensor's storage: the handle of the
+    allocation that holds it and the byte offset of ``t.data_ptr()`` in it."""
+    buf = ctypes.create_string_buffer(HANDLE_BYTES)
+    off = ctypes.c_longlong(0)
+    _native.check(_lib().ipc_mem_handle(t.data_ptr(), buf, ctypes.byref(off)),
+                  "cudaIpcGetMemHandle")
+    return buf.raw, off.value
+
+
+# allocations of other processes mapped into this one, by handle: [base
+# address, users]. A handle is opened once a process (two live domains may
+# hold blocks of one segment of a neighbour) and unmapped by its last user.
+_mapped: Dict[bytes, List[int]] = {}
+
+
+def open_mem(handle: bytes) -> int:
+    """Map another process's allocation, or take another use of its
+    mapping; returns its base address here. Raises when the open fails.
+    Each call is undone by one :func:`close_mem`."""
+    if handle not in _mapped:
+        ptr = ctypes.c_void_p(0)
+        _native.check(_lib().ipc_open_mem(handle, ctypes.byref(ptr)), "cudaIpcOpenMemHandle")
+        _mapped[handle] = [ptr.value, 0]
+    _mapped[handle][1] += 1
+    return _mapped[handle][0]
+
+
+def close_mem(handle: bytes) -> None:
+    """Drop one use of a mapping; the last unmaps it."""
+    entry = _mapped[handle]
+    entry[1] -= 1
+    if entry[1] == 0:
+        del _mapped[handle]
+        _native.check(_lib().ipc_close_mem(entry[0]), "cudaIpcCloseMemHandle")
+
+
+def event_create() -> int:
+    ev = ctypes.c_void_p(0)
+    _native.check(_lib().ipc_event_create(ctypes.byref(ev)), "cudaEventCreateWithFlags")
+    return ev.value
+
+
+def event_handle(ev: int) -> bytes:
+    buf = ctypes.create_string_buffer(HANDLE_BYTES)
+    _native.check(_lib().ipc_event_handle(ev, buf), "cudaIpcGetEventHandle")
+    return buf.raw
+
+
+def open_event(handle: bytes) -> int:
+    ev = ctypes.c_void_p(0)
+    _native.check(_lib().ipc_open_event(handle, ctypes.byref(ev)), "cudaIpcOpenEventHandle")
+    return ev.value
+
+
+def event_destroy(ev: int) -> None:
+    """Destroy an event, this process's own or an opened one."""
+    _native.check(_lib().ipc_event_destroy(ev), "cudaEventDestroy")
+
+
+# the gloo group of the notices, one a process group (made by the first
+# PeerBuffers, a collective; later ones reuse it)
+_notices = (None, None)
+
+
+def notice_group():
+    global _notices
+    world = torch.distributed.group.WORLD
+    if _notices[0] is not world:
+        _notices = (world, torch.distributed.new_group(backend="gloo"))
+    return _notices[1]
+
+
+def cuda_view(ptr: int, nbytes: int, like: torch.Tensor) -> torch.Tensor:
+    """A tensor over ``nbytes`` at device address ``ptr`` (no copy), with
+    ``like``'s dtype and shape."""
+
+    class _Mem:
+        __cuda_array_interface__ = {"data": (ptr, False), "shape": (nbytes,),
+                                    "typestr": "|u1", "version": 3}
+
+    raw = torch.as_tensor(_Mem(), device=like.device)
+    return raw.view(like.dtype).view(like.shape)
+
+
+class CudaEvents:
+    """A rank's own interprocess event and its neighbours' opened ones, on
+    the current stream of ``device``."""
+
+    def __init__(self, own: int, opened: Dict[int, int], device):
+        self.own, self.opened, self.device = own, opened, device
+
+    def record(self) -> None:
+        _native.check(_lib().ipc_event_record(self.own, _native.stream_ptr(self.device)),
+                      "cudaEventRecord")
+
+    def wait(self, rank: int) -> None:
+        _native.check(_lib().ipc_stream_wait(_native.stream_ptr(self.device),
+                                             self.opened[rank]), "cudaStreamWaitEvent")
+
+
+class GlooNotices:
+    """The notify messages: one int64 per neighbour a phase over a gloo
+    group, holding how many notices this pair has exchanged (checked on
+    arrival: the ranks run their phases in lockstep)."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.sent: Dict[int, int] = {}
+
+    def exchange(self, ranks: Sequence[int]) -> None:
+        dist = torch.distributed
+        outs, ins, reqs = [], [], []
+        for r in ranks:
+            self.sent[r] = self.sent.get(r, 0) + 1
+            outs.append(torch.tensor([self.sent[r]], dtype=torch.int64))
+            ins.append(torch.zeros(1, dtype=torch.int64))
+            reqs.append(dist.isend(outs[-1], r, group=self.group))
+            reqs.append(dist.irecv(ins[-1], r, group=self.group))
+        for q in reqs:
+            q.wait()
+        for r, got in zip(ranks, ins):
+            if int(got) != self.sent[r]:
+                raise RuntimeError(f"notice {int(got)} from process {r}, expected "
+                                   f"{self.sent[r]}: the ranks' phases are out of step")
+
+
+class PhaseOrder:
+    """The neighbour barrier of each axis phase: :meth:`before` records
+    this rank's event, sends its notices to the ring neighbours of that
+    axis and waits for theirs, then makes the stream wait on their events
+    (``events``: ``record()`` / ``wait(rank)``; ``notices``:
+    ``exchange(ranks)``). An axis whose neighbours are all this rank's
+    needs nothing."""
+
+    def __init__(self, neighbours: Dict[str, Tuple[int, ...]], events, notices):
+        self.neighbours, self.events, self.notices = neighbours, events, notices
+        self.handshakes = 0
+        # host seconds spent in the handshakes, and in their notices alone
+        self.host_s = self.notice_s = 0.0
+
+    def before(self, axis: str) -> None:
+        ranks = self.neighbours.get(axis, ())
+        if not ranks:
+            return
+        t0 = time.perf_counter()
+        self.events.record()
+        t1 = time.perf_counter()
+        self.notices.exchange(ranks)
+        t2 = time.perf_counter()
+        for r in ranks:
+            self.events.wait(r)
+        self.handshakes += 1
+        self.notice_s += t2 - t1
+        self.host_s += time.perf_counter() - t0
+
+
+def _release(device, bases: Dict[Tuple[int, int, int], int], handles,
+             events: List[int]) -> None:
+    """:meth:`PeerBuffers.close`'s work, kept off the instance so that it
+    can run as its finalizer: once the card's work is done, unmap and
+    destroy."""
+    torch.cuda.synchronize(device)
+    for key in bases:
+        close_mem(handles[key][0])
+    bases.clear()
+    for ev in events:
+        event_destroy(ev)
+
+
+def ordered_phases(order: PhaseOrder, axes: Sequence[str], launch: Callable[[str], None]) -> None:
+    """Run each axis phase of ``axes``: the handshake, then its launches."""
+    for axis in axes:
+        order.before(axis)
+        launch(axis)
+
+
+class PeerBuffers:
+    """The blocks of every position of a mesh spread over the processes of
+    one card: this rank's own stacks and the neighbours' through CUDA IPC,
+    by (quantity, buffer), and the :class:`PhaseOrder` of the exchange.
+    ``buffers[(q, b)]`` is quantity ``q``'s list of per-position stacks of
+    buffer ``b`` (0: curr, 1: next at realize), None at another rank's
+    position. Collective: every rank makes it with the same keys.
+    :meth:`close` releases its mappings and events."""
+
+    def __init__(self, mesh, buffers: Dict[Tuple[int, int], List[Optional[torch.Tensor]]]):
+        dist = torch.distributed
+        self.mesh = mesh
+        self.device = mesh.device
+        self.local: Dict[int, Tuple[int, int, int]] = {}  # data_ptr -> (q, b, position)
+        self.tensors: Dict[Tuple[int, int, int], torch.Tensor] = {}
+        exports = {}
+        for (q, b), stacks in buffers.items():
+            for i in mesh.local_positions():
+                t = stacks[i]
+                self.local[t.data_ptr()] = (q, b, i)
+                self.tensors[(q, b, i)] = t
+                exports[(q, b, i)] = mem_handle(t)
+        self.event = event_create()
+        mine = (exports, event_handle(self.event))
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, mine)
+        self.handles = {}
+        for ex, _ev in gathered:
+            self.handles.update(ex)
+        neighbours = {axis: mesh.neighbour_ranks(axis) for axis in "xyz"
+                      if mesh.ring(axis) > 1}
+        ranks = sorted({r for rs in neighbours.values() for r in rs})
+        opened_events = {r: open_event(gathered[r][1]) for r in ranks}
+        # the base addresses of the blocks this rank mapped, by (q, b, position)
+        self._bases: Dict[Tuple[int, int, int], int] = {}
+        self._finalizer = weakref.finalize(self, _release, self.device, self._bases,
+                                           self.handles, [self.event, *opened_events.values()])
+        self._finalizer.atexit = False  # the process's exit releases them
+        events = CudaEvents(self.event, opened_events, self.device)
+        self.order = PhaseOrder(neighbours, events, GlooNotices(notice_group()))
+        # map every neighbour block once, now
+        for i in range(len(mesh)):
+            if not mesh.is_local(i) and mesh.owner(i) in ranks:
+                for (q, b) in buffers:
+                    self.pointer(i, q, b)
+
+    def pointer(self, i: int, q: int, b: int) -> int:
+        """Device address, in this process, of quantity ``q``'s buffer ``b``
+        stack at position ``i`` (mapped on first use)."""
+        if self.mesh.is_local(i):
+            return self.tensors[(q, b, i)].data_ptr()
+        if not self._finalizer.alive:
+            raise RuntimeError("the peer buffers are closed")
+        handle, off = self.handles[(q, b, i)]
+        if (q, b, i) not in self._bases:
+            self._bases[(q, b, i)] = open_mem(handle)
+        return self._bases[(q, b, i)] + off
+
+    def close(self) -> None:
+        """Unmap the other ranks' blocks this rank mapped and destroy the
+        events (its own and the opened ones); a second call does nothing.
+        Every rank closes before any frees the exported buffers: close,
+        then a barrier, then drop the domain."""
+        self._finalizer()
+
+    def buffer_of(self, stacks: Sequence[Optional[torch.Tensor]]) -> Tuple[int, int]:
+        """``(q, b)`` of a quantity's list of per-position stacks, by the
+        addresses of its local stacks, which must all be the buffers
+        exported at realize."""
+        found = set()
+        for i in self.mesh.local_positions():
+            key = self.local.get(stacks[i].data_ptr())
+            if key is None or key[2] != i:
+                raise RuntimeError(
+                    f"position {i}'s block is not a buffer exported at realize: a mesh spread "
+                    "over processes exchanges the domain's own curr and next stacks")
+            found.add(key[:2])
+        if len(found) != 1:
+            raise RuntimeError(f"a quantity's positions mix exported buffers {sorted(found)}")
+        return found.pop()
+
+    def gather(self, stacks: Sequence[Optional[torch.Tensor]]) -> Optional[List[torch.Tensor]]:
+        """Every position's stack of one quantity's buffer, copied onto
+        rank 0 through the mapped pointers (None on the other ranks).
+        Collective: the ranks synchronize their card work before and after
+        rank 0 reads."""
+        dist = torch.distributed
+        torch.cuda.synchronize(self.device)
+        dist.barrier()
+        out = None
+        if self.mesh.rank == 0:
+            q, b = self.buffer_of(stacks)
+            like = stacks[self.mesh.local_positions()[0]]
+            out = [stacks[i].clone() if self.mesh.is_local(i) else
+                   cuda_view(self.pointer(i, q, b), like.numel() * like.element_size(),
+                             like).clone()
+                   for i in range(len(self.mesh))]
+            torch.cuda.synchronize(self.device)
+        dist.barrier()
+        return out

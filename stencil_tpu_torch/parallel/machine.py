@@ -1,17 +1,19 @@
 """Machine — the inventory of one node: its process, its host and the
 devices of a run's positions.
 
-The port's counterpart of ``stencil_tpu.parallel.machine`` for one process
-(reference: machine.hpp:106-140, src/machine.cpp:72-147). A position names
-a torch device; its facts come from ``torch.cuda.get_device_properties``
-(name, SM count, memory, compute capability) on the card. No NVML binding
-is installed, and none can be. A CPU position stands for one virtual CPU
+The port's counterpart of ``stencil_tpu.parallel.machine`` (reference:
+machine.hpp:106-140, src/machine.cpp:72-147). A position names a torch
+device; its facts come from ``torch.cuda.get_device_properties`` (name, SM
+count, memory, compute capability) on the card. No NVML binding is
+installed, and none can be. A CPU position stands for one virtual CPU
 device of the JAX package's mesh (``device_topo``), so its index is its
 position. Distances come from ``device_topo``.
 
-The hostname gather of several processes (the reference's MPI_Gather,
-src/machine.cpp:85-101) is ROADMAP.md queue A item 5: a run inside a
-process group of more than one rank raises.
+In a process group of several ranks (``parallel/distributed``) the
+inventory is global: each rank names its own positions, and the list is
+their all-gather in rank order, each row with its owning process; the
+hostnames are gathered as the reference's MPI_Gather does
+(src/machine.cpp:85-101), by ``all_gather_object``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import distributed
 from .device_topo import bandwidth_matrix, distance_matrix
 
 
@@ -52,16 +55,18 @@ def default_positions() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def device_info(position: int, dev: torch.device) -> DeviceInfo:
-    """The inventory row of position ``position`` on ``dev``."""
+def device_info(position: int, dev: torch.device, process: int = 0) -> DeviceInfo:
+    """The inventory row of position ``position`` on ``dev``, owned by
+    process ``process`` (whose card this process reads: one card is shared
+    by the processes of one host)."""
     if dev.type == "cuda":
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         props = torch.cuda.get_device_properties(index)
-        return DeviceInfo(index=index, platform="cuda", kind=props.name, process_index=0,
+        return DeviceInfo(index=index, platform="cuda", kind=props.name, process_index=process,
                           sm_count=props.multi_processor_count,
                           memory_bytes=props.total_memory,
                           capability=(props.major, props.minor))
-    return DeviceInfo(index=position, platform=dev.type, kind=dev.type, process_index=0)
+    return DeviceInfo(index=position, platform=dev.type, kind=dev.type, process_index=process)
 
 
 @dataclass
@@ -72,17 +77,25 @@ class Machine:
     process_count: int
     hostnames: Dict[int, str]  # process -> hostname
     devices: List[DeviceInfo] = field(default_factory=list)
-    positions: List[torch.device] = field(default_factory=list, repr=False)
+    positions: list = field(default_factory=list, repr=False)
 
     @classmethod
     def detect(cls, devices: Optional[Sequence] = None) -> "Machine":
-        """The machine of ``devices`` (positions: torch devices or their
-        names; default every CUDA device)."""
-        positions = ([torch.device(d) for d in devices] if devices is not None
-                     else default_positions())
-        return cls(process_index=0, process_count=1, hostnames=_gather_hostnames(),
-                   devices=[device_info(i, d) for i, d in enumerate(positions)],
-                   positions=positions)
+        """The machine of ``devices`` (this process's positions: torch
+        devices or their names; default every CUDA device). With several
+        processes, every rank's positions in rank order (a collective)."""
+        local = ([torch.device(d) for d in devices] if devices is not None
+                 else default_positions())
+        if distributed.process_count() == 1:
+            return cls(process_index=0, process_count=1, hostnames=_gather_hostnames(),
+                       devices=[device_info(i, d) for i, d in enumerate(local)],
+                       positions=local)
+        glob = distributed.global_positions(local)
+        return cls(process_index=distributed.process_index(),
+                   process_count=distributed.process_count(), hostnames=_gather_hostnames(),
+                   devices=[device_info(p.index, torch.device(p.device), p.process_index)
+                            for p in glob],
+                   positions=glob)
 
     def num_nodes(self) -> int:
         return len(set(self.hostnames.values())) if self.hostnames else 1
@@ -118,10 +131,11 @@ class Machine:
 
 
 def _gather_hostnames() -> Dict[int, str]:
-    """This host's name for process 0; several processes raise."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"the hostname gather of {dist.get_world_size()} processes: ROADMAP.md queue A "
-            "item 5")
-    return {0: socket.gethostname()}
+    """The hostname of every process (the reference's MPI_Gather,
+    src/machine.cpp:85-101); with one process, this host's."""
+    own = socket.gethostname()
+    if distributed.process_count() == 1:
+        return {0: own}
+    names = [None] * distributed.process_count()
+    torch.distributed.all_gather_object(names, own)
+    return dict(enumerate(names))

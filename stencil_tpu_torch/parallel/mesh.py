@@ -12,10 +12,18 @@ block is its own allocation on that position's device.
 A device may be named by several positions: the reference's
 ``dd.set_gpus({0,0})`` (stencil.hpp:154), which forces several subdomains
 onto one GPU to exercise the distributed paths, and what the JAX package's
-tests do with 8 virtual CPU devices. The port's exchanges run a mesh only
-when every position sits on one device (:attr:`DeviceMesh.one_device`);
-positions on distinct GPUs (peer access, event waits between phases) are
-ROADMAP.md queue A item 5.
+tests do with 8 virtual CPU devices.
+
+The positions may belong to several processes (``parallel/distributed``):
+built from the global ``Position`` list, each position has its owner rank,
+host and card UUID (:meth:`DeviceMesh.owner`, :meth:`DeviceMesh.is_local`,
+:meth:`DeviceMesh.local_positions`). This process's own positions must
+share one device (:attr:`DeviceMesh.one_device`, :attr:`DeviceMesh.device`
+keep their meaning for them). Another rank's positions must sit on the
+same card (same host and UUID; their halos move through CUDA IPC,
+``parallel/ipc``) or, on the CPU, anywhere (gloo). A position on another
+card or another host, and local positions on distinct GPUs (peer access
+and NCCL between GPUs), are ROADMAP.md queue A item 5.
 """
 
 from __future__ import annotations
@@ -32,15 +40,49 @@ _AXIS_INDEX = {"x": 0, "y": 1, "z": 2}
 
 class DeviceMesh:
     """``dim`` (positions along x, y, z) and one torch device per position,
-    in flat position order (x fastest)."""
+    in flat position order (x fastest): torch devices (every position this
+    process's), or the global ``parallel.distributed.Position`` list of a
+    run of several processes."""
 
     def __init__(self, dim, devices: Sequence):
+        from .distributed import Position, process_index
+
         self.dim = Dim3.of(dim)
-        self.devices: List[torch.device] = [torch.device(d) for d in devices]
-        if len(self.devices) != self.dim.flatten():
+        entries = list(devices)
+        if len(entries) != self.dim.flatten():
             raise ValueError(f"mesh {self.dim} needs {self.dim.flatten()} devices, "
-                             f"got {len(self.devices)}")
+                             f"got {len(entries)}")
+        self.rank = process_index()
+        if entries and all(isinstance(e, Position) for e in entries):
+            self.devices: List[torch.device] = [torch.device(e.device) for e in entries]
+            self.owners = tuple(e.process_index for e in entries)
+            self.hosts = tuple(e.host for e in entries)
+            self.uuids = tuple(e.uuid for e in entries)
+        else:
+            self.devices = [torch.device(d) for d in entries]
+            self.owners = (self.rank,) * len(entries)
+            self.hosts = self.uuids = (None,) * len(entries)
+        self._local = tuple(i for i, o in enumerate(self.owners) if o == self.rank)
+        if not self._local:
+            raise ValueError(f"process {self.rank} owns no position of the mesh")
+        if self.multi_process:
+            self._check_reach()
         self._destinations: Dict[tuple, Tuple[int, ...]] = {}
+
+    def _check_reach(self) -> None:
+        """Another rank's position must be on this process's card (same
+        host and UUID) or, with CPU positions, anywhere."""
+        i0 = self._local[0]
+        kind = self.devices[i0].type
+        for i, (dev, host, uuid) in enumerate(zip(self.devices, self.hosts, self.uuids)):
+            if dev.type != kind:
+                raise ValueError(f"position {i} is on {dev}, this process's on {kind}")
+            if kind == "cuda" and (host, uuid) != (self.hosts[i0], self.uuids[i0]):
+                raise NotImplementedError(
+                    f"position {i} (process {self.owners[i]}) is on card {uuid} of host {host}, "
+                    f"not on this process's card {self.uuids[i0]} of {self.hosts[i0]}: "
+                    "positions on another card or host (peer access, NCCL between GPUs) are "
+                    "ROADMAP.md queue A item 5")
 
     def __len__(self) -> int:
         return len(self.devices)
@@ -88,17 +130,48 @@ class DeviceMesh:
         bwd = self.shifted(pos, [-s for s in step])
         return bwd, fwd
 
+    def owner(self, i: int) -> int:
+        """The rank that owns flat position ``i``."""
+        return self.owners[i]
+
+    def is_local(self, i: int) -> bool:
+        """Flat position ``i`` belongs to this process."""
+        return self.owners[i] == self.rank
+
+    def local_positions(self) -> Tuple[int, ...]:
+        """This process's flat positions, ascending."""
+        return self._local
+
+    @property
+    def multi_process(self) -> bool:
+        """Some position belongs to another process."""
+        return len(self._local) != len(self.devices)
+
+    def neighbour_ranks(self, axis: str) -> Tuple[int, ...]:
+        """The other ranks that own a ring neighbour of one of this
+        process's positions along ``axis`` (the same set sends to this
+        process: a periodic ring is symmetric)."""
+        out = set()
+        for i in self._local:
+            for q in self.ring_neighbors(self.position(i), axis):
+                out.add(self.owners[self.index(q)])
+        out.discard(self.rank)
+        return tuple(sorted(out))
+
     @property
     def one_device(self) -> bool:
-        """Every position on one device (the same CUDA index, or the CPU)."""
-        return all(d == self.devices[0] for d in self.devices)
+        """Every position of this process on one device (the same CUDA
+        index, or the CPU)."""
+        d0 = self.devices[self._local[0]]
+        return all(self.devices[i] == d0 for i in self._local)
 
     @property
     def device(self) -> torch.device:
-        """The one device of a :attr:`one_device` mesh."""
+        """The one device of this process's positions (:attr:`one_device`)."""
         if not self.one_device:
             raise NotImplementedError(
-                f"positions on distinct devices {sorted({str(d) for d in self.devices})}: "
-                "peer access and event waits between phases are ROADMAP.md queue A item 5")
-        return self.devices[0]
+                f"positions on distinct devices "
+                f"{sorted({str(self.devices[i]) for i in self._local})}: peer access and event "
+                "waits between GPUs are ROADMAP.md queue A item 5")
+        return self.devices[self._local[0]]
 

@@ -5,7 +5,9 @@ include/stencil/logging.hpp:8-53). The level is read from the
 ``STENCIL_LOG_LEVEL`` environment variable (SPEW|DEBUG|INFO|WARN|ERROR|FATAL,
 default INFO) and may be changed at runtime with :func:`set_level`.
 ``fatal`` raises instead of ``exit(1)`` so library users can handle errors.
-The port runs one process per device, so the prefix carries no process index.
+Each line carries the process index, as the JAX package's do (``[INFO] p0:
+...``): the rank in the ``torch.distributed`` group of a run of several
+processes (``parallel/distributed``), 0 without one.
 """
 
 from __future__ import annotations
@@ -31,9 +33,18 @@ def get_level() -> int:
     return _LEVEL
 
 
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` group (0 without
+    one), read without importing ``torch.distributed`` when nothing has."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def _emit(level: int, tag: str, msg: str) -> None:
     if level >= _LEVEL:
-        print(f"[{tag}] " + str(msg), file=sys.stderr)
+        print(f"[{tag}] p{process_index()}: " + str(msg), file=sys.stderr)
 
 
 def spew(msg):

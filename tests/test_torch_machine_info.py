@@ -133,12 +133,36 @@ def test_inventory_needs_a_card_or_cpu_positions(monkeypatch):
 
 
 def test_several_processes_raise(monkeypatch):
+    """In a group of two ranks the inventory gathers every rank's positions
+    and hostnames (the reference's MPI_Gather); a mesh over a position of
+    the other rank on another host's card raises, naming queue A item 5
+    (CPU positions anywhere are in reach)."""
+    from stencil_tpu_torch.parallel import distributed
+    from stencil_tpu_torch.parallel.mesh import DeviceMesh
+
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+
+    def gather(out, obj):
+        out[0] = obj
+        out[1] = "far" if isinstance(obj, str) else [("far", "cpu", None)] * 3
+
+    monkeypatch.setattr(dist, "all_gather_object", gather)
+    m = machine.Machine.detect(["cpu"])
+    assert (m.process_index, m.process_count) == (0, 2)
+    assert m.hostnames[1] == "far" and m.num_nodes() == 2
+    assert [d.process_index for d in m.devices] == [0, 1, 1, 1]
+    assert [d.index for d in m.devices] == [0, 1, 2, 3]
+    d = m.distance_matrix()
+    assert d[0, 1] == device_topo.DIST_REMOTE and d[1, 2] == device_topo.DIST_SAME_PROCESS
+    assert len(DeviceMesh((2, 2, 1), m.positions).local_positions()) == 1
+    cards = [distributed.Position(0, 0, "near", "cuda:0", "GPU-0")] + [
+        distributed.Position(i, 1, "far", "cuda:0", "GPU-0") for i in (1, 2, 3)]
     with pytest.raises(NotImplementedError, match="queue A item 5"):
-        machine.Machine.detect(["cpu"])
+        DeviceMesh((2, 2, 1), cards)
 
 
 def test_cli_json_validates(tmp_path, capsys):

@@ -48,8 +48,8 @@ def test_kernel_sources_present():
     csrc = pathlib.Path(stencil_tpu_torch.__file__).parent / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
         "astaroth_substep.cu", "fused_exchange.cu", "fused_jacobi.cu", "health_reduce.cu",
-        "jacobi_multistep.cu", "jacobi_sweep.cu", "persistent_jacobi.cu", "remote_axis.cu",
-        "self_fill.cu"]
+        "ipc.cu", "jacobi_multistep.cu", "jacobi_sweep.cu", "persistent_jacobi.cu",
+        "remote_axis.cu", "self_fill.cu"]
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(_native.SIGNATURES)
 
 
