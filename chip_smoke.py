@@ -522,9 +522,40 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               beside the one-process mesh's, and a handshake alone; rank
               0's launch of each phase timed alone (CUDA-graph replay)
               beside its plain version and bound; the
-              refusals (a position on a second card's UUID, the fused
-              variant across processes). Rehearsable on the CPU only in
-              its parts (tests/test_torch_multiprocess.py).
+              refusals (a position on a second card's UUID, more blocks
+              than positions across processes). Rehearsable on the CPU
+              only in its parts (tests/test_torch_multiprocess.py).
+22. variants across processes -- B7, B8 and B9 in their cross-process
+              forms (variants_processes_phase; workers python -m chip_smoke
+              --variants-processes-worker): each rank's launch over its own
+              positions pulls the messages through CUDA IPC after one
+              handshake with every rank they cross to (parallel/ipc
+              PhaseOrder.before_all). The one-process 8-position runs of
+              the same steps first (their fields the ranks must equal, and
+              their ms/iter); then over 2 ranks x 4 positions and 8 x 1:
+              (a) B7 at 512^3 over (2,2,2), r1, 4 fp32 quantities,
+              unnarrowed and through bf16: every block gathered on rank 0
+              and held torch.equal to B7's plain version and to
+              the one-process B7 exchange, 1 launch and 1 handshake a rank;
+              (b) fused jacobi3d 512^3, 50 steps in chunks of 25 (and
+              through bf16 at 2 x 4): 1 B8 launch and 1 handshake a step;
+              (c) persistent jacobi3d 512^3 at --deep-halo 4, 48 steps in
+              chunks of 24: 1 B9 launch a chunk, sel's B6 exchange once a
+              loop call, and at 8 x 1 also 50 steps in chunks of 25, whose
+              depth-1 tails (B6's exchange and a B1 sweep) follow B9
+              chunks; (d) at 2 x 4, the k = 8 chunk at 256^3 (two on-chip
+              passes): 2 B9 launches and 2 handshakes a chunk; (e) at 2 x 3,
+              the uneven (3,2,1) fused schedule and persistent k = 4 at
+              512^3 (B6 and B1 a step; B6 and B9's uneven form a chunk).
+              Every field torch.equal to the one-process run; rank 0's B8
+              and B9 launches alone held torch.equal to their plain
+              versions (the k = 8 chunk's two launches and the uneven
+              form's too); rank 0's B7, B8 and B9 launches timed alone
+              (CUDA-graph replay) beside their plain versions and bounds;
+              ms/iter by CUDA events beside the one-process mesh's, the
+              handshakes a step or chunk and their host ms. Rehearsable on
+              the CPU only in its parts
+              (tests/test_torch_multiprocess_variants.py).
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -5392,10 +5423,30 @@ def ipc_offset_check(dev, rank: int) -> dict:
     return res
 
 
+def oversubscribed_refusal(dev, k: int):
+    """The message of the refusal of more blocks than positions over
+    positions of several processes (a (4,2,2) partition over ``k``
+    positions a rank), or None when it realizes."""
+    from stencil_tpu_torch import DistributedDomain
+    from stencil_tpu_torch.parallel import Method
+
+    d = DistributedDomain(64, 64, 64, device=dev)
+    d.set_radius(1)
+    d.set_methods(Method.REMOTE_DMA)
+    d.set_devices([dev] * k)
+    d.set_partition((4, 2, 2))
+    d.add_data("t", "float32")
+    try:
+        d.realize()
+        return None
+    except NotImplementedError as e:
+        return str(e)
+
+
 def processes_worker(out: str, n: int, iters: int, chunk: int) -> int:
     """One rank of phase 21 (run by apps.launch_multiprocess as ``python -m
     chip_smoke --processes-worker OUT N ITERS CHUNK``): the IPC offset
-    check, the exchanges, the fused refusal, and jacobi3d with its launch
+    check, the exchanges, the oversubscribed refusal, and jacobi3d with its launch
     counts, its field (rank 0 saves it) and its ms/iter; then rank 0 times
     each phase's launch alone. Writes ``OUT/report_<rank>.json``."""
     from stencil_tpu_torch.apps import jacobi3d
@@ -5420,12 +5471,7 @@ def processes_worker(out: str, n: int, iters: int, chunk: int) -> int:
         configs.append((None, 3, (3, 2, 1)))  # the uneven ring, 2 ranks x 3 positions
     rep["exchanges"] = [processes_exchange(dev, n, npos, wire, part, rank)
                         for wire, npos, part in configs]
-    try:
-        jacobi3d.run(64, 64, 64, iters=1, method=Method.REMOTE_DMA, kernel_variant="fused",
-                     weak=False)
-        rep["fused_raised"] = None
-    except NotImplementedError as e:
-        rep["fused_raised"] = str(e)
+    rep["oversubscribed_raised"] = oversubscribed_refusal(dev, k)
     # jacobi3d by remote-dma: the main path, counts reset around it
     rdma.remote_axis.launches = sk.sweep_positions.launches = 0
     r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, method=Method.REMOTE_DMA, weak=False)
@@ -5574,8 +5620,9 @@ def processes_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: int = 25
                       and ex["narrowed"] == (ex["launches"] if ex["wire"] else 0),
                       f"rank {rep['rank']} over {label}: {ex['launches']} B6 launches "
                       f"({ex['narrowed']} narrowed), want {ex['want_launches']}")
-            check("queue B item 6" in (rep["fused_raised"] or ""),
-                  f"rank {rep['rank']}: the fused variant across processes: {rep['fused_raised']}")
+            check("queue B item 6" in (rep["oversubscribed_raised"] or ""),
+                  f"rank {rep['rank']}: more blocks than positions across processes: "
+                  f"{rep['oversubscribed_raised']}")
             check(rep["b6_launches"] == 3 * steps and rep["b1_launches"] == steps,
                   f"rank {rep['rank']} over {label}: jacobi3d launched B6 {rep['b6_launches']} "
                   f"and B1 {rep['b1_launches']} times, want {3 * steps} and {steps}")
@@ -5625,6 +5672,497 @@ def processes_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: int = 25
     errs = {"remote_axis_across": max(ex["max_abs_err"] for p, k in layouts
                                       for ex in found[(p, k)][0][0]["exchanges"])}
     log(f"processes phase: {time.perf_counter() - t0:.1f} s")
+    return timings, launches, errs
+
+
+VARIANT_SEED = 2200
+
+
+def variants_exchange(dev, n: int, npos: int, wire, rank: int, time_ms) -> dict:
+    """One rank's part of B7 across processes: the domain of 4 fp32
+    quantities at n^3 r1 with the fused exchange over ``npos`` positions a
+    rank, filled from :func:`position_block`, exchanged once (launches and
+    handshakes counted), gathered on rank 0 and held there to B7's
+    plain version over a one-process mesh of the card and to the
+    one-process fused exchange of the same input; then 10 exchanges timed
+    with the host in the loop, and rank 0's launch alone (CUDA-graph
+    replay) beside its plain version."""
+    from stencil_tpu_torch import DistributedDomain
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method, ipc
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    dd = DistributedDomain(n, n, n, device=dev)
+    dd.set_radius(1)
+    dd.set_methods(Method.REMOTE_DMA)
+    dd.set_fused_exchange(True)
+    dd.set_devices([dev] * npos)
+    if wire:
+        dd.set_wire_dtype(wire)
+    hs = [dd.add_data(f"q{q}", "float32") for q in range(4)]
+    dd.realize()
+    spec, mesh, p = dd.spec, dd.mesh, dd.spec.padded()
+    plan, peers = dd.halo_exchange.plan, dd.peers
+    for q, h in enumerate(hs):
+        for i in mesh.local_positions():
+            dd.get_curr(h)[i].copy_(position_block(i, q, p, dev, VARIANT_SEED))
+    order = peers.order
+    fst.fused_exchange_across.launches = fst.fused_exchange_across.narrowed = 0
+    shakes0 = order.handshakes
+    dd.exchange()
+    res = {"wire": wire, "dim": list(spec.dim), "positions": len(mesh),
+           "launches": fst.fused_exchange_across.launches,
+           "narrowed": fst.fused_exchange_across.narrowed,
+           "handshakes": order.handshakes - shakes0,
+           "transfers": dd.halo_exchange.last_transfer_count}
+    gathered = [peers.gather(dd.get_curr(h)) for h in hs]
+    if rank == 0:
+        one = DeviceMesh(mesh.dim, [dev] * len(mesh))
+        plain = [[position_block(i, q, p, dev, VARIANT_SEED) for q in range(4)]
+                 for i in range(len(mesh))]
+        fst.fused_exchange_plain(plain, spec, plan, one, wire)
+        ex1 = HaloExchange(spec, Method.REMOTE_DMA, fused=True, mesh=one, wire_dtype=wire)
+        state = {q: [position_block(i, q, p, dev, VARIANT_SEED) for i in range(len(mesh))]
+                 for q in range(4)}
+        ex1(state)
+        res["equal_plain"] = all(torch.equal(gathered[q][i], plain[i][q])
+                                 for q in range(4) for i in range(len(mesh)))
+        res["equal_one_process"] = all(torch.equal(gathered[q][i], state[q][i])
+                                       for q in range(4) for i in range(len(mesh)))
+        res["max_abs_err"] = max(max_abs(gathered[q][i], plain[i][q])
+                                 for q in range(4) for i in range(len(mesh)))
+        del plain, state, ex1
+    del gathered
+    host0, shakes0 = order.host_s, order.handshakes
+    loop = dd.exchange_loop(10)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loop(dd.curr_state())
+    end.record()
+    end.synchronize()
+    res["ms_exchange"] = start.elapsed_time(end) / 10
+    res["handshake_host_ms"] = (order.host_s - host0) / 10 * 1e3
+    res["handshakes_per_exchange"] = (order.handshakes - shakes0) / 10
+    torch.distributed.barrier()
+    if rank == 0:
+        # rank 0's launch alone (the others wait; it rewrites the same halos)
+        where = [fst.peer_pointers(dd.get_curr(h), peers, mesh) for h in hs]
+        like = dd.get_curr(hs[0])[mesh.local_positions()[0]]
+        nbytes = like.numel() * like.element_size()
+        res["ms"] = time_ms(lambda: fst.fused_exchange_across(
+            lambda i: tuple(w(i) for w in where), 4, torch.float32, spec, plan, mesh, dev, wire),
+            20, graph=True)
+        views = [[dd.get_curr(h)[i] if mesh.is_local(i) else
+                  ipc.cuda_view(where[q](i), nbytes, like) for q, h in enumerate(hs)]
+                 for i in range(len(mesh))]
+        start.record()
+        for _ in range(3):
+            fst.fused_exchange_plain(views, spec, plan, mesh, wire)
+        end.record()
+        end.synchronize()
+        res["plain_ms"] = start.elapsed_time(end) / 3
+        nb = fst.fused_exchange_bytes(plan, 4, len(mesh.local_positions()), 4)
+        res["bytes"], res["bound_ms"] = nb, bound_ms(nb, 0)[0]
+        del views
+    peers.close()
+    torch.distributed.barrier()  # every rank has unmapped before any frees
+    del dd
+    torch.cuda.empty_cache()
+    return res
+
+
+def variant_counts() -> dict:
+    """The launch counters phase 22 reads: B8's and B9's cross-process
+    forms, B6 (sel's exchange, the uneven forms' exchanges), B1's
+    positions and shells sweeps (the uneven fused schedule)."""
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+
+    return {"b8": fst.fused_jacobi_across.launches, "b8_narrowed": fst.fused_jacobi_across.narrowed,
+            "b9": pst.persistent_jacobi_across.launches,
+            "b9_uneven": pst.persistent_jacobi_across.uneven, "b6": rdma.remote_axis.launches,
+            "b1": sk.sweep_positions.launches, "b1_shells": sk.sweep_regions.launches}
+
+
+def zero_variant_counts() -> None:
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+
+    fst.fused_jacobi_across.launches = fst.fused_jacobi_across.narrowed = 0
+    pst.persistent_jacobi_across.launches = pst.persistent_jacobi_across.uneven = 0
+    rdma.remote_axis.launches = sk.sweep_positions.launches = sk.sweep_regions.launches = 0
+
+
+def variant_run(dev, rank: int, ref: str, n: int, iters: int, chunk: int, npos=None,
+                partition=None, **kw):
+    """One rank of a variant's jacobi3d run over processes: the counts
+    reset around ``apps.jacobi3d.run`` (the main path), the gathered field
+    held on rank 0 to the one-process run's (``ref``, a .npy file), then
+    one more chunk timed by CUDA events with its handshakes and their host
+    ms. Returns ``(report, domain, loop's (curr, nxt), sel)``."""
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import Method
+
+    zero_variant_counts()
+    r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, method=Method.REMOTE_DMA, weak=False,
+                     devices=[dev] * npos if npos else None, partition=partition, **kw)
+    torch.cuda.synchronize(dev)
+    res = {"counts": variant_counts(), "row": jacobi3d.csv_row(r),
+           "launches_per_chunk": r["domain"].halo_exchange.last_launches_per_chunk}
+    dd, h = r["domain"], r["handle"]
+    field = dd.get_curr_global(h)
+    if rank == 0:
+        want = np.load(ref, mmap_mode="r")
+        res["equal_one_process"] = bool(np.array_equal(field, want))
+        res["max_abs_err"] = float(np.abs(field.astype(np.float64) - want).max())
+    del field
+    torch.distributed.barrier()  # the timed chunk starts together
+    tk = kw.get("deep_halo") if kw.get("kernel_variant") == "persistent" else None
+    loop = make_jacobi_loop(dd.halo_exchange, chunk, temporal_k=tk)
+    sel = sphere_sel_blocks(dd.spec, dd.mesh)
+    curr, nxt = dd.get_curr(h), dd.get_next(h)
+    loop(curr, nxt, sel)  # warm: its tables made, sel's halos filled
+    torch.distributed.barrier()
+    order = dd.peers.order
+    host0, shakes0 = order.host_s, order.handshakes
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    curr, nxt = loop(curr, nxt, sel)
+    end.record()
+    end.synchronize()
+    res["ms_iter"] = start.elapsed_time(end) / chunk
+    res["handshakes_per_step"] = (order.handshakes - shakes0) / chunk
+    res["handshake_host_ms_per_step"] = (order.host_s - host0) / chunk * 1e3
+    torch.distributed.barrier()
+    return res, dd, (curr, nxt), sel
+
+
+def alone_check(dev, dd, curr, nxt, sel, launch, plain, time_ms=None, nbytes=0):
+    """Rank 0's launch of a cross-process kernel alone (the other ranks
+    wait at a barrier): ``launch(ptrs_of)`` on the domain's buffers, held
+    torch.equal on every local block to ``plain(currs, nxts)`` run on
+    copies (the other ranks' curr as mapped views); then, with ``time_ms``,
+    the launch timed by CUDA-graph replay (it is idempotent: it rewrites
+    the same halos and outputs) and the plain version by CUDA events."""
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.parallel import ipc
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    mesh, peers = dd.mesh, dd.peers
+    curr_of = fst.peer_pointers(curr, peers, mesh)
+
+    def ptrs_of(i):
+        if mesh.is_local(i):
+            return curr_of(i), nxt[i].data_ptr(), sel[i].data_ptr()
+        return curr_of(i), 0, 0
+
+    like = curr[mesh.local_positions()[0]]
+    nb = like.numel() * like.element_size()
+    views = [curr[i].clone() if mesh.is_local(i) else ipc.cuda_view(curr_of(i), nb, like)
+             for i in range(len(mesh))]
+    outs = [nxt[i].clone() if mesh.is_local(i) else None for i in range(len(mesh))]
+    plain(views, outs)
+    launch(ptrs_of)
+    torch.cuda.synchronize(dev)
+    locs = mesh.local_positions()
+    res = {"equal_plain": all(torch.equal(curr[i], views[i]) and torch.equal(nxt[i], outs[i])
+                              for i in locs),
+           "max_abs_err": max(max(max_abs(curr[i], views[i]), max_abs(nxt[i], outs[i]))
+                              for i in locs)}
+    if time_ms is not None:
+        res["ms"] = time_ms(lambda: launch(ptrs_of), 20, graph=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            plain(views, outs)
+        end.record()
+        end.synchronize()
+        res["plain_ms"] = start.elapsed_time(end) / 3
+        res["bytes"], res["bound_ms"] = nbytes, bound_ms(nbytes, 0)[0]
+    return res
+
+
+def variants_processes_worker(out: str, n: int, iters: int, chunk: int) -> int:
+    """One rank of phase 22 (run by apps.launch_multiprocess as ``python -m
+    chip_smoke --variants-processes-worker OUT N ITERS CHUNK``; the
+    one-process fields are ``OUT/../ref_<name>.npy``): B7's exchanges,
+    then the fused and persistent jacobi3d runs with their counts, fields
+    and ms/iter, rank 0's B8 and B9 launches alone against their plain
+    versions and timed, and at 2 ranks the k = 8 chunk and the uneven
+    (3,2,1) forms over 3 positions a rank. Writes
+    ``OUT/report_<rank>.json``."""
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+    from stencil_tpu_torch.parallel import distributed
+    from stencil_tpu_torch.utils.timer import cuda_time_ms
+
+    distributed.maybe_init_from_env()
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    k = len(distributed.default_positions())
+    t0 = time.perf_counter()
+    refs = os.path.dirname(out)
+    rep = {"rank": rank, "world": world, "positions": k}
+    rep["exchanges"] = [variants_exchange(dev, n, k, wire, rank, cuda_time_ms)
+                        for wire in (None, "bfloat16")]
+    cube = (2, 2, 2)
+    runs = {"fused": (dict(kernel_variant="fused"), iters, chunk, n, None, cube)}
+    if world == 2:
+        runs["fused_bf16"] = (dict(kernel_variant="fused", wire_dtype="bfloat16"), iters, chunk,
+                              n, None, cube)
+    runs["persistent_k4"] = (dict(kernel_variant="persistent", deep_halo=4), 48, 24, n, None,
+                             cube)
+    if world == 8:
+        # chunks of 25 steps at k = 4 end in a depth-1 tail (B6's exchange
+        # and a sweep) that overwrites the buffer the other ranks pulled in
+        # their last B9 launch
+        runs["persistent_k4_tail"] = (dict(kernel_variant="persistent", deep_halo=4), 50, 25, n,
+                                      None, cube)
+    if world == 2:
+        runs["persistent_k8"] = (dict(kernel_variant="persistent", deep_halo=8), 48, 16, n // 2,
+                                 None, cube)
+        runs["uneven_fused"] = (dict(kernel_variant="fused"), iters, chunk, n, 3, (3, 2, 1))
+        runs["uneven_persistent"] = (dict(kernel_variant="persistent", deep_halo=4), 48, 24, n, 3,
+                                     (3, 2, 1))
+    rep["runs"] = {}
+    for name, (kw, it, ch, size, npos, part) in runs.items():
+        res, dd, (curr, nxt), sel = variant_run(dev, rank, os.path.join(refs, f"ref_{name}.npy"),
+                                                size, it, ch, npos, part, **kw)
+        spec, mesh, plan = dd.spec, dd.mesh, dd.halo_exchange.plan
+        nloc = len(mesh.local_positions())
+        if rank == 0 and name in ("fused", "persistent_k4", "persistent_k8",
+                                  "uneven_persistent"):
+            timed = cuda_time_ms if name in ("fused", "persistent_k4") else None
+            if name == "fused":
+                res["alone"] = alone_check(
+                    dev, dd, curr, nxt, sel,
+                    lambda ptrs_of: fst.fused_jacobi_across(ptrs_of, spec, plan, mesh, dev),
+                    lambda c, o: fst.fused_jacobi_mesh_plain(c, o, sel, spec, plan, mesh),
+                    timed, fst.fused_jacobi_mesh_bytes(plan, nloc, spec))
+            else:
+                d = kw["deep_halo"]
+                npass = len(pst.chunk_passes(d))
+
+                def launch(ptrs_of, d=d, npass=npass):
+                    pst.persistent_jacobi_across(ptrs_of, spec, d, mesh, dev, range(0, 1))
+                    if npass > 1:
+                        pst.persistent_jacobi_across(ptrs_of, spec, d, mesh, dev,
+                                                     range(1, npass))
+
+                res["alone"] = alone_check(
+                    dev, dd, curr, nxt, sel, launch,
+                    lambda c, o, d=d: pst.persistent_jacobi_mesh_plain(c, o, sel, spec, d,
+                                                                            mesh),
+                    timed, pst.chunk_bytes(spec, d) * nloc)
+        torch.distributed.barrier()
+        dd.peers.close()
+        torch.distributed.barrier()  # every rank has unmapped before any frees
+        del dd, curr, nxt, sel
+        torch.cuda.empty_cache()
+        rep["runs"][name] = res
+    rep["seconds"] = time.perf_counter() - t0
+    path = os.path.join(out, f"report_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rep, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def variant_expected(name: str, world: int, iters: int, chunk: int, deep: int = 0) -> dict:
+    """The launches each rank's run must make, from the chunks
+    ``apps.jacobi3d.run`` runs (:func:`run_chunks`) and each chunk's
+    schedule: B8 one a step; B9 one a chunk of one on-chip pass, two of
+    several; sel's B6 exchange once a loop call (3 rings on (2,2,2); on the
+    uneven (3,2,1) over 2 x 3, 2 rings and B4 on z), the uneven persistent
+    chunk's deep exchange, a depth-1 tail's exchange and its B1 sweep, the
+    uneven fused step's exchange and its two B1 launches."""
+    from stencil_tpu_torch.ops import persistent_stencil as pst
+
+    calls = run_chunks(iters, chunk)
+    steps = sum(calls)
+    rings = 2 if name.startswith("uneven") else 3
+    if "fused" in name:
+        if name.startswith("uneven"):
+            return {"b8": 0, "b6": rings * steps, "b1": steps, "b1_shells": steps, "b9": 0}
+        return {"b8": steps, "b6": 0, "b1": 0, "b1_shells": 0, "b9": 0}
+    chunks = [d for c in calls for d in pst.chunk_schedule(c, deep)]
+    kernel = [d for d in chunks if d >= 2]
+    tails = len(chunks) - len(kernel)
+    b9 = sum(len(pst.chunk_passes(d)) for d in kernel)
+    b6 = rings * (len(calls) + tails + (len(kernel) if name.startswith("uneven") else 0))
+    return {"b8": 0, "b6": b6, "b1": tails, "b1_shells": 0, "b9": b9}
+
+
+def variants_processes_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk: int = 25,
+                             layouts=((2, 4), (8, 1)), timeout: float = 480.0):
+    """Phase 22: the one-process runs of the same steps (each field saved
+    for the ranks, each main run's ms/iter), then each layout (processes x
+    positions) through apps.launch_multiprocess running
+    :func:`variants_processes_worker`, every rank's report held. Returns
+    the kernels line's timings, launches and errors of
+    ``fused_exchange_across``, ``fused_jacobi_across`` and
+    ``persistent_jacobi_across``."""
+    import shutil
+
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.apps import launch_multiprocess as lm
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import Method
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_variants_")
+    cube = (2, 2, 2)
+    refs = {"fused": (dict(kernel_variant="fused"), iters, chunk, n, 8, cube),
+            "fused_bf16": (dict(kernel_variant="fused", wire_dtype="bfloat16"), iters, chunk, n,
+                           8, cube),
+            "persistent_k4": (dict(kernel_variant="persistent", deep_halo=4), 48, 24, n, 8, cube),
+            "persistent_k4_tail": (dict(kernel_variant="persistent", deep_halo=4), 50, 25, n, 8,
+                                   cube),
+            "persistent_k8": (dict(kernel_variant="persistent", deep_halo=8), 48, 16, n // 2, 8,
+                              cube),
+            "uneven_fused": (dict(kernel_variant="fused"), iters, chunk, n, 6, (3, 2, 1)),
+            "uneven_persistent": (dict(kernel_variant="persistent", deep_halo=4), 48, 24, n, 6,
+                                  (3, 2, 1))}
+    one_ms = {}
+    for name, (kw, it, ch, size, npos, part) in refs.items():
+        r1 = jacobi3d.run(size, size, size, iters=it, chunk=ch, devices=[dev] * npos,
+                          method=Method.REMOTE_DMA, weak=False, partition=part, **kw)
+        dd1, h1 = r1["domain"], r1["handle"]
+        np.save(os.path.join(out, f"ref_{name}.npy"), dd1.get_curr_global(h1))
+        if name in ("fused", "persistent_k4"):
+            tk = kw.get("deep_halo") if kw["kernel_variant"] == "persistent" else None
+            loop1 = make_jacobi_loop(dd1.halo_exchange, ch, temporal_k=tk)
+            sel1 = sphere_sel_blocks(dd1.spec, dd1.mesh)
+            one_ms[name] = time_ms(lambda: loop1(dd1.get_curr(h1), dd1.get_next(h1), sel1), 1,
+                                   warmup=1) / ch
+            del loop1, sel1
+        del r1, dd1
+        torch.cuda.empty_cache()
+    log(f"variants: the one-process 8-position runs: fused {one_ms['fused']:.4f} ms/iter, "
+        f"persistent k=4 {one_ms['persistent_k4']:.4f} ms/iter "
+        f"({time.perf_counter() - t0:.1f} s with the reference fields)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [root] + [v for v in os.environ.get("PYTHONPATH", "").split(os.pathsep) if v])
+    found = {}
+    try:
+        for nprocs, k in layouts:
+            d = os.path.join(out, f"{nprocs}x{k}")
+            os.makedirs(d)
+            t1 = time.perf_counter()
+            with open(os.path.join(d, "ranks.log"), "w") as ranks_log:
+                rc = lm.launch(nprocs, k, "chip_smoke",
+                               ["--variants-processes-worker", d, str(n), str(iters), str(chunk)],
+                               timeout=timeout, build=False, stdout=ranks_log,
+                               stderr=subprocess.STDOUT)
+            text = open(os.path.join(d, "ranks.log")).read()
+            check(rc == 0, f"phase 22 over {nprocs} x {k} failed (rc {rc}):\n{text[-6000:]}")
+            reps = [json.load(open(os.path.join(d, f"report_{r}.json"))) for r in range(nprocs)]
+            label = f"{nprocs} x {k}"
+            for ex in reps[0]["exchanges"]:
+                check(ex["equal_plain"] and ex["equal_one_process"],
+                      f"B7 across {label} wire {ex['wire']}: not equal to its plain "
+                      f"version ({ex['equal_plain']}) or the one-process exchange "
+                      f"({ex['equal_one_process']}), max abs err {ex['max_abs_err']}")
+                log(f"variants {label}: B7 exchange {n}^3 {ex['dim']} x4 fp32, wire "
+                    f"{ex['wire'] or 'unnarrowed'}: equal to its plain version and to "
+                    f"the one-process exchange; rank 0's launch alone {ex['ms']:.4f} ms "
+                    f"(CUDA-graph replay; plain {ex['plain_ms']:.4f} ms, bound "
+                    f"{ex['bound_ms']:.4f} ms by bytes); {ex['ms_exchange']:.4f} ms an exchange "
+                    f"with the host, handshake host {ex['handshake_host_ms']:.4f} ms "
+                    f"({ex['handshakes_per_exchange']:.0f} an exchange)")
+            for rep in reps:
+                for ex in rep["exchanges"]:
+                    check((ex["launches"], ex["handshakes"]) == (1, 1)
+                          and ex["narrowed"] == (1 if ex["wire"] else 0),
+                          f"rank {rep['rank']} over {label}: B7 {ex['launches']} launches "
+                          f"({ex['narrowed']} narrowed), {ex['handshakes']} handshakes, want 1")
+                for name, res in rep["runs"].items():
+                    kw, it, ch, _size, _npos, _part = refs[name]
+                    want = variant_expected(name, nprocs, it, ch, kw.get("deep_halo", 0))
+                    got = {key: res["counts"][key] for key in want}
+                    check(got == want, f"rank {rep['rank']} over {label} {name}: launches {got}, "
+                                       f"want {want}")
+                    check(res["counts"]["b8_narrowed"] == (want["b8"] if "bf16" in name else 0),
+                          f"rank {rep['rank']} over {label} {name}: "
+                          f"{res['counts']['b8_narrowed']} narrowed B8 launches")
+            for name, res in reps[0]["runs"].items():
+                check(res["equal_one_process"],
+                      f"jacobi3d {name} over {label}: the field differs from the one-process "
+                      f"run (max abs err {res['max_abs_err']})")
+                alone = res.get("alone")
+                if alone is not None:
+                    check(alone["equal_plain"],
+                          f"rank 0's {name} launch alone over {label}: not equal to its "
+                          f"plain version (max abs err {alone['max_abs_err']})")
+                for rep in reps:
+                    r = rep["runs"][name]
+                    log(f"variants {label} rank {rep['rank']} {name}: {r['counts']}, "
+                        f"{r['ms_iter']:.4f} ms/iter by CUDA events, "
+                        f"{r['handshakes_per_step']:.3f} handshakes a step, their host "
+                        f"{r['handshake_host_ms_per_step']:.4f} ms a step; "
+                        f"{r['launches_per_chunk']} launches a chunk")
+                extra = ""
+                if alone is not None and "ms" in alone:
+                    extra = (f"; rank 0's launch alone {alone['ms']:.4f} ms (CUDA-graph replay; "
+                             f"plain {alone['plain_ms']:.4f} ms, bound {alone['bound_ms']:.4f} "
+                             "ms by bytes)")
+                elif alone is not None:
+                    extra = "; rank 0's launches alone equal to their plain version"
+                base = one_ms.get(name)
+                log(f"variants {label} {name}: field equal to the one-process run; "
+                    f"{res['row']}; ms/iter {res['ms_iter']:.4f}"
+                    + (f" beside the one-process mesh's {base:.4f}" if base else "") + extra)
+            found[(nprocs, k)] = (reps, time.perf_counter() - t1)
+            log(f"variants {label}: {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    reps0 = {key: v[0][0] for key, v in found.items()}
+    main = reps0[layouts[0]]
+    ex0 = main["exchanges"][0]
+    extra = {f"ms_{p}x{k}": {"b7": reps0[(p, k)]["exchanges"][0]["ms"],
+                             "b8": reps0[(p, k)]["runs"]["fused"]["alone"]["ms"],
+                             "b9": reps0[(p, k)]["runs"]["persistent_k4"]["alone"]["ms"]}
+             for p, k in layouts}
+    extra.update({f"ms_iter_{p}x{k}": {name: r["ms_iter"] for name, r in reps0[(p, k)]["runs"].items()}
+                  for p, k in layouts})
+    extra["ms_iter_one_process"] = one_ms
+    extra["handshakes_per_step"] = {f"{p}x{k}": {name: r["handshakes_per_step"]
+                                                 for name, r in reps0[(p, k)]["runs"].items()}
+                                    for p, k in layouts}
+    extra["handshake_host_ms_per_step"] = {
+        f"{p}x{k}": {name: r["handshake_host_ms_per_step"]
+                     for name, r in reps0[(p, k)]["runs"].items()} for p, k in layouts}
+    fused, pers = main["runs"]["fused"], main["runs"]["persistent_k4"]
+    timings = {
+        "fused_exchange_across": dict(ms=ex0["ms"], plain_ms=ex0["plain_ms"],
+                                      bound=bound_ms(ex0["bytes"], 0), library_ms=None,
+                                      extra=extra),
+        "fused_jacobi_across": dict(ms=fused["alone"]["ms"], plain_ms=fused["alone"]["plain_ms"],
+                                    bound=bound_ms(fused["alone"]["bytes"], 0), library_ms=None),
+        "persistent_jacobi_across": dict(ms=pers["alone"]["ms"],
+                                         plain_ms=pers["alone"]["plain_ms"],
+                                         bound=bound_ms(pers["alone"]["bytes"], 0),
+                                         library_ms=None)}
+    launches = {"fused_exchange_across": ex0["launches"],
+                "fused_jacobi_across": fused["counts"]["b8"],
+                "persistent_jacobi_across": pers["counts"]["b9"]}
+    errs = {"fused_exchange_across": max(ex["max_abs_err"] for r in reps0.values()
+                                         for ex in r["exchanges"]),
+            "fused_jacobi_across": max(max(r["runs"]["fused"]["alone"]["max_abs_err"],
+                                           r["runs"]["fused"]["max_abs_err"])
+                                       for r in reps0.values()),
+            "persistent_jacobi_across": max(
+                max(res["alone"]["max_abs_err"] for name, res in r["runs"].items()
+                    if "alone" in res and "persistent" in name) for r in reps0.values())}
+    log(f"variants phase: {time.perf_counter() - t0:.1f} s")
     return timings, launches, errs
 
 
@@ -7449,6 +7987,13 @@ def main() -> int:
     launches.update(l21)
     errs.update(e21)
 
+    # -- 22. the fused and persistent variants across processes: B7, B8 and --
+    #        B9 in their cross-process forms
+    t22, l22, e22 = variants_processes_phase(dev, time_ms)
+    timings.update(t22)
+    launches.update(l22)
+    errs.update(e22)
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -7563,6 +8108,14 @@ def main() -> int:
         # its neighbours' blocks through CUDA IPC
         "remote_axis_across": ("stencil_tpu_torch/csrc/remote_axis.cu",
                                "stencil_tpu/ops/remote_dma.py:68"),
+        # B7, B8 and B9 across processes: each rank's one launch over its own
+        # positions, pulling its messages through CUDA IPC
+        "fused_exchange_across": ("stencil_tpu_torch/csrc/fused_exchange.cu",
+                                  "stencil_tpu/ops/fused_stencil.py:100"),
+        "fused_jacobi_across": ("stencil_tpu_torch/csrc/fused_jacobi.cu",
+                                "stencil_tpu/ops/fused_stencil.py:250"),
+        "persistent_jacobi_across": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
+                                     "stencil_tpu/ops/persistent_stencil.py:199"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)
@@ -7587,4 +8140,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--processes-worker"]:
         sys.exit(processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
+    if sys.argv[1:2] == ["--variants-processes-worker"]:
+        sys.exit(variants_processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
     sys.exit(main())

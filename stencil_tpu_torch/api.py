@@ -38,8 +38,10 @@ two-level, ``NodePartition(size, radius, processes, positions /
 processes)`` as the JAX package does, and allocates only this rank's
 positions (another rank's entry of each list is None). On the card the
 ranks then export their curr and next stacks to each other through CUDA
-IPC (``parallel/ipc.PeerBuffers``). The checkpoint calls skip, counted and
-warned once, as the JAX package's do across processes.
+IPC (``parallel/ipc.PeerBuffers``), which every variant of the remote-dma
+exchange reads through: the plain step, the fused step and the persistent
+chunk. The checkpoint calls skip, counted and warned once, as the JAX
+package's do across processes.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``device=None`` means the current CUDA device and raises when none is
@@ -304,7 +306,9 @@ class DistributedDomain:
 
                     bufs = {(idx, b): st[idx] for idx in self._curr
                             for b, st in ((0, self._curr), (1, self._next))}
-                    self.peers = PeerBuffers(self.mesh, bufs)
+                    # the directions B7-B9 move messages along
+                    steps = [(d.x, d.y, d.z) for d in DIRECTIONS_26 if self.radius.dir(d)]
+                    self.peers = PeerBuffers(self.mesh, bufs, steps)
                     self._exchange.attach_peers(self.peers)
         self.time_realize = time.perf_counter() - t0
         self._realized = True

@@ -9,10 +9,12 @@ entry, repeats allowed (the reference's ``set_gpus({0,0})``), weak-scaled
 by their number as in the JAX app: per step the remote-dma exchange, then
 one sweep per position; with ``kernel_variant="fused"`` one fused step
 launch per step over every position, with ``"persistent"`` one chunk
-launch per ``deep_halo`` steps. A device count such as 6 at ``--no-weak``
-splits 512^3 unevenly, (3,2,1) with x blocks of 171/171/170: the plain and
-fused variants run it (fused by the host-orchestrated schedule, as in the
-JAX package); the persistent one raises.
+launch per ``deep_halo`` steps. Under ``apps/launch_multiprocess`` each
+rank steps its own positions, every variant included (one launch per rank
+over its positions); rank 0 prints the row. A device count such as 6 at
+``--no-weak`` splits 512^3 unevenly, (3,2,1) with x blocks of 171/171/170:
+every variant runs it (fused by the host-orchestrated schedule, as in the
+JAX package; persistent by the chunk kernel's uneven form).
 
 The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
 bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,

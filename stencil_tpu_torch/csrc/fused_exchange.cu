@@ -44,10 +44,16 @@
 //
 // Ordering: every message reads only compute cells, which no message
 // writes, and writes only halo cells, each by exactly one message; so one
-// launch needs no order among its threads. Positions on distinct GPUs will
-// need each device's launch to wait until its neighbours' previous reads of
-// the halos it overwrites are done (an event per neighbour), which is the
-// TPU kernel's barrier.
+// launch needs no order among its threads.
+//
+// The cross-process form (fused_stencil.fused_exchange_across) is this kernel
+// unchanged: each process of a mesh spread over the processes of one card
+// launches over its own receivers, the work list unpaired (a paired x row
+// would write the sender's block) and each pointer row pairing the source
+// block (its own, or another process's mapped through CUDA IPC) with its
+// receiver, so a process writes only its own memory. Before the launch its
+// stream waits on an interprocess event of every process the messages cross
+// to (parallel/ipc.py), the TPU kernel's barrier.
 
 #include "row_moves.cuh"
 

@@ -59,6 +59,15 @@
 // same launch. W = NONE is the unnarrowed kernel, unchanged: the rounding is
 // compiled only into the W != NONE instantiations. One block has no
 // crossing box, so its form launches W = NONE.
+//
+// The cross-process form (fused_stencil.fused_jacobi_across): each process of a mesh
+// spread over the processes of one card launches the step over its own
+// positions, its phase-A rows the messages into them, each pulled from the
+// source position's a (this process's, or another's mapped through CUDA
+// IPC): the TPU kernel's senders become receivers, so a launch writes only its
+// own memory, and grid.sync() still separates its pulls from its sweep inside
+// one cooperative launch. Phase B sweeps the table's first nsweep rows, this
+// process's; the mapped rows after them are only read.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,7 +102,8 @@ struct Step {
   const MeshPosition* pos;
   const MeshMessage* msg;
   const RowSeg* segs;
-  int npos, m, nseg;
+  int m, nseg;
+  int nsweep;  // rows phase B sweeps: the first nsweep of the position table
   long long tasks;
   runs::Geometry g;
   wire::Format fmt;  // the format W = SOFT rounds into
@@ -157,7 +167,7 @@ fused_step_kernel(const __grid_constant__ Step s) {
   move_rows<WIRE>(s);
   cooperative_groups::this_grid().sync();
   const int per_pos = s.g.gx * s.g.gy * s.g.nzc;
-  const int tiles = per_pos * s.npos;
+  const int tiles = per_pos * s.nsweep;
   for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
     const MeshPosition p = s.pos[w / per_pos];
     runs::sweep_tile(s.g, p.a, p.b, p.sel, smem, w % per_pos);
@@ -202,28 +212,37 @@ cudaError_t occupancy(const void* kernel, int* per_sm) {
 
 }  // namespace
 
-// pos: device table of npos rows (curr, nxt, sel pointers); msg: device table
-// of nboxes * m rows (source position, destination position, box index), m
-// rows per box in box order; segs: device table of nseg rows of seg_cols
-// int64 (the work list, fused_stencil.message_rows), `tasks` tasks in all;
-// every block a contiguous padded fp32 array with plane stride sz and row
-// stride sy, compute region at (zo, yo, xo) of nz x ny x nx cells, halos of
-// at least one cell; vec: every pointer on the 16-byte grid and sz, sy
-// multiples of 4; w: the wire code (wire_round.cuh; 0 copies bits) of the
-// segments flagged narrow, fmt its format's parameters
-// (halo_fill.wire_params; read for wire::SOFT); dev: the device of every
-// block. A launch the
-// device refuses returns its error; there is no fallback.
-extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, int m,
+// pos: device table of npos rows (curr, nxt, sel pointers), phase B sweeping
+// the first nsweep; msg: device table of nboxes * m rows (source row,
+// destination row, box index), m = nsweep rows per box in box order; segs:
+// device table of nseg rows of seg_cols int64 (the work list,
+// fused_stencil.message_rows), `tasks` tasks in all; every block a contiguous
+// padded fp32 array with plane stride sz and row stride sy, compute region at
+// (zo, yo, xo) of nz x ny x nx cells, halos of at least one cell; vec: every
+// pointer on the 16-byte grid and sz, sy multiples of 4; w: the wire code
+// (wire_round.cuh; 0 copies bits) of the segments flagged narrow, fmt its
+// format's parameters (halo_fill.wire_params; read for wire::SOFT); dev: the
+// device of every block. A launch the device refuses returns its error; there
+// is no fallback.
+//
+// In one process every row is swept (nsweep = npos). Across the processes of
+// one card (a mesh spread over them, fused_stencil.fused_jacobi_across) a
+// process launches over its own positions: its rows first, swept in phase B,
+// then the other processes' positions its messages come from, mapped through
+// CUDA IPC, whose a only phase A reads; its message rows are those into its
+// own positions. The launch then writes only this process's memory, so its
+// grid-wide barrier separates its own pulls from its own sweep; the caller
+// orders the launch after the other processes' (parallel/ipc.PhaseOrder).
+extern "C" int fused_jacobi_launch(const void* pos, int npos, int nsweep, const void* msg, int m,
                                    const void* segs, int nseg, int seg_cols, long long tasks,
                                    long long sz, long long sy, int zo, int yo, int xo, int nz,
                                    int ny, int nx, int vec, int w, const double* fmt, int dev,
                                    void* stream) {
   const void* kernel = kernel_for(w);
-  if (npos < 1 || m < 1 || nseg < 1 || nseg > MAX_SEGS || seg_cols != SEG_COLS || tasks < 1 ||
-      tasks > INT_MAX || nz < 1 || ny < 1 || nx < 1 || zo < 1 || yo < 1 || xo < 1 ||
-      sz >= (1LL << 31) || sy < xo + nx + 1 || sz < sy * (yo + ny + 1) || (vec != 0 && vec != 1) ||
-      !kernel || (w == wire::SOFT && !fmt))
+  if (npos < 1 || nsweep < 1 || nsweep > npos || m != nsweep || nseg < 1 || nseg > MAX_SEGS ||
+      seg_cols != SEG_COLS || tasks < 1 || tasks > INT_MAX || nz < 1 || ny < 1 || nx < 1 ||
+      zo < 1 || yo < 1 || xo < 1 || sz >= (1LL << 31) || sy < xo + nx + 1 ||
+      sz < sy * (yo + ny + 1) || (vec != 0 && vec != 1) || !kernel || (w == wire::SOFT && !fmt))
     return (int)cudaErrorInvalidValue;
   jacobi::DeviceScope on(dev);
   if (on.error() != cudaSuccess) return (int)on.error();
@@ -236,9 +255,9 @@ extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, i
   s.pos = (const MeshPosition*)pos;
   s.msg = (const MeshMessage*)msg;
   s.segs = (const RowSeg*)segs;
-  s.npos = npos;
   s.m = m;
   s.nseg = nseg;
+  s.nsweep = nsweep;
   s.tasks = tasks;
   s.fmt = wire::Format::from(fmt);
   runs::Geometry& g = s.g;
@@ -253,16 +272,15 @@ extern "C" int fused_jacobi_launch(const void* pos, int npos, const void* msg, i
   g.nx = nx;
   g.gx = runs::tiles_x(nx, xo);
   g.gy = (ny + runs::TY - 1) / runs::TY;
-  const long long cols = (long long)g.gx * g.gy * npos;
+  const long long cols = (long long)g.gx * g.gy * nsweep;
   const int nzc = zchunks_for(cols, nz, (long long)per_sm * sms);
   g.zchunk = (nz + nzc - 1) / nzc;
   g.nzc = (nz + g.zchunk - 1) / g.zchunk;
   g.vec = vec;
   if (cols * g.nzc > INT_MAX) return (int)cudaErrorInvalidValue;
   void* args[] = {&s};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * sms),
-                                  dim3(runs::NT), args, (size_t)runs::SMEM,
-                                  (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * sms), dim3(runs::NT), args,
+                                  (size_t)runs::SMEM, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,10 @@
 // are shared with fused_jacobi.cu (B8), which moves its messages by rows.
 //
 // Tables (int64, in device memory, made by the Python wrappers):
-// - positions: npos rows of (a, b, sel) pointers; a holds curr, b nxt;
+// - positions: npos rows of (a, b, sel) pointers; a holds curr, b nxt. The
+//   passes sweep the first nsweep rows (every row, but in the cross-process
+//   form, where the rows after them are other processes' positions, mapped
+//   through CUDA IPC, that only the messages read);
 // - extents (the uneven form only; null on a uniform partition): npos rows of
 //   (nz, ny, nx), each position's own compute extent. The uneven form runs
 //   no messages (B6 fills the deep halos before the launch) and each
@@ -47,8 +50,16 @@
 // in-plane offset of a cell is 32-bit (the launch refuses a plane of 2^31
 // cells or more).
 //
-// Positions on distinct GPUs would need peer pointers in the position table
-// and a barrier across devices: the kernel assumes nothing about where a
+// The cross-process form (positions of several processes on one card,
+// persistent_stencil.persistent_jacobi_across): each process launches over
+// its own positions, its message rows those into its own positions, their
+// sources its own rows or the mapped rows after them, so a launch writes only
+// its own memory and its barriers separate only its own work. A launch may
+// run a range of the chunk's passes [pass0, pass1), the messages with pass
+// 0: pass 1 writes a's compute cells, which other processes read in their
+// own pass-0 launch, so the caller runs the passes after pass 0 as a second
+// launch behind an interprocess handshake. Positions on distinct GPUs would
+// need a barrier across devices: the kernel assumes nothing about where a
 // pointer lives beyond what the table gives.
 
 #pragma once
@@ -77,7 +88,9 @@ struct MeshChunk {
   const MeshPosition* pos;
   const MeshMessage* msg;
   const long long* ext;  // per-position (nz, ny, nx), or null: every position nz x ny x nx
-  int npos, m, k;
+  int m, k;
+  int nsweep;        // rows the passes sweep: the first nsweep of the position table
+  int pass0, pass1;  // the passes this launch runs, [pass0, pass1); the messages with pass 0
   long long sz, sy;
   int zo, yo, xo, nz, ny, nx;
   DirBoxes boxes;
@@ -288,9 +301,9 @@ __device__ __forceinline__ void onchip_pass(const MeshChunk& c, int g, bool from
               gy = (ey + ONCHIP_TILE - 1) / ONCHIP_TILE;
     const int cols = gx * gy;
     const int zchunk = zchunk_for((long long)TILES_PER_BLOCK * gridDim.x,
-                                  (long long)cols * c.npos, ez0);
+                                  (long long)cols * c.nsweep, ez0);
     const int per_pos = cols * ((ez0 + zchunk - 1) / zchunk);
-    const int tiles = per_pos * c.npos;
+    const int tiles = per_pos * c.nsweep;
     for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
       const int u = w % per_pos;
       const int Z0 = (u / cols) * zchunk;
@@ -309,13 +322,13 @@ __device__ __forceinline__ void onchip_pass(const MeshChunk& c, int g, bool from
     };
     int ex, ey, ez, gx, gy;
     long long all_cols = 0;
-    for (int i = 0; i < c.npos; ++i) {
+    for (int i = 0; i < c.nsweep; ++i) {
       tiles_of(i, 1, &ex, &ey, &ez, &gx, &gy);
       all_cols += (long long)gx * gy;
     }
     const int zchunk = zchunk_for((long long)TILES_PER_BLOCK * gridDim.x, all_cols, ez0);
     int tiles = 0;
-    for (int i = 0; i < c.npos; ++i) tiles += tiles_of(i, zchunk, &ex, &ey, &ez, &gx, &gy);
+    for (int i = 0; i < c.nsweep; ++i) tiles += tiles_of(i, zchunk, &ex, &ey, &ez, &gx, &gy);
     for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
       int pi = 0, u = w;
       for (int n; u >= (n = tiles_of(pi, zchunk, &ex, &ey, &ez, &gx, &gy)); ++pi) u -= n;
@@ -326,7 +339,8 @@ __device__ __forceinline__ void onchip_pass(const MeshChunk& c, int g, bool from
   }
 }
 
-// B9's chunk: the messages, then the passes, a grid-wide barrier before each.
+// B9's chunk: the messages, then the passes, a grid-wide barrier before each;
+// a launch runs passes [pass0, pass1) of them (the messages when pass0 is 0).
 // Pass depths are K or K - 1 (pass_depth); MULTI instantiates the K - 1 body,
 // which a chunk of one pass (k <= ONCHIP_KMAX) never runs, so that its
 // registers go to the one body it does run.
@@ -336,13 +350,15 @@ __device__ __forceinline__ void mesh_onchip_chunk(const MeshChunk& c) {
   extern __shared__ float onchip_smem[];  // [stage 0..D-1][plane & 1][WG * WG]
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
-  if constexpr (!UNEVEN) mesh_messages(c);
-  const int n = chunk_passes(c.k);
+  if constexpr (!UNEVEN) {
+    if (c.pass0 == 0) mesh_messages(c);
+  }
   int left = c.k;
-  for (int p = 0; p < n; ++p) {
-    grid.sync();
+  for (int p = 0; p < c.pass1; ++p) {
     const int d = pass_depth(c.k, p);
     left -= d;
+    if (p < c.pass0) continue;
+    grid.sync();
     if (d == K) {
       onchip_pass<K, NT, UNEVEN>(c, left, p & 1, onchip_smem);
     } else if constexpr (MULTI && K > 2) {
@@ -361,9 +377,11 @@ inline bool make_mesh_chunk(const void* pos, int npos, const void* msg, int m, c
   c->pos = (const MeshPosition*)pos;
   c->msg = (const MeshMessage*)msg;
   c->ext = (const long long*)ext;
-  c->npos = npos;
   c->m = m;
   c->k = k;
+  c->nsweep = npos;
+  c->pass0 = 0;
+  c->pass1 = chunk_passes(k);
   c->sz = sz;
   c->sy = sy;
   c->zo = zo;

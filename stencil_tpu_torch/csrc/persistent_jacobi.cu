@@ -9,11 +9,12 @@
 // VMEM ring). Python wrappers and plain PyTorch versions:
 // stencil_tpu_torch/ops/persistent_stencil.py (persistent_jacobi /
 // persistent_jacobi_plain for one block, persistent_jacobi_mesh /
-// persistent_jacobi_mesh_plain for a mesh, uniform or uneven). A single block
-// is the one-position case: its messages all wrap onto itself. On an uneven
-// partition the launch takes each position's own extent and runs no
-// messages (persistent_jacobi_uneven_launch): the caller's deep exchange has
-// filled the halos.
+// persistent_jacobi_mesh_plain for a mesh, uniform or uneven;
+// persistent_jacobi_across / persistent_jacobi_receivers_plain for a mesh
+// spread over processes). A single block is the one-position case: its
+// messages all wrap onto itself. On an uneven partition the launch takes
+// each position's own extent from a table and runs no messages: the
+// caller's deep exchange has filled the halos.
 //
 // The result contract (mesh_chunk.cuh, mesh_onchip_chunk): each position's a
 // holds curr, b nxt. The messages copy compute cells into the destination
@@ -51,6 +52,14 @@
 // K - 1 body of a chunk of several passes, and each once more for the uneven
 // form (its own walk, so the uniform instantiations keep their code); a chunk
 // runs the instantiation of its deepest pass.
+//
+// Across processes of one card the same instantiations run over one
+// process's positions: the position table holds its own rows, swept, and
+// after them the other processes' positions whose cells its deep messages
+// pull through CUDA IPC. A chunk of one pass is one launch after one
+// interprocess handshake; a chunk of several passes is two, the second
+// (passes 1 and on) after a second handshake, since pass 1 overwrites the
+// compute cells of a that other processes pull in their first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,53 +102,55 @@ cudaError_t occupancy(int k, int* blocks) {
 
 }  // namespace
 
-// pos: device table of npos rows (curr, nxt, sel pointers); msg: device table
-// of nboxes * m rows (source position, destination position, box index), m
-// rows per box in box order; boxes: nboxes rows of 9 ints (src z y x, dst
-// z y x, extent z y x), the deep messages at the block's radius; every block
-// a contiguous (pz, py, px) array with plane stride sz and row stride sy,
-// compute region at (zo, yo, xo) of nz x ny x nx cells; k >= 2; dev: the
-// device of every block.
-extern "C" int persistent_jacobi_launch(const void* pos, int npos, const void* msg, int m,
-                                        const int* boxes, int nboxes, long long sz,
-                                        long long sy, int zo, int yo, int xo, int nz, int ny,
-                                        int nx, int k, int dev, void* stream) {
+// pos: device table of npos rows (curr, nxt, sel pointers), the first nsweep
+// swept; msg: device table of nboxes * m rows (source row, destination row,
+// box index), m rows per box in box order, m = nsweep; boxes: nboxes rows of
+// 9 ints (src z y x, dst z y x, extent z y x), the deep messages at the
+// block's radius; every block a contiguous (pz, py, px) array with plane
+// stride sz and row stride sy, compute region at (zo, yo, xo) of nz x ny x nx
+// cells; k >= 2; the launch runs passes [pass0, pass1) of the chunk
+// (persistent_jacobi_passes), the messages with pass 0; dev: the device of
+// every block.
+//
+// In one process every row is swept (nsweep = npos) and a launch runs every
+// pass. Across the processes of one card (a mesh spread over them,
+// persistent_stencil.persistent_jacobi_across) a process launches over its
+// own positions: its rows first, swept, then the other processes' positions
+// its messages come from, mapped through CUDA IPC, of which only a is read;
+// its message rows are those into its own positions. A chunk of several
+// passes is then two launches, the caller ordering the second (passes 1 and
+// on) behind the other processes' reads of a (parallel/ipc.PhaseOrder).
+//
+// ext: null on a uniform partition; else the uneven form (a mesh of an uneven
+// partition, the TPU kernel's refusal, stencil_tpu/ops/jacobi.py:560-616, where
+// the JAX package runs one deep exchange and its XLA chunk body): a device
+// table of nsweep rows (nz, ny, nx), int64, each row's own compute extent,
+// nz, ny, nx the largest (the base block); no messages (msg null, m = 0),
+// since the caller's deep exchange (B6's uneven ring, at the chunk's radius)
+// has filled every halo; then the same passes, each position's tiles at its
+// own extent. The result contract is the uniform form's.
+extern "C" int persistent_jacobi_launch(const void* pos, int npos, int nsweep, const void* msg,
+                                        int m, const int* boxes, int nboxes, const void* ext,
+                                        long long sz, long long sy, int zo, int yo, int xo,
+                                        int nz, int ny, int nx, int k, int pass0, int pass1,
+                                        int dev, void* stream) {
   MeshChunk c;
-  if (k < 2 || sz >= (1LL << 31) ||
-      !make_mesh_chunk(pos, npos, msg, m, boxes, nboxes, sz, sy, zo, yo, xo, nz, ny, nx, k, &c))
-    return (int)cudaErrorInvalidValue;
-  switch (depth_of(k)) {
-    case 2: return (int)launch<2>(c, dev, stream);
-    case 3: return (int)launch<3>(c, dev, stream);
-    case 4: return (int)launch<4>(c, dev, stream);
-    case 5: return (int)launch<5>(c, dev, stream);
-    case 6: return (int)launch<6>(c, dev, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The uneven form (a mesh of an uneven partition, the TPU kernel's refusal,
-// stencil_tpu/ops/jacobi.py:560-616, where the JAX package runs one deep
-// exchange and its XLA chunk body): no messages, since the caller's deep
-// exchange (B6's uneven ring, at the chunk's radius) has filled every halo;
-// then the same passes, each position's tiles at its own extent. ext: device
-// table of npos rows (nz, ny, nx), int64; nz, ny, nx: the largest (the base
-// block). The result contract is the uniform form's.
-extern "C" int persistent_jacobi_uneven_launch(const void* pos, int npos, const void* ext,
-                                               long long sz, long long sy, int zo, int yo,
-                                               int xo, int nz, int ny, int nx, int k, int dev,
-                                               void* stream) {
-  MeshChunk c;
-  if (k < 2 || ext == nullptr || sz >= (1LL << 31) ||
-      !make_mesh_chunk(pos, npos, nullptr, 0, nullptr, 0, sz, sy, zo, yo, xo, nz, ny, nx, k, &c,
+  const bool uneven = ext != nullptr;
+  if (k < 2 || sz >= (1LL << 31) || nsweep < 1 || nsweep > npos || pass0 < 0 ||
+      pass1 > chunk_passes(k) || pass0 >= pass1 || (uneven && (m != 0 || npos != nsweep)) ||
+      (!uneven && m != nsweep) ||
+      !make_mesh_chunk(pos, npos, msg, m, boxes, nboxes, sz, sy, zo, yo, xo, nz, ny, nx, k, &c,
                        ext))
     return (int)cudaErrorInvalidValue;
+  c.nsweep = nsweep;
+  c.pass0 = pass0;
+  c.pass1 = pass1;
   switch (depth_of(k)) {
-    case 2: return (int)launch<2, true>(c, dev, stream);
-    case 3: return (int)launch<3, true>(c, dev, stream);
-    case 4: return (int)launch<4, true>(c, dev, stream);
-    case 5: return (int)launch<5, true>(c, dev, stream);
-    case 6: return (int)launch<6, true>(c, dev, stream);
+    case 2: return (int)(uneven ? launch<2, true>(c, dev, stream) : launch<2>(c, dev, stream));
+    case 3: return (int)(uneven ? launch<3, true>(c, dev, stream) : launch<3>(c, dev, stream));
+    case 4: return (int)(uneven ? launch<4, true>(c, dev, stream) : launch<4>(c, dev, stream));
+    case 5: return (int)(uneven ? launch<5, true>(c, dev, stream) : launch<5>(c, dev, stream));
+    case 6: return (int)(uneven ? launch<6, true>(c, dev, stream) : launch<6>(c, dev, stream));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,14 +15,10 @@ receiver halo cells, so all of them may run at once:
   work list laid out here (:func:`fused_exchange_work`: the rows of
   :func:`message_rows`, the +x and -x faces as one paired segment);
   :func:`fused_exchange_plain` is the same copies by tensor slicing,
-  position by position; :class:`FusedRemoteDmaExchange` is the transport
+  receiver by receiver; :class:`FusedRemoteDmaExchange` is the transport
   of a ``HaloExchange(fused=True)`` over a mesh, with
   ``last_transfer_count`` (messages sent to another position per dtype
-  group) as the JAX transport counts its remote copies. Positions of
-  other processes need each launch to wait on its neighbours' previous
-  reads (an event per neighbour, as B6's cross-process form waits); a
-  mesh spread over processes refuses the fused variant, ROADMAP.md queue B
-  item 6.
+  group) as the JAX transport counts its remote copies.
 
 A narrowed wire (``wire=``, the JAX package's ``wire_dtype``) rounds each
 floating word of a crossing direction's message (the plan's ``crossing``)
@@ -59,11 +55,38 @@ work list and the launch shape are pure Python (:func:`message_rows`,
 :func:`fused_shape`, :func:`fused_zchunks`), mirrored from the kernel's
 source, so the CPU tests hold them to the plain version.
 
+Positions spread over several processes (``DeviceMesh.multi_process``,
+the TPU kernels' form between hosts behind a neighbour barrier,
+``stencil_tpu/ops/fused_stencil.py:153-162``, ``:328-335``): each rank
+pulls the messages into its own positions, so a launch writes only its own
+memory (as B6's cross-process form does, ``ops/remote_dma``):
+
+- :func:`fused_exchange_across` is one launch of ``csrc/fused_exchange.cu``
+  per dtype group over this rank's receivers: each pointer row (the source
+  block at position - d, this rank's or another's mapped through CUDA IPC;
+  this rank's block), the +x and -x faces unpaired (a paired row would
+  write the sender's memory), the crossing boxes through the wire. Its
+  plain version is :func:`fused_exchange_plain`, which fills the
+  receivers of this process; on the CPU the same boxes travel over gloo
+  (:func:`fused_exchange_gloo`).
+- :func:`fused_jacobi_across` is one cooperative launch of
+  ``csrc/fused_jacobi.cu`` a step over this rank's positions: its position
+  table holds this rank's rows first, swept in phase B, then the mapped
+  rows of the positions its messages come from, only read; phase A pulls
+  into the local halos, ``grid.sync()``, phase B sweeps. Its plain version
+  is :func:`fused_jacobi_mesh_plain`; :func:`fused_step_across` is
+  the loop's step (the handshake and this launch on the card, B7's gloo
+  form and the local sweeps on the CPU).
+
+Before each launch the rank holds one handshake with every rank its
+messages cross to (``parallel/ipc.PhaseOrder.before_all``).
+
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Launches are counted in
-``fused_jacobi.launches``, ``fused_jacobi_mesh.launches`` and
-``fused_exchange.launches``, those through a narrowed wire also in
-``fused_jacobi_mesh.narrowed`` and ``fused_exchange.narrowed``.
+``fused_jacobi.launches``, ``fused_jacobi_mesh.launches``,
+``fused_exchange.launches``, ``fused_exchange_across.launches`` and
+``fused_jacobi_across.launches``, those through a narrowed wire also in
+their ``narrowed``.
 """
 
 from __future__ import annotations
@@ -78,7 +101,7 @@ from ..domain.grid import GridSpec
 from ..geometry import Dim3
 from . import _native, row_moves
 from .halo_fill import dtype_groups, wire_format, wire_params, wire_round
-from .remote_dma import _check_mesh_blocks
+from .remote_dma import _check_mesh_blocks, receiver_rows
 from .row_moves import message_rows
 from .stencil_kernels import _check_block, _device_of, sweep_plain
 
@@ -193,21 +216,6 @@ def _messages(plan, mesh):
     return [(ph, mesh.destinations(ph.direction)) for ph in plan.fused_phases]
 
 
-def fused_exchange_plain(blocks_by_position, spec: GridSpec, plan, mesh, wire=None):
-    """Every message of the fused plan in plain PyTorch, direction by
-    direction and position by position: each block's compute box on the
-    ``d`` side -> the ``-d`` side halo box of the block at position + d,
-    for every quantity of the group, a crossing message through the
-    narrowed ``wire`` when one is given (``halo_fill.wire_round``). In
-    place; returns ``blocks_by_position``."""
-    for ph, dests in _messages(plan, mesh):
-        s, d = box_slices(ph.src, ph.dst, ph.shape)
-        for i, j in enumerate(dests):
-            for src, dst in zip(blocks_by_position[i], blocks_by_position[j]):
-                dst[d] = wire_round(src[s], wire) if ph.crossing else src[s]
-    return blocks_by_position
-
-
 def _x_face_pairs(steps):
     """``((+x box, -x box),)`` when both x faces send a message, else ``()``:
     their row ends share sectors, so they move as one paired segment."""
@@ -263,6 +271,146 @@ fused_exchange.launches = 0
 fused_exchange.narrowed = 0  # the launches through a narrowed wire
 
 
+def _sources(mesh, r: int, step) -> int:
+    """The flat index of position ``r - step``: where the message along
+    ``step`` into ``r`` comes from."""
+    return mesh.index(mesh.shifted(mesh.position(r), [-c for c in step]))
+
+
+def fused_exchange_plain(blocks_by_position, spec: GridSpec, plan, mesh, wire=None):
+    """Every message of the fused plan into this process's positions (on
+    one process every position) in plain PyTorch, direction by direction
+    and receiver by receiver: each receiver's halo box on the ``-d`` side
+    <- the compute box on the ``d`` side of the block at position - d, for
+    every quantity of the group, a crossing message through the narrowed
+    ``wire`` when one is given (``halo_fill.wire_round``). The messages
+    read compute cells and write halo cells only, so this order gives what
+    the kernels' orders give. ``blocks_by_position[i]`` is the group's list
+    of blocks at position ``i`` (another process's reached through a mapped
+    view), or None where no local position needs it. The plain version of
+    :func:`fused_exchange` and :func:`fused_exchange_across`. In place;
+    returns ``blocks_by_position``."""
+    _check_plan(plan, mesh)
+    for ph in plan.fused_phases:
+        s, d = box_slices(ph.src, ph.dst, ph.shape)
+        for r in mesh.local_positions():
+            for src, dst in zip(blocks_by_position[_sources(mesh, r, ph.direction)],
+                                blocks_by_position[r]):
+                dst[d] = wire_round(src[s], wire) if ph.crossing else src[s]
+    return blocks_by_position
+
+
+def messages_gloo(blocks_by_position, boxes, steps, mesh, narrow=(), wire=None):
+    """Direction messages over a mesh spread over processes, on the CPU:
+    box ``b`` of every local block's list (``(src, dst, shape)``, from its
+    compute cells into halo cells) goes to the block at its position +
+    ``steps[b]``, through ``wire`` where ``narrow[b]`` is set
+    (``halo_fill.wire_round``): copied into a local receiver, or packed as
+    one message to the receiver's rank by gloo ``isend``; the boxes into
+    local halos from other ranks arrive by ``irecv`` (the tag names the
+    receiver position and the box). ``blocks_by_position[i]`` is None at
+    another rank's position. In place; returns ``blocks_by_position``."""
+    dist = torch.distributed
+    narrow = tuple(narrow) or (False,) * len(boxes)
+    reqs, keep, landing = [], [], []
+    for b, (box, step) in enumerate(zip(boxes, steps)):
+        s, d = box_slices(*box)
+        for i in mesh.local_positions():
+            j = mesh.index(mesh.shifted(mesh.position(i), step))
+            pieces = [wire_round(t[s], wire if narrow[b] else None)
+                      for t in blocks_by_position[i]]
+            if mesh.is_local(j):
+                for t, piece in zip(blocks_by_position[j], pieces):
+                    t[d] = piece
+            else:
+                keep.append(torch.cat([piece.reshape(-1) for piece in pieces]))
+                reqs.append(dist.isend(keep[-1], mesh.owner(j), tag=j * len(boxes) + b))
+        for r in mesh.local_positions():
+            i = _sources(mesh, r, step)
+            if mesh.is_local(i):
+                continue
+            views = [t[d] for t in blocks_by_position[r]]
+            buf = torch.empty(sum(v.numel() for v in views), dtype=views[0].dtype)
+            reqs.append(dist.irecv(buf, mesh.owner(i), tag=r * len(boxes) + b))
+            landing.append((buf, views))
+    for req in reqs:
+        req.wait()
+    for buf, views in landing:
+        at = 0
+        for v in views:
+            v.copy_(buf[at:at + v.numel()].view(v.shape))
+            at += v.numel()
+    return blocks_by_position
+
+
+def fused_exchange_gloo(blocks_by_position, spec: GridSpec, plan, mesh, wire=None):
+    """:func:`fused_exchange_plain` over a mesh spread over processes, on
+    the CPU: the fused plan's messages by :func:`messages_gloo`, a crossing
+    one through ``wire``. ``blocks_by_position[i]`` is the group's list of
+    blocks at position ``i`` of this process, None at another rank's. In
+    place; returns ``blocks_by_position``."""
+    _check_plan(plan, mesh)
+    phases = plan.fused_phases
+    return messages_gloo(blocks_by_position, [(ph.src, ph.dst, ph.shape) for ph in phases],
+                         [ph.direction for ph in phases], mesh, [ph.crossing for ph in phases],
+                         wire)
+
+
+def fused_exchange_across(ptrs_of, nq: int, dtype, spec: GridSpec, plan, mesh, dev, wire=None):
+    """B7's cross-process form: one launch of ``csrc/fused_exchange.cu``
+    that fills every halo box of this process's positions for a same-dtype
+    group of ``nq`` quantities, pulling each direction's message from the
+    compute cells of the source block at position - d through
+    ``ptrs_of(i)`` (its ``nq`` block addresses: this process's, or
+    another's mapped through CUDA IPC). The work list is
+    :func:`fused_exchange_work`'s boxes with the x faces unpaired (a paired
+    row would write the sender's memory too), over ``m`` = local positions
+    x quantities, each row's (source, receiver) pair from
+    ``remote_dma.receiver_rows``; the crossing boxes round through
+    ``wire``. The caller orders the launch after the other processes'
+    (``parallel/ipc.PhaseOrder.before_all``). Its plain version is
+    :func:`fused_exchange_plain`; on the CPU a mesh spread over
+    processes exchanges through :func:`fused_exchange_gloo`."""
+    _check_plan(plan, mesh)
+    p = spec.padded()
+    sz, sy = p.y * p.x, p.x
+    word = torch.empty((), dtype=dtype).element_size()
+    if word not in (4, 8):
+        raise ValueError(f"the exchange copies 4- or 8-byte elements, not {dtype}")
+    fmt = wire_format(dtype, wire)
+    locs = mesh.local_positions()
+    phases = plan.fused_phases
+    steps = tuple(ph.direction for ph in phases)
+    ends = sorted(across_layout(mesh, steps)[0])
+    ptrs = tuple(a for i in ends for a in ptrs_of(i))
+    m = len(locs) * nq
+
+    def make():
+        boxes = tuple((ph.src, ph.dst, ph.shape) for ph in phases)
+        rows = receiver_rows(ptrs_of, nq, mesh, steps, word)
+        vec = all(a % row_moves.VECTOR_BYTES == 0 for a in rows) and \
+            (sz * word) % row_moves.VECTOR_BYTES == 0 and (sy * word) % row_moves.VECTOR_BYTES == 0
+        work = row_moves.move_work(boxes, steps, sz, sy, vec, word, (), m,
+                                   tuple(fmt is not None and ph.crossing for ph in phases))
+        table = _native.upload(rows + [v for row in work.rows for v in row], dev)
+        return (table, m, table.data_ptr() + 8 * len(rows), len(work.rows), work.tasks, word,
+                0 if fmt is None else fmt.code, wire_params(fmt), sz, sy)
+
+    table, *rest = _native.kept(
+        (str(dev), "row_moves", "fused_exchange_across", phases, (p.z, p.y, p.x),
+         tuple(mesh.dim), locs, nq, word, None if fmt is None else fmt.name, tuple(ends), ptrs),
+        make)
+    rc = _native.lib("fused_exchange").fused_exchange_launch(table.data_ptr(), *rest,
+                                                             _native.stream_ptr(dev))
+    _native.check(rc, "fused_exchange across processes")
+    fused_exchange_across.launches += 1
+    fused_exchange_across.narrowed += fmt is not None
+
+
+fused_exchange_across.launches = 0
+fused_exchange_across.narrowed = 0  # the launches through a narrowed wire
+
+
 def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh, what: str) -> torch.device:
     """``currs``, ``nxts`` (float32; float64 raises
     :func:`require_float32_fields`) and ``sels`` (int32): one contiguous
@@ -282,6 +430,12 @@ def check_mesh_fields(currs, nxts, sels, spec: GridSpec, mesh, what: str) -> tor
     return dev
 
 
+def position_table(ptrs, dev):
+    """A mesh kernel's position table (``csrc/mesh_chunk.cuh``) on ``dev``:
+    ``ptrs``, three addresses (curr, nxt, sel) a row, kept per content."""
+    return _native.device_table(("mesh_positions", ptrs), lambda: list(ptrs), dev)
+
+
 def mesh_tables(currs, nxts, sels, dests_by_box, dev):
     """The two device tables of a mesh kernel (``csrc/mesh_chunk.cuh``):
     positions, one row of (curr, nxt, sel) pointers per position, kept per
@@ -290,25 +444,13 @@ def mesh_tables(currs, nxts, sels, dests_by_box, dev):
     box, box by box (``dests_by_box[b][i]`` is where position ``i`` sends
     box ``b``)."""
     ptrs = tuple(t.data_ptr() for row in zip(currs, nxts, sels) for t in row)
-    pos = _native.device_table(("mesh_positions", ptrs), lambda: list(ptrs), dev)
+    pos = position_table(ptrs, dev)
     dests_by_box = tuple(tuple(d) for d in dests_by_box)
     msg = _native.device_table(
         ("mesh_messages", dests_by_box),
         lambda: [v for b, dests in enumerate(dests_by_box) for i, j in enumerate(dests)
                  for v in (i, j, b)], dev)
     return pos, msg
-
-
-def launch_mesh_chunk(entry, currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev,
-                      *depth) -> int:
-    """Call the persistent chunk's entry (``persistent_jacobi_launch``, with
-    its ``depth``) over every position, with :func:`mesh_tables`; returns
-    its CUDA error code."""
-    pos, msg = mesh_tables(currs, nxts, sels, dests_by_box, dev)
-    p, off, b = spec.padded(), spec.compute_offset(), spec.base
-    return entry(pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), box_rows(boxes),
-                 len(boxes), p.y * p.x, p.x, off.z, off.y, off.x, b.z, b.y, b.x, *depth,
-                 dev.index, _native.stream_ptr(dev))
 
 
 # The fused step kernel's launch shape (csrc/sweep_runs.cuh: TX, TY, LOOK,
@@ -415,22 +557,26 @@ def _launch_fused(currs, nxts, sels, spec: GridSpec, boxes, dests_by_box, dev, n
     segs = _native.device_table(("fused_rows", rows), lambda: [v for row in rows for v in row],
                                 dev)
     return _native.lib("fused_jacobi").fused_jacobi_launch(
-        pos.data_ptr(), len(currs), msg.data_ptr(), len(currs), segs.data_ptr(), len(rows),
-        SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec),
+        pos.data_ptr(), len(currs), len(currs), msg.data_ptr(), len(currs), segs.data_ptr(),
+        len(rows), SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec),
         0 if wire is None else wire.code, wire_params(wire), dev.index,
         _native.stream_ptr(dev))
 
 
 def fused_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, plan, mesh, wire=None):
-    """One fused step over a mesh in plain PyTorch: every position's
-    ``curr`` halos <- the fused plan's messages (:func:`fused_exchange_plain`,
-    in place, the crossing ones through ``wire``), then each position's
-    ``nxt`` compute region <- the sweep of its ``curr`` reading those halos.
-    Returns ``(currs, nxts)``."""
-    fused_exchange_plain([[c] for c in currs], spec, plan, mesh, wire)
+    """One fused step of this process's positions of a mesh (on one
+    process every position) in plain PyTorch: their ``curr`` halos <- the
+    fused plan's messages (:func:`fused_exchange_plain`, in place, the
+    crossing ones through ``wire``), then each one's ``nxt`` compute region
+    <- the sweep of its ``curr`` reading those halos. ``currs[i]`` is
+    position ``i``'s curr block (another process's a mapped view, or None
+    where no message comes from it). The plain version of
+    :func:`fused_jacobi_mesh` and :func:`fused_jacobi_across`. Returns
+    ``(currs, nxts)``."""
+    fused_exchange_plain([None if c is None else [c] for c in currs], spec, plan, mesh, wire)
     bspec = spec.block_spec()
-    for c, n, s in zip(currs, nxts, sels):
-        sweep_plain(c, n, s, bspec, NO_WRAP)
+    for i in mesh.local_positions():
+        sweep_plain(currs[i], nxts[i], sels[i], bspec, NO_WRAP)
     return currs, nxts
 
 
@@ -462,6 +608,119 @@ fused_jacobi_mesh.launches = 0
 fused_jacobi_mesh.narrowed = 0  # the launches through a narrowed wire
 
 
+# (mesh dim, local positions, steps) -> across_layout's result
+_layouts: dict = {}
+
+
+def across_layout(mesh, steps):
+    """``(order, rows)`` of a cross-process launch over this process's
+    positions, messages along ``steps``: ``order`` the positions of the
+    position table's rows, the local ones first, then each other process's
+    position a message comes from; ``rows`` the message table, one (source
+    row, destination row, box) for each box ``b`` and each local receiver,
+    box by box. Kept per layout: it is host work of every launch."""
+    locs = mesh.local_positions()
+    key = (tuple(mesh.dim), locs, tuple(tuple(st) for st in steps))
+    if key not in _layouts:
+        srcs = sorted({_sources(mesh, r, st) for st in steps for r in locs} - set(locs))
+        order = (*locs, *srcs)
+        row = {i: n for n, i in enumerate(order)}
+        _layouts[key] = (order, tuple(v for b, st in enumerate(steps) for n, r in enumerate(locs)
+                                      for v in (row[_sources(mesh, r, st)], n, b)))
+    return _layouts[key]
+
+
+def across_tables(ptrs_of, mesh, steps, dev):
+    """The position and message tables of a mesh kernel's cross-process
+    launch (``csrc/mesh_chunk.cuh``) in :func:`across_layout`'s order:
+    positions, one row of ``ptrs_of(i)`` (curr, nxt, sel) a local position,
+    then one of the curr (mapped; the rest 0) of each other process's
+    position a message comes from, kept per pointer order; messages kept
+    per content. Returns ``(positions, messages, pointers)``: ``pointers``
+    the position table's values, three a row."""
+    order, rows = across_layout(mesh, steps)
+    ptrs = tuple(v for i in order for v in (ptrs_of(i) if mesh.is_local(i)
+                                            else (ptrs_of(i)[0], 0, 0)))
+    pos = position_table(ptrs, dev)
+    msg = _native.device_table(("mesh_messages_across", rows), lambda: list(rows), dev)
+    return pos, msg, ptrs
+
+
+def fused_jacobi_across(ptrs_of, spec: GridSpec, plan, mesh, dev, wire=None) -> None:
+    """B8's cross-process form: one cooperative launch of
+    ``csrc/fused_jacobi.cu`` of one fused
+    step of this process's positions, ``ptrs_of(i)`` the (curr, nxt, sel)
+    addresses of a local position and, at another process's position a
+    message comes from, its curr mapped through CUDA IPC first: phase A
+    pulls every message into the local halos (the crossing boxes through
+    ``wire``), ``grid.sync()``, phase B sweeps the local positions, which
+    :func:`across_tables` puts first. The caller orders the launch after the
+    other processes' (``parallel/ipc.PhaseOrder.before_all``). Its plain
+    version is :func:`fused_jacobi_mesh_plain`."""
+    _check_plan(plan, mesh)
+    require_face_radius(spec)
+    phases = plan.fused_phases
+    locs = mesh.local_positions()
+    pos, msg, ptrs = across_tables(ptrs_of, mesh, [ph.direction for ph in phases], dev)
+    fmt = wire_format(torch.float32, wire)
+    p, off, b = spec.padded(), spec.compute_offset(), spec.base
+    sz, sy = p.y * p.x, p.x
+    vec = all(a % row_moves.VECTOR_BYTES == 0 for a in ptrs if a) and sz % 4 == 0 and \
+        sy % 4 == 0
+    boxes = tuple((tuple(ph.src), tuple(ph.dst), tuple(ph.shape)) for ph in phases)
+    rows, tasks = row_table(boxes, sz, sy, vec, len(locs),
+                            tuple(fmt is not None and ph.crossing for ph in phases))
+    segs = _native.device_table(("fused_rows", rows), lambda: [v for row in rows for v in row],
+                                dev)
+    rc = _native.lib("fused_jacobi").fused_jacobi_launch(
+        pos.data_ptr(), len(ptrs) // 3, len(locs), msg.data_ptr(), len(locs), segs.data_ptr(),
+        len(rows), SEG_COLS, tasks, sz, sy, off.z, off.y, off.x, b.z, b.y, b.x, int(vec),
+        0 if fmt is None else fmt.code, wire_params(fmt), dev.index, _native.stream_ptr(dev))
+    _native.check(rc, "fused_jacobi across processes")
+    fused_jacobi_across.launches += 1
+    fused_jacobi_across.narrowed += fmt is not None
+
+
+fused_jacobi_across.launches = 0
+fused_jacobi_across.narrowed = 0  # the launches through a narrowed wire
+
+
+def peer_pointers(stacks, peers, mesh):
+    """``ptr(i)``: the address of position ``i``'s stack of ``stacks`` (a
+    quantity's list of per-position stacks, exported by ``peers``,
+    ``parallel/ipc.PeerBuffers``): this process's own, or another's mapped
+    through CUDA IPC."""
+    where = peers.buffer_of(stacks)
+    return lambda i: stacks[i].data_ptr() if mesh.is_local(i) else peers.pointer(i, *where)
+
+
+def fused_step_across(currs, nxts, sels, spec: GridSpec, plan, mesh, wire=None, peers=None):
+    """One fused step of this process's positions of a mesh spread over
+    processes (lists of one block a position, None at another process's):
+    on the card the handshake with every rank the messages cross to
+    (``peers.order.before_all``) and one :func:`fused_jacobi_across`
+    launch; on the CPU the messages over gloo (:func:`fused_exchange_gloo`,
+    the crossing ones through ``wire``), then each local position's sweep.
+    Returns ``(currs, nxts)``."""
+    locs = mesh.local_positions()
+    require_float32_fields(currs[locs[0]], "fused_jacobi across processes")
+    dev = currs[locs[0]].device
+    if dev.type == "cpu":
+        fused_exchange_gloo([None if c is None else [c] for c in currs], spec, plan, mesh, wire)
+        bspec = spec.block_spec()
+        for i in locs:
+            sweep_plain(currs[i], nxts[i], sels[i], bspec, NO_WRAP)
+        return currs, nxts
+    if peers is None:
+        raise RuntimeError("a mesh spread over processes steps on the card through the buffers "
+                           "DistributedDomain.realize exports (parallel/ipc.PeerBuffers)")
+    curr_of = peer_pointers(currs, peers, mesh)
+    peers.order.before_all()
+    fused_jacobi_across(lambda i: (curr_of(i), nxts[i].data_ptr(), sels[i].data_ptr())
+                        if mesh.is_local(i) else (curr_of(i), 0, 0), spec, plan, mesh, dev, wire)
+    return currs, nxts
+
+
 def fused_jacobi_mesh_bytes(plan, positions: int, spec: GridSpec) -> int:
     """The least bytes a fused mesh step moves: curr and sel read and nxt
     written once per compute cell (12 bytes), each message cell read and
@@ -491,22 +750,59 @@ class FusedRemoteDmaExchange:
     """The fused remote-dma transport of a ``HaloExchange(fused=True)`` over
     a mesh: one :func:`fused_exchange` call per dtype group, through the
     exchange's wire. ``state`` is ``{key: [block per position]}``; in
-    place."""
+    place. Over positions of several processes (another rank's position
+    None in each list): on the card one handshake with every rank the
+    messages cross to (``parallel/ipc.PhaseOrder.before_all``), then one
+    :func:`fused_exchange_across` launch per dtype group over this rank's
+    receivers; on the CPU :func:`fused_exchange_gloo`.
+    ``last_transfer_count`` counts the messages sent to another position
+    per dtype group (over processes, by this rank's positions)."""
 
     def __init__(self, ex):
         self.spec = ex.spec
         self.plan = ex.plan
         self.mesh = ex.mesh
         self.wire = ex.wire_dtype
+        # positions of other processes: the CUDA IPC buffers and phase order
+        # (parallel/ipc.PeerBuffers), attached at realize on the card
+        self.across = self.mesh.multi_process
+        self.peers = None
+        senders = self.mesh.local_positions() if self.across else range(len(self.mesh))
         # messages whose destination is another position, per dtype group
-        self._crossing = sum(j != i for _ph, dests in _messages(self.plan, self.mesh)
-                             for i, j in enumerate(dests))
+        self._crossing = sum(dests[i] != i for _ph, dests in _messages(self.plan, self.mesh)
+                             for i in senders)
         self.last_transfer_count = 0
 
     def __call__(self, state):
         self.last_transfer_count = 0
+        if self.across:
+            return self._across(state)
         for _dt, keys in dtype_groups({k: blocks[0] for k, blocks in state.items()}):
             blocks = [[state[k][i] for k in keys] for i in range(len(self.mesh))]
             fused_exchange(blocks, self.spec, self.plan, self.mesh, self.wire)
+            self.last_transfer_count += self._crossing
+        return state
+
+    def _across(self, state):
+        mesh = self.mesh
+        locs = mesh.local_positions()
+        groups = [keys for _dt, keys in dtype_groups({k: v[locs[0]] for k, v in state.items()})]
+        dev = state[groups[0][0]][locs[0]].device
+        if dev.type == "cuda":
+            if self.peers is None:
+                raise RuntimeError("a mesh spread over processes exchanges on the card through "
+                                   "the buffers DistributedDomain.realize exports "
+                                   "(parallel/ipc.PeerBuffers)")
+            where = {k: peer_pointers(v, self.peers, mesh) for k, v in state.items()}
+            self.peers.order.before_all()
+        for keys in groups:
+            if dev.type == "cpu":
+                fused_exchange_gloo([[state[k][i] for k in keys] if mesh.is_local(i) else None
+                                     for i in range(len(mesh))], self.spec, self.plan, mesh,
+                                    self.wire)
+            else:
+                fused_exchange_across(lambda i, keys=keys: tuple(where[k](i) for k in keys),
+                                      len(keys), state[keys[0]][locs[0]].dtype, self.spec,
+                                      self.plan, mesh, dev, self.wire)
             self.last_transfer_count += self._crossing
         return state

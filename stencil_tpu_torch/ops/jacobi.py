@@ -62,6 +62,17 @@ over every block: the stack of one device, or each position's stack of an
 oversubscribed mesh (the blocks as views into their stacks); the fused and
 persistent variants take one block a position, as in the JAX package.
 
+Over a mesh spread over several processes each loop steps this rank's own
+positions, as the plain step does: the fused step is one launch of the
+fused kernel's cross-process form a step
+(:func:`fused_stencil.fused_step_across`), the persistent chunk one launch
+of the chunk kernel's (two, with a second handshake, for a chunk of
+several on-chip passes; :func:`persistent_stencil.persistent_chunk_across`),
+each after one handshake with every rank the messages cross to; the uneven
+fused schedule sweeps, exchanges and re-sweeps the local positions, its
+sweep after a handshake of its own (it overwrites the buffer the other
+ranks' previous exchange read). On the CPU the messages travel over gloo.
+
 :func:`make_batched_jacobi_loop` steps a campaign slot, a ``(B, pz, py,
 px)`` stack of independent single-block tenants: one tenant-form sweep
 launch per step on the card, the JAX package's XLA branch (fill, then
@@ -82,11 +93,11 @@ from ..parallel.mesh import DeviceMesh
 from ..utils import logging as log
 from ..utils import timer
 from . import _native
-from .fused_stencil import (NO_WRAP, fused_jacobi, fused_jacobi_mesh, kernel_supported,
-                            require_face_radius)
+from .fused_stencil import (NO_WRAP, fused_jacobi, fused_jacobi_mesh, fused_step_across,
+                            kernel_supported, require_face_radius)
 from .halo_fill import wrap_fill_batched
-from .persistent_stencil import (check_chunk_depth, chunk_schedule, persistent_jacobi,
-                                 persistent_jacobi_mesh, result_in_nxt)
+from .persistent_stencil import (check_chunk_depth, chunk_schedule, persistent_chunk_across,
+                                 persistent_jacobi, persistent_jacobi_mesh, result_in_nxt)
 from .shells import dyn_block_sizes, include_axes, shell_regions
 from .stencil_kernels import (
     COLD_TEMP,
@@ -349,19 +360,28 @@ def _uneven_fused_loop(ex, iters: int, ranges=None):
     position (``ops/shells``, at the block's own size on the hi side)
     re-swept from the exchanged state; then the swap. The sweeps are one
     launch (``sweep_positions``), and so are the shells
-    (``sweep_regions``), ``sel`` imposed on each position's ``ranges``."""
+    (``sweep_regions``), ``sel`` imposed on each position's ``ranges``.
+    Over positions of several processes, this rank's positions; on the card
+    its sweep follows a handshake with every rank it exchanges with
+    (``parallel/ipc.PhaseOrder.before_all``), since it overwrites the
+    buffer their previous exchange read."""
     spec, mesh = ex.spec, ex.mesh
     bspec = spec.block_spec()
     include = include_axes(spec, multi_block_only=False)
-    shells = [shell_regions(spec, dyn_block_sizes(spec, pos), include)
-              for pos in mesh.positions()]
+    idx = mesh.local_positions()
+    shells = [shell_regions(spec, dyn_block_sizes(spec, mesh.position(i)), include)
+              for i in idx]
+    lranges = [ranges[i] for i in idx] if ranges is not None else None
 
     def loop(curr, nxt, sel):
         for _ in range(iters):
-            out = sweep_positions(curr, nxt, sel, bspec, ranges)
+            c, n, s = ([t[i] for i in idx] for t in (curr, nxt, sel))
+            if mesh.multi_process and ex.peers is not None:
+                ex.peers.order.before_all()
+            sweep_positions(c, n, s, bspec, lranges)
             ex(curr)
-            sweep_regions(curr, out, sel, bspec, shells, ranges)
-            curr, nxt = out, curr
+            sweep_regions(c, n, s, bspec, shells, lranges)
+            curr, nxt = nxt, curr
         return curr, nxt
 
     return loop
@@ -378,7 +398,10 @@ def _fused_loop(ex, iters: int, temporal_k, ranges=None):
     spec, plan, mesh = ex.spec, ex.plan, ex.mesh
     if not kernel_supported(spec, ex.resident):
         return _uneven_fused_loop(ex, iters, ranges)
-    if ex.on_mesh:
+    if ex.on_mesh and mesh.multi_process:
+        def step(curr, nxt, sel):
+            return fused_step_across(curr, nxt, sel, spec, plan, mesh, ex.wire_dtype, ex.peers)
+    elif ex.on_mesh:
         def step(curr, nxt, sel):
             return fused_jacobi_mesh(curr, nxt, sel, spec, plan, mesh, ex.wire_dtype)
     else:
@@ -405,7 +428,14 @@ def _persistent_loop(ex, iters: int, temporal_k, ranges=None):
     ``ex.last_launches_per_chunk`` counts as the JAX package does: 1 per
     kernel chunk on the card, 2 per chunk that runs as exchange + chunk
     program (the CPU's plain versions, a depth-1 tail, and every chunk of an
-    uneven mesh: its deep exchange, then the chunk kernel's uneven form)."""
+    uneven mesh: its deep exchange, then the chunk kernel's uneven form).
+    Over positions of several processes a chunk steps this rank's
+    positions (:func:`persistent_stencil.persistent_chunk_across`); on the
+    card ``sel``'s blocks are exported to the other ranks first
+    (``parallel/ipc.PeerBuffers.add``), and a chunk's launches count as they
+    are issued: 1 a chunk of one
+    on-chip pass, 2 of several (the second after its own handshake), and
+    the deep exchange of an uneven mesh besides."""
     spec = ex.spec
     require_face_radius(spec)
     uneven = not spec.is_uniform()
@@ -416,24 +446,34 @@ def _persistent_loop(ex, iters: int, temporal_k, ranges=None):
     if sched:
         check_chunk_depth(spec, max(sched))
     tail = _sweep_step(ex, ranges)
-    if ex.on_mesh:
+    across = ex.on_mesh and ex.mesh.multi_process
+    if across:
+        def chunk(curr, nxt, sel, d):
+            return persistent_chunk_across(curr, nxt, sel, spec, d, ex.mesh, ex.peers)
+    elif ex.on_mesh:
         def chunk(curr, nxt, sel, d):
             persistent_jacobi_mesh(curr, nxt, sel, spec, d, ex.mesh)
+            return 1
     else:
         def chunk(curr, nxt, sel, d):
             persistent_jacobi(curr, nxt, sel, spec, d)
+            return 1
 
     def loop(curr, nxt, sel):
+        if across and ex.peers is not None:
+            # on the card the other ranks pull sel's deep halos from its
+            # blocks: export them (a collective, once a list)
+            ex.peers.add(sel)
         ex(sel)
-        on_card = (curr[0] if ex.on_mesh else curr).is_cuda
+        first = curr[ex.mesh.local_positions()[0]] if ex.on_mesh else curr
         launches = 0
         for d in sched:
             if d >= 2:
                 if uneven:
                     ex(curr)  # the deep halo, once a chunk
-                chunk(curr, nxt, sel, d)
+                issued = chunk(curr, nxt, sel, d)
                 out, scratch = (nxt, curr) if result_in_nxt(d) else (curr, nxt)
-                launches += 1 if on_card and not uneven else 2
+                launches += issued + uneven if first.is_cuda else 2
             else:
                 ex(curr)
                 out, scratch = tail(curr, nxt, sel), curr

@@ -14,10 +14,10 @@ operand order, so the chunk equals k plain steps bit for bit.
   hand-offs, then :func:`make_persistent_chunk_body`.
 - :func:`persistent_jacobi_mesh` launches the same kernel over a mesh of
   block positions on one device (the wire-crossing form): one launch per
-  chunk stores every position's deep messages into the destination
-  position's halos (crossing and self-wrap alike), then runs the k
+  chunk pulls every position's deep messages into its halos from the
+  position each comes from (crossing and self-wrap alike), then runs the k
   substeps of every position; :func:`persistent_jacobi_mesh_plain` is the
-  deep messages position by position, then the chunk body per position.
+  deep messages receiver by receiver, then the chunk body per position.
   One block is the kernel's one-position case.
 - On an uneven partition (remainder splits, where the TPU kernel refuses and
   the JAX package runs one deep exchange and its XLA chunk body,
@@ -25,10 +25,32 @@ operand order, so the chunk equals k plain steps bit for bit.
   takes the kernel's uneven form: no messages, since the caller's deep
   exchange (B6's uneven ring at the chunk's radius) has filled the halos,
   then the passes of every position, each over its own grown regions at its
-  own extent (a table of the positions' extents,
-  ``persistent_jacobi_uneven_launch``); its plain version is
+  own extent (a table of the positions' extents); its plain version is
   :func:`make_persistent_chunk_body` at each position's own size. Its
   launches are also counted in ``persistent_jacobi_mesh.uneven``.
+- Over positions spread over several processes (the TPU kernel's form
+  between hosts behind its neighbour barrier,
+  ``stencil_tpu/ops/persistent_stencil.py:279-289``),
+  :func:`persistent_jacobi_across` is one cooperative launch of the same
+  kernel over this process's positions:
+  its position table holds this process's rows, swept, then the mapped
+  rows of the positions its deep messages come from, only read; it pulls
+  the messages into the local halos (uniform) and runs a range of the
+  chunk's passes. :func:`persistent_chunk_across` is the loop's chunk: on
+  the card one handshake with every rank the messages cross to
+  (``parallel/ipc.PhaseOrder.before_all``) and one launch for a chunk of
+  one pass; a chunk of several passes is two launches with a second
+  handshake before pass 1, since pass 1 writes the compute cells of
+  ``curr`` that other processes pull in their first launch. The uneven
+  form follows the caller's deep exchange (B6 across processes), with the
+  same second handshake before pass 1. On the CPU the deep messages travel
+  over gloo (``fused_stencil.messages_gloo``), then the chunk body runs on
+  each local position. Its plain version is
+  :func:`persistent_jacobi_mesh_plain` (over this process's positions);
+  one process's mesh is the form's every-position-local case, which
+  :func:`persistent_jacobi_mesh` launches. Launches are counted in
+  ``persistent_jacobi_across.launches`` (the uneven form's also in
+  ``persistent_jacobi_across.uneven``).
 
 The result contract. The kernel keeps every substep of a tile on chip, in
 on-chip passes of at most :data:`ONCHIP_KMAX` substeps
@@ -59,7 +81,8 @@ from ..domain.grid import GridSpec
 from ..geometry import DIRECTIONS_26, Dim3, Rect3
 from ..plan.ir import direction_boxes
 from . import _native
-from .fused_stencil import (box_slices, check_mesh_fields, launch_mesh_chunk,
+from .fused_stencil import (across_tables, box_rows, box_slices, check_mesh_fields,
+                            mesh_tables, messages_gloo, peer_pointers, position_table,
                             require_float32_fields)
 from .stencil_kernels import _check_block, _device_of
 
@@ -149,15 +172,18 @@ def result_in_nxt(k: int) -> bool:
     return len(chunk_passes(k)) % 2 == 1
 
 
-def make_persistent_chunk_body(spec: GridSpec, depth: int, size=None):
+def make_persistent_chunk_body(spec: GridSpec, depth: int, size=None, passes=None):
     """``chunk(curr, nxt, sel) -> (result, other)`` over one halo-filled
     block, in place, as the kernel writes it: for each on-chip pass of
     :func:`chunk_passes`, its substeps on temporaries (substep ``s`` of a
     chunk computing the region grown ``depth - 1 - s`` cells per side) and
-    only the pass's last substep stored, into the other buffer. The result
-    is in ``nxt`` when :func:`result_in_nxt`, else in ``curr``. ``size``
-    (x, y, z; default the base block) is the block's own compute extent, as
-    a smaller block of an uneven partition has it."""
+    only the pass's last substep stored, into the other buffer (pass ``p``
+    reads ``curr`` when ``p`` is even). The result is in ``nxt`` when
+    :func:`result_in_nxt`, else in ``curr``. ``size`` (x, y, z; default the
+    base block) is the block's own compute extent, as a smaller block of an
+    uneven partition has it; ``passes`` (a ``range`` of pass indices;
+    default all) the passes to run, as a launch of the cross-process form
+    runs them."""
     from .jacobi import jacobi_sweep
 
     check_chunk_depth(spec, depth)
@@ -168,10 +194,16 @@ def make_persistent_chunk_body(spec: GridSpec, depth: int, size=None):
         return Rect3(Dim3(off.x - g, off.y - g, off.z - g),
                      Dim3(off.x + base.x + g, off.y + base.y + g, off.z + base.z + g))
 
+    run = range(len(chunk_passes(depth))) if passes is None else passes
+
     def chunk(curr, nxt, sel):
         masks = (sel == 1, sel == 2)
         src, dst, left = curr, nxt, depth
-        for d in chunk_passes(depth):
+        for p, d in enumerate(chunk_passes(depth)):
+            if p not in run:
+                left -= d
+                src, dst = dst, src
+                continue
             tmp = [torch.empty_like(src) for _ in range(min(d - 1, 2))]
             c = src
             for s in range(d):
@@ -213,15 +245,10 @@ def _require_kernel_form(spec: GridSpec, k: int, mesh=None) -> None:
     check_chunk_depth(spec, k)
 
 
-def _deep_messages(spec: GridSpec, mesh=None):
-    """``(boxes, dests_by_box)`` of the deep messages: each direction's
-    ``(src, dst, shape)`` box and, per position, the position it sends the
-    box to (position + d on ``mesh``; the block itself on one block)."""
-    phases = deep_dir_phases(spec, mesh.dim if mesh is not None else (1, 1, 1))
-    boxes = [(src, dst, shape) for _d, src, dst, shape, _c in phases]
-    dests = [mesh.destinations((d.x, d.y, d.z)) if mesh is not None else (0,)
-             for d, *_ in phases]
-    return boxes, dests
+def _deep_boxes(spec: GridSpec):
+    """The deep messages' ``(src, dst, shape)`` boxes on one block, each
+    wrapping onto the block itself."""
+    return [(src, dst, shape) for _d, src, dst, shape, _c in deep_dir_phases(spec, (1, 1, 1))]
 
 
 def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
@@ -230,7 +257,7 @@ def persistent_jacobi_plain(curr, nxt, sel, spec: GridSpec, k: int):
     sel)``; the chunk's result is in ``nxt`` when :func:`result_in_nxt`,
     else in ``curr``."""
     _require_kernel_form(spec, k)
-    for src, dst, shape in _deep_messages(spec)[0]:
+    for src, dst, shape in _deep_boxes(spec):
         s, d = box_slices(src, dst, shape)
         curr[d] = curr[s]
     make_persistent_chunk_body(spec, k)(curr, nxt, sel)
@@ -248,9 +275,9 @@ def persistent_jacobi(curr, nxt, sel, spec: GridSpec, k: int):
     dev = _device_of(curr, nxt, sel)
     if dev.type == "cpu":
         return persistent_jacobi_plain(curr, nxt, sel, spec, k)
-    boxes, dests = _deep_messages(spec)
-    rc = launch_mesh_chunk(_native.lib("persistent_jacobi").persistent_jacobi_launch, [curr],
-                           [nxt], [sel], spec, boxes, dests, dev, k)
+    boxes = _deep_boxes(spec)
+    pos, msg = mesh_tables([curr], [nxt], [sel], [(0,)] * len(boxes), dev)
+    rc = launch_chunk(pos, 1, 1, msg, boxes, None, spec, k, dev)
     _native.check(rc, "persistent_jacobi")
     persistent_jacobi.launches += 1
     return curr, nxt, sel
@@ -265,28 +292,32 @@ def position_extents(spec: GridSpec, mesh) -> tuple:
     return tuple((b.z, b.y, b.x) for b in (spec.block_size(pos) for pos in mesh.positions()))
 
 
-def persistent_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, k: int, mesh):
-    """One k-step chunk over a mesh in plain PyTorch: every position's
-    ``curr`` halos <- the deep messages (:func:`deep_dir_phases` on the
-    mesh, the message toward ``d`` to position + d; in place), then the
-    chunk body on each position. On an uneven partition no messages (the
-    caller's deep exchange has filled the halos) and each position's body
-    at its own size. Returns ``(currs, nxts, sels)``; the result is in
-    ``nxts`` when :func:`result_in_nxt`, else in ``currs``."""
+def persistent_jacobi_mesh_plain(currs, nxts, sels, spec: GridSpec, k: int, mesh, passes=None):
+    """One k-step chunk of this process's positions of a mesh (on one
+    process every position) in plain PyTorch, the plain version of
+    :func:`persistent_jacobi_mesh` and :func:`persistent_jacobi_across`
+    (``passes`` as there): on a uniform partition, with pass 0, each local
+    position's ``curr`` halos <- the deep messages (:func:`deep_dir_phases`
+    on the mesh) from the positions at position - d (``currs[i]``: another
+    process's a mapped view, or None where no message comes from it); then
+    the chunk body's passes on each local position at its own size (on an
+    uneven partition the caller's deep exchange has filled the halos).
+    Returns ``(currs, nxts, sels)``; the result is in ``nxts`` when
+    :func:`result_in_nxt`, else in ``currs``."""
     _require_kernel_form(spec, k, mesh)
-    if not spec.is_uniform():
-        bspec = spec.block_spec()
-        for c, n, s, (z, y, x) in zip(currs, nxts, sels, position_extents(spec, mesh)):
-            make_persistent_chunk_body(bspec, k, (x, y, z))(c, n, s)
-        return currs, nxts, sels
-    boxes, dests_by_box = _deep_messages(spec, mesh)
-    for (src, dst, shape), dests in zip(boxes, dests_by_box):
-        s, d = box_slices(src, dst, shape)
-        for i, j in enumerate(dests):
-            currs[j][d] = currs[i][s]
-    body = make_persistent_chunk_body(spec.block_spec(), k)
-    for c, n, s in zip(currs, nxts, sels):
-        body(c, n, s)
+    passes = range(len(chunk_passes(k))) if passes is None else passes
+    locs = mesh.local_positions()
+    if spec.is_uniform() and 0 in passes:
+        for d, src, dst, shape, _c in deep_dir_phases(spec, mesh.dim):
+            s, t = box_slices(src, dst, shape)
+            for r in locs:
+                i = mesh.index(mesh.shifted(mesh.position(r), (-d.x, -d.y, -d.z)))
+                currs[r][t] = currs[i][s]
+    ext = position_extents(spec, mesh)
+    for i in locs:
+        z, y, x = ext[i]
+        make_persistent_chunk_body(spec.block_spec(), k, (x, y, z), passes)(currs[i], nxts[i],
+                                                                          sels[i])
     return currs, nxts, sels
 
 
@@ -297,21 +328,17 @@ def persistent_jacobi_mesh(currs, nxts, sels, spec: GridSpec, k: int, mesh):
     halo-filled (and on an uneven partition ``currs`` too, at radius k).
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/persistent_jacobi.cu`` once for every position (its uneven form
-    on an uneven partition), or raise. Returns ``(currs, nxts, sels)``."""
+    on an uneven partition): the cross-process form's launch
+    (:func:`launch_positions`) with every position local. Returns
+    ``(currs, nxts, sels)``."""
     dev = check_mesh_fields(currs, nxts, sels, spec, mesh, "persistent_jacobi_mesh")
     _require_kernel_form(spec, k, mesh)
     if dev.type == "cpu":
         return persistent_jacobi_mesh_plain(currs, nxts, sels, spec, k, mesh)
-    lib = _native.lib("persistent_jacobi")
-    if spec.is_uniform():
-        boxes, dests = _deep_messages(spec, mesh)
-        rc = launch_mesh_chunk(lib.persistent_jacobi_launch, currs, nxts, sels, spec, boxes,
-                               dests, dev, k)
-    else:
-        rc = launch_uneven_chunk(lib.persistent_jacobi_uneven_launch, currs, nxts, sels, spec,
-                                 mesh, dev, k)
-        persistent_jacobi_mesh.uneven += 1
+    rc = launch_positions(lambda i: (currs[i].data_ptr(), nxts[i].data_ptr(), sels[i].data_ptr()),
+                          spec, k, mesh, dev)
     _native.check(rc, "persistent_jacobi_mesh")
+    persistent_jacobi_mesh.uneven += not spec.is_uniform()
     persistent_jacobi_mesh.launches += 1
     return currs, nxts, sels
 
@@ -320,18 +347,119 @@ persistent_jacobi_mesh.launches = 0
 persistent_jacobi_mesh.uneven = 0  # the launches of the uneven form
 
 
-def launch_uneven_chunk(entry, currs, nxts, sels, spec: GridSpec, mesh, dev, k: int) -> int:
-    """Call the uneven form's entry (``persistent_jacobi_uneven_launch``)
-    over every position: the position table of :func:`mesh_tables`' rows and
-    the extent table (:func:`position_extents`), each kept per key; returns
-    its CUDA error code."""
-    ptrs = tuple(t.data_ptr() for row in zip(currs, nxts, sels) for t in row)
-    pos = _native.device_table(("mesh_positions", ptrs), lambda: list(ptrs), dev)
-    ext = position_extents(spec, mesh)
-    table = _native.device_table(("mesh_extents", ext), lambda: [v for e in ext for v in e], dev)
+def extent_table(ext, dev):
+    """The uneven form's extent table on ``dev``: a ``(nz, ny, nx)`` row a
+    position (:func:`position_extents`), kept per content."""
+    return _native.device_table(("mesh_extents", ext), lambda: [v for e in ext for v in e], dev)
+
+
+def launch_chunk(pos, npos: int, nsweep: int, msg, boxes, ext, spec: GridSpec, k: int, dev,
+                 passes=None) -> int:
+    """Call ``persistent_jacobi_launch`` (``csrc/persistent_jacobi.cu``):
+    the position table ``pos`` of ``npos`` rows, the first ``nsweep``
+    swept; the message table ``msg`` of the ``(src, dst, shape)``
+    ``boxes`` (None and ``()`` in the uneven form, whose extent table is
+    ``ext``, else None); the chunk's passes ``passes`` (a ``range``;
+    default all). Returns the CUDA error code."""
     p, off, b = spec.padded(), spec.compute_offset(), spec.base
-    return entry(pos.data_ptr(), len(currs), table.data_ptr(), p.y * p.x, p.x, off.z, off.y,
-                 off.x, b.z, b.y, b.x, k, dev.index, _native.stream_ptr(dev))
+    passes = range(len(chunk_passes(k))) if passes is None else passes
+    return _native.lib("persistent_jacobi").persistent_jacobi_launch(
+        pos.data_ptr(), npos, nsweep, None if msg is None else msg.data_ptr(),
+        0 if msg is None else nsweep, box_rows(boxes), len(boxes),
+        None if ext is None else ext.data_ptr(), p.y * p.x, p.x, off.z, off.y, off.x, b.z, b.y,
+        b.x, k, passes.start, passes.stop, dev.index, _native.stream_ptr(dev))
+
+
+def launch_positions(ptrs_of, spec: GridSpec, k: int, mesh, dev, passes=None) -> int:
+    """One launch of ``csrc/persistent_jacobi.cu`` over this process's
+    positions of ``mesh`` (on one process every position), ``ptrs_of`` and
+    ``passes`` as for :func:`persistent_jacobi_across`: on a uniform
+    partition the tables of ``fused_stencil.across_tables`` and the deep
+    messages' boxes, else the uneven form's extent table of the local
+    positions. Returns the CUDA error code."""
+    locs = mesh.local_positions()
+    if spec.is_uniform():
+        phases = deep_dir_phases(spec, mesh.dim)
+        pos, msg, ptrs = across_tables(ptrs_of, mesh, [(d.x, d.y, d.z) for d, *_ in phases], dev)
+        return launch_chunk(pos, len(ptrs) // 3, len(locs), msg,
+                            [(src, dst, shape) for _d, src, dst, shape, _c in phases], None,
+                            spec, k, dev, passes)
+    pos = position_table(tuple(v for i in locs for v in ptrs_of(i)), dev)
+    every = position_extents(spec, mesh)
+    return launch_chunk(pos, len(locs), len(locs), None, (),
+                        extent_table(tuple(every[i] for i in locs), dev), spec, k, dev, passes)
+
+
+def persistent_jacobi_across(ptrs_of, spec: GridSpec, k: int, mesh, dev, passes=None) -> None:
+    """B9's cross-process form: one cooperative launch of
+    ``csrc/persistent_jacobi.cu`` over this process's positions, ``ptrs_of(i)`` the (curr, nxt, sel)
+    addresses of a local position and, at another process's position a
+    deep message comes from, its curr mapped through CUDA IPC first
+    (``fused_stencil.across_tables``). It runs the chunk's passes
+    ``passes`` (a ``range`` of :func:`chunk_passes`' indices; default all),
+    the deep messages into the local halos with pass 0; on an uneven
+    partition no messages (the caller's deep exchange) and each local
+    position at its own extent. The caller orders the launch after the
+    other processes' (``parallel/ipc.PhaseOrder.before_all``). Its plain
+    version is :func:`persistent_jacobi_mesh_plain`."""
+    _require_kernel_form(spec, k, mesh)
+    _native.check(launch_positions(ptrs_of, spec, k, mesh, dev, passes),
+                  "persistent_jacobi across processes")
+    persistent_jacobi_across.launches += 1
+    persistent_jacobi_across.uneven += not spec.is_uniform()
+
+
+persistent_jacobi_across.launches = 0
+persistent_jacobi_across.uneven = 0  # the launches of the uneven form
+
+
+def persistent_chunk_across(currs, nxts, sels, spec: GridSpec, k: int, mesh, peers=None) -> int:
+    """One k-step chunk of this process's positions of a mesh spread over
+    processes (lists of one block a position, None at another process's;
+    ``sels`` halo-filled, and on an uneven partition ``currs`` too, at
+    radius k). On the card: on a uniform partition the handshake with
+    every rank the messages cross to (``peers.order.before_all``) and one
+    :func:`persistent_jacobi_across` launch of the messages and pass 0;
+    then, for a chunk of several passes, a second handshake and a launch of
+    the passes after pass 0 (on an uneven partition the same, without the
+    first handshake: the caller's deep exchange held its own). On the CPU
+    the deep messages over gloo (uniform), then the chunk body on each
+    local position at its own size. Returns the launches it issued (the
+    chunk programs on the CPU)."""
+    locs = mesh.local_positions()
+    require_float32_fields(currs[locs[0]], "persistent_jacobi across processes")
+    _require_kernel_form(spec, k, mesh)
+    dev = currs[locs[0]].device
+    uniform = spec.is_uniform()
+    if dev.type == "cpu":
+        if uniform:
+            phases = deep_dir_phases(spec, mesh.dim)
+            messages_gloo([None if c is None else [c] for c in currs],
+                          [(src, dst, shape) for _d, src, dst, shape, _c in phases],
+                          [(d.x, d.y, d.z) for d, *_ in phases], mesh)
+        bspec, ext = spec.block_spec(), position_extents(spec, mesh)
+        for i in locs:
+            z, y, x = ext[i]
+            make_persistent_chunk_body(bspec, k, (x, y, z))(currs[i], nxts[i], sels[i])
+        return 1
+    if peers is None:
+        raise RuntimeError("a mesh spread over processes steps on the card through the buffers "
+                           "DistributedDomain.realize exports (parallel/ipc.PeerBuffers)")
+    curr_of = peer_pointers(currs, peers, mesh)
+
+    def ptrs_of(i):
+        if mesh.is_local(i):
+            return curr_of(i), nxts[i].data_ptr(), sels[i].data_ptr()
+        return curr_of(i), 0, 0
+
+    n = len(chunk_passes(k))
+    if uniform:
+        peers.order.before_all()
+    persistent_jacobi_across(ptrs_of, spec, k, mesh, dev, range(0, 1))
+    if n > 1:
+        peers.order.before_all()  # pass 1 overwrites curr's cells the others pulled
+        persistent_jacobi_across(ptrs_of, spec, k, mesh, dev, range(1, n))
+    return 1 + (n > 1)
 
 
 def chunk_bytes(spec: GridSpec, k: int, size=None) -> int:
@@ -359,5 +487,5 @@ def chunk_design_bytes(spec: GridSpec, k: int) -> int:
     for d in chunk_passes(k):
         total += 8 * cells(left) + 4 * cells(left - d)
         left -= d
-    halo = sum(shape[0] * shape[1] * shape[2] for _s, _d, shape in _deep_messages(spec)[0])
+    halo = sum(shape[0] * shape[1] * shape[2] for _s, _d, shape in _deep_boxes(spec))
     return total + 8 * halo

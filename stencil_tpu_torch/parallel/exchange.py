@@ -83,12 +83,14 @@ kernel's uneven form (messages off, each position at its own extent).
 This process's positions must share one device (the reference's
 ``set_gpus({0,0})``). The positions may be spread over several processes
 (``DeviceMesh.multi_process``, one block a position): each rank holds its
-own positions' stacks (None at another rank's) and the axis carrier fills
-its halos through CUDA IPC on one card, or over gloo on the CPU
-(``ops/remote_dma.RemoteDmaExchange``); the fused and persistent variants
-and more blocks than positions across processes are ROADMAP.md queue B
-item 6. Positions on distinct GPUs (peer access, NCCL between GPUs) are
-queue A item 5.
+own positions' stacks (None at another rank's) and the carriers fill its
+halos through CUDA IPC on one card, or over gloo on the CPU
+(``ops/remote_dma.RemoteDmaExchange``, ``ops/fused_stencil.
+FusedRemoteDmaExchange``); the fused and persistent loops step each rank's
+own positions through their kernels' cross-process forms (one launch per
+rank over its positions, ``ops/jacobi.py``). More blocks than positions
+across processes are ROADMAP.md queue B item 6. Positions on distinct GPUs
+(peer access, NCCL between GPUs) are queue A item 5.
 
 ``wire_dtype`` (the JAX package's bf16-on-the-wire compression, its fp8
 tier and every other floating format it narrows through,
@@ -199,11 +201,6 @@ class HaloExchange:
                     "narrows), so the port matches neither (ROADMAP.md queue C, \"Design "
                     "divergences\")")
         if self.mesh is not None and self.mesh.multi_process:
-            if self.fused or self.persistent:
-                raise NotImplementedError(
-                    f"the {'fused' if self.fused else 'persistent'} kernel variant over "
-                    "positions of several processes: one launch per rank with the waits "
-                    "between its sections is ROADMAP.md queue B item 6")
             if self.oversubscribed:
                 raise NotImplementedError(
                     f"{self.resident} blocks a position over positions of several processes: "
@@ -262,6 +259,12 @@ class HaloExchange:
         """The CUDA IPC buffers and phase order (``parallel/ipc.PeerBuffers``)
         of a mesh spread over processes on the card."""
         self._remote.peers = peers
+
+    @property
+    def peers(self):
+        """The attached ``parallel/ipc.PeerBuffers`` (None off the card or in
+        one process)."""
+        return self._remote.peers if self._remote is not None else None
 
     @property
     def on_mesh(self) -> bool:

@@ -1,6 +1,7 @@
 """CUDA IPC between the processes of one card, and the order of their phases.
 
-The transport of B6's cross-process form (``ops/remote_dma``): the port's
+The transport of the cross-process forms of B6 (``ops/remote_dma``), B7 and
+B8 (``ops/fused_stencil``) and B9 (``ops/persistent_stencil``): the port's
 counterpart of the reference's colocated path (``tx_ipc.cpp``,
 ``tx_colocated.cu:45-153``: the receiver shares its curr and next quantity
 buffers, the sender's kernel reads or writes them through the mapped
@@ -14,7 +15,11 @@ collective): each rank exports the curr and the next stack of every
 quantity of its positions (both, since the jacobi loops swap them, as the
 reference's ``ColoHaloSender::swap`` does, src/tx_colocated.cu:169-176) and
 one interprocess event; the handles travel over gloo, and each rank opens
-those of its ring neighbours once. A handle names the whole allocation
+the events and maps the blocks of every rank it exchanges with: its ring
+neighbours (B6) and the owners of the positions its direction messages come
+from or go to (B7-B9: faces, edges and corners). :meth:`PeerBuffers.add`
+exports one more buffer the same way (the jacobi loops' ``sel``, whose deep
+halos the persistent loop exchanges). A handle names the whole allocation
 that holds a block (PyTorch's caching allocator carves blocks out of
 larger segments), so every export carries the block's offset into it,
 which the opener adds. :meth:`PeerBuffers.close` (also run when the
@@ -22,28 +27,44 @@ buffers are garbage-collected) unmaps what it opened and destroys its
 events; every rank closes before any frees the exported blocks (a barrier
 between), so no mapping outlives the memory it maps.
 
-:class:`PhaseOrder` is the TPU kernel's neighbour barrier
-(``stencil_tpu/ops/remote_dma.py:153-160``) between launches of separate
-processes: before an axis phase a rank records its event after its prior
-work, tells its ring neighbours on that axis over gloo (the reference's
-notify, ``tx_cuda.cuh:473-483``), and once their notices have arrived its
-stream waits on their events; only then does it launch. The notice comes
-first because ``cudaStreamWaitEvent`` waits on the newest record issued
-before it: without the host order a wait could pass on the previous
-phase's record. Every position of a rank lies on its one stream, so one
-event a rank covers them; a rank waits on one event per neighbouring rank.
-No kernel spins on a flag: without MPS the kernels of two processes
-time-slice on the card and are never resident together.
+:class:`PhaseOrder` is the TPU kernels' neighbour barrier
+(``stencil_tpu/ops/remote_dma.py:153-160``, ``fused_stencil.py:153-162``,
+``persistent_stencil.py:279-289``) between launches of separate processes:
+before a launch a rank records its event after its prior work, tells the
+ranks it exchanges with over gloo (the reference's notify,
+``tx_cuda.cuh:473-483``), and once their notices have arrived its stream
+waits on their events; only then does it launch. B6 holds one handshake an
+axis phase with that axis's ring neighbours (:meth:`PhaseOrder.before`);
+B7, B8 and B9 one a launch with every rank their messages cross to
+(:meth:`PhaseOrder.before_all`, which raises when the order was made
+without that set of ranks). The notice comes first because
+``cudaStreamWaitEvent`` waits on the newest record issued before it:
+without the host order a wait could pass on the previous phase's record.
+Every position of a rank lies on its one stream, so one event a rank covers
+them; a rank waits on one event per neighbouring rank. No kernel spins on a
+flag: without MPS the kernels of two processes time-slice on the card and
+are never resident together.
 
-Each rank's launch of a phase fills its own positions' halos (it reads its
-neighbours' boundary slabs through the mapped pointers), so a phase of a
+Each rank's launch fills its own positions' halos (it reads its
+neighbours' compute cells through the mapped pointers), so a launch of a
 rank ends when its halos have landed, as the TPU kernel's ends on its
-receive semaphores. That makes the one handshake a phase enough: a rank's
-phase reads a neighbour's cells only after the neighbour's previous phase
-(whose halos it may read) and sweep, and a rank writes only its own cells,
-which its neighbours read no later than the phase whose event it waits on
-next (PERF.md section 6, the entry on B6 across processes, has the
-argument).
+receive semaphores. That makes one handshake a launch enough: a rank reads
+a neighbour's cells only after the neighbour's previous launch (whose cells
+it may read) has finished, and a rank writes only its own cells, which its
+neighbours read no later than the launch whose event it waits on next
+(PERF.md section 6, the entries on B6 and on B7-B9 across processes, have
+the argument). A launch that overwrites cells its neighbours read in the
+same step or chunk (a B9 chunk of several passes, the uneven fused
+schedule's sweep) takes a handshake of its own first.
+
+A persistent loop's depth-1 tail after B9 chunks (B6's exchange, then a
+sweep into the buffer every neighbour, corners included, pulled from in its
+last B9 launch) takes none: B6's axis phases run x, then y, then z, and
+the event a rank records for a phase follows its waits of the phases
+before, so waiting on it covers the ranks that rank waited on. The x wait
+covers the x neighbours' last launches, the y wait also the xy corners'
+through the y neighbours' x waits, and the z wait every position within
+one step on each axis (PERF.md section 6 has the argument).
 """
 
 from __future__ import annotations
@@ -192,21 +213,33 @@ class GlooNotices:
 
 
 class PhaseOrder:
-    """The neighbour barrier of each axis phase: :meth:`before` records
-    this rank's event, sends its notices to the ring neighbours of that
-    axis and waits for theirs, then makes the stream wait on their events
+    """The neighbour barrier of a launch: :meth:`before` records this
+    rank's event, sends its notices to the ring neighbours of an axis and
+    waits for theirs, then makes the stream wait on their events
     (``events``: ``record()`` / ``wait(rank)``; ``notices``:
-    ``exchange(ranks)``). An axis whose neighbours are all this rank's
-    needs nothing."""
+    ``exchange(ranks)``); :meth:`before_all` does the same with
+    ``everyone``, every rank this rank's direction messages cross to (None:
+    not known, and :meth:`before_all` raises). An axis (or a set) whose
+    neighbours are all this rank's needs nothing."""
 
-    def __init__(self, neighbours: Dict[str, Tuple[int, ...]], events, notices):
+    def __init__(self, neighbours: Dict[str, Tuple[int, ...]], events, notices,
+                 everyone: Optional[Sequence[int]] = None):
         self.neighbours, self.events, self.notices = neighbours, events, notices
+        self.everyone = None if everyone is None else tuple(everyone)
         self.handshakes = 0
         # host seconds spent in the handshakes, and in their notices alone
         self.host_s = self.notice_s = 0.0
 
     def before(self, axis: str) -> None:
-        ranks = self.neighbours.get(axis, ())
+        self._handshake(self.neighbours.get(axis, ()))
+
+    def before_all(self) -> None:
+        if self.everyone is None:
+            raise RuntimeError("no handshake set: this phase order was made without the ranks "
+                               "the direction messages cross to (PeerBuffers' steps)")
+        self._handshake(self.everyone)
+
+    def _handshake(self, ranks: Sequence[int]) -> None:
         if not ranks:
             return
         t0 = time.perf_counter()
@@ -247,22 +280,23 @@ class PeerBuffers:
     by (quantity, buffer), and the :class:`PhaseOrder` of the exchange.
     ``buffers[(q, b)]`` is quantity ``q``'s list of per-position stacks of
     buffer ``b`` (0: curr, 1: next at realize), None at another rank's
-    position. Collective: every rank makes it with the same keys.
-    :meth:`close` releases its mappings and events."""
+    position; ``steps`` the (dx, dy, dz) directions of the messages B7-B9
+    move, at least one (their owners' ranks are
+    :attr:`PhaseOrder.everyone`). Collective: every rank makes it with the
+    same keys. :meth:`close` releases its mappings and events."""
 
-    def __init__(self, mesh, buffers: Dict[Tuple[int, int], List[Optional[torch.Tensor]]]):
+    def __init__(self, mesh, buffers: Dict[Tuple[int, int], List[Optional[torch.Tensor]]],
+                 steps: Sequence[Tuple[int, int, int]]):
+        if not steps:
+            raise ValueError("PeerBuffers needs the directions of the messages B7-B9 move: "
+                             "without them no launch of those kernels would be ordered")
         dist = torch.distributed
         self.mesh = mesh
         self.device = mesh.device
         self.local: Dict[int, Tuple[int, int, int]] = {}  # data_ptr -> (q, b, position)
         self.tensors: Dict[Tuple[int, int, int], torch.Tensor] = {}
-        exports = {}
-        for (q, b), stacks in buffers.items():
-            for i in mesh.local_positions():
-                t = stacks[i]
-                self.local[t.data_ptr()] = (q, b, i)
-                self.tensors[(q, b, i)] = t
-                exports[(q, b, i)] = mem_handle(t)
+        self.added = 0
+        exports = self._exports(buffers)
         self.event = event_create()
         mine = (exports, event_handle(self.event))
         gathered = [None] * dist.get_world_size()
@@ -272,20 +306,59 @@ class PeerBuffers:
             self.handles.update(ex)
         neighbours = {axis: mesh.neighbour_ranks(axis) for axis in "xyz"
                       if mesh.ring(axis) > 1}
-        ranks = sorted({r for rs in neighbours.values() for r in rs})
-        opened_events = {r: open_event(gathered[r][1]) for r in ranks}
+        everyone = mesh.message_ranks(steps)
+        # every rank this one exchanges with, whose blocks it maps
+        self.ranks = sorted({r for rs in (*neighbours.values(), everyone) for r in rs})
+        opened_events = {r: open_event(gathered[r][1]) for r in self.ranks}
         # the base addresses of the blocks this rank mapped, by (q, b, position)
         self._bases: Dict[Tuple[int, int, int], int] = {}
         self._finalizer = weakref.finalize(self, _release, self.device, self._bases,
                                            self.handles, [self.event, *opened_events.values()])
         self._finalizer.atexit = False  # the process's exit releases them
         events = CudaEvents(self.event, opened_events, self.device)
-        self.order = PhaseOrder(neighbours, events, GlooNotices(notice_group()))
-        # map every neighbour block once, now
-        for i in range(len(mesh)):
-            if not mesh.is_local(i) and mesh.owner(i) in ranks:
-                for (q, b) in buffers:
+        self.order = PhaseOrder(neighbours, events, GlooNotices(notice_group()), everyone)
+        self._map(buffers)
+
+    def _exports(self, buffers) -> dict:
+        """This rank's ``(handle, offset)`` of each local stack of
+        ``buffers`` (``{(q, b): stacks}``), by ``(q, b, position)``; the
+        stacks kept, and found again by their addresses."""
+        exports = {}
+        for (q, b), stacks in buffers.items():
+            for i in self.mesh.local_positions():
+                t = stacks[i]
+                self.local[t.data_ptr()] = (q, b, i)
+                self.tensors[(q, b, i)] = t
+                exports[(q, b, i)] = mem_handle(t)
+        return exports
+
+    def _map(self, keys) -> None:
+        """Map the blocks of ``keys`` of every rank this one exchanges
+        with once, now."""
+        for i in range(len(self.mesh)):
+            if not self.mesh.is_local(i) and self.mesh.owner(i) in self.ranks:
+                for (q, b) in keys:
                     self.pointer(i, q, b)
+
+    def add(self, stacks: Sequence[Optional[torch.Tensor]]):
+        """Export one more per-position list of stacks (None at another
+        rank's positions), as realize exported curr and next: a buffer the
+        domain does not hold, such as the persistent loop's ``sel``, whose
+        deep halos it exchanges. A list already exported keeps its key.
+        Collective: every rank adds the same lists in the same order.
+        Returns the buffer's key; its stacks are kept until :meth:`close`."""
+        known = self._found(stacks)
+        if len(known) == 1 and None not in known:
+            return known.pop()
+        key = ("added", self.added)
+        self.added += 1
+        mine = self._exports({key: stacks})
+        gathered = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(gathered, mine)
+        for ex in gathered:
+            self.handles.update(ex)
+        self._map([key])
+        return key
 
     def pointer(self, i: int, q: int, b: int) -> int:
         """Device address, in this process, of quantity ``q``'s buffer ``b``
@@ -309,18 +382,25 @@ class PeerBuffers:
     def buffer_of(self, stacks: Sequence[Optional[torch.Tensor]]) -> Tuple[int, int]:
         """``(q, b)`` of a quantity's list of per-position stacks, by the
         addresses of its local stacks, which must all be the buffers
-        exported at realize."""
-        found = set()
-        for i in self.mesh.local_positions():
-            key = self.local.get(stacks[i].data_ptr())
-            if key is None or key[2] != i:
-                raise RuntimeError(
-                    f"position {i}'s block is not a buffer exported at realize: a mesh spread "
-                    "over processes exchanges the domain's own curr and next stacks")
-            found.add(key[:2])
+        exported at realize or by :meth:`add`."""
+        found = self._found(stacks)
+        if None in found:
+            raise RuntimeError(
+                "a local block is not an exported buffer: a mesh spread over processes "
+                "exchanges the domain's own curr and next stacks, or stacks exported by "
+                "PeerBuffers.add")
         if len(found) != 1:
             raise RuntimeError(f"a quantity's positions mix exported buffers {sorted(found)}")
         return found.pop()
+
+    def _found(self, stacks) -> set:
+        """The ``(q, b)`` of each local stack of ``stacks`` exported at its
+        own position, None for one that is not."""
+        found = set()
+        for i in self.mesh.local_positions():
+            key = self.local.get(stacks[i].data_ptr())
+            found.add(key[:2] if key is not None and key[2] == i else None)
+        return found
 
     def gather(self, stacks: Sequence[Optional[torch.Tensor]]) -> Optional[List[torch.Tensor]]:
         """Every position's stack of one quantity's buffer, copied onto

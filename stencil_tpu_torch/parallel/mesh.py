@@ -158,6 +158,20 @@ class DeviceMesh:
         out.discard(self.rank)
         return tuple(sorted(out))
 
+    def message_ranks(self, steps) -> Tuple[int, ...]:
+        """The other ranks that own position + s or position - s of one of
+        this process's positions, for each (dx, dy, dz) step ``s``: the
+        ranks its messages along ``steps`` come from or go to (symmetric
+        whatever ``steps`` holds)."""
+        out = set()
+        for i in self._local:
+            pos = self.position(i)
+            for s in steps:
+                for sign in (1, -1):
+                    out.add(self.owners[self.index(self.shifted(pos, [sign * c for c in s]))])
+        out.discard(self.rank)
+        return tuple(sorted(out))
+
     @property
     def one_device(self) -> bool:
         """Every position of this process on one device (the same CUDA

@@ -295,9 +295,9 @@ class FakeFusedCard:
             self.made.append(key)
         return self.tables[key]
 
-    def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
-                            xo, nz, ny, nx, vec, wire, fmt, dev, stream):
-        assert wire == 0  # one block: nothing crosses
+    def fused_jacobi_launch(self, pos, npos, nsweep, msg, m, segs, nseg, ncols, tasks, sz, sy,
+                            zo, yo, xo, nz, ny, nx, vec, wire, fmt, dev, stream):
+        assert wire == 0 and nsweep == npos  # one block: nothing crosses, every row swept
         p = [[self.blocks[v] for v in self.tables[pos][3 * i:3 * i + 3]] for i in range(npos)]
         flat, msgs = self.tables[segs], self.tables[msg]
         assert ncols == fst.SEG_COLS and len(flat) == nseg * ncols

@@ -293,7 +293,7 @@ class FakeChunkCard:
         assert len(rows) == 3 * m * nboxes and m == npos
         for r in range(m * nboxes):
             src, dst, b = rows[3 * r:3 * r + 3]
-            assert b == r // m and src == r % m
+            assert b == r // m and dst == r % m  # box by box, receiver by receiver
             box = list(boxes[9 * b:9 * b + 9])
             s, d = tfused.box_slices(box[0:3], box[3:6], box[6:9])
             p[dst][0][d] = p[src][0][s]
@@ -311,8 +311,8 @@ class FakeChunkCard:
                 tpers.make_persistent_chunk_body(spec, k)(a, b, sel)
         return 0
 
-    def fused_jacobi_launch(self, pos, npos, msg, m, segs, nseg, ncols, tasks, sz, sy, zo, yo,
-                            xo, nz, ny, nx, vec, code, fmt, dev, stream):
+    def fused_jacobi_launch(self, pos, npos, nsweep, msg, m, segs, nseg, ncols, tasks, sz, sy,
+                            zo, yo, xo, nz, ny, nx, vec, code, fmt, dev, stream):
         """The fused step: its phase-A work list replayed as
         tests/test_torch_fused_launch.py does (the flagged rows through the
         wire of the launch's code and format), then one sweep per position."""
@@ -321,20 +321,22 @@ class FakeChunkCard:
 
         p = self.positions(pos, npos)
         flat, msgs = self.tables[segs], self.tables[msg]
-        assert ncols == tfused.SEG_COLS and len(flat) == nseg * ncols and m == npos
+        assert ncols == tfused.SEG_COLS and len(flat) == nseg * ncols and m == nsweep == npos
         wire = launch_wire(code, fmt)
         replay_rows([a for a, _b, _s in p], [flat[i * ncols:(i + 1) * ncols] for i in range(nseg)],
                     [msgs[3 * i:3 * i + 3] for i in range(len(msgs) // 3)], m, sz, sy, wire)
         return self.substeps(p, sz, sy, zo, yo, xo, nz, ny, nx, 1)
 
-    def persistent_jacobi_launch(self, *args):
-        *args, _dev, _stream = args
-        return self.run(*args)
-
-    def persistent_jacobi_uneven_launch(self, pos, npos, ext, sz, sy, zo, yo, xo, nz, ny, nx, k,
-                                        _dev, _stream):
-        """The uneven form: no messages; each position's passes at the
-        extent its row of the extent table gives, inside the base block."""
+    def persistent_jacobi_launch(self, pos, npos, nsweep, msg, m, boxes, nboxes, ext, sz, sy,
+                                 zo, yo, xo, nz, ny, nx, k, pass0, pass1, _dev, _stream):
+        """One process's chunk: every row swept, every pass run; with an
+        extent table the uneven form: no messages; each position's passes at
+        the extent its row of the extent table gives, inside the base
+        block."""
+        assert nsweep == npos and (pass0, pass1) == (0, len(tpers.chunk_passes(k)))
+        if ext is None:
+            return self.run(pos, npos, msg, m, boxes, nboxes, sz, sy, zo, yo, xo, nz, ny, nx, k)
+        assert msg is None and m == nboxes == 0
         rows = self.tables[ext]
         assert len(rows) == 3 * npos
         spec = tgrid.GridSpec(tgeo.Dim3(nx, ny, nz), tgeo.Dim3(1, 1, 1), self.radius)
@@ -424,7 +426,8 @@ def test_persistent_mesh_tables_move_the_plain_versions_cells(monkeypatch, size,
         if tpers.result_in_nxt(k):
             wc, wn, gc, gn = wn, wc, gn, gc
     assert tpers.persistent_jacobi_mesh.launches == before + 2
-    assert sorted(card.made) == ["mesh_messages"] + ["mesh_positions"] * (
+    # the cross-process form's tables, every position local
+    assert sorted(card.made) == ["mesh_messages_across"] + ["mesh_positions"] * (
         1 + tpers.result_in_nxt(k))
     for key in ("c", "n"):
         assert all(torch.equal(a, b) for a, b in zip(got[key], want[key])), key

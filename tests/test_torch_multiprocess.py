@@ -8,7 +8,8 @@ the environment, the rank order, the fingerprint, the link costs, ``proc``
 on each rank's records), the exchange of ``tests/_mp_worker.py``'s config
 (24x20x16, r2, the fp32 coordinate pattern) by REMOTE_DMA with each rank
 checking its own halos, a mixed fp32 + fp64 dict through a bf16 wire on
-an uneven 25x20x16, the refusals, and jacobi3d at 64^3. Rank 0 gathers
+an uneven 25x20x16, the fused exchange (B7) over gloo of the pattern and
+of a mixed dict through bf16, the refusals, and jacobi3d at 64^3. Rank 0 gathers
 every block, halos included, and writes them to ``<out>``; the tests hold
 them bit-equal to the JAX package's single-process exchange and jacobi3d.
 The launcher's refusals (a failing rank, the time limit) and the phase
@@ -158,10 +159,40 @@ def worker_exchange(out: str) -> None:
     arrays["mixed_a"] = _gathered(md, a)
     arrays["mixed_b"] = _gathered(md, b)
 
-    # the refusals: the fused and persistent variants and AXIS_COMPOSED
+    # B7 across processes (the fused exchange over gloo): the coordinate
+    # pattern, and a mixed dict through a bf16 wire
+    fd = DistributedDomain(24, 20, 16, device="cpu")
+    fd.set_radius(2)
+    fd.set_methods(Method.REMOTE_DMA)
+    fd.set_fused_exchange(True)
+    fd.set_devices(distributed.default_positions())
+    fh = fd.add_data("q", "float32")
+    fd.realize()
+    fd.set_curr_global(fh, coords((16, 20, 24), np.float32))
+    fd.exchange()
+    report["fused_transfers"] = fd.halo_exchange.last_transfer_count
+    arrays["fused_coords"] = _gathered(fd, fh)
+    fm = DistributedDomain(24, 20, 16, device="cpu")
+    fm.set_radius(1)
+    fm.set_methods(Method.REMOTE_DMA)
+    fm.set_fused_exchange(True)
+    fm.set_devices(distributed.default_positions())
+    fm.set_wire_dtype("bfloat16")
+    fa, fb = fm.add_data("a", "float32"), fm.add_data("b", "float64")
+    fm.realize()
+    rng = np.random.RandomState(8)
+    fm.set_curr_global(fa, rng.rand(16, 20, 24).astype(np.float32))
+    fm.set_curr_global(fb, rng.rand(16, 20, 24))
+    fm.exchange()
+    arrays["fused_mixed_a"] = _gathered(fm, fa)
+    arrays["fused_mixed_b"] = _gathered(fm, fb)
+
+    # the refusals (AXIS_COMPOSED, more blocks than positions, autotune);
+    # the fused and persistent variants realize
     report["raised"] = {}
     for name, setup in (("fused", lambda d: d.set_fused_exchange(True)),
                         ("persistent", lambda d: d.set_persistent_exchange(True)),
+                        ("oversubscribed", lambda d: d.set_partition((4, 2, 2))),
                         ("axis-composed", lambda d: d.set_methods(Method.AXIS_COMPOSED)),
                         ("autotune", lambda d: d.enable_autotune(probe=False))):
         d = DistributedDomain(16, 16, 16, device="cpu")
@@ -235,12 +266,13 @@ def exchange_run(tmp_path_factory):
     return out, reports, dict(np.load(out / "exchange.npz"))
 
 
-def _jax_domain(size, dim, radius, dtypes, wire=None):
+def _jax_domain(size, dim, radius, dtypes, wire=None, fused=False):
     dd = JDomain(*size)
     dd.set_radius(radius)
     dd.set_methods(RDMA_J)
     dd.set_devices(jax.devices()[:8])
     dd.set_partition(dim)
+    dd.set_fused_exchange(fused)
     if wire:
         dd.set_wire_dtype(wire)
     hs = [dd.add_data(f"q{i}", dt) for i, dt in enumerate(dtypes)]
@@ -336,14 +368,44 @@ def test_mixed_dict_bf16_wire_uneven_matches_jax(exchange_run):
 def test_refusals_checkpoint_skips_and_health(exchange_run):
     out, reports, _arrays = exchange_run
     for rep in reports:
-        assert "queue B item 6" in rep["raised"]["fused"]
-        assert "queue B item 6" in rep["raised"]["persistent"]
+        # the fused and persistent variants realize across processes; more
+        # blocks than positions still raises
+        assert rep["raised"]["fused"] is None and rep["raised"]["persistent"] is None
+        assert "queue B item 6" in rep["raised"]["oversubscribed"]
         assert "queue A item 5" in rep["raised"]["axis-composed"]
         assert "queue A item 5" in rep["raised"]["autotune"]
         assert "queue A item 5" in rep["raised_replan"]
         assert rep["restored"] is None
         assert rep["health"] and "nonfinite" in rep["health"].lower()
     assert not os.path.exists(out / "ckpt") or not os.listdir(out / "ckpt")
+
+
+@pytest.mark.parametrize("case", ["fp32-r2", "mixed-bf16"])
+def test_fused_exchange_over_gloo_matches_jax(exchange_run, case):
+    """B7 across processes on the CPU (``fused_exchange_gloo``): the
+    coordinate pattern at r2, and an fp32 + fp64 dict through a bf16 wire,
+    gathered on rank 0 bit-equal to the JAX package's one-process fused
+    exchange on 8 virtual devices; each rank counts the messages its own
+    positions sent to another position (every direction crosses on
+    (2,2,2): 26 a position)."""
+    _out, reports, arrays = exchange_run
+    dim = tuple(reports[0]["dim"])
+    if case == "fp32-r2":
+        jdd, hs = _jax_domain((24, 20, 16), dim, 2, ["float32"], fused=True)
+        jdd.set_curr_global(hs[0], coords((16, 20, 24), np.float32))
+        names = ["fused_coords"]
+        for rep in reports:
+            assert rep["fused_transfers"] == 4 * 26
+    else:
+        jdd, hs = _jax_domain((24, 20, 16), dim, 1, ["float32", "float64"], wire="bfloat16",
+                              fused=True)
+        rng = np.random.RandomState(8)
+        jdd.set_curr_global(hs[0], rng.rand(16, 20, 24).astype(np.float32))
+        jdd.set_curr_global(hs[1], rng.rand(16, 20, 24))
+        names = ["fused_mixed_a", "fused_mixed_b"]
+    jdd.exchange()
+    for name, h in zip(names, hs):
+        np.testing.assert_array_equal(arrays[name], np.asarray(jdd.get_curr(h)))
 
 
 def test_records_carry_each_rank(exchange_run):
