@@ -556,6 +556,39 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               handshakes a step or chunk and their host ms. Rehearsable on
               the CPU only in its parts
               (tests/test_torch_multiprocess_variants.py).
+23. composed -- AXIS_COMPOSED and DIRECT26 over a mesh of positions
+              (composed_mesh_phase; workers python -m chip_smoke
+              --composed-processes-worker): (a) the exchanges at 512^3
+              (2,2,2) r1 x4 fp32 and config 2 over 8 positions by
+              AXIS_COMPOSED (unnarrowed and through bf16) and DIRECT26,
+              copies between positions (no B6, B7 launch), each block
+              torch.equal to the resident exchange of the method and to
+              REMOTE_DMA's mesh exchange through the same wire (DIRECT26:
+              its halo cells), messages and bytes held to the IR, ms by
+              CUDA events beside the resident exchange's; (b) B2/B3's
+              positions form (multistep_positions, one launch over every
+              position at its own origin) at 512^3 over 8 positions in
+              the main path's form (fp32, radius 4, the k that (c)'s
+              deep_halo 4 run takes, held equal to it), then at k = 4 fp32
+              and k = 3 fp64, and a ragged 130x70x40 block over 4
+              positions at k = 1..6, torch.equal to its plain version and
+              to the stack form, timed by CUDA-graph replay beside the
+              stack form and its bytes bound (the kernels line: the main
+              path's form), its instantiation's spill and blocks per SM
+              held; (c) jacobi3d 512^3 over 8 positions, 50
+              steps in chunks of 25, by AXIS_COMPOSED at deep_halo 1 and 4
+              and without overlap, and by DIRECT26, each field torch.equal
+              to the resident (2,2,2) run, launch counts held (one sweep a
+              step, one shell launch an overlap step, one multistep launch
+              a pass), and the uneven (3,2,1) over 6 positions to the
+              REMOTE_DMA mesh run; (d) the same AXIS_COMPOSED (deep_halo 1
+              and 4) and DIRECT26 runs over 2 x 4 and 8 x 1 ranks, each
+              field torch.equal to the one-process run, each rank's
+              launches and its handshakes in a timed chunk held, ms/iter
+              and the handshakes' host ms; (e) Astaroth 256^3 fp64 blocks
+              over 8 positions by AXIS_COMPOSED, 3 iterations, torch.equal
+              to the REMOTE_DMA mesh run. Rehearsable on the CPU without
+              (d) at small sizes.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -4145,8 +4178,9 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
       40 exchanges; a second run hits the DB (zero probes, the same choice),
       its launches held to the plan's alone.
     - The same over ``["cuda:0"] * 8`` positions at ``mesh_n``^3 (strong):
-      REMOTE_DMA plain and fused over the partitions of 8, B6 / B7 / B4
-      launches of the probes printed and held.
+      every method over the partitions of 8 (REMOTE_DMA plain and fused,
+      AXIS_COMPOSED and DIRECT26 by copies between positions), B6 / B7 /
+      B4 launches of the probes printed and held.
     - The hot-swap: a guarded jacobi3d loop (``fault.run_guarded``) at
       ``mesh_n``^3 over 8 positions on the plain REMOTE_DMA plan (B1's
       positions sweep + B6) with a live sentinel, a status file and a
@@ -4165,7 +4199,11 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
       printed (n, r², each constant) and held to ``calibrate``'s checks
       (the fit and the DB's validation raise otherwise); the mesh config
       re-ranked with it, the static winner printed beside the measured
-      one.
+      one; then the static ranking over every method the planner offers
+      over positions, with the platform's constants and with the fitted
+      row: each method's best candidate and its place printed, and
+      whether a copy transport (AXIS_COMPOSED, DIRECT26) ranks ahead of
+      REMOTE_DMA.
     - ``apps.astaroth.run`` at ``ast_n``^3 fp64 with ``autotune=True`` on one
       device: its probes (no failure), choice and substep launches.
     - Serving: the daemon (``apps/serve``'s scheduler from its flags) in
@@ -4193,7 +4231,7 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
     from stencil_tpu_torch.fault import chunk_plan, run_guarded
     from stencil_tpu_torch.parallel import Method
     from stencil_tpu_torch.plan import db as plandb
-    from stencil_tpu_torch.plan.autotune import autotune
+    from stencil_tpu_torch.plan.autotune import MESH_METHODS, autotune
     from stencil_tpu_torch.plan.cost import enumerate_candidates, feasible, rank
     from stencil_tpu_torch.plan.ir import PlanChoice, PlanConfig, build_plan
     from stencil_tpu_torch.plan.replan import ReplanController
@@ -4229,13 +4267,17 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
         log(f"{label}: launches {nonzero or '{}'} (held)")
 
     def exchange_launches(config, choice):
-        """Kernel launches of one exchange of ``choice``'s plan."""
+        """Kernel launches of one exchange of ``choice``'s plan (over
+        positions, AXIS_COMPOSED's and DIRECT26's messages are copies, and
+        an axis with one position one B4 fill of every position)."""
         spec, mesh_dim, resident = feasible(config, choice)
         if choice.method == Method.DIRECT26.value:
             return {}
         plan = build_plan(spec, mesh_dim, choice.method, resident=resident)
         if Dim3.of(mesh_dim).flatten() == 1:
             return {"self_fill": sum(1 for p in plan.axis_phases if p.active)}
+        if choice.method == Method.AXIS_COMPOSED.value:
+            return {"self_fill": sum(1 for p in plan.axis_phases if p.active and p.ring == 1)}
         if choice.is_fused:
             return {"fused_exchange": 1}
         out = {"remote_axis": sum(1 for p in plan.remote_phases if p.active and p.ring > 1),
@@ -4257,6 +4299,12 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
             else:
                 add(out, exchange_launches(config, choice), steps)
                 add(out, {"jacobi_sweep_positions" if mesh else "jacobi_sweep": 1}, steps)
+        elif mesh:
+            # AXIS_COMPOSED or DIRECT26 over positions at radius 1 (no
+            # multistep): the exchange and one sweep of every position a
+            # step (the overlap shells' launches are not counted here)
+            add(out, exchange_launches(config, choice), steps)
+            add(out, {"jacobi_sweep_positions": 1}, steps)
         elif choice.method == Method.DIRECT26.value:
             add(out, {"jacobi_sweep": 1}, steps)
         else:
@@ -4461,8 +4509,8 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
     sync(dev)
     reset()
     res = autotune(Dim3(mesh_n, mesh_n, mesh_n), Radius.constant(1), ["float32"],
-                   devices=devices, variants=(None,), top_n=cal_probes, probe_iters=40,
-                   force=True)
+                   devices=devices, methods=(Method.REMOTE_DMA.value,), variants=(None,),
+                   top_n=cal_probes, probe_iters=40, force=True)
     sync(dev)
     got = read()
     show_tuning(f"{mesh_n}^3 over 8 positions, the plain carrier's probes", res)
@@ -4490,6 +4538,28 @@ def plan_phase(dev, n: int = 512, mesh_n: int = 512, ast_n: int = 256,
     report["calibration"] = {k: row[k] for k in ("n", "r2", "bandwidth_fit", "provenance")}
     report["calibration"]["calibration"] = cal
     report["reranked_winner"] = reranked[0][1].label()
+    # the static ranking over every method the planner offers over positions
+    # (a static autotune, a DB miss without probes, a static --replan): each
+    # method's best candidate and place, with the platform's constants and
+    # with the row just fitted (from REMOTE_DMA's probes alone)
+    report["static_over_positions"] = {}
+    for label, c in (("constants", None), ("fitted", cal)):
+        ranked = rank(mesh_config, enumerate_candidates(mesh_config, methods=MESH_METHODS), c)
+        best = {}
+        for place, (cost, ch) in enumerate(ranked):
+            best.setdefault(ch.method, (place, ch.label(), cost.total_s))
+        check(set(best) == set(MESH_METHODS),
+              f"static ranking over 8 positions ({label}): methods {sorted(best)}, the planner "
+              f"offers {MESH_METHODS}")
+        copies_first = min(best[m][0] for m in MESH_METHODS if m != Method.REMOTE_DMA.value) \
+            < best[Method.REMOTE_DMA.value][0]
+        log(f"static ranking over 8 positions, {label}: winner {ranked[0][1].label()}; "
+            + "; ".join(f"{m} best at place {pl} of {len(ranked)} ({lb}, {t * 1e3:.4f} ms/step)"
+                        for m, (pl, lb, t) in best.items())
+            + f"; a copy transport ranked ahead of REMOTE_DMA: {copies_first}")
+        report["static_over_positions"][label] = {
+            "winner": ranked[0][1].label(), "copies_first": copies_first,
+            "best": {m: list(v) for m, v in best.items()}}
 
     # -- astaroth --autotune on one device ------------------------------------------
     sync(dev)
@@ -6165,6 +6235,504 @@ def variants_processes_phase(dev, time_ms, n: int = 512, iters: int = 50, chunk:
     log(f"variants phase: {time.perf_counter() - t0:.1f} s")
     return timings, launches, errs
 
+
+COMPOSED_SEED = 2300
+
+
+def halo_mask(spec, dev) -> torch.Tensor:
+    """The halo cells of a padded block of ``spec``: within the radius of
+    the compute region on every axis, outside it on one (no pad cell)."""
+    p, off, b, r = spec.padded(), spec.compute_offset(), spec.base, spec.radius
+    inside, core = [], []
+    for n, o, size, rm, rp in ((p.z, off.z, b.z, r.z(-1), r.z(1)),
+                               (p.y, off.y, b.y, r.y(-1), r.y(1)),
+                               (p.x, off.x, b.x, r.x(-1), r.x(1))):
+        i = torch.arange(n, device=dev)
+        inside.append((i >= o - rm) & (i < o + size + rp))
+        core.append((i >= o) & (i < o + size))
+    grown = inside[0][:, None, None] & inside[1][None, :, None] & inside[2][None, None, :]
+    comp = core[0][:, None, None] & core[1][None, :, None] & core[2][None, None, :]
+    return grown & ~comp
+
+
+def composed_exchange_part(dev, time_ms, sizes=((512, 1), (256, 2)), nq: int = 4) -> dict:
+    """Phase 23 (a): AXIS_COMPOSED (unnarrowed and through bf16) and
+    DIRECT26 over 8 positions of the card, ``nq`` fp32 quantities of noise
+    in every cell: every block equal to the resident exchange of the same
+    method on the gathered blocks (unnarrowed) and to REMOTE_DMA's mesh
+    exchange through the same wire (AXIS_COMPOSED every cell; DIRECT26 every
+    halo cell); copies an exchange and ms by CUDA events beside the
+    resident exchange's."""
+    from stencil_tpu_torch.domain import GridSpec
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.parallel import DeviceMesh, HaloExchange, Method, join_positions
+
+    out = {}
+    mesh = DeviceMesh((2, 2, 2), [dev] * 8)
+    for n, r in sizes:
+        spec = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(r))
+        p = spec.padded()
+        mask = halo_mask(spec, dev)
+
+        def blocks(q):
+            return [position_block(i, q, p, dev, COMPOSED_SEED) for i in range(8)]
+
+        for method, wire in ((Method.AXIS_COMPOSED, None), (Method.AXIS_COMPOSED, "bfloat16"),
+                             (Method.DIRECT26, None)):
+            label = f"{n}^3 (2,2,2) r{r} x{nq} {method.value}{' bf16' if wire else ''}"
+            ex = HaloExchange(spec, method, mesh=mesh, wire_dtype=wire)
+            state = {q: blocks(q) for q in range(nq)}
+            launched0 = rdma.remote_axis.launches + fst.fused_exchange.launches
+            ex(state)
+            sync(dev)
+            check(rdma.remote_axis.launches + fst.fused_exchange.launches == launched0
+                  and ex.last_transfer_count == 0,
+                  f"exchange {label}: a remote-dma carrier ran")
+            msgs = ex.last_message_count
+            want = ex.plan.collectives_per_exchange(nq, 1)
+            check(msgs == want and ex.last_message_bytes == ex.plan.wire_bytes([4] * nq),
+                  f"exchange {label}: {msgs} messages, {ex.last_message_bytes} bytes; the IR "
+                  f"says {want}, {ex.plan.wire_bytes([4] * nq)}")
+            # one copy a quantity, receiver and message
+            row = {"messages": msgs,
+                   "copies": msgs * len(mesh) * (nq if ex.batch_quantities else 1)}
+            if wire is None:
+                res = HaloExchange(spec, method)
+                st_r = {q: join_positions(blocks(q), spec) for q in range(nq)}
+                res(st_r)
+                check(all(torch.equal(join_positions(state[q], spec), st_r[q])
+                          for q in range(nq)),
+                      f"exchange {label}: differs from the resident exchange of the method")
+                loop_r = res.make_loop(10)
+                row["resident_ms"] = time_ms(lambda: loop_r(st_r), 3, warmup=1) / 10
+                del st_r
+            rd = HaloExchange(spec, Method.REMOTE_DMA, mesh=mesh, wire_dtype=wire)
+            st_d = {q: blocks(q) for q in range(nq)}
+            rd(st_d)
+            if method == Method.AXIS_COMPOSED:
+                same = all(torch.equal(a, b) for q in range(nq)
+                           for a, b in zip(state[q], st_d[q]))
+            else:
+                same = all(torch.equal(a[0, 0, 0][mask], b[0, 0, 0][mask]) for q in range(nq)
+                           for a, b in zip(state[q], st_d[q]))
+            check(same, f"exchange {label}: differs from REMOTE_DMA's mesh exchange "
+                  f"{'(every cell)' if method == Method.AXIS_COMPOSED else '(halo cells)'}")
+            del st_d
+            loop = ex.make_loop(10)
+            row["ms"] = time_ms(lambda: loop(state), 3, warmup=1) / 10
+            out[label] = row
+            log(f"composed exchange {label} over 8 positions: equal to "
+                f"{'the resident exchange and ' if wire is None else ''}REMOTE_DMA's mesh "
+                f"exchange; {msgs} messages, {row['copies']} copies an exchange, "
+                f"{row['ms']:.4f} ms (CUDA events)"
+                + (f" beside the resident exchange's {row['resident_ms']:.4f} ms"
+                   if wire is None else ""))
+            del state, ex, rd, loop
+            torch.cuda.empty_cache()
+    return out
+
+
+def composed_main_k(n: int, chunk: int, deep: int = 4) -> int:
+    """The depth jacobi3d's deep-halo run of phase 23 (``deep_halo`` 4, (2,2,2)
+    blocks of ``n``^3, chunks of ``chunk``) takes: ``make_jacobi_loop``'s rule,
+    capped by the radius on the multi-block axes."""
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+
+    return sk.plan_multistep_depth(min(sk.TEMPORAL_K_CAP, (n // 2 - 1) // 2, chunk, deep))
+
+
+def composed_multistep_part(dev, time_ms, n: int = 512, chunk: int = 25,
+                            ragged=(130, 70, 40)):
+    """Phase 23 (b): B2/B3's positions form (``multistep_positions``) at
+    ``n``^3 over 8 positions, first at the main path's form (fp32, radius
+    4, the depth :func:`composed_main_k` that jacobi3d's ``deep_halo`` 4 run
+    takes), then at k = 4 (fp32, radius 4) and k = 3 (fp64, radius 3) as
+    further readings; and a ``ragged`` block over 4 positions at k = 1..6.
+    Each is ``torch.equal`` to its plain version from noise in every cell;
+    one launch timed by CUDA graph replay beside the stack form over the
+    resident (2,2,2) stack at the same k (``torch.equal`` to it) and the
+    bytes bound. Returns ``(timing, max_abs_err)`` of the kernels line,
+    whose times and bound are the main path's form's."""
+    from stencil_tpu_torch.domain import GridSpec
+    from stencil_tpu_torch.geometry import Dim3, Radius
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+    from stencil_tpu_torch.parallel import DeviceMesh, join_positions
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    err, timing = 0.0, None
+    on_card = dev.type == "cuda"
+    k_main = composed_main_k(n, chunk)
+    for k, r, dtype, main in ((k_main, 4, torch.float32, True), (4, 4, torch.float32, False),
+                              (3, 3, torch.float64, False)):
+        spec = GridSpec(Dim3(n, n, n), Dim3(2, 2, 2), Radius.constant(r))
+        mesh = DeviceMesh((2, 2, 2), [dev] * 8)
+        p = spec.padded()
+        currs = [position_block(i, 0, p, dev, COMPOSED_SEED + k).to(dtype) for i in range(8)]
+        origins = [sk.block_origin(spec, mesh.position(i)) for i in range(8)]
+        nxts = [torch.zeros_like(c) for c in currs]
+        plain = [torch.zeros_like(c) for c in currs]
+        form = f"{n}^3 r{r} k={k} {str(dtype)[6:]}{' (the main path)' if main else ''}"
+        sk.multistep_positions(currs, nxts, spec, k, origins)
+        sk.multistep_positions_plain(currs, plain, spec, k, origins)
+        check(all(torch.equal(a, b) for a, b in zip(nxts, plain)),
+              f"multistep_positions {form}: differs from its plain version")
+        err = max(err, max(max_abs(a, b) for a, b in zip(nxts, plain)))
+        stack, sout = join_positions(currs, spec), torch.zeros(spec.stacked_shape_zyx(),
+                                                                dtype=dtype, device=dev)
+        sk.multistep(stack, sout, spec, k)
+        check(torch.equal(join_positions(nxts, spec), sout),
+              f"multistep_positions {form}: differs from the stack form")
+        ms = time_ms(lambda: sk.multistep_positions(currs, nxts, spec, k, origins), 5, warmup=1,
+                     graph=on_card)
+        stack_ms = time_ms(lambda: sk.multistep(stack, sout, spec, k), 5, warmup=1,
+                           graph=on_card)
+        plain_ms = time_ms(lambda: sk.multistep_positions_plain(currs, plain, spec, k, origins),
+                           1, warmup=0)
+        item = 4 if dtype == torch.float32 else 8
+        cells = n ** 3
+        grown = 8 * (n // 2 + 2 * k) ** 3
+        bound = bound_ms(item * (grown + cells), 6 * k * cells, dtype)
+        info = sk.multistep_info(dev.index, k, True, item) if on_card else {}
+        log(f"multistep_positions {form} over 8 positions: torch.equal to its plain version "
+            f"and to the stack form; {ms:.4f} ms a launch (CUDA-graph replay) beside the stack "
+            f"form's {stack_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
+            f"{bound[1]}; the deep-halo instantiation it runs: {info}")
+        if on_card:
+            check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1,
+                  f"multistep_positions {form}: the instantiation spills or fits no block: "
+                  f"{info}")
+        if main:
+            timing = dict(ms=ms, plain_ms=plain_ms, bound=bound, library_ms=None,
+                          extra={"stack_ms": stack_ms, "k": k, "radius": r})
+        else:
+            tag = f"k{k}_{str(dtype)[6:]}"
+            timing["extra"].update({f"{tag}_ms": ms, f"{tag}_stack_ms": stack_ms,
+                                    f"{tag}_plain_ms": plain_ms})
+        del currs, nxts, plain, stack, sout
+        torch.cuda.empty_cache()
+    # the ragged block over 4 positions at every depth
+    bx, by, bz = ragged
+    for k in range(1, sk.MULTISTEP_KMAX + 1):
+        spec = GridSpec(Dim3(2 * bx, 2 * by, bz), Dim3(2, 2, 1), Radius.constant(6))
+        mesh = DeviceMesh((2, 2, 1), [dev] * 4)
+        p = spec.padded()
+        currs = [position_block(i, k, p, dev, COMPOSED_SEED) for i in range(4)]
+        origins = [sk.block_origin(spec, mesh.position(i)) for i in range(4)]
+        nxts = [torch.zeros_like(c) for c in currs]
+        plain = [torch.zeros_like(c) for c in currs]
+        sk.multistep_positions(currs, nxts, spec, k, origins)
+        sk.multistep_positions_plain(currs, plain, spec, k, origins)
+        check(all(torch.equal(a, b) for a, b in zip(nxts, plain)),
+              f"multistep_positions ragged {ragged} over 4 positions k={k}: differs from its "
+              "plain version")
+        err = max(err, max(max_abs(a, b) for a, b in zip(nxts, plain)))
+    log(f"multistep_positions ragged {bx}x{by}x{bz} blocks over 4 positions (2,2,1) r6, "
+        f"k = 1..{sk.MULTISTEP_KMAX}: torch.equal to the plain version")
+    return timing, err
+
+
+# jacobi3d's runs of phase 23 over 8 positions: name -> (method, deep_halo, overlap)
+COMPOSED_RUNS = {"composed": ("axis-composed", 1, True),
+                 "composed_deep4": ("axis-composed", 4, True),
+                 "composed_serial": ("axis-composed", 1, False),
+                 "direct26": ("direct26", 1, True)}
+# the runs repeated across processes
+COMPOSED_PROC_RUNS = ("composed", "composed_deep4", "direct26")
+
+
+def composed_counts() -> dict:
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+
+    return {"sweep_positions": sk.sweep_positions.launches,
+            "sweep_regions": sk.sweep_regions.launches,
+            "multistep_positions": sk.multistep_positions.launches,
+            "self_fill": halo_fill.self_fill.launches,
+            "remote_axis": rdma.remote_axis.launches}
+
+
+def zero_composed_counts() -> None:
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.ops import stencil_kernels as sk
+
+    for fn in (sk.sweep_positions, sk.sweep_regions, sk.multistep_positions,
+               halo_fill.self_fill, rdma.remote_axis):
+        fn.launches = 0
+
+
+def composed_expected(name: str, chunks, k: int, fills: int = 0) -> dict:
+    """Launches of a jacobi3d run over positions of ``chunks`` (the warm-up's
+    and the timed ones), depth ``k``: one sweep a step and one shell launch
+    an overlap step, one multistep launch a pass; ``fills`` B4 launches a
+    step (an axis with one position)."""
+    method, _deep, overlap = COMPOSED_RUNS.get(name, ("axis-composed", 1, True))
+    passes = sum(c // k for c in chunks) if k else 0
+    steps = sum(c % k for c in chunks) if k else sum(chunks)
+    shells = steps if (method == "axis-composed" and overlap) else 0
+    return {"sweep_positions": steps, "sweep_regions": shells, "multistep_positions": passes,
+            "self_fill": fills * sum(chunks), "remote_axis": 0}
+
+
+def composed_jacobi_part(dev, n: int, iters: int, chunk: int, out: str) -> dict:
+    """Phase 23 (c): jacobi3d ``n``^3 over 8 positions in one process, each
+    run of :data:`COMPOSED_RUNS`, launch counts from 0 around it and held,
+    its field ``torch.equal`` to the resident (2,2,2) run of the same
+    method and steps (saved to ``out/ref_<name>.npy`` for the runs across
+    processes); the uneven (3,2,1) over 6 positions by AXIS_COMPOSED held
+    to the REMOTE_DMA mesh run; ms/iter beside REMOTE_DMA's over 8
+    positions and the residents'."""
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.parallel import Method
+
+    on_card = dev.type == "cuda"
+    chunks = run_chunks(iters, chunk)
+    res = {}
+    r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, devices=[dev] * 8,
+                     method=Method.REMOTE_DMA, weak=False)
+    res["remote_dma_ms_iter"] = r["iter_trimean_s"] * 1e3
+    del r
+    for name, (method, deep, overlap) in COMPOSED_RUNS.items():
+        kw = dict(iters=iters, chunk=chunk, method=Method(method), deep_halo=deep,
+                  overlap=overlap, weak=False)
+        sync(dev)
+        zero_composed_counts()
+        r = jacobi3d.run(n, n, n, devices=[dev] * 8, **kw)
+        sync(dev)
+        got = composed_counts()
+        k = r["temporal_k"]
+        want = {key: v * on_card for key, v in composed_expected(name, chunks, k).items()}
+        check(got == want, f"jacobi3d {name} over 8 positions: launches {got}, want {want}")
+        check((k >= 2) == (deep >= 2), f"jacobi3d {name}: temporal_k {k}")
+        field = r["domain"].get_curr_global(r["handle"])
+        ms = r["iter_trimean_s"] * 1e3
+        row = jacobi3d.csv_row(r)
+        del r
+        rr = jacobi3d.run(n, n, n, device=dev, partition=(2, 2, 2), **kw)
+        check(np.array_equal(field, rr["domain"].get_curr_global(rr["handle"])),
+              f"jacobi3d {name} over 8 positions: the field differs from the resident run")
+        res[name] = {"ms_iter": ms, "resident_ms_iter": rr["iter_trimean_s"] * 1e3,
+                     "launches": got, "k": k}
+        if name in COMPOSED_PROC_RUNS:
+            np.save(os.path.join(out, f"ref_{name}.npy"), field)
+        log(f"jacobi3d {n}^3 over 8 positions, {name} (k={k}): {row}; field equal to the "
+            f"resident run; launches {got}; {ms:.4f} ms/iter beside the residents' "
+            f"{res[name]['resident_ms_iter']:.4f} and REMOTE_DMA's over 8 positions "
+            f"{res['remote_dma_ms_iter']:.4f}")
+        del rr, field
+        torch.cuda.empty_cache()
+    sync(dev)
+    zero_composed_counts()
+    r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, devices=[dev] * 6, weak=False)
+    sync(dev)
+    got = composed_counts()
+    want = {key: v * on_card for key, v in
+            composed_expected("composed", chunks, 0, fills=1).items()}
+    check(tuple(r["domain"].spec.dim) == (3, 2, 1) and got == want,
+          f"jacobi3d uneven over 6 positions: partition {r['domain'].spec.dim}, launches "
+          f"{got}, want {want}")
+    field = r["domain"].get_curr_global(r["handle"])
+    ms = r["iter_trimean_s"] * 1e3
+    del r
+    rr = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, devices=[dev] * 6,
+                      method=Method.REMOTE_DMA, weak=False)
+    check(np.array_equal(field, rr["domain"].get_curr_global(rr["handle"])),
+          "jacobi3d uneven over 6 positions: the field differs from the REMOTE_DMA mesh run")
+    res["uneven"] = {"ms_iter": ms, "remote_dma_ms_iter": rr["iter_trimean_s"] * 1e3,
+                     "launches": got}
+    log(f"jacobi3d {n}^3 uneven (3,2,1) over 6 positions by axis-composed (the dynamic-shell "
+        f"step): field equal to the REMOTE_DMA mesh run; launches {got}; {ms:.4f} ms/iter "
+        f"beside REMOTE_DMA's {res['uneven']['remote_dma_ms_iter']:.4f}")
+    del rr, field
+    torch.cuda.empty_cache()
+    return res
+
+
+def composed_processes_worker(out: str, n: int, iters: int, chunk: int) -> int:
+    """One rank of phase 23 (d) (run by apps.launch_multiprocess as ``python
+    -m chip_smoke --composed-processes-worker OUT N ITERS CHUNK``): each run
+    of :data:`COMPOSED_PROC_RUNS` by jacobi3d over this rank's positions,
+    its launch counts, its field (rank 0 holds it to the one-process run's,
+    ``OUT/../ref_<name>.npy``), then one more chunk timed by CUDA events
+    with its handshakes and their host ms. Writes ``OUT/report_<rank>.json``."""
+    from stencil_tpu_torch.apps import jacobi3d
+    from stencil_tpu_torch.ops.jacobi import make_jacobi_loop, sphere_sel_blocks
+    from stencil_tpu_torch.parallel import Method, distributed
+
+    distributed.maybe_init_from_env()
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    rep = {"rank": rank, "world": world, "runs": {}}
+    for name in COMPOSED_PROC_RUNS:
+        method, deep, overlap = COMPOSED_RUNS[name]
+        zero_composed_counts()
+        r = jacobi3d.run(n, n, n, iters=iters, chunk=chunk, method=Method(method),
+                         deep_halo=deep, overlap=overlap, weak=False)
+        torch.cuda.synchronize(dev)
+        res = {"counts": composed_counts(), "k": r["temporal_k"], "row": jacobi3d.csv_row(r)}
+        dd, h = r["domain"], r["handle"]
+        field = dd.get_curr_global(h)
+        if rank == 0:
+            want = np.load(os.path.join(out, "..", f"ref_{name}.npy"), mmap_mode="r")
+            res["equal"] = bool(np.array_equal(field, want))
+            del want
+        del field
+        order = dd.peers.order
+        crossing = sum(1 for ranks in order.neighbours.values() if ranks)
+        k = res["k"]
+        if method == "direct26":
+            res["want_handshakes"] = chunk
+        elif k:
+            res["want_handshakes"] = (chunk // k) * crossing + (chunk % k) * (1 + crossing)
+        else:
+            res["want_handshakes"] = chunk * (1 + crossing)
+        torch.distributed.barrier()  # the timed chunk starts together
+        loop = make_jacobi_loop(dd.halo_exchange, chunk, temporal_k=deep if deep >= 2 else None)
+        sel = sphere_sel_blocks(dd.spec, dd.mesh)
+        curr, nxt = dd.get_curr(h), dd.get_next(h)
+        host0, notice0, shakes0 = order.host_s, order.notice_s, order.handshakes
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        curr, nxt = loop(curr, nxt, sel)
+        end.record()
+        end.synchronize()
+        res["ms_iter"] = start.elapsed_time(end) / chunk
+        res["handshakes"] = order.handshakes - shakes0
+        res["handshake_host_ms_per_step"] = (order.host_s - host0) / chunk * 1e3
+        res["notice_host_ms_per_step"] = (order.notice_s - notice0) / chunk * 1e3
+        rep["runs"][name] = res
+        dd.peers.close()
+        torch.distributed.barrier()  # every rank has unmapped before any frees
+        del r, dd, loop, sel, curr, nxt
+        torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t0
+    path = os.path.join(out, f"report_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rep, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def composed_astaroth_part(dev, ast_n: int, iters: int) -> dict:
+    """Phase 23 (e): Astaroth ``ast_n``^3 fp64 blocks over 8 positions by
+    AXIS_COMPOSED (the app's default over ``devices``), every position's
+    block of every field ``torch.equal`` on the card to the REMOTE_DMA mesh
+    run's of the same iterations; no remote-dma carrier in the
+    AXIS_COMPOSED run."""
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.astaroth.integrate import FIELDS
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.parallel import Method
+
+    out, runs = {}, []
+    on_card = dev.type == "cuda"
+    for method in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
+        t1 = time.perf_counter()
+        sync(dev)
+        rdma.remote_axis.launches = asub.substep_positions.launches = 0
+        kw = {} if method == Method.AXIS_COMPOSED else {"method": method}
+        r = astaroth_app.run(iters=iters, nx=ast_n, dtype="float64", devices=[dev] * 8, **kw)
+        sync(dev)
+        dd = r["domain"]
+        check(dd.halo_exchange.method == method, f"astaroth: ran {dd.halo_exchange.method}")
+        b6, b5 = rdma.remote_axis.launches, asub.substep_positions.launches
+        check((b5 > 0) == on_card and (b6 > 0) == (on_card and method == Method.REMOTE_DMA),
+              f"astaroth {method.value}: substep_positions {b5}, remote_axis {b6} launches")
+        out[method.value] = {"ms_iter": r["iter_trimean_s"] * 1e3, "substep_launches": b5,
+                             "remote_axis_launches": b6, "seconds": time.perf_counter() - t1}
+        runs.append({k: dd.get_curr(r["handles"][k]) for k in FIELDS})
+        del r, dd
+    same = all(torch.equal(a, b) for k in FIELDS for a, b in zip(runs[0][k], runs[1][k]))
+    check(same, f"astaroth {ast_n}^3 fp64 over 8 positions: a field by axis-composed differs "
+          "from the REMOTE_DMA run")
+    del runs
+    torch.cuda.empty_cache()
+    log(f"astaroth {ast_n}^3 fp64 blocks over 8 positions, {iters} iterations: every field by "
+        f"axis-composed torch.equal to the REMOTE_DMA run; {out['axis-composed']['ms_iter']:.4f}"
+        f" ms/iter beside REMOTE_DMA's {out['remote-dma']['ms_iter']:.4f} (substep launches "
+        f"{out['axis-composed']['substep_launches']}, no B6 launch; runs "
+        f"{out['axis-composed']['seconds']:.1f} and {out['remote-dma']['seconds']:.1f} s)")
+    return out
+
+
+def composed_mesh_phase(dev, time_ms, n: int = 512, c2: int = 256, ragged=(130, 70, 40),
+                        ast_n: int = 256, iters: int = 50, chunk: int = 25, ast_iters: int = 3,
+                        layouts=((2, 4), (8, 1)), timeout: float = 420.0):
+    """Phase 23: AXIS_COMPOSED and DIRECT26 over a mesh of positions,
+    (a)-(e) (see the module docstring); (d) only on the card. Returns the
+    kernels line's timings, launches and errors of ``multistep_positions``,
+    and the phase's report."""
+    from stencil_tpu_torch.apps import launch_multiprocess as lm
+
+    t0 = time.perf_counter()
+    report = {"exchange": composed_exchange_part(dev, time_ms, sizes=((n, 1), (c2, 2)))}
+    log(f"composed phase (a): {time.perf_counter() - t0:.1f} s")
+    timing, err = composed_multistep_part(dev, time_ms, n=n, chunk=chunk, ragged=ragged)
+    log(f"composed phase (b): {time.perf_counter() - t0:.1f} s")
+    out = tempfile.mkdtemp(prefix="chip_smoke_composed_")
+    report["jacobi"] = composed_jacobi_part(dev, n, iters, chunk, out)
+    log(f"composed phase (c): {time.perf_counter() - t0:.1f} s")
+    deep4 = report["jacobi"]["composed_deep4"]
+    launches = {"multistep_positions": deep4["launches"]["multistep_positions"]}
+    check(launches["multistep_positions"] > 0 or dev.type == "cpu",
+          "the main path launched multistep_positions no time")
+    check(deep4["k"] == timing["extra"]["k"],
+          f"jacobi3d's deep-halo run took k={deep4['k']}; phase 23 (b) checked and timed "
+          f"k={timing['extra']['k']}")
+    timing["extra"].update(
+        {f"ms_iter_{name}": report["jacobi"][name]["ms_iter"] for name in COMPOSED_RUNS})
+    if dev.type == "cuda":
+        root = os.path.dirname(os.path.abspath(__file__))
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [root] + [v for v in os.environ.get("PYTHONPATH", "").split(os.pathsep) if v])
+        report["processes"] = {}
+        for nprocs, k in layouts:
+            d = os.path.join(out, f"{nprocs}x{k}")
+            os.makedirs(d)
+            t1 = time.perf_counter()
+            with open(os.path.join(d, "ranks.log"), "w") as ranks_log:
+                rc = lm.launch(nprocs, k, "chip_smoke",
+                               ["--composed-processes-worker", d, str(n), str(iters), str(chunk)],
+                               timeout=timeout, build=False, stdout=ranks_log,
+                               stderr=subprocess.STDOUT)
+            text = open(os.path.join(d, "ranks.log")).read()
+            check(rc == 0, f"phase 23 over {nprocs} x {k} failed (rc {rc}):\n{text[-6000:]}")
+            reps = [json.load(open(os.path.join(d, f"report_{r}.json"))) for r in range(nprocs)]
+            label = f"{nprocs} x {k}"
+            chunks = run_chunks(iters, chunk)
+            for name in COMPOSED_PROC_RUNS:
+                check(reps[0]["runs"][name]["equal"],
+                      f"jacobi3d {name} over {label}: the field differs from the one-process run")
+                for rep in reps:
+                    res = rep["runs"][name]
+                    want = composed_expected(name, chunks, res["k"])
+                    check(res["counts"] == want and res["handshakes"] == res["want_handshakes"],
+                          f"jacobi3d {name} over {label} rank {rep['rank']}: launches "
+                          f"{res['counts']} (want {want}), handshakes {res['handshakes']} in a "
+                          f"chunk of {chunk} (want {res['want_handshakes']})")
+                r0 = reps[0]["runs"][name]
+                log(f"composed processes {label}: jacobi3d {n}^3 {name} (k={r0['k']}) field "
+                    f"equal to the one-process run; {r0['row']}; rank 0 {r0['ms_iter']:.4f} "
+                    f"ms/iter by CUDA events beside one process's "
+                    f"{report['jacobi'][name]['ms_iter']:.4f}; {r0['handshakes'] / chunk:.2f} "
+                    f"handshakes a step, their host {r0['handshake_host_ms_per_step']:.4f} ms a "
+                    f"step (notices {r0['notice_host_ms_per_step']:.4f})")
+            report["processes"][label] = {
+                name: {key: reps[0]["runs"][name][key] for key in
+                       ("ms_iter", "handshakes", "handshake_host_ms_per_step")}
+                for name in COMPOSED_PROC_RUNS}
+            timing["extra"][f"ms_iter_composed_{nprocs}x{k}"] = \
+                reps[0]["runs"]["composed"]["ms_iter"]
+            log(f"composed processes {label}: {time.perf_counter() - t1:.1f} s")
+    report["astaroth"] = composed_astaroth_part(dev, ast_n, ast_iters)
+    log(f"composed phase: {time.perf_counter() - t0:.1f} s")
+    return {"multistep_positions": timing}, launches, {"multistep_positions": err}, report
 
 def sync(dev) -> None:
     if dev.type == "cuda":
@@ -7994,6 +8562,14 @@ def main() -> int:
     launches.update(l22)
     errs.update(e22)
 
+    # -- 23. AXIS_COMPOSED and DIRECT26 over a mesh of positions, in one ------
+    #        process and across processes, and B2/B3's positions form
+    t23, l23, e23, composed_report = composed_mesh_phase(dev, time_ms)
+    timings.update(t23)
+    launches.update(l23)
+    errs.update(e23)
+    log(f"composed phase report: {json.dumps(composed_report, sort_keys=True, default=str)}")
+
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -8116,6 +8692,10 @@ def main() -> int:
                                 "stencil_tpu/ops/fused_stencil.py:250"),
         "persistent_jacobi_across": ("stencil_tpu_torch/csrc/persistent_jacobi.cu",
                                      "stencil_tpu/ops/persistent_stencil.py:199"),
+        # B2/B3's deep-halo form over the separate blocks of a mesh's
+        # positions, each at its own global origin, in one launch
+        "multistep_positions": ("stencil_tpu_torch/csrc/jacobi_multistep.cu",
+                                "stencil_tpu/ops/pallas_stencil.py:709"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)
@@ -8142,4 +8722,6 @@ if __name__ == "__main__":
         sys.exit(processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
     if sys.argv[1:2] == ["--variants-processes-worker"]:
         sys.exit(variants_processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
+    if sys.argv[1:2] == ["--composed-processes-worker"]:
+        sys.exit(composed_processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
     sys.exit(main())

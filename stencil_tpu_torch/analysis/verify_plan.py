@@ -13,10 +13,11 @@ each exchange, runs it once and checks:
   messages between blocks) against the messages the exchange issued
   (``HaloExchange.last_message_count``: a rolled resident slab per phase
   side and carrier, a direct26 box per direction and carrier). The port
-  runs AXIS_COMPOSED and DIRECT26 with every block resident on the first
-  device (its one realization of them; between GPUs they are ROADMAP.md
-  queue A item 5), so a message between blocks is a copy there. REMOTE_DMA
-  issues none: its copies are kernel launches.
+  runs AXIS_COMPOSED and DIRECT26 over a mesh of one block a position, as
+  the JAX package does over its devices (``parallel/mesh_exchange``: a
+  message is a round of copies between positions; on one block the
+  exchange issues none). REMOTE_DMA issues none: its copies are kernel
+  launches.
 - ``wire_bytes`` (AXIS_COMPOSED, DIRECT26): the IR's bytes between blocks
   against the bytes of the halo boxes those messages wrote
   (``HaloExchange.last_message_bytes``).
@@ -238,8 +239,7 @@ def _realize(cfg: dict, devices, v: Verdict):
         return None
     spec, mesh_dim, _resident = feas
     plan = build_plan(spec, mesh_dim, method, fused=fused, persistent=persistent)
-    mesh = (DeviceMesh(spec.dim, devices[:nblocks])
-            if method == REMOTE_DMA and nblocks > 1 else None)
+    mesh = DeviceMesh(spec.dim, devices[:nblocks]) if nblocks > 1 else None
     ex = HaloExchange(spec, Method(method), fused=fused, persistent=persistent, mesh=mesh)
     g = spec.global_size
     base = np.arange(g.x * g.y * g.z, dtype=np.float64).reshape(g.z, g.y, g.x)

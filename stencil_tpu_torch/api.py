@@ -11,13 +11,15 @@ residents when a partition has more blocks than devices. With a list of N device
 (``set_devices``, which may name one card N times: the reference's
 ``dd.set_gpus({0,0})``, stencil.hpp:154) it realizes a mesh of N block
 positions, one block per position, each its own allocation, exchanged by
-``Method.REMOTE_DMA``; a count such as 6 splits 512^3 unevenly, (3,2,1) with
-x blocks of 171/171/170; a pinned partition with more blocks than positions
+the method :meth:`set_methods` names (AXIS_COMPOSED by default, as in the
+JAX package); a count such as 6 splits 512^3 unevenly, (3,2,1) with x
+blocks of 171/171/170; a pinned partition with more blocks than positions
 stacks the extra blocks on each position (the JAX package's
-``stack_residents``). The exchange is ``parallel.exchange.HaloExchange``:
-axis-composed or direct26 on one device, or remote-dma (with its fused and
-persistent kernel variants on one block a position) on one device or over
-the mesh. ``set_quantity_batching``, ``run_exchanges``, ``set_output_prefix``
+``stack_residents``; REMOTE_DMA only, ROADMAP.md queue A item 5). The
+exchange is ``parallel.exchange.HaloExchange``: axis-composed, direct26 or
+remote-dma (with its fused and persistent kernel variants on one block a
+position), on one device or over the mesh (axis-composed and direct26 by
+copies between positions, ``parallel/mesh_exchange``). ``set_quantity_batching``, ``run_exchanges``, ``set_output_prefix``
 and ``write_plan`` (the plan and block-comm matrix files, byte for byte the
 JAX package's) are the JAX package's.
 
@@ -38,9 +40,9 @@ two-level, ``NodePartition(size, radius, processes, positions /
 processes)`` as the JAX package does, and allocates only this rank's
 positions (another rank's entry of each list is None). On the card the
 ranks then export their curr and next stacks to each other through CUDA
-IPC (``parallel/ipc.PeerBuffers``), which every variant of the remote-dma
-exchange reads through: the plain step, the fused step and the persistent
-chunk. The checkpoint calls skip, counted and warned once, as the JAX
+IPC (``parallel/ipc.PeerBuffers``), which every exchange reads through:
+the axis-composed and direct26 copies, and every variant of the remote-dma
+exchange (the plain step, the fused step and the persistent chunk). The checkpoint calls skip, counted and warned once, as the JAX
 package's do across processes.
 
 Entry points run on the GPU unless the caller asks for the CPU:
@@ -244,10 +246,10 @@ class DistributedDomain:
         positions, which may name one device several times; the partition
         is ``NodePartition(size, radius, 1, N)`` unless ``set_partition``
         pins one (a multiple of N blocks stacks residents on each position,
-        z first), and the exchange is ``Method.REMOTE_DMA``. In a process
-        group of several ranks these are this rank's positions. Positions on
-        distinct GPUs are refused at realize() (ROADMAP.md queue A item
-        5)."""
+        z first, which REMOTE_DMA alone exchanges), and the method is left
+        to :meth:`set_methods`. In a process group of several ranks these
+        are this rank's positions. Positions on distinct GPUs are refused at
+        realize() (ROADMAP.md queue A item 5)."""
         devices = [resolve_device(d) for d in devices]
         if not devices:
             raise ValueError("set_devices needs at least one device")

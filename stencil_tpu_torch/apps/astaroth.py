@@ -19,13 +19,15 @@ GPU, so ``partition=(2, 2, 2)`` is the JAX app's 8-device run (and
 column reports the block count, as the JAX app's 8-device row reports 8;
 nx/ny/nz stay the conf's per-block extents.
 
-``run(devices=[...], method=Method.REMOTE_DMA)`` (CLI ``--devices
-cuda:0,cuda:0,...``, which takes REMOTE_DMA) is the JAX app's multi-device
-run itself: the conf's extents times ``decompose_zyx(len(devices))``, one
-block a position of a mesh that may name one card several times (the
-reference's ``set_gpus({0,0})``), exchanged by B6 over the 8 fields and
-stepped by the substep's positions form, every position in one launch a
-stage (``astaroth/integrate.py``). Its row is the JAX app's for the same
+``run(devices=[...])`` (CLI ``--devices cuda:0,cuda:0,...``) is the JAX
+app's multi-device run itself: the conf's extents times
+``decompose_zyx(len(devices))``, one block a position of a mesh that may
+name one card several times (the reference's ``set_gpus({0,0})``),
+exchanged by the JAX app's default method, AXIS_COMPOSED (copies between
+positions, ``parallel/mesh_exchange``; ``method=Method.REMOTE_DMA``: B6)
+over the 8 fields and stepped by the substep's positions form, every
+position in one launch a stage (``astaroth/integrate.py``). Across
+processes Astaroth raises (ROADMAP.md queue A item 5). Its row is the JAX app's for the same
 device count: ``devices`` counts the positions, ``processes`` is 1 (one
 process drives them, as ``jax.process_count()`` on the JAX app's host), and
 the CSV's first column is the device count, as the JAX app's. The
@@ -226,8 +228,8 @@ def run(
     """Run ``iters`` iterations (plus one untimed warm-up chunk) and return
     the timing row, the domain and its handles. ``partition`` (blocks
     along x, y, z) weak-scales the conf's extents over that many resident
-    blocks on one device; ``devices`` (torch devices, repeats allowed, with
-    ``method=Method.REMOTE_DMA``) over a mesh of that many block positions
+    blocks on one device; ``devices`` (torch devices, repeats allowed; by
+    AXIS_COMPOSED or REMOTE_DMA) over a mesh of that many block positions
     (see the module docstring). The checkpoint,
     health and injection arguments are jacobi3d's; raises
     :class:`~stencil_tpu_torch.fault.RecoveryExhausted` when recovery gives
@@ -505,7 +507,7 @@ def main(argv: Optional[list] = None) -> int:
                 overlap=not args.no_overlap, reductions=args.reductions,
                 chunk=args.chunk, device=args.device,
                 devices=args.devices.split(",") if args.devices else None,
-                method=Method.REMOTE_DMA if args.devices else Method.AXIS_COMPOSED,
+                method=Method.AXIS_COMPOSED,
                 batch_quantities=not args.per_quantity_exchange,
                 kernel_variant=args.kernel_variant,
                 use_pallas=False if args.no_pallas else None, autotune=args.autotune,

@@ -13,9 +13,10 @@ kernel-initiated copies (remote-dma). Where the port runs them:
 - over a partition resident on one device (:data:`RESIDENT_PARTITION`,
   (2, 2, 2), where the JAX harness spreads the same blocks
   over its 8 devices) axis-composed, direct26 and remote-dma all run;
-- over a mesh of positions (``devices=`` of several entries) only
-  remote-dma runs; every other method is reported with the JAX harness's
-  own ``# skipping <method>: <reason>`` line;
+- over a mesh of positions (``devices=`` of several entries) the same
+  three run, one block a position (axis-composed and direct26 by copies
+  between positions, ``parallel/mesh_exchange``; remote-dma by its
+  carrier), so the A/B times three transports;
 - auto-spmd (the SPMD partitioner's exchange) is always skipped:
   ROADMAP.md queue A item 5.
 
@@ -132,8 +133,8 @@ def compare_methods(x, y, z, iters=30, quantities=4, devices=None, radius=2,
                 partition=RESIDENT_PARTITION if _one_device(devices) else None,
             )
         except (ValueError, NotImplementedError) as e:
-            # a method constraint (block size < radius, a method the port
-            # does not run on a mesh) reports the skip instead of crashing
+            # a method constraint (block size < radius, more blocks than
+            # positions) reports the skip instead of crashing
             print(f"# skipping {name}: {e}")
             continue
         rows.append({
@@ -267,7 +268,7 @@ def wire_ab(x, y, z, iters=30, quantities=4, devices=None, radius=2, wire="bfloa
     measured error the narrowing pays for it. ``fused`` A/Bs the fused
     exchange carrier instead (REMOTE_DMA only). A wire narrows only what
     crosses between positions, so the A/B means something over a mesh of
-    positions (``devices=``), where the port exchanges by REMOTE_DMA.
+    positions (``devices=``), by any method.
 
     Narrow-range formats (float8_e4m3fn tops out at 448 and maps overflow to
     NaN) get the coordinate fixture scaled into their finite range first.

@@ -3,18 +3,25 @@
 ``run(..., partition=(px, py, pz))`` splits the domain into a partition,
 uniform or uneven (trailing blocks one cell smaller where the count does
 not divide an axis), with every block on the one GPU (as in the JAX app,
-the CLI has no flag for it). ``run(..., devices=[...], method=Method.REMOTE_DMA)`` (CLI
-``--devices cuda:0,cuda:0,...``) runs a mesh of one block position per
-entry, repeats allowed (the reference's ``set_gpus({0,0})``), weak-scaled
-by their number as in the JAX app: per step the remote-dma exchange, then
-one sweep per position; with ``kernel_variant="fused"`` one fused step
-launch per step over every position, with ``"persistent"`` one chunk
-launch per ``deep_halo`` steps. Under ``apps/launch_multiprocess`` each
-rank steps its own positions, every variant included (one launch per rank
-over its positions); rank 0 prints the row. A device count such as 6 at
+the CLI has no flag for it). ``run(..., devices=[...])`` (CLI ``--devices
+cuda:0,cuda:0,...``) runs a mesh of one block position per entry, repeats
+allowed (the reference's ``set_gpus({0,0})``), weak-scaled by their number
+as in the JAX app, by any method, AXIS_COMPOSED by default as in the JAX
+app: the overlap step (one sweep of every position on the pre-exchange
+state, the exchange by copies between positions, one launch of every
+position's shells), without overlap the exchange of the multi-position
+axes and a sweep, with ``deep_halo`` >= 2 one multistep launch over every
+position a pass; DIRECT26 (``--direct26``) the exchange and one sweep a
+step; REMOTE_DMA the remote-dma exchange and one sweep, with
+``kernel_variant="fused"`` one fused step launch per step over every
+position, with ``"persistent"`` one chunk launch per ``deep_halo`` steps.
+Under ``apps/launch_multiprocess`` each rank steps its own positions, every
+method and variant included (one launch per rank over its positions); rank
+0 prints the row, with the method run. A device count such as 6 at
 ``--no-weak`` splits 512^3 unevenly, (3,2,1) with x blocks of 171/171/170:
-every variant runs it (fused by the host-orchestrated schedule, as in the
-JAX package; persistent by the chunk kernel's uneven form).
+every method and variant runs it (AXIS_COMPOSED by the JAX package's
+dynamic-shell step, fused by the host-orchestrated schedule, as in the JAX
+package; persistent by the chunk kernel's uneven form).
 
 The port's counterpart of ``stencil_tpu.apps.jacobi3d`` (reference:
 bin/jacobi3d.cu): a hot and a cold sphere fixed in a periodic box,
@@ -172,8 +179,8 @@ def run(
     variant, as in the JAX app. ``devices`` (a list of torch devices,
     which may repeat one card) runs a mesh of that many block positions,
     one block each (``DistributedDomain.set_devices``), and grows the
-    domain by their number when ``weak``; it takes ``Method.REMOTE_DMA``,
-    with or without a kernel variant. ``wire_dtype`` narrows the halo
+    domain by their number when ``weak``; it takes any method (a kernel
+    variant with ``Method.REMOTE_DMA``). ``wire_dtype`` narrows the halo
     messages crossing between positions (``DistributedDomain.set_wire_dtype``).
     ``dtype`` ("float32" or "float64") is the temperature field's type: a
     float64 field steps through the kernels' float64 forms on every path
@@ -581,7 +588,7 @@ def main(argv: Optional[list] = None) -> int:
                         "'cpu' runs the plain PyTorch versions)")
     p.add_argument("--devices", type=str, default=None,
                    help="comma list of torch devices, one block position each, "
-                        "repeats allowed (e.g. cuda:0,cuda:0); needs --method remote-dma")
+                        "repeats allowed (e.g. cuda:0,cuda:0); any method")
     p.add_argument("--wire-dtype", type=str, default="",
                    help="on-the-wire halo compression, one of "
                         f"{', '.join(WIRE_FORMATS)} (float32 narrows float64 "

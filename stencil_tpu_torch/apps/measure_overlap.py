@@ -22,9 +22,10 @@ synchronized at both ends.
 
 Where it runs. With ``devices`` of several entries (a mesh of positions,
 which may name one card several times) the port exchanges by REMOTE_DMA,
-the only method it runs on a mesh, where the JAX run uses its default
-method over its devices; REMOTE_DMA's loop is exchange-then-sweep either
-way, so there ``serial`` and ``overlap`` time the same schedule. With one
+where the JAX run uses its default method over its devices (AXIS_COMPOSED,
+which the port also runs over positions); REMOTE_DMA's loop is
+exchange-then-sweep either way, so there ``serial`` and ``overlap`` time
+the same schedule. With one
 device (default: the current CUDA device) the domain is one block, as in
 the JAX tool. The port runs the exchange and the sweeps on one stream, so
 nothing runs concurrently with the exchange: expect ``hidden_frac`` <= 0.

@@ -182,8 +182,9 @@ def cmd_prune(args) -> int:
 
 # The JAX package's recorded CPU-mesh verdicts (128^3, radius 2, fp32, 2x2x2
 # on its 8-device CPU mesh): axis-composed with batching won each measured
-# comparison there. On the port's CPU positions the autotuner re-tunes such
-# an entry (AXIS_COMPOSED runs on one device only here).
+# comparison there. The port runs AXIS_COMPOSED over positions too, so an
+# entry seeded for a platform replays there with zero probes; on the card
+# that method is copies between positions, host-bound (PERF.md, PR 30).
 _SEED_ROWS = (
     (1, 8.85e-3, "round 10: Q=1 batched == per-quantity (same program)"),
     (4, 26.2e-3, "round 7/10: per-quantity 37.4 ms (1.43x); direct26 "

@@ -7,8 +7,11 @@ astaroth/integration.cuh:14-49 ``rk3_integrate``; astaroth/kernels.cu:62-87
 The domain is one block, a partition whose blocks all sit on the device
 (resident, uniform or uneven), or a mesh of block positions (one block a
 position, or each position's stack of residents; uniform or uneven),
-exchanged by the domain's ``HaloExchange`` (on a mesh REMOTE_DMA: B6's axis
-carrier over the 8 fields, B4 on an axis of one position). Per iteration,
+exchanged by the domain's ``HaloExchange`` (on a mesh of one block a
+position AXIS_COMPOSED's copies between positions or REMOTE_DMA's B6 axis
+carrier over the 8 fields, B4 on an axis of one position; over more blocks
+than positions REMOTE_DMA; across processes the step raises, ROADMAP.md
+queue A item 5). Per iteration,
 in the reference's swap-per-iteration mode, one exchange fills the halos,
 three RK3 stages run, then the buffers swap once
 (``stencil_tpu/astaroth/integrate.py:413-418``). Each stage is one launch
@@ -180,6 +183,9 @@ def _make_loop(ex, info: AcMeshInfo, dt: float, iters: int, order: str):
     (``full``) or exterior shells (``shells``) of the domain's stacks, or
     on a mesh of its per-position lists."""
     spec, inv_ds, c = ex.spec, inv_ds_of(info), Constants.from_info(info)
+    if ex.on_mesh and ex.mesh.multi_process:
+        raise NotImplementedError("Astaroth over positions of several processes: ROADMAP.md "
+                                  "queue A item 5")
     if ex.on_mesh:
         kernel = substep_positions
         full = position_compute_tasks(spec, ex.resident)

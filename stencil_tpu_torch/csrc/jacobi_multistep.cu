@@ -75,6 +75,14 @@
 // prefetch. The kernel is instantiated twice per depth: MB = false for a
 // single-block domain, MB = true for a partition.
 //
+// Positions. The blocks of a mesh of positions are separate allocations,
+// each at its own global origin (the TPU kernel's deep-halo form inside
+// shard_map, whose origin comes from lax.axis_index). Their launch runs the
+// same MB = true body over a table of entries (curr pointer, out pointer and
+// the block's global origin x, y, z; TAB_COLS int64 an entry) in device
+// memory: grid.z covers entries times z chunks, and a block reads its entry
+// where the stack form computes its resident's pointers and origin.
+//
 // The hot and cold spheres come from integer coordinates, exactly as in the
 // TPU kernel: hot centre (gx/3, gy/2, gz/2), cold centre (2*gx/3, gy/2,
 // gz/2), d2 < (gx/10 + 1)^2, hot wins over cold, at the cell's WRAPPED global
@@ -108,6 +116,7 @@ constexpr int TYHI = 16;  // output tile height at k > KLO (fp64: half; see Shap
 constexpr int KLO = 3;    // deepest k with the TY-high tile
 constexpr int KMAX = 6;   // deepest k instantiated (register windows grow with k)
 constexpr int LOOK = 4;   // stage-0 planes in flight ahead of use
+constexpr int TAB_COLS = 5;  // a positions entry: curr, out, origin x, y, z
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float HOT = 1.0f;
 constexpr float COLD = 0.0f;
@@ -152,6 +161,7 @@ struct Params {
   int band;                    // only |z - hz| <= band holds sphere cells
   int thresh;                  // (gx/10 + 1)^2
   int vec;                     // pointers and strides allow 16-byte runs
+  const long long* tab;        // positions form: TAB_COLS int64 an entry; null: the stack
 };
 
 __device__ __forceinline__ int wrapi(int a, int n) {
@@ -373,11 +383,20 @@ __global__ void __launch_bounds__(Shape<K, T>::NT, 1)
   T* smem = reinterpret_cast<T*>(smem_words);
   Tile<T> b;
   const int res = MB ? blockIdx.z / p.nzc : 0;
-  const int rx = res % p.bx, ry = (res / p.bx) % p.by, rz = res / (p.bx * p.by);
-  const int ox = MB ? rx * p.nx : 0, oy = MB ? ry * p.ny : 0;
-  b.oz = MB ? rz * p.nz : 0;
-  b.curr = p.curr + (MB ? res * p.bstride : 0);
-  b.out = p.out + (MB ? res * p.bstride : 0);
+  int ox, oy;
+  if (MB && p.tab) {
+    // the positions form: the entry's own block and global origin
+    const long long* e = p.tab + (long long)res * TAB_COLS;
+    b.curr = reinterpret_cast<const T*>(e[0]);
+    b.out = reinterpret_cast<T*>(e[1]);
+    ox = (int)e[2], oy = (int)e[3], b.oz = (int)e[4];
+  } else {
+    const int rx = res % p.bx, ry = (res / p.bx) % p.by, rz = res / (p.bx * p.by);
+    ox = MB ? rx * p.nx : 0, oy = MB ? ry * p.ny : 0;
+    b.oz = MB ? rz * p.nz : 0;
+    b.curr = p.curr + (MB ? res * p.bstride : 0);
+    b.out = p.out + (MB ? res * p.bstride : 0);
+  }
   b.ring = smem + S::PITCH;
   b.bufs = b.ring + S::RING * S::PLANE;
   const bool xm = MB && p.bx > 1, ym = MB && p.by > 1;
@@ -517,18 +536,15 @@ long long smem_bytes(int k) {
   }
 }
 
+// The launch's parameters, all but the operands (curr, out, bstride, tab
+// and vec, which the two entries set).
 template <typename T>
-int launch_item(const void* curr, void* out, long long sz, long long sy, long long bstride,
-                int zo, int yo, int xo, int nz, int ny, int nx, int bz, int by, int bx, int k,
-                int gx, int gy, int gz, int zchunks, cudaStream_t st) {
-  constexpr int C = 16 / (int)sizeof(T), TX = TX_BYTES / (int)sizeof(T);
+Params<T> make_params(long long sz, long long sy, int zo, int yo, int xo, int nz, int ny,
+                      int nx, int bz, int by, int bx, int gx, int gy, int gz, int zchunks) {
   Params<T> p;
-  p.curr = (const T*)curr;
-  p.out = (T*)out;
   p.sz = sz;
   p.sy = (int)sy;
   p.py = (int)(sz / sy);
-  p.bstride = bstride;
   p.zo = zo;
   p.yo = yo;
   p.xo = xo;
@@ -549,9 +565,27 @@ int launch_item(const void* curr, void* out, long long sz, long long sy, long lo
   p.dhc = gx * 2 / 3 - gx / 3;
   p.band = gx / 10;
   p.thresh = (gx / 10 + 1) * (gx / 10 + 1);
-  p.vec = ((uintptr_t)curr % 16 == 0) && ((uintptr_t)out % 16 == 0) && sz % C == 0 &&
-          sy % C == 0 && bstride % C == 0;
-  const dim3 grid((nx + TX - 1) / TX, 1, bz * by * bx * p.nzc);  // grid.y: launch_mb
+  p.tab = nullptr;
+  return p;
+}
+
+// grid: x the tiles of a row, z the blocks (or entries) times their z
+// chunks; grid.y is set by launch_mb. mb forces the MB = true body (the
+// positions form).
+template <typename T>
+int launch_k(const Params<T>& p, int k, int blocks, bool mb, cudaStream_t st) {
+  constexpr int TX = TX_BYTES / (int)sizeof(T);
+  const dim3 grid((p.nx + TX - 1) / TX, 1, blocks * p.nzc);
+  if (mb) {
+    switch (k) {
+      case 1: return launch_mb<1, true>(p, grid, st);
+      case 2: return launch_mb<2, true>(p, grid, st);
+      case 3: return launch_mb<3, true>(p, grid, st);
+      case 4: return launch_mb<4, true>(p, grid, st);
+      case 5: return launch_mb<5, true>(p, grid, st);
+      default: return launch_mb<6, true>(p, grid, st);
+    }
+  }
   switch (k) {
     case 1: return launch<1>(p, grid, st);
     case 2: return launch<2>(p, grid, st);
@@ -560,6 +594,36 @@ int launch_item(const void* curr, void* out, long long sz, long long sy, long lo
     case 5: return launch<5>(p, grid, st);
     default: return launch<6>(p, grid, st);
   }
+}
+
+template <typename T>
+int launch_item(const void* curr, void* out, long long sz, long long sy, long long bstride,
+                int zo, int yo, int xo, int nz, int ny, int nx, int bz, int by, int bx, int k,
+                int gx, int gy, int gz, int zchunks, cudaStream_t st) {
+  constexpr int C = 16 / (int)sizeof(T);
+  Params<T> p = make_params<T>(sz, sy, zo, yo, xo, nz, ny, nx, bz, by, bx, gx, gy, gz, zchunks);
+  p.curr = (const T*)curr;
+  p.out = (T*)out;
+  p.bstride = bstride;
+  p.vec = ((uintptr_t)curr % 16 == 0) && ((uintptr_t)out % 16 == 0) && sz % C == 0 &&
+          sy % C == 0 && bstride % C == 0;
+  return launch_k<T>(p, k, bz * by * bx, false, st);
+}
+
+// The positions form: the kernel's table at dev_tab; aligned says every
+// entry's pointers are 16-byte aligned (the caller's test).
+template <typename T>
+int launch_positions(const void* dev_tab, int entries, int aligned, long long sz, long long sy,
+                     int zo, int yo, int xo, int nz, int ny, int nx, int bz, int by, int bx,
+                     int k, int gx, int gy, int gz, int zchunks, cudaStream_t st) {
+  constexpr int C = 16 / (int)sizeof(T);
+  Params<T> p = make_params<T>(sz, sy, zo, yo, xo, nz, ny, nx, bz, by, bx, gx, gy, gz, zchunks);
+  p.curr = nullptr;
+  p.out = nullptr;
+  p.bstride = 0;
+  p.tab = (const long long*)dev_tab;
+  p.vec = aligned && sz % C == 0 && sy % C == 0;
+  return launch_k<T>(p, k, entries, true, st);
 }
 
 }  // namespace
@@ -593,6 +657,33 @@ extern "C" int jacobi_multistep_launch(const void* curr, void* out, long long sz
                                          by, bx, k, gx, gy, gz, zchunks, st)
                    : launch_item<float>(curr, out, sz, sy, bstride, zo, yo, xo, nz, ny, nx, bz,
                                         by, bx, k, gx, gy, gz, zchunks, st);
+}
+
+// The positions form: k steps of each of `entries` separate padded blocks
+// of a partition of bz x by x bx blocks (several: the deep-halo form), each
+// at its own global origin, in one launch. dev_tab holds the entries in
+// device memory, TAB_COLS int64 each (curr, out, origin x, y, z); aligned
+// is nonzero when every entry's pointers are 16-byte aligned. Every block
+// has the strides (sz, sy, 1), the compute region and halos of radius >= k
+// on its multi-block axes as for jacobi_multistep_launch; zchunks is the
+// number of z chunks per entry.
+extern "C" int jacobi_multistep_positions_launch(const void* dev_tab, int entries, int aligned,
+                                                 long long sz, long long sy, int zo, int yo,
+                                                 int xo, int nz, int ny, int nx, int bz, int by,
+                                                 int bx, int k, int gx, int gy, int gz,
+                                                 int zchunks, int item, int dev, void* stream) {
+  if (k < 1 || k > KMAX || k > nz || nz < 1 || ny < 1 || nx < 1 || zchunks < 1 ||
+      bz < 1 || by < 1 || bx < 1 || (long long)bz * by * bx < 2 || entries < 1 ||
+      dev_tab == nullptr || sz > INT_MAX || sy > sz || (item != 4 && item != 8) ||
+      (long long)entries * zchunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  jacobi::DeviceScope on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
+  cudaStream_t st = (cudaStream_t)stream;
+  return item == 8 ? launch_positions<double>(dev_tab, entries, aligned, sz, sy, zo, yo, xo, nz,
+                                              ny, nx, bz, by, bx, k, gx, gy, gz, zchunks, st)
+                   : launch_positions<float>(dev_tab, entries, aligned, sz, sy, zo, yo, xo, nz,
+                                             ny, nx, bz, by, bx, k, gx, gy, gz, zchunks, st);
 }
 
 // The instantiation of depth k (mb: the multi-block one) for item-byte cells

@@ -67,6 +67,9 @@ SIGNATURES = {
     "jacobi_multistep": {
         "jacobi_multistep_launch": (_I, [_P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "jacobi_multistep_positions_launch": (_I, [_P, _I, _I, _L, _L, _I, _I, _I, _I, _I,
+                                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                                   _I, _P]),
         "jacobi_multistep_smem_bytes": (_L, [_I, _I]),
         "jacobi_multistep_info": (_I, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     },

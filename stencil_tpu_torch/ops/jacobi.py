@@ -36,6 +36,20 @@ exchange the wrap would read the same values, and the JAX package's kernel
 takes the halos too); on the card that sweep is one launch of B1's task
 table over the resident stack.
 
+Over a mesh of one block a position, AXIS_COMPOSED and DIRECT26 take the
+same Pallas-branch schedules on each position (:func:`_positions_loop`),
+the messages copies between positions (``parallel/mesh_exchange``) and
+every position's work one launch: the overlap step (one sweep of every
+position wrapping its single-position axes, the exchange, one launch of
+every position's shells), the axis-subset step without overlap, the
+dynamic-shell step on an uneven mesh (:func:`_dyn_shell_step`), the
+deep-halo multistep as one launch of its positions form over every
+position at its own global origin (:func:`stencil_kernels.
+multistep_positions`), and DIRECT26's exchange and no-wrap sweep. Across
+processes each rank's launches cover its own positions, and on the card a
+step that sweeps before it exchanges (the overlap and dynamic-shell steps)
+first takes a handshake with every rank it exchanges with.
+
 The remote-dma method dispatches first, as the JAX package's
 ``_compile_jacobi`` does: the plain exchange + sweep step, the fused step
 kernel (one launch per step) or the persistent chunk kernel (one launch per
@@ -107,8 +121,10 @@ from .stencil_kernels import (
     _sphere_masks,
     block_sel_range,
     block_sel_ranges,
+    block_origin,
     multi_block_axes,
     multistep,
+    multistep_positions,
     multistep_shape,
     plan_multistep_depth,
     sel_z_range,
@@ -349,17 +365,14 @@ def _remote_loop(ex, iters: int, temporal_k, ranges=None):
     return loop
 
 
-def _uneven_fused_loop(ex, iters: int, ranges=None):
-    """Fused remote-dma over an uneven mesh: the JAX package's
-    host-orchestrated schedule (``stencil_tpu/ops/jacobi.py``
-    ``_compile_jacobi_fused``), since the fused step kernel (B8) and the
-    fused exchange carrier (B7) take uniform partitions only, as on the
-    TPU. Per step: one full-base no-wrap sweep of every position on the
-    pre-exchange state; the mesh exchange (B6's uneven ring, B4 on the
-    single-position axes); then every side's boundary shell of every
-    position (``ops/shells``, at the block's own size on the hi side)
-    re-swept from the exchanged state; then the swap. The sweeps are one
-    launch (``sweep_positions``), and so are the shells
+def _dyn_shell_step(ex, ranges=None):
+    """``step(curr, nxt, sel) -> (out, curr)``: the JAX package's
+    dynamic-shell step over an uneven mesh of one block a position (its
+    ``use_dyn_overlap`` body): one full-base no-wrap sweep of every position
+    on the pre-exchange state; the mesh exchange; then every side's
+    boundary shell of every position (``ops/shells``, at the block's own
+    size on the hi side) re-swept from the exchanged state. The sweeps are
+    one launch (``sweep_positions``), and so are the shells
     (``sweep_regions``), ``sel`` imposed on each position's ``ranges``.
     Over positions of several processes, this rank's positions; on the card
     its sweep follows a handshake with every rank it exchanges with
@@ -373,17 +386,103 @@ def _uneven_fused_loop(ex, iters: int, ranges=None):
               for i in idx]
     lranges = [ranges[i] for i in idx] if ranges is not None else None
 
+    def step(curr, nxt, sel):
+        c, n, s = ([t[i] for i in idx] for t in (curr, nxt, sel))
+        if mesh.multi_process and ex.peers is not None:
+            ex.peers.order.before_all()
+        sweep_positions(c, n, s, bspec, lranges)
+        ex(curr)
+        sweep_regions(c, n, s, bspec, shells, lranges)
+        return nxt, curr
+
+    return step
+
+
+def _uneven_fused_loop(ex, iters: int, ranges=None):
+    """Fused remote-dma over an uneven mesh: the JAX package's
+    host-orchestrated schedule (``stencil_tpu/ops/jacobi.py``
+    ``_compile_jacobi_fused``), since the fused step kernel (B8) and the
+    fused exchange carrier (B7) take uniform partitions only, as on the
+    TPU: per step :func:`_dyn_shell_step` (the mesh exchange is B6's uneven
+    ring, B4 on the single-position axes), then the swap."""
+    step = _dyn_shell_step(ex, ranges)
+
     def loop(curr, nxt, sel):
         for _ in range(iters):
-            c, n, s = ([t[i] for i in idx] for t in (curr, nxt, sel))
-            if mesh.multi_process and ex.peers is not None:
-                ex.peers.order.before_all()
-            sweep_positions(c, n, s, bspec, lranges)
-            ex(curr)
-            sweep_regions(c, n, s, bspec, shells, lranges)
-            curr, nxt = nxt, curr
+            curr, nxt = step(curr, nxt, sel)
         return curr, nxt
 
+    return loop
+
+
+def _positions_loop(ex, iters: int, overlap: bool, k: int, ranges=None):
+    """AXIS_COMPOSED or DIRECT26 over a mesh of one block a position: the
+    JAX package's Pallas-branch schedule of ``_compile_jacobi`` on each
+    device, every position's work in one launch. The exchange moves copies
+    between positions (``parallel/mesh_exchange``). Per step:
+
+    - DIRECT26: the full exchange, then one no-wrap sweep of every position.
+    - AXIS_COMPOSED, uniform, with overlap: one sweep of every position on
+      the pre-exchange state, wrapping its single-position axes (across
+      processes on the card after a handshake with every rank it exchanges
+      with: the sweep overwrites the buffer their previous exchange read);
+      the full exchange; then every position's overlap shells along the
+      multi-position axes (:func:`multi_block_layout`) in one launch.
+    - without overlap: the exchange of the multi-position axes, then the
+      wrapping sweep.
+    - uneven, with overlap: the dynamic-shell step (:func:`_dyn_shell_step`).
+
+    With a depth ``k >= 2`` (the deep halo; uniform, overlap, standard
+    spheres), each pass of ``iters // k`` is the exchange of the
+    multi-position axes and one launch of the multistep's positions form
+    over every position at its own global origin; the ``iters % k`` tail
+    runs the overlap step. Over positions of several processes every
+    launch covers this rank's positions."""
+    spec, mesh = ex.spec, ex.mesh
+    require_face_radius(spec)
+    bspec = spec.block_spec()
+    idx = mesh.local_positions()
+    lranges = [ranges[i] for i in idx] if ranges is not None else None
+    wrap, axes, shells = multi_block_layout(spec)
+    origins = [block_origin(spec, mesh.position(i)) for i in idx]
+    handshake = mesh.multi_process and ex.peers is not None
+
+    def local(*ts):
+        return ([t[i] for i in idx] for t in ts)
+
+    if ex.method == Method.DIRECT26:
+        def step(curr, nxt, sel):
+            ex(curr)
+            sweep_positions(*local(curr, nxt, sel), bspec, lranges)
+            return nxt, curr
+    elif not overlap:
+        def step(curr, nxt, sel):
+            ex.exchange(curr, axes=axes)
+            sweep_positions(*local(curr, nxt, sel), bspec, lranges, wrap)
+            return nxt, curr
+    elif not spec.is_uniform():
+        step = _dyn_shell_step(ex, ranges)
+    else:
+        def step(curr, nxt, sel):
+            c, n, s = local(curr, nxt, sel)
+            if handshake:
+                ex.peers.order.before_all()
+            sweep_positions(c, n, s, bspec, lranges, wrap)
+            ex(curr)
+            sweep_regions(c, n, s, bspec, [shells] * len(c), lranges)
+            return nxt, curr
+
+    def loop(curr, nxt, sel):
+        n_multi, n_single = divmod(iters, k) if k else (0, iters)
+        for _ in range(n_multi):
+            ex.exchange(curr, axes=axes)
+            multistep_positions(*local(curr, nxt), spec, k, origins)
+            curr, nxt = nxt, curr
+        for _ in range(n_single):
+            curr, nxt = step(curr, nxt, sel)
+        return curr, nxt
+
+    loop.temporal_k = k
     return loop
 
 
@@ -517,8 +616,8 @@ def make_jacobi_step(ex, overlap: bool = True, standard_spheres: bool = True):
     exchanges (see the module docstring; ``overlap`` picks the structure).
     A remote-dma exchange takes its one-step loop. ``standard_spheres`` as
     for :func:`make_jacobi_loop`."""
-    if ex.method == Method.REMOTE_DMA:
-        return make_jacobi_loop(ex, 1, standard_spheres=standard_spheres)
+    if ex.method == Method.REMOTE_DMA or ex.on_mesh:
+        return make_jacobi_loop(ex, 1, overlap=overlap, standard_spheres=standard_spheres)
     _native.note_first_use("loop")
     return _step_body(ex, overlap, _sel_ranges(ex, standard_spheres))
 
@@ -594,6 +693,8 @@ def make_jacobi_loop(ex, iters: int, overlap: bool = True, standard_spheres: boo
                          "did not engage (overlap off, non-uniform partition, direct26, "
                          "iters/radius too small, or non-standard spheres) - timings reflect "
                          "the per-step kernels")
+        if ex.on_mesh:
+            return _positions_loop(ex, iters, overlap, k, ranges)
         step = _step_body(ex, overlap, ranges)
 
     def loop(curr, nxt, sel):

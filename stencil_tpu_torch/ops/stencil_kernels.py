@@ -20,13 +20,17 @@ The port's counterpart of ``stencil_tpu.ops.pallas_stencil``:
   TPU's ``make_pallas_jacobi_multistep`` and ``_make_multistep_row_tiled``,
   single-block and deep-halo forms): k steps in one launch, the
   intermediate stages kept in shared memory; :func:`multistep_plain` is k
-  plain steps.
+  plain steps. :func:`multistep_positions` is the deep-halo form over the
+  separate blocks of a mesh's positions, each at its own global origin, in
+  one launch (a table of entries); its plain version
+  :func:`multistep_positions_plain`.
 - :func:`plan_multistep_depth` is the port's own depth planner, bounded by
   the 227 KB of shared memory a Hopper block may use.
 
 Tensors are stacks of padded blocks, ``(bz, by, bx, pz, py, px)`` with
 every block of the partition resident on one device (a single-block domain
-is the stack of one). Each kernel covers the whole stack in one launch.
+is the stack of one), or lists of one padded block a mesh position. Each
+kernel covers the whole stack, or every listed position, in one launch.
 
 A wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its launches
@@ -211,6 +215,14 @@ def _multistep_block(c, spec: GridSpec, k: int, origin: Dim3):
         hot, cold = _sphere_masks(g, *coords)
         c = torch.where(hot, HOT_TEMP, torch.where(cold, COLD_TEMP, _average(nb)))
     return c
+
+
+def block_origin(spec: GridSpec, pos) -> Dim3:
+    """The global origin of block ``pos`` (ix, iy, iz) of a uniform
+    partition: block index x block size, as ``lax.axis_index`` gives the
+    TPU kernel on a device of the mesh."""
+    b = spec.base
+    return Dim3(pos[0] * b.x, pos[1] * b.y, pos[2] * b.z)
 
 
 def multistep_plain(curr, nxt, spec: GridSpec, k: int):
@@ -744,23 +756,27 @@ def _entry_ranges(sel_ranges, n: int) -> list:
     return list(sel_ranges)
 
 
-def sweep_positions(currs, nxts, sels, bspec: GridSpec, sel_ranges=None):
+def sweep_positions(currs, nxts, sels, bspec: GridSpec, sel_ranges=None, wrap=(False,) * 3):
     """One Jacobi step of every position of a mesh: lists of one padded
     block of ``bspec`` (the block spec) per position; each ``nxt``'s compute
-    region <- the sweep of its ``curr``, reading the filled halos (no
-    wrap), ``sels[i]`` imposed on ``sel_ranges[i]``'s planes (None: every
-    plane; see :func:`sweep_plain`). In place; returns ``nxts``. CPU
-    tensors take :func:`sweep_plain` per position; CUDA tensors launch
-    ``csrc/jacobi_sweep.cu`` once for every position, or raise."""
+    region <- the sweep of its ``curr``, reading the filled halos,
+    ``sels[i]`` imposed on ``sel_ranges[i]``'s planes (None: every plane;
+    see :func:`sweep_plain`). ``wrap`` = ``(wz, wy, wx)`` wraps the axes
+    with one position onto the block itself (the TPU kernel's wrap of the
+    single-block axes; default none: every halo read as filled). In place;
+    returns ``nxts``. CPU tensors take :func:`sweep_plain` per position;
+    CUDA tensors launch ``csrc/jacobi_sweep.cu`` once for every position,
+    or raise."""
     dev = _check_lists(currs, nxts, sels, bspec)
     ranges = _entry_ranges(sel_ranges, len(currs))
+    wrap = tuple(bool(w) for w in wrap)
     if dev.type == "cpu":
         for c, n, s, r in zip(currs, nxts, sels, ranges):
-            sweep_plain(c, n, s, bspec, (False,) * 3, r)
+            sweep_plain(c, n, s, bspec, wrap, r)
         return nxts
     rect = _compute_rect(bspec)
     tasks = [t for c, n, s, r in zip(currs, nxts, sels, ranges)
-             for t in _stack_tasks(c, n, s, bspec, rect, (False,) * 3, r)]
+             for t in _stack_tasks(c, n, s, bspec, rect, wrap, r)]
     _launch_tasks(tasks, (*currs, *nxts, *sels), bspec, dev)
     sweep_positions.launches += 1
     return nxts
@@ -804,17 +820,21 @@ def sweep_regions(currs, outs, sels, spec: GridSpec, rects, sel_ranges=None):
 sweep_regions.launches = 0
 
 
-def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int, item: int = 4) -> int:
+def multistep_zchunks(spec: GridSpec, k: int, blocks_in_flight: int, item: int = 4,
+                      blocks: Optional[int] = None) -> int:
     """z chunks per tile column: the count whose launch the device
     finishes soonest, in plane steps (a chunk of c planes takes c + 2k
     steps, its 2k warm-up included), with ``blocks_in_flight`` (the SMs
     times the multistep blocks an SM holds) running at once: every block's
     steps shared evenly over them, plus one block's steps for the last to
     finish; the fewest chunks on a tie. No chunk is shorter than 4k
-    planes. The tiles are those of ``item``-byte cells."""
+    planes. The tiles are those of ``item``-byte cells, over the ``blocks``
+    the launch covers (default every block of the partition; a positions
+    launch covers the positions it is given)."""
     tx, ty = multistep_shape(k, item)["tile"]
     b = spec.base
-    tiles = -(-b.x // tx) * -(-b.y // ty) * spec.num_blocks()
+    nb = spec.num_blocks() if blocks is None else blocks
+    tiles = -(-b.x // tx) * -(-b.y // ty) * nb
     slots = max(1, blocks_in_flight)
 
     def steps(n):
@@ -877,3 +897,91 @@ def multistep(curr, nxt, spec: GridSpec, k: int):
 
 
 multistep.launches = 0
+
+
+# the columns of a positions entry (csrc/jacobi_multistep.cu TAB_COLS)
+MULTISTEP_TAB_FIELDS = ("curr", "out", "ox", "oy", "oz")
+
+
+def _check_positions(currs, nxts, spec: GridSpec, k: int, origins) -> torch.device:
+    """``currs`` and ``nxts``: lists of one padded block of ``spec``'s
+    partition per position, one float type, one device, every buffer its
+    own; ``origins`` one Dim3 each; the deep-halo conditions at depth
+    ``k`` on a partition of several blocks."""
+    if not len(currs) == len(nxts) == len(origins) >= 1:
+        raise ValueError(f"{len(currs)} curr, {len(nxts)} nxt and {len(origins)} origin entries")
+    if spec.num_blocks() < 2:
+        raise ValueError("the positions form is the deep-halo form: a partition of several "
+                         "blocks (one block takes multistep)")
+    bspec = spec.block_spec()
+    for c, n in zip(currs, nxts):
+        _check_fields(bspec, c, n)
+        if c.dtype != currs[0].dtype:
+            raise ValueError("every position's block has one float type")
+    dev = _device_of(*currs, *nxts)
+    if len({t.data_ptr() for t in (*currs, *nxts)}) != 2 * len(currs):
+        raise ValueError("every curr and nxt must be its own buffer")
+    if not 1 <= k <= min(MULTISTEP_KMAX, spec.base.z):
+        raise ValueError(f"multistep depth {k} outside [1, {MULTISTEP_KMAX}] "
+                         f"or deeper than the {spec.base.z} planes")
+    require_deep_halo(spec, k)
+    g = spec.global_size
+    for o in origins:
+        if not (0 <= o.x < g.x and 0 <= o.y < g.y and 0 <= o.z < g.z):
+            raise ValueError(f"origin {o} outside the global box {g}")
+    return dev
+
+
+def multistep_positions_plain(currs, nxts, spec: GridSpec, k: int, origins):
+    """The plain version of :func:`multistep_positions`: each position's
+    block through :func:`multistep_plain`'s per-block body at its own
+    global origin. In place; returns ``nxts``."""
+    multi = multi_block_axes(spec)
+    off, b = spec.compute_offset(), spec.base
+    grown = tuple(slice(o - k * m, o + n + k * m)
+                  for m, o, n in zip(multi, (off.z, off.y, off.x), (b.z, b.y, b.x)))
+    cs = _region(spec)[1:]
+    for c, n, o in zip(currs, nxts, origins):
+        n[(0, 0, 0, *cs)] = _multistep_block(c[(0, 0, 0, *grown)], spec, k, o)
+    return nxts
+
+
+def multistep_positions(currs, nxts, spec: GridSpec, k: int, origins):
+    """``k`` Jacobi steps of every given position of a mesh in one launch:
+    ``currs`` and ``nxts`` are lists of one padded block of ``spec``'s
+    partition per position (``(1, 1, 1, pz, py, px)``, each its own
+    allocation), ``origins`` each block's global origin (the JAX package's
+    deep-halo multistep on a device of the mesh, whose origin comes from
+    ``lax.axis_index``; :func:`block_origin`). Each ``nxt``'s compute region
+    <- its block after k steps, the standard spheres from coordinates; the
+    partition's single-block axes wrap onto the block, the others read the
+    halos, which must hold the neighbours' cells at radius >= k. In place;
+    returns ``nxts``. CPU tensors take :func:`multistep_positions_plain`;
+    CUDA tensors launch ``csrc/jacobi_multistep.cu``'s positions entry once
+    over a table of (curr, out, origin) entries in device memory (made once
+    per operand list, ``_native.device_table``; its z chunks counted over
+    the positions launched), or raise."""
+    origins = [Dim3.of(o) for o in origins]
+    dev = _check_positions(currs, nxts, spec, k, origins)
+    if dev.type == "cpu":
+        return multistep_positions_plain(currs, nxts, spec, k, origins)
+    p, off, b, g, d = (spec.padded(), spec.compute_offset(), spec.base, spec.global_size,
+                       spec.dim)
+    item = currs[0].element_size()
+    # one row of MULTISTEP_TAB_FIELDS a position
+    rows = tuple(v for c, n, o in zip(currs, nxts, origins)
+                 for v in (c.data_ptr(), n.data_ptr(), o.x, o.y, o.z))
+    table = _native.device_table(("multistep_positions", rows), lambda: list(rows), dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (*currs, *nxts))  # the 16-byte runs' test
+    zchunks = multistep_zchunks(spec, k, multistep_blocks_in_flight(dev, k, item), item,
+                                blocks=len(currs))
+    rc = _native.lib("jacobi_multistep").jacobi_multistep_positions_launch(
+        table.data_ptr(), len(currs), int(aligned), p.y * p.x, p.x, off.z, off.y, off.x, b.z,
+        b.y, b.x, d.z, d.y, d.x, k, g.x, g.y, g.z, zchunks, item, dev.index,
+        _native.stream_ptr(dev))
+    _native.check(rc, "jacobi_multistep positions")
+    multistep_positions.launches += 1
+    return nxts
+
+
+multistep_positions.launches = 0

@@ -1,6 +1,7 @@
-"""Periodic halo exchange of a domain whose blocks all sit on one device.
+"""Periodic halo exchange of a domain on one device or over a mesh of
+block positions.
 
-The port's counterpart of ``stencil_tpu.parallel.exchange`` for one device:
+The port's counterpart of ``stencil_tpu.parallel.exchange``. On one device:
 a (1,1,1) partition, or any partition, uniform or uneven (the reference's
 remainder rule, ``domain/grid.py``), with every block resident on the
 device (the JAX package's oversubscribed layout, reference
@@ -68,8 +69,14 @@ py, px)`` stacks, one per position in the mesh's flat order, each its own
 allocation: one block a position (``(1, 1, 1, ...)``), or the resident
 blocks of an oversubscribed mesh (partition / mesh shape, position
 ``(ix, iy, iz)`` holding blocks ``ix * cx ...``), every block then an
-endpoint of the axis carrier. The exchange is REMOTE_DMA: the
-axis carrier (``ops/remote_dma.RemoteDmaExchange``; also with
+endpoint of the axis carrier. AXIS_COMPOSED and DIRECT26 take one block a
+position and move their messages by copies between positions
+(``parallel/mesh_exchange.PositionsExchange``: the composed phases' slabs,
+or the direct26 boxes, one message a same-dtype group, each quantity's
+box one copy; an axis with one position self-fills through B4), the JAX
+package's ``ppermute`` between devices; over more blocks than positions they raise
+(ROADMAP.md queue A item 5). REMOTE_DMA moves the same composed slabs by
+the axis carrier (``ops/remote_dma.RemoteDmaExchange``; also with
 ``persistent``, at the deep radius) or, with ``fused``, the fused exchange
 carrier (``ops/fused_stencil.FusedRemoteDmaExchange``). The fused and
 persistent jacobi loops then step through their kernels' wire-crossing
@@ -83,13 +90,14 @@ kernel's uneven form (messages off, each position at its own extent).
 This process's positions must share one device (the reference's
 ``set_gpus({0,0})``). The positions may be spread over several processes
 (``DeviceMesh.multi_process``, one block a position): each rank holds its
-own positions' stacks (None at another rank's) and the carriers fill its
+own positions' stacks (None at another rank's) and the transports fill its
 halos through CUDA IPC on one card, or over gloo on the CPU
 (``ops/remote_dma.RemoteDmaExchange``, ``ops/fused_stencil.
-FusedRemoteDmaExchange``); the fused and persistent loops step each rank's
-own positions through their kernels' cross-process forms (one launch per
-rank over its positions, ``ops/jacobi.py``). More blocks than positions
-across processes are ROADMAP.md queue B item 6. Positions on distinct GPUs
+FusedRemoteDmaExchange``, ``parallel/mesh_exchange.PositionsExchange``);
+the jacobi loops step each rank's own positions (the fused and persistent
+ones through their kernels' cross-process forms, one launch per rank over
+its positions, ``ops/jacobi.py``). More blocks than positions across
+processes are ROADMAP.md queue B item 6. Positions on distinct GPUs
 (peer access, NCCL between GPUs) are queue A item 5.
 
 ``wire_dtype`` (the JAX package's bf16-on-the-wire compression, its fp8
@@ -120,6 +128,7 @@ from ..ops.halo_fill import (AXIS_ORDER, MAX_FILL_GROUP, _axis_slice, axis_geom,
 from ..ops.remote_dma import RemoteDmaExchange
 from ..plan.ir import build_plan
 from .mesh import DeviceMesh
+from .mesh_exchange import PositionsExchange
 
 
 class Method(enum.Enum):
@@ -152,13 +161,14 @@ class HaloExchange:
     axis-composed or direct26 over any partition, uniform or uneven, or
     remote-dma (with its ``fused`` or ``persistent`` kernel variant on one
     block, plain on resident blocks); or, with ``mesh`` of several
-    positions, remote-dma over the mesh (the axis carrier, or the fused
-    exchange carrier with ``fused`` on a uniform partition), with either
-    kernel variant on one block a position, and plain on more blocks than
-    positions. ``wire_dtype`` narrows the carriers crossing between
-    positions (a no-op on one device); the persistent variant over a mesh
-    refuses it. ``batch_quantities`` picks one
-    carrier per same-dtype group (default) or one per quantity."""
+    positions, axis-composed or direct26 by copies between positions (one
+    block a position, uniform or uneven), or remote-dma over the mesh (the
+    axis carrier, or the fused exchange carrier with ``fused`` on a uniform
+    partition), with either kernel variant on one block a position, and
+    plain on more blocks than positions. ``wire_dtype`` narrows the
+    carriers crossing between positions (a no-op on one device); the
+    persistent variant over a mesh refuses it. ``batch_quantities`` picks
+    one carrier per same-dtype group (default) or one per quantity."""
 
     def __init__(self, spec: GridSpec, method: Method = Method.AXIS_COMPOSED,
                  fused: bool = False, persistent: bool = False,
@@ -227,14 +237,18 @@ class HaloExchange:
         # loop call, counted as the JAX package counts them (ops/jacobi.py)
         self.last_launches_per_chunk = 0
         # the messages between blocks the last exchange issued (a rolled
-        # resident slab per phase side and carrier, a direct26 box per
-        # direction and carrier; a self-wrap fill is none) and the bytes of
-        # the halo boxes they wrote, counted as each is issued
+        # resident slab, or a round of copies between positions, per phase
+        # side and carrier; a direct26 message per direction and carrier; a
+        # self-wrap fill is none) and the bytes of the halo boxes they wrote,
+        # counted as each is issued
         self.last_message_count = 0
         self.last_message_bytes = 0
         self._loops = {}
         self._remote = None
-        if self.mesh is not None:
+        if self.mesh is not None and method != Method.REMOTE_DMA:
+            # the messages as copies between positions
+            self._remote = PositionsExchange(self)
+        elif self.mesh is not None:
             # the fused exchange carrier (B7) is uniform-only, as on the TPU
             fused_carrier = self.fused and kernel_supported(spec, self.resident)
             self._remote = (FusedRemoteDmaExchange if fused_carrier else RemoteDmaExchange)(self)
@@ -244,14 +258,15 @@ class HaloExchange:
 
     @staticmethod
     def _check_mesh(spec: GridSpec, method: Method, mesh: DeviceMesh) -> Dim3:
-        """A mesh of several positions: REMOTE_DMA, the partition a multiple
-        of the mesh on every axis, every position on one device. Returns the
-        mesh shape."""
-        if method != Method.REMOTE_DMA:
+        """A mesh of several positions: the partition a multiple of the mesh
+        on every axis (REMOTE_DMA), or one block a position (AXIS_COMPOSED,
+        DIRECT26), every position on one device. Returns the mesh shape."""
+        resident = position_resident(spec, mesh)
+        if method != Method.REMOTE_DMA and resident != Dim3(1, 1, 1):
             raise NotImplementedError(
-                f"{method} on a mesh of {len(mesh)} positions: the port exchanges a mesh by "
-                "REMOTE_DMA only (collectives between GPUs are ROADMAP.md queue A item 5)")
-        position_resident(spec, mesh)
+                f"{method} over {resident} blocks a position of a mesh of {len(mesh)}: the "
+                "port moves AXIS_COMPOSED and DIRECT26 between positions of one block each "
+                "(an oversubscribed mesh is ROADMAP.md queue A item 5)")
         mesh.device  # raises for positions on distinct devices
         return mesh.dim
 
@@ -273,9 +288,10 @@ class HaloExchange:
 
     @property
     def last_transfer_count(self) -> int:
-        """Slabs or messages sent to another position by the last mesh
-        exchange (0 on one device); over processes, by this rank's
-        positions."""
+        """Slabs or messages the remote-dma carriers sent to another
+        position in the last mesh exchange (0 on one device, and for the
+        copies of AXIS_COMPOSED and DIRECT26); over processes, by this
+        rank's positions."""
         return self._remote.last_transfer_count if self._remote is not None else 0
 
     @property
@@ -298,6 +314,11 @@ class HaloExchange:
             return state
         self.last_message_count = 0
         self.last_message_bytes = 0
+        if isinstance(self._remote, PositionsExchange):
+            self._remote(state, axes)
+            self.last_message_count = self._remote.last_message_count
+            self.last_message_bytes = self._remote.last_message_bytes
+            return state
         if self._remote is not None:
             if isinstance(self._remote, FusedRemoteDmaExchange):
                 if axes is not None:

@@ -1,7 +1,9 @@
 """CUDA IPC between the processes of one card, and the order of their phases.
 
 The transport of the cross-process forms of B6 (``ops/remote_dma``), B7 and
-B8 (``ops/fused_stencil``) and B9 (``ops/persistent_stencil``): the port's
+B8 (``ops/fused_stencil``) and B9 (``ops/persistent_stencil``), and of the
+copies AXIS_COMPOSED and DIRECT26 pull between positions
+(``parallel/mesh_exchange``): the port's
 counterpart of the reference's colocated path (``tx_ipc.cpp``,
 ``tx_colocated.cu:45-153``: the receiver shares its curr and next quantity
 buffers, the sender's kernel reads or writes them through the mapped
@@ -33,9 +35,10 @@ between), so no mapping outlives the memory it maps.
 before a launch a rank records its event after its prior work, tells the
 ranks it exchanges with over gloo (the reference's notify,
 ``tx_cuda.cuh:473-483``), and once their notices have arrived its stream
-waits on their events; only then does it launch. B6 holds one handshake an
-axis phase with that axis's ring neighbours (:meth:`PhaseOrder.before`);
-B7, B8 and B9 one a launch with every rank their messages cross to
+waits on their events; only then does it launch. B6 and AXIS_COMPOSED's
+copies hold one handshake an axis phase with that axis's ring neighbours
+(:meth:`PhaseOrder.before`); B7, B8, B9 and DIRECT26's copies one a launch
+or an exchange with every rank their messages cross to
 (:meth:`PhaseOrder.before_all`, which raises when the order was made
 without that set of ranks). The notice comes first because
 ``cudaStreamWaitEvent`` waits on the newest record issued before it:

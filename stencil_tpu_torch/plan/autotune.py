@@ -23,10 +23,11 @@ from . import db as plandb
 from .cost import DEFAULT_VARIANTS, default_provenance, enumerate_candidates, rank
 from .ir import AXIS_COMPOSED, DIRECT26, REMOTE_DMA, PlanChoice, PlanConfig
 
-# what the port's exchange realizes: every method on one device, REMOTE_DMA
-# over a mesh of positions (parallel/exchange.py)
+# what the port's exchange realizes: every method on one device and over a
+# mesh of positions (parallel/exchange.py), as the JAX package's autotune
+# offers every method over devices; never AUTO_SPMD
 ONE_DEVICE_METHODS = (AXIS_COMPOSED, DIRECT26, REMOTE_DMA)
-MESH_METHODS = (REMOTE_DMA,)
+MESH_METHODS = (AXIS_COMPOSED, DIRECT26, REMOTE_DMA)
 
 
 @dataclass
@@ -57,8 +58,8 @@ def default_choice(config: PlanConfig) -> PlanChoice:
 
 def live_methods(ndev: int) -> Tuple[str, ...]:
     """The methods a domain over ``ndev`` positions realizes: AXIS_COMPOSED,
-    DIRECT26 and REMOTE_DMA on one device, REMOTE_DMA over a mesh. Never
-    AUTO_SPMD (ROADMAP.md queue A item 5)."""
+    DIRECT26 and REMOTE_DMA, on one device and over a mesh. Never AUTO_SPMD
+    (ROADMAP.md queue A item 5)."""
     return ONE_DEVICE_METHODS if ndev == 1 else MESH_METHODS
 
 
@@ -75,8 +76,8 @@ def autotune(size, radius: Radius, dtypes: Sequence[str], ndev: Optional[int] = 
     ``platform`` their ``torch.device(...).type`` ("cuda" or "cpu"). With
     neither ``devices`` nor ``ndev``/``platform`` the current CUDA device
     is used. ``methods`` defaults to what the devices realize
-    (:func:`live_methods`): AXIS_COMPOSED, DIRECT26 and REMOTE_DMA on one
-    device, REMOTE_DMA alone over a mesh; never AUTO_SPMD.
+    (:func:`live_methods`): AXIS_COMPOSED, DIRECT26 and REMOTE_DMA, on one
+    device and over a mesh; never AUTO_SPMD.
 
     ``probe=False`` ranks statically only (no device work); ``force=True``
     re-tunes through an existing entry and replaces it. A corrupt DB is
@@ -125,8 +126,8 @@ def autotune(size, radius: Radius, dtypes: Sequence[str], ndev: Optional[int] = 
     if db is not None and not force:
         entry = plandb.lookup(db, config)
         if entry is not None and entry["choice"].get("method") not in methods:
-            # e.g. a seeded AXIS_COMPOSED entry for positions, which the port
-            # exchanges by REMOTE_DMA only: tune, and replace it
+            # e.g. an entry of a method the caller left out: tune, and
+            # replace it
             log.warn(f"plan DB entry {PlanChoice.from_json(entry['choice']).label()} uses a "
                      f"method these devices do not realize ({', '.join(methods)}); re-tuning")
             entry = None

@@ -205,9 +205,22 @@ def test_positions_form_refuses():
 
 
 def test_axis_composed_over_positions_keeps_raising():
-    """A mesh exchanges by REMOTE_DMA only; AXIS_COMPOSED over positions
-    raises as it did (ROADMAP.md queue A item 5)."""
+    """AXIS_COMPOSED over one block a position now exchanges the 8 fields
+    by copies between positions, every cell as B6's REMOTE_DMA exchange;
+    over more blocks than positions it keeps raising (ROADMAP.md queue A
+    item 5)."""
     ts, _ = specs(SIZE, (2, 2, 2))
-    with pytest.raises(NotImplementedError, match="REMOTE_DMA only.*queue A item 5"):
-        HaloExchange(ts, Method.AXIS_COMPOSED, mesh=DeviceMesh(Dim3(2, 2, 2), ["cpu"] * 8))
+    with pytest.raises(NotImplementedError, match="oversubscribed.*queue A item 5"):
+        HaloExchange(ts, Method.AXIS_COMPOSED, mesh=DeviceMesh(Dim3(2, 2, 1), ["cpu"] * 4))
+    mesh = DeviceMesh(Dim3(2, 2, 2), ["cpu"] * 8)
+    got = []
+    for method in (Method.AXIS_COMPOSED, Method.REMOTE_DMA):
+        rng = np.random.RandomState(11)
+        state = {k: [torch.from_numpy(rng.rand(1, 1, 1, *ts.block_shape_zyx()))
+                     for _ in range(8)] for k in FIELDS}
+        HaloExchange(ts, method, mesh=mesh)(state)
+        got.append(state)
+    for k in FIELDS:
+        for a, b in zip(got[0][k], got[1][k]):
+            assert torch.equal(a, b), k
     assert TOL[np.float64]["rtol"] == 1e-10

@@ -128,9 +128,29 @@ def test_no_compute_and_resume_over_positions(tmp_path):
 
 
 def test_app_mesh_refusals():
+    """``devices`` with ``partition`` or ``device`` raise. The app's default
+    method over ``devices`` is now the JAX app's, AXIS_COMPOSED (copies
+    between positions), and its fields equal the REMOTE_DMA run's; over
+    positions of several processes the step raises (ROADMAP.md queue A
+    item 5)."""
     with pytest.raises(ValueError, match="devices= alone"):
         tapp.run(devices=CPU8, method=Method.REMOTE_DMA, nx=8, iters=1, partition=(2, 2, 2))
     with pytest.raises(ValueError, match="devices= alone"):
         tapp.run(devices=CPU8, method=Method.REMOTE_DMA, nx=8, iters=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="REMOTE_DMA only"):
-        tapp.run(devices=CPU8, nx=8, iters=1)
+    runs = [tapp.run(devices=CPU8, nx=8, iters=1, chunk=1, **kw)
+            for kw in ({}, dict(method=Method.REMOTE_DMA))]
+    assert runs[0]["domain"].halo_exchange.method == Method.AXIS_COMPOSED
+    for k in FIELDS:
+        a, b = (r["domain"].get_curr_global(r["handles"][k]) for r in runs)
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    from stencil_tpu_torch.astaroth.integrate import make_astaroth_step
+    from stencil_tpu_torch.domain import GridSpec
+    from stencil_tpu_torch.geometry import Radius
+    from stencil_tpu_torch.parallel.distributed import Position
+
+    mesh = DeviceMesh((2, 2, 2), [Position(i, i // 4, "h", "cpu") for i in range(8)])
+    assert mesh.multi_process
+    ex = HaloExchange(GridSpec(Dim3(16, 16, 16), Dim3(2, 2, 2), Radius.constant(3)),
+                      Method.AXIS_COMPOSED, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="several processes.*queue A item 5"):
+        make_astaroth_step(ex, tapp.load(nx=8))

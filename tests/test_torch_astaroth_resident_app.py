@@ -249,9 +249,10 @@ def test_table_form_refuses():
 
 
 def test_step_refuses_a_mesh_of_positions():
-    """A mesh of positions takes only REMOTE_DMA, as every mesh of the port
-    (AXIS_COMPOSED over positions raises at realize, ROADMAP.md queue A item
-    5); over REMOTE_DMA the step runs on the mesh and gives the resident
+    """A mesh of more blocks than positions takes only REMOTE_DMA
+    (AXIS_COMPOSED over it raises at realize, ROADMAP.md queue A item 5);
+    over one block a position the step runs on the mesh by REMOTE_DMA and
+    by AXIS_COMPOSED (copies between positions) and gives the resident
     step's cells."""
     tinfo, _ = configs((16, 16, 16))
 
@@ -265,13 +266,14 @@ def test_step_refuses_a_mesh_of_positions():
         hs = [dd.add_data(k, "float64") for k in FIELDS]
         return dd, hs
 
-    dd, _ = domain(Method.AXIS_COMPOSED, ["cpu"] * 8)
+    dd, _ = domain(Method.AXIS_COMPOSED, ["cpu"] * 4)
     with pytest.raises(NotImplementedError, match="mesh"):
         dd.realize()
     rng = np.random.RandomState(4)
     g = {k: rng.randn(16, 16, 16) * 0.05 + 0.5 * (k == "lnrho") for k in FIELDS}
     cells = []
-    for method, devices in ((Method.REMOTE_DMA, ["cpu"] * 8), (Method.AXIS_COMPOSED, None)):
+    for method, devices in ((Method.REMOTE_DMA, ["cpu"] * 8), (Method.AXIS_COMPOSED, ["cpu"] * 8),
+                            (Method.AXIS_COMPOSED, None)):
         dd, hs = domain(method, devices)
         dd.realize()
         for h, k in zip(hs, FIELDS):
@@ -283,5 +285,6 @@ def test_step_refuses_a_mesh_of_positions():
         for h, k in zip(hs, FIELDS):
             dd.set_curr(h, curr[k])
         cells.append([dd.get_curr_global(h) for h in hs])
-    for k, a, b in zip(FIELDS, *cells):
-        np.testing.assert_array_equal(a, b, err_msg=k)
+    for k, a, b, c in zip(FIELDS, *cells):
+        np.testing.assert_array_equal(a, c, err_msg=k)
+        np.testing.assert_array_equal(b, c, err_msg=k)

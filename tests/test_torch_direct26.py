@@ -182,8 +182,13 @@ def test_direct26_refusals():
     with pytest.raises(ValueError, match="axis subsetting requires AXIS_COMPOSED"):
         tpar.HaloExchange(tspec, D26_T).exchange(torch.zeros(tspec.stacked_shape_zyx()),
                                                  axes=("z",))
-    with pytest.raises(NotImplementedError, match="REMOTE_DMA only.*queue A item 5"):
-        tpar.HaloExchange(tspec, D26_T, mesh=tpar.DeviceMesh((2, 2, 2), ["cpu"] * 8))
+    with pytest.raises(NotImplementedError, match="oversubscribed.*queue A item 5"):
+        tpar.HaloExchange(tspec, D26_T, mesh=tpar.DeviceMesh((2, 2, 1), ["cpu"] * 4))
+    ex = tpar.HaloExchange(tspec, D26_T, mesh=tpar.DeviceMesh((2, 2, 2), ["cpu"] * 8))
+    assert ex.on_mesh and ex.last_transfer_count == 0
+    with pytest.raises(ValueError, match="axis subsetting requires AXIS_COMPOSED"):
+        ex.exchange({0: [torch.zeros((1, 1, 1, *tspec.block_shape_zyx())) for _ in range(8)]},
+                    axes=("z",))
 
 
 @pytest.mark.parametrize("size,part", [((12, 16, 20), (2, 2, 2)), ((13, 16, 20), (3, 1, 2))],

@@ -99,9 +99,11 @@ def test_domain_global_roundtrip_and_regions():
 
 
 def test_multi_block_raises():
-    """Several devices under the axis-composed method raise (a mesh of
-    positions runs REMOTE_DMA only); an uneven partition (every block on
-    the one device, x blocks of 6/5/5) and a uniform one realize."""
+    """Several devices under the axis-composed method realize a mesh of
+    one block a position (copies between positions); more blocks than
+    positions by it raise (ROADMAP.md queue A item 5); an uneven partition
+    (every block on the one device, x blocks of 6/5/5) and a uniform one
+    realize."""
     three = DistributedDomain(16, 16, 16, device="cpu")
     three.set_partition((3, 1, 1))
     three.add_data("t", "float32")
@@ -112,8 +114,14 @@ def test_multi_block_raises():
     two = DistributedDomain(16, 16, 16, device="cpu")
     two.set_devices(["cpu", "cpu"])
     two.add_data("t", "float32")
-    with pytest.raises(NotImplementedError, match="REMOTE_DMA only.*ROADMAP"):
-        two.realize()
+    two.realize()
+    assert two.mesh is not None and len(two.mesh) == 2 and not two.halo_exchange.oversubscribed
+    over = DistributedDomain(16, 16, 16, device="cpu")
+    over.set_devices(["cpu", "cpu"])
+    over.set_partition((4, 1, 1))
+    over.add_data("t", "float32")
+    with pytest.raises(NotImplementedError, match="oversubscribed.*ROADMAP.md queue A item 5"):
+        over.realize()
     dd.set_partition((2, 1, 1))
     dd.add_data("t", "float32")
     dd.realize()

@@ -126,14 +126,21 @@ def test_jacobi3d_cli_devices(capsys):
 
 
 def test_mesh_app_refusals():
-    """AXIS_COMPOSED on a mesh and ``device`` with ``devices`` raise. More
-    blocks than positions now run: (2,2,2) blocks on 4 positions (two z
-    residents a position, the JAX package's ``stack_residents``), 4 steps
-    in chunks of 2, equal to the JAX app on 4 devices (per step the
+    """AXIS_COMPOSED over more blocks than positions and ``device`` with
+    ``devices`` raise; AXIS_COMPOSED over one block a position (the app's
+    default method) now runs, equal to the JAX app on 8 devices. More
+    blocks than positions run by REMOTE_DMA: (2,2,2) blocks on 4 positions
+    (two z residents a position, the JAX package's ``stack_residents``), 4
+    steps in chunks of 2, equal to the JAX app on 4 devices (per step the
     exchange with every block an endpoint, then one sweep of every
     block)."""
-    with pytest.raises(NotImplementedError, match="REMOTE_DMA only"):
-        tapp.run(16, 16, 16, devices=CPU8, iters=1, weak=False)
+    with pytest.raises(NotImplementedError, match="oversubscribed.*queue A item 5"):
+        tapp.run(16, 16, 16, devices=["cpu"] * 4, iters=1, weak=False, partition=(2, 2, 2))
+    comp = tapp.run(16, 16, 16, devices=CPU8, iters=2, weak=False)
+    jcomp = japp.run(16, 16, 16, devices=jax.devices()[:8], iters=2, weak=False)
+    assert tapp.csv_row(comp).split(",")[:2] == ["jacobi3d", "axis-composed"]
+    np.testing.assert_array_equal(comp["domain"].get_curr_global(comp["handle"]),
+                                  jcomp["domain"].get_curr_global(jcomp["handle"]))
     got = tapp.run(16, 16, 16, devices=["cpu"] * 4, method=RDMA_T, iters=4, chunk=2, weak=False,
                    partition=(2, 2, 2))
     want = japp.run(16, 16, 16, devices=jax.devices()[:4], method=RDMA_J, iters=4, chunk=2,

@@ -43,6 +43,9 @@ ROOT = os.path.dirname(HERE)
 SPAWN_TIMEOUT = 240
 RDMA_J = jpar.Method.REMOTE_DMA
 JACOBI_ITERS = 4
+# jacobi3d 32^3, 5 steps, in the exchange spawn: (name, method, deep_halo)
+COMPOSED_RUNS = (("composed", "axis-composed", 1), ("composed_deep", "axis-composed", 2),
+                 ("direct26", "direct26", 1))
 
 
 def coords(shape, dtype):
@@ -187,13 +190,46 @@ def worker_exchange(out: str) -> None:
     arrays["fused_mixed_a"] = _gathered(fm, fa)
     arrays["fused_mixed_b"] = _gathered(fm, fb)
 
-    # the refusals (AXIS_COMPOSED, more blocks than positions, autotune);
-    # the fused and persistent variants realize
+    # AXIS_COMPOSED and DIRECT26 over gloo: the coordinate pattern at r2, a
+    # mixed dict through a bf16 wire on the uneven 25x20x16, and DIRECT26's
+    # uneven boxes
+    report["messages"] = {}
+    for name, method, wire, size, radius, dts in (
+            ("composed_coords", Method.AXIS_COMPOSED, None, (24, 20, 16), 2, ["float32"]),
+            ("direct26_coords", Method.DIRECT26, None, (24, 20, 16), 2, ["float32"]),
+            ("composed_mixed", Method.AXIS_COMPOSED, "bfloat16", (25, 20, 16), 1,
+             ["float32", "float64"]),
+            ("direct26_mixed", Method.DIRECT26, None, (25, 20, 16), 1, ["float32", "float64"])):
+        cd = DistributedDomain(*size, device="cpu")
+        cd.set_radius(radius)
+        cd.set_methods(method)
+        cd.set_devices(distributed.default_positions())
+        if wire:
+            cd.set_wire_dtype(wire)
+        chs = [cd.add_data(f"q{i}", dt) for i, dt in enumerate(dts)]
+        cd.realize()
+        rng = np.random.RandomState(9)
+        for ch, dt in zip(chs, dts):
+            cd.set_curr_global(ch, coords(size[::-1], np.float32) if name.endswith("coords")
+                               else rng.rand(*size[::-1]).astype(dt))
+        cd.exchange()
+        report["messages"][name] = [cd.halo_exchange.last_message_count,
+                                    cd.halo_exchange.last_message_bytes,
+                                    cd.halo_exchange.last_transfer_count]
+        for i, ch in enumerate(chs):
+            arrays[f"{name}_{i}"] = _gathered(cd, ch)
+
+    # the refusals (more blocks than positions, by REMOTE_DMA and by
+    # AXIS_COMPOSED; autotune; Astaroth); the fused and persistent variants
+    # and AXIS_COMPOSED realize
     report["raised"] = {}
     for name, setup in (("fused", lambda d: d.set_fused_exchange(True)),
                         ("persistent", lambda d: d.set_persistent_exchange(True)),
                         ("oversubscribed", lambda d: d.set_partition((4, 2, 2))),
                         ("axis-composed", lambda d: d.set_methods(Method.AXIS_COMPOSED)),
+                        ("axis-composed-oversubscribed",
+                         lambda d: (d.set_methods(Method.AXIS_COMPOSED),
+                                    d.set_partition((4, 2, 2)))),
                         ("autotune", lambda d: d.enable_autotune(probe=False))):
         d = DistributedDomain(16, 16, 16, device="cpu")
         d.set_radius(1)
@@ -206,6 +242,21 @@ def worker_exchange(out: str) -> None:
             report["raised"][name] = None
         except NotImplementedError as e:
             report["raised"][name] = str(e)
+    from stencil_tpu_torch.apps import astaroth as tast
+
+    try:
+        tast.run(nx=8, iters=1, device="cpu")
+        report["raised"]["astaroth"] = None
+    except NotImplementedError as e:
+        report["raised"]["astaroth"] = str(e)
+    # jacobi3d by AXIS_COMPOSED at deep_halo 1 and 2, and by DIRECT26
+    import stencil_tpu_torch.apps.jacobi3d as tapp
+
+    for name, method, deep in COMPOSED_RUNS:
+        r = tapp.run(32, 32, 32, iters=5, method=Method(method), deep_halo=deep, weak=False)
+        report[f"row_{name}"] = tapp.csv_row(r)
+        report[f"k_{name}"] = r["temporal_k"]
+        arrays[f"jacobi_{name}"] = r["domain"].get_curr_global(r["handle"])
     notices = ipc.GlooNotices(ipc.notice_group())
     for _ in range(3):
         notices.exchange([1 - rank])
@@ -266,10 +317,10 @@ def exchange_run(tmp_path_factory):
     return out, reports, dict(np.load(out / "exchange.npz"))
 
 
-def _jax_domain(size, dim, radius, dtypes, wire=None, fused=False):
+def _jax_domain(size, dim, radius, dtypes, wire=None, fused=False, method=RDMA_J):
     dd = JDomain(*size)
     dd.set_radius(radius)
-    dd.set_methods(RDMA_J)
+    dd.set_methods(method)
     dd.set_devices(jax.devices()[:8])
     dd.set_partition(dim)
     dd.set_fused_exchange(fused)
@@ -372,7 +423,11 @@ def test_refusals_checkpoint_skips_and_health(exchange_run):
         # blocks than positions still raises
         assert rep["raised"]["fused"] is None and rep["raised"]["persistent"] is None
         assert "queue B item 6" in rep["raised"]["oversubscribed"]
-        assert "queue A item 5" in rep["raised"]["axis-composed"]
+        # AXIS_COMPOSED realizes across processes; over more blocks than
+        # positions it raises, and so does Astaroth
+        assert rep["raised"]["axis-composed"] is None
+        assert "queue A item 5" in rep["raised"]["axis-composed-oversubscribed"]
+        assert "queue A item 5" in rep["raised"]["astaroth"]
         assert "queue A item 5" in rep["raised"]["autotune"]
         assert "queue A item 5" in rep["raised_replan"]
         assert rep["restored"] is None
@@ -406,6 +461,57 @@ def test_fused_exchange_over_gloo_matches_jax(exchange_run, case):
     jdd.exchange()
     for name, h in zip(names, hs):
         np.testing.assert_array_equal(arrays[name], np.asarray(jdd.get_curr(h)))
+
+
+@pytest.mark.parametrize("name", ["composed_coords", "direct26_coords", "composed_mixed",
+                                  "direct26_mixed"])
+def test_composed_and_direct26_over_gloo_match_jax(exchange_run, name):
+    """AXIS_COMPOSED and DIRECT26 across processes on the CPU (the messages
+    by gloo ``isend``/``irecv`` of the packed carriers,
+    ``parallel/mesh_exchange``): the coordinate pattern at r2, and an fp32 +
+    fp64 dict on the uneven 25x20x16 (AXIS_COMPOSED through a bf16 wire),
+    gathered on rank 0 bit-equal, halos included, to the JAX package's
+    one-process exchange of the same method on 8 virtual devices; each rank
+    counts the IR's messages and the bytes written into its own positions,
+    and no remote-dma transfer."""
+    _out, reports, arrays = exchange_run
+    method = jpar.Method.DIRECT26 if name.startswith("direct26") else jpar.Method.AXIS_COMPOSED
+    coords_case = name.endswith("coords")
+    size, radius = ((24, 20, 16), 2) if coords_case else ((25, 20, 16), 1)
+    dtypes = ["float32"] if coords_case else ["float32", "float64"]
+    wire = "bfloat16" if name == "composed_mixed" else None
+    dim = tuple(reports[0]["dim"] if coords_case else reports[0]["mixed_dim"])
+    jdd, hs = _jax_domain(size, dim, radius, dtypes, wire=wire, method=method)
+    rng = np.random.RandomState(9)
+    for h, dt in zip(hs, dtypes):
+        jdd.set_curr_global(h, coords(size[::-1], np.float32) if coords_case
+                            else rng.rand(*size[::-1]).astype(dt))
+    jdd.exchange()
+    for i, h in enumerate(hs):
+        np.testing.assert_array_equal(arrays[f"{name}_{i}"], np.asarray(jdd.get_curr(h)))
+    plan = jdd.halo_exchange.plan
+    want = plan.collectives_per_exchange(len(dtypes), len(set(dtypes)))
+    sizes = [np.dtype(d).itemsize for d in dtypes]
+    wire_bytes = plan.wire_bytes(sizes)
+    counts = [rep["messages"][name] for rep in reports]
+    assert all(c[0] == want and c[2] == 0 for c in counts)
+    assert sum(c[1] for c in counts) == wire_bytes > 0
+
+
+@pytest.mark.parametrize("name,method,deep", COMPOSED_RUNS)
+def test_jacobi3d_by_composed_and_direct26_over_gloo_matches_jax(exchange_run, name, method,
+                                                                 deep):
+    """jacobi3d 32^3 over 2 ranks x 4 positions by AXIS_COMPOSED (the
+    overlap step, and the deep-halo multistep's positions form at k = 2)
+    and by DIRECT26, 5 steps after the warm-up chunk, bit-equal to the JAX
+    app on 8 virtual devices; rank 0's row names the method run."""
+    _out, reports, arrays = exchange_run
+    want = japp.run(32, 32, 32, devices=jax.devices()[:8], method=jpar.Method(method), iters=5,
+                    weak=False, deep_halo=deep)
+    np.testing.assert_array_equal(arrays[f"jacobi_{name}"],
+                                  want["domain"].get_curr_global(want["handle"]))
+    assert reports[0][f"row_{name}"].split(",")[:4] == ["jacobi3d", method, "2", "8"]
+    assert reports[0][f"k_{name}"] == (2 if deep == 2 else 0)
 
 
 def test_records_carry_each_rank(exchange_run):

@@ -256,8 +256,20 @@ def test_oversubscribed_exchange_matches_jax(name, size, dim, mesh_dim, dtypes, 
 
 
 def test_axis_composed_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="REMOTE_DMA only"):
-        _domain(["cpu"] * 8, method=tpar.Method.AXIS_COMPOSED).realize()
+    """AXIS_COMPOSED over 8 positions of one block now realizes and
+    exchanges every cell as REMOTE_DMA's mesh exchange does; over more
+    blocks than positions it still raises (ROADMAP.md queue A item 5)."""
+    arr = np.random.RandomState(5).rand(16, 16, 16).astype(np.float32)
+    got = []
+    for method in (tpar.Method.AXIS_COMPOSED, tpar.Method.REMOTE_DMA):
+        dd = _domain(["cpu"] * 8, method=method)
+        dd.realize()
+        dd.set_curr_global(DataHandle(0, "t", "float32"), arr)
+        dd.exchange()
+        got.append(tpar.join_positions(dd.get_curr(DataHandle(0, "t", "float32")), dd.spec))
+    assert torch.equal(got[0], got[1])
+    with pytest.raises(NotImplementedError, match="oversubscribed.*queue A item 5"):
+        _domain(["cpu"] * 4, method=tpar.Method.AXIS_COMPOSED, partition=(2, 2, 2)).realize()
 
 
 def test_uneven_partition_and_wire_dtype_raise():
