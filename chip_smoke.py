@@ -589,6 +589,28 @@ Phases, each of which raises (and so exits non-zero) on any failure:
               over 8 positions by AXIS_COMPOSED, 3 iterations, torch.equal
               to the REMOTE_DMA mesh run. Rehearsable on the CPU without
               (d) at small sizes.
+24. astaroth processes -- Astaroth across processes of the card
+              (astaroth_processes_phase; workers python -m chip_smoke
+              --astaroth-processes-worker): the one-process references
+              (apps.astaroth.run over 8 positions of 256^3 fp64, 3
+              iterations and the warm-up, and the uneven 385x257x128 over
+              (3,2,1) by make_astaroth_step in the serial order), kept on
+              the card and mapped by the ranks through CUDA IPC, their
+              ms/iter by CUDA events; then over 2 x 4 ranks the app by
+              AXIS_COMPOSED with and without overlap and by REMOTE_DMA
+              (B6's cross-process form) and make_fused_astaroth_loop (B7's),
+              over 8 x 1 AXIS_COMPOSED with overlap and REMOTE_DMA, over
+              2 x 3 the uneven step: each rank's blocks torch.equal to the
+              one-process run's, its launches (B5 4 an iteration with
+              overlap, 3 without; B6 3 an exchange; B7 1 an iteration) and
+              its handshakes an iteration held (the crossing axes, one more
+              in the hoisted order, 2 in the fused loop), ms/iter by CUDA
+              events and the handshakes' host ms; at 2 x 4 rank 0's B5
+              positions launch over its 4 positions torch.equal to
+              substep_positions_plain and its B6 and B7 launches over the 8
+              fields (its halos zeroed first) to their plain versions, each
+              timed by CUDA-graph replay beside its bound. Rehearsable on
+              the CPU only in its one-process part.
 
 It then prints the card (nvidia-smi name and power limit), a
 {"kernels": [...]} line, and as its last line
@@ -606,6 +628,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -6734,6 +6757,533 @@ def composed_mesh_phase(dev, time_ms, n: int = 512, c2: int = 256, ragged=(130, 
     log(f"composed phase: {time.perf_counter() - t0:.1f} s")
     return {"multistep_positions": timing}, launches, {"multistep_positions": err}, report
 
+# -- phase 24: Astaroth across processes --------------------------------------------------
+
+# the runs of each layout (processes x positions) of phase 24, by name:
+# (how, run()'s arguments); "fused" is make_fused_astaroth_loop, "uneven"
+# make_astaroth_step over an uneven (3,2,1) in the serial order
+AST_PROC_LAYOUTS = {(2, 4): ("composed", "composed_serial", "remote_dma", "fused"),
+                    (8, 1): ("composed", "remote_dma"), (2, 3): ("uneven",)}
+AST_PROC_RUNS = {"composed": {}, "composed_serial": {"overlap": False},
+                 "remote_dma": {"method": "remote-dma"}}
+AST_UNEVEN_PART = (3, 2, 1)
+
+
+def ast_uneven_size(n: int):
+    """The uneven global size of phase 24 over (3,2,1): every position at
+    least ``n`` cells a side, the first along x and y one more."""
+    return (3 * n + 1, 2 * n + 1, n)
+
+
+def free_card() -> None:
+    """Return the card memory of the domains just dropped to the card (the
+    caching allocator keeps what they freed)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def ast_counts() -> dict:
+    """The launch counters phase 24 reads: B5's positions form (and its
+    shell launches), B6, B7's cross-process form and B4."""
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+
+    return {"b5": asub.substep_positions.launches, "b5_shells": asub.substep_positions.shells,
+            "b6": rdma.remote_axis.launches, "b7": fst.fused_exchange_across.launches,
+            "b4": halo_fill.self_fill.launches}
+
+
+def zero_ast_counts() -> None:
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import halo_fill
+    from stencil_tpu_torch.ops import remote_dma as rdma
+
+    asub.substep_positions.launches = asub.substep_positions.shells = 0
+    rdma.remote_axis.launches = fst.fused_exchange_across.launches = 0
+    halo_fill.self_fill.launches = 0
+
+
+def ast_expected(name: str, iters: int, phases: int) -> dict:
+    """The launches a rank's run makes: the app runs a warm-up iteration,
+    then ``iters`` chunks of one, each followed by one exchange alone; the
+    fused loop ``iters`` + 1 iterations; the uneven step ``iters``. B5: 4
+    launches an iteration with overlap (one of them the shells), 3 without;
+    B6 ``phases`` an exchange; B7 one an iteration."""
+    steps = iters if name == "uneven" else iters + 1
+    exchanges = steps + (iters if name in AST_PROC_RUNS else 0)
+    hoisted = name in ("composed", "remote_dma", "fused")
+    return {"b5": (4 if hoisted else 3) * steps, "b5_shells": steps if hoisted else 0,
+            "b6": phases * exchanges if name == "remote_dma" else 0,
+            "b7": steps if name == "fused" else 0}
+
+
+def export_blocks(fields: dict, path: str) -> None:
+    """Write the CUDA IPC handle and offset of each block of ``fields``
+    (``{name: [block per position]}``, kept alive by the caller) to
+    ``path``, so that other processes map them (``parallel/ipc``)."""
+    from stencil_tpu_torch.parallel import ipc
+
+    out = {}
+    for k, blocks in fields.items():
+        out[k] = [[h.hex(), off] for h, off in (ipc.mem_handle(b) for b in blocks)]
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def held_to_reference(state: dict, mesh, spec, path: str) -> dict:
+    """Each of this rank's blocks of ``state`` against the one-process
+    run's block of the same position (mapped through CUDA IPC from the
+    parent, :func:`export_blocks`), torch.equal over the compute region."""
+    from stencil_tpu_torch.parallel import ipc
+
+    refs = json.load(open(path))
+    equal, err = True, 0.0
+    for k, blocks in state.items():
+        for i in mesh.local_positions():
+            handle, off = bytes.fromhex(refs[k][i][0]), refs[k][i][1]
+            like = blocks[i]
+            ref = ipc.cuda_view(ipc.open_mem(handle) + off, like.numel() * like.element_size(),
+                                like)
+            size = spec.block_size(mesh.position(i))
+            o = spec.compute_offset()
+            sl = (..., slice(o.z, o.z + size.z), slice(o.y, o.y + size.y),
+                  slice(o.x, o.x + size.x))
+            equal = equal and torch.equal(like[sl], ref[sl])
+            err = max(err, max_abs(like[sl], ref[sl]))
+            torch.cuda.synchronize()
+            ipc.close_mem(handle)
+    return {"equal": equal, "max_abs_err": err}
+
+
+def ast_alone_b5(dev, dd, curr, nxt, info, time_ms) -> dict:
+    """Rank 0's B5 positions launch over its own positions alone (the other
+    ranks wait): stages 0 and 1 over the full compute regions of the run's
+    state into copies of ``nxt``, torch.equal to substep_positions_plain
+    run position by position on copies of one position at a time (those
+    plain passes timed by CUDA events); each stage's launch timed by
+    CUDA-graph replay, beside the bound."""
+    from stencil_tpu_torch.astaroth.equations import Constants
+    from stencil_tpu_torch.astaroth.integrate import FIELDS, inv_ds_of
+    from stencil_tpu_torch.ops import astaroth_substep as asub
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    spec, mesh = dd.spec, dd.mesh
+    locs = mesh.local_positions()
+    c, ids = Constants.from_info(info), inv_ds_of(info)
+    tasks = asub.position_compute_tasks(spec, dd.halo_exchange.resident, locs)
+    curr8 = tuple(curr[k] for k in FIELDS)
+
+    def copies(at):
+        """Copies of ``nxt`` at the positions ``at`` (None elsewhere)."""
+        return tuple([b.clone() if i in at else None for i, b in enumerate(nxt[k])]
+                     for k in FIELDS)
+
+    res = {"equal_plain": True, "max_abs_err": 0.0, "ms": {}, "plain_ms": {}}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for s in (0, 1):
+        ok = copies(locs)
+        asub.substep_positions(curr8, ok, spec, tasks, c, ids, s, 1e-8)
+        res["plain_ms"][s] = 0.0
+        for p in locs:  # the plain version a position at a time, to bound the copies
+            op = copies((p,))
+            start.record()
+            asub.substep_positions_plain(curr8, op, spec, [t for t in tasks if t.position == p],
+                                         c, ids, s, 1e-8)
+            end.record()
+            end.synchronize()
+            res["plain_ms"][s] += start.elapsed_time(end)
+            res["equal_plain"] = res["equal_plain"] and all(
+                torch.equal(a[p], b[p]) for a, b in zip(ok, op))
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     *(max_abs(a[p], b[p]) for a, b in zip(ok, op)))
+            del op
+        res["ms"][s] = time_ms(lambda s=s, ok=ok: asub.substep_positions(
+            curr8, ok, spec, tasks, c, ids, s, 1e-8), 4, warmup=1, graph=True)
+        del ok
+    cells = sum((t.rect.hi - t.rect.lo).flatten() for t in tasks)
+    nbytes = (asub.tasks_bytes(tasks, 8, 0) + 2 * asub.tasks_bytes(tasks, 8, 1)) / 3
+    flops = (asub.FLOPS_PER_CELL[0] + 2 * asub.FLOPS_PER_CELL[1]) / 3 * cells
+    res["mix_ms"] = (res["ms"][0] + 2 * res["ms"][1]) / 3
+    res["mix_plain_ms"] = (res["plain_ms"][0] + 2 * res["plain_ms"][1]) / 3
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, torch.float64)
+    res["positions"], res["tasks"] = len(locs), len(tasks)
+    return res
+
+
+def ast_alone_exchange(dev, dd, curr, time_ms, fused: bool) -> dict:
+    """Rank 0's exchange carrier at Astaroth's shape alone (the other ranks
+    wait): its own blocks' halos zeroed, then B6's three axis launches
+    (x, y, z) or B7's one over the 8 fields, every local block torch.equal
+    to the plain version over copies with the same halos zeroed (the other
+    ranks' blocks as mapped views); each launch timed by CUDA-graph replay
+    (it rewrites the same halos from unchanged cells) beside its plain
+    version and its bytes bound."""
+    from stencil_tpu_torch.astaroth.integrate import FIELDS
+    from stencil_tpu_torch.ops import fused_stencil as fst
+    from stencil_tpu_torch.ops import remote_dma as rdma
+    from stencil_tpu_torch.parallel import ipc
+    from stencil_tpu_torch.utils.roofline import bound_ms
+
+    spec, mesh, peers = dd.spec, dd.mesh, dd.peers
+    plan = dd.halo_exchange.plan
+    locs = mesh.local_positions()
+    where = {k: peers.buffer_of(curr[k]) for k in FIELDS}
+
+    def ptrs_of(i):
+        return tuple(peers.pointer(i, *where[k]) for k in FIELDS)
+
+    like = curr[FIELDS[0]][locs[0]]
+    nb = like.numel() * like.element_size()
+    mask = halo_mask(spec, dev)
+    for k in FIELDS:
+        for i in locs:
+            curr[k][i][0, 0, 0].masked_fill_(mask, 0.0)
+    views = [[curr[k][i].clone() if mesh.is_local(i) else
+              ipc.cuda_view(peers.pointer(i, *where[k]), nb, like) for k in FIELDS]
+             for i in range(len(mesh))]
+    phases = [ph for ph in plan.remote_phases if ph.active and ph.ring > 1]
+    if fused:
+        def launch():
+            fst.fused_exchange_across(ptrs_of, len(FIELDS), torch.float64, spec, plan, mesh,
+                                      dev)
+
+        launches = {"all": launch}
+        fst.fused_exchange_plain(views, spec, plan, mesh)
+        nbytes = {"all": fst.fused_exchange_bytes(plan, len(FIELDS), len(locs), 8)}
+    else:
+        launches = {ph.axis: (lambda ph=ph: rdma.remote_axis_across(
+            ptrs_of, len(FIELDS), torch.float64, spec, ph, mesh, dev)) for ph in phases}
+        for ph in phases:
+            rdma.remote_axis_receivers_plain(views, spec, ph, mesh)
+        nbytes = {ph.axis: rdma.remote_axis_bytes(spec, ph, len(FIELDS), len(locs), 8)
+                  for ph in phases}
+    for launch in launches.values():
+        launch()
+    torch.cuda.synchronize(dev)
+    pairs = [(curr[k][i], views[i][q]) for q, k in enumerate(FIELDS) for i in locs]
+    res = {"equal_plain": all(torch.equal(a, b) for a, b in pairs),
+           "max_abs_err": max(max_abs(a, b) for a, b in pairs), "ms": {}, "plain_ms": {},
+           "bound_ms": {}}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for name, launch in launches.items():
+        res["ms"][name] = time_ms(launch, 20, graph=True)
+        start.record()
+        if fused:
+            fst.fused_exchange_plain(views, spec, plan, mesh)
+        else:
+            rdma.remote_axis_receivers_plain(
+                views, spec, next(ph for ph in phases if ph.axis == name), mesh)
+        end.record()
+        end.synchronize()
+        res["plain_ms"][name] = start.elapsed_time(end)
+        res["bound_ms"][name] = bound_ms(nbytes[name], 0)[0]
+    res["crossing"] = {ph.axis: bool(mesh.neighbour_ranks(ph.axis)) for ph in phases}
+    del views
+    return res
+
+
+def ast_run(dev, name: str, n: int, iters: int, uneven_n: int, out: str):
+    """One rank's run of phase 24: the counts set to 0 just before the main
+    path (``apps.astaroth.run``, the fused loop or the uneven step) and read
+    just after; this rank's blocks held to the one-process run's; then
+    ``iters`` more iterations timed by CUDA events, with the handshakes and
+    their host ms. Returns ``(report, domain, state (curr, nxt), info)``."""
+    from stencil_tpu_torch import DistributedDomain
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.astaroth.integrate import (FIELDS, make_astaroth_step,
+                                                      make_fused_astaroth_loop)
+    from stencil_tpu_torch.parallel import Method, distributed
+
+    t1 = time.perf_counter()
+    res = {}
+    if name in AST_PROC_RUNS:
+        kw = dict(AST_PROC_RUNS[name])
+        if "method" in kw:
+            kw["method"] = Method(kw["method"])
+        zero_ast_counts()
+        r = astaroth_app.run(iters=iters, nx=n, dtype="float64", **kw)
+        torch.cuda.synchronize(dev)
+        res["counts"] = ast_counts()
+        dd, info = r["domain"], r["info"]
+        res["row"] = astaroth_app.csv_row(r)
+        res["processes"], res["devices"] = r["processes"], r["devices"]
+        curr = {k: dd.get_curr(r["handles"][k]) for k in FIELDS}
+        nxt = {k: dd.get_next(r["handles"][k]) for k in FIELDS}
+        step = make_astaroth_step(dd.halo_exchange, info, overlap=kw.get("overlap", True),
+                                  iters=iters, dtype="float64")
+    else:
+        fused = name == "fused"
+        info = astaroth_app.load(nx=n if fused else uneven_n)
+        size = (2 * n,) * 3 if fused else ast_uneven_size(uneven_n)
+        dd = DistributedDomain(*size, device=dev)
+        dd.set_radius(3)
+        dd.set_methods(Method.REMOTE_DMA if fused else Method.AXIS_COMPOSED)
+        dd.set_fused_exchange(fused)
+        if not fused:
+            dd.set_partition(AST_UNEVEN_PART)
+        dd.set_devices(distributed.default_positions())
+        hs = {k: dd.add_data(k, "float64") for k in FIELDS}
+        dd.realize()
+        astaroth_app.init_fields(dd, hs, info, "float64")
+        curr = {k: dd.get_curr(h) for k, h in hs.items()}
+        nxt = {k: dd.get_next(h) for k, h in hs.items()}
+        if fused:
+            step = make_fused_astaroth_loop(dd.halo_exchange, info, iters=iters + 1,
+                                            dtype="float64")
+        else:
+            step = make_astaroth_step(dd.halo_exchange, info, overlap=False, iters=iters,
+                                      dtype="float64")
+        torch.distributed.barrier()
+        zero_ast_counts()
+        curr, nxt = step(curr, nxt)
+        torch.cuda.synchronize(dev)
+        res["counts"] = ast_counts()
+        if fused:
+            step = make_fused_astaroth_loop(dd.halo_exchange, info, iters=iters,
+                                            dtype="float64")
+    res["dim"] = list(dd.spec.dim)
+    ref = "uneven" if name == "uneven" else "uniform"
+    res.update(held_to_reference(curr, dd.mesh, dd.spec,
+                                 os.path.join(out, "..", f"ref_{ref}.json")))
+    order = dd.peers.order
+    res["crossing"] = sum(1 for ranks in order.neighbours.values() if ranks)
+    res["phases"] = sum(1 for ph in dd.halo_exchange.plan.remote_phases
+                        if ph.active and ph.ring > 1)
+    torch.distributed.barrier()  # the timed iterations start together
+    host0, notice0, shakes0 = order.host_s, order.notice_s, order.handshakes
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    curr, nxt = step(curr, nxt)
+    end.record()
+    end.synchronize()
+    res["ms_iter"] = start.elapsed_time(end) / iters
+    res["handshakes_per_iter"] = (order.handshakes - shakes0) / iters
+    res["handshake_host_ms_per_iter"] = (order.host_s - host0) / iters * 1e3
+    res["notice_host_ms_per_iter"] = (order.notice_s - notice0) / iters * 1e3
+    res["seconds"] = time.perf_counter() - t1
+    torch.distributed.barrier()
+    return res, dd, (curr, nxt), info
+
+
+def astaroth_processes_worker(out: str, n: int, iters: int, uneven_n: int) -> int:
+    """One rank of phase 24 (run by apps.launch_multiprocess as ``python -m
+    chip_smoke --astaroth-processes-worker OUT N ITERS UNEVEN_N``): each run
+    of its layout (:data:`AST_PROC_LAYOUTS`) by :func:`ast_run`, and at 2 x
+    4 rank 0's B5, B6 and B7 launches alone (:func:`ast_alone_b5`,
+    :func:`ast_alone_exchange`). Writes ``OUT/report_<rank>.json``."""
+    from stencil_tpu_torch.parallel import distributed
+    from stencil_tpu_torch.utils.timer import cuda_time_ms
+
+    distributed.maybe_init_from_env()
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    k = len(distributed.default_positions())
+    t0 = time.perf_counter()
+    rep = {"rank": rank, "world": world, "positions": k, "runs": {}}
+    for name in AST_PROC_LAYOUTS[(world, k)]:
+        res, dd, (curr, nxt), info = ast_run(dev, name, n, iters, uneven_n, out)
+        if rank == 0 and (world, k) == (2, 4):
+            if name == "composed":
+                res["alone"] = ast_alone_b5(dev, dd, curr, nxt, info, cuda_time_ms)
+            elif name in ("remote_dma", "fused"):
+                res["alone"] = ast_alone_exchange(dev, dd, curr, cuda_time_ms, name == "fused")
+        torch.distributed.barrier()
+        dd.peers.close()
+        torch.distributed.barrier()  # every rank has unmapped before any frees
+        gone = weakref.ref(dd.halo_exchange)  # it holds every exported block
+        del dd, curr, nxt
+        check(gone() is None, f"astaroth {name}: the dropped domain's exchange is still held "
+              "(a reference cycle keeps its blocks until the cycle collector runs)")
+        free_card()
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats(dev)
+        rep["runs"][name] = res
+    rep["seconds"] = time.perf_counter() - t0
+    path = os.path.join(out, f"report_{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rep, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def astaroth_processes_phase(dev, time_ms, n: int = 256, iters: int = 3, uneven_n: int = 128,
+                             layouts=((2, 4), (8, 1), (2, 3)), timeout: float = 300.0):
+    """Phase 24: Astaroth across processes of the card. The one-process
+    references first (``apps.astaroth.run`` over 8 positions of ``n``^3
+    fp64, phase 17's path by AXIS_COMPOSED, and the uneven (3,2,1) over 6
+    positions of at least ``uneven_n``^3 in the serial order), their fields
+    kept on the card and exported through CUDA IPC, their ms/iter by CUDA
+    events; then each layout through apps.launch_multiprocess running
+    :func:`astaroth_processes_worker`, every rank's report held. Returns
+    the kernels line's timings, launches and errors of
+    ``astaroth_substep_positions_across``, ``remote_axis_across_astaroth``
+    and ``fused_exchange_across_astaroth``, and the phase's report."""
+    from stencil_tpu_torch import DistributedDomain
+    from stencil_tpu_torch.apps import astaroth as astaroth_app
+    from stencil_tpu_torch.apps import launch_multiprocess as lm
+    from stencil_tpu_torch.astaroth.integrate import FIELDS, make_astaroth_step
+    from stencil_tpu_torch.parallel import Method
+
+    t0 = time.perf_counter()
+    free_card()  # what the phases before left cached
+    out = tempfile.mkdtemp(prefix="chip_smoke_astaroth_processes_")
+    report = {"one_process": {}}
+    if dev.type == "cuda":
+        report["parent_gib_at_start"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+    keep = {}
+    # the one-process reference over 8 positions (phase 17's path)
+    r = astaroth_app.run(iters=iters, nx=n, dtype="float64", devices=[dev] * 8)
+    dd = r["domain"]
+    keep["uniform"] = {k: [b.clone() for b in dd.get_curr(r["handles"][k])] for k in FIELDS}
+    step = make_astaroth_step(dd.halo_exchange, r["info"], iters=iters, dtype="float64")
+    curr = {k: dd.get_curr(r["handles"][k]) for k in FIELDS}
+    nxt = {k: dd.get_next(r["handles"][k]) for k in FIELDS}
+    ms = time_ms(lambda: step(curr, nxt), 1, warmup=0) / iters
+    report["one_process"]["uniform"] = {"ms_iter": ms, "row": astaroth_app.csv_row(r),
+                                        "dim": list(dd.spec.dim)}
+    del r, dd, step, curr, nxt
+    free_card()
+    # the uneven reference over 6 positions, serial order
+    info = astaroth_app.load(nx=uneven_n)
+    ud = DistributedDomain(*ast_uneven_size(uneven_n), device=dev)
+    ud.set_radius(3)
+    ud.set_partition(AST_UNEVEN_PART)
+    ud.set_devices([dev] * 6)
+    hs = {k: ud.add_data(k, "float64") for k in FIELDS}
+    ud.realize()
+    astaroth_app.init_fields(ud, hs, info, "float64")
+    step = make_astaroth_step(ud.halo_exchange, info, overlap=False, iters=iters,
+                              dtype="float64")
+    curr, nxt = step({k: ud.get_curr(h) for k, h in hs.items()},
+                     {k: ud.get_next(h) for k, h in hs.items()})
+    sync(dev)
+    check(not ud.spec.is_uniform(), f"the uneven reference {ud.spec.dim} is uniform")
+    keep["uneven"] = {k: [b.clone() for b in curr[k]] for k in FIELDS}
+    ms = time_ms(lambda: step(curr, nxt), 1, warmup=0) / iters
+    report["one_process"]["uneven"] = {"ms_iter": ms, "dim": list(ud.spec.dim)}
+    del ud, step, curr, nxt
+    free_card()
+    if dev.type == "cuda":
+        for name, fields in keep.items():
+            export_blocks(fields, os.path.join(out, f"ref_{name}.json"))
+    log(f"astaroth processes: the parent held {report.get('parent_gib_at_start', 0.0):.1f} GiB "
+        f"at the start; one-process references {time.perf_counter() - t0:.1f} s; "
+        f"{n}^3 fp64 over 8 positions {report['one_process']['uniform']['ms_iter']:.4f} ms/iter "
+        f"by CUDA events, the uneven {'x'.join(map(str, ast_uneven_size(uneven_n)))} over "
+        f"{AST_UNEVEN_PART} {report['one_process']['uneven']['ms_iter']:.4f} ms/iter")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [root] + [v for v in os.environ.get("PYTHONPATH", "").split(os.pathsep) if v])
+    found = {}
+    for nprocs, k in layouts if dev.type == "cuda" else ():
+        d = os.path.join(out, f"{nprocs}x{k}")
+        os.makedirs(d)
+        t1 = time.perf_counter()
+        with open(os.path.join(d, "ranks.log"), "w") as ranks_log:
+            rc = lm.launch(nprocs, k, "chip_smoke",
+                           ["--astaroth-processes-worker", d, str(n), str(iters), str(uneven_n)],
+                           timeout=timeout, build=False, stdout=ranks_log,
+                           stderr=subprocess.STDOUT)
+        text = open(os.path.join(d, "ranks.log")).read()
+        check(rc == 0, f"phase 24 over {nprocs} x {k} failed (rc {rc}):\n{text[-6000:]}")
+        reps = [json.load(open(os.path.join(d, f"report_{r}.json"))) for r in range(nprocs)]
+        label = f"{nprocs} x {k}"
+        for name in AST_PROC_LAYOUTS[(nprocs, k)]:
+            for rep in reps:
+                res = rep["runs"][name]
+                want = ast_expected(name, iters, res["phases"])
+                got = {key: res["counts"][key] for key in want}
+                shakes = {"composed": res["crossing"] + 1, "remote_dma": res["crossing"] + 1,
+                          "fused": 2}.get(name, res["crossing"])
+                check(res["equal"], f"astaroth {name} over {label} rank {rep['rank']}: a block "
+                      f"differs from the one-process run (max abs err {res['max_abs_err']})")
+                check(got == want and (name != "uneven" or res["counts"]["b4"] > 0),
+                      f"astaroth {name} over {label} rank {rep['rank']}: launches "
+                      f"{res['counts']}, want {want}")
+                check(res["handshakes_per_iter"] == shakes,
+                      f"astaroth {name} over {label} rank {rep['rank']}: "
+                      f"{res['handshakes_per_iter']} handshakes an iteration, want {shakes}")
+                if name in AST_PROC_RUNS:
+                    check((res["processes"], res["devices"]) == (nprocs, nprocs * k),
+                          f"astaroth {name} over {label}: row {res['row']}")
+            r0 = reps[0]["runs"][name]
+            one = report["one_process"]["uneven" if name == "uneven" else "uniform"]
+            log(f"astaroth processes {label}: {name} {r0['dim']} every block torch.equal to the "
+                f"one-process run; rank 0 launches {r0['counts']}; {r0['ms_iter']:.4f} ms/iter "
+                f"by CUDA events beside one process's {one['ms_iter']:.4f}; "
+                f"{r0['handshakes_per_iter']:.0f} handshakes an iteration, their host "
+                f"{r0['handshake_host_ms_per_iter']:.4f} ms an iteration (notices "
+                f"{r0['notice_host_ms_per_iter']:.4f}); {r0['seconds']:.1f} s, peak "
+                f"{r0['peak_gib']:.1f} GiB"
+                + (f"; {r0['row']}" if "row" in r0 else ""))
+        for name, res in reps[0]["runs"].items():
+            a = res.get("alone")
+            if a is None:
+                continue
+            check(a["equal_plain"], f"astaroth {name} over {label}: rank 0's launch alone "
+                  f"differs from its plain version (max abs err {a['max_abs_err']})")
+            if name == "composed":
+                log(f"astaroth processes {label}: rank 0's B5 positions launch over its "
+                    f"{a['positions']} positions ({a['tasks']} tasks) torch.equal to "
+                    f"substep_positions_plain; {a['mix_ms']:.4f} ms a launch on the stage mix "
+                    f"(stage 0 {a['ms']['0']:.4f}, stages 1-2 {a['ms']['1']:.4f}; CUDA-graph "
+                    f"replay; plain {a['mix_plain_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+                    f"by {a['bound_by']})")
+            else:
+                for key in a["ms"]:
+                    where = ("" if key == "all" else
+                             ", crosses" if a["crossing"][key] else ", local")
+                    log(f"astaroth processes {label}: rank 0's {'B7' if name == 'fused' else 'B6'}"
+                        f" launch alone over 8 fp64 fields r3 ({key}{where}"
+                        f"): torch.equal to its plain version; {a['ms'][key]:.4f} ms (CUDA-graph "
+                        f"replay; plain {a['plain_ms'][key]:.4f} ms, bound "
+                        f"{a['bound_ms'][key]:.4f} ms by bytes)")
+        found[(nprocs, k)] = reps
+        log(f"astaroth processes {label}: {time.perf_counter() - t1:.1f} s")
+    report["processes"] = {f"{p}x{k}": {name: {key: reps[0]["runs"][name][key] for key in
+                                               ("ms_iter", "handshakes_per_iter",
+                                                "handshake_host_ms_per_iter")}
+                                        for name in reps[0]["runs"]}
+                           for (p, k), reps in found.items()}
+    del keep
+    free_card()
+    timings, launches, errs = {}, {}, {}
+    if (2, 4) in found:
+        runs = found[(2, 4)][0]["runs"]
+        b5, b6, b7 = (runs[name]["alone"] for name in ("composed", "remote_dma", "fused"))
+        extra = {f"ms_iter_{p}x{k}_{name}": reps[0]["runs"][name]["ms_iter"]
+                 for (p, k), reps in found.items() for name in reps[0]["runs"]}
+        extra["ms_iter_one_process"] = report["one_process"]["uniform"]["ms_iter"]
+        timings["astaroth_substep_positions_across"] = dict(
+            ms=b5["mix_ms"], plain_ms=b5["mix_plain_ms"], bound=(b5["bound_ms"], b5["bound_by"]),
+            library_ms=None, extra=extra)
+        timings["remote_axis_across_astaroth"] = dict(
+            ms=sum(b6["ms"].values()) / len(b6["ms"]),
+            plain_ms=sum(b6["plain_ms"].values()) / len(b6["plain_ms"]),
+            bound=(sum(b6["bound_ms"].values()) / len(b6["bound_ms"]), "bytes"),
+            library_ms=None, extra={"ms_by_axis": b6["ms"]})
+        timings["fused_exchange_across_astaroth"] = dict(
+            ms=b7["ms"]["all"], plain_ms=b7["plain_ms"]["all"],
+            bound=(b7["bound_ms"]["all"], "bytes"), library_ms=None)
+        launches = {"astaroth_substep_positions_across": runs["composed"]["counts"]["b5"],
+                    "remote_axis_across_astaroth": runs["remote_dma"]["counts"]["b6"],
+                    "fused_exchange_across_astaroth": runs["fused"]["counts"]["b7"]}
+        errs = {"astaroth_substep_positions_across": b5["max_abs_err"],
+                "remote_axis_across_astaroth": b6["max_abs_err"],
+                "fused_exchange_across_astaroth": b7["max_abs_err"]}
+        for name, count in launches.items():
+            check(count > 0, f"the main path launched {name} no time")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"astaroth processes phase: {report['seconds']:.1f} s")
+    return timings, launches, errs, report
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -6920,6 +7470,7 @@ def main() -> int:
                         reps, plain_reps)
 
     # -- 2. kernels against their plain versions ----------------------------
+    log(f"phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     sweep_cases = [
         ("512^3 r1 aligned", GridSpec(Dim3(512, 512, 512), Dim3(1, 1, 1), Radius.constant(1)),
          (True, True, True)),
@@ -7132,6 +7683,7 @@ def main() -> int:
             + (f", Tensor.copy_ {t['library_ms']:.4f} ms" if t["library_ms"] else "") + ")")
 
     # -- 3. the main path: jacobi3d at 512^3 ------------------------------------
+    log(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     launches = {}
     sk.sweep.launches = sk.multistep.launches = halo_fill.self_fill.launches = 0
     r = jacobi3d.run(512, 512, 512, iters=50, weak=False, chunk=25)
@@ -7192,6 +7744,7 @@ def main() -> int:
     log(f"jacobi3d {small} 10 steps vs float64 numpy reference: max abs err {err:.3e}")
 
     # -- 4. the exchange path: 512^3, radius 3, four fp32 quantities -----------
+    log(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     dd = DistributedDomain(512, 512, 512)
     dd.set_radius(3)
     hs = [dd.add_data(f"q{i}", "float32") for i in range(4)]
@@ -7221,6 +7774,7 @@ def main() -> int:
     del dd
 
     # -- 5. astaroth: the RK3 substep kernel and the MHD app at 256^3 ----------
+    log(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     ainfo = astaroth_app.load()
     consts, ids = Constants.from_info(ainfo), inv_ds_of(ainfo)
     # each instantiation's launch shape, held to the wrapper's mirror
@@ -7360,6 +7914,7 @@ def main() -> int:
         del curr8, out8
 
     # -- 6. jacobi3d's remote-dma kernel variants ------------------------------
+    log(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # (label, spec, sel codes): the unaligned layouts' row pitch moves the
     # 16-byte phase every row (808 and 2,060 bytes), so their runs move 4
     # bytes at a time, and their last tiles are ragged
@@ -7494,6 +8049,7 @@ def main() -> int:
         f"bounds it at {design:.4f} ms")
 
     # -- 7. resident: multi-block partitions, every block on the card ---------
+    log(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     from stencil_tpu_torch.ops.jacobi import multi_block_layout
 
     for key in ("jacobi_multistep_deep_halo", "jacobi_sweep_regions", "self_fill_z_stack"):
@@ -7759,6 +8315,7 @@ def main() -> int:
         f"{timings['jacobi_multistep_deep_halo']['ms'] / kh:.4f} ms per step")
 
     # -- 8. campaign: the tenant-form sweep and the multi-tenant driver --------
+    log(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     from stencil_tpu_torch.apps import campaign as campaign_app
     from stencil_tpu_torch.campaign import SlotHealthGuard
     from stencil_tpu_torch.obs import FAULT_RC, telemetry
@@ -7991,6 +8548,7 @@ def main() -> int:
 
 
     # -- 9. mesh: eight block positions on the card -----------------------------
+    log(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     from stencil_tpu_torch.ops import remote_dma as rdma
     from stencil_tpu_torch.parallel import DeviceMesh, join_positions, split_positions
 
@@ -8313,6 +8871,7 @@ def main() -> int:
             f"{t['bound'][0]:.4f} ms by {t['bound'][1]}); {l9b[name]} launches on its main path")
 
     # -- 10. mesh variants: the fused step and the persistent chunk over 8 ---
+    log(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s")
     #        block positions, one cooperative launch for every position
     for key in ("fused_jacobi_mesh", "persistent_jacobi_mesh"):
         errs[key] = 0.0
@@ -8473,6 +9032,7 @@ def main() -> int:
             f"{t['bound'][0]:.4f} ms by {t['bound'][1]}); {l10b[name]} launches on its main path")
 
     # -- 11. the guarded main path: health kernel, headline leg, rollbacks ----
+    log(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s")
     from stencil_tpu_torch.ops import health_reduce as hr
 
     timings["health_reduce"], launches["health_reduce"], errs["health_reduce"] = \
@@ -8485,6 +9045,7 @@ def main() -> int:
         "in phase 11")
 
     # -- 12. uneven partitions: B6's uneven ring, the resident uneven exchange --
+    log(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s")
     #        and jacobi3d over 6 positions and (3,2,1) residents
     t12, l12, e12 = uneven_phase(dev, time_ms,
                                  c2_gbs=resident_gbs["config 2: 256^3 (2,2,2) r2 x4"])
@@ -8498,18 +9059,21 @@ def main() -> int:
         f"{l12['remote_axis_uneven']} launches on the 6-position main path")
 
     # -- 13. float64: the fp64 forms of B1 and B2/B3 and the fp64 main paths ---
+    log(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s")
     t13, l13, e13 = fp64_phase(dev, time_ms)
     timings.update(t13)
     launches.update(l13)
     errs.update(e13)
 
     # -- 14. astaroth over resident blocks: B5's table form and the app ----------
+    log(f"phase 14 starts at {time.perf_counter() - t_start:.1f} s")
     t14, l14, e14 = astaroth_resident_phase(dev, time_ms)
     timings.update(t14)
     launches.update(l14)
     errs.update(e14)
 
     # -- 15. the rest of the one-card surface: DIRECT26, REMOTE_DMA on residents, ---
+    log(f"phase 15 starts at {time.perf_counter() - t_start:.1f} s")
     #        multistep rows, B9's uneven chunk
     t15, l15, e15 = surface_phase(dev, time_ms)
     timings.update(t15)
@@ -8517,6 +9081,7 @@ def main() -> int:
     errs.update(e15)
 
     # -- 16. the serving path: B5's and B4's tenant forms, the Astaroth campaign, ---
+    log(f"phase 16 starts at {time.perf_counter() - t_start:.1f} s")
     #        the serving daemon
     t16, l16, e16 = tenants_phase(dev, time_ms)
     timings.update(t16)
@@ -8524,6 +9089,7 @@ def main() -> int:
     errs.update(e16)
 
     # -- 17. astaroth over a mesh of block positions: B5's positions form, the ---
+    log(f"phase 17 starts at {time.perf_counter() - t_start:.1f} s")
     #        step, the fused loop and the app over 8 positions
     t17, l17, e17 = astaroth_mesh_phase(dev, time_ms)
     timings.update(t17)
@@ -8531,6 +9097,7 @@ def main() -> int:
     errs.update(e17)
 
     # -- 18. the exchange planner: autotune on one device and over 8 positions, ---
+    log(f"phase 18 starts at {time.perf_counter() - t_start:.1f} s")
     #        the DB replay, the hot-swap, the card's calibration row, astaroth
     l18, plan_report = plan_phase(dev)
     for name, v in l18.items():
@@ -8538,6 +9105,7 @@ def main() -> int:
     log(f"plan phase report: {json.dumps(plan_report, sort_keys=True, default=str)}")
 
     # -- 19. the measurement tools: the profiler capture, the record tools, the ---
+    log(f"phase 19 starts at {time.perf_counter() - t_start:.1f} s")
     #        bench apps
     tools_report, profiler_ms = tools_phase(dev)
     for name, v in profiler_ms.items():
@@ -8545,17 +9113,20 @@ def main() -> int:
     log(f"tools phase report: {json.dumps(tools_report, sort_keys=True, default=str)}")
 
     # -- 20. the one-device tools: jit-audit, verify-plan, machine_info, the -----
+    log(f"phase 20 starts at {time.perf_counter() - t_start:.1f} s")
     #        watchdog, the ParaView dumps, the lint
     analysis_report = analysis_phase(dev)
     log(f"analysis phase report: {json.dumps(analysis_report, sort_keys=True, default=str)}")
 
     # -- 21. several processes on the one card: B6's cross-process form ---------
+    log(f"phase 21 starts at {time.perf_counter() - t_start:.1f} s")
     t21, l21, e21 = processes_phase(dev, time_ms)
     timings.update(t21)
     launches.update(l21)
     errs.update(e21)
 
     # -- 22. the fused and persistent variants across processes: B7, B8 and --
+    log(f"phase 22 starts at {time.perf_counter() - t_start:.1f} s")
     #        B9 in their cross-process forms
     t22, l22, e22 = variants_processes_phase(dev, time_ms)
     timings.update(t22)
@@ -8563,12 +9134,21 @@ def main() -> int:
     errs.update(e22)
 
     # -- 23. AXIS_COMPOSED and DIRECT26 over a mesh of positions, in one ------
+    log(f"phase 23 starts at {time.perf_counter() - t_start:.1f} s")
     #        process and across processes, and B2/B3's positions form
     t23, l23, e23, composed_report = composed_mesh_phase(dev, time_ms)
     timings.update(t23)
     launches.update(l23)
     errs.update(e23)
     log(f"composed phase report: {json.dumps(composed_report, sort_keys=True, default=str)}")
+
+    # -- 24. Astaroth across processes of the card ----------------------------
+    log(f"phase 24 starts at {time.perf_counter() - t_start:.1f} s")
+    t24, l24, e24, ast_report = astaroth_processes_phase(dev, time_ms)
+    timings.update(t24)
+    launches.update(l24)
+    errs.update(e24)
+    log(f"astaroth processes report: {json.dumps(ast_report, sort_keys=True, default=str)}")
 
     # -- report ---------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8696,6 +9276,14 @@ def main() -> int:
         # positions, each at its own global origin, in one launch
         "multistep_positions": ("stencil_tpu_torch/csrc/jacobi_multistep.cu",
                                 "stencil_tpu/ops/pallas_stencil.py:709"),
+        # Astaroth across processes: B5's positions form over a rank's own
+        # positions, B6's and B7's cross-process forms over its 8 fp64 fields
+        "astaroth_substep_positions_across": ("stencil_tpu_torch/csrc/astaroth_substep.cu",
+                                              "stencil_tpu/ops/pallas_astaroth.py:202"),
+        "remote_axis_across_astaroth": ("stencil_tpu_torch/csrc/remote_axis.cu",
+                                        "stencil_tpu/ops/remote_dma.py:68"),
+        "fused_exchange_across_astaroth": ("stencil_tpu_torch/csrc/fused_exchange.cu",
+                                           "stencil_tpu/ops/fused_stencil.py:100"),
     }
     # the float64 forms: the same sources and TPU builders (whose Pallas
     # kernels are float32 only; the JAX package steps float64 on XLA)
@@ -8724,4 +9312,6 @@ if __name__ == "__main__":
         sys.exit(variants_processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
     if sys.argv[1:2] == ["--composed-processes-worker"]:
         sys.exit(composed_processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
+    if sys.argv[1:2] == ["--astaroth-processes-worker"]:
+        sys.exit(astaroth_processes_worker(sys.argv[2], *map(int, sys.argv[3:6])))
     sys.exit(main())

@@ -26,13 +26,24 @@ name one card several times (the reference's ``set_gpus({0,0})``),
 exchanged by the JAX app's default method, AXIS_COMPOSED (copies between
 positions, ``parallel/mesh_exchange``; ``method=Method.REMOTE_DMA``: B6)
 over the 8 fields and stepped by the substep's positions form, every
-position in one launch a stage (``astaroth/integrate.py``). Across
-processes Astaroth raises (ROADMAP.md queue A item 5). Its row is the JAX app's for the same
-device count: ``devices`` counts the positions, ``processes`` is 1 (one
-process drives them, as ``jax.process_count()`` on the JAX app's host), and
-the CSV's first column is the device count, as the JAX app's. The
-reductions run over every position's block; the guarded engine's flags run
-over the mesh state, as jacobi3d's do.
+position in one launch a stage (``astaroth/integrate.py``). Under
+``apps/launch_multiprocess`` (``python -m stencil_tpu_torch.apps.
+launch_multiprocess [--cpu] <nprocs> <k> stencil_tpu_torch.apps.astaroth
+...``) each rank joins the group, names its own positions
+(``distributed.default_positions()``, or ``devices=`` / ``--devices``: this
+rank's), and the mesh spans every rank's, as the JAX app's multi-process
+run spans ``jax.devices()``: each rank makes the init of its own blocks
+only, steps them (AXIS_COMPOSED's copies and B6 through CUDA IPC on the
+card, gloo on the CPU; ``make_fused_astaroth_loop`` through B7's
+cross-process form), and the figures are every rank's. Its row is the JAX
+app's for the same device count: ``devices`` counts the positions,
+``processes`` the processes (``jax.process_count()`` in the JAX app: 1
+when one process drives them), and the CSV's first column is the device
+count, as the JAX app's; rank 0 prints it. The reductions run over every
+position's block (across processes each rank's, combined over gloo); the
+guarded engine's flags run over the mesh state, as jacobi3d's do, its
+health verdict every rank's; checkpoints across processes are skipped and
+counted, as in both packages.
 
 The schedule is the JAX app's: one untimed warm-up chunk that advances the
 state, then chunks of ``chunk`` iterations (``iters`` rounded up to a chunk
@@ -76,7 +87,8 @@ dumps of the 8 fields (``DistributedDomain.write_paraview``): ``init_<i>.txt``
 and ``final_<i>.txt`` per block, under ``--prefix``.
 
 Not carried over yet (ROADMAP.md queue A item 5): positions on distinct
-GPUs (a mesh names one card) and ``--trivial`` / ``--random`` placement.
+GPUs (a mesh names one card), ``--trivial`` / ``--random`` placement, and
+``--autotune`` across processes (realize raises: the planner's sub-item).
 Non-periodic boundaries are ``astaroth.boundconds``, which the app
 never calls, as in the JAX package and the reference.
 """
@@ -86,6 +98,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -98,8 +111,9 @@ from ..astaroth.integrate import FIELDS, make_astaroth_step
 from ..astaroth.reductions import Reductions
 from ..fault import (FAULT_RC, FaultPlan, HealthGuard, RecoveryExhausted, RecoveryPolicy,
                      chunk_plan, run_guarded)
-from ..geometry import Dim3, prime_factors
-from ..parallel import Method
+from ..geometry import Dim3, Rect3, prime_factors
+from ..parallel import Method, distributed
+from ..parallel.exchange import position_blocks
 from ..utils import logging as log
 from ..utils import timer
 from ..utils.statistics import Statistics
@@ -125,19 +139,59 @@ def decompose_zyx(p: int) -> Dim3:
 def init_fields(dd: DistributedDomain, handles: dict, info, dtype: str) -> None:
     """The reference init (astaroth.cu:493-520) into the domain's curr
     tensors: hash-random entropy and vector potential, constant 0.5 lnrho,
-    radial-explosion velocity."""
-    size = dd.size
+    radial-explosion velocity. The init is a function of the global
+    coordinates, so each block is made alone from its own cells, bit-equal
+    to its slice of the global arrays: every block of the domain, or of a
+    mesh the blocks of this process's positions, in z slabs spread over the
+    cores this process has of its host (numpy's array work releases the
+    interpreter lock)."""
     np_dtype = np.dtype(dtype)
     ds = (info.real_params["AC_dsx"], info.real_params["AC_dsy"],
           info.real_params["AC_dsz"])
-    h = hash_init(size, dtype=np_dtype)  # coordinate-determined, same per field
-    for name in ("entropy", "ax", "ay", "az"):
-        dd.set_curr_global(handles[name], h)
-    dd.set_curr_global(handles["lnrho"], const_init(size, 0.5, dtype=np_dtype))
-    uux, uuy, uuz = radial_explosion_init(size, ds=ds, dtype=np_dtype)
-    dd.set_curr_global(handles["uux"], uux)
-    dd.set_curr_global(handles["uuy"], uuy)
-    dd.set_curr_global(handles["uuz"], uuz)
+    spec, mesh = dd.spec, dd.mesh
+    order = list(np.ndindex(spec.dim.z, spec.dim.y, spec.dim.x))
+    if mesh is None:  # the stacked (bz, by, bx, pz, py, px) blocks
+        places, own, ranks = [(None, b) for b in order], None, 1
+    else:  # each position's (cz, cy, cx, pz, py, px) stack
+        places, own = position_blocks(spec, mesh), set(mesh.local_positions())
+        host = mesh.hosts[mesh.local_positions()[0]]
+        ranks = len({o for o, h in zip(mesh.owners, mesh.hosts) if h == host})
+    blocks = [((ix, iy, iz), p, j) for (iz, iy, ix), (p, j) in zip(order, places)
+              if own is None or p in own]
+    cores = max(1, (os.cpu_count() or 1) // ranks)
+    slabs = -(-cores // len(blocks))
+    off = spec.compute_offset()
+    jobs = []
+    for pos, p, j in blocks:
+        lo, n = spec.block_origin(pos), spec.block_size(pos)
+        step = -(-n.z // slabs)
+        for z0 in range(0, n.z, step):
+            z1 = min(n.z, z0 + step)
+            region = Rect3(Dim3(lo.x, lo.y, lo.z + z0), Dim3(lo.x + n.x, lo.y + n.y, lo.z + z1))
+            cells = (slice(off.z + z0, off.z + z1), slice(off.y, off.y + n.y),
+                     slice(off.x, off.x + n.x))
+            jobs.append((p, j, region, cells))
+
+    def fill(job):
+        p, j, region, cells = job
+        for name, arr in init_arrays(dd.size, ds, np_dtype, region).items():
+            stack = dd.get_curr(handles[name])
+            stack = stack if p is None else stack[p]
+            stack[j][cells].copy_(torch.from_numpy(arr))
+
+    with ThreadPoolExecutor(max_workers=min(cores, len(jobs))) as pool:
+        for f in [pool.submit(fill, job) for job in jobs]:
+            f.result()
+
+
+def init_arrays(size, ds, np_dtype, region=None) -> dict:
+    """The 8 fields' init over the global grid of ``size``, or over
+    ``region`` of it (global cells), by name."""
+    h = hash_init(size, dtype=np_dtype, region=region)  # the same per field
+    uux, uuy, uuz = radial_explosion_init(size, ds=ds, dtype=np_dtype, region=region)
+    return {"entropy": h, "ax": h, "ay": h, "az": h,
+            "lnrho": const_init(size, 0.5, dtype=np_dtype, region=region),
+            "uux": uux, "uuy": uuy, "uuz": uuz}
 
 
 KERNEL_VARIANTS = ("shift", "ring")
@@ -159,7 +213,8 @@ def make_domain(info, dtype: str = "float64", device=None, partition=None,
         raise ValueError("pass devices= alone, not with device= or partition=")
     devices = list(devices) if devices is not None else None
     if devices:
-        d3 = decompose_zyx(len(devices))
+        # across processes every rank's positions (a collective)
+        d3 = decompose_zyx(distributed.position_count(len(devices)))
     else:
         d3 = Dim3.of(partition) if partition is not None else decompose_zyx(1)
     size = Dim3(info.int_params["AC_nx"] * d3.x, info.int_params["AC_ny"] * d3.y,
@@ -250,6 +305,11 @@ def run(
             "port has only on the CPU: on a CUDA device the substep is the hand-written "
             "kernel (csrc/astaroth_substep.cu), and the plain PyTorch version runs only on "
             "CPU tensors; pass device='cpu' for the unfused path")
+    if distributed.process_count() > 1 and devices is None:
+        # every rank names its positions: the given device, or its default
+        # ones, as jacobi3d does
+        devices = [device] if device is not None else distributed.default_positions()
+        device = None
     info = load(conf, nx)
     dd, handles = make_domain(info, dtype, device, partition, batch_quantities, devices,
                               method, autotune=autotune, plan_db=plan_db)
@@ -304,8 +364,13 @@ def run(
 
         with timer.timed("astaroth.warmup"):
             if ckpt_dir:
-                # a checkpointed run is step-exact: warm up on copies
-                get_step(chunk)(_copy(curr), _copy(nxt))
+                # a checkpointed run is step-exact: warm up on the state's
+                # own buffers (across processes the exchange moves only the
+                # buffers realize exported), then put the state back
+                saved = _copy(curr), _copy(nxt)
+                get_step(chunk)(curr, nxt)
+                for st, kept in zip((curr, nxt), saved):
+                    _put_back(st, kept)
             else:
                 curr, nxt = get_step(chunk)(curr, nxt)
             hard_sync(dev)
@@ -405,8 +470,9 @@ def run(
     cells = dd.size.flatten()
     result = {
         # a resident run stands in for the JAX app's run over one device a
-        # block; a mesh run is that run, one process driving its positions
-        "processes": 1 if dd.mesh is not None else dd.spec.num_blocks(),
+        # block; a mesh run is that run, its processes driving its positions
+        "processes": (distributed.process_count() if dd.mesh is not None
+                      else dd.spec.num_blocks()),
         "devices": len(dd.mesh) if dd.mesh is not None else 1,
         "partition": dd.spec.dim,
         "nx": info.int_params["AC_nx"],
@@ -446,12 +512,23 @@ def csv_row(r: dict) -> str:
 
 
 def _copy(state: dict) -> dict:
-    """A copy of a field dict (tensors, or a mesh's lists of them)."""
-    return {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
-            for k, v in state.items()}
+    """A copy of a field dict (tensors, or a mesh's lists of them, None at
+    another process's position)."""
+    return {k: [None if t is None else t.clone() for t in v] if isinstance(v, list)
+            else v.clone() for k, v in state.items()}
+
+
+def _put_back(state: dict, kept: dict) -> None:
+    """Copy :func:`_copy`'s ``kept`` back into ``state``'s tensors."""
+    for k, v in state.items():
+        for t, c in (zip(v, kept[k]) if isinstance(v, list) else ((v, kept[k]),)):
+            if t is not None:
+                t.copy_(c)
 
 
 def main(argv: Optional[list] = None) -> int:
+    # a launch of several processes (apps/launch_multiprocess) joins its group
+    distributed.maybe_init_from_env()
     p = argparse.ArgumentParser(description="Astaroth MHD mini-app (one GPU; a mesh of "
                                             "block positions with --devices)")
     p.add_argument("iters", type=int, nargs="?", default=10)
@@ -474,7 +551,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--devices", type=str, default=None,
                    help="comma list of torch devices, one block position each, repeats "
                         "allowed (e.g. cuda:0,cuda:0): the domain grows by "
-                        "decompose_zyx(count), exchanged by remote-dma")
+                        "decompose_zyx(count), exchanged by axis-composed; under "
+                        "launch_multiprocess this rank's positions")
     p.add_argument("--no-pallas", action="store_true",
                    help="the unfused substep path: the plain PyTorch version on the CPU; "
                         "the card has no unfused path, so there it raises")
@@ -517,7 +595,8 @@ def main(argv: Optional[list] = None) -> int:
     except RecoveryExhausted as e:
         log.error(f"astaroth: {e}")
         return FAULT_RC
-    print(csv_row(r))
+    if distributed.process_index() == 0:
+        print(csv_row(r))
     log.info(f"{r['dtype']} on {r['device']}: {r['iter_trimean_s'] * 1e3:.4f} ms/iter, "
              f"{r['mcells_per_s']:.1f} Mcells/s, kernel variant {r['kernel_variant']}, "
              f"quantity batching {'on' if r['batch_quantities'] else 'off'}")

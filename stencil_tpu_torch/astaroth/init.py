@@ -7,7 +7,10 @@ the reference's init kernels
 avalanche per coordinate), constant, sine wave, and the radial-explosion
 velocity shell. All produce global [z, y, x] numpy arrays to be scattered
 with ``shard_blocks``; values are bit-deterministic functions of the global
-coordinate, so any partition yields the same field.
+coordinate, so any partition yields the same field. ``region`` (a
+``geometry.Rect3`` of global cells, lo inclusive, hi exclusive) makes the
+same values over that box alone, bit-equal to slicing the global array:
+across processes each rank makes its own blocks.
 """
 
 from __future__ import annotations
@@ -25,17 +28,24 @@ def _hash64(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> np.uint64(31))
 
 
-def hash_init(global_size, dtype=np.float64) -> np.ndarray:
-    """'Bad' deterministic random in [-1, 1] from hashed coordinates
-    (reference: astaroth.cu:92-114)."""
+def _axes(global_size, region, dtype):
+    """The sparse (z, y, x) coordinate axes of ``region`` (default: the
+    whole grid) in ``dtype``."""
     g = Dim3.of(global_size)
-    z, y, x = np.meshgrid(
-        np.arange(g.z, dtype=np.uint64),
-        np.arange(g.y, dtype=np.uint64),
-        np.arange(g.x, dtype=np.uint64),
+    lo, hi = (Dim3(0, 0, 0), g) if region is None else (region.lo, region.hi)
+    return np.meshgrid(
+        np.arange(lo.z, hi.z, dtype=dtype),
+        np.arange(lo.y, hi.y, dtype=dtype),
+        np.arange(lo.x, hi.x, dtype=dtype),
         indexing="ij",
         sparse=True,
     )
+
+
+def hash_init(global_size, dtype=np.float64, region=None) -> np.ndarray:
+    """'Bad' deterministic random in [-1, 1] from hashed coordinates
+    (reference: astaroth.cu:92-114)."""
+    z, y, x = _axes(global_size, region, np.uint64)
     h = _hash64(x) ^ _hash64(y) ^ _hash64(z)
     # float32 quotient then double shift, like the reference's T=double path
     val = (h.astype(np.float32) / np.float32(np.uint64(0xFFFFFFFFFFFFFFFF))).astype(
@@ -44,9 +54,9 @@ def hash_init(global_size, dtype=np.float64) -> np.ndarray:
     return ((val - 0.5) * 2).astype(dtype)
 
 
-def const_init(global_size, value, dtype=np.float64) -> np.ndarray:
+def const_init(global_size, value, dtype=np.float64, region=None) -> np.ndarray:
     """(reference: astaroth.cu:117-133)"""
-    g = Dim3.of(global_size)
+    g = Dim3.of(global_size) if region is None else region.hi - region.lo
     return np.full((g.z, g.y, g.x), value, dtype=dtype)
 
 
@@ -66,6 +76,7 @@ def radial_explosion_init(
     width=0.2,
     origin=None,
     dtype=np.float64,
+    region=None,
 ):
     """Gaussian velocity shell pointing radially outward; returns
     (uux, uuy, uuz) global arrays (reference: astaroth.cu:136-245).
@@ -74,17 +85,10 @@ def radial_explosion_init(
     then converts back; the same result comes directly from the unit radial
     vector: uu_i = uu_radial * (r_i / |r|).
     """
-    g = Dim3.of(global_size)
     dsx, dsy, dsz = ds
     if origin is None:
         origin = (0.01, 32 * dsy, 50 * dsz)  # reference: astaroth.cu:150
-    z, y, x = np.meshgrid(
-        np.arange(g.z, dtype=dtype),
-        np.arange(g.y, dtype=dtype),
-        np.arange(g.x, dtype=dtype),
-        indexing="ij",
-        sparse=True,
-    )
+    z, y, x = _axes(global_size, region, dtype)
     xx = x * dsx - origin[0]
     yy = y * dsy - origin[1]
     zz = z * dsz - origin[2]

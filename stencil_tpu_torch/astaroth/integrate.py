@@ -10,8 +10,9 @@ position, or each position's stack of residents; uniform or uneven),
 exchanged by the domain's ``HaloExchange`` (on a mesh of one block a
 position AXIS_COMPOSED's copies between positions or REMOTE_DMA's B6 axis
 carrier over the 8 fields, B4 on an axis of one position; over more blocks
-than positions REMOTE_DMA; across processes the step raises, ROADMAP.md
-queue A item 5). Per iteration,
+than positions REMOTE_DMA). Over positions of several processes each rank
+steps its own positions (the field dicts hold None at the others'); see
+"Across processes" below. Per iteration,
 in the reference's swap-per-iteration mode, one exchange fills the halos,
 three RK3 stages run, then the buffers swap once
 (``stencil_tpu/astaroth/integrate.py:413-418``). Each stage is one launch
@@ -46,6 +47,28 @@ shells, on uniform partitions of one block a position.
 its own halos. Per iteration the tenant fill of ``curr`` (B4's tenant form,
 x -> y -> z, 3 launches for the 8 fields) and the 3 stages, each one launch
 of B5's tenant form over every tenant, then one swap.
+
+Across processes. Every stage launch covers this rank's positions
+(``positions=`` of ``position_compute_tasks``), and the exchange fills
+their halos: on the CPU by gloo, on the card by pulls through CUDA IPC
+after the handshakes of ``parallel/ipc.PhaseOrder`` (one an axis phase with
+that axis's ring neighbours for AXIS_COMPOSED and B6, one with every rank
+the messages cross to for B7). A stage writes ``out``, whose compute cells
+the neighbours pulled in the previous exchange (it was ``curr`` then). In
+the serial and swap orders the exchange before the stage holds a handshake
+with every rank that pulled from this one (its ring neighbours on each
+axis that crosses), recorded after that pull, so the stage waits for it
+and needs nothing more. In the hoisted order (the overlap step and the
+fused loop) stage 0 comes before the exchange, so it follows a handshake of
+its own with every rank the messages cross to
+(``PhaseOrder.before_all``, as jacobi's sweep before its exchange). That
+handshake also follows this iteration's writes of ``curr``'s compute cells
+(the previous stages), which the exchange then reads. Handshakes an
+iteration: the crossing axes in the serial order, three times that in the
+swap order, one more in the hoisted order, and two in the fused loop. Two
+exchanges of one buffer back to back (the app's exchange alone after a
+chunk, then a serial iteration's) rewrite each halo with the value it
+already holds, so a neighbour's read of it in between is harmless.
 
 The in buffers stay constant across the three stages of an iteration, so
 all three compute the same rate field; the three kernel passes are kept
@@ -160,7 +183,9 @@ def make_fused_astaroth_loop(ex, info: AcMeshInfo, iters: int = 1, dt: float = 1
     moves), stage 0 again over every block's exterior shells, stages 1 and
     2, one swap. In place, like :func:`make_astaroth_step`, whose overlap
     step it equals cell for cell. Uniform partitions of one block a
-    position only, as in the JAX package (ValueError otherwise)."""
+    position only, as in the JAX package (ValueError otherwise); across
+    processes B7's cross-process form, each rank's stages over its own
+    positions (see the module docstring)."""
     spec, r = ex.spec, ex.spec.radius
     if ex.method != Method.REMOTE_DMA or not ex.fused:
         raise ValueError("make_fused_astaroth_loop needs HaloExchange(Method.REMOTE_DMA, "
@@ -183,15 +208,18 @@ def _make_loop(ex, info: AcMeshInfo, dt: float, iters: int, order: str):
     (``full``) or exterior shells (``shells``) of the domain's stacks, or
     on a mesh of its per-position lists."""
     spec, inv_ds, c = ex.spec, inv_ds_of(info), Constants.from_info(info)
-    if ex.on_mesh and ex.mesh.multi_process:
-        raise NotImplementedError("Astaroth over positions of several processes: ROADMAP.md "
-                                  "queue A item 5")
     if ex.on_mesh:
+        # this process's positions (every position in one process)
+        locs = ex.mesh.local_positions()
         kernel = substep_positions
-        full = position_compute_tasks(spec, ex.resident)
-        shells = position_shell_tasks(spec, ex.resident)
+        full = position_compute_tasks(spec, ex.resident, locs)
+        shells = position_shell_tasks(spec, ex.resident, locs)
     else:
         kernel, full, shells = substep_tasks, compute_tasks(spec), shell_tasks(spec)
+    # across processes on the card: the hoisted stage 0 overwrites the
+    # buffer the neighbours pulled from in the previous exchange, and no
+    # handshake of that exchange orders it after their pulls
+    handshake = ex.on_mesh and ex.mesh.multi_process and ex.peers is not None
 
     def run(s, curr, out, tasks):
         kernel(tuple(curr[k] for k in FIELDS), tuple(out[k] for k in FIELDS), spec, tasks, c,
@@ -207,6 +235,8 @@ def _make_loop(ex, info: AcMeshInfo, dt: float, iters: int, order: str):
         if order == "hoisted":
             # stage 0 from the pre-exchange halos, then its shells again
             # from the exchanged ones
+            if handshake:
+                ex.peers.order.before_all()
             run(0, curr, out, full)
             ex(curr)
             run(0, curr, out, shells)

@@ -263,7 +263,9 @@ class FaultPlan:
         x0 = off.x + rng.randrange(sz.x - c + 1)
         y0 = off.y + rng.randrange(sz.y - c + 1)
         z0 = off.z + rng.randrange(sz.z - c + 1)
-        _block(arr, bi, d)[z0:z0 + c, y0:y0 + c, x0:x0 + c] = val
+        blk = _block(arr, bi, d)
+        if blk is not None:  # None: another process's position, which poisons it
+            blk[z0:z0 + c, y0:y0 + c, x0:x0 + c] = val
         self._record(inj, quantity=name, cells=c ** 3,
                      block=list(bi), origin=[x0, y0, z0])
         log.warn(f"fault: {inj.kind}@{inj.step} burst {c}^3 cells into "
@@ -302,7 +304,9 @@ class FaultPlan:
             ysl = slice(off.y + sz.y - r, off.y + sz.y)
         else:
             xsl = slice(off.x + sz.x - r, off.x + sz.x)
-        _block(state[name], bi, d)[zsl, ysl, xsl] = float("nan")
+        blk = _block(state[name], bi, d)
+        if blk is not None:
+            blk[zsl, ysl, xsl] = float("nan")
         self._record(inj, quantity=name, block=list(bi),
                      axis=list(axis), radius=r)
         log.warn(f"fault: halo@{inj.step} corrupted the boundary slab of "
@@ -313,9 +317,12 @@ class FaultPlan:
 def _block(arr, bi, dim):
     """Block ``bi`` (x, y, z) of a quantity as a ``(pz, py, px)`` view: of a
     stacked ``(bz, by, bx, pz, py, px)`` tensor, or of a mesh's list of
-    ``(1, 1, 1, pz, py, px)`` blocks (flat position order, x fastest)."""
+    ``(1, 1, 1, pz, py, px)`` blocks (flat position order, x fastest;
+    None at another process's position: every rank draws the same block,
+    and its owner writes it)."""
     if isinstance(arr, (list, tuple)):
-        return arr[bi[0] + dim.x * (bi[1] + dim.y * bi[2])][0, 0, 0]
+        b = arr[bi[0] + dim.x * (bi[1] + dim.y * bi[2])]
+        return None if b is None else b[0, 0, 0]
     return arr[bi[2], bi[1], bi[0]]
 
 

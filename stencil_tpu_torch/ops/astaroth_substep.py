@@ -24,7 +24,9 @@ The port's counterpart of ``stencil_tpu.ops.pallas_astaroth``:
   position (:func:`position_compute_tasks`, :func:`position_shell_tasks`;
   :func:`position_table`), and one launch takes up to
   :data:`MAX_POSITIONS` positions' pointers and tensor maps
-  (:func:`position_launches` cuts a larger mesh);
+  (:func:`position_launches` cuts a larger mesh); across processes the
+  lists hold None at the other ranks' positions, and a rank's tasks and
+  pointers are its own positions' (``positions=`` of the task lists);
 - :func:`substep_plain`, :func:`substep_tasks_plain` and
   :func:`substep_positions_plain` are the same stage
   through ``astaroth.fd`` and ``astaroth.equations`` in PyTorch, over z
@@ -52,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -296,19 +298,24 @@ def position_block(spec: GridSpec, resident, position: int, j: int) -> int:
     return ix + d.x * (iy + d.y * iz)
 
 
-def position_compute_tasks(spec: GridSpec, resident) -> Tuple[PositionTask, ...]:
+def position_compute_tasks(spec: GridSpec, resident,
+                           positions: Optional[Sequence[int]] = None) -> Tuple[PositionTask, ...]:
     """Every position's blocks' compute regions, each at its own extent,
-    position by position: a stage over a mesh."""
+    position by position: a stage over a mesh. ``positions`` (flat mesh
+    indices) keeps those positions only: across processes, a rank's own."""
     r, m = Dim3.of(resident), position_mesh(spec, resident)
+    ps = range(m.flatten()) if positions is None else positions
     return tuple(PositionTask(p, j, block_compute(spec, position_block(spec, r, p, j)))
-                 for p in range(m.flatten()) for j in range(r.flatten()))
+                 for p in ps for j in range(r.flatten()))
 
 
-def position_shell_tasks(spec: GridSpec, resident) -> Tuple[PositionTask, ...]:
+def position_shell_tasks(spec: GridSpec, resident,
+                         positions: Optional[Sequence[int]] = None) -> Tuple[PositionTask, ...]:
     """Every position's blocks' exterior shells (6 a block at radius 3),
-    position by position: the overlap iteration's stage-0 re-integration."""
+    position by position: the overlap iteration's stage-0 re-integration
+    (``positions`` as in :func:`position_compute_tasks`)."""
     out = []
-    for p, j, c in position_compute_tasks(spec, resident):
+    for p, j, c in position_compute_tasks(spec, resident, positions):
         out.extend(PositionTask(p, j, r)
                    for r in exterior_regions(c, interior_region(c, spec.radius)))
     return tuple(out)
@@ -573,26 +580,32 @@ substep_tasks.shells = 0
 
 
 def _check_positions(curr8, out8, spec: GridSpec, stage: int) -> Tuple[torch.device, Dim3]:
-    """8 + 8 lists of one ``(cz, cy, cx, pz, py, px)`` stack per position,
-    every stack of one shape, dtype and device, each its own buffer; returns
-    the device and the blocks a position holds."""
+    """8 + 8 lists of one ``(cz, cy, cx, pz, py, px)`` stack per position
+    (None at another process's position, in every list alike), every stack
+    of one shape, dtype and device, each its own buffer; returns the device
+    and the blocks a position holds."""
     if len(curr8) != NF or len(out8) != NF:
         raise ValueError(f"substep_positions takes {NF} curr and {NF} out lists "
                          f"({', '.join(FIELDS)})")
     npos = len(curr8[0])
     if npos < 1 or any(len(f) != npos for f in (*curr8, *out8)):
         raise ValueError("substep_positions takes one stack a position in every list")
-    first = curr8[0][0]
+    here = present_positions(curr8[0])
+    if not here or any((f[p] is None) != (p not in here) for f in (*curr8, *out8)
+                       for p in range(npos)):
+        raise ValueError("substep_positions takes a stack at each position of this process "
+                         "in every list, and None at every other process's position")
+    first = curr8[0][here[0]]
     if first.dim() != 6:
         raise ValueError(f"a position's stack is (cz, cy, cx, pz, py, px), not "
                          f"{tuple(first.shape)}")
     dev = None
-    for p in range(npos):
+    for p in here:
         dev = _check([f[p] for f in curr8], [f[p] for f in out8], spec, stage, stacks=True)
         for t in (*(f[p] for f in curr8), *(f[p] for f in out8)):
             if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
                 raise ValueError("every position's stacks share one shape, dtype and device")
-    if len({t.data_ptr() for f in (*curr8, *out8) for t in f}) != 2 * NF * npos:
+    if len({f[p].data_ptr() for f in (*curr8, *out8) for p in here}) != 2 * NF * len(here):
         raise ValueError("every position's curr and out stacks must be distinct buffers")
     resident = Dim3(first.shape[2], first.shape[1], first.shape[0])
     if position_mesh(spec, resident).flatten() != npos:
@@ -601,15 +614,26 @@ def _check_positions(curr8, out8, spec: GridSpec, stage: int) -> Tuple[torch.dev
     return dev, resident
 
 
-def _check_position_tasks(tasks, spec: GridSpec, resident: Dim3, stage: int) -> None:
-    """:func:`_check_tasks` position by position; at stages 1-2 each task
-    its block's whole compute region."""
+def present_positions(stacks) -> Tuple[int, ...]:
+    """The positions whose stack is present in a list of per-position
+    stacks: all of them in one process, a rank's own across processes."""
+    return tuple(p for p, t in enumerate(stacks) if t is not None)
+
+
+def _check_position_tasks(tasks, spec: GridSpec, resident: Dim3, stage: int,
+                          here: Sequence[int]) -> None:
+    """:func:`_check_tasks` position by position, each task at a position of
+    ``here`` (the positions whose stacks are present); at stages 1-2 each
+    task its block's whole compute region."""
     if not tasks:
         raise ValueError("substep_positions needs at least one task")
     npos = position_mesh(spec, resident).flatten()
     for p in {t.position for t in tasks}:
         if not 0 <= p < npos:
             raise ValueError(f"task position {p} outside the mesh's {npos} positions")
+        if p not in here:
+            raise ValueError(f"task position {p} is another process's: a launch takes the "
+                             "tasks of this process's positions only")
         _check_tasks([(t.block, t.rect) for t in tasks if t.position == p], spec,
                      resident.flatten(), 0)
     if stage and (len({(t.position, t.block) for t in tasks}) != len(tasks)
@@ -633,9 +657,9 @@ def _launch_positions(curr8, out8, spec: GridSpec, tasks, c, inv_ds, stage: int,
     (``_native.kept``)."""
     prm = _coefs(c, inv_ds, stage, dt)
     p = spec.padded()
-    item = curr8[0][0].element_size()
-    npos = len(curr8[0])
-    aligned = tuple(all(f[q].data_ptr() % 16 == 0 for f in curr8) for q in range(npos))
+    item = curr8[0][tasks[0].position].element_size()
+    aligned = tuple(curr8[0][q] is not None and all(f[q].data_ptr() % 16 == 0 for f in curr8)
+                    for q in range(len(curr8[0])))
     bif = substep_blocks_in_flight(dev, item, stage, positions=True)
 
     def make():
@@ -666,15 +690,17 @@ def substep_positions(curr8, out8, spec: GridSpec, tasks, c, inv_ds, stage: int,
     :func:`position_compute_tasks` or :func:`position_shell_tasks`) of a
     mesh of block positions: ``curr8`` and ``out8`` are 8 lists (ordered
     like :data:`FIELDS`) of one ``(cz, cy, cx, pz, py, px)`` stack per
-    position, each its own allocation; each task's cells of ``out8`` are
-    updated in place from ``curr8`` (returns ``out8``). One launch covers
-    every position, one per :data:`MAX_POSITIONS` positions or
+    position, each its own allocation (None at another process's position:
+    across processes the tasks are a rank's own positions', and the launch
+    takes only their pointers); each task's cells of ``out8`` are updated
+    in place from ``curr8`` (returns ``out8``). One launch covers every
+    position of the tasks, one per :data:`MAX_POSITIONS` positions or
     :data:`MAX_TASKS` tasks beyond. A shell task runs at stage 0 only. CPU
     tensors take :func:`substep_positions_plain`; CUDA tensors launch
     ``csrc/astaroth_substep.cu`` or raise."""
     dev, resident = _check_positions(curr8, out8, spec, stage)
     tasks = tuple(PositionTask(*t) for t in tasks)
-    _check_position_tasks(tasks, spec, resident, stage)
+    _check_position_tasks(tasks, spec, resident, stage, present_positions(curr8[0]))
     if dev.type == "cpu":
         return substep_positions_plain(curr8, out8, spec, tasks, c, inv_ds, stage, dt)
     n = _launch_positions(curr8, out8, spec, tasks, c, inv_ds, stage, dt, dev,

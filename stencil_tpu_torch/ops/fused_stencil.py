@@ -787,7 +787,7 @@ class FusedRemoteDmaExchange:
         mesh = self.mesh
         locs = mesh.local_positions()
         groups = [keys for _dt, keys in dtype_groups({k: v[locs[0]] for k, v in state.items()})]
-        dev = state[groups[0][0]][locs[0]].device
+        dev = mesh.device  # this process's positions' one device
         if dev.type == "cuda":
             if self.peers is None:
                 raise RuntimeError("a mesh spread over processes exchanges on the card through "

@@ -564,7 +564,7 @@ class RemoteDmaExchange:
 
         mesh, spec = self.mesh, self.spec
         locs = mesh.local_positions()
-        dev = state[next(iter(state))][locs[0]].device
+        dev = mesh.device  # this process's positions' one device
         groups = [keys for _dt, keys in dtype_groups({k: v[locs[0]] for k, v in state.items()})]
         if not self.batch:
             groups = [[k] for keys in groups for k in keys]

@@ -243,7 +243,6 @@ class HaloExchange:
         # counted as each is issued
         self.last_message_count = 0
         self.last_message_bytes = 0
-        self._loops = {}
         self._remote = None
         if self.mesh is not None and method != Method.REMOTE_DMA:
             # the messages as copies between positions
@@ -464,15 +463,16 @@ class HaloExchange:
 
     def make_loop(self, iters: int):
         """``loop(state) -> state`` running ``iters`` back-to-back exchanges
-        (reference: bin/exchange_weak.cu:168-177)."""
-        if iters not in self._loops:
-            def loop(state):
-                for _ in range(iters):
-                    state = self(state)
-                return state
+        (reference: bin/exchange_weak.cu:168-177). Not kept here: a loop
+        the exchange held would hold the exchange in a cycle, and with it
+        its blocks (across processes on the card, every exported one) until
+        the cycle collector ran."""
+        def loop(state):
+            for _ in range(iters):
+                state = self(state)
+            return state
 
-            self._loops[iters] = loop
-        return self._loops[iters]
+        return loop
 
     def bytes_logical(self, itemsizes: Sequence[int]) -> int:
         """Total halo bytes delivered per exchange (reference-parity count)."""

@@ -127,12 +127,15 @@ def test_no_compute_and_resume_over_positions(tmp_path):
     assert resumed["iters_run"] == 1
 
 
-def test_app_mesh_refusals():
+def test_app_mesh_refusals(monkeypatch):
     """``devices`` with ``partition`` or ``device`` raise. The app's default
     method over ``devices`` is now the JAX app's, AXIS_COMPOSED (copies
-    between positions), and its fields equal the REMOTE_DMA run's; over
-    positions of several processes the step raises (ROADMAP.md queue A
-    item 5)."""
+    between positions), and its fields equal the REMOTE_DMA run's. Over
+    positions of several processes the step runs on this rank's positions:
+    rank 0's step of a mesh split over 2 ranks, its exchange's messages
+    already in the halos, equals the one-process step there and leaves the
+    other rank's positions alone (the spawn across processes is
+    ``test_torch_astaroth_multiprocess.py``)."""
     with pytest.raises(ValueError, match="devices= alone"):
         tapp.run(devices=CPU8, method=Method.REMOTE_DMA, nx=8, iters=1, partition=(2, 2, 2))
     with pytest.raises(ValueError, match="devices= alone"):
@@ -149,8 +152,27 @@ def test_app_mesh_refusals():
     from stencil_tpu_torch.parallel.distributed import Position
 
     mesh = DeviceMesh((2, 2, 2), [Position(i, i // 4, "h", "cpu") for i in range(8)])
-    assert mesh.multi_process
-    ex = HaloExchange(GridSpec(Dim3(16, 16, 16), Dim3(2, 2, 2), Radius.constant(3)),
-                      Method.AXIS_COMPOSED, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="several processes.*queue A item 5"):
-        make_astaroth_step(ex, tapp.load(nx=8))
+    assert mesh.multi_process and mesh.local_positions() == (0, 1, 2, 3)
+    spec = GridSpec(Dim3(16, 16, 16), Dim3(2, 2, 2), Radius.constant(3))
+    ex = HaloExchange(spec, Method.AXIS_COMPOSED, mesh=mesh)
+    moved = []
+    # the messages over gloo: already in the halos (the one-process exchange below)
+    monkeypatch.setattr(type(ex._remote), "_gloo_round",
+                        lambda self, state, keys, rnd: moved.append(rnd.step))
+    one_ex = HaloExchange(spec, Method.AXIS_COMPOSED, mesh=DeviceMesh((2, 2, 2), CPU8))
+    curr = {k: split_positions(torch.from_numpy(np.random.RandomState(i).rand(
+        *spec.stacked_shape_zyx()) * 0.1 + (0.5 if k == "lnrho" else 0.0)), spec, one_ex.mesh)
+            for i, k in enumerate(FIELDS)}
+    one_ex(curr)
+    nxt = {k: [torch.zeros_like(b) for b in v] for k, v in curr.items()}
+    want = make_astaroth_step(one_ex, tapp.load(nx=8), dt=1e-5, overlap=False, dtype="float64")(
+        {k: [b.clone() for b in v] for k, v in curr.items()},
+        {k: [b.clone() for b in v] for k, v in nxt.items()})[0]
+    mine = {k: [b if i < 4 else None for i, b in enumerate(v)] for k, v in curr.items()}
+    got = make_astaroth_step(ex, tapp.load(nx=8), dt=1e-5, overlap=False, dtype="float64")(
+        mine, {k: [b if i < 4 else None for i, b in enumerate(v)] for k, v in nxt.items()})[0]
+    assert moved == [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]
+    for k in FIELDS:
+        assert got[k][4:] == [None] * 4
+        for i in range(4):
+            assert torch.equal(got[k][i], want[k][i]), (k, i)

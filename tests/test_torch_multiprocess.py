@@ -9,7 +9,8 @@ on each rank's records), the exchange of ``tests/_mp_worker.py``'s config
 (24x20x16, r2, the fp32 coordinate pattern) by REMOTE_DMA with each rank
 checking its own halos, a mixed fp32 + fp64 dict through a bf16 wire on
 an uneven 25x20x16, the fused exchange (B7) over gloo of the pattern and
-of a mixed dict through bf16, the refusals, and jacobi3d at 64^3. Rank 0 gathers
+of a mixed dict through bf16, the refusals, Astaroth over one position a
+rank, and jacobi3d at 64^3. Rank 0 gathers
 every block, halos included, and writes them to ``<out>``; the tests hold
 them bit-equal to the JAX package's single-process exchange and jacobi3d.
 The launcher's refusals (a failing rank, the time limit) and the phase
@@ -220,8 +221,8 @@ def worker_exchange(out: str) -> None:
             arrays[f"{name}_{i}"] = _gathered(cd, ch)
 
     # the refusals (more blocks than positions, by REMOTE_DMA and by
-    # AXIS_COMPOSED; autotune; Astaroth); the fused and persistent variants
-    # and AXIS_COMPOSED realize
+    # AXIS_COMPOSED; autotune); the fused and persistent variants and
+    # AXIS_COMPOSED realize, and Astaroth runs
     report["raised"] = {}
     for name, setup in (("fused", lambda d: d.set_fused_exchange(True)),
                         ("persistent", lambda d: d.set_persistent_exchange(True)),
@@ -244,9 +245,12 @@ def worker_exchange(out: str) -> None:
             report["raised"][name] = str(e)
     from stencil_tpu_torch.apps import astaroth as tast
 
+    # Astaroth with one position a rank (the given device): it runs
     try:
-        tast.run(nx=8, iters=1, device="cpu")
+        r = tast.run(nx=8, iters=1, device="cpu", dt=1e-5)
         report["raised"]["astaroth"] = None
+        report["astaroth"] = [r["processes"], r["devices"], tast.csv_row(r).split(",")[:4]]
+        arrays["astaroth_uux"] = r["domain"].get_curr_global(r["handles"]["uux"])
     except NotImplementedError as e:
         report["raised"]["astaroth"] = str(e)
     # jacobi3d by AXIS_COMPOSED at deep_halo 1 and 2, and by DIRECT26
@@ -417,22 +421,29 @@ def test_mixed_dict_bf16_wire_uneven_matches_jax(exchange_run):
 
 
 def test_refusals_checkpoint_skips_and_health(exchange_run):
-    out, reports, _arrays = exchange_run
+    out, reports, arrays = exchange_run
     for rep in reports:
         # the fused and persistent variants realize across processes; more
         # blocks than positions still raises
         assert rep["raised"]["fused"] is None and rep["raised"]["persistent"] is None
         assert "queue B item 6" in rep["raised"]["oversubscribed"]
         # AXIS_COMPOSED realizes across processes; over more blocks than
-        # positions it raises, and so does Astaroth
+        # positions it raises. Astaroth runs, each rank's one position a
+        # block of the (1,1,2) mesh
         assert rep["raised"]["axis-composed"] is None
         assert "queue A item 5" in rep["raised"]["axis-composed-oversubscribed"]
-        assert "queue A item 5" in rep["raised"]["astaroth"]
+        assert rep["raised"]["astaroth"] is None
+        assert rep["astaroth"] == [2, 2, ["2", "8", "8", "8"]]
         assert "queue A item 5" in rep["raised"]["autotune"]
         assert "queue A item 5" in rep["raised_replan"]
         assert rep["restored"] is None
         assert rep["health"] and "nonfinite" in rep["health"].lower()
     assert not os.path.exists(out / "ckpt") or not os.listdir(out / "ckpt")
+    from stencil_tpu_torch.apps import astaroth as tast
+
+    one = tast.run(nx=8, iters=1, devices=["cpu"] * 2, dt=1e-5)
+    np.testing.assert_array_equal(arrays["astaroth_uux"],
+                                  one["domain"].get_curr_global(one["handles"]["uux"]))
 
 
 @pytest.mark.parametrize("case", ["fp32-r2", "mixed-bf16"])
